@@ -1,0 +1,34 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
+
+The same Program IR, layers, executor semantics and serving runtime as
+the JAX package (``paddle_tpu``, the reference), on PyTorch with an
+explicit device: ``Executor()`` runs on ``CUDAPlace(0)``, and CPU runs are
+asked for with ``CPUPlace()``.  The JAX package's Pallas kernels become
+hand-written CUDA kernels (``csrc/``), each beside its plain PyTorch
+version.
+
+Ported so far: the ResNet inference serving path (program IR, scope,
+initializers, the layers and ops ResNet uses, the forward executor with
+bf16 inference AMP, ``serving.Model``/``serving.Server``) and its one
+kernel, the 1x1-convolution matrix product (``ops/conv1x1.py``).
+"""
+
+from . import core
+from .core import (
+    CPUPlace, CUDAPlace, Executor, Program, Scope, default_main_program,
+    default_startup_program, global_scope, program_guard, stack_feeds,
+    pad_batch, unique_name,
+)
+from . import ops  # noqa: F401  (registers every op implementation)
+from . import flags, initializer, layers, models
+from .param_attr import ParamAttr
+from .weights import load_numpy_state
+from . import faults
+
+__all__ = [
+    "core", "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
+    "default_main_program", "default_startup_program", "global_scope",
+    "program_guard", "stack_feeds", "pad_batch", "unique_name", "ops",
+    "flags", "initializer", "layers", "models", "ParamAttr",
+    "load_numpy_state", "faults",
+]

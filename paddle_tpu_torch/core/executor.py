@@ -1,0 +1,338 @@
+"""Executor: runs a Program op by op on torch tensors.
+
+Counterpart of ``paddle_tpu/core/executor.py``, forward path only.  The
+JAX executor traces the whole block into one ``jax.jit`` function; here
+PyTorch runs eagerly, so ``run`` walks the global block through the
+registered op implementations (``run_op``) on the executor's device:
+
+    run(program, feed, fetch_list)
+        feeds -> tensors on device; persistable state from the Scope
+        interpret every op (inference AMP: the whole net in bf16)
+        write back the persistables the ops produced; return fetches
+
+Not ported yet: ``run_steps``, the ``backward`` pseudo-op, the compile
+cache, observability, validation and retry.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .program import Block, Operator, Program, Variable
+from .registry import get_op_impl
+from .scope import Scope, global_scope, to_numpy
+from .types import to_torch_dtype
+
+
+# ---------------------------------------------------------------------------
+# Places
+# ---------------------------------------------------------------------------
+class Place:
+    def device(self) -> torch.device:
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
+
+class CPUPlace(Place):
+    def device(self) -> torch.device:
+        return torch.device("cpu")
+
+
+class CUDAPlace(Place):
+    """One CUDA card.  Asking for it on a machine without one raises:
+    the executor never carries on quietly on the CPU."""
+
+    def __init__(self, index: int = 0):
+        self.index = int(index)
+
+    def device(self) -> torch.device:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "paddle_tpu_torch: no CUDA device is available; pass "
+                "place=CPUPlace() to run on the CPU")
+        if self.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"paddle_tpu_torch: CUDA device {self.index} requested, "
+                f"{torch.cuda.device_count()} present")
+        return torch.device("cuda", self.index)
+
+    def __repr__(self):
+        return f"CUDAPlace({self.index})"
+
+
+# ---------------------------------------------------------------------------
+# Environment: name -> tensor for one run of a block (no sub-blocks yet)
+# ---------------------------------------------------------------------------
+class Env:
+    def __init__(self, block: Block):
+        self.block = block
+        self.local: Dict[str, object] = {}
+
+    def get(self, name: str):
+        try:
+            return self.local[name]
+        except KeyError:
+            raise KeyError(f"variable {name!r} has no value; is it fed, "
+                           f"initialized by the startup program, or "
+                           f"produced by an earlier op?") from None
+
+    def has(self, name: str) -> bool:
+        return name in self.local
+
+    def set(self, name: str, value):
+        self.local[name] = value
+
+
+# ---------------------------------------------------------------------------
+# Context passed to op implementations
+# ---------------------------------------------------------------------------
+class ExecContext:
+    """What an op implementation may consult: the device, test mode, the
+    1x1-conv routing, and per-op random generators."""
+
+    def __init__(self, program: Program, device: torch.device, step: int,
+                 is_test: bool = False,
+                 conv1x1_pallas: Optional[bool] = None):
+        self.program = program
+        self.device = device
+        self.step = step
+        self.is_test = is_test
+        # tri-state 1x1-conv kernel routing (None = defer to the flag);
+        # consulted by ops.nn_ops._conv2d
+        self.conv1x1_pallas = conv1x1_pallas
+        self.op: Optional[Operator] = None
+        self._op_uid = 0
+
+    def generator(self) -> torch.Generator:
+        """A generator for the current op, seeded from (program seed, run
+        counter, op position, op seed attr): reproducible per program and
+        different on every run, like the JAX executor's folded keys."""
+        seed = int(self.op.attrs.get("seed", 0) or 0) if self.op else 0
+        mixed = 0
+        for part in (self.program.random_seed, self.step, self._op_uid, seed):
+            mixed = (mixed * 0x9E3779B97F4A7C15 + int(part) + 1) % (1 << 63)
+        g = torch.Generator(device=self.device)
+        g.manual_seed(mixed)
+        return g
+
+
+# ---------------------------------------------------------------------------
+# Interpreter
+# ---------------------------------------------------------------------------
+def _normalize_outputs(op: Operator, result) -> Dict[str, List]:
+    if result is None:
+        return {}
+    if not isinstance(result, dict):
+        slots = [s for s, ns in op.outputs.items() if ns]
+        if len(slots) != 1:
+            raise ValueError(f"op {op.type}: ambiguous single-value return")
+        result = {slots[0]: result}
+    return {slot: val if isinstance(val, list) else [val]
+            for slot, val in result.items()}
+
+
+def run_op(op: Operator, env: Env, ctx: ExecContext):
+    impl = get_op_impl(op.type)
+    ins = {slot: [env.get(n) for n in names]
+           for slot, names in op.inputs.items() if names}
+    prev_op, ctx.op = ctx.op, op
+    ctx._op_uid += 1
+    try:
+        result = impl(ctx, ins, op.attrs)
+    except Exception as e:
+        # name the op and its operand shapes so an error points at the
+        # graph site, not only at the torch call inside the op
+        shapes = {slot: [tuple(v.shape) if hasattr(v, "shape") else None
+                         for v in vals]
+                  for slot, vals in ins.items()}
+        e.add_note(f"[paddle_tpu_torch] while running op {op.type!r} "
+                   f"(outputs {op.outputs}) with input shapes {shapes}")
+        raise
+    finally:
+        ctx.op = prev_op
+    outs = _normalize_outputs(op, result)
+    for slot, names in op.outputs.items():
+        if not names:
+            continue
+        vals = outs.get(slot)
+        if vals is None:
+            continue
+        if len(vals) != len(names):
+            raise ValueError(
+                f"op {op.type} slot {slot}: produced {len(vals)} values for "
+                f"{len(names)} outputs {names}")
+        for n, v in zip(names, vals):
+            if v is not None:
+                env.set(n, v)
+
+
+def interpret_ops(ops: Sequence[Operator], env: Env, ctx: ExecContext):
+    for op in ops:
+        run_op(op, env, ctx)
+
+
+def _to_bf16(v):
+    if isinstance(v, torch.Tensor) and v.dtype == torch.float32:
+        return v.to(torch.bfloat16)
+    return v
+
+
+# ---------------------------------------------------------------------------
+# Feed staging helpers (host side of the input pipeline)
+# ---------------------------------------------------------------------------
+def stack_feeds(feeds: Sequence[Dict[str, object]]) -> Dict[str, np.ndarray]:
+    """Stack K same-signature host feed dicts along a new leading axis.
+
+    Every dict must carry the same keys with same-shaped values; the
+    result's entries have shape ``[K, ...]``."""
+    if not feeds:
+        raise ValueError("stack_feeds: need at least one feed dict")
+    keys = feeds[0].keys()
+    for f in feeds[1:]:
+        if f.keys() != keys:
+            raise ValueError(
+                f"stack_feeds: feed keys differ: {sorted(keys)} vs "
+                f"{sorted(f.keys())}")
+    return {k: np.stack([np.asarray(f[k]) for f in feeds]) for k in keys}
+
+
+def pad_batch(stacked: Dict[str, np.ndarray], to: int) -> Dict[str, np.ndarray]:
+    """Pad every entry of a stacked feed dict (leading batch axis) up to
+    ``to`` rows by repeating the first row.
+
+    The serving batcher rounds a coalesced batch up to its bucket size
+    with this.  Repeating a REAL row keeps the pad rows inside the
+    model's input distribution; row-wise models make pad rows independent
+    of live rows, which are sliced back out before delivery."""
+    if to < 1:
+        raise ValueError(f"pad_batch: target size must be >= 1, got {to}")
+    out: Dict[str, np.ndarray] = {}
+    for k, v in stacked.items():
+        a = np.asarray(v)
+        if a.ndim < 1:
+            raise ValueError(
+                f"pad_batch: entry {k!r} has no leading batch axis")
+        n = a.shape[0]
+        if n > to:
+            raise ValueError(
+                f"pad_batch: entry {k!r} already has {n} rows > target {to}")
+        if n == to:
+            out[k] = a
+        else:
+            pad = np.broadcast_to(a[:1], (to - n,) + a.shape[1:])
+            out[k] = np.concatenate([a, pad], axis=0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Executor
+# ---------------------------------------------------------------------------
+class Executor:
+    """Run a Program on one device (``place``, default ``CUDAPlace(0)``).
+
+    ``amp=True``: a program with no ``backward`` op (inference) computes
+    entirely in bf16 — fp32 feeds and state are cast on entry, and state
+    keeps its fp32 dtype in the scope.  ``conv1x1_pallas``: per-executor
+    override of the 1x1-conv kernel routing (None defers to the flag; a
+    per-op ``use_pallas`` attr overrides both)."""
+
+    def __init__(self, place: Optional[Place] = None, amp: bool = False,
+                 conv1x1_pallas: Optional[bool] = None):
+        self.place = place if place is not None else CUDAPlace(0)
+        self.device = self.place.device()
+        self.amp = amp
+        self.conv1x1_pallas = conv1x1_pallas
+        self._step = 0
+
+    def _feed_tensor(self, gb: Block, name: str, val) -> torch.Tensor:
+        want = to_torch_dtype(gb.var(name).dtype) if gb.has_var(name) \
+            else None
+        if isinstance(val, torch.Tensor):
+            t = val
+        else:
+            arr = np.asarray(val)
+            if arr.dtype.name == "bfloat16":   # ml_dtypes array from JAX
+                arr = arr.astype(np.float32)
+            if not (arr.flags.c_contiguous and arr.flags.writeable):
+                arr = np.array(arr, order="C")
+            t = torch.from_numpy(arr)
+        t = t.to(self.device, non_blocking=True)
+        if want is not None and t.dtype != want:
+            t = t.to(want)
+        return t
+
+    @staticmethod
+    def _state_keys(program: Program, scope: Scope) -> List[str]:
+        """Persistable vars referenced by the program that exist in scope."""
+        referenced = set()
+        for b in program.blocks:
+            for op in b.ops:
+                referenced.update(op.input_names)
+                referenced.update(op.output_names)
+        keys = []
+        for name in sorted(referenced):
+            for b in program.blocks:
+                if name in b.vars:
+                    if b.vars[name].persistable and scope.has(name):
+                        keys.append(name)
+                    break
+        return keys
+
+    def run(self, program: Optional[Program] = None,
+            feed: Optional[Dict[str, object]] = None,
+            fetch_list: Optional[Sequence] = None,
+            scope: Optional[Scope] = None,
+            return_numpy: bool = True,
+            is_test: bool = False):
+        from .program import default_main_program
+        program = program or default_main_program()
+        feed = feed or {}
+        scope = global_scope() if scope is None else scope
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in (fetch_list or [])]
+        gb = program.global_block()
+        has_backward = any(op.type == "backward" for op in gb.ops)
+        if has_backward:
+            raise NotImplementedError(
+                "paddle_tpu_torch.Executor: programs with a backward op "
+                "(training) are not ported yet")
+
+        env = Env(gb)
+        state = {k: scope.get(k) for k in self._state_keys(program, scope)}
+        env.local.update(state)
+        env.local.update({k: self._feed_tensor(gb, k, v)
+                          for k, v in feed.items()})
+        if self.amp:
+            # pure-inference AMP: the whole net computes in bf16
+            env.local = {k: _to_bf16(v) for k, v in env.local.items()}
+        entry = dict(env.local)
+        ctx = ExecContext(program, self.device, self._step, is_test=is_test,
+                          conv1x1_pallas=self.conv1x1_pallas)
+        self._step += 1
+        with torch.no_grad():
+            interpret_ops(gb.ops, env, ctx)
+        fetches = [env.get(n) if env.has(n) else None for n in fetch_names]
+
+        # persistables an op produced go back to the scope in the dtype
+        # they had there (bn running stats etc. stay fp32 under AMP); a
+        # value an op passed through unchanged is not written back
+        written = {n for op in gb.ops for n in op.output_names}
+        for name, var in gb.vars.items():
+            if not (var.persistable and name in written and env.has(name)):
+                continue
+            v = env.get(name)
+            if name in entry and v is entry[name]:
+                continue
+            old = state.get(name)
+            if old is not None and v.dtype != old.dtype:
+                v = v.to(old.dtype)
+            scope.set(name, v)
+
+        if return_numpy:
+            fetches = [to_numpy(f) if f is not None else None
+                       for f in fetches]
+        return fetches

@@ -1,0 +1,161 @@
+"""NN layer functions building program ops (counterpart of
+``paddle_tpu/layers/nn.py``).  Each function appends the same op types
+with the same attrs as its JAX twin, so both packages build the same
+program.  Only the layers the ResNet serving path uses are ported."""
+from __future__ import annotations
+
+from ..initializer import ConstantInitializer
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+
+__all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add"]
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def _conv_out(size, k, p, s, d=1):
+    if size is None or size < 0:
+        return -1
+    ke = d * (k - 1) + 1
+    return (size + 2 * p - ke) // s + 1
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully connected: mul + bias + act (one input)."""
+    helper = LayerHelper("fc", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    in_dim = 1
+    for s in input.shape[num_flatten_dims:]:
+        in_dim *= s
+    w = helper.create_parameter(param_attr, shape=[in_dim, size],
+                                dtype=input.dtype)
+    out_shape = tuple(input.shape[:num_flatten_dims]) + (size,)
+    tmp = helper.create_variable_for_type_inference(input.dtype, out_shape)
+    helper.append_op(type="mul", inputs={"X": [input], "Y": [w]},
+                     outputs={"Out": [tmp]},
+                     attrs={"x_num_col_dims": num_flatten_dims,
+                            "y_num_col_dims": 1})
+    pre_act = helper.append_bias_op(tmp)
+    return helper.append_activation(pre_act)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None, use_pallas=None):
+    """2-D convolution, NCHW.  ``use_pallas``: tri-state per-layer
+    override of the ``conv1x1_pallas`` routing (True forces the
+    hand-written 1x1 kernel on eligible shapes, False pins this layer to
+    the plain convolution, None defers to the executor/flag); the attr
+    keeps the JAX package's name so programs match."""
+    helper = LayerHelper("conv2d", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    dtype = input.dtype
+    fs = _pair(filter_size)
+    st = _pair(stride)
+    pd = _pair(padding)
+    dl = _pair(dilation)
+    n, c = input.shape[0], input.shape[1]
+    w = helper.create_parameter(
+        param_attr, shape=[num_filters, c // groups, fs[0], fs[1]], dtype=dtype)
+    oh = _conv_out(input.shape[2], fs[0], pd[0], st[0], dl[0])
+    ow = _conv_out(input.shape[3], fs[1], pd[1], st[1], dl[1])
+    out = helper.create_variable_for_type_inference(
+        dtype, (n, num_filters, oh, ow))
+    conv_attrs = {"strides": st, "paddings": pd, "dilations": dl,
+                  "groups": groups}
+    if use_pallas is not None:
+        conv_attrs["use_pallas"] = bool(use_pallas)
+    helper.append_op(type="conv2d",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs=conv_attrs)
+    if helper.kwargs.get("bias_attr") is not False:
+        b = helper.create_parameter(
+            ParamAttr._to_attr(bias_attr) or ParamAttr(),
+            shape=[num_filters], dtype=dtype, is_bias=True)
+        out2 = helper.create_variable_for_type_inference(dtype, out.shape)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [out2]}, attrs={"axis": 1})
+        out = out2
+    return helper.append_activation(out)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    ks = _pair(pool_size)
+    st = _pair(pool_stride)
+    pd = _pair(pool_padding)
+    n, c, h, w = input.shape
+
+    def _out(size, k, p, s):
+        if size is None or size < 0:
+            return -1
+        if ceil_mode:
+            return -(-(size + 2 * p - k) // s) + 1
+        return (size + 2 * p - k) // s + 1
+
+    if global_pooling:
+        oh = ow = 1
+    else:
+        oh = _out(h, ks[0], pd[0], st[0])
+        ow = _out(w, ks[1], pd[1], st[1])
+    out = helper.create_variable_for_type_inference(
+        input.dtype, (n, c, oh, ow))
+    helper.append_op(type="pool2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type, "ksize": ks,
+                            "strides": st, "paddings": pd,
+                            "global_pooling": global_pooling,
+                            "exclusive": exclusive,
+                            "ceil_mode": ceil_mode})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               moving_mean_name=None, moving_variance_name=None, name=None,
+               use_global_stats=None):
+    """Batch normalization; the running stats are persistable vars that
+    the op's MeanOut/VarianceOut write."""
+    helper = LayerHelper("batch_norm", name=name)
+    dtype = input.dtype
+    c = input.shape[1]
+    scale = helper.create_parameter(
+        ParamAttr._to_attr(param_attr) or ParamAttr(), shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr) or ParamAttr(), shape=[c], dtype=dtype,
+        is_bias=True)
+    mean = helper.create_global_variable([c], dtype, name=moving_mean_name)
+    var = helper.create_global_variable([c], dtype, name=moving_variance_name)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    helper.set_variable_initializer(var, ConstantInitializer(1.0))
+    saved_mean = helper.create_variable_for_type_inference(dtype)
+    saved_var = helper.create_variable_for_type_inference(dtype)
+    out = helper.create_variable_for_type_inference(dtype, input.shape)
+    helper.append_op(type="batch_norm",
+                     inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                             "Mean": [mean], "Variance": [var]},
+                     outputs={"Y": [out], "MeanOut": [mean.name],
+                              "VarianceOut": [var.name],
+                              "SavedMean": [saved_mean],
+                              "SavedVariance": [saved_var]},
+                     attrs={"momentum": momentum, "epsilon": epsilon,
+                            "is_test": is_test,
+                            "use_global_stats": use_global_stats})
+    return helper.append_activation(out, act)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_add", name=name)
+    out = helper.create_variable_for_type_inference(
+        x.dtype, x.shape, lod_level=max(x.lod_level, getattr(y, "lod_level", 0)))
+    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out, act)

@@ -46,6 +46,10 @@ def pytest_configure(config):
         "round; SKIPPED on the CPU backend (jax CPU cannot run "
         "cross-process psum) so it runs — and fails loudly if broken — "
         "the first session with a chip/GPU")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (paddle_tpu_torch kernels); skips with a "
+        "reason elsewhere")
 
 
 def pytest_collection_modifyitems(config, items):

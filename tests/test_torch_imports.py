@@ -1,0 +1,80 @@
+"""The port stands alone: no module of paddle_tpu_torch, nor chip_smoke.py,
+imports jax, jaxlib or the JAX package (an AST scan, no subprocess), and
+the executor never carries on quietly on the CPU when asked for a card."""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu_torch as ptt
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "paddle_tpu_torch")
+    for dirpath, dirs, files in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_top_names(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    sources = list(_port_sources())
+    assert len(sources) > 20
+    bad = [f"{os.path.relpath(p, ROOT)}:{line}: {name}"
+           for p in sources for line, name in _imported_top_names(p)
+           if name in FORBIDDEN]
+    assert not bad, "port modules import the JAX side:\n" + "\n".join(bad)
+
+
+def test_scan_sees_through_aliases(tmp_path):
+    """The scanner itself: every import form of a forbidden name is
+    caught, and the port's own name is not."""
+    src = tmp_path / "m.py"
+    src.write_text("import jax.numpy as jnp\nfrom paddle_tpu.core import x\n"
+                   "import paddle_tpu_torch\nfrom . import jax\n"
+                   "def f():\n    import jaxlib\n")
+    names = [n for _, n in _imported_top_names(str(src))]
+    assert [n for n in names if n in FORBIDDEN] == \
+        ["jax", "paddle_tpu", "jaxlib"]
+
+
+def test_executor_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        ptt.Executor()
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        ptt.CUDAPlace(0).device()
+    assert ptt.Executor(ptt.CPUPlace()).device == torch.device("cpu")
+
+
+def test_scope_numpy_widens_bf16_and_weights_load_bf16():
+    import ml_dtypes
+    scope = ptt.Scope()
+    arr = np.arange(6, dtype=np.float32).reshape(2, 3)
+    ptt.load_numpy_state(scope, {"w": arr,
+                                 "h": arr.astype(ml_dtypes.bfloat16)}, "cpu")
+    assert scope.get("w").dtype == torch.float32
+    assert scope.get("h").dtype == torch.bfloat16
+    out = scope.numpy("h")
+    assert out.dtype == np.float32
+    np.testing.assert_array_equal(out, arr)
+    arr[0, 0] = 99.0                    # the scope holds its own copy
+    assert scope.numpy("w")[0, 0] == 0.0

@@ -1,0 +1,253 @@
+"""Each op of the ResNet serving path in the port against its JAX lowering,
+on the same numpy-seeded inputs (fp32 unless stated; the JAX tests pin
+matmul precision to "highest", so both sides compute in full fp32)."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as pt
+import paddle_tpu_torch as ptt
+from paddle_tpu.core.registry import get_op_impl as jax_impl
+from paddle_tpu_torch.core.registry import get_op_impl as torch_impl
+from paddle_tpu_torch.ops import conv1x1
+
+R = np.random.RandomState(5)
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _run(op, ins, attrs, is_test=True, conv1x1_pallas=None):
+    """Run ``op`` through both packages; returns ({slot: np} jax,
+    {slot: np} torch)."""
+    jctx = pt.core.LoweringContext(pt.Program(), jax.random.PRNGKey(0),
+                                   is_test=is_test,
+                                   conv1x1_pallas=conv1x1_pallas)
+    jout = jax_impl(op)(jctx, {k: [jax.numpy.asarray(v) for v in vs]
+                               for k, vs in ins.items()}, dict(attrs))
+    tctx = ptt.core.ExecContext(ptt.Program(), torch.device("cpu"), 0,
+                                is_test=is_test,
+                                conv1x1_pallas=conv1x1_pallas)
+    tout = torch_impl(op)(tctx, {k: [torch.from_numpy(np.array(v))
+                                     for v in vs]
+                                 for k, vs in ins.items()}, dict(attrs))
+    return ({k: np.asarray(v) for k, v in jout.items()},
+            {k: v.float().numpy() for k, v in tout.items()})
+
+
+def _x(*shape):
+    return R.randn(*shape).astype("float32")
+
+
+CONVS = {
+    "3x3_s1": ((2, 16, 12, 12), (32, 16, 3, 3), [1, 1], [1, 1]),
+    "3x3_s2": ((2, 16, 12, 12), (32, 16, 3, 3), [2, 2], [1, 1]),
+    "7x7_s2_stem": ((2, 3, 32, 32), (64, 3, 7, 7), [2, 2], [3, 3]),
+    "1x1_s1_64ch": ((2, 64, 8, 8), (256, 64, 1, 1), [1, 1], [0, 0]),
+    "1x1_s2": ((2, 64, 8, 8), (128, 64, 1, 1), [2, 2], [0, 0]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONVS))
+def test_conv2d_matches_jax(name):
+    xs, ws, st, pd = CONVS[name]
+    x, w = _x(*xs), _x(*ws) / np.float32(np.sqrt(np.prod(ws[1:])))
+    attrs = {"strides": st, "paddings": pd, "dilations": [1, 1],
+             "groups": 1}
+    j, t = _run("conv2d", {"Input": [x], "Filter": [w]}, attrs)
+    np.testing.assert_allclose(t["Output"], j["Output"], **TOL)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv2d_1x1_router_matches_jax_pallas(stride):
+    """An eligible 1x1 conv with the routing on: the JAX side runs its
+    Pallas kernel (interpret mode), the port its conv1x1 wrapper, which
+    on CPU tensors computes the plain version (no kernel launch)."""
+    x, w = _x(2, 128, 16, 16), _x(256, 128, 1, 1) / np.float32(np.sqrt(128))
+    attrs = {"strides": [stride, stride], "paddings": [0, 0],
+             "dilations": [1, 1], "groups": 1, "use_pallas": True,
+             "pallas_interpret": True}
+    before = conv1x1.mm.launches
+    j, t = _run("conv2d", {"Input": [x], "Filter": [w]}, attrs)
+    assert conv1x1.mm.launches == before
+    np.testing.assert_allclose(t["Output"], j["Output"], **TOL)
+
+
+def test_conv2d_router_tristate(monkeypatch):
+    """Per-op attr > executor setting > flag, as in the JAX package."""
+    from paddle_tpu_torch.ops import nn_ops
+    calls = []
+    real = conv1x1.conv2d_1x1
+    monkeypatch.setattr(conv1x1, "conv2d_1x1",
+                        lambda *a: calls.append(1) or real(*a))
+    x, w = torch.randn(1, 128, 16, 8), torch.randn(128, 128, 1, 1)
+    base = {"strides": [1, 1], "paddings": [0, 0], "dilations": [1, 1],
+            "groups": 1}
+
+    def run(attrs, exe_opt):
+        ctx = ptt.core.ExecContext(ptt.Program(), torch.device("cpu"), 0,
+                                   conv1x1_pallas=exe_opt)
+        nn_ops._conv2d(ctx, {"Input": [x], "Filter": [w]}, attrs)
+        return len(calls)
+
+    assert ptt.flags.get_flag("conv1x1_pallas") is True
+    assert run(base, None) == 1                   # flag default: on
+    assert run(base, False) == 1                  # executor off
+    assert run(dict(base, use_pallas=True), False) == 2   # attr wins
+    assert run(dict(base, use_pallas=False), True) == 2
+    ptt.flags.set_flag("conv1x1_pallas", False)
+    try:
+        assert run(base, None) == 2
+        assert run(base, True) == 3
+    finally:
+        ptt.flags.set_flag("conv1x1_pallas", True)
+
+
+@pytest.mark.parametrize("attrs", [
+    {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+     "paddings": [1, 1], "global_pooling": False},
+    {"pooling_type": "avg", "ksize": [1, 1], "strides": [1, 1],
+     "paddings": [0, 0], "global_pooling": True},
+    {"pooling_type": "max", "ksize": [1, 1], "strides": [1, 1],
+     "paddings": [0, 0], "global_pooling": True},
+    {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+     "paddings": [1, 1], "global_pooling": False, "exclusive": True},
+    {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+     "paddings": [1, 1], "global_pooling": False, "exclusive": False},
+], ids=["max3s2p1", "global_avg", "global_max", "avg_excl", "avg_incl"])
+def test_pool2d_matches_jax(attrs):
+    j, t = _run("pool2d", {"X": [_x(2, 8, 9, 9)]}, attrs)
+    np.testing.assert_allclose(t["Out"], j["Out"], **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batch_norm_test_mode_matches_jax(dtype):
+    c = 16
+    ins = {"X": [_x(2, c, 5, 5)], "Scale": [_x(c)], "Bias": [_x(c)],
+           "Mean": [_x(c)], "Variance": [R.rand(c).astype("float32") + 0.5]}
+    attrs = {"momentum": 0.9, "epsilon": 1e-5, "is_test": True,
+             "use_global_stats": None}
+    if dtype == "bfloat16":
+        # x in bf16, stats fp32: the folded scale/shift applies in bf16
+        import jax.numpy as jnp
+        jctx = pt.core.LoweringContext(pt.Program(), jax.random.PRNGKey(0),
+                                       is_test=True)
+        jins = {k: [jnp.asarray(v[0])] for k, v in ins.items()}
+        jins["X"] = [jins["X"][0].astype(jnp.bfloat16)]
+        jy = np.asarray(jax_impl("batch_norm")(jctx, jins, attrs)["Y"]
+                        .astype(jnp.float32))
+        tctx = ptt.core.ExecContext(ptt.Program(), torch.device("cpu"), 0,
+                                    is_test=True)
+        tins = {k: [torch.from_numpy(v[0])] for k, v in ins.items()}
+        tins["X"] = [tins["X"][0].bfloat16()]
+        ty = torch_impl("batch_norm")(tctx, tins, attrs)["Y"]
+        assert ty.dtype == torch.bfloat16
+        np.testing.assert_allclose(ty.float().numpy(), jy, rtol=2e-2,
+                                   atol=2e-2)
+        return
+    j, t = _run("batch_norm", ins, attrs)
+    for slot in ("Y", "MeanOut", "VarianceOut", "SavedMean",
+                 "SavedVariance"):
+        np.testing.assert_allclose(t[slot], j[slot], **TOL)
+
+
+def test_batch_norm_training_not_ported_yet():
+    c = 4
+    ins = {k: [torch.ones(c)] for k in ("Scale", "Bias", "Mean",
+                                        "Variance")}
+    ins["X"] = [torch.ones(2, c, 3, 3)]
+    ctx = ptt.core.ExecContext(ptt.Program(), torch.device("cpu"), 0,
+                               is_test=False)
+    with pytest.raises(NotImplementedError, match="batch statistics"):
+        torch_impl("batch_norm")(ctx, ins, {"is_test": False})
+
+
+def test_relu_matches_jax():
+    j, t = _run("relu", {"X": [_x(3, 7)]}, {})
+    np.testing.assert_allclose(t["Out"], j["Out"], **TOL)
+
+
+@pytest.mark.parametrize("yshape,axis", [((2, 8, 4, 4), -1), ((8,), 1),
+                                         ((4, 4), 2)])
+def test_elementwise_add_matches_jax(yshape, axis):
+    j, t = _run("elementwise_add", {"X": [_x(2, 8, 4, 4)],
+                                    "Y": [_x(*yshape)]}, {"axis": axis})
+    np.testing.assert_allclose(t["Out"], j["Out"], **TOL)
+
+
+@pytest.mark.parametrize("xshape,xn", [((4, 8, 1, 1), 1), ((4, 6), 1),
+                                       ((2, 3, 6), 2)])
+def test_mul_matches_jax(xshape, xn):
+    k = int(np.prod(xshape[xn:]))
+    j, t = _run("mul", {"X": [_x(*xshape)], "Y": [_x(k, 5)]},
+                {"x_num_col_dims": xn, "y_num_col_dims": 1})
+    np.testing.assert_allclose(t["Out"], j["Out"], **TOL)
+
+
+@pytest.mark.parametrize("axis", [-1, 0])
+def test_softmax_matches_jax(axis):
+    j, t = _run("softmax", {"X": [_x(4, 10) * 3]}, {"axis": axis})
+    np.testing.assert_allclose(t["Out"], j["Out"], **TOL)
+
+
+def test_fill_constant_matches_jax():
+    attrs = {"shape": [3, 2], "dtype": "float32", "value": 1.5}
+    j, t = _run("fill_constant", {}, attrs)
+    np.testing.assert_array_equal(t["Out"], j["Out"])
+
+
+@pytest.mark.parametrize("op,attrs", [
+    ("uniform_random", {"shape": [200, 100], "dtype": "float32",
+                        "min": -0.5, "max": 0.25, "seed": 0}),
+    ("gaussian_random", {"shape": [200, 100], "dtype": "float32",
+                         "mean": 0.5, "std": 2.0, "seed": 3}),
+])
+def test_random_init_distributions_match_jax(op, attrs):
+    """Different generators, the same distribution: range, mean and
+    spread agree with the JAX draw within sampling error (20k draws)."""
+    j, t = _run(op, {}, attrs)
+    a, b = j["Out"], t["Out"]
+    assert a.shape == b.shape == (200, 100)
+    if op == "uniform_random":
+        assert b.min() >= attrs["min"] and b.max() <= attrs["max"]
+    # 6 standard errors of the mean and of the std (n = 20000)
+    se = a.std() / np.sqrt(a.size)
+    assert abs(b.mean() - a.mean()) < 6 * np.sqrt(2) * se
+    assert abs(b.std() - a.std()) < 6 * a.std() / np.sqrt(a.size)
+
+
+def test_random_ops_are_reproducible_and_vary_per_op():
+    prog = ptt.Program()
+    prog.random_seed = 7
+    blk = prog.global_block()
+    for n in ("a", "b"):
+        blk.create_var(name=n, shape=[64], dtype="float32", persistable=True)
+        blk.append_op("uniform_random", outputs={"Out": [n]},
+                      attrs={"shape": [64], "dtype": "float32", "min": -1.0,
+                             "max": 1.0, "seed": 0})
+    exe = ptt.Executor(ptt.CPUPlace())
+    s1, s2 = ptt.Scope(), ptt.Scope()
+    exe.run(prog, scope=s1)
+    ptt.Executor(ptt.CPUPlace()).run(prog, scope=s2)
+    np.testing.assert_array_equal(s1.numpy("a"), s2.numpy("a"))
+    assert not np.array_equal(s1.numpy("a"), s1.numpy("b"))
+
+
+def test_run_op_names_the_failing_op():
+    prog = ptt.Program()
+    blk = prog.global_block()
+    for n in ("x", "y", "out"):
+        blk.create_var(name=n, dtype="float32")
+    blk.append_op("elementwise_add", inputs={"X": ["x"], "Y": ["y"]},
+                  outputs={"Out": ["out"]}, attrs={"axis": -1})
+    exe = ptt.Executor(ptt.CPUPlace())
+    with pytest.raises(RuntimeError) as ei:
+        exe.run(prog, feed={"x": np.ones((2, 3), "float32"),
+                            "y": np.ones((4, 5), "float32")},
+                fetch_list=["out"], scope=ptt.Scope())
+    notes = "".join(getattr(ei.value, "__notes__", []))
+    assert "elementwise_add" in notes and "(2, 3)" in notes
+
+
+def test_unregistered_op_raises_with_its_name():
+    with pytest.raises(NotImplementedError, match="lookup_table"):
+        torch_impl("lookup_table")
