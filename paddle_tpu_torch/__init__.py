@@ -8,9 +8,12 @@ hand-written CUDA kernels (``csrc/``), each beside its plain PyTorch
 version.
 
 Ported so far: the ResNet inference serving path (program IR, scope,
-initializers, the layers and ops ResNet uses, the forward executor with
-bf16 inference AMP, ``serving.Model``/``serving.Server``) and its one
-kernel, the 1x1-convolution matrix product (``ops/conv1x1.py``).
+initializers, the layers and ops ResNet uses, the executor with bf16
+inference AMP, ``serving.Model``/``serving.Server``), ResNet training
+(``append_backward``, SGD and Momentum, regularizers, gradient clips,
+batch-statistics batch norm, cross entropy, the executor's backward
+under AMP and ``run_steps``), and one kernel, the 1x1-convolution matrix
+product with its gradients and epilogues (``ops/conv1x1.py``).
 """
 
 from . import core
@@ -21,6 +24,8 @@ from .core import (
 )
 from . import ops  # noqa: F401  (registers every op implementation)
 from . import flags, initializer, layers, models
+from . import optimizer, regularizer, clip, backward
+from .backward import append_backward
 from .param_attr import ParamAttr
 from .weights import load_numpy_state
 from . import faults
@@ -29,6 +34,7 @@ __all__ = [
     "core", "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
     "default_main_program", "default_startup_program", "global_scope",
     "program_guard", "stack_feeds", "pad_batch", "unique_name", "ops",
-    "flags", "initializer", "layers", "models", "ParamAttr",
+    "flags", "initializer", "layers", "models", "optimizer",
+    "regularizer", "clip", "backward", "append_backward", "ParamAttr",
     "load_numpy_state", "faults",
 ]

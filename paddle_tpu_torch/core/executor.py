@@ -1,17 +1,23 @@
 """Executor: runs a Program op by op on torch tensors.
 
-Counterpart of ``paddle_tpu/core/executor.py``, forward path only.  The
-JAX executor traces the whole block into one ``jax.jit`` function; here
-PyTorch runs eagerly, so ``run`` walks the global block through the
-registered op implementations (``run_op``) on the executor's device:
+Counterpart of ``paddle_tpu/core/executor.py``.  The JAX executor traces
+the whole block into one ``jax.jit`` function; here PyTorch runs
+eagerly, so ``run`` walks the global block through the registered op
+implementations (``run_op``) on the executor's device:
 
     run(program, feed, fetch_list)
         feeds -> tensors on device; persistable state from the Scope
-        interpret every op (inference AMP: the whole net in bf16)
+        interpret every op (inference AMP: the whole net in bf16);
+        a program with a ``backward`` op runs its forward slice once
+        under autograd, then the optimizer ops
         write back the persistables the ops produced; return fetches
 
-Not ported yet: ``run_steps``, the ``backward`` pseudo-op, the compile
-cache, observability, validation and retry.
+``run_steps`` runs K such steps with the state kept on the device and
+the fetches stacked on a leading K axis.
+
+Not ported yet: capturing a step as a CUDA graph (the counterpart of
+the JAX executor's compiled step), the compile cache, observability,
+validation and retry.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .program import Block, Operator, Program, Variable
+from .program import Block, Operator, Program, Variable, grad_var_name
 from .registry import get_op_impl
 from .scope import Scope, global_scope, to_numpy
 from .types import to_torch_dtype
@@ -91,16 +97,17 @@ class Env:
 # Context passed to op implementations
 # ---------------------------------------------------------------------------
 class ExecContext:
-    """What an op implementation may consult: the device, test mode, the
-    1x1-conv routing, and per-op random generators."""
+    """What an op implementation may consult: the device, test mode, AMP,
+    the 1x1-conv routing, and per-op random generators."""
 
     def __init__(self, program: Program, device: torch.device, step: int,
                  is_test: bool = False,
-                 conv1x1_pallas: Optional[bool] = None):
+                 conv1x1_pallas: Optional[bool] = None, amp: bool = False):
         self.program = program
         self.device = device
         self.step = step
         self.is_test = is_test
+        self.amp = amp
         # tri-state 1x1-conv kernel routing (None = defer to the flag);
         # consulted by ops.nn_ops._conv2d
         self.conv1x1_pallas = conv1x1_pallas
@@ -175,6 +182,71 @@ def interpret_ops(ops: Sequence[Operator], env: Env, ctx: ExecContext):
         run_op(op, env, ctx)
 
 
+def interpret_block_with_backward(block: Block, env: Env, ctx: ExecContext):
+    """Interpret a block, splitting at a top-level ``backward`` op so the
+    forward slice runs exactly once under autograd; everything else runs
+    without it."""
+    bw_idx = next((i for i, op in enumerate(block.ops)
+                   if op.type == "backward"), None)
+    if bw_idx is None:
+        with torch.no_grad():
+            interpret_ops(block.ops, env, ctx)
+        return
+    _run_backward(block.ops[:bw_idx], block.ops[bw_idx], env, ctx)
+    with torch.no_grad():
+        interpret_ops(block.ops[bw_idx + 1:], env, ctx)
+
+
+def _run_backward(forward_ops: Sequence[Operator], bw_op: Operator,
+                  env: Env, ctx: ExecContext):
+    """Run the ``backward`` pseudo-op inserted by append_backward.
+
+    attrs: loss (var name), params (names to differentiate).  Produces
+    ``<p>@GRAD`` for every p in params and puts every forward var into
+    ``env``, detached, so later fetches and ops see them.
+
+    AMP (the JAX recipe, ``paddle_tpu/core/executor.py:371-409``): the
+    forward env holds bf16 copies of the state and of the wrt leaves,
+    which stay fp32, so the gradients come back fp32 through the cast;
+    the loss is cast to fp32; the master fp32 params are set back before
+    the post-backward (optimizer) ops run.
+    """
+    loss_name = bw_op.attrs["loss"]
+    wrt_names = list(bw_op.attrs["params"])
+    init = dict(env.local)
+    masters = {n: init[n] for n in wrt_names}
+    leaves = [masters[n].detach().requires_grad_(True) for n in wrt_names]
+    fenv = Env(env.block)
+    if ctx.amp:
+        fenv.local.update({k: _to_bf16(v) for k, v in init.items()})
+        fenv.local.update({n: _to_bf16(v) for n, v in zip(wrt_names, leaves)})
+    else:
+        fenv.local.update(init)
+        fenv.local.update(zip(wrt_names, leaves))
+    with torch.enable_grad():
+        interpret_ops(forward_ops, fenv, ctx)
+        loss = fenv.get(loss_name)
+        if loss.dim() > 0:
+            if loss.numel() != 1:
+                raise ValueError(
+                    f"append_backward loss {loss_name!r} must be a scalar, "
+                    f"got shape {tuple(loss.shape)}")
+            loss = loss.reshape(())
+        if ctx.amp:
+            loss = loss.float()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for name, val in fenv.local.items():
+        env.set(name, val.detach() if isinstance(val, torch.Tensor) else val)
+    if ctx.amp:
+        env.local.update(masters)
+    env.set(loss_name, loss.detach())
+    for n, leaf, g in zip(wrt_names, leaves, grads):
+        # a param the loss does not reach gets a zero gradient, as under
+        # jax.grad
+        env.set(grad_var_name(n), torch.zeros_like(leaf) if g is None
+                else g.to(leaf.dtype))
+
+
 def _to_bf16(v):
     if isinstance(v, torch.Tensor) and v.dtype == torch.float32:
         return v.to(torch.bfloat16)
@@ -236,7 +308,10 @@ class Executor:
 
     ``amp=True``: a program with no ``backward`` op (inference) computes
     entirely in bf16 — fp32 feeds and state are cast on entry, and state
-    keeps its fp32 dtype in the scope.  ``conv1x1_pallas``: per-executor
+    keeps its fp32 dtype in the scope.  A training program computes its
+    forward and backward in bf16 against fp32 master parameters, whose
+    fp32 gradients the optimizer ops apply (``_run_backward``).
+    ``conv1x1_pallas``: per-executor
     override of the 1x1-conv kernel routing (None defers to the flag; a
     per-op ``use_pallas`` attr overrides both)."""
 
@@ -290,31 +365,85 @@ class Executor:
             is_test: bool = False):
         from .program import default_main_program
         program = program or default_main_program()
-        feed = feed or {}
         scope = global_scope() if scope is None else scope
-        fetch_names = [v.name if isinstance(v, Variable) else str(v)
-                       for v in (fetch_list or [])]
+        gb = program.global_block()
+        feeds = {k: self._feed_tensor(gb, k, v)
+                 for k, v in (feed or {}).items()}
+        fetches = self._run_once(program, feeds, _fetch_names(fetch_list),
+                                 scope, is_test)
+        if return_numpy:
+            fetches = [to_numpy(f) if f is not None else None
+                       for f in fetches]
+        return fetches
+
+    def run_steps(self, num_steps: int,
+                  program: Optional[Program] = None,
+                  feed: Optional[Dict[str, object]] = None,
+                  fetch_list: Optional[Sequence] = None,
+                  scope: Optional[Scope] = None,
+                  return_numpy: bool = True,
+                  is_test: bool = False,
+                  feeds_stacked: bool = False):
+        """Run ``num_steps`` steps of ``program`` back to back, with the
+        state kept on the device between steps (the counterpart of the
+        JAX executor's device-side scan, run here as a Python loop).
+
+        ``feeds_stacked=False`` reuses ``feed`` for every step.
+        ``feeds_stacked=True`` expects every feed to carry a leading
+        ``num_steps`` axis: it is copied to the device once, and step i
+        reads slice i.  Fetches come back stacked with a leading
+        ``num_steps`` axis; the step counter advances by ``num_steps``."""
+        from .program import default_main_program
+        num_steps = int(num_steps)
+        if num_steps < 1:
+            raise ValueError(f"run_steps: num_steps must be >= 1, got "
+                             f"{num_steps}")
+        program = program or default_main_program()
+        scope = global_scope() if scope is None else scope
+        gb = program.global_block()
+        feeds = {}
+        for name, val in (feed or {}).items():
+            t = self._feed_tensor(gb, name, val)
+            if feeds_stacked and tuple(t.shape[:1]) != (num_steps,):
+                raise ValueError(
+                    f"run_steps(feeds_stacked=True): feed {name!r} must "
+                    f"have leading dim {num_steps}, got {tuple(t.shape)}")
+            feeds[name] = t
+        fetch_names = _fetch_names(fetch_list)
+        steps = [self._run_once(program,
+                                {k: v[i] for k, v in feeds.items()}
+                                if feeds_stacked else feeds,
+                                fetch_names, scope, is_test)
+                 for i in range(num_steps)]
+        fetches = []
+        for j in range(len(fetch_names)):
+            vals = [s[j] for s in steps]
+            fetches.append(None if any(v is None for v in vals)
+                           else torch.stack(vals))
+        if return_numpy:
+            fetches = [to_numpy(f) if f is not None else None
+                       for f in fetches]
+        return fetches
+
+    def _run_once(self, program: Program, feeds: Dict[str, torch.Tensor],
+                  fetch_names: List[str], scope: Scope,
+                  is_test: bool) -> List[Optional[torch.Tensor]]:
+        """One step: state from the scope, feeds already on the device;
+        returns the fetched tensors (on the device)."""
         gb = program.global_block()
         has_backward = any(op.type == "backward" for op in gb.ops)
-        if has_backward:
-            raise NotImplementedError(
-                "paddle_tpu_torch.Executor: programs with a backward op "
-                "(training) are not ported yet")
-
         env = Env(gb)
         state = {k: scope.get(k) for k in self._state_keys(program, scope)}
         env.local.update(state)
-        env.local.update({k: self._feed_tensor(gb, k, v)
-                          for k, v in feed.items()})
-        if self.amp:
+        env.local.update(feeds)
+        if self.amp and not has_backward:
             # pure-inference AMP: the whole net computes in bf16
             env.local = {k: _to_bf16(v) for k, v in env.local.items()}
         entry = dict(env.local)
         ctx = ExecContext(program, self.device, self._step, is_test=is_test,
-                          conv1x1_pallas=self.conv1x1_pallas)
+                          conv1x1_pallas=self.conv1x1_pallas, amp=self.amp)
         self._step += 1
-        with torch.no_grad():
-            interpret_ops(gb.ops, env, ctx)
+        interpret_block_with_backward(gb, env, ctx)
         fetches = [env.get(n) if env.has(n) else None for n in fetch_names]
 
         # persistables an op produced go back to the scope in the dtype
@@ -331,8 +460,9 @@ class Executor:
             if old is not None and v.dtype != old.dtype:
                 v = v.to(old.dtype)
             scope.set(name, v)
-
-        if return_numpy:
-            fetches = [to_numpy(f) if f is not None else None
-                       for f in fetches]
         return fetches
+
+
+def _fetch_names(fetch_list) -> List[str]:
+    return [v.name if isinstance(v, Variable) else str(v)
+            for v in (fetch_list or [])]

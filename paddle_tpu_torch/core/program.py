@@ -22,6 +22,13 @@ import numpy as np
 from . import unique_name as unique_name_mod
 from .types import VarType, convert_dtype
 
+# ``append_backward`` declares the gradient of ``p`` as ``p@GRAD``
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
 
 class Variable:
     """A named tensor slot in a Block.  ``dtype`` is a canonical dtype
@@ -70,7 +77,11 @@ class Variable:
 
 
 class Parameter(Variable):
-    """A trainable persistable variable with its optimization attributes."""
+    """A trainable persistable variable with its optimization attributes
+    (read by ``optimizer``, ``regularizer`` and ``clip``).  As in the JAX
+    package's JSON form, only ``trainable`` is serialized: a program
+    loaded from JSON has the default learning-rate multiplier and no
+    regularizer or clip annotation."""
 
     def __init__(self, block, name, shape, dtype, trainable=True,
                  regularizer=None, gradient_clip_attr=None,

@@ -1,14 +1,18 @@
 """NN layer functions building program ops (counterpart of
 ``paddle_tpu/layers/nn.py``).  Each function appends the same op types
 with the same attrs as its JAX twin, so both packages build the same
-program.  Only the layers the ResNet serving path uses are ported."""
+program.  Only the layers the ResNet serving and training paths and the
+gradient clips use are ported."""
 from __future__ import annotations
 
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add"]
+__all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
+           "elementwise_sub", "elementwise_mul", "elementwise_div",
+           "elementwise_max", "elementwise_min", "scale", "mean",
+           "cross_entropy", "clip", "clip_by_norm"]
 
 
 def _pair(v):
@@ -152,10 +156,80 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(out, act)
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", name=name)
+def _elementwise_layer(op, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op, name=name)
     out = helper.create_variable_for_type_inference(
         x.dtype, x.shape, lod_level=max(x.lod_level, getattr(y, "lod_level", 0)))
-    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+    helper.append_op(type=op, inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
     return helper.append_activation(out, act)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_min", x, y, axis, act, name)
+
+
+def _unary_layer(op_type, x, attrs=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(
+        x.dtype, x.shape, lod_level=x.lod_level)
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs=attrs or {})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    out = _unary_layer("scale", x, {"scale": float(scale), "bias": float(bias),
+                                    "bias_after_scale": bias_after_scale},
+                       name)
+    if act:
+        return LayerHelper("scale_act").append_activation(out, act)
+    return out
+
+
+def clip(x, min, max, name=None):
+    return _unary_layer("clip", x, {"min": float(min), "max": float(max)}, name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _unary_layer("clip_by_norm", x, {"max_norm": float(max_norm)}, name)
+
+
+def mean(x, name=None):
+    """Mean of every element: a scalar (the loss average)."""
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, ())
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, name=None):
+    """-log(probability of the label) per row, [N, 1]; ``input`` holds
+    probabilities (a softmax output)."""
+    helper = LayerHelper("cross_entropy", name=name)
+    out = helper.create_variable_for_type_inference(
+        input.dtype, (input.shape[0], 1) if input.shape else None)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]}, attrs={"soft_label": soft_label})
+    return out

@@ -1,5 +1,7 @@
-"""Math ops on the ResNet path (counterpart of ``elementwise_add`` and
-``mul`` in ``paddle_tpu/ops/math_ops.py``)."""
+"""Math ops of the ResNet paths (counterpart of the elementwise family,
+``mul``, ``mean``, ``scale``, ``increment``, ``sum``, ``sign``, ``clip``,
+``clip_by_norm`` in ``paddle_tpu/ops/math_ops.py`` and
+``squared_l2_norm`` in ``paddle_tpu/ops/loss_ops.py``)."""
 from __future__ import annotations
 
 import torch
@@ -21,10 +23,19 @@ def _bcast(x, y, axis: int):
     return x, y.reshape(tuple(y.shape) + (1,) * trailing)
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx, ins, attrs):
-    x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
-    return {"Out": x + y}
+def _elementwise(fn):
+    def impl(ctx, ins, attrs):
+        x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+        return {"Out": fn(x, y)}
+    return impl
+
+
+register_op("elementwise_add")(_elementwise(torch.add))
+register_op("elementwise_sub")(_elementwise(torch.sub))
+register_op("elementwise_mul")(_elementwise(torch.mul))
+register_op("elementwise_div")(_elementwise(torch.div))
+register_op("elementwise_max")(_elementwise(torch.maximum))
+register_op("elementwise_min")(_elementwise(torch.minimum))
 
 
 def _prod(t):
@@ -45,3 +56,64 @@ def _mul(ctx, ins, attrs):
     x2 = x.reshape(_prod(xs[:xn]), _prod(xs[xn:]))
     y2 = y.reshape(_prod(ys[:yn]), _prod(ys[yn:]))
     return {"Out": torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])}
+
+
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    """sum_op: add N tensors."""
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": out}
+
+
+@register_op("mean")
+def _mean(ctx, ins, attrs):
+    """mean_op: full reduction to a scalar (loss averaging)."""
+    return {"Out": ins["X"][0].mean()}
+
+
+@register_op("scale")
+def _scale(ctx, ins, attrs):
+    x = ins["X"][0]
+    s = attrs.get("scale", 1.0)
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": x * s + b}
+    return {"Out": (x + b) * s}
+
+
+@register_op("increment")
+def _increment(ctx, ins, attrs):
+    x = ins["X"][0]
+    step = torch.as_tensor(attrs.get("step", 1.0), dtype=x.dtype,
+                           device=x.device)
+    return {"Out": x + step}           # in x's dtype, integer counters too
+
+
+@register_op("sign")
+def _sign(ctx, ins, attrs):
+    return {"Out": torch.sign(ins["X"][0])}
+
+
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": torch.clamp(ins["X"][0], attrs["min"], attrs["max"])}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(x * x))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp_min(norm, 1e-12),
+                        torch.ones_like(norm))
+    return {"Out": x * scale.to(x.dtype)}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": torch.sum(x * x).reshape(1)}

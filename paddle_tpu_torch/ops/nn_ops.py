@@ -1,8 +1,10 @@
-"""NN ops on the ResNet serving path (counterpart of ``conv2d``,
-``pool2d``, ``batch_norm`` and ``softmax`` in ``paddle_tpu/ops/nn_ops.py``).
+"""NN ops of the ResNet serving and training paths (counterpart of
+``conv2d``, ``pool2d``, ``batch_norm``, ``softmax`` and ``cross_entropy``
+in ``paddle_tpu/ops/nn_ops.py``).
 
 Data layout is NCHW, as in the JAX package.  Eligible 1x1 convolutions
-go to the hand-written kernel (``ops/conv1x1.py``); the rest are plain
+go to the hand-written kernel (``ops/conv1x1.py``), whose autograd
+Function runs the kernel for their gradients too; the rest are plain
 PyTorch calls, where the JAX package left them to XLA.  The JAX
 package's stride-2 space-to-depth stem is an XLA layout trick computing
 the same convolution; here the stem is a plain ``conv2d``.
@@ -78,33 +80,74 @@ def _pool2d(ctx, ins, attrs):
 
 @register_op("batch_norm")
 def _batch_norm(ctx, ins, attrs):
-    """Inference batch norm on the running statistics, folded into one
-    per-channel scale and shift applied in x's dtype (``nn_ops.py:
-    296-302`` of the JAX package).  Outputs mirror the reference (Y,
-    MeanOut, VarianceOut, SavedMean, SavedVariance)."""
+    """Batch norm (``nn_ops.py:248-304`` of the JAX package), folded into
+    one per-channel scale and shift applied in x's dtype.
+
+    Training (batch statistics): single-pass fp32 mean and mean of
+    squares (float64 for a float64 input), variance clamped at 0;
+    gradients flow through both statistics, and the running averages
+    (MeanOut/VarianceOut) take detached copies of them, in the running
+    stats' dtype.  Inference (``is_test`` or ``use_global_stats``) uses
+    the running statistics.  Outputs mirror the reference (Y, MeanOut,
+    VarianceOut, SavedMean, SavedVariance = 1/sqrt(var + eps))."""
     x = ins["X"][0]
     scale, bias = ins["Scale"][0], ins["Bias"][0]
     mean, var = ins["Mean"][0], ins["Variance"][0]
     eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
     is_test = attrs.get("is_test", False) or ctx.is_test
+    # v1 use_global_stats tri-state: True forces running stats even in
+    # training, False forces batch stats even at test; None follows
+    # is_test.  Running stats advance only on training passes.
     use_global = attrs.get("use_global_stats")
     if use_global is None:
         use_global = is_test
-    if not use_global:
-        raise NotImplementedError(
-            "batch_norm on batch statistics (training) is not ported yet; "
-            "run with is_test=True")
     bshape = (1, -1) + (1,) * (x.dim() - 2)
-    use_mean = mean.float()
-    inv = torch.rsqrt(var.float() + eps)
-    eff_scale = scale.float() * inv
-    eff_shift = bias.float() - use_mean * eff_scale
+    sdt = torch.promote_types(x.dtype, torch.float32)
+    if use_global:
+        use_mean, use_var = mean.to(sdt), var.to(sdt)
+        mean_out, var_out = mean, var
+    else:
+        axes = tuple(i for i in range(x.dim()) if i != 1)
+        xf = x.to(sdt)
+        use_mean = xf.mean(axes)
+        use_var = torch.clamp_min((xf * xf).mean(axes) - use_mean * use_mean,
+                                  0.0)
+        if is_test:
+            mean_out, var_out = mean, var
+        else:
+            mean_out = (momentum * mean + (1.0 - momentum)
+                        * use_mean.detach().to(mean.dtype))
+            var_out = (momentum * var + (1.0 - momentum)
+                       * use_var.detach().to(var.dtype))
+    inv = torch.rsqrt(use_var + eps)
+    eff_scale = scale.to(sdt) * inv
+    eff_shift = bias.to(sdt) - use_mean * eff_scale
     y = (x * eff_scale.reshape(bshape).to(x.dtype)
          + eff_shift.reshape(bshape).to(x.dtype))
-    return {"Y": y, "MeanOut": mean, "VarianceOut": var,
+    return {"Y": y, "MeanOut": mean_out, "VarianceOut": var_out,
             "SavedMean": use_mean, "SavedVariance": inv}
 
 
 @register_op("softmax")
 def _softmax(ctx, ins, attrs):
     return {"Out": torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))}
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ctx, ins, attrs):
+    """cross_entropy_op: X is probabilities [N, D]; hard (int ids [N] or
+    [N, 1]) or soft ([N, D]) labels; probabilities clamped at 1e-8 before
+    the log.  Out is [N, 1] like the reference."""
+    x, label = ins["X"][0], ins["Label"][0]
+    eps = 1e-8
+    if attrs.get("soft_label", False):
+        loss = -torch.sum(label * torch.log(torch.clamp_min(x, eps)),
+                          dim=-1, keepdim=True)
+    else:
+        lab = label.long()
+        if lab.dim() == x.dim():
+            lab = lab.squeeze(-1)
+        picked = torch.gather(x, -1, lab.unsqueeze(-1))
+        loss = -torch.log(torch.clamp_min(picked, eps))
+    return {"Y": loss}

@@ -34,9 +34,9 @@ def test_mm_matches_pallas_interpret(ta, tb):
     bb = b.T.copy() if tb else b
     ref = np.asarray(jconv.pallas_matmul(jnp.asarray(aa), jnp.asarray(bb),
                                          ta, tb, 128, 128, 128, True))
-    before = conv1x1.mm.launches
+    before = conv1x1.launches()
     out = conv1x1.mm(torch.from_numpy(aa), torch.from_numpy(bb), ta, tb)
-    assert conv1x1.mm.launches == before      # CPU: plain path, no launch
+    assert conv1x1.launches() == before      # CPU: plain path, no launch
     assert out.shape == (M, N) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
     np.testing.assert_allclose(out.numpy(), a @ b, **TOL)
@@ -49,9 +49,9 @@ def test_conv2d_1x1_matches_pallas_interpret(stride):
     s = (stride, stride)
     ref = np.asarray(jconv.conv2d_1x1(jnp.asarray(x), jnp.asarray(w), s,
                                       128, 128, 128, True))
-    before = conv1x1.mm.launches
+    before = conv1x1.launches()
     out = conv1x1.conv2d_1x1(torch.from_numpy(x), torch.from_numpy(w), s)
-    assert conv1x1.mm.launches == before
+    assert conv1x1.launches() == before
     assert tuple(out.shape) == ref.shape
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
     plain = conv1x1.conv2d_1x1_reference(torch.from_numpy(x),
@@ -141,10 +141,10 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, ta, tb):
     b = (torch.randn((N, K) if tb else (K, N), device=cuda_device,
                      generator=g) / K ** 0.5).to(dt)
     torch.backends.cuda.matmul.allow_tf32 = False
-    before = conv1x1.mm.launches
+    before = conv1x1.launches()
     out = conv1x1.mm(a, b, ta, tb)
     torch.cuda.synchronize()
-    assert conv1x1.mm.launches == before + 1
+    assert conv1x1.launches() == before + 1
     ref = conv1x1.mm_reference(a, b, ta, tb)
     tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
         dict(rtol=1.6e-2, atol=1e-2)

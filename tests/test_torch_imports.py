@@ -44,6 +44,21 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, "port modules import the JAX side:\n" + "\n".join(bad)
 
 
+def test_scan_covers_the_training_modules():
+    """The scan walks the whole package: the training slice's modules are
+    in it, and importing them pulls in no JAX module either."""
+    import sys
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("backward.py", "optimizer.py", "regularizer.py", "clip.py",
+                "ops/optimizer_ops.py", "layers/tensor.py",
+                "layers/control_flow.py", "layers/ops.py"):
+        assert os.path.join("paddle_tpu_torch", rel) in scanned, rel
+    for mod in ("backward", "optimizer", "regularizer", "clip"):
+        assert getattr(ptt, mod).__name__ == f"paddle_tpu_torch.{mod}"
+    port_mods = [m for m in sys.modules if m.startswith("paddle_tpu_torch")]
+    assert "paddle_tpu_torch.ops.optimizer_ops" in port_mods
+
+
 def test_scan_sees_through_aliases(tmp_path):
     """The scanner itself: every import form of a forbidden name is
     caught, and the port's own name is not."""

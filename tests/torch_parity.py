@@ -47,3 +47,40 @@ def both(model, shape, **kwargs):
     ptt.load_numpy_state(tscope, jax_state(jscope), "cpu")
     return {"jax": (jm.clone(for_test=True), jp, jscope),
             "torch": (tm.clone(for_test=True), tp, tscope)}
+
+
+def build_train(pkg, model, shape, seed=0, lr=0.01, momentum=0.9,
+                **kwargs):
+    """(main, startup, pred, loss) of ``bench.py``'s training recipe on
+    ``pkg.models.<model>``: mean cross entropy against an int64 ``label``
+    feed, minimized by Momentum."""
+    pkg.unique_name.reset()
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = seed
+    with pkg.program_guard(main, startup):
+        img = pkg.layers.data("img", list(shape))
+        label = pkg.layers.data("label", [1], dtype="int64")
+        pred = getattr(pkg.models, model)(img, **kwargs)
+        loss = pkg.layers.mean(pkg.layers.cross_entropy(pred, label))
+        pkg.optimizer.Momentum(learning_rate=lr,
+                               momentum=momentum).minimize(loss)
+    return main, startup, pred, loss
+
+
+def both_train(model, shape, via_json=False, **kwargs):
+    """The same training program in both packages (built by each, or with
+    ``via_json`` the JAX one loaded into the port through its JSON form),
+    the JAX startup run on the CPU, and its whole scope (params, BN
+    statistics, velocities, learning rate) carried into a port scope.
+    Returns {"jax": (main, loss, scope), "torch": (main, loss, scope)}."""
+    jm, js, _, jl = build_train(pt, model, shape, **kwargs)
+    if via_json:
+        tm = ptt.Program.from_json(jm.to_json())
+        tl = tm.global_block().var(jl.name)
+    else:
+        tm, _, _, tl = build_train(ptt, model, shape, **kwargs)
+    jscope = pt.core.Scope()
+    pt.Executor(pt.CPUPlace()).run(js, scope=jscope)
+    tscope = ptt.Scope()
+    ptt.load_numpy_state(tscope, jax_state(jscope), "cpu")
+    return {"jax": (jm, jl, jscope), "torch": (tm, tl, tscope)}
