@@ -39,14 +39,30 @@ Phases, each of which raises on failure (so the script exits non-zero):
 6. library — drives the fused entry points conv2d_1x1_with_bn_stats and
              conv2d_1x1_grad_fused once per trained 1x1 conv, with the
              launch counts read around the run.
+7. attention — the long-context slice (benchmark/longctx.py --framework):
+             holds the flash-attention forward, dq and dk/dv kernels
+             against their plain versions on the card at the slice's
+             shape (BH 8, T 65536, d 64, causal, bf16) and at the other
+             forms (non-causal, cross-attention with Dv != D, head size
+             128, fp32, an lse cotangent through
+             flash_attention_with_lse); trains the long-context program
+             (Executor(amp=True).run_steps at T 65536) with the launch
+             counts read around the run, holds one step's loss and q/k/v
+             gradients against the plain path computed in fp32, profiles
+             a step; times the raw step and each kernel at 16k, 32k and
+             64k tokens beside its bound, its plain version and
+             torch's scaled_dot_product_attention (a yardstick the port
+             never calls).
 
-Before the last line it prints one JSON line describing each kernel, and
-the card's name and power limit; the last line is
+The kernels of both sources build at once, one nvcc each.  Before the
+last line it prints one JSON line describing each kernel, and the card's
+name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import re
@@ -139,6 +155,33 @@ LOSS_FLOOR = 1e-6
 # SUM_TOL * sum of |terms| (the summation order differs).
 SUM_TOL = 1e-5
 
+# The long-context slice: benchmark/longctx.py's framework step at full
+# width (8 heads x 65536 tokens x d 64, causal, bf16 under AMP).
+ATT_HEADS, ATT_T, ATT_DIM = 8, 65536, 64
+ATT_STEPS = 3
+ATT_TABLE_T = (16384, 32768, 65536)    # the raw-function table, :115-127
+# Kernel vs plain version on identical inputs, elementwise, on [BH, T,
+# width] tensors: |kernel - plain| <= tol * (|plain| + max |plain| over
+# the element's tile of ATT_TILE rows), query tiles for out and dq, key
+# tiles for dk and dv.  The scale is the tile's, not the tensor's: under
+# the causal mask a row's scale falls with its position (out row i is
+# about sqrt(e / i), row 0 is v[0]), so a tensor-wide scale would let the
+# late tiles be wrong.  A result whose rows from T/2 on are halved or
+# zeroed fails it (its error at a late tile's largest element is half of
+# that tile's scale or more, against 2 tol of it), and the script checks
+# that on the data at hand.  fp32: exact fp32 products on both sides,
+# another summation order.  bf16: the kernel rounds p and ds to bf16 for
+# the tensor cores (relative 2^-9 per term) and rounds its output once;
+# the plain version keeps them fp32.  lse is fp32 on both sides
+# (absolute).
+ATT_TILE = 64
+ATT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-3
+# One training step against the plain path in fp32 from the same bf16
+# q, k, v: the AMP step also rounds o * o, the mean, the scale and the
+# cotangent 2e-3 o / N to bf16 (a few 2^-8 each).
+STEP_TOL = 3e-2
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -185,23 +228,50 @@ def phase_device():
     return card
 
 
+def kernel_name(source, line):
+    """The kernel that a ptxas "Compiling entry" line of ``source``
+    names, or None."""
+    if source == "conv1x1_mm":
+        m = re.search(r"(mm_bf16_wmma|mm_f32_simt)ILb(\d)ELb(\d)E", line)
+        if m:
+            return f"{m.group(1)}<ta={m.group(2)},tb={m.group(3)}>"
+        return "splitk_reduce" if "splitk_reduce" in line else None
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32))"
+                  r"(?:ILi(\d+)E)?", line)
+    if m:
+        return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    return None
+
+
 def phase_build():
+    """Build every kernel source at once (one nvcc each), load them, and
+    print each kernel's registers, shared memory and spills."""
     from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    def build(mod):
+        t0 = time.perf_counter()
+        return mod.build(), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = conv1x1.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = {name: pool.submit(build, mod) for name, mod in
+                (("conv1x1_mm", conv1x1), ("flash_attn", fa))}
+        built = {name: job.result() for name, job in jobs.items()}
     conv1x1._library()
-    print(f"[build] conv1x1_mm.cu (nvcc sm_90a) "
-          f"{time.perf_counter() - t0:.2f} s")
-    entry = None
-    with open(path + ".ptxas.txt") as fh:
-        for line in fh:
-            m = re.search(r"(mm_bf16_wmma|mm_f32_simt)ILb(\d)ELb(\d)E", line)
-            if "Compiling entry" in line and m:
-                entry = f"{m.group(1)}<ta={m.group(2)},tb={m.group(3)}>"
-            elif "Compiling entry" in line and "splitk_reduce" in line:
-                entry = "splitk_reduce"
-            elif "Used" in line and entry:
-                print(f"[build] {entry}: {line.split(':', 1)[1].strip()}")
+    fa._library()
+    print(f"[build] conv1x1_mm.cu and flash_attn.cu (nvcc sm_90a, in "
+          f"parallel) {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{n} {t:.2f} s" for n, (_, t) in built.items()))
+    for name, (path, _) in built.items():
+        entry = None
+        with open(path + ".ptxas.txt") as fh:
+            for line in fh:
+                if "Compiling entry" in line:
+                    entry = kernel_name(name, line)
+                elif entry and ("Used" in line or "spill" in line):
+                    print(f"[build] {entry}: "
+                          f"{line.split(':', 1)[-1].strip()}")
 
 
 def conv_geometry(program, batch):
@@ -616,9 +686,16 @@ def profile_dispatch(exe, infer, feed, pred, scope, runs=3):
     print_profile("profile", f"batch-{BATCH} dispatch", prof, wall_ms, runs)
 
 
-def print_profile(tag, what, prof, wall_ms, runs):
-    """Device busy time, idle share, the 1x1 kernels' share and the top
-    kernels of a profiled window of ``runs`` repetitions."""
+CONV_KERNELS = ("conv1x1_mm", ("mm_bf16_wmma", "mm_f32_simt",
+                                "splitk_reduce"))
+ATT_KERNELS = ("flash_attn", ("flash_fwd_", "flash_bwd_dq_",
+                              "flash_bwd_dkv_"))
+
+
+def print_profile(tag, what, prof, wall_ms, runs, own=CONV_KERNELS):
+    """Device busy time, idle share, the share of the port's kernels
+    ``own`` = (label, name fragments) and the top kernels of a profiled
+    window of ``runs`` repetitions."""
     rows = []
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total", None)
@@ -630,15 +707,16 @@ def print_profile(tag, what, prof, wall_ms, runs):
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"[{tag}] torch.profiler recorded no device time")
-        return
+        return rows
     print(f"[{tag}] {what}: wall {wall_ms / runs:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy * runs / wall_ms:.3f}")
-    kernel = sum(r[0] for r in rows if "mm_bf16_wmma" in r[2]
-                 or "mm_f32_simt" in r[2] or "splitk_reduce" in r[2])
-    print(f"[{tag}] conv1x1_mm {kernel:.3f} ms "
+    label, frags = own
+    kernel = sum(r[0] for r in rows if any(f in r[2] for f in frags))
+    print(f"[{tag}] {label} {kernel:.3f} ms "
           f"({kernel / busy:.3f} of device time)")
     for ms, n, name in sorted(rows, reverse=True)[:15]:
         print(f"[{tag}] {ms:8.3f} ms {n:5d}x {name[:100]}")
+    return rows
 
 
 def build_resnet50_train(seed):
@@ -919,6 +997,377 @@ def phase_library(seed, shapes_with_geometry):
     return by_form
 
 
+# ---------------------------------------------------------------------------
+# [attention] the long-context slice
+# ---------------------------------------------------------------------------
+ATT_FORMS = {       # label: (BH, Tq, Tk, D, Dv, causal, dtype)
+    "slice": (ATT_HEADS, ATT_T, ATT_T, ATT_DIM, ATT_DIM, True,
+              torch.bfloat16),
+    "non-causal": (8, 4096, 4096, 64, 64, False, torch.bfloat16),
+    "cross, Dv != D": (4, 2048, 4096, 64, 128, False, torch.bfloat16),
+    "head 128": (4, 4096, 4096, 128, 128, True, torch.bfloat16),
+    "fp32": (4, 2048, 2048, 64, 64, True, torch.float32),
+}
+ATT_SOURCE = "paddle_tpu_torch/csrc/flash_attn.cu"
+ATT_REPLACES = {"fwd": "paddle_tpu/ops/pallas_kernels.py:56",
+                "bwd_dq": "paddle_tpu/ops/pallas_kernels.py:150",
+                "bwd_dkv": "paddle_tpu/ops/pallas_kernels.py:195"}
+
+
+def att_bound(kernel, BH, Tq, Tk, D, Dv, causal, dtype):
+    """(bound ms, "bytes" or "operations") of one flash-attention kernel
+    on these inputs: its products over the (query, key) pairs the mask
+    keeps (forward: s and p v; dq: s, dp, ds k; dk/dv: s, dp, p^T dO,
+    ds^T q), and each input read once and each output written once."""
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+    size = 2 if dtype == torch.bfloat16 else 4
+    q, k, v, o = BH * Tq * D, BH * Tk * D, BH * Tk * Dv, BH * Tq * Dv
+    rows = 4 * BH * Tq                  # one fp32 per query row
+    width, outs, nrows = {"fwd": (D + Dv, o, 1),
+                          "bwd_dq": (2 * D + Dv, q, 2),
+                          "bwd_dkv": (2 * D + 2 * Dv, k + v, 2)}[kernel]
+    ins = q + k + v + (o if kernel != "fwd" else 0)
+    return gemm_bound_ms(2.0 * BH * pairs * width,
+                         (ins + outs) * size + nrows * rows, dtype)
+
+
+def att_close(label, got, want, tol):
+    """Hold ``got`` to ``want`` ([BH, T, width]) elementwise: |got - want|
+    <= tol * (|want| + max |want| over the element's tile of ATT_TILE
+    rows).  Fails first if a result with its rows from T/2 on halved or
+    zeroed would pass, i.e. if the rule says nothing about the late tiles
+    on this data.  Returns (max abs error, largest error / limit)."""
+    got, want = got.float(), want.float()
+    BH, T, W = want.shape
+    n = -(-T // ATT_TILE)                   # a ragged last tile is padded
+    tiles = torch.nn.functional.pad(want.abs(), (0, 0, 0, n * ATT_TILE - T))
+    tiles = tiles.reshape(BH, n, ATT_TILE * W).amax(-1)
+    lim = tol * (want.abs()
+                 + tiles.repeat_interleave(ATT_TILE, 1)[:, :T, None])
+    late = torch.arange(T, device=want.device)[None, :, None] >= T // 2
+    for bad, what in ((torch.where(late, want * 0.5, want), "halved"),
+                      (torch.where(late, 0.0, want), "zeroed")):
+        if bool(((bad - want).abs() <= lim).all()):
+            raise RuntimeError(f"chip_smoke: {label}: a result with rows "
+                               f"{T // 2}.. {what} passes tol {tol}")
+    err = (got - want).abs()
+    used = (err / lim).max().item()
+    if not used <= 1.0:
+        i = int((err - lim).argmax())
+        raise RuntimeError(f"chip_smoke: {label}: element {i} is "
+                           f"{got.flatten()[i].item()}, plain "
+                           f"{want.flatten()[i].item()} (tol {tol})")
+    return err.max().item(), used
+
+
+def sdpa_ms(q, k, v, g, causal):
+    """torch's scaled_dot_product_attention on [1, BH, T, D]: (forward
+    ms, backward ms); a yardstick, never called by the port."""
+    F = torch.nn.functional
+    q4, k4, v4 = (x.detach().unsqueeze(0).requires_grad_(True)
+                  for x in (q, k, v))
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal), iters=5, warmup=1)
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+    g4 = g.unsqueeze(0)
+    bwd = time_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), g4,
+                                              retain_graph=True),
+                  iters=5, warmup=1)
+    return fwd, bwd
+
+
+def att_inputs(g, BH, Tq, Tk, D, Dv, dtype):
+    def rn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+    return rn(BH, Tq, D), rn(BH, Tk, D), rn(BH, Tk, Dv), rn(BH, Tq, Dv)
+
+
+def hold_attention_form(fa, g, label, form, timed=False):
+    """K2, K3 and K4 against their plain versions on one form; with
+    ``timed``, also each kernel's time, the plain versions', the
+    library's and the bounds."""
+    BH, Tq, Tk, D, Dv, causal, dtype = form
+    q, k, v, gg = att_inputs(g, BH, Tq, Tk, D, Dv, dtype)
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    ro, rl = fa.flash_fwd_reference(q, k, v, causal)
+    grads = fa.flash_bwd(q, k, v, out, lse, gg, causal)
+    refs = fa.flash_bwd_reference(q, k, v, out, lse, gg, causal)
+    torch.cuda.synchronize()
+    tol = ATT_TOL[dtype]
+    e_out, u_out = att_close(f"{label} out", out, ro, tol)
+    e_lse = (lse - rl).abs().max().item()
+    if not e_lse <= LSE_TOL:
+        raise RuntimeError(f"chip_smoke: {label} lse differs by {e_lse}")
+    held = [att_close(f"{label} d{n}", a, b, tol)
+            for n, a, b in zip("qkv", grads, refs)]
+    print(f"[attention] {label}: BH={BH} Tq={Tq} Tk={Tk} D={D} Dv={Dv} "
+          f"causal={causal} {str(dtype)[6:]}: max_abs_err out {e_out:.3e} "
+          f"lse {e_lse:.3e} (limit {LSE_TOL}) dq {held[0][0]:.3e} dk "
+          f"{held[1][0]:.3e} dv {held[2][0]:.3e}; largest error / limit "
+          f"{max([u_out] + [h[1] for h in held]):.3f} (tol {tol})")
+    row = {"err": {"fwd": e_out, "bwd_dq": held[0][0],
+                   "bwd_dkv": max(held[1][0], held[2][0])}}
+    del ro, rl, refs, grads
+    if timed:
+        delta = fa.flash_delta(gg, out)
+        row["ms"] = {
+            "fwd": time_ms(lambda: fa.flash_fwd(q, k, v, causal), 5, 1),
+            "bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+                q, k, v, gg, lse, delta, causal), 5, 1),
+            "bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+                q, k, v, gg, lse, delta, causal), 5, 1)}
+        row["plain_ms"] = {
+            "fwd": time_ms(lambda: fa.flash_fwd_reference(q, k, v, causal),
+                           1, 0),
+            "bwd": time_ms(lambda: fa.flash_bwd_reference(
+                q, k, v, out, lse, gg, causal), 1, 0)}
+        row["library_ms"] = dict(zip(("fwd", "bwd"),
+                                     sdpa_ms(q, k, v, gg, causal)))
+        row["bound"] = {n: att_bound(n, *form) for n in ATT_REPLACES}
+    del q, k, v, gg, out, lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def hold_attention_with_lse(fa, g):
+    """flash_attention_with_lse with cotangents on both outputs: the
+    gradients through _FlashLse (K2 forward, K3 and K4 with delta - g_lse)
+    against the plain backward with the same g_lse."""
+    BH, T, D = 8, 8192, 64
+    q, k, v, gg = att_inputs(g, BH, T, T, D, D, torch.bfloat16)
+    gl = torch.randn(BH, T, 1, device="cuda", generator=g)
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+    before = dict(fa.launches)
+    out, lse = fa.flash_attention_with_lse(*leaves, causal=True,
+                                           block_q=1024, block_k=1024)
+    torch.autograd.backward((out, lse), (gg, gl))
+    ran = {n: fa.launches[n] - before.get(n, 0) for n in ATT_REPLACES}
+    ro, rl = fa.flash_fwd_reference(q.detach(), k.detach(), v.detach(), True)
+    refs = fa.flash_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                  out.detach(), lse.detach(), gg, True,
+                                  g_lse=gl)
+    torch.cuda.synchronize()
+    tol = ATT_TOL[torch.bfloat16]
+    att_close("with_lse out", out.detach(), ro, tol)
+    e_lse = (lse.detach() - rl).abs().max().item()
+    held = [att_close(f"with_lse d{n}", leaf.grad, ref, tol)
+            for n, leaf, ref in zip("qkv", leaves, refs)]
+    if ran != {n: 1 for n in ATT_REPLACES} or not e_lse <= LSE_TOL:
+        raise RuntimeError(f"chip_smoke: with_lse: launches {ran}, lse "
+                           f"error {e_lse}")
+    print(f"[attention] flash_attention_with_lse BH={BH} T={T} D={D} "
+          f"causal bf16, cotangents on out and lse: launches {ran}; "
+          f"max_abs_err dq {held[0][0]:.3e} dk {held[1][0]:.3e} dv "
+          f"{held[2][0]:.3e} lse {e_lse:.3e}; largest error / limit "
+          f"{max(h[1] for h in held):.3f} (tol {tol})")
+
+
+def phase_attention_kernels(seed):
+    """Every form of K2-K4 against its plain version; the slice's form
+    timed.  Returns the slice's row."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    rows = {label: hold_attention_form(fa, g, label, form,
+                                       timed=label == "slice")
+            for label, form in ATT_FORMS.items()}
+    hold_attention_with_lse(fa, g)
+    torch.cuda.empty_cache()
+    return rows["slice"]
+
+
+def build_longctx(seed, T=ATT_T):
+    """benchmark/longctx.py's framework program (:210-228) in the port:
+    three [heads, T, d] parameters (Xavier, from --seed), causal
+    layers.flash_attention with 1024 x 1024 blocks, the loss
+    scale(mean(o * o), 1e-3), SGD(1e-6)."""
+    import paddle_tpu_torch as ptt
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = seed
+    with ptt.program_guard(main, startup):
+        helper = ptt.layer_helper.LayerHelper("lc")
+        q, k, v = (helper.create_parameter(
+            ptt.ParamAttr(name=f"lc_{n}"), shape=[ATT_HEADS, T, ATT_DIM],
+            dtype="float32") for n in "qkv")
+        o = ptt.layers.flash_attention(q, k, v, causal=True, block_q=1024,
+                                       block_k=1024)
+        loss = ptt.layers.scale(
+            ptt.layers.mean(ptt.layers.elementwise_mul(o, o)), 1e-3)
+        ptt.optimizer.SGD(learning_rate=1e-6).minimize(loss)
+    return main, startup, loss
+
+
+def hold_attention_step(fa, exe, main, loss, start):
+    """One AMP step's loss and q/k/v gradients against the plain path
+    computed in fp32 from the same bf16 q, k, v."""
+    scope = clone_scope(start)
+    fetched = exe.run(main, fetch_list=[loss.name, "lc_q@GRAD", "lc_k@GRAD",
+                                        "lc_v@GRAD"], scope=scope,
+                      return_numpy=False)
+    q, k, v = (start.get(f"lc_{n}").to(torch.bfloat16).float() for n in "qkv")
+    o, lse = fa.flash_fwd_reference(q, k, v, True)
+    loss_ref = 1e-3 * (o.double() ** 2).mean().item()
+    # the chain rule of scale(mean(o * o), 1e-3): dloss/do = 2e-3 o / N
+    g = o * (2e-3 / o.numel())
+    refs = fa.flash_bwd_reference(q, k, v, o, lse, g, True)
+    torch.cuda.synchronize()
+    if any(t.dtype != torch.float32 for t in fetched):
+        raise RuntimeError(f"chip_smoke: the AMP step fetched "
+                           f"{[t.dtype for t in fetched]}, not fp32")
+    rel = abs(fetched[0].item() - loss_ref) / abs(loss_ref)
+    if not rel <= STEP_TOL:
+        raise RuntimeError(f"chip_smoke: the step's loss "
+                           f"{fetched[0].item()} is {rel:.3e} from the "
+                           f"plain path's {loss_ref}")
+    held = [att_close(f"step lc_{n}@GRAD", got, ref, STEP_TOL)
+            for n, got, ref in zip("qkv", fetched[1:], refs)]
+    print(f"[attention] one AMP step (bf16 kernels, fp32 loss and "
+          f"gradients) vs the plain path in fp32: loss "
+          f"{fetched[0].item():.6e} vs {loss_ref:.6e} (relative "
+          f"{rel:.3e}); lc_q/k/v@GRAD max_abs_err "
+          + ", ".join(f"{h[0]:.3e}" for h in held)
+          + f" at max |grad| "
+          + ", ".join(f"{r.abs().max().item():.3e}" for r in refs)
+          + f"; largest error / limit {max(h[1] for h in held):.3f} "
+          f"(tol {STEP_TOL})")
+
+
+def phase_attention_train(seed, card):
+    """The slice's main path: the long-context program under
+    Executor(amp=True).run_steps at T 65536, with the launch counts read
+    around it; then one step held against the plain path, and a profile."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from torch.profiler import ProfilerActivity, profile
+    main, startup, loss = build_longctx(seed)
+    start = ptt.Scope()
+    exe = ptt.Executor(amp=True)
+    exe.run(startup, scope=start)
+    exe.run_steps(1, main, fetch_list=[loss], scope=clone_scope(start))
+    scope = clone_scope(start)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts to 0, K steps, read the counts
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    losses, = exe.run_steps(ATT_STEPS, main, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes = dict(fa.launches), dict(fa.reference_route)
+    by_dtype = dict(fa.launches_by_dtype)
+    ms = wall * 1e3 / ATT_STEPS
+    print(f"[attention] train: long-context program, {ATT_HEADS} heads x "
+          f"{ATT_T} tokens x d {ATT_DIM}, causal, Executor(amp=True)"
+          f".run_steps({ATT_STEPS}): {ms:.3f} ms/step, "
+          f"{ATT_T * 1e3 / ms:.0f} tokens/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; losses "
+          f"{losses.tolist()}; launches {counts} (by dtype {by_dtype}), "
+          f"reference route {routes} on {card}")
+    want = {n: ATT_STEPS for n in ATT_REPLACES}
+    # under AMP the fp32 leaves reach the kernels as bf16 copies
+    want_dtype = {(n, torch.bfloat16): ATT_STEPS for n in ATT_REPLACES}
+    if counts != want or by_dtype != want_dtype or routes:
+        raise RuntimeError(f"chip_smoke: the long-context steps launched "
+                           f"{by_dtype} (reference route {routes}), "
+                           f"expected {want_dtype} and none")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"chip_smoke: non-finite loss {losses}")
+    hold_attention_step(fa, exe, main, loss, start)
+    scope = clone_scope(start)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run_steps(1, main, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = print_profile("attention", f"long-context training step (T "
+                         f"{ATT_T})", prof, wall_ms, 1, own=ATT_KERNELS)
+    if not rows:
+        raise RuntimeError("chip_smoke: the profiled AMP step recorded no "
+                           "device time")
+    ran = {name for _, _, name in rows}
+    missing = [k for k in ("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                           "flash_bwd_dkv_bf16")
+               if not any(k in name for name in ran)]
+    if missing:
+        raise RuntimeError(f"chip_smoke: the profiled AMP step ran no "
+                           f"{missing}")
+    del start, scope
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_attention_table(seed, card):
+    """The raw function step (longctx.py:115-127: causal attention,
+    loss sum(o^2) * 1e-6, its gradients and an SGD touch) at 16k, 32k
+    and 64k tokens, and each kernel's time beside its bound, the plain
+    versions' and the library's."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    for T in ATT_TABLE_T:
+        form = (ATT_HEADS, T, T, ATT_DIM, ATT_DIM, True, torch.bfloat16)
+        q, k, v, gg = att_inputs(g, *form[:5], torch.bfloat16)
+        leaves = [x.requires_grad_(True) for x in (q, k, v)]
+
+        def step():
+            o = fa.flash_attention(*leaves, causal=True, block_q=1024,
+                                   block_k=1024)
+            loss = (o.float() ** 2).sum() * 1e-6
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                for x, gx in zip(leaves, grads):
+                    x.sub_(1e-6 * gx)
+
+        step_ms = time_ms(step, iters=3, warmup=1)
+        with torch.no_grad():
+            out, lse = fa.flash_fwd(q, k, v, True)
+            delta = fa.flash_delta(gg, out)
+            ms = {"fwd": time_ms(lambda: fa.flash_fwd(q, k, v, True), 5, 1),
+                  "bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+                      q, k, v, gg, lse, delta, True), 5, 1),
+                  "bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(
+                      q, k, v, gg, lse, delta, True), 5, 1)}
+            plain = time_ms(lambda: (fa.flash_fwd_reference(q, k, v, True),
+                                     fa.flash_bwd_reference(
+                                         q, k, v, out, lse, gg, True)), 1, 0)
+        lib_f, lib_b = sdpa_ms(q, k, v, gg, True)
+        bounds = {n: att_bound(n, *form) for n in ms}
+        print(f"[attention] raw step T={T}: {step_ms:.3f} ms/step, "
+              f"{T * 1e3 / step_ms:.0f} tokens/s; "
+              + "; ".join(f"{n} {ms[n]:.3f} ms (bound {bounds[n][0]:.3f} ms, "
+                          f"{bounds[n][1]}, {bounds[n][0] / ms[n]:.3f} of it)"
+                          for n in ms)
+              + f"; plain forward + backward {plain:.1f} ms; library "
+              f"(scaled_dot_product_attention) forward {lib_f:.3f} ms, "
+              f"backward {lib_b:.3f} ms, on {card}")
+        del q, k, v, gg, leaves, out, lse, delta
+        torch.cuda.empty_cache()
+
+
+def attention_entries(row, launches):
+    """The kernels JSON entries of K2, K3 and K4: times, errors and
+    bounds at the slice's shape, launches from the main path's run."""
+    entries = []
+    for name in ATT_REPLACES:
+        plain = row["plain_ms"]["fwd" if name == "fwd" else "bwd"]
+        lib = row["library_ms"]["fwd" if name == "fwd" else "bwd"]
+        b_ms, b_by = row["bound"][name]
+        entry = {
+            "name": f"flash_attn {name}", "route": "cuda",
+            "source": ATT_SOURCE, "replaces": ATT_REPLACES[name],
+            "path": "train-longctx", "launches": launches.get(name, 0),
+            "max_abs_err": row["err"][name], "ms": row["ms"][name],
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib}
+        if name != "fwd":
+            # one plain function and one library call compute dq, dk and
+            # dv together: compare with bwd_dq + bwd_dkv
+            entry["plain_and_library_cover"] = "dq, dk and dv"
+        entries.append(entry)
+    return entries
+
+
 def kernel_entry(name, source_line, path, launches, rows, shapes, form,
                  dtype=torch.bfloat16):
     """One entry of the kernels JSON line: times summed over ``shapes``
@@ -975,6 +1424,10 @@ def main():
     torch.cuda.empty_cache()
     l_forms = phase_library(args.seed,
                             conv_geometry(train_main, TRAIN_BATCH))
+    torch.cuda.empty_cache()
+    att_row = phase_attention_kernels(args.seed)
+    att_launches = phase_attention_train(args.seed, card)
+    phase_attention_table(args.seed, card)
 
     # the forward: one batch-32 forward of the served path (bf16)
     forward = kernel_entry("conv1x1_mm forward (ta=0 tb=1)", 69, "serve",
@@ -1016,6 +1469,13 @@ def main():
           f"{len(train_shapes)} bf16 launches of one batch-{TRAIN_BATCH} "
           f"training step, launches from the {TRAIN_STEPS}-step training "
           f"run (path train) or the fused entry points' run (path library)")
+    kernels += attention_entries(att_row, att_launches)
+    for k in kernels[-3:]:
+        print(f"[summary] {k['name']} at BH {ATT_HEADS} x T {ATT_T} x d "
+              f"{ATT_DIM}, causal, bf16: kernel {k['ms']:.3f} ms, bound "
+              f"{k['bound_ms']:.3f} ms ({k['bound_by']}), library "
+              f"{k['library_ms']:.3f} ms, plain {k['plain_ms']:.1f} ms; "
+              f"{k['launches']} launches in the {ATT_STEPS}-step run")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

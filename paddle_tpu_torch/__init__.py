@@ -12,8 +12,12 @@ initializers, the layers and ops ResNet uses, the executor with bf16
 inference AMP, ``serving.Model``/``serving.Server``), ResNet training
 (``append_backward``, SGD and Momentum, regularizers, gradient clips,
 batch-statistics batch norm, cross entropy, the executor's backward
-under AMP and ``run_steps``), and one kernel, the 1x1-convolution matrix
-product with its gradients and epilogues (``ops/conv1x1.py``).
+under AMP and ``run_steps``), long-context attention training
+(``layers.flash_attention``, ``nets.scaled_dot_product_attention``,
+``matmul``, ``dropout``, ``square_error_cost``), and two kernels: the
+1x1-convolution matrix product with its gradients and epilogues
+(``ops/conv1x1.py``) and flash attention, forward and backward
+(``ops/flash_attention.py``).
 """
 
 from . import core
@@ -23,7 +27,7 @@ from .core import (
     pad_batch, unique_name,
 )
 from . import ops  # noqa: F401  (registers every op implementation)
-from . import flags, initializer, layers, models
+from . import flags, initializer, layer_helper, layers, models, nets
 from . import optimizer, regularizer, clip, backward
 from .backward import append_backward
 from .param_attr import ParamAttr
@@ -34,7 +38,8 @@ __all__ = [
     "core", "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
     "default_main_program", "default_startup_program", "global_scope",
     "program_guard", "stack_feeds", "pad_batch", "unique_name", "ops",
-    "flags", "initializer", "layers", "models", "optimizer",
+    "flags", "initializer", "layer_helper", "layers", "models", "nets",
+    "optimizer",
     "regularizer", "clip", "backward", "append_backward", "ParamAttr",
     "load_numpy_state", "faults",
 ]

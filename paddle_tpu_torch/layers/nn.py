@@ -1,8 +1,8 @@
 """NN layer functions building program ops (counterpart of
 ``paddle_tpu/layers/nn.py``).  Each function appends the same op types
 with the same attrs as its JAX twin, so both packages build the same
-program.  Only the layers the ResNet serving and training paths and the
-gradient clips use are ported."""
+program.  Only the layers the ResNet serving and training paths, the
+gradient clips and the attention slice use are ported."""
 from __future__ import annotations
 
 from ..initializer import ConstantInitializer
@@ -12,7 +12,8 @@ from ..param_attr import ParamAttr
 __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
            "elementwise_max", "elementwise_min", "scale", "mean",
-           "cross_entropy", "clip", "clip_by_norm"]
+           "cross_entropy", "clip", "clip_by_norm", "softmax", "matmul",
+           "dropout", "square_error_cost", "flash_attention"]
 
 
 def _pair(v):
@@ -232,4 +233,78 @@ def cross_entropy(input, label, soft_label=False, name=None):
     helper.append_op(type="cross_entropy",
                      inputs={"X": [input], "Label": [label]},
                      outputs={"Y": [out]}, attrs={"soft_label": soft_label})
+    return out
+
+
+def softmax(input, axis=-1, use_cudnn=True, name=None):
+    return _unary_layer("softmax", input, {"axis": axis}, name)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    """Batched matrix product with optional transposes of the last two
+    dims (``layers/nn.py:679``)."""
+    helper = LayerHelper("matmul", name=name)
+    shape = None
+    if x.shape is not None and y.shape is not None \
+            and len(x.shape) >= 2 and len(y.shape) >= 2:
+        xs = x.shape[:-2] + (x.shape[-1], x.shape[-2]) if transpose_x \
+            else x.shape
+        ys = y.shape[:-2] + (y.shape[-1], y.shape[-2]) if transpose_y \
+            else y.shape
+        batch = xs[:-2] if len(xs) >= len(ys) else ys[:-2]
+        shape = tuple(batch) + (xs[-2], ys[-1])
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape,
+                                                    lod_level=x.lod_level)
+    mask = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op(type="dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed or 0,
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+def square_error_cost(input, label, name=None):
+    """Elementwise squared error, the ``mse_loss`` op."""
+    helper = LayerHelper("mse_loss", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op(type="mse_loss", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def flash_attention(q, k, v, causal=False, block_q=None, block_k=None,
+                    sequence_parallel=True, interpret=False, name=None):
+    """Fused O(T)-memory attention on the hand-written CUDA kernels
+    (``ops/flash_attention.py``).  q/k/v: [B, T, H, D] or [BH, T, D].
+
+    ``block_q``/``block_k`` default to 1024 x 1024, the JAX layer's
+    default with autotuning off (the port has no tunable registry yet);
+    they are the TPU tile sizes and here decide only the plain route
+    for ragged lengths.  ``sequence_parallel`` and ``interpret`` are
+    recorded as op attrs, as the JAX layer does, and ignored by the
+    port's op."""
+    block_q = 1024 if block_q is None else block_q
+    block_k = 1024 if block_k is None else block_k
+    helper = LayerHelper("flash_attention", name=name)
+    out_shape = tuple(q.shape[:-1]) + (v.shape[-1],)
+    out = helper.create_variable_for_type_inference(q.dtype, out_shape)
+    helper.append_op(type="flash_attention",
+                     inputs={"Q": [q], "K": [k], "V": [v]},
+                     outputs={"Out": [out]},
+                     attrs={"causal": causal, "block_q": block_q,
+                            "block_k": block_k,
+                            "sequence_parallel": sequence_parallel,
+                            "interpret": interpret})
     return out

@@ -29,19 +29,17 @@ the transposes of ``_pm_bwd`` (``pallas_conv.py:235-246``), so
 
 The kernel is compiled from the package's sources with ``nvcc`` at first
 use into ``build/`` at the repository root, and bound with ``ctypes``
-(a plain C interface; no PyTorch headers).
+(a plain C interface; no PyTorch headers), by ``ops/cuda_build.py``.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import threading
 
 import torch
+
+from . import cuda_build
 
 __all__ = ["mm", "mm_reference", "matmul", "split_k", "splitk_reduce",
            "splitk_reduce_reference", "conv2d_1x1",
@@ -50,11 +48,7 @@ __all__ = ["mm", "mm_reference", "matmul", "split_k", "splitk_reduce",
            "reset_counts",
            "build", "SOURCE"]
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "conv1x1_mm.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(cuda_build.CSRC_DIR, "conv1x1_mm.cu")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = {torch.bfloat16: 128, torch.float32: 64}   # the kernels' M/N tile
@@ -74,67 +68,26 @@ _BLOCKS_PER_SM = 2
 _MIN_SLAB_K = 512
 _K_STEP = 32
 
-_lib = None
-_lib_lock = threading.Lock()
 _sm_counts = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError(
-        "conv1x1_mm: nvcc not found (PATH, $CUDA_HOME/bin, "
-        "/usr/local/cuda/bin); the CUDA toolkit is needed to build the "
-        "kernel for a CUDA tensor")
 
 
 def build() -> str:
     """Compile ``csrc/conv1x1_mm.cu`` for sm_90a into ``build/`` (keyed by
     the source's content hash, so an edited source rebuilds) and return
-    the library's path.  The compiler's ``-Xptxas -v`` report (registers,
-    shared memory, spills per kernel) is kept beside it, in
-    ``<library>.ptxas.txt``."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libconv1x1_mm-{digest}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-Xptxas", "-v", "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"conv1x1_mm: nvcc failed ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    with open(path + ".ptxas.txt", "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
-    return path
+    the library's path; ``cuda_build.build`` keeps the ``-Xptxas -v``
+    report beside it, in ``<library>.ptxas.txt``."""
+    return cuda_build.build(SOURCE)
 
 
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.conv1x1_mm.argtypes = [
-                ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-                ptr, ptr, ptr, ptr, ptr]
-            lib.conv1x1_mm.restype = i32
-            lib.conv1x1_mm_splitk_reduce.argtypes = [
-                ptr, i32, ctypes.c_longlong, ptr, i32, ptr, ptr, i32, ptr]
-            lib.conv1x1_mm_splitk_reduce.restype = i32
-            lib.conv1x1_mm_error_string.argtypes = [i32]
-            lib.conv1x1_mm_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.load(SOURCE, {
+        "conv1x1_mm": ([ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+                        i32, i32, ptr, ptr, ptr, ptr, ptr], i32),
+        "conv1x1_mm_splitk_reduce": ([ptr, i32, ctypes.c_longlong, ptr, i32,
+                                      ptr, ptr, i32, ptr], i32),
+        "conv1x1_mm_error_string": ([i32], ctypes.c_char_p),
+    })
 
 
 def _dims(a, b, ta, tb):

@@ -1,7 +1,7 @@
-"""Math ops of the ResNet paths (counterpart of the elementwise family,
-``mul``, ``mean``, ``scale``, ``increment``, ``sum``, ``sign``, ``clip``,
-``clip_by_norm`` in ``paddle_tpu/ops/math_ops.py`` and
-``squared_l2_norm`` in ``paddle_tpu/ops/loss_ops.py``)."""
+"""Math ops of the ported paths (counterpart of the elementwise family,
+``mul``, ``matmul``, ``mean``, ``scale``, ``increment``, ``sum``,
+``sign``, ``clip``, ``clip_by_norm`` in ``paddle_tpu/ops/math_ops.py``
+and ``squared_l2_norm`` in ``paddle_tpu/ops/loss_ops.py``)."""
 from __future__ import annotations
 
 import torch
@@ -56,6 +56,23 @@ def _mul(ctx, ins, attrs):
     x2 = x.reshape(_prod(xs[:xn]), _prod(xs[xn:]))
     y2 = y.reshape(_prod(ys[:yn]), _prod(ys[yn:]))
     return {"Out": torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])}
+
+
+@register_op("matmul")
+def _matmul(ctx, ins, attrs):
+    """matmul_op semantics (``math_ops.py:76-89``): optional transposes of
+    the last two dims, batched stacks, ``alpha``; a plain product, as
+    XLA did it."""
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
 
 
 @register_op("sum")

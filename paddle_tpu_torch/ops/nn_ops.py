@@ -1,6 +1,6 @@
-"""NN ops of the ResNet serving and training paths (counterpart of
-``conv2d``, ``pool2d``, ``batch_norm``, ``softmax`` and ``cross_entropy``
-in ``paddle_tpu/ops/nn_ops.py``).
+"""NN ops of the ported paths (counterpart of ``conv2d``, ``pool2d``,
+``batch_norm``, ``softmax``, ``cross_entropy`` and ``dropout`` in
+``paddle_tpu/ops/nn_ops.py``).
 
 Data layout is NCHW, as in the JAX package.  Eligible 1x1 convolutions
 go to the hand-written kernel (``ops/conv1x1.py``), whose autograd
@@ -151,3 +151,24 @@ def _cross_entropy(ctx, ins, attrs):
         picked = torch.gather(x, -1, lab.unsqueeze(-1))
         loss = -torch.log(torch.clamp_min(picked, eps))
     return {"Y": loss}
+
+
+@register_op("dropout")
+def _dropout(ctx, ins, attrs):
+    """dropout_op (``nn_ops.py:369-386``): train: x * mask, mask ~
+    Bernoulli(1 - p) from the op's generator (``upscale_in_train`` also
+    divides by 1 - p); test: x * (1 - p), or x for ``upscale_in_train``.
+    The mask draws differ from JAX's; its distribution does not."""
+    x = ins["X"][0]
+    p = attrs.get("dropout_prob", 0.5)
+    upscale = attrs.get("dropout_implementation", "downgrade_in_infer") \
+        == "upscale_in_train"
+    if attrs.get("is_test", False) or ctx.is_test:
+        out = x if upscale else x * (1.0 - p)
+        return {"Out": out, "Mask": torch.ones_like(x)}
+    u = torch.rand(x.shape, generator=ctx.generator(), device=x.device)
+    mask = (u < 1.0 - p).to(x.dtype)
+    out = x * mask
+    if upscale:
+        out = out / (1.0 - p)
+    return {"Out": out, "Mask": mask}

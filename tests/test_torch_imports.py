@@ -59,6 +59,18 @@ def test_scan_covers_the_training_modules():
     assert "paddle_tpu_torch.ops.optimizer_ops" in port_mods
 
 
+def test_scan_covers_the_attention_modules():
+    """The attention slice's modules are scanned too, and importing them
+    builds nothing: the kernel library is loaded only at first launch."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("ops/flash_attention.py", "ops/cuda_build.py",
+                "ops/loss_ops.py", "nets.py"):
+        assert os.path.join("paddle_tpu_torch", rel) in scanned, rel
+    from paddle_tpu_torch.ops import cuda_build, flash_attention
+    assert flash_attention.SOURCE not in cuda_build._libs
+    assert ptt.nets.scaled_dot_product_attention is not None
+
+
 def test_scan_sees_through_aliases(tmp_path):
     """The scanner itself: every import form of a forbidden name is
     caught, and the port's own name is not."""

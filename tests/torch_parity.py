@@ -84,3 +84,28 @@ def both_train(model, shape, via_json=False, **kwargs):
     tscope = ptt.Scope()
     ptt.load_numpy_state(tscope, jax_state(jscope), "cpu")
     return {"jax": (jm, jl, jscope), "torch": (tm, tl, tscope)}
+
+
+def build_longctx(pkg, T, heads, dim, block=1024, causal=True, lr=1e-6,
+                  interpret=False, seed=0):
+    """(main, startup, loss) of ``benchmark/longctx.py``'s framework step
+    (``:210-228``) in ``pkg``: three [heads, T, dim] parameters lc_q,
+    lc_k, lc_v, ``layers.flash_attention`` over them, the loss
+    ``scale(mean(o * o), 1e-3)`` and SGD.  ``interpret`` is the JAX
+    op's Pallas-interpreter switch (the port records and ignores it)."""
+    pkg.unique_name.reset()
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = seed
+    with pkg.program_guard(main, startup):
+        helper = pkg.layer_helper.LayerHelper("lc")
+        q, k, v = (helper.create_parameter(pkg.ParamAttr(name=f"lc_{n}"),
+                                           shape=[heads, T, dim],
+                                           dtype="float32")
+                   for n in "qkv")
+        o = pkg.layers.flash_attention(q, k, v, causal=causal,
+                                       block_q=block, block_k=block,
+                                       interpret=interpret)
+        loss = pkg.layers.scale(
+            pkg.layers.mean(pkg.layers.elementwise_mul(o, o)), 1e-3)
+        pkg.optimizer.SGD(learning_rate=lr).minimize(loss)
+    return main, startup, loss
