@@ -6,8 +6,8 @@
 Phases, each of which raises on failure (so the script exits non-zero):
 
 1. device  — requires a CUDA card; prints its name and power limit.
-2. build   — compiles every kernel of the served and trained paths from
-             the sources in this checkout (nvcc, sm_90a) and prints the
+2. build   — compiles every kernel from the sources in this checkout
+             (nvcc, sm_90a; Triton into build/triton) and prints the
              build time and each kernel's registers.
 3. kernels — holds each kernel form against its plain PyTorch version on
              the card, in fp32 (TF32 off) and bf16, at every served
@@ -53,11 +53,22 @@ Phases, each of which raises on failure (so the script exits non-zero):
              64k tokens beside its bound, its plain version and
              torch's scaled_dot_product_attention (a yardstick the port
              never calls).
+8. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
+             counterpart): holds the Triton grid copy and axpy kernels
+             and the bulk-copy (TMA) DMA copy against their plain
+             versions at each of the probe's four sizes and at two
+             ragged sizes, each into a NaN-filled output (and their
+             three-pass carry forms), after checking that the rule fails
+             a result whose last chunk was left unwritten; runs
+             ``python -m paddle_tpu_torch.benchmark.bandwidth``'s main at
+             128, 512, 1024 and 2048 MB with the launch counts read
+             around it, and prints every method's GB/s, its share of 3.35
+             TB/s and its time a pass beside the bound and copy_'s.
 
-The kernels of both sources build at once, one nvcc each.  Before the
-last line it prints one JSON line describing each kernel, and the card's
-name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+The kernels of all three CUDA sources build at once, one nvcc each, and
+the two Triton kernels compile meanwhile.  Before the last line it prints
+one JSON line describing each kernel, and the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -236,6 +247,8 @@ def kernel_name(source, line):
         if m:
             return f"{m.group(1)}<ta={m.group(2)},tb={m.group(3)}>"
         return "splitk_reduce" if "splitk_reduce" in line else None
+    if source == "stream_copy":
+        return "stream_copy_kernel" if "stream_copy_kernel" in line else None
     m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32))"
                   r"(?:ILi(\d+)E)?", line)
     if m:
@@ -244,8 +257,11 @@ def kernel_name(source, line):
 
 
 def phase_build():
-    """Build every kernel source at once (one nvcc each), load them, and
-    print each kernel's registers, shared memory and spills."""
+    """Build every kernel source at once (one nvcc each) and, meanwhile,
+    the two Triton kernels of the bandwidth probe (one small launch each
+    compiles them); load the libraries, and print each kernel's
+    registers, shared memory and spills."""
+    from paddle_tpu_torch.benchmark import bandwidth as bw
     from paddle_tpu_torch.ops import conv1x1
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -254,15 +270,32 @@ def phase_build():
         return mod.build(), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         jobs = {name: pool.submit(build, mod) for name, mod in
-                (("conv1x1_mm", conv1x1), ("flash_attn", fa))}
+                (("conv1x1_mm", conv1x1), ("flash_attn", fa),
+                 ("stream_copy", bw))}
+        t1 = time.perf_counter()
+        x = torch.ones(2 * bw.BLOCK, device="cuda")
+        bw.grid_copy(x)
+        bw.grid_axpy(x, x)
+        torch.cuda.synchronize()
+        t_triton = time.perf_counter() - t1
         built = {name: job.result() for name, job in jobs.items()}
     conv1x1._library()
     fa._library()
-    print(f"[build] conv1x1_mm.cu and flash_attn.cu (nvcc sm_90a, in "
-          f"parallel) {time.perf_counter() - t0:.2f} s: "
+    bw._library()
+    print(f"[build] conv1x1_mm.cu, flash_attn.cu and stream_copy.cu (nvcc "
+          f"sm_90a, in parallel) {time.perf_counter() - t0:.2f} s: "
           + ", ".join(f"{n} {t:.2f} s" for n, (_, t) in built.items()))
+    print(f"[build] Triton grid_copy_kernel and grid_axpy_kernel (into "
+          f"{os.environ.get('TRITON_CACHE_DIR')}) {t_triton:.2f} s, beside "
+          f"the nvcc builds")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[build] stream_copy_kernel launch (csrc/stream_copy.cu's "
+          f"note): a persistent grid of 3 blocks an SM x {sms} SMs = "
+          f"{3 * sms} blocks of 32 threads, each with 2 slots x 32 KB of "
+          f"dynamic shared memory; Triton kernels {bw.NUM_WARPS} warps, "
+          f"{bw.BLOCK} floats a program")
     for name, (path, _) in built.items():
         entry = None
         with open(path + ".ptxas.txt") as fh:
@@ -1345,6 +1378,206 @@ def phase_attention_table(seed, card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# [bandwidth] the HBM stream-bandwidth probe
+# ---------------------------------------------------------------------------
+# Sizes that are multiples of no tile (Triton's 4096-float programs, the
+# bulk copy's 8192-float slots), yet of 16-byte multiples.  At 1000 x 512
+# + 4 floats the last Triton program holds 4 floats and the last bulk
+# chunk 4100; at 62 x 8192 + 4 both hold 4.
+BW_RAGGED = (1000 * 512 + 4, 62 * 8192 + 4)
+# kernel: (route, source, the TPU kernel it replaces, the torch row timed
+# as its plain version and library call)
+BW_KERNELS = {
+    "grid_copy": ("triton", "paddle_tpu_torch/benchmark/bandwidth.py",
+                  "benchmark/bandwidth.py:66", "torch_copy"),
+    "grid_axpy": ("triton", "paddle_tpu_torch/benchmark/bandwidth.py",
+                  "benchmark/bandwidth.py:81", "torch_axpy"),
+    "dma_copy": ("cuda", "paddle_tpu_torch/csrc/stream_copy.cu",
+                 "benchmark/bandwidth.py:111", "torch_copy_")}
+
+
+def stream_close(label, got, want, x=None, y=None, passes=1):
+    """Hold a stream kernel's output to its plain version's.  Copies (no
+    ``x``): bit-equal.  Axpy ``A*x + y``: |got - want| <= one fp32 ulp of
+    |A*x| + |y|, since the kernel may contract A*x + y into one FMA or
+    round A*x first; after ``passes`` passes carried through ``c = A*x +
+    c``, ``passes`` ulps of passes |A*x| + |y|, the last pass's scale.
+    NaN (an unwritten element of a NaN-filled output) fails both.
+    Returns (max abs error, largest error / limit)."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    if x is None:
+        bad = got.view(torch.int32) != want.view(torch.int32)
+        if bool(bad.any()):
+            i = int(bad.nonzero()[0])
+            raise RuntimeError(f"chip_smoke: {label}: {int(bad.sum())} "
+                               f"elements differ, the first at {i}: "
+                               f"{got[i].item()}, plain {want[i].item()}")
+        return 0.0, 0.0
+    from paddle_tpu_torch.benchmark.bandwidth import A
+    scale = passes * (x.reshape(-1) * A).abs() + y.reshape(-1).abs()
+    lim = passes * (torch.nextafter(scale, torch.full_like(
+        scale, float("inf"))) - scale)
+    err = (got - want).abs()
+    ok = err <= lim
+    if not bool(ok.all()):
+        i = int((~ok).nonzero()[0])
+        raise RuntimeError(f"chip_smoke: {label}: element {i} is "
+                           f"{got[i].item()}, plain {want[i].item()} (limit "
+                           f"{lim[i].item():.3e})")
+    return err.max().item(), (err / lim).max().item()
+
+
+def stream_self_check(label, want, x=None, y=None):
+    """stream_close must fail a result whose last chunk (the ragged tail
+    of the last Triton program, or a whole one) was left unwritten in a
+    NaN-filled output."""
+    from paddle_tpu_torch.benchmark.bandwidth import BLOCK
+    bad = want.clone().reshape(-1)
+    bad[-(bad.numel() % BLOCK or BLOCK):] = float("nan")
+    try:
+        stream_close(label, bad, want, x, y)
+    except RuntimeError:
+        return
+    raise RuntimeError(f"chip_smoke: {label}: a result with its last chunk "
+                       f"unwritten passes the check")
+
+
+def hold_stream_kernels(bw, g):
+    """K5a, K5b and K5c against their plain versions at every size the
+    probe times and at the ragged sizes, each into a NaN-filled output,
+    and their three-pass carry forms at each of those sizes.  Returns
+    {kernel: max abs error over the sizes}."""
+    errs = dict.fromkeys(bw.KERNELS, 0.0)
+    for n in [mb * 2 ** 20 // 4 for mb in bw.SIZES_MB] + list(BW_RAGGED):
+        x = torch.randn(n, device="cuda", generator=g)
+        y = torch.randn(n, device="cuda", generator=g)
+        cases = {"grid_copy": (lambda o: bw.grid_copy(x, out=o),
+                               bw.grid_copy_reference(x), None, None),
+                 "grid_axpy": (lambda o: bw.grid_axpy(x, y, out=o),
+                               bw.grid_axpy_reference(x, y), x, y),
+                 "dma_copy": (lambda o: bw.dma_copy(x, out=o),
+                              bw.dma_copy_reference(x), None, None)}
+        for name, (kernel, want, xx, yy) in cases.items():
+            out = torch.full_like(x, float("nan"))
+            got = kernel(out)
+            torch.cuda.synchronize()
+            label = f"{name} at {n} floats"
+            stream_self_check(label, want, xx, yy)
+            err, used = stream_close(label, got, want, xx, yy)
+            errs[name] = max(errs[name], err)
+            print(f"[bandwidth] {label} ({n * 4} bytes) into a NaN-filled "
+                  f"output: max_abs_err {err:.3e}"
+                  + (f", largest error / 1-ulp limit {used:.3f}" if xx
+                     is not None else ", bit-equal")
+                  + "; a result with its last chunk unwritten fails")
+        del cases, out, got
+        # the timed form: 3 passes carried through two buffers
+        for name, run, plain, xy in (
+                ("grid_copy", lambda: bw.copy_k(bw.grid_copy, x, 3),
+                 lambda: bw.copy_k(bw.grid_copy_reference, x, 3), ()),
+                ("dma_copy", lambda: bw.copy_k(bw.dma_copy, x, 3),
+                 lambda: x, ()),
+                ("grid_axpy", lambda: bw.axpy_k(bw.grid_axpy, x, y, 3),
+                 lambda: bw.axpy_k(bw.grid_axpy_reference, x, y, 3),
+                 (x, y))):
+            got = run()
+            torch.cuda.synchronize()
+            stream_close(f"{name}, 3 passes at {n} floats", got, plain(),
+                         *xy, passes=3)
+            del got
+        print(f"[bandwidth] copy_k/axpy_k, 3 passes carried through two "
+              f"buffers, at {n} floats: copies bit-equal, axpy within "
+              f"3 ulps")
+        del x, y
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_bandwidth(seed, card):
+    """The probe's main path: ``python -m paddle_tpu_torch.benchmark
+    .bandwidth`` at all four sizes (``bandwidth.main``) with the launch
+    counts read around it, after each kernel is held against its plain
+    version; then per-pass times beside their bounds and copy_'s.
+    Returns (kernels JSON entries, the probe's results)."""
+    from paddle_tpu_torch.benchmark import bandwidth as bw
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    errs = hold_stream_kernels(bw, g)
+    torch.cuda.empty_cache()
+    # the main path: counts to 0, the probe, read the counts
+    bw.reset_counts()
+    t0 = time.perf_counter()
+    results = bw.main(["--seed", str(seed)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(bw.launches)
+    want = {name: sum((bw.WINDOWS + 1) * r["k"] for r in results["rows"])
+            for name in bw.KERNELS}
+    print(f"[bandwidth] probe at {[r['size_mb'] for r in results['rows']]} "
+          f"MB in {wall:.1f} s: launches {counts}, expected {want} "
+          f"({bw.WINDOWS} timed windows + 1 warm-up of k passes per size)")
+    if counts != want:
+        raise RuntimeError(f"chip_smoke: the probe launched {counts}, "
+                           f"expected {want}")
+    if [r["size_mb"] for r in results["rows"]] != list(map(float,
+                                                          bw.SIZES_MB)):
+        raise RuntimeError(f"chip_smoke: the probe measured "
+                           f"{[r['size_mb'] for r in results['rows']]} MB")
+    for r in results["rows"]:
+        for m in bw.METHODS:
+            if not (r[m]["gbps"] > 0 and np.isfinite(r[m]["gbps"])):
+                raise RuntimeError(f"chip_smoke: {m} at {r['size_mb']} MB "
+                                   f"read {r[m]}")
+    # the library call of the DMA copy, copy_ through the same two buffers
+    for r in results["rows"]:
+        n = int(r["size_mb"] * 2 ** 20 // 4)
+        x = torch.randn(n, device="cuda", generator=g)
+        bufs = (torch.empty_like(x), torch.empty_like(x))
+        r["torch_copy_"] = bw.time_fn(
+            lambda: bw.copy_k(bw.dma_copy_reference, x, r["k"], bufs),
+            r["k"], 2 * n * 4, "cuda")
+        del x, bufs
+    torch.cuda.empty_cache()
+    print(f"[bandwidth] per pass (median window / k) beside the bound (each "
+          f"byte read and written once at {PEAK_HBM_BYTES / 1e12:.2f} TB/s) "
+          f"on {card}:")
+    for r in results["rows"]:
+        n = int(r["size_mb"] * 2 ** 20 // 4)
+        for m in bw.METHODS + ("torch_copy_",):
+            form = "axpy" if "axpy" in m else "copy"
+            b_ms = bw.TRAFFIC[form] * n * 4 / PEAK_HBM_BYTES * 1e3
+            ms = r[m]["window_s"] / r["k"] * 1e3
+            print(f"[bandwidth] {r['size_mb']:6.0f} MB {m:11s} "
+                  f"{r[m]['gbps']:8.1f} GB/s = "
+                  f"{r[m]['gbps'] * 1e9 / PEAK_HBM_BYTES:.3f} of 3.35 TB/s; "
+                  f"{ms:.4f} ms a pass, bound {b_ms:.4f} ms; spread "
+                  f"{r[m]['spread_pct']:.1f}%")
+    best = max(((r[m]["gbps"], m, r["size_mb"]) for r in results["rows"]
+                for m in bw.METHODS + ("torch_copy_",)))
+    print(f"[bandwidth] best stream rate {best[0]:.1f} GB/s ({best[1]} at "
+          f"{best[2]:.0f} MB) on {card}")
+    last = results["rows"][-1]
+    n = int(last["size_mb"] * 2 ** 20 // 4)
+    entries = []
+    for name in bw.KERNELS:
+        form = "axpy" if "axpy" in name else "copy"
+        flops = {"grid_copy": n, "grid_axpy": 2 * n, "dma_copy": 0}[name]
+        b_ms, b_by = gemm_bound_ms(flops, bw.TRAFFIC[form] * n * 4,
+                                   torch.float32)
+        route, source, replaces, plain_row = BW_KERNELS[name]
+        plain = last[plain_row]["window_s"] / last["k"] * 1e3
+        entries.append({
+            "name": f"bandwidth {name}", "route": route,
+            "source": source, "replaces": replaces,
+            "path": "bandwidth", "launches": counts.get(name, 0),
+            "max_abs_err": errs[name],
+            "ms": last[name]["window_s"] / last["k"] * 1e3,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": plain, "plain_is_library": True,
+            "size_mb": last["size_mb"]})
+    return entries, results
+
+
 def attention_entries(row, launches):
     """The kernels JSON entries of K2, K3 and K4: times, errors and
     bounds at the slice's shape, launches from the main path's run."""
@@ -1428,6 +1661,8 @@ def main():
     att_row = phase_attention_kernels(args.seed)
     att_launches = phase_attention_train(args.seed, card)
     phase_attention_table(args.seed, card)
+    torch.cuda.empty_cache()
+    bw_entries, _ = phase_bandwidth(args.seed, card)
 
     # the forward: one batch-32 forward of the served path (bf16)
     forward = kernel_entry("conv1x1_mm forward (ta=0 tb=1)", 69, "serve",
@@ -1476,6 +1711,12 @@ def main():
               f"{k['bound_ms']:.3f} ms ({k['bound_by']}), library "
               f"{k['library_ms']:.3f} ms, plain {k['plain_ms']:.1f} ms; "
               f"{k['launches']} launches in the {ATT_STEPS}-step run")
+    kernels += bw_entries
+    for k in bw_entries:
+        print(f"[summary] {k['name']} at {k['size_mb']:.0f} MB f32: kernel "
+              f"{k['ms']:.4f} ms a pass, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']}), plain = library {k['plain_ms']:.4f} ms; "
+              f"{k['launches']} launches in the probe's run")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

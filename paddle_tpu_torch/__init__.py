@@ -14,7 +14,9 @@ inference AMP, ``serving.Model``/``serving.Server``), ResNet training
 batch-statistics batch norm, cross entropy, the executor's backward
 under AMP and ``run_steps``), long-context attention training
 (``layers.flash_attention``, ``nets.scaled_dot_product_attention``,
-``matmul``, ``dropout``, ``square_error_cost``), and two kernels: the
+``matmul``, ``dropout``, ``square_error_cost``), the HBM stream-bandwidth
+probe (``benchmark/bandwidth.py``, with its Triton copy and axpy and its
+bulk-copy DMA copy), and two kernels of the framework: the
 1x1-convolution matrix product with its gradients and epilogues
 (``ops/conv1x1.py``) and flash attention, forward and backward
 (``ops/flash_attention.py``).

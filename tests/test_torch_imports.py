@@ -1,6 +1,7 @@
 """The port stands alone: no module of paddle_tpu_torch, nor chip_smoke.py,
-imports jax, jaxlib or the JAX package (an AST scan, no subprocess), and
-the executor never carries on quietly on the CPU when asked for a card."""
+imports jax, jaxlib, the JAX package or its benchmark/ scripts (an AST scan,
+no subprocess), and the executor never carries on quietly on the CPU when
+asked for a card."""
 import ast
 import os
 
@@ -11,7 +12,7 @@ import torch
 import paddle_tpu_torch as ptt
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
-FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "benchmark"}
 
 
 def _port_sources():
@@ -69,6 +70,30 @@ def test_scan_covers_the_attention_modules():
     from paddle_tpu_torch.ops import cuda_build, flash_attention
     assert flash_attention.SOURCE not in cuda_build._libs
     assert ptt.nets.scaled_dot_product_attention is not None
+
+
+def test_scan_covers_the_bandwidth_probe():
+    """The probe's modules are scanned, and importing the probe afresh
+    builds nothing and imports no triton: the Triton kernels are defined
+    and the CUDA library loaded only at first launch."""
+    import importlib.util
+    import sys
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("benchmark/__init__.py", "benchmark/bandwidth.py"):
+        assert os.path.join("paddle_tpu_torch", rel) in scanned, rel
+    from paddle_tpu_torch.benchmark import bandwidth
+    from paddle_tpu_torch.ops import cuda_build
+    path = os.path.join(ROOT, "paddle_tpu_torch", "benchmark", "bandwidth.py")
+    spec = importlib.util.spec_from_file_location(
+        "paddle_tpu_torch.benchmark._fresh_bandwidth", path)
+    fresh = importlib.util.module_from_spec(spec)
+    before = set(sys.modules)
+    spec.loader.exec_module(fresh)
+    assert not [m for m in set(sys.modules) - before
+                if m.split(".")[0] == "triton"]
+    assert fresh._triton is None and fresh.triton is None
+    assert fresh.SOURCE == bandwidth.SOURCE
+    assert bandwidth.SOURCE not in cuda_build._libs
 
 
 def test_scan_sees_through_aliases(tmp_path):
