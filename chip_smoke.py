@@ -12,13 +12,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
 3. kernels — holds each kernel form against its plain PyTorch version on
              the card, in fp32 (TF32 off) and bf16, at every served
              (batch 32) and trained (batch 128) shape: the forward, the
-             dgrad, the split-K wgrad (its reduce pass also alone), and
-             the out_stats and a_colsum epilogues; times kernel, plain
-             version, the library call (torch.matmul / torch.sum, a
+             dgrad, the split-K wgrad (folded in clusters; its reduce
+             pass over the clusters' partials also alone; two runs
+             bit-equal), and the out_stats and a_colsum epilogues; times
+             kernel, plain version, the library call (torch.matmul, a
              yardstick the port never calls) and the card's bound for the
-             function; then the four transpose variants, the conv entry
-             points at stride 1 and 2, and, in bf16, the trained wgrads
-             with one slab (no split), to show what the split buys.
+             function, and prints each bf16 form's sum over the served or
+             trained shapes as a ratio to torch.matmul and a share of its
+             bound, the wgrads' fp32 partial bytes a step by the plan,
+             the host time to enqueue one call, and the forward's and
+             dgrad's times under the plan's schedule beside one tile a
+             block and one slab a tile; then the four
+             transpose variants, the conv entry points at stride 1 and 2,
+             and, in bf16, the trained wgrads with one slab (no split),
+             to show what the split buys.
 4. slice   — builds full-width ResNet-50 (224x224, 1000 classes, random
              weights from --seed) with the port's layers, serves >= 64
              single-image requests through serving.Server (bf16 inference
@@ -243,9 +250,11 @@ def kernel_name(source, line):
     """The kernel that a ptxas "Compiling entry" line of ``source``
     names, or None."""
     if source == "conv1x1_mm":
-        m = re.search(r"(mm_bf16_wmma|mm_f32_simt)ILb(\d)ELb(\d)E", line)
+        m = re.search(r"(mm_bf16_tma|mm_f32_simt)ILb(\d)ELb(\d)E"
+                      r"(?:Li(\d+)E)?", line)
         if m:
-            return f"{m.group(1)}<ta={m.group(2)},tb={m.group(3)}>"
+            stages = f",stages={m.group(4)}" if m.group(4) else ""
+            return f"{m.group(1)}<ta={m.group(2)},tb={m.group(3)}{stages}>"
         return "splitk_reduce" if "splitk_reduce" in line else None
     if source == "stream_copy":
         return "stream_copy_kernel" if "stream_copy_kernel" in line else None
@@ -346,12 +355,24 @@ def check_sums(label, got, want, terms_abs_sum):
     return err.max().item()
 
 
+def wgrad_split(conv1x1, M, N, K, dtype, sms):
+    """(S, cluster, partials) of the wgrad form: the bf16 plan's, or the
+    fp32 kernel's split_k (one slab a block, every slab a partial)."""
+    if dtype == torch.bfloat16:
+        p = conv1x1.plan(M, N, K, True, False, dtype, sms)
+        return p.splits, p.cluster, p.partials
+    S = conv1x1.split_k(M, N, K, dtype, sms)[0]
+    return S, 1, S if S > 1 else 0
+
+
 def unsplit_wgrad_ms(conv1x1, gout, x):
-    """The wgrad form with one slab (no split K: one block per output
+    """The bf16 wgrad form with one slab (no split K: one block per output
     tile loops over all of K = P), timed to show what the split buys.
     Returns (ms, max |kernel - plain|)."""
-    split_k = conv1x1.split_k
-    conv1x1.split_k = lambda M, N, K, dtype, sms: (1, K)
+    import dataclasses
+    plan = conv1x1.plan
+    conv1x1.plan = lambda *a, **k: dataclasses.replace(
+        plan(*a, **k), splits=1, cluster=1, partials=0)
     try:
         out = conv1x1.mm(gout, x, True, False)
         ref = conv1x1.mm_reference(gout, x, True, False)
@@ -360,7 +381,78 @@ def unsplit_wgrad_ms(conv1x1, gout, x):
         return time_ms(lambda: conv1x1.mm(gout, x, True, False), iters=3,
                        warmup=1), err
     finally:
-        conv1x1.split_k = split_k
+        conv1x1.plan = plan
+
+
+def host_us_per_call(conv1x1, fn, calls=100):
+    """Host microseconds to enqueue one call of ``fn``: ``calls`` calls
+    without synchronising (tensor maps encoded per call), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e6 / calls
+
+
+def schedule_ab(conv1x1, g, served, trained, sms):
+    """The plan's schedule of the bf16 forward and dgrad against two
+    others, timed in turns at every served and trained shape: "one tile"
+    turns the persistent schedule off (one tile a block, a 3-stage ring);
+    "one slab" takes back the split within a cluster of the launches the
+    plan splits.  Returns {(variant, form, what): ms summed over the
+    shapes}."""
+    import dataclasses
+    plan = conv1x1.plan
+
+    def one_tile(*a, **k):
+        q = plan(*a, **k)
+        return dataclasses.replace(q, ctas=0, stages=conv1x1._STAGES_ONE_TILE
+                                   ) if q.ctas else q
+
+    def one_slab(M, N, K, ta, tb, *a, **k):
+        q = plan(M, N, K, ta, tb, *a, **k)
+        if (ta, tb) == (True, False) or q.splits == 1:
+            return q
+        return dataclasses.replace(
+            q, splits=1, cluster=1, partials=0,
+            kchunk=q.ksteps * q.tile[2], stages=conv1x1._STAGES_PERSISTENT,
+            ctas=min(q.tiles, conv1x1._BLOCKS_AN_SM * sms))
+    variants = {"plan": plan, "one tile": one_tile, "one slab": one_slab}
+    best = {}
+    bf = torch.bfloat16
+    try:
+        for shape in sorted(set(served) | set(trained)):
+            P, C, M = shape
+            x = torch.randn(P, C, device="cuda", generator=g).to(bf)
+            w = (torch.randn(M, C, device="cuda", generator=g)
+                 / C ** 0.5).to(bf)
+            gout = torch.randn(P, M, device="cuda", generator=g).to(bf)
+            for name in list(variants) * 2:
+                conv1x1.plan = variants[name]
+                for form, fn in (
+                        ("forward", lambda: conv1x1.mm(x, w, False, True)),
+                        ("dgrad", lambda: conv1x1.mm(gout, w, False, False))):
+                    ms = time_ms(fn)
+                    key = (name, form, shape)
+                    best[key] = min(best.get(key, ms), ms)
+            del x, w, gout
+    finally:
+        conv1x1.plan = plan
+    sums = {}
+    for form, shapes, what in (("forward", served, "serving"),
+                               ("forward", trained, "training"),
+                               ("dgrad", trained, "training")):
+        for name in variants:
+            sums[(name, form, what)] = sum(best[(name, form, s)]
+                                           for s in shapes)
+        print(f"[kernels] bf16 {form} schedules summed over the "
+              f"{len(shapes)} {what} shapes (best of two turns): "
+              + ", ".join(f"{name} {sums[(name, form, what)]:.4f} ms"
+                          for name in variants))
+    return sums
 
 
 def phase_kernels(served, trained, seed):
@@ -373,7 +465,7 @@ def phase_kernels(served, trained, seed):
     from paddle_tpu_torch.ops import conv1x1
     g = torch.Generator(device="cuda").manual_seed(seed)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows, unsplit = {}, {}
+    rows, unsplit, bit_equal = {}, {}, []
 
     def record(form, dtype, shape, err, fn, plain, lib, bound, extra=""):
         k_ms, p_ms = time_ms(fn), time_ms(plain)
@@ -417,17 +509,26 @@ def phase_kernels(served, trained, seed):
                  lambda: conv1x1.mm(gout, w, False, False),
                  lambda: conv1x1.mm_reference(gout, w, False, False),
                  lambda: torch.matmul(gout, w), TOL[dtype], bound)
-            # wgrad: dw [M, C] = g^T @ x, K = P in S slabs and the reduce
-            # pass, against the function's bound (the fp32 partials are
-            # the design's overhead, not the function's work)
-            S, kchunk = conv1x1.split_k(M, C, P, dtype, sms)
+            # wgrad: dw [M, C] = g^T @ x, K = P in S slabs folded in
+            # clusters (and the reduce pass over the clusters' partials),
+            # against the function's bound (the fp32 partials are the
+            # design's overhead, not the function's work); two runs
+            # bit-equal
+            S, cl, parts = wgrad_split(conv1x1, M, C, P, dtype, sms)
             hold("wgrad", dtype, shape,
                  lambda: conv1x1.mm(gout, x, True, False),
                  lambda: conv1x1.mm_reference(gout, x, True, False),
                  lambda: torch.matmul(gout.t(), x), deep_tol(dtype, P),
-                 bound, extra=f" S={S:3d} kchunk={kchunk:5d}")
-            if S > 1:       # the reduce pass alone: part of the wgrad's ms
-                work = torch.randn(S, M, C, device="cuda", generator=g)
+                 bound, extra=f" S={S:3d} cluster={cl} partials={parts}")
+            one, two = (conv1x1.mm(gout, x, True, False) for _ in range(2))
+            torch.cuda.synchronize()
+            if not torch.equal(one, two):
+                raise RuntimeError(f"chip_smoke: two {dtype} wgrads at "
+                                   f"{shape} differ")
+            bit_equal.append(shape)
+            del one, two
+            if parts:       # the reduce pass alone: part of the wgrad's ms
+                work = torch.randn(parts, M, C, device="cuda", generator=g)
                 out, _ = conv1x1.splitk_reduce(work, dtype)
                 ref, _ = conv1x1.splitk_reduce_reference(work, dtype)
                 torch.cuda.synchronize()
@@ -436,20 +537,20 @@ def phase_kernels(served, trained, seed):
                 r_ms = time_ms(lambda: conv1x1.splitk_reduce(work, dtype))
                 rows[("reduce", dtype, shape)] = dict(ms=r_ms)
                 print(f"[kernels] reduce    {str(dtype)[6:]:8s} P={P:6d} "
-                      f"C={C:4d} M={M:4d} S={S:3d} max_abs_err="
+                      f"C={C:4d} M={M:4d} partials={parts:3d} max_abs_err="
                       f"{(out.float() - ref.float()).abs().max().item():.3e}"
                       f" kernel={r_ms:.4f} ms (of the wgrad's "
                       f"{rows[('wgrad', dtype, shape)]['ms']:.4f} ms)")
                 del work, out, ref
-                if dtype == torch.bfloat16 and shape in trained:
-                    one_ms, one_err = unsplit_wgrad_ms(conv1x1, gout, x)
-                    unsplit[shape] = one_ms
-                    wrow = rows[("wgrad", dtype, shape)]
-                    print(f"[kernels] wgrad     {str(dtype)[6:]:8s} P={P:6d} "
-                          f"C={C:4d} M={M:4d} S=  1 (no split) kernel="
-                          f"{one_ms:.4f} ms max_abs_err={one_err:.3e}; the "
-                          f"split (S={S}, max_abs_err={wrow['err']:.3e}) "
-                          f"runs {one_ms / wrow['ms']:.1f}x faster")
+            if S > 1 and dtype == torch.bfloat16 and shape in trained:
+                one_ms, one_err = unsplit_wgrad_ms(conv1x1, gout, x)
+                unsplit[shape] = one_ms
+                wrow = rows[("wgrad", dtype, shape)]
+                print(f"[kernels] wgrad     {str(dtype)[6:]:8s} P={P:6d} "
+                      f"C={C:4d} M={M:4d} S=  1 (no split) kernel="
+                      f"{one_ms:.4f} ms max_abs_err={one_err:.3e}; the "
+                      f"split (S={S}, max_abs_err={wrow['err']:.3e}) "
+                      f"runs {one_ms / wrow['ms']:.1f}x faster")
             # a_colsum epilogue on the wgrad: + sum over K of logical A
             out, cs = conv1x1.mm(gout, x, True, False, a_colsum=True)
             ref, rcs = conv1x1.mm_reference(gout, x, True, False,
@@ -495,6 +596,39 @@ def phase_kernels(served, trained, seed):
           f"training step): split K {split_ms:.4f} ms, of which the reduce "
           f"passes (timed alone) {reduce_ms:.4f} ms; one slab each "
           f"{one_ms:.4f} ms")
+    plans = [conv1x1.plan(M, C, P, True, False, bf, sms)
+             for (P, C, M) in trained]
+    print(f"[kernels] bf16 wgrad fp32 partials of one batch-{TRAIN_BATCH} "
+          f"step (plan, written and read): "
+          f"{sum(p.partial_bytes() for p in plans) / 1e9:.4f} GB, "
+          f"{sum(1 for p in plans if p.partials)} reduce passes; two runs "
+          f"bit-equal at all {len(bit_equal)} wgrad shapes (fp32 and bf16)")
+    for form, shapes, what in (("forward", served, "serving"),
+                               ("forward", trained, "training"),
+                               ("dgrad", trained, "training"),
+                               ("wgrad", trained, "training"),
+                               ("out_stats", trained, "training"),
+                               ("a_colsum", trained, "training")):
+        per = [rows[(form, bf, s)] for s in shapes]
+        k_ms = sum(r["ms"] for r in per)
+        b_ms = sum(r["bound_ms"] for r in per)
+        lib = sum(rows[("forward" if form == "out_stats" else
+                        "wgrad" if form == "a_colsum" else form, bf, s)]
+                  ["library_ms"] for s in shapes)
+        print(f"[kernels] bf16 {form:9s} summed over the {len(shapes)} "
+              f"{what} shapes: kernel {k_ms:.4f} ms, torch.matmul "
+              f"{lib:.4f} ms ({k_ms / lib:.3f}x), bound {b_ms:.4f} ms "
+              f"({b_ms / k_ms:.3f} of the bound)")
+    P, C, M = trained[0]
+    x = torch.randn(P, C, device="cuda", generator=g).to(bf)
+    w = (torch.randn(M, C, device="cuda", generator=g) / C ** 0.5).to(bf)
+    us = host_us_per_call(conv1x1, lambda: conv1x1.mm(x, w, False, True))
+    lib_us = host_us_per_call(conv1x1, lambda: torch.matmul(x, w.t()))
+    print(f"[kernels] host time to enqueue one bf16 mm call (forward, "
+          f"P={P} C={C} M={M}, 100 calls unsynchronised): {us:.1f} us; "
+          f"torch.matmul {lib_us:.1f} us")
+    del x, w
+    schedule_ab(conv1x1, g, served, trained, sms)
 
     # all four transpose variants on one served shape
     P, C, M = sorted(set(served))[0]
@@ -719,7 +853,7 @@ def profile_dispatch(exe, infer, feed, pred, scope, runs=3):
     print_profile("profile", f"batch-{BATCH} dispatch", prof, wall_ms, runs)
 
 
-CONV_KERNELS = ("conv1x1_mm", ("mm_bf16_wmma", "mm_f32_simt",
+CONV_KERNELS = ("conv1x1_mm", ("mm_bf16_tma", "mm_f32_simt",
                                 "splitk_reduce"))
 ATT_KERNELS = ("flash_attn", ("flash_fwd_", "flash_bwd_dq_",
                               "flash_bwd_dkv_"))
@@ -937,7 +1071,7 @@ def phase_train(seed, card, n_gate):
     for label, dt in (("bf16 kernel", torch.bfloat16),
                       ("fp32 kernel", torch.float32)):
         k = steps[label]
-        n_split = sum(conv1x1.split_k(M, C, P, dt, sms)[0] > 1
+        n_split = sum(wgrad_split(conv1x1, M, C, P, dt, sms)[2] > 0
                       for (P, C, M) in shapes)
         want = {"forward": n_gate * k, "dgrad": n_gate * k,
                 "wgrad": n_gate * k, "splitk_reduce": n_split * k}
@@ -1309,6 +1443,9 @@ def phase_attention_train(seed, card):
     scope = clone_scope(start)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # one small kernel first: the trace has lost the window's first
+        # kernel (the step's forward) once
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         exe.run_steps(1, main, fetch_list=[loss], scope=scope)

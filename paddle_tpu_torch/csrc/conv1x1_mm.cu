@@ -25,55 +25,87 @@
 // Translation.  The TPU kernel walks a (m, n, k) grid with k sequential
 // and keeps the f32 accumulator in VMEM scratch across grid steps.  Here
 // blocks run in parallel in no order, so the K axis is a loop inside
-// each block: one block owns one output tile, its accumulator stays in
-// registers (bf16: WMMA fragments; fp32: a 4x4 register tile per
-// thread), and shared-memory tiles of A and B are refilled each K step.
-// Every tile is staged in shared memory in its STORAGE orientation, so
-// each global read runs along the contiguous dimension (16-byte vector
-// loads for bf16 where the row stride allows) whatever the transpose
-// flags; the transposes are absorbed by the WMMA fragment layouts
-// (row_major / col_major) or by the fp32 tile indexing.  Ragged edges
-// are masked here (zero-filled loads, guarded stores), although the
-// routing gate only sends 128-divisible shapes.
+// each block: one block owns one 128x128 output tile and its accumulator
+// stays in registers.
 //
-// Split K.  The wgrad's output dw [Cout, Cin] is small (2 to 128 tiles of
-// 128x128 at ResNet-50's shapes) while K = N*H*W runs to 401408, so one
-// block per tile would leave most of the 132 SMs idle.  The TPU kernel
-// carries the sum across its sequential K axis ("arbitrary", :181); a
-// CUDA block cannot.  So the wrapper cuts K into S slabs of `kchunk`
-// (a multiple of 32) on gridDim.z: block (x, y, z) sums its tile over
-// slab z and writes an fp32 partial into the workspace W[S, M, N], and
-// splitk_reduce then sums the S partials of each element in slab order
-// and rounds once to the output type.  The sum is deterministic and
-// needs no atomics.  The a_colsum epilogue splits the same way: slab z's
-// blocks of the first N tile (blockIdx.x == 0, the `j == 0` of the TPU
-// kernel) write row z of an [S, M] partial, so no two blocks write one
-// element, and the same reduce pass sums it.  The rule that picks S
-// lives in the wrapper (ops/conv1x1.py, split_k).
+// bf16 (mm_bf16_tma), the AMP path.  What bounds it on an H100: at
+// ResNet-50's shapes a product does 2*P*C*M operations over
+// (P*C + M*C + P*M)*2 bytes, 100 to 616 operations a byte against the
+// ~295 at which the tensor cores (989 TFLOP/s), not HBM (3.35 TB/s),
+// become the limit: most shapes are bound by bytes, the deep ones
+// (P = 6272, and P = 25088 with C and M >= 512) by operations.  The
+// design answers both:
 //
-// What bounds it on an H100.  At the ResNet-50 shapes a bf16 product does
-// 2*P*C*M operations over (P*C + M*C + P*M)*2 bytes: 100 to 200
-// operations per byte, under the ~295 at which the tensor cores, not HBM
-// at 3.35 TB/s, become the limit.  So the bf16 path is bound by bytes
-// (the split wgrad adds its partials, 4*S*M*N bytes written and read).
-// The fp32 path runs without TF32 on the CUDA cores (67 TFLOP/s peak) and
-// is bound by operations.
+//   loads    A ring of stages of BK = 64, each 32 KB (A and B tiles),
+//            filled by TMA (cp.async.bulk.tensor, 128-byte swizzle) in
+//            the operands' STORAGE orientation.  One producer warp issues
+//            the loads; each stage has a full mbarrier (armed with the
+//            stage's bytes) and an empty one (one arrival per consumer
+//            warp).  A block holds 107 KB, so two share an SM.  Ragged
+//            edges are TMA's zero fill; stores are clipped.  The tensor
+//            maps are encoded on the host per call
+//            (cuTensorMapEncodeTiled, fetched once through
+//            cudaGetDriverEntryPoint: no -lcuda) and passed as
+//            __grid_constant__ parameters.
+//   schedule Most launches of the forward and dgrad have K = 128-512, 2
+//            to 8 steps a tile, so a block's first loads and its
+//            epilogue would cost as much as its main loop.  A launch of
+//            one slab is persistent: two blocks an SM walk the tiles
+//            with a 2-stage ring and a bf16 staging tile of their own,
+//            and the producer loads the next tile while the consumers
+//            store the last.  Split launches run one tile a block with a
+//            3-stage ring (they fill the card once).
+//   math     wgmma.mma_async m64n128k16 bf16 -> fp32 straight from the
+//            shared-memory descriptors; two consumer warpgroups own 64
+//            rows each.  The transposes are the descriptors' major-ness,
+//            never a copy: K-major (A stored [M,K], B stored [N,K]) or
+//            MN-major (A stored [K,M], B stored [K,N]), the latter with
+//            wgmma's transpose immediates and TMA boxes of 64 along M
+//            or N.  The forward's A and B are K-major, the dgrad's B is
+//            N-major, the wgrad's A and B are M- and N-major.  One wgmma
+//            group stays in flight while the next stage is awaited.
+//   epilogue The tile is staged in shared memory (bf16 in the persistent
+//            schedule, fp32 over the ring otherwise) and leaves in
+//            16-byte vector stores, rounded once.
+//            out_stats sums the fp32 accumulators in registers, across
+//            each warp with shuffles and across the 8 warps in shared
+//            memory.  a_colsum sums each A stage (swizzle-aware) while
+//            its wgmma runs, before the stage is released, in the
+//            blocks of the first N tile only: the TPU kernel's j == 0.
+//   split K  The wgrad's output dw [Cout, Cin] is 1 to 128 tiles while
+//            K = P runs to 401408, so K is cut into S slabs of whole BK
+//            steps on gridDim.z, and the slabs of one tile form a thread
+//            block cluster of up to 8 blocks.  Each block leaves its fp32
+//            tile in its own shared memory; after a cluster barrier each
+//            block sums a slice of rows over the cluster's shared memory
+//            (DSMEM) in rank order and writes the output, or, where S
+//            exceeds the cluster, one fp32 partial [S / cluster, M, N]
+//            that splitk_reduce sums in order.  No atomics: the result
+//            does not depend on the schedule.  The forward and dgrad
+//            split the same way, within one cluster, where fewer tiles
+//            than SMs would leave the card idle.  The plan (S, cluster,
+//            stages) is made in Python (ops/conv1x1.py, plan).
 //
-// What this simple design leaves on the table: no cp.async/TMA pipeline
-// (each K step loads, synchronises, then computes, so memory and math do
-// not overlap), mma.sync-class WMMA instead of wgmma, 128x128 tiles with
-// no persistent schedule, and a second pass over the split partials where
-// a cluster reduction in distributed shared memory could fold them.  The
-// NCHW <-> pixel-major copies around the kernel (ops/conv1x1.py) move
-// more bytes than the product itself; a channels-last layout removes them.
+// TMA needs 16-byte aligned bases and row strides: every bf16 operand's
+// contiguous row is a multiple of 8 elements (the wrapper raises
+// otherwise, and conv1x1_mm returns cudaErrorInvalidValue).
+//
+// fp32 (mm_f32_simt), the exact parity path: 64x64 tiles on the CUDA
+// cores (67 TFLOP/s, no TF32), bound by operations, split K on
+// gridDim.z with fp32 partials and splitk_reduce.  It loads each tile
+// with plain loads in storage orientation and masks the ragged edges.
+//
+// Not done here: the NCHW <-> pixel-major copies around the kernel
+// (ops/conv1x1.py) move more bytes than the product itself; a
+// channels-last layout removes them.
+//
+// A wait on an mbarrier that has not completed after about 4 s of clock
+// cycles traps (an unspecified launch failure) rather than hang the card.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
-
-using namespace nvcuda;
 
 namespace {
 
@@ -88,26 +120,12 @@ __device__ __forceinline__ void store_out(void* out, size_t idx, float v,
   }
 }
 
-// Copy n (<= 8 used) consecutive bf16 values from src to dst, zero-filling
-// the rest of the 8; one 16-byte load when all 8 are valid and aligned.
-__device__ __forceinline__ void load8_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int n,
-                                           int vec) {
-  if (n >= 8 && vec) {
-    *reinterpret_cast<uint4*>(dst) =
-        __ldg(reinterpret_cast<const uint4*>(src));
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      dst[i] = (i < n) ? src[i] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// Pointers of one launch.  `work` non-null: write fp32 partials of slab
-// blockIdx.z to work[z, M, N] instead of the output.  `col_sum`/`col_sq`
-// non-null: the out_stats epilogue ([gridDim.y, N] partials; only with
-// one slab).  `a_csum` non-null: the a_colsum epilogue (row z of [S, M]).
+// Pointers of one launch.  `work` non-null: write fp32 partials (slab
+// blockIdx.z of the fp32 kernel; cluster blockIdx.z / cluster size of
+// the bf16 kernel) to work[z, M, N] instead of the output.
+// `col_sum`/`col_sq` non-null: the out_stats epilogue ([gridDim.y, N]
+// partials; only with one slab).  `a_csum` non-null: the a_colsum
+// epilogue (row z of [S, M], or of [S / cluster, M]).
 struct Epilogue {
   void* out;
   float* work;
@@ -117,174 +135,493 @@ struct Epilogue {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: 128x128 output tile per block, 8 warps as 2 (m) x 4 (n),
-// each warp a 64x32 sub-tile of 4x2 WMMA 16x16x16 fragments, K step 32.
+// bf16 inputs: TMA ring, wgmma, split K folded in a cluster (see above).
 // ---------------------------------------------------------------------------
+constexpr int kBM = 128, kBN = 128, kBK = 64;
+constexpr int kConsumerThreads = 256;              // two warpgroups
+constexpr int kTmaThreads = kConsumerThreads + 32; // + one producer warp
+constexpr int kProducerWarp = kConsumerThreads / 32;
+constexpr uint32_t kStageBytes = 32768;            // A 16 KB + B 16 KB
+constexpr uint32_t kHalfBytes = 16384;
+constexpr uint32_t kBoxBytes = 8192;               // a 64 x 64 MN-major box
+constexpr int kLdc = kBN + 8;                      // staging row, floats
+constexpr uint32_t kStagingBytes = (kBM * kLdc + 3 * kBM) * sizeof(float);
+constexpr int kLdo = kBN + 8;                      // bf16 staging row
+constexpr uint32_t kOutStageBytes = kBM * kLdo * 2;
+// Shared memory (after aligning the base to 1 KB): a region that holds
+// the ring of a one-tile block (kStagesOneTile stages) or the ring of a
+// persistent block (kStagesPersistent) and its bf16 staging tile, and
+// after a one-tile block's main loop its fp32 staging tile; then the
+// out_stats partials [2][8 warps][kBN] fp32 and the mbarriers.  107 KB:
+// two blocks share an SM.
+constexpr int kStagesOneTile = 3;
+constexpr int kStagesPersistent = 2;
+constexpr uint32_t kOutStageOffset = kStagesPersistent * kStageBytes;
+constexpr uint32_t kRegionBytes =
+    kStagesOneTile * kStageBytes > kOutStageOffset + kOutStageBytes
+        ? kStagesOneTile * kStageBytes
+        : kOutStageOffset + kOutStageBytes;
+constexpr uint32_t kStatsOffset = kRegionBytes;
+constexpr uint32_t kBarOffset = kStatsOffset + 2 * 8 * kBN * sizeof(float);
+constexpr int kSmemBytes = 1024 + kBarOffset + 16 * kStagesOneTile;
+static_assert(kStagingBytes <= kRegionBytes, "staging must fit");
+constexpr long long kTimeoutCycles = 1LL << 33;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > kTimeoutCycles) __trap();
+  }
+}
+
+// One 2-D TMA box, coordinates innermost first, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma instructions.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64x128 fp32] += A[64x16] @ B[16x128]; A_MN / B_MN: the operand is
+// MN-major (wgmma's transpose immediate), else K-major.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(A_MN ? 1 : 0), "n"(B_MN ? 1 : 0));
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// 8 consecutive fp32 values at shared address `addr` of cluster rank
+// `rank` (DSMEM; the block's own rank reads its own shared memory).
+__device__ __forceinline__ void ld_cluster8(uint32_t addr, uint32_t rank,
+                                            float (&v)[8]) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(r)
+               : "memory");
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7])
+               : "r"(r + 16)
+               : "memory");
+}
+
+__device__ __forceinline__ float ld_cluster1(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(r)
+               : "memory");
+  return v;
+}
+
+// out_stats of one tile: each warp's column sums and sums of squares of
+// its 16 rows of the fp32 accumulators (shuffles across the lanes that
+// share columns), into stats[2][8 warps][kBN].
+__device__ __forceinline__ void tile_stats(const float (&d)[64], float* stats,
+                                           int warp, int lane) {
+  const int c = lane & 3;
+#pragma unroll
+  for (int g = 0; g < kBN / 8; ++g) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float v0 = d[4 * g + j], v1 = d[4 * g + 2 + j];
+      float s = v0 + v1, q = v0 * v0 + v1 * v1;
+#pragma unroll
+      for (int x = 4; x < 32; x <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, x);
+        q += __shfl_xor_sync(0xffffffffu, q, x);
+      }
+      if (lane < 4) {
+        stats[warp * kBN + 8 * g + 2 * c + j] = s;
+        stats[(8 + warp) * kBN + 8 * g + 2 * c + j] = q;
+      }
+    }
+  }
+}
+
+// Column `col` (tile column `tc`) of M tile `tm`: the 8 warps' partials
+// summed in order, into row tm of col_sum / col_sq [M tiles, N].
+__device__ __forceinline__ void stats_out(const Epilogue& ep,
+                                          const float* stats, int tm, int N,
+                                          int col, int tc) {
+  float s = 0.f, q = 0.f;
+  for (int w = 0; w < 8; ++w) {
+    s += stats[w * kBN + tc];
+    q += stats[(8 + w) * kBN + tc];
+  }
+  const size_t o = static_cast<size_t>(tm) * N + col;
+  ep.col_sum[o] = s;
+  ep.col_sq[o] = q;
+}
+
+// Two schedules, one kernel.  Persistent (`persistent` != 0: one slab,
+// bf16 output, no a_colsum; the forward's and dgrad's launches):
+// gridDim.x blocks (two an SM) walk the tiles t = blockIdx.x, + gridDim.x
+// (N tiles fastest) with a ring of kStagesPersistent stages, and the
+// producer runs on into the next tile's stages while the consumers store
+// the last tile through their own bf16 staging tile.  Otherwise: grid
+// (N tiles, M tiles, S slabs), one tile a block, a ring of
+// kStagesOneTile stages, clusters (1, 1, cluster) along the slabs; slab z
+// runs over K steps [z * ksteps / S, (z + 1) * ksteps / S), and the fp32
+// tile is staged over the ring for the fold.  Layout: kRegionBytes.
 template <bool TA, bool TB>
-__global__ void __launch_bounds__(kThreads)
-    mm_bf16_wmma(const __nv_bfloat16* __restrict__ A,
-                 const __nv_bfloat16* __restrict__ B, Epilogue ep, int M,
-                 int N, int K, int kchunk, int out_bf16, int vec_a,
-                 int vec_b) {
-  constexpr int BM = 128, BN = 128, BK = 32, PAD = 8;
-  // leading dimensions of the shared tiles, in storage orientation
-  constexpr int LDA = TA ? BM + PAD : BK + PAD;   // [BK][BM] or [BM][BK]
-  constexpr int LDB = TB ? BK + PAD : BN + PAD;   // [BN][BK] or [BK][BN]
-  constexpr int A_ELEMS = TA ? BK * LDA : BM * LDA;
-  constexpr int B_ELEMS = TB ? BN * LDB : BK * LDB;
-  using LayoutA = typename std::conditional<TA, wmma::col_major,
-                                            wmma::row_major>::type;
-  using LayoutB = typename std::conditional<TB, wmma::col_major,
-                                            wmma::row_major>::type;
+__global__ void __launch_bounds__(kTmaThreads, 2)
+    mm_bf16_tma(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, Epilogue ep,
+                int M, int N, int ksteps, int out_bf16, int persistent) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;     // 128B swizzle: 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
+  const int stages = persistent ? kStagesPersistent : kStagesOneTile;
+  const uint32_t full = base + kBarOffset;
+  const uint32_t empty = full + 8 * kStagesOneTile;
+  __nv_bfloat16* stage_o =
+      reinterpret_cast<__nv_bfloat16*>(smem + kOutStageOffset);
+  float* stage_c = reinterpret_cast<float*>(smem);
+  float* csum_s = stage_c + kBM * kLdc;            // [3][kBM]
+  float* stats = reinterpret_cast<float*>(smem + kStatsOffset);
 
-  __shared__ __align__(128) __nv_bfloat16 As[A_ELEMS];
-  __shared__ __align__(128) __nv_bfloat16 Bs[B_ELEMS];
-  __shared__ __align__(128) float Cs[kThreads / 32][16 * 16];
-  __shared__ float st_sum[2][BN], st_sq[2][BN];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_lo = blockIdx.z * kchunk;
-  const int k_hi = min(K, k_lo + kchunk);
-  // a_colsum: the first N tile's threads 0..BM-1 each own one row m
-  const bool do_csum = ep.a_csum != nullptr && blockIdx.x == 0;
-  float csum = 0.f;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    // A tile: BM*BK values in chunks of 8 along the storage row
-#pragma unroll
-    for (int c = tid; c < BM * BK / 8; c += kThreads) {
-      if (!TA) {                       // storage [M][K]
-        const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
-        const int gm = m0 + row, gk = k0 + col;
-        const int n = (gm < M) ? min(8, k_hi - gk) : 0;
-        load8_bf16(&As[row * LDA + col],
-                   A + (size_t)(gm < M ? gm : 0) * K + gk, n, vec_a);
-      } else {                         // storage [K][M]
-        const int row = c / (BM / 8), col = (c % (BM / 8)) * 8;
-        const int gk = k0 + row, gm = m0 + col;
-        const int n = (gk < k_hi) ? min(8, M - gm) : 0;
-        load8_bf16(&As[row * LDA + col],
-                   A + (size_t)(gk < k_hi ? gk : 0) * M + gm, n, vec_a);
-      }
-    }
-    // B tile: BK*BN values
-#pragma unroll
-    for (int c = tid; c < BN * BK / 8; c += kThreads) {
-      if (!TB) {                       // storage [K][N]
-        const int row = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        const int gk = k0 + row, gn = n0 + col;
-        const int n = (gk < k_hi) ? min(8, N - gn) : 0;
-        load8_bf16(&Bs[row * LDB + col],
-                   B + (size_t)(gk < k_hi ? gk : 0) * N + gn, n, vec_b);
-      } else {                         // storage [N][K]
-        const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
-        const int gn = n0 + row, gk = k0 + col;
-        const int n = (gn < N) ? min(8, k_hi - gk) : 0;
-        load8_bf16(&Bs[row * LDB + col],
-                   B + (size_t)(gn < N ? gn : 0) * K + gk, n, vec_b);
-      }
-    }
-    __syncthreads();
-
-    if (do_csum && tid < BM) {         // zero-filled edges add nothing
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        csum += __bfloat162float(TA ? As[kk * LDA + tid] : As[tid * LDA + kk]);
-      }
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA>
-          fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB>
-          fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int mm = wm * 64 + i * 16;
-        const __nv_bfloat16* p =
-            TA ? &As[kk * LDA + mm] : &As[mm * LDA + kk];
-        wmma::load_matrix_sync(fa[i], p, LDA);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int nn = wn * 32 + j * 16;
-        const __nv_bfloat16* p =
-            TB ? &Bs[nn * LDB + kk] : &Bs[kk * LDB + nn];
-        wmma::load_matrix_sync(fb[j], p, LDB);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each fragment goes through the warp's own 16x16 staging
-  // tile so the stores can be masked and converted to the output type.
-  // Lane l always sees column l % 16 of the fragment (rows l / 16, +2,
-  // ...), so it keeps that column's out_stats sums in registers.
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tiles_n = (N + kBN - 1) / kBN;
+  const int tiles = persistent ? tiles_n * ((M + kBM - 1) / kBM) : 1;
+  const int t_first = persistent ? static_cast<int>(blockIdx.x) : 0;
+  const int t_step = persistent ? static_cast<int>(gridDim.x) : 1;
+  const int S = gridDim.z, z = blockIdx.z;
+  const int k_lo = static_cast<int>(static_cast<long long>(z) * ksteps / S);
+  const int nk =
+      static_cast<int>(static_cast<long long>(z + 1) * ksteps / S) - k_lo;
+  auto origin = [&](int t, int& m0, int& n0) {
+    m0 = (persistent ? t / tiles_n : static_cast<int>(blockIdx.y)) * kBM;
+    n0 = (persistent ? t % tiles_n : static_cast<int>(blockIdx.x)) * kBN;
+  };
+  uint32_t rank, csize;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(csize));
+  const bool do_csum = TA && ep.a_csum != nullptr && blockIdx.x == 0;
   const bool do_stats = ep.col_sum != nullptr;
-  float* work = ep.work ? ep.work + (size_t)blockIdx.z * M * N : nullptr;
-  float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
-  float* cs = Cs[warp];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r0 = m0 + wm * 64 + i * 16, c0 = n0 + wn * 32 + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int r = r0 + e / 16, cc = c0 + e % 16;
-        if (r < M && cc < N) {
-          const float v = cs[e];
-          if (work) {
-            work[(size_t)r * N + cc] = v;
-          } else {
-            store_out(ep.out, (size_t)r * N + cc, v, out_bf16);
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    // ---- producer: one thread keeps the ring full, tile after tile ----
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_a))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_b))
+                   : "memory");
+      uint32_t it = 0;                 // k steps issued, over all tiles
+      for (int t = t_first; t < tiles; t += t_step) {
+        int m0, n0;
+        origin(t, m0, n0);
+        for (int i = 0; i < nk; ++i, ++it) {
+          const int s = it % stages;
+          mbar_wait(empty + 8 * s, ((it / stages) & 1) ^ 1);
+          const uint32_t bar = full + 8 * s;
+          mbar_expect_tx(bar, kStageBytes);
+          const int k0 = (k_lo + i) * kBK;
+          const uint32_t a = base + s * kStageBytes, b = a + kHalfBytes;
+          if (TA) {        // [K, M] storage: two 64(M) x 64(K) boxes
+            tma_load(a, &map_a, bar, m0, k0);
+            tma_load(a + kBoxBytes, &map_a, bar, m0 + 64, k0);
+          } else {         // [M, K] storage: one 64(K) x 128(M) box
+            tma_load(a, &map_a, bar, k0, m0);
           }
-          s[j] += v;
-          q[j] += v * v;
+          if (TB) {        // [N, K] storage: one 64(K) x 128(N) box
+            tma_load(b, &map_b, bar, k0, n0);
+          } else {         // [K, N] storage: two 64(N) x 64(K) boxes
+            tma_load(b, &map_b, bar, n0, k0);
+            tma_load(b + kBoxBytes, &map_b, bar, n0 + 64, k0);
+          }
         }
       }
-      __syncwarp();
     }
-  }
-  if (do_stats) {                      // uniform over the block
+    __syncwarp();
+  } else {
+    // ---- consumers: warpgroup wg owns tile rows [64 wg, 64 wg + 64) ----
+    const int wg = warp / 4, tw = tid % 128;
+    // fragment: d[4g + 2h + j] is row r + 8h, column 8g + 2c + j
+    const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2), c = lane & 3;
+    uint32_t it = 0;                   // k steps consumed, over all tiles
+    for (int t = t_first; t < tiles; t += t_step) {
+      int m0, n0;
+      origin(t, m0, n0);
+      float d[64];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      s[j] += __shfl_down_sync(0xffffffffu, s[j], 16);
-      q[j] += __shfl_down_sync(0xffffffffu, q[j], 16);
-      if (lane < 16) {
-        st_sum[wm][wn * 32 + j * 16 + lane] = s[j];
-        st_sq[wm][wn * 32 + j * 16 + lane] = q[j];
+      for (int i = 0; i < 64; ++i) d[i] = 0.f;
+      float cs = 0.f;
+      for (int i = 0; i < nk; ++i, ++it) {
+        const int s = it % stages;
+        mbar_wait(full + 8 * s, (it / stages) & 1);
+        __syncwarp();      // wgmma's .aligned forms need the warp converged
+        // both layouts put this warpgroup's 64 rows of A at +8 KB * wg
+        const uint32_t a = base + s * kStageBytes + wg * kBoxBytes;
+        const uint32_t b = base + s * kStageBytes + kHalfBytes;
+        fence_acc(d);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // K-major: 128-byte rows, 8-row groups 1 KB apart, k16 = +32 B.
+          // MN-major: 64-wide atoms (B: two, 8 KB apart), 8 K rows a
+          // group 1 KB apart, k16 = +16 rows = +2 KB.
+          const uint64_t da =
+              TA ? sw128_desc(a + kk * 2048, kBoxBytes, 1024)
+                 : sw128_desc(a + kk * 32, 16, 1024);
+          const uint64_t db =
+              TB ? sw128_desc(b + kk * 32, 16, 1024)
+                 : sw128_desc(b + kk * 2048, kBoxBytes, 1024);
+          wgmma_128<TA, !TB>(d, da, db);   // B stored [K, N] is N-major
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        fence_acc(d);
+        if (do_csum) {     // column tw % 64 of the box, 32 of its K rows
+          const unsigned char* box = smem + (a - base);
+          const int m = tw & 63;
+#pragma unroll 8
+          for (int k = (tw >> 6) * 32; k < (tw >> 6) * 32 + 32; ++k) {
+            const int off =
+                k * 128 + (((m >> 3) ^ (k & 7)) << 4) + (m & 7) * 2;
+            cs += __bfloat162float(
+                *reinterpret_cast<const __nv_bfloat16*>(box + off));
+          }
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        fence_acc(d);
+        if (i > 0 && lane == 0) {
+          mbar_arrive(empty + 8 * ((it - 1) % stages));
+        }
+        __syncwarp();
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(d);
+      if (nk > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % stages));
+      __syncwarp();
+
+      if (persistent) {
+        // bf16 tile through the block's own staging tile, off the ring,
+        // so the producer is already loading the next tile
+        consumers_sync();  // the last tile's stores have read stage_o
+        if (do_stats) tile_stats(d, stats, warp, lane);
+#pragma unroll
+        for (int g = 0; g < kBN / 8; ++g) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              &stage_o[r * kLdo + 8 * g + 2 * c]) =
+              __floats2bfloat162_rn(d[4 * g], d[4 * g + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(
+              &stage_o[(r + 8) * kLdo + 8 * g + 2 * c]) =
+              __floats2bfloat162_rn(d[4 * g + 2], d[4 * g + 3]);
+        }
+        consumers_sync();
+        if (do_stats && tid < kBN && n0 + tid < N) {
+          stats_out(ep, stats, m0 / kBM, N, n0 + tid, tid);
+        }
+        const bool vec = (N % 8) == 0;
+        for (int item = tid; item < kBM * (kBN / 8);
+             item += kConsumerThreads) {
+          const int row = item / (kBN / 8), col = (item % (kBN / 8)) * 8;
+          const int gm = m0 + row, gn = n0 + col;
+          if (gm >= M || gn >= N) continue;
+          __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(ep.out) +
+                               static_cast<size_t>(gm) * N + gn;
+          const __nv_bfloat16* src = &stage_o[row * kLdo + col];
+          if (vec) {
+            *reinterpret_cast<uint4*>(dst) =
+                *reinterpret_cast<const uint4*>(src);
+          } else {
+            for (int e = 0; e < 8 && gn + e < N; ++e) dst[e] = src[e];
+          }
+        }
+        continue;
+      }
+
+      // one-tile block: the fp32 tile over the ring, for the fold
+      consumers_sync();    // both warpgroups are done with the ring
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (do_stats) tile_stats(d, stats, warp, lane);
+#pragma unroll
+      for (int g = 0; g < kBN / 8; ++g) {
+        *reinterpret_cast<float2*>(&stage_c[r * kLdc + 8 * g + 2 * c]) =
+            make_float2(d[4 * g], d[4 * g + 1]);
+        *reinterpret_cast<float2*>(&stage_c[(r + 8) * kLdc + 8 * g + 2 * c]) =
+            make_float2(d[4 * g + 2], d[4 * g + 3]);
+      }
+      if (do_csum) csum_s[(tw >> 6) * kBM + wg * 64 + (tw & 63)] = cs;
+      consumers_sync();
+      if (do_stats && tid < kBN && n0 + tid < N) {
+        stats_out(ep, stats, blockIdx.y, N, n0 + tid, tid);
+      }
+      if (do_csum && tid < kBM) {
+        csum_s[2 * kBM + tid] = csum_s[tid] + csum_s[kBM + tid];
       }
     }
-    __syncthreads();
-    if (tid < BN && n0 + tid < N) {
-      const size_t o = (size_t)blockIdx.y * N + n0 + tid;
-      ep.col_sum[o] = st_sum[0][tid] + st_sum[1][tid];
-      ep.col_sq[o] = st_sq[0][tid] + st_sq[1][tid];
+  }
+  if (persistent) return;
+
+  // ---- fold: rank r of the cluster sums rows [r0, r1) over the ranks ----
+  cluster_sync();
+  if (warp != kProducerWarp) {
+    const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+    const int r0 = static_cast<int>(rank * kBM / csize);
+    const int r1 = static_cast<int>((rank + 1) * kBM / csize);
+    const int zc = z / static_cast<int>(csize);
+    const bool partial = ep.work != nullptr;
+    const bool vec = (N % 8) == 0;
+    for (int item = tid; item < (r1 - r0) * (kBN / 8);
+         item += kConsumerThreads) {
+      const int row = r0 + item / (kBN / 8), col = (item % (kBN / 8)) * 8;
+      const int gm = m0 + row, gn = n0 + col;
+      if (gm >= M || gn >= N) continue;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      const uint32_t addr =
+          base + static_cast<uint32_t>((row * kLdc + col) * sizeof(float));
+      for (uint32_t q = 0; q < csize; ++q) {
+        float t[8];
+        ld_cluster8(addr, q, t);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] += t[e];
+      }
+      const size_t o = static_cast<size_t>(gm) * N + gn;
+      if (partial) {
+        float* w = ep.work + static_cast<size_t>(zc) * M * N + o;
+        if (vec) {
+          reinterpret_cast<float4*>(w)[0] =
+              make_float4(v[0], v[1], v[2], v[3]);
+          reinterpret_cast<float4*>(w)[1] =
+              make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+          for (int e = 0; e < 8 && gn + e < N; ++e) w[e] = v[e];
+        }
+      } else if (vec && out_bf16) {
+        __nv_bfloat162 h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+        }
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(ep.out) + o) =
+            *reinterpret_cast<const uint4*>(h);
+      } else if (vec) {
+        float* w = static_cast<float*>(ep.out) + o;
+        reinterpret_cast<float4*>(w)[0] = make_float4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<float4*>(w)[1] = make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+        for (int e = 0; e < 8 && gn + e < N; ++e) {
+          store_out(ep.out, o + e, v[e], out_bf16);
+        }
+      }
+    }
+    if (do_csum && tid < r1 - r0 && m0 + r0 + tid < M) {
+      const uint32_t addr = smem_addr(&csum_s[2 * kBM + r0 + tid]);
+      float s = 0.f;
+      for (uint32_t q = 0; q < csize; ++q) s += ld_cluster1(addr, q);
+      ep.a_csum[static_cast<size_t>(partial ? zc : 0) * M + m0 + r0 + tid] =
+          s;
     }
   }
-  if (do_csum && tid < BM && m0 + tid < M) {
-    ep.a_csum[(size_t)blockIdx.z * M + m0 + tid] = csum;
-  }
+  cluster_sync();          // no block leaves while another reads its tile
 }
 
 // ---------------------------------------------------------------------------
@@ -430,67 +767,173 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+// (no -lcuda), fetched once; null if the driver does not have it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a row-major bf16 [outer, inner] operand read in boxes of
+// [box_outer, box_inner] with the 128-byte swizzle; zero fill outside.
+bool tensor_map(CUtensorMap* map, const void* ptr, uint64_t inner,
+                uint64_t outer, uint32_t box_inner, uint32_t box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {inner, outer};
+  cuuint64_t strides[1] = {inner * sizeof(__nv_bfloat16)};
+  cuuint32_t box[2] = {box_inner, box_outer};
+  cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <bool TA, bool TB>
-void launch(const void* a, const void* b, const Epilogue& ep, int M, int N,
-            int K, int splits, int kchunk, int in_bf16, int out_bf16,
-            cudaStream_t stream) {
+cudaError_t launch_tma(const void* a, const void* b, const Epilogue& ep,
+                       int M, int N, int K, int splits, int cluster,
+                       int persistent_ctas, int out_bf16,
+                       cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  // A: [K, M] storage in 64(M) x 64(K) boxes, or [M, K] in 64(K) x 128(M)
+  // B: [N, K] storage in 64(K) x 128(N) boxes, or [K, N] in 64(N) x 64(K)
+  const bool ok =
+      (TA ? tensor_map(&map_a, a, M, K, 64, 64)
+          : tensor_map(&map_a, a, K, M, kBK, kBM)) &&
+      (TB ? tensor_map(&map_b, b, K, N, kBK, kBN)
+          : tensor_map(&map_b, b, N, K, 64, 64));
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = mm_bf16_tma<TA, TB>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = persistent_ctas > 0
+                    ? dim3(persistent_ctas)
+                    : dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  cfg.blockDim = dim3(kTmaThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute la[1];
+  la[0].id = cudaLaunchAttributeClusterDimension;
+  la[0].val.clusterDim.x = 1;
+  la[0].val.clusterDim.y = 1;
+  la[0].val.clusterDim.z = cluster;
+  cfg.attrs = la;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, map_a, map_b, ep, M, N, (K + kBK - 1) / kBK, out_bf16,
+      persistent_ctas > 0 ? 1 : 0);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <bool TA, bool TB>
+cudaError_t launch(const void* a, const void* b, const Epilogue& ep, int M,
+                   int N, int K, int splits, int kchunk, int cluster,
+                   int persistent_ctas, int in_bf16, int out_bf16,
+                   cudaStream_t stream) {
   if (in_bf16) {
-    const dim3 grid((N + 127) / 128, (M + 127) / 128, splits);
-    const int vec_a = (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
-                      ((TA ? M : K) % 8 == 0);
-    const int vec_b = (reinterpret_cast<uintptr_t>(b) % 16 == 0) &&
-                      ((TB ? K : N) % 8 == 0);
-    mm_bf16_wmma<TA, TB><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b), ep, M, N, K, kchunk, out_bf16,
-        vec_a, vec_b);
-  } else {
-    const dim3 grid((N + 63) / 64, (M + 63) / 64, splits);
-    mm_f32_simt<TA, TB><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), ep, M,
-        N, K, kchunk, out_bf16);
+    return launch_tma<TA, TB>(a, b, ep, M, N, K, splits, cluster,
+                              persistent_ctas, out_bf16, stream);
   }
+  const dim3 grid((N + 63) / 64, (M + 63) / 64, splits);
+  mm_f32_simt<TA, TB><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), ep, M, N,
+      K, kchunk, out_bf16);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  `splits` slabs of `kchunk`
-// along K (gridDim.z); with splits > 1 the product writes fp32 partials
-// to `work` [splits, M, N] (and a_colsum partials to `a_csum` [splits,
-// M]) and the caller runs conv1x1_mm_splitk_reduce.  `col_sum`/`col_sq`
-// ([ceil(M / tile), N] fp32) and `a_csum` may be null (epilogue off).
-// Launches on `stream` and does not synchronise; returns
-// cudaGetLastError() (0 = launched).
+// dtype codes: 0 = float32, 1 = bfloat16.
+//
+// fp32 operands: `splits` slabs of `kchunk` along K (gridDim.z); with
+// splits > 1 the product writes fp32 partials to `work` [splits, M, N]
+// (and a_colsum partials to `a_csum` [splits, M]) and the caller runs
+// conv1x1_mm_splitk_reduce.  `cluster` must be 1 and `persistent_ctas`
+// 0.
+//
+// bf16 operands: `persistent_ctas` > 0 launches that many blocks of the
+// persistent schedule (one slab, bf16 output, no a_colsum).  Otherwise
+// one tile a block: `splits` slabs of whole 64-steps along K, in
+// clusters of `cluster` (1..8, dividing splits) blocks.  With splits ==
+// cluster the kernel writes `out` and `a_csum` [M]; with splits >
+// cluster it writes fp32 partials to `work` [splits / cluster, M, N]
+// (and `a_csum` [splits / cluster, M]) for conv1x1_mm_splitk_reduce.
+// Every operand's row (the contiguous dimension of its storage) is a
+// multiple of 8 elements and its base is 16-byte aligned; `kchunk` is
+// unused.
+//
+// `col_sum`/`col_sq` ([ceil(M / tile), N] fp32, tile 128 for bf16 and 64
+// for fp32) need one slab; they and `a_csum` may be null (epilogue off).
+// Launches on `stream` and does not synchronise; returns the launch's
+// error or cudaGetLastError() (0 = launched).
 extern "C" int conv1x1_mm(const void* a, const void* b, void* out, int M,
                           int N, int K, int ta, int tb, int in_dtype,
-                          int out_dtype, int splits, int kchunk, void* work,
-                          void* col_sum, void* col_sq, void* a_csum,
-                          void* stream) {
+                          int out_dtype, int splits, int kchunk, int cluster,
+                          int persistent_ctas, void* work, void* col_sum,
+                          void* col_sq, void* a_csum, void* stream) {
+  const int in_bf16 = in_dtype == 1, out_bf16 = out_dtype == 1;
+  const int parts = in_bf16 ? splits / (cluster > 0 ? cluster : 1) : splits;
   if ((in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1) ||
-      splits < 1 || splits > 65535 || kchunk < 1 ||
-      (splits > 1 && (work == nullptr || col_sum != nullptr)) ||
+      splits < 1 || splits > 65535 || kchunk < 1 || persistent_ctas < 0 ||
+      (col_sum != nullptr && splits > 1) ||
       (col_sum == nullptr) != (col_sq == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (in_bf16) {
+    const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+    const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
+    if (cluster < 1 || cluster > 8 || splits % cluster != 0 ||
+        (parts > 1 && work == nullptr) || pa % 16 != 0 || pb % 16 != 0 ||
+        (ta ? M : K) % 8 != 0 || (tb ? K : N) % 8 != 0 ||
+        (persistent_ctas > 0 &&
+         (splits != 1 || !out_bf16 || a_csum != nullptr))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (cluster != 1 || persistent_ctas != 0 ||
+             (splits > 1 && work == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int in_bf16 = in_dtype == 1, out_bf16 = out_dtype == 1;
-  const Epilogue ep{out, splits > 1 ? static_cast<float*>(work) : nullptr,
+  const Epilogue ep{out, parts > 1 ? static_cast<float*>(work) : nullptr,
                     static_cast<float*>(col_sum), static_cast<float*>(col_sq),
                     static_cast<float*>(a_csum)};
+  cudaError_t e;
   if (!ta && !tb) {
-    launch<false, false>(a, b, ep, M, N, K, splits, kchunk, in_bf16,
-                         out_bf16, s);
+    e = launch<false, false>(a, b, ep, M, N, K, splits, kchunk, cluster,
+                             persistent_ctas, in_bf16, out_bf16, s);
   } else if (!ta && tb) {
-    launch<false, true>(a, b, ep, M, N, K, splits, kchunk, in_bf16, out_bf16,
-                        s);
+    e = launch<false, true>(a, b, ep, M, N, K, splits, kchunk, cluster,
+                            persistent_ctas, in_bf16, out_bf16, s);
   } else if (ta && !tb) {
-    launch<true, false>(a, b, ep, M, N, K, splits, kchunk, in_bf16, out_bf16,
-                        s);
+    e = launch<true, false>(a, b, ep, M, N, K, splits, kchunk, cluster,
+                            persistent_ctas, in_bf16, out_bf16, s);
   } else {
-    launch<true, true>(a, b, ep, M, N, K, splits, kchunk, in_bf16, out_bf16,
-                       s);
+    e = launch<true, true>(a, b, ep, M, N, K, splits, kchunk, cluster,
+                           persistent_ctas, in_bf16, out_bf16, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 // The split-K second pass: out[mn] (dtype code out_dtype) = sum over the

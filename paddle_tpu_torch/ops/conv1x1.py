@@ -11,11 +11,18 @@ blocked product with transpose options::
 
 :func:`mm` is the wrapper of ``csrc/conv1x1_mm.cu`` (the Hopper port of
 the Pallas ``_mm_kernel``, ``pallas_conv.py:69``, with its ``out_stats``
-and ``a_colsum`` epilogues).  The wgrad's K = P runs to 401408 at
-ResNet-50's shapes while its output is a handful of tiles, so that form
-splits K across blocks (:func:`split_k`) and a second kernel sums the
-slabs.  On CUDA tensors :func:`mm` launches the kernels or raises; on
-CPU tensors it computes the plain PyTorch version, :func:`mm_reference`.
+and ``a_colsum`` epilogues).  bf16 operands run ``mm_bf16_tma`` (a TMA
+ring, ``wgmma``) by the launch :func:`plan` makes: the tile, the ring's
+stages, the persistent schedule of one-slab launches, each operand's
+major-ness and TMA box, and the split of K into slabs of whole 64-steps
+folded in a thread-block cluster: for the wgrad form, whose K = P runs to
+401408 at ResNet-50's shapes while its output is a handful of tiles, and
+for the other forms where their tiles would leave SMs idle.  Where the
+wgrad's slabs outnumber the cluster, a second kernel
+(:func:`splitk_reduce`) sums the clusters' fp32 partials.  fp32
+operands run the exact ``mm_f32_simt`` kernel, split by :func:`split_k`.
+On CUDA tensors :func:`mm` launches the kernels or raises; on CPU
+tensors it computes the plain PyTorch version, :func:`mm_reference`.
 ``mm.by_form`` counts every kernel launch by form (``forward``,
 ``dgrad``, ``wgrad``, ``ta_tb``, ``+out_stats``/``+a_colsum`` for the
 epilogues, ``splitk_reduce`` for the second pass), never the plain path;
@@ -35,13 +42,16 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+import functools
 import os
 
 import torch
 
 from . import cuda_build
 
-__all__ = ["mm", "mm_reference", "matmul", "split_k", "splitk_reduce",
+__all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "split_k",
+           "splitk_reduce",
            "splitk_reduce_reference", "conv2d_1x1",
            "conv2d_1x1_reference", "conv2d_1x1_with_bn_stats",
            "conv2d_1x1_grad_fused", "conv1x1_eligible", "launches",
@@ -55,20 +65,46 @@ _TILE = {torch.bfloat16: 128, torch.float32: 64}   # the kernels' M/N tile
 _MAX_GRID_Y = 65535            # the kernel puts M tiles on gridDim.y
 _FORMS = {(False, True): "forward", (False, False): "dgrad",
           (True, False): "wgrad", (True, True): "ta_tb"}
+_FORM_NAMES = {(ta, tb, st, cs): _FORMS[(ta, tb)] + ("+out_stats" if st
+                                                     else "") +
+               ("+a_colsum" if cs else "")
+               for ta in (False, True) for tb in (False, True)
+               for st in (False, True) for cs in (False, True)}
 
-# Split-K rule (the wgrad form, ta=True tb=False, only): aim for
+# The bf16 kernel's launch (see :func:`plan`): 128x128 tiles, K steps of
+# 64, two blocks an SM (_BLOCKS_AN_SM).  A launch of one slab with a bf16
+# output and no a_colsum is persistent: _BLOCKS_AN_SM blocks an SM walk
+# the tiles with a ring of _STAGES_PERSISTENT stages of 32 KB, beside
+# their bf16 staging tile.  Other launches run one tile a block with a
+# ring of _STAGES_ONE_TILE stages.  The
+# wgrad form (ta=True, tb=False, no out_stats) splits K into S slabs so
+# that tiles x S fills about one block per SM, every slab at least
+# _MIN_SLAB_STEPS steps; the slabs of one tile fold in a cluster of up to
+# _CLUSTER_MAX blocks.  Where S would exceed the cluster, S is capped at
+# the cluster if tiles x _CLUSTER_MAX blocks still fill 7/8 of the SMs,
+# and otherwise rounded up to a multiple of the cluster, whose S / cluster
+# fp32 partials splitk_reduce sums.  The other forms (no out_stats) split
+# only where their tiles are fewer than the SMs, within one cluster: S =
+# ceil(SMs / tiles), at most _CLUSTER_MAX, every slab _MIN_SLAB_STEPS
+# steps or more.
+_BK = 64
+_STAGES_ONE_TILE = 3
+_STAGES_PERSISTENT = 2
+_CLUSTER_MAX = 8
+_MIN_SLAB_STEPS = 8
+_BLOCKS_AN_SM = 2
+
+# Split-K rule of the fp32 kernel (the wgrad form only): aim for
 # _BLOCKS_PER_SM blocks per SM, i.e. S = ceil(2 * SMs / tiles) slabs,
-# but give every slab at least _MIN_SLAB_K of K (16 bf16 K steps) so the
-# partials' extra traffic stays small against the operands'; slabs are
-# whole multiples of the kernel's K step (32).  At batch 128 on an H100
-# (132 SMs) this gives S = 131 slabs of 3072 for the 2-tile [128, 256]
-# wgrad at P = 401408 and S = 3 for the 128-tile [2048, 1024] one at
-# P = 6272.
+# but give every slab at least _MIN_SLAB_K of K so the partials' extra
+# traffic stays small against the operands'; slabs are whole multiples
+# of the kernel's K step (32).
 _BLOCKS_PER_SM = 2
 _MIN_SLAB_K = 512
 _K_STEP = 32
 
 _sm_counts = {}
+_lib = None
 
 
 def build() -> str:
@@ -80,14 +116,20 @@ def build() -> str:
 
 
 def _library():
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    return cuda_build.load(SOURCE, {
-        "conv1x1_mm": ([ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-                        i32, i32, ptr, ptr, ptr, ptr, ptr], i32),
-        "conv1x1_mm_splitk_reduce": ([ptr, i32, ctypes.c_longlong, ptr, i32,
-                                      ptr, ptr, i32, ptr], i32),
-        "conv1x1_mm_error_string": ([i32], ctypes.c_char_p),
-    })
+    """The kernels' ctypes library, built and bound at first use and kept
+    here: every call of :func:`mm` needs it, on the host's clock."""
+    global _lib
+    if _lib is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        _lib = cuda_build.load(SOURCE, {
+            "conv1x1_mm": ([ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                            i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                            ptr], i32),
+            "conv1x1_mm_splitk_reduce": ([ptr, i32, ctypes.c_longlong, ptr,
+                                          i32, ptr, ptr, i32, ptr], i32),
+            "conv1x1_mm_error_string": ([i32], ctypes.c_char_p),
+        })
+    return _lib
 
 
 def _dims(a, b, ta, tb):
@@ -107,15 +149,120 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def split_k(M: int, N: int, K: int, dtype, sms: int):
-    """(splits, kchunk) of the wgrad form: ``splits`` slabs of ``kchunk``
-    (a multiple of 32) along K, by the rule stated at ``_BLOCKS_PER_SM``;
-    every slab holds at least one K value."""
+    """(splits, kchunk) of the fp32 kernel's wgrad form: ``splits`` slabs
+    of ``kchunk`` (a multiple of 32) along K, by the rule stated at
+    ``_BLOCKS_PER_SM``; every slab holds at least one K value."""
     tile = _TILE[dtype]
     tiles = _cdiv(M, tile) * _cdiv(N, tile)
     splits = max(1, min(_cdiv(_BLOCKS_PER_SM * sms, tiles),
                         K // _MIN_SLAB_K))
     kchunk = max(_K_STEP, _cdiv(_cdiv(K, splits), _K_STEP) * _K_STEP)
     return max(1, _cdiv(K, kchunk)), kchunk
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The bf16 kernel's launch for one product (see :func:`plan`).
+
+    ``tile`` (BM, BN, BK); ``stages`` of the TMA ring; ``ctas`` blocks of
+    the persistent schedule, which walk the tiles (0: one tile a block);
+    ``splits`` slabs of whole BK steps along K (:meth:`slabs`), the
+    longest ``kchunk`` values long; ``cluster`` blocks fold their slabs'
+    fp32 tiles in
+    distributed shared memory; ``partials`` fp32 [M, N] partials the
+    clusters write for :func:`splitk_reduce` (0: the kernel writes the
+    output); ``a_major``/``b_major`` the contiguous dimension of each
+    operand's storage ("K", "M" or "N"), ``a_box``/``b_box`` its TMA box
+    (inner, outer) in elements."""
+    M: int
+    N: int
+    K: int
+    tile: tuple
+    stages: int
+    ctas: int
+    splits: int
+    kchunk: int
+    cluster: int
+    partials: int
+    a_major: str
+    b_major: str
+    a_box: tuple
+    b_box: tuple
+
+    @property
+    def ksteps(self) -> int:
+        return _cdiv(self.K, self.tile[2])
+
+    @property
+    def tiles(self) -> int:
+        return _cdiv(self.N, self.tile[1]) * _cdiv(self.M, self.tile[0])
+
+    @property
+    def grid(self) -> tuple:
+        if self.ctas:
+            return (self.ctas, 1, 1)
+        return (_cdiv(self.N, self.tile[1]), _cdiv(self.M, self.tile[0]),
+                self.splits)
+
+    def slabs(self):
+        """[(k_lo, k_hi)] of each slab z, as the kernel cuts them: K steps
+        [z * ksteps // S, (z + 1) * ksteps // S), the last clipped at K."""
+        n, bk = self.ksteps, self.tile[2]
+        return [(z * n // self.splits * bk,
+                 min(self.K, (z + 1) * n // self.splits * bk))
+                for z in range(self.splits)]
+
+    def partial_bytes(self) -> int:
+        """fp32 partial bytes written and read again by the reduce pass."""
+        return 2 * 4 * self.partials * self.M * self.N
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, N: int, K: int, ta: bool, tb: bool, dtype=torch.bfloat16,
+         sms: int = 132, out_stats: bool = False, a_colsum: bool = False,
+         out_dtype=torch.bfloat16) -> Plan:
+    """The bf16 kernel's :class:`Plan` for O[M,N] = op(A) @ op(B) with the
+    given epilogues and output dtype (bf16 only; the fp32 kernel keeps
+    :func:`split_k`), by the rules stated at ``_BK``.  Raises ValueError
+    where TMA cannot read an operand: its storage row (A: M if ``ta``
+    else K; B: K if ``tb`` else N) must be a multiple of 8 elements (16
+    bytes).  Pure and cached: :func:`mm` asks for it on every call."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"plan: the TMA kernel takes bf16, got {dtype}")
+    rows = {"A": M if ta else K, "B": K if tb else N}
+    for name, row in rows.items():
+        if row % 8:
+            raise ValueError(
+                f"mm: bf16 operand {name}'s contiguous row of {row} elements "
+                f"is not a multiple of 8 (TMA needs 16-byte row strides)")
+    bm, bn = _TILE[dtype], _TILE[dtype]
+    tiles = _cdiv(M, bm) * _cdiv(N, bn)
+    ksteps = _cdiv(K, _BK)
+    splits = 1
+    if ta and not tb and not out_stats:
+        want = _cdiv(sms, tiles)
+        if want > _CLUSTER_MAX and 8 * tiles * _CLUSTER_MAX < 7 * sms:
+            want = _cdiv(want, _CLUSTER_MAX) * _CLUSTER_MAX
+        else:
+            want = min(want, _CLUSTER_MAX)
+        splits = max(1, min(want, ksteps // _MIN_SLAB_STEPS))
+        if splits > _CLUSTER_MAX:
+            splits -= splits % _CLUSTER_MAX
+    elif not out_stats and tiles < sms:
+        splits = max(1, min(_cdiv(sms, tiles), _CLUSTER_MAX,
+                            ksteps // _MIN_SLAB_STEPS))
+    cluster = min(splits, _CLUSTER_MAX)
+    persistent = splits == 1 and not a_colsum and out_dtype == torch.bfloat16
+    return Plan(
+        M=M, N=N, K=K, tile=(bm, bn, _BK),
+        stages=_STAGES_PERSISTENT if persistent else _STAGES_ONE_TILE,
+        ctas=min(tiles, _BLOCKS_AN_SM * sms) if persistent else 0,
+        splits=splits,
+        kchunk=max(1, _cdiv(ksteps, splits)) * _BK, cluster=cluster,
+        partials=splits // cluster if splits > cluster else 0,
+        a_major="M" if ta else "K", b_major="K" if tb else "N",
+        a_box=(64, 64) if ta else (_BK, bm),
+        b_box=(_BK, bn) if tb else (64, 64))
 
 
 def _sm_count(device) -> int:
@@ -149,10 +296,20 @@ def mm_reference(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
 
 
 def _check_rc(lib, rc, what):
+    """Raise on a launch's error code; ``what()`` names the launch."""
     if rc != 0:
         raise RuntimeError(
             f"conv1x1_mm launch failed: CUDA error {rc} "
-            f"({lib.conv1x1_mm_error_string(rc).decode()}) at {what}")
+            f"({lib.conv1x1_mm_error_string(rc).decode()}) at {what()}")
+
+
+def _on_device(dev, fn):
+    """fn() with ``dev`` the current CUDA device (entered only when it is
+    not already: the device switch costs host time on every call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn()
+    with torch.cuda.device(dev):
+        return fn()
 
 
 def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
@@ -172,11 +329,12 @@ def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
     if a_colsum and not ta:
         raise ValueError("mm: the a_colsum epilogue is the wgrad (ta=True) "
                          "path")
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    dev, bdev = a.device, b.device
+    if dev.type == "cpu" and bdev.type == "cpu":
         return mm_reference(a, b, ta, tb, out_dtype, out_stats, a_colsum)
-    if a.device.type != "cuda" or a.device != b.device:
+    if dev.type != "cuda" or dev != bdev:
         raise ValueError(f"mm: operands must share one CUDA device (or both "
-                         f"lie on the CPU), got {a.device} and {b.device}")
+                         f"lie on the CPU), got {dev} and {bdev}")
     if a.dtype not in _DTYPE_CODES or b.dtype != a.dtype:
         raise TypeError(f"mm: kernel takes fp32 or bf16 operands of one "
                         f"dtype, got {a.dtype} and {b.dtype}")
@@ -189,44 +347,54 @@ def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
     if -(-M // tile) > _MAX_GRID_Y or max(M, N, K) >= 2 ** 31:
         raise ValueError(f"mm: shape M={M} N={N} K={K} exceeds the "
                          f"kernel's grid")
-    dev = a.device
+    if a.dtype == torch.bfloat16:
+        p = plan(M, N, K, bool(ta), bool(tb), a.dtype, _sm_count(dev),
+                 bool(out_stats), bool(a_colsum), out_dtype)
+        if a.data_ptr() % 16 or b.data_ptr() % 16:
+            raise ValueError("mm: bf16 operands must start on a 16-byte "
+                             "boundary (TMA)")
+        splits, kchunk, cluster, ctas = p.splits, p.kchunk, p.cluster, \
+            p.ctas
+        parts = p.partials
+    else:
+        cluster, ctas = 1, 0
+        splits, kchunk = 1, max(K, 1)
+        if ta and not tb and not out_stats:
+            splits, kchunk = split_k(M, N, K, a.dtype, _sm_count(dev))
+        parts = splits if splits > 1 else 0
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    splits, kchunk = 1, max(K, 1)
-    if ta and not tb and not out_stats:
-        splits, kchunk = split_k(M, N, K, a.dtype, _sm_count(dev))
-    work = torch.empty((splits, M, N), **f32) if splits > 1 else None
+    work = torch.empty((parts, M, N), **f32) if parts else None
     col_sum = col_sq = csum = None
-    if out_stats:
-        col_sum = torch.empty((-(-M // tile), N), **f32)
-        col_sq = torch.empty_like(col_sum)
+    if out_stats:              # [sum, sum of squares] partials per M tile
+        stats = torch.empty((2, -(-M // tile), N), **f32)
+        col_sum, col_sq = stats[0], stats[1]
     if a_colsum:
-        csum = torch.empty((splits, M), **f32)
+        csum = torch.empty((max(parts, 1), M), **f32)
     if out.numel() == 0:
         return out
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    form = _FORMS[(bool(ta), bool(tb))] + \
-        ("+out_stats" if out_stats else "") + ("+a_colsum" if a_colsum else "")
-    what = (f"M={M} N={N} K={K} ta={ta} tb={tb} splits={splits} "
-            f"{a.dtype}->{out_dtype}")
     lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.conv1x1_mm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            M, N, K, int(ta), int(tb), _DTYPE_CODES[a.dtype],
-                            _DTYPE_CODES[out_dtype], splits, kchunk,
-                            ptr(work), ptr(col_sum), ptr(col_sq), ptr(csum),
-                            stream)
-        _check_rc(lib, rc, what)
-        mm.by_form[form] += 1
-    if splits > 1:
+
+    def launch():
+        return lib.conv1x1_mm(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, int(ta),
+            int(tb), _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], splits,
+            kchunk, cluster, ctas, ptr(work), ptr(col_sum), ptr(col_sq),
+            ptr(csum), torch.cuda.current_stream(dev).cuda_stream)
+    rc = _on_device(dev, launch)
+    _check_rc(lib, rc, lambda: f"M={M} N={N} K={K} ta={ta} tb={tb} "
+              f"splits={splits} cluster={cluster} {a.dtype}->{out_dtype}")
+    mm.by_form[_FORM_NAMES[(bool(ta), bool(tb), bool(out_stats),
+                            bool(a_colsum))]] += 1
+    if parts:
         out, csum = splitk_reduce(work, out_dtype, csum, out=out)
     res = [out]
     if out_stats:
-        res += [col_sum.sum(0), col_sq.sum(0)]
+        res += list(stats.sum(1))
     if a_colsum:
         res.append(csum.reshape(M))
     return res[0] if len(res) == 1 else tuple(res)
@@ -266,13 +434,12 @@ def splitk_reduce(work, out_dtype, csum_work=None, out=None):
     csum = torch.empty(M, dtype=torch.float32, device=work.device) \
         if csum_work is not None else None
     lib = _library()
-    with torch.cuda.device(work.device):
-        rc = lib.conv1x1_mm_splitk_reduce(
-            work.data_ptr(), S, M * N, out.data_ptr(), _DTYPE_CODES[out_dtype],
-            csum_work.data_ptr() if csum is not None else None,
-            csum.data_ptr() if csum is not None else None, M,
-            torch.cuda.current_stream(work.device).cuda_stream)
-    _check_rc(lib, rc, f"splitk_reduce S={S} M={M} N={N}")
+    rc = _on_device(work.device, lambda: lib.conv1x1_mm_splitk_reduce(
+        work.data_ptr(), S, M * N, out.data_ptr(), _DTYPE_CODES[out_dtype],
+        csum_work.data_ptr() if csum is not None else None,
+        csum.data_ptr() if csum is not None else None, M,
+        torch.cuda.current_stream(work.device).cuda_stream))
+    _check_rc(lib, rc, lambda: f"splitk_reduce S={S} M={M} N={N}")
     mm.by_form["splitk_reduce"] += 1
     return out, csum
 

@@ -185,19 +185,48 @@ WGRAD_SHAPES = [(128, 256, 401408), (256, 512, 100352), (512, 1024, 25088),
                 (1000, 384, 264)]
 
 
+RESNET50_WGRADS = [  # (P, C, M) of the 29 1x1 convs on the kernel, batch 128
+    (401408, 256, 128), (100352, 128, 512), (100352, 256, 512),
+    (100352, 512, 128), (100352, 128, 512), (100352, 512, 128),
+    (100352, 128, 512), (100352, 512, 128), (100352, 128, 512),
+    (100352, 512, 256), (25088, 256, 1024), (25088, 512, 1024),
+    (25088, 1024, 256), (25088, 256, 1024), (25088, 1024, 256),
+    (25088, 256, 1024), (25088, 1024, 256), (25088, 256, 1024),
+    (25088, 1024, 256), (25088, 256, 1024), (25088, 1024, 256),
+    (25088, 256, 1024), (25088, 1024, 512), (6272, 512, 2048),
+    (6272, 1024, 2048), (6272, 2048, 512), (6272, 512, 2048),
+    (6272, 2048, 512), (6272, 512, 2048)]
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("M,N,K", WGRAD_SHAPES)
 def test_split_k_rule(M, N, K, dtype):
-    """Slabs cover K exactly once, are whole K steps, each holds at least
-    one K value and, where K allows, _MIN_SLAB_K; tiles x slabs reaches
-    about two blocks per SM (132 SMs) unless K runs out first."""
+    """The wgrad form's split at 132 SMs.  bf16 (:func:`plan`): slabs of
+    whole 64-steps, at least 8 steps each where there are several, and
+    tiles x slabs fills about one block per SM unless K runs out or the
+    cluster caps it.  fp32 (:func:`split_k`): slabs cover K once in whole
+    32-steps, about two blocks per SM."""
     dt = getattr(torch, dtype)
     sms = 132
+    if dt == torch.bfloat16:
+        p = conv1x1.plan(M, N, K, True, False, dt, sms)
+        tiles = p.grid[0] * p.grid[1]
+        steps = [-(-(hi - lo) // 64) for lo, hi in p.slabs()]
+        assert p.kchunk % 64 == 0 and max(steps) * 64 <= p.kchunk
+        if p.splits > 1:
+            assert min(steps) >= conv1x1._MIN_SLAB_STEPS
+            assert tiles * (p.splits - p.cluster) < sms
+        if tiles * 8 >= sms * 7 / 8 or K < 16 * 64:
+            assert p.partials == 0
+        if tiles < sms and K >= 16 * 64:
+            assert p.splits > 1
+        if tiles >= sms:
+            assert p.splits == 1
+        return
     S, kc = conv1x1.split_k(M, N, K, dt, sms)
     assert kc % 32 == 0 and S >= 1
     assert (S - 1) * kc < K <= S * kc
-    tile = 128 if dt == torch.bfloat16 else 64
-    tiles = -(-M // tile) * -(-N // tile)
+    tiles = -(-M // 64) * -(-N // 64)
     if S > 1:
         assert kc >= conv1x1._MIN_SLAB_K - 32
         assert tiles * (S - 1) < 2 * sms
@@ -207,13 +236,89 @@ def test_split_k_rule(M, N, K, dtype):
         assert S == 1
 
 
+@pytest.mark.parametrize("M,N,K", WGRAD_SHAPES)
+def test_plan_slabs_cover_k_once_in_whole_steps(M, N, K):
+    """The bf16 wgrad's slabs: contiguous, in order, each starting on a
+    64-step, covering [0, K) exactly once; none empty."""
+    p = conv1x1.plan(M, N, K, True, False)
+    slabs = p.slabs()
+    assert len(slabs) == p.splits
+    assert slabs[0][0] == 0 and slabs[-1][1] == K
+    for (lo, hi), (lo2, _) in zip(slabs, slabs[1:]):
+        assert hi == lo2
+    for lo, hi in slabs:
+        assert lo % 64 == 0 and hi > lo
+        assert hi % 64 == 0 or hi == K
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("M,N,K", WGRAD_SHAPES)
+def test_plan_cluster_divides_splits(M, N, K, sms):
+    """The cluster is 1 to 8 blocks and divides the slabs; partials are
+    written only where the slabs outnumber the cluster, one per cluster."""
+    p = conv1x1.plan(M, N, K, True, False, torch.bfloat16, sms)
+    assert 1 <= p.cluster <= 8 and p.splits % p.cluster == 0
+    if p.splits > p.cluster:
+        assert p.cluster == 8 and p.partials == p.splits // 8
+    else:
+        assert p.partials == 0 and p.cluster == p.splits
+
+
+@pytest.mark.parametrize("ta,tb,a_major,b_major", [
+    (False, True, "K", "K"),     # forward: x [P, C], w [M, C]
+    (False, False, "K", "N"),    # dgrad: gout [P, M], w [M, C]
+    (True, False, "M", "N"),     # wgrad: gout [P, M], x [P, C]
+    (True, True, "M", "K")])
+def test_plan_majorness_per_form(ta, tb, a_major, b_major):
+    """Each operand is read in its storage orientation: K-major operands
+    in boxes of 64 K x 128 rows, MN-major ones in boxes of 64 x 64."""
+    p = conv1x1.plan(512, 256, 1024, ta, tb)
+    assert (p.a_major, p.b_major) == (a_major, b_major)
+    assert p.a_box == ((64, 64) if a_major == "M" else (64, 128))
+    assert p.b_box == ((64, 64) if b_major == "N" else (64, 128))
+    assert p.tile == (128, 128, 64) and p.stages >= 2
+    if (ta, tb) != (True, False):        # split within one cluster only
+        assert p.partials == 0 and p.cluster == p.splits <= 8
+    assert conv1x1.plan(512, 256, 1024, ta, tb, out_stats=True).splits == 1
+
+
+def test_plan_resnet50_step_partials_and_reduce_passes():
+    """One batch-128 ResNet-50 step at 132 SMs: the wgrads' fp32 partials
+    (written and read) are at most 0.1 GB, and a reduce pass runs only
+    where the slabs outnumber the cluster: the 10 launches at
+    P >= 100352."""
+    assert len(RESNET50_WGRADS) == 29
+    plans = [conv1x1.plan(M, C, P, True, False) for P, C, M in
+             RESNET50_WGRADS]
+    assert sum(p.partial_bytes() for p in plans) <= 0.1e9
+    reduce = [p for p in plans if p.partials]
+    assert all(p.splits > p.cluster for p in reduce)
+    assert all(p.splits <= p.cluster for p in plans if not p.partials)
+    assert sorted({p.K for p in reduce}) == [100352, 401408]
+    assert len(reduce) == 10
+
+
+@pytest.mark.parametrize("ta,tb,M,N,K,bad", [
+    (False, True, 256, 128, 260, "A"),       # A [M, K]: K not / 8
+    (True, False, 250, 128, 512, "A"),       # A [K, M]: M not / 8
+    (False, False, 256, 100, 512, "B"),      # B [K, N]: N not / 8
+    (False, True, 256, 128, 100, "A")])
+def test_plan_rejects_rows_not_multiple_of_8(ta, tb, M, N, K, bad):
+    """TMA needs 16-byte row strides: a bf16 operand whose storage row is
+    not a multiple of 8 elements raises before any launch."""
+    with pytest.raises(ValueError, match=f"operand {bad}"):
+        conv1x1.plan(M, N, K, ta, tb)
+    with pytest.raises(ValueError, match="bf16"):
+        conv1x1.plan(256, 256, 256, False, True, torch.float32)
+
+
 def test_split_k_partials_sum_to_the_product():
-    """The split-K decomposition the kernel uses: fp32 partials of each
+    """The fp32 kernel's split-K decomposition: fp32 partials of each
     slab summed in slab order equal the product (fp32, CPU)."""
     K, M, N = 4096 + 96, 128, 256
     a = torch.from_numpy(R.randn(K, M).astype("float32"))
     b = torch.from_numpy(R.randn(K, N).astype("float32"))
-    S, kc = conv1x1.split_k(M, N, K, torch.bfloat16, 132)
+    S, kc = conv1x1.split_k(M, N, K, torch.float32, 132)
     assert S == 8
     total = torch.zeros(M, N)
     for z in range(S):
@@ -221,6 +326,37 @@ def test_split_k_partials_sum_to_the_product():
     np.testing.assert_allclose(total.numpy(),
                                conv1x1.mm_reference(a, b, True).numpy(),
                                rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("M,N,K,sms", [(128, 256, 50176, 132),
+                                       (256, 128, 8192 + 40, 16),
+                                       (1000, 384, 2048, 132)])
+def test_cluster_fold_order_matches_the_product(M, N, K, sms):
+    """The bf16 wgrad's fold, emulated in fp32 on the CPU: each slab's
+    partial, the slabs of a cluster summed in rank order, then the
+    clusters' partials in order (splitk_reduce), with a_colsum folded the
+    same way, equal mm_reference."""
+    p = conv1x1.plan(M, N, K, True, False, torch.bfloat16, sms)
+    a = torch.from_numpy(R.randn(K, M).astype("float32"))
+    b = torch.from_numpy(R.randn(K, N).astype("float32"))
+    part = [a[lo:hi].t() @ b[lo:hi] for lo, hi in p.slabs()]
+    cpart = [a[lo:hi].sum(0) for lo, hi in p.slabs()]
+    clusters, ccl = [], []
+    for c0 in range(0, p.splits, p.cluster):
+        acc, cacc = torch.zeros(M, N), torch.zeros(M)
+        for r in range(p.cluster):
+            acc, cacc = acc + part[c0 + r], cacc + cpart[c0 + r]
+        clusters.append(acc)
+        ccl.append(cacc)
+    assert len(clusters) == max(p.partials, 1)
+    out, csum = conv1x1.splitk_reduce_reference(torch.stack(clusters),
+                                                torch.float32,
+                                                torch.stack(ccl))
+    ref, rcs = conv1x1.mm_reference(a, b, True, a_colsum=True)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-4,
+                               atol=1e-3)
+    np.testing.assert_allclose(csum.numpy(), rcs.numpy(), rtol=1e-4,
+                               atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -244,7 +380,12 @@ def test_gradients_and_epilogues_match_plain_on_card(cuda_device, dtype):
     out, s, q = conv1x1.mm(x, w, False, True, out_stats=True)
     torch.cuda.synchronize()
     assert conv1x1.launches() == 3
-    assert conv1x1.mm.by_form["splitk_reduce"] == 1
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if dt == torch.bfloat16:
+        reduce = int(conv1x1.plan(M, C, P, True, False, dt, sms).partials > 0)
+    else:
+        reduce = int(conv1x1.split_k(M, C, P, dt, sms)[0] > 1)
+    assert conv1x1.mm.by_form["splitk_reduce"] == reduce
     torch.testing.assert_close(dx.float(), conv1x1.mm_reference(
         g, w, False, False).float(), **tol)
     rdw, rds = conv1x1.mm_reference(g, x, True, False, a_colsum=True)
@@ -256,3 +397,60 @@ def test_gradients_and_epilogues_match_plain_on_card(cuda_device, dtype):
     torch.testing.assert_close(out.float(), ro.float(), **tol)
     torch.testing.assert_close(s, rs, rtol=1e-4, atol=1e-1)
     torch.testing.assert_close(q, rq, rtol=1e-4, atol=1e-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", [(1024, 256, 25088), (128, 256, 50176)])
+def test_cluster_fold_on_card(cuda_device, M, N, K):
+    """bf16 wgrad with a_colsum on a card: a fold with S <= cluster (the
+    kernel writes the output: no reduce launch) and one with S > cluster
+    (one splitk_reduce over the clusters' partials), against the plain
+    version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    g = torch.randn(K, M, device=cuda_device, generator=gen).bfloat16()
+    x = torch.randn(K, N, device=cuda_device, generator=gen).bfloat16()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    p = conv1x1.plan(M, N, K, True, False, torch.bfloat16, sms)
+    conv1x1.reset_counts()
+    dw, dsum = conv1x1.mm(g, x, True, False, a_colsum=True)
+    torch.cuda.synchronize()
+    assert conv1x1.mm.by_form["splitk_reduce"] == (1 if p.partials else 0)
+    rdw, rds = conv1x1.mm_reference(g, x, True, False, a_colsum=True)
+    torch.testing.assert_close(dw.float(), rdw.float(), rtol=1.6e-2,
+                               atol=max(1e-2, 2e-7 * K))
+    torch.testing.assert_close(dsum, rds, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_wgrad_bit_equal_on_card(cuda_device):
+    """Two runs of a split bf16 wgrad (clusters and a reduce pass) give
+    the same bits: the fold has no atomics."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    K, M, N = 100352, 512, 128
+    g = torch.randn(K, M, device=cuda_device, generator=gen).bfloat16()
+    x = torch.randn(K, N, device=cuda_device, generator=gen).bfloat16()
+    one = conv1x1.mm(g, x, True, False, a_colsum=True)
+    two = conv1x1.mm(g, x, True, False, a_colsum=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(one, two))
+
+
+@pytest.mark.parametrize("ta,tb,M,N,K,kw,persistent", [
+    (False, True, 401408, 128, 256, {}, True),              # forward
+    (False, True, 25088, 256, 1024, {"out_stats": True}, True),
+    (False, False, 401408, 256, 128, {}, True),             # dgrad
+    (False, True, 6272, 256, 1024, {}, False),              # split in a cluster
+    (True, False, 128, 256, 401408, {}, False),             # split wgrad
+    (False, True, 2048, 256, 512, {"out_dtype": torch.float32}, False),
+    (True, False, 256, 384, 264, {"a_colsum": True}, False)])
+def test_plan_persistent_schedule(ta, tb, M, N, K, kw, persistent):
+    """One slab with a bf16 output and no a_colsum runs persistent: two
+    blocks an SM (at most one per tile) walk the tiles with a 2-stage ring;
+    every other launch runs one tile a block with a 3-stage ring."""
+    p = conv1x1.plan(M, N, K, ta, tb, torch.bfloat16, 132, **kw)
+    assert bool(p.ctas) == persistent
+    if persistent:
+        assert p.splits == 1 and p.stages == 2
+        assert p.ctas == min(p.tiles, 2 * 132) and p.grid == (p.ctas, 1, 1)
+    else:
+        assert p.stages == 3 and p.grid[2] == p.splits
