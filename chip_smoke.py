@@ -52,7 +52,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
              shape (BH 8, T 65536, d 64, causal, bf16) and at the other
              forms (non-causal, cross-attention with Dv != D, head size
              128, fp32, an lse cotangent through
-             flash_attention_with_lse); trains the long-context program
+             flash_attention_with_lse), each backward run twice and held
+             bit-equal; trains the long-context program
              (Executor(amp=True).run_steps at T 65536) with the launch
              counts read around the run, holds one step's loss and q/k/v
              gradients against the plain path computed in fp32, profiles
@@ -258,7 +259,7 @@ def kernel_name(source, line):
         return "splitk_reduce" if "splitk_reduce" in line else None
     if source == "stream_copy":
         return "stream_copy_kernel" if "stream_copy_kernel" in line else None
-    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32))"
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32|tma))"
                   r"(?:ILi(\d+)E)?", line)
     if m:
         return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
@@ -269,7 +270,8 @@ def phase_build():
     """Build every kernel source at once (one nvcc each) and, meanwhile,
     the two Triton kernels of the bandwidth probe (one small launch each
     compiles them); load the libraries, and print each kernel's
-    registers, shared memory and spills."""
+    registers, shared memory and spills, and ptxas's notes on kernels
+    whose wgmma instructions it serialised."""
     from paddle_tpu_torch.benchmark import bandwidth as bw
     from paddle_tpu_torch.ops import conv1x1
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -314,6 +316,11 @@ def phase_build():
                 elif entry and ("Used" in line or "spill" in line):
                     print(f"[build] {entry}: "
                           f"{line.split(':', 1)[-1].strip()}")
+                elif "wgmma.mma_async instructions are serialized" in line:
+                    # ptxas names the kernel whose wgmmas wait one by one
+                    note = line.split(")", 1)[-1].strip()[:160]
+                    print(f"[build] {kernel_name(name, line)}: wgmma "
+                          f"serialized: {note}")
 
 
 def conv_geometry(program, batch):
@@ -1250,7 +1257,8 @@ def att_inputs(g, BH, Tq, Tk, D, Dv, dtype):
 
 
 def hold_attention_form(fa, g, label, form, timed=False):
-    """K2, K3 and K4 against their plain versions on one form; with
+    """K2, K3 and K4 against their plain versions on one form, and K3 and
+    K4 against a second run of themselves (bit-equal); with
     ``timed``, also each kernel's time, the plain versions', the
     library's and the bounds."""
     BH, Tq, Tk, D, Dv, causal, dtype = form
@@ -1267,14 +1275,23 @@ def hold_attention_form(fa, g, label, form, timed=False):
         raise RuntimeError(f"chip_smoke: {label} lse differs by {e_lse}")
     held = [att_close(f"{label} d{n}", a, b, tol)
             for n, a, b in zip("qkv", grads, refs)]
+    # the kernels own their output rows (no atomics): a second run gives
+    # the same bits
+    again = fa.flash_bwd(q, k, v, out, lse, gg, causal)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(grads, again)]
+    if not all(same):
+        raise RuntimeError(f"chip_smoke: {label}: two runs of the backward "
+                           f"differ (dq, dk, dv bit-equal: {same})")
     print(f"[attention] {label}: BH={BH} Tq={Tq} Tk={Tk} D={D} Dv={Dv} "
           f"causal={causal} {str(dtype)[6:]}: max_abs_err out {e_out:.3e} "
           f"lse {e_lse:.3e} (limit {LSE_TOL}) dq {held[0][0]:.3e} dk "
           f"{held[1][0]:.3e} dv {held[2][0]:.3e}; largest error / limit "
-          f"{max([u_out] + [h[1] for h in held]):.3f} (tol {tol})")
+          f"{max([u_out] + [h[1] for h in held]):.3f} (tol {tol}); two "
+          f"backward runs bit-equal in dq, dk and dv")
     row = {"err": {"fwd": e_out, "bwd_dq": held[0][0],
                    "bwd_dkv": max(held[1][0], held[2][0])}}
-    del ro, rl, refs, grads
+    del ro, rl, refs, grads, again
     if timed:
         delta = fa.flash_delta(gg, out)
         row["ms"] = {
@@ -1291,6 +1308,12 @@ def hold_attention_form(fa, g, label, form, timed=False):
         row["library_ms"] = dict(zip(("fwd", "bwd"),
                                      sdpa_ms(q, k, v, gg, causal)))
         row["bound"] = {n: att_bound(n, *form) for n in ATT_REPLACES}
+        print(f"[attention] {label}: "
+              + "; ".join(f"{n} {row['ms'][n]:.3f} ms (bound "
+                          f"{row['bound'][n][0]:.3f} ms, "
+                          f"{row['bound'][n][0] / row['ms'][n]:.3f} of it)"
+                          for n in ATT_REPLACES)
+              + f"; SDPA backward {row['library_ms']['bwd']:.3f} ms")
     del q, k, v, gg, out, lse
     torch.cuda.empty_cache()
     return row
@@ -1334,8 +1357,10 @@ def phase_attention_kernels(seed):
     timed.  Returns the slice's row."""
     from paddle_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    # the slice's form for the kernels line; head 128 for the width-128
+    # backward (256-thread blocks, loads from a consumer warp)
     rows = {label: hold_attention_form(fa, g, label, form,
-                                       timed=label == "slice")
+                                       timed=label in ("slice", "head 128"))
             for label, form in ATT_FORMS.items()}
     hold_attention_with_lse(fa, g)
     torch.cuda.empty_cache()
@@ -1457,8 +1482,8 @@ def phase_attention_train(seed, card):
         raise RuntimeError("chip_smoke: the profiled AMP step recorded no "
                            "device time")
     ran = {name for _, _, name in rows}
-    missing = [k for k in ("flash_fwd_bf16", "flash_bwd_dq_bf16",
-                           "flash_bwd_dkv_bf16")
+    missing = [k for k in ("flash_fwd_bf16", "flash_bwd_dq_tma",
+                           "flash_bwd_dkv_tma")
                if not any(k in name for name in ran)]
     if missing:
         raise RuntimeError(f"chip_smoke: the profiled AMP step ran no "

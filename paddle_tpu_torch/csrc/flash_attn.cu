@@ -28,47 +28,103 @@
 // for the forward and dq, query blocks for dk/dv) runs in order, and
 // carry the running max, sum and accumulators in VMEM scratch across it.
 // CUDA blocks run in parallel in no order, so that axis is a loop inside
-// each block: one block of 4 warps owns 64 query rows (forward, dq) or 64
-// key rows (dk/dv), 16 per warp, and keeps its accumulators in registers
-// while the other operand streams through shared memory in 64-row tiles,
-// double-buffered with cp.async so the next tile loads while this one is
-// computed.  dk/dv has one owner per key tile, so there are no atomics
-// and every run gives the same bits, as on the TPU.  Under causal masking
-// the last query tile walks every key tile and the first walks one, so
-// the forward and dq launch the longest tiles first (block b takes query
-// tile nq - 1 - b / BH) and dk/dv its longest (the first key tiles) first.
-//
-// Products.  bf16: every product runs on the tensor cores, mma.sync
-// m16n8k16 with fp32 accumulation, operands from shared memory through
-// ldmatrix.  q k^T and dO v^T multiply bf16 data, so their products are
-// exact.  p v, ds k, p^T dO and ds^T q multiply an fp32 probability (or
-// its gradient) by bf16 data: here p and ds are ROUNDED TO BF16 for the
-// tensor cores (the TPU's MXU rounds an f32 dot the same way at default
-// precision), from the accumulator registers straight into the A
-// fragments.  The row sums of the softmax use the fp32 p.  So against the
-// plain fp32 formula a bf16 result carries a relative error of about
-// 2^-9 per term besides its own rounding; chip_smoke.py states the
-// tolerance.  The scale: JAX scales q in fp32 before the product; this
-// kernel scales s after the bf16 product, which differs from that only by
-// fp32 rounding, and not at all when the scale is a power of two (D = 64
-// or D = 16).  fp32: one warp per row on the CUDA cores with exact fp32
-// FMAs in the order of the plain formula (q scaled first), as the fp32
-// form of the 1x1-conv kernel does; it is the tests' form, not the
-// training path's.
+// each block, which owns a block of query rows (forward, dq) or key rows
+// (dk/dv) and keeps its accumulators in registers while the other
+// operand streams through shared memory.  Each block alone writes the
+// rows it owns: no atomics anywhere, so every run gives the same bits,
+// as on the TPU.  Under causal masking the last query rows walk every key
+// tile and the first walk one, so the forward and dq launch their longest
+// blocks first (the last query rows) and dk/dv theirs (the first keys).
 //
 // What bounds it on an H100.  At the long-context shape (BH 8, T 65536,
 // D 64, causal) each product is 2 * BH * T(T+1)/2 * D = 2.2e12 operations
 // while the tensors moved are ~0.3 GB, so all three kernels are bound by
-// operations (4.4e12 for the forward, 6.7e12 for dq, 8.8e12 for dk/dv, at
-// 989 TFLOP/s of bf16).  What this simple design leaves on the table:
-// mma.sync instead of wgmma, no TMA, no warp specialisation, exp on the
-// SFU for every score, and dq and dk/dv each recompute s and dp, as the
-// TPU kernels do.
+// operations at 989 TFLOP/s of bf16: 4.4e12 for the forward (2 products,
+// 4.4 ms), 6.7e12 for dq (3: s, dp, ds k; 6.7 ms) and 8.8e12 for dk/dv
+// (4: s, dp, p^T dO, ds^T q; 8.9 ms).  dq and dk/dv each recompute s and
+// dp, as the TPU kernels do; fusing them would save two of the seven
+// products but sum dq across key blocks with atomics.
+//
+// bf16 forward (K2): a 4-warp block owns 64 query rows, 16 per warp;
+// mma.sync m16n8k16 from ldmatrix, K and V double-buffered with
+// cp.async; online softmax with expf.
+//
+// bf16 backward (K3 flash_bwd_dq_tma, K4 flash_bwd_dkv_tma): the
+// tensor cores' full rate needs wgmma, and wgmma needs its operands in
+// 128-byte-swizzled shared memory fed without stalling the math, so:
+//
+//   block    two consumer warpgroups own 128 rows, 64 each: query rows
+//            for dq, key rows for dk/dv.  A producer warpgroup (one
+//            warp works) issues the loads and setmaxnreg moves its
+//            registers to the consumers (384 threads; ptxas still
+//            compiles a thread to at most 168 registers, but with the
+//            hint dk/dv spilled less and ran faster).  At width
+//            128 dk/dv's accumulators alone take 128 registers, so
+//            there warp 0 of the consumers issues the loads instead (256
+//            threads, up to 255 registers): side by side, that ran dk/dv
+//            at width 128 without spills and faster, and the width-64
+//            forms and dq slower.  Three consumer warpgroups (192 rows)
+//            ran slower.  One block an SM.
+//   loads    its own tiles (dq: Q and dO; dk/dv: K and V) arrive once by
+//            TMA; the other two stream, 64 rows a tile, through a ring of
+//            up to 4 stages on full/empty mbarriers (dk/dv: with the
+//            tile's lse * log2(e) and delta, which the loading warp's
+//            lanes write beside the stage, +inf past Tq so p = 0 there).
+//            Tensor maps are 3-D [BH, T, width], boxes of 64 columns, so
+//            a ragged last tile is zero-filled within its own head; they
+//            are encoded per call on the host and passed as
+//            __grid_constant__ parameters (hopper.cuh).  Every tile is
+//            loaded the full width (64 or 128 columns, zero past D or
+//            Dv), so every product runs a fixed number of wgmma steps.
+//   math     dq:    S = Q K^T, dP = dO V^T   wgmma m64n64k16, both
+//                                            operands in shared memory,
+//                                            K-major;
+//                   dQ += dS K               wgmma with dS from registers,
+//                                            K MN-major (transpose 1).
+//            dk/dv: S^T = K Q^T, dP^T = V dO^T, as above;
+//                   dV += P^T dO, dK += dS^T Q  A from registers, dO and Q
+//                                            MN-major.
+//            The fp32 accumulators of p and ds become the bf16 A
+//            fragments in place, without a trip through shared memory.
+//            S and dP are two wgmma groups: the exponentials of S run
+//            while dP is computed, and the other warpgroup's products
+//            run meanwhile.  A tile's dQ product (width 64) or dV and
+//            dK products (width 128) stay in flight behind the next
+//            tile's S and dP.
+//   softmax p = exp2(s * scale * log2(e) - lse * log2(e)): one FFMA and
+//            one ex2.approx a score, lse * log2(e) computed once a row.
+//            The per-element causal test runs only on the tiles that
+//            cross the diagonal (and, for dq, the tile holding the last
+//            key); a warpgroup skips a tile wholly above the diagonal.
+//   output   the accumulators are scaled and rounded to bf16 once, from
+//            registers.
+//
+// Products.  q k^T and dO v^T multiply bf16 data, so their products are
+// exact.  p v, ds k, p^T dO and ds^T q multiply an fp32 probability (or
+// its gradient) by bf16 data: here p and ds are ROUNDED TO BF16 for the
+// tensor cores (the TPU's MXU rounds an f32 dot the same way at default
+// precision).  The forward's row sums use the fp32 p, and so does the
+// backward's ds = p (dp - delta).  So against the plain fp32 formula a
+// bf16 result carries a relative error of about 2^-9 per term besides
+// its own rounding;
+// chip_smoke.py states the tolerance.  The scale: JAX scales q in fp32
+// before the product; these kernels scale s after the bf16 product, which
+// differs from that only by fp32 rounding, and not at all when the scale
+// is a power of two (D = 64 or D = 16).  fp32: one warp per row on the
+// CUDA cores with exact fp32 FMAs in the order of the plain formula (q
+// scaled first), as the fp32 form of the 1x1-conv kernel does; it is the
+// tests' form, not the training path's.
+//
+// A wait on an mbarrier that has not completed after about 4 s traps.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;   // mbarriers, TMA, wgmma, tensor maps
 
 using bf16 = __nv_bfloat16;
 
@@ -94,12 +150,8 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// primitives: cp.async, ldmatrix, mma.sync
+// primitives of the forward: cp.async, ldmatrix, mma.sync
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared; zero-filled when !valid (src-size 0).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
@@ -340,199 +392,558 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward, dq (K3)
+// bf16 backward (K3 dq, K4 dk/dv): TMA ring, wgmma, warp specialisation
 // ---------------------------------------------------------------------------
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Args a) {
-  constexpr int TILE = kTile * (DP + 8);
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + TILE;
-  bf16* Ks = dOs + TILE;       // 2 stages
-  bf16* Vs = Ks + 2 * TILE;    // 2 stages
-  const int nq = (a.Tq + kTile - 1) / kTile;
-  const int bh = blockIdx.x % a.BH;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / a.BH)) * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qrows = static_cast<size_t>(bh) * a.Tq;
-  const bf16* q = static_cast<const bf16*>(a.q) + qrows * a.D;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + qrows * a.Dv;
-  const bf16* k = static_cast<const bf16*>(a.k) + static_cast<size_t>(bh) * a.Tk * a.D;
-  const bf16* v = static_cast<const bf16*>(a.v) + static_cast<size_t>(bh) * a.Tk * a.Dv;
-  const int nkt = key_tiles(a, q0);
+constexpr int kBwdRows = 128;            // rows a block owns: 64 a warpgroup
+constexpr int kBwdTile = 64;             // rows of a streamed tile
+constexpr int kBwdConsumers = 256;       // two consumer warpgroups
+constexpr int kBwdProducerWarp = kBwdConsumers / 32;
+// A producer warpgroup issues the loads (384 threads), except in dk/dv
+// at width 128, where warp 0 of the consumers issues them (256 threads):
+// a 384-thread block gets at most 168 registers a thread, and dk/dv's
+// accumulators alone take 128 of them at that width.
+__host__ __device__ constexpr bool bwd_folded(bool dkv, int dp) {
+  return dkv && dp > 64;
+}
+__host__ __device__ constexpr int bwd_threads(bool dkv, int dp) {
+  return bwd_folded(dkv, dp) ? kBwdConsumers : kBwdConsumers + 128;
+}
+// Registers a thread after setmaxnreg: the producer warpgroup gives its
+// share to the consumers, 128 x (40 + 2 x 232) = 64512 of the SM's 65536.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kBwdMaxStages = 4;
+constexpr uint32_t kOwnBox = kBwdRows * 128;      // 128 rows x 64 columns
+constexpr uint32_t kTileBox = kBwdTile * 128;     // 64 rows x 64 columns
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskedArg = kNegInf * kLog2e;    // exp2 argument of -1e30
 
-  load_tile<DP>(Qs, q, q0, a.Tq, a.D);
-  load_tile<DP>(dOs, dout, q0, a.Tq, a.Dv);
-  load_tile<DP>(Ks, k, 0, a.Tk, a.D);
-  load_tile<DP>(Vs, v, 0, a.Tk, a.Dv);
-  cp_async_commit();
+// Shared memory of a backward block (after aligning the base to 1 KB):
+// the block's own tiles (dq: Q and dO; dk/dv: K and V), 128 rows each in
+// DP / 64 boxes of 64 columns; the ring of `stages` stages, each a tile
+// of 64 rows of the two streamed operands (dq: K and V; dk/dv: Q and
+// dO); for dk/dv, per stage, the tile's lse * log2(e) and delta
+// ([stages][2][64] fp32); then the full and empty mbarrier of each stage
+// and one for the block's own tiles.  ops/flash_attention.py (bwd_plan)
+// computes the same number, and the launch refuses any other.
+__host__ __device__ constexpr uint32_t bwd_own_bytes(int dp) {
+  return 2u * dp * 256;
+}
+__host__ __device__ constexpr uint32_t bwd_stage_bytes(int dp) {
+  return 2u * dp * 128;
+}
+__host__ __device__ constexpr uint32_t bwd_rows_bytes(bool dkv) {
+  return dkv ? 512u : 0u;
+}
+__host__ __device__ constexpr uint32_t bwd_smem_bytes(bool dkv, int dp,
+                                                      int stages) {
+  return 1024u + bwd_own_bytes(dp) +
+         stages * (bwd_stage_bytes(dp) + bwd_rows_bytes(dkv)) +
+         8u * (2 * stages + 1);
+}
+static_assert(bwd_smem_bytes(true, 128, kBwdMaxStages) <= 232448,
+              "the deepest ring must fit in an SM's shared memory");
 
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse[2], delta[2];
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A fragments of a 64x64 fp32 accumulator rounded to bf16: a[kk] is the
+// 64x16 slice of columns 16 kk.. (the accumulator's n-tiles 2 kk, 2 kk + 1).
+__device__ __forceinline__ void to_a_frags(const float (&x)[32],
+                                           uint32_t (&a)[4][4]) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse[h] = row[h] < a.Tq ? a.lse_in[qrows + row[h]] : 0.f;
-    delta[h] = row[h] < a.Tq ? a.delta[qrows + row[h]] : 0.f;
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
   }
-  float acc[DP / 8][4];
-  zero(acc);
-  for (int it = 0; it < nkt; ++it) {
-    const int st = it & 1;
-    if (it + 1 < nkt) {
-      load_tile<DP>(Ks + (st ^ 1) * TILE, k, (it + 1) * kTile, a.Tk, a.D);
-      load_tile<DP>(Vs + (st ^ 1) * TILE, v, (it + 1) * kTile, a.Tk, a.Dv);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
+}
 
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    mma_nt<DP>(s, Qs, warp * 16, Ks + st * TILE, a.D / 16);
-    mma_nt<DP>(dp, dOs, warp * 16, Vs + st * TILE, a.Dv / 16);
-    const int k0 = it * kTile;
+// Every operand tile is loaded DP columns wide (NB = DP / 64 boxes of 64
+// columns, zero past the operand's width), so that each product below
+// runs a fixed number of wgmma steps: a step under a runtime condition
+// makes the compiler merge accumulator values between wgmmas, and ptxas
+// then serialises them.
+
+// acc (64 x DP) += A (64 x 64, registers) B, B a streamed tile in shared
+// memory: 64 rows (the contraction) in boxes of 64 columns, MN-major.
+template <int NB>
+__device__ __forceinline__ void rs_product(float (&acc)[NB][32],
+                                           uint32_t (&a)[4][4], uint32_t b) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int h = 0; h < NB; ++h) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool keep = col < a.Tk && !(a.causal && col > row[h]);
-        const float p = expf((keep ? s[j][e] * a.scale : kNegInf) - lse[h]);
-        s[j][e] = p * (dp[j][e] - delta[h]);        // ds
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_64(acc[h], a[kk],
+                  sw128_desc(b + h * kTileBox + kk * 2048, kTileBox, 1024));
+    }
+  }
+}
+
+// d (64 x 64) = X Y^T over DP columns: X this warpgroup's 64 rows of an
+// owned tile (128-row boxes, at x), Y a streamed tile (64-row boxes, at
+// y); both K-major.
+template <int NB>
+__device__ __forceinline__ void ss_product(float (&d)[32], uint32_t x,
+                                           uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk) {
+    wgmma_ss_64(d,
+                sw128_desc(x + (kk / 4) * kOwnBox + (kk % 4) * 32, 16, 1024),
+                sw128_desc(y + (kk / 4) * kTileBox + (kk % 4) * 32, 16, 1024),
+                kk > 0);
+  }
+}
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+}
+
+// dq (K3).  A block owns 128 query rows of one head (block b takes query
+// block nqb - 1 - b / BH: the longest walks first); its Q and dO tiles
+// arrive once, and the key tiles that the causal mask keeps stream
+// through the ring with V.  Per key tile each consumer warpgroup computes
+// S = Q K^T and dP = dO V^T (wgmma, both operands in shared memory), p
+// and ds in registers, and dQ += ds K (wgmma, ds from registers, K
+// MN-major).  Fragment: d[4g + 2h + j] is row r + 8h, column 8g + 2c + j.
+template <int DP>
+__global__ void __launch_bounds__(bwd_threads(false, DP), 1)
+    flash_bwd_dq_tma(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do, Args a,
+                     int stages) {
+  constexpr int NB = DP / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t qs = base, os = base + NB * kOwnBox;
+  const uint32_t ring = base + bwd_own_bytes(DP);
+  const uint32_t full = ring + stages * bwd_stage_bytes(DP);
+  const uint32_t empty = full + 8 * stages, once = empty + 8 * stages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x % a.BH;
+  const int nqb = (a.Tq + kBwdRows - 1) / kBwdRows;
+  const int q0 = (nqb - 1 - static_cast<int>(blockIdx.x / a.BH)) * kBwdRows;
+  int nkt = (a.Tk + kBwdTile - 1) / kBwdTile;
+  if (a.causal) {
+    nkt = min(nkt, min(q0 + kBwdRows - 1, a.Tq - 1) / kBwdTile + 1);
+  }
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kBwdConsumers / 32);
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kBwdProducerWarp) {
+    producer_regs();
+    if (warp != kBwdProducerWarp) return;
+    if (lane == 0) {
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      prefetch_tensormap(&map_do);
+      mbar_expect_tx(once, 2 * NB * kOwnBox);
+      for (int b = 0; b < NB; ++b)
+        tma_load_3d(qs + b * kOwnBox, &map_q, once, b * 64, q0, bh);
+      for (int b = 0; b < NB; ++b)
+        tma_load_3d(os + b * kOwnBox, &map_do, once, b * 64, q0, bh);
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % stages;
+        mbar_wait(empty + 8 * s, ((kt / stages) & 1) ^ 1);
+        const uint32_t bar = full + 8 * s;
+        const uint32_t kst = ring + s * bwd_stage_bytes(DP);
+        mbar_expect_tx(bar, 2 * NB * kTileBox);
+        for (int b = 0; b < NB; ++b)
+          tma_load_3d(kst + b * kTileBox, &map_k, bar, b * 64, kt * kBwdTile,
+                      bh);
+        for (int b = 0; b < NB; ++b)
+          tma_load_3d(kst + (NB + b) * kTileBox, &map_v, bar, b * 64,
+                      kt * kBwdTile, bh);
       }
     }
-    mma_pv<DP>(acc, s, Ks + st * TILE, a.D / 16);  // dq += ds k
-    __syncthreads();
+    return;
   }
-  cp_async_wait<0>();
 
-  bf16* dq = static_cast<bf16*>(a.dq) + qrows * a.D;
+  consumer_regs();
+  const int wg = warp / 4;
+  const int r = (warp & 3) * 16 + (lane >> 2), c = lane & 3;
+  const int qw = q0 + wg * 64;          // this warpgroup's first query
+  const size_t qrows = static_cast<size_t>(bh) * a.Tq;
+  const float sl = a.scale * kLog2e;
+  float lse2[2], delta[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (row[h] >= a.Tq) continue;
+    const int row = qw + r + 8 * h;
+    lse2[h] = row < a.Tq ? a.lse_in[qrows + row] * kLog2e : 0.f;
+    delta[h] = row < a.Tq ? a.delta[qrows + row] : 0.f;
+  }
+  float dq[NB][32];
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col < a.D) {
-        *reinterpret_cast<__nv_bfloat162*>(
-            dq + static_cast<size_t>(row[h]) * a.D + col) =
-            __floats2bfloat162_rn(acc[n][2 * h] * a.scale,
-                                  acc[n][2 * h + 1] * a.scale);
+  for (int h = 0; h < NB; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[h][i] = 0.f;
+  }
+  // A stage is released once the dq product that reads it has run.  At
+  // width 64 the product of key tile i is left in flight and awaited in
+  // tile i + 1, behind that tile's own products; at width 128 its
+  // accumulators and operands would not fit the 168 registers a thread
+  // of a 384-thread block (ptxas would serialise every wgmma), so it is
+  // awaited at once.
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+  };
+  int held = -1;                        // stage of the product in flight
+  uint32_t ds[4][4];                    // its A operand
+  mbar_wait(once, 0);
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int s = kt % stages;
+    mbar_wait(full + 8 * s, (kt / stages) & 1);
+    __syncwarp();          // wgmma's .aligned forms need the warp converged
+    const int k0 = kt * kBwdTile;
+    const bool live = qw < a.Tq && (!a.causal || k0 <= qw + 63);
+    if (!live) {
+      wgmma_wait<0>();
+      if (held >= 0) release(held);
+      release(s);
+      held = -1;
+      continue;
+    }
+    const uint32_t kst = ring + s * bwd_stage_bytes(DP);
+    const uint32_t vst = kst + NB * kTileBox;
+    float sc[32], dp[32];
+    wgmma_fence();
+    ss_product<NB>(sc, qs + wg * 8192, kst);
+    wgmma_commit();
+    ss_product<NB>(dp, os + wg * 8192, vst);
+    wgmma_commit();
+    wgmma_wait<1>();       // the last tile's dq product and S have run
+    fence_acc(sc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(ds[kk]);
+    if (held >= 0) release(held);
+    // p = exp(s scale - lse); the mask only on tiles that cross the
+    // diagonal or the last key
+    const bool masked = (a.causal && k0 + 63 > qw) || k0 + kBwdTile > a.Tk;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      float arg = fmaf(sc[i], sl, -lse2[h]);
+      if (masked) {
+        const int key = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        if (key >= a.Tk || (a.causal && key > qw + r + 8 * h))
+          arg = kMaskedArg - lse2[h];
+      }
+      sc[i] = ex2(arg);
+    }
+    __syncwarp();
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      dp[i] = sc[i] * (dp[i] - delta[(i >> 1) & 1]);
+    }
+    to_a_frags(dp, ds);
+    wgmma_fence();
+    rs_product<NB>(dq, ds, kst);          // dq += ds K
+    wgmma_commit();
+    held = s;
+    if constexpr (NB > 1) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < NB; ++h) fence_acc(dq[h]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(ds[kk]);
+      release(s);
+      held = -1;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NB; ++h) fence_acc(dq[h]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_regs(ds[kk]);
+  if (held >= 0) release(held);
+
+  bf16* out = static_cast<bf16*>(a.dq) + qrows * a.D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = qw + r + 8 * h;
+    if (row >= a.Tq) continue;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int col = b * 64 + 8 * g + 2 * c;
+        if (col < a.D) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<size_t>(row) * a.D + col) =
+              __floats2bfloat162_rn(dq[b][4 * g + 2 * h] * a.scale,
+                                    dq[b][4 * g + 2 * h + 1] * a.scale);
+        }
       }
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 backward, dk and dv (K4): one block per key tile, queries stream
-// ---------------------------------------------------------------------------
+// dk and dv (K4).  A block owns 128 key rows of one head (block b takes
+// key block b / BH: under causal masking the first key blocks walk the
+// most query tiles, so they launch first); its K and V tiles arrive
+// once, and the query tiles that see them stream through the ring with
+// dO, their lse * log2(e) and delta, which the loading warp's lanes
+// write beside each stage (lse +inf past Tq, so p = 0 there).  Per query
+// tile each consumer warpgroup computes the transposed scores S^T = K Q^T
+// and dP^T = V dO^T (wgmma from shared memory), p^T and ds^T in
+// registers, and dV += p^T dO, dK += ds^T Q (wgmma, A from registers, B
+// MN-major).  No atomics: each block alone writes its rows of dk and dv.
 template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(Args a) {
-  constexpr int TILE = kTile * (DP + 8);
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + TILE;
-  bf16* Qs = Vs + TILE;        // 2 stages
-  bf16* dOs = Qs + 2 * TILE;   // 2 stages
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * TILE);   // [2][64]
-  float* Ds = Ls + 2 * kTile;                             // [2][64]
+__global__ void __launch_bounds__(bwd_threads(true, DP), 1)
+    flash_bwd_dkv_tma(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do, Args a,
+                      int stages) {
+  constexpr int NB = DP / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t ks = base, vs = base + NB * kOwnBox;
+  const uint32_t ring = base + bwd_own_bytes(DP);
+  const uint32_t rows_off = bwd_own_bytes(DP) + stages * bwd_stage_bytes(DP);
+  float* rows = reinterpret_cast<float*>(smem + rows_off);   // [stages][128]
+  const uint32_t full = base + rows_off + stages * bwd_rows_bytes(true);
+  const uint32_t empty = full + 8 * stages, once = empty + 8 * stages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.x % a.BH;
-  const int k0 = static_cast<int>(blockIdx.x / a.BH) * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qrows = static_cast<size_t>(bh) * a.Tq;
-  const size_t krows = static_cast<size_t>(bh) * a.Tk;
-  const bf16* q = static_cast<const bf16*>(a.q) + qrows * a.D;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + qrows * a.Dv;
-  const bf16* k = static_cast<const bf16*>(a.k) + krows * a.D;
-  const bf16* v = static_cast<const bf16*>(a.v) + krows * a.Dv;
-  const int nqt = (a.Tq + kTile - 1) / kTile;
-  // query tiles that see this key tile: under causal masking, from the
+  const int k0 = static_cast<int>(blockIdx.x / a.BH) * kBwdRows;
+  const int nqt = (a.Tq + kBwdTile - 1) / kBwdTile;
+  // query tiles that see this key block: under causal masking, from the
   // tile holding query row k0 on
-  const int qt0 = a.causal ? k0 / kTile : 0;
+  const int qt0 = a.causal ? k0 / kBwdTile : 0;
+  const size_t qrows = static_cast<size_t>(bh) * a.Tq;
 
-  // lse (+inf past Tq, so p = 0 there) and delta of query tile qt
-  auto load_rows = [&](int qt, int stage) {
-    const int i = threadIdx.x & (kTile - 1);
-    const int qi = qt * kTile + i;
-    if (threadIdx.x < kTile) {
-      Ls[stage * kTile + i] = qi < a.Tq ? a.lse_in[qrows + qi]
-                                       : __int_as_float(0x7f800000);
-    } else {
-      Ds[stage * kTile + i] = qi < a.Tq ? a.delta[qrows + qi] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);    // the TMA's and the lanes' rows
+      mbar_init(empty + 8 * s, kBwdConsumers / 32);
     }
-  };
-
-  load_tile<DP>(Ks, k, k0, a.Tk, a.D);
-  load_tile<DP>(Vs, v, k0, a.Tk, a.Dv);
-  if (qt0 < nqt) {
-    load_tile<DP>(Qs, q, qt0 * kTile, a.Tq, a.D);
-    load_tile<DP>(dOs, dout, qt0 * kTile, a.Tq, a.Dv);
-    load_rows(qt0, 0);
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
+  __syncthreads();
 
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float dk[DP / 8][4], dv[DP / 8][4];
-  zero(dk);
-  zero(dv);
-  for (int qt = qt0; qt < nqt; ++qt) {
-    const int st = (qt - qt0) & 1;
-    if (qt + 1 < nqt) {
-      load_tile<DP>(Qs + (st ^ 1) * TILE, q, (qt + 1) * kTile, a.Tq, a.D);
-      load_tile<DP>(dOs + (st ^ 1) * TILE, dout, (qt + 1) * kTile, a.Tq, a.Dv);
-      load_rows(qt + 1, st ^ 1);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[8][4], dp[8][4];   // transposed: rows are this warp's keys
-    zero(s);
-    zero(dp);
-    mma_nt<DP>(s, Ks, warp * 16, Qs + st * TILE, a.D / 16);
-    mma_nt<DP>(dp, Vs, warp * 16, dOs + st * TILE, a.Dv / 16);
-    const int q0 = qt * kTile;
-    const float* lse = Ls + st * kTile;
-    const float* delta = Ds + st * kTile;
+  // Query tile qt0 + it into stage it % stages with its dO tile, and
+  // its lse * log2(e) and delta beside it; called by one whole warp.
+  const int ntiles = max(nqt - qt0, 0);
+  auto load = [&](int it) {
+    const int qt = qt0 + it, s = it % stages;
+    // this lane's rows qt * 64 + lane and + 32, read before the wait
+    float l2[2], d[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int h = 0; h < 2; ++h) {
+      const int qi = qt * kBwdTile + lane + 32 * h;
+      l2[h] = qi < a.Tq ? a.lse_in[qrows + qi] * kLog2e
+                        : __int_as_float(0x7f800000);
+      d[h] = qi < a.Tq ? a.delta[qrows + qi] : 0.f;
+    }
+    mbar_wait(empty + 8 * s, ((it / stages) & 1) ^ 1);
+    const uint32_t bar = full + 8 * s;
+    if (lane == 0) {
+      const uint32_t qst = ring + s * bwd_stage_bytes(DP);
+      mbar_expect_tx(bar, 2 * NB * kTileBox);
+      for (int b = 0; b < NB; ++b)
+        tma_load_3d(qst + b * kTileBox, &map_q, bar, b * 64, qt * kBwdTile,
+                    bh);
+      for (int b = 0; b < NB; ++b)
+        tma_load_3d(qst + (NB + b) * kTileBox, &map_do, bar, b * 64,
+                    qt * kBwdTile, bh);
+    }
+    float* rs = rows + s * 128;
+    rs[lane] = l2[0];
+    rs[lane + 32] = l2[1];
+    rs[64 + lane] = d[0];
+    rs[96 + lane] = d[1];
+    mbar_arrive(bar);
+    __syncwarp();
+  };
+  auto load_owned = [&] {
+    prefetch_tensormap(&map_q);
+    prefetch_tensormap(&map_k);
+    prefetch_tensormap(&map_v);
+    prefetch_tensormap(&map_do);
+    mbar_expect_tx(once, 2 * NB * kOwnBox);
+    for (int b = 0; b < NB; ++b)
+      tma_load_3d(ks + b * kOwnBox, &map_k, once, b * 64, k0, bh);
+    for (int b = 0; b < NB; ++b)
+      tma_load_3d(vs + b * kOwnBox, &map_v, once, b * 64, k0, bh);
+  };
+  const int ahead = stages > 2 ? stages - 2 : 1;     // as in dq
+  if constexpr (bwd_folded(true, DP)) {
+    if (warp == 0) {
+      if (lane == 0) load_owned();
+      for (int it = 0; it < min(ahead, ntiles); ++it) load(it);
+    }
+  } else {
+    if (warp >= kBwdProducerWarp) {
+      producer_regs();
+      if (warp == kBwdProducerWarp) {
+        if (lane == 0) load_owned();
+        for (int it = 0; it < ntiles; ++it) load(it);
+      }
+      return;
+    }
+    consumer_regs();
+  }
+  const int wg = warp / 4;
+  const int r = (warp & 3) * 16 + (lane >> 2), c = lane & 3;
+  const int kw = k0 + wg * 64;          // this warpgroup's first key
+  const float sl = a.scale * kLog2e;
+  float dk[NB][32], dv[NB][32];
+#pragma unroll
+  for (int h = 0; h < NB; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[h][i] = dv[h][i] = 0.f;
+  }
+  // As in dq, a tile's dv and dk products may stay in flight until the
+  // next tile's S^T and dP^T have run; only at width 128 (256 threads).
+  // At width 64 their A operands would push the consumers past the 168
+  // registers a thread of a 384-thread block, and ptxas would then
+  // serialise every wgmma, so they are awaited at once.
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+  };
+  int held = -1;                        // stage of the products in flight
+  uint32_t pa[4][4], da[4][4];          // their A operands
+  mbar_wait(once, 0);
+  for (int qt = qt0, it = 0; qt < nqt; ++qt, ++it) {
+    if constexpr (bwd_folded(true, DP)) {
+      if (warp == 0 && it + ahead < ntiles) load(it + ahead);
+    }
+    const int s = it % stages;
+    mbar_wait(full + 8 * s, (it / stages) & 1);
+    __syncwarp();
+    const int q0 = qt * kBwdTile;
+    const bool live = kw < a.Tk && (!a.causal || q0 + 63 >= kw);
+    if (!live) {
+      wgmma_wait<0>();
+      if (held >= 0) release(held);
+      release(s);
+      held = -1;
+      continue;
+    }
+    const uint32_t qst = ring + s * bwd_stage_bytes(DP);
+    const uint32_t ost = qst + NB * kTileBox;
+    const float* lr = rows + s * 128;
+    float st[32], dpt[32];   // transposed: rows are this warpgroup's keys
+    wgmma_fence();
+    ss_product<NB>(st, ks + wg * 8192, qst);
+    wgmma_commit();
+    ss_product<NB>(dpt, vs + wg * 8192, ost);
+    wgmma_commit();
+    wgmma_wait<1>();       // the last tile's products and S^T have run
+    fence_acc(st);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(pa[kk]);
+      fence_regs(da[kk]);
+    }
+    if (held >= 0) release(held);
+    const bool masked = a.causal && kw + 63 > q0;
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const float2 l = *reinterpret_cast<const float2*>(lr + 8 * g + 2 * c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + 2 * t + (e & 1);
-        const bool keep = !(a.causal && key[e >> 1] > q0 + qc);
-        const float p = expf((keep ? s[j][e] * a.scale : kNegInf) - lse[qc]);
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - delta[qc]);      // ds^T
+        const int i = 4 * g + e;
+        const float lj = (e & 1) ? l.y : l.x;
+        float arg = fmaf(st[i], sl, -lj);
+        if (masked && kw + r + 8 * (e >> 1) > q0 + 8 * g + 2 * c + (e & 1))
+          arg = kMaskedArg - lj;
+        st[i] = ex2(arg);
       }
     }
-    mma_pv<DP>(dv, s, dOs + st * TILE, a.Dv / 16);  // dv += p^T dO
-    mma_pv<DP>(dk, dp, Qs + st * TILE, a.D / 16);   // dk += ds^T q
-    __syncthreads();
+    __syncwarp();
+    wgmma_wait<0>();
+    fence_acc(dpt);
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      const float2 d =
+          *reinterpret_cast<const float2*>(lr + 64 + 8 * g + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * g + e;
+        dpt[i] = st[i] * (dpt[i] - ((e & 1) ? d.y : d.x));
+      }
+    }
+    to_a_frags(st, pa);
+    to_a_frags(dpt, da);
+    wgmma_fence();
+    rs_product<NB>(dv, pa, ost);          // dv += p^T dO
+    rs_product<NB>(dk, da, qst);          // dk += ds^T q
+    wgmma_commit();
+    held = s;
+    if constexpr (!bwd_folded(true, DP)) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(da[kk]);
+      }
+      release(s);
+      held = -1;
+    }
   }
-  cp_async_wait<0>();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NB; ++h) {
+    fence_acc(dv[h]);
+    fence_acc(dk[h]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_regs(pa[kk]);
+    fence_regs(da[kk]);
+  }
+  if (held >= 0) release(held);
 
+  const size_t krows = static_cast<size_t>(bh) * a.Tk;
   bf16* dkp = static_cast<bf16*>(a.dk) + krows * a.D;
   bf16* dvp = static_cast<bf16*>(a.dv) + krows * a.Dv;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (key[h] >= a.Tk) continue;
+    const int key = kw + r + 8 * h;
+    if (key >= a.Tk) continue;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col < a.D) {
-        *reinterpret_cast<__nv_bfloat162*>(
-            dkp + static_cast<size_t>(key[h]) * a.D + col) =
-            __floats2bfloat162_rn(dk[n][2 * h] * a.scale,
-                                  dk[n][2 * h + 1] * a.scale);
-      }
-      if (col < a.Dv) {
-        *reinterpret_cast<__nv_bfloat162*>(
-            dvp + static_cast<size_t>(key[h]) * a.Dv + col) =
-            __floats2bfloat162_rn(dv[n][2 * h], dv[n][2 * h + 1]);
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int col = b * 64 + 8 * g + 2 * c;
+        if (col < a.D) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              dkp + static_cast<size_t>(key) * a.D + col) =
+              __floats2bfloat162_rn(dk[b][4 * g + 2 * h] * a.scale,
+                                    dk[b][4 * g + 2 * h + 1] * a.scale);
+        }
+        if (col < a.Dv) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              dvp + static_cast<size_t>(key) * a.Dv + col) =
+              __floats2bfloat162_rn(dv[b][4 * g + 2 * h],
+                                    dv[b][4 * g + 2 * h + 1]);
+        }
       }
     }
   }
@@ -752,27 +1163,63 @@ long long groups(int T) { return (T + kRowsF32 - 1) / kRowsF32; }
 
 enum Which { kFwd, kDq, kDkv };
 
-// The bf16 kernels come in two widths: head dims up to 64, and up to 128.
+// The launch a backward kernel takes from ops/flash_attention.py
+// (bwd_plan): rows a block owns, stages of its ring, its shared memory.
+struct BwdPlan {
+  int rows, stages, smem;
+};
+
+// The backward kernels (K3, K4) on their TMA ring: tensor maps of q, k,
+// v and dO encoded here, per call, as 3-D [BH, T, width] maps read in
+// boxes of 64 columns and 128 (owned) or 64 (streamed) rows, so a ragged
+// last tile is zero-filled within its own head.
 template <int DP>
-cudaError_t launch_bf16(Which w, const Args& a, cudaStream_t s) {
-  switch (w) {
-    case kFwd:
-      return launch(flash_fwd_bf16<DP>, a.BH * tiles(a.Tq),
-                    5 * tile_bytes<DP>(), s, a);
-    case kDq:
-      return launch(flash_bwd_dq_bf16<DP>, a.BH * tiles(a.Tq),
-                    6 * tile_bytes<DP>(), s, a);
-    default:
-      return launch(flash_bwd_dkv_bf16<DP>, a.BH * tiles(a.Tk),
-                    6 * tile_bytes<DP>() + 4 * kTile * sizeof(float), s, a);
+cudaError_t launch_bwd(Which w, const Args& a, const BwdPlan& p,
+                       cudaStream_t s) {
+  const bool dkv = w == kDkv;
+  if (p.rows != kBwdRows || p.stages < 1 || p.stages > kBwdMaxStages ||
+      p.smem != static_cast<int>(bwd_smem_bytes(dkv, DP, p.stages))) {
+    return cudaErrorInvalidValue;
   }
+  const long long blocks =
+      a.BH * (((dkv ? a.Tk : a.Tq) + kBwdRows - 1) / kBwdRows);
+  if (blocks <= 0) return cudaSuccess;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const uint32_t qbox = dkv ? kBwdTile : kBwdRows;
+  const uint32_t kbox = dkv ? kBwdRows : kBwdTile;
+  CUtensorMap mq, mk, mv, mo;
+  if (!tensor_map_3d(&mq, a.q, a.D, a.Tq, a.BH, 64, qbox) ||
+      !tensor_map_3d(&mk, a.k, a.D, a.Tk, a.BH, 64, kbox) ||
+      !tensor_map_3d(&mv, a.v, a.Dv, a.Tk, a.BH, 64, kbox) ||
+      !tensor_map_3d(&mo, a.dout, a.Dv, a.Tq, a.BH, 64, qbox)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = dkv ? flash_bwd_dkv_tma<DP> : flash_bwd_dq_tma<DP>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<static_cast<unsigned>(blocks), bwd_threads(dkv, DP), p.smem,
+           s>>>(mq, mk, mv, mo, a, p.stages);
+  return cudaGetLastError();
 }
 
-int run(Which w, const Args& a, int dtype, void* stream) {
+// The bf16 kernels come in two widths: head dims up to 64, and up to 128.
+template <int DP>
+cudaError_t launch_bf16(Which w, const Args& a, const BwdPlan& p,
+                        cudaStream_t s) {
+  if (w == kFwd) {
+    return launch(flash_fwd_bf16<DP>, a.BH * tiles(a.Tq),
+                  5 * tile_bytes<DP>(), s, a);
+  }
+  return launch_bwd<DP>(w, a, p, s);
+}
+
+int run(Which w, const Args& a, int dtype, const BwdPlan& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    return static_cast<int>(a.D <= 64 && a.Dv <= 64 ? launch_bf16<64>(w, a, s)
-                                                    : launch_bf16<128>(w, a, s));
+    return static_cast<int>(a.D <= 64 && a.Dv <= 64
+                                ? launch_bf16<64>(w, a, p, s)
+                                : launch_bf16<128>(w, a, p, s));
   }
   switch (w) {
     case kFwd:
@@ -793,7 +1240,10 @@ int run(Which w, const Args& a, int dtype, void* stream) {
 // outputs; lse and delta are fp32).  Each call launches one kernel on
 // `stream`, does not synchronise, and returns cudaGetLastError() (0 =
 // launched); arguments the kernels do not take return
-// cudaErrorInvalidValue before any launch.
+// cudaErrorInvalidValue before any launch.  The backward entries take
+// the bf16 launch's plan (rows a block, stages, shared-memory bytes) from
+// ops/flash_attention.py's bwd_plan, and refuse a plan that differs from
+// the kernel's own layout; the fp32 forms ignore it.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int BH, int Tq, int Tk,
                               int D, int Dv, int causal, float scale,
@@ -803,21 +1253,22 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   }
   Args a{q, k, v, nullptr, nullptr, nullptr, out, static_cast<float*>(lse),
          nullptr, nullptr, nullptr, BH, Tq, Tk, D, Dv, causal, scale};
-  return run(kFwd, a, dtype, stream);
+  return run(kFwd, a, dtype, BwdPlan{0, 0, 0}, stream);
 }
 
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int BH, int Tq,
                                  int Tk, int D, int Dv, int causal,
-                                 float scale, int dtype, void* stream) {
+                                 float scale, int dtype, int rows,
+                                 int stages, int smem, void* stream) {
   if (bad_args(BH, Tq, Tk, D, Dv, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), nullptr, nullptr, dq, nullptr,
          nullptr, BH, Tq, Tk, D, Dv, causal, scale};
-  return run(kDq, a, dtype, stream);
+  return run(kDq, a, dtype, BwdPlan{rows, stages, smem}, stream);
 }
 
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
@@ -825,6 +1276,7 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* delta, void* dk, void* dv,
                                   int BH, int Tq, int Tk, int D, int Dv,
                                   int causal, float scale, int dtype,
+                                  int rows, int stages, int smem,
                                   void* stream) {
   if (bad_args(BH, Tq, Tk, D, Dv, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -832,7 +1284,7 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), nullptr, nullptr, nullptr, dk, dv,
          BH, Tq, Tk, D, Dv, causal, scale};
-  return run(kDkv, a, dtype, stream);
+  return run(kDkv, a, dtype, BwdPlan{rows, stages, smem}, stream);
 }
 
 extern "C" const char* flash_attn_error_string(int code) {

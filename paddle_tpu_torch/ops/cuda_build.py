@@ -3,8 +3,9 @@
 Each kernel source in ``paddle_tpu_torch/csrc/`` has a plain C interface
 and no PyTorch headers.  :func:`build` compiles one with ``nvcc`` for
 sm_90a into ``build/`` at the repository root, under a name keyed by the
-source's content hash (``build/lib<stem>-<hash>.so``, so an edited
-source rebuilds), and keeps the compiler's ``-Xptxas -v`` report
+content hash of the source and of the ``*.cuh`` headers beside it
+(``build/lib<stem>-<hash>.so``, so an edited source or header rebuilds),
+and keeps the compiler's ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) beside the library, in
 ``<library>.ptxas.txt``.  :func:`load` builds a source at first use and
 binds it with ``ctypes``, once per process.  Nothing here runs when a
@@ -14,6 +15,7 @@ may have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -45,11 +47,25 @@ def _nvcc() -> str:
         "tensor")
 
 
+def _digest(source: str) -> str:
+    """Content hash of ``source`` and of every ``*.cuh`` header in its
+    directory (the headers a source may include), in name order."""
+    h = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(os.path.dirname(source),
+                                            "*.cuh")))
+    for path in [source] + headers:
+        with open(path, "rb") as fh:
+            data = fh.read()
+        h.update(f"{os.path.basename(path)}:{len(data)}:".encode())
+        h.update(data)
+    return h.hexdigest()[:16]
+
+
 def build(source: str) -> str:
     """Compile ``source`` (a path) for sm_90a into ``build/`` unless the
-    library of its current content is there; return the library's path."""
-    with open(source, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    library of its current content (and its headers') is there; return
+    the library's path."""
+    digest = _digest(source)
     stem = os.path.splitext(os.path.basename(source))[0]
     path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
     if os.path.exists(path):

@@ -9,8 +9,11 @@ Hopper port of the three Pallas kernels (:func:`flash_bwd_dq` and
     bwd_dq   _flash_bwd_dq_kernel (:150)                   -> dq
     bwd_dkv  _flash_bwd_dkv_kernel (:195)                  -> dk, dv
 
-On CUDA tensors they launch the kernels or raise; on CPU tensors they
-compute the plain versions, :func:`flash_fwd_reference` and
+The bf16 backward kernels take their launch from :func:`bwd_plan` (rows
+a block owns, ring stages, shared memory, grid, the order of the blocks),
+and :func:`bwd_walk` models the tiles each block visits, so the CPU
+tests check both.  On CUDA tensors they launch the kernels or raise; on
+CPU tensors they compute the plain versions, :func:`flash_fwd_reference` and
 :func:`flash_bwd_reference`.  ``delta = rowsum(dO * out) - g_lse``
 (``:254-261``) stays plain PyTorch outside the kernels, as the JAX
 package leaves it to XLA.  ``launches`` counts kernel launches by name
@@ -33,6 +36,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+import functools
 import os
 
 import torch
@@ -41,7 +46,8 @@ from ..core.registry import register_op
 from . import cuda_build
 
 __all__ = ["NEG_INF", "flash_fwd", "flash_bwd", "flash_bwd_dq",
-           "flash_bwd_dkv", "flash_delta",
+           "flash_bwd_dkv", "flash_delta", "bwd_plan", "bwd_walk",
+           "BwdPlan", "KernelPlan",
            "flash_fwd_reference", "flash_bwd_reference",
            "attention_reference", "flash_attention",
            "flash_attention_with_lse", "launches", "launches_by_dtype",
@@ -54,6 +60,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # query rows per step of the plain versions: a 2048-row chunk of fp32
 # scores at 8 heads x 65536 keys is 4.3 GB
 _CHUNK = 2048
+
+# The bf16 backward kernels' launch (csrc/flash_attn.cu, K3 and K4): a
+# block of a producer warpgroup and two consumer warpgroups owns BWD_ROWS
+# rows (64 a warpgroup); the other operands stream through a ring of up
+# to BWD_MAX_STAGES stages, BWD_TILE rows a tile, in an SM's shared
+# memory (SMEM_LIMIT bytes a block on an H100).
+BWD_ROWS = 128
+BWD_TILE = 64
+BWD_MAX_STAGES = 4
+SMEM_LIMIT = 232448
 
 launches = collections.Counter()
 launches_by_dtype = collections.Counter()
@@ -75,13 +91,131 @@ def build() -> str:
 
 def _library():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dims = [i32, i32, i32, i32, i32, i32, f32, i32, ptr]
+    dims = [i32, i32, i32, i32, i32, i32, f32, i32]
+    launch = [i32, i32, i32]          # a backward plan: rows, stages, smem
     return cuda_build.load(SOURCE, {
-        "flash_attn_fwd": ([ptr] * 5 + dims, i32),
-        "flash_attn_bwd_dq": ([ptr] * 7 + dims, i32),
-        "flash_attn_bwd_dkv": ([ptr] * 8 + dims, i32),
+        "flash_attn_fwd": ([ptr] * 5 + dims + [ptr], i32),
+        "flash_attn_bwd_dq": ([ptr] * 7 + dims + launch + [ptr], i32),
+        "flash_attn_bwd_dkv": ([ptr] * 8 + dims + launch + [ptr], i32),
         "flash_attn_error_string": ([i32], ctypes.c_char_p),
     })
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """One backward kernel's launch: ``rows`` a block owns (query rows
+    for ``bwd_dq``, key rows for ``bwd_dkv``), ``tile`` rows of each
+    streamed tile, ``stages`` of the ring, ``smem`` bytes of dynamic
+    shared memory, ``grid`` blocks, and the ``order`` in which blocks take
+    their rows (block b: head b % BH, row block b // BH counted from the
+    longest walk)."""
+    kernel: str
+    rows: int
+    tile: int
+    stages: int
+    smem: int
+    grid: int
+    order: str = "longest first"
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The bf16 backward launch for one shape (see :func:`bwd_plan`):
+    ``width`` the padded head size the kernels are built for (64 or 128),
+    ``dq`` and ``dkv`` each kernel's :class:`KernelPlan`."""
+    BH: int
+    Tq: int
+    Tk: int
+    D: int
+    Dv: int
+    causal: bool
+    width: int
+    dq: KernelPlan
+    dkv: KernelPlan
+
+
+def _bwd_smem(kernel, width, stages):
+    """Shared-memory bytes of a backward block, as the kernel lays it out
+    (``bwd_smem_bytes`` in csrc/flash_attn.cu): 1 KB of alignment slack,
+    the owned tiles (two operands x 128 rows x width bf16), per stage two
+    64-row tiles (and, for dk/dv, the tile's 64 lse and 64 delta in
+    fp32), and 8 bytes per mbarrier (full and empty per stage, one for
+    the owned tiles)."""
+    rows = 512 if kernel == "bwd_dkv" else 0
+    return (1024 + 2 * width * 2 * BWD_ROWS
+            + stages * (2 * width * 2 * BWD_TILE + rows)
+            + 8 * (2 * stages + 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(BH: int, Tq: int, Tk: int, D: int, Dv: int,
+             causal: bool) -> BwdPlan:
+    """The bf16 backward kernels' :class:`BwdPlan`: width 64 where D and
+    Dv are at most 64, else 128; the deepest ring of at most
+    ``BWD_MAX_STAGES`` stages that fits in ``SMEM_LIMIT``; one block per
+    ``BWD_ROWS`` owned rows of each head.  Raises ValueError for head
+    sizes the kernels do not take.  Pure: the CPU tests check it."""
+    for name, d in (("D", D), ("Dv", Dv)):
+        if d % 16 or not 16 <= d <= 128:
+            raise ValueError(f"bwd_plan: the kernels take head sizes that "
+                             f"are multiples of 16 up to 128, got "
+                             f"{name}={d}")
+    width = 64 if max(D, Dv) <= 64 else 128
+    plans = {}
+    for kernel, T in (("bwd_dq", Tq), ("bwd_dkv", Tk)):
+        stages = max(s for s in range(1, BWD_MAX_STAGES + 1)
+                     if _bwd_smem(kernel, width, s) <= SMEM_LIMIT)
+        plans[kernel] = KernelPlan(
+            kernel=kernel, rows=BWD_ROWS, tile=BWD_TILE, stages=stages,
+            smem=_bwd_smem(kernel, width, stages),
+            grid=BH * _cdiv(T, BWD_ROWS))
+    return BwdPlan(BH=BH, Tq=Tq, Tk=Tk, D=D, Dv=Dv, causal=bool(causal),
+                   width=width, dq=plans["bwd_dq"], dkv=plans["bwd_dkv"])
+
+
+def bwd_walk(plan: BwdPlan, kernel: str):
+    """The tiles each block of ``kernel`` ("bwd_dq" or "bwd_dkv") visits,
+    in launch order, as csrc/flash_attn.cu walks them: a list of (bh,
+    first owned row, [(tile, live, masked)]) with ``tile`` the index of a
+    streamed 64-row tile (key tiles for dq, query tiles for dk/dv) and
+    ``live`` / ``masked`` a pair, one per consumer warpgroup (64 owned
+    rows each): whether it computes on the tile, and whether it applies
+    the per-element mask there."""
+    kp = getattr(plan, kernel[4:])
+    BH, Tq, Tk, causal = plan.BH, plan.Tq, plan.Tk, plan.causal
+    t = kp.tile
+    blocks = []
+    for b in range(kp.grid):
+        bh = b % BH
+        tiles = []
+        if kernel == "bwd_dq":
+            q0 = (_cdiv(Tq, kp.rows) - 1 - b // BH) * kp.rows
+            nkt = _cdiv(Tk, t)
+            if causal:
+                nkt = min(nkt, min(q0 + kp.rows - 1, Tq - 1) // t + 1)
+            for kt in range(nkt):
+                k0 = kt * t
+                qw = (q0, q0 + 64)
+                tiles.append((kt, tuple(
+                    w < Tq and (not causal or k0 <= w + 63) for w in qw),
+                    tuple((causal and k0 + 63 > w) or k0 + t > Tk
+                          for w in qw)))
+            blocks.append((bh, q0, tiles))
+        else:
+            k0 = (b // BH) * kp.rows
+            qt0 = k0 // t if causal else 0
+            for qt in range(qt0, _cdiv(Tq, t)):
+                q0 = qt * t
+                kw = (k0, k0 + 64)
+                tiles.append((qt, tuple(
+                    w < Tk and (not causal or q0 + 63 >= w) for w in kw),
+                    tuple(causal and w + 63 > q0 for w in kw)))
+            blocks.append((bh, k0, tiles))
+    return blocks
 
 
 def _scale(q, sm_scale):
@@ -292,6 +426,15 @@ def _bwd_args(what, q, k, v, g, lse, delta):
     return dims, dtype, torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _launch_args(dims, dtype, causal, kernel):
+    """(rows, stages, smem) of the bf16 kernel's plan; zeros for fp32,
+    whose kernels take none."""
+    if dtype != _DTYPE_CODES[torch.bfloat16]:
+        return 0, 0, 0
+    kp = getattr(bwd_plan(*dims, bool(causal)), kernel[4:])
+    return kp.rows, kp.stages, kp.smem
+
+
 def flash_bwd_dq(q, k, v, g, lse, delta, causal=False, sm_scale=None):
     """dq from the dq kernel (K3) alone, CUDA tensors only (the entry
     point is :func:`flash_bwd`); ``lse`` and ``delta`` fp32 [BH, Tq]
@@ -304,7 +447,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal=False, sm_scale=None):
         rc = lib.flash_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
-            int(bool(causal)), sm_scale, dtype, stream)
+            int(bool(causal)), sm_scale, dtype,
+            *_launch_args(dims, dtype, causal, "bwd_dq"), stream)
     _check_rc(lib, rc, f"bwd_dq {dims} causal={causal} {q.dtype}")
     launches["bwd_dq"] += 1
     launches_by_dtype["bwd_dq", q.dtype] += 1
@@ -323,7 +467,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal=False, sm_scale=None):
         rc = lib.flash_attn_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *dims, int(bool(causal)), sm_scale, dtype, stream)
+            *dims, int(bool(causal)), sm_scale, dtype,
+            *_launch_args(dims, dtype, causal, "bwd_dkv"), stream)
     _check_rc(lib, rc, f"bwd_dkv {dims} causal={causal} {q.dtype}")
     launches["bwd_dkv"] += 1
     launches_by_dtype["bwd_dkv", q.dtype] += 1

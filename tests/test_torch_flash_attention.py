@@ -349,8 +349,8 @@ def test_build_needs_nvcc():
 def test_build_is_keyed_by_content_and_shared(tmp_path, monkeypatch):
     """One helper builds every kernel source: the library is named
     lib<stem>-<content hash>.so with its ptxas report beside it, a second
-    build of the same content compiles nothing, and an edited source gets
-    a new library."""
+    build of the same content compiles nothing, and an edited source, or
+    an edited header beside it, gets a new library."""
     calls = []
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\nfor a in \"$@\"; do prev=$cur; cur=$a; "
@@ -370,6 +370,16 @@ def test_build_is_keyed_by_content_and_shared(tmp_path, monkeypatch):
     src.write_text("// v2\n")
     second = cuda_build.build(str(src))
     assert second != first and len(calls) == 2
+    # the *.cuh headers beside a source are part of its key: a new or
+    # edited header alone rebuilds, an unchanged one does not
+    hdr = tmp_path / "toy_shared.cuh"
+    hdr.write_text("// h1\n")
+    third = cuda_build.build(str(src))
+    assert third not in (first, second) and len(calls) == 3
+    hdr.write_text("// h2\n")
+    fourth = cuda_build.build(str(src))
+    assert fourth not in (first, second, third) and len(calls) == 4
+    assert cuda_build.build(str(src)) == fourth and len(calls) == 4
     # both kernels of the port name their libraries the same way
     assert conv1x1.build().startswith(str(tmp_path / "build" /
                                           "libconv1x1_mm-"))
@@ -437,6 +447,9 @@ def test_kernels_match_plain_on_card(cuda_device, case, dtype):
     for a, b in zip(grads, refs):
         assert a.dtype == dt
         att_close("grad", a, b, tol)
+    # each block owns its output rows (no atomics): runs are bit-equal
+    again = fa.flash_bwd(q, k, v, out, lse, gg, causal, g_lse=gl)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 @pytest.mark.cuda
