@@ -52,8 +52,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
              shape (BH 8, T 65536, d 64, causal, bf16) and at the other
              forms (non-causal, cross-attention with Dv != D, head size
              128, fp32, an lse cotangent through
-             flash_attention_with_lse), each backward run twice and held
-             bit-equal; trains the long-context program
+             flash_attention_with_lse, causal with Tq != Tk), the forward
+             and each backward run twice and held bit-equal; trains the
+             long-context program
              (Executor(amp=True).run_steps at T 65536) with the launch
              counts read around the run, holds one step's loss and q/k/v
              gradients against the plain path computed in fp32, profiles
@@ -1180,6 +1181,8 @@ ATT_FORMS = {       # label: (BH, Tq, Tk, D, Dv, causal, dtype)
     "non-causal": (8, 4096, 4096, 64, 64, False, torch.bfloat16),
     "cross, Dv != D": (4, 2048, 4096, 64, 128, False, torch.bfloat16),
     "head 128": (4, 4096, 4096, 128, 128, True, torch.bfloat16),
+    "causal, Tq != Tk, ragged": (4, 3000, 2000, 64, 64, True,
+                                 torch.bfloat16),
     "fp32": (4, 2048, 2048, 64, 64, True, torch.float32),
 }
 ATT_SOURCE = "paddle_tpu_torch/csrc/flash_attn.cu"
@@ -1257,8 +1260,8 @@ def att_inputs(g, BH, Tq, Tk, D, Dv, dtype):
 
 
 def hold_attention_form(fa, g, label, form, timed=False):
-    """K2, K3 and K4 against their plain versions on one form, and K3 and
-    K4 against a second run of themselves (bit-equal); with
+    """K2, K3 and K4 against their plain versions on one form, and each
+    against a second run of itself (bit-equal); with
     ``timed``, also each kernel's time, the plain versions', the
     library's and the bounds."""
     BH, Tq, Tk, D, Dv, causal, dtype = form
@@ -1277,6 +1280,12 @@ def hold_attention_form(fa, g, label, form, timed=False):
             for n, a, b in zip("qkv", grads, refs)]
     # the kernels own their output rows (no atomics): a second run gives
     # the same bits
+    again = fa.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip((out, lse), again)]
+    if not all(same):
+        raise RuntimeError(f"chip_smoke: {label}: two runs of the forward "
+                           f"differ (out, lse bit-equal: {same})")
     again = fa.flash_bwd(q, k, v, out, lse, gg, causal)
     torch.cuda.synchronize()
     same = [bool(torch.equal(a, b)) for a, b in zip(grads, again)]
@@ -1288,7 +1297,8 @@ def hold_attention_form(fa, g, label, form, timed=False):
           f"lse {e_lse:.3e} (limit {LSE_TOL}) dq {held[0][0]:.3e} dk "
           f"{held[1][0]:.3e} dv {held[2][0]:.3e}; largest error / limit "
           f"{max([u_out] + [h[1] for h in held]):.3f} (tol {tol}); two "
-          f"backward runs bit-equal in dq, dk and dv")
+          f"forward runs bit-equal in out and lse, two backward runs in "
+          f"dq, dk and dv")
     row = {"err": {"fwd": e_out, "bwd_dq": held[0][0],
                    "bwd_dkv": max(held[1][0], held[2][0])}}
     del ro, rl, refs, grads, again
@@ -1482,7 +1492,7 @@ def phase_attention_train(seed, card):
         raise RuntimeError("chip_smoke: the profiled AMP step recorded no "
                            "device time")
     ran = {name for _, _, name in rows}
-    missing = [k for k in ("flash_fwd_bf16", "flash_bwd_dq_tma",
+    missing = [k for k in ("flash_fwd_tma", "flash_bwd_dq_tma",
                            "flash_bwd_dkv_tma")
                if not any(k in name for name in ran)]
     if missing:

@@ -45,38 +45,45 @@
 // dp, as the TPU kernels do; fusing them would save two of the seven
 // products but sum dq across key blocks with atomics.
 //
-// bf16 forward (K2): a 4-warp block owns 64 query rows, 16 per warp;
-// mma.sync m16n8k16 from ldmatrix, K and V double-buffered with
-// cp.async; online softmax with expf.
-//
-// bf16 backward (K3 flash_bwd_dq_tma, K4 flash_bwd_dkv_tma): the
-// tensor cores' full rate needs wgmma, and wgmma needs its operands in
-// 128-byte-swizzled shared memory fed without stalling the math, so:
+// bf16 kernels (K2 flash_fwd_tma, K3 flash_bwd_dq_tma, K4
+// flash_bwd_dkv_tma): the tensor cores' full rate needs wgmma, and wgmma
+// needs its operands in 128-byte-swizzled shared memory fed without
+// stalling the math, so:
 //
 //   block    two consumer warpgroups own 128 rows, 64 each: query rows
-//            for dq, key rows for dk/dv.  A producer warpgroup (one
-//            warp works) issues the loads and setmaxnreg moves its
-//            registers to the consumers (384 threads; ptxas still
-//            compiles a thread to at most 168 registers, but with the
-//            hint dk/dv spilled less and ran faster).  At width
+//            for the forward and dq, key rows for dk/dv.  A producer
+//            warpgroup (one warp works) issues the loads and setmaxnreg
+//            moves its registers to the consumers (384 threads; ptxas
+//            still compiles a thread to at most 168 registers, but with
+//            the hint dk/dv spilled less and ran faster).  At width
 //            128 dk/dv's accumulators alone take 128 registers, so
 //            there warp 0 of the consumers issues the loads instead (256
 //            threads, up to 255 registers): side by side, that ran dk/dv
 //            at width 128 without spills and faster, and the width-64
 //            forms and dq slower.  Three consumer warpgroups (192 rows)
 //            ran slower.  One block an SM.
-//   loads    its own tiles (dq: Q and dO; dk/dv: K and V) arrive once by
-//            TMA; the other two stream, 64 rows a tile, through a ring of
-//            up to 4 stages on full/empty mbarriers (dk/dv: with the
-//            tile's lse * log2(e) and delta, which the loading warp's
-//            lanes write beside the stage, +inf past Tq so p = 0 there).
+//   loads    its own tiles (forward: Q; dq: Q and dO; dk/dv: K and V)
+//            arrive once by TMA; the other two stream through a ring of
+//            up to 4 stages on full/empty mbarriers.  Forward: K and V
+//            tiles of 128 keys at width 64 and 64 at width 128, on
+//            separate full barriers, so S starts before V has landed.
+//            Backward: 64-row tiles (dk/dv: with the tile's lse *
+//            log2(e) and delta, which the loading warp's lanes write
+//            beside the stage, +inf past Tq so p = 0 there).
 //            Tensor maps are 3-D [BH, T, width], boxes of 64 columns, so
 //            a ragged last tile is zero-filled within its own head; they
 //            are encoded per call on the host and passed as
 //            __grid_constant__ parameters (hopper.cuh).  Every tile is
 //            loaded the full width (64 or 128 columns, zero past D or
 //            Dv), so every product runs a fixed number of wgmma steps.
-//   math     dq:    S = Q K^T, dP = dO V^T   wgmma m64n64k16, both
+//   math     fwd:   S = Q K^T                wgmma m64n128k16 (width 64)
+//                                            or m64n64k16, both operands
+//                                            in shared memory, K-major;
+//                   O += P V                 wgmma with P from registers,
+//                                            V MN-major; it stays in
+//                                            flight behind the next
+//                                            tile's S.
+//            dq:    S = Q K^T, dP = dO V^T   wgmma m64n64k16, both
 //                                            operands in shared memory,
 //                                            K-major;
 //                   dQ += dS K               wgmma with dS from registers,
@@ -86,18 +93,24 @@
 //                                            MN-major.
 //            The fp32 accumulators of p and ds become the bf16 A
 //            fragments in place, without a trip through shared memory.
-//            S and dP are two wgmma groups: the exponentials of S run
-//            while dP is computed, and the other warpgroup's products
-//            run meanwhile.  A tile's dQ product (width 64) or dV and
-//            dK products (width 128) stay in flight behind the next
-//            tile's S and dP.
-//   softmax p = exp2(s * scale * log2(e) - lse * log2(e)): one FFMA and
-//            one ex2.approx a score, lse * log2(e) computed once a row.
-//            The per-element causal test runs only on the tiles that
-//            cross the diagonal (and, for dq, the tile holding the last
-//            key); a warpgroup skips a tile wholly above the diagonal.
-//   output   the accumulators are scaled and rounded to bf16 once, from
-//            registers.
+//            Backward: S and dP are two wgmma groups: the exponentials of
+//            S run while dP is computed, and the other warpgroup's
+//            products run meanwhile.  A tile's dQ product (width 64) or
+//            dV and dK products (width 128) stay in flight behind the
+//            next tile's S and dP.
+//   softmax forward: online in the exp2 domain.  The running row max m2
+//            is kept in log2 units, max(s * scale * log2(e)); p =
+//            exp2(s * scale * log2(e) - m2) is one FFMA and one
+//            ex2.approx a score, the rescale alpha = exp2(m2_old -
+//            m2_new); l sums the fp32 p; lse = m2 ln(2) + log(l), in
+//            natural log for the backward.  Backward: p = exp2(s * scale
+//            * log2(e) - lse * log2(e)), lse * log2(e) computed once a
+//            row.  The per-element causal test runs only on the tiles
+//            that cross the diagonal (and, for the forward and dq, the
+//            tile holding the last key); a warpgroup skips a tile wholly
+//            above its rows' diagonal.
+//   output   the accumulators are scaled (forward: divided by l) and
+//            rounded to bf16 once, from registers.
 //
 // Products.  q k^T and dO v^T multiply bf16 data, so their products are
 // exact.  p v, ds k, p^T dO and ds^T q multiply an fp32 probability (or
@@ -129,8 +142,7 @@ using namespace hopper;   // mbarriers, TMA, wgmma, tensor maps
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;   // NEG_INF of pallas_kernels.py:38
-constexpr int kThreads = 128;       // 4 warps
-constexpr int kTile = 64;           // rows of a tile (query or key)
+constexpr int kThreads = 128;       // 4 warps (fp32 forms)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -149,47 +161,6 @@ struct Args {
   float scale;
 };
 
-// ---------------------------------------------------------------------------
-// primitives of the forward: cp.async, ldmatrix, mma.sync
-// ---------------------------------------------------------------------------
-// 16 bytes global -> shared; zero-filled when !valid (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[4] += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two fp32 values rounded to bf16 and packed, the lower column in the
 // lower half (the fragment order).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -197,202 +168,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[i][e] = 0.f;
-  }
-}
-
-// Rows [r0, r0 + 64) of a [T, dim] bf16 matrix into a [64][DP + 8] shared
-// tile, asynchronously; rows past T and columns past dim are zero.  The
-// row padding of 8 elements (16 bytes) keeps ldmatrix free of bank
-// conflicts.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int r0,
-                                          int T, int dim) {
-  constexpr int LD = DP + 8, CH = DP / 8;
-  for (int i = threadIdx.x; i < kTile * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = (r0 + r < T) && (c < dim);
-    cp_async16(s + r * LD + c, ok ? g + static_cast<size_t>(r0 + r) * dim + c
-                                  : g,
-               ok);
-  }
-}
-
-// acc (16 x 64, this warp's rows xrow0.. of X) += X Y^T over `ksteps` * 16
-// columns, X and Y both [64][DP + 8] shared tiles stored along the
-// contraction.  acc[j] is n-tile j (columns 8j..8j+7): c0, c1 at row g,
-// columns 2t, 2t+1; c2, c3 at row g + 8.
-template <int DP>
-__device__ __forceinline__ void mma_nt(float (&acc)[8][4], const bf16* xs,
-                                       int xrow0, const bf16* ys, int ksteps) {
-  constexpr int LD = DP + 8;
-  const int lane = threadIdx.x & 31;
-  const int mi = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    if (kk < ksteps) {
-      uint32_t a[4];
-      ldsm_x4(a, xs + (xrow0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, ys + (np * 16 + r + (mi >> 1) * 8) * LD + kk * 16 +
-                       (mi & 1) * 8);
-        mma16816(acc[2 * np], a, b[0], b[1]);
-        mma16816(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// acc (16 x DP) += P (16 x 64, fp32 in the mma_nt accumulator layout,
-// rounded to bf16 here) Y, Y a [64][DP + 8] shared tile whose rows are the
-// contraction; `nsteps` * 16 output columns.
-template <int DP>
-__device__ __forceinline__ void mma_pv(float (&acc)[DP / 8][4],
-                                       const float (&p)[8][4], const bf16* ys,
-                                       int nsteps) {
-  constexpr int LD = DP + 8;
-  const int lane = threadIdx.x & 31;
-  const int mi = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int np = 0; np < DP / 16; ++np) {
-      if (np < nsteps) {
-        uint32_t b[4];
-        ldsm_x4_t(b, ys + (kk * 16 + r + (mi & 1) * 8) * LD + np * 16 +
-                         (mi >> 1) * 8);
-        mma16816(acc[2 * np], a, b[0], b[1]);
-        mma16816(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// Key tiles a query tile starting at q0 needs: all, or under causal
-// masking those up to the tile holding its last row.
-__device__ __forceinline__ int key_tiles(const Args& a, int q0) {
-  int n = (a.Tk + kTile - 1) / kTile;
-  if (a.causal) n = min(n, min(q0 + kTile - 1, a.Tq - 1) / kTile + 1);
-  return n;
-}
-
 // ---------------------------------------------------------------------------
-// bf16 forward (K2)
-// ---------------------------------------------------------------------------
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Args a) {
-  constexpr int TILE = kTile * (DP + 8);
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + TILE;        // 2 stages
-  bf16* Vs = Ks + 2 * TILE;    // 2 stages
-  const int nq = (a.Tq + kTile - 1) / kTile;
-  const int bh = blockIdx.x % a.BH;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / a.BH)) * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* q = static_cast<const bf16*>(a.q) + static_cast<size_t>(bh) * a.Tq * a.D;
-  const bf16* k = static_cast<const bf16*>(a.k) + static_cast<size_t>(bh) * a.Tk * a.D;
-  const bf16* v = static_cast<const bf16*>(a.v) + static_cast<size_t>(bh) * a.Tk * a.Dv;
-  const int nkt = key_tiles(a, q0);
-
-  load_tile<DP>(Qs, q, q0, a.Tq, a.D);
-  load_tile<DP>(Ks, k, 0, a.Tk, a.D);
-  load_tile<DP>(Vs, v, 0, a.Tk, a.Dv);
-  cp_async_commit();
-
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[DP / 8][4];
-  zero(acc);
-  for (int it = 0; it < nkt; ++it) {
-    const int st = it & 1;
-    if (it + 1 < nkt) {
-      load_tile<DP>(Ks + (st ^ 1) * TILE, k, (it + 1) * kTile, a.Tk, a.D);
-      load_tile<DP>(Vs + (st ^ 1) * TILE, v, (it + 1) * kTile, a.Tk, a.Dv);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[8][4];
-    zero(s);
-    mma_nt<DP>(s, Qs, warp * 16, Ks + st * TILE, a.D / 16);
-    const int k0 = it * kTile;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool keep = col < a.Tk && !(a.causal && col > row[e >> 1]);
-        s[j][e] = keep ? s[j][e] * a.scale : kNegInf;
-      }
-    }
-    // online softmax; a quad of lanes (same g) shares each row
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = m[h];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float alpha = expf(m[h] - mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][2 * h] = expf(s[j][2 * h] - mx);
-        s[j][2 * h + 1] = expf(s[j][2 * h + 1] - mx);
-        sum += s[j][2 * h] + s[j][2 * h + 1];
-      }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      sum += __shfl_xor_sync(kFull, sum, 2);
-      l[h] = l[h] * alpha + sum;
-      m[h] = mx;
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        acc[n][2 * h] *= alpha;
-        acc[n][2 * h + 1] *= alpha;
-      }
-    }
-    mma_pv<DP>(acc, s, Vs + st * TILE, a.Dv / 16);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  bf16* out = static_cast<bf16*>(a.out) + static_cast<size_t>(bh) * a.Tq * a.Dv;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= a.Tq) continue;
-    const float ls = fmaxf(l[h], 1e-20f);
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (col < a.Dv) {
-        *reinterpret_cast<__nv_bfloat162*>(
-            out + static_cast<size_t>(row[h]) * a.Dv + col) =
-            __floats2bfloat162_rn(acc[n][2 * h] / ls, acc[n][2 * h + 1] / ls);
-      }
-    }
-    if (t == 0)
-      a.lse_out[static_cast<size_t>(bh) * a.Tq + row[h]] = m[h] + logf(ls);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 backward (K3 dq, K4 dk/dv): TMA ring, wgmma, warp specialisation
+// bf16 kernels (K2 forward, K3 dq, K4 dk/dv): TMA ring, wgmma, warp
+// specialisation
 // ---------------------------------------------------------------------------
 constexpr int kBwdRows = 128;            // rows a block owns: 64 a warpgroup
 constexpr int kBwdTile = 64;             // rows of a streamed tile
@@ -450,12 +228,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// A fragments of a 64x64 fp32 accumulator rounded to bf16: a[kk] is the
-// 64x16 slice of columns 16 kk.. (the accumulator's n-tiles 2 kk, 2 kk + 1).
-__device__ __forceinline__ void to_a_frags(const float (&x)[32],
-                                           uint32_t (&a)[4][4]) {
+// A fragments of a 64 x 2N fp32 accumulator (N registers a thread)
+// rounded to bf16: a[kk] is the 64x16 slice of columns 16 kk.. (the
+// accumulator's n-tiles 2 kk, 2 kk + 1).
+template <int N>
+__device__ __forceinline__ void to_a_frags(const float (&x)[N],
+                                           uint32_t (&a)[N / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < N / 8; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
@@ -468,33 +248,41 @@ __device__ __forceinline__ void to_a_frags(const float (&x)[32],
 // makes the compiler merge accumulator values between wgmmas, and ptxas
 // then serialises them.
 
-// acc (64 x DP) += A (64 x 64, registers) B, B a streamed tile in shared
-// memory: 64 rows (the contraction) in boxes of 64 columns, MN-major.
-template <int NB>
+// acc (64 x DP) += A (64 x 16 KS, registers) B, B a streamed tile in
+// shared memory: 16 KS rows (the contraction) in boxes of 64 columns,
+// MN-major.
+template <int NB, int KS>
 __device__ __forceinline__ void rs_product(float (&acc)[NB][32],
-                                           uint32_t (&a)[4][4], uint32_t b) {
+                                           uint32_t (&a)[KS][4], uint32_t b) {
+  constexpr uint32_t box = KS * 16 * 128;
 #pragma unroll
   for (int h = 0; h < NB; ++h) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
       wgmma_rs_64(acc[h], a[kk],
-                  sw128_desc(b + h * kTileBox + kk * 2048, kTileBox, 1024));
+                  sw128_desc(b + h * box + kk * 2048, box, 1024));
     }
   }
 }
 
-// d (64 x 64) = X Y^T over DP columns: X this warpgroup's 64 rows of an
-// owned tile (128-row boxes, at x), Y a streamed tile (64-row boxes, at
+// d (64 x N) = X Y^T over DP columns: X this warpgroup's 64 rows of an
+// owned tile (128-row boxes, at x), Y a streamed tile (N-row boxes, at
 // y); both K-major.
-template <int NB>
-__device__ __forceinline__ void ss_product(float (&d)[32], uint32_t x,
+template <int NB, int N = 64>
+__device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t x,
                                            uint32_t y) {
+  constexpr uint32_t box = N * 128;
 #pragma unroll
   for (int kk = 0; kk < 4 * NB; ++kk) {
-    wgmma_ss_64(d,
-                sw128_desc(x + (kk / 4) * kOwnBox + (kk % 4) * 32, 16, 1024),
-                sw128_desc(y + (kk / 4) * kTileBox + (kk % 4) * 32, 16, 1024),
-                kk > 0);
+    const uint64_t dx =
+        sw128_desc(x + (kk / 4) * kOwnBox + (kk % 4) * 32, 16, 1024);
+    const uint64_t dy =
+        sw128_desc(y + (kk / 4) * box + (kk % 4) * 32, 16, 1024);
+    if constexpr (N == 128) {
+      wgmma_128<false, false>(d, dx, dy, kk > 0);
+    } else {
+      wgmma_ss_64(d, dx, dy, kk > 0);
+    }
   }
 }
 
@@ -949,6 +737,266 @@ __global__ void __launch_bounds__(bwd_threads(true, DP), 1)
   }
 }
 
+// forward (K2).  A block owns 128 query rows of one head (block b takes
+// query block nqb - 1 - b / BH: the longest walks first); its Q tile
+// arrives once, and the key tiles the causal mask keeps stream through
+// the ring, K and V on separate full barriers so that S starts before V
+// has landed.  Per key tile each consumer warpgroup computes S = Q K^T
+// (wgmma, both operands in shared memory), the online softmax in the
+// exp2 domain in registers, and O += P V (wgmma, P from registers, V
+// MN-major), which stays in flight behind the next tile's S.  A
+// warpgroup's live tiles are a prefix of the block's walk (under the
+// causal mask it stops at its own diagonal), and the tiles that need the
+// per-element mask are the last of them.
+//
+// Softmax: m2 is the running row max in log2 units, max(s scale
+// log2(e)); p = exp2(s scale log2(e) - m2), one FFMA and one ex2 a score;
+// the rescale is alpha = exp2(m2_old - m2_new).  A tile that needs the
+// mask first turns its scores into log2 units itself (kMaskedArg where
+// masked) and then runs the same code with a factor of 1.  Each thread
+// sums the fp32 p of its own columns; the quad of lanes that shares a row
+// adds those sums once, at the end.  The launch passes scale >= 0 (the
+// wrapper negates q for a negative scale), so max(s) scale is the max of
+// the scaled scores.
+//
+// What bounds it: at width 64 the exponentials take as long as the two
+// products (an SM's ex2 rate is 16 a clock, its bf16 rate about 4096
+// operations a clock, and a score costs one ex2 and 4 x 64 operations),
+// so the schedule has to run one warpgroup's ex2s under the other's
+// wgmmas.  Side by side at 8 x 65536 x 64 causal, this schedule ran
+// fastest; slower were 64-key tiles at width 64, issuing S of tile kt
+// before P V of tile kt - 1 so that the ex2s run under one's own P V,
+// S in two 64-key halves so that one half's softmax runs under the
+// other's products, ping-pong between the warpgroups on mbarriers, a
+// tree row max, and a persistent grid in snake order (the last two
+// within the noise).  A second S accumulator for the next tile does not
+// fit the 168 registers a thread of a 384-thread block gets at 128-key
+// tiles.  Taken apart, the softmax's instructions other than its ex2s
+// cost more than the ex2s do: the kernel waits on latency, not on a
+// unit's rate.
+constexpr int kFwdThreads = kBwdConsumers + 128;
+constexpr int kFwdMaxStages = 4;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Keys a streamed tile holds: 128 at width 64 (S is 64 x 128, 64
+// registers a thread), 64 at width 128, where O alone takes 64.
+__host__ __device__ constexpr int fwd_tile(int dp) {
+  return dp > 64 ? 64 : 128;
+}
+// Shared memory of a forward block (after aligning the base to 1 KB):
+// the Q tile, 128 rows in DP / 64 boxes of 64 columns; the ring of
+// `stages` stages, each a K tile and a V tile of fwd_tile(DP) rows; the
+// K-full, V-full and empty mbarrier of each stage and one for Q.
+// ops/flash_attention.py (fwd_plan) computes the same number, and the
+// launch refuses any other.
+__host__ __device__ constexpr uint32_t fwd_q_bytes(int dp) {
+  return dp * 256u;
+}
+__host__ __device__ constexpr uint32_t fwd_stage_bytes(int dp) {
+  return 4u * dp * fwd_tile(dp);
+}
+__host__ __device__ constexpr uint32_t fwd_smem_bytes(int dp, int stages) {
+  return 1024u + fwd_q_bytes(dp) + stages * fwd_stage_bytes(dp) +
+         8u * (3 * stages + 1);
+}
+static_assert(fwd_smem_bytes(128, kFwdMaxStages) <= 232448 &&
+                  fwd_smem_bytes(64, kFwdMaxStages) <= 232448,
+              "the deepest ring must fit in an SM's shared memory");
+
+template <int DP>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_tma(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, Args a,
+                  int stages) {
+  constexpr int NB = DP / 64, TK = fwd_tile(DP);
+  constexpr int NS = TK / 2, KS = TK / 16;   // S registers, P k-steps
+  constexpr uint32_t kvbox = TK * 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t qs = base, ring = base + fwd_q_bytes(DP);
+  const uint32_t fullk = ring + stages * fwd_stage_bytes(DP);
+  const uint32_t fullv = fullk + 8 * stages, empty = fullv + 8 * stages;
+  const uint32_t once = empty + 8 * stages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x % a.BH;
+  const int nqb = (a.Tq + kBwdRows - 1) / kBwdRows;
+  const int q0 = (nqb - 1 - static_cast<int>(blockIdx.x / a.BH)) * kBwdRows;
+  int nkt = (a.Tk + TK - 1) / TK;
+  if (a.causal) nkt = min(nkt, min(q0 + kBwdRows - 1, a.Tq - 1) / TK + 1);
+  auto stage_of = [&](int kt) {
+    return ring + (kt % stages) * fwd_stage_bytes(DP);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(fullk + 8 * s, 1);
+      mbar_init(fullv + 8 * s, 1);
+      mbar_init(empty + 8 * s, kBwdConsumers / 32);
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kBwdProducerWarp) {
+    producer_regs();
+    if (warp != kBwdProducerWarp) return;
+    if (lane == 0) {
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      mbar_expect_tx(once, NB * kOwnBox);
+      for (int b = 0; b < NB; ++b)
+        tma_load_3d(qs + b * kOwnBox, &map_q, once, b * 64, q0, bh);
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % stages;
+        mbar_wait(empty + 8 * s, ((kt / stages) & 1) ^ 1);
+        const uint32_t kst = stage_of(kt);
+        mbar_expect_tx(fullk + 8 * s, NB * kvbox);
+        for (int b = 0; b < NB; ++b)
+          tma_load_3d(kst + b * kvbox, &map_k, fullk + 8 * s, b * 64,
+                      kt * TK, bh);
+        mbar_expect_tx(fullv + 8 * s, NB * kvbox);
+        for (int b = 0; b < NB; ++b)
+          tma_load_3d(kst + (NB + b) * kvbox, &map_v, fullv + 8 * s, b * 64,
+                      kt * TK, bh);
+      }
+    }
+    return;
+  }
+
+  consumer_regs();
+  const int wg = warp / 4;
+  const int r = (warp & 3) * 16 + (lane >> 2), c = lane & 3;
+  const int qw = q0 + wg * 64;          // this warpgroup's first query
+  const uint32_t qa = qs + wg * 8192;   // its 64 rows of the Q tile
+  const float sl = a.scale * kLog2e;
+  // live tiles: a prefix, up to this warpgroup's diagonal
+  const int nlive = qw >= a.Tq ? 0
+                    : a.causal ? min(nkt, (qw + 63) / TK + 1)
+                               : nkt;
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+  };
+  float m2[2] = {kMaskedArg, kMaskedArg}, l[2] = {0.f, 0.f};
+  float o[NB][32];
+#pragma unroll
+  for (int h = 0; h < NB; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
+  }
+  uint32_t p[KS][4];                    // P, the A operand of P V
+  int held = -1;                        // stage of the P V in flight
+  mbar_wait(once, 0);
+  for (int kt = 0; kt < nlive; ++kt) {
+    const int s = kt % stages, k0 = kt * TK;
+    const uint32_t ph = (kt / stages) & 1;
+    float sc[NS];
+    mbar_wait(fullk + 8 * s, ph);
+    __syncwarp();          // wgmma's .aligned forms need the warp converged
+    wgmma_fence();
+    ss_product<NB, TK>(sc, qa, stage_of(kt));
+    wgmma_commit();
+    wgmma_wait<0>();       // S, and the last tile's P V
+    fence_acc(sc);
+#pragma unroll
+    for (int h = 0; h < NB; ++h) fence_acc(o[h]);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) fence_regs(p[kk]);
+    if (held >= 0) release(held);
+    // the per-element mask only on the tiles that cross the diagonal or
+    // hold the last key; there the scores turn into log2 units first
+    float f = sl;
+    if ((a.causal && k0 + TK - 1 > qw) || k0 + TK > a.Tk) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        const int row = qw + r + 8 * ((i >> 1) & 1);
+        const bool keep = key < a.Tk && !(a.causal && key > row);
+        sc[i] = keep ? sc[i] * sl : kMaskedArg;
+      }
+      f = 1.f;
+    }
+    // fragment: sc[4g + 2h + j] is row r + 8h, key k0 + 8g + 2c + j; the
+    // quad of lanes with the same r holds a row
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = sc[2 * h];
+#pragma unroll
+      for (int i = 1; i < NS / 2; ++i)
+        mx = fmaxf(mx, sc[4 * (i >> 1) + 2 * h + (i & 1)]);
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float mn = fmaxf(m2[h], mx * f);
+      alpha[h] = ex2(m2[h] - mn);
+      m2[h] = mn;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int h = (i >> 1) & 1;
+      sc[i] = ex2(fmaf(sc[i], f, -m2[h]));
+      sum[h] += sc[i];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+    for (int h = 0; h < NB; ++h) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[h][i] *= alpha[(i >> 1) & 1];
+    }
+    to_a_frags(sc, p);
+    mbar_wait(fullv + 8 * s, ph);
+    __syncwarp();
+    wgmma_fence();
+    rs_product<NB, KS>(o, p, stage_of(kt) + NB * kvbox);   // O += P V
+    wgmma_commit();
+    held = s;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NB; ++h) fence_acc(o[h]);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) fence_regs(p[kk]);
+  if (held >= 0) release(held);
+  // the tiles past this warpgroup's diagonal: released unread
+  for (int kt = nlive; kt < nkt; ++kt) {
+    mbar_wait(fullk + 8 * (kt % stages), (kt / stages) & 1);
+    mbar_wait(fullv + 8 * (kt % stages), (kt / stages) & 1);
+    release(kt % stages);
+  }
+
+  bf16* out = static_cast<bf16*>(a.out) + static_cast<size_t>(bh) * a.Tq * a.Dv;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    const int row = qw + r + 8 * h;
+    if (row >= a.Tq) continue;
+    const float ls = fmaxf(l[h], 1e-20f);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int col = b * 64 + 8 * g + 2 * c;
+        if (col < a.Dv) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + static_cast<size_t>(row) * a.Dv + col) =
+              __floats2bfloat162_rn(o[b][4 * g + 2 * h] / ls,
+                                    o[b][4 * g + 2 * h + 1] / ls);
+        }
+      }
+    }
+    if (c == 0) {
+      a.lse_out[static_cast<size_t>(bh) * a.Tq + row] =
+          m2[h] * kLn2 + logf(ls);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // fp32 forms: one warp per row, exact fp32 FMAs on the CUDA cores.  Each
 // lane takes one key (or query) of a 32-wide chunk for the dot products
@@ -1132,11 +1180,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(Args a) {
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-template <int DP>
-constexpr size_t tile_bytes() {
-  return static_cast<size_t>(kTile) * (DP + 8) * sizeof(bf16);
-}
-
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, long long blocks, size_t smem,
                    cudaStream_t stream, const Args& a) {
@@ -1158,23 +1201,51 @@ bool bad_args(int BH, int Tq, int Tk, int D, int Dv, int dtype) {
          (dtype != 0 && dtype != 1);
 }
 
-long long tiles(int T) { return (T + kTile - 1) / kTile; }
 long long groups(int T) { return (T + kRowsF32 - 1) / kRowsF32; }
 
 enum Which { kFwd, kDq, kDkv };
 
-// The launch a backward kernel takes from ops/flash_attention.py
-// (bwd_plan): rows a block owns, stages of its ring, its shared memory.
-struct BwdPlan {
+// The launch a bf16 kernel takes from ops/flash_attention.py (fwd_plan,
+// bwd_plan): rows a block owns, stages of its ring, its shared memory.
+struct Plan {
   int rows, stages, smem;
 };
+
+// The forward (K2) on its TMA ring: tensor maps of q, k and v encoded
+// here, per call, as 3-D [BH, T, width] maps read in boxes of 64 columns
+// and 128 (Q) or fwd_tile(DP) (K, V) rows, so a ragged last tile is
+// zero-filled within its own head.
+template <int DP>
+cudaError_t launch_fwd(const Args& a, const Plan& p, cudaStream_t s) {
+  if (p.rows != kBwdRows || p.stages < 2 || p.stages > kFwdMaxStages ||
+      p.smem != static_cast<int>(fwd_smem_bytes(DP, p.stages)) ||
+      !(a.scale >= 0.f)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long blocks = a.BH * ((a.Tq + kBwdRows - 1) / kBwdRows);
+  if (blocks <= 0) return cudaSuccess;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  constexpr uint32_t tk = fwd_tile(DP);
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map_3d(&mq, a.q, a.D, a.Tq, a.BH, 64, kBwdRows) ||
+      !tensor_map_3d(&mk, a.k, a.D, a.Tk, a.BH, 64, tk) ||
+      !tensor_map_3d(&mv, a.v, a.Dv, a.Tk, a.BH, 64, tk)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e != cudaSuccess) return e;
+  flash_fwd_tma<DP><<<static_cast<unsigned>(blocks), kFwdThreads, p.smem,
+                      s>>>(mq, mk, mv, a, p.stages);
+  return cudaGetLastError();
+}
 
 // The backward kernels (K3, K4) on their TMA ring: tensor maps of q, k,
 // v and dO encoded here, per call, as 3-D [BH, T, width] maps read in
 // boxes of 64 columns and 128 (owned) or 64 (streamed) rows, so a ragged
 // last tile is zero-filled within its own head.
 template <int DP>
-cudaError_t launch_bwd(Which w, const Args& a, const BwdPlan& p,
+cudaError_t launch_bwd(Which w, const Args& a, const Plan& p,
                        cudaStream_t s) {
   const bool dkv = w == kDkv;
   if (p.rows != kBwdRows || p.stages < 1 || p.stages > kBwdMaxStages ||
@@ -1205,16 +1276,12 @@ cudaError_t launch_bwd(Which w, const Args& a, const BwdPlan& p,
 
 // The bf16 kernels come in two widths: head dims up to 64, and up to 128.
 template <int DP>
-cudaError_t launch_bf16(Which w, const Args& a, const BwdPlan& p,
+cudaError_t launch_bf16(Which w, const Args& a, const Plan& p,
                         cudaStream_t s) {
-  if (w == kFwd) {
-    return launch(flash_fwd_bf16<DP>, a.BH * tiles(a.Tq),
-                  5 * tile_bytes<DP>(), s, a);
-  }
-  return launch_bwd<DP>(w, a, p, s);
+  return w == kFwd ? launch_fwd<DP>(a, p, s) : launch_bwd<DP>(w, a, p, s);
 }
 
-int run(Which w, const Args& a, int dtype, const BwdPlan& p, void* stream) {
+int run(Which w, const Args& a, int dtype, const Plan& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     return static_cast<int>(a.D <= 64 && a.Dv <= 64
@@ -1240,20 +1307,22 @@ int run(Which w, const Args& a, int dtype, const BwdPlan& p, void* stream) {
 // outputs; lse and delta are fp32).  Each call launches one kernel on
 // `stream`, does not synchronise, and returns cudaGetLastError() (0 =
 // launched); arguments the kernels do not take return
-// cudaErrorInvalidValue before any launch.  The backward entries take
-// the bf16 launch's plan (rows a block, stages, shared-memory bytes) from
-// ops/flash_attention.py's bwd_plan, and refuse a plan that differs from
-// the kernel's own layout; the fp32 forms ignore it.
+// cudaErrorInvalidValue before any launch.  Each entry takes the bf16
+// launch's plan (rows a block, stages, shared-memory bytes) from
+// ops/flash_attention.py's fwd_plan or bwd_plan, and refuses a plan that
+// differs from the kernel's own layout; the fp32 forms ignore it.  The
+// bf16 forward takes scale >= 0 only.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int BH, int Tq, int Tk,
                               int D, int Dv, int causal, float scale,
-                              int dtype, void* stream) {
+                              int dtype, int rows, int stages, int smem,
+                              void* stream) {
   if (bad_args(BH, Tq, Tk, D, Dv, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{q, k, v, nullptr, nullptr, nullptr, out, static_cast<float*>(lse),
          nullptr, nullptr, nullptr, BH, Tq, Tk, D, Dv, causal, scale};
-  return run(kFwd, a, dtype, BwdPlan{0, 0, 0}, stream);
+  return run(kFwd, a, dtype, Plan{rows, stages, smem}, stream);
 }
 
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
@@ -1268,7 +1337,7 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), nullptr, nullptr, dq, nullptr,
          nullptr, BH, Tq, Tk, D, Dv, causal, scale};
-  return run(kDq, a, dtype, BwdPlan{rows, stages, smem}, stream);
+  return run(kDq, a, dtype, Plan{rows, stages, smem}, stream);
 }
 
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1284,7 +1353,7 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), nullptr, nullptr, nullptr, dk, dv,
          BH, Tq, Tk, D, Dv, causal, scale};
-  return run(kDkv, a, dtype, BwdPlan{rows, stages, smem}, stream);
+  return run(kDkv, a, dtype, Plan{rows, stages, smem}, stream);
 }
 
 extern "C" const char* flash_attn_error_string(int code) {

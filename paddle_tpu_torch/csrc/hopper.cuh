@@ -123,11 +123,12 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d[64x128 fp32] += A[64x16] @ B[16x128]; A_MN / B_MN: the operand is
-// MN-major (wgmma's transpose immediate), else K-major.
+// d[64x128 fp32] (+)= A[64x16] @ B[16x128], both from shared memory;
+// A_MN / B_MN: the operand is MN-major (wgmma's transpose immediate),
+// else K-major; `accumulate` 0 overwrites d.
 template <bool A_MN, bool B_MN>
 __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
-                                          uint64_t db) {
+                                          uint64_t db, int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -153,7 +154,8 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(A_MN ? 1 : 0), "n"(B_MN ? 1 : 0));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(A_MN ? 1 : 0),
+        "n"(B_MN ? 1 : 0));
 }
 
 // d[64x64 fp32] (+)= A[64x16] @ B[16x64], both from shared memory and

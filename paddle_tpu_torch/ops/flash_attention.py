@@ -9,11 +9,12 @@ Hopper port of the three Pallas kernels (:func:`flash_bwd_dq` and
     bwd_dq   _flash_bwd_dq_kernel (:150)                   -> dq
     bwd_dkv  _flash_bwd_dkv_kernel (:195)                  -> dk, dv
 
-The bf16 backward kernels take their launch from :func:`bwd_plan` (rows
-a block owns, ring stages, shared memory, grid, the order of the blocks),
-and :func:`bwd_walk` models the tiles each block visits, so the CPU
-tests check both.  On CUDA tensors they launch the kernels or raise; on
-CPU tensors they compute the plain versions, :func:`flash_fwd_reference` and
+The bf16 kernels take their launch from :func:`fwd_plan` and
+:func:`bwd_plan` (rows a block owns, tile, ring stages, shared memory,
+grid, the order of the blocks), and :func:`fwd_walk` and
+:func:`bwd_walk` model the tiles each block visits, so the CPU tests
+check them.  On CUDA tensors they launch the kernels or raise; on CPU
+tensors they compute the plain versions, :func:`flash_fwd_reference` and
 :func:`flash_bwd_reference`.  ``delta = rowsum(dO * out) - g_lse``
 (``:254-261``) stays plain PyTorch outside the kernels, as the JAX
 package leaves it to XLA.  ``launches`` counts kernel launches by name
@@ -46,8 +47,8 @@ from ..core.registry import register_op
 from . import cuda_build
 
 __all__ = ["NEG_INF", "flash_fwd", "flash_bwd", "flash_bwd_dq",
-           "flash_bwd_dkv", "flash_delta", "bwd_plan", "bwd_walk",
-           "BwdPlan", "KernelPlan",
+           "flash_bwd_dkv", "flash_delta", "fwd_plan", "fwd_walk",
+           "bwd_plan", "bwd_walk", "FwdPlan", "BwdPlan", "KernelPlan",
            "flash_fwd_reference", "flash_bwd_reference",
            "attention_reference", "flash_attention",
            "flash_attention_with_lse", "launches", "launches_by_dtype",
@@ -70,6 +71,11 @@ BWD_ROWS = 128
 BWD_TILE = 64
 BWD_MAX_STAGES = 4
 SMEM_LIMIT = 232448
+# The bf16 forward (K2) takes the same block: BWD_ROWS query rows, two
+# consumer warpgroups, a producer warpgroup; K and V stream through a
+# ring of up to FWD_MAX_STAGES stages in tiles of FWD_TILE[width] keys.
+FWD_TILE = {64: 128, 128: 64}
+FWD_MAX_STAGES = 4
 
 launches = collections.Counter()
 launches_by_dtype = collections.Counter()
@@ -92,9 +98,9 @@ def build() -> str:
 def _library():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i32, i32, i32, i32, i32, i32, f32, i32]
-    launch = [i32, i32, i32]          # a backward plan: rows, stages, smem
+    launch = [i32, i32, i32]          # a bf16 plan: rows, stages, smem
     return cuda_build.load(SOURCE, {
-        "flash_attn_fwd": ([ptr] * 5 + dims + [ptr], i32),
+        "flash_attn_fwd": ([ptr] * 5 + dims + launch + [ptr], i32),
         "flash_attn_bwd_dq": ([ptr] * 7 + dims + launch + [ptr], i32),
         "flash_attn_bwd_dkv": ([ptr] * 8 + dims + launch + [ptr], i32),
         "flash_attn_error_string": ([i32], ctypes.c_char_p),
@@ -107,9 +113,9 @@ def _cdiv(a, b):
 
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
-    """One backward kernel's launch: ``rows`` a block owns (query rows
-    for ``bwd_dq``, key rows for ``bwd_dkv``), ``tile`` rows of each
-    streamed tile, ``stages`` of the ring, ``smem`` bytes of dynamic
+    """One bf16 kernel's launch: ``rows`` a block owns (query rows for
+    ``fwd`` and ``bwd_dq``, key rows for ``bwd_dkv``), ``tile`` rows of
+    each streamed tile, ``stages`` of the ring, ``smem`` bytes of dynamic
     shared memory, ``grid`` blocks, and the ``order`` in which blocks take
     their rows (block b: head b % BH, row block b // BH counted from the
     longest walk)."""
@@ -138,6 +144,93 @@ class BwdPlan:
     dkv: KernelPlan
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The bf16 forward launch for one shape (see :func:`fwd_plan`):
+    ``width`` the padded head size the kernel is built for (64 or 128),
+    ``fwd`` its :class:`KernelPlan`."""
+    BH: int
+    Tq: int
+    Tk: int
+    D: int
+    Dv: int
+    causal: bool
+    width: int
+    fwd: KernelPlan
+
+
+def _check_heads(what, D, Dv):
+    for name, d in (("D", D), ("Dv", Dv)):
+        if d % 16 or not 16 <= d <= 128:
+            raise ValueError(f"{what}: the kernels take head sizes that "
+                             f"are multiples of 16 up to 128, got "
+                             f"{name}={d}")
+    return 64 if max(D, Dv) <= 64 else 128
+
+
+def _fwd_smem(width, stages):
+    """Shared-memory bytes of a forward block, as the kernel lays it out
+    (``fwd_smem_bytes`` in csrc/flash_attn.cu): 1 KB of alignment slack,
+    the Q tile (128 rows x width bf16), per stage a K and a V tile of
+    FWD_TILE[width] rows, and 8 bytes per mbarrier (K-full, V-full and
+    empty per stage, one for Q)."""
+    return (1024 + width * 2 * BWD_ROWS
+            + stages * 2 * FWD_TILE[width] * width * 2
+            + 8 * (3 * stages + 1))
+
+
+@functools.lru_cache(maxsize=1024)
+def fwd_plan(BH: int, Tq: int, Tk: int, D: int, Dv: int,
+             causal: bool) -> FwdPlan:
+    """The bf16 forward kernel's :class:`FwdPlan`: width 64 where D and
+    Dv are at most 64, else 128; key tiles of FWD_TILE[width]; the
+    deepest ring of at most ``FWD_MAX_STAGES`` stages that fits in
+    ``SMEM_LIMIT``; one block per ``BWD_ROWS`` query rows of each head.
+    Raises ValueError for head sizes the kernel does not take.  Pure: the
+    CPU tests check it."""
+    width = _check_heads("fwd_plan", D, Dv)
+    stages = max(s for s in range(1, FWD_MAX_STAGES + 1)
+                 if _fwd_smem(width, s) <= SMEM_LIMIT)
+    return FwdPlan(BH=BH, Tq=Tq, Tk=Tk, D=D, Dv=Dv, causal=bool(causal),
+                   width=width, fwd=KernelPlan(
+                       kernel="fwd", rows=BWD_ROWS, tile=FWD_TILE[width],
+                       stages=stages, smem=_fwd_smem(width, stages),
+                       grid=BH * _cdiv(Tq, BWD_ROWS)))
+
+
+def _walk_tiles(q0, t, Tq, Tk, causal):
+    """(tile, live, masked) of each key tile of ``t`` keys a block of
+    query rows [q0, q0 + 128) walks: ``live`` / ``masked`` a pair, one per
+    consumer warpgroup (64 rows each), as csrc/flash_attn.cu decides
+    them; the causal walk ends at the tile holding the block's last
+    row."""
+    nkt = _cdiv(Tk, t)
+    if causal:
+        nkt = min(nkt, min(q0 + BWD_ROWS - 1, Tq - 1) // t + 1)
+    qw = (q0, q0 + 64)
+    return [(kt, tuple(w < Tq and (not causal or kt * t <= w + 63)
+                       for w in qw),
+             tuple((causal and kt * t + t - 1 > w) or kt * t + t > Tk
+                   for w in qw))
+            for kt in range(nkt)]
+
+
+def fwd_walk(plan: FwdPlan):
+    """The key tiles each block of the forward visits, in launch order:
+    a list of (bh, first query row, [(tile, live, masked)]) with ``tile``
+    the index of a key tile of ``plan.fwd.tile`` keys and ``live`` /
+    ``masked`` a pair, one per consumer warpgroup: whether it computes on
+    the tile, and whether it applies the per-element mask there."""
+    kp, BH = plan.fwd, plan.BH
+    nqb = _cdiv(plan.Tq, kp.rows)
+    blocks = []
+    for b in range(kp.grid):
+        q0 = (nqb - 1 - b // BH) * kp.rows
+        blocks.append((b % BH, q0, _walk_tiles(q0, kp.tile, plan.Tq,
+                                               plan.Tk, plan.causal)))
+    return blocks
+
+
 def _bwd_smem(kernel, width, stages):
     """Shared-memory bytes of a backward block, as the kernel lays it out
     (``bwd_smem_bytes`` in csrc/flash_attn.cu): 1 KB of alignment slack,
@@ -159,12 +252,7 @@ def bwd_plan(BH: int, Tq: int, Tk: int, D: int, Dv: int,
     ``BWD_MAX_STAGES`` stages that fits in ``SMEM_LIMIT``; one block per
     ``BWD_ROWS`` owned rows of each head.  Raises ValueError for head
     sizes the kernels do not take.  Pure: the CPU tests check it."""
-    for name, d in (("D", D), ("Dv", Dv)):
-        if d % 16 or not 16 <= d <= 128:
-            raise ValueError(f"bwd_plan: the kernels take head sizes that "
-                             f"are multiples of 16 up to 128, got "
-                             f"{name}={d}")
-    width = 64 if max(D, Dv) <= 64 else 128
+    width = _check_heads("bwd_plan", D, Dv)
     plans = {}
     for kernel, T in (("bwd_dq", Tq), ("bwd_dkv", Tk)):
         stages = max(s for s in range(1, BWD_MAX_STAGES + 1)
@@ -194,17 +282,7 @@ def bwd_walk(plan: BwdPlan, kernel: str):
         tiles = []
         if kernel == "bwd_dq":
             q0 = (_cdiv(Tq, kp.rows) - 1 - b // BH) * kp.rows
-            nkt = _cdiv(Tk, t)
-            if causal:
-                nkt = min(nkt, min(q0 + kp.rows - 1, Tq - 1) // t + 1)
-            for kt in range(nkt):
-                k0 = kt * t
-                qw = (q0, q0 + 64)
-                tiles.append((kt, tuple(
-                    w < Tq and (not causal or k0 <= w + 63) for w in qw),
-                    tuple((causal and k0 + 63 > w) or k0 + t > Tk
-                          for w in qw)))
-            blocks.append((bh, q0, tiles))
+            blocks.append((bh, q0, _walk_tiles(q0, t, Tq, Tk, causal)))
         else:
             k0 = (b // BH) * kp.rows
             qt0 = k0 // t if causal else 0
@@ -376,12 +454,16 @@ def attention_reference(q, k, v, causal=False, sm_scale=None):
 # ---------------------------------------------------------------------------
 def flash_fwd(q, k, v, causal=False, sm_scale=None):
     """(out, lse [BH, Tq, 1] fp32) of the forward kernel (K2).  CUDA
-    tensors launch it; CPU tensors take :func:`flash_fwd_reference`."""
+    tensors launch it; CPU tensors take :func:`flash_fwd_reference`.  The
+    bf16 kernel takes a scale >= 0 (it keeps the running max as max(s) *
+    scale); for a negative one it gets -q and -scale, the same scores."""
     sm_scale = _scale(q, sm_scale)
     dims = _shapes(q, k, v)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_fwd_reference(q, k, v, causal, sm_scale)
     dtype = _kernel_args("flash_fwd", (q, k, v), dims)
+    if dtype == _DTYPE_CODES[torch.bfloat16] and sm_scale < 0:
+        q, sm_scale = -q, -sm_scale
     BH, Tq, Tk, D, Dv = dims
     out = torch.empty((BH, Tq, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((BH, Tq, 1), dtype=torch.float32, device=q.device)
@@ -390,6 +472,7 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
         rc = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), *dims, int(bool(causal)), sm_scale, dtype,
+            *_launch_args(dims, dtype, causal, "fwd"),
             torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(lib, rc, f"fwd {dims} causal={causal} {q.dtype}")
     launches["fwd"] += 1
@@ -427,11 +510,14 @@ def _bwd_args(what, q, k, v, g, lse, delta):
 
 
 def _launch_args(dims, dtype, causal, kernel):
-    """(rows, stages, smem) of the bf16 kernel's plan; zeros for fp32,
-    whose kernels take none."""
+    """(rows, stages, smem) of the bf16 kernel's plan (``kernel`` "fwd",
+    "bwd_dq" or "bwd_dkv"); zeros for fp32, whose kernels take none."""
     if dtype != _DTYPE_CODES[torch.bfloat16]:
         return 0, 0, 0
-    kp = getattr(bwd_plan(*dims, bool(causal)), kernel[4:])
+    if kernel == "fwd":
+        kp = fwd_plan(*dims, bool(causal)).fwd
+    else:
+        kp = getattr(bwd_plan(*dims, bool(causal)), kernel[4:])
     return kp.rows, kp.stages, kp.smem
 
 

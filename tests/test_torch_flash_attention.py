@@ -421,6 +421,8 @@ def test_smoke_rule_scales_per_tile():
     (2, 100, 100, 64, 64, True),          # ragged tiles inside the kernel
     (3, 200, 130, 32, 48, False),
     (2, 256, 256, 128, 128, True),
+    (2, 300, 200, 64, 32, True),          # causal, Tq != Tk (top-left)
+    (2, 200, 200, 96, 128, True),         # width 128, ragged tiles
 ])
 def test_kernels_match_plain_on_card(cuda_device, case, dtype):
     from chip_smoke import att_close
@@ -448,8 +450,25 @@ def test_kernels_match_plain_on_card(cuda_device, case, dtype):
         assert a.dtype == dt
         att_close("grad", a, b, tol)
     # each block owns its output rows (no atomics): runs are bit-equal
+    again = fa.flash_fwd(q, k, v, causal)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     again = fa.flash_bwd(q, k, v, out, lse, gg, causal, g_lse=gl)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_forward_takes_a_negative_scale_on_card(cuda_device):
+    """The bf16 forward keeps its running max as max(s) * scale, so the
+    wrapper hands it -q and -scale for a negative scale: the same scores,
+    held to the plain version."""
+    from chip_smoke import att_close
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn(2, 256, 64, device=cuda_device,
+                           generator=g).to(torch.bfloat16) for _ in range(3))
+    out, lse = fa.flash_fwd(q, k, v, True, sm_scale=-0.2)
+    ro, rl = fa.flash_fwd_reference(q, k, v, True, sm_scale=-0.2)
+    att_close("negative scale", out, ro, 2e-2)
+    assert (lse - rl).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda
