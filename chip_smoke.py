@@ -17,9 +17,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
              bit-equal), and the out_stats and a_colsum epilogues; times
              kernel, plain version, the library call (torch.matmul, a
              yardstick the port never calls) and the card's bound for the
-             function, and prints each bf16 form's sum over the served or
-             trained shapes as a ratio to torch.matmul and a share of its
-             bound, the wgrads' fp32 partial bytes a step by the plan,
+             function, and prints each form's sum over the served or
+             trained shapes, in bf16 (mm_bf16_tma) and in fp32
+             (mm_f32_tma), as a ratio to torch.matmul and a share of its
+             bound, the bf16 wgrads' fp32 partial bytes a step by the plan,
              the host time to enqueue one call, and the forward's and
              dgrad's times under the plan's schedule beside one tile a
              block and one slab a tile; then the four
@@ -44,8 +45,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
              exact witness; prints training img/s of each path (bf16 also
              timed in turns) and a profile of one step.
 6. library — drives the fused entry points conv2d_1x1_with_bn_stats and
-             conv2d_1x1_grad_fused once per trained 1x1 conv, with the
-             launch counts read around the run.
+             conv2d_1x1_grad_fused once per trained 1x1 conv, in bf16 and
+             in fp32, with the launch counts read around each run.
 7. attention — the long-context slice (benchmark/longctx.py --framework):
              holds the flash-attention forward, dq and dk/dv kernels
              against their plain versions on the card at the slice's
@@ -203,6 +204,9 @@ LSE_TOL = 1e-3
 STEP_TOL = 3e-2
 
 
+DTYPE_LABEL = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -252,7 +256,7 @@ def kernel_name(source, line):
     """The kernel that a ptxas "Compiling entry" line of ``source``
     names, or None."""
     if source == "conv1x1_mm":
-        m = re.search(r"(mm_bf16_tma|mm_f32_simt)ILb(\d)ELb(\d)E"
+        m = re.search(r"(mm_bf16_tma|mm_f32_tma)ILb(\d)ELb(\d)E"
                       r"(?:Li(\d+)E)?", line)
         if m:
             stages = f",stages={m.group(4)}" if m.group(4) else ""
@@ -363,16 +367,6 @@ def check_sums(label, got, want, terms_abs_sum):
     return err.max().item()
 
 
-def wgrad_split(conv1x1, M, N, K, dtype, sms):
-    """(S, cluster, partials) of the wgrad form: the bf16 plan's, or the
-    fp32 kernel's split_k (one slab a block, every slab a partial)."""
-    if dtype == torch.bfloat16:
-        p = conv1x1.plan(M, N, K, True, False, dtype, sms)
-        return p.splits, p.cluster, p.partials
-    S = conv1x1.split_k(M, N, K, dtype, sms)[0]
-    return S, 1, S if S > 1 else 0
-
-
 def unsplit_wgrad_ms(conv1x1, gout, x):
     """The bf16 wgrad form with one slab (no split K: one block per output
     tile loops over all of K = P), timed to show what the split buys.
@@ -463,6 +457,28 @@ def schedule_ab(conv1x1, g, served, trained, sms):
     return sums
 
 
+def print_form_sums(rows, dtype, served, trained):
+    """Each form's kernel time summed over the served or trained shapes
+    (one per launch of a batch-32 forward or a batch-128 step), as a
+    ratio to torch.matmul and a share of its bound."""
+    for form, shapes, what in (("forward", served, "serving"),
+                               ("forward", trained, "training"),
+                               ("dgrad", trained, "training"),
+                               ("wgrad", trained, "training"),
+                               ("out_stats", trained, "training"),
+                               ("a_colsum", trained, "training")):
+        per = [rows[(form, dtype, s)] for s in shapes]
+        k_ms = sum(r["ms"] for r in per)
+        b_ms = sum(r["bound_ms"] for r in per)
+        lib = sum(rows[("forward" if form == "out_stats" else
+                        "wgrad" if form == "a_colsum" else form, dtype, s)]
+                  ["library_ms"] for s in shapes)
+        print(f"[kernels] {DTYPE_LABEL[dtype]} {form:9s} summed over the "
+              f"{len(shapes)} {what} shapes: kernel {k_ms:.4f} ms, "
+              f"torch.matmul {lib:.4f} ms ({k_ms / lib:.3f}x), bound "
+              f"{b_ms:.4f} ms ({b_ms / k_ms:.3f} of the bound)")
+
+
 def phase_kernels(served, trained, seed):
     """Every kernel form against its plain version at every served and
     trained shape, in fp32 and bf16, with times; then the transpose
@@ -522,7 +538,8 @@ def phase_kernels(served, trained, seed):
             # against the function's bound (the fp32 partials are the
             # design's overhead, not the function's work); two runs
             # bit-equal
-            S, cl, parts = wgrad_split(conv1x1, M, C, P, dtype, sms)
+            wp = conv1x1.plan(M, C, P, True, False, dtype, sms)
+            S, cl, parts = wp.splits, wp.cluster, wp.partials
             hold("wgrad", dtype, shape,
                  lambda: conv1x1.mm(gout, x, True, False),
                  lambda: conv1x1.mm_reference(gout, x, True, False),
@@ -604,29 +621,18 @@ def phase_kernels(served, trained, seed):
           f"training step): split K {split_ms:.4f} ms, of which the reduce "
           f"passes (timed alone) {reduce_ms:.4f} ms; one slab each "
           f"{one_ms:.4f} ms")
-    plans = [conv1x1.plan(M, C, P, True, False, bf, sms)
-             for (P, C, M) in trained]
-    print(f"[kernels] bf16 wgrad fp32 partials of one batch-{TRAIN_BATCH} "
-          f"step (plan, written and read): "
-          f"{sum(p.partial_bytes() for p in plans) / 1e9:.4f} GB, "
-          f"{sum(1 for p in plans if p.partials)} reduce passes; two runs "
-          f"bit-equal at all {len(bit_equal)} wgrad shapes (fp32 and bf16)")
-    for form, shapes, what in (("forward", served, "serving"),
-                               ("forward", trained, "training"),
-                               ("dgrad", trained, "training"),
-                               ("wgrad", trained, "training"),
-                               ("out_stats", trained, "training"),
-                               ("a_colsum", trained, "training")):
-        per = [rows[(form, bf, s)] for s in shapes]
-        k_ms = sum(r["ms"] for r in per)
-        b_ms = sum(r["bound_ms"] for r in per)
-        lib = sum(rows[("forward" if form == "out_stats" else
-                        "wgrad" if form == "a_colsum" else form, bf, s)]
-                  ["library_ms"] for s in shapes)
-        print(f"[kernels] bf16 {form:9s} summed over the {len(shapes)} "
-              f"{what} shapes: kernel {k_ms:.4f} ms, torch.matmul "
-              f"{lib:.4f} ms ({k_ms / lib:.3f}x), bound {b_ms:.4f} ms "
-              f"({b_ms / k_ms:.3f} of the bound)")
+    for dtype in (bf, torch.float32):
+        plans = [conv1x1.plan(M, C, P, True, False, dtype, sms)
+                 for (P, C, M) in trained]
+        print(f"[kernels] {DTYPE_LABEL[dtype]} wgrad fp32 partials of one "
+              f"batch-{TRAIN_BATCH} step (plan, written and read): "
+              f"{sum(p.partial_bytes() for p in plans) / 1e9:.4f} GB, "
+              f"{sum(1 for p in plans if p.partials)} reduce passes; slabs "
+              f"{[p.splits for p in plans]}")
+    print(f"[kernels] two runs bit-equal at all {len(bit_equal)} wgrad "
+          f"shapes (fp32 and bf16)")
+    for dtype in (bf, torch.float32):
+        print_form_sums(rows, dtype, served, trained)
     P, C, M = trained[0]
     x = torch.randn(P, C, device="cuda", generator=g).to(bf)
     w = (torch.randn(M, C, device="cuda", generator=g) / C ** 0.5).to(bf)
@@ -842,7 +848,7 @@ def phase_slice(seed, card):
           f"kernel path {rates['kernel']}, plain path {rates['plain']} "
           f"on {card}")
     profile_dispatch(exe, infer, feed, pred, scope)
-    return launches, buckets
+    return launches, buckets, fp32_launches
 
 
 def profile_dispatch(exe, infer, feed, pred, scope, runs=3):
@@ -861,7 +867,7 @@ def profile_dispatch(exe, infer, feed, pred, scope, runs=3):
     print_profile("profile", f"batch-{BATCH} dispatch", prof, wall_ms, runs)
 
 
-CONV_KERNELS = ("conv1x1_mm", ("mm_bf16_tma", "mm_f32_simt",
+CONV_KERNELS = ("conv1x1_mm", ("mm_bf16_tma", "mm_f32_tma",
                                 "splitk_reduce"))
 ATT_KERNELS = ("flash_attn", ("flash_fwd_", "flash_bwd_dq_",
                               "flash_bwd_dkv_"))
@@ -1072,14 +1078,17 @@ def phase_train(seed, card, n_gate):
               f"peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         torch.cuda.empty_cache()
-    by_form = runs["bf16 kernel"][3]
+    by_form = {dt: runs[f"{DTYPE_LABEL[dt]} kernel"][3]
+               for dt in (torch.bfloat16, torch.float32)}
     print(f"[train] ResNet-50 bf16 AMP batch {TRAIN_BATCH}, {TRAIN_STEPS} "
-          f"steps: conv1x1_mm launches by form {by_form} (gate: 3 x "
-          f"{n_gate} x {TRAIN_STEPS} = {3 * n_gate * TRAIN_STEPS} products)")
+          f"steps: conv1x1_mm launches by form {by_form[torch.bfloat16]} "
+          f"(gate: 3 x {n_gate} x {TRAIN_STEPS} = "
+          f"{3 * n_gate * TRAIN_STEPS} products); fp32, {FP32_STEPS} steps: "
+          f"{by_form[torch.float32]}")
     for label, dt in (("bf16 kernel", torch.bfloat16),
                       ("fp32 kernel", torch.float32)):
         k = steps[label]
-        n_split = sum(wgrad_split(conv1x1, M, C, P, dt, sms)[2] > 0
+        n_split = sum(conv1x1.plan(M, C, P, True, False, dt, sms).partials > 0
                       for (P, C, M) in shapes)
         want = {"forward": n_gate * k, "dgrad": n_gate * k,
                 "wgrad": n_gate * k, "splitk_reduce": n_split * k}
@@ -1143,33 +1152,36 @@ def profile_train_step(main, loss, start, feed):
 
 
 def phase_library(seed, shapes_with_geometry):
-    """The fused entry points, once per trained 1x1 conv, under the
-    launch counts."""
+    """The fused entry points, once per trained 1x1 conv in bf16 and in
+    fp32, under the launch counts.  Returns {dtype: launches by form}."""
     from paddle_tpu_torch.ops import conv1x1
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
-    conv1x1.reset_counts()
-    for (x_shape, m, strides, _) in shapes_with_geometry:
-        x = torch.randn(x_shape, device="cuda",
-                        generator=g).to(torch.bfloat16)
-        w = (torch.randn(m, x_shape[1], 1, 1, device="cuda", generator=g)
-             / x_shape[1] ** 0.5).to(torch.bfloat16)
-        out, csum, csq = conv1x1.conv2d_1x1_with_bn_stats(x, w, strides)
-        dx, dw, dsum = conv1x1.conv2d_1x1_grad_fused(x, w, out, strides)
-        for t in (csum, csq, dsum, dx, dw):
-            if not bool(torch.isfinite(t.float()).all()):
-                raise RuntimeError("chip_smoke: library path: non-finite "
-                                   "output")
-        del x, w, out, dx, dw
-    torch.cuda.synchronize()
-    by_form = dict(conv1x1.mm.by_form)
-    n = len(shapes_with_geometry)
-    print(f"[library] conv2d_1x1_with_bn_stats + conv2d_1x1_grad_fused at "
-          f"{n} trained convs: launches by form {by_form}")
-    for form in ("forward+out_stats", "dgrad", "wgrad+a_colsum"):
-        if by_form.get(form) != n:
-            raise RuntimeError(f"chip_smoke: library path launched {form} "
-                               f"{by_form.get(form)} times, expected {n}")
-    return by_form
+    forms = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        conv1x1.reset_counts()
+        for (x_shape, m, strides, _) in shapes_with_geometry:
+            x = torch.randn(x_shape, device="cuda", generator=g).to(dtype)
+            w = (torch.randn(m, x_shape[1], 1, 1, device="cuda", generator=g)
+                 / x_shape[1] ** 0.5).to(dtype)
+            out, csum, csq = conv1x1.conv2d_1x1_with_bn_stats(x, w, strides)
+            dx, dw, dsum = conv1x1.conv2d_1x1_grad_fused(x, w, out, strides)
+            for t in (csum, csq, dsum, dx, dw):
+                if not bool(torch.isfinite(t.float()).all()):
+                    raise RuntimeError("chip_smoke: library path: "
+                                       "non-finite output")
+            del x, w, out, dx, dw
+        torch.cuda.synchronize()
+        by_form = forms[dtype] = dict(conv1x1.mm.by_form)
+        n = len(shapes_with_geometry)
+        print(f"[library] {DTYPE_LABEL[dtype]} conv2d_1x1_with_bn_stats + "
+              f"conv2d_1x1_grad_fused at {n} trained convs: launches by "
+              f"form {by_form}")
+        for form in ("forward+out_stats", "dgrad", "wgrad+a_colsum"):
+            if by_form.get(form) != n:
+                raise RuntimeError(f"chip_smoke: {DTYPE_LABEL[dtype]} "
+                                   f"library path launched {form} "
+                                   f"{by_form.get(form)} times, expected {n}")
+    return forms
 
 
 # ---------------------------------------------------------------------------
@@ -1797,14 +1809,51 @@ def kernel_entry(name, source_line, path, launches, rows, shapes, form,
     }
 
 
-def with_reduce(entry, rows, shapes, launches):
+def with_reduce(entry, rows, shapes, launches, dtype=torch.bfloat16):
     """The split-K reduce pass inside a wgrad-form entry: its launches and
     its time alone (already inside the entry's ms; it has no bound of its
     own, the entry's bound is the function's)."""
     entry["reduce_launches"] = launches
-    entry["reduce_ms"] = sum(rows.get(("reduce", torch.bfloat16, s),
-                                      {}).get("ms", 0.0) for s in shapes)
+    entry["reduce_ms"] = sum(rows.get(("reduce", dtype, s), {}).get("ms", 0.0)
+                             for s in shapes)
     return entry
+
+
+def conv_entries(rows, shapes, train_shapes, serve_launches, t_forms,
+                 l_forms, dtype):
+    """The kernels JSON entries of K1 in one dtype: the forward summed
+    over one batch-32 forward with the served launches, the other forms
+    over one batch-128 step with the training run's or the fused entry
+    points' launches.  Returns (entries, the training forward's entry)."""
+    kernel = "mm_bf16_tma" if dtype == torch.bfloat16 else "mm_f32_tma"
+    tag = f"{DTYPE_LABEL[dtype]} {kernel}"
+    tf, lf = t_forms[dtype], l_forms[dtype]
+    forward = kernel_entry(f"conv1x1_mm {tag} forward (ta=0 tb=1)", 69,
+                           "serve", serve_launches, rows, shapes, "forward",
+                           dtype)
+    forward["train_launches"] = tf.get("forward", 0)
+    entries = [
+        forward,
+        kernel_entry(f"conv1x1_mm {tag} dgrad (ta=0 tb=0)", 239, "train",
+                     tf.get("dgrad", 0), rows, train_shapes, "dgrad", dtype),
+        with_reduce(kernel_entry(
+            f"conv1x1_mm {tag} wgrad, split K, with its splitk_reduce pass "
+            "(ta=1 tb=0)", 245, "train", tf.get("wgrad", 0), rows,
+            train_shapes, "wgrad", dtype), rows, train_shapes,
+            tf.get("splitk_reduce", 0), dtype),
+        kernel_entry(f"conv1x1_mm {tag} out_stats epilogue", 120, "library",
+                     lf.get("forward+out_stats", 0), rows, train_shapes,
+                     "out_stats", dtype),
+        with_reduce(kernel_entry(
+            f"conv1x1_mm {tag} a_colsum epilogue (wgrad form, split K)", 104,
+            "library", lf.get("wgrad+a_colsum", 0), rows, train_shapes,
+            "a_colsum", dtype), rows, train_shapes,
+            lf.get("splitk_reduce", 0), dtype),
+    ]
+    step_forward = kernel_entry(f"conv1x1_mm {tag} forward (ta=0 tb=1)", 69,
+                                "train", tf.get("forward", 0), rows,
+                                train_shapes, "forward", dtype)
+    return entries, step_forward
 
 
 def main():
@@ -1823,7 +1872,7 @@ def main():
     train_shapes = eligible_1x1_shapes(train_main, TRAIN_BATCH)
     rows = phase_kernels(shapes, train_shapes, args.seed)
     torch.cuda.empty_cache()
-    launches, buckets = phase_slice(args.seed, card)
+    launches, buckets, fp32_launches = phase_slice(args.seed, card)
     torch.cuda.empty_cache()
     t_forms = phase_train(args.seed, card, len(train_shapes))
     torch.cuda.empty_cache()
@@ -1836,46 +1885,33 @@ def main():
     torch.cuda.empty_cache()
     bw_entries, _ = phase_bandwidth(args.seed, card)
 
-    # the forward: one batch-32 forward of the served path (bf16)
-    forward = kernel_entry("conv1x1_mm forward (ta=0 tb=1)", 69, "serve",
-                           launches, rows, shapes, "forward")
-    forward["train_launches"] = t_forms.get("forward", 0)
-    kernels = [
-        forward,
-        kernel_entry("conv1x1_mm dgrad (ta=0 tb=0)", 239, "train",
-                     t_forms.get("dgrad", 0), rows, train_shapes, "dgrad"),
-        with_reduce(kernel_entry(
-            "conv1x1_mm wgrad, split K, with its splitk_reduce pass "
-            "(ta=1 tb=0)", 245, "train", t_forms.get("wgrad", 0), rows,
-            train_shapes, "wgrad"), rows, train_shapes,
-            t_forms.get("splitk_reduce", 0)),
-        kernel_entry("conv1x1_mm out_stats epilogue", 120, "library",
-                     l_forms.get("forward+out_stats", 0), rows,
-                     train_shapes, "out_stats"),
-        with_reduce(kernel_entry(
-            "conv1x1_mm a_colsum epilogue (wgrad form, split K)", 104,
-            "library", l_forms.get("wgrad+a_colsum", 0), rows, train_shapes,
-            "a_colsum"), rows, train_shapes,
-            l_forms.get("splitk_reduce", 0)),
-    ]
-    step_forward = kernel_entry("conv1x1_mm forward (ta=0 tb=1)", 69,
-                                "train", t_forms.get("forward", 0), rows,
-                                train_shapes, "forward")
-    for k in [step_forward] + kernels[1:]:
-        lib = "-" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
-        red = "" if "reduce_ms" not in k else \
-            f" (of which the reduce passes {k['reduce_ms']:.4f} ms)"
-        print(f"[summary] {k['name']}, summed over the {len(train_shapes)} "
-              f"trained 1x1 convs (bf16): kernel {k['ms']:.4f} ms{red}, "
-              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library "
-              f"{lib}, plain {k['plain_ms']:.4f} ms; {k['launches']} "
-              f"launches on the {k['path']} path")
-    print(f"[summary] forward: times summed over the {len(shapes)} bf16 "
+    # bf16: the served path and the AMP step; fp32: the served forward's
+    # fp32 run and the fp32 step
+    kernels = []
+    for dtype, serve_launches in ((torch.bfloat16, launches),
+                                  (torch.float32, fp32_launches)):
+        entries, step_forward = conv_entries(
+            rows, shapes, train_shapes, serve_launches, t_forms, l_forms,
+            dtype)
+        kernels += entries
+        for k in [step_forward] + entries[1:]:
+            lib = "-" if k["library_ms"] is None else \
+                f"{k['library_ms']:.4f} ms"
+            red = "" if "reduce_ms" not in k else \
+                f" (of which the reduce passes {k['reduce_ms']:.4f} ms)"
+            print(f"[summary] {k['name']}, summed over the "
+                  f"{len(train_shapes)} trained 1x1 convs: kernel "
+                  f"{k['ms']:.4f} ms{red}, bound {k['bound_ms']:.4f} ms "
+                  f"({k['bound_by']}), library {lib}, plain "
+                  f"{k['plain_ms']:.4f} ms; {k['launches']} launches on the "
+                  f"{k['path']} path")
+    print(f"[summary] forward: times summed over the {len(shapes)} "
           f"launches of one batch-{BATCH} forward, launches from the served "
-          f"run ({len(buckets)} batches); the others: times summed over the "
-          f"{len(train_shapes)} bf16 launches of one batch-{TRAIN_BATCH} "
-          f"training step, launches from the {TRAIN_STEPS}-step training "
-          f"run (path train) or the fused entry points' run (path library)")
+          f"run ({len(buckets)} batches; fp32: one batch-{BATCH} run); the "
+          f"others: times summed over the {len(train_shapes)} launches of "
+          f"one batch-{TRAIN_BATCH} training step, launches from the "
+          f"training run ({TRAIN_STEPS} bf16 steps, {FP32_STEPS} fp32; path "
+          f"train) or the fused entry points' run (path library)")
     kernels += attention_entries(att_row, att_launches)
     for k in kernels[-3:]:
         print(f"[summary] {k['name']} at BH {ATT_HEADS} x T {ATT_T} x d "

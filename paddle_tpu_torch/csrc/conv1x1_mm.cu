@@ -86,14 +86,54 @@
 //            than SMs would leave the card idle.  The plan (S, cluster,
 //            stages) is made in Python (ops/conv1x1.py, plan).
 //
-// TMA needs 16-byte aligned bases and row strides: every bf16 operand's
-// contiguous row is a multiple of 8 elements (the wrapper raises
-// otherwise, and conv1x1_mm returns cudaErrorInvalidValue).
+// fp32 (mm_f32_tma), the exact path (Executor() without amp): products
+// are fp32 FFMAs on the CUDA cores (no TF32, so the numbers are the plain
+// version's but for the summation order).  What bounds it: 67 TFLOP/s of
+// fp32 is 128 FFMA lanes an SM, so at 2*P*C*M operations over
+// (P*C + M*C + P*M)*4 bytes every ResNet-50 shape is bound by operations.
+// The design keeps the FFMA share of issued instructions high and the
+// loads off the arithmetic:
 //
-// fp32 (mm_f32_simt), the exact parity path: 64x64 tiles on the CUDA
-// cores (67 TFLOP/s, no TF32), bound by operations, split K on
-// gridDim.z with fp32 partials and splitk_reduce.  It loads each tile
-// with plain loads in storage orientation and masks the ragged edges.
+//   loads    A ring of 2 stages of BK = 32, each 32 KB (A and B tiles),
+//            filled by TMA in the operands' storage orientation.  Thread
+//            0 issues the loads and refills a stage once the 8 warps have
+//            arrived on its empty mbarrier.  MN-major tiles (the wgrad's A
+//            and B, the dgrad's B) arrive as 32 K rows of 128 floats,
+//            unswizzled; K-major ones (the forward's A and B, the dgrad's
+//            A) as 128 rows of 32 K (128 bytes) with the 128-byte swizzle.
+//   K-major  TMA cannot transpose, and the products want MN-major tiles.
+//            Of the two routes, reading 4 K values of each of a thread's
+//            rows with one LDS.128 (32 B values live beside the 64
+//            accumulators) spilled at the 128-register cap and ran
+//            slower side by side; the kept route has the 256 threads copy
+//            each K-major tile into an MN-major buffer (16 KB an operand,
+//            read back through the swizzle's XOR: the 8 threads of a
+//            phase read 8 bank groups), between two block barriers a
+//            step.  The wgrad reads its stages as they come and its K
+//            loop has no barrier.
+//   math     256 threads, each an 8x8 tile of fp32 accumulators of a
+//            128x128 output tile, as 2x2 sub-tiles of 4x4 half a tile
+//            apart: one K value is 4 conflict-free LDS.128 for 64 FFMAs.
+//            127 registers, no spills: two 107 KB blocks fit an SM.
+//   split K  As the bf16 kernel: slabs of whole BK steps on gridDim.z,
+//            folded through DSMEM in rank order, splitk_reduce where the
+//            slabs outnumber the cluster, but in clusters of at most 2:
+//            the same split in clusters of 4 or 8 ran the ResNet-50
+//            wgrads slower side by side, as if fewer of their blocks were
+//            resident at once.  The plan (ops/conv1x1.py) picks the slabs
+//            by whole rounds of the card's SMs.
+//   epilogue The fp32 tile is staged over the ring and leaves through the
+//            fold (a cluster of one where there is no split) in 16-byte
+//            stores.  out_stats sums each thread's 8 rows, then the two
+//            row groups of a warp by a shuffle, then the 8 warps in order;
+//            a_colsum sums the MN-major A stage before it is released, in
+//            the blocks of the first N tile.
+//
+// TMA needs 16-byte aligned bases and row strides: every operand's
+// contiguous row is a multiple of 16 bytes, 8 bf16 or 4 fp32 elements
+// (the wrapper raises otherwise, and conv1x1_mm returns
+// cudaErrorInvalidValue).  Ragged M, N and K edges are TMA's zero fill;
+// stores are clipped.
 //
 // Not done here: the NCHW <-> pixel-major copies around the kernel
 // (ops/conv1x1.py) move more bytes than the product itself; a
@@ -126,12 +166,11 @@ __device__ __forceinline__ void store_out(void* out, size_t idx, float v,
   }
 }
 
-// Pointers of one launch.  `work` non-null: write fp32 partials (slab
-// blockIdx.z of the fp32 kernel; cluster blockIdx.z / cluster size of
-// the bf16 kernel) to work[z, M, N] instead of the output.
+// Pointers of one launch.  `work` non-null: write fp32 partials (cluster
+// blockIdx.z / cluster size) to work[z, M, N] instead of the output.
 // `col_sum`/`col_sq` non-null: the out_stats epilogue ([gridDim.y, N]
 // partials; only with one slab).  `a_csum` non-null: the a_colsum
-// epilogue (row z of [S, M], or of [S / cluster, M]).
+// epilogue (row z of [S / cluster, M]).
 struct Epilogue {
   void* out;
   float* work;
@@ -252,6 +291,71 @@ __device__ __forceinline__ void stats_out(const Epilogue& ep,
   const size_t o = static_cast<size_t>(tm) * N + col;
   ep.col_sum[o] = s;
   ep.col_sq[o] = q;
+}
+
+// The fold of a one-tile block, after the cluster barrier that follows
+// the staging of every rank's fp32 tile (at `base`, rows of kLdc floats)
+// and a_colsum partials (csum_s[2 * kBM + row]): rank `rank` of the
+// cluster sums the tile rows [r0, r1) over the ranks' shared memory
+// (DSMEM) in rank order and writes the output, or the fp32 partial of
+// cluster z / csize where ep.work is set.  Run by kThreads threads.
+__device__ __forceinline__ void fold_tile(const Epilogue& ep, uint32_t base,
+                                          const float* csum_s, int M, int N,
+                                          int z, uint32_t rank,
+                                          uint32_t csize, int tid,
+                                          bool do_csum, int out_bf16) {
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int r0 = static_cast<int>(rank * kBM / csize);
+  const int r1 = static_cast<int>((rank + 1) * kBM / csize);
+  const int zc = z / static_cast<int>(csize);
+  const bool partial = ep.work != nullptr;
+  const bool vec = (N % 8) == 0;
+  for (int item = tid; item < (r1 - r0) * (kBN / 8); item += kThreads) {
+    const int row = r0 + item / (kBN / 8), col = (item % (kBN / 8)) * 8;
+    const int gm = m0 + row, gn = n0 + col;
+    if (gm >= M || gn >= N) continue;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const uint32_t addr =
+        base + static_cast<uint32_t>((row * kLdc + col) * sizeof(float));
+    for (uint32_t q = 0; q < csize; ++q) {
+      float t[8];
+      ld_cluster8(addr, q, t);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += t[e];
+    }
+    const size_t o = static_cast<size_t>(gm) * N + gn;
+    if (partial) {
+      float* w = ep.work + static_cast<size_t>(zc) * M * N + o;
+      if (vec) {
+        reinterpret_cast<float4*>(w)[0] = make_float4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<float4*>(w)[1] = make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+        for (int e = 0; e < 8 && gn + e < N; ++e) w[e] = v[e];
+      }
+    } else if (vec && out_bf16) {
+      __nv_bfloat162 h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      }
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(ep.out) + o) =
+          *reinterpret_cast<const uint4*>(h);
+    } else if (vec) {
+      float* w = static_cast<float*>(ep.out) + o;
+      reinterpret_cast<float4*>(w)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(w)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      for (int e = 0; e < 8 && gn + e < N; ++e) {
+        store_out(ep.out, o + e, v[e], out_bf16);
+      }
+    }
+  }
+  if (do_csum && tid < r1 - r0 && m0 + r0 + tid < M) {
+    const uint32_t addr = smem_addr(&csum_s[2 * kBM + r0 + tid]);
+    float s = 0.f;
+    for (uint32_t q = 0; q < csize; ++q) s += ld_cluster1(addr, q);
+    ep.a_csum[static_cast<size_t>(partial ? zc : 0) * M + m0 + r0 + tid] = s;
+  }
 }
 
 // Two schedules, one kernel.  Persistent (`persistent` != 0: one slab,
@@ -469,184 +573,211 @@ __global__ void __launch_bounds__(kTmaThreads, 2)
   // ---- fold: rank r of the cluster sums rows [r0, r1) over the ranks ----
   cluster_sync();
   if (warp != kProducerWarp) {
-    const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-    const int r0 = static_cast<int>(rank * kBM / csize);
-    const int r1 = static_cast<int>((rank + 1) * kBM / csize);
-    const int zc = z / static_cast<int>(csize);
-    const bool partial = ep.work != nullptr;
-    const bool vec = (N % 8) == 0;
-    for (int item = tid; item < (r1 - r0) * (kBN / 8);
-         item += kConsumerThreads) {
-      const int row = r0 + item / (kBN / 8), col = (item % (kBN / 8)) * 8;
-      const int gm = m0 + row, gn = n0 + col;
-      if (gm >= M || gn >= N) continue;
-      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      const uint32_t addr =
-          base + static_cast<uint32_t>((row * kLdc + col) * sizeof(float));
-      for (uint32_t q = 0; q < csize; ++q) {
-        float t[8];
-        ld_cluster8(addr, q, t);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] += t[e];
-      }
-      const size_t o = static_cast<size_t>(gm) * N + gn;
-      if (partial) {
-        float* w = ep.work + static_cast<size_t>(zc) * M * N + o;
-        if (vec) {
-          reinterpret_cast<float4*>(w)[0] =
-              make_float4(v[0], v[1], v[2], v[3]);
-          reinterpret_cast<float4*>(w)[1] =
-              make_float4(v[4], v[5], v[6], v[7]);
-        } else {
-          for (int e = 0; e < 8 && gn + e < N; ++e) w[e] = v[e];
-        }
-      } else if (vec && out_bf16) {
-        __nv_bfloat162 h[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-        }
-        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(ep.out) + o) =
-            *reinterpret_cast<const uint4*>(h);
-      } else if (vec) {
-        float* w = static_cast<float*>(ep.out) + o;
-        reinterpret_cast<float4*>(w)[0] = make_float4(v[0], v[1], v[2], v[3]);
-        reinterpret_cast<float4*>(w)[1] = make_float4(v[4], v[5], v[6], v[7]);
-      } else {
-        for (int e = 0; e < 8 && gn + e < N; ++e) {
-          store_out(ep.out, o + e, v[e], out_bf16);
-        }
-      }
-    }
-    if (do_csum && tid < r1 - r0 && m0 + r0 + tid < M) {
-      const uint32_t addr = smem_addr(&csum_s[2 * kBM + r0 + tid]);
-      float s = 0.f;
-      for (uint32_t q = 0; q < csize; ++q) s += ld_cluster1(addr, q);
-      ep.a_csum[static_cast<size_t>(partial ? zc : 0) * M + m0 + r0 + tid] =
-          s;
-    }
+    fold_tile(ep, base, csum_s, M, N, z, rank, csize, tid, do_csum, out_bf16);
   }
   cluster_sync();          // no block leaves while another reads its tile
 }
 
 // ---------------------------------------------------------------------------
-// fp32 inputs: exact fp32 FMAs (no TF32).  64x64 output tile per block,
-// each of the 256 threads a 4x4 register tile, K step 16.
+// fp32 inputs: TMA ring, 8x8 FFMA register tiles, split K folded in a
+// cluster (see above).
 // ---------------------------------------------------------------------------
+constexpr int kFBK = 32;                           // K step, floats
+constexpr int kFStages = 2;
+constexpr uint32_t kFHalfBytes = kBM * kFBK * 4;   // one operand's tile, 16 KB
+constexpr uint32_t kFStageBytes = 2 * kFHalfBytes;
+// the ring, then the K-major operands' MN-major copies (A, then B)
+constexpr uint32_t kFCopyOffset = kFStages * kFStageBytes;
+constexpr uint32_t kFRegionBytes = kFCopyOffset + 2 * kFHalfBytes;   // 96 KB
+constexpr uint32_t kFBarOffset = kFRegionBytes + 2 * 8 * kBN * sizeof(float);
+constexpr int kFSmemBytes = 1024 + kFBarOffset + 16 * kFStages;
+static_assert(kStagingBytes <= kFRegionBytes, "staging must fit");
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// The MN-major copy dst [kFBK][128] of a K-major stage tile src (128 rows
+// of 32 K, 128 bytes, 16-byte chunk c of row r at c ^ (r % 8)): thread
+// tid reads 4 chunks of row tid % 128 (the 8 threads of a phase read 8
+// rows, which the swizzle puts in 8 bank groups) and writes 16 floats of
+// column tid % 128 (a warp writes 32 consecutive floats).
+__device__ __forceinline__ void copy_mn_major(const float* src, float* dst,
+                                              int tid) {
+  const int r = tid & 127, c0 = (tid >> 7) * 4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = c0 + q;
+    const float4 v = lds4(src + r * 32 + 4 * (c ^ (r & 7)));
+    float* d = dst + 4 * c * kBM + r;
+    d[0] = v.x;
+    d[kBM] = v.y;
+    d[2 * kBM] = v.z;
+    d[3 * kBM] = v.w;
+  }
+}
+
+// Grid (N tiles, M tiles, S slabs), one tile a block, clusters (1, 1,
+// cluster) along the slabs, slab z over K steps [z * ksteps / S,
+// (z + 1) * ksteps / S).  Thread 0 keeps the ring full: it refills a
+// stage once the 8 warps have released it.  Each thread (tx, ty) =
+// (tid % 16, tid / 16) accumulates an 8x8 tile: rows 4 ty + i % 4 +
+// 64 (i / 4), columns 4 tx + j % 4 + 64 (j / 4).  Stage layout: A then B,
+// 16 KB each, in storage orientation; K-major tiles are copied MN-major
+// first.
 template <bool TA, bool TB>
-__global__ void __launch_bounds__(kThreads)
-    mm_f32_simt(const float* __restrict__ A, const float* __restrict__ B,
-                Epilogue ep, int M, int N, int K, int kchunk, int out_bf16) {
-  constexpr int BM = 64, BN = 64, BK = 16;
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
+__global__ void __launch_bounds__(kThreads, 2)
+    mm_f32_tma(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b, Epilogue ep, int M,
+               int N, int ksteps, int out_bf16) {
+  constexpr bool AK = !TA, BK = TB;                // K-major operands
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;     // 128B swizzle: 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full = base + kFBarOffset;
+  const uint32_t empty = full + 8 * kFStages;
+  float* stage_c = reinterpret_cast<float*>(smem);
+  float* csum_s = stage_c + kBM * kLdc;            // [3][kBM]
+  float* stats = reinterpret_cast<float*>(smem + kFRegionBytes);
+  float* copy_a = reinterpret_cast<float*>(smem + kFCopyOffset);
+  float* copy_b = copy_a + kFBK * kBM;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_lo = blockIdx.z * kchunk;
-  const int k_hi = min(K, k_lo + kchunk);
-  const bool do_csum = ep.a_csum != nullptr && blockIdx.x == 0;
-  float csum = 0.f;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int S = gridDim.z, z = blockIdx.z;
+  const int k_lo = static_cast<int>(static_cast<long long>(z) * ksteps / S);
+  const int nk =
+      static_cast<int>(static_cast<long long>(z + 1) * ksteps / S) - k_lo;
+  uint32_t rank, csize;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(csize));
+  const bool do_csum = TA && ep.a_csum != nullptr && blockIdx.x == 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kFStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int i) {        // K step k_lo + i into stage i % kFStages
+    const uint32_t bar = full + 8 * (i % kFStages);
+    const uint32_t a = base + (i % kFStages) * kFStageBytes;
+    const int k0 = (k_lo + i) * kFBK;
+    mbar_expect_tx(bar, kFStageBytes);
+    if (TA) {
+      tma_load(a, &map_a, bar, m0, k0);            // [K, M]: 128(M) x 32(K)
+    } else {
+      tma_load(a, &map_a, bar, k0, m0);            // [M, K]: 32(K) x 128(M)
+    }
+    if (TB) {
+      tma_load(a + kFHalfBytes, &map_b, bar, k0, n0);
+    } else {
+      tma_load(a + kFHalfBytes, &map_b, bar, n0, k0);
+    }
+  };
+  if (tid == 0) {
+    prefetch_tensormap(&map_a);
+    prefetch_tensormap(&map_b);
+    for (int i = 0; i < kFStages && i < nk; ++i) issue(i);
   }
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    // consecutive threads walk the contiguous storage dimension
-    for (int e = tid; e < BM * BK; e += kThreads) {
-      const int mm = TA ? e % BM : e / BK;
-      const int kk = TA ? e / BM : e % BK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      float v = 0.f;
-      if (gm < M && gk < k_hi) {
-        v = TA ? A[(size_t)gk * M + gm] : A[(size_t)gm * K + gk];
-      }
-      As[kk][mm] = v;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  float cs = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kFStages;
+    mbar_wait(full + 8 * s, (i / kFStages) & 1);
+    const float* sa = reinterpret_cast<const float*>(smem + s * kFStageBytes);
+    const float* sb = sa + kBM * kFBK;
+    if (AK || BK) {
+      __syncwarp();
+      __syncthreads();             // the last step's products are done
+      if (AK) copy_mn_major(sa, copy_a, tid);
+      if (BK) copy_mn_major(sb, copy_b, tid);
+      __syncthreads();
     }
-    for (int e = tid; e < BN * BK; e += kThreads) {
-      const int nn = TB ? e / BK : e % BN;
-      const int kk = TB ? e % BK : e / BN;
-      const int gn = n0 + nn, gk = k0 + kk;
-      float v = 0.f;
-      if (gn < N && gk < k_hi) {
-        v = TB ? B[(size_t)gn * K + gk] : B[(size_t)gk * N + gn];
-      }
-      Bs[kk][nn] = v;
-    }
-    __syncthreads();
-    if (do_csum && tid < BM) {
+    const float* pa = AK ? copy_a : sa;              // [kFBK][128] each
+    const float* pb = BK ? copy_b : sb;
 #pragma unroll
-      for (int kk = 0; kk < BK; ++kk) csum += As[kk][tid];
-    }
+    for (int kk = 0; kk < kFBK; ++kk) {   // outer products, one K value each
+      const float4 alo = lds4(pa + kk * kBM + 4 * ty);
+      const float4 ahi = lds4(pa + kk * kBM + 64 + 4 * ty);
+      const float4 blo = lds4(pb + kk * kBN + 4 * tx);
+      const float4 bhi = lds4(pb + kk * kBN + 64 + 4 * tx);
+      const float a8[8] = {alo.x, alo.y, alo.z, alo.w,
+                           ahi.x, ahi.y, ahi.z, ahi.w};
+      const float b8[8] = {blo.x, blo.y, blo.z, blo.w,
+                           bhi.x, bhi.y, bhi.z, bhi.w};
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
+      for (int r = 0; r < 8; ++r) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(a8[r], b8[j], acc[r][j]);
       }
     }
-    __syncthreads();
+    if (do_csum) {                 // column tid % 128 of A, 16 of its K rows
+      const float* col = sa + (tid & 127);
+#pragma unroll 4
+      for (int k = (tid >> 7) * 16; k < (tid >> 7) * 16 + 16; ++k) {
+        cs += col[k * kBM];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    if (tid == 0 && i + kFStages < nk) {
+      mbar_wait(empty + 8 * s, (i / kFStages) & 1);
+      issue(i + kFStages);
+    }
   }
 
-  float* work = ep.work ? ep.work + (size_t)blockIdx.z * M * N : nullptr;
+  // ---- the fp32 tile over the ring, the epilogues, the fold ----
+  __syncthreads();                 // every warp is done with the ring
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
+  for (int r = 0; r < 8; ++r) {
+    float* dst = stage_c + ((r / 4) * 64 + 4 * ty + r % 4) * kLdc + 4 * tx;
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    *reinterpret_cast<float4*>(dst + 64) =
+        make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+  }
+  if (ep.col_sum != nullptr) {     // this warp's 16 rows, column by column
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx * 4 + j;
-      if (r < M && c < N) {
-        if (work) {
-          work[(size_t)r * N + c] = acc[i][j];
-        } else {
-          store_out(ep.out, (size_t)r * N + c, acc[i][j], out_bf16);
-        }
+    for (int j = 0; j < 8; ++j) {
+      float sum = 0.f, sq = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        sum += acc[r][j];
+        sq += acc[r][j] * acc[r][j];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 16);
+      if (lane < 16) {
+        const int col = (j / 4) * 64 + 4 * tx + j % 4;
+        stats[warp * kBN + col] = sum;
+        stats[(8 + warp) * kBN + col] = sq;
       }
     }
   }
-  if (ep.col_sum != nullptr) {         // uniform over the block
-    // per-thread sums over its 4 rows, then over the 16 row groups
-    // through shared memory (As and Bs are free after the K loop)
-    float* red_s = &As[0][0];          // [16][64] within As's 16*68
-    float* red_q = &Bs[0][0];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float s = 0.f, q = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (m0 + ty * 4 + i < M) {
-          s += acc[i][j];
-          q += acc[i][j] * acc[i][j];
-        }
-      }
-      red_s[ty * BN + tx * 4 + j] = s;
-      red_q[ty * BN + tx * 4 + j] = q;
-    }
-    __syncthreads();
-    if (tid < BN && n0 + tid < N) {
-      float s = 0.f, q = 0.f;
-      for (int t = 0; t < kThreads / 16; ++t) {
-        s += red_s[t * BN + tid];
-        q += red_q[t * BN + tid];
-      }
-      const size_t o = (size_t)blockIdx.y * N + n0 + tid;
-      ep.col_sum[o] = s;
-      ep.col_sq[o] = q;
-    }
+  if (do_csum) csum_s[(tid >> 7) * kBM + (tid & 127)] = cs;
+  __syncthreads();
+  if (ep.col_sum != nullptr && tid < kBN && n0 + tid < N) {
+    stats_out(ep, stats, blockIdx.y, N, n0 + tid, tid);
   }
-  if (do_csum && tid < BM && m0 + tid < M) {
-    ep.a_csum[(size_t)blockIdx.z * M + m0 + tid] = csum;
+  if (do_csum && tid < kBM) {
+    csum_s[2 * kBM + tid] = csum_s[tid] + csum_s[kBM + tid];
   }
+  cluster_sync();
+  fold_tile(ep, base, csum_s, M, N, z, rank, csize, tid, do_csum, out_bf16);
+  cluster_sync();          // no block leaves while another reads its tile
 }
 
 // Second pass of the split-K product: out[i] = sum over z of work[z, i]
@@ -676,30 +807,16 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-template <bool TA, bool TB>
-cudaError_t launch_tma(const void* a, const void* b, const Epilogue& ep,
-                       int M, int N, int K, int splits, int cluster,
-                       int persistent_ctas, int out_bf16,
-                       cudaStream_t stream) {
-  CUtensorMap map_a, map_b;
-  // A: [K, M] storage in 64(M) x 64(K) boxes, or [M, K] in 64(K) x 128(M)
-  // B: [N, K] storage in 64(K) x 128(N) boxes, or [K, N] in 64(N) x 64(K)
-  const bool ok =
-      (TA ? tensor_map(&map_a, a, M, K, 64, 64)
-          : tensor_map(&map_a, a, K, M, kBK, kBM)) &&
-      (TB ? tensor_map(&map_b, b, K, N, kBK, kBN)
-          : tensor_map(&map_b, b, N, K, 64, 64));
-  if (!ok) return cudaErrorInvalidValue;
-  auto kernel = mm_bf16_tma<TA, TB>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return attr;
+// Launch one product of either kernel: grid `grid`, `threads` a block,
+// `smem` bytes of dynamic shared memory, clusters of `cluster` blocks
+// along z.
+template <typename Kernel, typename... Args>
+cudaError_t launch_ex(Kernel kernel, dim3 grid, int threads, int smem,
+                      int cluster, cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = persistent_ctas > 0
-                    ? dim3(persistent_ctas)
-                    : dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  cfg.blockDim = dim3(kTmaThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute la[1];
   la[0].id = cudaLaunchAttributeClusterDimension;
@@ -708,96 +825,131 @@ cudaError_t launch_tma(const void* a, const void* b, const Epilogue& ep,
   la[0].val.clusterDim.z = cluster;
   cfg.attrs = la;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, map_a, map_b, ep, M, N, (K + kBK - 1) / kBK, out_bf16,
-      persistent_ctas > 0 ? 1 : 0);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <bool TA, bool TB>
+cudaError_t launch_bf16(const void* a, const void* b, const Epilogue& ep,
+                        int M, int N, int K, int splits, int cluster,
+                        int persistent_ctas, int out_bf16,
+                        cudaStream_t stream) {
+  constexpr auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap map_a, map_b;
+  // A: [K, M] storage in 64(M) x 64(K) boxes, or [M, K] in 64(K) x 128(M)
+  // B: [N, K] storage in 64(K) x 128(N) boxes, or [K, N] in 64(N) x 64(K)
+  const bool ok =
+      (TA ? tensor_map(&map_a, a, M, K, 64, 64, bf16)
+          : tensor_map(&map_a, a, K, M, kBK, kBM, bf16)) &&
+      (TB ? tensor_map(&map_b, b, K, N, kBK, kBN, bf16)
+          : tensor_map(&map_b, b, N, K, 64, 64, bf16));
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = mm_bf16_tma<TA, TB>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid =
+      persistent_ctas > 0
+          ? dim3(persistent_ctas)
+          : dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  return launch_ex(kernel, grid, kTmaThreads, kSmemBytes, cluster, stream,
+                   map_a, map_b, ep, M, N, (K + kBK - 1) / kBK, out_bf16,
+                   persistent_ctas > 0 ? 1 : 0);
+}
+
+template <bool TA, bool TB>
+cudaError_t launch_f32(const void* a, const void* b, const Epilogue& ep,
+                       int M, int N, int K, int splits, int cluster,
+                       int out_bf16, cudaStream_t stream) {
+  constexpr auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr auto plain = CU_TENSOR_MAP_SWIZZLE_NONE;
+  CUtensorMap map_a, map_b;
+  // K-major ([M, K] A, [N, K] B): 32(K) x 128 boxes, 128-byte swizzle;
+  // MN-major ([K, M] A, [K, N] B): 128 x 32(K) boxes of 512-byte rows
+  const bool ok =
+      (TA ? tensor_map(&map_a, a, M, K, kBM, kFBK, f32, plain)
+          : tensor_map(&map_a, a, K, M, kFBK, kBM, f32)) &&
+      (TB ? tensor_map(&map_b, b, K, N, kFBK, kBN, f32)
+          : tensor_map(&map_b, b, N, K, kBN, kFBK, f32, plain));
+  if (!ok) return cudaErrorInvalidValue;
+  auto kernel = mm_f32_tma<TA, TB>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  return launch_ex(kernel,
+                   dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits),
+                   kThreads, kFSmemBytes, cluster, stream, map_a, map_b, ep,
+                   M, N, (K + kFBK - 1) / kFBK, out_bf16);
+}
+
+template <bool TA, bool TB>
 cudaError_t launch(const void* a, const void* b, const Epilogue& ep, int M,
-                   int N, int K, int splits, int kchunk, int cluster,
-                   int persistent_ctas, int in_bf16, int out_bf16,
-                   cudaStream_t stream) {
+                   int N, int K, int splits, int cluster, int persistent_ctas,
+                   int in_bf16, int out_bf16, cudaStream_t stream) {
   if (in_bf16) {
-    return launch_tma<TA, TB>(a, b, ep, M, N, K, splits, cluster,
-                              persistent_ctas, out_bf16, stream);
+    return launch_bf16<TA, TB>(a, b, ep, M, N, K, splits, cluster,
+                               persistent_ctas, out_bf16, stream);
   }
-  const dim3 grid((N + 63) / 64, (M + 63) / 64, splits);
-  mm_f32_simt<TA, TB><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), ep, M, N,
-      K, kchunk, out_bf16);
-  return cudaGetLastError();
+  return launch_f32<TA, TB>(a, b, ep, M, N, K, splits, cluster, out_bf16,
+                            stream);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.
 //
-// fp32 operands: `splits` slabs of `kchunk` along K (gridDim.z); with
-// splits > 1 the product writes fp32 partials to `work` [splits, M, N]
-// (and a_colsum partials to `a_csum` [splits, M]) and the caller runs
-// conv1x1_mm_splitk_reduce.  `cluster` must be 1 and `persistent_ctas`
-// 0.
-//
-// bf16 operands: `persistent_ctas` > 0 launches that many blocks of the
-// persistent schedule (one slab, bf16 output, no a_colsum).  Otherwise
-// one tile a block: `splits` slabs of whole 64-steps along K, in
-// clusters of `cluster` (1..8, dividing splits) blocks.  With splits ==
-// cluster the kernel writes `out` and `a_csum` [M]; with splits >
-// cluster it writes fp32 partials to `work` [splits / cluster, M, N]
+// One tile a block: `splits` slabs of whole K steps (64 bf16, 32 fp32)
+// along K, in clusters of `cluster` (1..8, dividing splits) blocks.  With
+// splits == cluster the kernel writes `out` and `a_csum` [M]; with splits
+// > cluster it writes fp32 partials to `work` [splits / cluster, M, N]
 // (and `a_csum` [splits / cluster, M]) for conv1x1_mm_splitk_reduce.
+// bf16 operands only: `persistent_ctas` > 0 launches that many blocks of
+// the persistent schedule (one slab, bf16 output, no a_colsum).
 // Every operand's row (the contiguous dimension of its storage) is a
-// multiple of 8 elements and its base is 16-byte aligned; `kchunk` is
-// unused.
+// multiple of 16 bytes (8 bf16, 4 fp32 elements) and its base is 16-byte
+// aligned.
 //
-// `col_sum`/`col_sq` ([ceil(M / tile), N] fp32, tile 128 for bf16 and 64
-// for fp32) need one slab; they and `a_csum` may be null (epilogue off).
-// Launches on `stream` and does not synchronise; returns the launch's
-// error or cudaGetLastError() (0 = launched).
+// `col_sum`/`col_sq` ([ceil(M / 128), N] fp32) need one slab; they and
+// `a_csum` may be null (epilogue off).  Launches on `stream` and does not
+// synchronise; returns the launch's error or cudaGetLastError() (0 =
+// launched).
 extern "C" int conv1x1_mm(const void* a, const void* b, void* out, int M,
                           int N, int K, int ta, int tb, int in_dtype,
-                          int out_dtype, int splits, int kchunk, int cluster,
+                          int out_dtype, int splits, int cluster,
                           int persistent_ctas, void* work, void* col_sum,
                           void* col_sq, void* a_csum, void* stream) {
   const int in_bf16 = in_dtype == 1, out_bf16 = out_dtype == 1;
-  const int parts = in_bf16 ? splits / (cluster > 0 ? cluster : 1) : splits;
+  const int row = in_bf16 ? 8 : 4;   // elements in 16 bytes
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+  const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
   if ((in_dtype != 0 && in_dtype != 1) || (out_dtype != 0 && out_dtype != 1) ||
-      splits < 1 || splits > 65535 || kchunk < 1 || persistent_ctas < 0 ||
+      splits < 1 || splits > 65535 || persistent_ctas < 0 ||
       (col_sum != nullptr && splits > 1) ||
-      (col_sum == nullptr) != (col_sq == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (in_bf16) {
-    const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
-    const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
-    if (cluster < 1 || cluster > 8 || splits % cluster != 0 ||
-        (parts > 1 && work == nullptr) || pa % 16 != 0 || pb % 16 != 0 ||
-        (ta ? M : K) % 8 != 0 || (tb ? K : N) % 8 != 0 ||
-        (persistent_ctas > 0 &&
-         (splits != 1 || !out_bf16 || a_csum != nullptr))) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else if (cluster != 1 || persistent_ctas != 0 ||
-             (splits > 1 && work == nullptr)) {
+      (col_sum == nullptr) != (col_sq == nullptr) || cluster < 1 ||
+      cluster > 8 || splits % cluster != 0 ||
+      (splits > cluster && work == nullptr) || pa % 16 != 0 || pb % 16 != 0 ||
+      (ta ? M : K) % row != 0 || (tb ? K : N) % row != 0 ||
+      (persistent_ctas > 0 &&
+       (!in_bf16 || splits != 1 || !out_bf16 || a_csum != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Epilogue ep{out, parts > 1 ? static_cast<float*>(work) : nullptr,
+  const Epilogue ep{out,
+                    splits > cluster ? static_cast<float*>(work) : nullptr,
                     static_cast<float*>(col_sum), static_cast<float*>(col_sq),
                     static_cast<float*>(a_csum)};
   cudaError_t e;
   if (!ta && !tb) {
-    e = launch<false, false>(a, b, ep, M, N, K, splits, kchunk, cluster,
+    e = launch<false, false>(a, b, ep, M, N, K, splits, cluster,
                              persistent_ctas, in_bf16, out_bf16, s);
   } else if (!ta && tb) {
-    e = launch<false, true>(a, b, ep, M, N, K, splits, kchunk, cluster,
+    e = launch<false, true>(a, b, ep, M, N, K, splits, cluster,
                             persistent_ctas, in_bf16, out_bf16, s);
   } else if (ta && !tb) {
-    e = launch<true, false>(a, b, ep, M, N, K, splits, kchunk, cluster,
+    e = launch<true, false>(a, b, ep, M, N, K, splits, cluster,
                             persistent_ctas, in_bf16, out_bf16, s);
   } else {
-    e = launch<true, true>(a, b, ep, M, N, K, splits, kchunk, cluster,
+    e = launch<true, true>(a, b, ep, M, N, K, splits, cluster,
                            persistent_ctas, in_bf16, out_bf16, s);
   }
   return static_cast<int>(e);

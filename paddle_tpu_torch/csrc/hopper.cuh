@@ -234,20 +234,23 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major bf16 [outer, inner] operand read in boxes of
-// [box_outer, box_inner] with the 128-byte swizzle; zero fill outside.
+// Tensor map of a row-major [outer, inner] operand of element type `type`
+// (bf16 or fp32) read in boxes of [box_outer, box_inner] with the given
+// swizzle; zero fill outside.
 inline bool tensor_map(CUtensorMap* map, const void* ptr, uint64_t inner,
-                       uint64_t outer, uint32_t box_inner,
-                       uint32_t box_outer) {
+                       uint64_t outer, uint32_t box_inner, uint32_t box_outer,
+                       CUtensorMapDataType type,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  const uint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   cuuint64_t dims[2] = {inner, outer};
-  cuuint64_t strides[1] = {inner * sizeof(__nv_bfloat16)};
+  cuuint64_t strides[1] = {inner * size};
   cuuint32_t box[2] = {box_inner, box_outer};
   cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -12,15 +12,16 @@ blocked product with transpose options::
 :func:`mm` is the wrapper of ``csrc/conv1x1_mm.cu`` (the Hopper port of
 the Pallas ``_mm_kernel``, ``pallas_conv.py:69``, with its ``out_stats``
 and ``a_colsum`` epilogues).  bf16 operands run ``mm_bf16_tma`` (a TMA
-ring, ``wgmma``) by the launch :func:`plan` makes: the tile, the ring's
-stages, the persistent schedule of one-slab launches, each operand's
-major-ness and TMA box, and the split of K into slabs of whole 64-steps
-folded in a thread-block cluster: for the wgrad form, whose K = P runs to
-401408 at ResNet-50's shapes while its output is a handful of tiles, and
-for the other forms where their tiles would leave SMs idle.  Where the
-wgrad's slabs outnumber the cluster, a second kernel
-(:func:`splitk_reduce`) sums the clusters' fp32 partials.  fp32
-operands run the exact ``mm_f32_simt`` kernel, split by :func:`split_k`.
+ring, ``wgmma``), fp32 operands the exact ``mm_f32_tma`` (a TMA ring
+feeding 8x8 fp32 FFMA register tiles, no TF32), both by the launch
+:func:`plan` makes: the tile, the ring's stages, the persistent schedule
+of bf16 one-slab launches, each operand's major-ness and TMA box, and the
+split of K into slabs of whole K steps folded in a thread-block cluster:
+for the wgrad form, whose K = P runs to 401408 at ResNet-50's shapes
+while its output is a handful of tiles, and for the other forms where
+their tiles would leave SMs idle.  Where the wgrad's slabs outnumber the
+cluster, a second kernel (:func:`splitk_reduce`) sums the clusters' fp32
+partials.
 On CUDA tensors :func:`mm` launches the kernels or raises; on CPU
 tensors it computes the plain PyTorch version, :func:`mm_reference`.
 ``mm.by_form`` counts every kernel launch by form (``forward``,
@@ -50,8 +51,7 @@ import torch
 
 from . import cuda_build
 
-__all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "split_k",
-           "splitk_reduce",
+__all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "splitk_reduce",
            "splitk_reduce_reference", "conv2d_1x1",
            "conv2d_1x1_reference", "conv2d_1x1_with_bn_stats",
            "conv2d_1x1_grad_fused", "conv1x1_eligible", "launches",
@@ -61,7 +61,7 @@ __all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "split_k",
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "conv1x1_mm.cu")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = {torch.bfloat16: 128, torch.float32: 64}   # the kernels' M/N tile
+_TILE = 128                    # both kernels' M/N tile
 _MAX_GRID_Y = 65535            # the kernel puts M tiles on gridDim.y
 _FORMS = {(False, True): "forward", (False, False): "dgrad",
           (True, False): "wgrad", (True, True): "ta_tb"}
@@ -94,14 +94,22 @@ _CLUSTER_MAX = 8
 _MIN_SLAB_STEPS = 8
 _BLOCKS_AN_SM = 2
 
-# Split-K rule of the fp32 kernel (the wgrad form only): aim for
-# _BLOCKS_PER_SM blocks per SM, i.e. S = ceil(2 * SMs / tiles) slabs,
-# but give every slab at least _MIN_SLAB_K of K so the partials' extra
-# traffic stays small against the operands'; slabs are whole multiples
-# of the kernel's K step (32).
-_BLOCKS_PER_SM = 2
-_MIN_SLAB_K = 512
-_K_STEP = 32
+# The fp32 kernel's launch (see :func:`plan`): 128x128 tiles, K steps of
+# 32 through a ring of _F32_STAGES stages of 32 KB, up to two blocks an
+# SM, one tile a block, slabs folded in clusters of at most
+# _F32_CLUSTER_MAX (larger clusters ran slower).  The split S is chosen
+# by whole rounds of blocks over the SMs: of the slab counts that the
+# cluster allows (S <= _F32_CLUSTER_MAX, or a multiple of it, leaving
+# S / cluster partials), every slab _MIN_SLAB_STEPS steps or more, those
+# whose time ceil(tiles x S / SMs) / S (in units of one full-K tile)
+# comes within _WAVE_SLACK of the least; of these the most slabs that
+# still fit _BLOCKS_AN_SM blocks an SM (two blocks an SM ran faster than
+# one), else the fewest.  Only the wgrad form takes S above the cluster;
+# the other forms (no out_stats) split within one cluster.
+_F32_BK = 32
+_F32_STAGES = 2
+_F32_CLUSTER_MAX = 2
+_WAVE_SLACK = 1.0625
 
 _sm_counts = {}
 _lib = None
@@ -123,8 +131,8 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         _lib = cuda_build.load(SOURCE, {
             "conv1x1_mm": ([ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                            i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
-                            ptr], i32),
+                            i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr],
+                           i32),
             "conv1x1_mm_splitk_reduce": ([ptr, i32, ctypes.c_longlong, ptr,
                                           i32, ptr, ptr, i32, ptr], i32),
             "conv1x1_mm_error_string": ([i32], ctypes.c_char_p),
@@ -148,28 +156,15 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_k(M: int, N: int, K: int, dtype, sms: int):
-    """(splits, kchunk) of the fp32 kernel's wgrad form: ``splits`` slabs
-    of ``kchunk`` (a multiple of 32) along K, by the rule stated at
-    ``_BLOCKS_PER_SM``; every slab holds at least one K value."""
-    tile = _TILE[dtype]
-    tiles = _cdiv(M, tile) * _cdiv(N, tile)
-    splits = max(1, min(_cdiv(_BLOCKS_PER_SM * sms, tiles),
-                        K // _MIN_SLAB_K))
-    kchunk = max(_K_STEP, _cdiv(_cdiv(K, splits), _K_STEP) * _K_STEP)
-    return max(1, _cdiv(K, kchunk)), kchunk
-
-
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """The bf16 kernel's launch for one product (see :func:`plan`).
+    """The kernel's launch for one product (see :func:`plan`).
 
     ``tile`` (BM, BN, BK); ``stages`` of the TMA ring; ``ctas`` blocks of
-    the persistent schedule, which walk the tiles (0: one tile a block);
-    ``splits`` slabs of whole BK steps along K (:meth:`slabs`), the
-    longest ``kchunk`` values long; ``cluster`` blocks fold their slabs'
-    fp32 tiles in
-    distributed shared memory; ``partials`` fp32 [M, N] partials the
+    the bf16 persistent schedule, which walk the tiles (0: one tile a
+    block); ``splits`` slabs of whole BK steps along K (:meth:`slabs`),
+    the longest ``kchunk`` values long; ``cluster`` blocks fold their
+    slabs' fp32 tiles in distributed shared memory; ``partials`` fp32 [M, N] partials the
     clusters write for :func:`splitk_reduce` (0: the kernel writes the
     output); ``a_major``/``b_major`` the contiguous dimension of each
     operand's storage ("K", "M" or "N"), ``a_box``/``b_box`` its TMA box
@@ -217,29 +212,60 @@ class Plan:
         return 2 * 4 * self.partials * self.M * self.N
 
 
+def _f32_rounds(tiles: int, splits: int, sms: int) -> float:
+    """The fp32 launch's time in units of one full-K tile: whole rounds of
+    one block an SM, each 1 / ``splits`` of K."""
+    return _cdiv(tiles * splits, sms) / splits
+
+
+def _f32_splits(tiles: int, ksteps: int, sms: int, deep: bool) -> int:
+    """Slabs S of the fp32 kernel (the rule stated at ``_F32_BK``);
+    ``deep`` is the wgrad form."""
+    top = max(1, ksteps // _MIN_SLAB_STEPS)
+    if not deep:
+        top = min(top, _F32_CLUSTER_MAX)
+    cands = [s for s in range(1, top + 1)
+             if s <= _F32_CLUSTER_MAX or s % _F32_CLUSTER_MAX == 0]
+    least = min(_f32_rounds(tiles, s, sms) for s in cands)
+    near = [s for s in cands
+            if _f32_rounds(tiles, s, sms) <= _WAVE_SLACK * least]
+    fit = [s for s in near if tiles * s <= _BLOCKS_AN_SM * sms]
+    return max(fit) if fit else min(near)
+
+
 @functools.lru_cache(maxsize=4096)
 def plan(M: int, N: int, K: int, ta: bool, tb: bool, dtype=torch.bfloat16,
          sms: int = 132, out_stats: bool = False, a_colsum: bool = False,
          out_dtype=torch.bfloat16) -> Plan:
-    """The bf16 kernel's :class:`Plan` for O[M,N] = op(A) @ op(B) with the
-    given epilogues and output dtype (bf16 only; the fp32 kernel keeps
-    :func:`split_k`), by the rules stated at ``_BK``.  Raises ValueError
-    where TMA cannot read an operand: its storage row (A: M if ``ta``
-    else K; B: K if ``tb`` else N) must be a multiple of 8 elements (16
-    bytes).  Pure and cached: :func:`mm` asks for it on every call."""
-    if dtype != torch.bfloat16:
-        raise ValueError(f"plan: the TMA kernel takes bf16, got {dtype}")
+    """The :class:`Plan` for O[M,N] = op(A) @ op(B) with the given
+    epilogues and output dtype, for bf16 operands by the rules stated at
+    ``_BK`` and for fp32 ones by those at ``_F32_BK``.  Raises ValueError
+    for another dtype and where TMA cannot read an operand: its storage
+    row (A: M if ``ta`` else K; B: K if ``tb`` else N) must be 16 bytes,
+    a multiple of 8 bf16 or 4 fp32 elements.  Pure and cached: :func:`mm`
+    asks for it on every call."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"plan: the kernels take bf16 or fp32, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    name, multiple = ("bf16", 8) if bf16 else ("fp32", 4)
     rows = {"A": M if ta else K, "B": K if tb else N}
-    for name, row in rows.items():
-        if row % 8:
+    for op, row in rows.items():
+        if row % multiple:
             raise ValueError(
-                f"mm: bf16 operand {name}'s contiguous row of {row} elements "
-                f"is not a multiple of 8 (TMA needs 16-byte row strides)")
-    bm, bn = _TILE[dtype], _TILE[dtype]
+                f"mm: {name} operand {op}'s contiguous row of {row} elements "
+                f"is not a multiple of {multiple} (TMA needs 16-byte row "
+                f"strides)")
+    bm = bn = _TILE
+    bk = _BK if bf16 else _F32_BK
     tiles = _cdiv(M, bm) * _cdiv(N, bn)
-    ksteps = _cdiv(K, _BK)
+    ksteps = _cdiv(K, bk)
+    deep = ta and not tb
     splits = 1
-    if ta and not tb and not out_stats:
+    if out_stats:            # one partial row per M tile: no split
+        pass
+    elif not bf16:
+        splits = _f32_splits(tiles, ksteps, sms, deep)
+    elif deep:
         want = _cdiv(sms, tiles)
         if want > _CLUSTER_MAX and 8 * tiles * _CLUSTER_MAX < 7 * sms:
             want = _cdiv(want, _CLUSTER_MAX) * _CLUSTER_MAX
@@ -248,21 +274,28 @@ def plan(M: int, N: int, K: int, ta: bool, tb: bool, dtype=torch.bfloat16,
         splits = max(1, min(want, ksteps // _MIN_SLAB_STEPS))
         if splits > _CLUSTER_MAX:
             splits -= splits % _CLUSTER_MAX
-    elif not out_stats and tiles < sms:
+    elif tiles < sms:
         splits = max(1, min(_cdiv(sms, tiles), _CLUSTER_MAX,
                             ksteps // _MIN_SLAB_STEPS))
-    cluster = min(splits, _CLUSTER_MAX)
-    persistent = splits == 1 and not a_colsum and out_dtype == torch.bfloat16
+    cluster = min(splits, _CLUSTER_MAX if bf16 else _F32_CLUSTER_MAX)
+    persistent = bf16 and splits == 1 and not a_colsum and \
+        out_dtype == torch.bfloat16
+    if bf16:
+        stages = _STAGES_PERSISTENT if persistent else _STAGES_ONE_TILE
+        a_box = (64, 64) if ta else (bk, bm)
+        b_box = (bk, bn) if tb else (64, 64)
+    else:   # K-major: 32 K x 128 rows; MN-major: 128 x 32 K
+        stages = _F32_STAGES
+        a_box = (bm, bk) if ta else (bk, bm)
+        b_box = (bk, bn) if tb else (bn, bk)
     return Plan(
-        M=M, N=N, K=K, tile=(bm, bn, _BK),
-        stages=_STAGES_PERSISTENT if persistent else _STAGES_ONE_TILE,
+        M=M, N=N, K=K, tile=(bm, bn, bk), stages=stages,
         ctas=min(tiles, _BLOCKS_AN_SM * sms) if persistent else 0,
         splits=splits,
-        kchunk=max(1, _cdiv(ksteps, splits)) * _BK, cluster=cluster,
+        kchunk=max(1, _cdiv(ksteps, splits)) * bk, cluster=cluster,
         partials=splits // cluster if splits > cluster else 0,
         a_major="M" if ta else "K", b_major="K" if tb else "N",
-        a_box=(64, 64) if ta else (_BK, bm),
-        b_box=(_BK, bn) if tb else (64, 64))
+        a_box=a_box, b_box=b_box)
 
 
 def _sm_count(device) -> int:
@@ -343,31 +376,21 @@ def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
                         f"{out_dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("mm: kernel takes contiguous operands")
-    tile = _TILE[a.dtype]
-    if -(-M // tile) > _MAX_GRID_Y or max(M, N, K) >= 2 ** 31:
+    if -(-M // _TILE) > _MAX_GRID_Y or max(M, N, K) >= 2 ** 31:
         raise ValueError(f"mm: shape M={M} N={N} K={K} exceeds the "
                          f"kernel's grid")
-    if a.dtype == torch.bfloat16:
-        p = plan(M, N, K, bool(ta), bool(tb), a.dtype, _sm_count(dev),
-                 bool(out_stats), bool(a_colsum), out_dtype)
-        if a.data_ptr() % 16 or b.data_ptr() % 16:
-            raise ValueError("mm: bf16 operands must start on a 16-byte "
-                             "boundary (TMA)")
-        splits, kchunk, cluster, ctas = p.splits, p.kchunk, p.cluster, \
-            p.ctas
-        parts = p.partials
-    else:
-        cluster, ctas = 1, 0
-        splits, kchunk = 1, max(K, 1)
-        if ta and not tb and not out_stats:
-            splits, kchunk = split_k(M, N, K, a.dtype, _sm_count(dev))
-        parts = splits if splits > 1 else 0
+    p = plan(M, N, K, bool(ta), bool(tb), a.dtype, _sm_count(dev),
+             bool(out_stats), bool(a_colsum), out_dtype)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("mm: operands must start on a 16-byte boundary "
+                         "(TMA)")
+    splits, cluster, ctas, parts = p.splits, p.cluster, p.ctas, p.partials
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     work = torch.empty((parts, M, N), **f32) if parts else None
     col_sum = col_sq = csum = None
     if out_stats:              # [sum, sum of squares] partials per M tile
-        stats = torch.empty((2, -(-M // tile), N), **f32)
+        stats = torch.empty((2, -(-M // _TILE), N), **f32)
         col_sum, col_sq = stats[0], stats[1]
     if a_colsum:
         csum = torch.empty((max(parts, 1), M), **f32)
@@ -383,7 +406,7 @@ def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
         return lib.conv1x1_mm(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, int(ta),
             int(tb), _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], splits,
-            kchunk, cluster, ctas, ptr(work), ptr(col_sum), ptr(col_sq),
+            cluster, ctas, ptr(work), ptr(col_sum), ptr(col_sq),
             ptr(csum), torch.cuda.current_stream(dev).cuda_stream)
     rc = _on_device(dev, launch)
     _check_rc(lib, rc, lambda: f"M={M} N={N} K={K} ta={ta} tb={tb} "

@@ -198,23 +198,45 @@ RESNET50_WGRADS = [  # (P, C, M) of the 29 1x1 convs on the kernel, batch 128
     (6272, 2048, 512), (6272, 512, 2048)]
 
 
+def _rounds(p, sms, deep=True):
+    """The fp32 plan's launch in whole rounds of one block an SM: (time in
+    units of one full-K tile, the least such time over the slab counts
+    the rule allows: at most 2, or a multiple of 2 for the wgrad form,
+    {S: time} of those within 1/16 of the least)."""
+    top = max(1, p.ksteps // conv1x1._MIN_SLAB_STEPS)
+    if not deep:
+        top = min(top, 2)
+    cands = [s for s in range(1, top + 1) if s <= 2 or s % 2 == 0]
+    t = {s: -(-p.tiles * s // sms) / s for s in cands}
+    least = min(t.values())
+    near = {s: v for s, v in t.items() if v <= 1.0625 * least}
+    return t[p.splits], least, near
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("M,N,K", WGRAD_SHAPES)
 def test_split_k_rule(M, N, K, dtype):
-    """The wgrad form's split at 132 SMs.  bf16 (:func:`plan`): slabs of
-    whole 64-steps, at least 8 steps each where there are several, and
+    """The wgrad form's split at 132 SMs, by :func:`plan`.  bf16: slabs
+    of whole 64-steps, at least 8 steps each where there are several, and
     tiles x slabs fills about one block per SM unless K runs out or the
-    cluster caps it.  fp32 (:func:`split_k`): slabs cover K once in whole
-    32-steps, about two blocks per SM."""
+    cluster caps it.  fp32: slabs cover K once in whole 32-steps, at least
+    8 each where there are several, tiles x slabs fill whole rounds of
+    blocks over the SMs (within 1/16 of the best the slab counts allow,
+    with as many slabs as still fit two blocks an SM), clusters of at
+    most 2, and partials exist only where the slabs outnumber the
+    cluster."""
     dt = getattr(torch, dtype)
     sms = 132
+    p = conv1x1.plan(M, N, K, True, False, dt, sms)
+    tiles = p.grid[0] * p.grid[1]
+    bk = p.tile[2]
+    steps = [-(-(hi - lo) // bk) for lo, hi in p.slabs()]
+    assert p.kchunk % bk == 0 and max(steps) * bk <= p.kchunk
+    if p.splits > 1:
+        assert min(steps) >= conv1x1._MIN_SLAB_STEPS
     if dt == torch.bfloat16:
-        p = conv1x1.plan(M, N, K, True, False, dt, sms)
-        tiles = p.grid[0] * p.grid[1]
-        steps = [-(-(hi - lo) // 64) for lo, hi in p.slabs()]
-        assert p.kchunk % 64 == 0 and max(steps) * 64 <= p.kchunk
+        assert bk == 64
         if p.splits > 1:
-            assert min(steps) >= conv1x1._MIN_SLAB_STEPS
             assert tiles * (p.splits - p.cluster) < sms
         if tiles * 8 >= sms * 7 / 8 or K < 16 * 64:
             assert p.partials == 0
@@ -223,63 +245,78 @@ def test_split_k_rule(M, N, K, dtype):
         if tiles >= sms:
             assert p.splits == 1
         return
-    S, kc = conv1x1.split_k(M, N, K, dt, sms)
-    assert kc % 32 == 0 and S >= 1
-    assert (S - 1) * kc < K <= S * kc
-    tiles = -(-M // 64) * -(-N // 64)
-    if S > 1:
-        assert kc >= conv1x1._MIN_SLAB_K - 32
-        assert tiles * (S - 1) < 2 * sms
-    if tiles < 2 * sms and K >= 2 * conv1x1._MIN_SLAB_K:
-        assert S > 1
-    if tiles >= 2 * sms:
-        assert S == 1
+    assert bk == 32 and p.tile == (128, 128, 32) and p.ctas == 0
+    assert sum(hi - lo for lo, hi in p.slabs()) == K
+    mine, least, near = _rounds(p, sms)
+    assert mine <= conv1x1._WAVE_SLACK * least and p.splits in near
+    fit = [s for s in near if tiles * s <= 2 * sms]
+    assert p.splits == (max(fit) if fit else min(near))
+    assert p.cluster == min(p.splits, 2)
+    assert (p.partials > 0) == (p.splits > p.cluster)
+    if sms >= tiles * 4 and K >= 4 * 32 * 8:
+        assert p.partials > 0          # one cluster of 2 would idle the card
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("M,N,K", WGRAD_SHAPES)
-def test_plan_slabs_cover_k_once_in_whole_steps(M, N, K):
-    """The bf16 wgrad's slabs: contiguous, in order, each starting on a
-    64-step, covering [0, K) exactly once; none empty."""
-    p = conv1x1.plan(M, N, K, True, False)
+def test_plan_slabs_cover_k_once_in_whole_steps(M, N, K, dtype):
+    """The wgrad's slabs: contiguous, in order, each starting on a K step
+    (64 bf16, 32 fp32), covering [0, K) exactly once; none empty."""
+    p = conv1x1.plan(M, N, K, True, False, getattr(torch, dtype))
+    bk = p.tile[2]
     slabs = p.slabs()
     assert len(slabs) == p.splits
     assert slabs[0][0] == 0 and slabs[-1][1] == K
     for (lo, hi), (lo2, _) in zip(slabs, slabs[1:]):
         assert hi == lo2
     for lo, hi in slabs:
-        assert lo % 64 == 0 and hi > lo
-        assert hi % 64 == 0 or hi == K
+        assert lo % bk == 0 and hi > lo
+        assert hi % bk == 0 or hi == K
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("sms", [132, 114, 16])
 @pytest.mark.parametrize("M,N,K", WGRAD_SHAPES)
-def test_plan_cluster_divides_splits(M, N, K, sms):
-    """The cluster is 1 to 8 blocks and divides the slabs; partials are
-    written only where the slabs outnumber the cluster, one per cluster."""
-    p = conv1x1.plan(M, N, K, True, False, torch.bfloat16, sms)
-    assert 1 <= p.cluster <= 8 and p.splits % p.cluster == 0
+def test_plan_cluster_divides_splits(M, N, K, sms, dtype):
+    """The cluster is 1 to 8 blocks (bf16) or 1 to 2 (fp32) and divides
+    the slabs; partials are written only where the slabs outnumber the
+    cluster, one per cluster."""
+    p = conv1x1.plan(M, N, K, True, False, getattr(torch, dtype), sms)
+    top = 8 if dtype == "bfloat16" else 2
+    assert 1 <= p.cluster <= top and p.splits % p.cluster == 0
     if p.splits > p.cluster:
-        assert p.cluster == 8 and p.partials == p.splits // 8
+        assert p.cluster == top and p.partials == p.splits // top
     else:
         assert p.partials == 0 and p.cluster == p.splits
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("ta,tb,a_major,b_major", [
     (False, True, "K", "K"),     # forward: x [P, C], w [M, C]
     (False, False, "K", "N"),    # dgrad: gout [P, M], w [M, C]
     (True, False, "M", "N"),     # wgrad: gout [P, M], x [P, C]
     (True, True, "M", "K")])
-def test_plan_majorness_per_form(ta, tb, a_major, b_major):
-    """Each operand is read in its storage orientation: K-major operands
-    in boxes of 64 K x 128 rows, MN-major ones in boxes of 64 x 64."""
-    p = conv1x1.plan(512, 256, 1024, ta, tb)
+def test_plan_majorness_per_form(ta, tb, a_major, b_major, dtype):
+    """Each operand is read in its storage orientation.  bf16: K-major
+    operands in boxes of 64 K x 128 rows, MN-major ones in boxes of 64 x
+    64.  fp32: K-major in boxes of 32 K x 128 rows, MN-major in 128 x 32
+    K, one tile a block with a 2-stage ring, never persistent."""
+    dt = getattr(torch, dtype)
+    p = conv1x1.plan(512, 256, 1024, ta, tb, dt)
     assert (p.a_major, p.b_major) == (a_major, b_major)
-    assert p.a_box == ((64, 64) if a_major == "M" else (64, 128))
-    assert p.b_box == ((64, 64) if b_major == "N" else (64, 128))
-    assert p.tile == (128, 128, 64) and p.stages >= 2
+    if dt == torch.bfloat16:
+        assert p.a_box == ((64, 64) if a_major == "M" else (64, 128))
+        assert p.b_box == ((64, 64) if b_major == "N" else (64, 128))
+        assert p.tile == (128, 128, 64) and p.stages >= 2
+    else:
+        assert p.a_box == ((128, 32) if a_major == "M" else (32, 128))
+        assert p.b_box == ((128, 32) if b_major == "N" else (32, 128))
+        assert p.tile == (128, 128, 32) and p.stages == 2 and p.ctas == 0
     if (ta, tb) != (True, False):        # split within one cluster only
-        assert p.partials == 0 and p.cluster == p.splits <= 8
-    assert conv1x1.plan(512, 256, 1024, ta, tb, out_stats=True).splits == 1
+        assert p.partials == 0 and p.cluster == p.splits
+        assert p.splits <= (8 if dt == torch.bfloat16 else 2)
+    assert conv1x1.plan(512, 256, 1024, ta, tb, dt,
+                        out_stats=True).splits == 1
 
 
 def test_plan_resnet50_step_partials_and_reduce_passes():
@@ -298,45 +335,70 @@ def test_plan_resnet50_step_partials_and_reduce_passes():
     assert len(reduce) == 10
 
 
-@pytest.mark.parametrize("ta,tb,M,N,K,bad", [
-    (False, True, 256, 128, 260, "A"),       # A [M, K]: K not / 8
-    (True, False, 250, 128, 512, "A"),       # A [K, M]: M not / 8
-    (False, False, 256, 100, 512, "B"),      # B [K, N]: N not / 8
-    (False, True, 256, 128, 100, "A")])
-def test_plan_rejects_rows_not_multiple_of_8(ta, tb, M, N, K, bad):
-    """TMA needs 16-byte row strides: a bf16 operand whose storage row is
-    not a multiple of 8 elements raises before any launch."""
-    with pytest.raises(ValueError, match=f"operand {bad}"):
-        conv1x1.plan(M, N, K, ta, tb)
+def test_plan_resnet50_fp32_step_fills_whole_waves():
+    """The fp32 plans of one batch-128 ResNet-50 step at 132 SMs: every
+    wgrad fills 0.9 to 1 of two blocks an SM (no 2.06-wave grid), its
+    partials (written and read) are at most 0.5 GB a step (0.15 ms of
+    HBM), and a reduce pass
+    runs exactly where the slabs outnumber the cluster of 2: all but the
+    one wgrad of 128 tiles; the forward and dgrad split only within one
+    cluster."""
+    f32 = torch.float32
+    plans = [conv1x1.plan(M, C, P, True, False, f32) for P, C, M in
+             RESNET50_WGRADS]
+    for p in plans:
+        assert 0.9 <= p.tiles * p.splits / 264 <= 1.0
+        mine, least, _ = _rounds(p, 132)
+        assert mine <= conv1x1._WAVE_SLACK * least
+    assert sum(p.partial_bytes() for p in plans) <= 0.5e9
+    reduce = [p for p in plans if p.partials]
+    assert all(p.splits > p.cluster == 2 for p in reduce)
+    assert [p.tiles for p in plans if not p.partials] == [128]
+    assert len(reduce) == 28
+    for P, C, M in RESNET50_WGRADS:     # forward and dgrad: one cluster
+        for q in (conv1x1.plan(P, M, C, False, True, f32),
+                  conv1x1.plan(P, C, M, False, False, f32)):
+            assert q.partials == 0 and q.cluster == q.splits <= 2
+            mine, least, _ = _rounds(q, 132, deep=False)
+            assert mine <= conv1x1._WAVE_SLACK * least
+
+
+@pytest.mark.parametrize("dtype,ta,tb,M,N,K,bad", [
+    ("bfloat16", False, True, 256, 128, 260, "A"),    # A [M, K]: K not / 8
+    ("bfloat16", True, False, 250, 128, 512, "A"),    # A [K, M]: M not / 8
+    ("bfloat16", False, False, 256, 100, 512, "B"),   # B [K, N]: N not / 8
+    ("bfloat16", False, True, 256, 128, 100, "A"),
+    ("float32", False, True, 256, 128, 258, "A"),     # A [M, K]: K not / 4
+    ("float32", True, False, 250, 128, 512, "A"),     # A [K, M]: M not / 4
+    ("float32", False, False, 256, 102, 512, "B"),    # B [K, N]: N not / 4
+    ("float32", True, True, 256, 128, 90, "B")])      # B [N, K]: K not / 4
+def test_plan_rejects_rows_not_multiple_of_8(dtype, ta, tb, M, N, K, bad):
+    """TMA needs 16-byte row strides: an operand whose storage row is not
+    a multiple of 16 bytes (8 bf16, 4 fp32 elements) raises before any
+    launch; the same product with rows of a multiple of 4 has an fp32
+    plan, and another dtype has none."""
+    dt = getattr(torch, dtype)
+    with pytest.raises(ValueError, match=f"{dtype[:1]}.*operand {bad}"):
+        conv1x1.plan(M, N, K, ta, tb, dt)
+    p = conv1x1.plan(256, 100, 260, False, False, torch.float32)
+    assert p.tile == (128, 128, 32) and p.ksteps == 9
     with pytest.raises(ValueError, match="bf16"):
-        conv1x1.plan(256, 256, 256, False, True, torch.float32)
+        conv1x1.plan(256, 100, 260, False, False, torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        conv1x1.plan(256, 256, 256, False, True, torch.float16)
 
 
-def test_split_k_partials_sum_to_the_product():
-    """The fp32 kernel's split-K decomposition: fp32 partials of each
-    slab summed in slab order equal the product (fp32, CPU)."""
-    K, M, N = 4096 + 96, 128, 256
-    a = torch.from_numpy(R.randn(K, M).astype("float32"))
-    b = torch.from_numpy(R.randn(K, N).astype("float32"))
-    S, kc = conv1x1.split_k(M, N, K, torch.float32, 132)
-    assert S == 8
-    total = torch.zeros(M, N)
-    for z in range(S):
-        total += a[z * kc:(z + 1) * kc].t() @ b[z * kc:(z + 1) * kc]
-    np.testing.assert_allclose(total.numpy(),
-                               conv1x1.mm_reference(a, b, True).numpy(),
-                               rtol=1e-4, atol=1e-3)
-
-
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("M,N,K,sms", [(128, 256, 50176, 132),
                                        (256, 128, 8192 + 40, 16),
-                                       (1000, 384, 2048, 132)])
-def test_cluster_fold_order_matches_the_product(M, N, K, sms):
-    """The bf16 wgrad's fold, emulated in fp32 on the CPU: each slab's
-    partial, the slabs of a cluster summed in rank order, then the
-    clusters' partials in order (splitk_reduce), with a_colsum folded the
-    same way, equal mm_reference."""
-    p = conv1x1.plan(M, N, K, True, False, torch.bfloat16, sms)
+                                       (1000, 384, 2048, 132),
+                                       (128, 256, 4096 + 96, 132)])
+def test_cluster_fold_order_matches_the_product(M, N, K, sms, dtype):
+    """The wgrad's fold by each dtype's plan, emulated in fp32 on the CPU:
+    each slab's partial, the slabs of a cluster summed in rank order, then
+    the clusters' partials in order (splitk_reduce), with a_colsum folded
+    the same way, equal mm_reference."""
+    p = conv1x1.plan(M, N, K, True, False, getattr(torch, dtype), sms)
     a = torch.from_numpy(R.randn(K, M).astype("float32"))
     b = torch.from_numpy(R.randn(K, N).astype("float32"))
     part = [a[lo:hi].t() @ b[lo:hi] for lo, hi in p.slabs()]
@@ -381,10 +443,7 @@ def test_gradients_and_epilogues_match_plain_on_card(cuda_device, dtype):
     torch.cuda.synchronize()
     assert conv1x1.launches() == 3
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    if dt == torch.bfloat16:
-        reduce = int(conv1x1.plan(M, C, P, True, False, dt, sms).partials > 0)
-    else:
-        reduce = int(conv1x1.split_k(M, C, P, dt, sms)[0] > 1)
+    reduce = int(conv1x1.plan(M, C, P, True, False, dt, sms).partials > 0)
     assert conv1x1.mm.by_form["splitk_reduce"] == reduce
     torch.testing.assert_close(dx.float(), conv1x1.mm_reference(
         g, w, False, False).float(), **tol)
@@ -400,35 +459,41 @@ def test_gradients_and_epilogues_match_plain_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("M,N,K", [(1024, 256, 25088), (128, 256, 50176)])
-def test_cluster_fold_on_card(cuda_device, M, N, K):
-    """bf16 wgrad with a_colsum on a card: a fold with S <= cluster (the
-    kernel writes the output: no reduce launch) and one with S > cluster
-    (one splitk_reduce over the clusters' partials), against the plain
-    version."""
+def test_cluster_fold_on_card(cuda_device, M, N, K, dtype):
+    """The wgrad with a_colsum on a card, by each dtype's plan: a fold
+    with S <= cluster (the kernel writes the output: no reduce launch)
+    and one with S > cluster (one splitk_reduce over the clusters'
+    partials), against the plain version."""
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    g = torch.randn(K, M, device=cuda_device, generator=gen).bfloat16()
-    x = torch.randn(K, N, device=cuda_device, generator=gen).bfloat16()
+    g = torch.randn(K, M, device=cuda_device, generator=gen).to(dt)
+    x = torch.randn(K, N, device=cuda_device, generator=gen).to(dt)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    p = conv1x1.plan(M, N, K, True, False, torch.bfloat16, sms)
+    p = conv1x1.plan(M, N, K, True, False, dt, sms)
     conv1x1.reset_counts()
     dw, dsum = conv1x1.mm(g, x, True, False, a_colsum=True)
     torch.cuda.synchronize()
     assert conv1x1.mm.by_form["splitk_reduce"] == (1 if p.partials else 0)
     rdw, rds = conv1x1.mm_reference(g, x, True, False, a_colsum=True)
-    torch.testing.assert_close(dw.float(), rdw.float(), rtol=1.6e-2,
-                               atol=max(1e-2, 2e-7 * K))
+    rtol, atol = (1.6e-2, 1e-2) if dt == torch.bfloat16 else (1e-4, 1e-4)
+    torch.testing.assert_close(dw.float(), rdw.float(), rtol=rtol,
+                               atol=max(atol, 2e-7 * K))
     torch.testing.assert_close(dsum, rds, rtol=1e-4, atol=1e-2)
 
 
 @pytest.mark.cuda
-def test_wgrad_bit_equal_on_card(cuda_device):
-    """Two runs of a split bf16 wgrad (clusters and a reduce pass) give
-    the same bits: the fold has no atomics."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_wgrad_bit_equal_on_card(cuda_device, dtype):
+    """Two runs of a split wgrad (clusters and a reduce pass) give the
+    same bits: the fold has no atomics."""
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     K, M, N = 100352, 512, 128
-    g = torch.randn(K, M, device=cuda_device, generator=gen).bfloat16()
-    x = torch.randn(K, N, device=cuda_device, generator=gen).bfloat16()
+    g = torch.randn(K, M, device=cuda_device, generator=gen).to(dt)
+    x = torch.randn(K, N, device=cuda_device, generator=gen).to(dt)
+    assert conv1x1.plan(M, N, K, True, False, dt).partials > 0
     one = conv1x1.mm(g, x, True, False, a_colsum=True)
     two = conv1x1.mm(g, x, True, False, a_colsum=True)
     torch.cuda.synchronize()
