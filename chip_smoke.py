@@ -63,7 +63,19 @@ Phases, each of which raises on failure (so the script exits non-zero):
              64k tokens beside its bound, its plain version and
              torch's scaled_dot_product_attention (a yardstick the port
              never calls).
-8. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
+8. seq2seq — bench.py's seq2seq+attention training leg (:230-268) at
+             its sizes (vocab 30000, dim 512, batch 64, 30 + 30 tokens,
+             Adam(1e-3), weights and ids from --seed): one fp32 step
+             (TF32 off) with ragged lengths held against the port's
+             float64 run from the same start (loss, every gradient, the
+             Adam update), 3 fp32 steps whose loss must fall, one AMP
+             step held against the fp32 one (loss, gradients; its Adam
+             update, zero as in the JAX package, and beta pows printed);
+             tokens/s of run_steps in AMP and fp32 as bench.py times it
+             (median of windows, full lengths); a profile of one AMP
+             step and the peak device memory; no hand-written kernel may
+             launch in the phase.
+9. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
              counterpart): holds the Triton grid copy and axpy kernels
              and the bulk-copy (TMA) DMA copy against their plain
              versions at each of the probe's four sizes and at two
@@ -875,8 +887,8 @@ ATT_KERNELS = ("flash_attn", ("flash_fwd_", "flash_bwd_dq_",
 
 def print_profile(tag, what, prof, wall_ms, runs, own=CONV_KERNELS):
     """Device busy time, idle share, the share of the port's kernels
-    ``own`` = (label, name fragments) and the top kernels of a profiled
-    window of ``runs`` repetitions."""
+    ``own`` = (label, name fragments; None for a path without any) and
+    the top kernels of a profiled window of ``runs`` repetitions."""
     rows = []
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total", None)
@@ -891,10 +903,11 @@ def print_profile(tag, what, prof, wall_ms, runs, own=CONV_KERNELS):
         return rows
     print(f"[{tag}] {what}: wall {wall_ms / runs:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy * runs / wall_ms:.3f}")
-    label, frags = own
-    kernel = sum(r[0] for r in rows if any(f in r[2] for f in frags))
-    print(f"[{tag}] {label} {kernel:.3f} ms "
-          f"({kernel / busy:.3f} of device time)")
+    if own is not None:
+        label, frags = own
+        kernel = sum(r[0] for r in rows if any(f in r[2] for f in frags))
+        print(f"[{tag}] {label} {kernel:.3f} ms "
+              f"({kernel / busy:.3f} of device time)")
     for ms, n, name in sorted(rows, reverse=True)[:15]:
         print(f"[{tag}] {ms:8.3f} ms {n:5d}x {name[:100]}")
     return rows
@@ -1562,6 +1575,243 @@ def phase_attention_table(seed, card):
         torch.cuda.empty_cache()
 
 
+# bench.py's seq2seq leg (:230-268): vocab, dims, batch, source and
+# target tokens, Adam's learning rate
+S2S_VOCAB, S2S_DIM, S2S_BATCH, S2S_SRC, S2S_TGT = 30000, 512, 64, 30, 30
+S2S_LR = 1e-3
+S2S_STEPS = 3            # fp32 steps that must lower the loss
+S2S_WINDOW = 10          # steps in one timed run_steps window
+S2S_WINDOWS = 5          # timed windows; the median is reported
+# fp32 (TF32 off) against the port's float64 run from the same start, on
+# the same inputs: the loss within 1e-5 relative; each gradient's largest
+# error within 1e-4 of its largest magnitude (fp32 sums over 30000 logits
+# and 1920 tokens; 7e-7 measured on the CPU at dim 64, batch 8); each
+# parameter's Adam update within 1e-3 of the learning rate (an update is
+# at most about lr; where a gradient is near eps, Adam's division passes
+# its rounding on with a gain up to lr * 0.0316 / eps; 3e-5 measured).
+S2S_F64_TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-3}
+# AMP (bf16 forward and backward) against the fp32 step: the loss within
+# 1e-2 relative (the bf16 loss's ulp near 10 is 4.9e-3 of it), each
+# gradient within 5e-2 in norm (several bf16 ulps of 2^-8 through the
+# recurrences; 1.1e-2 measured on the CPU at dim 64, batch 8).
+S2S_AMP_TOL = {"loss": 1e-2, "grad": 5e-2}
+
+
+def build_seq2seq(seed):
+    """bench.py's seq2seq leg in the port: seq2seq_attention at vocab
+    30000, dim 512, reshape + cross entropy + mean, Adam(1e-3)."""
+    import paddle_tpu_torch as ptt
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = seed
+    with ptt.program_guard(main, startup):
+        L = ptt.layers
+        src = L.data("src", shape=[], dtype="int64", lod_level=1)
+        tgt = L.data("tgt", shape=[], dtype="int64", lod_level=1)
+        lbl = L.data("lbl", shape=[], dtype="int64", lod_level=1)
+        probs = ptt.models.seq2seq_attention(
+            src, tgt, S2S_VOCAB, S2S_VOCAB, emb_dim=S2S_DIM,
+            hidden_dim=S2S_DIM)
+        flat = L.reshape(probs, [-1, S2S_VOCAB])
+        loss = L.mean(L.cross_entropy(flat, L.reshape(lbl, [-1, 1])))
+        ptt.optimizer.Adam(S2S_LR).minimize(loss)
+    return main, startup, loss
+
+
+def s2s_feed(seed, ragged):
+    """Token ids on the card (as bench.py puts them on the device) and
+    the @LEN companions: full lengths, or drawn in 1..30 (one row of
+    each at 30) so the masks bite."""
+    r = np.random.RandomState(seed)
+    feed = {k: r.randint(0, S2S_VOCAB, (S2S_BATCH, n))
+            for k, n in (("src", S2S_SRC), ("tgt", S2S_TGT),
+                         ("lbl", S2S_TGT))}
+    ls, lt = np.full(S2S_BATCH, S2S_SRC), np.full(S2S_BATCH, S2S_TGT)
+    if ragged:
+        ls, lt = r.randint(1, S2S_SRC + 1, S2S_BATCH), \
+            r.randint(1, S2S_TGT + 1, S2S_BATCH)
+        ls[0], lt[0] = S2S_SRC, S2S_TGT
+    feed.update({"src@LEN": ls, "tgt@LEN": lt, "lbl@LEN": lt})
+    return {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+
+
+def s2s_step(main, loss, start, feed, amp, dtype=None):
+    """One step from a copy of ``start`` (floats cast to ``dtype``):
+    (loss, {param: grad}, {param: update}, scope), on the card."""
+    import paddle_tpu_torch as ptt
+    params = [p.name for p in main.all_parameters()]
+    scope = clone_scope(start, dtype)
+    out = ptt.Executor(amp=amp).run(
+        main, feed=feed, fetch_list=[loss] + [p + "@GRAD" for p in params],
+        scope=scope, return_numpy=False)
+    upd = {p: scope.get(p).double() - start.get(p).double() for p in params}
+    return out[0].double(), dict(zip(params, (g.double() for g in out[1:]))), \
+        upd, scope
+
+
+def s2s_tokens_per_s(exe, main, loss, start, feed):
+    """bench.py's method: one untimed run_steps, then the median over
+    S2S_WINDOWS windows of run_steps(S2S_WINDOW) of tokens a second
+    (batch x 60 tokens a step); returns (tokens/s, ms a step, spread)."""
+    scope = clone_scope(start)
+    exe.run_steps(S2S_WINDOW, main, feed=feed, fetch_list=[loss],
+                  scope=scope)
+    rates = []
+    for _ in range(S2S_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, = exe.run_steps(S2S_WINDOW, main, feed=feed,
+                                fetch_list=[loss], scope=scope)
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"chip_smoke: [seq2seq] non-finite loss "
+                               f"{losses}")
+        rates.append(S2S_BATCH * (S2S_SRC + S2S_TGT) * S2S_WINDOW
+                     / (time.perf_counter() - t0))
+    med = float(np.median(rates))
+    tokens = S2S_BATCH * (S2S_SRC + S2S_TGT)
+    return med, tokens * 1e3 / med, (max(rates) - min(rates)) / med
+
+
+def phase_seq2seq(seed, card):
+    """bench.py's seq2seq+attention training leg at its full sizes: the
+    fp32 step with ragged lengths against float64, 3 fp32 steps, the AMP
+    step against fp32, tokens/s of run_steps in AMP and fp32, a profile
+    of one AMP step; no hand-written kernel may launch."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.benchmark import bandwidth as bw
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    main, startup, loss = build_seq2seq(seed)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    n_params = sum(start.get(p.name).numel() for p in main.all_parameters())
+    ragged, full = s2s_feed(seed + 1, True), s2s_feed(seed + 2, False)
+    print(f"[seq2seq] bench.py's seq2seq leg: vocab {S2S_VOCAB}, dim "
+          f"{S2S_DIM}, batch {S2S_BATCH}, {S2S_SRC} + {S2S_TGT} tokens, "
+          f"Adam({S2S_LR}); {n_params} parameters; ragged lengths src "
+          f"{ragged['src@LEN'].tolist()} tgt {ragged['tgt@LEN'].tolist()}; "
+          f"{card}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    conv1x1.reset_counts()
+    fa.reset_counts()
+    bw.reset_counts()
+
+    # fp32 (TF32 off) against the port's float64 run from the same start
+    l32, g32, u32, _ = s2s_step(main, loss, start, ragged, amp=False)
+    l64, g64, u64, _ = s2s_step(main, loss, start, ragged, amp=False,
+                                dtype=torch.float64)
+    failed = []
+    lerr = abs(l32 - l64).item() / abs(l64).item()
+    print(f"[seq2seq] fp32 step vs float64: loss {l32.item():.6f} / "
+          f"{l64.item():.6f}, relative error {lerr:.3e} (limit "
+          f"{S2S_F64_TOL['loss']}); {card}")
+    if not lerr <= S2S_F64_TOL["loss"]:
+        failed.append("loss")
+    for n in g64:
+        gerr = ((g32[n] - g64[n]).abs().max() / g64[n].abs().max()).item()
+        uerr = (u32[n] - u64[n]).abs().max().item() / S2S_LR
+        print(f"[seq2seq] fp32 vs float64 {n:22s} max |grad| "
+              f"{g64[n].abs().max().item():.4e}, grad error {gerr:.3e} of it; "
+              f"max |update| {u64[n].abs().max().item() / S2S_LR:.4f} lr, "
+              f"update error {uerr:.3e} lr")
+        if not (gerr <= S2S_F64_TOL["grad"] and uerr <= S2S_F64_TOL["update"]
+                and g64[n].abs().max() > 0):
+            failed.append(n)
+    if failed:
+        raise RuntimeError(f"chip_smoke: [seq2seq] fp32 step outside the "
+                           f"float64 limits {S2S_F64_TOL}: {failed}")
+
+    scope = clone_scope(start)
+    losses, = ptt.Executor().run_steps(S2S_STEPS, main, feed=ragged,
+                                       fetch_list=[loss], scope=scope)
+    print(f"[seq2seq] fp32 run_steps({S2S_STEPS}) on the ragged batch: "
+          f"losses {losses.tolist()}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise RuntimeError(f"chip_smoke: [seq2seq] fp32 loss did not fall: "
+                           f"{losses}")
+    del scope
+
+    # AMP against the fp32 step
+    lam, gam, uam, sam = s2s_step(main, loss, start, ragged, amp=True)
+    lerr = abs(lam - l32).item() / abs(l32).item()
+    print(f"[seq2seq] AMP step vs fp32: loss {lam.item():.6f}, relative "
+          f"error {lerr:.3e} (limit {S2S_AMP_TOL['loss']}); {card}")
+    failed = [] if lerr <= S2S_AMP_TOL["loss"] else ["loss"]
+    for n in g32:
+        gerr = ((gam[n] - g32[n]).norm() / g32[n].norm()).item()
+        print(f"[seq2seq] AMP vs fp32 {n:22s} grad error {gerr:.3e} in norm")
+        if not gerr <= S2S_AMP_TOL["grad"]:
+            failed.append(n)
+    if failed:
+        raise RuntimeError(f"chip_smoke: [seq2seq] AMP step outside the fp32 "
+                           f"limits {S2S_AMP_TOL}: {failed}")
+    pows = sorted(k for k in sam.keys() if "_pow_" in k)[:2]
+    print(f"[seq2seq] AMP step's Adam update: max |change| over every "
+          f"parameter {max(u.abs().max().item() for u in uam.values())}; "
+          + ", ".join(f"{k} {sam.get(k).item()} (was "
+                      f"{start.get(k).item()})" for k in pows)
+          + " (bf16(0.999) = 1.0: the AMP step leaves the weights as they "
+          "are, in the JAX package too)")
+    del sam, g32, g64, gam, u32, u64, uam
+
+    # throughput as bench.py measures it, full lengths
+    rates, step_ms = {}, {}
+    for label, amp in (("AMP", True), ("fp32", False)):
+        tok, ms, spread = s2s_tokens_per_s(ptt.Executor(amp=amp), main, loss,
+                                           start, full)
+        rates[label], step_ms[label] = tok, ms
+        print(f"[seq2seq] {label} run_steps({S2S_WINDOW}), median of "
+              f"{S2S_WINDOWS} windows: {tok:.1f} tokens/s, {ms:.3f} ms a "
+              f"step, spread {spread:.4f}; {card}")
+
+    # one profiled AMP step
+    exe = ptt.Executor(amp=True)
+    scope = clone_scope(start)
+    exe.run_steps(1, main, feed=full, fetch_list=[loss], scope=scope)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run_steps(1, main, feed=full, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = print_profile("seq2seq", f"AMP training step (batch "
+                         f"{S2S_BATCH}, {S2S_SRC} + {S2S_TGT} tokens)",
+                         prof, wall_ms, 1, own=None)
+    if not rows:
+        raise RuntimeError("chip_smoke: [seq2seq] the profiled AMP step "
+                           "recorded no device time")
+    busy = sum(r[0] for r in rows)
+    kernels = sum(r[1] for r in rows)
+    gb = main.global_block()
+    bw_at = [op.type for op in gb.ops].index("backward")
+    n_step = len(main.blocks[1].ops)
+    print(f"[seq2seq] the profiler slows the host; against the unprofiled "
+          f"AMP step ({step_ms['AMP']:.3f} ms) the device busy {busy:.3f} ms "
+          f"leaves an idle share of {1 - busy / step_ms['AMP']:.3f}; the "
+          f"step runs {bw_at + S2S_TGT * n_step} forward op calls ({bw_at} "
+          f"in block 0, {n_step} a decoder step x {S2S_TGT}) and "
+          f"{len(gb.ops) - bw_at - 1} optimizer ops, and launches {kernels} "
+          f"device kernels, {step_ms['AMP'] * 1e3 / kernels:.1f} us of "
+          f"unprofiled wall each; {card}")
+    counts = {"conv1x1_mm": dict(conv1x1.mm.by_form),
+              "flash_attn": dict(fa.launches), "stream": dict(bw.launches)}
+    print(f"[seq2seq] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"hand-written kernel launches in the phase {counts}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    if any(counts.values()):
+        raise RuntimeError(f"chip_smoke: [seq2seq] launched hand-written "
+                           f"kernels {counts}; the path has none")
+    del start, scope
+    torch.cuda.empty_cache()
+    return rates
+
+
 # ---------------------------------------------------------------------------
 # [bandwidth] the HBM stream-bandwidth probe
 # ---------------------------------------------------------------------------
@@ -1883,6 +2133,7 @@ def main():
     att_launches = phase_attention_train(args.seed, card)
     phase_attention_table(args.seed, card)
     torch.cuda.empty_cache()
+    phase_seq2seq(args.seed, card)
     bw_entries, _ = phase_bandwidth(args.seed, card)
 
     # bf16: the served path and the AMP step; fp32: the served forward's

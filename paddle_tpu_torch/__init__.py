@@ -14,7 +14,10 @@ inference AMP, ``serving.Model``/``serving.Server``), ResNet training
 batch-statistics batch norm, cross entropy, the executor's backward
 under AMP and ``run_steps``), long-context attention training
 (``layers.flash_attention``, ``nets.scaled_dot_product_attention``,
-``matmul``, ``dropout``, ``square_error_cost``), the HBM stream-bandwidth
+``matmul``, ``dropout``, ``square_error_cost``), seq2seq+attention
+training (``models.seq2seq_attention``: sub-blocks and ``@LEN``
+lengths in the executor, ``layers.StaticRNN``, the GRU and sequence
+ops, ``embedding``, Adam, ``DataFeeder``), the HBM stream-bandwidth
 probe (``benchmark/bandwidth.py``, with its Triton copy and axpy and its
 bulk-copy DMA copy), and two kernels of the framework: the
 1x1-convolution matrix product with its gradients and epilogues
@@ -30,8 +33,9 @@ from .core import (
 )
 from . import ops  # noqa: F401  (registers every op implementation)
 from . import flags, initializer, layer_helper, layers, models, nets
-from . import optimizer, regularizer, clip, backward
+from . import optimizer, regularizer, clip, backward, data_feeder
 from .backward import append_backward
+from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
 from .weights import load_numpy_state
 from . import faults
@@ -42,6 +46,7 @@ __all__ = [
     "program_guard", "stack_feeds", "pad_batch", "unique_name", "ops",
     "flags", "initializer", "layer_helper", "layers", "models", "nets",
     "optimizer",
-    "regularizer", "clip", "backward", "append_backward", "ParamAttr",
+    "regularizer", "clip", "backward", "data_feeder", "DataFeeder",
+    "append_backward", "ParamAttr",
     "load_numpy_state", "faults",
 ]

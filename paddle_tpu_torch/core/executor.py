@@ -15,6 +15,11 @@ implementations (``run_op``) on the executor's device:
 ``run_steps`` runs K such steps with the state kept on the device and
 the fetches stacked on a leading K axis.
 
+A sub-block (the step of a ``StaticRNN``) runs in a child ``Env`` whose
+lookups fall through to its parent's; sequence vars carry their lengths
+as ``name@LEN`` integer companions (fed, or set by ops through
+``ExecContext.set_len``), which no AMP cast touches.
+
 Not ported yet: capturing a step as a CUDA graph (the counterpart of
 the JAX executor's compiled step), the compile cache, observability,
 validation and retry.
@@ -71,26 +76,56 @@ class CUDAPlace(Place):
 
 
 # ---------------------------------------------------------------------------
-# Environment: name -> tensor for one run of a block (no sub-blocks yet)
+# Environment: name -> tensor for one run of a block, with a parent chain
+# for sub-blocks (a StaticRNN step looks up what its parent block bound)
 # ---------------------------------------------------------------------------
 class Env:
-    def __init__(self, block: Block):
+    def __init__(self, block: Block, parent: Optional["Env"] = None):
         self.block = block
+        self.parent = parent
         self.local: Dict[str, object] = {}
 
     def get(self, name: str):
-        try:
-            return self.local[name]
-        except KeyError:
-            raise KeyError(f"variable {name!r} has no value; is it fed, "
-                           f"initialized by the startup program, or "
-                           f"produced by an earlier op?") from None
+        e: Optional[Env] = self
+        while e is not None:
+            if name in e.local:
+                return e.local[name]
+            e = e.parent
+        raise KeyError(f"variable {name!r} has no value; is it fed, "
+                       f"initialized by the startup program, or "
+                       f"produced by an earlier op?")
 
     def has(self, name: str) -> bool:
-        return name in self.local
+        e: Optional[Env] = self
+        while e is not None:
+            if name in e.local:
+                return True
+            e = e.parent
+        return False
 
     def set(self, name: str, value):
+        """Bind in the nearest env that already binds the name (the
+        step's own inputs and memories stay local) or whose block
+        declares it (a sub-block writes through to its parent's vars)."""
+        e: Optional[Env] = self
+        while e is not None:
+            if name in e.local or name in e.block.vars:
+                e.local[name] = value
+                return
+            e = e.parent
         self.local[name] = value
+
+    def snapshot(self) -> Dict[str, object]:
+        """Every binding visible here, nearer envs shadowing outer ones."""
+        chain = []
+        e: Optional[Env] = self
+        while e is not None:
+            chain.append(e)
+            e = e.parent
+        out: Dict[str, object] = {}
+        for e in reversed(chain):
+            out.update(e.local)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +133,9 @@ class Env:
 # ---------------------------------------------------------------------------
 class ExecContext:
     """What an op implementation may consult: the device, test mode, AMP,
-    the 1x1-conv routing, and per-op random generators."""
+    the 1x1-conv routing, per-op random generators, the env it runs in
+    (``env``, bound by ``run_op``), sub-blocks, and the ``@LEN`` /
+    ``@LEN2`` length companions of sequence vars."""
 
     def __init__(self, program: Program, device: torch.device, step: int,
                  is_test: bool = False,
@@ -112,7 +149,34 @@ class ExecContext:
         # consulted by ops.nn_ops._conv2d
         self.conv1x1_pallas = conv1x1_pallas
         self.op: Optional[Operator] = None
+        self.env: Optional[Env] = None
         self._op_uid = 0
+
+    def block(self, idx: int) -> Block:
+        return self.program.blocks[idx]
+
+    def interpret_block(self, block_idx: int, env: Env):
+        interpret_ops(self.program.blocks[block_idx].ops, env, self)
+
+    def child_env(self, block_idx: int, parent_env: Env) -> Env:
+        return Env(self.program.blocks[block_idx], parent=parent_env)
+
+    def get_len(self, name: str):
+        """Lengths [B] of a lod_level>0 var (its ``@LEN``), or None."""
+        ln = name + "@LEN"
+        return self.env.get(ln) if self.env.has(ln) else None
+
+    def set_len(self, name: str, lens):
+        self.env.local[name + "@LEN"] = lens
+
+    def get_len2(self, name: str):
+        """Inner lengths [B, S] of a lod_level-2 var (its ``@LEN2``), or
+        None."""
+        ln = name + "@LEN2"
+        return self.env.get(ln) if self.env.has(ln) else None
+
+    def set_len2(self, name: str, lens2):
+        self.env.local[name + "@LEN2"] = lens2
 
     def generator(self) -> torch.Generator:
         """A generator for the current op, seeded from (program seed, run
@@ -146,7 +210,8 @@ def run_op(op: Operator, env: Env, ctx: ExecContext):
     impl = get_op_impl(op.type)
     ins = {slot: [env.get(n) for n in names]
            for slot, names in op.inputs.items() if names}
-    prev_op, ctx.op = ctx.op, op
+    prev_op, prev_env = ctx.op, ctx.env
+    ctx.op, ctx.env = op, env
     ctx._op_uid += 1
     try:
         result = impl(ctx, ins, op.attrs)
@@ -160,7 +225,7 @@ def run_op(op: Operator, env: Env, ctx: ExecContext):
                    f"(outputs {op.outputs}) with input shapes {shapes}")
         raise
     finally:
-        ctx.op = prev_op
+        ctx.op, ctx.env = prev_op, prev_env
     outs = _normalize_outputs(op, result)
     for slot, names in op.outputs.items():
         if not names:
@@ -213,7 +278,7 @@ def _run_backward(forward_ops: Sequence[Operator], bw_op: Operator,
     """
     loss_name = bw_op.attrs["loss"]
     wrt_names = list(bw_op.attrs["params"])
-    init = dict(env.local)
+    init = env.snapshot()
     masters = {n: init[n] for n in wrt_names}
     leaves = [masters[n].detach().requires_grad_(True) for n in wrt_names]
     fenv = Env(env.block)

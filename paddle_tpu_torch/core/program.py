@@ -6,6 +6,9 @@ serialized by either package loads in the other.  The Executor
 (``core/executor.py``) interprets these objects op by op on torch
 tensors.
 
+Sub-blocks (``create_block`` / ``rollback``) hold the step of a
+``StaticRNN``; an op names its block by the ``sub_block`` attr.
+
 Left out until a slice needs them: arithmetic sugar on ``Variable``
 (it routes through layers not ported yet), pipeline stages, pruning and
 the static verifier.
@@ -231,6 +234,20 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None) -> Block:
+        """Append a sub-block (a StaticRNN step) whose parent is the
+        current block or ``parent_idx``, and make it current."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump_version()
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = max(self.current_block().parent_idx, 0)
 
     def _bump_version(self):
         self.version += 1

@@ -2,7 +2,8 @@
 ``paddle_tpu/layers/nn.py``).  Each function appends the same op types
 with the same attrs as its JAX twin, so both packages build the same
 program.  Only the layers the ResNet serving and training paths, the
-gradient clips and the attention slice use are ported."""
+gradient clips, the attention slice and the seq2seq slice use are
+ported."""
 from __future__ import annotations
 
 from ..initializer import ConstantInitializer
@@ -13,7 +14,9 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
            "elementwise_max", "elementwise_min", "scale", "mean",
            "cross_entropy", "clip", "clip_by_norm", "softmax", "matmul",
-           "dropout", "square_error_cost", "flash_attention"]
+           "dropout", "square_error_cost", "flash_attention", "embedding",
+           "dynamic_gru", "gru_unit", "sequence_pool", "sequence_first_step",
+           "sequence_last_step", "reshape", "squeeze", "unsqueeze"]
 
 
 def _pair(v):
@@ -29,22 +32,192 @@ def _conv_out(size, k, p, s, d=1):
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, is_test=False, name=None):
-    """Fully connected: mul + bias + act (one input)."""
+    """Fully connected: mul + sum + bias + act.  A list of inputs (with
+    one ``param_attr`` each, or one for all) is projected input by input
+    and summed.  A sequence input flattened at ``num_flatten_dims`` >= 2
+    keeps its lod level, and its ``@LEN`` is copied to the output."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
-    in_dim = 1
-    for s in input.shape[num_flatten_dims:]:
-        in_dim *= s
-    w = helper.create_parameter(param_attr, shape=[in_dim, size],
-                                dtype=input.dtype)
-    out_shape = tuple(input.shape[:num_flatten_dims]) + (size,)
-    tmp = helper.create_variable_for_type_inference(input.dtype, out_shape)
-    helper.append_op(type="mul", inputs={"X": [input], "Y": [w]},
-                     outputs={"Out": [tmp]},
-                     attrs={"x_num_col_dims": num_flatten_dims,
-                            "y_num_col_dims": 1})
-    pre_act = helper.append_bias_op(tmp)
-    return helper.append_activation(pre_act)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    attrs = param_attr if isinstance(param_attr, (list, tuple)) \
+        else [param_attr] * len(inputs)
+    mul_results = []
+    for inp, pa in zip(inputs, attrs):
+        in_dim = 1
+        for s in inp.shape[num_flatten_dims:]:
+            in_dim *= s
+        w = helper.create_parameter(pa, shape=[in_dim, size],
+                                    dtype=inp.dtype)
+        out_shape = tuple(inp.shape[:num_flatten_dims]) + (size,)
+        tmp = helper.create_variable_for_type_inference(
+            inp.dtype, out_shape,
+            lod_level=inp.lod_level if num_flatten_dims >= 2 else 0)
+        helper.append_op(type="mul", inputs={"X": [inp], "Y": [w]},
+                         outputs={"Out": [tmp]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(
+            mul_results[0].dtype, mul_results[0].shape,
+            lod_level=mul_results[0].lod_level)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias)
+    out = helper.append_activation(pre_act)
+    if out.lod_level and inputs[0].lod_level:
+        _copy_len(helper, inputs[0], out)
+    return out
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32", name=None):
+    """Dense lookup of the rows of a [V, D] table (``layers/nn.py:96``).
+    ``is_sparse`` is recorded as the op's attr, as the JAX layer does;
+    the gradient is dense either way.  The JAX layer's ``sparse=True``
+    (a host-resident table) comes with the sparse slice."""
+    helper = LayerHelper("embedding", param_attr=param_attr, name=name)
+    in_shape = input.shape or (-1, 1)
+    if in_shape and in_shape[-1] == 1:
+        out_shape = tuple(in_shape[:-1]) + (size[1],)
+    else:
+        out_shape = tuple(in_shape) + (size[1],)
+    out = helper.create_variable_for_type_inference(
+        dtype, out_shape, lod_level=input.lod_level)
+    w = helper.create_parameter(param_attr, shape=list(size), dtype=dtype)
+    helper.append_op(type="lookup_table",
+                     inputs={"W": [w], "Ids": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"is_sparse": is_sparse,
+                            "padding_idx": -1 if padding_idx is None
+                            else padding_idx})
+    if input.lod_level:
+        _copy_len(helper, input, out)
+    return out
+
+
+def _copy_len(helper, src, dst):
+    """Append the op that hands ``src``'s ``@LEN`` (and ``@LEN2``) to
+    ``dst``."""
+    helper.append_op(type="copy_len", inputs={"X": [src]},
+                     outputs={"Out": [dst]}, attrs={})
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None, name=None):
+    """The GRU recurrence over a pre-projected [B, T, 3 size] sequence;
+    Hidden [B, T, size] carries the input's lengths."""
+    helper = LayerHelper("gru", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dtype = input.dtype
+    w = helper.create_parameter(param_attr, shape=[size, 3 * size],
+                                dtype=dtype)
+    b = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr) or ParamAttr(), shape=[1, 3 * size],
+        dtype=dtype, is_bias=True)
+    B, T = (input.shape or (-1, -1))[:2]
+    hid = helper.create_variable_for_type_inference(
+        dtype, (B, T, size), lod_level=input.lod_level)
+    ins = {"Input": [input], "Weight": [w], "Bias": [b]}
+    if h_0 is not None:
+        ins["H0"] = [h_0]
+    helper.append_op(type="gru", inputs=ins, outputs={"Hidden": [hid]},
+                     attrs={"gate_activation": gate_activation,
+                            "is_reverse": is_reverse,
+                            "activation": candidate_activation})
+    return hid
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid", name=None):
+    """One GRU step from gates [B, size] (size = 3 H) and the previous
+    hidden [B, H]; returns (hidden, reset hidden, gates)."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dtype = input.dtype
+    h = size // 3
+    w = helper.create_parameter(param_attr, shape=[h, size], dtype=dtype)
+    b = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr) or ParamAttr(), shape=[1, size],
+        dtype=dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype,
+                                                    (hidden.shape[0], h))
+    gate = helper.create_variable_for_type_inference(dtype)
+    reset = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="gru_unit",
+                     inputs={"Input": [input], "HiddenPrev": [hidden],
+                             "Weight": [w], "Bias": [b]},
+                     outputs={"Hidden": [out], "Gate": [gate],
+                              "ResetHiddenPrev": [reset]},
+                     attrs={"activation": activation,
+                            "gate_activation": gate_activation})
+    return out, reset, gate
+
+
+def sequence_pool(input, pool_type, name=None):
+    """Pool each sequence over time (average, sum, sqrt, max, last,
+    first); a nested sequence collapses both sequence dims."""
+    helper = LayerHelper("sequence_pool", name=name)
+    if input.shape is None:
+        shape = None
+    elif input.lod_level >= 2:
+        shape = (input.shape[0],) + tuple(input.shape[3:])
+    else:
+        shape = (input.shape[0],) + tuple(input.shape[2:])
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op(type="sequence_pool", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooltype": pool_type.upper()})
+    return out
+
+
+def sequence_first_step(input, name=None):
+    return sequence_pool(input, "first", name=name)
+
+
+def sequence_last_step(input, name=None):
+    return sequence_pool(input, "last", name=name)
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    """Reshape to ``shape`` (0 copies the input's dim, one -1 is
+    inferred).  ``actual_shape`` and ``inplace`` are accepted and
+    unused, as in the JAX layer."""
+    helper = LayerHelper("reshape", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, tuple(
+        s if s != 0 else x.shape[i] for i, s in enumerate(shape)))
+    helper.append_op(type="reshape", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"shape": list(shape)})
+    return helper.append_activation(out, act)
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    shape = None
+    if input.shape is not None:
+        ax = {a % len(input.shape) for a in axes}
+        shape = tuple(s for i, s in enumerate(input.shape) if i not in ax)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op(type="squeeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": list(axes)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    shape = None
+    if input.shape is not None:
+        shape = list(input.shape)
+        for a in sorted(axes):
+            shape.insert(a if a >= 0 else a + len(shape) + 1, 1)
+        shape = tuple(shape)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op(type="unsqueeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": list(axes)})
+    return out
 
 
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
@@ -163,7 +336,10 @@ def _elementwise_layer(op, x, y, axis=-1, act=None, name=None):
         x.dtype, x.shape, lod_level=max(x.lod_level, getattr(y, "lod_level", 0)))
     helper.append_op(type=op, inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
-    return helper.append_activation(out, act)
+    final = helper.append_activation(out, act)
+    if final.lod_level:
+        _copy_len(helper, x if x.lod_level else y, final)
+    return final
 
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):

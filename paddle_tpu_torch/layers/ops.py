@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from .nn import _unary_layer
 
-_UNARY_OPS = ["sqrt", "sign"]
+_UNARY_OPS = ["sqrt", "sign", "sigmoid", "tanh"]
 
 
 def _make_unary(op_type):
@@ -18,5 +18,7 @@ def _make_unary(op_type):
 
 sqrt = _make_unary("sqrt")
 sign = _make_unary("sign")
+sigmoid = _make_unary("sigmoid")
+tanh = _make_unary("tanh")
 
 __all__ = list(_UNARY_OPS)

@@ -1,5 +1,6 @@
-"""Activation ops of the ResNet paths (counterpart of ``relu`` and
-``sqrt`` in ``paddle_tpu/ops/activation_ops.py``)."""
+"""Activation ops of the ported paths (counterpart of ``relu``,
+``sqrt``, ``sigmoid`` and ``tanh`` in
+``paddle_tpu/ops/activation_ops.py``)."""
 from __future__ import annotations
 
 import torch
@@ -15,3 +16,13 @@ def _relu(ctx, ins, attrs):
 @register_op("sqrt")
 def _sqrt(ctx, ins, attrs):
     return {"Out": torch.sqrt(ins["X"][0])}
+
+
+@register_op("sigmoid")
+def _sigmoid(ctx, ins, attrs):
+    return {"Out": torch.sigmoid(ins["X"][0])}
+
+
+@register_op("tanh")
+def _tanh(ctx, ins, attrs):
+    return {"Out": torch.tanh(ins["X"][0])}

@@ -1,6 +1,7 @@
-"""Tensor-creation ops of the startup program (counterpart of the
-``fill_constant`` / ``uniform_random`` / ``gaussian_random`` lowerings in
-``paddle_tpu/ops/tensor_ops.py``).  Random ops draw from a
+"""Tensor ops (counterpart of the ``fill_constant``,
+``fill_constant_batch_size_like``, ``uniform_random``,
+``gaussian_random``, ``reshape``, ``squeeze`` and ``unsqueeze``
+lowerings in ``paddle_tpu/ops/tensor_ops.py``).  Random ops draw from a
 ``torch.Generator`` the executor seeds per op (``ExecContext.generator``);
 the numbers differ from JAX's, the distributions do not."""
 from __future__ import annotations
@@ -17,6 +18,20 @@ def _fill_constant(ctx, ins, attrs):
     shape = tuple(attrs.get("shape", []))
     return {"Out": torch.full(shape, attrs.get("value", 0.0), dtype=dt,
                               device=ctx.device)}
+
+
+@register_op("fill_constant_batch_size_like")
+def _fill_cbsl(ctx, ins, attrs):
+    """The ``shape`` attr with dim ``output_dim_idx`` taken from dim
+    ``input_dim_idx`` of Input (a StaticRNN memory's zero start)."""
+    ref = ins["Input"][0]
+    shape = list(attrs.get("shape", []))
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": torch.full(tuple(shape), attrs.get("value", 0.0),
+                              dtype=to_torch_dtype(attrs.get("dtype",
+                                                             "float32")),
+                              device=ref.device)}
 
 
 @register_op("gaussian_random")
@@ -37,3 +52,42 @@ def _uniform_random(ctx, ins, attrs):
     out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
                  generator=ctx.generator())
     return {"Out": out.to(dt)}
+
+
+@register_op("reshape")
+def _reshape(ctx, ins, attrs):
+    """fluid reshape: a 0 in ``shape`` copies the input's dim, one -1 is
+    inferred.  The layer's ``actual_shape`` is not an input of the op
+    (as in the JAX package)."""
+    x = ins["X"][0]
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(attrs["shape"])]
+    return {"Out": x.reshape(shape)}
+
+
+@register_op("squeeze")
+def _squeeze(ctx, ins, attrs):
+    """Drop the size-1 ``axes`` (every size-1 dim when none are given)."""
+    x = ins["X"][0]
+    axes = attrs.get("axes")
+    if not axes:
+        return {"Out": x.squeeze()}
+    axes = {a % x.dim() for a in axes}
+    if any(x.shape[a] != 1 for a in axes):
+        raise ValueError(f"squeeze: axes {sorted(axes)} of shape "
+                         f"{tuple(x.shape)} are not all of size 1")
+    return {"Out": x.reshape([s for i, s in enumerate(x.shape)
+                              if i not in axes])}
+
+
+@register_op("unsqueeze")
+def _unsqueeze(ctx, ins, attrs):
+    """Insert size-1 dims at ``axes``, positions in the output's rank
+    (``jnp.expand_dims``)."""
+    x = ins["X"][0]
+    rank = x.dim() + len(attrs["axes"])
+    axes = sorted(a % rank for a in attrs["axes"])
+    shape = list(x.shape)
+    for a in axes:
+        shape.insert(a, 1)
+    return {"Out": x.reshape(shape)}

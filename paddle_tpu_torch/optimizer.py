@@ -1,9 +1,9 @@
 """Optimizer builders: append backward + optimizer ops to the program
-(counterpart of ``paddle_tpu/optimizer.py:24-141``; reference:
-fluid/optimizer.py:190 minimize, SGD and Momentum).
+(counterpart of ``paddle_tpu/optimizer.py``; reference:
+fluid/optimizer.py:190 minimize, SGD, Momentum and Adam).
 
 The program's optimizer section is plain ops, run by the Executor after
-the ``backward`` pseudo-op.  Adagrad, Adam and the others come with the
+the ``backward`` pseudo-op.  Adagrad and the others come with the
 slices that use them.
 """
 from __future__ import annotations
@@ -16,8 +16,8 @@ from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer", "SGD",
-           "Momentum"]
+__all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer",
+           "AdamOptimizer", "SGD", "Momentum", "Adam"]
 
 
 class Optimizer:
@@ -129,5 +129,46 @@ class MomentumOptimizer(Optimizer):
             attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
+class AdamOptimizer(Optimizer):
+    """Adam as an op (adam_op.cc), with the JAX package's accumulators:
+    ``moment1``, ``moment2`` (zeros) and ``beta1_pow``, ``beta2_pow``
+    ([1], starting at beta1 and beta2), named ``<param>_<acc>_<n>``, so
+    a scope carries across.  The JAX optimizer's ``lazy_mode`` (rows of
+    the batch only) comes with the sparse slice."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_mode=False, **kw):
+        if lazy_mode:
+            raise NotImplementedError(
+                "AdamOptimizer(lazy_mode=True) is not ported yet; it comes "
+                "with the sparse slice")
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, program, params):
+        for p in params:
+            self._add_accumulator("moment1", p)
+            self._add_accumulator("moment2", p)
+            self._add_accumulator("beta1_pow", p, self._beta1, shape=[1])
+            self._add_accumulator("beta2_pow", p, self._beta2, shape=[1])
+
+    def _append_optimize_op(self, program, param, grad):
+        m1 = self._get_accumulator("moment1", param)
+        m2 = self._get_accumulator("moment2", param)
+        b1 = self._get_accumulator("beta1_pow", param)
+        b2 = self._get_accumulator("beta2_pow", param)
+        return program.global_block().append_op(
+            "adam",
+            inputs={"Param": [param], "Grad": [grad], "Moment1": [m1],
+                    "Moment2": [m2], "Beta1Pow": [b1], "Beta2Pow": [b2],
+                    "LearningRate": [self._lr_for_param(param)]},
+            outputs={"ParamOut": [param.name], "Moment1Out": [m1.name],
+                     "Moment2Out": [m2.name], "Beta1PowOut": [b1.name],
+                     "Beta2PowOut": [b2.name]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adam = AdamOptimizer

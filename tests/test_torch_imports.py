@@ -96,6 +96,26 @@ def test_scan_covers_the_bandwidth_probe():
     assert bandwidth.SOURCE not in cuda_build._libs
 
 
+def test_scan_covers_the_seq2seq_modules():
+    """The seq2seq slice's modules are scanned, registered and exported:
+    the recurrence and sequence ops, the embedding, copy_len, the model
+    and the feeder."""
+    from paddle_tpu_torch.core.registry import get_op_impl
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("ops/sequence_ops.py", "ops/control_flow_ops.py",
+                "ops/embedding_ops.py", "ops/crf_ops.py",
+                "models/seq2seq.py", "data_feeder.py"):
+        assert os.path.join("paddle_tpu_torch", rel) in scanned, rel
+    for op in ("rnn", "rnn_memory_helper", "gru", "gru_unit",
+               "sequence_pool", "lookup_table", "copy_len", "adam",
+               "reshape", "squeeze", "unsqueeze", "tanh", "sigmoid",
+               "fill_constant_batch_size_like"):
+        assert get_op_impl(op).__module__.startswith("paddle_tpu_torch.")
+    assert ptt.layers.StaticRNN and ptt.optimizer.Adam and ptt.DataFeeder
+    assert ptt.models.seq2seq_attention.__module__ == \
+        "paddle_tpu_torch.models.seq2seq"
+
+
 def test_scan_sees_through_aliases(tmp_path):
     """The scanner itself: every import form of a forbidden name is
     caught, and the port's own name is not."""

@@ -255,5 +255,5 @@ def test_run_op_names_the_failing_op():
 
 
 def test_unregistered_op_raises_with_its_name():
-    with pytest.raises(NotImplementedError, match="lookup_table"):
-        torch_impl("lookup_table")
+    with pytest.raises(NotImplementedError, match="lookup_table_sparse"):
+        torch_impl("lookup_table_sparse")

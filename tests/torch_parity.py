@@ -109,3 +109,23 @@ def build_longctx(pkg, T, heads, dim, block=1024, causal=True, lr=1e-6,
             pkg.layers.mean(pkg.layers.elementwise_mul(o, o)), 1e-3)
         pkg.optimizer.SGD(learning_rate=lr).minimize(loss)
     return main, startup, loss
+
+
+def build_seq2seq(pkg, vocab, dim, lr=1e-2, seed=0):
+    """(main, startup, loss) of ``bench.py``'s seq2seq leg (``:230-268``)
+    in ``pkg``: ``models.seq2seq_attention`` over int64 ``src``/``tgt``
+    sequences, reshape + cross entropy against ``lbl``, mean, Adam."""
+    pkg.unique_name.reset()
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = seed
+    with pkg.program_guard(main, startup):
+        L = pkg.layers
+        src = L.data("src", shape=[], dtype="int64", lod_level=1)
+        tgt = L.data("tgt", shape=[], dtype="int64", lod_level=1)
+        lbl = L.data("lbl", shape=[], dtype="int64", lod_level=1)
+        probs = pkg.models.seq2seq_attention(src, tgt, vocab, vocab,
+                                             emb_dim=dim, hidden_dim=dim)
+        flat = L.reshape(probs, [-1, vocab])
+        loss = L.mean(L.cross_entropy(flat, L.reshape(lbl, [-1, 1])))
+        pkg.optimizer.Adam(lr).minimize(loss)
+    return main, startup, loss
