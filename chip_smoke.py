@@ -72,10 +72,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
              step held against the fp32 one (loss, gradients; its Adam
              update, zero as in the JAX package, and beta pows printed);
              tokens/s of run_steps in AMP and fp32 as bench.py times it
-             (median of windows, full lengths); a profile of one AMP
-             step and the peak device memory; no hand-written kernel may
-             launch in the phase.
-9. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
+             (median of windows, full lengths); a ragged window (12
+             batches padded to 8-32 tokens, a new key every batch or two)
+             run twice captured and twice use_jit=False: ms a step of each
+             pass, warm-ups, captures and replays, peak reserved memory;
+             a profile of one AMP step and the peak device memory; no
+             hand-written kernel may launch in the phase.
+9. pipeline — bench.py's input-pipeline leg on wide_deep at its settings
+             (vocab 1000, emb 8, 26 sparse + 13 dense features, deep
+             (32, 16), batch 256, 60 batches a window, 4 reps,
+             steps_per_dispatch 10): run_pipelined against the sequential
+             run loop and that loop against use_jit=False bit for bit,
+             one fp32 step against float64, naive and pipelined steps/s
+             and their paired speedup, one pipelined window's busy/idle.
+10. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
              counterpart): holds the Triton grid copy and axpy kernels
              and the bulk-copy (TMA) DMA copy against their plain
              versions at each of the probe's four sizes and at two
@@ -87,6 +97,19 @@ Phases, each of which raises on failure (so the script exits non-zero):
              around it, and prints every method's GB/s, its share of 3.35
              TB/s and its time a pass beside the bound and copy_'s.
 
+The main path of slice, train, attention, seq2seq and pipeline runs
+captured (Executor(use_jit=True), each step one CUDA graph replay), and
+each phase adds a use_jit=False arm from the same seed and weights: its
+fetches and final scope must equal the captured arm's bit for bit, no
+captured step may run uncaptured, and both arms' wall, device busy, idle
+share, peak memory and graph-pool bytes are printed.  A replay calls no
+kernel wrapper, so the launch counts on a captured path are the
+capture's deltas, which the executor adds once a replay; in each phase
+with a kernel a profiled window holds the counted launches against the
+kernels its trace shows (the profiler has dropped a kernel's record now
+and then, so a window whose trace lacks one is printed and profiled
+again, at most three times).
+
 The kernels of all three CUDA sources build at once, one nvcc each, and
 the two Triton kernels compile meanwhile.  Before the last line it prints
 one JSON line describing each kernel, and the card's name and power
@@ -95,6 +118,7 @@ limit; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import json
 import os
@@ -766,6 +790,7 @@ def phase_slice(seed, card):
     # the main path: counts to 0, serve, read the counts
     buckets.clear()
     conv1x1.reset_counts()
+    capture_stats().reset()
     t0 = time.perf_counter()
     clients = [threading.Thread(target=client, args=(k,),
                                 name=f"chip-smoke-client-{k}")
@@ -780,6 +805,7 @@ def phase_slice(seed, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = conv1x1.launches()
+    served_steps = capture_stats().snapshot()
     srv.shutdown(timeout=60)
     if srv.state != "stopped" or any(
             t.is_alive() for rt in srv._models.values()
@@ -805,6 +831,11 @@ def phase_slice(seed, card):
                            f"times, the gate expects {expected}")
     if BATCH not in buckets:
         raise RuntimeError("chip_smoke: no full batch-32 bucket formed")
+    # a bucket's first batch is its warm-up (interpreted), the next its
+    # capture; buckets 1 and 32 warmed up when the server started
+    print(f"[slice] the served run's steps: {served_steps} (a new bucket's "
+          f"first batch runs interpreted as its warm-up)")
+    check_captured("[slice] served run", served_steps)
 
     # served rows vs a direct run of the same batch on the plain path
     def compare(label, probs, lg, ref_probs, ref_lg):
@@ -843,40 +874,80 @@ def phase_slice(seed, card):
     compare(f"fp32 kernel path vs plain path ({fp32_launches} launches)",
             k32, k32_lg, p32, p32_lg)
 
-    # throughput of one batch-32 dispatch, kernel path and plain path
+    # the served executor (captured) against use_jit=False on one batch
     feed = {"img": imgs[:BATCH]}
-    rates = {}
-    for label, ex in (("kernel", exe), ("plain", plain), ("kernel", exe),
-                      ("plain", plain)):
-        ex.run(infer, feed=feed, fetch_list=[pred], scope=scope,
-               is_test=True)                           # warm
+    interp = ptt.Executor(amp=True, conv1x1_pallas=True, use_jit=False)
+    capture_stats().reset()
+    got = exe.run(infer, feed=feed, fetch_list=fetch, scope=scope,
+                  is_test=True)
+    check_captured("[slice] batch-32 run", capture_stats().snapshot(), 1)
+    same_fetches("[slice] bf16 batch-32 run", got,
+                 interp.run(infer, feed=feed, fetch_list=fetch, scope=scope,
+                            is_test=True))
+    print(f"[slice] bf16 batch-{BATCH} run, captured (a replay of the "
+          f"served bucket-{BATCH} graph) vs use_jit=False: probabilities "
+          f"and logits bit-equal")
+
+    # throughput of one batch-32 dispatch: kernel path captured and
+    # interpreted, plain path captured, in turns
+    rates, peaks = {}, {}
+    for label, ex in (("kernel", exe), ("plain", plain),
+                      ("kernel use_jit=False", interp),
+                      ("kernel use_jit=False", interp), ("plain", plain),
+                      ("kernel", exe)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):                 # warm-up and capture of a key
+            ex.run(infer, feed=feed, fetch_list=[pred], scope=scope,
+                   is_test=True)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(10):
             ex.run(infer, feed=feed, fetch_list=[pred], scope=scope,
                    is_test=True)
+        torch.cuda.synchronize()
         rates.setdefault(label, []).append(
             10 * BATCH / (time.perf_counter() - t0))
+        peaks[label] = max(peaks.get(label, 0),
+                           torch.cuda.max_memory_allocated())
     print(f"[slice] ResNet-50 bf16 batch-{BATCH} Executor.run img/s: "
-          f"kernel path {rates['kernel']}, plain path {rates['plain']} "
-          f"on {card}")
-    profile_dispatch(exe, infer, feed, pred, scope)
+          + ", ".join(f"{k} path {v}" for k, v in rates.items())
+          + f" on {card}")
+    rows, _ = profiled_checked(
+        "profile", f"batch-{BATCH} dispatch", lambda: exe.run(
+            infer, feed=feed, fetch_list=[pred], scope=scope, is_test=True),
+        3, lambda: conv_since(conv1x1, "mm_bf16_tma"))
+    per_run = kernel_count(rows, "mm_bf16_tma")
+    print(f"[slice] the profile of {3} replays holds {per_run} mm_bf16_tma "
+          f"launches a run (gate: {gate_count[BATCH]})")
+    if per_run != gate_count[BATCH]:
+        raise RuntimeError(f"chip_smoke: a replayed batch-{BATCH} run "
+                           f"launched mm_bf16_tma {per_run} times, the gate "
+                           f"expects {gate_count[BATCH]}")
+    irows, _ = profile_dispatch(interp, infer, feed, pred, scope,
+                                tag="profile use_jit=False")
+    arms_line("slice", f"bf16 batch-{BATCH} Executor.run, kernel path",
+              "batch", {
+                  "captured": (BATCH * 1e3 / float(np.median(
+                      rates["kernel"])), sum(r[0] for r in rows),
+                      peaks["kernel"], graph_pool_bytes(exe)),
+                  "use_jit=False": (BATCH * 1e3 / float(np.median(
+                      rates["kernel use_jit=False"])),
+                      sum(r[0] for r in irows),
+                      peaks["kernel use_jit=False"], None)}, card)
+    exe.close()
     return launches, buckets, fp32_launches
 
 
-def profile_dispatch(exe, infer, feed, pred, scope, runs=3):
+def profile_dispatch(exe, infer, feed, pred, scope, runs=3, tag="profile"):
     """Where the time of a batch-32 dispatch goes: device time by kernel
-    (torch.profiler) and the device's idle share of the window."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            exe.run(infer, feed=feed, fetch_list=[pred], scope=scope,
-                    is_test=True)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    print_profile("profile", f"batch-{BATCH} dispatch", prof, wall_ms, runs)
+    (torch.profiler) and the device's idle share of the window.  Returns
+    the profile's rows (ms a run, launches a run, name) and its wall."""
+    prof, wall_ms = profiled(lambda: exe.run(
+        infer, feed=feed, fetch_list=[pred], scope=scope, is_test=True),
+        runs)
+    return print_profile(tag, f"batch-{BATCH} dispatch", prof, wall_ms,
+                         runs), wall_ms
 
 
 CONV_KERNELS = ("conv1x1_mm", ("mm_bf16_tma", "mm_f32_tma",
@@ -911,6 +982,152 @@ def print_profile(tag, what, prof, wall_ms, runs, own=CONV_KERNELS):
     for ms, n, name in sorted(rows, reverse=True)[:15]:
         print(f"[{tag}] {ms:8.3f} ms {n:5d}x {name[:100]}")
     return rows
+
+
+def capture_stats():
+    """The executor's captured-step counters (reset with ``.reset()``)."""
+    from paddle_tpu_torch.core import compile_cache
+    return compile_cache.stats()
+
+
+def check_captured(tag, snap, steps=None):
+    """The captured arm ran every step on the captured path: graph
+    replays (``steps`` of them, if given), and no step uncaptured."""
+    if snap["uncaptured"] or not snap["replays"] or (
+            steps is not None and snap["replays"] != steps):
+        raise RuntimeError(f"chip_smoke: {tag}: the captured arm's steps "
+                           f"were {snap}, expected "
+                           f"{steps or 'some'} replays and none uncaptured")
+
+
+def same_fetches(tag, got, want):
+    """Fetches of the captured arm bit-equal to the interpreted arm's."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.detach().cpu() if isinstance(a, torch.Tensor) else \
+            torch.from_numpy(np.asarray(a))
+        b = b.detach().cpu() if isinstance(b, torch.Tensor) else \
+            torch.from_numpy(np.asarray(b))
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            diff = (a.double() - b.double()).abs().max().item() \
+                if a.shape == b.shape else "shape"
+            raise RuntimeError(f"chip_smoke: {tag}: fetch {i} of the "
+                               f"captured arm differs from the interpreted "
+                               f"arm's (max |diff| {diff})")
+    if len(got) != len(want):
+        raise RuntimeError(f"chip_smoke: {tag}: {len(got)} fetches vs "
+                           f"{len(want)}")
+
+
+def same_scopes(tag, a, b):
+    """Every entry of two scopes bit-equal."""
+    if sorted(a.keys()) != sorted(b.keys()):
+        raise RuntimeError(f"chip_smoke: {tag}: the scopes hold different "
+                           f"names")
+    bad = [k for k in a.keys() if not torch.equal(a.get(k), b.get(k))]
+    if bad:
+        raise RuntimeError(f"chip_smoke: {tag}: {len(bad)} scope entries "
+                           f"differ between the captured and interpreted "
+                           f"arms, e.g. {bad[:4]}")
+    return len(a.keys())
+
+
+def profiled(step, runs=1):
+    """(profile, wall ms of the window) of ``runs`` calls of ``step()``,
+    one small kernel first (the trace has lost a window's first kernel
+    once)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return prof, wall_ms
+
+
+def kernel_count(rows, fragment):
+    """Launches a run of the kernels whose name holds ``fragment`` in a
+    profile's rows."""
+    return sum(n for _, n, name in rows if fragment in name)
+
+
+def conv_since(conv1x1, kernel):
+    """A function giving {trace name fragment: launches} that K1's
+    wrappers counted since this call."""
+    before = collections.Counter(conv1x1.mm.by_form)
+
+    def counted():
+        d = collections.Counter(conv1x1.mm.by_form) - before
+        return {kernel: sum(n for f, n in d.items() if f != "splitk_reduce"),
+                "splitk_reduce": d["splitk_reduce"]}
+    return counted
+
+
+def flash_since(fa):
+    """A function giving {trace name fragment: launches} that the
+    attention wrappers counted since this call."""
+    before = collections.Counter(fa.launches)
+
+    def counted():
+        d = collections.Counter(fa.launches) - before
+        return {f"flash_{n}_tma": d[n] for n in ("fwd", "bwd_dq", "bwd_dkv")}
+    return counted
+
+
+def profiled_checked(tag, what, step, runs, since, own=CONV_KERNELS,
+                     attempts=3):
+    """print_profile of a profiled window of ``runs`` calls of ``step``,
+    with each kernel's launches in its trace held against what its
+    wrapper's counter gained over the window (``since()`` starts the
+    count).  On a captured path a replay calls no wrapper: the counts
+    are the capture's deltas, added once a replay by the executor, and
+    this holds them against what the card ran.  The profiler has dropped
+    one kernel's record from a window now and then while the window's
+    wall showed the kernel ran; such a window is printed and profiled
+    again, at most ``attempts`` times.  Returns (rows, wall ms)."""
+    for attempt in range(1, attempts + 1):
+        counted = since()
+        prof, wall_ms = profiled(step, runs)
+        counted = counted()
+        rows = print_profile(tag, what, prof, wall_ms, runs, own=own)
+        traced = {frag: kernel_count(rows, frag) * runs for frag in counted}
+        print(f"[{tag}] profiled window of {runs} call(s), attempt "
+              f"{attempt}: launches counted {counted}, in the trace "
+              f"{traced}")
+        if traced == counted:
+            return rows, wall_ms
+    raise RuntimeError(f"chip_smoke: [{tag}] the counted launches "
+                       f"{counted} differ from the trace's {traced} in "
+                       f"{attempts} profiled windows")
+
+
+def graph_pool_bytes(exe):
+    """Bytes the caching allocator holds in the private pools of the
+    executor's captured graphs."""
+    ids = set(exe.graph_pools())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in ids)
+
+
+def arms_line(tag, what, unit, arms, card):
+    """One line per phase: each arm's wall per ``unit`` (unprofiled),
+    device busy per ``unit`` (profiled), the idle share against the
+    unprofiled wall, its peak allocated device memory over the arm
+    (warm-up and capture included) and the bytes its graphs' private
+    pools hold (captured arms)."""
+    parts = []
+    for label, (ms, busy, peak, pools) in arms.items():
+        idle = "not measured" if busy is None else f"{1 - busy / ms:.3f}"
+        b = "not measured" if busy is None else f"{busy:.3f} ms"
+        pool = "" if pools is None else \
+            f", graph pools {pools / 2 ** 30:.2f} GiB"
+        parts.append(f"{label}: {ms:.3f} ms a {unit}, device busy {b}, "
+                     f"idle share {idle}, peak allocated "
+                     f"{peak / 2 ** 30:.2f} GiB{pool}")
+    print(f"[{tag}] {what}: " + "; ".join(parts) + f"; {card}")
 
 
 def build_resnet50_train(seed):
@@ -962,24 +1179,34 @@ def clone_scope(scope, dtype=None):
     return out
 
 
-def train_steps(main, loss, start, feed, steps, amp, kernel):
-    """Warm up once on a copy of ``start``, then run ``steps`` steps on
-    another copy under the launch counts.  Returns (losses, scope, wall
-    seconds, launches by form)."""
+def train_steps(main, loss, start, feed, steps, amp, kernel, use_jit=True):
+    """Warm up on a copy of ``start`` (captured: the key's warm-up step
+    and its capture), then run ``steps`` steps on another copy under the
+    launch counts (captured: replays).  Returns (losses, scope, wall
+    seconds, launches by form, the steps' capture counts, peak allocated
+    device memory over the warm-up and the steps, the graph pools'
+    bytes)."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.ops import conv1x1
-    exe = ptt.Executor(amp=amp, conv1x1_pallas=kernel)
-    exe.run_steps(1, main, feed=feed, fetch_list=[loss],
+    exe = ptt.Executor(amp=amp, conv1x1_pallas=kernel, use_jit=use_jit)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe.run_steps(2 if use_jit else 1, main, feed=feed, fetch_list=[loss],
                   scope=clone_scope(start))
     scope = clone_scope(start)
     torch.cuda.synchronize()
     conv1x1.reset_counts()
+    capture_stats().reset()
     t0 = time.perf_counter()
     losses, = exe.run_steps(steps, main, feed=feed, fetch_list=[loss],
                             scope=scope)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return losses, scope, wall, dict(conv1x1.mm.by_form)
+    snap = capture_stats().snapshot()
+    if use_jit:
+        check_captured("[train] run_steps", snap, steps)
+    return (losses, scope, wall, dict(conv1x1.mm.by_form), snap,
+            torch.cuda.max_memory_allocated(), graph_pool_bytes(exe))
 
 
 def exact_runs(main, loss, start, feed, seed):
@@ -990,7 +1217,9 @@ def exact_runs(main, loss, start, feed, seed):
     import paddle_tpu_torch as ptt
     main64 = main.clone()
     main64.global_block().var("img").dtype = "float64"
-    exe = ptt.Executor(amp=False, conv1x1_pallas=False)
+    # interpreted: a capture would hold a second step's worth of memory
+    # beside the warm-up's (43 GiB each in float64)
+    exe = ptt.Executor(amp=False, conv1x1_pallas=False, use_jit=False)
     scope = clone_scope(start, torch.float64)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1084,12 +1313,11 @@ def phase_train(seed, card, n_gate):
                                   ("bf16 plain", True, False, TRAIN_STEPS),
                                   ("fp32 kernel", False, True, FP32_STEPS),
                                   ("fp32 plain", False, False, FP32_STEPS)):
-        torch.cuda.reset_peak_memory_stats()
         runs[label], steps[label] = train_steps(main, loss, start, feed, k,
                                                 amp, kernel), k
-        print(f"[train] {label}: {runs[label][2] * 1e3 / k:.1f} ms/step, "
-              f"peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        print(f"[train] {label} (captured): {runs[label][2] * 1e3 / k:.1f} "
+              f"ms/step, peak device memory {runs[label][5] / 2 ** 30:.2f} "
+              f"GiB; steps {runs[label][4]}")
         torch.cuda.empty_cache()
     by_form = {dt: runs[f"{DTYPE_LABEL[dt]} kernel"][3]
                for dt in (torch.bfloat16, torch.float32)}
@@ -1115,6 +1343,7 @@ def phase_train(seed, card, n_gate):
 
     torch.cuda.reset_peak_memory_stats()
     exact, perturbed, ms64 = exact_runs(main, loss, start, feed, seed)
+    fp32_ms = compare_train_arms(main, loss, start, feed, card)
     print(f"[train] float64 plain: {ms64:.1f} ms/step, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     torch.cuda.empty_cache()
@@ -1132,36 +1361,135 @@ def phase_train(seed, card, n_gate):
     torch.cuda.empty_cache()
     # bf16 img/s again in turns (kernel, plain, plain, kernel): the host,
     # which bounds the step, drifts within a call
-    turns = {True: [], False: []}
-    for kernel in (True, False, False, True):
+    turns = {"kernel": [], "plain": [], "kernel use_jit=False": []}
+    for label in ("kernel", "plain", "kernel use_jit=False",
+                  "kernel use_jit=False", "plain", "kernel"):
         wall = train_steps(main, loss, start, feed, TRAIN_STEPS, True,
-                           kernel)[2]
-        turns[kernel].append(TRAIN_STEPS * TRAIN_BATCH / wall)
+                           label != "plain",
+                           use_jit=label != "kernel use_jit=False")[2]
+        turns[label].append(TRAIN_STEPS * TRAIN_BATCH / wall)
+        torch.cuda.empty_cache()
     print(f"[train] ResNet-50 bf16 training img/s in turns (kernel, plain, "
-          f"plain, kernel; run_steps({TRAIN_STEPS}) at batch "
-          f"{TRAIN_BATCH}): kernel path {turns[True]}, plain path "
-          f"{turns[False]} on {card}")
+          f"kernel use_jit=False, kernel use_jit=False, plain, kernel; "
+          f"run_steps({TRAIN_STEPS}) at batch {TRAIN_BATCH}): "
+          + ", ".join(f"{k} path {v}" for k, v in turns.items())
+          + f" on {card}")
     torch.cuda.empty_cache()
-    profile_train_step(main, loss, start, feed)
+    for amp in (True, False):
+        n_split = sum(conv1x1.plan(M, C, P, True, False, dtype_of(amp),
+                                   sms).partials > 0 for (P, C, M) in shapes)
+        if amp:
+            profile_train_step(main, loss, start, feed, amp, n_gate, n_split,
+                               card, runs_ms(turns),
+                               "the median of the img/s turns")
+            continue
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            profile_train_step(main, loss, start, feed, amp, n_gate, n_split,
+                               card, fp32_ms, "the bit-equality arms, cuDNN "
+                               "deterministic, as this profile")
+        finally:
+            torch.backends.cudnn.deterministic = saved
     return by_form
 
 
-def profile_train_step(main, loss, start, feed):
-    """Where the time of one bf16 training step goes (kernel path)."""
+def runs_ms(turns):
+    """{use_jit: ms a bf16 step of the kernel path} from the median of
+    the turns' img/s."""
+    return {use_jit: TRAIN_BATCH * 1e3 / float(np.median(
+        turns["kernel" if use_jit else "kernel use_jit=False"]))
+        for use_jit in (True, False)}
+
+
+def compare_train_arms(main, loss, start, feed, card):
+    """The kernel path captured against use_jit=False, bf16 for
+    TRAIN_STEPS steps and fp32 for FP32_STEPS, from one start: losses and
+    the final scope bit-equal, the same launches.  cuDNN runs its
+    deterministic algorithms here: without them the interpreted fp32
+    step is not bit-repeatable (cuDNN's fp32 3x3 convolution backward;
+    two interpreted runs of one step differ), so there would be nothing
+    bitwise to hold the capture to.  Returns {use_jit: ms an fp32 step}."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, amp, k in (("bf16", True, TRAIN_STEPS),
+                            ("fp32", False, FP32_STEPS)):
+            arms = {}
+            for use_jit in (True, False):
+                arms[use_jit] = train_steps(main, loss, start, feed, k, amp,
+                                            True, use_jit)
+                torch.cuda.empty_cache()
+            cap, ref = arms[True], arms[False]
+            same_fetches(f"[train] {key} losses", [cap[0]], [ref[0]])
+            n = same_scopes(f"[train] {key} final scope", cap[1], ref[1])
+            if cap[3] != ref[3]:
+                raise RuntimeError(f"chip_smoke: [train] {key}: captured "
+                                   f"launched {cap[3]}, use_jit=False "
+                                   f"{ref[3]}")
+            print(f"[train] {key} kernel path, {k} steps, cuDNN "
+                  f"deterministic: captured vs use_jit=False losses and all "
+                  f"{n} scope entries bit-equal, launches {cap[3]} both; "
+                  f"captured {cap[2] * 1e3 / k:.1f} ms/step, peak "
+                  f"{cap[5] / 2 ** 30:.2f} GiB (graph pools "
+                  f"{cap[6] / 2 ** 30:.2f} GiB), steps {cap[4]}; "
+                  f"use_jit=False {ref[2] * 1e3 / k:.1f} ms/step, peak "
+                  f"{ref[5] / 2 ** 30:.2f} GiB, steps {ref[4]}; {card}")
+            if not amp:
+                fp32_ms = {u: a[2] * 1e3 / k for u, a in arms.items()}
+            del arms, cap, ref
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return fp32_ms
+
+
+def profile_train_step(main, loss, start, feed, amp, n_gate, n_split, card,
+                       step_ms, where):
+    """Where the time of one training step goes (kernel path, bf16 under
+    ``amp``, else fp32), a replay of the captured step and an
+    interpreted one; the replay's trace must hold K1's 3 x n_gate
+    products and n_split reduce passes.  ``step_ms``: each arm's
+    unprofiled ms a step, measured ``where``."""
     import paddle_tpu_torch as ptt
-    from torch.profiler import ProfilerActivity, profile
-    exe = ptt.Executor(amp=True, conv1x1_pallas=True)
-    scope = clone_scope(start)
-    exe.run_steps(1, main, feed=feed, fetch_list=[loss], scope=scope)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from paddle_tpu_torch.ops import conv1x1
+    kernel = "mm_bf16_tma" if amp else "mm_f32_tma"
+    arms = {}
+    for label, use_jit in (("captured", True), ("use_jit=False", False)):
+        exe = ptt.Executor(amp=amp, conv1x1_pallas=True, use_jit=use_jit)
+        scope = clone_scope(start)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        exe.run_steps(1, main, feed=feed, fetch_list=[loss], scope=scope)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    print_profile("train", f"batch-{TRAIN_BATCH} training step", prof,
-                  wall_ms, 1)
+        torch.cuda.reset_peak_memory_stats()
+        exe.run_steps(2, main, feed=feed, fetch_list=[loss], scope=scope)
+        rows, _ = profiled_checked(
+            "train", f"{DTYPE_LABEL[dtype_of(amp)]} batch-{TRAIN_BATCH} "
+            f"training step, {label}", lambda: exe.run_steps(
+                1, main, feed=feed, fetch_list=[loss], scope=scope), 1,
+            lambda: conv_since(conv1x1, kernel))
+        busy = sum(r[0] for r in rows) if rows else None
+        arms[label] = (step_ms[use_jit], busy,
+                       torch.cuda.max_memory_allocated(),
+                       graph_pool_bytes(exe) if use_jit else None)
+        if use_jit:
+            got = (kernel_count(rows, kernel),
+                   kernel_count(rows, "splitk_reduce"))
+            print(f"[train] the replayed step's trace holds {got[0]} "
+                  f"{kernel} and {got[1]} splitk_reduce launches (gate: "
+                  f"{3 * n_gate} and {n_split})")
+            if got != (3 * n_gate, n_split):
+                raise RuntimeError(f"chip_smoke: the replayed training step "
+                                   f"launched {got}, expected "
+                                   f"{(3 * n_gate, n_split)}")
+        exe.close()
+        del scope
+        torch.cuda.empty_cache()
+    arms_line("train", f"{DTYPE_LABEL[dtype_of(amp)]} batch-{TRAIN_BATCH} "
+              f"training step, kernel path (wall: {where}; peak: over the "
+              f"arm's three steps)", "step", arms, card)
+
+
+def dtype_of(amp):
+    return torch.bfloat16 if amp else torch.float32
 
 
 def phase_library(seed, shapes_with_geometry):
@@ -1465,24 +1793,30 @@ def phase_attention_train(seed, card):
     around it; then one step held against the plain path, and a profile."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.ops import flash_attention as fa
-    from torch.profiler import ProfilerActivity, profile
     main, startup, loss = build_longctx(seed)
     start = ptt.Scope()
     exe = ptt.Executor(amp=True)
     exe.run(startup, scope=start)
-    exe.run_steps(1, main, fetch_list=[loss], scope=clone_scope(start))
-    scope = clone_scope(start)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the key's warm-up and capture
+    exe.run_steps(2, main, fetch_list=[loss], scope=clone_scope(start))
+    scope = clone_scope(start)
+    torch.cuda.synchronize()
     # the main path: counts to 0, K steps, read the counts
     fa.reset_counts()
+    capture_stats().reset()
     t0 = time.perf_counter()
     losses, = exe.run_steps(ATT_STEPS, main, fetch_list=[loss], scope=scope)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, routes = dict(fa.launches), dict(fa.reference_route)
     by_dtype = dict(fa.launches_by_dtype)
+    snap = capture_stats().snapshot()
+    peak = torch.cuda.max_memory_allocated()
     ms = wall * 1e3 / ATT_STEPS
+    print(f"[attention] train: the {ATT_STEPS} steps {snap}")
+    check_captured("[attention] train", snap, ATT_STEPS)
     print(f"[attention] train: long-context program, {ATT_HEADS} heads x "
           f"{ATT_T} tokens x d {ATT_DIM}, causal, Executor(amp=True)"
           f".run_steps({ATT_STEPS}): {ms:.3f} ms/step, "
@@ -1499,20 +1833,37 @@ def phase_attention_train(seed, card):
                            f"expected {want_dtype} and none")
     if not np.isfinite(losses).all():
         raise RuntimeError(f"chip_smoke: non-finite loss {losses}")
+    # the same steps interpreted (use_jit=False) from the same start
+    iexe = ptt.Executor(amp=True, use_jit=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iexe.run_steps(1, main, fetch_list=[loss], scope=clone_scope(start))
+    iscope = clone_scope(start)
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    ilosses, = iexe.run_steps(ATT_STEPS, main, fetch_list=[loss],
+                              scope=iscope)
+    torch.cuda.synchronize()
+    ims = (time.perf_counter() - t0) * 1e3 / ATT_STEPS
+    ipeak = torch.cuda.max_memory_allocated()
+    same_fetches("[attention] train losses", [losses], [ilosses])
+    n = same_scopes("[attention] train final scope", scope, iscope)
+    if dict(fa.launches) != counts:
+        raise RuntimeError(f"chip_smoke: [attention] use_jit=False launched "
+                           f"{dict(fa.launches)}, captured {counts}")
+    print(f"[attention] train, captured vs use_jit=False: losses and all {n} "
+          f"scope entries bit-equal, launches {counts} both")
+    del iscope
+    torch.cuda.empty_cache()
     hold_attention_step(fa, exe, main, loss, start)
     scope = clone_scope(start)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # one small kernel first: the trace has lost the window's first
-        # kernel (the step's forward) once
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        exe.run_steps(1, main, fetch_list=[loss], scope=scope)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = print_profile("attention", f"long-context training step (T "
-                         f"{ATT_T})", prof, wall_ms, 1, own=ATT_KERNELS)
+    # one step first: the replay then reads its own state buffers
+    exe.run_steps(1, main, fetch_list=[loss], scope=scope)
+    rows, _ = profiled_checked(
+        "attention", f"long-context training step (T {ATT_T}), a replay",
+        lambda: exe.run_steps(1, main, fetch_list=[loss], scope=scope), 1,
+        lambda: flash_since(fa), own=ATT_KERNELS)
     if not rows:
         raise RuntimeError("chip_smoke: the profiled AMP step recorded no "
                            "device time")
@@ -1523,7 +1874,26 @@ def phase_attention_train(seed, card):
     if missing:
         raise RuntimeError(f"chip_smoke: the profiled AMP step ran no "
                            f"{missing}")
-    del start, scope
+    once = {k: kernel_count(rows, k) for k in (
+        "flash_fwd_tma", "flash_bwd_dq_tma", "flash_bwd_dkv_tma")}
+    print(f"[attention] the replayed step's trace holds {once} launches")
+    if set(once.values()) != {1}:
+        raise RuntimeError(f"chip_smoke: the replayed AMP step launched "
+                           f"{once}, one each expected")
+    iscope = clone_scope(start)
+    iexe.run_steps(1, main, fetch_list=[loss], scope=iscope)
+    iprof, iwall = profiled(lambda: iexe.run_steps(
+        1, main, fetch_list=[loss], scope=iscope))
+    irows = print_profile("attention", f"long-context training step (T "
+                          f"{ATT_T}), use_jit=False", iprof, iwall, 1,
+                          own=ATT_KERNELS)
+    arms_line("attention", f"train, long-context step (T {ATT_T})", "step",
+              {"captured": (ms, sum(r[0] for r in rows), peak,
+                            graph_pool_bytes(exe)),
+               "use_jit=False": (ims, sum(r[0] for r in irows) if irows
+                                 else None, ipeak, None)}, card)
+    exe.close()
+    del start, scope, iscope
     torch.cuda.empty_cache()
     return counts
 
@@ -1589,6 +1959,11 @@ S2S_WINDOWS = 5          # timed windows; the median is reported
 # parameter's Adam update within 1e-3 of the learning rate (an update is
 # at most about lr; where a gradient is near eps, Adam's division passes
 # its rounding on with a gain up to lr * 0.0316 / eps; 3e-5 measured).
+# A ragged window: batches each padded to its own longest row rounded up
+# to 8, as DataFeeder pads lengths drawn in 1..30, so the padded width (a
+# new captured-step key) changes every batch or two.  Each width appears
+# three times: a warm-up, a capture, a replay.
+S2S_RAGGED = (8, 16, 24, 32, 16, 8, 32, 24, 8, 24, 16, 32)
 S2S_F64_TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-3}
 # AMP (bf16 forward and backward) against the fp32 step: the loss within
 # 1e-2 relative (the bf16 loss's ulp near 10 is 4.9e-3 of it), each
@@ -1635,6 +2010,79 @@ def s2s_feed(seed, ragged):
     return {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
 
 
+def s2s_padded_feed(seed, width):
+    """A host batch padded to ``width`` tokens (lengths drawn in
+    1..width, one row at width), as DataFeeder gives it."""
+    r = np.random.RandomState(seed)
+    feed = {k: r.randint(0, S2S_VOCAB, (S2S_BATCH, width))
+            for k in ("src", "tgt", "lbl")}
+    ls, lt = r.randint(1, width + 1, S2S_BATCH), \
+        r.randint(1, width + 1, S2S_BATCH)
+    ls[0] = lt[0] = width
+    feed.update({"src@LEN": ls, "tgt@LEN": lt, "lbl@LEN": lt})
+    return feed
+
+
+def s2s_ragged_window(exe, main, loss, start, feeds):
+    """Two passes of ``exe.run`` over ``feeds`` from a copy of ``start``:
+    (ms a step of each pass, the losses, the final scope, each pass's
+    captured-step counters, peak reserved device memory, graph-pool
+    bytes)."""
+    scope = clone_scope(start)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, snaps = [], [], []
+    for _ in range(2):
+        capture_stats().reset()
+        t0 = time.perf_counter()
+        for f in feeds:
+            losses.append(exe.run(main, feed=f, fetch_list=[loss],
+                                  scope=scope)[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / len(feeds))
+        snaps.append(capture_stats().snapshot())
+    return (ms, losses, scope, snaps, torch.cuda.max_memory_reserved(),
+            graph_pool_bytes(exe))
+
+
+def phase_s2s_ragged(main, loss, start, card):
+    """Ragged traffic on the captured path: S2S_RAGGED's batches, AMP,
+    captured against use_jit=False from the same start, two passes each
+    (the first meets every width new, the second replays them all);
+    losses and final scopes bit-equal."""
+    import paddle_tpu_torch as ptt
+    feeds = [s2s_padded_feed(100 + i, w) for i, w in enumerate(S2S_RAGGED)]
+    arms = {}
+    for use_jit in (True, False):
+        exe = ptt.Executor(amp=True, use_jit=use_jit)
+        arms[use_jit] = s2s_ragged_window(exe, main, loss, start, feeds)
+        exe.close()
+    ms, losses, scope, snaps, peak, pools = arms[True]
+    ims, ilosses, iscope, _, ipeak, _ = arms[False]
+    widths = len(set(S2S_RAGGED))
+    n = len(S2S_RAGGED)
+    want = [(widths, widths, n - widths), (0, 0, n)]
+    got = [(sn["warmups"], sn["captures"], sn["replays"]) for sn in snaps]
+    print(f"[seq2seq] ragged window, AMP, {n} batches padded to "
+          f"{list(S2S_RAGGED)} tokens (src = tgt width): captured "
+          f"{ms[0]:.3f} ms a step on the first pass (warm-ups, captures, "
+          f"replays {got[0]}), {ms[1]:.3f} ms on the second {got[1]}; "
+          f"use_jit=False {ims[0]:.3f} / {ims[1]:.3f} ms; peak reserved "
+          f"{peak / 2 ** 30:.2f} GiB captured (graph pools "
+          f"{pools / 2 ** 30:.2f} GiB) vs {ipeak / 2 ** 30:.2f} GiB; {card}")
+    if got != want or any(sn["uncaptured"] for sn in snaps):
+        raise RuntimeError(f"chip_smoke: [seq2seq] ragged window steps "
+                           f"{snaps}, expected (warm-ups, captures, "
+                           f"replays) {want} and none uncaptured")
+    same_fetches("[seq2seq] ragged window losses", losses, ilosses)
+    k = same_scopes("[seq2seq] ragged window final scope", scope, iscope)
+    print(f"[seq2seq] ragged window, captured vs use_jit=False over "
+          f"{2 * n} steps: losses and all {k} scope entries bit-equal")
+    del arms, scope, iscope
+    torch.cuda.empty_cache()
+
+
 def s2s_step(main, loss, start, feed, amp, dtype=None):
     """One step from a copy of ``start`` (floats cast to ``dtype``):
     (loss, {param: grad}, {param: update}, scope), on the card."""
@@ -1652,11 +2100,16 @@ def s2s_step(main, loss, start, feed, amp, dtype=None):
 def s2s_tokens_per_s(exe, main, loss, start, feed):
     """bench.py's method: one untimed run_steps, then the median over
     S2S_WINDOWS windows of run_steps(S2S_WINDOW) of tokens a second
-    (batch x 60 tokens a step); returns (tokens/s, ms a step, spread)."""
+    (batch x 60 tokens a step); returns (tokens/s, ms a step, spread,
+    every window's losses, the final scope, the timed windows' capture
+    counts, peak device memory)."""
     scope = clone_scope(start)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     exe.run_steps(S2S_WINDOW, main, feed=feed, fetch_list=[loss],
                   scope=scope)
-    rates = []
+    capture_stats().reset()
+    rates, all_losses = [], []
     for _ in range(S2S_WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1667,21 +2120,24 @@ def s2s_tokens_per_s(exe, main, loss, start, feed):
                                f"{losses}")
         rates.append(S2S_BATCH * (S2S_SRC + S2S_TGT) * S2S_WINDOW
                      / (time.perf_counter() - t0))
+        all_losses.append(losses)
     med = float(np.median(rates))
     tokens = S2S_BATCH * (S2S_SRC + S2S_TGT)
-    return med, tokens * 1e3 / med, (max(rates) - min(rates)) / med
+    return (med, tokens * 1e3 / med, (max(rates) - min(rates)) / med,
+            np.concatenate(all_losses), scope, capture_stats().snapshot(),
+            torch.cuda.max_memory_allocated(), graph_pool_bytes(exe))
 
 
 def phase_seq2seq(seed, card):
     """bench.py's seq2seq+attention training leg at its full sizes: the
     fp32 step with ragged lengths against float64, 3 fp32 steps, the AMP
-    step against fp32, tokens/s of run_steps in AMP and fp32, a profile
-    of one AMP step; no hand-written kernel may launch."""
+    step against fp32, tokens/s of run_steps in AMP and fp32 captured
+    and interpreted (bit-equal), a profile of one AMP step each way; no
+    hand-written kernel may launch."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.benchmark import bandwidth as bw
     from paddle_tpu_torch.ops import conv1x1
     from paddle_tpu_torch.ops import flash_attention as fa
-    from torch.profiler import ProfilerActivity, profile
     t_phase = time.perf_counter()
     main, startup, loss = build_seq2seq(seed)
     start = ptt.Scope()
@@ -1757,31 +2213,65 @@ def phase_seq2seq(seed, card):
           "are, in the JAX package too)")
     del sam, g32, g64, gam, u32, u64, uam
 
-    # throughput as bench.py measures it, full lengths
-    rates, step_ms = {}, {}
+    pre_peak = torch.cuda.max_memory_allocated()
+    # throughput as bench.py measures it, full lengths: captured (the
+    # main path) and use_jit=False from the same start, whose losses over
+    # every window and final scopes must be bit-equal
+    rates, step_ms, peaks = {}, {}, {}
     for label, amp in (("AMP", True), ("fp32", False)):
-        tok, ms, spread = s2s_tokens_per_s(ptt.Executor(amp=amp), main, loss,
-                                           start, full)
-        rates[label], step_ms[label] = tok, ms
-        print(f"[seq2seq] {label} run_steps({S2S_WINDOW}), median of "
-              f"{S2S_WINDOWS} windows: {tok:.1f} tokens/s, {ms:.3f} ms a "
-              f"step, spread {spread:.4f}; {card}")
+        arms = {}
+        for use_jit in (True, False):
+            arms[use_jit] = s2s_tokens_per_s(
+                ptt.Executor(amp=amp, use_jit=use_jit), main, loss, start,
+                full)
+            tok, ms, spread, _, _, snap, peak, pools = arms[use_jit]
+            arm = f"{label}" if use_jit else f"{label} use_jit=False"
+            rates[arm], step_ms[arm], peaks[arm] = tok, ms, (peak, pools)
+            print(f"[seq2seq] {arm} run_steps({S2S_WINDOW}), median of "
+                  f"{S2S_WINDOWS} windows: {tok:.1f} tokens/s, {ms:.3f} ms "
+                  f"a step, spread {spread:.4f}, peak device memory "
+                  f"{peak / 2 ** 30:.2f} GiB, graph pools "
+                  f"{pools / 2 ** 30:.2f} GiB; steps {snap}; {card}")
+            if use_jit:
+                check_captured(f"[seq2seq] {label}", snap,
+                               S2S_WINDOW * S2S_WINDOWS)
+        same_fetches(f"[seq2seq] {label} losses", [arms[True][3]],
+                     [arms[False][3]])
+        n = same_scopes(f"[seq2seq] {label} final scope", arms[True][4],
+                        arms[False][4])
+        print(f"[seq2seq] {label}, captured vs use_jit=False over "
+              f"{S2S_WINDOW * (S2S_WINDOWS + 1)} steps: losses and all {n} "
+              f"scope entries bit-equal")
+        del arms
+        torch.cuda.empty_cache()
+    phase_s2s_ragged(main, loss, start, card)
 
-    # one profiled AMP step
-    exe = ptt.Executor(amp=True)
-    scope = clone_scope(start)
-    exe.run_steps(1, main, feed=full, fetch_list=[loss], scope=scope)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        exe.run_steps(1, main, feed=full, fetch_list=[loss], scope=scope)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = print_profile("seq2seq", f"AMP training step (batch "
-                         f"{S2S_BATCH}, {S2S_SRC} + {S2S_TGT} tokens)",
-                         prof, wall_ms, 1, own=None)
+    # one profiled step of each dtype, a replay and an interpreted one
+    for label, amp in (("AMP", True), ("fp32", False)):
+        prof_rows = {}
+        for use_jit in (True, False):
+            exe = ptt.Executor(amp=amp, use_jit=use_jit)
+            scope = clone_scope(start)
+            exe.run_steps(2, main, feed=full, fetch_list=[loss], scope=scope)
+            prof, wall_ms = profiled(lambda: exe.run_steps(
+                1, main, feed=full, fetch_list=[loss], scope=scope))
+            prof_rows[use_jit] = print_profile(
+                "seq2seq", f"{label} training step (batch {S2S_BATCH}, "
+                f"{S2S_SRC} + {S2S_TGT} tokens), "
+                + ("a replay" if use_jit else "use_jit=False"), prof,
+                wall_ms, 1, own=None)
+            exe.close()
+            del scope
+        if label == "AMP":
+            rows = prof_rows[True]
+        arm = {True: label, False: f"{label} use_jit=False"}
+        arms_line("seq2seq", f"{label} training step (wall: run_steps("
+                  f"{S2S_WINDOW}) windows)", "step",
+                  {("captured" if u else "use_jit=False"): (
+                      step_ms[arm[u]], sum(r[0] for r in prof_rows[u])
+                      if prof_rows[u] else None, peaks[arm[u]][0],
+                      peaks[arm[u]][1] if u else None)
+                   for u in (True, False)}, card)
     if not rows:
         raise RuntimeError("chip_smoke: [seq2seq] the profiled AMP step "
                            "recorded no device time")
@@ -1790,26 +2280,169 @@ def phase_seq2seq(seed, card):
     gb = main.global_block()
     bw_at = [op.type for op in gb.ops].index("backward")
     n_step = len(main.blocks[1].ops)
-    print(f"[seq2seq] the profiler slows the host; against the unprofiled "
-          f"AMP step ({step_ms['AMP']:.3f} ms) the device busy {busy:.3f} ms "
-          f"leaves an idle share of {1 - busy / step_ms['AMP']:.3f}; the "
-          f"step runs {bw_at + S2S_TGT * n_step} forward op calls ({bw_at} "
-          f"in block 0, {n_step} a decoder step x {S2S_TGT}) and "
-          f"{len(gb.ops) - bw_at - 1} optimizer ops, and launches {kernels} "
-          f"device kernels, {step_ms['AMP'] * 1e3 / kernels:.1f} us of "
-          f"unprofiled wall each; {card}")
+    print(f"[seq2seq] the step runs {bw_at + S2S_TGT * n_step} forward op "
+          f"calls ({bw_at} in block 0, {n_step} a decoder step x "
+          f"{S2S_TGT}) and {len(gb.ops) - bw_at - 1} optimizer ops, and "
+          f"its replay launches {kernels} device kernels (device busy "
+          f"{busy:.3f} ms): {step_ms['AMP'] * 1e3 / kernels:.2f} us of "
+          f"unprofiled captured wall each, "
+          f"{step_ms['AMP use_jit=False'] * 1e3 / kernels:.2f} us "
+          f"interpreted; {card}")
     counts = {"conv1x1_mm": dict(conv1x1.mm.by_form),
               "flash_attn": dict(fa.launches), "stream": dict(bw.launches)}
-    print(f"[seq2seq] peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+    peak = max([pre_peak, torch.cuda.max_memory_allocated()]
+               + [p for p, _ in peaks.values()])
+    print(f"[seq2seq] peak device memory {peak / 2 ** 30:.2f} GiB; "
           f"hand-written kernel launches in the phase {counts}; phase "
           f"{time.perf_counter() - t_phase:.1f} s; {card}")
     if any(counts.values()):
         raise RuntimeError(f"chip_smoke: [seq2seq] launched hand-written "
                            f"kernels {counts}; the path has none")
-    del start, scope
+    del start
     torch.cuda.empty_cache()
     return rates
+
+
+# ---------------------------------------------------------------------------
+# [pipeline] bench.py's input-pipeline leg on wide_deep
+# ---------------------------------------------------------------------------
+PIPE_REPS = 4            # bench.py's reps (_input_pipeline_speedup, :225)
+# One fp32 step (TF32 off) against the port's float64 run of the same
+# step from the same weights and batch: the loss within 1e-5 relative,
+# each gradient's largest error within 1e-4 of its largest magnitude.
+PIPE_F64_TOL = {"loss": 1e-5, "grad": 1e-4}
+
+
+def phase_pipeline(seed, card):
+    """bench.py's input-pipeline leg with nothing cut (benchmark/
+    input_pipeline.py's wide_deep at vocab 1000, emb 8, 26 sparse and 13
+    dense features, deep (32, 16), batch 256, 60 batches a window, 4
+    pairs, steps_per_dispatch 10, one reader worker, SGD(0.05), fp32):
+    the pipelined fetches and final scope against the sequential run
+    loop's (both captured) and the loop's against use_jit=False, bit for
+    bit over one pass; one fp32 step against float64; the paired A/B
+    (naive and pipelined steps/s, the median per-pair speedup) and a
+    profile of one pipelined window.  Returns the A/B's row."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.benchmark import input_pipeline as ip
+    t_phase = time.perf_counter()
+    cfg = dict(ip.WORKLOADS["wide_deep"]["full"])
+    K = cfg["pipeline"]["steps_per_dispatch"]
+    ip.fresh_programs()
+    ptt.default_startup_program().random_seed = seed
+    sgd, feed_list = ip.build_wide_deep(cfg)
+    main, cost = sgd.main_program, sgd.cost
+    start = ptt.Scope()
+    ptt.Executor().run(ptt.default_startup_program(), scope=start)
+    feeder = ptt.DataFeeder(feed_list)
+    feeds = [feeder.feed(b) for b in ip.make_reader(cfg, seed)()]
+    ops = [op.type for op in main.global_block().ops]
+    print(f"[pipeline] wide_deep: vocab {cfg['vocab']}, emb {cfg['emb']}, "
+          f"{ip.NF_SPARSE} sparse + {ip.NF_DENSE} dense features, deep "
+          f"(32, 16), batch {cfg['batch']}, {len(feeds)} batches a pass; "
+          f"{len(ops)} ops ({ops.count('lookup_table')} lookup_table); "
+          f"{card}")
+
+    # one pass three ways from the same weights
+    arms = {}
+    for label in ("sequential", "pipelined", "sequential use_jit=False"):
+        exe = ptt.Executor(use_jit=label != "sequential use_jit=False")
+        scope = clone_scope(start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        capture_stats().reset()
+        t0 = time.perf_counter()
+        if label == "pipelined":
+            outs = [o[0] for o in exe.run_pipelined(
+                iter(feeds), main, fetch_list=[cost], scope=scope,
+                steps_per_dispatch=K)]
+        else:
+            outs = [exe.run(main, feed=f, fetch_list=[cost], scope=scope)[0]
+                    for f in feeds]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(feeds)
+        arms[label] = (np.stack(outs), scope, ms, capture_stats().snapshot(),
+                       torch.cuda.max_memory_allocated())
+        pools = graph_pool_bytes(exe)
+        exe.close()
+        print(f"[pipeline] one pass, {label}: {ms:.3f} ms a step (the "
+              f"first steps build, warm up and capture), peak device "
+              f"memory {arms[label][4] / 2 ** 30:.2f} GiB, graph pools "
+              f"{pools / 2 ** 30:.3f} GiB; steps {arms[label][3]}")
+        if label != "sequential use_jit=False":
+            check_captured(f"[pipeline] {label}", arms[label][3])
+        if not np.isfinite(arms[label][0]).all():
+            raise RuntimeError(f"chip_smoke: [pipeline] {label}: non-finite "
+                               f"loss")
+    for a, b in (("pipelined", "sequential"),
+                 ("sequential", "sequential use_jit=False")):
+        same_fetches(f"[pipeline] {a} vs {b}", [arms[a][0]], [arms[b][0]])
+        n = same_scopes(f"[pipeline] {a} vs {b}", arms[a][1], arms[b][1])
+        print(f"[pipeline] {a} vs {b}: {len(feeds)} losses and all {n} "
+              f"scope entries bit-equal")
+    del arms
+
+    # one fp32 step against float64
+    params = [p.name for p in main.all_parameters()]
+    fetch = [cost.name] + [p + "@GRAD" for p in params]
+    out32 = ptt.Executor().run(main, feed=feeds[0], fetch_list=fetch,
+                               scope=clone_scope(start), return_numpy=False)
+    main64 = main.clone()
+    for name in ("dense", "label"):
+        main64.global_block().var(name).dtype = "float64"
+    out64 = ptt.Executor(use_jit=False).run(
+        main64, feed=feeds[0], fetch_list=fetch,
+        scope=clone_scope(start, torch.float64), return_numpy=False)
+    lerr = abs(out32[0].double() - out64[0]).item() / abs(out64[0]).item()
+    gerr = {p: ((g.double() - h).abs().max() / h.abs().max()).item()
+            for p, g, h in zip(params, out32[1:], out64[1:])}
+    worst = max(gerr, key=gerr.get)
+    print(f"[pipeline] one fp32 step vs float64: loss {out32[0].item():.7f} "
+          f"/ {out64[0].item():.7f}, relative error {lerr:.3e} (limit "
+          f"{PIPE_F64_TOL['loss']}); gradients' largest error / largest "
+          f"magnitude at most {gerr[worst]:.3e} ({worst}; limit "
+          f"{PIPE_F64_TOL['grad']}) over {len(params)} parameters")
+    if not (lerr <= PIPE_F64_TOL["loss"] and
+            gerr[worst] <= PIPE_F64_TOL["grad"]):
+        raise RuntimeError(f"chip_smoke: [pipeline] the fp32 step is "
+                           f"outside the float64 limits {PIPE_F64_TOL}")
+    del out32, out64, start
+    torch.cuda.empty_cache()
+
+    # the paired A/B as bench.py runs it, and one profiled pipelined window
+    profiled_window = {}
+
+    def window(one_pass, pipe_cfg):
+        prof, wall_ms = profiled(lambda: one_pass(pipe_cfg))
+        rows = print_profile("pipeline", f"one pipelined window "
+                             f"({cfg['batches']} steps)", prof, wall_ms, 1,
+                             own=None)
+        profiled_window["busy"] = sum(r[0] for r in rows)
+        profiled_window["wall"] = wall_ms
+
+    row = ip.run_workload(reps=PIPE_REPS, quiet=True, window=window,
+                          seed=seed)
+    print(f"[pipeline] the A/B's passes: steps {row['steps_by_path']}")
+    check_captured("[pipeline] A/B", row["steps_by_path"])
+    busy = profiled_window.get("busy")
+    win_ms = cfg["batches"] * 1e3 / row["pipelined_steps_per_s"]
+    print(f"[pipeline] naive trainer.SGD.train {row['naive_steps_per_s']:.2f}"
+          f" steps/s (windows {row['naive_windows']}, spread "
+          f"{row['naive_spread']:.4f}); pipelined "
+          f"{row['pipelined_steps_per_s']:.2f} steps/s (windows "
+          f"{row['pipelined_windows']}, spread {row['pipelined_spread']:.4f}"
+          f"); median per-pair speedup {row['speedup']:.4f} (pairs "
+          f"{row['speedup_pairs']}, spread {row['speedup_spread']:.4f}); "
+          f"{row['steps']} steps, losses finite; {card}")
+    print(f"[pipeline] input_pipeline_wide_deep_train_steps_per_sec "
+          f"{row['pipelined_steps_per_s']:.2f} (vs_baseline "
+          f"{row['speedup']:.4f}); one pipelined window: device busy "
+          + ("not measured" if busy is None else
+             f"{busy:.3f} ms of {win_ms:.3f} ms unprofiled (median "
+             f"window), idle share {1 - busy / win_ms:.3f}; profiled "
+             f"window {profiled_window['wall']:.3f} ms")
+          + f"; phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2134,6 +2767,9 @@ def main():
     phase_attention_table(args.seed, card)
     torch.cuda.empty_cache()
     phase_seq2seq(args.seed, card)
+    torch.cuda.empty_cache()
+    phase_pipeline(args.seed, card)
+    torch.cuda.empty_cache()
     bw_entries, _ = phase_bandwidth(args.seed, card)
 
     # bf16: the served path and the AMP step; fp32: the served forward's

@@ -19,7 +19,10 @@ training (``models.seq2seq_attention``: sub-blocks and ``@LEN``
 lengths in the executor, ``layers.StaticRNN``, the GRU and sequence
 ops, ``embedding``, Adam, ``DataFeeder``), the HBM stream-bandwidth
 probe (``benchmark/bandwidth.py``, with its Triton copy and axpy and its
-bulk-copy DMA copy), and two kernels of the framework: the
+bulk-copy DMA copy), each step dispatched as a captured CUDA graph
+(``Executor(use_jit=True)``, ``core/compile_cache.py``), the input
+pipeline (``reader``, ``trainer.SGD``, ``Executor.run_pipelined``,
+``models.wide_deep``, ``benchmark/input_pipeline.py``), and two kernels of the framework: the
 1x1-convolution matrix product with its gradients and epilogues
 (``ops/conv1x1.py``) and flash attention, forward and backward
 (``ops/flash_attention.py``).
@@ -34,6 +37,7 @@ from .core import (
 from . import ops  # noqa: F401  (registers every op implementation)
 from . import flags, initializer, layer_helper, layers, models, nets
 from . import optimizer, regularizer, clip, backward, data_feeder
+from . import reader, trainer
 from .backward import append_backward
 from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
@@ -48,5 +52,5 @@ __all__ = [
     "optimizer",
     "regularizer", "clip", "backward", "data_feeder", "DataFeeder",
     "append_backward", "ParamAttr",
-    "load_numpy_state", "faults",
+    "load_numpy_state", "faults", "reader", "trainer",
 ]

@@ -1,6 +1,8 @@
 """The port's counterparts of the JAX package's ``benchmark/`` probes.
 
 ``python -m paddle_tpu_torch.benchmark.bandwidth`` is the HBM
-stream-bandwidth probe of ``benchmark/bandwidth.py``.  Nothing here is
-imported by the package itself.
+stream-bandwidth probe of ``benchmark/bandwidth.py``;
+``python -m paddle_tpu_torch.benchmark.input_pipeline`` is the wide_deep
+leg of ``benchmark/input_pipeline.py``.  Nothing here is imported by the
+package itself.
 """

@@ -13,24 +13,33 @@ implementations (``run_op``) on the executor's device:
         write back the persistables the ops produced; return fetches
 
 ``run_steps`` runs K such steps with the state kept on the device and
-the fetches stacked on a leading K axis.
+the fetches stacked on a leading K axis.  On a card each step is a
+replay of a CUDA graph captured from the interpreter (``_CapturedStep``,
+cached by fingerprint in ``core/compile_cache.py``), the counterpart of
+the JAX executor's compiled step; ``run_pipelined`` overlaps the feeds'
+staging with the steps.
 
 A sub-block (the step of a ``StaticRNN``) runs in a child ``Env`` whose
 lookups fall through to its parent's; sequence vars carry their lengths
 as ``name@LEN`` integer companions (fed, or set by ops through
 ``ExecContext.set_len``), which no AMP cast touches.
 
-Not ported yet: capturing a step as a CUDA graph (the counterpart of
-the JAX executor's compiled step), the compile cache, observability,
+Not ported yet: ``Executor.compile``, the disk cache, observability,
 validation and retry.
 """
 from __future__ import annotations
 
+import collections
+import threading
+import warnings
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..flags import get_flag
+from . import compile_cache
 from .program import Block, Operator, Program, Variable, grad_var_name
 from .registry import get_op_impl
 from .scope import Scope, global_scope, to_numpy
@@ -151,6 +160,8 @@ class ExecContext:
         self.op: Optional[Operator] = None
         self.env: Optional[Env] = None
         self._op_uid = 0
+        # the op last started (a failed capture names it)
+        self.last_op: Optional[Operator] = None
 
     def block(self, idx: int) -> Block:
         return self.program.blocks[idx]
@@ -212,6 +223,7 @@ def run_op(op: Operator, env: Env, ctx: ExecContext):
            for slot, names in op.inputs.items() if names}
     prev_op, prev_env = ctx.op, ctx.env
     ctx.op, ctx.env = op, env
+    ctx.last_op = op
     ctx._op_uid += 1
     try:
         result = impl(ctx, ins, op.attrs)
@@ -366,29 +378,271 @@ def pad_batch(stacked: Dict[str, np.ndarray], to: int) -> Dict[str, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
+# Per-program memo (keyed by the program object and its version)
+# ---------------------------------------------------------------------------
+_MEMO_MAX = 64
+
+
+def _memo(program: Program, key, compute):
+    """``compute()`` once per (program object, version, key): the
+    executor's per-step scans of the op lists happen once per program
+    mutation, as the JAX executor memoizes ``_state_keys``."""
+    tag = (id(program), program.version)
+    memo = program.__dict__.get("_exec_memo")
+    if memo is None or memo[0] != tag:
+        memo = (tag, {})
+        program._exec_memo = memo
+    table = memo[1]
+    if key not in table:
+        if len(table) > _MEMO_MAX:
+            table.clear()
+        table[key] = compute()
+    return table[key]
+
+
+def _has_backward(program: Program) -> bool:
+    return _memo(program, "has_backward", lambda: any(
+        op.type == "backward" for op in program.global_block().ops))
+
+
+def _written_persistables(program: Program) -> List[str]:
+    """Persistables of the global block some op of it writes, in the
+    block's var order (the order the write-back visits them)."""
+    def compute():
+        gb = program.global_block()
+        written = {n for op in gb.ops for n in op.output_names}
+        return [name for name, var in gb.vars.items()
+                if var.persistable and name in written]
+    return _memo(program, "written", compute)
+
+
+def _draws_random(program: Program, is_test: bool) -> bool:
+    """Whether a step of ``program`` draws from ``ExecContext.generator``
+    (dropout in training, uniform_random, gaussian_random): its host-side
+    generator, seeded per (seed, step, op), would be frozen by a replay."""
+    def compute():
+        for b in program.blocks:
+            for op in b.ops:
+                if op.type in ("uniform_random", "gaussian_random"):
+                    return True
+                if op.type == "dropout" and not (
+                        is_test or op.attrs.get("is_test", False)):
+                    return True
+        return False
+    return _memo(program, ("random", bool(is_test)), compute)
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# One step captured as a CUDA graph
+# ---------------------------------------------------------------------------
+class _CapturedStep:
+    """A step of one (program, feed signature, fetches, state, config)
+    key, captured as a CUDA graph over static buffers.
+
+    Inputs are the static feed and state buffers, filled before each
+    replay outside the graph: feeds by a copy, and every state entry for
+    which the scope holds a tensor other than this step's own buffer (a
+    ``scope.set`` from outside, another scope, or another captured step's
+    buffer: a replay writes its buffers in place and leaves their
+    ``_version`` as it was, so nothing short of a copy sees what it
+    wrote); the step ends by copying every persistable an op produced
+    into its state buffer, in the dtype the scope held, and after a
+    replay the scope points at those buffers.  Fetches are copied out of
+    the graph's buffers.  ``nbytes`` is what the graph's private memory
+    pool holds after the capture.
+
+    A thread's first step of the key runs interpreted (the warm-up: the
+    thread's cuDNN and cuBLAS handles, which PyTorch keeps per thread,
+    are made there); ``warm_threads`` holds the threads that took one.
+    The next step in a warm thread captures (and replays once)."""
+
+    def __init__(self):
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.warm_threads = set()
+        self.static_feeds: Dict[str, torch.Tensor] = {}
+        self.static_state: Dict[str, torch.Tensor] = {}
+        self.nbytes = 0
+        self.fetches: List[Optional[torch.Tensor]] = []
+        self.written: List[str] = []
+        self.new_outputs: Dict[str, torch.Tensor] = {}
+        self.deltas: List[collections.Counter] = []
+
+    def capture(self, exe: "Executor", program: Program,
+                feeds: Dict[str, torch.Tensor], scope: Scope,
+                state_keys: List[str], fetch_names: List[str],
+                is_test: bool):
+        self.static_feeds = {k: v.clone() for k, v in feeds.items()}
+        self.static_state = {k: scope.get(k).clone() for k in state_keys}
+        owned = {_storage(t) for t in (*self.static_feeds.values(),
+                                       *self.static_state.values())}
+
+        def own(v):
+            # a value sharing a static buffer's storage is copied inside
+            # the graph, before the state write-back can change it
+            if isinstance(v, torch.Tensor) and _storage(v) in owned:
+                return v.clone()
+            return v
+
+        counters = compile_cache.launch_counters()
+        before = [collections.Counter(c) for c in counters]
+        ctx = exe._context(program, is_test)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=exe._side,
+                                  capture_error_mode="thread_local"):
+                fetches, writes = exe._interpret_step(
+                    program, ctx, self.static_state, self.static_feeds,
+                    fetch_names)
+                self.fetches = [own(f) for f in fetches]
+                writes = {k: own(v) for k, v in writes.items()}
+                for k, v in writes.items():
+                    if k in self.static_state:
+                        self.static_state[k].copy_(v)
+                    else:
+                        self.new_outputs[k] = v
+        except Exception as e:
+            op = ctx.last_op
+            where = f"op {op.type!r} (outputs {op.outputs})" if op else \
+                "the step's start"
+            cause = str(e).strip().splitlines()[0] if str(e).strip() else ""
+            raise RuntimeError(
+                f"paddle_tpu_torch: capturing the step of a program as a "
+                f"CUDA graph failed at {where} ({type(e).__name__}: "
+                f"{cause}); run it with Executor(use_jit=False) to step it "
+                f"uncaptured") from e
+        finally:
+            # the capture launched nothing: undo what the wrappers counted
+            self.deltas = []
+            for c, b in zip(counters, before):
+                self.deltas.append(collections.Counter(c) - b)
+                c.clear()
+                c.update(b)
+        self.written = [k for k in writes if k in self.static_state]
+        self.graph = graph
+        pool = tuple(graph.pool())
+        self.nbytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def load_state(self, scope: Scope):
+        """Copy in every state entry whose scope tensor is not this
+        step's own buffer, in one multi-tensor copy (a served program
+        copies in every weight before each batch)."""
+        dst, src = [], []
+        for k, buf in self.static_state.items():
+            t = scope.get(k)
+            if t is not buf:
+                dst.append(buf)
+                src.append(t)
+        if dst:
+            torch._foreach_copy_(dst, src)
+
+    def replay(self, feeds: Dict[str, torch.Tensor]):
+        for k, v in feeds.items():
+            self.static_feeds[k].copy_(v)
+        self.graph.replay()
+        for c, d in zip(compile_cache.launch_counters(), self.deltas):
+            if d:
+                c.update(d)
+
+    def publish(self, scope: Scope):
+        for k in self.written:
+            scope.set(k, self.static_state[k])
+        for k, v in self.new_outputs.items():
+            scope.set(k, v)
+
+    def close(self):
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.static_feeds, self.static_state = {}, {}
+        self.fetches, self.new_outputs = [], {}
+
+
+# ---------------------------------------------------------------------------
 # Executor
 # ---------------------------------------------------------------------------
+_warned_random = weakref.WeakSet()
+
+
 class Executor:
     """Run a Program on one device (``place``, default ``CUDAPlace(0)``).
+
+    ``use_jit=True`` (the default) on a card: ``run`` and ``run_steps``
+    dispatch each step as a replay of a CUDA graph captured from the
+    interpreter, cached by fingerprint (``core/compile_cache.py``): the
+    content digest, the per-step feed signature, the fetch names, the
+    state keys with their shapes and dtypes, ``is_test``, ``amp``,
+    ``conv1x1_pallas`` and the device.  A key's first step runs
+    interpreted on the capture's side stream (the warm-up: kernels build,
+    cuBLAS makes its handles there); its second step is captured and
+    replayed; later steps replay.  A program that draws random numbers
+    (dropout in training, ``uniform_random``, ``gaussian_random``) runs
+    interpreted, counted under ``random_op`` in
+    ``compile_cache.stats()`` and warned about once.  A failed capture
+    raises.  ``use_jit=False``, or a CPU place, steps the interpreter
+    (the debugging path, as ``use_jit=False`` in the JAX package).
 
     ``amp=True``: a program with no ``backward`` op (inference) computes
     entirely in bf16 — fp32 feeds and state are cast on entry, and state
     keeps its fp32 dtype in the scope.  A training program computes its
     forward and backward in bf16 against fp32 master parameters, whose
     fp32 gradients the optimizer ops apply (``_run_backward``).
-    ``conv1x1_pallas``: per-executor
-    override of the 1x1-conv kernel routing (None defers to the flag; a
-    per-op ``use_pallas`` attr overrides both)."""
+    ``conv1x1_pallas``: per-executor override of the 1x1-conv kernel
+    routing (None defers to the flag; a per-op ``use_pallas`` attr
+    overrides both).
+
+    Each captured step keeps a private memory pool about one step's
+    activations in size.  At most ``MAX_CACHED_STEPS`` captured steps are
+    kept, and their pools hold at most ``GRAPH_BYTES_SHARE`` of the
+    card's memory, least recently used first out; ``close()`` releases them all.  The captured path is made
+    for fixed shapes: every new feed shape is a new key, which pays an
+    interpreted warm-up step and a capture before it replays, so traffic
+    whose shapes change every few steps (ragged batches each padded to
+    their own longest row) runs slower than ``use_jit=False`` until its
+    keys repeat (``PERF.md`` §5, ``[seq2seq]``'s ragged window)."""
+
+    MAX_CACHED_STEPS = 64
+    GRAPH_BYTES_SHARE = 0.5
 
     def __init__(self, place: Optional[Place] = None, amp: bool = False,
-                 conv1x1_pallas: Optional[bool] = None):
+                 conv1x1_pallas: Optional[bool] = None,
+                 use_jit: bool = True):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.amp = amp
         self.conv1x1_pallas = conv1x1_pallas
+        self.use_jit = use_jit
         self._step = 0
+        self._lock = threading.RLock()
+        max_bytes = None
+        if self.device.type == "cuda" and torch.cuda.is_available():
+            max_bytes = int(self.GRAPH_BYTES_SHARE * torch.cuda
+                            .get_device_properties(self.device).total_memory)
+        self._cache = compile_cache.ExecCache(self.MAX_CACHED_STEPS,
+                                              max_bytes)
+        self._side = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
 
+    def graph_pools(self) -> list:
+        """The memory-pool handles of the captured steps' graphs (the
+        caching allocator's ``segment_pool_id`` of their segments)."""
+        return [tuple(v.graph.pool()) for v in self._cache.values()
+                if v.graph is not None]
+
+    def close(self):
+        """Drop every captured step (their graphs and memory pools)."""
+        with self._lock:
+            self._cache.clear()
+
+    # -- feeds, state, fingerprints ------------------------------------------
     def _feed_tensor(self, gb: Block, name: str, val) -> torch.Tensor:
+        """A feed on the executor's device in its var's dtype; host data
+        reaches a card through pinned memory."""
         want = to_torch_dtype(gb.var(name).dtype) if gb.has_var(name) \
             else None
         if isinstance(val, torch.Tensor):
@@ -400,28 +654,68 @@ class Executor:
             if not (arr.flags.c_contiguous and arr.flags.writeable):
                 arr = np.array(arr, order="C")
             t = torch.from_numpy(arr)
-        t = t.to(self.device, non_blocking=True)
+        if t.device != self.device:
+            if t.device.type == "cpu" and self.device.type == "cuda":
+                t = t.pin_memory()
+            t = t.to(self.device, non_blocking=True)
         if want is not None and t.dtype != want:
             t = t.to(want)
         return t
 
-    @staticmethod
-    def _state_keys(program: Program, scope: Scope) -> List[str]:
-        """Persistable vars referenced by the program that exist in scope."""
-        referenced = set()
-        for b in program.blocks:
-            for op in b.ops:
-                referenced.update(op.input_names)
-                referenced.update(op.output_names)
-        keys = []
-        for name in sorted(referenced):
+    def _state_keys(self, program: Program, scope: Scope) -> List[str]:
+        """Persistable vars referenced by the program that exist in
+        scope; memoized per (program version, scope, scope key set)."""
+        def compute():
+            referenced = set()
             for b in program.blocks:
-                if name in b.vars:
-                    if b.vars[name].persistable and scope.has(name):
-                        keys.append(name)
-                    break
-        return keys
+                for op in b.ops:
+                    referenced.update(op.input_names)
+                    referenced.update(op.output_names)
+            keys = []
+            for name in sorted(referenced):
+                for b in program.blocks:
+                    if name in b.vars:
+                        if b.vars[name].persistable and scope.has(name):
+                            keys.append(name)
+                        break
+            return keys
+        return _memo(program, ("state_keys", scope.uid, scope.keys_version),
+                     compute)
 
+    def _fingerprint(self, program: Program, step_feeds: Dict[str, object],
+                     fetch_names: List[str], scope: Scope,
+                     is_test: bool) -> tuple:
+        """The captured-step key: a signature tuple (its stable string
+        form is ``compile_cache.fingerprint_hex``)."""
+        state = tuple((k, tuple(t.shape), str(t.dtype))
+                      for k in self._state_keys(program, scope)
+                      for t in (scope.get(k),))
+        # the 1x1 routing as the ops will resolve it (the executor's
+        # setting, else the process flag)
+        conv1x1 = self.conv1x1_pallas if self.conv1x1_pallas is not None \
+            else bool(get_flag("conv1x1_pallas"))
+        return (compile_cache.program_content_digest(program),
+                _feed_signature(step_feeds), tuple(fetch_names), state,
+                bool(is_test), bool(self.amp), conv1x1, str(self.device))
+
+    def _uncaptured_reason(self, program: Program,
+                           is_test: bool) -> Optional[str]:
+        if self.device.type != "cuda":
+            return "cpu"
+        if not self.use_jit:
+            return "use_jit=False"
+        if _draws_random(program, is_test):
+            if program not in _warned_random:
+                _warned_random.add(program)
+                warnings.warn(
+                    "paddle_tpu_torch: this program draws random numbers "
+                    "(dropout, uniform_random or gaussian_random), which a "
+                    "replayed CUDA graph would freeze; its steps run "
+                    "uncaptured", RuntimeWarning, stacklevel=4)
+            return "random_op"
+        return None
+
+    # -- entry points ---------------------------------------------------------
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, object]] = None,
             fetch_list: Optional[Sequence] = None,
@@ -432,14 +726,13 @@ class Executor:
         program = program or default_main_program()
         scope = global_scope() if scope is None else scope
         gb = program.global_block()
-        feeds = {k: self._feed_tensor(gb, k, v)
-                 for k, v in (feed or {}).items()}
-        fetches = self._run_once(program, feeds, _fetch_names(fetch_list),
-                                 scope, is_test)
-        if return_numpy:
-            fetches = [to_numpy(f) if f is not None else None
-                       for f in fetches]
-        return fetches
+        fetch_names = _fetch_names(fetch_list)
+        with self._lock:
+            feeds = {k: self._feed_tensor(gb, k, v)
+                     for k, v in (feed or {}).items()}
+            fetches, = self._steps(program, [feeds], fetch_names, scope,
+                                   is_test)
+        return _out(fetches, return_numpy)
 
     def run_steps(self, num_steps: int,
                   program: Optional[Program] = None,
@@ -450,8 +743,9 @@ class Executor:
                   is_test: bool = False,
                   feeds_stacked: bool = False):
         """Run ``num_steps`` steps of ``program`` back to back, with the
-        state kept on the device between steps (the counterpart of the
-        JAX executor's device-side scan, run here as a Python loop).
+        state kept on the device between steps: on a card, ``num_steps``
+        replays of the step's graph (the counterpart of the JAX
+        executor's device-side scan).
 
         ``feeds_stacked=False`` reuses ``feed`` for every step.
         ``feeds_stacked=True`` expects every feed to carry a leading
@@ -466,66 +760,244 @@ class Executor:
         program = program or default_main_program()
         scope = global_scope() if scope is None else scope
         gb = program.global_block()
-        feeds = {}
-        for name, val in (feed or {}).items():
-            t = self._feed_tensor(gb, name, val)
-            if feeds_stacked and tuple(t.shape[:1]) != (num_steps,):
-                raise ValueError(
-                    f"run_steps(feeds_stacked=True): feed {name!r} must "
-                    f"have leading dim {num_steps}, got {tuple(t.shape)}")
-            feeds[name] = t
         fetch_names = _fetch_names(fetch_list)
-        steps = [self._run_once(program,
-                                {k: v[i] for k, v in feeds.items()}
-                                if feeds_stacked else feeds,
-                                fetch_names, scope, is_test)
-                 for i in range(num_steps)]
+        with self._lock:
+            feeds = {}
+            for name, val in (feed or {}).items():
+                t = self._feed_tensor(gb, name, val)
+                if feeds_stacked and tuple(t.shape[:1]) != (num_steps,):
+                    raise ValueError(
+                        f"run_steps(feeds_stacked=True): feed {name!r} must "
+                        f"have leading dim {num_steps}, got "
+                        f"{tuple(t.shape)}")
+                feeds[name] = t
+            per_step = [{k: v[i] for k, v in feeds.items()}
+                        if feeds_stacked else feeds
+                        for i in range(num_steps)]
+            steps = self._steps(program, per_step, fetch_names, scope,
+                                is_test)
         fetches = []
         for j in range(len(fetch_names)):
             vals = [s[j] for s in steps]
             fetches.append(None if any(v is None for v in vals)
                            else torch.stack(vals))
-        if return_numpy:
-            fetches = [to_numpy(f) if f is not None else None
-                       for f in fetches]
+        return _out(fetches, return_numpy)
+
+    # -- dispatch -------------------------------------------------------------
+    def _steps(self, program: Program, per_step: List[Dict[str, object]],
+               fetch_names: List[str], scope: Scope,
+               is_test: bool) -> List[List[Optional[torch.Tensor]]]:
+        """Run one step per feed dict of ``per_step``; returns each step's
+        fetches (tensors the caller owns)."""
+        stats = compile_cache.stats()
+        reason = self._uncaptured_reason(program, is_test)
+        if reason is not None:
+            stats.bump_uncaptured(reason, len(per_step))
+            return [self._run_once(program, f, fetch_names, scope, is_test)
+                    for f in per_step]
+        fp = self._fingerprint(program, per_step[0], fetch_names, scope,
+                               is_test)
+        entry = self._cache.get(fp, program)
+        if entry is None:
+            entry = _CapturedStep()
+            self._cache.put(fp, entry, program)
+        thread = threading.get_ident()
+        out = []
+        loaded = False
+        for feeds in per_step:
+            if entry.graph is None and thread not in entry.warm_threads:
+                # this thread's warm-up for the key: the step interpreted
+                # on the side stream the capture will use, and committed
+                stats.bump("warmups")
+                out.append(self._warm(program, feeds, fetch_names, scope,
+                                      is_test))
+                entry.warm_threads.add(thread)
+                continue
+            if entry.graph is None:
+                entry.capture(self, program, feeds, scope,
+                              self._state_keys(program, scope), fetch_names,
+                              is_test)
+                stats.bump("captures")
+                self._cache.charge(fp, entry.nbytes)
+                loaded = True
+            elif not loaded:
+                entry.load_state(scope)
+                loaded = True
+            entry.replay(feeds)
+            self._step += 1
+            stats.bump("replays")
+            out.append([f.clone() if f is not None else None
+                        for f in entry.fetches])
+        if loaded:
+            entry.publish(scope)
+        return out
+
+    def _warm(self, program, feeds, fetch_names, scope, is_test):
+        cur = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            fetches = self._run_once(program, feeds, fetch_names, scope,
+                                     is_test)
+        cur.wait_stream(self._side)
         return fetches
 
-    def _run_once(self, program: Program, feeds: Dict[str, torch.Tensor],
-                  fetch_names: List[str], scope: Scope,
-                  is_test: bool) -> List[Optional[torch.Tensor]]:
-        """One step: state from the scope, feeds already on the device;
-        returns the fetched tensors (on the device)."""
+    def _context(self, program: Program, is_test: bool) -> ExecContext:
+        return ExecContext(program, self.device, self._step, is_test=is_test,
+                           conv1x1_pallas=self.conv1x1_pallas, amp=self.amp)
+
+    def _interpret_step(self, program: Program, ctx: ExecContext,
+                        state: Dict[str, torch.Tensor],
+                        feeds: Dict[str, torch.Tensor],
+                        fetch_names: List[str]):
+        """Interpret one step from ``state`` and ``feeds``; returns the
+        fetched tensors and the persistables an op produced (a value an op
+        passed through unchanged is not among them)."""
         gb = program.global_block()
-        has_backward = any(op.type == "backward" for op in gb.ops)
         env = Env(gb)
-        state = {k: scope.get(k) for k in self._state_keys(program, scope)}
         env.local.update(state)
         env.local.update(feeds)
-        if self.amp and not has_backward:
+        if self.amp and not _has_backward(program):
             # pure-inference AMP: the whole net computes in bf16
             env.local = {k: _to_bf16(v) for k, v in env.local.items()}
         entry = dict(env.local)
-        ctx = ExecContext(program, self.device, self._step, is_test=is_test,
-                          conv1x1_pallas=self.conv1x1_pallas, amp=self.amp)
-        self._step += 1
         interpret_block_with_backward(gb, env, ctx)
         fetches = [env.get(n) if env.has(n) else None for n in fetch_names]
-
-        # persistables an op produced go back to the scope in the dtype
-        # they had there (bn running stats etc. stay fp32 under AMP); a
-        # value an op passed through unchanged is not written back
-        written = {n for op in gb.ops for n in op.output_names}
-        for name, var in gb.vars.items():
-            if not (var.persistable and name in written and env.has(name)):
+        writes = {}
+        for name in _written_persistables(program):
+            if not env.has(name):
                 continue
             v = env.get(name)
             if name in entry and v is entry[name]:
                 continue
+            writes[name] = v
+        return fetches, writes
+
+    def _run_once(self, program: Program, feeds: Dict[str, torch.Tensor],
+                  fetch_names: List[str], scope: Scope,
+                  is_test: bool) -> List[Optional[torch.Tensor]]:
+        """One interpreted step: state from the scope, feeds already on
+        the device; returns the fetched tensors (on the device)."""
+        state = {k: scope.get(k) for k in self._state_keys(program, scope)}
+        ctx = self._context(program, is_test)
+        self._step += 1
+        fetches, writes = self._interpret_step(program, ctx, state, feeds,
+                                               fetch_names)
+        # persistables an op produced go back to the scope in the dtype
+        # they had there (bn running stats etc. stay fp32 under AMP)
+        for name, v in writes.items():
             old = state.get(name)
             if old is not None and v.dtype != old.dtype:
                 v = v.to(old.dtype)
             scope.set(name, v)
         return fetches
+
+    # -- the input pipeline ---------------------------------------------------
+    def run_pipelined(self, feed_iter,
+                      program: Optional[Program] = None,
+                      fetch_list: Optional[Sequence] = None,
+                      scope: Optional[Scope] = None,
+                      steps_per_dispatch: Optional[int] = None,
+                      prefetch_depth: Optional[int] = None,
+                      return_numpy: bool = True,
+                      is_test: bool = False):
+        """Generator over per-step fetch lists for a stream of host feed
+        dicts, with host batch assembly and the host-to-device copies
+        overlapped with the device's steps.
+
+        ``feed_iter`` yields host feed dicts (e.g. ``DataFeeder.feed``
+        output).  A staging thread groups consecutive same-signature feeds
+        into runs of ``steps_per_dispatch`` (default 4), stacks each run
+        along a new leading axis (:func:`stack_feeds`) into pinned host
+        memory and copies it to the device on a stream of its own; up to
+        ``prefetch_depth`` (default 2) staged dispatches wait in a bounded
+        queue, each handed over with an event the consuming stream waits
+        on.  Full runs dispatch as ``run_steps(feeds_stacked=True)``;
+        leftovers (the tail of the stream, or a run cut by a signature
+        change) go one at a time through :meth:`run`.
+
+        Each step is the step the sequential :meth:`run` loop would take,
+        with the same step counter and state updates (on a card both
+        replay the same captured graph), so the fetches equal that loop's
+        bit for bit.  An exception in ``feed_iter`` re-raises here, and
+        abandoning this generator early stops and joins the staging
+        thread."""
+        from ..reader.pipeline import prefetch as _prefetch
+        from .program import default_main_program
+        program = program or default_main_program()
+        K = int(4 if steps_per_dispatch is None else steps_per_dispatch)
+        depth = int(2 if prefetch_depth is None else prefetch_depth)
+        if K < 1:
+            raise ValueError(
+                f"run_pipelined: steps_per_dispatch must be >= 1, got {K}")
+        gb = program.global_block()
+        on_card = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if on_card else None
+
+        def ship(feed, kind, n):
+            if not on_card:
+                # own copies: a feeder's staging buffers are reused
+                return kind, {k: self._feed_tensor(gb, k, np.array(v))
+                              for k, v in feed.items()}, n, None
+            with torch.cuda.stream(copy_stream):
+                dev = {k: self._feed_tensor(gb, k, v)
+                       for k, v in feed.items()}
+                ready = torch.cuda.Event()
+                ready.record(copy_stream)
+            return kind, dev, n, ready
+
+        def staged():
+            pend, sig = [], None
+            for feed in feed_iter:
+                fsig = _feed_signature(feed)
+                if pend and fsig != sig:
+                    for f in pend:
+                        yield ship(f, "single", 1)
+                    pend = []
+                sig = fsig
+                pend.append(feed)
+                if len(pend) == K:
+                    if K > 1:
+                        yield ship(stack_feeds(pend), "scan", K)
+                    else:
+                        yield ship(pend[0], "single", 1)
+                    pend = []
+            for f in pend:
+                yield ship(f, "single", 1)
+
+        reader = _prefetch(staged, buffer_size=max(1, depth), num_workers=1)
+        for kind, dev, n, ready in reader():
+            if ready is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(ready)
+                for t in dev.values():
+                    t.record_stream(cur)
+            if kind == "scan":
+                outs = self.run_steps(n, program, feed=dev,
+                                      fetch_list=fetch_list, scope=scope,
+                                      return_numpy=return_numpy,
+                                      is_test=is_test, feeds_stacked=True)
+                for i in range(n):
+                    yield [o[i] if o is not None else None for o in outs]
+            else:
+                yield self.run(program, feed=dev, fetch_list=fetch_list,
+                               scope=scope, return_numpy=return_numpy,
+                               is_test=is_test)
+
+
+def _out(fetches, return_numpy):
+    if return_numpy:
+        return [to_numpy(f) if f is not None else None for f in fetches]
+    return fetches
+
+
+def _feed_signature(feed: Dict[str, object]):
+    """(name, shape, dtype) of every entry of a feed dict, host arrays or
+    tensors: one step's part of the captured-step key, and what feeds
+    must share to stack (``run_pipelined``)."""
+    return tuple(sorted(
+        (k, tuple(np.shape(v)),
+         str(getattr(v, "dtype", None) or np.asarray(v).dtype))
+        for k, v in feed.items()))
 
 
 def _fetch_names(fetch_list) -> List[str]:

@@ -10,15 +10,15 @@ Sub-blocks (``create_block`` / ``rollback``) hold the step of a
 ``StaticRNN``; an op names its block by the ``sub_block`` attr.
 
 Left out until a slice needs them: arithmetic sugar on ``Variable``
-(it routes through layers not ported yet), pipeline stages, pruning and
-the static verifier.
+(it routes through layers not ported yet), pipeline stages and the
+static verifier.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
 import json
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -271,6 +271,32 @@ class Program:
             p._bump_version()
         return p
 
+    def prune(self, targets: Sequence[Variable]) -> "Program":
+        """Backward-slice the global block to the ops ``targets`` need
+        (``paddle_tpu/core/program.py:409``).  An op that only rewrites
+        its own inputs (an optimizer's ParamOut) is dropped; ops with
+        sub-blocks keep what their blocks read."""
+        needed = {t.name if isinstance(t, Variable) else str(t)
+                  for t in targets}
+        p = copy.deepcopy(self)
+        gb = p.global_block()
+        kept: List[Operator] = []
+        for op in reversed(gb.ops):
+            produces = set(op.output_names) & needed
+            if not produces:
+                continue
+            subs = _sub_block_indices(op)
+            if not subs and produces <= set(op.input_names):
+                continue
+            kept.append(op)
+            needed |= set(op.input_names)
+            for idx in subs:
+                for sop in p.blocks[idx].ops:
+                    needed |= set(sop.input_names)
+        gb.ops = list(reversed(kept))
+        p._bump_version()
+        return p
+
     def to_dict(self):
         return {"version": 1, "random_seed": self.random_seed,
                 "blocks": [b.to_dict() for b in self.blocks]}
@@ -314,6 +340,15 @@ class Program:
     @staticmethod
     def from_json(s: str) -> "Program":
         return Program.from_dict(json.loads(s))
+
+
+def _sub_block_indices(op: Operator) -> List[int]:
+    out = [v for key in ("sub_block", "sub_block_idx", "block")
+           for v in (op.attrs.get(key),) if isinstance(v, int)]
+    v = op.attrs.get("sub_blocks")
+    if isinstance(v, (list, tuple)):
+        out.extend(int(x) for x in v)
+    return out
 
 
 # ops whose behavior changes between train and test

@@ -2,11 +2,17 @@
 
 Counterpart of ``paddle_tpu/core/scope.py`` (without child scopes, which
 no ported path creates).  Values are torch tensors on the executor's
-device; the executor replaces them between runs and never mutates one
-in place.
+device.  The interpreted step replaces them between runs and never
+mutates one in place; a captured step (``Executor(use_jit=True)`` on a
+card) points the scope at its static state buffers, which each replay
+updates in place, as the JAX executor donates its state buffers.
+
+``uid`` names the scope for the executor's memo of state keys, and
+``keys_version`` advances whenever a new name is added.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict
 
 import numpy as np
@@ -24,11 +30,18 @@ def to_numpy(value) -> np.ndarray:
     return np.asarray(value)
 
 
+_uids = itertools.count()
+
+
 class Scope:
     def __init__(self):
         self._vars: Dict[str, object] = {}
+        self.uid = next(_uids)
+        self.keys_version = 0
 
     def set(self, name: str, value):
+        if name not in self._vars:
+            self.keys_version += 1
         self._vars[name] = value
 
     def get(self, name: str):

@@ -7,12 +7,15 @@ example; the feeder pads the batch to its longest row, rounded up to
 ``seq_bucket_multiple``, and adds ``name@LEN``, the int32 lengths.  A
 nested var (``lod_level`` 2) pads to [B, S, T, ...] and adds ``@LEN``
 [B] and ``@LEN2`` [B, S].  The padding is the JAX feeder's vectorized
-numpy path (one mask scatter a batch); its native C++ path and its
-reusable staging buffers are not ported.
+numpy path (one mask scatter a batch); its native C++ path is not
+ported.  ``staging_slots > 0`` reuses the output buffers (a pool of that
+many per variable and shape): a feed's arrays then stay valid only until
+``staging_slots`` further feeds, time enough for a pipelined trainer to
+stack or ship them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -25,6 +28,27 @@ def _round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
+class _StagingCache:
+    """Pool of reusable host buffers keyed on (name, shape, dtype):
+    ``slots`` buffers rotate per key."""
+
+    def __init__(self, slots: int):
+        self.slots = max(1, int(slots))
+        self._pool: Dict[tuple, dict] = {}
+
+    def get(self, name: str, shape, dtype) -> np.ndarray:
+        k = (name, tuple(shape), np.dtype(dtype).str)
+        entry = self._pool.setdefault(k, {"bufs": [], "next": 0})
+        bufs: List[np.ndarray] = entry["bufs"]
+        if len(bufs) < self.slots:
+            buf = np.empty(shape, dtype)
+            bufs.append(buf)
+            return buf
+        i = entry["next"]
+        entry["next"] = (i + 1) % self.slots
+        return bufs[i]
+
+
 class DataFeeder:
     """``id_bounds`` (``{var_name: vocab_size}``) checks an integer
     variable's ids against its table: a negative or out-of-vocab id
@@ -34,11 +58,23 @@ class DataFeeder:
 
     def __init__(self, feed_list: Sequence[Variable], place=None,
                  program=None, seq_bucket_multiple: int = 8,
+                 staging_slots: int = 0,
                  id_bounds: Optional[Dict[str, int]] = None):
         self.feed_list = list(feed_list)
         self.place = place
         self.seq_bucket_multiple = seq_bucket_multiple
         self.id_bounds = dict(id_bounds or {})
+        self._staging = _StagingCache(staging_slots) if staging_slots > 0 \
+            else None
+
+    def _out_buffer(self, name: str, shape, dtype,
+                    zero: bool = False) -> np.ndarray:
+        if self._staging is None:
+            return np.zeros(shape, dtype) if zero else np.empty(shape, dtype)
+        buf = self._staging.get(name, shape, dtype)
+        if zero:
+            buf.fill(0)
+        return buf
 
     def _check_int_feed(self, var: Variable, arr: np.ndarray) -> np.ndarray:
         dt = np.dtype(var.dtype)
@@ -78,14 +114,21 @@ class DataFeeder:
         for var, col in zip(self.feed_list, cols):
             is_int = np.dtype(var.dtype).kind in "iu"
             if var.lod_level == 0:
-                try:
-                    arr = np.asarray(col)
-                except ValueError as e:
-                    raise ValueError(
-                        f"feed {var.name!r}: rows form a ragged/mixed "
-                        f"column ({e}) — every row must carry the same "
-                        f"rectangular shape for a lod_level-0 variable") \
-                        from e
+                dt = np.dtype(var.dtype)
+                if self._staging is not None and \
+                        isinstance(col[0], np.ndarray) and col[0].dtype == dt:
+                    arr = self._staging.get(var.name,
+                                            (len(col),) + col[0].shape, dt)
+                    np.stack(col, out=arr)
+                else:
+                    try:
+                        arr = np.asarray(col)
+                    except ValueError as e:
+                        raise ValueError(
+                            f"feed {var.name!r}: rows form a ragged/mixed "
+                            f"column ({e}) — every row must carry the same "
+                            f"rectangular shape for a lod_level-0 "
+                            f"variable") from e
                 if is_int:
                     arr = self._check_int_feed(var, arr)
                 if var.shape is not None and len(var.shape) == arr.ndim + 1 \
@@ -124,7 +167,8 @@ class DataFeeder:
         T = _round_up(int(lens.max()) if len(lens) else 1,
                       self.seq_bucket_multiple)
         feat_shape = rows[0].shape[1:] if rows and rows[0].ndim > 1 else ()
-        arr = np.zeros((len(rows), T) + feat_shape, dt)
+        arr = self._out_buffer(var.name, (len(rows), T) + feat_shape, dt,
+                               zero=True)
         if rows:
             mask = np.arange(T, dtype=np.int32)[None, :] < lens[:, None]
             arr[mask] = np.concatenate(rows, axis=0)
@@ -146,8 +190,10 @@ class DataFeeder:
             T = max(T, 1)     # a row with no subsequences counts as one
         T = _round_up(T, self.seq_bucket_multiple)
         feat_shape = next((s.shape[1:] for s in subs if s.shape[0]), ())
-        arr = np.zeros((B, S, T) + feat_shape, dt)
-        lens2 = np.zeros((B, S), np.int32)
+        arr = self._out_buffer(var.name, (B, S, T) + feat_shape, dt,
+                               zero=True)
+        lens2 = self._out_buffer(var.name + "@LEN2", (B, S), np.int32,
+                                 zero=True)
         if subs:
             b_idx = np.repeat(np.arange(B, dtype=np.int32), lens)
             s_idx = np.concatenate([np.arange(n, dtype=np.int32)

@@ -16,7 +16,7 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
            "cross_entropy", "clip", "clip_by_norm", "softmax", "matmul",
            "dropout", "square_error_cost", "flash_attention", "embedding",
            "dynamic_gru", "gru_unit", "sequence_pool", "sequence_first_step",
-           "sequence_last_step", "reshape", "squeeze", "unsqueeze"]
+           "sequence_last_step", "reshape", "squeeze", "unsqueeze", "concat"]
 
 
 def _pair(v):
@@ -180,6 +180,32 @@ def sequence_first_step(input, name=None):
 
 def sequence_last_step(input, name=None):
     return sequence_pool(input, "last", name=name)
+
+
+def concat(input, axis=0, name=None):
+    """Join ``input`` along ``axis`` (``layers/nn.py:527``).  A
+    feature-axis concat of sequences is still a sequence: it keeps the
+    LoD level and takes the first sequence input's ``@LEN``."""
+    helper = LayerHelper("concat", name=name)
+    shape = list(input[0].shape) if input[0].shape else None
+    if shape is not None:
+        tot = 0
+        for v in input:
+            if v.shape is None or v.shape[axis] < 0:
+                tot = -1
+                break
+            tot += v.shape[axis]
+        shape[axis] = tot
+    lod = max(getattr(v, "lod_level", 0) for v in input)
+    out = helper.create_variable_for_type_inference(
+        input[0].dtype, tuple(shape) if shape else None,
+        lod_level=lod if axis != 0 else 0)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    if out.lod_level:
+        _copy_len(helper, next(v for v in input
+                               if getattr(v, "lod_level", 0)), out)
+    return out
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):

@@ -1,11 +1,18 @@
-"""Tensor layer functions (counterpart of ``sums``, ``fill_constant``
-and ``fill_constant_batch_size_like`` in ``paddle_tpu/layers/tensor.py``)."""
+"""Tensor layer functions (counterpart of ``sums``, ``fill_constant``,
+``fill_constant_batch_size_like`` and ``concat`` in
+``paddle_tpu/layers/tensor.py``)."""
 from __future__ import annotations
 
 from ..core.types import convert_dtype
 from ..layer_helper import LayerHelper
 
-__all__ = ["sums", "fill_constant", "fill_constant_batch_size_like"]
+__all__ = ["sums", "fill_constant", "fill_constant_batch_size_like",
+           "concat"]
+
+
+def concat(input, axis=0, name=None):
+    from .nn import concat as _concat
+    return _concat(input, axis, name)
 
 
 def sums(input, out=None):

@@ -49,6 +49,7 @@ import os
 
 import torch
 
+from ..core.compile_cache import register_launch_counter
 from . import cuda_build
 
 __all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "splitk_reduce",
@@ -423,7 +424,7 @@ def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
     return res[0] if len(res) == 1 else tuple(res)
 
 
-mm.by_form = collections.Counter()
+mm.by_form = register_launch_counter(collections.Counter())
 
 
 def splitk_reduce_reference(work, out_dtype, csum_work=None):

@@ -43,6 +43,7 @@ import os
 
 import torch
 
+from ..core.compile_cache import register_launch_counter
 from ..core.registry import register_op
 from . import cuda_build
 
@@ -77,9 +78,9 @@ SMEM_LIMIT = 232448
 FWD_TILE = {64: 128, 128: 64}
 FWD_MAX_STAGES = 4
 
-launches = collections.Counter()
-launches_by_dtype = collections.Counter()
-reference_route = collections.Counter()
+launches = register_launch_counter(collections.Counter())
+launches_by_dtype = register_launch_counter(collections.Counter())
+reference_route = register_launch_counter(collections.Counter())
 
 
 def reset_counts():

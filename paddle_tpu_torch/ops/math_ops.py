@@ -104,9 +104,11 @@ def _scale(ctx, ins, attrs):
 @register_op("increment")
 def _increment(ctx, ins, attrs):
     x = ins["X"][0]
-    step = torch.as_tensor(attrs.get("step", 1.0), dtype=x.dtype,
-                           device=x.device)
-    return {"Out": x + step}           # in x's dtype, integer counters too
+    # a device fill, not a host-to-device copy (capturable); in x's
+    # dtype, integer counters too
+    step = torch.full((), attrs.get("step", 1.0), dtype=x.dtype,
+                      device=x.device)
+    return {"Out": x + step}
 
 
 @register_op("sign")

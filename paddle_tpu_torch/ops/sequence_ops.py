@@ -87,8 +87,8 @@ def _sequence_pool(ctx, ins, attrs):
                 n = torch.sqrt(n)
             out = out / n.reshape((-1,) + (1,) * (out.dim() - 1))
     elif ptype == "MAX":
-        neg = torch.tensor(-3.4e38, dtype=x.dtype, device=x.device)
-        out = torch.amax(torch.where(m > 0, x, neg), dim=1)
+        # a Python scalar: no host-to-device copy (capturable)
+        out = torch.amax(torch.where(m > 0, x, -3.4e38), dim=1)
     elif ptype == "LAST":
         out = x[rows, torch.clamp_min(lens - 1, 0)]
     elif ptype == "FIRST":

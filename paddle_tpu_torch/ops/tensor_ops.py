@@ -1,7 +1,7 @@
 """Tensor ops (counterpart of the ``fill_constant``,
 ``fill_constant_batch_size_like``, ``uniform_random``,
-``gaussian_random``, ``reshape``, ``squeeze`` and ``unsqueeze``
-lowerings in ``paddle_tpu/ops/tensor_ops.py``).  Random ops draw from a
+``gaussian_random``, ``reshape``, ``squeeze``, ``unsqueeze`` and
+``concat`` lowerings in ``paddle_tpu/ops/tensor_ops.py``).  Random ops draw from a
 ``torch.Generator`` the executor seeds per op (``ExecContext.generator``);
 the numbers differ from JAX's, the distributions do not."""
 from __future__ import annotations
@@ -91,3 +91,8 @@ def _unsqueeze(ctx, ins, attrs):
     for a in axes:
         shape.insert(a, 1)
     return {"Out": x.reshape(shape)}
+
+
+@register_op("concat")
+def _concat(ctx, ins, attrs):
+    return {"Out": torch.cat(ins["X"], dim=attrs.get("axis", 0))}

@@ -1,0 +1,258 @@
+"""High-level trainer with the v2 event-loop surface (counterpart of
+``paddle_tpu/trainer.py``; reference: python/paddle/v2/trainer.py).
+
+``SGD(cost, update_equation=opt).train(reader, ...)`` builds the
+optimizer's ops into the cost's program, runs the startup program once,
+and steps the training loop, firing :class:`events` around each pass and
+batch: per batch through ``Executor.run``, in stacked runs of
+``steps_per_dispatch`` through ``Executor.run_steps``, or, with
+``pipeline=``, through ``Executor.run_pipelined`` (decode on reader
+workers, staging on its own thread).
+
+Not ported yet, and refused with ``NotImplementedError`` naming the
+ROADMAP item that brings them: checkpoints and resume, the elastic
+master and ``infer`` (Queue A item 5), ``warmup`` (``Executor.compile``,
+item 6), ``auto_shard`` (item 7), ``sparse_tables`` (item 8),
+``validate`` and ``autotune`` (item 9).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+
+from . import optimizer as optimizer_mod
+from .core.executor import Executor, _feed_signature, stack_feeds
+from .core.program import Variable, default_startup_program
+from .data_feeder import DataFeeder
+
+__all__ = ["events", "SGD"]
+
+
+class events:
+    """Event types passed to event_handler (python/paddle/v2/event.py)."""
+
+    class BeginPass:
+        def __init__(self, pass_id):
+            self.pass_id = pass_id
+
+    class EndPass:
+        def __init__(self, pass_id, evaluator=None):
+            self.pass_id = pass_id
+            self.evaluator = evaluator
+
+    class BeginIteration:
+        def __init__(self, pass_id, batch_id):
+            self.pass_id = pass_id
+            self.batch_id = batch_id
+
+    class EndIteration:
+        def __init__(self, pass_id, batch_id, cost, metrics):
+            self.pass_id = pass_id
+            self.batch_id = batch_id
+            self.cost = cost
+            self.metrics = metrics
+
+
+# train() arguments of the JAX trainer that the port does not take yet,
+# with the ROADMAP Queue A item that brings each
+_NOT_PORTED = {
+    "warmup": "item 6 (Executor.compile)",
+    "validate": "item 9 (analysis)",
+    "autotune": "item 9 (tuning)",
+    "auto_shard": "item 7 (multi-GPU)",
+    "checkpoint_dir": "item 5 (the training runtime)",
+    "resume": "item 5 (the training runtime)",
+    "save_every_n_steps": "item 5 (the training runtime)",
+    "master": "item 5 (the training runtime)",
+    "elastic": "item 5 (the training runtime)",
+    "sparse_tables": "item 8 (sparse tables)",
+}
+
+
+class SGD:
+    """v2-style trainer: ``SGD(cost, parameters=None,
+    update_equation=opt)``.
+
+    ``update_equation`` is any ``paddle_tpu_torch.optimizer`` optimizer;
+    ``extra_layers`` are fetched alongside the cost every iteration and
+    reported in ``EndIteration.metrics``; ``place`` is the executor's
+    (default ``CUDAPlace(0)``)."""
+
+    def __init__(self, cost: Variable, parameters=None,
+                 update_equation=None, extra_layers: Sequence = (),
+                 is_local=True, place=None):
+        self.cost = cost
+        self.extra = list(extra_layers or ())
+        self.optimizer = update_equation or optimizer_mod.SGD(
+            learning_rate=0.01)
+        self.main_program = cost.block.program
+        self.optimizer.minimize(cost)
+        self.exe = Executor(place)
+        self._initialized = False
+
+    # -- training ----------------------------------------------------------
+    def train(self, reader: Callable, num_passes: int = 1,
+              event_handler: Optional[Callable] = None,
+              feeding=None, feed_list: Optional[Sequence[Variable]] = None,
+              steps_per_dispatch: int = 1, pipeline=False,
+              warmup: bool = False, validate: Optional[bool] = None,
+              autotune: Optional[bool] = None, auto_shard=None,
+              checkpoint_dir: Optional[str] = None, resume: bool = False,
+              save_every_n_steps: Optional[int] = None, master=None,
+              handle_signals: bool = True, elastic=None,
+              sparse_tables=None):
+        """``reader`` yields batches (lists of rows); ``feeding`` maps
+        data-layer names to row positions, or pass ``feed_list``.
+
+        ``steps_per_dispatch > 1`` stacks runs of consecutive same-shape
+        batches and runs each as one ``Executor.run_steps`` with stacked
+        feeds; iteration events still fire per batch, after the dispatch
+        that held it; a batch of another shape flushes the run.
+
+        ``pipeline`` turns on the asynchronous input pipeline
+        (``Executor.run_pipelined``): ``True`` for the defaults or a dict
+        with any of ``steps_per_dispatch`` (default 8, or the
+        ``steps_per_dispatch`` argument when > 1), ``num_workers``
+        (reader prefetch workers, default 1; 0 decodes in the staging
+        thread), ``buffer_size`` (decoded batches queued, default 4) and
+        ``prefetch_depth`` (staged dispatches in flight, default 2).  The
+        step math is the per-batch loop's; only the events' timing
+        changes.  ``handle_signals`` belongs to checkpoints and is
+        ignored without them."""
+        given = {"warmup": warmup, "validate": validate,
+                 "autotune": autotune, "auto_shard": auto_shard,
+                 "checkpoint_dir": checkpoint_dir, "resume": resume,
+                 "save_every_n_steps": save_every_n_steps,
+                 "master": master, "elastic": elastic,
+                 "sparse_tables": sparse_tables}
+        for name, value in given.items():
+            if value not in (None, False):
+                raise NotImplementedError(
+                    f"trainer.SGD.train({name}=...) is not ported yet: "
+                    f"ROADMAP.md Queue A {_NOT_PORTED[name]}")
+        if not self._initialized:
+            self.exe.run(default_startup_program(), feed={}, fetch_list=[])
+            self._initialized = True
+        fetch = [self.cost] + self.extra
+
+        def emit_end(pass_id, batch_id, out):
+            metrics = {getattr(v, "name", str(i)): out[1 + i]
+                       for i, v in enumerate(self.extra)}
+            event_handler(events.EndIteration(pass_id, batch_id,
+                                              float(out[0]), metrics))
+
+        if pipeline:
+            opts = dict(pipeline) if isinstance(pipeline, dict) else {}
+            K = self._dispatch_k(opts, steps_per_dispatch)
+            workers = int(opts.get("num_workers", 1))
+            buf = int(opts.get("buffer_size", 4))
+            depth = int(opts.get("prefetch_depth", 2))
+            # feed() results live at most until their run is stacked or
+            # shipped: K pending plus the in-flight slack
+            feeder = self._feeder(feeding, feed_list, staging_slots=K + 2)
+            from .reader.pipeline import prefetch
+            for pass_id in range(num_passes):
+                event_handler(events.BeginPass(pass_id))
+                src = prefetch(reader, buffer_size=buf,
+                               num_workers=workers) if workers > 0 \
+                    else reader
+                feed_iter = (feeder.feed(b) for b in src())
+                gen = self.exe.run_pipelined(
+                    feed_iter, self.main_program, fetch_list=fetch,
+                    steps_per_dispatch=K, prefetch_depth=depth)
+                try:
+                    for batch_id, out in enumerate(gen):
+                        event_handler(events.BeginIteration(pass_id,
+                                                            batch_id))
+                        emit_end(pass_id, batch_id, out)
+                finally:
+                    # close the pipelined generator first (it joins the
+                    # staging thread that may be running feed_iter), then
+                    # the feed source
+                    gen.close()
+                    feed_iter.close()
+                event_handler(events.EndPass(pass_id))
+            return
+
+        feeder = self._feeder(feeding, feed_list)
+
+        def flush(pass_id, first_id, chunk):
+            if len(chunk) == 1:
+                event_handler(events.BeginIteration(pass_id, first_id))
+                out = self.exe.run(self.main_program, feed=chunk[0],
+                                   fetch_list=fetch)
+                emit_end(pass_id, first_id, out)
+                return
+            outs = self.exe.run_steps(
+                len(chunk), self.main_program, feed=stack_feeds(chunk),
+                fetch_list=fetch, feeds_stacked=True)
+            for i in range(len(chunk)):
+                event_handler(events.BeginIteration(pass_id, first_id + i))
+                emit_end(pass_id, first_id + i, [o[i] for o in outs])
+
+        for pass_id in range(num_passes):
+            event_handler(events.BeginPass(pass_id))
+            if steps_per_dispatch <= 1:
+                for batch_id, batch in enumerate(reader()):
+                    event_handler(events.BeginIteration(pass_id, batch_id))
+                    out = self.exe.run(self.main_program,
+                                       feed=feeder.feed(batch),
+                                       fetch_list=fetch)
+                    emit_end(pass_id, batch_id, out)
+                event_handler(events.EndPass(pass_id))
+                continue
+            chunk, first_id, sig = [], 0, None
+            for batch_id, batch in enumerate(reader()):
+                feed = feeder.feed(batch)
+                fsig = _feed_signature(feed)
+                if chunk and fsig != sig:
+                    flush(pass_id, first_id, chunk)
+                    chunk = []
+                if not chunk:
+                    first_id, sig = batch_id, fsig
+                chunk.append(feed)
+                if len(chunk) == steps_per_dispatch:
+                    flush(pass_id, first_id, chunk)
+                    chunk = []
+            if chunk:
+                flush(pass_id, first_id, chunk)
+            event_handler(events.EndPass(pass_id))
+
+    def test(self, reader: Callable, feeding=None, feed_list=None):
+        """Average cost (and extras) over a reader, without updating the
+        parameters: the program pruned to them, in test mode."""
+        feeder = self._feeder(feeding, feed_list)
+        test_prog = self.main_program.prune(
+            [self.cost] + self.extra).clone(for_test=True)
+        totals, count = None, 0
+        for batch in reader():
+            out = self.exe.run(test_prog, feed=feeder.feed(batch),
+                               fetch_list=[self.cost] + self.extra,
+                               is_test=True)
+            vals = [np.asarray(o, np.float64) for o in out]
+            totals = vals if totals is None else [
+                t + v for t, v in zip(totals, vals)]
+            count += 1
+        if count == 0:
+            return None
+        return [t / count for t in totals]
+
+    # -- helpers -----------------------------------------------------------
+    @staticmethod
+    def _dispatch_k(opts, steps_per_dispatch):
+        """Steps per pipelined dispatch."""
+        return int(opts.get("steps_per_dispatch",
+                            steps_per_dispatch if steps_per_dispatch > 1
+                            else 8))
+
+    def _feeder(self, feeding, feed_list, staging_slots: int = 0):
+        if feed_list is None:
+            gb = self.main_program.global_block()
+            if feeding is not None:
+                order = sorted(feeding, key=lambda k: feeding[k])
+                feed_list = [gb.var(n) for n in order]
+            else:
+                feed_list = [v for v in gb.vars.values()
+                             if v.is_data and not v.session_feed]
+        return DataFeeder(feed_list, staging_slots=staging_slots)

@@ -201,6 +201,22 @@ def test_unary_ops_match_jax(op, attrs):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype,step", [("int64", 1.0), ("int32", 3.0),
+                                        ("float32", 2.5), ("float32", -1.0)])
+def test_increment_counter_matches_jax(dtype, step):
+    """The counter form of ``increment`` (a step built on the device,
+    never copied from the host) against the JAX lowering, integer
+    counters keeping their dtype."""
+    x = np.array([7], dtype=dtype)
+    j, t, _, _ = _both("increment", {"X": [x]}, {"step": step},
+                       out_slot="Out")
+    np.testing.assert_array_equal(t["Out"], np.asarray(j["Out"]))
+    _, tctx = _ctxs()
+    out = torch_impl("increment")(tctx, {"X": [torch.from_numpy(x)]},
+                                  {"step": step})["Out"]
+    assert out.dtype == torch.from_numpy(x).dtype
+
+
 def test_increment_keeps_integer_dtype():
     _, tctx = _ctxs()
     out = torch_impl("increment")(
