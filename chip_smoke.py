@@ -85,7 +85,25 @@ Phases, each of which raises on failure (so the script exits non-zero):
              run loop and that loop against use_jit=False bit for bit,
              one fp32 step against float64, naive and pipelined steps/s
              and their paired speedup, one pipelined window's busy/idle.
-10. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
+10. zoo    — benchmark/run.py --all's configs no earlier phase trains
+             (alexnet 128, googlenet 128, smallnet 64, vgg19 64,
+             lstm_h512 64 and 128), through the port's runner
+             (paddle_tpu_torch.benchmark.run.run_config) at full width:
+             throughput captured and use_jit=False (short windows, a
+             profiled step each: wall, busy, idle, peak memory, graph
+             pools; the LSTMs also in fp32); 3 AMP steps with dropout on,
+             captured against use_jit=False bit for bit (cuDNN
+             deterministic), masks different from step to step; with
+             dropout off, 2 fp32 steps against float64 on the card
+             (losses, and every parameter's gradient and update at the
+             config's limit, with TF32 on and a zero update as controls
+             that must fail it) and the AMP loss against fp32;
+             GoogLeNet's K1 convs (inception 3b and 4c, c1 and c3r) held
+             against their plain versions and timed at its shapes (the
+             reduce pass too, by phase 3's helper), its fp32 kernel path
+             against the plain path by float64, its counted launches
+             against the run's steps and a profiled step's trace.
+11. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
              counterpart): holds the Triton grid copy and axpy kernels
              and the bulk-copy (TMA) DMA copy against their plain
              versions at each of the probe's four sizes and at two
@@ -97,7 +115,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
              around it, and prints every method's GB/s, its share of 3.35
              TB/s and its time a pass beside the bound and copy_'s.
 
-The main path of slice, train, attention, seq2seq and pipeline runs
+The main path of slice, train, attention, seq2seq, pipeline and zoo runs
 captured (Executor(use_jit=True), each step one CUDA graph replay), and
 each phase adds a use_jit=False arm from the same seed and weights: its
 fetches and final scope must equal the captured arm's bit for bit, no
@@ -515,6 +533,98 @@ def print_form_sums(rows, dtype, served, trained):
               f"{b_ms:.4f} ms ({b_ms / k_ms:.3f} of the bound)")
 
 
+def record_form(rows, tag, form, dtype, shape, n, err, fn, plain, lib,
+                bound, extra=""):
+    """Times a form held at ``shape`` (its kernel, plain version and
+    library call, if any) into rows[(form, dtype, shape)] and prints it
+    with ``n``, its launches a step."""
+    k_ms, p_ms = time_ms(fn), time_ms(plain)
+    l_ms = time_ms(lib) if lib is not None else None
+    b_ms, b_by = bound
+    rows[(form, dtype, shape)] = dict(
+        err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+        bound_by=b_by)
+    lib_s = f"{l_ms:.4f} ms" if l_ms is not None else "-"
+    print(f"[{tag}] {form:9s} {str(dtype)[6:]:8s} P={shape[0]:6d} "
+          f"C={shape[1]:4d} M={shape[2]:4d} n={n}{extra} max_abs_err="
+          f"{err:.3e} kernel={k_ms:.4f} ms library={lib_s} plain="
+          f"{p_ms:.4f} ms bound={b_ms:.4f} ms ({b_by}) bound/kernel="
+          f"{b_ms / k_ms:.3f}")
+
+
+def hold_form(rows, tag, form, dtype, shape, n, fn, plain, lib, tol, bound,
+              extra=""):
+    """A form's kernel against its plain version within ``tol``, then
+    timed by record_form."""
+    out, ref = fn(), plain()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    record_form(rows, tag, form, dtype, shape, n,
+                (out.float() - ref.float()).abs().max().item(), fn, plain,
+                lib, bound, extra)
+
+
+def hold_products(conv1x1, g, sms, rows, tag, dtype, shape, n):
+    """K1's three products at (P, C, M) = ``shape`` in ``dtype`` on
+    operands drawn from ``g``: the forward, the dgrad and the split-K
+    wgrad (its time includes its reduce pass), each held against its
+    plain version and timed beside torch.matmul and the bound; two
+    wgrads bit-equal; the reduce pass over the wgrad's partials, where
+    its plan has any, held against its plain version and timed alone
+    (the "reduce" row).  Returns the operands (x, w, gout), the
+    products' flops and bytes, and the wgrad's plan."""
+    P, C, M = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    x = torch.randn(P, C, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(M, C, device="cuda", generator=g) / C ** 0.5).to(dtype)
+    gout = torch.randn(P, M, device="cuda", generator=g).to(dtype)
+    # the three products move the same three matrices
+    flops, nbytes = 2.0 * P * C * M, (P * C + M * C + P * M) * size
+    bound = gemm_bound_ms(flops, nbytes, dtype)
+    # forward: out [P, M] = x [P, C] @ w [M, C]^T
+    hold_form(rows, tag, "forward", dtype, shape, n,
+              lambda: conv1x1.mm(x, w, False, True),
+              lambda: conv1x1.mm_reference(x, w, False, True),
+              lambda: torch.matmul(x, w.t()), TOL[dtype], bound)
+    # dgrad: dx [P, C] = g [P, M] @ w [M, C]
+    hold_form(rows, tag, "dgrad", dtype, shape, n,
+              lambda: conv1x1.mm(gout, w, False, False),
+              lambda: conv1x1.mm_reference(gout, w, False, False),
+              lambda: torch.matmul(gout, w), TOL[dtype], bound)
+    # wgrad: dw [M, C] = g^T @ x, K = P in S slabs folded in clusters (and
+    # the reduce pass over the clusters' partials), against the
+    # function's bound (the fp32 partials are the design's overhead, not
+    # the function's work); two runs bit-equal
+    wp = conv1x1.plan(M, C, P, True, False, dtype, sms)
+    hold_form(rows, tag, "wgrad", dtype, shape, n,
+              lambda: conv1x1.mm(gout, x, True, False),
+              lambda: conv1x1.mm_reference(gout, x, True, False),
+              lambda: torch.matmul(gout.t(), x), deep_tol(dtype, P), bound,
+              extra=f" S={wp.splits:3d} cluster={wp.cluster} "
+                    f"partials={wp.partials}")
+    one, two = (conv1x1.mm(gout, x, True, False) for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise RuntimeError(f"chip_smoke: [{tag}] two {dtype} wgrads at "
+                           f"{shape} differ")
+    del one, two
+    if wp.partials:     # the reduce pass alone: part of the wgrad's ms
+        work = torch.randn(wp.partials, M, C, device="cuda", generator=g)
+        out, _ = conv1x1.splitk_reduce(work, dtype)
+        ref, _ = conv1x1.splitk_reduce_reference(work, dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+        r_ms = time_ms(lambda: conv1x1.splitk_reduce(work, dtype))
+        rows[("reduce", dtype, shape)] = dict(ms=r_ms)
+        print(f"[{tag}] reduce    {str(dtype)[6:]:8s} P={P:6d} C={C:4d} "
+              f"M={M:4d} partials={wp.partials:3d} max_abs_err="
+              f"{(out.float() - ref.float()).abs().max().item():.3e} "
+              f"kernel={r_ms:.4f} ms (of the wgrad's "
+              f"{rows[('wgrad', dtype, shape)]['ms']:.4f} ms)")
+        del work, out, ref
+    return x, w, gout, flops, nbytes, wp
+
+
 def phase_kernels(served, trained, seed):
     """Every kernel form against its plain version at every served and
     trained shape, in fp32 and bf16, with times; then the transpose
@@ -527,82 +637,14 @@ def phase_kernels(served, trained, seed):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, unsplit, bit_equal = {}, {}, []
 
-    def record(form, dtype, shape, err, fn, plain, lib, bound, extra=""):
-        k_ms, p_ms = time_ms(fn), time_ms(plain)
-        l_ms = time_ms(lib) if lib is not None else None
-        b_ms, b_by = bound
-        rows[(form, dtype, shape)] = dict(
-            err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-            bound_by=b_by)
-        lib_s = f"{l_ms:.4f} ms" if l_ms is not None else "-"
-        print(f"[kernels] {form:9s} {str(dtype)[6:]:8s} P={shape[0]:6d} "
-              f"C={shape[1]:4d} M={shape[2]:4d} n={served.count(shape)}+"
-              f"{trained.count(shape)}{extra} max_abs_err={err:.3e} "
-              f"kernel={k_ms:.4f} ms library={lib_s} plain={p_ms:.4f} ms "
-              f"bound={b_ms:.4f} ms ({b_by}) bound/kernel={b_ms / k_ms:.3f}")
-
-    def hold(form, dtype, shape, fn, plain, lib, tol, bound, extra=""):
-        out, ref = fn(), plain()
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out.float(), ref.float(), **tol)
-        record(form, dtype, shape, (out.float() - ref.float()).abs().max()
-               .item(), fn, plain, lib, bound, extra)
-
     for dtype in (torch.float32, torch.bfloat16):
-        size = 2 if dtype == torch.bfloat16 else 4
         for shape in sorted(set(served) | set(trained)):
             P, C, M = shape
-            x = torch.randn(P, C, device="cuda", generator=g).to(dtype)
-            w = (torch.randn(M, C, device="cuda", generator=g)
-                 / C ** 0.5).to(dtype)
-            gout = torch.randn(P, M, device="cuda", generator=g).to(dtype)
-            # the three products move the same three matrices
-            flops, nbytes = 2.0 * P * C * M, (P * C + M * C + P * M) * size
-            bound = gemm_bound_ms(flops, nbytes, dtype)
-            # forward: out [P, M] = x [P, C] @ w [M, C]^T
-            hold("forward", dtype, shape,
-                 lambda: conv1x1.mm(x, w, False, True),
-                 lambda: conv1x1.mm_reference(x, w, False, True),
-                 lambda: torch.matmul(x, w.t()), TOL[dtype], bound)
-            # dgrad: dx [P, C] = g [P, M] @ w [M, C]
-            hold("dgrad", dtype, shape,
-                 lambda: conv1x1.mm(gout, w, False, False),
-                 lambda: conv1x1.mm_reference(gout, w, False, False),
-                 lambda: torch.matmul(gout, w), TOL[dtype], bound)
-            # wgrad: dw [M, C] = g^T @ x, K = P in S slabs folded in
-            # clusters (and the reduce pass over the clusters' partials),
-            # against the function's bound (the fp32 partials are the
-            # design's overhead, not the function's work); two runs
-            # bit-equal
-            wp = conv1x1.plan(M, C, P, True, False, dtype, sms)
-            S, cl, parts = wp.splits, wp.cluster, wp.partials
-            hold("wgrad", dtype, shape,
-                 lambda: conv1x1.mm(gout, x, True, False),
-                 lambda: conv1x1.mm_reference(gout, x, True, False),
-                 lambda: torch.matmul(gout.t(), x), deep_tol(dtype, P),
-                 bound, extra=f" S={S:3d} cluster={cl} partials={parts}")
-            one, two = (conv1x1.mm(gout, x, True, False) for _ in range(2))
-            torch.cuda.synchronize()
-            if not torch.equal(one, two):
-                raise RuntimeError(f"chip_smoke: two {dtype} wgrads at "
-                                   f"{shape} differ")
+            n = f"{served.count(shape)}+{trained.count(shape)}"
+            x, w, gout, flops, nbytes, wp = hold_products(
+                conv1x1, g, sms, rows, "kernels", dtype, shape, n)
+            S = wp.splits
             bit_equal.append(shape)
-            del one, two
-            if parts:       # the reduce pass alone: part of the wgrad's ms
-                work = torch.randn(parts, M, C, device="cuda", generator=g)
-                out, _ = conv1x1.splitk_reduce(work, dtype)
-                ref, _ = conv1x1.splitk_reduce_reference(work, dtype)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(out.float(), ref.float(),
-                                           **TOL[dtype])
-                r_ms = time_ms(lambda: conv1x1.splitk_reduce(work, dtype))
-                rows[("reduce", dtype, shape)] = dict(ms=r_ms)
-                print(f"[kernels] reduce    {str(dtype)[6:]:8s} P={P:6d} "
-                      f"C={C:4d} M={M:4d} partials={parts:3d} max_abs_err="
-                      f"{(out.float() - ref.float()).abs().max().item():.3e}"
-                      f" kernel={r_ms:.4f} ms (of the wgrad's "
-                      f"{rows[('wgrad', dtype, shape)]['ms']:.4f} ms)")
-                del work, out, ref
             if S > 1 and dtype == torch.bfloat16 and shape in trained:
                 one_ms, one_err = unsplit_wgrad_ms(conv1x1, gout, x)
                 unsplit[shape] = one_ms
@@ -621,11 +663,12 @@ def phase_kernels(served, trained, seed):
                                        **deep_tol(dtype, P))
             err = check_sums(f"a_colsum {dtype} {shape}", cs, rcs,
                              gout.float().abs().sum(0))
-            record("a_colsum", dtype, shape, err,
-                   lambda: conv1x1.mm(gout, x, True, False, a_colsum=True),
-                   lambda: conv1x1.mm_reference(gout, x, True, False,
-                                                a_colsum=True), None,
-                   gemm_bound_ms(flops + P * M, nbytes + M * 4, dtype))
+            record_form(
+                rows, "kernels", "a_colsum", dtype, shape, n, err,
+                lambda: conv1x1.mm(gout, x, True, False, a_colsum=True),
+                lambda: conv1x1.mm_reference(gout, x, True, False,
+                                             a_colsum=True), None,
+                gemm_bound_ms(flops + P * M, nbytes + M * 4, dtype))
             del out, ref, cs, rcs, gout
             # out_stats epilogue on the forward: + per-column sum, sumsq
             out, ssum, ssq = conv1x1.mm(x, w, False, True, out_stats=True)
@@ -639,11 +682,12 @@ def phase_kernels(served, trained, seed):
                                  rsum, prod.abs().sum(0)),
                       check_sums(f"out_stats sumsq {dtype} {shape}", ssq,
                                  rsq, rsq))
-            record("out_stats", dtype, shape, err,
-                   lambda: conv1x1.mm(x, w, False, True, out_stats=True),
-                   lambda: conv1x1.mm_reference(x, w, False, True,
-                                                out_stats=True), None,
-                   gemm_bound_ms(flops + 3.0 * P * M, nbytes + M * 8, dtype))
+            record_form(
+                rows, "kernels", "out_stats", dtype, shape, n, err,
+                lambda: conv1x1.mm(x, w, False, True, out_stats=True),
+                lambda: conv1x1.mm_reference(x, w, False, True,
+                                             out_stats=True), None,
+                gemm_bound_ms(flops + 3.0 * P * M, nbytes + M * 8, dtype))
             del x, w, out, ref, prod
         torch.cuda.empty_cache()
     bf = torch.bfloat16
@@ -1242,7 +1286,8 @@ def exact_runs(main, loss, start, feed, seed):
     return runs, perturbed, ms
 
 
-def hold_to_exact(key, start, names, kernel, plain, exact, perturbed=None):
+def hold_to_exact(key, start, names, kernel, plain, exact, perturbed=None,
+                  tag="train"):
     """The kernel path's run against the plain path's, both measured
     from the float64 run after the same steps: losses and named updates
     (after - before) no farther from the float64 ones than NOISE_FACTOR
@@ -1255,7 +1300,7 @@ def hold_to_exact(key, start, names, kernel, plain, exact, perturbed=None):
         raise RuntimeError(f"chip_smoke: {key}: non-finite loss {lk} {lp}")
     ek = (np.abs(lk - l64) / np.abs(l64)).max()
     ep = (np.abs(lp - l64) / np.abs(l64)).max()
-    print(f"[train] {key}: losses kernel {lk.tolist()} plain {lp.tolist()} "
+    print(f"[{tag}] {key}: losses kernel {lk.tolist()} plain {lp.tolist()} "
           f"float64 {l64.tolist()}; max |loss - float64| / float64: kernel "
           f"{ek:.3e}, plain {ep:.3e}")
     failed = [] if ek <= NOISE_FACTOR * ep + LOSS_FLOOR else ["losses"]
@@ -1274,7 +1319,7 @@ def hold_to_exact(key, start, names, kernel, plain, exact, perturbed=None):
         worst = max(worst, dist_k / dist_p)
         pert = "" if perturbed is None else \
             f"; float64 from a perturbed input {dist(perturbed.get(n) - s0):.3e}"
-        print(f"[train] {key}: {n:18s}{' (kernel)' if on_kernel else '':9s} "
+        print(f"[{tag}] {key}: {n:18s}{' (kernel)' if on_kernel else '':9s} "
               f"|update| {d64.norm().item():.4e}; distance from the float64 "
               f"update: kernel {dist_k:.3e}, plain {dist_p:.3e}{pert}; "
               f"|kernel| / |plain| {ratio:.4f}")
@@ -2446,6 +2491,390 @@ def phase_pipeline(seed, card):
 
 
 # ---------------------------------------------------------------------------
+# [zoo] the model zoo of benchmark/run.py --all
+# ---------------------------------------------------------------------------
+# The HEADLINE configs the earlier phases do not train (benchmark/run.py
+# :176-178), each at its batch and full width: (name, batch, batch of the
+# fp32-against-float64 steps, their gradient limit).  GoogLeNet's K1 convs
+# need P = batch x 27 x 27 (or x 13 x 13) divisible by 128, so its exact
+# steps run at 128; VGG19's float64 convolutions run at 16 for time.
+#
+# Dropout off, ZOO_EXACT_STEPS fp32 steps (TF32 off) against the plain
+# path in float64 from the same weights: the losses within ZOO_EXACT_TOL
+# relative; each parameter's gradient at each step, and its update after
+# the steps, within the config's limit: |fp32 - float64| / |float64| in
+# Frobenius norm, where |float64| is floored at ZOO_EXACT_TOL of the
+# model's largest (smallnet's conv biases feed batch norm, so their exact
+# gradient is zero: float64 reads 1e-16, fp32 7.5e-7 of the largest), and
+# each element of an update's error first less what rounding the weight
+# to fp32 at each step explains (half an ulp a step: at lr 0.01 / batch an
+# update is 1e-5 of its weight, so the rounding alone moved GoogLeNet's
+# updates 7-41% from float64).  The LSTMs (cuBLAS products, TF32 off,
+# short sums) are held to ZOO_EXACT_TOL, as [seq2seq] is.  The CNNs are
+# not: relu and max-pool near-ties flip between fp32 and float64 (ROADMAP
+# Queue C), each flip moving a whole layer's gradient by a term of its
+# sum, and batch norm (smallnet) spreads them.  Their limits sit between
+# the fp32 reading and the reading with TF32 on, 2.5x or more from each
+# (this function's readings on an NVIDIA H100 80GB HBM3 at 700 W; fp32 /
+# TF32 on, largest over the parameters): AlexNet 4.3e-3 / 7.0e-2, GoogLeNet 2.9e-3
+# / 7.5e-2, VGG19 1.2e-2 and 1.4e-2 (two runs) / 1.5e-1, smallnet 3.6e-2
+# / 2.5e-1, LSTM 1.5e-6 / 1.8e-3.  Two controls must fail the limits: the
+# same fp32 steps with TF32 on (gradients), and a zero update (updates; it
+# reads 1.0, an fp32 update without momentum 0.33-0.48 at tiny sizes).
+ZOO = (("alexnet", 128, 128, 2e-2), ("googlenet", 128, 128, 2e-2),
+       ("smallnet", 64, 64, 1e-1), ("vgg19", 64, 16, 4e-2),
+       ("lstm_h512", 64, 64, 1e-4), ("lstm_h512", 128, 128, 1e-4))
+ZOO_ITERS, ZOO_REPS = 10, 3          # run_config windows, captured
+ZOO_INTERP_ITERS = 3                 # and use_jit=False
+ZOO_ARM_STEPS = 3                    # captured vs use_jit=False, dropout on
+ZOO_EXACT_STEPS = 2
+ZOO_EXACT_TOL = 1e-4                 # fp32 losses against float64, relative
+ZOO_AMP_TOL = 1e-2                   # AMP loss against fp32, relative
+
+
+def zoo_kernel_rows(shapes, seed):
+    """K1's bf16 products at GoogLeNet's distinct (P, C, M), held and
+    timed by hold_products, in the rows format of phase_kernels (for
+    kernel_entry)."""
+    from paddle_tpu_torch.ops import conv1x1
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for shape in sorted(set(shapes)):
+        operands = hold_products(conv1x1, g, sms, rows, "zoo",
+                                 torch.bfloat16, shape, shapes.count(shape))
+        del operands
+    torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_feed(feeds):
+    """The runner's host feeds on the card."""
+    return {k: torch.from_numpy(np.asarray(v)).cuda()
+            for k, v in feeds.items()}
+
+
+def zoo_arms(name, batch, seed, card):
+    """The captured step against use_jit=False with dropout on and cuDNN
+    deterministic: ZOO_ARM_STEPS steps after two warm steps from one
+    start, fetches (the loss, the first dropout's mask) and final scopes
+    bit-equal, every step captured, the masks different from step to
+    step."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.benchmark import run
+    main, startup, loss, feeds, _, _ = run.build_config(name, batch,
+                                                        seed=seed)
+    masks = [op.output("Mask")[0] for op in main.global_block().ops
+             if op.type == "dropout"][:1]
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    feed = zoo_feed(feeds)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        arms = {}
+        for use_jit in (True, False):
+            exe = ptt.Executor(amp=True, use_jit=use_jit)
+            scope = clone_scope(start)
+            exe.run_steps(2, main, feed=feed, fetch_list=[loss] + masks,
+                          scope=scope)
+            capture_stats().reset()
+            out = exe.run_steps(ZOO_ARM_STEPS, main, feed=feed,
+                                fetch_list=[loss] + masks, scope=scope,
+                                return_numpy=False)
+            torch.cuda.synchronize()
+            arms[use_jit] = (out, scope, capture_stats().snapshot())
+            exe.close()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    check_captured(f"[zoo] {name} {batch}", arms[True][2], ZOO_ARM_STEPS)
+    same_fetches(f"[zoo] {name} {batch} fetches", arms[True][0],
+                 arms[False][0])
+    n = same_scopes(f"[zoo] {name} {batch} final scope", arms[True][1],
+                    arms[False][1])
+    moved = ""
+    if masks:
+        m = arms[True][0][1]
+        if any(torch.equal(m[i], m[i + 1]) for i in range(len(m) - 1)):
+            raise RuntimeError(f"chip_smoke: [zoo] {name}: dropout drew the "
+                               f"same mask in two steps")
+        moved = (f"; dropout {masks[0]} kept "
+                 + ", ".join(f"{m[i].float().mean().item():.4f}"
+                             for i in range(len(m)))
+                 + " a step, no two masks equal")
+    print(f"[zoo] {name} batch {batch}, AMP, cuDNN deterministic: captured "
+          f"vs use_jit=False over {ZOO_ARM_STEPS} steps: fetches and all "
+          f"{n} scope entries bit-equal, steps {arms[True][2]}{moved}; "
+          f"{card}")
+    del arms, start
+    torch.cuda.empty_cache()
+
+
+def zoo_errors(run, ref):
+    """{parameter: (gradient error, update error)} of a zoo_exact run
+    against ``ref``: the largest over the steps of |g - g_ref| / |g_ref|,
+    and |e| / |u_ref| for the update after the steps, where e is each
+    element's |u - u_ref| less what rounding the run's weights to their
+    dtype explains (the run's ``slack``); Frobenius norms in float64,
+    each |ref| floored at ZOO_EXACT_TOL of the largest over the
+    parameters."""
+    params = list(run[2])
+    steps = range(len(run[2][params[0]]))
+    g_ref = {p: [ref[2][p][i].double() for i in steps] for p in params}
+    g_top = max(g.norm().item() for p in params for g in g_ref[p])
+    u_top = max(ref[3][p].norm().item() for p in params)
+    return {p: (max((run[2][p][i].double() - g_ref[p][i]).norm().item()
+                    / max(g_ref[p][i].norm().item(), ZOO_EXACT_TOL * g_top)
+                    for i in steps),
+                ((run[3][p] - ref[3][p]).abs() - run[4][p]).clamp(min=0)
+                .norm().item() / max(ref[3][p].norm().item(),
+                                     ZOO_EXACT_TOL * u_top))
+            for p in params}
+
+
+def ulp(w):
+    """The spacing of ``w``'s dtype at each |element|."""
+    a = w.abs()
+    return torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+
+
+def worst_of(errs, i):
+    """(parameter, error) with the largest error ``i`` (0 gradient,
+    1 update) in a zoo_errors dict."""
+    p = max(errs, key=lambda k: errs[k][i])
+    return p, errs[p][i]
+
+
+def zoo_exact(name, batch, tol, seed, card):
+    """Dropout off: ZOO_EXACT_STEPS fp32 steps (TF32 off, captured)
+    against the plain path in float64 on the card: the losses within
+    ZOO_EXACT_TOL, every parameter's gradient at every step and its
+    update after the steps (less the weights' rounding, zoo_errors)
+    within ``tol``; two controls that must fail ``tol``: the same fp32
+    steps with TF32 on (gradients) and a zero update (updates); the AMP
+    step's loss within ZOO_AMP_TOL of fp32's.  GoogLeNet: the fp32
+    kernel path and the plain path also held against float64 by
+    hold_to_exact.  Returns the float64 ms a step."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.benchmark import run
+    main, startup, loss, feeds, _, _ = run.build_config(name, batch,
+                                                        seed=seed)
+    gb = main.global_block()
+    for op in gb.ops:
+        if op.type == "dropout":
+            op.attrs["dropout_prob"] = 0.0
+    main._bump_version()
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    feed = zoo_feed(feeds)
+    params = [p.name for p in main.all_parameters()]
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+
+    def steps(amp, kernel, use_jit, dtype=None, prog=main, tf32=False):
+        """(losses, final scope, {param: stacked gradients},
+        {param: float64 update}, {param: the update's rounding slack})"""
+        scope = clone_scope(start, dtype)
+        exe = ptt.Executor(amp=amp, conv1x1_pallas=kernel, use_jit=use_jit)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            out = exe.run_steps(ZOO_EXACT_STEPS, prog, feed=feed,
+                                fetch_list=fetch, scope=scope,
+                                return_numpy=False)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        exe.close()
+        upd, slack = {}, {}
+        for p in params:
+            w0, w1 = start.get(p).to(scope.get(p).dtype), scope.get(p)
+            upd[p] = w1.double() - w0.double()
+            # each step rounds the weight to its dtype: half an ulp
+            slack[p] = ZOO_EXACT_STEPS * 0.5 * torch.maximum(
+                ulp(w0), ulp(w1)).double()
+        return (out[0].double().cpu().numpy(), scope,
+                dict(zip(params, out[1:])), upd, slack)
+
+    f32 = steps(False, True, True)
+    main64 = main.clone()
+    if gb.has_var("img"):
+        main64.global_block().var("img").dtype = "float64"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f64 = steps(False, False, False, torch.float64, main64)
+    ms64 = (time.perf_counter() - t0) * 1e3 / ZOO_EXACT_STEPS
+    e32 = zoo_errors(f32, f64)
+    tf32 = steps(False, True, True, tf32=True)
+    etf = zoo_errors(tf32, f64)
+    del tf32
+    lamp = steps(True, True, False)[0]
+    l32, l64 = f32[0], f64[0]
+    err32 = float(np.max(np.abs(l32 - l64) / np.abs(l64)))
+    erramp = float(abs(lamp[0] - l32[0]) / abs(l32[0]))
+    (g32p, g32), (u32p, u32) = worst_of(e32, 0), worst_of(e32, 1)
+    (gtfp, gtf), (utfp, utf) = worst_of(etf, 0), worst_of(etf, 1)
+    # a zero update, read by the same rule
+    zero = zoo_errors(f32[:3] + ({p: torch.zeros_like(u)
+                                  for p, u in f32[3].items()},) + f32[4:],
+                      f64)
+    zp, zerr = worst_of(zero, 1)
+    print(f"[zoo] {name} batch {batch}, dropout off: losses fp32 (captured) "
+          f"{l32.tolist()}, float64 {l64.tolist()} ({ms64:.1f} ms a step), "
+          f"AMP {lamp.tolist()}; fp32 vs float64: losses {err32:.3e} (limit "
+          f"{ZOO_EXACT_TOL}), over {len(params)} parameters gradients "
+          f"{g32:.3e} ({g32p}) and updates {u32:.3e} ({u32p}) (limit {tol}); "
+          f"controls that must fail it: TF32 on, gradients {gtf:.3e} "
+          f"({gtfp}), updates {utf:.3e} ({utfp}); a zero update {zerr:.3e} "
+          f"({zp}); AMP vs fp32 first step {erramp:.3e} (limit "
+          f"{ZOO_AMP_TOL}); {card}")
+    failed = [k for k, bad in (
+        ("fp32 losses", not err32 <= ZOO_EXACT_TOL),
+        ("fp32 gradients", not g32 <= tol),
+        ("fp32 updates", not u32 <= tol),
+        ("the TF32 control passed", not gtf > tol),
+        ("the zero-update control passed", not zerr > tol),
+        ("AMP loss", not erramp <= ZOO_AMP_TOL)) if bad]
+    if failed:
+        raise RuntimeError(f"chip_smoke: [zoo] {name}: outside the limits: "
+                           f"{failed}")
+    if name == "googlenet":
+        on_kernel = {g[3] for g in conv_geometry(main, batch)}
+        convs = [op.input("Filter")[0] for op in gb.ops
+                 if op.type == "conv2d"]
+        names = {convs[0]: False, **{n: True for n in sorted(on_kernel)},
+                 [op.input("Y")[0] for op in gb.ops
+                  if op.type == "mul"][-1]: False}
+        plain = steps(False, False, True)
+        hold_to_exact(f"googlenet fp32, {ZOO_EXACT_STEPS} steps", start,
+                      names, f32, plain, f64, tag="zoo")
+    del f32, f64, start
+    torch.cuda.empty_cache()
+    return ms64
+
+
+def check_zoo_run(label, snap, steps, counts, want):
+    """A [zoo] run of ``steps`` steps: with ``snap`` (captured), one
+    warm-up and steps - 1 replays, none uncaptured; the kernels it
+    launched (K1 and the attention kernels, by form) exactly ``want``."""
+    if snap is not None and (snap["uncaptured"]
+                             or snap["replays"] != steps - 1):
+        raise RuntimeError(f"chip_smoke: [zoo] {label}: steps {snap}, "
+                           f"expected one warm-up and {steps - 1} replays")
+    if {k: v for k, v in counts.items() if v} != want:
+        raise RuntimeError(f"chip_smoke: [zoo] {label}: {steps} steps "
+                           f"launched {counts}, expected {want}")
+
+
+def phase_zoo(seed, card):
+    """benchmark/run.py --all's configs that no earlier phase trains,
+    through the port's runner at their HEADLINE batch and full width:
+    throughput captured and use_jit=False (run_config, short windows),
+    each with a profiled step; captured against use_jit=False bit for bit
+    with dropout on; fp32 against float64 and AMP against fp32 with
+    dropout off; GoogLeNet's K1 launches against its trace.  Returns the
+    kernels JSON entries of K1 on GoogLeNet's step."""
+    from paddle_tpu_torch.benchmark import run
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g_main = run.build_config("googlenet", 128, seed=seed)[0]
+    g_shapes = eligible_1x1_shapes(g_main, 128)
+    n_split = sum(conv1x1.plan(M, C, P, True, False, torch.bfloat16,
+                               sms).partials > 0 for (P, C, M) in g_shapes)
+    print(f"[zoo] GoogLeNet batch 128: {len(g_shapes)} 1x1 convs on K1, "
+          f"(P, C, M) {g_shapes}; {n_split} bf16 wgrads split past one "
+          f"cluster")
+    rows = zoo_kernel_rows(g_shapes, seed)
+    entries, summary = [], []
+    for name, batch, exact_batch, exact_tol in ZOO:
+        arms, rates = {}, {}
+        for use_jit in (True, False):
+            prof = {}
+
+            def window(step, use_jit=use_jit, prof=prof):
+                since = (lambda: conv_since(conv1x1, "mm_bf16_tma")) \
+                    if name == "googlenet" else (lambda: (lambda: {}))
+                calls = [0]
+
+                def counted_step():
+                    calls[0] += 1
+                    step()
+                prof["rows"], _ = profiled_checked(
+                    "zoo", f"{name} batch {batch} AMP step, "
+                    + ("a replay" if use_jit else "use_jit=False"),
+                    counted_step, 1, since,
+                    own=CONV_KERNELS if name == "googlenet" else None)
+                prof["steps"] = calls[0]
+
+            iters = ZOO_ITERS if use_jit else ZOO_INTERP_ITERS
+            torch.cuda.synchronize()
+            conv1x1.reset_counts()
+            fa.reset_counts()
+            capture_stats().reset()
+            row = run.run_config(name, batch, iters=iters, reps=ZOO_REPS,
+                                 use_jit=use_jit, seed=seed, window=window,
+                                 quiet=True)
+            counts = dict(conv1x1.mm.by_form)
+            snap = capture_stats().snapshot()
+            steps = iters * (ZOO_REPS + 1) + prof["steps"]
+            busy = sum(r[0] for r in prof["rows"]) if prof["rows"] else None
+            arms["captured" if use_jit else "use_jit=False"] = (
+                row["ms_per_batch"], busy, row["peak_allocated_bytes"],
+                row["graph_pool_bytes"] if use_jit else None)
+            rates["captured" if use_jit else "use_jit=False"] = \
+                row["throughput"]
+            want = {}
+            if name == "googlenet":
+                want = {"forward": len(g_shapes) * steps,
+                        "dgrad": len(g_shapes) * steps,
+                        "wgrad": len(g_shapes) * steps,
+                        "splitk_reduce": n_split * steps}
+                if use_jit:         # the main path's launches
+                    launches = counts
+            check_zoo_run(f"{name} {'captured' if use_jit else 'use_jit=False'}",
+                          snap if use_jit else None, steps,
+                          {**counts, **dict(fa.launches)}, want)
+            print(f"[zoo] {json.dumps(row)}")
+            torch.cuda.empty_cache()
+        ref = row["ref"]
+        line = (f"{name} batch {batch}: {rates['captured']:.1f} "
+                f"{row['unit']} captured, {rates['use_jit=False']:.1f} "
+                f"use_jit=False")
+        if name.startswith("lstm"):
+            fp32 = run.run_config(name, batch, amp=False, iters=ZOO_ITERS,
+                                  reps=ZOO_REPS, seed=seed, quiet=True)
+            line += f", fp32 captured {fp32['throughput']:.1f}"
+            torch.cuda.empty_cache()
+        line += (f"; upstream {ref:.1f} ({row['ref_source']})" if ref
+                 else "; no upstream figure")
+        summary.append(line)
+        arms_line("zoo", f"{name} batch {batch} AMP training step (wall: "
+                  f"run_config windows of {ZOO_ITERS} / {ZOO_INTERP_ITERS} "
+                  f"steps, median of {ZOO_REPS})", "step", arms, card)
+        zoo_arms(name, batch, seed, card)
+        zoo_exact(name, exact_batch, exact_tol, seed, card)
+        print(f"[zoo] {name} done at {time.perf_counter() - t_phase:.1f} s")
+    for line in summary:
+        print(f"[zoo] {line}; {card}")
+    path = "train-googlenet"
+    tag = "GoogLeNet bf16 mm_bf16_tma"
+    entries = [
+        kernel_entry(f"conv1x1_mm {tag} forward (ta=0 tb=1)", 69, path,
+                     launches.get("forward", 0), rows, g_shapes, "forward"),
+        kernel_entry(f"conv1x1_mm {tag} dgrad (ta=0 tb=0)", 239, path,
+                     launches.get("dgrad", 0), rows, g_shapes, "dgrad"),
+        with_reduce(kernel_entry(
+            f"conv1x1_mm {tag} wgrad, split K, with its splitk_reduce pass "
+            "(ta=1 tb=0)", 245, path, launches.get("wgrad", 0), rows, g_shapes,
+            "wgrad"), rows, g_shapes, launches.get("splitk_reduce", 0))]
+    for e in entries:
+        e["shapes_pcm"] = g_shapes
+    print(f"[zoo] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # [bandwidth] the HBM stream-bandwidth probe
 # ---------------------------------------------------------------------------
 # Sizes that are multiples of no tile (Triton's 4096-float programs, the
@@ -2770,6 +3199,8 @@ def main():
     torch.cuda.empty_cache()
     phase_pipeline(args.seed, card)
     torch.cuda.empty_cache()
+    zoo_entries = phase_zoo(args.seed, card)
+    torch.cuda.empty_cache()
     bw_entries, _ = phase_bandwidth(args.seed, card)
 
     # bf16: the served path and the AMP step; fp32: the served forward's
@@ -2806,6 +3237,16 @@ def main():
               f"{k['bound_ms']:.3f} ms ({k['bound_by']}), library "
               f"{k['library_ms']:.3f} ms, plain {k['plain_ms']:.1f} ms; "
               f"{k['launches']} launches in the {ATT_STEPS}-step run")
+    kernels += zoo_entries
+    for k in zoo_entries:
+        red = "" if "reduce_ms" not in k else \
+            f" (of which the reduce passes {k['reduce_ms']:.4f} ms)"
+        print(f"[summary] {k['name']}, summed over the "
+              f"{len(k['shapes_pcm'])} 1x1 convs of one batch-128 step "
+              f"(P, C, M {k['shapes_pcm']}): kernel {k['ms']:.4f} ms{red}, "
+              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library "
+              f"{k['library_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms; "
+              f"{k['launches']} launches on the {k['path']} path")
     kernels += bw_entries
     for k in bw_entries:
         print(f"[summary] {k['name']} at {k['size_mb']:.0f} MB f32: kernel "

@@ -92,7 +92,7 @@ class CaptureStats:
       hits/misses — ExecCache lookups
       evictions   — entries dropped by the LRU bound or the dead sweep
     uncaptured: steps run by the interpreter for a reason other than a
-    warm-up, by reason (``cpu``, ``use_jit=False``, ``random_op``).
+    warm-up, by reason (``cpu``, ``use_jit=False``).
     """
 
     def __init__(self):

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import collections
 import threading
-import warnings
 import weakref
 from typing import Dict, List, Optional, Sequence
 
@@ -148,7 +147,8 @@ class ExecContext:
 
     def __init__(self, program: Program, device: torch.device, step: int,
                  is_test: bool = False,
-                 conv1x1_pallas: Optional[bool] = None, amp: bool = False):
+                 conv1x1_pallas: Optional[bool] = None, amp: bool = False,
+                 streams: Optional[Dict[tuple, torch.Generator]] = None):
         self.program = program
         self.device = device
         self.step = step
@@ -159,9 +159,14 @@ class ExecContext:
         self.conv1x1_pallas = conv1x1_pallas
         self.op: Optional[Operator] = None
         self.env: Optional[Env] = None
-        self._op_uid = 0
         # the op last started (a failed capture names it)
         self.last_op: Optional[Operator] = None
+        # the random ops' generators by stream key (the executor keeps
+        # one table a program); a capture sets ``capturing``, and the
+        # replay places the streams at the step instead
+        self.streams = {} if streams is None else streams
+        self.capturing = False
+        self._placed = set()
 
     def block(self, idx: int) -> Block:
         return self.program.blocks[idx]
@@ -189,17 +194,71 @@ class ExecContext:
     def set_len2(self, name: str, lens2):
         self.env.local[name + "@LEN2"] = lens2
 
-    def generator(self) -> torch.Generator:
-        """A generator for the current op, seeded from (program seed, run
-        counter, op position, op seed attr): reproducible per program and
-        different on every run, like the JAX executor's folded keys."""
-        seed = int(self.op.attrs.get("seed", 0) or 0) if self.op else 0
-        mixed = 0
-        for part in (self.program.random_seed, self.step, self._op_uid, seed):
-            mixed = (mixed * 0x9E3779B97F4A7C15 + int(part) + 1) % (1 << 63)
-        g = torch.Generator(device=self.device)
-        g.manual_seed(mixed)
+    def stream(self, key: tuple) -> torch.Generator:
+        """The generator of stream ``key`` (``_stream_key``), made and
+        seeded on first use."""
+        seeded = (self.program.random_seed,) + key
+        g = self.streams.get(seeded)
+        if g is None:
+            g = torch.Generator(device=self.device)
+            g.manual_seed(_mix(*seeded))
+            self.streams[seeded] = g
         return g
+
+    def generator(self) -> torch.Generator:
+        """The current op's generator: one stream a (op position, op
+        seed attr), seeded once from (program seed, position, seed
+        attr).  Its first use in a step places it at the step
+        (``place_stream``), so a step's draws are a function of (program
+        seed, step, op) alone, the same interpreted and replayed from a
+        CUDA graph, and an op that runs again within the step (in a
+        sub-block) draws on from there."""
+        key = _stream_key(self.program, self.op)
+        g = self.stream(key)
+        if key not in self._placed:
+            self._placed.add(key)
+            if not self.capturing:
+                place_stream(g, self.program, key, self.step)
+        return g
+
+
+# Random ops draw from ExecContext.generator; dropout only in training.
+RANDOM_OPS = ("uniform_random", "gaussian_random", "dropout")
+# A step's draws of one stream start STEP_OFFSET Philox counters after
+# the previous step's: far more than one op draws in a step (a call
+# advances the counter by 4 per element a thread handles, at most).
+STEP_OFFSET = 1 << 32
+
+
+def _mix(*parts) -> int:
+    mixed = 0
+    for part in parts:
+        mixed = (mixed * 0x9E3779B97F4A7C15 + int(part) + 1) % (1 << 63)
+    return mixed
+
+
+def _stream_key(program: Program, op: Optional[Operator]) -> tuple:
+    """(block index, op index, op seed attr) of ``op`` in ``program``;
+    an op called outside the program's blocks is at (-1, -1)."""
+    if op is None:
+        return (-1, -1, 0)
+    pos = _memo(program, "op_positions", lambda: {
+        id(o): (b.idx, i) for b in program.blocks
+        for i, o in enumerate(b.ops)}).get(id(op), (-1, -1))
+    return pos + (int(op.attrs.get("seed", 0) or 0),)
+
+
+def place_stream(g: torch.Generator, program: Program, key: tuple,
+                 step: int):
+    """Put stream ``key``'s generator where step ``step`` starts.  On a
+    card: its Philox offset at ``step * STEP_OFFSET`` (a replay reads the
+    offset set before it, so a captured step draws what the interpreter
+    draws).  The CPU generator (mt19937) has no counter offset: the step
+    is folded into its seed."""
+    if g.device.type == "cuda":
+        g.set_offset(step * STEP_OFFSET)
+    else:
+        g.manual_seed(_mix(program.random_seed, *key, step))
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +283,6 @@ def run_op(op: Operator, env: Env, ctx: ExecContext):
     prev_op, prev_env = ctx.op, ctx.env
     ctx.op, ctx.env = op, env
     ctx.last_op = op
-    ctx._op_uid += 1
     try:
         result = impl(ctx, ins, op.attrs)
     except Exception as e:
@@ -416,19 +474,15 @@ def _written_persistables(program: Program) -> List[str]:
     return _memo(program, "written", compute)
 
 
-def _draws_random(program: Program, is_test: bool) -> bool:
-    """Whether a step of ``program`` draws from ``ExecContext.generator``
-    (dropout in training, uniform_random, gaussian_random): its host-side
-    generator, seeded per (seed, step, op), would be frozen by a replay."""
+def _random_streams(program: Program, is_test: bool) -> List[tuple]:
+    """The stream keys of the ops a step of ``program`` draws random
+    numbers in (dropout in training, uniform_random, gaussian_random): a
+    capture registers their generators with the graph."""
     def compute():
-        for b in program.blocks:
-            for op in b.ops:
-                if op.type in ("uniform_random", "gaussian_random"):
-                    return True
-                if op.type == "dropout" and not (
-                        is_test or op.attrs.get("is_test", False)):
-                    return True
-        return False
+        return [_stream_key(program, op) for b in program.blocks
+                for op in b.ops if op.type in RANDOM_OPS and not (
+                    op.type == "dropout"
+                    and (is_test or op.attrs.get("is_test", False)))]
     return _memo(program, ("random", bool(is_test)), compute)
 
 
@@ -458,7 +512,12 @@ class _CapturedStep:
     A thread's first step of the key runs interpreted (the warm-up: the
     thread's cuDNN and cuBLAS handles, which PyTorch keeps per thread,
     are made there); ``warm_threads`` holds the threads that took one.
-    The next step in a warm thread captures (and replays once)."""
+    The next step in a warm thread captures (and replays once).
+
+    The generators of the step's random ops (``streams``) are registered
+    with the graph, and before each replay each is placed at the step
+    (``place_stream``): the replay draws what an interpreted step with
+    that index draws."""
 
     def __init__(self):
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -470,6 +529,7 @@ class _CapturedStep:
         self.written: List[str] = []
         self.new_outputs: Dict[str, torch.Tensor] = {}
         self.deltas: List[collections.Counter] = []
+        self.streams: List[tuple] = []
 
     def capture(self, exe: "Executor", program: Program,
                 feeds: Dict[str, torch.Tensor], scope: Scope,
@@ -487,10 +547,23 @@ class _CapturedStep:
                 return v.clone()
             return v
 
+        ctx = exe._context(program, is_test)
+        ctx.capturing = True
+        graph = torch.cuda.CUDAGraph()
+        self.streams = [(key, ctx.stream(key))
+                        for key in _random_streams(program, is_test)]
+        register = getattr(graph, "register_generator_state", None)
+        if self.streams and register is None:
+            raise RuntimeError(
+                f"paddle_tpu_torch: this torch ({torch.__version__}) cannot "
+                f"register a generator with a CUDA graph "
+                f"(CUDAGraph.register_generator_state), so a step that draws "
+                f"random numbers cannot be captured; run it with "
+                f"Executor(use_jit=False)")
+        for _, g in self.streams:
+            register(g)
         counters = compile_cache.launch_counters()
         before = [collections.Counter(c) for c in counters]
-        ctx = exe._context(program, is_test)
-        graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=exe._side,
                                   capture_error_mode="thread_local"):
@@ -541,9 +614,12 @@ class _CapturedStep:
         if dst:
             torch._foreach_copy_(dst, src)
 
-    def replay(self, feeds: Dict[str, torch.Tensor]):
+    def replay(self, program: Program, feeds: Dict[str, torch.Tensor],
+               step: int):
         for k, v in feeds.items():
             self.static_feeds[k].copy_(v)
+        for key, g in self.streams:
+            place_stream(g, program, key, step)
         self.graph.replay()
         for c, d in zip(compile_cache.launch_counters(), self.deltas):
             if d:
@@ -561,14 +637,12 @@ class _CapturedStep:
         self.graph = None
         self.static_feeds, self.static_state = {}, {}
         self.fetches, self.new_outputs = [], {}
+        self.streams = []
 
 
 # ---------------------------------------------------------------------------
 # Executor
 # ---------------------------------------------------------------------------
-_warned_random = weakref.WeakSet()
-
-
 class Executor:
     """Run a Program on one device (``place``, default ``CUDAPlace(0)``).
 
@@ -580,12 +654,15 @@ class Executor:
     ``conv1x1_pallas`` and the device.  A key's first step runs
     interpreted on the capture's side stream (the warm-up: kernels build,
     cuBLAS makes its handles there); its second step is captured and
-    replayed; later steps replay.  A program that draws random numbers
-    (dropout in training, ``uniform_random``, ``gaussian_random``) runs
-    interpreted, counted under ``random_op`` in
-    ``compile_cache.stats()`` and warned about once.  A failed capture
-    raises.  ``use_jit=False``, or a CPU place, steps the interpreter
-    (the debugging path, as ``use_jit=False`` in the JAX package).
+    replayed; later steps replay.  Random ops (dropout in training,
+    ``uniform_random``, ``gaussian_random``) draw from one generator an
+    op, kept per (executor, program) and placed at each step's index
+    (``ExecContext.generator``), so a step draws the same numbers
+    interpreted, warmed up or replayed, and differs from step to step.
+    A failed capture raises, and so does a step with a random op on a
+    torch that cannot register a generator with a graph.
+    ``use_jit=False``, or a CPU place, steps the interpreter (the
+    debugging path, as ``use_jit=False`` in the JAX package).
 
     ``amp=True``: a program with no ``backward`` op (inference) computes
     entirely in bf16 — fp32 feeds and state are cast on entry, and state
@@ -627,6 +704,8 @@ class Executor:
                                               max_bytes)
         self._side = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
+        # program -> its random ops' generators (ExecContext.streams)
+        self._streams = weakref.WeakKeyDictionary()
 
     def graph_pools(self) -> list:
         """The memory-pool handles of the captured steps' graphs (the
@@ -704,15 +783,6 @@ class Executor:
             return "cpu"
         if not self.use_jit:
             return "use_jit=False"
-        if _draws_random(program, is_test):
-            if program not in _warned_random:
-                _warned_random.add(program)
-                warnings.warn(
-                    "paddle_tpu_torch: this program draws random numbers "
-                    "(dropout, uniform_random or gaussian_random), which a "
-                    "replayed CUDA graph would freeze; its steps run "
-                    "uncaptured", RuntimeWarning, stacklevel=4)
-            return "random_op"
         return None
 
     # -- entry points ---------------------------------------------------------
@@ -823,7 +893,7 @@ class Executor:
             elif not loaded:
                 entry.load_state(scope)
                 loaded = True
-            entry.replay(feeds)
+            entry.replay(program, feeds, self._step)
             self._step += 1
             stats.bump("replays")
             out.append([f.clone() if f is not None else None
@@ -842,8 +912,12 @@ class Executor:
         return fetches
 
     def _context(self, program: Program, is_test: bool) -> ExecContext:
+        streams = self._streams.get(program)
+        if streams is None:
+            streams = self._streams[program] = {}
         return ExecContext(program, self.device, self._step, is_test=is_test,
-                           conv1x1_pallas=self.conv1x1_pallas, amp=self.amp)
+                           conv1x1_pallas=self.conv1x1_pallas, amp=self.amp,
+                           streams=streams)
 
     def _interpret_step(self, program: Program, ctx: ExecContext,
                         state: Dict[str, torch.Tensor],

@@ -1,6 +1,6 @@
 """Layer API (counterpart of ``paddle_tpu/layers``): the layers the
 ResNet serving and training paths, the gradient clips, the attention
-slice and the seq2seq slice build."""
+slice, the seq2seq slice and the model zoo build."""
 
 from . import control_flow  # noqa: F401
 from .io import data  # noqa: F401

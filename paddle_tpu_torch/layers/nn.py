@@ -2,8 +2,8 @@
 ``paddle_tpu/layers/nn.py``).  Each function appends the same op types
 with the same attrs as its JAX twin, so both packages build the same
 program.  Only the layers the ResNet serving and training paths, the
-gradient clips, the attention slice and the seq2seq slice use are
-ported."""
+gradient clips, the attention slice, the seq2seq slice and the model
+zoo (``models/``, ``nets``) use are ported."""
 from __future__ import annotations
 
 from ..initializer import ConstantInitializer
@@ -16,7 +16,8 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
            "cross_entropy", "clip", "clip_by_norm", "softmax", "matmul",
            "dropout", "square_error_cost", "flash_attention", "embedding",
            "dynamic_gru", "gru_unit", "sequence_pool", "sequence_first_step",
-           "sequence_last_step", "reshape", "squeeze", "unsqueeze", "concat"]
+           "sequence_last_step", "reshape", "squeeze", "unsqueeze", "concat",
+           "lrn", "dynamic_lstm", "sequence_conv", "split"]
 
 
 def _pair(v):
@@ -105,6 +106,43 @@ def _copy_len(helper, src, dst):
                      outputs={"Out": [dst]}, attrs={})
 
 
+def dynamic_lstm(input, size, h_0=None, c_0=None, param_attr=None,
+                 bias_attr=None, use_peepholes=True, is_reverse=False,
+                 gate_activation="sigmoid", cell_activation="tanh",
+                 candidate_activation="tanh", dtype="float32", name=None):
+    """The LSTM recurrence over a pre-projected [B, T, size] sequence
+    (size = 4 H, ``layers/nn.py:170``); returns (hidden, cell), each
+    [B, T, H] with the input's lengths.  The bias holds the peephole
+    weights as a 3 H tail when ``use_peepholes``."""
+    helper = LayerHelper("lstm", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    hidden = size // 4
+    w = helper.create_parameter(param_attr, shape=[hidden, 4 * hidden],
+                                dtype=dtype)
+    bias_size = 4 * hidden + (3 * hidden if use_peepholes else 0)
+    b = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr) or ParamAttr(), shape=[1, bias_size],
+        dtype=dtype, is_bias=True)
+    B, T = (input.shape or (-1, -1))[:2]
+    hid = helper.create_variable_for_type_inference(
+        dtype, (B, T, hidden), lod_level=input.lod_level)
+    cell = helper.create_variable_for_type_inference(
+        dtype, (B, T, hidden), lod_level=input.lod_level)
+    ins = {"Input": [input], "Weight": [w], "Bias": [b]}
+    if h_0 is not None:
+        ins["H0"] = [h_0]
+    if c_0 is not None:
+        ins["C0"] = [c_0]
+    helper.append_op(type="lstm", inputs=ins,
+                     outputs={"Hidden": [hid], "Cell": [cell]},
+                     attrs={"use_peepholes": use_peepholes,
+                            "is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "cell_activation": cell_activation,
+                            "candidate_activation": candidate_activation})
+    return hid, cell
+
+
 def dynamic_gru(input, size, param_attr=None, bias_attr=None,
                 is_reverse=False, gate_activation="sigmoid",
                 candidate_activation="tanh", h_0=None, name=None):
@@ -182,6 +220,31 @@ def sequence_last_step(input, name=None):
     return sequence_pool(input, "last", name=name)
 
 
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  name=None):
+    """A context window of ``filter_size`` steps, centred, projected to
+    ``num_filters`` (``layers/nn.py:1025``); bias and activation after."""
+    helper = LayerHelper("sequence_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr,
+                                shape=[filter_size * d, num_filters],
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(
+        dtype, tuple(input.shape[:-1]) + (num_filters,),
+        lod_level=input.lod_level)
+    helper.append_op(type="sequence_conv",
+                     inputs={"X": [input], "Filter": [w]},
+                     outputs={"Out": [out]},
+                     attrs={"contextStride": filter_stride,
+                            "contextStart": -(filter_size // 2),
+                            "contextLength": filter_size})
+    pre_act = helper.append_bias_op(out)
+    return helper.append_activation(pre_act)
+
+
 def concat(input, axis=0, name=None):
     """Join ``input`` along ``axis`` (``layers/nn.py:527``).  A
     feature-axis concat of sequences is still a sequence: it keeps the
@@ -218,6 +281,23 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper.append_op(type="reshape", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"shape": list(shape)})
     return helper.append_activation(out, act)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """``num_or_sections`` equal parts of ``input`` along ``dim``, or
+    parts of the listed sizes (``layers/nn.py:659``)."""
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs=attrs)
+    return outs
 
 
 def squeeze(input, axes, name=None):
@@ -474,6 +554,18 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
                      attrs={"dropout_prob": dropout_prob, "is_test": is_test,
                             "seed": seed or 0,
                             "dropout_implementation": dropout_implementation})
+    return out
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalization across channels
+    (``layers/nn.py:979``)."""
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    mid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
     return out
 
 

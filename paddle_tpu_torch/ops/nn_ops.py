@@ -1,6 +1,6 @@
 """NN ops of the ported paths (counterpart of ``conv2d``, ``pool2d``,
-``batch_norm``, ``softmax``, ``cross_entropy`` and ``dropout`` in
-``paddle_tpu/ops/nn_ops.py``).
+``batch_norm``, ``softmax``, ``cross_entropy``, ``dropout`` and ``lrn``
+in ``paddle_tpu/ops/nn_ops.py``).
 
 Data layout is NCHW, as in the JAX package.  Eligible 1x1 convolutions
 go to the hand-written kernel (``ops/conv1x1.py``), whose autograd
@@ -63,19 +63,46 @@ def _pool2d(ctx, ins, attrs):
         if ptype == "max":
             return {"Out": torch.amax(x, dim=(2, 3), keepdim=True)}
         return {"Out": torch.mean(x, dim=(2, 3), keepdim=True)}
-    if attrs.get("ceil_mode", False):
-        raise NotImplementedError(
-            "pool2d ceil_mode=True is not ported yet (the JAX package pads "
-            "right/bottom; no ported model uses it)")
     ks = _pair(attrs.get("ksize", [2, 2]))
     st = _pair(attrs.get("strides", [1, 1]))
     pd = _pair(attrs.get("paddings", [0, 0]))
+    exclusive = attrs.get("exclusive", True)
+    extra = (0, 0)
+    if attrs.get("ceil_mode", False):
+        extra = tuple(_ceil_extra(x.shape[2 + i], ks[i], pd[i], st[i])
+                      for i in range(2))
+    if extra != (0, 0):
+        return {"Out": _pool2d_ceil(x, ptype, ks, st, pd, extra, exclusive)}
     if ptype == "max":
         return {"Out": F.max_pool2d(x, ks, st, pd)}
     # exclusive: padded taps are left out of the divisor
-    return {"Out": F.avg_pool2d(
-        x, ks, st, pd,
-        count_include_pad=not attrs.get("exclusive", True))}
+    return {"Out": F.avg_pool2d(x, ks, st, pd,
+                                count_include_pad=not exclusive)}
+
+
+def _ceil_extra(size, k, p, s):
+    """Rows (columns) padded at the bottom (right) so that a partial
+    last window yields an output, as the JAX package's ceil mode."""
+    rem = (size + 2 * p - k) % s
+    return (s - rem) % s if rem else 0
+
+
+def _pool2d_ceil(x, ptype, ks, st, pd, extra, exclusive):
+    """Pooling over x padded by ``pd`` on each side plus ``extra`` at the
+    bottom and right (``nn_ops.py:145-167``): max over -inf padding; the
+    average divides by the taps inside x when ``exclusive``, else by the
+    whole window (padding counts as zeros)."""
+    pads = (pd[1], pd[1] + extra[1], pd[0], pd[0] + extra[0])
+    if ptype == "max":
+        return F.max_pool2d(F.pad(x, pads, value=float("-inf")), ks, st)
+    window = ks[0] * ks[1]
+    total = F.avg_pool2d(F.pad(x, pads), ks, st) * window
+    if not exclusive:
+        return total / window
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    taps = F.avg_pool2d(F.pad(ones, pads), ks, st) * window
+    return total / taps
 
 
 @register_op("batch_norm")
@@ -172,3 +199,24 @@ def _dropout(ctx, ins, attrs):
     if upscale:
         out = out / (1.0 - p)
     return {"Out": out, "Mask": mask}
+
+
+@register_op("lrn")
+def _lrn(ctx, ins, attrs):
+    """Cross-channel local response normalization (``nn_ops.py:388-401``,
+    AlexNet): the sum of squares over ``n`` channels centred on each,
+    zero-padded, ``MidOut = k + alpha * sum`` and ``Out = X /
+    MidOut ** beta``."""
+    x = ins["X"][0]
+    n = attrs.get("n", 5)
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    k = attrs.get("k", 2.0)
+    half = n // 2
+    sq = F.pad(x * x, (0, 0, 0, 0, half, half))
+    C = x.shape[1]
+    acc = sq[:, 0:C]
+    for i in range(1, n):
+        acc = acc + sq[:, i:i + C]
+    mid = k + alpha * acc
+    return {"Out": x / torch.pow(mid, beta), "MidOut": mid}

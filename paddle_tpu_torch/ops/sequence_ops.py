@@ -1,13 +1,14 @@
 """Sequence ops over the padded+lengths form (counterpart of
-``sequence_pool``, ``gru`` and ``gru_unit`` in
-``paddle_tpu/ops/sequence_ops.py``, with its helpers ``_mask``,
+``sequence_pool``, ``sequence_conv``, ``lstm``, ``gru`` and ``gru_unit``
+in ``paddle_tpu/ops/sequence_ops.py``, with its helpers ``_mask``,
 ``_in_lens``, ``_seq_lens_or_full``, ``_masked_reverse`` and ``_ACT``).
 
 A sequence var is a padded dense tensor [B, T, ...] with a ``name@LEN``
 companion of B integer lengths (``ExecContext.get_len``); every op masks
 by length.  Where the JAX package scans a recurrence with ``lax.scan``,
-the port runs a Python loop over T under autograd.  Gate layout of the
-GRU ops: [u | r | c] (update, reset, candidate).
+the port runs a Python loop over T under autograd.  Gate layouts: LSTM
+[i | f | c | o] (input, forget, candidate, output), GRU [u | r | c]
+(update, reset, candidate).
 """
 from __future__ import annotations
 
@@ -96,6 +97,91 @@ def _sequence_pool(ctx, ins, attrs):
     else:
         raise ValueError(f"unknown pooltype {ptype}")
     return {"Out": out}
+
+
+@register_op("sequence_conv")
+def _sequence_conv(ctx, ins, attrs):
+    """Context-window projection along time (``sequence_ops.py:300-327``):
+    each step's ``contextLength`` neighbours from ``contextStart`` on,
+    zero outside the sequence, concatenated [B, T, L * D] and multiplied
+    by Filter [L * D, M]; Out carries X's lengths."""
+    x, w = ins["X"][0], ins["Filter"][0]
+    lens = _seq_lens_or_full(ctx, x)
+    if attrs.get("contextStride", 1) != 1:
+        raise ValueError("sequence_conv supports contextStride 1 (as the "
+                         "reference)")
+    ctx_len = attrs.get("contextLength", 3)
+    start = attrs.get("contextStart", -(ctx_len // 2))
+    T = x.shape[1]
+    m = _mask(lens, T, x.dtype)[..., None]
+    xm = x * m
+    t = torch.arange(T, device=x.device)
+    cols = []
+    for j in range(ctx_len):
+        shift = start + j
+        valid = ((t + shift >= 0) & (t + shift < T)).to(x.dtype)
+        cols.append(torch.roll(xm, -shift, dims=1) * valid[None, :, None])
+    out = (torch.cat(cols, dim=-1) @ w) * m
+    ctx.set_len(ctx.op.outputs["Out"][0], lens)
+    return {"Out": out}
+
+
+@register_op("lstm")
+def _lstm(ctx, ins, attrs):
+    """Dynamic LSTM over a pre-projected Input [B, T, 4H]
+    (``sequence_ops.py:453-514``): recurrent Weight [H, 4H], Bias [1, 4H]
+    with the peephole weights (i, f, o) as a [1, 3H] tail when
+    ``use_peepholes``; optional H0, C0 [B, H].  Finished rows keep their
+    state and output zeros; ``is_reverse`` runs each row's valid steps
+    back to front.  Hidden and Cell [B, T, H] carry the input's
+    lengths."""
+    x, w = ins["Input"][0], ins["Weight"][0]
+    bias = ins["Bias"][0].reshape(-1) if ins.get("Bias") else None
+    lens = _seq_lens_or_full(ctx, x, slot="Input")
+    B, T, H4 = x.shape
+    H = H4 // 4
+    use_peep = attrs.get("use_peepholes", False) and bias is not None
+    gate_act = _ACT[attrs.get("gate_activation", "sigmoid")]
+    cell_act = _ACT[attrs.get("cell_activation", "tanh")]
+    cand_act = _ACT[attrs.get("candidate_activation", "tanh")]
+    b_gate = bias[:4 * H] if bias is not None else None
+    if use_peep:
+        wi, wf, wo = bias[4 * H:5 * H], bias[5 * H:6 * H], bias[6 * H:7 * H]
+    h = ins["H0"][0] if ins.get("H0") else \
+        torch.zeros((B, H), dtype=x.dtype, device=x.device)
+    c = ins["C0"][0] if ins.get("C0") else \
+        torch.zeros((B, H), dtype=x.dtype, device=x.device)
+    is_reverse = attrs.get("is_reverse", False)
+    if is_reverse:
+        x = _masked_reverse(x, lens)
+    mask = _mask(lens, T, x.dtype)
+    hs, cs = [], []
+    for t in range(T):
+        mt = mask[:, t, None]
+        gates = x[:, t] + h @ w
+        if b_gate is not None:
+            gates = gates + b_gate
+        gi, gf, gc, go = torch.split(gates, H, dim=-1)
+        if use_peep:
+            gi = gi + c * wi
+            gf = gf + c * wf
+        c_new = gate_act(gf) * c + gate_act(gi) * cand_act(gc)
+        if use_peep:
+            go = go + c_new * wo
+        h_new = gate_act(go) * cell_act(c_new)
+        h = mt * h_new + (1 - mt) * h
+        c = mt * c_new + (1 - mt) * c
+        hs.append(h * mt)
+        cs.append(c * mt)
+    hidden = torch.stack(hs, dim=1)
+    cell = torch.stack(cs, dim=1)
+    if is_reverse:
+        hidden = _masked_reverse(hidden, lens)
+        cell = _masked_reverse(cell, lens)
+    for slot in ("Hidden", "Cell"):
+        if ctx.op.outputs.get(slot):
+            ctx.set_len(ctx.op.outputs[slot][0], lens)
+    return {"Hidden": hidden, "Cell": cell}
 
 
 @register_op("gru")

@@ -1,9 +1,10 @@
 """Tensor ops (counterpart of the ``fill_constant``,
 ``fill_constant_batch_size_like``, ``uniform_random``,
-``gaussian_random``, ``reshape``, ``squeeze``, ``unsqueeze`` and
-``concat`` lowerings in ``paddle_tpu/ops/tensor_ops.py``).  Random ops draw from a
-``torch.Generator`` the executor seeds per op (``ExecContext.generator``);
-the numbers differ from JAX's, the distributions do not."""
+``gaussian_random``, ``reshape``, ``squeeze``, ``unsqueeze``,
+``concat`` and ``split`` lowerings in ``paddle_tpu/ops/tensor_ops.py``).
+Random ops draw from a ``torch.Generator`` the executor keeps per op
+and places at each step (``ExecContext.generator``); the numbers differ
+from JAX's, the distributions do not."""
 from __future__ import annotations
 
 import torch
@@ -96,3 +97,19 @@ def _unsqueeze(ctx, ins, attrs):
 @register_op("concat")
 def _concat(ctx, ins, attrs):
     return {"Out": torch.cat(ins["X"], dim=attrs.get("axis", 0))}
+
+
+@register_op("split")
+def _split(ctx, ins, attrs):
+    """Split X along ``axis`` into ``num`` equal parts or into parts of
+    the lengths in ``sections`` (``tensor_ops.py:137-150``)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections")
+    if sections:
+        return {"Out": list(torch.split(x, list(sections), dim=axis))}
+    num = attrs["num"]
+    if x.shape[axis] % num:
+        raise ValueError(f"split: dim {axis} of shape {tuple(x.shape)} "
+                         f"does not divide into {num} equal parts")
+    return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}

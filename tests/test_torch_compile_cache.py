@@ -143,12 +143,15 @@ def test_state_keys_and_random_ops_are_memoized_per_version():
     keys = exe._state_keys(main, scope)
     assert keys is exe._state_keys(main, scope)
     assert all(scope.has(k) for k in keys)
-    assert not executor_mod._draws_random(main, False)
+    assert executor_mod._random_streams(main, False) == []
     with ptt.program_guard(main):
         ptt.layers.dropout(main.global_block().var(loss.name), 0.5)
-    assert executor_mod._draws_random(main, False)
-    assert not executor_mod._draws_random(main, True)
-    assert executor_mod._draws_random(startup, True)      # uniform_random
+    streams = executor_mod._random_streams(main, False)
+    n = len(main.global_block().ops) - 1
+    assert streams == [(0, n, 0)]                        # the dropout
+    assert executor_mod._random_streams(main, False) is streams
+    assert executor_mod._random_streams(main, True) == []
+    assert executor_mod._random_streams(startup, True)   # uniform_random
     scope.set("extra", torch.zeros(1))
     assert exe._state_keys(main, scope) == keys
 

@@ -8,8 +8,10 @@ entry replaced between replays is seen; a captured training step and a
 captured test step on one scope (directly, and through
 ``trainer.SGD.test`` between passes) each see what the other wrote; the
 graph-pool byte bound evicts the least recent key; fetches are fresh
-tensors; a dropout program runs uncaptured and is counted; the
-capture-safe scalars of ``increment`` and ``sequence_pool(max)`` capture.
+tensors; a dropout program captures, draws what use_jit=False draws and
+new masks every step; the capture-safe scalars of ``increment`` and
+``sequence_pool(max)`` capture; an LSTM text classifier's step
+captures.
 
 Every test needs a CUDA card (``cuda`` marker); none imports JAX, so on
 the card they run with ``python3 -m pytest --noconftest -m cuda
@@ -368,27 +370,66 @@ def test_fetches_are_fresh_tensors(card):
 
 
 @pytest.mark.cuda
-def test_dropout_program_runs_uncaptured_and_counted(card):
+def test_dropout_program_is_captured_and_matches_use_jit_false(card):
+    """A training program with two dropouts (and the uniform_random of
+    its startup) captures: run_steps(3) then two run()s replay, their
+    fetches (loss and both masks) and final scope bit-equal to
+    use_jit=False; each step's masks differ from the other steps' and
+    from the other op's."""
     main, startup = _programs(9)
     with ptt.program_guard(main, startup):
-        x = ptt.layers.data("x", [16])
-        h = ptt.layers.dropout(ptt.layers.fc(x, 16), dropout_prob=0.5)
-        loss = ptt.layers.mean(h)
+        x = ptt.layers.data("x", [256])
+        h = ptt.layers.dropout(ptt.layers.fc(x, 256), dropout_prob=0.5)
+        h = ptt.layers.dropout(h, dropout_prob=0.5)
+        loss = ptt.layers.mean(ptt.layers.fc(h, 1))
         ptt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    masks = [op.output("Mask")[0] for op in main.global_block().ops
+             if op.type == "dropout"]
     scope = _start(startup)
-    compile_cache.stats().reset()
-    exe = ptt.Executor()
-    feed = {"x": np.ones((4, 16), np.float32)}
-    with pytest.warns(RuntimeWarning, match="random"):
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-    exe.run_steps(3, main, feed=feed, fetch_list=[loss], scope=scope)
+    feed = {"x": np.ones((8, 256), np.float32)}
+    cap, ref = _both_arms(main, scope, [loss] + masks, feed)
     s = compile_cache.stats().snapshot()
-    assert s["captures"] == 0 and s["replays"] == 0
-    assert s["uncaptured"] == {"random_op": 4}
-    # in test mode dropout draws nothing: the step captures
-    exe.run_steps(3, main, feed=feed, fetch_list=[loss], scope=scope,
-                  is_test=True)
-    assert compile_cache.stats().snapshot()["captures"] == 1
+    assert s["captures"] == 1 and s["replays"] == 4
+    assert s["uncaptured"] == {"use_jit=False": 6}     # with the startup
+    _same(cap[0], ref[0])
+    _same_scope(cap[1], ref[1])
+    m1 = [np.asarray(cap[0][1])[i] for i in range(3)] + [cap[0][4], cap[0][7]]
+    m2 = [np.asarray(cap[0][2])[i] for i in range(3)] + [cap[0][5], cap[0][8]]
+    for ms in (m1, m2):
+        assert len({m.tobytes() for m in ms}) == 5
+        assert all(0.4 < m.mean() < 0.6 for m in ms)
+    assert all(not np.array_equal(a, b) for a, b in zip(m1, m2))
+
+
+@pytest.mark.cuda
+def test_run_steps_advances_the_dropout_streams_every_replay(card):
+    """run_steps(4) on the captured path draws four different masks, the
+    ones four run() calls draw on a second executor from the same start,
+    and a second program with another seed draws others."""
+    def build(seed):
+        main, startup = _programs()
+        main.random_seed = seed
+        with ptt.program_guard(main, startup):
+            x = ptt.layers.data("x", [64])
+            h = ptt.layers.dropout(x, dropout_prob=0.5)
+            loss = ptt.layers.mean(h)
+        mask, = [op.output("Mask")[0] for op in main.global_block().ops
+                 if op.type == "dropout"]
+        return main, loss, mask
+
+    feed = {"x": np.ones((16, 64), np.float32)}
+    main, loss, mask = build(1)
+    a = ptt.Executor().run_steps(4, main, feed=feed,
+                                 fetch_list=[mask], scope=ptt.Scope())[0]
+    exe = ptt.Executor()
+    b = [exe.run(main, feed=feed, fetch_list=[mask], scope=ptt.Scope())[0]
+         for _ in range(4)]
+    assert len({m.tobytes() for m in a}) == 4
+    _same(list(a), b)
+    other, _, omask = build(2)
+    c = ptt.Executor().run_steps(4, other, feed=feed, fetch_list=[omask],
+                                 scope=ptt.Scope())[0]
+    assert not any(np.array_equal(x, y) for x, y in zip(a, c))
 
 
 @pytest.mark.cuda
@@ -451,3 +492,27 @@ def test_capture_in_another_thread_than_the_warm_up(card):
         _same(g, want)
     s = compile_cache.stats().snapshot()
     assert (s["warmups"], s["captures"], s["replays"]) == (2, 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_lstm_textcls_captured_equals_interpreted(card, amp):
+    """The LSTM text classifier (2 layers over ragged rows, Adam) captures
+    and matches use_jit=False bit for bit."""
+    main, startup = _programs(5)
+    L = ptt.layers
+    with ptt.program_guard(main, startup):
+        words = L.data("words", shape=[], dtype="int64", lod_level=1)
+        label = L.data("label", [1], dtype="int64")
+        pred = ptt.models.lstm_text_classification(
+            words, vocab_size=50, emb_dim=16, hidden_size=16, lstm_num=2)
+        loss = L.mean(L.cross_entropy(pred, label))
+        ptt.optimizer.Adam(2e-3).minimize(loss)
+    r = np.random.RandomState(3)
+    feed = {"words": r.randint(0, 50, (8, 12)),
+            "words@LEN": np.array([12, 1, 5, 12, 7, 3, 9, 2], np.int32),
+            "label": r.randint(0, 2, (8, 1))}
+    cap, ref = _both_arms(main, _start(startup), [loss], feed, amp=amp)
+    _same(cap[0], ref[0])
+    _same_scope(cap[1], ref[1])
+    assert compile_cache.stats().snapshot()["captures"] == 1

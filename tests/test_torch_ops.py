@@ -238,6 +238,68 @@ def test_random_ops_are_reproducible_and_vary_per_op():
     assert not np.array_equal(s1.numpy("a"), s1.numpy("b"))
 
 
+def _dropout_program(seed, n_ops=2):
+    """x -> dropout -> dropout (training); returns (program, the masks)."""
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = seed
+    with ptt.program_guard(main, startup):
+        h = ptt.layers.data("x", [32])
+        for _ in range(n_ops):
+            h = ptt.layers.dropout(h, dropout_prob=0.5)
+    return main, [op.output("Mask")[0] for op in main.global_block().ops]
+
+
+def test_dropout_masks_repeat_per_seed_step_and_op():
+    """A mask is a function of (program seed, step, op): run_steps(3) and
+    three run()s on a second executor draw the same masks; they differ
+    from step to step, from op to op, and under another seed."""
+    feed = {"x": np.ones((16, 32), np.float32)}
+    main, masks = _dropout_program(3)
+    a = ptt.Executor(ptt.CPUPlace()).run_steps(3, main, feed=feed,
+                                               fetch_list=masks,
+                                               scope=ptt.Scope())
+    exe = ptt.Executor(ptt.CPUPlace())
+    b = [exe.run(main, feed=feed, fetch_list=masks, scope=ptt.Scope())
+         for _ in range(3)]
+    for i in range(3):
+        for j in range(2):
+            np.testing.assert_array_equal(a[j][i], b[i][j])
+    draws = [a[j][i].tobytes() for i in range(3) for j in range(2)]
+    assert len(set(draws)) == 6
+    assert all(0.3 < a[j][i].mean() < 0.7 for i in range(3)
+               for j in range(2))
+    other, omasks = _dropout_program(4)
+    c = ptt.Executor(ptt.CPUPlace()).run_steps(3, other, feed=feed,
+                                               fetch_list=omasks,
+                                               scope=ptt.Scope())
+    assert not set(draws) & {c[j][i].tobytes() for i in range(3)
+                             for j in range(2)}
+
+
+def test_a_random_op_in_a_sub_block_draws_anew_each_call():
+    """An op that runs several times within one step (here: twice, by
+    hand, through one ExecContext) draws on from its stream, and a new
+    context at the same step draws the same two draws again."""
+    main, _ = _dropout_program(5, n_ops=1)
+    op = main.global_block().ops[0]
+
+    def two_draws(step):
+        ctx = ptt.core.ExecContext(main, torch.device("cpu"), step)
+        env = ptt.core.Env(main.global_block())
+        env.local["x"] = torch.ones(8, 32)
+        out = []
+        for _ in range(2):
+            ptt.core.run_op(op, env, ctx)
+            out.append(env.get(op.output("Mask")[0]).clone())
+        return out
+
+    first, again, later = two_draws(7), two_draws(7), two_draws(8)
+    assert not torch.equal(first[0], first[1])
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert not any(torch.equal(x, y) for x, y in zip(first, later))
+
+
 def test_run_op_names_the_failing_op():
     prog = ptt.Program()
     blk = prog.global_block()

@@ -493,3 +493,154 @@ def test_env_lookup_and_write_through_match_jax():
     assert placed[0] == placed[1]
     assert placed[1][0] == [("a", 2), ("m", 0)]
     assert placed[1][1] == [("b", 2), ("c", 2), ("m", 2)]
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's ops: lstm, sequence_conv, split, lrn, pool2d ceil mode
+# ---------------------------------------------------------------------------
+LSTM_CASES = [  # (peepholes, reverse, h0/c0, ragged)
+    (True, False, False, True), (False, False, False, True),
+    (True, True, False, True), (True, False, True, True),
+    (False, True, True, False)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("peep,reverse,init,ragged", LSTM_CASES,
+                         ids=["peep", "plain", "peep-reverse", "peep-h0c0",
+                              "reverse-h0c0-full"])
+def test_lstm_matches_jax(peep, reverse, init, ragged, dtype):
+    """The LSTM recurrence (gates i, f, c, o) over ragged or full lengths:
+    peepholes from Bias's 3H tail, reversed within each row's length,
+    from optional H0/C0; Hidden and Cell masked past each length and
+    given the input's @LEN; values and (fp32) every gradient."""
+    B, T, H = 4, 6, 5
+    c = Case()
+    c.var("x", lod_level=1)
+    ins = {"Input": ["x"], "Weight": ["w"], "Bias": ["b"]}
+    if init:
+        ins["H0"], ins["C0"] = ["h0"], ["c0"]
+    c.op("lstm", ins, {"Hidden": ["hid"], "Cell": ["cell"]},
+         {"use_peepholes": peep, "is_reverse": reverse,
+          "gate_activation": "sigmoid", "cell_activation": "tanh",
+          "candidate_activation": "tanh"})
+    lens = _lens(B, T) if ragged else np.full(B, T, np.int32)
+    feeds = {"x": _x(B, T, 4 * H), "x@LEN": lens, "w": _x(H, 4 * H) * 0.5,
+             "b": _x(1, (7 if peep else 4) * H)}
+    if init:
+        feeds["h0"], feeds["c0"] = _x(B, H), _x(B, H)
+    wrt = tuple(k for k in feeds if k != "x@LEN") \
+        if dtype == "float32" else ()
+    j, t, jg, tg = c.run(feeds, ["hid", "cell"], dtype, wrt=wrt)
+    _same(j, t, ["hid", "cell"], dtype)
+    _same_grads(jg, tg, wrt)
+    for n in ("hid", "cell"):
+        np.testing.assert_array_equal(t.get(n + "@LEN").numpy(), lens)
+    mask = np.arange(T)[None, :] < lens[:, None]
+    assert not t.get("cell").detach()[torch.from_numpy(~mask)].any()
+
+
+@pytest.mark.parametrize("activation", ["relu", "identity"])
+def test_lstm_activation_attrs_match_jax(activation):
+    """The three activation attrs each reach their place in the cell."""
+    B, T, H = 3, 4, 4
+    c = Case()
+    c.var("x", lod_level=1)
+    c.op("lstm", {"Input": ["x"], "Weight": ["w"], "Bias": ["b"]},
+         {"Hidden": ["hid"], "Cell": ["cell"]},
+         {"use_peepholes": False, "is_reverse": False,
+          "gate_activation": "sigmoid", "cell_activation": activation,
+          "candidate_activation": activation})
+    feeds = {"x": _x(B, T, 4 * H), "x@LEN": _lens(B, T),
+             "w": _x(H, 4 * H) * 0.5, "b": _x(1, 4 * H)}
+    j, t, _, _ = c.run(feeds, ["hid", "cell"])
+    _same(j, t, ["hid", "cell"], "float32")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ctx_len,start", [(3, -1), (2, 0), (5, -2)])
+def test_sequence_conv_matches_jax(ctx_len, start, dtype):
+    """The context window over ragged rows: neighbours outside the row
+    are zero, Out masked past each length and given X's @LEN."""
+    B, T, D, M = 4, 7, 3, 5
+    c = Case()
+    c.var("x", lod_level=1)
+    c.op("sequence_conv", {"X": ["x"], "Filter": ["w"]}, {"Out": ["out"]},
+         {"contextStride": 1, "contextStart": start,
+          "contextLength": ctx_len})
+    lens = _lens(B, T)
+    feeds = {"x": _x(B, T, D), "x@LEN": lens, "w": _x(ctx_len * D, M)}
+    wrt = ("x", "w") if dtype == "float32" else ()
+    j, t, jg, tg = c.run(feeds, ["out"], dtype, wrt=wrt)
+    _same(j, t, ["out"], dtype)
+    _same_grads(jg, tg, wrt)
+    np.testing.assert_array_equal(t.get("out@LEN").numpy(), lens)
+
+
+SPLITS = [({"num": 2, "axis": -1}, (3, 8)), ({"num": 3, "axis": 1},
+                                             (2, 6, 4)),
+          ({"sections": [1, 4, 3], "axis": 0}, (8, 2))]
+
+
+@pytest.mark.parametrize("attrs,shape", SPLITS,
+                         ids=["num-last", "num-mid", "sections"])
+def test_split_matches_jax(attrs, shape):
+    n = attrs.get("num") or len(attrs["sections"])
+    outs = [f"o{i}" for i in range(n)]
+    c = Case()
+    c.op("split", {"X": ["x"]}, {"Out": outs}, attrs)
+    j, t, jg, tg = c.run({"x": _x(*shape)}, outs, wrt=("x",))
+    _same(j, t, outs, "float32")
+    _same_grads(jg, tg, ("x",))
+
+
+def test_split_into_unequal_parts_raises():
+    c = Case()
+    c.op("split", {"X": ["x"]}, {"Out": ["a", "b"]}, {"num": 2, "axis": 1})
+    tprog = ptt.Program.from_json(c.prog.to_json())
+    env = ptt.core.Env(tprog.global_block())
+    env.local["x"] = torch.zeros(2, 3)
+    with pytest.raises(ValueError, match="equal parts"):
+        ptt.core.interpret_ops(tprog.global_block().ops, env,
+                               ptt.core.ExecContext(tprog,
+                                                    torch.device("cpu"), 0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,k", [(5, 2.0), (3, 1.0)])
+def test_lrn_matches_jax(n, k, dtype):
+    """Out and MidOut of local response normalization across channels
+    (zero-padded at the ends), and the input's gradient."""
+    c = Case()
+    c.op("lrn", {"X": ["x"]}, {"Out": ["out"], "MidOut": ["mid"]},
+         {"n": n, "k": k, "alpha": 1e-2, "beta": 0.75})
+    wrt = ("x",) if dtype == "float32" else ()
+    j, t, jg, tg = c.run({"x": _x(2, 7, 4, 3)}, ["out"], dtype, wrt=wrt)
+    _same(j, t, ["out", "mid"], dtype)
+    _same_grads(jg, tg, wrt)
+
+
+POOLS_CEIL = [  # (pooling_type, ksize, strides, paddings, exclusive, hw)
+    ("max", 3, 2, 0, True, (8, 8)), ("max", 2, 2, 1, True, (7, 9)),
+    ("avg", 3, 2, 0, True, (8, 8)), ("avg", 3, 2, 0, False, (8, 8)),
+    ("avg", 2, 2, 1, True, (7, 9)), ("avg", 2, 2, 1, False, (7, 9)),
+    ("avg", 3, 2, 1, True, (9, 9))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ptype,k,s,p,exclusive,hw", POOLS_CEIL)
+def test_pool2d_ceil_mode_matches_jax(ptype, k, s, p, exclusive, hw, dtype):
+    """ceil_mode pads right and bottom so a partial last window yields an
+    output; an average over it divides by the taps inside the input when
+    ``exclusive``, else by the whole window (padding as zeros)."""
+    c = Case()
+    c.op("pool2d", {"X": ["x"]}, {"Out": ["out"]},
+         {"pooling_type": ptype, "ksize": [k, k], "strides": [s, s],
+          "paddings": [p, p], "global_pooling": False,
+          "exclusive": exclusive, "ceil_mode": True})
+    x = R.permutation(2 * 3 * hw[0] * hw[1]).reshape(2, 3, *hw) \
+        .astype(np.float32) / 10.0          # tie-free for max
+    wrt = ("x",) if dtype == "float32" else ()
+    j, t, jg, tg = c.run({"x": x}, ["out"], dtype, wrt=wrt)
+    _same(j, t, ["out"], dtype)
+    assert tuple(t.get("out").shape) == tuple(j.get("out").shape)
+    _same_grads(jg, tg, wrt)
