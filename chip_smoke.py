@@ -103,7 +103,31 @@ Phases, each of which raises on failure (so the script exits non-zero):
              reduce pass too, by phase 3's helper), its fp32 kernel path
              against the plain path by float64, its counted launches
              against the run's steps and a profiled step's trace.
-11. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
+11. inference — benchmark/inference.py's deploy path: ResNet-50 (224x224,
+             1000 classes, fp32) exported with a symbolic batch
+             (export_compiled_model, torch.export, its 29 gated 1x1 convs
+             as paddle_tpu_torch::conv2d_1x1 nodes) and loaded with no
+             Program and no Scope (load_compiled_model: one CUDA graph a
+             batch size); at batch 1, 4, 16, 64 and 128 its output bit-equal
+             to the live program run by the Executor (interpreted and
+             captured; fp32, TF32 off, cuDNN deterministic) and within 1e-4
+             of the plain path, K1's launches equal to the gate's count
+             times the calls and to a profiled call's trace; img/s of calls
+             back to back, device-only ms of K graph replays between two
+             events, the idle share, peak memory, the SM clock and power
+             after the windows, the ratio to the reference's published
+             Xeon rates at batch 1-16; beam-4 seq2seq decoding (vocab
+             30000, dim 512, 30 tokens) exported and held bit-equal to the
+             live program at batch 1, 16 and 64, tokens/s, export time; the
+             ResNet-50 artifact behind serving.Server (max_batch 16, 32
+             closed-loop workers, 2 s), every response checked against a
+             direct call, p50/p99 and the mean batch; flash attention at
+             head sizes 40 and 72 (and D 40, Dv 72), bf16 and fp32, padded
+             to the kernels' widths, forward and backward held against the
+             plain version with K2, K3 and K4 launched once each, and head
+             size 144 refused; K1's fp32 forward timed at the artifact's
+             shapes beside torch.matmul and the bound.
+12. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
              counterpart): holds the Triton grid copy and axpy kernels
              and the bulk-copy (TMA) DMA copy against their plain
              versions at each of the probe's four sizes and at two
@@ -116,7 +140,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
              TB/s and its time a pass beside the bound and copy_'s.
 
 The main path of slice, train, attention, seq2seq, pipeline and zoo runs
-captured (Executor(use_jit=True), each step one CUDA graph replay), and
+captured (Executor(use_jit=True), each step one CUDA graph replay; the
+inference phase replays one graph of the artifact a batch size), and
 each phase adds a use_jit=False arm from the same seed and weights: its
 fetches and final scope must equal the captured arm's bit for bit, no
 captured step may run uncaptured, and both arms' wall, device busy, idle
@@ -2875,6 +2900,382 @@ def phase_zoo(seed, card):
 
 
 # ---------------------------------------------------------------------------
+# [inference] the deploy path of benchmark/inference.py
+# ---------------------------------------------------------------------------
+# ResNet-50 exported once with a symbolic batch and run at these batches;
+# each batch's first two calls warm up and capture its graph.  The
+# artifact is held bit-equal to the live program run by the Executor
+# (captured, fp32, TF32 off, cuDNN deterministic) and within INF_TOL of
+# the plain path (the kernel off: cuDNN/cuBLAS instead of K1, another
+# summation order, through 50 layers).
+INF_BATCHES = (1, 4, 16, 64, 128)
+INF_TOL = 1e-4
+INF_WINDOWS, INF_TARGET_S = 3, 0.5     # benchmark windows, cut from 5 x 2 s
+# beam-4 decoding at the JAX benchmark's size (benchmark/inference.py:164-194)
+S2S_INF_BATCHES = (1, 16, 64)
+S2S_INF_SCORE_TOL = 1e-5               # only if a decomposition broke bits
+# --server: max_batch 16, 32 workers (benchmark/inference.py:197-245), a
+# short window
+SRV_MAX_BATCH, SRV_WORKERS, SRV_SECONDS = 16, 32, 2.0
+# the repair: flash attention at head sizes that are no multiple of 16
+PAD_FORMS = ((4, 2048, 40, 40), (4, 2048, 72, 72), (4, 2048, 40, 72))
+
+
+def inf_dir(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", name)
+
+
+def clocks_line():
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return f"SM clock, power draw, temperature: {out}"
+
+
+class CallCount:
+    """``run`` with its calls and graph replays counted."""
+
+    def __init__(self, run):
+        self.run, self.calls = run, 0
+        self.device = run.device
+
+    def __call__(self, feeds):
+        self.calls += 1
+        return self.run(feeds)
+
+    def replay(self, feeds, k):
+        self.calls += k
+        self.run.replay(feeds, k)
+
+
+def inference_resnet(seed, card):
+    """ResNet-50's artifact at every batch of INF_BATCHES: K1's launches
+    per call against the gate and a profiled call, bit-equality with the
+    live program, the plain path, img/s, device ms, busy, idle, peak
+    memory.  Returns (kernels entry parts: launches, shapes)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import export_model
+    from paddle_tpu_torch.benchmark import inference as binf
+    from paddle_tpu_torch.ops import conv1x1
+
+    infer, startup, pred = build_resnet50(seed)
+    gate = {b: eligible_1x1_shapes(infer, b) for b in INF_BATCHES}
+    static = sum(1 for op in infer.global_block().ops
+                 if op.type == "conv2d" and conv1x1.conv1x1_static_gate(
+                     infer.global_block().var(op.input("Input")[0]).shape[1],
+                     infer.global_block().var(op.input("Filter")[0]).shape,
+                     op.attrs["paddings"], op.attrs["dilations"],
+                     op.attrs["groups"]))
+    print(f"[inference] ResNet-50: eligible 1x1 convs per batch "
+          f"{ {b: len(s) for b, s in gate.items()} }; {static} convs pass "
+          f"the static gate")
+    scope = ptt.Scope()
+    live = ptt.Executor()
+    live.run(startup, scope=scope)
+    t0 = time.perf_counter()
+    manifest = export_model.export_compiled_model(
+        inf_dir("resnet50"), {"img": ((-1, 3, 224, 224), "float32")},
+        [pred], main_program=infer, scope=scope)
+    export_s = time.perf_counter() - t0
+    ops = manifest["custom_ops"].get("paddle_tpu_torch::conv2d_1x1", 0)
+    print(f"[inference] ResNet-50 exported in {export_s:.1f} s: manifest "
+          f"{json.dumps({k: manifest[k] for k in ('inputs', 'outputs', 'symbolic_batch', 'device', 'custom_ops')})}")
+    if ops != static or not manifest["symbolic_batch"]:
+        raise RuntimeError(f"chip_smoke: the artifact holds {ops} conv2d_1x1 "
+                           f"nodes, the static gate passes {static}")
+    # the artifact runs with no Program and no Scope
+    ptt.core.reset_default_programs()
+    ptt.core.reset_global_scope()
+    t0 = time.perf_counter()
+    run, _ = export_model.load_compiled_model(inf_dir("resnet50"))
+    print(f"[inference] loaded in {time.perf_counter() - t0:.1f} s")
+    run = CallCount(run)
+    rng = np.random.RandomState(seed + 17)
+    feeds = {b: {"img": rng.rand(b, 3, 224, 224).astype(np.float32)}
+             for b in INF_BATCHES}
+
+    # the main path: counts to 0, every batch, read the counts
+    conv1x1.reset_counts()
+    results = {}
+    for b in INF_BATCHES:
+        n = len(gate[b])
+        calls0, k0 = run.calls, conv1x1.launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs = [run(feeds[b])[0] for _ in range(3)]  # warm, capture, replay
+        torch.cuda.synchronize()
+        if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[1],
+                                                              outs[2])):
+            raise RuntimeError(f"chip_smoke: [inference] batch {b}: the "
+                               f"eager call and two replays differ")
+        pipe = binf.time_pipelined(run, feeds[b], b, windows=INF_WINDOWS,
+                                   target_s=INF_TARGET_S)
+        dev = binf.time_device(run, feeds[b], b, pipe["per_call_s"],
+                               windows=INF_WINDOWS, target_s=INF_TARGET_S)
+        peak = torch.cuda.max_memory_allocated()
+        rows, _ = profiled_checked(
+            "inference", f"ResNet-50 artifact batch {b}",
+            lambda: run(feeds[b]), 3,
+            lambda: conv_since(conv1x1, "mm_f32_tma"))
+        per_call = kernel_count(rows, "mm_f32_tma")
+        got, calls = conv1x1.launches() - k0, run.calls - calls0
+        if per_call != n or got != n * calls:
+            raise RuntimeError(f"chip_smoke: [inference] batch {b}: K1 ran "
+                               f"{got} times in {calls} calls ({per_call} "
+                               f"in a profiled call), the gate says {n} a "
+                               f"call")
+        busy = sum(r[0] for r in rows)
+        wall = pipe["per_call_s"] * 1e3
+        dev_ms = dev["device_step_s"] * 1e3
+        results[b] = dict(out=outs[2], calls=calls, launches=got,
+                          pipe=pipe, dev=dev)
+        pub = binf.PUBLISHED_IMG_S.get(b)
+        pub_s = "" if pub is None else \
+            (f"; {pipe['throughput_per_s'] / pub:.1f}x the published "
+             f"{pub} img/s ({binf.PUBLISHED_SOURCE})")
+        print(f"[inference] ResNet-50 artifact batch {b}: "
+              f"{pipe['throughput_per_s']:.1f} img/s ({wall:.3f} ms a call, "
+              f"{pipe['calls_per_window']} calls a window, spread "
+              f"{pipe['spread_pct']:.1f}%), device only {dev_ms:.3f} ms a "
+              f"call ({dev['device_throughput_per_s']:.1f} img/s, k "
+              f"{dev['k']}), idle share {1 - dev_ms / wall:.3f} (device only "
+              f"against a call), device busy in a profiled call {busy:.3f} "
+              f"ms, peak allocated {peak / 2 ** 30:.2f} GiB; K1 {got} "
+              f"launches in {calls} calls ({n} a call){pub_s}; after the "
+              f"windows {clocks_line()}; {card}")
+    total = conv1x1.launches()
+    routes = dict(conv1x1.routes)
+    print(f"[inference] the main path ran K1 {total} times over "
+          f"{sum(r['calls'] for r in results.values())} calls; routes of "
+          f"paddle_tpu_torch::conv2d_1x1 {routes}")
+    if total == 0:
+        raise RuntimeError("chip_smoke: [inference] K1 never launched")
+
+    # against the live program (captured) and the plain path
+    plain = ptt.Executor(conv1x1_pallas=False)
+    for b in INF_BATCHES:
+        got = results[b]["out"]
+        lv = [live.run(infer, feed=feeds[b], fetch_list=[pred], scope=scope,
+                       is_test=True, return_numpy=False)[0]
+              for _ in range(2)]                  # warm-up, then captured
+        ref = plain.run(infer, feed=feeds[b], fetch_list=[pred],
+                        scope=scope, is_test=True, return_numpy=False)[0]
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(got, v)) for v in lv]
+        err = (got - ref).abs().max().item()
+        print(f"[inference] batch {b}: artifact vs the live program "
+              f"(interpreted, captured) bit-equal {same}; vs the plain path "
+              f"max |diff| {err:.3e} (limit {INF_TOL}); rows sum to "
+              f"{got.sum(1).min().item():.6f}..{got.sum(1).max().item():.6f}")
+        if not all(same) or not err <= INF_TOL or \
+                not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"chip_smoke: [inference] batch {b}: the "
+                               f"artifact's output is off (bit-equal "
+                               f"{same}, plain {err})")
+    live.close()
+    plain.close()
+    shapes = [s for b in INF_BATCHES for s in gate[b]]
+    return total, shapes, export_s
+
+
+def inference_seq2seq(seed, card):
+    """Beam-4 decoding exported at the JAX benchmark's size, held against the
+    live program at S2S_INF_BATCHES; tokens/s."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import export_model
+    from paddle_tpu_torch.benchmark import inference as binf
+    from paddle_tpu_torch.ops import conv1x1, flash_attention as fa
+
+    V, T = binf.S2S_VOCAB, binf.S2S_LEN
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = seed
+    with ptt.program_guard(main, startup):
+        src = ptt.layers.data("src", shape=[T], dtype="int64")
+        outs = ptt.models.seq2seq_infer(
+            src, src_vocab_size=V, tgt_vocab_size=V, emb_dim=binf.S2S_DIM,
+            hidden_dim=binf.S2S_DIM, beam_size=binf.S2S_BEAM, max_len=T)
+    infer = main.clone(for_test=True)
+    scope = ptt.Scope()
+    live = ptt.Executor()
+    live.run(startup, scope=scope)
+    t0 = time.perf_counter()
+    export_model.export_compiled_model(
+        inf_dir("seq2seq"), {"src": ((-1, T), "int64")}, list(outs),
+        main_program=infer, scope=scope)
+    export_s = time.perf_counter() - t0
+    ptt.core.reset_default_programs()
+    ptt.core.reset_global_scope()
+    run, _ = export_model.load_compiled_model(inf_dir("seq2seq"))
+    rng = np.random.RandomState(seed + 19)
+    k1, fa0 = conv1x1.launches(), dict(fa.launches)
+    for b in S2S_INF_BATCHES:
+        feed = {"src": rng.randint(2, V, (b, T)).astype(np.int64)}
+        arts = [run(feed) for _ in range(3)]       # warm, capture, replay
+        lvs = [live.run(infer, feed=feed, fetch_list=list(outs),
+                        scope=scope, is_test=True, return_numpy=False)
+               for _ in range(2)]                  # warm-up, then captured
+        torch.cuda.synchronize()
+        got = arts[2]
+        equal = {arm: [bool(torch.equal(a, w)) for a, w in zip(got, want)]
+                 for arm, want in (("eager", arts[0]), ("interpreted", lvs[0]),
+                                   ("captured", lvs[1]))}
+        ids, scores, lens = got
+        fine = bool((ids >= 0).all() and (ids < V).all()
+                    and torch.isfinite(scores).all()
+                    and (lens >= 1).all() and (lens <= T).all()
+                    and (scores[:, :-1] >= scores[:, 1:]).all())
+        note = ""
+        if not all(all(v) for v in equal.values()):
+            # which outputs an op's decomposition changed; the scores then
+            # within S2S_INF_SCORE_TOL, the ids where the top-2 margin is
+            # wider than that
+            want = lvs[1]
+            rel = ((scores - want[1]).abs() / want[1].abs()).max().item()
+            margin = (want[1][:, 0] - want[1][:, 1]).abs() > \
+                S2S_INF_SCORE_TOL * want[1][:, 0].abs()
+            ids_ok = bool(torch.equal(ids[margin], want[0][margin]))
+            note = (f"; NOT bit-equal: outputs {equal}, scores {rel:.3e} "
+                    f"relative, ids equal where the margin is wide "
+                    f"{ids_ok}")
+            if not (rel <= S2S_INF_SCORE_TOL and ids_ok):
+                fine = False
+        tps = binf.time_pipelined(run, feed, b * T, windows=INF_WINDOWS,
+                                  target_s=INF_TARGET_S)
+        print(f"[inference] seq2seq beam-{binf.S2S_BEAM} decode batch {b} "
+              f"(V {V}, dim {binf.S2S_DIM}, {T} tokens): "
+              f"{tps['throughput_per_s']:.1f} tokens/s "
+              f"({tps['per_call_s'] * 1e3:.3f} ms a call, spread "
+              f"{tps['spread_pct']:.1f}%; {clocks_line()}); artifact bit-equal to its eager "
+              f"call and the live program: {equal}{note}; best beam "
+              f"{ids[0, 0, :8].tolist()}.. score "
+              f"{scores[0, 0].item():.4f} len {lens[0, 0].item()}; {card}")
+        if not fine:
+            raise RuntimeError(f"chip_smoke: [inference] seq2seq batch {b}: "
+                               f"the decode is off")
+    if conv1x1.launches() != k1 or dict(fa.launches) != fa0:
+        raise RuntimeError("chip_smoke: [inference] the decode launched a "
+                           "hand-written kernel")
+    print(f"[inference] seq2seq exported in {export_s:.1f} s")
+    live.close()
+
+
+def inference_server(card):
+    """``--server`` at SRV_MAX_BATCH and SRV_WORKERS for SRV_SECONDS, every
+    response checked against a direct call of the artifact."""
+    from paddle_tpu_torch.benchmark import inference as binf
+    row = binf.bench_server(inf_dir("resnet50"), duration_s=SRV_SECONDS,
+                            workers=SRV_WORKERS, max_batch=SRV_MAX_BATCH,
+                            device_info=card)
+    print(f"[inference] server: {row['served']} responses in "
+          f"{row['duration_s']} s ({row['req_per_s']} req/s), each within "
+          f"1e-4 of the direct call; p50 {row['latency_ms_p50']:.3f} ms, p99 "
+          f"{row['latency_ms_p99']:.3f} ms, {row['batches']} batches, mean "
+          f"batch {row['mean_batch']:.2f}; {card}")
+    if not row["served"] or row["worker_errors"]:
+        raise RuntimeError(f"chip_smoke: [inference] server: {row}")
+
+
+def inference_padded_heads(seed):
+    """Flash attention forward and backward at head sizes that are no
+    multiple of 16: the wrapper pads to the next one and launches K2, K3
+    and K4 once each; held against the plain version."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(seed + 23)
+    for BH, T, D, Dv in PAD_FORMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, gg = att_inputs(g, BH, T, T, D, Dv, dtype)
+            leaves = [x.requires_grad_(True) for x in (q, k, v)]
+            before = collections.Counter(fa.launches)
+            out = fa.flash_attention(*leaves, causal=True, block_q=128,
+                                     block_k=128)
+            out.backward(gg)
+            ran = collections.Counter(fa.launches) - before
+            qd, kd, vd = (x.detach() for x in leaves)
+            ro, rl = fa.flash_fwd_reference(qd, kd, vd, True)
+            refs = fa.flash_bwd_reference(qd, kd, vd, ro.to(dtype), rl, gg,
+                                          True)
+            torch.cuda.synchronize()
+            tol = ATT_TOL[dtype]
+            held = [att_close(f"padded D={D} Dv={Dv} {name}", a, b, tol)
+                    for name, a, b in (("out", out.detach(), ro),
+                                       ("dq", leaves[0].grad, refs[0]),
+                                       ("dk", leaves[1].grad, refs[1]),
+                                       ("dv", leaves[2].grad, refs[2]))]
+            print(f"[inference] flash attention BH={BH} T={T} D={D} "
+                  f"Dv={Dv} causal {str(dtype)[6:]}, padded to "
+                  f"{fa.padded_head(D)}/{fa.padded_head(Dv)}: launches "
+                  f"{dict(ran)}; max_abs_err out {held[0][0]:.3e} dq "
+                  f"{held[1][0]:.3e} dk {held[2][0]:.3e} dv "
+                  f"{held[3][0]:.3e}; largest error / limit "
+                  f"{max(h[1] for h in held):.3f} (tol {tol})")
+            if dict(ran) != {n: 1 for n in ATT_REPLACES}:
+                raise RuntimeError(f"chip_smoke: padded heads launched "
+                                   f"{dict(ran)}")
+            del q, k, v, gg, leaves, out, refs, ro, rl
+    try:
+        q = torch.zeros(1, 128, 144, device="cuda", dtype=torch.bfloat16)
+        fa.flash_fwd(q, q, q)
+    except ValueError as e:
+        print(f"[inference] head size 144 still raises: {e}")
+    else:
+        raise RuntimeError("chip_smoke: flash_fwd took head size 144")
+    torch.cuda.empty_cache()
+
+
+def inference_kernel_rows(shapes, seed):
+    """K1's fp32 forward at the artifact's distinct (P, C, M), held
+    against its plain version and timed beside torch.matmul and the
+    bound, in the rows format of phase_kernels."""
+    from paddle_tpu_torch.ops import conv1x1
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    rows, f32 = {}, torch.float32
+    for shape in sorted(set(shapes)):
+        P, C, M = shape
+        x = torch.randn(P, C, device="cuda", generator=g)
+        w = torch.randn(M, C, device="cuda", generator=g) / C ** 0.5
+        bound = gemm_bound_ms(2.0 * P * C * M, (P * C + M * C + P * M) * 4,
+                              f32)
+        hold_form(rows, "inference", "forward", f32, shape,
+                  shapes.count(shape), lambda: conv1x1.mm(x, w, False, True),
+                  lambda: conv1x1.mm_reference(x, w, False, True),
+                  lambda: torch.matmul(x, w.t()), TOL[f32], bound)
+        del x, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_inference(seed, card):
+    """The deploy path: ResNet-50 and beam-4 seq2seq exported and run from
+    their artifacts, the artifact behind serving.Server, and flash
+    attention at padded head sizes.  Returns the kernels JSON entry of
+    K1's fp32 forward on this path."""
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches, shapes, export_s = inference_resnet(seed, card)
+        torch.cuda.empty_cache()
+        inference_seq2seq(seed, card)
+        torch.cuda.empty_cache()
+        inference_server(card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    inference_padded_heads(seed)
+    rows = inference_kernel_rows(shapes, seed)
+    entry = kernel_entry(
+        "conv1x1_mm fp32 mm_f32_tma forward (ta=0 tb=1), inference", 69,
+        "inference", launches, rows, shapes, "forward", torch.float32)
+    entry["shapes_pcm"] = shapes
+    print(f"[inference] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return entry
+
+
+# ---------------------------------------------------------------------------
 # [bandwidth] the HBM stream-bandwidth probe
 # ---------------------------------------------------------------------------
 # Sizes that are multiples of no tile (Triton's 4096-float programs, the
@@ -3201,6 +3602,8 @@ def main():
     torch.cuda.empty_cache()
     zoo_entries = phase_zoo(args.seed, card)
     torch.cuda.empty_cache()
+    inf_entry = phase_inference(args.seed, card)
+    torch.cuda.empty_cache()
     bw_entries, _ = phase_bandwidth(args.seed, card)
 
     # bf16: the served path and the AMP step; fp32: the served forward's
@@ -3247,6 +3650,14 @@ def main():
               f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library "
               f"{k['library_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms; "
               f"{k['launches']} launches on the {k['path']} path")
+    kernels.append(inf_entry)
+    print(f"[summary] {inf_entry['name']}, summed over one call at each of "
+          f"the batches {INF_BATCHES} ({len(inf_entry['shapes_pcm'])} "
+          f"launches): kernel {inf_entry['ms']:.4f} ms, bound "
+          f"{inf_entry['bound_ms']:.4f} ms ({inf_entry['bound_by']}), "
+          f"library {inf_entry['library_ms']:.4f} ms, plain "
+          f"{inf_entry['plain_ms']:.4f} ms; {inf_entry['launches']} launches "
+          f"on the inference path")
     kernels += bw_entries
     for k in bw_entries:
         print(f"[summary] {k['name']} at {k['size_mb']:.0f} MB f32: kernel "

@@ -22,7 +22,11 @@ probe (``benchmark/bandwidth.py``, with its Triton copy and axpy and its
 bulk-copy DMA copy), each step dispatched as a captured CUDA graph
 (``Executor(use_jit=True)``, ``core/compile_cache.py``), the input
 pipeline (``reader``, ``trainer.SGD``, ``Executor.run_pipelined``,
-``models.wide_deep``, ``benchmark/input_pipeline.py``), and two kernels of the framework: the
+``models.wide_deep``, ``benchmark/input_pipeline.py``), the deploy path
+of ``benchmark/inference.py`` (``io``, ``export_compiled_model`` /
+``load_compiled_model`` over ``torch.export``,
+``serving.Model.from_artifact``, beam-search decoding with
+``models.seq2seq_infer``), and two kernels of the framework: the
 1x1-convolution matrix product with its gradients and epilogues
 (``ops/conv1x1.py``) and flash attention, forward and backward
 (``ops/flash_attention.py``).
@@ -38,6 +42,12 @@ from . import ops  # noqa: F401  (registers every op implementation)
 from . import flags, initializer, layer_helper, layers, models, nets
 from . import optimizer, regularizer, clip, backward, data_feeder
 from . import reader, trainer
+from . import io
+from .io import (save_params, load_params, save_persistables,  # noqa: F401
+                 load_persistables, save_inference_model,
+                 load_inference_model)
+from . import export_model
+from .export_model import export_compiled_model, load_compiled_model
 from .backward import append_backward
 from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
@@ -52,5 +62,8 @@ __all__ = [
     "optimizer",
     "regularizer", "clip", "backward", "data_feeder", "DataFeeder",
     "append_backward", "ParamAttr",
-    "load_numpy_state", "faults", "reader", "trainer",
+    "load_numpy_state", "faults", "reader", "trainer", "io",
+    "save_params", "load_params", "save_persistables", "load_persistables",
+    "save_inference_model", "load_inference_model", "export_model",
+    "export_compiled_model", "load_compiled_model",
 ]

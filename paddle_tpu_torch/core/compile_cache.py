@@ -27,7 +27,8 @@ is a step captured as a CUDA graph (``core/executor.py``,
 - :func:`register_launch_counter` / :func:`launch_counters`: the
   Counters that kernel wrappers bump where they launch.  A replayed graph
   calls no wrapper, so a captured step adds the deltas its capture saw to
-  each registered counter once per replay.
+  each registered counter once per replay (:func:`capture_launches`,
+  :func:`replay_launches`).
 
 The disk layer, ``CachedStep`` and ``Executor.compile`` of the JAX module
 are not ported.
@@ -35,6 +36,7 @@ are not ported.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import json
 import threading
@@ -45,7 +47,7 @@ import torch
 
 __all__ = ["fingerprint_hex", "program_content_digest", "ExecCache",
            "CaptureStats", "stats", "register_launch_counter",
-           "launch_counters"]
+           "launch_counters", "capture_launches", "replay_launches"]
 
 
 def environment_key():
@@ -146,6 +148,32 @@ def register_launch_counter(counter: "collections.Counter"):
 def launch_counters() -> tuple:
     """Every registered launch Counter."""
     return tuple(_launch_counters)
+
+
+@contextlib.contextmanager
+def capture_launches(deltas: list):
+    """Around a CUDA-graph capture, in which the wrappers count launches
+    that were only recorded: on exit every registered Counter is set back
+    to what it held before, and ``deltas`` holds, one Counter each, what
+    the capture counted, which :func:`replay_launches` adds once a
+    replay."""
+    counters = launch_counters()
+    before = [collections.Counter(c) for c in counters]
+    try:
+        yield
+    finally:
+        deltas[:] = []
+        for c, b in zip(counters, before):
+            deltas.append(collections.Counter(c) - b)
+            c.clear()
+            c.update(b)
+
+
+def replay_launches(deltas: list):
+    """Count one replay of a graph whose capture counted ``deltas``."""
+    for c, d in zip(launch_counters(), deltas):
+        if d:
+            c.update(d)
 
 
 # ---------------------------------------------------------------------------

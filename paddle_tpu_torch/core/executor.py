@@ -24,6 +24,10 @@ lookups fall through to its parent's; sequence vars carry their lengths
 as ``name@LEN`` integer companions (fed, or set by ops through
 ``ExecContext.set_len``), which no AMP cast touches.
 
+``as_module`` gives an inference program as an ``nn.Module`` over the
+same interpreter (``ProgramModule``), the form ``torch.export`` traces
+(``export_model.py``).
+
 Not ported yet: ``Executor.compile``, the disk cache, observability,
 validation and retry.
 """
@@ -562,11 +566,10 @@ class _CapturedStep:
                 f"Executor(use_jit=False)")
         for _, g in self.streams:
             register(g)
-        counters = compile_cache.launch_counters()
-        before = [collections.Counter(c) for c in counters]
         try:
-            with torch.cuda.graph(graph, stream=exe._side,
-                                  capture_error_mode="thread_local"):
+            with compile_cache.capture_launches(self.deltas), \
+                    torch.cuda.graph(graph, stream=exe._side,
+                                     capture_error_mode="thread_local"):
                 fetches, writes = exe._interpret_step(
                     program, ctx, self.static_state, self.static_feeds,
                     fetch_names)
@@ -587,13 +590,6 @@ class _CapturedStep:
                 f"CUDA graph failed at {where} ({type(e).__name__}: "
                 f"{cause}); run it with Executor(use_jit=False) to step it "
                 f"uncaptured") from e
-        finally:
-            # the capture launched nothing: undo what the wrappers counted
-            self.deltas = []
-            for c, b in zip(counters, before):
-                self.deltas.append(collections.Counter(c) - b)
-                c.clear()
-                c.update(b)
         self.written = [k for k in writes if k in self.static_state]
         self.graph = graph
         pool = tuple(graph.pool())
@@ -621,9 +617,7 @@ class _CapturedStep:
         for key, g in self.streams:
             place_stream(g, program, key, step)
         self.graph.replay()
-        for c, d in zip(compile_cache.launch_counters(), self.deltas):
-            if d:
-                c.update(d)
+        compile_cache.replay_launches(self.deltas)
 
     def publish(self, scope: Scope):
         for k in self.written:
@@ -638,6 +632,53 @@ class _CapturedStep:
         self.static_feeds, self.static_state = {}, {}
         self.fetches, self.new_outputs = [], {}
         self.streams = []
+
+
+# ---------------------------------------------------------------------------
+# A program as a function: the executor's functional entry
+# ---------------------------------------------------------------------------
+class ProgramModule(torch.nn.Module):
+    """An inference program as an ``nn.Module`` (``Executor.as_module``):
+    the program's state are its buffers (the scope's tensors, shared, not
+    copied), and ``forward(**feeds)`` interprets the global block through
+    :func:`interpret_ops`, as ``Executor.run`` does, and returns the
+    fetches as a tuple.  It keeps no step counter and writes nothing
+    back, so ``torch.export`` can trace it: the counterpart of the JAX
+    executor's ``_make_fn`` over ``_state_keys``."""
+
+    def __init__(self, exe: "Executor", program: Program,
+                 fetch_names: List[str], state: Dict[str, torch.Tensor]):
+        super().__init__()
+        if _has_backward(program):
+            raise ValueError("Executor.as_module: the program has a "
+                             "backward op; prune it to an inference slice "
+                             "(Program.prune(...).clone(for_test=True))")
+        self.program = program
+        self.fetch_names = list(fetch_names)
+        self._exe = exe
+        self._slots = {}
+        for name, t in state.items():
+            slot = name.replace(".", "__")
+            if slot in self._slots.values():
+                raise ValueError(f"Executor.as_module: state names "
+                                 f"{name!r} and another map to one buffer "
+                                 f"name {slot!r}")
+            self._slots[name] = slot
+            self.register_buffer(slot, t)
+
+    def forward(self, **feeds):
+        gb = self.program.global_block()
+        env = Env(gb)
+        env.local.update({name: getattr(self, slot)
+                          for name, slot in self._slots.items()})
+        env.local.update(feeds)
+        if self._exe.amp:
+            env.local = {k: _to_bf16(v) for k, v in env.local.items()}
+        ctx = ExecContext(self.program, self._exe.device, 0, is_test=True,
+                          conv1x1_pallas=self._exe.conv1x1_pallas,
+                          amp=self._exe.amp)
+        interpret_ops(gb.ops, env, ctx)
+        return tuple(env.get(n) for n in self.fetch_names)
 
 
 # ---------------------------------------------------------------------------
@@ -786,6 +827,17 @@ class Executor:
         return None
 
     # -- entry points ---------------------------------------------------------
+    def as_module(self, program: Program, fetch_list: Sequence,
+                  scope: Optional[Scope] = None) -> ProgramModule:
+        """``program`` (an inference slice: no backward op) as a
+        :class:`ProgramModule` over this executor's device, AMP and 1x1
+        routing, with the persistables it references that ``scope``
+        holds as buffers; what ``export_model.export_compiled_model``
+        hands to ``torch.export``."""
+        scope = global_scope() if scope is None else scope
+        state = {k: scope.get(k) for k in self._state_keys(program, scope)}
+        return ProgramModule(self, program, _fetch_names(fetch_list), state)
+
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, object]] = None,
             fetch_list: Optional[Sequence] = None,

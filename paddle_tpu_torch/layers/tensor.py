@@ -1,5 +1,5 @@
 """Tensor layer functions (counterpart of ``sums``, ``fill_constant``,
-``fill_constant_batch_size_like`` and ``concat`` in
+``fill_constant_batch_size_like``, ``concat`` and ``gather`` in
 ``paddle_tpu/layers/tensor.py``)."""
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ from ..core.types import convert_dtype
 from ..layer_helper import LayerHelper
 
 __all__ = ["sums", "fill_constant", "fill_constant_batch_size_like",
-           "concat"]
+           "concat", "gather"]
 
 
 def concat(input, axis=0, name=None):
@@ -50,4 +50,13 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
                             "value": float(value),
                             "input_dim_idx": input_dim_idx,
                             "output_dim_idx": output_dim_idx})
+    return out
+
+
+def gather(input, index, name=None):
+    """Rows of ``input`` at ``index`` (``tensor.py:134``)."""
+    helper = LayerHelper("gather", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
     return out

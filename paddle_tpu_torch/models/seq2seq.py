@@ -5,8 +5,10 @@ the same parameter names, so a scope carries across).
 The encoder embeds the source, projects it and runs a GRU over the
 padded batch; the decoder is a ``StaticRNN`` whose step attends over
 the encoder states by dot product, updates a GRU state and emits a
-softmax over the target vocabulary.  ``seq2seq_infer`` (beam search)
-comes with the decoding slice.
+softmax over the target vocabulary.  ``seq2seq_infer`` runs the same
+decoder step inside a ``BeamSearchDecoder`` under the same parameter
+names (``:103-129`` of the JAX module), so a trained scope decodes
+directly.
 """
 from __future__ import annotations
 
@@ -87,3 +89,32 @@ def seq2seq_attention(src, tgt, src_vocab_size, tgt_vocab_size,
         rnn.update_memory(state, new_state)
         rnn.step_output(probs)
     return rnn()
+
+
+def seq2seq_infer(src, src_vocab_size, tgt_vocab_size, emb_dim=64,
+                  hidden_dim=64, beam_size=4, bos_id=0, eos_id=1,
+                  max_len=16, length_penalty=0.0, prefix="s2s"):
+    """Beam-search decoding network sharing parameter names with
+    ``seq2seq_attention``; build it in a program of its own and run it
+    against the trained scope.  Returns (ids [B, K, max_len], scores
+    [B, K], lens [B, K])."""
+    from ..layers.generation import BeamSearchDecoder
+
+    enc_out, enc_proj, dec_init = _encoder_head(
+        src, src_vocab_size, emb_dim, hidden_dim, prefix)
+    bs = BeamSearchDecoder(beam_size=beam_size, bos_id=bos_id, eos_id=eos_id,
+                           max_len=max_len, vocab_size=tgt_vocab_size,
+                           length_penalty=length_penalty)
+    with bs.step():
+        tok = bs.token()
+        state = bs.memory(init=dec_init)
+        enc_out_t = bs.context(enc_out)
+        enc_proj_t = bs.context(enc_proj)
+        tok_emb = layers.embedding(tok, size=[tgt_vocab_size, emb_dim],
+                                   param_attr=_p(prefix, "tgt_emb"))
+        new_state, probs = _decoder_step(tok_emb, state, enc_out_t,
+                                         enc_proj_t, hidden_dim,
+                                         tgt_vocab_size, prefix)
+        bs.update_memory(state, new_state)
+        bs.set_probs(probs)
+    return bs()

@@ -35,6 +35,10 @@ counterpart): an autograd Function whose backward runs :func:`mm` with
 the transposes of ``_pm_bwd`` (``pallas_conv.py:235-246``), so
 :func:`conv2d_1x1` trains through the kernel.
 
+:func:`conv2d_1x1_op` is the 1x1 convolution as one custom op,
+``paddle_tpu_torch::conv2d_1x1``: the form a graph traced by
+``torch.export`` holds, deciding the route at each call's batch.
+
 The kernel is compiled from the package's sources with ``nvcc`` at first
 use into ``build/`` at the repository root, and bound with ``ctypes``
 (a plain C interface; no PyTorch headers), by ``ops/cuda_build.py``.
@@ -48,6 +52,7 @@ import functools
 import os
 
 import torch
+import torch.nn.functional as F
 
 from ..core.compile_cache import register_launch_counter
 from . import cuda_build
@@ -55,7 +60,9 @@ from . import cuda_build
 __all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "splitk_reduce",
            "splitk_reduce_reference", "conv2d_1x1",
            "conv2d_1x1_reference", "conv2d_1x1_with_bn_stats",
-           "conv2d_1x1_grad_fused", "conv1x1_eligible", "launches",
+           "conv2d_1x1_grad_fused", "conv1x1_eligible",
+           "conv1x1_static_gate", "pixels", "conv2d_1x1_op", "routes",
+           "launches",
            "reset_counts",
            "build", "SOURCE"]
 
@@ -476,8 +483,9 @@ def launches() -> int:
 
 
 def reset_counts():
-    """Set every ``mm.by_form`` count to 0."""
+    """Set every ``mm.by_form`` and ``routes`` count to 0."""
     mm.by_form.clear()
+    routes.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -595,19 +603,70 @@ def conv2d_1x1_grad_fused(x, w, gout, strides=(1, 1)):
     return dx, dw.reshape(w.shape).to(w.dtype), dsum.reshape(M)
 
 
+def conv1x1_static_gate(channels, w_shape, pads, dils, groups) -> bool:
+    """The part of the routing gate that a traced graph can decide without
+    the batch: a 1x1 filter, groups 1, pad 0, dil 1, and C (``channels``,
+    the input's) and M (the filter's) both divisible by 128."""
+    if len(w_shape) != 4 or tuple(w_shape[2:]) != (1, 1):
+        return False
+    if int(groups or 1) != 1:
+        return False
+    if tuple(pads) != (0, 0) or tuple(dils) != (1, 1):
+        return False
+    return int(channels) % 128 == 0 and int(w_shape[0]) % 128 == 0
+
+
+def pixels(x_shape, strides) -> int:
+    """P = N * OH * OW, the rows of the matrix view."""
+    N, _, H, W = x_shape
+    sh, sw = int(strides[0]), int(strides[1])
+    return N * ((H - 1) // sh + 1) * ((W - 1) // sw + 1)
+
+
 def conv1x1_eligible(x_shape, w_shape, strides, pads, dils, groups) -> bool:
     """Static routing gate, the same as ``pallas_conv.conv1x1_eligible``:
     1x1 / groups 1 / pad 0 / dil 1 convolutions whose matrix-view dims
     (P, C, M) are all divisible by 128.  ResNet's 1x1 convs qualify from
     the 128-channel stage on; stage 1's 64-channel convs stay plain."""
-    if len(x_shape) != 4 or len(w_shape) != 4:
+    if len(x_shape) != 4:
         return False
-    if tuple(w_shape[2:]) != (1, 1) or int(groups or 1) != 1:
-        return False
-    if tuple(pads) != (0, 0) or tuple(dils) != (1, 1):
-        return False
-    N, C, H, W = x_shape
-    M = w_shape[0]
-    sh, sw = int(strides[0]), int(strides[1])
-    P = N * ((H - 1) // sh + 1) * ((W - 1) // sw + 1)
-    return C % 128 == 0 and M % 128 == 0 and P % 128 == 0
+    return conv1x1_static_gate(x_shape[1], w_shape, pads, dils, groups) \
+        and pixels(x_shape, strides) % 128 == 0
+
+
+# ---------------------------------------------------------------------------
+# the 1x1 convolution as one custom op: what torch.export keeps in a graph
+# ---------------------------------------------------------------------------
+# conv2d_1x1_op's choice at each call's concrete shape: "kernel" (the P
+# rule holds: conv2d_1x1, which launches mm on a card) or "conv2d" (it
+# does not: F.conv2d).  Registered like mm.by_form, so a replayed graph
+# counts the choices its capture made.
+routes = register_launch_counter(collections.Counter())
+
+
+@torch.library.custom_op("paddle_tpu_torch::conv2d_1x1", mutates_args=())
+def conv2d_1x1_op(x: torch.Tensor, w: torch.Tensor, stride_h: int,
+                  stride_w: int) -> torch.Tensor:
+    """A 1x1 convolution that passed :func:`conv1x1_static_gate`, as one
+    op of the graph: a traced graph (``torch.export``, a symbolic batch)
+    holds it whole, and each call applies the rest of the gate, P divisible
+    by 128, at its own batch: :func:`conv2d_1x1` (the kernel on a card,
+    its plain version on the CPU) where it holds, ``F.conv2d`` where it
+    does not, counted in ``routes``.  The shape function gives the
+    kernel route's channels-last strides.  No autograd: a call that
+    records gradients goes to :func:`conv2d_1x1` directly
+    (``ops/nn_ops.py``)."""
+    strides = (stride_h, stride_w)
+    if pixels(tuple(x.shape), strides) % 128 == 0:
+        routes["kernel"] += 1
+        return conv2d_1x1(x, w, strides)
+    routes["conv2d"] += 1
+    return F.conv2d(x, w, stride=strides)
+
+
+@conv2d_1x1_op.register_fake
+def _conv2d_1x1_fake(x, w, stride_h, stride_w):
+    N, _, H, W = x.shape
+    return x.new_empty((N, w.shape[0], (H - 1) // stride_h + 1,
+                        (W - 1) // stride_w + 1)).contiguous(
+        memory_format=torch.channels_last)

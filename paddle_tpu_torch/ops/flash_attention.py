@@ -42,6 +42,7 @@ import functools
 import os
 
 import torch
+import torch.nn.functional as F
 
 from ..core.compile_cache import register_launch_counter
 from ..core.registry import register_op
@@ -53,7 +54,7 @@ __all__ = ["NEG_INF", "flash_fwd", "flash_bwd", "flash_bwd_dq",
            "flash_fwd_reference", "flash_bwd_reference",
            "attention_reference", "flash_attention",
            "flash_attention_with_lse", "launches", "launches_by_dtype",
-           "reference_route",
+           "reference_route", "padded_head", "padded_fwd", "padded_bwd",
            "reset_counts", "build", "SOURCE"]
 
 NEG_INF = -1e30                     # pallas_kernels.py:38
@@ -160,13 +161,59 @@ class FwdPlan:
     fwd: KernelPlan
 
 
+_WIDE_HEADS = ("head sizes above 128 need a width-256 variant of K2-K4 "
+               "(ROADMAP.md Queue A, \"flash attention at head sizes "
+               "129-256\")")
+
+
 def _check_heads(what, D, Dv):
     for name, d in (("D", D), ("Dv", Dv)):
         if d % 16 or not 16 <= d <= 128:
             raise ValueError(f"{what}: the kernels take head sizes that "
-                             f"are multiples of 16 up to 128, got "
+                             f"are multiples of 16 up to 128 (the wrappers "
+                             f"pad smaller ones; {_WIDE_HEADS}), got "
                              f"{name}={d}")
     return 64 if max(D, Dv) <= 64 else 128
+
+
+def padded_head(d: int) -> int:
+    """The head size the kernels run for a true size ``d``: the next
+    multiple of 16 (at least 16).  Raises above 128."""
+    if d > 128:
+        raise ValueError(f"flash attention: head size {d}: {_WIDE_HEADS}")
+    return max(16, -(-int(d) // 16) * 16)
+
+
+def _pad_heads(t, width):
+    """``t`` [BH, T, d] with zero columns up to ``width``, contiguous."""
+    return F.pad(t, (0, width - t.shape[-1])).contiguous() \
+        if t.shape[-1] != width else t
+
+
+def padded_fwd(fwd, q, k, v, causal, sm_scale):
+    """(out, lse) of ``fwd`` (the forward kernel's wrapper, or its plain
+    version) run on q and k padded with zero columns to
+    ``padded_head(D)`` and v to ``padded_head(Dv)``, the padding sliced
+    off ``out``.  Exact: zero columns add nothing to q.k and give zero
+    output columns; ``sm_scale`` is the caller's, of the true D."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    Dp, Dvp = padded_head(D), padded_head(Dv)
+    out, lse = fwd(_pad_heads(q, Dp), _pad_heads(k, Dp), _pad_heads(v, Dvp),
+                   causal, sm_scale)
+    return out[..., :Dv].contiguous(), lse
+
+
+def padded_bwd(bwd, q, k, v, out, lse, g, causal, sm_scale, g_lse=None):
+    """(dq, dk, dv) of ``bwd`` (the backward kernels' wrapper, or its
+    plain version) on operands padded as in :func:`padded_fwd`; the padded
+    columns of the gradients, gradients of the added zeros, are dropped."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    Dp, Dvp = padded_head(D), padded_head(Dv)
+    dq, dk, dv = bwd(_pad_heads(q, Dp), _pad_heads(k, Dp),
+                     _pad_heads(v, Dvp), _pad_heads(out, Dvp), lse,
+                     _pad_heads(g, Dvp), causal, sm_scale, g_lse)
+    return (dq[..., :D].contiguous(), dk[..., :D].contiguous(),
+            dv[..., :Dv].contiguous())
 
 
 def _fwd_smem(width, stages):
@@ -457,11 +504,16 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
     """(out, lse [BH, Tq, 1] fp32) of the forward kernel (K2).  CUDA
     tensors launch it; CPU tensors take :func:`flash_fwd_reference`.  The
     bf16 kernel takes a scale >= 0 (it keeps the running max as max(s) *
-    scale); for a negative one it gets -q and -scale, the same scores."""
+    scale); for a negative one it gets -q and -scale, the same scores.
+    A head size (D or Dv) that is not a multiple of 16 runs padded with
+    zero columns to the next one (:func:`padded_fwd`): exact, with the
+    scale of the true D; above 128 it raises."""
     sm_scale = _scale(q, sm_scale)
     dims = _shapes(q, k, v)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_fwd_reference(q, k, v, causal, sm_scale)
+    if (padded_head(dims[3]), padded_head(dims[4])) != dims[3:]:
+        return padded_fwd(flash_fwd, q, k, v, causal, sm_scale)
     dtype = _kernel_args("flash_fwd", (q, k, v), dims)
     if dtype == _DTYPE_CODES[torch.bfloat16] and sm_scale < 0:
         q, sm_scale = -q, -sm_scale
@@ -486,11 +538,16 @@ def flash_bwd(q, k, v, out, lse, g, causal=False, sm_scale=None,
     """(dq, dk, dv) of the backward kernels (K3, then K4), from the
     forward's ``out`` and ``lse``, the cotangent ``g`` of out and an
     optional cotangent ``g_lse`` of lse.  CUDA tensors launch them; CPU
-    tensors take :func:`flash_bwd_reference`."""
+    tensors take :func:`flash_bwd_reference`.  Head sizes that are not
+    multiples of 16 run padded, as in :func:`flash_fwd`."""
     sm_scale = _scale(q, sm_scale)
     if all(t.device.type == "cpu" for t in (q, k, v, out, lse, g)):
         return flash_bwd_reference(q, k, v, out, lse, g, causal, sm_scale,
                                    g_lse)
+    D, Dv = q.shape[-1], v.shape[-1]
+    if (padded_head(D), padded_head(Dv)) != (D, Dv):
+        return padded_bwd(flash_bwd, q, k, v, out, lse, g, causal, sm_scale,
+                          g_lse)
     delta = flash_delta(g, out, g_lse)
     lse = lse.float().contiguous()
     return (flash_bwd_dq(q, k, v, g, lse, delta, causal, sm_scale),

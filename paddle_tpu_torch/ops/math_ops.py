@@ -11,8 +11,10 @@ from ..core.registry import register_op
 
 def _bcast(x, y, axis: int):
     """fluid trailing-axis broadcast: Y's shape matches a contiguous run
-    of X's dims starting at ``axis``."""
-    if x.shape == y.shape or axis in (-1, None):
+    of X's dims starting at ``axis``.  Decided on ranks and ``axis``
+    alone, never on sizes: comparing sizes would fix a symbolic batch
+    under ``torch.export``."""
+    if axis in (-1, None) or y.dim() == x.dim():
         return x, y
     if y.dim() > x.dim():
         raise ValueError(f"elementwise: y rank {y.dim()} > x rank {x.dim()}")

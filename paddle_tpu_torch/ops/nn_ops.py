@@ -3,9 +3,12 @@
 in ``paddle_tpu/ops/nn_ops.py``).
 
 Data layout is NCHW, as in the JAX package.  Eligible 1x1 convolutions
-go to the hand-written kernel (``ops/conv1x1.py``), whose autograd
-Function runs the kernel for their gradients too; the rest are plain
-PyTorch calls, where the JAX package left them to XLA.  The JAX
+go to the hand-written kernel (``ops/conv1x1.py``): under autograd
+through its autograd Function, which runs the kernel for their
+gradients too, and otherwise through the custom op
+``paddle_tpu_torch::conv2d_1x1``, which ``torch.export`` keeps in an
+exported graph and which picks the route at each call's batch; the rest
+are plain PyTorch calls, where the JAX package left them to XLA.  The JAX
 package's stride-2 space-to-depth stem is an XLA layout trick computing
 the same convolution; here the stem is a plain ``conv2d``.
 """
@@ -45,9 +48,17 @@ def _conv2d(ctx, ins, attrs):
     pads = _pair(attrs.get("paddings", [0, 0]))
     dil = _pair(attrs.get("dilations", [1, 1]))
     groups = int(attrs.get("groups", 1) or 1)
-    if _conv1x1_kernel_wanted(ctx, attrs) and conv1x1.conv1x1_eligible(
-            tuple(x.shape), tuple(w.shape), strides, pads, dil, groups):
-        return {"Output": conv1x1.conv2d_1x1(x, w, strides)}
+    if _conv1x1_kernel_wanted(ctx, attrs) and conv1x1.conv1x1_static_gate(
+            x.shape[1], tuple(w.shape), pads, dil, groups):
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            # training: the autograd Function whose backward launches the
+            # kernel too, with the whole gate applied here
+            if conv1x1.pixels(tuple(x.shape), strides) % 128 == 0:
+                return {"Output": conv1x1.conv2d_1x1(x, w, strides)}
+        else:
+            # inference: one custom op, which a traced graph keeps whole
+            # and which applies the P rule at each call's batch
+            return {"Output": conv1x1.conv2d_1x1_op(x, w, *strides)}
     return {"Output": F.conv2d(x, w, stride=strides, padding=pads,
                                dilation=dil, groups=groups)}
 

@@ -1,7 +1,7 @@
 """Tensor ops (counterpart of the ``fill_constant``,
 ``fill_constant_batch_size_like``, ``uniform_random``,
 ``gaussian_random``, ``reshape``, ``squeeze``, ``unsqueeze``,
-``concat`` and ``split`` lowerings in ``paddle_tpu/ops/tensor_ops.py``).
+``concat``, ``split`` and ``gather`` lowerings in ``paddle_tpu/ops/tensor_ops.py``).
 Random ops draw from a ``torch.Generator`` the executor keeps per op
 and places at each step (``ExecContext.generator``); the numbers differ
 from JAX's, the distributions do not."""
@@ -113,3 +113,14 @@ def _split(ctx, ins, attrs):
         raise ValueError(f"split: dim {axis} of shape {tuple(x.shape)} "
                          f"does not divide into {num} equal parts")
     return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
+
+
+@register_op("gather")
+def _gather(ctx, ins, attrs):
+    """gather_op: ``jnp.take(X, Index, axis)``, the rows (along ``axis``)
+    of X at Index."""
+    x, idx = ins["X"][0], ins["Index"][0]
+    axis = attrs.get("axis", 0) % x.dim()
+    out = torch.index_select(x, axis, idx.reshape(-1).long())
+    return {"Out": out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
+                               + tuple(x.shape[axis + 1:]))}

@@ -1,5 +1,6 @@
-"""Serving runtime (counterpart of ``paddle_tpu/serving``): a live-program
-:class:`Model` behind the dynamic-batching :class:`Server`."""
+"""Serving runtime (counterpart of ``paddle_tpu/serving``): a
+:class:`Model` (a live program, or an exported artifact) behind the
+dynamic-batching :class:`Server`."""
 from ..faults import (DeadlineExceeded, ModelUnavailable, Overloaded,
                       ServerClosed)
 from .model import Model

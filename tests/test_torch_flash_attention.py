@@ -116,6 +116,57 @@ def test_backward_matches_pallas_interpret(case, dtype, with_g_lse):
                                        atol=1e-2 * scale_b, err_msg=name)
 
 
+# head sizes no multiple of 16 (D, Dv): the wrappers pad them for the
+# kernels (padded_fwd / padded_bwd), here around the plain versions
+PADDED_HEADS = [(40, 40), (60, 60), (72, 72), (120, 120), (40, 72),
+                (120, 60)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D,Dv", PADDED_HEADS)
+def test_padded_route_matches_pallas_interpret(D, Dv, causal):
+    """The route a CUDA tensor with such a head size takes, with the plain
+    versions in the kernels' place: q, k, v (and out, the cotangent) padded
+    with zeros to the next multiple of 16, the padding sliced off out, dq,
+    dk and dv.  Held against the JAX kernels in interpret mode at the true
+    head size, forward and gradients, with the scale of the true D."""
+    BH, T = 2, 128
+    # a generator of its own: the module's R feeds the tests after these
+    rs = np.random.RandomState(D * 1000 + Dv)
+    q, k, g = (rs.randn(BH, T, d).astype("float32") for d in (D, D, Dv))
+    v = rs.randn(BH, T, Dv).astype("float32")
+    scale = D ** -0.5
+    jq, jk, jv = _j(q), _j(k), _j(v)
+    jout, jlse = jpk._flash_fwd(jq, jk, jv, causal, scale, 64, 64, True)
+    jd = jpk._flash_bwd(jq, jk, jv, jout, jlse, _j(g), causal, scale, 64,
+                        64, True)
+    out, lse = fa.padded_fwd(fa.flash_fwd_reference, _t(q), _t(k), _t(v),
+                             causal, scale)
+    assert tuple(out.shape) == (BH, T, Dv) and out.is_contiguous()
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL32)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL32)
+    td = fa.padded_bwd(fa.flash_bwd_reference, _t(q), _t(k), _t(v), out,
+                       lse, _t(g), causal, scale)
+    for name, a, b, d in zip("qkv", td, jd, (D, D, Dv)):
+        assert tuple(a.shape) == (BH, T, d), name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **GTOL)
+
+
+def test_padded_head_sizes():
+    assert [fa.padded_head(d) for d in (1, 8, 16, 40, 60, 72, 120, 128)] \
+        == [16, 16, 16, 48, 64, 80, 128, 128]
+    for d in (129, 144, 256):
+        with pytest.raises(ValueError, match="ROADMAP.md Queue A"):
+            fa.padded_head(d)
+    # the kernels' own plans keep refusing what they do not take, naming
+    # the item for the sizes above 128
+    with pytest.raises(ValueError, match="multiples of 16.*129-256"):
+        fa.fwd_plan(1, 64, 64, 144, 64, False)
+    with pytest.raises(ValueError, match="multiples of 16.*129-256"):
+        fa.bwd_plan(1, 64, 64, 64, 160, False)
+
+
 def test_plain_versions_chunk_invariant(monkeypatch):
     """The plain versions give the same result whatever their query
     chunk (the full-size check on the card runs them in 2048-row
@@ -473,6 +524,36 @@ def test_forward_takes_a_negative_scale_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_refuse_other_head_sizes(cuda_device):
-    q = torch.zeros(1, 64, 24, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 16"):
+    """Head sizes above 128 raise on a card (24 now runs padded)."""
+    q = torch.zeros(1, 64, 144, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="129-256"):
         fa.flash_fwd(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D,Dv", [(40, 40), (72, 72), (24, 120)])
+def test_padded_heads_launch_the_kernels_on_card(cuda_device, D, Dv, dt):
+    """A head size no multiple of 16 runs K2, K3 and K4 once each on the
+    padded operands, held against the plain version at the true size."""
+    from chip_smoke import att_close
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def rn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dt)
+
+    q, k, v, gg = rn(2, 512, D), rn(2, 512, D), rn(2, 512, Dv), \
+        rn(2, 512, Dv)
+    fa.reset_counts()
+    out, lse = fa.flash_fwd(q, k, v, True)
+    grads = fa.flash_bwd(q, k, v, out, lse, gg, True)
+    ro, rl = fa.flash_fwd_reference(q, k, v, True)
+    refs = fa.flash_bwd_reference(q, k, v, out, lse, gg, True)
+    torch.cuda.synchronize()
+    assert dict(fa.launches) == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    att_close("out", out, ro, tol)
+    assert (lse - rl).abs().max().item() <= 1e-3
+    for a, b in zip(grads, refs):
+        assert a.shape == b.shape and a.dtype == dt
+        att_close("grad", a, b, tol)

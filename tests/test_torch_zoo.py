@@ -324,10 +324,9 @@ def test_nets_helpers_match_jax(which):
 
 
 def test_zoo_names_match_the_jax_package():
-    """models exports the JAX package's names but seq2seq_infer (it needs
-    beam_search); nets exports all of the JAX package's helpers."""
-    assert set(ptt.models.__all__) == set(pt.models.__all__) - {
-        "seq2seq_infer"}
+    """models exports every one of the JAX package's names (seq2seq_infer
+    with beam_search since the deploy slice); nets all of its helpers."""
+    assert set(ptt.models.__all__) == set(pt.models.__all__)
     assert set(ptt.nets.__all__) == set(pt.nets.__all__)
     for name in ptt.models.__all__:
         assert callable(getattr(ptt.models, name))
