@@ -44,10 +44,33 @@ Phases, each of which raises on failure (so the script exits non-zero):
              with TF32 off for 3) against the plain path in float64, the
              exact witness; prints training img/s of each path (bf16 also
              timed in turns) and a profile of one step.
-6. library — drives the fused entry points conv2d_1x1_with_bn_stats and
+6. resume  — the training runtime: ResNet-50 as in train (bf16 AMP,
+             captured, cuDNN deterministic) with the rate from
+             lr_decay.piecewise_decay([3, 6], ...) through
+             trainer.SGD.train(checkpoint_dir=..., save_every_n_steps=2):
+             arm A 8 steps, arm B the same 8 with
+             Checkpointer.request_preempt() after step 5 (Preempted, exit
+             75, after an emergency checkpoint), arm C a fresh executor
+             and scope with resume=True finishing steps 6-8: C's fetches
+             and final scope bit-equal to A's, the rate of every step on
+             its boundary, K1's launches 3 x 29 a step (and the reduce
+             passes) in each arm and in a profiled replay's trace; ms a
+             step and idle share with saves off and on, each save's
+             snapshot, each commit, the restore and the first steps
+             after it.  Then smallnet (vgg_cifar 32x32, batch 64, dropout
+             on, RMSProp, exponential_decay, fp32) under ``python -m
+             paddle_tpu_torch.distributed.supervisor``: SIGTERM at step
+             6, one exit 75, the relaunch resumes, its final checkpoint
+             bit-equal to an uninterrupted run here; the seven schedules
+             over 12 captured steps against their closed forms; each new
+             optimizer on wide_deep (3 fp32 steps, captured bit-equal to
+             use_jit=False, updates against float64), the proximal ops
+             against float64, and ModelAverage.apply() through a
+             captured step.
+7. library — drives the fused entry points conv2d_1x1_with_bn_stats and
              conv2d_1x1_grad_fused once per trained 1x1 conv, in bf16 and
              in fp32, with the launch counts read around each run.
-7. attention — the long-context slice (benchmark/longctx.py --framework):
+8. attention — the long-context slice (benchmark/longctx.py --framework):
              holds the flash-attention forward, dq and dk/dv kernels
              against their plain versions on the card at the slice's
              shape (BH 8, T 65536, d 64, causal, bf16) and at the other
@@ -63,7 +86,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
              64k tokens beside its bound, its plain version and
              torch's scaled_dot_product_attention (a yardstick the port
              never calls).
-8. seq2seq — bench.py's seq2seq+attention training leg (:230-268) at
+9. seq2seq — bench.py's seq2seq+attention training leg (:230-268) at
              its sizes (vocab 30000, dim 512, batch 64, 30 + 30 tokens,
              Adam(1e-3), weights and ids from --seed): one fp32 step
              (TF32 off) with ragged lengths held against the port's
@@ -78,14 +101,14 @@ Phases, each of which raises on failure (so the script exits non-zero):
              pass, warm-ups, captures and replays, peak reserved memory;
              a profile of one AMP step and the peak device memory; no
              hand-written kernel may launch in the phase.
-9. pipeline — bench.py's input-pipeline leg on wide_deep at its settings
+10. pipeline — bench.py's input-pipeline leg on wide_deep at its settings
              (vocab 1000, emb 8, 26 sparse + 13 dense features, deep
              (32, 16), batch 256, 60 batches a window, 4 reps,
              steps_per_dispatch 10): run_pipelined against the sequential
              run loop and that loop against use_jit=False bit for bit,
              one fp32 step against float64, naive and pipelined steps/s
              and their paired speedup, one pipelined window's busy/idle.
-10. zoo    — benchmark/run.py --all's configs no earlier phase trains
+11. zoo    — benchmark/run.py --all's configs no earlier phase trains
              (alexnet 128, googlenet 128, smallnet 64, vgg19 64,
              lstm_h512 64 and 128), through the port's runner
              (paddle_tpu_torch.benchmark.run.run_config) at full width:
@@ -103,7 +126,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
              reduce pass too, by phase 3's helper), its fp32 kernel path
              against the plain path by float64, its counted launches
              against the run's steps and a profiled step's trace.
-11. inference — benchmark/inference.py's deploy path: ResNet-50 (224x224,
+12. inference — benchmark/inference.py's deploy path: ResNet-50 (224x224,
              1000 classes, fp32) exported with a symbolic batch
              (export_compiled_model, torch.export, its 29 gated 1x1 convs
              as paddle_tpu_torch::conv2d_1x1 nodes) and loaded with no
@@ -127,7 +150,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
              plain version with K2, K3 and K4 launched once each, and head
              size 144 refused; K1's fp32 forward timed at the artifact's
              shapes beside torch.matmul and the bound.
-12. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
+13. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
              counterpart): holds the Triton grid copy and axpy kernels
              and the bulk-copy (TMA) DMA copy against their plain
              versions at each of the probe's four sizes and at two
@@ -139,8 +162,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
              around it, and prints every method's GB/s, its share of 3.35
              TB/s and its time a pass beside the bound and copy_'s.
 
-The main path of slice, train, attention, seq2seq, pipeline and zoo runs
-captured (Executor(use_jit=True), each step one CUDA graph replay; the
+The main path of slice, train, resume, attention, seq2seq, pipeline and
+zoo runs captured (Executor(use_jit=True), each step one CUDA graph replay; the
 inference phase replays one graph of the artifact a batch size), and
 each phase adds a use_jit=False arm from the same seed and weights: its
 fetches and final scope must equal the captured arm's bit for bit, no
@@ -166,6 +189,7 @@ import concurrent.futures
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -1560,6 +1584,770 @@ def profile_train_step(main, loss, start, feed, amp, n_gate, n_split, card,
 
 def dtype_of(amp):
     return torch.bfloat16 if amp else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# [resume]: the training runtime (checkpoints, preemption, resume)
+# ---------------------------------------------------------------------------
+# ResNet-50 with bench.py's recipe, the rate from piecewise_decay, through
+# trainer.SGD.train(checkpoint_dir=...): arm A 8 steps, arm B the same 8
+# with a preemption requested after step 5, arm C a fresh executor and
+# scope resuming B's checkpoint (steps 6-8); an arm with saves off times
+# the loop without them.
+RESUME_STEPS = 8
+RESUME_IMG = 224
+RESUME_PREEMPT_AFTER = 5
+RESUME_SAVE_EVERY = 2
+RESUME_BOUNDARIES = [3, 6]
+RESUME_VALUES = [0.01 / TRAIN_BATCH, 0.001 / TRAIN_BATCH,
+                 0.0001 / TRAIN_BATCH]
+# smallnet (vgg_cifar, 32x32, dropout on) under the supervisor: a child
+# SIGTERMed once it reports step SUP_SIGTERM_AT resumes and finishes
+SUP_STEPS = 12
+SUP_SIGTERM_AT = 6
+SUP_BATCH = 64
+SUP_SAVE_EVERY = 4
+# every schedule against its closed form in float64, relative
+SCHEDULE_TOL = 1e-6
+SCHEDULE_STEPS = 12
+# each optimizer's fp32 updates against the op in float64 on the same
+# operands: max |update - float64 update| (beyond one fp32 ulp of the
+# stored value) over max |float64 update|
+OPT_TOL = 1e-5
+FP32_ULP = 2.0 ** -23
+OPT_STEPS = 3
+SCHEDULES = (
+    ("exponential_decay", dict(learning_rate=0.1, decay_steps=3,
+                               decay_rate=0.5, staircase=True)),
+    ("natural_exp_decay", dict(learning_rate=0.1, decay_steps=4,
+                               decay_rate=0.3, staircase=False)),
+    ("inverse_time_decay", dict(learning_rate=0.2, decay_steps=2,
+                                decay_rate=0.7, staircase=False)),
+    ("polynomial_decay", dict(learning_rate=0.1, decay_steps=5,
+                              end_learning_rate=1e-3, power=1.5,
+                              cycle=True)),
+    ("piecewise_decay", dict(boundaries=[3, 6, 9],
+                             values=[0.1, 0.05, 0.01, 0.001])),
+    ("noam_decay", dict(d_model=512, warmup_steps=4)),
+    ("v1_poly_decay", dict(learning_rate=0.1, decay_a=0.01, decay_b=0.75,
+                           batch_size=8)),
+)
+OPTIMIZERS = (("Adagrad", dict(learning_rate=0.05)),
+              ("Adamax", dict(learning_rate=0.01)),
+              ("DecayedAdagrad", dict(learning_rate=0.05)),
+              ("Adadelta", dict(learning_rate=1.0, rho=0.9)),
+              ("RMSProp", dict(learning_rate=0.01, momentum=0.5)),
+              ("Ftrl", dict(learning_rate=0.05, l1=0.01, l2=0.01)))
+
+
+def resume_root(name):
+    """A fresh directory under build/resume (inside the checkout)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "resume", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def fresh_defaults(seed):
+    import paddle_tpu_torch as ptt
+    ptt.core.reset_default_programs()
+    ptt.core.reset_global_scope()
+    ptt.unique_name.reset()
+    ptt.default_startup_program().random_seed = seed
+
+
+def schedule_lr(step):
+    """The piecewise rate of 1-based step ``step`` (the counter starts
+    at 0)."""
+    import bisect
+    return np.float32(RESUME_VALUES[bisect.bisect_right(RESUME_BOUNDARIES,
+                                                        step - 1)])
+
+
+def resume_trainer(seed):
+    """bench.py's ResNet-50 program in the default programs, the rate
+    from piecewise_decay, Momentum(0.9), trained by trainer.SGD with
+    Executor(amp=True) (captured)."""
+    import paddle_tpu_torch as ptt
+    fresh_defaults(seed)
+    L = ptt.layers
+    img = L.data("img", [3, RESUME_IMG, RESUME_IMG])
+    label = L.data("label", [1], dtype="int64")
+    loss = L.mean(L.cross_entropy(ptt.models.resnet50(img,
+                                                      num_classes=1000),
+                                  label))
+    lr = ptt.lr_decay.piecewise_decay(RESUME_BOUNDARIES, RESUME_VALUES)
+    tr = ptt.trainer.SGD(loss, update_equation=ptt.optimizer.Momentum(
+        learning_rate=lr, momentum=0.9), extra_layers=[lr])
+    tr.exe = ptt.Executor(amp=True)
+    return tr, lr
+
+
+def resume_data(seed):
+    """RESUME_STEPS batches of (img, label) rows from ``seed``."""
+    rng = np.random.default_rng(seed + 14)
+    imgs = rng.random((RESUME_STEPS, TRAIN_BATCH, 3, RESUME_IMG,
+                       RESUME_IMG), dtype=np.float32)
+    labels = rng.integers(0, 1000, (RESUME_STEPS, TRAIN_BATCH, 1))
+    return imgs, labels
+
+
+def rows_reader(imgs, labels):
+    def reader():
+        for b in range(len(imgs)):
+            yield [(imgs[b, i], labels[b, i]) for i in range(len(imgs[b]))]
+    return reader
+
+
+def resume_arm(label, seed, data, ckpt=None, resume=False, preempt=False):
+    """One training run through trainer.SGD.train: its steps' (loss hex,
+    rate, host clock at EndIteration, Begin->End ms), its scope, the
+    trainer, K1's launches by form, the capture counters, the exception
+    (B's Preempted), the train() wall."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.faults import Preempted
+    from paddle_tpu_torch.ops import conv1x1
+    tr, lr = resume_trainer(seed)
+    steps, begin = [], {}
+
+    def handler(e):
+        if isinstance(e, ptt.trainer.events.BeginIteration):
+            begin["t"] = time.perf_counter()
+        elif isinstance(e, ptt.trainer.events.EndIteration):
+            t = time.perf_counter()
+            steps.append((float(e.cost).hex(),
+                          float(np.asarray(e.metrics[lr.name]).ravel()[0]),
+                          t, (t - begin["t"]) * 1e3))
+            if preempt and len(steps) == RESUME_PREEMPT_AFTER:
+                tr.checkpointer.request_preempt()
+    torch.cuda.synchronize()
+    conv1x1.reset_counts()
+    capture_stats().reset()
+    err = None
+    t0 = time.perf_counter()
+    kw = {} if ckpt is None else dict(checkpoint_dir=ckpt, resume=resume,
+                                      save_every_n_steps=RESUME_SAVE_EVERY)
+    try:
+        tr.train(rows_reader(*data), num_passes=1, event_handler=handler,
+                 **kw)
+    except Preempted as e:
+        err = e
+    wall = time.perf_counter() - t0
+    return {"label": label, "steps": steps, "scope": ptt.global_scope(),
+            "tr": tr, "forms": dict(conv1x1.mm.by_form),
+            "caps": capture_stats().snapshot(), "err": err, "wall": wall,
+            "main": tr.main_program, "loss": tr.cost}
+
+
+def steady_ms(arm, first=3):
+    """ms a step between the EndIterations of steps ``first + 1`` and
+    the last (every interval holds a step and, with saves on, the save
+    of every other step)."""
+    t = [s[2] for s in arm["steps"]]
+    return (t[-1] - t[first]) * 1e3 / (len(t) - 1 - first)
+
+
+def split_wgrads(shapes, dtype=torch.bfloat16):
+    """How many of the wgrads at ``shapes`` run a splitk_reduce pass."""
+    from paddle_tpu_torch.ops import conv1x1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sum(conv1x1.plan(M, C, P, True, False, dtype, sms).partials > 0
+               for (P, C, M) in shapes)
+
+
+def phase_resume(seed, card, n_gate, n_split):
+    """The training runtime on the card: ResNet-50 preempted and resumed
+    bit for bit, smallnet SIGTERMed under the supervisor, every schedule
+    and optimizer.  Returns K1's launches by form summed over arms A, B
+    and C."""
+    t_phase = time.perf_counter()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        forms = resume_resnet(seed, card, n_gate, n_split)
+        resume_supervised(seed, card)
+        resume_schedules(card)
+        resume_optimizers(seed, card)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        shutil.rmtree(os.path.dirname(resume_root("phase")),
+                      ignore_errors=True)
+    print(f"[resume] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return forms
+
+
+def check_preempted(b, dir_b):
+    """Arm B raised Preempted after step 5 with its emergency checkpoint
+    (the newest in its directory) at step 5."""
+    from paddle_tpu_torch import Scope
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.faults import EXIT_PREEMPTED
+    from paddle_tpu_torch.train_state import TRAIN_STATE_VAR, TrainState
+    if b["err"] is None or b["err"].code != EXIT_PREEMPTED or \
+            b["err"].step != RESUME_PREEMPT_AFTER:
+        raise RuntimeError(f"chip_smoke: [resume] arm B ended with "
+                           f"{b['err']!r}, expected Preempted at step "
+                           f"{RESUME_PREEMPT_AFTER} (exit {EXIT_PREEMPTED})")
+    last = b["tr"].checkpointer.saves[-1]
+    check = CheckpointManager(dir_b, device="cpu")
+    if not (last["emergency"] and last["step"] == RESUME_PREEMPT_AFTER
+            and check.latest_step() == RESUME_PREEMPT_AFTER):
+        raise RuntimeError(f"chip_smoke: [resume] arm B's last save "
+                           f"{last}, newest checkpoint "
+                           f"{check.latest_step()}")
+    probe = Scope()
+    check.restore(scope=probe)
+    ts = TrainState.from_array(probe.get(TRAIN_STATE_VAR))
+    print(f"[resume] arm B: Preempted (exit {b['err'].code}) after step "
+          f"{b['err'].step}; emergency checkpoint ckpt-{ts.emitted} "
+          f"(emergency {ts.emergency}, exe_step {ts.exe_step}, next batch "
+          f"{ts.batch_id}); saves "
+          f"{[s['step'] for s in b['tr'].checkpointer.saves]}")
+
+
+def resume_resnet(seed, card, n_gate, n_split):
+    """Arms saves off, A, B and C of ResNet-50 (see RESUME_STEPS)."""
+    from paddle_tpu_torch.ops import conv1x1
+    data = resume_data(seed)
+    dir_a, dir_b = resume_root("resnet_a"), resume_root("resnet_b")
+    arms = {}
+    for label, kw in (("saves off", {}), ("A", dict(ckpt=dir_a)),
+                      ("B", dict(ckpt=dir_b, preempt=True)),
+                      ("C", dict(ckpt=dir_b, resume=True))):
+        arms[label] = arm = resume_arm(label, seed, data, **kw)
+        n = len(arm["steps"])
+        print(f"[resume] ResNet-50 arm {label}: {n} steps in "
+              f"{arm['wall']:.2f} s (train() with its startup, restore "
+              f"and final save), steps {arm['caps']}; K1 launches "
+              f"{arm['forms']}")
+        if label == "B":
+            check_preempted(arm, dir_b)
+        if label != "C":
+            arm["tr"].exe.close()
+            torch.cuda.empty_cache()
+    a, b, c, off = arms["A"], arms["B"], arms["C"], arms["saves off"]
+
+    # C equals A bit for bit: steps 6-8 and the final scope
+    if [s[:2] for s in c["steps"]] != \
+            [s[:2] for s in a["steps"][RESUME_PREEMPT_AFTER:]]:
+        raise RuntimeError(f"chip_smoke: [resume] arm C's steps "
+                           f"{[s[:2] for s in c['steps']]} differ from A's "
+                           f"{[s[:2] for s in a['steps'][5:]]}")
+    if [s[:2] for s in b["steps"]] != \
+            [s[:2] for s in a["steps"][:RESUME_PREEMPT_AFTER]]:
+        raise RuntimeError("chip_smoke: [resume] arm B's steps differ from "
+                           "A's")
+    n = same_scopes("[resume] A vs C final scope", a["scope"], c["scope"])
+    counter = c["scope"].get("@STEP_COUNTER@")
+    if counter.dtype != torch.int64 or int(counter[0]) != RESUME_STEPS - 1:
+        raise RuntimeError(f"chip_smoke: [resume] @STEP_COUNTER@ {counter}")
+    # the rate of each step follows the boundaries (the counter starts
+    # at 0, so step k reads k - 1: the rate drops after steps 3 and 6)
+    rates = [s[1] for s in a["steps"]]
+    want = [float(schedule_lr(k)) for k in range(1, RESUME_STEPS + 1)]
+    got_c = [s[1] for s in c["steps"]]
+    if rates != want or got_c != want[RESUME_PREEMPT_AFTER:]:
+        raise RuntimeError(f"chip_smoke: [resume] rates {rates} (C "
+                           f"{got_c}), the boundaries give {want}")
+    print(f"[resume] arm C (fresh executor and scope, resume=True) steps "
+          f"6-{RESUME_STEPS} and all {n} scope entries (weights, "
+          f"velocities, batch-norm statistics, @STEP_COUNTER@ = "
+          f"{int(counter[0])} int64) bit-equal to arm A's; losses "
+          f"{[float.fromhex(s[0]) for s in a['steps']]}; rates by step "
+          f"{rates} (after the second boundary from step 7)")
+
+    # K1: 3 x n_gate products and n_split reduce passes a step
+    for arm in (a, b, c):
+        k = len(arm["steps"])
+        want = {form: n * k for form, n in (
+            ("forward", n_gate), ("dgrad", n_gate), ("wgrad", n_gate),
+            ("splitk_reduce", n_split)) if n}
+        if arm["forms"] != want:
+            raise RuntimeError(f"chip_smoke: [resume] arm {arm['label']} "
+                               f"launched {arm['forms']}, the gate "
+                               f"expects {want}")
+    # C: the startup's and step 6's warm-ups, step 7 captured, 2 replays
+    check_captured("[resume] arm C", c["caps"],
+                   RESUME_STEPS - RESUME_PREEMPT_AFTER - 1)
+    feed = c["tr"]._feeder(None, None).feed(
+        next(iter(rows_reader(*data)())))
+    exe, main = c["tr"].exe, c["main"]
+    fetch = [c["loss"]] + c["tr"].extra          # the loop's own key
+    rows, _ = profiled_checked(
+        "resume", f"bf16 batch-{TRAIN_BATCH} step of arm C's executor, "
+        "replayed", lambda: exe.run(main, feed=feed, fetch_list=fetch), 1,
+        lambda: conv_since(conv1x1, "mm_bf16_tma"))
+    busy = sum(r[0] for r in rows) if rows else None
+    got = (kernel_count(rows, "mm_bf16_tma"),
+           kernel_count(rows, "splitk_reduce"))
+    if got != (3 * n_gate, n_split):
+        raise RuntimeError(f"chip_smoke: [resume] the replayed step's "
+                           f"trace holds {got}, the gate expects "
+                           f"{(3 * n_gate, n_split)}")
+    exe.close()
+    torch.cuda.empty_cache()
+
+    # costs: saves off and on, the snapshot, the commits, the restore
+    ms_off, ms_on = steady_ms(off), steady_ms(a)
+    idle = {k: "not measured" if busy is None else f"{1 - busy / v:.3f}"
+            for k, v in (("off", ms_off), ("on", ms_on))}
+    print(f"[resume] ResNet-50 bf16 batch {TRAIN_BATCH} through "
+          f"trainer.SGD.train (per-batch loop, DataFeeder rows), steps 5-"
+          f"{RESUME_STEPS}: saves off {ms_off:.1f} ms a step (idle share "
+          f"{idle['off']}), saves every {RESUME_SAVE_EVERY} steps "
+          f"{ms_on:.1f} ms a step (idle share {idle['on']}), "
+          f"{ms_on / ms_off:.3f}x; device busy {busy and round(busy, 3)} "
+          f"ms a replayed step (profiled); {card}")
+    per_arm = []
+    for arm in (off, a, b, c):
+        ms = steady_ms(arm, first=min(2, len(arm["steps"]) - 2))
+        idle_arm = "not measured" if busy is None else \
+            f"{1 - busy / ms:.3f}"
+        per_arm.append(f"{arm['label']} {ms:.1f} ms (idle {idle_arm})")
+    print(f"[resume] each arm's ms a step after its capture (EndIteration "
+          f"to EndIteration, saves inside): " + ", ".join(per_arm))
+    ck_a = a["tr"].checkpointer
+    for s in ck_a.saves:
+        print(f"[resume] arm A save at step {s['step']}: {s['kind']}, "
+              f"snapshot {s['snapshot_ms']:.1f} ms on the training thread "
+              f"({s['bytes']} bytes), save() {s['call_ms']:.1f} ms "
+              f"(blocking {s['blocking']})")
+    for cm in ck_a.manager.commits:
+        print(f"[resume] arm A commit ckpt-{cm['step']} on the writer: "
+              f"{cm['kind']}, {cm['bytes']} bytes written, {cm['ms']:.1f} "
+              f"ms (np.save, md5, chunk sha256, fsync, rename)")
+    ck_c = c["tr"].checkpointer
+    print(f"[resume] arm C: restore {ck_c.manager.last_restore_ms:.1f} ms "
+          f"(read, md5, to the card); first step after the resume "
+          f"(warm-up, interpreted) {c['steps'][0][3]:.1f} ms, second "
+          f"(capture and replay) {c['steps'][1][3]:.1f} ms, third (replay) "
+          f"{c['steps'][2][3]:.1f} ms; captures {c['caps']['captures']}, "
+          f"replays {c['caps']['replays']}, warm-ups "
+          f"{c['caps']['warmups']}; arm B's emergency save "
+          f"{b['tr'].checkpointer.saves[-1]['call_ms']:.1f} ms (blocking)")
+    forms = collections.Counter()
+    for arm in (a, b, c):
+        forms.update(arm["forms"])
+    del arms, a, b, c, off
+    torch.cuda.empty_cache()
+    return dict(forms)
+
+
+def smallnet_trainer(seed):
+    """benchmark/run.py's smallnet (vgg_cifar, 32x32, 10 classes, its
+    dropout on) with RMSProp at an exponential_decay rate, trained by
+    trainer.SGD on the card (fp32, captured), and its reader."""
+    import paddle_tpu_torch as ptt
+    fresh_defaults(seed)
+    L = ptt.layers
+    img = L.data("img", [3, 32, 32])
+    label = L.data("label", [1], dtype="int64")
+    loss = L.mean(L.cross_entropy(ptt.models.vgg_cifar(img, 10), label))
+    lr = ptt.lr_decay.exponential_decay(1e-3, decay_steps=4, decay_rate=0.5)
+    tr = ptt.trainer.SGD(loss, update_equation=ptt.optimizer.RMSProp(
+        learning_rate=lr, momentum=0.5))
+    rng = np.random.default_rng(seed + 15)
+    imgs = rng.random((SUP_STEPS, SUP_BATCH, 3, 32, 32), dtype=np.float32)
+    labels = rng.integers(0, 10, (SUP_STEPS, SUP_BATCH, 1))
+    return tr, rows_reader(imgs, labels)
+
+
+def supervised_child(root, seed):
+    """The supervised command of [resume]: smallnet trained with
+    checkpoints in ``root``/ckpt, resuming when there is one; each
+    completed step appends "<pid> <step> <time>" to ``root``/progress."""
+    import paddle_tpu_torch as ptt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    tr, reader = smallnet_trainer(seed)
+    progress = os.path.join(root, "progress")
+
+    def handler(e):
+        if isinstance(e, ptt.trainer.events.EndIteration):
+            with open(progress, "a") as f:
+                f.write(f"{os.getpid()} {e.batch_id + 1} {time.time()}\n")
+    tr.train(reader, num_passes=1, event_handler=handler,
+             checkpoint_dir=os.path.join(root, "ckpt"), resume=True,
+             save_every_n_steps=SUP_SAVE_EVERY)
+    caps = capture_stats().snapshot()
+    print(f"[resume-child] pid {os.getpid()}: steps {caps}")
+
+
+def resume_supervised(seed, card):
+    """smallnet SIGTERMed at step SUP_SIGTERM_AT under ``python -m
+    paddle_tpu_torch.distributed.supervisor``, against an uninterrupted
+    run in this process: the child's final checkpoint bit-equal to this
+    run's scope, and the child exited 75 once."""
+    import signal
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.train_state import TRAIN_STATE_VAR
+    root = resume_root("smallnet")
+    progress = os.path.join(root, "progress")
+    here = os.path.dirname(os.path.abspath(__file__))
+    log = open(os.path.join(root, "supervisor.log"), "w")
+    t0 = time.perf_counter()
+    sup = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.supervisor",
+         "--max-restarts", "2", "--backoff-base-s", "0.5", "--",
+         sys.executable, os.path.abspath(__file__), "--supervised-child",
+         root, "--seed", str(seed)],
+        cwd=here, stdout=log, stderr=subprocess.STDOUT)
+    killed = {}
+
+    def lines():
+        try:
+            with open(progress) as f:
+                return [(int(p), int(k), float(t)) for p, k, t in
+                        (ln.split() for ln in f if ln.strip())]
+        except OSError:
+            return []
+
+    def watch():
+        # SIGTERM to the training process itself (not the supervisor,
+        # which would forward it and stop) once it reports the step
+        while sup.poll() is None:
+            got = [ln for ln in lines() if ln[1] >= SUP_SIGTERM_AT]
+            if got:
+                os.kill(got[0][0], signal.SIGTERM)
+                killed.update(pid=got[0][0], step=got[0][1],
+                              t=time.time())
+                return
+            time.sleep(0.01)
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        # the uninterrupted run, here, meanwhile
+        tr, reader = smallnet_trainer(seed)
+        tr.train(reader, num_passes=1)
+        ref_scope, device = ptt.global_scope(), tr.exe.device
+        tr.exe.close()
+        rc = sup.wait(timeout=600)
+    finally:
+        if sup.poll() is None:
+            # the supervisor forwards SIGTERM to its child and waits
+            sup.terminate()
+            try:
+                sup.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                sup.kill()
+                sup.wait()
+        log.close()
+    watcher.join(timeout=5)
+    with open(os.path.join(root, "supervisor.log")) as f:
+        out = f.read()
+    if rc != 0 or not killed or "exit statuses [75, 0]" not in out:
+        print(out[-4000:])
+        raise RuntimeError(f"chip_smoke: [resume] the supervised smallnet "
+                           f"run exited {rc} (SIGTERM {killed}); expected "
+                           f"exit statuses [75, 0]")
+    seen = lines()
+    pids = list(dict.fromkeys(ln[0] for ln in seen))
+    after = [ln for ln in seen if ln[0] == pids[-1]]
+    # the relaunch: from the SIGTERM to the new process's first step
+    relaunch_s = after[0][2] - killed["t"] if after else float("nan")
+    final = ptt.Scope()
+    step = CheckpointManager(os.path.join(root, "ckpt"),
+                             device=device).restore(scope=final)
+    final.delete(TRAIN_STATE_VAR)
+    n = same_scopes("[resume] supervised smallnet vs uninterrupted",
+                    final, ref_scope)
+    if len(pids) != 2 or step != SUP_STEPS or seen[-1][1] != SUP_STEPS:
+        raise RuntimeError(f"chip_smoke: [resume] supervised run: pids "
+                           f"{pids}, final checkpoint {step}, progress "
+                           f"{seen}")
+    for ln in out.splitlines():
+        if ln.startswith("[resume-child]") or "supervisor:" in ln:
+            print(f"[resume] {ln}")
+    print(f"[resume] smallnet (vgg_cifar 32x32, batch {SUP_BATCH}, dropout "
+          f"on, RMSProp, exponential_decay, fp32 captured) under python -m "
+          f"paddle_tpu_torch.distributed.supervisor: SIGTERM to pid "
+          f"{killed['pid']} at its step {killed['step']}, exit 75 once, "
+          f"relaunched as pid {pids[-1]} resuming at step {after[0][1]} "
+          f"{relaunch_s:.2f} s after the SIGTERM (backoff, interpreter, "
+          f"restore, warm-up and capture); the final checkpoint (step "
+          f"{step}) and all {n} scope entries bit-equal to the "
+          f"uninterrupted run; {len(seen)} step reports; wall "
+          f"{time.perf_counter() - t0:.2f} s; {card}")
+
+
+def schedule_closed_form(name, kw, step):
+    """A schedule's rate at counter value ``step``, in float64."""
+    if name in ("exponential_decay", "natural_exp_decay",
+                "inverse_time_decay"):
+        div = step / kw["decay_steps"]
+        if kw["staircase"]:
+            div = np.floor(div)
+        lr, r = kw["learning_rate"], kw["decay_rate"]
+        return {"exponential_decay": lr * r ** div,
+                "natural_exp_decay": lr * np.exp(-r * div),
+                "inverse_time_decay": lr / (1 + r * div)}[name]
+    if name == "polynomial_decay":
+        steps, gs = kw["decay_steps"], step
+        if kw["cycle"]:
+            steps = steps * max(np.ceil(step / steps), 1.0)
+        else:
+            gs = min(step, steps)
+        end = kw["end_learning_rate"]
+        return (kw["learning_rate"] - end) * (1 - gs / steps) \
+            ** kw["power"] + end
+    if name == "piecewise_decay":
+        for b, v in zip(kw["boundaries"], kw["values"]):
+            if step < b:
+                return v
+        return kw["values"][-1]
+    if name == "noam_decay":
+        gs = max(step, 1.0)
+        return kw["d_model"] ** -0.5 * min(gs ** -0.5,
+                                           gs * kw["warmup_steps"] ** -1.5)
+    return kw["learning_rate"] * (
+        1 + kw["decay_a"] * step * kw["batch_size"]) ** -kw["decay_b"]
+
+
+def resume_schedules(card):
+    """The seven schedules in one program (one shared counter), fetched
+    for SCHEDULE_STEPS captured steps, each against its closed form."""
+    import paddle_tpu_torch as ptt
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        lrs = [getattr(ptt.lr_decay, name)(**kw) for name, kw in SCHEDULES]
+    exe, scope = ptt.Executor(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    capture_stats().reset()
+    got = np.array([[float(v[0]) for v in exe.run(main, fetch_list=lrs,
+                                                   scope=scope)]
+                    for _ in range(SCHEDULE_STEPS)])
+    caps = capture_stats().snapshot()
+    exe.close()
+    check_captured("[resume] schedules", caps, SCHEDULE_STEPS - 1)
+    worst = []
+    for j, (name, kw) in enumerate(SCHEDULES):
+        want = np.array([schedule_closed_form(name, kw, s)
+                         for s in range(SCHEDULE_STEPS)])
+        rel = float(np.max(np.abs(got[:, j] - want) / np.abs(want)))
+        worst.append(f"{name} {rel:.2e}")
+        if not rel <= SCHEDULE_TOL:
+            raise RuntimeError(f"chip_smoke: [resume] {name}: rates "
+                               f"{got[:, j].tolist()}, closed form "
+                               f"{want.tolist()} (relative {rel:.2e} > "
+                               f"{SCHEDULE_TOL})")
+    print(f"[resume] the seven schedules, {SCHEDULE_STEPS} captured steps "
+          f"(steps {caps}), largest relative error against the float64 "
+          f"closed form (limit {SCHEDULE_TOL}): " + ", ".join(worst)
+          + f"; {card}")
+
+
+def wide_deep_with(name, kw, seed):
+    """bench.py's wide_deep ([pipeline]'s builder at its full sizes)
+    minimized by optimizer ``name``: (main, cost, params, start scope,
+    the batches' feeds)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.benchmark import input_pipeline as ip
+    cfg = dict(ip.WORKLOADS["wide_deep"]["full"])
+    fresh_defaults(seed)
+    sgd, feed_list = ip.build_wide_deep(
+        cfg, update_equation=getattr(ptt.optimizer, name)(**kw))
+    start = ptt.Scope()
+    ptt.Executor().run(ptt.default_startup_program(), scope=start)
+    feeder = ptt.DataFeeder(feed_list)
+    batches = ip.make_reader(cfg, seed)()
+    feeds = [feeder.feed(next(batches)) for _ in range(OPT_STEPS)]
+    params = [p.name for p in sgd.main_program.all_parameters()]
+    return sgd.main_program, sgd.cost, params, start, feeds
+
+
+OPT_OPS = ("adagrad", "adamax", "decayed_adagrad", "adadelta", "rmsprop",
+           "ftrl")
+
+
+def update_errors(main, before, grads, after):
+    """Each optimizer op of ``main`` recomputed in float64 from the fp32
+    step's own operands (``before``: the scope before the step,
+    ``grads``: its gradients by name) against what the step wrote
+    (``after``): {output var: max |update - float64 update| / max
+    |float64 update|} for a parameter, and max |value - float64 value| /
+    max |float64 value| for an accumulator, each difference less one
+    fp32 ulp of the float64 value (the result's own rounding)."""
+    from paddle_tpu_torch.core.registry import get_op_impl
+    errs = {}
+    for op in main.global_block().ops:
+        if op.type not in OPT_OPS:
+            continue
+        ins = {slot: [(grads[n] if n in grads else before.get(n)).double()
+                      for n in names]
+               for slot, names in op.inputs.items() if names}
+        out = get_op_impl(op.type)(None, ins, dict(op.attrs))
+        param = op.inputs["Param"][0]
+        for slot, names in op.outputs.items():
+            for n, v in zip(names, [out[slot]]):
+                # a parameter by its update, an accumulator by its value
+                # (Adamax's inf norm decays by 0.999 a step: its update
+                # is 1e-3 of its value)
+                base = before.get(n).double() if n == param else 0.0
+                d64 = v - base
+                d32 = after.get(n).double() - base
+                # beyond one fp32 ulp of the stored value: an update far
+                # below the parameter's magnitude cannot land closer
+                off = ((d32 - d64).abs() - FP32_ULP * v.abs()).clamp_min(0)
+                errs[n] = (off.max()
+                           / d64.abs().max().clamp_min(1e-30)).item()
+    return errs
+
+
+def resume_optimizers(seed, card):
+    """Each new optimizer on wide_deep, OPT_STEPS fp32 steps (TF32 off):
+    captured bit-equal to use_jit=False; the first step's gradients
+    within [pipeline]'s limit of the float64 run's; every step's update
+    of every parameter (and new value of every accumulator) within
+    OPT_TOL of what the op computes in float64 from the same operands
+    (the step's own gradients and state).  The fp32 rounding of the gradients moves an
+    adaptive update by more than OPT_TOL (it normalizes each entry by
+    its own history), so the whole run's distance from the float64 run
+    is printed, not held.  Then the proximal ops on the card against
+    float64, and ModelAverage.apply() through a captured step."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core.registry import get_op_impl
+    lines = []
+    for name, kw in OPTIMIZERS:
+        main, cost, params, start, feeds = wide_deep_with(name, kw, seed)
+        grads = [p + "@GRAD" for p in params]
+        runs = {}
+        for label, use_jit in (("captured", True), ("use_jit=False", False)):
+            exe, scope = ptt.Executor(use_jit=use_jit), clone_scope(start)
+            capture_stats().reset()
+            out, worst = [], 0.0
+            for f in feeds:
+                before = clone_scope(scope)
+                got = exe.run(main, feed=f, fetch_list=[cost] + grads,
+                              scope=scope, return_numpy=False)
+                out.append(got[0].clone())
+                if use_jit:
+                    errs = update_errors(main, before,
+                                         dict(zip(grads, got[1:])), scope)
+                    worst = max([worst] + list(errs.values()))
+                    bad = {k: v for k, v in errs.items() if not v <= OPT_TOL}
+                    if bad:
+                        raise RuntimeError(
+                            f"chip_smoke: [resume] {name}: updates off the "
+                            f"float64 op on the same operands: {bad}")
+                if not out[1:]:
+                    first = [g.clone() for g in got[1:]]
+            runs[label] = (out, scope, capture_stats().snapshot(), worst,
+                           first)
+            exe.close()
+        check_captured(f"[resume] {name}", runs["captured"][2],
+                       OPT_STEPS - 1)
+        same_fetches(f"[resume] {name} losses", runs["captured"][0],
+                     runs["use_jit=False"][0])
+        same_scopes(f"[resume] {name} scope", runs["captured"][1],
+                    runs["use_jit=False"][1])
+        main64 = main.clone()
+        for v in main64.global_block().vars.values():
+            if v.is_data and v.dtype == "float32":
+                v.dtype = "float64"
+        s64 = clone_scope(start, torch.float64)
+        exe64 = ptt.Executor(use_jit=False)
+        g64 = None
+        for f in feeds:
+            got = exe64.run(main64, feed=f, fetch_list=[cost.name] + grads,
+                            scope=s64, return_numpy=False)
+            g64 = got[1:] if g64 is None else g64
+        g_err = max(((a.double() - b).abs().max()
+                     / b.abs().max().clamp_min(1e-30)).item()
+                    for a, b in zip(runs["captured"][4], g64))
+        if not g_err <= PIPE_F64_TOL["grad"]:
+            raise RuntimeError(f"chip_smoke: [resume] {name}: first-step "
+                               f"gradients {g_err:.2e} from float64 (> "
+                               f"{PIPE_F64_TOL['grad']})")
+        run_err = max((((runs["captured"][1].get(p).double()
+                         - start.get(p).double())
+                        - (s64.get(p) - start.get(p).double())).abs().max()
+                       / (s64.get(p) - start.get(p).double()).abs().max()
+                       .clamp_min(1e-30)).item() for p in params)
+        lines.append(f"{name} update {runs['captured'][3]:.2e}, first "
+                     f"gradients {g_err:.2e}, whole run {run_err:.2e}")
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 16)
+    for op, extra in (("proximal_gd", ()), ("proximal_adagrad", ("Moment",))):
+        arrs = {"Param": rng.standard_normal((4096, 64)),
+                "Grad": rng.standard_normal((4096, 64)),
+                "LearningRate": np.array([0.1])}
+        for k in extra:
+            arrs[k] = rng.random((4096, 64)) + 0.1
+        ins = {k: torch.from_numpy(v.astype(np.float32)).cuda()
+               for k, v in arrs.items()}
+        attrs = {"l1": 0.05, "l2": 0.1}
+        impl = get_op_impl(op)
+        out = impl(None, {k: [v] for k, v in ins.items()}, attrs)
+        ref = impl(None, {k: [v.double()] for k, v in ins.items()}, attrs)
+        for k in out:
+            base = ins["Param" if k == "ParamOut" else "Moment"].double()
+            err = ((out[k].double() - ref[k]).abs().max()
+                   / (ref[k] - base).abs().max()).item()
+            if not err <= OPT_TOL:
+                raise RuntimeError(f"chip_smoke: [resume] {op} {k} "
+                                   f"{err:.2e} from float64")
+            lines.append(f"{op} {k} {err:.2e}")
+    print(f"[resume] optimizers on wide_deep (vocab 1000, batch 256), "
+          f"{OPT_STEPS} fp32 steps, TF32 off, captured bit-equal to "
+          f"use_jit=False; each step's parameter updates (accumulator "
+          f"values) against the op in float64 on the same operands, over "
+          f"the largest float64 entry (limit {OPT_TOL}); the first gradients against the float64 run's "
+          f"(limit {PIPE_F64_TOL['grad']}); the whole run's updates against "
+          f"the float64 run's (printed): " + "; ".join(lines)
+          + f"; {card}")
+    resume_model_average(seed, card)
+
+
+def resume_model_average(seed, card):
+    """ModelAverage over 3 captured SGD steps of wide_deep: under apply()
+    a captured inference step computes with the averaged weights (bit
+    equal to use_jit=False on them), and on exit the scope holds the
+    trained weights again."""
+    import paddle_tpu_torch as ptt
+    main, cost, params, start, feeds = wide_deep_with(
+        "SGD", {"learning_rate": 0.05}, seed)
+    scope = ptt.global_scope()
+    for k in start.keys():
+        scope.set(k, start.get(k).clone())
+    exe = ptt.Executor()
+    ma = ptt.optimizer.ModelAverage(average_window_rate=0.5,
+                                    min_average_window=2)
+    for f in feeds:
+        exe.run(main, feed=f, fetch_list=[cost])
+        ma.update()
+    trained = {n: scope.get(n).clone() for n in ma._avg}
+    test = main.prune([cost]).clone(for_test=True)
+    capture_stats().reset()
+    with ma.apply():
+        outs = [exe.run(test, feed=feeds[0], fetch_list=[cost],
+                        is_test=True)[0] for _ in range(3)]
+        caps = capture_stats().snapshot()
+        ref = ptt.Executor(use_jit=False).run(
+            test, feed=feeds[0], fetch_list=[cost], scope=clone_scope(scope),
+            is_test=True)[0]
+        swapped = all(torch.equal(scope.get(n).cpu(),
+                                  torch.from_numpy(ma._avg[n]))
+                      for n in ma._avg)
+    exe.close()
+    check_captured("[resume] ModelAverage", caps, 2)
+    same_fetches("[resume] ModelAverage apply()", outs, [ref] * 3)
+    restored = all(torch.equal(scope.get(n), trained[n]) for n in trained)
+    moved = any(not torch.equal(trained[n].cpu(),
+                                torch.from_numpy(ma._avg[n]))
+                for n in trained)
+    if not (swapped and restored and moved):
+        raise RuntimeError(f"chip_smoke: [resume] ModelAverage: swapped "
+                           f"{swapped}, restored {restored}, averages "
+                           f"differ from the weights {moved}")
+    print(f"[resume] ModelAverage over {len(feeds)} SGD steps of "
+          f"wide_deep ({len(ma._avg)} parameters): apply() swapped the "
+          f"averages into a captured inference step (steps {caps}; loss "
+          f"{float(outs[-1]):.6f} bit-equal to use_jit=False on them) and "
+          f"restored the trained weights on exit; {card}")
 
 
 def phase_library(seed, shapes_with_geometry):
@@ -3572,7 +4360,16 @@ def conv_entries(rows, shapes, train_shapes, serve_launches, t_forms,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--supervised-child", metavar="DIR",
+                    help="run [resume]'s supervised smallnet training in "
+                         "DIR (what the phase starts under the "
+                         "supervisor) and exit")
     args = ap.parse_args()
+    if args.supervised_child:
+        phase_device()
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        supervised_child(args.supervised_child, args.seed)
+        return
 
     card = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3588,6 +4385,9 @@ def main():
     launches, buckets, fp32_launches = phase_slice(args.seed, card)
     torch.cuda.empty_cache()
     t_forms = phase_train(args.seed, card, len(train_shapes))
+    torch.cuda.empty_cache()
+    r_forms = phase_resume(args.seed, card, len(train_shapes),
+                           split_wgrads(train_shapes))
     torch.cuda.empty_cache()
     l_forms = phase_library(args.seed,
                             conv_geometry(train_main, TRAIN_BATCH))
@@ -3614,6 +4414,13 @@ def main():
         entries, step_forward = conv_entries(
             rows, shapes, train_shapes, serve_launches, t_forms, l_forms,
             dtype)
+        if dtype == torch.bfloat16:
+            # [resume]'s arms A, B and C run the same AMP step
+            for k, form in zip((step_forward,) + tuple(entries[:3]),
+                               ("forward", "forward", "dgrad", "wgrad")):
+                k["resume_launches"] = r_forms.get(form, 0)
+            entries[2]["resume_reduce_launches"] = r_forms.get(
+                "splitk_reduce", 0)
         kernels += entries
         for k in [step_forward] + entries[1:]:
             lib = "-" if k["library_ms"] is None else \
@@ -3625,7 +4432,12 @@ def main():
                   f"{k['ms']:.4f} ms{red}, bound {k['bound_ms']:.4f} ms "
                   f"({k['bound_by']}), library {lib}, plain "
                   f"{k['plain_ms']:.4f} ms; {k['launches']} launches on the "
-                  f"{k['path']} path")
+                  f"{k['path']} path"
+                  + ("" if "resume_launches" not in k else
+                     f", {k['resume_launches']} in [resume]'s arms A-C"
+                     + ("" if "resume_reduce_launches" not in k else
+                        f" (and {k['resume_reduce_launches']} reduce "
+                        f"passes)")))
     print(f"[summary] forward: times summed over the {len(shapes)} "
           f"launches of one batch-{BATCH} forward, launches from the served "
           f"run ({len(buckets)} batches; fp32: one batch-{BATCH} run); the "

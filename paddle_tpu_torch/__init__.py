@@ -41,6 +41,7 @@ from .core import (
 from . import ops  # noqa: F401  (registers every op implementation)
 from . import flags, initializer, layer_helper, layers, models, nets
 from . import optimizer, regularizer, clip, backward, data_feeder
+from . import lr_decay, framework
 from . import reader, trainer
 from . import io
 from .io import (save_params, load_params, save_persistables,  # noqa: F401
@@ -65,5 +66,6 @@ __all__ = [
     "load_numpy_state", "faults", "reader", "trainer", "io",
     "save_params", "load_params", "save_persistables", "load_persistables",
     "save_inference_model", "load_inference_model", "export_model",
-    "export_compiled_model", "load_compiled_model",
+    "export_compiled_model", "load_compiled_model", "lr_decay",
+    "framework",
 ]

@@ -89,9 +89,10 @@ def make_ctr_decoder(vocab):
 # ---------------------------------------------------------------------------
 # the workload
 # ---------------------------------------------------------------------------
-def build_wide_deep(cfg, place=None):
+def build_wide_deep(cfg, place=None, update_equation=None):
     """(trainer, feed_list) of the wide_deep workload in the default
-    programs: square error on the sigmoid prediction, plain SGD(0.05)."""
+    programs: square error on the sigmoid prediction, plain SGD(0.05)
+    unless ``update_equation`` names another optimizer."""
     from .. import layers, models, optimizer, trainer
     sparse = [layers.data("s%d" % i, shape=[1], dtype="int64")
               for i in range(NF_SPARSE)]
@@ -100,8 +101,8 @@ def build_wide_deep(cfg, place=None):
     pred = models.wide_deep(sparse, dense, [cfg["vocab"]] * NF_SPARSE,
                             emb_dim=cfg["emb"], deep_hidden=(32, 16))
     cost = layers.mean(layers.square_error_cost(pred, label))
-    sgd = trainer.SGD(cost, update_equation=optimizer.SGD(
-        learning_rate=0.05), place=place)
+    sgd = trainer.SGD(cost, update_equation=update_equation
+                      or optimizer.SGD(learning_rate=0.05), place=place)
     return sgd, sparse + [dense, label]
 
 

@@ -71,7 +71,8 @@ NOT_PORTED = {
     "ctr": "ROADMAP Queue A item 8 (sparse/)",
     "decode": "ROADMAP Queue A item 8 (serving's decode.py)",
     "pserver": "ROADMAP Queue A item 8 (sparse/ pserver and client)",
-    "checkpoint": "ROADMAP Queue A item 5 (distributed/checkpoint.py)",
+    "checkpoint": "ROADMAP Queue A item 8 (benchmark/checkpoint.py's "
+                  "A/B commits the sparse tables' dirty rows)",
 }
 
 

@@ -28,8 +28,13 @@ as ``name@LEN`` integer companions (fed, or set by ops through
 same interpreter (``ProgramModule``), the form ``torch.export`` traces
 (``export_model.py``).
 
-Not ported yet: ``Executor.compile``, the disk cache, observability,
-validation and retry.
+Dispatch retries: ``Executor(retry_policy=faults.RetryPolicy(...))``
+retries a run's dispatch after a retryable failure (``faults.classify``)
+that came before any of its steps ran; the ``executor.dispatch`` fault
+site fires there (``testing/faultinject.py``).
+
+Not ported yet: ``Executor.compile``, the disk cache, observability and
+validation.
 """
 from __future__ import annotations
 
@@ -41,7 +46,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import faults as _faults
 from ..flags import get_flag
+from ..testing import faultinject as _fi
 from . import compile_cache
 from .program import Block, Operator, Program, Variable, grad_var_name
 from .registry import get_op_impl
@@ -712,7 +719,9 @@ class Executor:
     fp32 gradients the optimizer ops apply (``_run_backward``).
     ``conv1x1_pallas``: per-executor override of the 1x1-conv kernel
     routing (None defers to the flag; a per-op ``use_pallas`` attr
-    overrides both).
+    overrides both).  ``retry_policy``: a ``faults.RetryPolicy`` for
+    the dispatch of each ``run``/``run_steps`` (``dispatch_retries``
+    counts the retries taken).
 
     Each captured step keeps a private memory pool about one step's
     activations in size.  At most ``MAX_CACHED_STEPS`` captured steps are
@@ -729,12 +738,14 @@ class Executor:
 
     def __init__(self, place: Optional[Place] = None, amp: bool = False,
                  conv1x1_pallas: Optional[bool] = None,
-                 use_jit: bool = True):
+                 use_jit: bool = True, retry_policy=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.amp = amp
         self.conv1x1_pallas = conv1x1_pallas
         self.use_jit = use_jit
+        self.retry_policy = retry_policy
+        self.dispatch_retries = 0
         self._step = 0
         self._lock = threading.RLock()
         max_bytes = None
@@ -852,8 +863,8 @@ class Executor:
         with self._lock:
             feeds = {k: self._feed_tensor(gb, k, v)
                      for k, v in (feed or {}).items()}
-            fetches, = self._steps(program, [feeds], fetch_names, scope,
-                                   is_test)
+            fetches, = self._dispatch(lambda: self._steps(
+                program, [feeds], fetch_names, scope, is_test))
         return _out(fetches, return_numpy)
 
     def run_steps(self, num_steps: int,
@@ -896,8 +907,8 @@ class Executor:
             per_step = [{k: v[i] for k, v in feeds.items()}
                         if feeds_stacked else feeds
                         for i in range(num_steps)]
-            steps = self._steps(program, per_step, fetch_names, scope,
-                                is_test)
+            steps = self._dispatch(lambda: self._steps(
+                program, per_step, fetch_names, scope, is_test))
         fetches = []
         for j in range(len(fetch_names)):
             vals = [s[j] for s in steps]
@@ -906,6 +917,38 @@ class Executor:
         return _out(fetches, return_numpy)
 
     # -- dispatch -------------------------------------------------------------
+    def _dispatch(self, fn):
+        """One dispatch through the fault rim: a direct call with no
+        retry policy and fault injection off; else the
+        ``executor.dispatch`` site fires first, and a retryable failure
+        backs off and retries per the policy, unless a step of the
+        dispatch already ran (its state is written: running it again
+        would apply it twice)."""
+        policy = self.retry_policy
+        if policy is None and not _fi.ENABLED:
+            return fn()
+
+        def attempt():
+            if _fi.ENABLED:
+                action = _fi.check("executor.dispatch")
+                if action is not None:
+                    _fi.raise_for(action, "executor.dispatch")
+            return fn()
+
+        if policy is None:
+            return attempt()
+        step0 = self._step
+
+        def cls(e):
+            kind = _faults.classify(e)
+            return "fatal" if self._step != step0 else kind
+
+        def on_retry(i, e, d):
+            self.dispatch_retries += 1
+
+        return _faults.retry_call(attempt, policy, what="dispatch",
+                                  classify_fn=cls, on_retry=on_retry)
+
     def _steps(self, program: Program, per_step: List[Dict[str, object]],
                fetch_names: List[str], scope: Scope,
                is_test: bool) -> List[List[Optional[torch.Tensor]]]:

@@ -63,6 +63,37 @@ class Variable:
 
     __str__ = __repr__
 
+    # arithmetic sugar (``paddle_tpu/core/program.py:98-128``): ops
+    # appended through layers.elementwise_binary_dispatch
+    def _binary(self, other, op, reverse=False):
+        from .. import layers
+        a, b = (other, self) if reverse else (self, other)
+        return layers.elementwise_binary_dispatch(op, a, b)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    def __radd__(self, other):
+        return self._binary(other, "elementwise_add", True)
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    def __rmul__(self, other):
+        return self._binary(other, "elementwise_mul", True)
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elementwise_div", True)
+
     def to_dict(self):
         return {
             "name": self.name,

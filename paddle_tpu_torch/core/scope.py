@@ -8,7 +8,7 @@ card) points the scope at its static state buffers, which each replay
 updates in place, as the JAX executor donates its state buffers.
 
 ``uid`` names the scope for the executor's memo of state keys, and
-``keys_version`` advances whenever a new name is added.
+``keys_version`` advances whenever a name is added or dropped.
 """
 from __future__ import annotations
 
@@ -20,8 +20,11 @@ import torch
 
 
 def to_numpy(value) -> np.ndarray:
-    """Host copy of a tensor (bfloat16 widens to float32: numpy has no
-    bfloat16)."""
+    """A tensor's values as a numpy array (bfloat16 widens to float32:
+    numpy has no bfloat16).  A copy for a tensor on a card, or a widened
+    bfloat16 one; for any other tensor on the CPU, a view of the
+    tensor's own memory, which a later in-place write changes.  Copy it
+    to keep a snapshot (the checkpoint writer copies explicitly)."""
     if isinstance(value, torch.Tensor):
         t = value.detach()
         if t.dtype == torch.bfloat16:
@@ -49,6 +52,11 @@ class Scope:
 
     def has(self, name: str) -> bool:
         return name in self._vars
+
+    def delete(self, name: str):
+        """Drop ``name`` if the scope holds it."""
+        if self._vars.pop(name, None) is not None:
+            self.keys_version += 1
 
     def keys(self):
         return list(self._vars)

@@ -1,5 +1,6 @@
-"""Control-flow layer functions (counterpart of ``increment`` and
-``StaticRNN`` in ``paddle_tpu/layers/control_flow.py``; ``While``,
+"""Control-flow layer functions (counterpart of ``increment``,
+``less_than`` and ``StaticRNN`` in
+``paddle_tpu/layers/control_flow.py``; ``While``,
 ``DynamicRNN`` and the conditionals come with the slices that use
 them)."""
 from __future__ import annotations
@@ -9,7 +10,7 @@ import contextlib
 from ..core import unique_name
 from ..layer_helper import LayerHelper
 
-__all__ = ["increment", "StaticRNN"]
+__all__ = ["increment", "less_than", "StaticRNN"]
 
 
 def increment(x, value=1.0, in_place=True):
@@ -21,6 +22,16 @@ def increment(x, value=1.0, in_place=True):
     helper.append_op(type="increment", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"step": float(value)})
     return out
+
+
+def less_than(x, y, cond=None):
+    """x < y elementwise, a bool var."""
+    helper = LayerHelper("less_than")
+    if cond is None:
+        cond = helper.create_variable_for_type_inference("bool")
+    helper.append_op(type="less_than", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [cond]})
+    return cond
 
 
 class StaticRNN:

@@ -3,7 +3,8 @@
 with the same attrs as its JAX twin, so both packages build the same
 program.  Only the layers the ResNet serving and training paths, the
 gradient clips, the attention slice, the seq2seq slice and the model
-zoo (``models/``, ``nets``) use are ported."""
+zoo (``models/``, ``nets``) and the learning-rate schedules
+(``lr_decay.py``) use are ported."""
 from __future__ import annotations
 
 from ..initializer import ConstantInitializer
@@ -17,7 +18,8 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
            "dropout", "square_error_cost", "flash_attention", "embedding",
            "dynamic_gru", "gru_unit", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "reshape", "squeeze", "unsqueeze", "concat",
-           "lrn", "dynamic_lstm", "sequence_conv", "split"]
+           "lrn", "dynamic_lstm", "sequence_conv", "split", "cast",
+           "autoincreased_step_counter"]
 
 
 def _pair(v):
@@ -567,6 +569,34 @@ def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, name=None):
                      outputs={"Out": [out], "MidOut": [mid]},
                      attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
     return out
+
+
+def cast(x, dtype):
+    from ..core.types import convert_dtype
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(
+        convert_dtype(dtype), x.shape, lod_level=x.lod_level)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"out_dtype": convert_dtype(dtype)})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 counter (``@STEP_COUNTER@`` by default),
+    initialized to ``begin - step`` and advanced by ``step`` by an
+    ``increment`` op at each run of the program; a second call returns
+    the same counter."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER@"
+    gb = helper.main_program.global_block()
+    if name in gb.vars:
+        return gb.vars[name]
+    counter = helper.create_global_variable([1], "int64", name=name)
+    helper.set_variable_initializer(
+        counter, ConstantInitializer(begin - step))
+    helper.append_op(type="increment", inputs={"X": [counter]},
+                     outputs={"Out": [counter]}, attrs={"step": float(step)})
+    return counter
 
 
 def square_error_cost(input, label, name=None):

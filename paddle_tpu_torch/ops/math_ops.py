@@ -1,12 +1,14 @@
 """Math ops of the ported paths (counterpart of the elementwise family,
 ``mul``, ``matmul``, ``mean``, ``scale``, ``increment``, ``sum``,
-``sign``, ``clip``, ``clip_by_norm`` in ``paddle_tpu/ops/math_ops.py``
-and ``squared_l2_norm`` in ``paddle_tpu/ops/loss_ops.py``)."""
+``sign``, ``clip``, ``clip_by_norm``, ``cast``, ``pow`` and
+``less_than`` in ``paddle_tpu/ops/math_ops.py`` and ``squared_l2_norm``
+in ``paddle_tpu/ops/loss_ops.py``)."""
 from __future__ import annotations
 
 import torch
 
 from ..core.registry import register_op
+from ..core.types import to_torch_dtype
 
 
 def _bcast(x, y, axis: int):
@@ -116,6 +118,24 @@ def _increment(ctx, ins, attrs):
 @register_op("sign")
 def _sign(ctx, ins, attrs):
     return {"Out": torch.sign(ins["X"][0])}
+
+
+@register_op("cast")
+def _cast(ctx, ins, attrs):
+    dt = to_torch_dtype(attrs.get("out_dtype", attrs.get("dtype",
+                                                          "float32")))
+    return {"Out": ins["X"][0].to(dt)}
+
+
+@register_op("pow")
+def _pow(ctx, ins, attrs):
+    return {"Out": torch.pow(ins["X"][0], attrs.get("factor", 1.0))}
+
+
+@register_op("less_than")
+def _less_than(ctx, ins, attrs):
+    x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+    return {"Out": torch.lt(x, y)}
 
 
 @register_op("clip")

@@ -7,26 +7,31 @@ and steps the training loop, firing :class:`events` around each pass and
 batch: per batch through ``Executor.run``, in stacked runs of
 ``steps_per_dispatch`` through ``Executor.run_steps``, or, with
 ``pipeline=``, through ``Executor.run_pipelined`` (decode on reader
-workers, staging on its own thread).
+workers, staging on its own thread).  With ``checkpoint_dir`` the loop
+checkpoints, handles preemption and resumes bit-identically
+(``train_state.py``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item that brings them: checkpoints and resume, the elastic
-master and ``infer`` (Queue A item 5), ``warmup`` (``Executor.compile``,
-item 6), ``auto_shard`` (item 7), ``sparse_tables`` (item 8),
-``validate`` and ``autotune`` (item 9).
+ROADMAP item that brings them: ``warmup`` (``Executor.compile``, item
+6), ``auto_shard`` (item 7), ``master``, ``elastic`` and
+``sparse_tables`` (item 8), ``validate`` and ``autotune`` (item 9).
 """
 from __future__ import annotations
 
+import os
+import signal as _signal
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 
 from . import optimizer as optimizer_mod
 from .core.executor import Executor, _feed_signature, stack_feeds
-from .core.program import Variable, default_startup_program
+from .core.program import Program, Variable, default_startup_program
+from .core.scope import global_scope
 from .data_feeder import DataFeeder
+from .testing import faultinject as _fi
 
-__all__ = ["events", "SGD"]
+__all__ = ["events", "SGD", "infer"]
 
 
 class events:
@@ -61,11 +66,8 @@ _NOT_PORTED = {
     "validate": "item 9 (analysis)",
     "autotune": "item 9 (tuning)",
     "auto_shard": "item 7 (multi-GPU)",
-    "checkpoint_dir": "item 5 (the training runtime)",
-    "resume": "item 5 (the training runtime)",
-    "save_every_n_steps": "item 5 (the training runtime)",
-    "master": "item 5 (the training runtime)",
-    "elastic": "item 5 (the training runtime)",
+    "master": "item 8 (the task-queue master)",
+    "elastic": "item 8 (the elastic service)",
     "sparse_tables": "item 8 (sparse tables)",
 }
 
@@ -90,6 +92,8 @@ class SGD:
         self.optimizer.minimize(cost)
         self.exe = Executor(place)
         self._initialized = False
+        # the last train(checkpoint_dir=...) call's Checkpointer
+        self.checkpointer = None
 
     # -- training ----------------------------------------------------------
     def train(self, reader: Callable, num_passes: int = 1,
@@ -118,12 +122,27 @@ class SGD:
         thread), ``buffer_size`` (decoded batches queued, default 4) and
         ``prefetch_depth`` (staged dispatches in flight, default 2).  The
         step math is the per-batch loop's; only the events' timing
-        changes.  ``handle_signals`` belongs to checkpoints and is
-        ignored without them."""
+        changes.
+
+        ``checkpoint_dir`` turns on the training runtime
+        (``train_state.py``): every ``save_every_n_steps`` completed
+        batches the scope and the loop's ``TrainState`` (the pass, batch
+        and step counters; the step counter places the random streams)
+        commit atomically; a SIGTERM or SIGINT finishes the dispatch in
+        flight, commits an emergency checkpoint and raises
+        ``faults.Preempted`` (exit 75), so a supervisor
+        (``distributed/supervisor.py``) relaunches the run.
+        ``resume=True`` restores the newest intact checkpoint and goes
+        on: with a deterministic, restartable ``reader`` and an
+        order-keeping pipeline (``num_workers <= 1``) the resumed run's
+        fetches equal an uninterrupted run's bit for bit; an empty
+        directory starts fresh.  Saves happen at dispatch boundaries
+        only, so with chunked dispatch the cadence rounds up to the
+        chunk.  ``handle_signals=False`` installs no signal
+        handlers."""
+        event_handler = event_handler or (lambda e: None)
         given = {"warmup": warmup, "validate": validate,
                  "autotune": autotune, "auto_shard": auto_shard,
-                 "checkpoint_dir": checkpoint_dir, "resume": resume,
-                 "save_every_n_steps": save_every_n_steps,
                  "master": master, "elastic": elastic,
                  "sparse_tables": sparse_tables}
         for name, value in given.items():
@@ -131,16 +150,109 @@ class SGD:
                 raise NotImplementedError(
                     f"trainer.SGD.train({name}=...) is not ported yet: "
                     f"ROADMAP.md Queue A {_NOT_PORTED[name]}")
-        if not self._initialized:
-            self.exe.run(default_startup_program(), feed={}, fetch_list=[])
-            self._initialized = True
+        if not checkpoint_dir:
+            # an operator who asked for checkpoints must never run
+            # silently unprotected
+            if resume:
+                raise ValueError("train(resume=True) requires "
+                                 "checkpoint_dir")
+            if save_every_n_steps is not None:
+                raise ValueError("train(save_every_n_steps=...) requires "
+                                 "checkpoint_dir")
+        ckpt = None
+        try:
+            if not self._initialized:
+                self.exe.run(default_startup_program(), feed={},
+                             fetch_list=[])
+                self._initialized = True
+            start_pass, resume_skip = 0, 0
+            if checkpoint_dir:
+                from .train_state import Checkpointer
+                opt_fp = {"type": type(self.optimizer).__name__}
+                lr = getattr(self.optimizer, "_learning_rate", None)
+                if isinstance(lr, (int, float)):
+                    opt_fp["learning_rate"] = float(lr)
+                ckpt = Checkpointer(checkpoint_dir, self.exe,
+                                    save_every_n_steps=save_every_n_steps,
+                                    handle_signals=handle_signals)
+                ts = None
+                if resume:
+                    ts = ckpt.restore(
+                        global_scope(),
+                        expect_seed=self.main_program.random_seed,
+                        expect_optimizer=opt_fp)
+                if ts is not None:
+                    # the step counter places every random op's stream
+                    self.exe._step = ts.exe_step
+                    start_pass, resume_skip = ts.pass_id, ts.batch_id
+                ckpt.begin(global_scope(), ts,
+                           self.main_program.random_seed, opt_fp)
+            self.checkpointer = ckpt
+            self._loop(reader, num_passes, event_handler, feeding,
+                       feed_list, steps_per_dispatch, pipeline, ckpt,
+                       start_pass, resume_skip)
+            if ckpt is not None:
+                ckpt.final_save(num_passes)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
+
+    def _loop(self, reader, num_passes, event_handler, feeding, feed_list,
+              steps_per_dispatch, pipeline, ckpt, start_pass, resume_skip):
         fetch = [self.cost] + self.extra
+        # the global batch cursor (across passes and restarts): the index
+        # of the trainer.step and reader.item fault sites, so a resumed
+        # run never fires an entry it already passed
+        gcount = [ckpt.emitted if ckpt is not None else 0]
 
         def emit_end(pass_id, batch_id, out):
+            # the step counter before the handler runs: a handler that
+            # runs executor work (trainer.test) must not blur this
+            # batch's boundary
+            step_now = self.exe._step
             metrics = {getattr(v, "name", str(i)): out[1 + i]
                        for i, v in enumerate(self.extra)}
             event_handler(events.EndIteration(pass_id, batch_id,
                                               float(out[0]), metrics))
+            gcount[0] += 1
+            if _fi.ENABLED:
+                action = _fi.check("trainer.step", index=gcount[0])
+                if action == "preempt":
+                    if ckpt is None:
+                        raise _fi.InjectedFault(
+                            "trainer.step=preempt injected but train() "
+                            "has no checkpoint_dir")
+                    ckpt.request_preempt()
+                elif action == "sigterm":
+                    os.kill(os.getpid(), _signal.SIGTERM)
+                elif action == "kill":
+                    os.kill(os.getpid(), _signal.SIGKILL)
+                elif action is not None:
+                    _fi.raise_for(action, "trainer.step", gcount[0])
+            if ckpt is not None:
+                ckpt.on_batch_done(pass_id, batch_id, step_now)
+
+        # the reader of a pass: the resumed pass skips the batches done,
+        # and the reader.item site fires per batch; the plain reader when
+        # neither applies
+        rcount = [gcount[0]]
+
+        def pass_reader(pass_id):
+            skip = resume_skip if pass_id == start_pass else 0
+            if skip == 0 and not _fi.ENABLED:
+                return reader, 0
+
+            def _r():
+                for i, b in enumerate(reader()):
+                    if i < skip:
+                        continue
+                    rcount[0] += 1
+                    if _fi.ENABLED:
+                        a = _fi.check("reader.item", index=rcount[0])
+                        if a is not None:
+                            _fi.raise_for(a, "reader.item", rcount[0])
+                    yield b
+            return _r, skip
 
         if pipeline:
             opts = dict(pipeline) if isinstance(pipeline, dict) else {}
@@ -152,17 +264,19 @@ class SGD:
             # shipped: K pending plus the in-flight slack
             feeder = self._feeder(feeding, feed_list, staging_slots=K + 2)
             from .reader.pipeline import prefetch
-            for pass_id in range(num_passes):
+            for pass_id in range(start_pass, num_passes):
                 event_handler(events.BeginPass(pass_id))
-                src = prefetch(reader, buffer_size=buf,
-                               num_workers=workers) if workers > 0 \
-                    else reader
+                if ckpt is not None:
+                    ckpt.resync()
+                r, skip = pass_reader(pass_id)
+                src = prefetch(r, buffer_size=buf,
+                               num_workers=workers) if workers > 0 else r
                 feed_iter = (feeder.feed(b) for b in src())
                 gen = self.exe.run_pipelined(
                     feed_iter, self.main_program, fetch_list=fetch,
                     steps_per_dispatch=K, prefetch_depth=depth)
                 try:
-                    for batch_id, out in enumerate(gen):
+                    for batch_id, out in enumerate(gen, start=skip):
                         event_handler(events.BeginIteration(pass_id,
                                                             batch_id))
                         emit_end(pass_id, batch_id, out)
@@ -191,10 +305,13 @@ class SGD:
                 event_handler(events.BeginIteration(pass_id, first_id + i))
                 emit_end(pass_id, first_id + i, [o[i] for o in outs])
 
-        for pass_id in range(num_passes):
+        for pass_id in range(start_pass, num_passes):
             event_handler(events.BeginPass(pass_id))
+            if ckpt is not None:
+                ckpt.resync()
+            r, skip = pass_reader(pass_id)
             if steps_per_dispatch <= 1:
-                for batch_id, batch in enumerate(reader()):
+                for batch_id, batch in enumerate(r(), start=skip):
                     event_handler(events.BeginIteration(pass_id, batch_id))
                     out = self.exe.run(self.main_program,
                                        feed=feeder.feed(batch),
@@ -203,7 +320,7 @@ class SGD:
                 event_handler(events.EndPass(pass_id))
                 continue
             chunk, first_id, sig = [], 0, None
-            for batch_id, batch in enumerate(reader()):
+            for batch_id, batch in enumerate(r(), start=skip):
                 feed = feeder.feed(batch)
                 fsig = _feed_signature(feed)
                 if chunk and fsig != sig:
@@ -256,3 +373,37 @@ class SGD:
                 feed_list = [v for v in gb.vars.values()
                              if v.is_data and not v.session_feed]
         return DataFeeder(feed_list, staging_slots=staging_slots)
+
+    def save_parameter_to_tar(self, f=None, dirname=None):
+        """Save the parameters (``io.save_params``) into ``dirname`` (or
+        ``f``, a directory path)."""
+        from . import io
+        io.save_params(self.exe, dirname or f, self.main_program)
+
+
+def infer(output_layer, parameters=None, input=None, feeding=None,
+          feed_list=None, executor=None, program: Optional[Program] = None):
+    """v2 ``paddle.infer``: run the pruned inference slice on one batch
+    (a list of rows); ``executor`` defaults to ``Executor()`` (the
+    card)."""
+    outputs = output_layer if isinstance(output_layer, (list, tuple)) \
+        else [output_layer]
+    program = program or outputs[0].block.program
+    infer_prog = program.prune(outputs).clone(for_test=True)
+    exe = executor or Executor()
+    gb = program.global_block()
+    if feed_list is None:
+        if feeding is not None:
+            order = sorted(feeding, key=lambda k: feeding[k])
+            feed_list = [gb.var(n) for n in order]
+        else:
+            feed_list = [v for v in gb.vars.values()
+                         if v.is_data and not v.session_feed]
+    # only the feeds the pruned program reads
+    needed = set()
+    for op in infer_prog.global_block().ops:
+        needed.update(op.input_names)
+    feed_list = [v for v in feed_list if v.name in needed]
+    res = exe.run(infer_prog, feed=DataFeeder(feed_list).feed(input),
+                  fetch_list=outputs, is_test=True)
+    return res if len(res) > 1 else res[0]

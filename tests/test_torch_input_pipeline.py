@@ -354,10 +354,31 @@ def test_sgd_test_matches_jax_and_leaves_weights():
 
 @pytest.mark.parametrize("arg,value", [
     ("warmup", True), ("validate", True), ("autotune", True),
-    ("auto_shard", {"dp": 2}), ("checkpoint_dir", "/nonexistent"),
-    ("resume", True), ("save_every_n_steps", 5), ("master", object()),
+    ("auto_shard", {"dp": 2}), ("master", object()),
     ("elastic", object()), ("sparse_tables", object())])
 def test_train_refuses_what_is_not_ported(arg, value):
     _, (tsgd, tfl), reader = _both_trainers()
     with pytest.raises(NotImplementedError, match="Queue A item"):
         tsgd.train(reader, feed_list=tfl, **{arg: value})
+
+
+@pytest.mark.parametrize("arg", ["checkpoint_dir", "resume",
+                                 "save_every_n_steps"])
+def test_train_takes_the_checkpoint_options(arg, tmp_path):
+    """The options the training runtime brought: each trains the pass
+    and commits its final checkpoint; without ``checkpoint_dir``,
+    ``resume`` and ``save_every_n_steps`` are refused."""
+    _, (tsgd, tfl), reader = _both_trainers()
+    kw = {"checkpoint_dir": str(tmp_path), "resume": True,
+          "save_every_n_steps": 2}
+    if arg != "checkpoint_dir":
+        with pytest.raises(ValueError, match="checkpoint_dir"):
+            tsgd.train(reader, feed_list=tfl, **{arg: kw[arg]})
+    kw = {"checkpoint_dir": str(tmp_path), arg: kw[arg]}
+    costs = []
+    tsgd.train(reader, feed_list=tfl, event_handler=lambda e: costs.append(
+        e.cost) if isinstance(e, ptt.trainer.events.EndIteration) else None,
+        **kw)
+    from paddle_tpu_torch.distributed import CheckpointManager
+    assert costs and CheckpointManager(str(tmp_path)).latest_step() == \
+        len(costs)
