@@ -150,7 +150,29 @@ Phases, each of which raises on failure (so the script exits non-zero):
              plain version with K2, K3 and K4 launched once each, and head
              size 144 refused; K1's fp32 forward timed at the artifact's
              shapes beside torch.matmul and the bound.
-13. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
+13. sparse — the sparse parameter-server tier on benchmark/ctr.py's CTR
+             model at its FULL sizes (batch 512, dim 16, vocab 2,000,000
+             + 100,000, 13 dense features, hidden 64, Adagrad 0.05, Zipf
+             1.2), the tables on the host: A, the runner's sparse arm
+             (3 warm-up and 3 x 10 captured steps: examples/s, pull
+             p50/p99, push rows/s, live rows, host MB, device busy and
+             idle share, captures); B, the dense control on the same
+             feeds (examples/s, peak memory, the A/B ratio beside the JAX
+             runner's CPU one); C, 6 steps captured against use_jit=False
+             bit for bit, and against B with the tables seeded from B's
+             weights within 1e-6 of the largest entry (losses, rows,
+             moments, the first rows gradients, one Adagrad update on the
+             host's torch against the card's); D, trainer.SGD.train with
+             checkpoints every 2 steps preempted after step 5 and
+             resumed in a fresh executor and scope, bit-equal to an
+             uninterrupted run; E, the tables on two ``python -m
+             paddle_tpu_torch pserver`` shards through RemoteSparseTable,
+             bit-equal to in-process, no CUDA context in a shard, a
+             checkpoint into ``--dir`` and exit 75 on SIGTERM, two
+             relaunched shards restoring bit-equal from it; F, A at a
+             vocab of 10^9 beside the card's memory; no hand-written
+             kernel may launch.
+14. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
              counterpart): holds the Triton grid copy and axpy kernels
              and the bulk-copy (TMA) DMA copy against their plain
              versions at each of the probe's four sizes and at two
@@ -190,6 +212,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -1049,18 +1072,32 @@ ATT_KERNELS = ("flash_attn", ("flash_fwd_", "flash_bwd_dq_",
                               "flash_bwd_dkv_"))
 
 
+def device_records(prof, lead=False):
+    """The device's records (kernels, copies, sets) in a profile: the
+    window's own, or (``lead``) those of its lead-in kernels."""
+    return [ev for ev in prof.events()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA")
+            and (LEAD_NAME in ev.name) == lead]
+
+
+def device_rows(prof, runs):
+    """[(ms a run, records a run, name)] of a profile's device records,
+    by name, each timed by its own start and end.  The profile's
+    averages are not used: they give a record the profiler marks async
+    no device time, and such rows were lost."""
+    agg = collections.defaultdict(lambda: [0.0, 0])
+    for ev in device_records(prof):
+        agg[ev.name][0] += ev.time_range.elapsed_us()
+        agg[ev.name][1] += 1
+    return [(us / 1e3 / runs, n // runs, name)
+            for name, (us, n) in agg.items() if us > 0]
+
+
 def print_profile(tag, what, prof, wall_ms, runs, own=CONV_KERNELS):
     """Device busy time, idle share, the share of the port's kernels
     ``own`` = (label, name fragments; None for a path without any) and
     the top kernels of a profiled window of ``runs`` repetitions."""
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0)
-        if dev > 0 and getattr(ev, "device_type", None) is not None \
-                and str(ev.device_type).endswith("CUDA"):
-            rows.append((dev / 1e3 / runs, ev.count // runs, ev.key))
+    rows = device_rows(prof, runs)
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"[{tag}] torch.profiler recorded no device time")
@@ -1124,14 +1161,23 @@ def same_scopes(tag, a, b):
     return len(a.keys())
 
 
+# The profiler drops the device records at the start of a window: the
+# first kernels, a long-context step's first flash kernel among them in
+# some processes, while a 100 ms wait before the step saved nothing.
+# Each window therefore opens with this many launches of torch's spin
+# kernel, which no step runs; their records leave the rows.
+LEAD_KERNELS = 256
+LEAD_NAME = "spin_kernel"
+
+
 def profiled(step, runs=1):
     """(profile, wall ms of the window) of ``runs`` calls of ``step()``,
-    one small kernel first (the trace has lost a window's first kernel
-    once)."""
+    after :data:`LEAD_KERNELS` launches of the spin kernel."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").add_(1)
+        for _ in range(LEAD_KERNELS):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(runs):
@@ -1189,9 +1235,17 @@ def profiled_checked(tag, what, step, runs, since, own=CONV_KERNELS,
         traced = {frag: kernel_count(rows, frag) * runs for frag in counted}
         print(f"[{tag}] profiled window of {runs} call(s), attempt "
               f"{attempt}: launches counted {counted}, in the trace "
-              f"{traced}")
+              f"{traced}; the trace kept {len(device_records(prof, True))} "
+              f"of the {LEAD_KERNELS} lead-in kernels")
         if traced == counted:
             return rows, wall_ms
+        for frag in (f for f in counted if traced[f] != counted[f]):
+            seen = [(str(ev.device_type), ev.is_async,
+                     round(ev.time_range.elapsed_us(), 3))
+                    for ev in prof.events() if frag in ev.name]
+            print(f"[{tag}] the profile's events named like {frag}: "
+                  f"(device type, async, us) {seen[:8]}; "
+                  f"{len(device_records(prof))} device records in all")
     raise RuntimeError(f"chip_smoke: [{tag}] the counted launches "
                        f"{counted} differ from the trace's {traced} in "
                        f"{attempts} profiled windows")
@@ -4064,6 +4118,593 @@ def phase_inference(seed, card):
 
 
 # ---------------------------------------------------------------------------
+# [sparse] the sparse parameter-server tier on benchmark/ctr.py's CTR model
+# ---------------------------------------------------------------------------
+# the JAX runner's sparse / dense ratio on a CPU (benchmark/ctr_results.json,
+# "sparse_vs_dense_speedup"); a CPU number, printed beside the card's
+JAX_CPU_RATIO = 26.435
+SPARSE_PARITY_STEPS = 6      # arm C
+SPARSE_PARITY_TOL = 1e-6     # of the largest entry, card dense vs host sparse
+SPARSE_RESUME_STEPS = 8      # arm D: batches of the run
+SPARSE_PREEMPT_AT = 5        # arm D: preempted after this batch
+SPARSE_SAVE_EVERY = 2
+SPARSE_REMOTE_STEPS = 10     # arm E
+SPARSE_GIANT_VOCAB = 10 ** 9  # arm F
+SPARSE_GIANT_STEPS = 10
+ADAGRAD_ROW_ARRAYS = 3       # a dense Adagrad row on the card: weight,
+                             # moment and gradient
+
+
+def kernel_counts():
+    """Every hand-written kernel's launch counters (K1-K5)."""
+    from paddle_tpu_torch.benchmark import bandwidth as bw
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return {"conv1x1_mm": dict(conv1x1.mm.by_form),
+            "flash_attn": dict(fa.launches), "stream": dict(bw.launches)}
+
+
+def sparse_arm_a(ctr, cfg, card):
+    """Arm A: the runner's sparse arm (3 warm-up steps, 3 x 10 timed),
+    captured; then a profiled window of 5 steps for device busy."""
+    import paddle_tpu_torch as ptt
+    steps = cfg["warmup_steps"] + cfg["windows"] * cfg["window_steps"]
+    feeds = list(ctr.feed_stream(cfg, steps + 5))
+    capture_stats().reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    row, sess, exe, loss = ctr.run_sparse_arm(
+        cfg, ptt.CUDAPlace(0), quiet=True, feeds=feeds[:steps])
+    snap = capture_stats().snapshot()
+    check_captured("[sparse] A", snap)
+    peak = torch.cuda.max_memory_allocated() - base
+    main = ptt.default_main_program()
+    it = iter(feeds[steps:])
+    stats0 = dict(sess.stats)
+    prof, wall_ms = profiled(
+        lambda: float(sess.run(exe, main, next(it), [loss])[0]), runs=5)
+    rows = print_profile("sparse", "A: a profiled 5-step window of the "
+                         "sparse arm", prof, wall_ms, 5, own=None)
+    busy = sum(r[0] for r in rows)
+    step_ms = cfg["batch"] / row["examples_per_sec"] * 1e3
+    d = {k: (sess.stats[k] - stats0[k]) / 5
+         for k in ("pull_ms", "push_ms")}
+    print(f"[sparse] A, the sparse arm (vocab {cfg['vocab_big']} + "
+          f"{cfg['vocab_small']}, dim {cfg['emb_dim']}, batch "
+          f"{cfg['batch']}, Adagrad on the host, bucket pinned to the "
+          f"batch): {row['examples_per_sec']:.1f} examples/s (windows "
+          f"{[round(x, 1) for x in row['examples_per_sec_windows']]}), "
+          f"{step_ms:.3f} ms a step; pull p50 "
+          f"{row['lookup_latency_ms']['p50']:.3f} / p99 "
+          f"{row['lookup_latency_ms']['p99']:.3f} ms (warm window p50 "
+          f"{row['lookup_latency_warm_ms']['p50']:.3f} / p99 "
+          f"{row['lookup_latency_warm_ms']['p99']:.3f}); push "
+          f"{row['push_rows_per_sec']:.1f} rows/s ({row['pushed_rows']} "
+          f"rows); live rows {row['live_rows']}; host tables "
+          f"{row['host_table_mb']:.3f} MB; {card}")
+    print(f"[sparse] A: device busy {busy:.3f} ms a step against "
+          f"{step_ms:.3f} ms of wall, idle share "
+          f"{1 - busy / step_ms:.3f} (the profiled window's: wall "
+          f"{wall_ms / 5:.3f} ms, pull {d['pull_ms']:.3f} ms, push "
+          f"{d['push_ms']:.3f} ms a step); captured steps {snap}: "
+          f"{snap['captures']} capture key(s); peak allocated above the "
+          f"arm's start {peak / 2 ** 20:.1f} MiB, graph pools "
+          f"{graph_pool_bytes(exe) / 2 ** 20:.1f} MiB; {card}")
+    exe.close()
+    return row, feeds[:steps], busy, step_ms
+
+
+def sparse_arm_b(ctr, cfg, card, feeds, a_row):
+    """Arm B: the dense control on A's feeds, captured."""
+    import paddle_tpu_torch as ptt
+    capture_stats().reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    row, exe, loss = ctr.run_dense_control(cfg, ptt.CUDAPlace(0),
+                                           quiet=True, feeds=feeds)
+    snap = capture_stats().snapshot()
+    check_captured("[sparse] B", snap)
+    peak = torch.cuda.max_memory_allocated() - base
+    main = ptt.default_main_program()
+    prof, wall_ms = profiled(lambda: float(exe.run(
+        main, feed=feeds[-1], fetch_list=[loss])[0]), runs=5)
+    rows = print_profile("sparse", "B: a profiled 5-step window of the "
+                         "dense control", prof, wall_ms, 5, own=None)
+    busy = sum(r[0] for r in rows)
+    step_ms = cfg["batch"] / row["examples_per_sec"] * 1e3
+    ratio = a_row["examples_per_sec"] / row["examples_per_sec"]
+    dense_mb = (cfg["vocab_big"] + cfg["vocab_small"]) * cfg["emb_dim"] \
+        * 4 / 2 ** 20
+    print(f"[sparse] B, the dense control (both tables on the card, "
+          f"{dense_mb:.1f} MB of weights): {row['examples_per_sec']:.1f} "
+          f"examples/s (windows "
+          f"{[round(x, 1) for x in row['examples_per_sec_windows']]}), "
+          f"{step_ms:.3f} ms a step, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / step_ms:.3f}; peak allocated above the arm's "
+          f"start {peak / 2 ** 20:.1f} MiB; sparse / dense {ratio:.4f} here, against the JAX "
+          f"runner's {JAX_CPU_RATIO} on a CPU (benchmark/ctr_results.json; "
+          f"its premise, a {ctr.HBM_EMBEDDING_BUDGET_MB} MB embedding "
+          f"budget, is not this card's); captured steps {snap}; {card}")
+    exe.close()
+    return row
+
+
+def ctr_steps(ctr, cfg, feeds, sparse, use_jit=True, tables=None,
+              start=None, grads=False):
+    """Train the CTR program on ``feeds`` in a scope of its own, on the
+    card: the losses, and with ``grads`` each step's rows gradient of
+    the ids the batch touched (sparse: the fetched ``@ROWS@GRAD``;
+    dense: the table gradient's rows), as host arrays.  ``start``:
+    values set into the scope after the startup program."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.sparse import SparseSession
+    loss = ctr.build_model(cfg, sparse)
+    main = ptt.default_main_program()
+    scope = ptt.Scope()
+    exe = ptt.Executor(use_jit=use_jit)
+    exe.run(ptt.default_startup_program(), scope=scope)
+    for k, v in (start or {}).items():
+        scope.set(k, v.clone())
+    sess = None
+    if sparse:
+        sess = SparseSession(tables, bucket_floor=cfg["batch"])
+        sess.bind(main)
+    names = ["ctr_big", "ctr_small"]
+    extra = [] if not grads else (
+        [f"{n}@ROWS@GRAD" for n in names] if sparse
+        else [f"{n}.w_0@GRAD" for n in names])
+    dev = ptt.CUDAPlace(0).device()
+    losses, got = [], []
+    for f in feeds:
+        feed = sess.prepare_feed(f) if sparse else f
+        fetch = [loss.name] + (sess.grad_fetch_list if sparse else []) \
+            + ([] if sparse else extra)
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        losses.append(out[0].cpu().numpy())
+        if sparse:
+            gs = [g.cpu().numpy() for g in out[1:3]]
+            sess.complete(gs)
+        if grads:
+            step = []
+            for j, n in enumerate(names):
+                uid = np.unique(f[f"ids_{n[4:]}"].reshape(-1))
+                if sparse:
+                    step.append(gs[j][:len(uid)])
+                else:
+                    step.append(out[1 + j][torch.from_numpy(uid).to(dev)]
+                                .cpu().numpy())
+            got.append(step)
+    return np.stack(losses), got, scope, exe
+
+
+def largest_share(a, b):
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def sparse_arm_c(ctr, cfg, card, feeds):
+    """Arm C: 6 steps of A captured against use_jit=False (bit for bit),
+    and against B with the tables seeded from B's initial weights
+    (within SPARSE_PARITY_TOL of the largest entry; the first step's
+    gradients and the host against the card's Adagrad name the op that
+    differs)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core.registry import get_op_impl
+    feeds = feeds[:SPARSE_PARITY_STEPS]
+    runs = {}
+    for use_jit in (True, False):
+        tables = ctr.sparse_tables(cfg)
+        losses, grads, _, exe = ctr_steps(ctr, cfg, feeds, True, use_jit,
+                                          tables, grads=True)
+        exe.close()
+        runs[use_jit] = (losses, grads, {n: t.export_state_vars()
+                                         for n, t in tables.items()})
+    (l1, g1, s1), (l2, g2, s2) = runs[True], runs[False]
+    same = l1.tobytes() == l2.tobytes() and all(
+        a.tobytes() == b.tobytes() for x, y in zip(g1, g2)
+        for a, b in zip(x, y)) and all(
+        s1[n][k].tobytes() == s2[n][k].tobytes() for n in s1 for k in s1[n])
+    print(f"[sparse] C: {SPARSE_PARITY_STEPS} steps captured vs "
+          f"use_jit=False: losses, rows gradients and host tables "
+          f"bit-equal {same}; {card}")
+    if not same:
+        raise RuntimeError("chip_smoke: [sparse] C: the captured sparse "
+                           "steps differ from use_jit=False")
+
+    # dense on the card vs sparse on the host, from B's initial weights
+    ctr.build_model(cfg, False)
+    start = ptt.Scope()
+    ptt.Executor().run(ptt.default_startup_program(), scope=start)
+    w0 = {n: start.numpy(f"{n}.w_0") for n in ("ctr_big", "ctr_small")}
+    fc = {k: start.get(k) for k in start.keys() if k.startswith("fc_")}
+    dl, dg, dscope, dexe = ctr_steps(ctr, cfg, feeds, False, start=fc,
+                                     grads=True)
+    dexe.close()
+    tables = ctr.sparse_tables(cfg, initializer={
+        n: ("dense", w) for n, w in w0.items()})
+    sl, sg, sscope, sexe = ctr_steps(ctr, cfg, feeds, True, tables=tables,
+                                     start=fc, grads=True)
+    sexe.close()
+    touched = {n: np.unique(np.concatenate(
+        [f[f"ids_{n[4:]}"].reshape(-1) for f in feeds]))
+        for n in ("ctr_big", "ctr_small")}
+    errs = {"losses": largest_share(sl, dl)}
+    bitwise = {"losses": sl.tobytes() == dl.tobytes()}
+    for n, ids in touched.items():
+        rows_d = dscope.numpy(f"{n}.w_0")[ids]
+        mom = [k for k in dscope.keys() if k.startswith(f"{n}.w_0_moment")]
+        mom_d = dscope.numpy(mom[0])[ids]
+        rows_s, mom_s = tables[n].pull(ids), tables[n].pull_slot("moment",
+                                                                 ids)
+        errs[f"{n} rows"] = largest_share(rows_s, rows_d)
+        errs[f"{n} moments"] = largest_share(mom_s, mom_d)
+        bitwise[f"{n} rows"] = rows_s.tobytes() == rows_d.tobytes()
+        bitwise[f"{n} moments"] = mom_s.tobytes() == mom_d.tobytes()
+    for k in sorted(k for k in dscope.keys() if k.startswith("fc_")):
+        errs[k] = largest_share(sscope.numpy(k), dscope.numpy(k))
+    # which op: the first step's rows gradients (the sum of duplicate
+    # ids' rows: the dense table's accumulating index_put_ against the
+    # rows feed's), then one Adagrad update of the same rows on the card
+    # and on the host's torch
+    g_same = [dg[0][j].tobytes() == sg[0][j].tobytes() for j in (0, 1)]
+    g_err = [largest_share(sg[0][j], dg[0][j]) for j in (0, 1)]
+    n = "ctr_big"
+    ids = touched[n]
+    rng = np.random.RandomState(7)
+    p = tables[n].pull(ids)
+    m = tables[n].pull_slot("moment", ids)
+    g = rng.randn(*p.shape).astype(np.float32)
+    lr = torch.tensor([ctr.LEARNING_RATE])
+    outs = {}
+    dev_card = ptt.CUDAPlace(0).device()
+    for dev in ("cpu", dev_card):
+        ins = {"Param": [torch.from_numpy(p).to(dev)],
+               "Grad": [torch.from_numpy(g).to(dev)],
+               "Moment": [torch.from_numpy(m).to(dev)],
+               "LearningRate": [lr.to(dev)]}
+        o = get_op_impl("adagrad")(None, ins, {"epsilon": 1e-6})
+        outs[dev] = {k: v.cpu().numpy() for k, v in o.items()}
+    upd_diff = {k: int((outs["cpu"][k] != outs[dev_card][k]).sum())
+                for k in outs["cpu"]}
+    m_new = torch.from_numpy(outs["cpu"]["MomentOut"])
+    sqrt_diff = int((torch.sqrt(m_new).numpy()
+                     != torch.sqrt(m_new.to(dev_card)).cpu().numpy()).sum())
+    print(f"[sparse] C: {SPARSE_PARITY_STEPS} steps of the dense control "
+          f"on the card vs the host tables seeded from its initial "
+          f"weights: bit-equal {bitwise}; largest difference over the "
+          f"largest entry {({k: f'{v:.3e}' for k, v in errs.items()})}; "
+          f"step 1's rows gradients bit-equal {g_same} (largest "
+          f"difference {[f'{e:.3e}' for e in g_err]}); one Adagrad update "
+          f"of {p.size} {n} entries on the host's torch vs the card: "
+          f"elements that differ {upd_diff}, of which the card's and the "
+          f"host's sqrt of the same moments differ in {sqrt_diff}; "
+          f"{card}")
+    bad = {k: v for k, v in errs.items() if v > SPARSE_PARITY_TOL}
+    if bad:
+        raise RuntimeError(f"chip_smoke: [sparse] C: dense and sparse "
+                           f"training differ beyond {SPARSE_PARITY_TOL} "
+                           f"of the largest entry: {bad}")
+
+
+def sparse_trainer_run(ctr, cfg, batches, ckpt=None, resume=False,
+                       preempt_at=None):
+    """trainer.SGD.train over the CTR program with its tables in a
+    SparseSession (the trainer's default bucket ladder), in fresh
+    programs, scope and executor; returns (losses, tables, scope
+    values, Checkpointer, seconds)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.faults import Preempted
+    from paddle_tpu_torch.sparse import SparseSession
+    from paddle_tpu_torch.testing import faultinject
+    loss = ctr.build_model(cfg, True, minimize=False)
+    gb = ptt.default_main_program().global_block()
+    tables = ctr.sparse_tables(cfg)
+    tr = ptt.trainer.SGD(loss, update_equation=ptt.optimizer.Adagrad(
+        learning_rate=ctr.LEARNING_RATE))
+    got = []
+
+    def handler(e):
+        if isinstance(e, ptt.trainer.events.EndIteration):
+            got.append(e.cost)
+    kw = {} if ckpt is None else dict(checkpoint_dir=ckpt, resume=resume,
+                                      save_every_n_steps=SPARSE_SAVE_EVERY)
+    if preempt_at is not None:
+        faultinject.configure(f"trainer.step@{preempt_at}=preempt")
+    t0 = time.perf_counter()
+    try:
+        tr.train(lambda: iter(batches), event_handler=handler,
+                 feed_list=[gb.var(n) for n in ("ids_big", "ids_small",
+                                                "dense", "label")],
+                 sparse_tables=SparseSession(tables),
+                 handle_signals=False, **kw)
+        preempted = False
+    except Preempted:
+        preempted = True
+    finally:
+        faultinject.clear()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if preempted != (preempt_at is not None):
+        raise RuntimeError(f"chip_smoke: [sparse] D: preempted "
+                           f"{preempted}, expected {preempt_at is not None}")
+    scope = ptt.global_scope()
+    vals = {k: scope.numpy(k) for k in scope.keys()}
+    tr.exe.close()
+    return got, tables, vals, tr.checkpointer, secs
+
+
+def sparse_arm_d(ctr, cfg, card, feeds):
+    """Arm D: trainer.SGD.train(sparse_tables=, checkpoint_dir=,
+    save_every_n_steps=2) preempted after a step by the fault site and
+    resumed in a fresh executor and scope, against an uninterrupted
+    run: losses, final rows, moments and scope bit-equal."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "sparse_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    B = cfg["batch"]
+    batches = [[(f["ids_big"][i], f["ids_small"][i], f["dense"][i],
+                 f["label"][i]) for i in range(B)]
+               for f in feeds[:SPARSE_RESUME_STEPS]]
+    capture_stats().reset()
+    full, t_full, v_full, _, s_full = sparse_trainer_run(ctr, cfg, batches)
+    keys = capture_stats().snapshot()
+    first, _, _, ck1, s1 = sparse_trainer_run(
+        ctr, cfg, batches, ckpt=root, preempt_at=SPARSE_PREEMPT_AT)
+    capture_stats().reset()
+    second, t_res, v_res, ck2, s2 = sparse_trainer_run(
+        ctr, cfg, batches, ckpt=root, resume=True)
+    snap = capture_stats().snapshot()
+    from paddle_tpu_torch.sparse.session import _next_pow2
+    buckets = sorted({tuple(_next_pow2(len(np.unique(f[k])))
+                            for k in ("ids_big", "ids_small"))
+                      for f in feeds[:SPARSE_RESUME_STEPS]})
+    same_losses = first + second == full
+    same_tables = all(
+        a[k].tobytes() == b[k].tobytes()
+        for n in t_full for a, b in ((t_full[n].export_state_vars(),
+                                      t_res[n].export_state_vars()),)
+        for k in a)
+    same_scope = sorted(v_full) == sorted(v_res) and all(
+        v_full[k].tobytes() == v_res[k].tobytes() for k in v_full)
+    commits = [(c["kind"], c["bytes"], c.get("rows"))
+               for c in ck1.manager.commits + ck2.manager.commits]
+    print(f"[sparse] D: trainer.SGD.train(sparse_tables=...) over "
+          f"{SPARSE_RESUME_STEPS} batches of {B}: uninterrupted "
+          f"{s_full:.2f} s (the session's bucket ladder from 8 gives "
+          f"{len(buckets)} capture keys, buckets {buckets}; "
+          f"{keys['warmups']} warm-ups with the startup's, "
+          f"{keys['captures']} captures, {keys['replays']} replays); "
+          f"preempted after "
+          f"batch {SPARSE_PREEMPT_AT} with saves every {SPARSE_SAVE_EVERY} "
+          f"({s1:.2f} s, {len(first)} losses), resumed in a fresh "
+          f"executor and scope ({s2:.2f} s, {len(second)} losses; steps "
+          f"{snap}); commits (kind, bytes, sparse rows) {commits}; losses "
+          f"bit-equal {same_losses}, tables (rows, moments) bit-equal "
+          f"{same_tables}, scope ({len(v_full)} entries) bit-equal "
+          f"{same_scope}; {card}")
+    if not (same_losses and same_tables and same_scope):
+        raise RuntimeError("chip_smoke: [sparse] D: the resumed run is not "
+                           "bit-equal to the uninterrupted one")
+
+
+def start_shards(n, ckpt_dir):
+    """``python -m paddle_tpu_torch pserver --shard k/n --dir ckpt_dir``
+    processes, all started together; returns [(process, ready line)]."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch", "pserver", "--shard",
+         f"{k}/{n}", "--host", "127.0.0.1", "--port", "0", "--dir",
+         ckpt_dir], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for k in range(n)]
+    out = []
+    for p in procs:
+        ready = None
+        for line in p.stdout:
+            if '"pserver"' in line:
+                ready = json.loads(line)["pserver"]
+                break
+        if ready is None:
+            raise RuntimeError(f"chip_smoke: [sparse] E: a shard exited "
+                               f"before its ready line (rc {p.wait()})")
+        # drain the rest so the shard never blocks on a full pipe
+        threading.Thread(target=lambda s=p.stdout: [None for _ in s],
+                         daemon=True).start()
+        out.append((p, ready))
+    return out
+
+
+def stop_shards(shards):
+    """SIGTERM each live shard and wait; returns the exit codes."""
+    for p, _ in shards:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    rcs = []
+    for p, _ in shards:
+        try:
+            rcs.append(p.wait(timeout=30))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rcs.append(p.wait(timeout=30))
+    return rcs
+
+
+def same_exports(a, b):
+    """Two ``{table: export_state_vars()}`` dicts hold the same keys and
+    the same bytes."""
+    return all(sorted(a[n]) == sorted(b[n]) and all(
+        a[n][k].tobytes() == b[n][k].tobytes() for k in b[n]) for n in b)
+
+
+def sparse_arm_e(ctr, cfg, card, feeds):
+    """Arm E: the tables on 2 shard processes through
+    RemoteSparseTable, 10 captured steps, against the in-process tables
+    on the same feeds: losses and exports bit-equal; no shard makes a
+    CUDA context.  SIGTERM makes each shard checkpoint into its
+    ``--dir`` and exit 75; two relaunched shards restore from there and
+    must export the in-process tables' bytes."""
+    from paddle_tpu_torch.sparse import SparseTable
+    from paddle_tpu_torch.sparse.client import RemoteSparseTable
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.sparse import SparseSession
+    feeds = feeds[:SPARSE_REMOTE_STEPS]
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "sparse_remote")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    spec = dict(optimizer="adagrad", learning_rate=ctr.LEARNING_RATE)
+    dims = {"ctr_big": (cfg["vocab_big"], 1),
+            "ctr_small": (cfg["vocab_small"], 2)}
+
+    def connect(shards):
+        addrs = [("127.0.0.1", r["port"]) for _, r in shards]
+        return {n: RemoteSparseTable(n, v, cfg["emb_dim"], addrs=addrs,
+                                     seed=s, **spec)
+                for n, (v, s) in dims.items()}
+
+    t0 = time.perf_counter()
+    shards = start_shards(2, ckpt_dir)
+    start_s = time.perf_counter() - t0
+    try:
+        remote = connect(shards)
+        local = {n: SparseTable(n, v, cfg["emb_dim"], num_shards=2, seed=s,
+                                **spec) for n, (v, s) in dims.items()}
+        res = {}
+        for label, tables in (("remote", remote), ("in-process", local)):
+            loss = ctr.build_model(cfg, True)
+            main = ptt.default_main_program()
+            exe = ptt.Executor()
+            exe.run(ptt.default_startup_program())
+            sess = SparseSession(tables, bucket_floor=cfg["batch"])
+            losses, pulls, t_w = [], [], None
+            for i, f in enumerate(feeds):
+                if i == 2:
+                    torch.cuda.synchronize()
+                    t_w = time.perf_counter()
+                p0 = sess.stats["pull_ms"]
+                losses.append(sess.run(exe, main, f, [loss])[0])
+                pulls.append(sess.stats["pull_ms"] - p0)
+            ex_s = cfg["batch"] * (len(feeds) - 2) / (
+                time.perf_counter() - t_w)
+            exe.close()
+            res[label] = (np.stack(losses), {
+                n: t.export_state_vars() for n, t in tables.items()},
+                ex_s, np.percentile(pulls[2:], 50),
+                np.percentile(pulls[2:], 99))
+        (lr_, sr, er, p50r, p99r), (ll, sl, el, p50l, p99l) = \
+            res["remote"], res["in-process"]
+        same = lr_.tobytes() == ll.tobytes() and same_exports(sr, sl)
+        stats = remote["ctr_big"].fleet_stats()
+        cuda = [r["cuda_initialized"] for _, r in shards] + \
+            [s["cuda_initialized"] for s in stats.values()]
+        for t in remote.values():
+            t.close()
+        print(f"[sparse] E: 2 shard processes (python -m paddle_tpu_torch "
+              f"pserver, ready in {start_s:.1f} s), {len(feeds)} captured "
+              f"steps through RemoteSparseTable: {er:.1f} examples/s, "
+              f"remote pull p50 {p50r:.3f} / p99 {p99r:.3f} ms; the "
+              f"in-process tables {el:.1f} examples/s, pull p50 "
+              f"{p50l:.3f} / p99 {p99l:.3f} ms; losses and exports "
+              f"bit-equal {same}; shard requests "
+              f"{[s['requests'] for s in stats.values()]}; a shard made a "
+              f"CUDA context {any(cuda)}; {card}")
+        if not same or any(cuda):
+            raise RuntimeError("chip_smoke: [sparse] E: the remote tables "
+                               "differ from the in-process ones, or a "
+                               "shard touched the card")
+    finally:
+        rcs = stop_shards(shards)
+    if rcs != [75, 75]:
+        raise RuntimeError(f"chip_smoke: [sparse] E: shard exit codes "
+                           f"{rcs} on SIGTERM, expected 75")
+    saved = sorted(os.listdir(ckpt_dir))
+    t0 = time.perf_counter()
+    shards = start_shards(2, ckpt_dir)
+    try:
+        back = connect(shards)
+        sb = {n: t.export_state_vars() for n, t in back.items()}
+        for t in back.values():
+            t.close()
+    finally:
+        rcs2 = stop_shards(shards)
+    restored = same_exports(sb, sl)
+    print(f"[sparse] E: SIGTERM: the shards checkpointed into {saved} "
+          f"and exited {rcs}; two relaunched shards restored from there "
+          f"in {time.perf_counter() - t0:.1f} s, exports bit-equal to the "
+          f"in-process tables {restored} (they exited {rcs2})")
+    if not restored or rcs2 != [75, 75]:
+        raise RuntimeError(f"chip_smoke: [sparse] E: the restored shards "
+                           f"differ from the in-process tables, or exited "
+                           f"{rcs2}")
+
+
+def sparse_arm_f(ctr, cfg, card, a_row):
+    """Arm F: A's sparse training at a vocab of 10^9, 10 timed steps."""
+    import paddle_tpu_torch as ptt
+    giant = dict(cfg, vocab_big=SPARSE_GIANT_VOCAB, windows=1,
+                 window_steps=SPARSE_GIANT_STEPS)
+    row, _, exe, _ = ctr.run_sparse_arm(giant, ptt.CUDAPlace(0),
+                                        quiet=True)
+    exe.close()
+    dense = SPARSE_GIANT_VOCAB * cfg["emb_dim"] * 4
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    rows_fit = card_bytes // (ADAGRAD_ROW_ARRAYS * cfg["emb_dim"] * 4)
+    steps = giant["warmup_steps"] + SPARSE_GIANT_STEPS
+    a_steps = cfg["warmup_steps"] + cfg["windows"] * cfg["window_steps"]
+    print(f"[sparse] F: vocab {SPARSE_GIANT_VOCAB} (nothing else "
+          f"changed), {SPARSE_GIANT_STEPS} timed steps: "
+          f"{row['examples_per_sec']:.1f} examples/s against A's "
+          f"{a_row['examples_per_sec']:.1f} (A's first window, after the "
+          f"same warm-up: {a_row['examples_per_sec_windows'][0]:.1f}); "
+          f"live rows {row['live_rows']} "
+          f"after {steps} steps (A's {a_row['live_rows']} after "
+          f"{a_steps}), host tables "
+          f"{row['host_table_mb']:.3f} MB; a dense ctr_big would need "
+          f"{dense / 1e9:.1f} GB of weights and as much of Adagrad moment "
+          f"(and of gradient) against the card's {card_bytes / 1e9:.1f} "
+          f"GB ({card_bytes / 2 ** 30:.1f} GiB): not allocated (the card "
+          f"holds about {rows_fit:.3e} dense "
+          f"Adagrad rows of {cfg['emb_dim']} floats); {card}")
+    if not np.isfinite(row["examples_per_sec"]):
+        raise RuntimeError("chip_smoke: [sparse] F: no rate")
+
+
+def phase_sparse(seed, card, cfg=None):
+    """benchmark/ctr.py's CTR model at FULL (batch 512, dim 16, vocab
+    2,000,000 + 100,000, 13 dense features, hidden 64, Adagrad 0.05,
+    Zipf 1.2; ``cfg`` overrides it) with its tables on the host: arms
+    A-F (module docstring).  The feeds and tables come from the
+    runner's seeds, the dense weights from the program's."""
+    from paddle_tpu_torch.benchmark import ctr
+    t_phase = time.perf_counter()
+    cfg = dict(cfg or ctr.FULL)
+    counts0 = kernel_counts()
+    a_row, feeds, _, _ = sparse_arm_a(ctr, cfg, card)
+    sparse_arm_b(ctr, cfg, card, feeds, a_row)
+    torch.cuda.empty_cache()
+    sparse_arm_c(ctr, cfg, card, feeds)
+    torch.cuda.empty_cache()
+    sparse_arm_d(ctr, cfg, card, feeds)
+    sparse_arm_e(ctr, cfg, card, feeds)
+    sparse_arm_f(ctr, cfg, card, a_row)
+    counts = kernel_counts()
+    launched = {k: {f: n - counts0[k].get(f, 0) for f, n in v.items()
+                    if n != counts0[k].get(f, 0)} for k, v in counts.items()}
+    print(f"[sparse] hand-written kernel launches in the phase "
+          f"{launched} (K1-K5: 0 expected); phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    if any(launched.values()):
+        raise RuntimeError(f"chip_smoke: [sparse] launched hand-written "
+                           f"kernels {launched}; the path has none")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # [bandwidth] the HBM stream-bandwidth probe
 # ---------------------------------------------------------------------------
 # Sizes that are multiples of no tile (Triton's 4096-float programs, the
@@ -4404,6 +5045,7 @@ def main():
     torch.cuda.empty_cache()
     inf_entry = phase_inference(args.seed, card)
     torch.cuda.empty_cache()
+    phase_sparse(args.seed, card)
     bw_entries, _ = phase_bandwidth(args.seed, card)
 
     # bf16: the served path and the AMP step; fp32: the served forward's

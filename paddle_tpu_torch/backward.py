@@ -21,19 +21,19 @@ def append_backward(loss: Variable,
                     callbacks=None) -> List[Tuple[Variable, Variable]]:
     """Returns [(parameter, gradient_var)] like fluid backward.py:257.
 
-    The JAX package also differentiates the Rows feed of every
-    ``lookup_table_sparse`` op (host-resident sparse tables); that op
-    comes with the sparse-embedding slice, and a program holding one
-    raises here until then."""
+    The Rows feed of every ``lookup_table_sparse`` op (a host-resident
+    sparse table, ``paddle_tpu_torch.sparse``) is a differentiable
+    feed: its gradient is what the session pushes back to the host
+    table, so the default wrt set (``parameter_list=None``) includes it
+    though it is no Parameter.  An explicit ``parameter_list`` is the
+    caller's exact wrt set, and a rows feed joins it only if named.
+    Either way every rows var in the wrt set is tagged
+    ``is_sparse_rows``, so the optimizer leaves it out of its clip,
+    regularizer and update ops.  The discovery reads the ops, so it
+    survives a JSON round trip of the program."""
     program: Program = loss.block.program
     block = program.global_block()
     no_grad = {n if isinstance(n, str) else n.name for n in (no_grad_set or ())}
-    if any(op.type == "lookup_table_sparse"
-           for b in program.blocks for op in b.ops):
-        raise NotImplementedError(
-            "append_backward: lookup_table_sparse (host-resident sparse "
-            "tables) is not ported yet; it comes with the sparse-embedding "
-            "slice")
 
     if parameter_list is not None:
         params = [block.var(p if isinstance(p, str) else p.name)
@@ -42,6 +42,19 @@ def append_backward(loss: Variable,
         params = [p for p in program.all_parameters()
                   if getattr(p, "trainable", True)]
     params = [p for p in params if p.name not in no_grad]
+
+    sparse_row_names = {n for b in program.blocks for op in b.ops
+                        if op.type == "lookup_table_sparse"
+                        for n in op.input("Rows")}
+    for p in params:
+        if p.name in sparse_row_names:
+            p.is_sparse_rows = True
+    if parameter_list is None:
+        seen = {p.name for p in params}
+        for n in sorted(sparse_row_names - no_grad - seen):
+            v = block.var(n)
+            v.is_sparse_rows = True
+            params.append(v)
     if not params:
         raise ValueError("append_backward: no trainable parameters found")
 

@@ -28,6 +28,30 @@ def _round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
+def infer_id_bounds(program) -> Dict[str, int]:
+    """``{ids_var_name: vocab_size}`` for every embedding lookup of
+    ``program`` (``data_feeder.py:35-56``), for
+    ``DataFeeder(id_bounds=...)``: a bad id fails at the feed with a
+    message naming the variable, not inside a gather on the card.  The
+    dense ``lookup_table`` takes the vocab from its W's declared shape,
+    the host-resident ``lookup_table_sparse`` from its ``vocab_size``
+    attr; a var feeding several tables gets the tightest bound."""
+    bounds: Dict[str, int] = {}
+
+    def narrow(name: str, vocab: int):
+        bounds[name] = min(bounds.get(name, vocab), vocab)
+
+    for b in program.blocks:
+        for op in b.ops:
+            if op.type == "lookup_table":
+                w = b._find_var_recursive(op.input("W")[0])
+                if w is not None and w.shape and w.shape[0] > 0:
+                    narrow(op.input("Ids")[0], int(w.shape[0]))
+            elif op.type == "lookup_table_sparse":
+                narrow(op.input("Ids")[0], int(op.attrs["vocab_size"]))
+    return bounds
+
+
 class _StagingCache:
     """Pool of reusable host buffers keyed on (name, shape, dtype):
     ``slots`` buffers rotate per key."""

@@ -21,6 +21,11 @@ commit is a full base or a delta: a delta records, for each dense var,
 the sha256 table of its fixed-size chunks and writes only the chunks
 that changed since its parent, which it names by content hash; restore
 replays base to tip, and any broken or corrupt link fails the whole tip.
+A sparse table's rows (``__sparse__/<table>/shard<k>/{ids,rows,slot/*}``,
+``sparse/table.py``) are written whole in each commit (mode
+``sparse``): a delta holds the rows pushed since its parent, and replay
+merges each shard group by id, later rows over earlier ones.  Sparse
+vars restore as host numpy arrays: the table lives on the host.
 
 ``save`` copies the scope to the host on the calling thread, after the
 card has finished every queued step, into arrays the snapshot owns (a
@@ -38,9 +43,8 @@ One process writes everything, unless ``torch.distributed`` is
 initialized: then process 0 writes every var (the port's processes hold
 replicas) and the others wait for its commit.  Not ported: restoring a
 var stored in several pieces (a sharded JAX checkpoint; ROADMAP Queue A
-item 7) and the sparse tables' row groups (``__sparse__/``, item 8),
-which both raise; the lock watchdog and the observability hooks (item
-9).
+item 7), which raises; the lock watchdog and the observability hooks
+(item 9).
 """
 from __future__ import annotations
 
@@ -98,11 +102,16 @@ class DeltaChainError(RuntimeError):
     multi-process run.  Callers fall back to a full rebase."""
 
 
-def _not_sparse(name: str):
-    if name.startswith(_SPARSE_PREFIX):
-        raise NotImplementedError(
-            f"checkpoint var {name!r}: the sparse tables' row groups are "
-            f"not ported yet (ROADMAP Queue A item 8)")
+def _sparse_group(name: str) -> Optional[Tuple[str, str]]:
+    """``__sparse__/<t>/shard<k>/<member>`` -> (group prefix, member);
+    None for everything else (the per-table ``/meta`` blob included,
+    which a commit replaces whole)."""
+    if not name.startswith(_SPARSE_PREFIX):
+        return None
+    parts = name.split("/")
+    if len(parts) >= 4 and parts[2].startswith("shard"):
+        return "/".join(parts[:3]), "/".join(parts[3:])
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -308,8 +317,6 @@ class CheckpointManager:
         in place)."""
         names = var_names or scope.keys()
         vals = {n: scope.get(n) for n in names if scope.has(n)}
-        for n in vals:
-            _not_sparse(n)
         for dev in {v.device for v in vals.values()
                     if isinstance(v, torch.Tensor) and v.is_cuda}:
             torch.cuda.synchronize(dev)
@@ -530,12 +537,25 @@ class CheckpointManager:
             if parent is None:
                 raise DeltaChainError("delta commit with no committed "
                                       "parent tip")
+            # before any bytes land: a delta's sparse shard layout must
+            # be its parent's (same tables, same shard count), since the
+            # merge by id cannot tell which rows of another layout live
+            pg = {n for n in parent["vars"] if _sparse_group(n)}
+            cg = {n for n in snap if _sparse_group(n)}
+            if pg != cg:
+                raise DeltaChainError(
+                    f"sparse layout changed vs parent commit "
+                    f"(parent-only: {sorted(pg - cg)[:4]}, "
+                    f"new: {sorted(cg - pg)[:4]}); commit a full rebase")
         cb = self.chunk_bytes
         bytes_written = 0
+        sparse_rows = 0
         manifest = {}
         for n, (shape, dtype, pieces) in snap.items():
             base = n.replace("/", "__")
-            mode = "chunks" if (delta and nprocs == 1) else "replace"
+            sparse = _sparse_group(n) is not None
+            mode = "sparse" if sparse else (
+                "chunks" if (delta and nprocs == 1) else "replace")
             pent = parent["vars"].get(n) if parent is not None else None
             diffable = (
                 mode == "chunks" and pent is not None
@@ -560,13 +580,15 @@ class CheckpointManager:
                 md5, size = self._write_piece(d, fn, arr, site)
                 entry = {"file": fn, "md5": md5, "index": idx,
                          "shard_shape": list(arr.shape)}
-                if nprocs == 1:
+                if nprocs == 1 and not sparse:
                     entry["chunks"] = _chunk_hashes(arr.tobytes(), cb)
                 bytes_written += size
+                if sparse and n.endswith("/ids"):
+                    sparse_rows += int(arr.size)
                 shards.append(entry)
             manifest[n] = {"shape": list(shape), "dtype": dtype,
                            "shards": shards, "mode": mode}
-            if nprocs == 1:
+            if nprocs == 1 and not sparse:
                 manifest[n]["chunk_bytes"] = cb
         mpath = os.path.join(d, f"shards-{proc}.json")
         with open(mpath, "w") as f:
@@ -652,7 +674,7 @@ class CheckpointManager:
                     return False
             self._wait_for(_committed, f"ckpt-{step} commit")
         return {"step": step, "kind": kind, "bytes": bytes_written,
-                "rebase": rebase,
+                "rows": sparse_rows, "rebase": rebase,
                 "chain_len": 0 if meta is None
                 else int(meta.get("chain_len", 0)),
                 "content_hash": None if meta is None
@@ -804,7 +826,6 @@ class CheckpointManager:
                 with open(os.path.join(d, "meta.json")) as f:
                     meta = json.load(f)
                 for n, info in meta["vars"].items():
-                    _not_sparse(n)
                     if len(info["shards"]) > 1:
                         raise NotImplementedError(
                             f"checkpoint var {n!r} is stored in "
@@ -928,10 +949,53 @@ class CheckpointManager:
                               f"the tip's chunk table")
         return np.frombuffer(raw, dtype=dtype).reshape(tip_info["shape"])
 
+    @staticmethod
+    def _merge_sparse_group(gp, basemap, deltamap, members):
+        """One sparse shard group merged: the sorted union of the ids,
+        the delta's rows over the base's (what pushing those rows again
+        would give), so a replay equals a full export."""
+        ids_key = gp + "/ids"
+        bids = np.asarray(basemap[ids_key], np.int64)
+        dids = np.asarray(deltamap[ids_key], np.int64)
+        uids = np.union1d(bids, dids)
+        out = {ids_key: uids}
+        for m in members:
+            if m == ids_key:
+                continue
+            b, dl = basemap[m], deltamap[m]
+            ref = b if (b.size or not dl.size) else dl
+            res = np.empty((len(uids),) + ref.shape[1:], ref.dtype)
+            if len(bids):
+                res[np.searchsorted(uids, bids)] = b
+            if len(dids):
+                res[np.searchsorted(uids, dids)] = dl
+            out[m] = res
+        return out
+
     def _replay_chain(self, chain, verify) -> Dict[str, np.ndarray]:
-        """The tip's state, base to tip, by the tip manifest's modes."""
+        """The tip's state, base to tip, by the tip manifest's modes:
+        sparse shard groups merged by id along the chain, chunk-diffed
+        vars patched forward, the rest from the tip."""
+        tip_vars = chain[-1][1]["vars"]
+        groups: Dict[str, List[str]] = {}
+        for n, info in tip_vars.items():
+            grp = _sparse_group(n)
+            if info.get("mode") == "sparse" and grp:
+                groups.setdefault(grp[0], []).append(n)
         out: Dict[str, np.ndarray] = {}
-        for n, info in chain[-1][1]["vars"].items():
+        for gp, members in groups.items():
+            merged = None
+            for d, meta in chain:
+                if any(m not in meta["vars"] for m in members):
+                    continue           # the group starts later in the chain
+                cur = {m: self._assemble(d, meta["vars"][m])
+                       for m in members}
+                merged = cur if merged is None else \
+                    self._merge_sparse_group(gp, merged, cur, members)
+            out.update(merged)
+        for n, info in tip_vars.items():
+            if n in out:
+                continue
             if info.get("mode") == "chunks":
                 out[n] = self._replay_chunked(chain, n, info, verify)
             else:
@@ -941,7 +1005,10 @@ class CheckpointManager:
     def _place(self, scope, name, arr: np.ndarray, dtype: str):
         """The var as a tensor in the dtype and on the device of the one
         the scope holds (in the file's dtype if the shapes differ), else
-        in the file's dtype on the manager's device."""
+        in the file's dtype on the manager's device; a sparse table's
+        var as the host array it is."""
+        if name.startswith(_SPARSE_PREFIX):
+            return np.array(arr)
         t = _to_tensor(arr, dtype)
         dest = scope.get(name) if scope.has(name) else None
         if isinstance(dest, torch.Tensor):

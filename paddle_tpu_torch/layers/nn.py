@@ -7,6 +7,7 @@ zoo (``models/``, ``nets``) and the learning-rate schedules
 (``lr_decay.py``) use are ported."""
 from __future__ import annotations
 
+from ..core import unique_name
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -76,11 +77,21 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
-              padding_idx=None, param_attr=None, dtype="float32", name=None):
-    """Dense lookup of the rows of a [V, D] table (``layers/nn.py:96``).
+              padding_idx=None, param_attr=None, dtype="float32", name=None,
+              sparse=False):
+    """Lookup of the rows of a [V, D] table (``layers/nn.py:96-150``).
     ``is_sparse`` is recorded as the op's attr, as the JAX layer does;
-    the gradient is dense either way.  The JAX layer's ``sparse=True``
-    (a host-resident table) comes with the sparse slice."""
+    the gradient is dense either way.
+
+    ``sparse=True`` declares a **host-resident** table instead
+    (``paddle_tpu_torch.sparse``): no parameter is created; the op is
+    ``lookup_table_sparse``, whose ``<table>@ROWS`` [bucket, D] and
+    ``<table>@RIDX`` feeds a ``SparseSession`` injects each batch, and
+    the table's optimizer update runs on the host when the session
+    pushes the rows' gradient.  The table is named ``name`` (or a
+    generated unique name); ``sparse.table_specs(program)`` lists a
+    program's tables.  ``padding_idx`` is refused with ``sparse=True``
+    (reserve a vocab id for padding instead)."""
     helper = LayerHelper("embedding", param_attr=param_attr, name=name)
     in_shape = input.shape or (-1, 1)
     if in_shape and in_shape[-1] == 1:
@@ -89,6 +100,9 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         out_shape = tuple(in_shape) + (size[1],)
     out = helper.create_variable_for_type_inference(
         dtype, out_shape, lod_level=input.lod_level)
+    if sparse:
+        return _sparse_embedding(helper, input, size, padding_idx, dtype,
+                                 name, out, out_shape)
     w = helper.create_parameter(param_attr, shape=list(size), dtype=dtype)
     helper.append_op(type="lookup_table",
                      inputs={"W": [w], "Ids": [input]},
@@ -96,6 +110,39 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                      attrs={"is_sparse": is_sparse,
                             "padding_idx": -1 if padding_idx is None
                             else padding_idx})
+    if input.lod_level:
+        _copy_len(helper, input, out)
+    return out
+
+
+def _sparse_embedding(helper, input, size, padding_idx, dtype, name, out,
+                      out_shape):
+    if padding_idx is not None:
+        raise ValueError(
+            "embedding(sparse=True) does not support padding_idx: the host "
+            "table has no zero-row convention; reserve a vocab id for "
+            "padding instead")
+    table_name = name or unique_name.generate("sparse_table")
+    block = helper.block
+    rows_name = table_name + "@ROWS"
+    if block.has_var(rows_name):
+        raise ValueError(
+            f"embedding(sparse=True): a sparse table named {table_name!r} "
+            f"already exists in this program; one embedding site per "
+            f"table (share its output instead)")
+    rows = block.create_var(name=rows_name, shape=(-1, size[1]),
+                            dtype=dtype, is_data=True, session_feed=True)
+    rows.is_sparse_rows = True
+    inv = block.create_var(name=table_name + "@RIDX",
+                           shape=out_shape[:-1], dtype="int32",
+                           is_data=True, session_feed=True)
+    helper.append_op(type="lookup_table_sparse",
+                     inputs={"Rows": [rows], "Ids": [input],
+                             "Inverse": [inv]},
+                     outputs={"Out": [out]},
+                     attrs={"table_name": table_name,
+                            "vocab_size": int(size[0]),
+                            "dim": int(size[1]), "dtype": str(dtype)})
     if input.lod_level:
         _copy_len(helper, input, out)
     return out

@@ -6,8 +6,8 @@ from __future__ import annotations
 
 from .nn import _unary_layer
 
-_UNARY_OPS = ["sqrt", "sign", "sigmoid", "tanh", "exp", "log", "floor",
-              "ceil", "reciprocal", "pow"]
+_UNARY_OPS = ["sqrt", "square", "sign", "sigmoid", "tanh", "exp", "log",
+              "floor", "ceil", "reciprocal", "pow"]
 
 
 def _make_unary(op_type):
@@ -19,6 +19,7 @@ def _make_unary(op_type):
 
 
 sqrt = _make_unary("sqrt")
+square = _make_unary("square")
 sign = _make_unary("sign")
 sigmoid = _make_unary("sigmoid")
 tanh = _make_unary("tanh")

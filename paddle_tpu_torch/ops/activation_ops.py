@@ -1,6 +1,7 @@
 """Activation ops of the ported paths (counterpart of ``relu``,
-``sqrt``, ``sigmoid``, ``tanh``, ``exp``, ``log``, ``floor``, ``ceil``
-and ``reciprocal`` in ``paddle_tpu/ops/activation_ops.py``)."""
+``sqrt``, ``square``, ``sigmoid``, ``tanh``, ``exp``, ``log``,
+``floor``, ``ceil`` and ``reciprocal`` in
+``paddle_tpu/ops/activation_ops.py``)."""
 from __future__ import annotations
 
 import torch
@@ -16,6 +17,12 @@ def _relu(ctx, ins, attrs):
 @register_op("sqrt")
 def _sqrt(ctx, ins, attrs):
     return {"Out": torch.sqrt(ins["X"][0])}
+
+
+# the CTR model's squared error (``benchmark/ctr.py``)
+@register_op("square")
+def _square(ctx, ins, attrs):
+    return {"Out": torch.square(ins["X"][0])}
 
 
 @register_op("sigmoid")

@@ -1,8 +1,9 @@
-"""Embedding ops (counterpart of the dense ``lookup_table`` in
-``paddle_tpu/ops/embedding_ops.py:16-36``).  The gather's gradient is
-autograd's scatter-add into a dense [V, D] gradient; the sparse-row
-paths (``is_sparse``, ``lookup_table_sparse``) come with the sparse
-slice."""
+"""Embedding ops (counterpart of ``lookup_table`` and
+``lookup_table_sparse`` in ``paddle_tpu/ops/embedding_ops.py:16-53``).
+The gather's gradient is autograd's scatter-add (an accumulating
+``index_put_``): into a dense [V, D] gradient for ``lookup_table``
+(``is_sparse`` changes nothing), into the [bucket, D] rows feed for
+``lookup_table_sparse``."""
 from __future__ import annotations
 
 import torch
@@ -23,3 +24,16 @@ def _lookup_table(ctx, ins, attrs):
     is_pad = ids == pad
     out = w[torch.where(is_pad, 0, ids)]
     return {"Out": out.masked_fill(is_pad[..., None], 0)}
+
+
+@register_op("lookup_table_sparse")
+def _lookup_table_sparse(ctx, ins, attrs):
+    """A host-resident table's gather (``paddle_tpu_torch.sparse``): the
+    ``SparseSession`` rim feeds ``Rows``, the dense [bucket, D] rows the
+    batch touches, and ``Inverse``, each id position's slot in them, so
+    the op is a gather of rows.  The gradient of ``Rows`` is fetched as
+    ``<rows>@GRAD`` and pushed back to the host table.  ``Ids`` is an
+    input for the graph's data dependency only (the session derives
+    ``Inverse`` from it on the host)."""
+    rows, inv = ins["Rows"][0], ins["Inverse"][0]
+    return {"Out": rows[inv.long()]}

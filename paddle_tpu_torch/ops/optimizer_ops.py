@@ -58,19 +58,20 @@ def _momentum(ctx, ins, attrs):
 
 @register_op("adam")
 def _adam(ctx, ins, attrs):
-    """Dense Adam (``optimizer_ops.py:68-105``): bias-corrected step
+    """Adam (``optimizer_ops.py:68-105``): bias-corrected step
     lr * sqrt(1 - beta2^t) / (1 - beta1^t), and the beta pows advanced
     by one step (Beta1PowOut, Beta2PowOut).
 
     Under the executor's AMP the accumulators and the learning rate
     arrive as bf16 copies, as in the JAX package; bf16(0.999) is 1.0,
     so 1 - Beta2Pow is 0 and the step leaves the parameter unchanged in
-    both packages.  ``lazy_mode`` (rows of the batch only) comes with
-    the sparse slice."""
-    if attrs.get("lazy_mode") and "Rows" in ins:
-        raise NotImplementedError(
-            "adam lazy_mode is not ported yet; it comes with the sparse "
-            "slice")
+    both packages.
+
+    ``lazy_mode`` with ``Rows`` (the ids of the ``lookup_table`` ops
+    that are the parameter's only readers; adam_op.cc's lazy_mode):
+    only those rows update, the rest keep their moments.  The dense
+    gradient row already sums an id's duplicates, so duplicates write
+    equal values."""
     p, g = ins["Param"][0], ins["Grad"][0]
     m, v = ins["Moment1"][0], ins["Moment2"][0]
     b1p = ins["Beta1Pow"][0].reshape(())
@@ -79,12 +80,24 @@ def _adam(ctx, ins, attrs):
     b2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
     lr_t = _lr(ins) * torch.sqrt(1 - b2p) / (1 - b1p)
+    out = {"Beta1PowOut": (b1p * _k(b1, b1p)).reshape(1),
+           "Beta2PowOut": (b2p * _k(b2, b2p)).reshape(1)}
+    if attrs.get("lazy_mode") and "Rows" in ins:
+        ids = torch.cat([i.reshape(-1) for i in ins["Rows"]]).long()
+        g_r = g[ids]
+        m_r = _k(b1, m) * m[ids] + (1 - b1) * g_r
+        v_r = _k(b2, v) * v[ids] + (1 - b2) * torch.square(g_r)
+        p_r = p[ids] - lr_t * m_r / (torch.sqrt(v_r) + eps)
+        out.update({
+            "ParamOut": p.index_put((ids,), p_r.to(p.dtype)),
+            "Moment1Out": m.index_put((ids,), m_r.to(m.dtype)),
+            "Moment2Out": v.index_put((ids,), v_r.to(v.dtype))})
+        return out
     m_out = _k(b1, m) * m + (1 - b1) * g
     v_out = _k(b2, v) * v + (1 - b2) * torch.square(g)
-    return {"ParamOut": p - lr_t * m_out / (torch.sqrt(v_out) + eps),
-            "Moment1Out": m_out, "Moment2Out": v_out,
-            "Beta1PowOut": (b1p * _k(b1, b1p)).reshape(1),
-            "Beta2PowOut": (b2p * _k(b2, b2p)).reshape(1)}
+    out.update({"ParamOut": p - lr_t * m_out / (torch.sqrt(v_out) + eps),
+                "Moment1Out": m_out, "Moment2Out": v_out})
+    return out
 
 
 @register_op("adamax")

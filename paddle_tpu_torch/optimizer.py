@@ -86,10 +86,18 @@ class Optimizer:
         # land in the LOSS's program even if a different default is active
         with program_guard(program, startup_program):
             params_grads = append_backward(loss, parameter_list, no_grad_set)
-            params_grads = append_gradient_clip_ops(params_grads)
-            params_grads = append_regularization_ops(params_grads,
-                                                     self.regularization)
-            optimize_ops = self.apply_gradients(params_grads, program)
+            # a host-resident sparse table's rows feed gets its gradient
+            # from append_backward but no optimizer op, clip or
+            # regularizer: the SparseSession updates the rows on the host
+            host_pairs = [(p, g) for p, g in params_grads
+                          if getattr(p, "is_sparse_rows", False)]
+            dev_pairs = [(p, g) for p, g in params_grads
+                         if not getattr(p, "is_sparse_rows", False)]
+            dev_pairs = append_gradient_clip_ops(dev_pairs)
+            dev_pairs = append_regularization_ops(dev_pairs,
+                                                  self.regularization)
+            optimize_ops = self.apply_gradients(dev_pairs, program)
+            params_grads = dev_pairs + host_pairs
         return optimize_ops, params_grads
 
     def apply_gradients(self, params_grads, program=None):
@@ -144,17 +152,16 @@ class AdamOptimizer(Optimizer):
     """Adam as an op (adam_op.cc), with the JAX package's accumulators:
     ``moment1``, ``moment2`` (zeros) and ``beta1_pow``, ``beta2_pow``
     ([1], starting at beta1 and beta2), named ``<param>_<acc>_<n>``, so
-    a scope carries across.  The JAX optimizer's ``lazy_mode`` (rows of
-    the batch only) comes with the sparse slice."""
+    a scope carries across.  ``lazy_mode`` (the reference's attr): a
+    parameter that only ``lookup_table`` ops read (an embedding table)
+    updates just the rows the batch looked up; untouched rows keep
+    stale moments, as in the reference's sparse path."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kw):
-        if lazy_mode:
-            raise NotImplementedError(
-                "AdamOptimizer(lazy_mode=True) is not ported yet; it comes "
-                "with the sparse slice")
         super().__init__(learning_rate, **kw)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lazy_mode = lazy_mode
 
     def _create_accumulators(self, program, params):
         for p in params:
@@ -163,21 +170,42 @@ class AdamOptimizer(Optimizer):
             self._add_accumulator("beta1_pow", p, self._beta1, shape=[1])
             self._add_accumulator("beta2_pow", p, self._beta2, shape=[1])
 
+    @staticmethod
+    def _lookup_ids(program, param):
+        """Ids vars of every lookup_table reading ``param``; None when
+        another op reads it too (the dense update is needed)."""
+        ids, other_use = [], False
+        for block in program.blocks:
+            for op in block.ops:
+                if param.name not in op.input_names:
+                    continue
+                if op.type == "lookup_table":
+                    ids.extend(op.inputs.get("Ids", []))
+                else:
+                    other_use = True
+        return None if (other_use or not ids) else ids
+
     def _append_optimize_op(self, program, param, grad):
         m1 = self._get_accumulator("moment1", param)
         m2 = self._get_accumulator("moment2", param)
         b1 = self._get_accumulator("beta1_pow", param)
         b2 = self._get_accumulator("beta2_pow", param)
+        inputs = {"Param": [param], "Grad": [grad], "Moment1": [m1],
+                  "Moment2": [m2], "Beta1Pow": [b1], "Beta2Pow": [b2],
+                  "LearningRate": [self._lr_for_param(param)]}
+        attrs = {"beta1": self._beta1, "beta2": self._beta2,
+                 "epsilon": self._epsilon}
+        if self._lazy_mode:
+            ids = self._lookup_ids(program, param)
+            if ids is not None:
+                inputs["Rows"] = ids
+                attrs["lazy_mode"] = True
         return program.global_block().append_op(
-            "adam",
-            inputs={"Param": [param], "Grad": [grad], "Moment1": [m1],
-                    "Moment2": [m2], "Beta1Pow": [b1], "Beta2Pow": [b2],
-                    "LearningRate": [self._lr_for_param(param)]},
+            "adam", inputs=inputs,
             outputs={"ParamOut": [param.name], "Moment1Out": [m1.name],
                      "Moment2Out": [m2.name], "Beta1PowOut": [b1.name],
                      "Beta2PowOut": [b2.name]},
-            attrs={"beta1": self._beta1, "beta2": self._beta2,
-                   "epsilon": self._epsilon})
+            attrs=attrs)
 
 
 class AdagradOptimizer(Optimizer):

@@ -16,9 +16,11 @@ boundaries (the only points where the scope reflects exactly the
 batches emitted), SIGTERM/SIGINT handling (finish the dispatch in
 flight, commit an emergency checkpoint, exit
 :data:`~paddle_tpu_torch.faults.EXIT_PREEMPTED`), and restore with
-fallback on resume.  The master's task queue, the elastic position and
-the sparse tables' rows that the JAX Checkpointer carries come with
-ROADMAP Queue A item 8.
+fallback on resume.  The sparse tables' rows ride in the same commit
+as ``__sparse__/`` vars (a ``sparse`` session's full export, or its
+deltas of the rows pushed since the last commit).  The master's task
+queue and the elastic position that the JAX Checkpointer carries come
+with ROADMAP Queue A item 8.
 """
 from __future__ import annotations
 
@@ -121,6 +123,16 @@ class Checkpointer:
     blocking emergency checkpoint and raises
     :class:`~paddle_tpu_torch.faults.Preempted`.
 
+    ``sparse`` (a sparse session) puts its tables' state in every commit
+    as vars that leave the scope after it.  Where it ``supports_delta``,
+    its ``export_delta``/``export_full`` return ``(tokens, state)`` and
+    snapshot the dirty rows with the export, ``commit_delta(tokens)``
+    runs after the durable write and ``retract_delta(tokens)`` if it
+    fails, so a row pushed while the writer works stays dirty for the
+    next commit.  Otherwise (a remote table) every commit holds its
+    ``export_state_vars()``: fresh copies, since the writer may
+    serialize them after the save returns.
+
     ``saves`` lists each save's ``{"step", "emergency", "snapshot_ms",
     "bytes"}`` (the snapshot on the training thread; the writer's
     commits are in ``manager.commits``)."""
@@ -128,7 +140,7 @@ class Checkpointer:
     def __init__(self, checkpoint_dir: str, exe,
                  save_every_n_steps: Optional[int] = None,
                  max_to_keep: int = 3, handle_signals: bool = True,
-                 delta: Optional[DeltaPolicy] = None):
+                 delta: Optional[DeltaPolicy] = None, sparse=None):
         if save_every_n_steps is not None and save_every_n_steps < 1:
             raise ValueError(f"save_every_n_steps must be >= 1, got "
                              f"{save_every_n_steps}")
@@ -141,6 +153,10 @@ class Checkpointer:
             chunk_bytes=self.delta.chunk_bytes,
             device=getattr(exe, "device", None))
         self.handle_signals = handle_signals
+        self._sparse = sparse
+        self._delta_source = sparse if (
+            sparse is not None
+            and getattr(sparse, "supports_delta", False)) else None
         self._old_handlers: dict = {}
         self._preempt_sig: Optional[int] = None
         self._save_requested = False
@@ -341,20 +357,57 @@ class Checkpointer:
                      or st["bytes"] < self.delta.rebase_fraction
                      * st["base_bytes"]):
                 kind = "delta"
+        src = self._delta_source
+        rider_keys: list = []
+
+        def set_riders(state):
+            for k, v in state.items():
+                scope.set(k, v)
+                if k not in rider_keys:
+                    rider_keys.append(k)
+
+        tokens = None
         t0 = time.perf_counter()
+        if src is not None:
+            # the dirty rows snapshot with the export, before the writer
+            # sees them
+            tokens, sv = (src.export_delta() if kind == "delta"
+                          else src.export_full())
+            set_riders(sv)
+        elif self._sparse is not None:
+            set_riders(self._sparse.export_state_vars())
+
+        def attempt(k, tk):
+            on_commit = on_fail = None
+            if src is not None:
+                on_commit = lambda info, t=tk: src.commit_delta(t)  # noqa: E731
+                on_fail = lambda exc, t=tk: src.retract_delta(t)    # noqa: E731
+            self.manager.save(self.emitted, scope, blocking=blocking,
+                              kind=k, on_commit=on_commit, on_fail=on_fail)
+
         try:
             try:
-                self.manager.save(self.emitted, scope, blocking=blocking,
-                                  kind=kind)
+                attempt(kind, tokens)
             except DeltaChainError:
                 # the chain died between the check and the commit (a
-                # failed async write), or this re-save replaces its
-                # parent: rebase
+                # failed async write, a changed sparse layout), or this
+                # re-save replaces its parent: rebase
                 kind = "full"
-                self.manager.save(self.emitted, scope, blocking=blocking,
-                                  kind=kind)
+                if src is not None:
+                    src.retract_delta(tokens)
+                    tokens, sv = src.export_full()
+                    set_riders(sv)
+                attempt(kind, tokens)
+        except BaseException:
+            # nothing durable holds this snapshot: re-dirty it (the
+            # token pops once, so the job's own on_fail is harmless)
+            if src is not None and tokens is not None:
+                src.retract_delta(tokens)
+            raise
         finally:
             scope.delete(TRAIN_STATE_VAR)
+            for k in rider_keys:
+                scope.delete(k)
         snap = self.manager.last_snapshot or {}
         self.saves.append({"step": self.emitted, "emergency": emergency,
                            "kind": kind, "blocking": blocking,

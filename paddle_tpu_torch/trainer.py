@@ -9,12 +9,14 @@ batch: per batch through ``Executor.run``, in stacked runs of
 ``pipeline=``, through ``Executor.run_pipelined`` (decode on reader
 workers, staging on its own thread).  With ``checkpoint_dir`` the loop
 checkpoints, handles preemption and resumes bit-identically
-(``train_state.py``).
+(``train_state.py``).  With ``sparse_tables=`` a ``SparseSession``
+pulls each batch's rows of the host-resident tables before its step and
+pushes their gradients after it (``paddle_tpu_torch.sparse``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item that brings them: ``warmup`` (``Executor.compile``, item
-6), ``auto_shard`` (item 7), ``master``, ``elastic`` and
-``sparse_tables`` (item 8), ``validate`` and ``autotune`` (item 9).
+6), ``auto_shard`` (item 7), ``master`` and ``elastic`` (item 8),
+``validate`` and ``autotune`` (item 9).
 """
 from __future__ import annotations
 
@@ -68,7 +70,6 @@ _NOT_PORTED = {
     "auto_shard": "item 7 (multi-GPU)",
     "master": "item 8 (the task-queue master)",
     "elastic": "item 8 (the elastic service)",
-    "sparse_tables": "item 8 (sparse tables)",
 }
 
 
@@ -139,17 +140,49 @@ class SGD:
         directory starts fresh.  Saves happen at dispatch boundaries
         only, so with chunked dispatch the cadence rounds up to the
         chunk.  ``handle_signals=False`` installs no signal
-        handlers."""
+        handlers.
+
+        ``sparse_tables``: a ``paddle_tpu_torch.sparse.SparseSession``
+        (duck-typed: the trainer does not import the sparse package).
+        Each batch's feed goes through its ``prepare_feed`` (id dedup,
+        host pull, the rows and inverse-index feeds) before the step,
+        and the fetched ``<rows>@GRAD`` arrays through ``complete`` (the
+        host push) after it.  The per-batch loop is synchronous (pull,
+        step, push: dense and sparse training bit-identical); the
+        chunked and pipelined loops pull a chunk (plus the prefetch
+        depth) ahead of the pushes, the reference's async-pserver
+        staleness.  A session with ``prefetch_depth > 0`` prepares feeds
+        on its worker thread; one with ``async_push > 0`` pushes on its
+        worker, with a ``flush`` barrier before every checkpoint export,
+        every ``test`` pull and at the end of ``train``.  With
+        ``checkpoint_dir`` the tables ride in every checkpoint and
+        restore on ``resume``."""
         event_handler = event_handler or (lambda e: None)
         given = {"warmup": warmup, "validate": validate,
                  "autotune": autotune, "auto_shard": auto_shard,
-                 "master": master, "elastic": elastic,
-                 "sparse_tables": sparse_tables}
+                 "master": master, "elastic": elastic}
+        sess = sparse_tables
+        if sess is not None:
+            # the JAX trainer's refusals, before the ones of the port
+            if elastic is not None:
+                raise NotImplementedError(
+                    "train(sparse_tables=..., elastic=...): the elastic "
+                    "resize merge has no in-process sparse-row story; "
+                    "host the rows outside the worker fleet instead "
+                    "(a RemoteSparseTable against python -m "
+                    "paddle_tpu_torch pserver)")
+            if warmup:
+                raise ValueError(
+                    "train(sparse_tables=..., warmup=True) is not "
+                    "supported: warmup compiles from a raw batch without "
+                    "the session's rows feeds")
         for name, value in given.items():
             if value not in (None, False):
                 raise NotImplementedError(
                     f"trainer.SGD.train({name}=...) is not ported yet: "
                     f"ROADMAP.md Queue A {_NOT_PORTED[name]}")
+        if sess is not None:
+            sess.bind(self.main_program)
         if not checkpoint_dir:
             # an operator who asked for checkpoints must never run
             # silently unprotected
@@ -174,13 +207,22 @@ class SGD:
                     opt_fp["learning_rate"] = float(lr)
                 ckpt = Checkpointer(checkpoint_dir, self.exe,
                                     save_every_n_steps=save_every_n_steps,
-                                    handle_signals=handle_signals)
+                                    handle_signals=handle_signals,
+                                    sparse=sess)
                 ts = None
                 if resume:
                     ts = ckpt.restore(
                         global_scope(),
                         expect_seed=self.main_program.random_seed,
                         expect_optimizer=opt_fp)
+                if ts is not None and sess is not None and \
+                        not sess.restore_from_scope(global_scope()):
+                    # the tables rode the checkpoint as __sparse__/ vars
+                    raise ValueError(
+                        "train(resume=True, sparse_tables=...): the "
+                        "restored checkpoint carries no sparse-table "
+                        "state; it was written by a run without "
+                        "sparse_tables")
                 if ts is not None:
                     # the step counter places every random op's stream
                     self.exe._step = ts.exe_step
@@ -190,7 +232,9 @@ class SGD:
             self.checkpointer = ckpt
             self._loop(reader, num_passes, event_handler, feeding,
                        feed_list, steps_per_dispatch, pipeline, ckpt,
-                       start_pass, resume_skip)
+                       start_pass, resume_skip, sess)
+            if sess is not None:
+                sess.flush()             # the async-push barrier
             if ckpt is not None:
                 ckpt.final_save(num_passes)
         finally:
@@ -198,8 +242,28 @@ class SGD:
                 ckpt.close()
 
     def _loop(self, reader, num_passes, event_handler, feeding, feed_list,
-              steps_per_dispatch, pipeline, ckpt, start_pass, resume_skip):
+              steps_per_dispatch, pipeline, ckpt, start_pass, resume_skip,
+              sess=None):
         fetch = [self.cost] + self.extra
+        n_fetch = len(fetch)
+        # a sparse session's <rows>@GRAD fetches ride after the model's;
+        # finish() pushes them and strips them before the events
+        sfetch = fetch + (sess.grad_fetch_list if sess is not None else [])
+
+        def finish(out):
+            if sess is None:
+                return out
+            sess.complete(out[n_fetch:])
+            return out[:n_fetch]
+
+        def prepared(feed_iter):
+            """The feeds with the session's rows: on its worker thread
+            when it prefetches, else inline."""
+            if sess is None:
+                return feed_iter
+            if getattr(sess, "prefetch_depth", 0) > 0:
+                return sess.prefetch_feeds(feed_iter)
+            return (sess.prepare_feed(f) for f in feed_iter)
         # the global batch cursor (across passes and restarts): the index
         # of the trainer.step and reader.item fault sites, so a resumed
         # run never fires an entry it already passed
@@ -271,12 +335,13 @@ class SGD:
                 r, skip = pass_reader(pass_id)
                 src = prefetch(r, buffer_size=buf,
                                num_workers=workers) if workers > 0 else r
-                feed_iter = (feeder.feed(b) for b in src())
+                feed_iter = prepared(feeder.feed(b) for b in src())
                 gen = self.exe.run_pipelined(
-                    feed_iter, self.main_program, fetch_list=fetch,
+                    feed_iter, self.main_program, fetch_list=sfetch,
                     steps_per_dispatch=K, prefetch_depth=depth)
                 try:
                     for batch_id, out in enumerate(gen, start=skip):
+                        out = finish(out)
                         event_handler(events.BeginIteration(pass_id,
                                                             batch_id))
                         emit_end(pass_id, batch_id, out)
@@ -294,57 +359,76 @@ class SGD:
         def flush(pass_id, first_id, chunk):
             if len(chunk) == 1:
                 event_handler(events.BeginIteration(pass_id, first_id))
-                out = self.exe.run(self.main_program, feed=chunk[0],
-                                   fetch_list=fetch)
+                out = finish(self.exe.run(self.main_program, feed=chunk[0],
+                                          fetch_list=sfetch))
                 emit_end(pass_id, first_id, out)
                 return
             outs = self.exe.run_steps(
                 len(chunk), self.main_program, feed=stack_feeds(chunk),
-                fetch_list=fetch, feeds_stacked=True)
+                fetch_list=sfetch, feeds_stacked=True)
             for i in range(len(chunk)):
                 event_handler(events.BeginIteration(pass_id, first_id + i))
-                emit_end(pass_id, first_id + i, [o[i] for o in outs])
+                emit_end(pass_id, first_id + i,
+                         finish([o[i] for o in outs]))
 
         for pass_id in range(start_pass, num_passes):
             event_handler(events.BeginPass(pass_id))
             if ckpt is not None:
                 ckpt.resync()
             r, skip = pass_reader(pass_id)
-            if steps_per_dispatch <= 1:
+            if steps_per_dispatch <= 1 and (
+                    sess is None
+                    or getattr(sess, "prefetch_depth", 0) <= 0):
+                # the synchronous rim: pull, step, push a batch
                 for batch_id, batch in enumerate(r(), start=skip):
                     event_handler(events.BeginIteration(pass_id, batch_id))
-                    out = self.exe.run(self.main_program,
-                                       feed=feeder.feed(batch),
-                                       fetch_list=fetch)
+                    feed = feeder.feed(batch)
+                    if sess is not None:
+                        feed = sess.prepare_feed(feed)
+                    out = finish(self.exe.run(self.main_program, feed=feed,
+                                              fetch_list=sfetch))
                     emit_end(pass_id, batch_id, out)
                 event_handler(events.EndPass(pass_id))
                 continue
+            # chunked, or the session's pull-ahead worker: all K pulls of
+            # a chunk precede its dispatch (async-pserver staleness)
+            feed_src = prepared(feeder.feed(b) for b in r())
             chunk, first_id, sig = [], 0, None
-            for batch_id, batch in enumerate(r(), start=skip):
-                feed = feeder.feed(batch)
-                fsig = _feed_signature(feed)
-                if chunk and fsig != sig:
+            try:
+                for batch_id, feed in enumerate(feed_src, start=skip):
+                    fsig = _feed_signature(feed)
+                    if chunk and fsig != sig:
+                        flush(pass_id, first_id, chunk)
+                        chunk = []
+                    if not chunk:
+                        first_id, sig = batch_id, fsig
+                    chunk.append(feed)
+                    if len(chunk) >= steps_per_dispatch:
+                        flush(pass_id, first_id, chunk)
+                        chunk = []
+                if chunk:
                     flush(pass_id, first_id, chunk)
-                    chunk = []
-                if not chunk:
-                    first_id, sig = batch_id, fsig
-                chunk.append(feed)
-                if len(chunk) == steps_per_dispatch:
-                    flush(pass_id, first_id, chunk)
-                    chunk = []
-            if chunk:
-                flush(pass_id, first_id, chunk)
+            finally:
+                feed_src.close()
             event_handler(events.EndPass(pass_id))
 
-    def test(self, reader: Callable, feeding=None, feed_list=None):
+    def test(self, reader: Callable, feeding=None, feed_list=None,
+             sparse_tables=None):
         """Average cost (and extras) over a reader, without updating the
-        parameters: the program pruned to them, in test mode."""
+        parameters: the program pruned to them, in test mode.
+        ``sparse_tables``: the training session, whose tables are read
+        only (no gradient fetch, no push)."""
         feeder = self._feeder(feeding, feed_list)
         test_prog = self.main_program.prune(
             [self.cost] + self.extra).clone(for_test=True)
+        if sparse_tables is not None:
+            sparse_tables.bind(test_prog)
         totals, count = None, 0
         for batch in reader():
-            out = self.exe.run(test_prog, feed=feeder.feed(batch),
+            feed = feeder.feed(batch)
+            if sparse_tables is not None:
+                feed = sparse_tables.prepare_feed(feed, is_test=True)
+            out = self.exe.run(test_prog, feed=feed,
                                fetch_list=[self.cost] + self.extra,
                                is_test=True)
             vals = [np.asarray(o, np.float64) for o in out]

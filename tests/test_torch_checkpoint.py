@@ -419,9 +419,18 @@ def test_two_processes_process_zero_writes(tmp_path):
 
 
 def test_sparse_vars_and_multi_piece_vars_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _cm(tmp_path).save(1, _scope(**{"__sparse__/t/shard0/ids":
-                                        torch.arange(3)}))
+    """A var stored in several pieces (a sharded run's) still raises
+    naming its item.  A sparse table's row group, which raised before
+    the sparse tables were ported, now commits in mode ``sparse`` and
+    comes back as the host array it was."""
+    ids = np.array([3, 7, 9], np.int64)
+    _cm(tmp_path).save(1, _scope(**{"__sparse__/t/shard0/ids": ids}))
+    meta = json.loads((tmp_path / "ckpt-1" / "meta.json").read_text())
+    assert meta["vars"]["__sparse__/t/shard0/ids"]["mode"] == "sparse"
+    back = ptt.Scope()
+    assert _cm(tmp_path).restore(scope=back) == 1
+    got = back.get("__sparse__/t/shard0/ids")
+    assert isinstance(got, np.ndarray) and got.tobytes() == ids.tobytes()
     cm = _cm(tmp_path)
     cm.save(2, _scope(w=torch.arange(4, dtype=torch.float32)))
     meta_path = tmp_path / "ckpt-2" / "meta.json"

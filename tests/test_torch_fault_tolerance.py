@@ -308,7 +308,7 @@ def test_checkpoint_options_require_checkpoint_dir():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("master", "item 8"), ("elastic", "item 8"), ("sparse_tables", "item 8"),
+    ("master", "item 8"), ("elastic", "item 8"),
     ("warmup", "item 6"), ("validate", "item 9"), ("autotune", "item 9"),
     ("auto_shard", "item 7")])
 def test_options_not_ported_raise_naming_their_item(tmp_path, name, item):
@@ -317,6 +317,37 @@ def test_options_not_ported_raise_naming_their_item(tmp_path, name, item):
         tr.train(_reader(), checkpoint_dir=str(tmp_path),
                  **{name: object() if name not in ("warmup", "validate",
                                                    "autotune") else True})
+
+
+def test_sparse_tables_ride_the_checkpoint(tmp_path):
+    """``sparse_tables`` (refused until the sparse tables were ported):
+    the table's rows commit with the model as ``__sparse__/`` groups,
+    full then delta, and a restore gives them back as host arrays."""
+    from paddle_tpu_torch.sparse import SparseSession, SparseTable
+    L = ptt.layers
+    ids = L.data("ids", shape=[1], dtype="int64")
+    emb = L.embedding(ids, size=[32, 4], sparse=True, name="tbl")
+    loss = L.mean(L.square(emb))
+    tr = ptt.trainer.SGD(cost=loss,
+                         update_equation=ptt.optimizer.SGD(0.1), place=CPU)
+    table = SparseTable("tbl", 32, 4, learning_rate=0.1)
+
+    def reader():
+        for b in range(4):
+            yield [(np.array([b * 4 + i]),) for i in range(4)]
+    tr.train(reader, sparse_tables=SparseSession(table),
+             checkpoint_dir=str(tmp_path), save_every_n_steps=2,
+             handle_signals=False)
+    kinds = [c["kind"] for c in tr.checkpointer.manager.commits]
+    assert kinds[0] == "full" and "delta" in kinds
+    assert table.live_rows == 16
+    sc = ptt.Scope()
+    CheckpointManager(str(tmp_path), device="cpu").restore(scope=sc)
+    back = SparseTable("tbl", 32, 4, learning_rate=0.1)
+    back.restore_state_vars({k: sc.get(k) for k in sc.keys()
+                             if k.startswith("__sparse__/")})
+    all_ids = np.arange(32)
+    assert back.pull(all_ids).tobytes() == table.pull(all_ids).tobytes()
 
 
 def test_restore_rejects_checkpoint_without_train_state(tmp_path):

@@ -119,10 +119,14 @@ def test_append_backward_declares_grads_and_respects_no_grad():
         loss2 = ptt.layers.mean(h)
         grads = ptt.backward.calc_gradient(loss2, ["w2"])
     assert [g.name for g in grads] == ["w2@GRAD"]
+    # a lookup_table_sparse op's Rows input (a host table's rows feed)
+    # joins the wrt set tagged for the host update; it raised before the
+    # sparse tables were ported
     main2.global_block().append_op("lookup_table_sparse",
                                    inputs={"Rows": ["w2"]})
-    with pytest.raises(NotImplementedError, match="sparse"):
-        ptt.append_backward(loss2)
+    pairs = ptt.append_backward(loss2)
+    assert [p.name for p, _ in pairs] == ["w2", "fc_1.b_0"]
+    assert main2.global_block().var("w2").is_sparse_rows
 
 
 def test_fetching_a_gradient_matches_jax():
