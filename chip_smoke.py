@@ -172,7 +172,39 @@ Phases, each of which raises on failure (so the script exits non-zero):
              relaunched shards restoring bit-equal from it; F, A at a
              vocab of 10^9 beside the card's memory; no hand-written
              kernel may launch.
-14. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
+14. decode — continuous-batching decode serving at benchmark/decode.py's
+             FULL (vocab 256, hidden 64, 2 layers, 8 slots, max_len 64,
+             24 requests, prompts 4-12 tokens, max_new 4/8/8/48): the
+             continuous/static A/B (gate 1.3x decode tokens/s), each
+             arm's decode tokens/s, TTFT and inter-token p50/p99 and slot
+             occupancy, their tokens bit-equal; then a churned greedy run
+             (a slot relocated between two decode replays) held bit for
+             bit against the recompute oracle, captured and with
+             use_jit=False, and the two arms against each other; one
+             capture per program in the warm-up and no new key, capture,
+             warm-up or miss after it; an injected serving.decode_step
+             transient leaving every token as it was; wall against device
+             busy of a profiled window of captured decode steps; no
+             hand-written kernel may launch.
+15. serving — benchmark/serving.py's load generator over the exported
+             784-2048x3-10 fp32 MLP behind serving.Server (max_batch 32,
+             queue 32, deadline 1 s, 4 s an arm): closed-loop capacity,
+             the shedding arms at 1x and 2x of it, the control (no
+             shedding, unbounded queue, no deadlines) with its queue
+             samples, and the acceptance row (the 2x arm's admitted p99
+             within 2x of the 1x arm's); no hand-written kernel may
+             launch.
+16. sparse_bench — benchmark/checkpoint.py's FULL (vocab 2,000,000, dim
+             16, 4 shards, 2,000 of 400,000 resident rows a task):
+             commit_ab (delta against full commits, gates 5x wall and 10x
+             bytes, both tips restored bit-equal) and restore_chain (a
+             base and 8 deltas against one full save, shas equal);
+             benchmark/pserver.py's FULL on shard processes: wire_ab
+             (binary against naive JSON frames, gate 3x, both arms' rows
+             bit-equal), remote_pull_latency and shard_pipelining_ab; the
+             arms that wait for ROADMAP items 8c and 9 print their
+             refusals; no hand-written kernel may launch.
+17. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
              counterpart): holds the Triton grid copy and axpy kernels
              and the bulk-copy (TMA) DMA copy against their plain
              versions at each of the probe's four sizes and at two
@@ -4144,6 +4176,20 @@ def kernel_counts():
             "flash_attn": dict(fa.launches), "stream": dict(bw.launches)}
 
 
+def no_kernel_launched(tag, counts0, t_phase, card):
+    """Print the K1-K5 launches since ``counts0`` (``kernel_counts()``)
+    and the phase's seconds; raise if any kernel ran."""
+    launched = {k: {f: n - counts0[k].get(f, 0) for f, n in v.items()
+                    if n != counts0[k].get(f, 0)}
+                for k, v in kernel_counts().items()}
+    print(f"[{tag}] hand-written kernel launches in the phase {launched} "
+          f"(K1-K5: 0 expected); phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    if any(launched.values()):
+        raise RuntimeError(f"chip_smoke: [{tag}] launched hand-written "
+                           f"kernels {launched}; the path has none")
+
+
 def sparse_arm_a(ctr, cfg, card):
     """Arm A: the runner's sparse arm (3 warm-up steps, 3 x 10 timed),
     captured; then a profiled window of 5 steps for device busy."""
@@ -4692,16 +4738,381 @@ def phase_sparse(seed, card, cfg=None):
     sparse_arm_d(ctr, cfg, card, feeds)
     sparse_arm_e(ctr, cfg, card, feeds)
     sparse_arm_f(ctr, cfg, card, a_row)
-    counts = kernel_counts()
-    launched = {k: {f: n - counts0[k].get(f, 0) for f, n in v.items()
-                    if n != counts0[k].get(f, 0)} for k, v in counts.items()}
-    print(f"[sparse] hand-written kernel launches in the phase "
-          f"{launched} (K1-K5: 0 expected); phase "
-          f"{time.perf_counter() - t_phase:.1f} s; {card}")
-    if any(launched.values()):
-        raise RuntimeError(f"chip_smoke: [sparse] launched hand-written "
-                           f"kernels {launched}; the path has none")
+    no_kernel_launched("sparse", counts0, t_phase, card)
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# [decode] continuous-batching decode serving (benchmark/decode.py's FULL)
+# ---------------------------------------------------------------------------
+DECODE_ORACLE_STEPS = 8     # token steps of the churned greedy run
+DECODE_PROFILE_STEPS = 20   # decode steps in the profiled window
+DECODE_PROMPT = [3, 7, 1, 9, 14, 2]
+# co-resident slots of the greedy run; slot 0 is evicted at step 3 and
+# takes DECODE_CHURN (a relocation between two decode replays)
+DECODE_COHAB = {0: [2, 5], 2: [9, 9, 1, 4, 4], 5: [17, 30, 6]}
+DECODE_CHURN = [8, 8, 4, 11]
+
+
+def decode_greedy(eng, slot, prompt, n_steps, cohab, churn_at,
+                  churn_prompt):
+    """Greedy decode of ``prompt`` in ``slot`` beside the ``cohab``
+    prompts, advanced in lockstep; at step ``churn_at`` the first cohab
+    slot is evicted and ``churn_prompt`` admitted there.  Returns
+    (tokens, [n_steps + 1, V] logit rows) of ``slot``."""
+    S = eng.slots
+    eng.reset()
+    cur = np.zeros(S, np.int64)
+    lens = np.zeros(S, np.int32)
+    act = np.zeros(S, np.float32)
+    tok, row = eng.prefill(slot, prompt)
+    rows, toks = [row], [tok]
+    cur[slot], lens[slot], act[slot] = tok, len(prompt), 1.0
+    for s, p in cohab.items():
+        t2, _ = eng.prefill(s, p)
+        cur[s], lens[s], act[s] = t2, len(p), 1.0
+    for k in range(n_steps):
+        if k == churn_at:
+            victim = next(iter(cohab))
+            act[victim] = 0.0
+            t3, _ = eng.prefill(victim, churn_prompt)
+            cur[victim], lens[victim], act[victim] = \
+                t3, len(churn_prompt), 1.0
+        logits = eng.decode_step(cur, lens, act)
+        for s in range(S):
+            if act[s]:
+                nxt = int(np.asarray(logits[s, 0]).argmax())
+                if s == slot:
+                    rows.append(np.asarray(logits[s, 0], np.float32))
+                    toks.append(nxt)
+                cur[s] = nxt
+                lens[s] += 1
+    return toks, np.stack(rows)
+
+
+def decode_oracle(eng, prompt, toks, rows):
+    """Recompute each token step from zeroed slabs (prefill, then the
+    recorded prefix through the one-token program) in another slot,
+    beside another neighbour; returns the steps whose logits differ in
+    any bit from the incremental run's ``rows``."""
+    slot, bad = eng.slots - 2, []
+    for t in range(len(rows)):
+        eng.reset()
+        first, row = eng.prefill(slot, prompt)
+        eng.prefill(0, [6, 2, 2, 1, 5])
+        if t:
+            cur = np.zeros(eng.slots, np.int64)
+            lens = np.zeros(eng.slots, np.int32)
+            act = np.zeros(eng.slots, np.float32)
+            lens[slot], act[slot] = len(prompt), 1.0
+            for k in range(t):
+                cur[slot] = toks[k]
+                logits = eng.decode_step(cur, lens, act)
+                lens[slot] += 1
+            row = np.asarray(logits[slot, 0], np.float32)
+        if first != toks[0] or row.tobytes() != rows[t].tobytes():
+            bad.append(t)
+    return bad
+
+
+def decode_engine(cfg, use_jit=True, weights=None, name="smoke"):
+    from paddle_tpu_torch.serving.decode import DecodeEngine
+    eng = DecodeEngine(cfg["vocab"], hidden_dim=cfg["hidden"],
+                       n_layers=cfg["n_layers"], slots=cfg["slots"],
+                       max_len=cfg["max_len"], eos_id=None, seed=7,
+                       name=name, use_jit=use_jit)
+    if weights is not None:
+        eng.load_numpy_state(weights)
+    return eng
+
+
+def decode_exact(cfg, card):
+    """Incremental decode against the recompute oracle and captured
+    against use_jit=False on the card, bit for bit; one capture per
+    program and no new key after warm-up."""
+    stats = capture_stats()
+    runs, weights = {}, None
+    for use_jit in (True, False):
+        eng = decode_engine(cfg, use_jit, weights)
+        if weights is None:
+            weights = {n: eng.scope.get(n).cpu().numpy()
+                       for n in eng.param_names()}
+        s0 = stats.snapshot()
+        eng.warmup()
+        s1 = stats.snapshot()
+        keys = set(eng.keys)
+        toks, rows = decode_greedy(eng, 1, DECODE_PROMPT,
+                                   DECODE_ORACLE_STEPS, DECODE_COHAB, 3,
+                                   DECODE_CHURN)
+        bad = decode_oracle(eng, DECODE_PROMPT, toks, rows)
+        s2 = stats.snapshot()
+        runs[use_jit] = (toks, rows)
+        arm = "captured" if use_jit else "use_jit=False"
+        print(f"[decode] {arm}: the churned greedy run ({len(toks)} "
+              f"tokens of slot 1 beside slots {sorted(DECODE_COHAB)}, slot "
+              f"0 relocated at step 3) against the recompute oracle in "
+              f"slot {eng.slots - 2}: {len(rows) - len(bad)} of "
+              f"{len(rows)} steps bit-equal; capture keys {len(keys)} "
+              f"after warm-up, {len(eng.keys)} after the runs; warm-up "
+              f"{ {k: s1[k] - s0[k] for k in ('captures', 'warmups')} }, "
+              f"runs {({k: s2[k] - s1[k] for k in ('captures', 'warmups', 'misses', 'replays')})}; "
+              f"{card}")
+        if bad:
+            raise RuntimeError(f"chip_smoke: [decode] {arm}: incremental "
+                               f"decode differs from the recompute oracle "
+                               f"at token steps {bad}")
+        if eng.keys != keys or len(keys) != 2:
+            raise RuntimeError(f"chip_smoke: [decode] {arm}: capture keys "
+                               f"{len(keys)} after warm-up, "
+                               f"{len(eng.keys)} after; want 2 and 2")
+        if use_jit and (s1["captures"] - s0["captures"] != 2
+                        or len(eng.executor.graph_pools()) != 2
+                        or any(s2[k] != s1[k] for k in
+                               ("captures", "warmups", "misses"))
+                        or s2["uncaptured"] != s1["uncaptured"]):
+            raise RuntimeError(f"chip_smoke: [decode] captured: want one "
+                               f"capture per program in the warm-up and "
+                               f"none, no warm-up, miss or uncaptured step "
+                               f"after it; got {s0} -> {s1} -> {s2}, "
+                               f"{len(eng.executor.graph_pools())} captured "
+                               f"steps")
+        if use_jit:
+            decode_profile(eng, cfg, card)
+        eng.executor.close()
+    (t1, r1), (t2, r2) = runs[True], runs[False]
+    if t1 != t2 or r1.tobytes() != r2.tobytes():
+        raise RuntimeError("chip_smoke: [decode] the captured engine's "
+                           "logits differ from use_jit=False's")
+    print(f"[decode] captured against use_jit=False: {len(r1)} logits rows "
+          f"of {r1.shape[1]} bit-equal, tokens {t1}; {card}")
+
+
+def decode_profile(eng, cfg, card):
+    """Wall against device busy of the captured decode step with every
+    slot live, unprofiled and in a profiled window."""
+    S = eng.slots
+    eng.reset()
+    cur = np.zeros(S, np.int64)
+    lens = np.zeros(S, np.int32)
+    act = np.ones(S, np.float32)
+    for s in range(S):
+        cur[s], _ = eng.prefill(s, DECODE_PROMPT[: 2 + s % 4])
+        lens[s] = 2 + s % 4
+
+    def step():
+        logits = eng.decode_step(cur, lens, act)
+        lens[:] += 1
+        return logits
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_PROFILE_STEPS):
+        step()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_PROFILE_STEPS
+    lens[:] = 2 + np.arange(S) % 4
+    prof, pwall = profiled(step, runs=DECODE_PROFILE_STEPS)
+    rows = print_profile("decode", f"a profiled window of "
+                         f"{DECODE_PROFILE_STEPS} captured decode steps "
+                         f"({S} live slots, hidden {cfg['hidden']}, "
+                         f"{cfg['n_layers']} layers, vocab {cfg['vocab']}; "
+                         f"{card})",
+                         prof, pwall, DECODE_PROFILE_STEPS, own=None)
+    busy = sum(r[0] for r in rows)
+    print(f"[decode] the captured decode step unprofiled: {wall_ms:.4f} ms "
+          f"a step ({DECODE_PROFILE_STEPS} steps, each a feed copy, one "
+          f"graph replay and the logits' copy to the host), device busy "
+          f"{busy:.4f} ms, idle share {1 - busy / wall_ms:.3f}; the trace "
+          f"kept {len(device_records(prof, True))} of the {LEAD_KERNELS} "
+          f"lead-in kernels; {card}")
+
+
+def decode_transient(dec, cfg, card):
+    """A transient injected at serving.decode_step inside the retry rim
+    leaves every request's tokens bit-equal to an uninjected window."""
+    from paddle_tpu_torch.testing import faultinject as fi
+    rt = dec.build_pool(cfg, "continuous")
+    reqs = dec.trace(cfg)
+    try:
+        _, base = dec.run_window(rt, reqs)
+        fi.configure("serving.decode_step@5=transient")
+        try:
+            _, inj = dec.run_window(rt, reqs)
+            fired = fi.fired("serving.decode_step")
+        finally:
+            fi.clear()
+        state = rt.breaker_state()
+    finally:
+        rt.shutdown(drain=True, timeout=60.0)
+    same = [a["tokens"] for a in base] == [b["tokens"] for b in inj]
+    print(f"[decode] serving.decode_step@5=transient: fired {fired}, "
+          f"{len(reqs)} requests' tokens bit-equal to the uninjected "
+          f"window: {same}, breaker {state}; {card}")
+    if fired != 1 or not same or state != "closed":
+        raise RuntimeError("chip_smoke: [decode] an injected transient at "
+                           "the decode step changed the tokens or the "
+                           "breaker")
+
+
+def phase_decode(seed, card, cfg=None):
+    """benchmark/decode.py's FULL on the card (vocab 256, hidden 64, 2
+    layers, 8 slots, max_len 64, 24 requests, prompts 4-12, max_new
+    4/8/8/48): the continuous/static A/B and each arm's rows, then the
+    exact checks, an injected transient and a profiled decode step."""
+    from paddle_tpu_torch.benchmark import decode as dec
+    t_phase = time.perf_counter()
+    cfg = dict(cfg or dec.FULL)
+    counts0 = kernel_counts()
+    t0 = time.perf_counter()
+    row = dec.run_ab(cfg, quiet=True)
+    ab = row["ab"]
+    for mode in ("static", "continuous"):
+        r = row[mode]
+        print(f"[decode] {mode}: {r['decode_tokens_per_s']:.1f} decode "
+              f"tokens/s ({r['tokens']} tokens in {r['wall_s']:.4f} s, "
+              f"{r['decode_steps']} decode steps), TTFT p50 "
+              f"{r['ttft_ms']['p50']:.3f} / p99 {r['ttft_ms']['p99']:.3f} "
+              f"ms, inter-token p50 {r['inter_token_ms']['p50']:.3f} / p99 "
+              f"{r['inter_token_ms']['p99']:.3f} ms, slot occupancy "
+              f"{r['slot_occupancy']:.4f}; {card}")
+    print(f"[decode] A/B continuous against static ({len(ab['pair_ratios'])}"
+          f" pairs of the {cfg['n_requests']}-request window): median "
+          f"ratio {ab['speedup']:.3f} (pairs "
+          f"{[round(x, 3) for x in ab['pair_ratios']]}), gate "
+          f"{ab['min_speedup']}x decode tokens/s: "
+          f"{'met' if ab['accepted'] else 'not met'}"
+          f"{'' if ab['accepted'] else ' (' + ab['refusal_reason'] + ')'}; "
+          f"arms_tokens_identical {row['arms_tokens_identical']}; capture "
+          f"keys {row['capture_keys']}; {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    if not row["arms_tokens_identical"]:
+        raise RuntimeError("chip_smoke: [decode] the continuous and static "
+                           "arms generated different tokens")
+    decode_exact(cfg, card)
+    decode_transient(dec, cfg, card)
+    no_kernel_launched("decode", counts0, t_phase, card)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# [serving] the load generator (benchmark/serving.py)
+# ---------------------------------------------------------------------------
+SERVING_FACTORS = (1.0, 2.0)
+
+
+def phase_serving(seed, card):
+    """benchmark/serving.py on the card at its widths and durations
+    (784-2048x3-10 fp32 artifact, max_batch 32, queue 32, deadline 1 s,
+    4 s an arm): closed-loop capacity, the shedding arms at 1x and 2x of
+    it, the control (no shedding, unbounded queue, no deadlines), and
+    the acceptance row."""
+    from paddle_tpu_torch.benchmark import serving
+    t_phase = time.perf_counter()
+    counts0 = kernel_counts()
+    cfg = dict(serving.FULL, factors=SERVING_FACTORS)
+    row = serving.run_all(cfg, quiet=True)
+    cap, sat = row["closed_loop"], row["saturation_probe"]
+    print(f"[serving] closed loop ({cap['workers']} workers, "
+          f"{cap['duration_s']:.3f} s): {cap['req_per_s']:.1f} req/s "
+          f"({cap['served']} served, {cap['worker_errors']} worker "
+          f"errors); saturation probe at {sat['offered_per_s']:.1f} req/s "
+          f"offered: {sat['served_per_s']:.1f} served/s; capacity (1x) "
+          f"{row['capacity_req_per_s']:.1f} req/s; {card}")
+    for a in row["open_loop"] + [row["control"]]:
+        p = {q: ("-" if a[f"latency_ms_{q}"] is None
+                 else f"{a[f'latency_ms_{q}']:.2f}")
+             for q in ("p50", "p90", "p99")}
+        extra = "" if "pending_at_stop" not in a else \
+            (f", queue at stop {a['pending_at_stop']}, samples "
+             f"{[(round(t, 2), d) for t, d in a['queue_depth_samples']]}")
+        print(f"[serving] {a['label']}: offered {a['offered_per_s']:.1f} "
+              f"req/s ({a['offered']}), served {a['served_per_s']:.1f}/s "
+              f"({a['served']}), admitted latency p50 {p['p50']} / p90 "
+              f"{p['p90']} / p99 {p['p99']} ms, shed {a['shed']}, deadline "
+              f"expired {a['deadline_expired']}, errors {a['errors']}"
+              f"{extra}; {card}")
+    acc = row["acceptance"]
+    ratio = acc["p99_ratio_2x_over_1x"]
+    print(f"[serving] acceptance: the shedding arm's admitted p99 at 2x "
+          f"{acc['p99_2x_shed_ms']} ms against 1x {acc['p99_1x_ms']} ms, "
+          f"ratio {'-' if ratio is None else f'{ratio:.3f}'} (gate <= 2): "
+          f"{'met' if acc['bounded_under_overload'] else 'not met'}; the "
+          f"control's p99 {acc['p99_2x_control_ms']} ms, "
+          f"{acc['control_collapse_factor']}x the 1x arm's; {card}")
+    no_kernel_launched("serving", counts0, t_phase, card)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# [sparse_bench] the sparse tier's benchmarks (checkpoint.py, pserver.py)
+# ---------------------------------------------------------------------------
+def gate_line(ab):
+    return (f"median ratio {ab['speedup']:.3f} (pairs "
+            f"{[round(x, 3) for x in ab['pair_ratios']]}), gate "
+            f"{ab['min_speedup']}x: "
+            f"{'met' if ab['accepted'] else 'not met'}")
+
+
+def phase_sparse_bench(seed, card):
+    """benchmark/checkpoint.py's and benchmark/pserver.py's FULL: the
+    commit A/B and the restore chain (sha equality is hard); the wire
+    A/B, remote pull latency and shard pipelining on shard processes."""
+    from paddle_tpu_torch.benchmark import checkpoint, pserver
+    t_phase = time.perf_counter()
+    counts0 = kernel_counts()
+    t0 = time.perf_counter()
+    ck = checkpoint.run_all(quiet=True)
+    cab, rc = ck["commit_ab"], ck["restore_chain"]
+    cfg = checkpoint.FULL
+    print(f"[sparse_bench] checkpoint commit_ab (vocab {cfg['vocab']}, dim "
+          f"{cfg['dim']}, {cfg['num_shards']} shards, "
+          f"{cfg['touched_per_task']} of {cfg['resident_rows']} resident "
+          f"rows touched a task): delta against full {gate_line(cab)}; "
+          f"full {[round(w * 1e3, 1) for w in cab['default_windows']]} ms, "
+          f"delta {[round(w * 1e3, 1) for w in cab['candidate_windows']]} "
+          f"ms a commit; bytes ratio {cab['bytes_ratio']:.2f} (gate >= "
+          f"10: {'met' if cab['bytes_accepted'] else 'not met'}; "
+          f"{cab['full_bytes_per_commit'][0]:.0f} against "
+          f"{cab['delta_bytes_per_commit'][0]:.0f} bytes); both tips "
+          f"restore bit-equal: {cab['restore_bit_identical']}; {card}")
+    print(f"[sparse_bench] checkpoint restore_chain: a base and "
+          f"{rc['chain_len']} deltas restore in {rc['chain_restore_ms']:.1f}"
+          f" ms against one full save's {rc['full_restore_ms']:.1f} ms "
+          f"({rc['replay_overhead_x']:.3f}x), shas equal "
+          f"{rc['bit_identical']}; elastic_tasks: "
+          f"{ck['elastic_tasks']}; {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    if not (cab["restore_bit_identical"] and rc["bit_identical"]):
+        raise RuntimeError("chip_smoke: [sparse_bench] a restored "
+                           "checkpoint's sha differs from the full save's")
+    t0 = time.perf_counter()
+    ps = pserver.run_all(quiet=True)
+    w, lat, pipe = (ps["wire_ab"], ps["remote_pull_latency"],
+                    ps["shard_pipelining_ab"])
+    cfg = pserver.FULL
+    print(f"[sparse_bench] pserver wire_ab ({w['rows_per_window']} rows a "
+          f"window, one shard process): binary against naive JSON "
+          f"{gate_line(w)}; naive "
+          f"{[round(x * 1e3, 2) for x in w['default_windows']]} ms, binary "
+          f"{[round(x * 1e3, 2) for x in w['candidate_windows']]} ms; "
+          f"arms_bit_identical {w['arms_bit_identical']}; {card}")
+    print(f"[sparse_bench] pserver remote_pull_latency ({lat['pull_batch']} "
+          f"ids, {lat['reps']} pulls): remote p50 "
+          f"{lat['remote_ms']['p50']:.3f} / p99 {lat['remote_ms']['p99']:.3f}"
+          f" ms, in process p50 {lat['in_process_ms']['p50']:.3f} / p99 "
+          f"{lat['in_process_ms']['p99']:.3f} ms, wire overhead p50 "
+          f"{lat['wire_overhead_p50_ms']:.3f} ms; {card}")
+    print(f"[sparse_bench] pserver shard_pipelining_ab "
+          f"({pipe['rows_per_window']} rows a window, "
+          f"{pipe['effective_cores']} cores): 2 shards against 1 "
+          f"{gate_line(pipe)}; trace_overhead_ab: "
+          f"{ps['trace_overhead_ab']}; {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    if not w["arms_bit_identical"]:
+        raise RuntimeError("chip_smoke: [sparse_bench] the naive and binary "
+                           "wire arms left different rows")
+    no_kernel_launched("sparse_bench", counts0, t_phase, card)
 
 
 # ---------------------------------------------------------------------------
@@ -5046,6 +5457,9 @@ def main():
     inf_entry = phase_inference(args.seed, card)
     torch.cuda.empty_cache()
     phase_sparse(args.seed, card)
+    phase_decode(args.seed, card)
+    phase_serving(args.seed, card)
+    phase_sparse_bench(args.seed, card)
     bw_entries, _ = phase_bandwidth(args.seed, card)
 
     # bf16: the served path and the AMP step; fp32: the served forward's

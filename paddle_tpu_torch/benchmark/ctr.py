@@ -22,7 +22,7 @@ tiny form).  Rows, each beside the card's name and power limit:
   training loop (``steady``, gate 1.5x), fresh-table pulls
   (``cold_init``) and the synchronous rim against pull-ahead prefetch
   with async pushes (``overlap``), each the median of per-pair ratios
-  with its raw windows (:func:`paired_ab`);
+  with its raw windows (``benchmark.harness.paired_ab``);
 * ``cache``: the hot-rows cache's hit rate under read-only Zipf
   traffic (the serving path; host only).
 
@@ -43,11 +43,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import sys
 import time
 
 import numpy as np
+
+from .harness import device_label, paired_ab, write_results
 
 # The JAX runner's premise: a per-device HBM share budgeted for
 # embeddings, which the big table's dense form exceeds.  Not this card's.
@@ -93,15 +93,6 @@ SMOKE = {
 }
 
 LEARNING_RATE = 0.05
-
-
-def device_label(place) -> str:
-    """What a row ran on: the card's name and power limit as nvidia-smi
-    gives them, or ``cpu``."""
-    if place.device().type != "cuda":
-        return "cpu"
-    from .bandwidth import card_line
-    return card_line()
 
 
 def _place(place):
@@ -271,42 +262,6 @@ def run_dense_control(cfg, place=None, quiet=False, feeds=None):
     if not quiet:
         print(json.dumps({"arm": "dense_control", **row}), flush=True)
     return row, exe, loss
-
-
-def paired_ab(measure, default_config, candidate_config, *, pairs=5,
-              warmup=1, min_speedup=1.10, min_winning_fraction=0.75):
-    """Alternating default/candidate windows, the verdict by the median
-    of the per-pair time ratios with a noise gate (the port's copy of
-    ``paddle_tpu/tuning/search.py:258-304``).  Returns the verdict with
-    the raw windows."""
-    for _ in range(max(0, warmup)):
-        measure(dict(default_config))
-        measure(dict(candidate_config))
-    d_windows, c_windows = [], []
-    for _ in range(max(2, pairs)):
-        t0 = time.perf_counter()
-        measure(dict(default_config))
-        d_windows.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        measure(dict(candidate_config))
-        c_windows.append(time.perf_counter() - t0)
-    ratios = [d / c for d, c in zip(d_windows, c_windows)]
-    med = float(np.median(ratios))
-    winning = sum(1 for r in ratios if r > 1.0) / len(ratios)
-    accepted = med >= min_speedup and winning >= min_winning_fraction
-    if accepted:
-        reason = None
-    elif med < min_speedup:
-        reason = (f"median pair ratio {med:.3f} < min_speedup "
-                  f"{min_speedup}: inside the noise band")
-    else:
-        reason = (f"only {winning:.0%} of pairs favor the candidate "
-                  f"(< {min_winning_fraction:.0%})")
-    return {"speedup": med, "pair_ratios": ratios,
-            "default_windows": d_windows, "candidate_windows": c_windows,
-            "min_speedup": min_speedup,
-            "min_winning_fraction": min_winning_fraction,
-            "accepted": bool(accepted), "refusal_reason": reason}
 
 
 def _train_window(sess, exe, prog, loss_name, feeds, scope):
@@ -483,16 +438,8 @@ def main(argv=None):
     row = run_all(smoke=args.smoke,
                   place=CPUPlace() if args.device == "cpu" else None)
     print(json.dumps(row, indent=1))
-    out = args.out or (None if args.smoke else os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__)))), "build", "ctr_results.json"))
-    if out:
-        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-        with open(out, "w") as f:
-            json.dump({"benchmark": "ctr_sparse_parameter_server",
-                       "device": row["device"], "rows": [row]}, f,
-                      indent=1)
-        print(f"# wrote {out}", file=sys.stderr)
+    write_results(args.out, args.smoke, "ctr_results.json",
+                  "ctr_sparse_parameter_server", row)
     return row
 
 

@@ -22,8 +22,10 @@ the median of ``reps`` timed ones.  One JSON line per config:
 MKL-DNN, as ``ref_source`` says) in the same unit, or null; no figure
 here is a TPU one.  ``--device cpu`` runs on the CPU (tiny sizes are
 ``run_config(sizes=...)``'s business).  ``--model input_pipeline`` runs
-``benchmark.input_pipeline`` and ``--model ctr`` ``benchmark.ctr``; the
-JAX runner's other delegates are not ported.
+``benchmark.input_pipeline``, and ``ctr``, ``decode``, ``pserver`` and
+``checkpoint`` run the port's runner of that name (``--smoke`` for their
+tiny sizes); the JAX runner's ``compile_cache`` and ``autotune``
+delegates are not ported.
 """
 from __future__ import annotations
 
@@ -68,11 +70,6 @@ NOT_PORTED = {
     "compile_cache": "ROADMAP Queue A item 6 (the disk layer of "
                      "core/compile_cache.py)",
     "autotune": "ROADMAP Queue A item 9 (tuning/)",
-    "decode": "ROADMAP Queue A item 8 (serving's decode.py)",
-    "pserver": "ROADMAP Queue A item 8 (benchmark/pserver.py, the wire "
-               "tier's A/B and chaos rounds)",
-    "checkpoint": "ROADMAP Queue A item 8 (benchmark/checkpoint.py's "
-                  "A/B commits the sparse tables' dirty rows)",
 }
 
 
@@ -251,9 +248,11 @@ def main(argv=None):
                     help="model config (alexnet, googlenet, smallnet, "
                          "resnet50, vgg19, lstm_h<hidden>, seq2seq), or "
                          "'input_pipeline' for the naive-vs-pipelined "
-                         "wide_deep A/B")
+                         "wide_deep A/B, or a runner: ctr, decode, "
+                         "pserver, checkpoint")
     ap.add_argument("--smoke", action="store_true",
-                    help="input_pipeline and ctr only: tiny sizes")
+                    help="input_pipeline, ctr, decode, pserver and "
+                         "checkpoint only: tiny sizes")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--iters", type=int, default=None,
                     help="steps per timed window (default: 60 for the "
@@ -274,10 +273,22 @@ def main(argv=None):
         raise NotImplementedError(
             f"benchmark.run --model {args.model} is not ported yet: "
             f"{NOT_PORTED[args.model]}")
+    smoke = ["--smoke"] if args.smoke else []
     if args.model == "ctr":
         from .ctr import main as ctr_main
-        ctr_main((["--smoke"] if args.smoke else [])
-                 + ["--device", args.device])
+        ctr_main(smoke + ["--device", args.device])
+        return 0
+    if args.model == "decode":
+        from .decode import main as decode_main
+        decode_main(smoke + ["--device", args.device])
+        return 0
+    if args.model == "pserver":
+        from .pserver import main as pserver_main
+        pserver_main(smoke)
+        return 0
+    if args.model == "checkpoint":
+        from .checkpoint import main as checkpoint_main
+        checkpoint_main(smoke)
         return 0
     if args.model == "input_pipeline":
         from .input_pipeline import run_workload

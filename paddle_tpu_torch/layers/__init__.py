@@ -13,7 +13,7 @@ from .control_flow import increment, less_than, StaticRNN  # noqa: F401
 from .ops import (sqrt, square, sign, sigmoid, tanh, exp, log,  # noqa: F401
                   floor, ceil, reciprocal, pow, elementwise_binary_dispatch)
 from .generation import (BeamSearchDecoder, get_beam_hook,  # noqa: F401
-                         register_beam_hook)
+                         register_beam_hook, attention_with_cache)
 
 __all__ = ["data"] + list(_nn_all) + [
     "sums", "fill_constant", "fill_constant_batch_size_like", "gather",
@@ -21,4 +21,4 @@ __all__ = ["data"] + list(_nn_all) + [
     "StaticRNN", "sqrt", "square", "sign", "sigmoid", "tanh", "exp", "log",
     "floor", "ceil", "reciprocal", "pow", "elementwise_binary_dispatch",
     "BeamSearchDecoder",
-    "get_beam_hook", "register_beam_hook"]
+    "get_beam_hook", "register_beam_hook", "attention_with_cache"]

@@ -1,6 +1,5 @@
-"""Beam-search generation (counterpart of ``paddle_tpu/layers/generation.py:
-76-205``, without ``attention_with_cache``, which comes with the
-decode-serving slice).
+"""Beam-search generation and the decode cache's attention (counterpart of
+``paddle_tpu/layers/generation.py:40-205``).
 
 The decode loop is one ``beam_search`` op holding the user's per-step
 sub-block (the machinery of the ``rnn`` op): beams are flattened into the
@@ -27,7 +26,33 @@ import itertools
 from ..core import unique_name
 from ..layer_helper import LayerHelper
 
-__all__ = ["BeamSearchDecoder", "register_beam_hook", "get_beam_hook"]
+__all__ = ["BeamSearchDecoder", "register_beam_hook", "get_beam_hook",
+           "attention_with_cache"]
+
+
+def attention_with_cache(q, k, v, cache_k, cache_v, cache_len, write_mask,
+                         scale=0.0, name=None):
+    """Causal attention over fixed-shape KV-cache slabs, the incremental
+    decode's building block (``ops/generation_ops.py``).
+
+    ``q``/``k``/``v``: [B, Tq, D] projections of this dispatch.
+    ``cache_k``/``cache_v``: [B, Tmax, D] persistable slab vars; the op
+    appends this dispatch's K/V at each row's ``cache_len`` and writes the
+    slabs back to the same vars, so the executor carries them as state
+    from dispatch to dispatch.  ``cache_len``: [B] int32 feed (the host
+    scheduler owns lengths).  ``write_mask``: [B] float32; rows <= 0 leave
+    their slab rows as they were.  Returns the [B, Tq, D] output."""
+    helper = LayerHelper("attention_with_cache", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype, q.shape)
+    helper.append_op(
+        type="attention_with_cache",
+        inputs={"Q": [q], "K": [k], "V": [v],
+                "CacheK": [cache_k], "CacheV": [cache_v],
+                "Len": [cache_len], "WriteMask": [write_mask]},
+        outputs={"Out": [out],
+                 "CacheKOut": [cache_k], "CacheVOut": [cache_v]},
+        attrs={"scale": float(scale)})
+    return out
 
 # Per-step hooks live in a registry so the op's attr stays a
 # JSON-serializable name.

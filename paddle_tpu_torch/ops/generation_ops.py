@@ -1,6 +1,7 @@
-"""Beam search (counterpart of ``beam_search``, ``beam_search_decode`` and
-the ``recurrent`` alias in ``paddle_tpu/ops/generation_ops.py:15-144``;
-see ``layers/generation.py`` for the decoder that builds the op).
+"""Beam search and the decode cache's attention (counterpart of
+``beam_search``, ``beam_search_decode``, the ``recurrent`` alias and
+``attention_with_cache`` in ``paddle_tpu/ops/generation_ops.py:15-209``;
+see ``layers/generation.py`` for the layers that build the ops).
 
 The JAX lowering scans the step sub-block with ``lax.scan`` over
 ``max_len`` steps; the port interprets it in a child ``Env`` once per
@@ -15,9 +16,18 @@ Ties.  ``lax.top_k`` puts the lower index first among equal values;
 64-bit key instead, the float's order-preserving bits above the
 complement of its index, so the K largest come out sorted by value and,
 among equal values, by index: the same rule on the CPU and on a card.
-``attention_with_cache`` comes with ``serving/decode.py``.
+
+``attention_with_cache`` is plain torch, as its counterpart is plain JAX
+(no Pallas kernel): a per-row append into fixed-shape cache slabs and a
+causal attention over them in fp32.  Every output row depends only on
+its own row of the inputs: the decode pool (``serving/decode.py``) relies
+on that to admit and evict slots without moving a surviving sequence's
+bits.  TF32 must stay off on a card (torch's default for matmuls), or
+fp32 stops matching the reference.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -156,3 +166,43 @@ def _beam_search_decode(ctx, ins, attrs):
 def _recurrent_alias(ctx, ins, attrs):
     """RecurrentOp name-compat alias of the ``rnn`` lowering."""
     return get_op_impl("rnn")(ctx, ins, attrs)
+
+
+@register_op("attention_with_cache")
+def _attention_with_cache(ctx, ins, attrs):
+    """Causal attention over fixed-shape KV-cache slabs.
+
+    Q, K, V [B, Tq, D] are this dispatch's projections; CacheK/CacheV
+    [B, Tmax, D] the persistable slabs, wired back to the same var names
+    by ``CacheKOut``/``CacheVOut``; Len [B] int32 the tokens cached before
+    this dispatch (the write offset and the causal base: query i sees
+    keys j <= Len + i); WriteMask [B] float32, rows > 0 commit their K/V
+    writes.  Scores and softmax run in fp32; Out takes Q's dtype."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    cache_k, cache_v = ins["CacheK"][0], ins["CacheV"][0]
+    ln = ins["Len"][0].to(torch.int64)
+    commit = (ins["WriteMask"][0] > 0)[:, None, None]
+    B, Tq = q.shape[0], q.shape[1]
+    Tmax = cache_k.shape[1]
+    scale = float(attrs.get("scale", 0.0)) or 1.0 / math.sqrt(q.shape[-1])
+    dev = q.device
+    # each row's append at its own offset, the start clamped as
+    # dynamic_update_slice clamps it: a masked write from a dead slot at
+    # Len == Tmax stays in bounds
+    pos = ln.clamp(0, Tmax - Tq)[:, None] \
+        + torch.arange(Tq, device=dev)[None, :]
+
+    def write(cache, new):
+        idx = pos[:, :, None].expand(B, Tq, cache.shape[2])
+        return torch.where(commit, cache.scatter(1, idx, new.to(cache.dtype)),
+                           cache)
+
+    ck, cv = write(cache_k, k), write(cache_v, v)
+    scores = torch.matmul(q.to(torch.float32),
+                          ck.to(torch.float32).transpose(1, 2)) * scale
+    jpos = torch.arange(Tmax, device=dev)[None, None, :]
+    ipos = torch.arange(Tq, device=dev)[None, :, None]
+    visible = jpos <= ln[:, None, None] + ipos
+    probs = torch.softmax(torch.where(visible, scores, NEG_INF), dim=-1)
+    out = torch.matmul(probs, cv.to(torch.float32)).to(q.dtype)
+    return {"Out": out, "CacheKOut": ck, "CacheVOut": cv}

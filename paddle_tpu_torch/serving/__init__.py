@@ -1,6 +1,8 @@
 """Serving runtime (counterpart of ``paddle_tpu/serving``): a
 :class:`Model` (a live program, or an exported artifact) behind the
-dynamic-batching :class:`Server`."""
+dynamic-batching :class:`Server`, and continuous-batching decode pools
+(``serving.decode``: ``DecodeEngine``, ``DecodeRuntime``) mounted with
+``Server.add_decode_model``."""
 from ..faults import (DeadlineExceeded, ModelUnavailable, Overloaded,
                       ServerClosed)
 from .model import Model

@@ -23,6 +23,15 @@ Per model (one :class:`~paddle_tpu_torch.serving.model.Model` each):
 * **Circuit breaking** — after ``breaker_threshold`` consecutive failed
   batches a model's breaker opens and its requests fail fast with
   ``ModelUnavailable`` until a probe after the cooldown succeeds.
+* **Retry** — each batch's model call runs inside a retry rim
+  (``retry_policy``, by default 2 attempts): a failure that
+  ``faults.classify`` calls retryable is tried once more before it
+  fails the batch.  Fault-injection sites: ``serving.request`` at
+  admission, ``serving.dispatch`` inside the rim.
+* **Decode tenants** — :meth:`Server.add_decode_model` mounts a
+  continuous-batching slot pool (``serving/decode.py``) beside the
+  request tenants, under the same lifecycle, health and typed
+  rejections; :meth:`Server.submit_decode` is its front door.
 * **Health** — ``warming → ready → draining → stopped``.
 * **Graceful drain** — :meth:`Server.shutdown` closes admission, lets
   every admitted request complete, then joins the threads.
@@ -31,8 +40,9 @@ Outputs come back as device tensors; the dispatcher moves each to the
 host once per batch (bfloat16 widens to float32: numpy has no bfloat16)
 and hands every request its own row.
 
-Not ported yet: retries, fault injection, metrics and tracing, decode
-tenants, the HTTP front and the fleet router.
+Not ported yet: metrics, tracing and the lock watch (ROADMAP Queue A
+item 9), the HTTP front and the fleet router (after item 9: both report
+through the observability layer).
 """
 from __future__ import annotations
 
@@ -41,13 +51,14 @@ import logging
 import queue as _queue_mod
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .. import faults as _faults
 from ..core.executor import pad_batch, stack_feeds
 from ..core.scope import to_numpy
+from ..testing import faultinject as _fi
 from .model import Model
 
 logger = logging.getLogger("paddle_tpu_torch")
@@ -87,10 +98,12 @@ def _feed_sig(feeds: Dict[str, np.ndarray]):
 class PendingResponse:
     """Future-like handle for one admitted request.  Terminal exactly
     once: either ``outputs`` (a list of per-request arrays) or a typed
-    error.  ``result()`` blocks."""
+    error.  ``result()`` blocks; ``add_done_callback`` fires on the
+    completing thread (or at once if already terminal).  ``t_admit`` is
+    the admission time (``time.monotonic()``)."""
 
-    __slots__ = ("id", "model", "feeds", "sig", "deadline", "outputs",
-                 "error", "_event", "_lock")
+    __slots__ = ("id", "model", "feeds", "sig", "deadline", "t_admit",
+                 "outputs", "error", "_event", "_callbacks", "_lock")
 
     def __init__(self, req_id, model: str, feeds, deadline: Optional[float]):
         self.id = req_id
@@ -98,9 +111,11 @@ class PendingResponse:
         self.feeds = feeds
         self.sig = _feed_sig(feeds)
         self.deadline = deadline          # time.monotonic() or None
+        self.t_admit = time.monotonic()
         self.outputs = None
         self.error: Optional[BaseException] = None
         self._event = threading.Event()
+        self._callbacks: List[Callable] = []
         self._lock = threading.Lock()
 
     def expired(self, now: Optional[float] = None) -> bool:
@@ -117,8 +132,21 @@ class PendingResponse:
                 return False
             self.outputs = outputs
             self.error = error
+            cbs, self._callbacks = self._callbacks, []
             self._event.set()
+        for cb in cbs:
+            try:
+                cb(self)
+            except Exception:
+                logger.exception("serving: response callback failed")
         return True
+
+    def add_done_callback(self, cb: Callable):
+        with self._lock:
+            if not self._event.is_set():
+                self._callbacks.append(cb)
+                return
+        cb(self)
 
     def result(self, timeout: Optional[float] = None):
         if not self._event.wait(timeout):
@@ -194,7 +222,9 @@ class Server:
         srv.shutdown()                                   # graceful drain
 
     ``deadline_ms=None`` disables deadlines; ``queue_capacity=None``
-    disables admission bounds.
+    disables admission bounds (with ``shed=False``, the no-robustness
+    control arm of ``benchmark.serving``).  ``retry_policy``: the
+    dispatch's retry rim (default 2 attempts, 5 ms backoff).
     """
 
     def __init__(self, max_batch: int = 32,
@@ -205,6 +235,7 @@ class Server:
                  breaker_threshold: int = 3,
                  breaker_cooldown_s: float = 30.0,
                  staging_depth: int = 2,
+                 retry_policy: Optional[_faults.RetryPolicy] = None,
                  warmup: bool = True,
                  warmup_buckets: Optional[Sequence[int]] = None):
         if max_batch < 1:
@@ -223,11 +254,16 @@ class Server:
         self.breaker_threshold = int(breaker_threshold)
         self.breaker_cooldown_s = float(breaker_cooldown_s)
         self.staging_depth = int(staging_depth)
+        # a retryable failure is tried once more: 2 attempts in all
+        self.retry_policy = retry_policy if retry_policy is not None else \
+            _faults.RetryPolicy(max_attempts=2, backoff_base_s=0.005,
+                                backoff_max_s=0.1, seed=0)
         self.buckets = _buckets(self.max_batch)
         self.warmup = bool(warmup)
         self.warmup_buckets = list(warmup_buckets) if warmup_buckets \
             else [self.buckets[0], self.buckets[-1]]
         self._models: Dict[str, _ModelRuntime] = {}
+        self._decode: Dict[str, object] = {}   # name -> DecodeRuntime
         self._state = WARMING
         self._state_lock = threading.Lock()
         self._req_counter = 0
@@ -248,16 +284,44 @@ class Server:
     def add_model(self, model: Model):
         if self._started:
             raise RuntimeError("Server.add_model: server already started")
-        if model.name in self._models:
+        if model.name in self._models or model.name in self._decode:
             raise ValueError(f"duplicate model name {model.name!r}")
         self._models[model.name] = _ModelRuntime(model, self)
+
+    def add_decode_model(self, engine, name: Optional[str] = None,
+                         mode: str = "continuous",
+                         step_wait_ms: Optional[float] = None,
+                         retry_policy: Optional[_faults.RetryPolicy] = None,
+                         autotune: Optional[bool] = None):
+        """Mount an incremental-decode slot pool as a tenant: ``engine``
+        is a :class:`~paddle_tpu_torch.serving.decode.DecodeEngine`;
+        requests go through :meth:`submit_decode`.  The pool takes the
+        server's deadline, shedding and breaker settings and shares its
+        lifecycle (start, drain, shutdown, health)."""
+        from .decode import DecodeRuntime   # decode imports this module
+        if self._started:
+            raise RuntimeError(
+                "Server.add_decode_model: server already started")
+        pool = DecodeRuntime(
+            engine, name=name, mode=mode, step_wait_ms=step_wait_ms,
+            default_deadline_ms=self.default_deadline_ms,
+            queue_capacity=self.queue_capacity, shed=self.shed,
+            breaker_threshold=self.breaker_threshold,
+            breaker_cooldown_s=self.breaker_cooldown_s,
+            retry_policy=(retry_policy if retry_policy is not None
+                          else self.retry_policy),
+            autotune=autotune)
+        if pool.name in self._models or pool.name in self._decode:
+            raise ValueError(f"duplicate model name {pool.name!r}")
+        self._decode[pool.name] = pool
+        return pool
 
     def start(self):
         """Warm up every tenant at the smallest and largest bucket, spawn
         its batcher/dispatcher pair, flip to ready."""
         if self._started:
             raise RuntimeError("Server.start: already started")
-        if not self._models:
+        if not self._models and not self._decode:
             raise ValueError("Server.start: no models added")
         self._started = True
         self._set_state(WARMING)
@@ -277,6 +341,8 @@ class Server:
                 name=f"pt-serving-dispatch-{rt.model.name}", daemon=True)
             rt.batcher.start()
             rt.dispatcher.start()
+        for pool in self._decode.values():
+            pool.start(warmup=self.warmup)
         self._set_state(READY)
         return self
 
@@ -289,6 +355,8 @@ class Server:
             with rt.cond:
                 rt.closed = True
                 rt.cond.notify_all()
+        for pool in self._decode.values():
+            pool.close()
 
     def shutdown(self, drain: bool = True, timeout: Optional[float] = None):
         """Stop the server.  ``drain=True``: admission closes, every
@@ -317,6 +385,10 @@ class Server:
                 if t is not None:
                     t.join(None if deadline is None
                            else max(0.0, deadline - time.monotonic()))
+        for pool in self._decode.values():
+            pool.shutdown(drain=drain,
+                          timeout=None if deadline is None
+                          else max(0.0, deadline - time.monotonic()))
         self._set_state(STOPPED)
 
     # -- admission -----------------------------------------------------------
@@ -343,6 +415,14 @@ class Server:
         deadline).  ``deadline_ms``: the default sentinel (-1) means the
         server default, ``None`` means no deadline."""
         rt = self._resolve_model(model)
+        if _fi.ENABLED:
+            action = _fi.check("serving.request")
+            if action is not None:
+                if action.startswith("delay"):
+                    _, _, ms = action.partition(":")
+                    time.sleep((float(ms) if ms else 50.0) / 1e3)
+                else:
+                    _fi.raise_for(action, "serving.request")
         if req_id is None:
             with self._state_lock:
                 self._req_counter += 1
@@ -404,6 +484,34 @@ class Server:
         return self.submit(feeds, model=model,
                            deadline_ms=deadline_ms).result(timeout)
 
+    def submit_decode(self, tokens, max_new_tokens: int,
+                      model: Optional[str] = None,
+                      deadline_ms: Optional[float] = -1.0,
+                      req_id=None) -> PendingResponse:
+        """Admit one generate request to a decode slot pool (see
+        :meth:`add_decode_model`).  Completes with ``{"tokens", "finish",
+        "ttft_ms", "inter_token_ms"}``; admission rejections raise the
+        typed errors of :meth:`submit`."""
+        if model is None:
+            if len(self._decode) != 1:
+                raise ValueError(
+                    f"decode model name required (decode tenants: "
+                    f"{sorted(self._decode)})")
+            pool = next(iter(self._decode.values()))
+        else:
+            pool = self._decode.get(model)
+            if pool is None:
+                raise ValueError(
+                    f"unknown decode model {model!r} (decode tenants: "
+                    f"{sorted(self._decode)})")
+        if self._state != READY:
+            raise _faults.ServerClosed(
+                f"server is {self._state}; admission closed")
+        if deadline_ms == -1.0:
+            deadline_ms = self.default_deadline_ms
+        return pool.submit(tokens, max_new_tokens,
+                           deadline_ms=deadline_ms, req_id=req_id)
+
     # -- health --------------------------------------------------------------
     def health(self) -> dict:
         models = {}
@@ -414,8 +522,12 @@ class Server:
             models[name] = {"breaker": rt.breaker_state(),
                             "queue_depth": depth, "served": served,
                             "batches": batches}
-        return {"state": self._state, "ready": self.ready(),
-                "models": models}
+        out = {"state": self._state, "ready": self.ready(),
+               "models": models}
+        if self._decode:
+            out["decode"] = {name: pool.health()
+                             for name, pool in self._decode.items()}
+        return out
 
     # -- batcher -------------------------------------------------------------
     def _expire(self, req: PendingResponse, where: str) -> bool:
@@ -482,6 +594,24 @@ class Server:
             rt.staging.put(None)        # dispatcher drain sentinel
 
     # -- dispatcher ----------------------------------------------------------
+    def _dispatch_batch(self, rt: _ModelRuntime, padded):
+        """One model call through the injection site and the retry rim."""
+        def attempt():
+            if _fi.ENABLED:
+                action = _fi.check("serving.dispatch")
+                if action is not None:
+                    if action == "fatal":
+                        raise _faults.InjectedFault(
+                            "injected fatal fault at serving.dispatch")
+                    _fi.raise_for(action, "serving.dispatch")
+            return rt.model(padded)
+
+        if self.retry_policy is None:
+            return attempt()
+        return _faults.retry_call(
+            attempt, self.retry_policy,
+            what=f"serving dispatch [{rt.model.name}]")
+
     def _dispatch_loop(self, rt: _ModelRuntime):
         while True:
             item = rt.staging.get()
@@ -514,7 +644,7 @@ class Server:
                     f"model {rt.model.name!r}: circuit breaker open"))
             return
         try:
-            outs = rt.model(padded)
+            outs = self._dispatch_batch(rt, padded)
             # to the host once per output, then one row per request; a
             # model whose outputs are not row-indexable is a model failure
             host = [None if o is None else to_numpy(o) for o in outs]

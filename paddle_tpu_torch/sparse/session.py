@@ -29,14 +29,21 @@ sparse-vs-dense training bit-identical.  The chunked and pipelined
 paths pull up to ``steps_per_dispatch x prefetch_depth`` batches ahead
 of the pushes: bounded-staleness asynchronous updates, the reference's
 async pserver SGD semantics (exact when a chunk's batches touch
-disjoint ids).
+disjoint ids).  With both overlap legs below on, a pull runs at most
+``prefetch_depth`` batches ahead of the batch the consumer holds, and
+at most ``async_push + push_flush_batch`` of the pushes before that
+batch are still queued or in flight: a pull sees every push at least
+``prefetch_depth + async_push + push_flush_batch + 1`` batches older
+than itself (6 at depth 2, async 2 and one push a flush), so batches
+that far apart may share ids and the run is still exact.
 
 Two opt-in overlap legs extend the rim:
 
 * **pull-ahead prefetch** (``prefetch_depth > 0``): a worker thread
   runs :meth:`prepare_feed` up to ``depth`` batches ahead of the
-  consumer, so batch N+1's row pulls overlap batch N's step
-  (:meth:`prefetch_feeds`);
+  consumer (it takes a free slot before it pulls, and the consumer
+  frees one as it takes a batch), so batch N+1's row pulls overlap
+  batch N's step (:meth:`prefetch_feeds`);
 * **bounded async push** (``async_push > 0``): :meth:`complete`
   enqueues the batch's gradient push onto a worker (queue bounded at
   ``async_push`` batches, drained ``push_flush_batch`` at a time) and
@@ -571,32 +578,34 @@ class SparseSession:
         # reader.pipeline.prefetch: this rim needs the hit/miss
         # accounting and the close-time retraction of the pending
         # entries below, which the shared reader does not expose.
-        q = _queue_mod.Queue(maxsize=depth)
+        # ``slots`` bounds the lead: the worker takes one before it
+        # pulls and the consumer gives one back as it takes a batch, so
+        # no pull runs more than ``depth`` batches ahead of the batch
+        # the consumer holds (a bounded queue alone would let the
+        # worker pull one more while it waits to put)
+        q = _queue_mod.Queue()
+        slots = threading.Semaphore(depth)
         stop = threading.Event()
         prepared_n = [0]                     # batches the worker prepared
         delivered_n = 0                      # batches the consumer got
 
-        def _offer(item) -> bool:
+        def _take_slot() -> bool:
             while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
+                if slots.acquire(timeout=0.1):
                     return True
-                except _queue_mod.Full:
-                    continue
             return False
 
         def _work():
             try:
                 for f in feed_iter:
-                    if stop.is_set():
+                    if not _take_slot():
                         return
                     prepared = self.prepare_feed(f, is_test=is_test)
                     prepared_n[0] += 1
-                    if not _offer(("ok", prepared)):
-                        return
-                _offer(("done", None))
+                    q.put(("ok", prepared))
+                q.put(("done", None))
             except BaseException as e:       # noqa: BLE001 — re-raised
-                _offer(("err", e))           # at the consumer
+                q.put(("err", e))            # at the consumer
 
         t = threading.Thread(target=_work,
                              name=f"{THREAD_NAME_PREFIX}-prefetch",
@@ -617,15 +626,11 @@ class SparseSession:
                 self.stats["prefetch_hits" if hit
                            else "prefetch_misses"] += 1
                 delivered_n += 1
+                slots.release()
                 yield val
         finally:
-            stop.set()
-            while True:                      # unblock a worker mid-put
-                try:
-                    q.get_nowait()
-                except _queue_mod.Empty:
-                    break
-            t.join(timeout=10.0)
+            stop.set()                       # a worker waiting for a
+            t.join(timeout=10.0)             # slot sees it within 0.1 s
             if not is_test and not t.is_alive():
                 # retract the pending-push entries of batches prepared
                 # ahead but never DELIVERED to the consumer: leaving

@@ -37,10 +37,27 @@ The sites of the port:
                        inside the retry rim and before the step runs
 ``ckpt.write``         per file a full checkpoint commit writes
 ``ckpt.delta``         per file a delta checkpoint commit writes
+``serving.request``    per request ``serving.Server.submit`` admits (hit
+                       count); ``delay[:ms]`` sleeps (50 ms by default)
+                       before admission
+``serving.dispatch``   per batch the server dispatches, inside its retry
+                       rim; ``fatal`` raises :class:`InjectedFault`
+                       (fatal: it counts toward the circuit breaker)
+``serving.decode_step`` per token step of a decode pool
+                       (``serving/decode.py``), inside the retry rim and
+                       before the executor call, so the cache slabs are
+                       untouched when it fires; ``fatal`` as above
+``sparse.push``        per push of a ``SparseSession``, inside its retry
+                       rim
+``pserver.rpc``        per frame a shard server handles; ``drop`` tears
+                       the connection
+``pserver.shard``      per push a shard server applies (index: its
+                       applied pushes), after the apply and before the
+                       ack; ``kill`` is a real SIGKILL
 =====================  =====================================================
 
-The serving, master, elastic, sparse and tuning sites of the JAX package
-come with their slices.
+The master, elastic and tuning sites of the JAX package come with their
+slices.
 """
 from __future__ import annotations
 
@@ -56,7 +73,9 @@ __all__ = [
 ]
 
 KNOWN_SITES = ("trainer.step", "reader.item", "executor.dispatch",
-               "ckpt.write", "ckpt.delta")
+               "ckpt.write", "ckpt.delta", "serving.request",
+               "serving.dispatch", "serving.decode_step", "sparse.push",
+               "pserver.rpc", "pserver.shard")
 
 # the off switch the call sites test: one attribute load when off
 ENABLED = False

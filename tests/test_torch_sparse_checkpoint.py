@@ -6,10 +6,14 @@
   a fresh executor and scope, into a table of another shard count, with
   the overlap legs on or off, continues bit for bit: the loss stream,
   the final rows and Adagrad moments equal an uninterrupted run's;
+* with every push slowed, the prefetch, async-push and combined legs
+  equal the synchronous rim bit for bit (the prefetch lead's bound);
 * a chain of commits with sparse groups (a full base, then deltas of
   the rows pushed since) saved by one package restores in the other,
   both ways, to the same table bytes and dense var.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -99,6 +103,36 @@ def test_preempt_and_resume_bit_identical_across_shard_change(
     assert t_res.pull(ALL).tobytes() == t_full.pull(ALL).tobytes()
     assert t_res.pull_slot("moment", ALL).tobytes() == \
         t_full.pull_slot("moment", ALL).tobytes()
+    assert sess.pending_batches == 0
+
+
+POOLS6 = [np.arange(i * 8, (i + 1) * 8) for i in range(6)]
+
+
+@pytest.mark.parametrize("delay_ms", [50, 200])
+@pytest.mark.parametrize("sess_kw", [
+    {"prefetch_depth": 2},
+    {"async_push": 2},
+    {"prefetch_depth": 2, "async_push": 2},
+], ids=["prefetch", "async", "prefetch+async"])
+def test_overlap_legs_match_sync_rim_under_slow_pushes(
+        monkeypatch, sess_kw, delay_ms):
+    """With every push slowed, the overlap legs still equal the
+    synchronous rim bit for bit over the 6-pool, 3-pass schedule: no
+    pull runs far enough ahead to read a row whose push is pending."""
+    batches = _batches(pools=POOLS6)
+    sync, t_sync, _ = _train(batches, 3, 2)
+    real_push = SparseTable.push
+
+    def slow_push(self, *a, **kw):
+        time.sleep(delay_ms / 1e3)
+        return real_push(self, *a, **kw)
+    monkeypatch.setattr(SparseTable, "push", slow_push)
+    got, t_got, sess = _train(batches, 3, 2, sess_kw)
+    assert got == sync
+    assert t_got.pull(ALL).tobytes() == t_sync.pull(ALL).tobytes()
+    assert t_got.pull_slot("moment", ALL).tobytes() == \
+        t_sync.pull_slot("moment", ALL).tobytes()
     assert sess.pending_batches == 0
 
 
