@@ -215,6 +215,28 @@ Phases, each of which raises on failure (so the script exits non-zero):
              128, 512, 1024 and 2048 MB with the launch counts read
              around it, and prints every method's GB/s, its share of 3.35
              TB/s and its time a pass beside the bound and copy_'s.
+18. observe — the observability layer: ResNet-50 trained as in train
+             (bf16 AMP, batch 128, cuDNN deterministic) by one captured
+             executor, 3 x run_steps(5) with observe off, then the same
+             from the same start with observe on (the first time with a
+             JSONL log), twice in turns: losses bit-equal, no new capture,
+             no registry write while off, K1 3 x 29 a step in each arm,
+             one executor/step span and one step event a dispatch, the
+             step budget within BUDGET_TOLERANCE, ms a step of each arm;
+             card memory in metrics_snapshot()
+             against memory_allocated; the per-op profiler over one step
+             of that network and one long-context step (8 x 65536 x 64
+             causal, bf16): a row an op in execution order, K1 and
+             K2-K4 launched as counted (each op's windows and the
+             total's), the top ops, the flash_attention row and the
+             backward unit, the memory timeline's peak beside
+             max_memory_allocated; check_nan_inf on the captured step
+             with a value planted in a kernel-routed 1x1 conv's weight
+             (a row whose sums overflow to Inf; a literal NaN): the replay
+             raises naming the conv's output and bisect_step names the
+             conv (the literal NaN: the weight, as state); the doctor
+             passes of benchmark.decode and benchmark.serving at SMOKE,
+             each budget reconciled.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline and
 zoo runs captured (Executor(use_jit=True), each step one CUDA graph replay; the
@@ -3367,6 +3389,18 @@ def phase_pipeline(seed, card):
     row = ip.run_workload(reps=PIPE_REPS, quiet=True, window=window,
                           seed=seed)
     print(f"[pipeline] the A/B's passes: steps {row['steps_by_path']}")
+    doc = row["doctor"]
+    if not doc:
+        raise RuntimeError("chip_smoke: [pipeline] the doctor's observed "
+                           "pass logged no step")
+    print(f"[pipeline] the doctor's observed pipelined pass: "
+          f"{doc['steps']} steps in {doc['dispatches']} dispatches, "
+          f"budget {doc['budget']} over {doc['measured_wall_ms']} ms "
+          f"(gap {doc['budget_gap_frac']}, within "
+          f"{doc['within_tolerance']}), top {doc['top']}; {card}")
+    if not doc["within_tolerance"]:
+        raise RuntimeError(f"chip_smoke: [pipeline] the doctor's step "
+                           f"budget does not reconcile: {doc}")
     check_captured("[pipeline] A/B", row["steps_by_path"])
     busy = profiled_window.get("busy")
     win_ms = cfg["batches"] * 1e3 / row["pipelined_steps_per_s"]
@@ -5106,9 +5140,25 @@ def phase_sparse_bench(seed, card):
     print(f"[sparse_bench] pserver shard_pipelining_ab "
           f"({pipe['rows_per_window']} rows a window, "
           f"{pipe['effective_cores']} cores): 2 shards against 1 "
-          f"{gate_line(pipe)}; trace_overhead_ab: "
-          f"{ps['trace_overhead_ab']}; {time.perf_counter() - t0:.1f} s; "
-          f"{card}")
+          f"{gate_line(pipe)}; {time.perf_counter() - t0:.1f} s; {card}")
+    # the 5% budget is a verdict reported, as the JAX runner commits it
+    # either way, not a gate: over loopback its pair ratios spread wider
+    # than the budget itself (PERF.md section 7), so one reading cannot
+    # fail the port; a missing or non-finite reading does
+    tr = ps["trace_overhead_ab"]
+    pr = tr["pair_ratios_on_over_off"]
+    if not (pr and np.isfinite(tr["overhead_frac"])):
+        raise RuntimeError(f"chip_smoke: [sparse_bench] trace_overhead_ab "
+                           f"measured nothing: {tr}")
+    print(f"[sparse_bench] pserver trace_overhead_ab "
+          f"({tr['rows_per_window']} rows a window): an observing client "
+          f"against an observe-off one, overhead "
+          f"{tr['overhead_frac']:.4f} (budget {tr['overhead_budget']}: "
+          f"{'within' if tr['within_budget'] else 'over'}; reported, not "
+          f"a gate: pair ratios {min(pr):.4f}-{max(pr):.4f}); on "
+          f"{[round(x * 1e3, 2) for x in tr['observe_on_windows']]} ms, "
+          f"off {[round(x * 1e3, 2) for x in tr['observe_off_windows']]} "
+          f"ms; {card}")
     if not w["arms_bit_identical"]:
         raise RuntimeError("chip_smoke: [sparse_bench] the naive and binary "
                            "wire arms left different rows")
@@ -5315,6 +5365,367 @@ def phase_bandwidth(seed, card):
     return entries, results
 
 
+# ---------------------------------------------------------------------------
+# [observe] the observability layer on the card
+# ---------------------------------------------------------------------------
+OBS_DISPATCHES = 3            # run_steps(OBS_STEPS) dispatches an arm
+OBS_STEPS = 5
+OBS_ROUNDS = 2                # off/on rounds, in turns
+OBS_REPS, OBS_WARMUP = 3, 2   # opprof's timed and discarded windows an op
+OBS_TOP = 10                  # opprof rows printed
+OBS_IMG = 224
+
+
+def obs_log(name):
+    """A fresh JSONL path under build/observe of the checkout."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "observe")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"{name}_{os.getpid()}.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def observe_resnet(card, n_gate, n_split, main, startup, loss, feed):
+    """One captured executor, observe off then on, OBS_ROUNDS times in
+    turns: OBS_DISPATCHES dispatches of run_steps(OBS_STEPS) an arm,
+    each from the same start.  Returns K1's launches by form over the
+    arms."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import attribution, export
+    from paddle_tpu_torch.ops import conv1x1
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    exe = ptt.Executor(amp=True, observe=False)
+    exe.run_steps(2, main, feed=feed, fetch_list=[loss],
+                  scope=clone_scope(start))           # warm-up, capture
+    pools = len(exe.graph_pools())
+    steps = OBS_DISPATCHES * OBS_STEPS
+    log = obs_log("resnet")
+    arms, forms = {}, collections.Counter()
+    for label, observe in [(f"{a} {r + 1}", a == "on")
+                           for r in range(OBS_ROUNDS) for a in ("off", "on")]:
+        scope = clone_scope(start)
+        exe.observe = observe
+        obs.registry().reset()
+        flags.set_flag("metrics_log", log if label == "on 1" else "")
+        torch.cuda.synchronize()
+        conv1x1.reset_counts()
+        capture_stats().reset()
+        t0 = time.perf_counter()
+        losses = [exe.run_steps(OBS_STEPS, main, feed=feed,
+                                fetch_list=[loss], scope=scope)[0]
+                  for _ in range(OBS_DISPATCHES)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flags.set_flag("metrics_log", "")
+        export._reset_writer()
+        snap = capture_stats().snapshot()
+        check_captured(f"[observe] observe {label}", snap, steps)
+        by_form = {k: n for k, n in conv1x1.mm.by_form.items() if n}
+        want = {k: n for k, n in (
+            ("forward", n_gate * steps), ("dgrad", n_gate * steps),
+            ("wgrad", n_gate * steps), ("splitk_reduce", n_split * steps))
+            if n}
+        if by_form != want:
+            raise RuntimeError(f"chip_smoke: [observe] observe {label}: "
+                               f"K1 launched {by_form}, the gate expects "
+                               f"{want}")
+        forms.update(by_form)
+        arms[label] = (np.concatenate(losses), wall * 1e3 / steps, snap,
+                       obs.registry().snapshot())
+    ref = arms["off 1"][0].view(np.uint32)
+    same = all(np.array_equal(a[0].view(np.uint32), ref)
+               for a in arms.values())
+    ms = {label: a[1] for label, a in arms.items()}
+    print(f"[observe] ResNet-50 bf16 AMP batch {TRAIN_BATCH}, "
+          f"{OBS_DISPATCHES} x run_steps({OBS_STEPS}) captured, one "
+          f"executor, arms in turns: ms a step "
+          + ", ".join(f"observe {k} {v:.3f}" for k, v in ms.items())
+          + f"; on / off by round "
+          + ", ".join(f"{ms[f'on {r + 1}'] / ms[f'off {r + 1}']:.4f}"
+                      for r in range(OBS_ROUNDS))
+          + f"; losses bit-equal {same}; captures "
+          f"{[a[2]['captures'] for a in arms.values()]} (graphs {pools} "
+          f"before, {len(exe.graph_pools())} after); K1 {dict(forms)} over "
+          f"the arms; {card}")
+    if not same:
+        raise RuntimeError(f"chip_smoke: [observe] the losses differ "
+                           f"between the arms: "
+                           f"{ {k: a[0] for k, a in arms.items()} }")
+    if any(a[2]["captures"] for a in arms.values()) or \
+            len(exe.graph_pools()) != pools:
+        raise RuntimeError("chip_smoke: [observe] flipping observe made a "
+                           "new capture key")
+    off_writes = sum(v.get("value", 0) + v.get("count", 0)
+                     + len(v.get("values", {}))
+                     for label, a in arms.items() if "off" in label
+                     for v in a[3].values())
+    if off_writes:
+        raise RuntimeError(f"chip_smoke: [observe] observe off wrote "
+                           f"{off_writes} registry entries")
+    events = obs.iter_log_events([log])[0]
+    step_ev = [e for e in events if e.get("kind") == "step"]
+    spans = collections.Counter(e["name"] for e in events
+                                if e.get("kind") == "span")
+    want_spans = {"executor/step": OBS_DISPATCHES,
+                  "executor/dispatch": OBS_DISPATCHES,
+                  "executor/fetch_block": OBS_DISPATCHES}
+    if len(step_ev) != OBS_DISPATCHES or dict(spans) != want_spans or any(
+            e["steps"] != OBS_STEPS or e["cold_compile"] for e in step_ev):
+        raise RuntimeError(f"chip_smoke: [observe] the log holds "
+                           f"{len(step_ev)} step events and spans "
+                           f"{dict(spans)}, expected {OBS_DISPATCHES} "
+                           f"warm dispatches of {OBS_STEPS} steps and "
+                           f"{want_spans}")
+    budget = attribution.step_budget(events)
+    snap = arms["on 1"][3]
+    print(f"[observe] the log: {len(step_ev)} step events, spans "
+          f"{dict(spans)}; step_ms {[e['step_ms'] for e in step_ev]}, "
+          f"fetch_block_ms {[e['fetch_block_ms'] for e in step_ev]}; "
+          f"executor/steps {snap['executor/steps']['value']:g}, "
+          f"examples/s {snap['executor/examples_per_sec']['values']}; "
+          f"step budget over {budget['measured_wall_ms']:.3f} ms: "
+          f"{budget['budget']} (gap {budget['budget_gap_frac']:.4f}, "
+          f"tolerance {attribution.BUDGET_TOLERANCE}); {card}")
+    if not budget["within_tolerance"]:
+        raise RuntimeError(f"chip_smoke: [observe] the step budget does "
+                           f"not reconcile: {budget}")
+    dm = obs.metrics_snapshot()["device_memory"]
+    allocated = torch.cuda.memory_allocated(0)
+    entry = dm.get("cuda:0", {})
+    print(f"[observe] metrics_snapshot()['device_memory']: {dm}; "
+          f"torch.cuda.memory_allocated {allocated}; {card}")
+    if entry.get("device_name") != torch.cuda.get_device_name(0) or \
+            entry.get("bytes_in_use") != allocated:
+        raise RuntimeError(f"chip_smoke: [observe] device memory {dm} "
+                           f"does not name the card or read "
+                           f"memory_allocated {allocated}")
+    exe.close()
+    return forms
+
+
+def opprof_expected(counts_of_step, calls):
+    """Launches an opprof replay of one step makes: each op's ``calls``
+    windows and the total's ``calls``, both of which run the forward ops
+    once eagerly and the backward unit (the forward again and the
+    gradients) once."""
+    return {k: 2 * calls * n for k, n in counts_of_step.items()}
+
+
+def observe_opprof(card, tag, main, start, feed, since, step_forms):
+    """opprof over one step of ``main``: a row for every op in execution
+    order, launches as counted, the top ops and the memory peak."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.observability import opprof
+    exe = ptt.Executor(amp=True)
+    scope = clone_scope(start)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counted = since()
+    t0 = time.perf_counter()
+    rep = opprof.profile_program(main, executor=exe, feed=feed, scope=scope,
+                                 reps=OBS_REPS, warmup=OBS_WARMUP)
+    wall = time.perf_counter() - t0
+    got = counted()
+    want = opprof_expected(step_forms, OBS_REPS + OBS_WARMUP)
+    ops = main.global_block().ops
+    order = [r["index"] for r in rep["rows"]]
+    print(f"[observe] opprof {tag}: {rep['ops']} rows in "
+          f"{wall:.1f} s, per-op sum {rep['per_op_sum_ms']:.3f} ms against "
+          f"the eager total {rep['eager_total_ms']:.3f} ms (gap "
+          f"{rep['sum_gap_frac']:.4f}, within {rep['tolerance']}: "
+          f"{rep['within_tolerance']}); launches {got}, expected {want}; "
+          f"{card}")
+    if order != list(range(len(ops))) or [r["op_type"] for r in
+                                          rep["rows"]] != [o.type
+                                                           for o in ops]:
+        raise RuntimeError(f"chip_smoke: [observe] opprof {tag}: rows "
+                           f"{order} do not follow the program's ops")
+    if got != want:
+        raise RuntimeError(f"chip_smoke: [observe] opprof {tag} launched "
+                           f"{got}, expected {want}")
+    for r in rep["top"][:OBS_TOP]:
+        print(f"[observe] opprof {tag} top: #{r['index']:>3} "
+              f"{r['op_type']:<16} {r['wall_ms']:10.4f} ms [{r['phase']}] "
+              f"windows {r['windows_ms']}")
+    mem = rep["memory"]
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[observe] opprof {tag} memory timeline: peak "
+          f"{mem['peak_bytes'] / 2 ** 30:.3f} GiB at op #{mem['peak_index']} "
+          f"({mem['peak_op']}), state {mem['state_bytes'] / 2 ** 30:.3f} "
+          f"GiB; torch.cuda.max_memory_allocated over the replay "
+          f"{peak / 2 ** 30:.3f} GiB above its start; {card}")
+    return rep, got
+
+
+def observe_nan(card, main, loss, start, feed, conv):
+    """check_nan_inf on the captured ResNet-50 step: two clean steps
+    (warm-up, capture), then a value planted in the 1x1 conv ``conv``'s
+    weight before a replay: its filter row 0 alternating +-3e38 (finite;
+    the conv's sums overflow), then a literal NaN.  The step raises
+    naming the conv's output, and bisect_step names the same op (the
+    literal NaN: the weight, as poisoned state)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.observability import nanprov
+    w, out = conv.input("Filter")[0], conv.output("Output")[0]
+    gb = main.global_block()
+    for label, value in (("overflow", "row"), ("NaN", "nan")):
+        exe = ptt.Executor(amp=True, check_nan_inf=True)
+        scope = clone_scope(start)
+        capture_stats().reset()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        buf = scope.get(w)               # the captured step's buffer
+        with torch.no_grad():
+            if value == "row":
+                sign = torch.ones_like(buf[0]).flatten()
+                sign[1::2] = -1
+                buf[0].copy_((3e38 * sign).view_as(buf[0]))
+            else:
+                buf.view(-1)[0] = float("nan")
+        pre = {k: scope.get(k).clone() for k in exe._state_keys(main, scope)}
+        step = exe._step
+        try:
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        except FloatingPointError as e:
+            msg = str(e)
+        else:
+            raise RuntimeError(f"chip_smoke: [observe] check_nan_inf let "
+                               f"the {label} in {w} through")
+        snap = capture_stats().snapshot()
+        feeds = {k: exe._feed_tensor(gb, k, v) for k, v in feed.items()}
+        diag = nanprov.bisect_step(exe, main, feeds, pre, step)
+        first = msg.splitlines()[0]
+        print(f"[observe] check_nan_inf, {label} planted in {w}: the "
+              f"replayed step raised \"{first}\"; bisect_step: "
+              f"{nanprov.format_diagnosis(diag)}; steps {snap}; {card}")
+        if f"op 'conv2d' in var {out!r}" not in first or \
+                snap["replays"] < 2:
+            raise RuntimeError(f"chip_smoke: [observe] the replayed "
+                               f"step's check named \"{first}\" (steps "
+                               f"{snap}), not {out!r}")
+        want = ("conv2d", out) if value == "row" else (None, w)
+        if (diag["op_type"], diag["var"]) != want or \
+                nanprov.format_diagnosis(diag) not in msg:
+            raise RuntimeError(f"chip_smoke: [observe] bisect_step "
+                               f"diagnosed {diag}, expected {want}")
+        exe.close()
+        del scope, pre, buf
+        torch.cuda.empty_cache()
+
+
+def observe_doctors(card):
+    """benchmark.decode's and benchmark.serving's doctor passes at their
+    SMOKE configs on the card: each budget reconciles."""
+    from paddle_tpu_torch.benchmark import decode, serving
+    d = decode.run_doctor_pass(decode.SMOKE, quiet=True)
+    doc = d["doctor"]
+    print(f"[observe] benchmark.decode doctor pass (SMOKE): {doc['steps']} "
+          f"token steps, {doc['tokens']} tokens, step p50 "
+          f"{doc['step_ms_p50']} ms, dispatch mean "
+          f"{doc['dispatch_ms_mean']} ms, top {doc['top']}; sequences "
+          f"{d['stats_decode']['sequences_done']}; {card}")
+    if not (doc["steps"] > 0 and doc["dispatch_ms_mean"] is not None and
+            d["stats_decode"]["sequences_done"]
+            == decode.SMOKE["n_requests"]):
+        raise RuntimeError(f"chip_smoke: [observe] the decode doctor pass "
+                           f"read {d}")
+    row = serving.run_all(serving.SMOKE, smoke=True, quiet=True)
+    d = row["doctor"]
+    b = d["serving"]
+    print(f"[observe] benchmark.serving doctor pass (SMOKE), the observed "
+          f"{d['arm']['label']} arm: "
+          + ("no request served" if not b else
+             f"{b['served']} of {b['requests']} served, request p50 "
+             f"{b['request_ms_p50']} / p99 {b['request_ms_p99']} ms, "
+             f"queue wait {b['budget']['queue_wait_ms_mean']} + "
+             f"dispatch {b['budget']['dispatch_ms_mean']} ms against "
+             f"{b.get('request_ms_mean')} ms, within "
+             f"{b.get('within_tolerance')}") + f"; {card}")
+    if not d["reconciled"]:
+        raise RuntimeError(f"chip_smoke: [observe] the serving doctor "
+                           f"pass's budget does not reconcile: {d}")
+
+
+def phase_observe(seed, card, n_gate, n_split):
+    """The observability layer on the card (see the module docstring).
+    Returns K1's launches by form over the observed training arms and
+    the flash kernels' over the long-context opprof replay."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    saved = torch.backends.cudnn.deterministic, flags.get_flag("metrics_log")
+    torch.backends.cudnn.deterministic = True
+    try:
+        main, startup, loss = build_resnet50_train(seed)
+        rng = np.random.RandomState(seed)
+        feed = {"img": torch.from_numpy(
+                    rng.rand(TRAIN_BATCH, 3, OBS_IMG, OBS_IMG)
+                    .astype(np.float32))
+                .cuda(),
+                "label": torch.from_numpy(
+                    rng.randint(0, 1000, (TRAIN_BATCH, 1)).astype(np.int64))
+                .cuda()}
+        t0 = time.perf_counter()
+        forms = observe_resnet(card, n_gate, n_split, main, startup, loss,
+                               feed)
+        print(f"[observe] observed training {time.perf_counter() - t0:.1f}"
+              f" s")
+        torch.cuda.empty_cache()
+        start = ptt.Scope()
+        ptt.Executor().run(startup, scope=start)
+        # a measurement of the walk launches each forward 1x1 conv once
+        # (29), the backward unit's the step's 3 x 29 and its reduce
+        # passes, and the total both: 4 x 29 a window of each
+        observe_opprof(
+            card, f"ResNet-50 bf16 AMP batch {TRAIN_BATCH}", main, start,
+            feed, lambda: conv_since(conv1x1, "conv1x1_mm"),
+            {"conv1x1_mm": 4 * n_gate, "splitk_reduce": n_split})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        conv = next(op for op in main.global_block().ops
+                    if op.type == "conv2d" and op.input("Filter")[0] in
+                    {g[3] for g in conv_geometry(main, TRAIN_BATCH)})
+        observe_nan(card, main, loss, start, feed, conv)
+        print(f"[observe] check_nan_inf {time.perf_counter() - t0:.1f} s")
+        del start
+        torch.cuda.empty_cache()
+        lmain, lstart_prog, _ = build_longctx(seed)
+        lstart = ptt.Scope()
+        ptt.Executor().run(lstart_prog, scope=lstart)
+        lc, lc_got = observe_opprof(
+            card, f"long-context {ATT_HEADS} x {ATT_T} x {ATT_DIM} causal "
+            f"bf16", lmain, lstart, {}, lambda: flash_since(fa),
+            {"flash_fwd_tma": 2, "flash_bwd_dq_tma": 1,
+             "flash_bwd_dkv_tma": 1})
+        fwd = next(r for r in lc["rows"] if r["op_type"] ==
+                   "flash_attention")
+        bw = next(r for r in lc["rows"] if r["phase"] == "backward")
+        print(f"[observe] opprof long-context: the flash_attention row "
+              f"{fwd['wall_ms']:.3f} ms (PERF.md section 6: K2 11.2 ms "
+              f"alone); the backward unit {bw['wall_ms']:.3f} ms (its "
+              f"forward again, K3 + K4 36.3 ms alone); {card}")
+        del lstart
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        observe_doctors(card)
+        print(f"[observe] doctor passes {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        flags.set_flag("metrics_log", saved[1])
+    print(f"[observe] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return forms, {k.replace("flash_", "").replace("_tma", ""): n
+                   for k, n in lc_got.items()}
+
+
 def attention_entries(row, launches):
     """The kernels JSON entries of K2, K3 and K4: times, errors and
     bounds at the slice's shape, launches from the main path's run."""
@@ -5461,6 +5872,9 @@ def main():
     phase_serving(args.seed, card)
     phase_sparse_bench(args.seed, card)
     bw_entries, _ = phase_bandwidth(args.seed, card)
+    torch.cuda.empty_cache()
+    o_forms, o_flash = phase_observe(args.seed, card, len(train_shapes),
+                                     split_wgrads(train_shapes))
 
     # bf16: the served path and the AMP step; fp32: the served forward's
     # fp32 run and the fp32 step
@@ -5476,6 +5890,12 @@ def main():
                                ("forward", "forward", "dgrad", "wgrad")):
                 k["resume_launches"] = r_forms.get(form, 0)
             entries[2]["resume_reduce_launches"] = r_forms.get(
+                "splitk_reduce", 0)
+            # [observe]'s two training arms run the same AMP step
+            for k, form in zip((step_forward,) + tuple(entries[:3]),
+                               ("forward", "forward", "dgrad", "wgrad")):
+                k["observe_launches"] = o_forms.get(form, 0)
+            entries[2]["observe_reduce_launches"] = o_forms.get(
                 "splitk_reduce", 0)
         kernels += entries
         for k in [step_forward] + entries[1:]:
@@ -5493,7 +5913,9 @@ def main():
                      f", {k['resume_launches']} in [resume]'s arms A-C"
                      + ("" if "resume_reduce_launches" not in k else
                         f" (and {k['resume_reduce_launches']} reduce "
-                        f"passes)")))
+                        f"passes)"))
+                  + ("" if "observe_launches" not in k else
+                     f", {k['observe_launches']} in [observe]'s arms"))
     print(f"[summary] forward: times summed over the {len(shapes)} "
           f"launches of one batch-{BATCH} forward, launches from the served "
           f"run ({len(buckets)} batches; fp32: one batch-{BATCH} run); the "
@@ -5502,6 +5924,8 @@ def main():
           f"training run ({TRAIN_STEPS} bf16 steps, {FP32_STEPS} fp32; path "
           f"train) or the fused entry points' run (path library)")
     kernels += attention_entries(att_row, att_launches)
+    for k, name in zip(kernels[-3:], ATT_REPLACES):
+        k["opprof_launches"] = o_flash.get(name, 0)
     for k in kernels[-3:]:
         print(f"[summary] {k['name']} at BH {ATT_HEADS} x T {ATT_T} x d "
               f"{ATT_DIM}, causal, bf16: kernel {k['ms']:.3f} ms, bound "

@@ -26,7 +26,10 @@ pipeline (``reader``, ``trainer.SGD``, ``Executor.run_pipelined``,
 of ``benchmark/inference.py`` (``io``, ``export_compiled_model`` /
 ``load_compiled_model`` over ``torch.export``,
 ``serving.Model.from_artifact``, beam-search decoding with
-``models.seq2seq_infer``), and two kernels of the framework: the
+``models.seq2seq_infer``), the observability layer (``observability``:
+metrics, the JSONL log, spans, the NaN bisect, the per-op profiler, the
+doctor's measured budgets; ``profiler``; ``testing.lockwatch``), and
+two kernels of the framework: the
 1x1-convolution matrix product with its gradients and epilogues
 (``ops/conv1x1.py``) and flash attention, forward and backward
 (``ops/flash_attention.py``).
@@ -54,6 +57,7 @@ from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
 from .weights import load_numpy_state
 from . import faults
+from . import observability, profiler
 
 __all__ = [
     "core", "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
@@ -67,5 +71,5 @@ __all__ = [
     "save_params", "load_params", "save_persistables", "load_persistables",
     "save_inference_model", "load_inference_model", "export_model",
     "export_compiled_model", "load_compiled_model", "lr_decay",
-    "framework",
+    "framework", "observability", "profiler",
 ]

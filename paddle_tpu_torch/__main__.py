@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import sys
 
-_NOT_PORTED = "ROADMAP.md Queue A item 9 (the command line)"
+_NOT_PORTED = "ROADMAP.md Queue A item 9e (the command line)"
 
 
 def main(argv=None) -> int:

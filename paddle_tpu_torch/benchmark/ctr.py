@@ -29,8 +29,13 @@ tiny form).  Rows, each beside the card's name and power limit:
 ``HBM_EMBEDDING_BUDGET_MB`` is the JAX runner's declared premise (a TPU
 slice's share for embeddings), reported beside the dense tables' size;
 it is not this card's: an 80 GB H100 holds the dense control many times
-over.  The JAX runner's doctor pass is not ported (its row records
-``{"not_ported": ...}``).
+over.
+
+* ``doctor``: one extra observed sparse pass after the timed windows
+  (its instrumentation never touches them): the step budget
+  (``observability.attribution.step_budget``) over its JSONL log, which
+  reconciles with the measured wall within ``BUDGET_TOLERANCE``; the
+  ``sparse/pull`` and ``sparse/push`` spans ride the same log.
 
     python -m paddle_tpu_torch.benchmark.ctr [--smoke] [--out PATH]
         [--device cuda|cpu]
@@ -47,13 +52,11 @@ import time
 
 import numpy as np
 
-from .harness import device_label, paired_ab, write_results
+from .harness import device_label, observed, paired_ab, write_results
 
 # The JAX runner's premise: a per-device HBM share budgeted for
 # embeddings, which the big table's dense form exceeds.  Not this card's.
 HBM_EMBEDDING_BUDGET_MB = 64
-
-DOCTOR_NOT_PORTED = "ROADMAP Queue A item 9"
 
 FULL = {
     "batch": 512,
@@ -398,6 +401,39 @@ def run_cache_arm(cfg, quiet=False):
     return row
 
 
+def run_doctor_pass(cfg, place=None, quiet=False):
+    """One extra observed sparse pass, after the timed windows: its
+    steps' budget must reconcile with the measured wall within
+    ``BUDGET_TOLERANCE``.  Two unobserved steps go first (a key's
+    warm-up and capture belong to start-up, not to the budget)."""
+    from .. import core
+    from ..observability import attribution
+    from ..sparse import SparseSession
+
+    place = _place(place)
+    loss = build_model(cfg, sparse=True)
+    sess = SparseSession(sparse_tables(cfg), observe=True,
+                         bucket_floor=cfg["batch"])
+    main = core.default_main_program()
+    sess.bind(main)
+    exe = core.Executor(place, observe=True)
+    exe.run(core.default_startup_program())
+    warm = 2
+    feeds = list(feed_stream(cfg, cfg["window_steps"] + warm, seed=3))
+    for feed in feeds[:warm]:
+        float(sess.run(exe, main, feed, [loss])[0])
+    with observed("ctr") as log:
+        for feed in feeds[warm:]:
+            float(sess.run(exe, main, feed, [loss])[0])
+    report = attribution.doctor_report([log], program=main,
+                                       assume_batch=cfg["batch"])
+    row = {"doctor": report.get("training"),
+           "calibration": report.get("calibration")}
+    if not quiet:
+        print(json.dumps({"arm": "doctor", **row}), flush=True)
+    return row
+
+
 def run_all(cfg=None, smoke=False, place=None, quiet=False):
     cfg = cfg or (SMOKE if smoke else FULL)
     place = _place(place)
@@ -407,6 +443,7 @@ def run_all(cfg=None, smoke=False, place=None, quiet=False):
     dense_row, _, _ = run_dense_control(cfg, place, quiet=quiet)
     vect_ab = run_vectorization_ab(cfg, place, quiet=quiet)
     cache_row = run_cache_arm(cfg, quiet=quiet)
+    doctor_row = run_doctor_pass(cfg, place, quiet=quiet)
     return {
         "config": {**cfg,
                    "hbm_embedding_budget_mb": HBM_EMBEDDING_BUDGET_MB,
@@ -419,7 +456,7 @@ def run_all(cfg=None, smoke=False, place=None, quiet=False):
         / dense_row["examples_per_sec"],
         "vectorization_ab": vect_ab,
         "cache": cache_row,
-        "doctor": {"not_ported": DOCTOR_NOT_PORTED},
+        **doctor_row,
         "device": device_label(place),
         "smoke": bool(smoke),
     }

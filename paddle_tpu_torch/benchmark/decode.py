@@ -24,8 +24,11 @@ Rows, each beside the card's name and power limit:
 * ``arms_tokens_identical``: every request's tokens equal across the
   two schedulers.
 
-The JAX runner's doctor pass waits for the observability layer (ROADMAP
-Queue A item 9): its row records the refusal.
+``doctor``: one extra observed continuous window after the A/B (the A/B's
+pools do not observe: no span, metric or log line): the doctor's
+token-step budget
+(``attribution.decode_budget``) and the decode section of the log's
+summary.
 
     python -m paddle_tpu_torch.benchmark.decode [--smoke] [--out PATH]
         [--device cuda|cpu]
@@ -42,9 +45,8 @@ import time
 
 import numpy as np
 
-from .harness import device_label, paired_ab, write_results
+from .harness import device_label, observed, paired_ab, write_results
 
-DOCTOR_NOT_PORTED = "ROADMAP Queue A item 9 (observability/, the doctor)"
 
 FULL = {
     "vocab": 256,
@@ -87,9 +89,9 @@ def trace(cfg, seed=0):
     return out
 
 
-def build_pool(cfg, mode, place=None):
+def build_pool(cfg, mode, place=None, observe=False):
     """A started slot pool of ``mode`` (engine warmed up: both programs
-    captured on a card)."""
+    captured on a card), writing its metrics and spans if ``observe``."""
     from ..serving.decode import DecodeEngine, DecodeRuntime
 
     eng = DecodeEngine(
@@ -98,7 +100,7 @@ def build_pool(cfg, mode, place=None):
         max_len=cfg["max_len"], eos_id=None, seed=7,
         name=f"bench-{mode}", place=place)
     rt = DecodeRuntime(eng, mode=mode, step_wait_ms=0.5,
-                       default_deadline_ms=None)
+                       default_deadline_ms=None, observe=observe)
     rt.start(warmup=True)
     return rt
 
@@ -185,11 +187,21 @@ def run_ab(cfg, place=None, quiet=False):
 
 
 def run_doctor_pass(cfg, place=None, quiet=False):
-    """The JAX runner's observed window and its token-step budget: it
-    reads the observability layer's log, which the port has not yet."""
-    raise NotImplementedError(
-        f"benchmark.decode's doctor pass is not ported yet "
-        f"({DOCTOR_NOT_PORTED})")
+    """One extra observed continuous window (the pool is built, warmed
+    and captured before the log opens): the doctor's token-step budget
+    and the decode section of the log's summary."""
+    from ..observability import attribution, summarize_logs
+    rt = build_pool(cfg, "continuous", _place(place), observe=True)
+    try:
+        with observed("decode") as log:
+            run_window(rt, trace(cfg))
+    finally:
+        rt.shutdown(drain=True, timeout=60.0)
+    row = {"doctor": attribution.doctor_report([log]).get("decode"),
+           "stats_decode": summarize_logs([log]).get("decode")}
+    if not quiet:
+        print(json.dumps({"arm": "doctor", **row}), flush=True)
+    return row
 
 
 def _place(place):
@@ -201,11 +213,8 @@ def run_all(cfg=None, smoke=False, place=None, quiet=False):
     cfg = cfg or (SMOKE if smoke else FULL)
     place = _place(place)
     row = run_ab(cfg, place, quiet=quiet)
-    try:
-        doctor = run_doctor_pass(cfg, place, quiet=quiet)
-    except NotImplementedError as e:
-        doctor = {"not_ported": str(e)}
-    return {"config": dict(cfg), **row, "doctor": doctor,
+    doctor_row = run_doctor_pass(cfg, place, quiet=quiet)
+    return {"config": dict(cfg), **row, **doctor_row,
             "device": device_label(place), "smoke": bool(smoke)}
 
 

@@ -20,8 +20,12 @@ the timed ones.
     python -m paddle_tpu_torch.benchmark.input_pipeline [--smoke]
         [--reps N] [--out build/input_pipeline_results.json]
 
-runs on the card; ``run_workload(place=CPUPlace())`` runs it here.  The
-``lstm`` workload and the JAX script's doctor pass are not ported.
+runs on the card; ``run_workload(place=CPUPlace())`` runs it here.
+After the timed pairs one extra pipelined pass runs observed into a JSONL
+log: the row's ``doctor`` is its step budget
+(``attribution.step_budget``: compute, fetch, compile, staging, host
+gaps) and ``calibration`` the cost model's refusal.  The ``lstm``
+workload is not ported.
 """
 from __future__ import annotations
 
@@ -207,9 +211,25 @@ def run_workload(smoke=False, reps=None, place=None, quiet=False,
     }
     if not row["losses_finite"]:
         raise RuntimeError("input_pipeline: non-finite training loss")
+    row.update(_doctor_pass(one_pass, pipe_cfg, cfg))
     if not quiet:
         print(json.dumps(row), flush=True)
     return row
+
+
+def _doctor_pass(one_pass, pipe_cfg, cfg):
+    """One extra pipelined pass, observed into a fresh JSONL log, after
+    the timed windows (its instrumentation never touches the A/B)."""
+    from ..core.program import default_main_program
+    from ..observability import attribution
+    from .harness import observed
+    with observed("input_pipeline") as log:
+        one_pass(pipe_cfg)
+    report = attribution.doctor_report([log],
+                                       program=default_main_program(),
+                                       assume_batch=cfg["batch"])
+    return {"doctor": report.get("training"),
+            "calibration": report.get("calibration")}
 
 
 def main(argv=None):

@@ -69,7 +69,7 @@ LARGE_CNNS = ("alexnet", "googlenet", "resnet50", "vgg19")
 NOT_PORTED = {
     "compile_cache": "ROADMAP Queue A item 6 (the disk layer of "
                      "core/compile_cache.py)",
-    "autotune": "ROADMAP Queue A item 9 (tuning/)",
+    "autotune": "ROADMAP Queue A item 9d (tuning/)",
 }
 
 

@@ -22,8 +22,12 @@ shedding, an unbounded queue, no deadlines) collapses: its queue grows
 for the whole run and its p99 reaches seconds.
 
 Every bucket's graph is captured before the first arm, so no arm pays a
-capture.  The JAX runner's per-arm doctor reads the observability
-layer's log (ROADMAP Queue A item 9): the row records the refusal.
+capture.  The timed arms run with ``observe`` off: their servers build
+no span and write no metric or log line.  After them one extra 1x
+shedding arm runs observed, with its own JSONL log, and the top-level
+``doctor`` row is the doctor's per-request budget over that log
+(``attribution.serving_budget``: queue and batch wait against the
+model's dispatch).
 
     python -m paddle_tpu_torch.benchmark.serving [--smoke] [--out PATH]
         [--device cuda|cpu] [--duration-s S] ...
@@ -42,11 +46,10 @@ import time
 
 import numpy as np
 
-from .harness import device_label, write_results
+from .harness import device_label, observed, write_results
 from .serving_common import (closed_loop, export_mlp, load_artifact,
                              percentile, single_example)
 
-DOCTOR_NOT_PORTED = "ROADMAP Queue A item 9 (observability/, the doctor)"
 
 FULL = {"hidden": (2048, 2048, 2048), "duration_s": 4.0, "max_batch": 32,
         "max_wait_ms": 5.0, "queue": 32, "deadline_ms": 1000.0,
@@ -188,12 +191,19 @@ def open_loop_arm(model, example, cfg, *, rate, shed, queue, deadline_ms,
     return row
 
 
-def run_doctor(rows):
-    """The JAX runner's per-arm budget (queue and batch wait against the
-    model's dispatch), read from the observability layer's log."""
-    raise NotImplementedError(
-        f"benchmark.serving's doctor is not ported yet "
-        f"({DOCTOR_NOT_PORTED})")
+def run_doctor_pass(model, example, cfg, rate):
+    """One extra observed 1x shedding arm after the timed ones (only its
+    server observes): the doctor's per-request budget over the arm's
+    log, and whether it reconciles within ``BUDGET_TOLERANCE``."""
+    from ..observability import attribution
+    with observed("serving") as log:
+        arm = open_loop_arm(model, example, cfg, rate=rate, shed=True,
+                            queue=cfg["queue"],
+                            deadline_ms=cfg["deadline_ms"],
+                            label="1x_shed_observed")
+    budget = attribution.doctor_report([log]).get("serving")
+    return {"arm": arm, "serving": budget,
+            "reconciled": bool(budget and budget.get("within_tolerance"))}
 
 
 def run_all(cfg=None, smoke=False, device=None, model_dir=None,
@@ -267,10 +277,7 @@ def run_all(cfg=None, smoke=False, device=None, model_dir=None,
         if p99_1x and control["latency_ms_p99"] else None,
     }
     say(acceptance=acceptance)
-    try:
-        doctor = run_doctor(arms)
-    except NotImplementedError as e:
-        doctor = {"not_ported": str(e)}
+    doctor = run_doctor_pass(model, example, cfg, max(1.0, capacity))
     return {"engine": f"in-process Server over an exported MLP artifact "
                       f"(784-{'x'.join(map(str, cfg['hidden']))}-10, fp32)",
             "config": cfg, "closed_loop": cap, "saturation_probe": sat,

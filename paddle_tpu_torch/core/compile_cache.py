@@ -118,6 +118,15 @@ class CaptureStats:
             out["uncaptured"] = dict(self.uncaptured)
             return out
 
+    def report(self) -> str:
+        """StatSet-style text block of the counters."""
+        snap = self.snapshot()
+        unc = snap.pop("uncaptured")
+        lines = ["======= CaptureStats ======="]
+        lines += [f"  {k}: {v}" for k, v in snap.items()]
+        lines += [f"  uncaptured[{k}]: {v}" for k, v in sorted(unc.items())]
+        return "\n".join(lines)
+
     def reset(self):
         with self._lock:
             self.counters.clear()

@@ -33,20 +33,34 @@ retries a run's dispatch after a retryable failure (``faults.classify``)
 that came before any of its steps ran; the ``executor.dispatch`` fault
 site fires there (``testing/faultinject.py``).
 
-Not ported yet: ``Executor.compile``, the disk cache, observability and
-validation.
+Observability (``observability/``): ``Executor(observe=True)`` (or the
+``observe`` flag) records each dispatch's telemetry (the ``executor/*``
+metrics, a ``step`` event, the ``executor/step``, ``executor/dispatch``
+and ``executor/fetch_block`` spans, a ``record_function`` range around
+the dispatch), all on the host and around a captured step's replay,
+never inside it; ``observe`` is not part of a captured step's key.
+``check_nan_inf=True`` reads one stacked tensor of per-var finite flags
+after each ``run`` step and raises ``FloatingPointError`` naming the
+first producer in program order, with the eager bisect's diagnosis
+(``observability/nanprov.py``); ``compute_dtype`` upcasts floating
+feeds, state and op outputs (float64 runs of a program).
+
+Not ported yet: ``Executor.compile``, the disk cache and validation.
 """
 from __future__ import annotations
 
 import collections
 import threading
+import time
 import weakref
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import faults as _faults
+from .. import observability as obs
 from ..flags import get_flag
 from ..testing import faultinject as _fi
 from . import compile_cache
@@ -159,7 +173,8 @@ class ExecContext:
     def __init__(self, program: Program, device: torch.device, step: int,
                  is_test: bool = False,
                  conv1x1_pallas: Optional[bool] = None, amp: bool = False,
-                 streams: Optional[Dict[tuple, torch.Generator]] = None):
+                 streams: Optional[Dict[tuple, torch.Generator]] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         self.program = program
         self.device = device
         self.step = step
@@ -168,6 +183,10 @@ class ExecContext:
         # tri-state 1x1-conv kernel routing (None = defer to the flag);
         # consulted by ops.nn_ops._conv2d
         self.conv1x1_pallas = conv1x1_pallas
+        # precision-instrument mode: run_op upcasts floating op outputs
+        # so constants made in the step (fill_constant) do not leak fp32
+        # into a float64 step
+        self.compute_dtype = compute_dtype
         self.op: Optional[Operator] = None
         self.env: Optional[Env] = None
         # the op last started (a failed capture names it)
@@ -318,8 +337,12 @@ def run_op(op: Operator, env: Env, ctx: ExecContext):
             raise ValueError(
                 f"op {op.type} slot {slot}: produced {len(vals)} values for "
                 f"{len(names)} outputs {names}")
+        cd = ctx.compute_dtype
         for n, v in zip(names, vals):
             if v is not None:
+                if cd is not None and isinstance(v, torch.Tensor) \
+                        and v.is_floating_point() and v.dtype != cd:
+                    v = v.to(cd)
                 env.set(n, v)
 
 
@@ -397,6 +420,16 @@ def _to_bf16(v):
     if isinstance(v, torch.Tensor) and v.dtype == torch.float32:
         return v.to(torch.bfloat16)
     return v
+
+
+def _upcast(env_local: Dict[str, object], dtype: Optional[torch.dtype]):
+    """``compute_dtype`` at step entry: every floating tensor in
+    ``dtype``."""
+    if dtype is None:
+        return env_local
+    return {k: v.to(dtype) if isinstance(v, torch.Tensor)
+            and v.is_floating_point() and v.dtype != dtype else v
+            for k, v in env_local.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -541,6 +574,9 @@ class _CapturedStep:
         self.new_outputs: Dict[str, torch.Tensor] = {}
         self.deltas: List[collections.Counter] = []
         self.streams: List[tuple] = []
+        # check_nan_inf: the names of the finite flags and the graph's
+        # flags tensor
+        self.finite = None
 
     def capture(self, exe: "Executor", program: Program,
                 feeds: Dict[str, torch.Tensor], scope: Scope,
@@ -577,10 +613,11 @@ class _CapturedStep:
             with compile_cache.capture_launches(self.deltas), \
                     torch.cuda.graph(graph, stream=exe._side,
                                      capture_error_mode="thread_local"):
-                fetches, writes = exe._interpret_step(
+                fetches, writes, finite = exe._interpret_step(
                     program, ctx, self.static_state, self.static_feeds,
                     fetch_names)
                 self.fetches = [own(f) for f in fetches]
+                self.finite = finite
                 writes = {k: own(v) for k, v in writes.items()}
                 for k, v in writes.items():
                     if k in self.static_state:
@@ -639,6 +676,7 @@ class _CapturedStep:
         self.static_feeds, self.static_state = {}, {}
         self.fetches, self.new_outputs = [], {}
         self.streams = []
+        self.finite = None
 
 
 # ---------------------------------------------------------------------------
@@ -721,7 +759,15 @@ class Executor:
     routing (None defers to the flag; a per-op ``use_pallas`` attr
     overrides both).  ``retry_policy``: a ``faults.RetryPolicy`` for
     the dispatch of each ``run``/``run_steps`` (``dispatch_retries``
-    counts the retries taken).
+    counts the retries taken).  ``observe``: per-executor override of the
+    ``observe`` flag (step telemetry, spans, the JSONL log; host side
+    only, not part of the step's key).  ``check_nan_inf``: check every
+    floating var of each ``run`` step for NaN/Inf (one host read of the
+    stacked flags after the step) and raise ``FloatingPointError`` naming
+    the first producer, with the eager bisect's diagnosis; ``run_steps``
+    and ``run_pipelined`` refuse it.  ``compute_dtype`` (e.g.
+    ``"float64"``): floating feeds, state and op outputs computed in this
+    dtype, the scope keeping each persistable's own dtype.
 
     Each captured step keeps a private memory pool about one step's
     activations in size.  At most ``MAX_CACHED_STEPS`` captured steps are
@@ -738,10 +784,16 @@ class Executor:
 
     def __init__(self, place: Optional[Place] = None, amp: bool = False,
                  conv1x1_pallas: Optional[bool] = None,
-                 use_jit: bool = True, retry_policy=None):
+                 use_jit: bool = True, retry_policy=None,
+                 observe: Optional[bool] = None,
+                 check_nan_inf: bool = False,
+                 compute_dtype: Optional[str] = None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.amp = amp
+        self.observe = observe
+        self.check_nan_inf = bool(check_nan_inf)
+        self.compute_dtype = compute_dtype
         self.conv1x1_pallas = conv1x1_pallas
         self.use_jit = use_jit
         self.retry_policy = retry_policy
@@ -827,7 +879,8 @@ class Executor:
             else bool(get_flag("conv1x1_pallas"))
         return (compile_cache.program_content_digest(program),
                 _feed_signature(step_feeds), tuple(fetch_names), state,
-                bool(is_test), bool(self.amp), conv1x1, str(self.device))
+                bool(is_test), bool(self.amp), conv1x1, str(self.device),
+                self.check_nan_inf, str(self.compute_dtype))
 
     def _uncaptured_reason(self, program: Program,
                            is_test: bool) -> Optional[str]:
@@ -863,9 +916,29 @@ class Executor:
         with self._lock:
             feeds = {k: self._feed_tensor(gb, k, v)
                      for k, v in (feed or {}).items()}
-            fetches, = self._dispatch(lambda: self._steps(
-                program, [feeds], fetch_names, scope, is_test))
-        return _out(fetches, return_numpy)
+        nan = {}
+
+        def run():
+            if self.check_nan_inf:
+                # the pre-step state for the bisect: a replay overwrites
+                # its state buffers in place
+                nan["step"] = self._step
+                nan["pre"] = {k: scope.get(k).clone()
+                              for k in self._state_keys(program, scope)}
+            return self._steps(program, [feeds], fetch_names, scope,
+                               is_test)
+
+        def post(steps):
+            fetches, = steps
+            if self.check_nan_inf:
+                *fetches, finite = fetches
+                self._nan_check(program, fetch_names, fetches, finite,
+                                feeds, nan["pre"], nan["step"], is_test)
+            return fetches
+
+        return self._observed("run", program, [feeds], fetch_names, scope,
+                              is_test, feeds, False, run, post,
+                              return_numpy)
 
     def run_steps(self, num_steps: int,
                   program: Optional[Program] = None,
@@ -886,6 +959,10 @@ class Executor:
         reads slice i.  Fetches come back stacked with a leading
         ``num_steps`` axis; the step counter advances by ``num_steps``."""
         from .program import default_main_program
+        if self.check_nan_inf:
+            raise ValueError(
+                "run_steps: check_nan_inf needs per-step host inspection; "
+                "use run() for NaN hunts")
         num_steps = int(num_steps)
         if num_steps < 1:
             raise ValueError(f"run_steps: num_steps must be >= 1, got "
@@ -907,17 +984,174 @@ class Executor:
             per_step = [{k: v[i] for k, v in feeds.items()}
                         if feeds_stacked else feeds
                         for i in range(num_steps)]
-            steps = self._dispatch(lambda: self._steps(
-                program, per_step, fetch_names, scope, is_test))
-        fetches = []
-        for j in range(len(fetch_names)):
-            vals = [s[j] for s in steps]
-            fetches.append(None if any(v is None for v in vals)
-                           else torch.stack(vals))
-        return _out(fetches, return_numpy)
+
+        def post(steps):
+            fetches = []
+            for j in range(len(fetch_names)):
+                vals = [s[j] for s in steps]
+                fetches.append(None if any(v is None for v in vals)
+                               else torch.stack(vals))
+            return fetches
+
+        return self._observed(
+            "run_steps", program, per_step, fetch_names, scope, is_test,
+            feeds, feeds_stacked, lambda: self._steps(
+                program, per_step, fetch_names, scope, is_test),
+            post, return_numpy)
+
+    # -- observability --------------------------------------------------------
+    def _observing(self) -> bool:
+        """Resolved observe switch: per-executor override, else flag."""
+        if self.observe is not None:
+            return bool(self.observe)
+        return obs.enabled()
+
+    def _observed(self, path: str, program: Program, per_step, fetch_names,
+                  scope: Scope, is_test: bool, feeds, stacked: bool, run,
+                  post, return_numpy: bool):
+        """One dispatch: ``run()`` through the fault rim and ``post`` on
+        its result under the executor's lock, then the fetches to numpy
+        (where the host waits for the card) outside it.  Observing, it
+        wraps that in the ``executor/step`` span, the dispatch in an
+        ``executor/dispatch`` span and a ``record_function`` range, the
+        conversion in ``executor/fetch_block``, and records the
+        dispatch; all of it on the host, around a captured step's replay
+        and never inside it, and no extra wait on the card."""
+        if not self._observing():
+            with self._lock:
+                fetches = post(self._dispatch(run))
+            return _out(fetches, return_numpy)
+        fp = compile_cache.fingerprint_hex(self._fingerprint(
+            program, per_step[0], fetch_names, scope, is_test))[:12]
+        t_start = time.perf_counter()
+        c0 = compile_cache.stats().snapshot()
+        sp = obs.tracing.start_span("executor/step", path=path,
+                                    steps=len(per_step), fingerprint=fp)
+        try:
+            with self._lock, torch.profiler.record_function(
+                    f"pt:{path}:{fp}:step{self._step}"), \
+                    obs.tracing.span("executor/dispatch", parent=sp) as dsp:
+                fetches = post(self._dispatch(run, trace_span=dsp))
+            t_fetch = time.perf_counter()
+            if return_numpy:
+                with obs.tracing.span("executor/fetch_block", parent=sp):
+                    fetches = _out(fetches, True)
+        except BaseException as e:
+            # a failed step is what a trace must explain: the root ends
+            # with the typed status
+            sp.end(status=type(e).__name__)
+            raise
+        now = time.perf_counter()
+        sp.end()
+        self._record_dispatch(path, fp, len(per_step), now - t_start,
+                              now - t_fetch, feeds, stacked, c0, sp)
+        return fetches
+
+    def _record_dispatch(self, path: str, fp: str, steps: int,
+                         wall_s: float, fetch_block_s: float,
+                         feeds: Dict[str, torch.Tensor], stacked: bool,
+                         compile_before: Dict[str, int], span):
+        """Registry writes and the JSONL ``step`` event of one dispatch.
+        A dispatch that warmed up or captured a key is cold: it stays out
+        of the step-time histogram and the throughput gauge."""
+        after = compile_cache.stats().snapshot()
+        cold = any(after[k] > compile_before[k]
+                   for k in ("warmups", "captures"))
+        wall_ms = wall_s * 1e3
+        step_ms = wall_ms / max(steps, 1)
+        obs.inc_counter("executor/steps", steps)
+        obs.inc_counter("executor/dispatches")
+        obs.observe_hist("executor/dispatch_steps", steps)
+        obs.observe_hist("executor/fetch_block_ms", fetch_block_s * 1e3)
+        feed_bytes = int(sum(t.nbytes for t in feeds.values()))
+        if feed_bytes:
+            obs.inc_counter("executor/feed_bytes", float(feed_bytes))
+        examples_per_s = None
+        if not cold:
+            obs.observe_hist("executor/step_time_ms", step_ms)
+            lead = 1 if stacked else 0      # stacked feeds: [K, B, ...]
+            for _, t in sorted(feeds.items()):
+                if t.dim() > lead:
+                    if wall_s > 0:
+                        examples_per_s = t.shape[lead] * steps / wall_s
+                        obs.set_gauge("executor/examples_per_sec",
+                                      examples_per_s)
+                    break
+        obs.sample_device_memory()
+        obs.emit_event(
+            "step", path=path, fingerprint=fp, steps=steps,
+            wall_ms=round(wall_ms, 3),
+            step_ms=None if cold else round(step_ms, 3),
+            cold_compile=cold, feed_bytes=feed_bytes,
+            fetch_block_ms=round(fetch_block_s * 1e3, 3),
+            examples_per_sec=round(examples_per_s, 2)
+            if examples_per_s else None,
+            label=None, trace=span.trace_id, span=span.span_id)
+
+    # -- check_nan_inf --------------------------------------------------------
+    def _nan_check(self, program: Program, fetch_names: List[str],
+                   fetches, finite, feeds, pre, step: int, is_test: bool):
+        """Raise ``FloatingPointError`` for a non-finite var of the step
+        just run, with the eager bisect's diagnosis.  ``finite`` is the
+        step's (names, stacked flags), read in one host transfer."""
+        names, flags = finite
+        try:
+            if flags is not None:
+                ok = flags.tolist()
+                self._nan_localize(program, {n for n, f in zip(names, ok)
+                                             if not f})
+            covered = set(names)
+            for n, f in zip(fetch_names, fetches):
+                if n in covered or not isinstance(f, torch.Tensor) \
+                        or not f.is_floating_point():
+                    continue
+                if not bool(torch.isfinite(f).all()):
+                    raise FloatingPointError(
+                        f"NaN/Inf detected in fetched var {n!r} "
+                        f"(check_nan_inf, analog of FLAGS_check_nan_inf)")
+        except FloatingPointError as e:
+            raise self._nan_diagnose(program, feeds, pre, step, is_test,
+                                     e) from e
+
+    @staticmethod
+    def _nan_localize(program: Program, bad):
+        """Raise naming the first op (program order) whose output went
+        non-finite (executor.cc:116-124's per-op check)."""
+        if not bad:
+            return
+        for op in program.global_block().ops:
+            for slot, names in op.outputs.items():
+                for n in names:
+                    if n in bad:
+                        raise FloatingPointError(
+                            f"NaN/Inf first produced by op {op.type!r} in "
+                            f"var {n!r} (output slot {slot}; "
+                            f"check_nan_inf, executor.cc FLAGS_check_nan_inf"
+                            f" analog)")
+        n = sorted(bad)[0]
+        raise FloatingPointError(
+            f"NaN/Inf detected in var {n!r} (not produced by any op — "
+            f"check the feed; check_nan_inf)")
+
+    def _nan_diagnose(self, program: Program, feeds, state, step: int,
+                      is_test: bool, err: FloatingPointError):
+        """The failure augmented with the eager bisect's provenance
+        (``observability.nanprov``); always emits a ``nan`` event when a
+        metrics log is set."""
+        from ..observability import nanprov
+        diag = nanprov.bisect_step(self, program, feeds, state, step,
+                                   is_test)
+        if self._observing():
+            obs.inc_counter("executor/nan_events")
+        obs.emit_event("nan", original=str(err), step=step, **(diag or {}))
+        if diag is None:
+            return err
+        return FloatingPointError(
+            f"{err}\n[paddle_tpu_torch] NaN provenance (eager re-run of "
+            f"step {step}): {nanprov.format_diagnosis(diag)}")
 
     # -- dispatch -------------------------------------------------------------
-    def _dispatch(self, fn):
+    def _dispatch(self, fn, trace_span=None):
         """One dispatch through the fault rim: a direct call with no
         retry policy and fault injection off; else the
         ``executor.dispatch`` site fires first, and a retryable failure
@@ -945,6 +1179,15 @@ class Executor:
 
         def on_retry(i, e, d):
             self.dispatch_retries += 1
+            obs.inc_counter("fault/retries")
+            obs.emit_event("fault", event="retry",
+                           site="executor.dispatch", step=int(step0),
+                           attempt=i + 1, delay_s=round(d, 4),
+                           error=f"{type(e).__name__}: {e}")
+            if trace_span is not None:
+                trace_span.event("retry", attempt=i + 1,
+                                 delay_s=round(d, 4),
+                                 error=f"{type(e).__name__}: {e}")
 
         return _faults.retry_call(attempt, policy, what="dispatch",
                                   classify_fn=cls, on_retry=on_retry)
@@ -991,8 +1234,13 @@ class Executor:
             entry.replay(program, feeds, self._step)
             self._step += 1
             stats.bump("replays")
-            out.append([f.clone() if f is not None else None
-                        for f in entry.fetches])
+            fetches = [f.clone() if f is not None else None
+                       for f in entry.fetches]
+            if self.check_nan_inf:
+                names, flags = entry.finite
+                fetches.append((names, flags.clone()
+                                if flags is not None else None))
+            out.append(fetches)
         if loaded:
             entry.publish(scope)
         return out
@@ -1012,19 +1260,28 @@ class Executor:
             streams = self._streams[program] = {}
         return ExecContext(program, self.device, self._step, is_test=is_test,
                            conv1x1_pallas=self.conv1x1_pallas, amp=self.amp,
-                           streams=streams)
+                           streams=streams,
+                           compute_dtype=self._compute_dtype())
+
+    def _compute_dtype(self) -> Optional[torch.dtype]:
+        return None if self.compute_dtype is None \
+            else to_torch_dtype(self.compute_dtype)
 
     def _interpret_step(self, program: Program, ctx: ExecContext,
                         state: Dict[str, torch.Tensor],
                         feeds: Dict[str, torch.Tensor],
                         fetch_names: List[str]):
         """Interpret one step from ``state`` and ``feeds``; returns the
-        fetched tensors and the persistables an op produced (a value an op
-        passed through unchanged is not among them)."""
+        fetched tensors, the persistables an op produced (a value an op
+        passed through unchanged is not among them) and, under
+        ``check_nan_inf``, (names, one stacked tensor of their
+        ``isfinite(...).all()`` flags) over every floating var the step
+        bound, else None."""
         gb = program.global_block()
         env = Env(gb)
         env.local.update(state)
         env.local.update(feeds)
+        env.local = _upcast(env.local, ctx.compute_dtype)
         if self.amp and not _has_backward(program):
             # pure-inference AMP: the whole net computes in bf16
             env.local = {k: _to_bf16(v) for k, v in env.local.items()}
@@ -1039,7 +1296,13 @@ class Executor:
             if name in entry and v is entry[name]:
                 continue
             writes[name] = v
-        return fetches, writes
+        finite = None
+        if self.check_nan_inf:
+            names = [k for k, v in env.local.items()
+                     if isinstance(v, torch.Tensor) and v.is_floating_point()]
+            finite = (names, torch.stack([torch.isfinite(env.local[k]).all()
+                                          for k in names]) if names else None)
+        return fetches, writes, finite
 
     def _run_once(self, program: Program, feeds: Dict[str, torch.Tensor],
                   fetch_names: List[str], scope: Scope,
@@ -1049,8 +1312,8 @@ class Executor:
         state = {k: scope.get(k) for k in self._state_keys(program, scope)}
         ctx = self._context(program, is_test)
         self._step += 1
-        fetches, writes = self._interpret_step(program, ctx, state, feeds,
-                                               fetch_names)
+        fetches, writes, finite = self._interpret_step(
+            program, ctx, state, feeds, fetch_names)
         # persistables an op produced go back to the scope in the dtype
         # they had there (bn running stats etc. stay fp32 under AMP)
         for name, v in writes.items():
@@ -1058,7 +1321,7 @@ class Executor:
             if old is not None and v.dtype != old.dtype:
                 v = v.to(old.dtype)
             scope.set(name, v)
-        return fetches
+        return fetches + [finite] if self.check_nan_inf else fetches
 
     # -- the input pipeline ---------------------------------------------------
     def run_pipelined(self, feed_iter,
@@ -1089,9 +1352,21 @@ class Executor:
         replay the same captured graph), so the fetches equal that loop's
         bit for bit.  An exception in ``feed_iter`` re-raises here, and
         abandoning this generator early stops and joins the staging
-        thread."""
+        thread.
+
+        Observing, one ``executor/run_pipelined`` root span ties the run
+        into one trace: the staging thread's ``pipeline/stage`` spans
+        (and the engine's ``reader/*`` spans) parent to it, and each
+        dispatch's ``executor/step`` nests under it; staging time goes
+        to ``executor/stage_put_ms`` (the host's part: the copies run
+        asynchronously on their stream), per-step leftovers to
+        ``pipeline/fallback_steps``."""
         from ..reader.pipeline import prefetch as _prefetch
         from .program import default_main_program
+        if self.check_nan_inf:
+            raise ValueError(
+                "run_pipelined: check_nan_inf needs per-step host "
+                "inspection; use run() for NaN hunts")
         program = program or default_main_program()
         K = int(4 if steps_per_dispatch is None else steps_per_dispatch)
         depth = int(2 if prefetch_depth is None else prefetch_depth)
@@ -1101,8 +1376,26 @@ class Executor:
         gb = program.global_block()
         on_card = self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.device) if on_card else None
+        # resolved once: the staging thread and the queue instrumentation
+        # run for the generator's whole lifetime
+        obs_on = self._observing()
+        root = obs.tracing.start_span(
+            "executor/run_pipelined", steps_per_dispatch=K,
+            prefetch_depth=depth) if obs_on else None
 
         def ship(feed, kind, n):
+            with (obs.tracing.span("pipeline/stage", kind=kind, steps=n)
+                  if obs_on else nullcontext()):
+                t0 = time.perf_counter() if obs_on else 0.0
+                out = ship_now(feed, kind, n)
+                if obs_on:
+                    obs.observe_hist("executor/stage_put_ms",
+                                     (time.perf_counter() - t0) * 1e3)
+            return out
+
+        def ship_now(feed, kind, n):
+            if kind == "scan":
+                feed = stack_feeds(feed)
             if not on_card:
                 # own copies: a feeder's staging buffers are reused
                 return kind, {k: self._feed_tensor(gb, k, np.array(v))
@@ -1126,31 +1419,47 @@ class Executor:
                 pend.append(feed)
                 if len(pend) == K:
                     if K > 1:
-                        yield ship(stack_feeds(pend), "scan", K)
+                        yield ship(pend, "scan", K)
                     else:
                         yield ship(pend[0], "single", 1)
                     pend = []
             for f in pend:
                 yield ship(f, "single", 1)
 
-        reader = _prefetch(staged, buffer_size=max(1, depth), num_workers=1)
-        for kind, dev, n, ready in reader():
-            if ready is not None:
-                cur = torch.cuda.current_stream(self.device)
-                cur.wait_event(ready)
-                for t in dev.values():
-                    t.record_stream(cur)
-            if kind == "scan":
-                outs = self.run_steps(n, program, feed=dev,
-                                      fetch_list=fetch_list, scope=scope,
-                                      return_numpy=return_numpy,
-                                      is_test=is_test, feeds_stacked=True)
-                for i in range(n):
-                    yield [o[i] if o is not None else None for o in outs]
-            else:
-                yield self.run(program, feed=dev, fetch_list=fetch_list,
-                               scope=scope, return_numpy=return_numpy,
-                               is_test=is_test)
+        reader = _prefetch(staged, buffer_size=max(1, depth), num_workers=1,
+                           instrument=obs_on, trace_parent=root)
+        try:
+            for kind, dev, n, ready in reader():
+                if ready is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(ready)
+                    for t in dev.values():
+                        t.record_stream(cur)
+                if kind == "scan":
+                    with (obs.tracing.attach(root) if root is not None
+                          else nullcontext()):
+                        outs = self.run_steps(
+                            n, program, feed=dev, fetch_list=fetch_list,
+                            scope=scope, return_numpy=return_numpy,
+                            is_test=is_test, feeds_stacked=True)
+                    for i in range(n):
+                        yield [o[i] if o is not None else None
+                               for o in outs]
+                else:
+                    # a per-step leftover (stream tail or a signature
+                    # change); K=1 dispatches singles by design
+                    if obs_on and K > 1:
+                        obs.inc_counter("pipeline/fallback_steps")
+                    with (obs.tracing.attach(root) if root is not None
+                          else nullcontext()):
+                        out = self.run(program, feed=dev,
+                                       fetch_list=fetch_list, scope=scope,
+                                       return_numpy=return_numpy,
+                                       is_test=is_test)
+                    yield out
+        finally:
+            if root is not None:
+                root.end()
 
 
 def _out(fetches, return_numpy):

@@ -43,8 +43,13 @@ One process writes everything, unless ``torch.distributed`` is
 initialized: then process 0 writes every var (the port's processes hold
 replicas) and the others wait for its commit.  Not ported: restoring a
 var stored in several pieces (a sharded JAX checkpoint; ROADMAP Queue A
-item 7), which raises; the lock watchdog and the observability hooks
-(item 9).
+item 7), which raises.
+
+Observability: each durable commit observes ``checkpoint/commit_ms``,
+counts delta bytes and rows or a rebase, and writes a ``ckpt`` event; a
+restore that skips a corrupt commit counts
+``fault/checkpoint_fallbacks``.  The writer's locks come from the lock
+watch.
 """
 from __future__ import annotations
 
@@ -61,8 +66,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..core.scope import Scope, global_scope
 from ..testing import faultinject as _fi
+from ..testing import lockwatch as _lw
 
 logger = logging.getLogger("paddle_tpu_torch")
 
@@ -247,7 +254,7 @@ class CheckpointManager:
         # the writer: a FIFO of at most one queued job, drained by a
         # thread that exits after an idle linger; a failure is held and
         # raised on the caller's thread by the next save()/wait()
-        self._wcv = threading.Condition(threading.Lock())
+        self._wcv = _lw.make_condition("checkpoint.writer")
         self._wq: List[dict] = []
         self._winflight: Optional[dict] = None
         self._wthread: Optional[threading.Thread] = None
@@ -256,7 +263,7 @@ class CheckpointManager:
         # delta-chain state (one process only): _committed is the durable
         # tip's meta, which the next delta diffs against; _planned_* is
         # the caller's view while a write is in flight
-        self._chain_lock = threading.Lock()
+        self._chain_lock = _lw.make_lock("checkpoint.chain")
         self._committed: Optional[dict] = None
         self._planned_alive = False
         self._planned_len = 0
@@ -474,8 +481,23 @@ class CheckpointManager:
             raise
         info["ms"] = (time.perf_counter() - t0) * 1e3
         self.commits.append(info)
+        self._emit_commit(info)
         self._safe_call(job.get("on_commit"), info)
         return info
+
+    @staticmethod
+    def _emit_commit(info):
+        obs.observe_hist("checkpoint/commit_ms", info["ms"])
+        if info["kind"] == "delta":
+            obs.inc_counter("checkpoint/delta_bytes", info["bytes"])
+            obs.inc_counter("checkpoint/delta_rows", info["rows"])
+        elif info.get("rebase"):
+            obs.inc_counter("checkpoint/rebase_total")
+        obs.emit_event("ckpt", event="commit", step=info["step"],
+                       commit_kind=info["kind"], bytes=info["bytes"],
+                       rows=info["rows"], ms=round(info["ms"], 3),
+                       chain_len=info.get("chain_len", 0),
+                       rebase=bool(info.get("rebase")))
 
     def _begin_attempt(self, step: int) -> str:
         """On the calling thread: clear what a crashed earlier save left
@@ -853,6 +875,9 @@ class CheckpointManager:
                     "checkpoint ckpt-%s is corrupt/unreadable (%s: %s); "
                     "falling back to the previous checkpoint", s,
                     type(e).__name__, e)
+                obs.inc_counter("fault/checkpoint_fallbacks")
+                obs.emit_event("fault", event="checkpoint_fallback",
+                               step=s, error=f"{type(e).__name__}: {e}")
                 continue
             # intact: place it (a placement error is not corruption)
             loaded = {n: self._place(scope, n, arr,

@@ -28,11 +28,12 @@ import os
 import signal as _signal
 import subprocess
 import sys
-import threading
 import time
 from typing import Callable, Optional, Sequence
 
 from ..faults import EXIT_PREEMPTED, Preempted, RetryPolicy
+from ..observability import emit_event, inc_counter
+from ..testing import lockwatch as _lw
 
 logger = logging.getLogger("paddle_tpu_torch")
 
@@ -74,12 +75,20 @@ class Supervisor:
         # terminate() may run in a signal handler on the thread that
         # holds it inside run_command
         self._child: Optional[subprocess.Popen] = None
-        self._child_lock = threading.RLock()
+        self._child_lock = _lw.make_rlock("supervisor.child")
         self._terminated = False   # a deliberate stop: no relaunch
+
+    def _note_restart(self, what: str, outcome: str, delay_s: float):
+        """Restart accounting shared by run() and run_command()."""
+        self.restarts += 1
+        inc_counter("fault/restarts")
+        emit_event("fault", event="restart", site=what,
+                   attempt=self.restarts, delay_s=round(delay_s, 4),
+                   error=outcome)
 
     def _backoff(self, what: str, outcome: str):
         d = self._policy.delay(self.restarts)
-        self.restarts += 1
+        self._note_restart(what, outcome, d)
         logger.warning("supervisor: %s ended with %s; relaunch %d in "
                        "%.3f s", what, outcome, self.restarts, d)
         if d > 0:
@@ -96,8 +105,8 @@ class Supervisor:
         self.outcomes = []
 
         def on_retry(i, e, d):
-            self.restarts += 1
             self.outcomes.append(f"{type(e).__name__}: {e}")
+            self._note_restart(what, self.outcomes[-1], d)
 
         try:
             return retry_call(fn, self._policy, what=what,

@@ -44,3 +44,16 @@ define_flag("conv1x1_pallas", True,
             "served path runs its kernel.  The name is the JAX package's. "
             "Per-executor override: Executor(conv1x1_pallas=...), "
             "per-layer override: layers.conv2d(use_pallas=...)")
+define_flag("log_period", 100, "steps between the trainer's periodic "
+            "observability reports (Flags.cpp:62); read only while "
+            "observing")
+define_flag("observe", False,
+            "runtime observability (paddle_tpu_torch.observability): "
+            "per-dispatch step telemetry into the metrics registry, "
+            "spans, NVTX ranges around each dispatch, and JSONL export "
+            "when metrics_log is set.  No registry write, span or log "
+            "line, and no new capture key, when off.  Per-executor "
+            "override: Executor(observe=...)")
+define_flag("metrics_log", "",
+            "JSONL structured metrics/event log path; empty = off.  "
+            "Read it with observability.summarize_log / iter_log_events")

@@ -62,6 +62,7 @@ __all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "splitk_reduce",
            "conv2d_1x1_reference", "conv2d_1x1_with_bn_stats",
            "conv2d_1x1_grad_fused", "conv1x1_eligible",
            "conv1x1_static_gate", "pixels", "conv2d_1x1_op", "routes",
+           "KERNEL_DTYPES",
            "launches",
            "reset_counts",
            "build", "SOURCE"]
@@ -69,6 +70,9 @@ __all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "splitk_reduce",
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "conv1x1_mm.cu")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the operand dtypes the kernels take; another dtype never reaches them
+# (ops/nn_ops.py routes it plainly, counted in ``routes["dtype"]``)
+KERNEL_DTYPES = tuple(_DTYPE_CODES)
 _TILE = 128                    # both kernels' M/N tile
 _MAX_GRID_Y = 65535            # the kernel puts M tiles on gridDim.y
 _FORMS = {(False, True): "forward", (False, False): "dgrad",
@@ -639,7 +643,8 @@ def conv1x1_eligible(x_shape, w_shape, strides, pads, dils, groups) -> bool:
 # ---------------------------------------------------------------------------
 # conv2d_1x1_op's choice at each call's concrete shape: "kernel" (the P
 # rule holds: conv2d_1x1, which launches mm on a card) or "conv2d" (it
-# does not: F.conv2d).  Registered like mm.by_form, so a replayed graph
+# does not: F.conv2d); and "dtype", a gated conv whose operands the
+# kernels do not take (float64), which ops/nn_ops.py convolves plainly.  Registered like mm.by_form, so a replayed graph
 # counts the choices its capture made.
 routes = register_launch_counter(collections.Counter())
 

@@ -50,7 +50,12 @@ def _conv2d(ctx, ins, attrs):
     groups = int(attrs.get("groups", 1) or 1)
     if _conv1x1_kernel_wanted(ctx, attrs) and conv1x1.conv1x1_static_gate(
             x.shape[1], tuple(w.shape), pads, dil, groups):
-        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        if x.dtype not in conv1x1.KERNEL_DTYPES:
+            # the kernels take fp32 and bf16: a float64 step
+            # (Executor(compute_dtype="float64")) convolves plainly,
+            # counted in routes["dtype"]
+            conv1x1.routes["dtype"] += 1
+        elif torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
             # training: the autograd Function whose backward launches the
             # kernel too, with the whole gate applied here
             if conv1x1.pixels(tuple(x.shape), strides) % 128 == 0:

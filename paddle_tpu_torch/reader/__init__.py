@@ -10,7 +10,7 @@ and recordio sources.
 
 Not ported yet: ``native_buffered`` (the ``native/`` binding),
 ``creator.cloud_reader`` (the distributed master), and the pipeline's
-observability hooks and autotuned defaults.
+autotuned defaults.
 """
 from . import creator
 from . import decorator

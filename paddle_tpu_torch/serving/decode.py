@@ -46,9 +46,17 @@ step's own state buffers, and an in-place write to them is what the next
 replay reads (the executor copies a state buffer in only when the scope
 holds another tensor).
 
-Not ported: the observability counters, events and spans, the lock
-watch, and the autotuner's ``serving/decode_slots`` knob (ROADMAP Queue A
-item 9); omitted knobs take :data:`DECODE_SLOTS_DEFAULT`.
+Observability, as in the JAX pool, with ``observe`` on
+(``DecodeRuntime(observe=...)``, else the global flag, read once at
+construction; a pool mounted on a server takes the server's): the
+``serving/decode_*`` metrics, the ``decode_admit``/``decode_step``/
+``decode_done`` events, one ``serving/request`` span per request and one
+``serving/decode_step`` span per token step (``attribution.decode_budget``
+reads them).  With it off the pool builds no span and writes neither the
+registry nor the log.  The pool's lock comes from the lock watch.
+
+Not ported: the autotuner's ``serving/decode_slots`` knob (ROADMAP
+Queue A item 9d); omitted knobs take :data:`DECODE_SLOTS_DEFAULT`.
 """
 from __future__ import annotations
 
@@ -62,7 +70,9 @@ import numpy as np
 import torch
 
 from .. import faults as _faults
+from .. import observability as obs
 from ..testing import faultinject as _fi
+from ..testing import lockwatch as _lw
 from .server import ModelError, PendingResponse
 
 logger = logging.getLogger("paddle_tpu_torch")
@@ -77,7 +87,7 @@ DEFAULT_LEN_BUCKETS = (32, 64, 128, 256, 512)
 # the slot count (the decode program's batch) and the idle pool's wait
 DECODE_SLOTS_DEFAULT = {"slots": 8, "step_wait_ms": 1.0}
 
-AUTOTUNE_NOT_PORTED = "ROADMAP Queue A item 9 (tuning/)"
+AUTOTUNE_NOT_PORTED = "ROADMAP Queue A item 9d (tuning/)"
 
 
 def _no_autotune(autotune, what):
@@ -318,7 +328,9 @@ class DecodeRuntime:
     Standalone (``start()`` / ``submit()`` / ``shutdown()``) or mounted on
     a :class:`~paddle_tpu_torch.serving.server.Server` through
     ``add_decode_model``.  ``mode="static"`` is the control arm: the
-    whole batch waits for its slowest member."""
+    whole batch waits for its slowest member.  ``observe``: write the
+    pool's metrics, events and spans (default: the global ``observe``
+    flag when the pool is built)."""
 
     def __init__(self, engine: DecodeEngine, name: Optional[str] = None,
                  mode: str = "continuous",
@@ -328,7 +340,8 @@ class DecodeRuntime:
                  breaker_threshold: int = 3,
                  breaker_cooldown_s: float = 30.0,
                  retry_policy: Optional[_faults.RetryPolicy] = None,
-                 autotune: Optional[bool] = None):
+                 autotune: Optional[bool] = None,
+                 observe: Optional[bool] = None):
         if mode not in ("continuous", "static"):
             raise ValueError(
                 f"mode must be 'continuous' or 'static', got {mode!r}")
@@ -336,6 +349,7 @@ class DecodeRuntime:
         if step_wait_ms is None:
             step_wait_ms = DECODE_SLOTS_DEFAULT["step_wait_ms"]
         self.engine = engine
+        self.observe = obs.enabled() if observe is None else bool(observe)
         self.name = str(name or engine.name)
         self.mode = mode
         self.step_wait_s = float(step_wait_ms) / 1e3
@@ -349,8 +363,8 @@ class DecodeRuntime:
                                 backoff_max_s=0.1, seed=0)
         # re-entrant: submit() reads breaker_state() under the admission
         # condition, which shares this lock
-        self.lock = threading.RLock()
-        self.cond = threading.Condition(self.lock)
+        self.lock = _lw.make_rlock("serving.decode")
+        self.cond = _lw.make_condition("serving.decode", self.lock)
         self.queue: collections.deque = collections.deque()
         self.slots: List[Optional[_Seq]] = [None] * engine.slots
         self.closed = False
@@ -372,7 +386,7 @@ class DecodeRuntime:
             now = time.monotonic() if now is None else now
             return "half_open" if now >= self.breaker_open_until else "open"
 
-    def _note_failure(self, err: BaseException):
+    def _note_failure(self, err: BaseException, span=None):
         opened = False
         with self.lock:
             self.consecutive_failures += 1
@@ -384,16 +398,29 @@ class DecodeRuntime:
                 self.breaker_open_until = (time.monotonic()
                                            + self.breaker_cooldown_s)
         if opened:
+            if self.observe:
+                obs.inc_counter("serving/breaker_open")
+                obs.emit_event("serving", event="breaker_open",
+                               model=self.name,
+                               error=f"{type(err).__name__}: {err}")
+            if span is not None:
+                span.event("breaker_open",
+                           error=f"{type(err).__name__}: {err}")
             logger.error("serving: circuit breaker OPEN for decode model "
                          "%r after %d consecutive failures (%s: %s)",
                          self.name, self.consecutive_failures,
                          type(err).__name__, err)
 
-    def _note_success(self):
+    def _note_success(self, span=None):
         with self.lock:
             self.consecutive_failures = 0
             closed, self.breaker_open = self.breaker_open, False
         if closed:
+            if self.observe:
+                obs.emit_event("serving", event="breaker_close",
+                               model=self.name)
+            if span is not None:
+                span.event("breaker_close")
             logger.info("serving: circuit breaker closed for decode "
                         "model %r (probe succeeded)", self.name)
 
@@ -462,30 +489,42 @@ class DecodeRuntime:
             with self.lock:
                 self._req_counter += 1
                 req_id = f"{self.name}-{self._req_counter}"
-        if deadline_ms == -1.0:
-            deadline_ms = self.default_deadline_ms
-        deadline = None if deadline_ms is None \
-            else time.monotonic() + deadline_ms / 1e3
-        req = PendingResponse(req_id, self.name,
-                              {"tokens": np.asarray(prompt, np.int64)},
-                              deadline)
-        w = _Seq(req, prompt, max_new)
-        with self.cond:
-            if self.closed:
-                raise _faults.ServerClosed(
-                    f"decode model {self.name!r}: admission closed")
-            if self.breaker_state() == "open":
-                raise _faults.ModelUnavailable(
-                    f"decode model {self.name!r}: circuit breaker open; "
-                    f"retry after cooldown")
-            if (not self.shed and self.queue_capacity is not None
-                    and len(self.queue) >= self.queue_capacity):
-                raise _faults.Overloaded(
-                    f"decode model {self.name!r}: queue full "
-                    f"({self.queue_capacity})")
-            self.queue.append(w)
-            self.cond.notify()
-        return req
+        sp = obs.tracing.start_span(
+            "serving/request", parent=obs.tracing.ROOT,
+            model=self.name, id=req_id) if self.observe else None
+        try:
+            if deadline_ms == -1.0:
+                deadline_ms = self.default_deadline_ms
+            deadline = None if deadline_ms is None \
+                else time.monotonic() + deadline_ms / 1e3
+            req = PendingResponse(
+                req_id, self.name,
+                {"tokens": np.asarray(prompt, np.int64)}, deadline)
+            req.span = sp
+            w = _Seq(req, prompt, max_new)
+            with self.cond:
+                if self.closed:
+                    raise _faults.ServerClosed(
+                        f"decode model {self.name!r}: admission closed")
+                if self.breaker_state() == "open":
+                    raise _faults.ModelUnavailable(
+                        f"decode model {self.name!r}: circuit breaker "
+                        f"open; retry after cooldown")
+                if (not self.shed and self.queue_capacity is not None
+                        and len(self.queue) >= self.queue_capacity):
+                    self._note_shed("incoming", "decode_admission")
+                    raise _faults.Overloaded(
+                        f"decode model {self.name!r}: queue full "
+                        f"({self.queue_capacity})")
+                self.queue.append(w)
+                self.cond.notify()
+            if self.observe:
+                obs.inc_counter("serving/requests")
+            return req
+        except BaseException as e:
+            if sp is not None:
+                sp.end(status=type(e).__name__)
+            raise
 
     # -- health --------------------------------------------------------------
     def health(self) -> dict:
@@ -505,9 +544,19 @@ class DecodeRuntime:
     def _expire(self, w: _Seq, where: str) -> bool:
         if not w.req.expired():
             return False
+        if self.observe:
+            obs.inc_counter("serving/deadline_expired")
+            obs.emit_event("serving", event="deadline_expired",
+                           model=self.name, where=where)
         w.req._complete(error=_faults.DeadlineExceeded(
             f"request {w.req.id!r}: deadline expired before {where}"))
         return True
+
+    def _note_shed(self, victim: str, where: str):
+        if self.observe:
+            obs.inc_counter("serving/shed")
+            obs.emit_event("serving", event="shed", model=self.name,
+                           victim=victim, where=where)
 
     def _shed_locked(self):
         """Oldest-deadline-first shedding at the token-step boundary:
@@ -525,6 +574,7 @@ class DecodeRuntime:
             self.queue.remove(victim)
             shed.append(victim)
         for w in shed:
+            self._note_shed("queued", "decode_step")
             w.req._complete(error=_faults.Overloaded(
                 f"decode model {self.name!r}: shed at step boundary "
                 f"(oldest deadline first)"))
@@ -553,6 +603,11 @@ class DecodeRuntime:
             self.served += 1
         ttft = None if w.t_first is None \
             else (w.t_first - w.req.t_admit) * 1e3
+        if self.observe:
+            obs.emit_event("serving", event="decode_done",
+                           model=self.name, id=w.req.id,
+                           tokens=len(w.tokens), finish=finish,
+                           ttft_ms=None if ttft is None else round(ttft, 3))
         w.req._complete(outputs={
             "tokens": list(w.tokens), "finish": finish,
             "ttft_ms": ttft, "inter_token_ms": list(w.inter_ms)})
@@ -588,12 +643,20 @@ class DecodeRuntime:
         self.slots[w.slot] = w
         with self.lock:
             self.tokens_done += 1
+        if self.observe:
+            obs.inc_counter("serving/decode_tokens")
+            ttft = (now - w.req.t_admit) * 1e3
+            obs.observe_hist("serving/decode_ttft_ms", ttft)
+            obs.emit_event("serving", event="decode_admit",
+                           model=self.name, id=w.req.id, slot=w.slot,
+                           prompt_len=len(w.prompt),
+                           ttft_ms=round(ttft, 3))
         if self.engine.eos_id is not None and tok == self.engine.eos_id:
             self._finish(w, "eos")
         elif len(w.tokens) >= w.max_new:
             self._finish(w, "length")
 
-    def _dispatch(self, toks, lens, act):
+    def _dispatch(self, toks, lens, act, span=None):
         """The decode dispatch through the injection site and the retry
         rim.  The site fires before the executor call, so an injected
         transient retries with the slabs untouched."""
@@ -607,10 +670,21 @@ class DecodeRuntime:
                     _fi.raise_for(action, "serving.decode_step")
             return self.engine.decode_step(toks, lens, act)
 
+        def on_retry(i, e, d):
+            obs.inc_counter("fault/retries")
+            obs.emit_event("fault", event="retry",
+                           site="serving.decode_step", attempt=i + 1,
+                           delay_s=round(d, 4),
+                           error=f"{type(e).__name__}: {e}")
+            if span is not None:
+                span.event("retry", attempt=i + 1, delay_s=round(d, 4),
+                           error=f"{type(e).__name__}: {e}")
+
         if self.retry_policy is None:
             return attempt()
         return _faults.retry_call(
-            attempt, self.retry_policy, what=f"decode step [{self.name}]")
+            attempt, self.retry_policy, what=f"decode step [{self.name}]",
+            on_retry=on_retry if self.observe else None)
 
     def _decode_step(self):
         S = self.engine.slots
@@ -630,29 +704,57 @@ class DecodeRuntime:
             live.append(w)
         if not live:
             return
+        sp = obs.tracing.start_span(
+            "serving/decode_step", parent=obs.tracing.ROOT,
+            model=self.name, active=len(live),
+            step=self.steps) if self.observe else None
+        t0 = time.monotonic()
         try:
-            logits = self._dispatch(toks, lens, act)
+            logits = self._dispatch(toks, lens, act, span=sp)
         except BaseException as e:
-            self._note_failure(e)
+            self._note_failure(e, span=sp)
+            if sp is not None:
+                obs.emit_event("serving", event="error", model=self.name,
+                               error=f"{type(e).__name__}: {e}")
             self._fail_active(ModelError(
                 f"decode model {self.name!r}: step dispatch failed "
                 f"({type(e).__name__}: {e})"))
+            if sp is not None:
+                sp.end(status=type(e).__name__)
             return
-        self._note_success()
+        dispatch_ms = (time.monotonic() - t0) * 1e3
+        self._note_success(span=sp)
         now = time.monotonic()
         with self.lock:
             self.steps += 1
             self.tokens_done += len(live)
+            tokens_done, t_start = self.tokens_done, self.t_start
+        if sp is not None:
+            obs.inc_counter("serving/decode_tokens", len(live))
+            obs.set_gauge("serving/decode_slot_occupancy",
+                          len(live) / float(S))
+            obs.set_gauge("serving/decode_tokens_per_s",
+                          tokens_done / max(now - t_start, 1e-9))
         for w in live:
             nxt = int(np.argmax(logits[w.slot, 0]))
             w.tokens.append(nxt)
-            w.inter_ms.append((now - w.t_last) * 1e3)
+            gap = (now - w.t_last) * 1e3
+            w.inter_ms.append(gap)
             w.t_last = now
+            if sp is not None:
+                obs.observe_hist("serving/decode_inter_token_ms", gap)
             if self.engine.eos_id is not None \
                     and nxt == self.engine.eos_id:
                 self._finish(w, "eos")
             elif len(w.tokens) >= w.max_new:
                 self._finish(w, "length")
+        if sp is not None:
+            with self.lock:
+                queued = len(self.queue)
+            obs.emit_event("serving", event="decode_step", model=self.name,
+                           active=len(live), queued=queued,
+                           dispatch_ms=round(dispatch_ms, 3))
+            sp.end(status="ok", dispatch_ms=round(dispatch_ms, 3))
 
     def _step_loop(self):
         try:

@@ -40,9 +40,17 @@ Outputs come back as device tensors; the dispatcher moves each to the
 host once per batch (bfloat16 widens to float32: numpy has no bfloat16)
 and hands every request its own row.
 
-Not ported yet: metrics, tracing and the lock watch (ROADMAP Queue A
-item 9), the HTTP front and the fleet router (after item 9: both report
-through the observability layer).
+Observability, with the ``observe`` flag on when the server is built
+(read once, at construction): the ``serving/*`` counters
+and histograms, ``serving`` events in the JSONL log, one
+``serving/request`` span per request (its own trace, started at
+admission, ended with the terminal status) and one ``serving/batch``
+span per dispatched batch.  With it off no path of the server builds a
+span or writes the registry or the log.  The locks come from the lock
+watch (``testing/lockwatch.py``).
+
+Not ported yet: the HTTP front and the fleet router (ROADMAP Queue A
+item 9c).
 """
 from __future__ import annotations
 
@@ -56,9 +64,11 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from .. import faults as _faults
+from .. import observability as obs
 from ..core.executor import pad_batch, stack_feeds
 from ..core.scope import to_numpy
 from ..testing import faultinject as _fi
+from ..testing import lockwatch as _lw
 from .model import Model
 
 logger = logging.getLogger("paddle_tpu_torch")
@@ -100,10 +110,14 @@ class PendingResponse:
     once: either ``outputs`` (a list of per-request arrays) or a typed
     error.  ``result()`` blocks; ``add_done_callback`` fires on the
     completing thread (or at once if already terminal).  ``t_admit`` is
-    the admission time (``time.monotonic()``)."""
+    the admission time (``time.monotonic()``); ``dispatch_ms`` the model
+    dispatch wall of the batch that served it (None until served);
+    ``span`` its ``serving/request`` span, None when the runtime does
+    not observe (completion then writes no metric either)."""
 
     __slots__ = ("id", "model", "feeds", "sig", "deadline", "t_admit",
-                 "outputs", "error", "_event", "_callbacks", "_lock")
+                 "outputs", "error", "dispatch_ms", "span", "_event",
+                 "_callbacks", "_lock")
 
     def __init__(self, req_id, model: str, feeds, deadline: Optional[float]):
         self.id = req_id
@@ -114,9 +128,11 @@ class PendingResponse:
         self.t_admit = time.monotonic()
         self.outputs = None
         self.error: Optional[BaseException] = None
+        self.dispatch_ms: Optional[float] = None
+        self.span = None
         self._event = threading.Event()
         self._callbacks: List[Callable] = []
-        self._lock = threading.Lock()
+        self._lock = _lw.make_lock("serving.request")
 
     def expired(self, now: Optional[float] = None) -> bool:
         return (self.deadline is not None
@@ -134,6 +150,11 @@ class PendingResponse:
             self.error = error
             cbs, self._callbacks = self._callbacks, []
             self._event.set()
+        if self.span is not None:
+            obs.observe_hist("serving/request_ms",
+                             (time.monotonic() - self.t_admit) * 1e3)
+            self.span.end(status="ok" if error is None
+                          else type(error).__name__)
         for cb in cbs:
             try:
                 cb(self)
@@ -164,8 +185,8 @@ class _ModelRuntime:
     def __init__(self, model: Model, server: "Server"):
         self.model = model
         self.srv = server
-        self.lock = threading.Lock()
-        self.cond = threading.Condition(self.lock)
+        self.lock = _lw.make_lock("serving.rt")
+        self.cond = _lw.make_condition("serving.rt", self.lock)
         self.queue: collections.deque = collections.deque()
         self.staging: _queue_mod.Queue = _queue_mod.Queue(
             maxsize=max(1, server.staging_depth))
@@ -185,7 +206,7 @@ class _ModelRuntime:
             now = time.monotonic() if now is None else now
             return "half_open" if now >= self.breaker_open_until else "open"
 
-    def _note_batch_failure(self, err: BaseException):
+    def _note_batch_failure(self, err: BaseException, span=None):
         with self.lock:
             self.consecutive_failures += 1
             opened = (self.consecutive_failures >= self.srv.breaker_threshold
@@ -196,16 +217,29 @@ class _ModelRuntime:
                 self.breaker_open_until = (time.monotonic()
                                            + self.srv.breaker_cooldown_s)
         if opened:
+            if self.srv.observe:
+                obs.inc_counter("serving/breaker_open")
+                obs.emit_event("serving", event="breaker_open",
+                               model=self.model.name,
+                               error=f"{type(err).__name__}: {err}")
+            if span is not None:
+                span.event("breaker_open",
+                           error=f"{type(err).__name__}: {err}")
             logger.error("serving: circuit breaker OPEN for model %r "
                          "after %d consecutive failures (%s: %s)",
                          self.model.name, self.consecutive_failures,
                          type(err).__name__, err)
 
-    def _note_batch_success(self):
+    def _note_batch_success(self, span=None):
         with self.lock:
             self.consecutive_failures = 0
             closed, self.breaker_open = self.breaker_open, False
         if closed:
+            if self.srv.observe:
+                obs.emit_event("serving", event="breaker_close",
+                               model=self.model.name)
+            if span is not None:
+                span.event("breaker_close")
             logger.info("serving: circuit breaker closed for model %r "
                         "(probe succeeded)", self.model.name)
 
@@ -225,6 +259,8 @@ class Server:
     disables admission bounds (with ``shed=False``, the no-robustness
     control arm of ``benchmark.serving``).  ``retry_policy``: the
     dispatch's retry rim (default 2 attempts, 5 ms backoff).
+    The server writes its metrics, events and spans when the
+    ``observe`` flag is on at construction; its decode tenants follow.
     """
 
     def __init__(self, max_batch: int = 32,
@@ -262,10 +298,11 @@ class Server:
         self.warmup = bool(warmup)
         self.warmup_buckets = list(warmup_buckets) if warmup_buckets \
             else [self.buckets[0], self.buckets[-1]]
+        self.observe = obs.enabled()
         self._models: Dict[str, _ModelRuntime] = {}
         self._decode: Dict[str, object] = {}   # name -> DecodeRuntime
         self._state = WARMING
-        self._state_lock = threading.Lock()
+        self._state_lock = _lw.make_lock("serving.server.state")
         self._req_counter = 0
         self._started = False
 
@@ -277,6 +314,8 @@ class Server:
     def _set_state(self, state: str):
         with self._state_lock:
             self._state = state
+        if self.observe:
+            obs.emit_event("serving", event="state", state=state)
 
     def ready(self) -> bool:
         return self._state == READY
@@ -310,7 +349,7 @@ class Server:
             breaker_cooldown_s=self.breaker_cooldown_s,
             retry_policy=(retry_policy if retry_policy is not None
                           else self.retry_policy),
-            autotune=autotune)
+            autotune=autotune, observe=self.observe)
         if pool.name in self._models or pool.name in self._decode:
             raise ValueError(f"duplicate model name {pool.name!r}")
         self._decode[pool.name] = pool
@@ -406,14 +445,17 @@ class Server:
 
     def submit(self, feeds: Dict[str, object], model: Optional[str] = None,
                deadline_ms: Optional[float] = -1.0,
-               req_id=None) -> PendingResponse:
+               req_id=None, trace_parent=None) -> PendingResponse:
         """Admit one single-example request (feeds carry NO batch axis).
 
         Admission failures raise typed errors immediately:
         ``ServerClosed``, ``ModelUnavailable`` (breaker open),
         ``Overloaded`` (queue full and this request had the soonest
         deadline).  ``deadline_ms``: the default sentinel (-1) means the
-        server default, ``None`` means no deadline."""
+        server default, ``None`` means no deadline.  ``trace_parent``: a
+        remote caller's extracted trace context
+        (``tracing.RemoteParent``), which the request span parents onto
+        instead of starting a trace of its own."""
         rt = self._resolve_model(model)
         if _fi.ENABLED:
             action = _fi.check("serving.request")
@@ -427,20 +469,35 @@ class Server:
             with self._state_lock:
                 self._req_counter += 1
                 req_id = self._req_counter
-        if self._state != READY:
-            raise _faults.ServerClosed(
-                f"server is {self._state}; admission closed")
-        if rt.breaker_state() == "open":
-            raise _faults.ModelUnavailable(
-                f"model {rt.model.name!r}: circuit breaker open (repeated "
-                f"fatal dispatch errors); retry after cooldown")
-        if deadline_ms == -1.0:
-            deadline_ms = self.default_deadline_ms
-        deadline = None if deadline_ms is None \
-            else time.monotonic() + deadline_ms / 1e3
-        req = PendingResponse(req_id, rt.model.name,
-                              rt.model.coerce_feeds(feeds), deadline)
-        return self._admit(rt, req)
+        # one trace per request, started before the admission checks so
+        # every typed rejection reaches the log with its status; the span
+        # ends at the terminal completion, or here on a rejection
+        sp = obs.tracing.start_span(
+            "serving/request",
+            parent=trace_parent if trace_parent is not None
+            else obs.tracing.ROOT,
+            model=rt.model.name, id=req_id) if self.observe else None
+        try:
+            if self._state != READY:
+                raise _faults.ServerClosed(
+                    f"server is {self._state}; admission closed")
+            if rt.breaker_state() == "open":
+                raise _faults.ModelUnavailable(
+                    f"model {rt.model.name!r}: circuit breaker open "
+                    f"(repeated fatal dispatch errors); retry after "
+                    f"cooldown")
+            if deadline_ms == -1.0:
+                deadline_ms = self.default_deadline_ms
+            deadline = None if deadline_ms is None \
+                else time.monotonic() + deadline_ms / 1e3
+            req = PendingResponse(req_id, rt.model.name,
+                                  rt.model.coerce_feeds(feeds), deadline)
+            req.span = sp
+            return self._admit(rt, req)
+        except BaseException as e:
+            if sp is not None:
+                sp.end(status=type(e).__name__)
+            raise
 
     def _admit(self, rt: _ModelRuntime, req: PendingResponse):
         shed_req = None
@@ -451,6 +508,7 @@ class Server:
             if (self.queue_capacity is not None
                     and len(rt.queue) >= self.queue_capacity):
                 if not self.shed:
+                    self._note_shed(rt, "incoming")
                     raise _faults.Overloaded(
                         f"model {rt.model.name!r}: queue full "
                         f"({self.queue_capacity})")
@@ -463,6 +521,7 @@ class Server:
                     key=lambda r: r.deadline,
                     default=req)
                 if victim is req:
+                    self._note_shed(rt, "incoming")
                     raise _faults.Overloaded(
                         f"model {rt.model.name!r}: queue full "
                         f"({self.queue_capacity}) and this request has "
@@ -472,10 +531,19 @@ class Server:
             rt.queue.append(req)
             rt.cond.notify()
         if shed_req is not None:
+            self._note_shed(rt, "queued")
             shed_req._complete(error=_faults.Overloaded(
                 f"model {rt.model.name!r}: shed under overload "
                 f"(oldest deadline first)"))
+        if self.observe:
+            obs.inc_counter("serving/requests")
         return req
+
+    def _note_shed(self, rt: _ModelRuntime, victim: str):
+        if self.observe:
+            obs.inc_counter("serving/shed")
+            obs.emit_event("serving", event="shed", model=rt.model.name,
+                           victim=victim)
 
     def infer(self, feeds: Dict[str, object], model: Optional[str] = None,
               deadline_ms: Optional[float] = -1.0,
@@ -535,6 +603,10 @@ class Server:
         was expired.  Never dispatched, never computed."""
         if not req.expired():
             return False
+        if self.observe:
+            obs.inc_counter("serving/deadline_expired")
+            obs.emit_event("serving", event="deadline_expired",
+                           model=req.model, where=where)
         req._complete(error=_faults.DeadlineExceeded(
             f"request {req.id!r}: deadline expired before {where}"))
         return True
@@ -548,6 +620,9 @@ class Server:
                         rt.cond.wait(timeout=0.1)
                     if not rt.queue and rt.closed:
                         break
+                    if self.observe:
+                        obs.observe_hist("serving/queue_depth",
+                                         len(rt.queue))
                     first = rt.queue.popleft()
                 if self._expire(first, "batching"):
                     continue
@@ -594,7 +669,7 @@ class Server:
             rt.staging.put(None)        # dispatcher drain sentinel
 
     # -- dispatcher ----------------------------------------------------------
-    def _dispatch_batch(self, rt: _ModelRuntime, padded):
+    def _dispatch_batch(self, rt: _ModelRuntime, padded, span=None):
         """One model call through the injection site and the retry rim."""
         def attempt():
             if _fi.ENABLED:
@@ -606,11 +681,21 @@ class Server:
                     _fi.raise_for(action, "serving.dispatch")
             return rt.model(padded)
 
+        def on_retry(i, e, d):
+            obs.inc_counter("fault/retries")
+            obs.emit_event("fault", event="retry", site="serving.dispatch",
+                           attempt=i + 1, delay_s=round(d, 4),
+                           error=f"{type(e).__name__}: {e}")
+            if span is not None:
+                span.event("retry", attempt=i + 1, delay_s=round(d, 4),
+                           error=f"{type(e).__name__}: {e}")
+
         if self.retry_policy is None:
             return attempt()
         return _faults.retry_call(
             attempt, self.retry_policy,
-            what=f"serving dispatch [{rt.model.name}]")
+            what=f"serving dispatch [{rt.model.name}]",
+            on_retry=on_retry if self.observe else None)
 
     def _dispatch_loop(self, rt: _ModelRuntime):
         while True:
@@ -643,24 +728,49 @@ class Server:
                 r._complete(error=_faults.ModelUnavailable(
                     f"model {rt.model.name!r}: circuit breaker open"))
             return
+        # the batch's own trace (a join point, not a child of one
+        # request), linking every member request's trace by id
+        bsp = obs.tracing.start_span(
+            "serving/batch", parent=obs.tracing.ROOT,
+            model=rt.model.name, size=len(rows),
+            bucket=next((int(v.shape[0]) for v in padded.values()), 0),
+            requests=[r.id for _, r in rows],
+            traces=[r.span.trace_id for _, r in rows
+                    if r.span is not None]) if self.observe else None
+        t0 = time.monotonic()
         try:
-            outs = self._dispatch_batch(rt, padded)
+            outs = self._dispatch_batch(rt, padded, span=bsp)
             # to the host once per output, then one row per request; a
             # model whose outputs are not row-indexable is a model failure
             host = [None if o is None else to_numpy(o) for o in outs]
             split = [[None if h is None else np.array(h[i]) for h in host]
                      for i, _ in rows]
         except Exception as e:
-            rt._note_batch_failure(e)
+            rt._note_batch_failure(e, span=bsp)
             err = ModelError(
                 f"model {rt.model.name!r}: dispatch failed "
                 f"({type(e).__name__}: {e})")
             for _, r in rows:
                 r._complete(error=err)
+            if bsp is not None:
+                obs.emit_event("serving", event="error",
+                               model=rt.model.name,
+                               error=f"{type(e).__name__}: {e}")
+                bsp.end(status=type(e).__name__)
             return
-        rt._note_batch_success()
+        dispatch_ms = (time.monotonic() - t0) * 1e3
+        rt._note_batch_success(span=bsp)
         with rt.lock:
             rt.dispatched_batches += 1
             rt.served += len(rows)
+        if bsp is not None:
+            obs.inc_counter("serving/batches")
+            obs.observe_hist("serving/batch_size", len(rows))
+            obs.emit_event("serving", event="batch", model=rt.model.name,
+                           size=len(rows), bucket=bsp.labels["bucket"],
+                           dispatch_ms=round(dispatch_ms, 3))
         for (_, r), out in zip(rows, split):
+            r.dispatch_ms = dispatch_ms
             r._complete(outputs=out)
+        if bsp is not None:
+            bsp.end(status="ok", dispatch_ms=round(dispatch_ms, 3))

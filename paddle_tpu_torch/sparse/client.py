@@ -32,9 +32,15 @@ non-retryable re-raise at once as :class:`RemoteTableError`.
 
 The ``wire_mode="naive"`` arm keeps the deliberately slow control
 encoding (one JSON frame per row, values boxed in the header); it is
-never the served hot path.  Not ported: the JAX client's observability
-spans and counters and its trace-context propagation (ROADMAP Queue A
-item 9).
+never the served hot path.
+
+Observability: with ``observe`` (default: the ``observe`` flag) each
+fleet round runs in a ``pserver/rpc`` client span whose trace context
+rides the frame header (``ctx``); a shard that sees it parents its
+server-side span onto the caller and piggybacks its queue and kernel
+times on the reply, which label the client span
+(``attribution.remote_budget`` splits the wall with them).  Without it
+the frames carry no ``ctx``, byte-identical to an untraced wire.
 """
 from __future__ import annotations
 
@@ -42,13 +48,16 @@ import itertools
 import json
 import os
 import socket
-import threading
 import uuid
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import faults as _faults
+from .. import observability as obs
+from ..observability import tracing as _tracing
+from ..testing import lockwatch as _lw
 from . import wire
 from .table import PAD_ID, _OPTIMIZER_SLOTS, _STATE_PREFIX, _STATE_VERSION
 
@@ -96,7 +105,8 @@ class RemoteSparseTable:
                  init_scale: float = 0.05, seed: int = 0,
                  wire_mode: str = "binary",
                  retry: Optional[_faults.RetryPolicy] = None,
-                 io_timeout_s: float = 30.0):
+                 io_timeout_s: float = 30.0,
+                 observe: Optional[bool] = None):
         if not addrs:
             raise ValueError(
                 f"RemoteSparseTable {name!r}: addrs must name at least "
@@ -126,6 +136,7 @@ class RemoteSparseTable:
         self.wire_mode = wire_mode
         self.retry = retry if retry is not None else _faults.RetryPolicy()
         self.io_timeout_s = float(io_timeout_s)
+        self._observe = obs.enabled() if observe is None else bool(observe)
         init = self._wire_init(initializer, init_scale)
         self._spec = {
             "name": self.name, "vocab_size": self.vocab_size,
@@ -144,7 +155,7 @@ class RemoteSparseTable:
         self._seq = 0
         self._socks: List[Optional[socket.socket]] = [None] * self.n_shards
         self._dials = [0] * self.n_shards
-        self._lock = threading.RLock()
+        self._lock = _lw.make_rlock("sparse.client")
         # stats mirrors, refreshed from every reply's piggyback
         self._shard_stats: Dict[int, Dict] = {}
         self.rows_initialized = 0
@@ -179,6 +190,8 @@ class RemoteSparseTable:
                                      timeout=self.io_timeout_s)
         s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._dials[k] += 1
+        if self._dials[k] > 1 and self._observe:
+            obs.inc_counter("pserver/reconnects")
         try:
             wire.write_frame(s, {"op": "hello"})
             hello, _ = wire.read_frame(s)
@@ -225,6 +238,15 @@ class RemoteSparseTable:
         self.close()
         return False
 
+    # -- spans --------------------------------------------------------------
+    def _span(self, op: str, **labels):
+        """Client span around one fleet round, gated here: an observe-off
+        client builds no span (and its rounds carry no ctx)."""
+        if not self._observe:
+            return nullcontext()
+        return _tracing.span("pserver/rpc", op=op, table=self.name,
+                             **labels)
+
     # -- the round ----------------------------------------------------------
     def _round(self, per_shard: Dict[int, Tuple[Dict, tuple]], *,
                what: str) -> Dict[int, Tuple[Dict, List[np.ndarray]]]:
@@ -232,11 +254,16 @@ class RemoteSparseTable:
         then read every reply (N-shard latency = max, not sum), inside
         the retry rim.  Returns {shard: (reply_header, arrays)}."""
         shards = sorted(per_shard)
+        # the trace context rides the header only when observing; its
+        # presence is what asks the shard for a span and timings
+        ctx = _tracing.inject() if self._observe else None
 
         def attempt():
             try:
                 for k in shards:
                     header, arrays = per_shard[k]
+                    if ctx is not None:
+                        header = dict(header, ctx=ctx)
                     if self.wire_mode == "naive":
                         wire.write_frame_json(self._conn(k), header,
                                               arrays)
@@ -268,11 +295,45 @@ class RemoteSparseTable:
                     self._drop_conn(k)
                 raise
 
+        def on_retry(i, e, d):
+            if self._observe:
+                obs.inc_counter("fault/retries")
+                obs.emit_event("fault", event="retry", site="pserver.rpc",
+                               attempt=i + 1, delay_s=round(d, 4),
+                               error=f"{type(e).__name__}: {e}")
+
         with self._lock:
             replies = _faults.retry_call(
-                attempt, self.retry, what=f"pserver {what} {self.name}")
+                attempt, self.retry, what=f"pserver {what} {self.name}",
+                on_retry=on_retry)
         self._absorb_stats(replies)
+        if ctx is not None:
+            self._absorb_srv(replies)
         return replies
+
+    def _absorb_srv(self, replies: Dict[int, Tuple[Dict, list]]):
+        """Reply-piggybacked server-side timings -> labels on the
+        enclosing ``pserver/rpc`` client span.  The round is pipelined
+        (waits on the slowest shard), so the shard with the largest
+        queue+kernel total is the one that bounded the wall — its
+        timings label the span; ``doctor`` subtracts them from span
+        wall to get the client-wire residual."""
+        best = None
+        for reply, _ in replies.values():
+            srv = reply.get("srv")
+            if isinstance(srv, dict):
+                tot = (float(srv.get("queue_ms", 0.0))
+                       + float(srv.get("kernel_ms", 0.0)))
+                if best is None or tot > best[0]:
+                    best = (tot, srv)
+        if best is None:
+            return
+        sp = _tracing.current_span()
+        if sp is not None and sp.name == "pserver/rpc":
+            sp.labels["srv_queue_ms"] = round(
+                float(best[1].get("queue_ms", 0.0)), 3)
+            sp.labels["srv_kernel_ms"] = round(
+                float(best[1].get("kernel_ms", 0.0)), 3)
 
     def _absorb_stats(self, replies: Dict[int, Tuple[Dict, list]]):
         for k, (reply, _) in replies.items():
@@ -326,7 +387,8 @@ class RemoteSparseTable:
         per_shard = {k: ({"op": "pull", "table": self.name}, (sids,))
                      for k, _sel, sids in parts}
         sels = {k: sel for k, sel, _ in parts}
-        replies = self._round(per_shard, what="pull")
+        with self._span("pull", shards=len(per_shard)):
+            replies = self._round(per_shard, what="pull")
         for k, (_reply, arrays) in replies.items():
             out[live_sel[sels[k]]] = arrays[0].astype(self.dtype,
                                                       copy=False)
@@ -335,14 +397,15 @@ class RemoteSparseTable:
     def _naive_pull(self, out, live_sel, live):
         """The control arm: one JSON frame per ROW (the per-row RPC
         cost shape the batched path is benchmarked against)."""
-        for j, i in zip(live_sel.tolist(), live.tolist()):
-            k = i % self.n_shards
-            replies = self._round(
-                {k: ({"op": "pull", "table": self.name},
-                     (np.asarray([i], np.int64),))},
-                what="pull")
-            out[j] = replies[k][1][0][0].astype(self.dtype,
-                                                copy=False)
+        with self._span("pull", shards=self.n_shards, mode="naive"):
+            for j, i in zip(live_sel.tolist(), live.tolist()):
+                k = i % self.n_shards
+                replies = self._round(
+                    {k: ({"op": "pull", "table": self.name},
+                         (np.asarray([i], np.int64),))},
+                    what="pull")
+                out[j] = replies[k][1][0][0].astype(self.dtype,
+                                                    copy=False)
 
     def pull_slot(self, slot: str, ids) -> np.ndarray:
         ids = np.asarray(ids, np.int64).ravel()
@@ -357,7 +420,8 @@ class RemoteSparseTable:
                 (sids,))
             for k, _sel, sids in parts}
         sels = {k: sel for k, sel, _ in parts}
-        replies = self._round(per_shard, what="pull_slot")
+        with self._span("pull_slot", shards=len(per_shard)):
+            replies = self._round(per_shard, what="pull_slot")
         for k, (_reply, arrays) in replies.items():
             out[live_sel[sels[k]]] = arrays[0].astype(self.dtype,
                                                       copy=False)
@@ -391,26 +455,28 @@ class RemoteSparseTable:
                      "seq": seq, "lr": learning_rate},
                     (sids, grads[sel]))
                 for k, sel, sids in self._partition(live)}
-            replies = self._round(per_shard, what="push")
+            with self._span("push", shards=len(per_shard)):
+                replies = self._round(per_shard, what="push")
         return sum(reply.get("updated", 0)
                    for reply, _ in replies.values())
 
     def _naive_push(self, live, grads, learning_rate) -> int:
         updated = 0
-        for j, i in enumerate(live.tolist()):
-            k = i % self.n_shards
-            # same single lock hold over seq + round as push()
-            with self._lock:
-                seq = self._seq
-                self._seq += 1
-                replies = self._round(
-                    {k: ({"op": "push", "table": self.name,
-                          "cid": self._cid, "seq": seq,
-                          "lr": learning_rate},
-                         (np.asarray([i], np.int64),
-                          grads[j:j + 1]))},
-                    what="push")
-            updated += replies[k][0].get("updated", 0)
+        with self._span("push", shards=self.n_shards, mode="naive"):
+            for j, i in enumerate(live.tolist()):
+                k = i % self.n_shards
+                # same single lock hold over seq + round as push()
+                with self._lock:
+                    seq = self._seq
+                    self._seq += 1
+                    replies = self._round(
+                        {k: ({"op": "push", "table": self.name,
+                              "cid": self._cid, "seq": seq,
+                              "lr": learning_rate},
+                             (np.asarray([i], np.int64),
+                              grads[j:j + 1]))},
+                        what="push")
+                updated += replies[k][0].get("updated", 0)
         return updated
 
     # -- checkpoint surface -------------------------------------------------
@@ -438,7 +504,8 @@ class RemoteSparseTable:
                 dtype=np.uint8).copy()}
         per_shard = {k: ({"op": "export", "table": self.name}, ())
                      for k in range(self.n_shards)}
-        replies = self._round(per_shard, what="export")
+        with self._span("export", shards=self.n_shards):
+            replies = self._round(per_shard, what="export")
         for k in range(self.n_shards):
             reply, arrays = replies[k]
             for key, a in zip(reply["keys"], arrays):
@@ -505,14 +572,16 @@ class RemoteSparseTable:
                 slots[s][sel] for s in self.slot_names)
             per_shard[k] = ({"op": "restore", "table": self.name,
                              "slots": list(self.slot_names)}, arrays)
-        self._round(per_shard, what="restore")
+        with self._span("restore", shards=self.n_shards):
+            self._round(per_shard, what="restore")
 
     # -- fleet ops ----------------------------------------------------------
     def checkpoint(self) -> List[Optional[str]]:
         """Ask every shard to commit a durable checkpoint now."""
         per_shard = {k: ({"op": "checkpoint"}, ())
                      for k in range(self.n_shards)}
-        replies = self._round(per_shard, what="checkpoint")
+        with self._span("checkpoint", shards=self.n_shards):
+            replies = self._round(per_shard, what="checkpoint")
         return [replies[k][0].get("saved") for k in range(self.n_shards)]
 
     def fleet_stats(self) -> Dict[int, Dict]:

@@ -39,8 +39,13 @@ fires per applied push with the global applied-push counter as its
 index (persisted in checkpoint and backup, so a ``kill`` fired in one
 life never fires again after a relaunch).
 
-Not ported: the JAX server's metrics, events and trace spans (ROADMAP
-Queue A item 9).
+Observability, as in the JAX server: the ``pserver/*`` metrics,
+``pserver`` events (start, checkpoint, restore, shutdown) and a final
+snapshot in the JSONL log, and, for a request whose header carries a
+trace context (``ctx``, sent by an observing client), a server-side
+``pserver/rpc`` span parented onto the caller and the shard's queue and
+kernel times piggybacked on the reply (``srv``).  A request without
+``ctx`` gets a reply byte-identical to an untraced wire.
 """
 from __future__ import annotations
 
@@ -59,6 +64,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..faults import EXIT_PREEMPTED, TransientError, classify
+from ..observability import (emit_event, inc_counter, metrics_snapshot,
+                             observe_hist, set_gauge,
+                             set_process_identity)
+from ..observability import tracing as _tracing
 from ..testing import faultinject
 from . import wire
 from .table import SparseTable, _STATE_PREFIX
@@ -167,6 +176,8 @@ class PServer:
         # _await_backup_ack): finished at the top of serve_forever so
         # forwards never nest
         self._deferred: "collections.deque" = collections.deque()
+        self._final_snapshot = False
+        self._last_kernel_ms = 0.0
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> int:
@@ -181,6 +192,9 @@ class PServer:
         self._sel = selectors.DefaultSelector()
         self._sel.register(s, selectors.EVENT_READ, "accept")
         self._recover()
+        emit_event("pserver", event="start", shard=self.shard,
+                   n_shards=self.n_shards, port=self.port,
+                   pushes_applied=self.pushes_applied)
         return self.port
 
     def stop(self):
@@ -210,10 +224,18 @@ class PServer:
 
     def _graceful_exit(self):
         self.checkpoint()
+        emit_event("pserver", event="shutdown", shard=self.shard,
+                   reason="sigterm", **self._totals)
         self._close_all()
         sys.exit(EXIT_PREEMPTED)
 
     def _close_all(self):
+        # a final metrics snapshot, so a dead shard's log still holds
+        # its counters (emit_event is a no-op without a log); both exit
+        # paths come here, the flag keeps it to one
+        if not self._final_snapshot:
+            self._final_snapshot = True
+            emit_event("snapshot", **metrics_snapshot())
         if self._sel is not None:
             for key in list(self._sel.get_map().values()):
                 try:
@@ -265,8 +287,13 @@ class PServer:
             self._drop_conn(conn)
             return
         header, arrays = got
+        # receipt stamp: queue wait = dispatch start - this instant (it
+        # survives a deferral, so a parked push reports its real wait)
+        header["_t_recv"] = time.perf_counter()
         self.requests += 1
         self._totals["wire_bytes_in"] += header.get("_wire_nbytes", 0)
+        inc_counter("pserver/requests")
+        inc_counter("pserver/wire_bytes_in", header.get("_wire_nbytes", 0))
         if faultinject.ENABLED:
             action = faultinject.check("pserver.rpc")
             if action == "drop":
@@ -289,13 +316,36 @@ class PServer:
         self._finish_request(conn, header, arrays)
 
     def _finish_request(self, conn, header, arrays):
+        t0 = time.perf_counter()
+        # a ctx is the caller's observe bit: no ctx, no server span and
+        # no srv piggyback; a malformed one is counted and ignored
+        parent = _tracing.extract(header.get("ctx")) \
+            if "ctx" in header else None
+        sp = None
+        queue_ms = 0.0
+        if parent is not None:
+            queue_ms = (t0 - header.get("_t_recv", t0)) * 1e3
+            sp = _tracing.start_span(
+                "pserver/rpc", parent=parent, side="server",
+                op=header.get("op"), shard=self.shard)
+        self._last_kernel_ms = 0.0
         try:
             reply, reply_arrays = self._dispatch(header, arrays)
         except Exception as e:           # a typed reply, never dead air
+            if sp is not None:
+                sp.end(queue_ms=round(queue_ms, 3),
+                       kernel_ms=round(self._last_kernel_ms, 3),
+                       error=type(e).__name__)
             self._reply_error(conn, header, e,
                               retryable=classify(e) == "retryable")
             return
+        observe_hist("pserver/frame_ms", (time.perf_counter() - t0) * 1e3)
         reply["ok"] = True
+        if sp is not None:
+            srv = {"queue_ms": round(queue_ms, 3),
+                   "kernel_ms": round(self._last_kernel_ms, 3)}
+            reply["srv"] = srv
+            sp.end(**srv)
         self._reply(conn, header, reply, reply_arrays)
 
     def _reply(self, conn, req_header, reply, arrays):
@@ -307,6 +357,7 @@ class PServer:
             else:
                 n = wire.write_frame(conn, reply, arrays)
             self._totals["wire_bytes_out"] += n
+            inc_counter("pserver/wire_bytes_out", n)
         except (wire.WireError, OSError):
             self._drop_conn(conn)
 
@@ -363,9 +414,15 @@ class PServer:
     def _op_pull(self, header, arrays):
         t = self._table(header)
         (ids,) = arrays
+        t0 = time.perf_counter()
         rows = t.pull(np.asarray(ids, np.int64))
+        dt = time.perf_counter() - t0
+        self._last_kernel_ms = dt * 1e3
         self._totals["pulls"] += 1
         self._totals["pull_rows"] += len(rows)
+        inc_counter("pserver/pull_rows", len(rows))
+        if dt > 0:
+            set_gauge("pserver/pull_rows_per_sec", len(rows) / dt)
         return {"stats": self._stats_of(t)}, (rows,)
 
     def _op_pull_slot(self, header, arrays):
@@ -395,12 +452,18 @@ class PServer:
         # open a hole — a failed forward after a successful apply could
         # neither re-apply (double) nor dup-ack (unreplicated).
         self._forward_backup(header, ids, grads, lr)
+        t0 = time.perf_counter()
         updated = t.push(ids, grads, learning_rate=lr)
+        dt = time.perf_counter() - t0
+        self._last_kernel_ms = dt * 1e3
         if cid is not None and seq is not None:
             self._applied_seq[key] = int(seq)
         self.pushes_applied += 1
         self._totals["pushes"] += 1
         self._totals["push_rows"] += updated
+        inc_counter("pserver/push_rows", updated)
+        if dt > 0:
+            set_gauge("pserver/push_rows_per_sec", updated / dt)
         if faultinject.ENABLED:
             # AFTER apply+backup, BEFORE the ack: the counter is durable
             # in the chain, so a kill here never re-fires after relaunch
@@ -419,6 +482,7 @@ class PServer:
         ack — only then may the client be acked."""
         if self.backup_addr is None:
             return
+        t0 = time.perf_counter()
         fwd = {"op": "backup_push", "table": header["table"],
                "origin": self.shard, "cid": header.get("cid"),
                "seq": header.get("seq"), "lr": lr,
@@ -436,6 +500,8 @@ class PServer:
                 if not reply.get("ok"):
                     raise RuntimeError(
                         f"backup push rejected: {reply.get('error')}")
+                observe_hist("pserver/replication_lag_ms",
+                             (time.perf_counter() - t0) * 1e3)
                 return
             except (wire.WireError, OSError) as e:
                 last = e
@@ -529,6 +595,7 @@ class PServer:
             self._backup_pushes.get(origin, 0),
             int(header.get("pushes_applied", 0)))
         self._totals["backup_pushes"] += 1
+        inc_counter("pserver/backup_pushes")
         return {}, ()
 
     def _op_backup_fetch(self, header, arrays):
@@ -681,7 +748,11 @@ class PServer:
             cm.save(step, scope, blocking=True, kind=kind,
                     on_commit=lambda info, tk=tokens: _ack(tk, True),
                     on_fail=lambda exc, tk=tokens: _ack(tk, False))
-        return self._ckpt_dir()
+        root = self._ckpt_dir()
+        inc_counter("pserver/checkpoints")
+        emit_event("pserver", event="checkpoint", shard=self.shard,
+                   dir=root, commit_kind=kind, **self._totals)
+        return root
 
     def _recover(self):
         """Relaunch recovery: chain backup first (holds every acked
@@ -726,6 +797,9 @@ class PServer:
                         self._applied_seq.get(k, -1), int(v))
                 self.pushes_applied = max(
                     self.pushes_applied, int(r.get("pushes_applied", 0)))
+            emit_event("pserver", event="restore", shard=self.shard,
+                       source="backup", tables=sorted(self._tables),
+                       pushes_applied=self.pushes_applied)
             return True
         except (wire.WireError, OSError):
             return False
@@ -766,6 +840,9 @@ class PServer:
             self._applied_seq = {k: int(v) for k, v in
                                  meta.get("applied_seq", {}).items()}
             self.pushes_applied = int(meta.get("pushes_applied", 0))
+            emit_event("pserver", event="restore", shard=self.shard,
+                       source="checkpoint", tables=sorted(self._tables),
+                       pushes_applied=self.pushes_applied)
             return True
         return False
 
@@ -814,6 +891,7 @@ def pserver_main(argv: Optional[List[str]] = None) -> int:
     # fleet of shards on a trainer's host does not oversubscribe its cores
     import torch
     torch.set_num_threads(1)
+    set_process_identity("pserver", shard)
     srv = PServer(shard, n_shards, host=args.host, port=args.port,
                   dir=args.dir,
                   backup_addr=_parse_addr(args.backup)

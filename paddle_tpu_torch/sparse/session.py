@@ -52,9 +52,15 @@ Two opt-in overlap legs extend the rim:
   holds every acknowledged push and a read never misses one.  A failed
   async push re-raises at the next ``complete``/``flush``/export.
 
-Not ported: the JAX session's observability counters and spans, its
-lock-watch locks and the autotuner's knob lookup (ROADMAP Queue A item
-9); omitted knobs take their declared defaults.
+Observability: ``observe=`` (default: the ``observe`` flag, resolved
+once at construction) mirrors the lifetime ``stats`` into the
+``sparse/*`` counters and histograms and wraps each batch's pulls and
+pushes in ``sparse/pull`` / ``sparse/push`` spans (a prefetch run's
+pulls parent to its ``sparse/prefetch`` root); the session's locks come
+from the lock watch.
+
+Not ported: the autotuner's knob lookup (ROADMAP Queue A item 9d);
+omitted knobs take their declared defaults.
 """
 from __future__ import annotations
 
@@ -63,11 +69,15 @@ import queue as _queue_mod
 import threading
 import time
 import weakref
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .. import faults as _faults
+from .. import observability as obs
+from ..observability.tracing import span, start_span
+from ..testing import lockwatch as _lw
 from ..testing import faultinject as _fi
 from .table import PAD_ID, SparseTable
 
@@ -200,7 +210,8 @@ class SparseSession:
                  retry_policy=None, bucket_floor: int = 8,
                  prefetch_depth: Optional[int] = None,
                  async_push: int = 0,
-                 push_flush_batch: Optional[int] = None):
+                 push_flush_batch: Optional[int] = None,
+                 observe: Optional[bool] = None):
         if isinstance(tables, SparseTable) or (
                 hasattr(tables, "pull") and hasattr(tables, "push")
                 and hasattr(tables, "name")):
@@ -228,18 +239,19 @@ class SparseSession:
         self.prefetch_depth = int(prefetch_depth)
         self.async_push = int(async_push)
         self.push_flush_batch = max(1, int(push_flush_batch))
+        self._observe = obs.enabled() if observe is None else bool(observe)
         self._bindings: List[SparseBinding] = []
         # bound-program memo: a WEAKREF, not id() — a dead program's
         # reused allocation must never short-circuit a rebind
         self._bound_ref = None
         self._bound_version = None
         self._push_gen = 0          # bumped per push; fences cache fills
-        self._lock = threading.Lock()
+        self._lock = _lw.make_lock("sparse.session")
         self._pending: "collections.deque" = collections.deque()
         # async-push worker state (guarded by _push_cv; the worker is
         # spawned on demand and exits after a bounded idle linger, so
         # sessions never leak threads without an explicit close)
-        self._push_cv = threading.Condition()
+        self._push_cv = _lw.make_condition("sparse.session.push")
         self._push_q: "collections.deque" = collections.deque()
         self._push_inflight = 0
         self._push_worker = None
@@ -335,6 +347,8 @@ class SparseSession:
         """Cache-first pull of the (bucketed) unique ids."""
         table, cache = b.table, self.cache
         t0 = time.perf_counter()
+        hits0, misses0 = cache.hits, cache.misses
+        init0, last_init0 = table.rows_initialized, table.last_init
         if cache.capacity > 0:
             out = np.zeros((len(uid), table.dim), table.dtype)
             missing_pos: List[int] = []
@@ -372,11 +386,35 @@ class SparseSession:
         self.stats["pulls"] += 1
         self.stats["pulled_rows"] += live
         self.stats["pull_ms"] += dt_ms
+        if self._observe:
+            obs.inc_counter("sparse/pulls")
+            obs.inc_counter("sparse/pulled_rows", live)
+            obs.observe_hist("sparse/pull_ms", dt_ms)
+            obs.set_gauge("sparse/live_rows", table.live_rows,
+                          label=table.name)
+            # counter: the total-preserving delta (a push worker's inits
+            # may land in this window, but every row is counted once);
+            # rate gauge: the table's atomically rebound last-init tuple
+            d_init = table.rows_initialized - init0
+            if d_init:
+                obs.inc_counter("sparse/rows_initialized", d_init)
+            li = table.last_init
+            if li is not None and li is not last_init0 and li[1] > 0:
+                obs.set_gauge("sparse/init_rows_per_sec", li[0] / li[1],
+                              label=table.name)
+            if cache.capacity > 0:
+                dh = cache.hits - hits0
+                dm = cache.misses - misses0
+                if dh:
+                    obs.inc_counter("sparse/cache_hits", dh)
+                if dm:
+                    obs.inc_counter("sparse/cache_misses", dm)
         return out
 
     # -- the rim ------------------------------------------------------------
     def prepare_feed(self, feed: Dict[str, object],
-                     is_test: bool = False) -> Dict[str, object]:
+                     is_test: bool = False,
+                     trace_parent=None) -> Dict[str, object]:
         """Dedup + pull + inject for one batch.  Returns a NEW feed dict
         carrying the original entries plus each binding's rows and
         inverse-index feeds.  Training batches (``is_test=False``)
@@ -384,6 +422,8 @@ class SparseSession:
         Read-only batches (``is_test=True``) first :meth:`flush` any
         queued async pushes — the hard barrier that keeps ``test()``
         and serving reads from seeing a table missing acked updates.
+        ``trace_parent``: the ``sparse/pull`` span's parent for a caller
+        on another thread (the prefetch worker).
         """
         if not self._bindings:
             raise RuntimeError("SparseSession: call bind(program) first")
@@ -394,22 +434,26 @@ class SparseSession:
                 self._raise_push_err()
         out = dict(feed)
         pend = []
-        for b in self._bindings:
-            if b.ids_name not in feed:
-                raise KeyError(
-                    f"sparse feed {b.ids_name!r} (table "
-                    f"{b.table.name!r}) missing from the batch feed "
-                    f"(have: {sorted(feed)})")
-            ids = self._coerce_ids(b, feed[b.ids_name])
-            uniq, inv = np.unique(ids.reshape(-1), return_inverse=True)
-            n = max(len(uniq), 1)
-            cap = _next_pow2(n, self.bucket_floor)
-            uid = np.full(cap, PAD_ID, np.int64)
-            uid[:len(uniq)] = uniq
-            out[b.rows_name] = self._pull_rows(b, uid)
-            out[b.inv_name] = inv.reshape(ids.shape).astype(np.int32)
-            if not is_test:
-                pend.append((b, uid))
+        with (span("sparse/pull", parent=trace_parent,
+                   tables=len(self._bindings))
+              if self._observe else nullcontext()):
+            for b in self._bindings:
+                if b.ids_name not in feed:
+                    raise KeyError(
+                        f"sparse feed {b.ids_name!r} (table "
+                        f"{b.table.name!r}) missing from the batch feed "
+                        f"(have: {sorted(feed)})")
+                ids = self._coerce_ids(b, feed[b.ids_name])
+                uniq, inv = np.unique(ids.reshape(-1),
+                                      return_inverse=True)
+                n = max(len(uniq), 1)
+                cap = _next_pow2(n, self.bucket_floor)
+                uid = np.full(cap, PAD_ID, np.int64)
+                uid[:len(uniq)] = uniq
+                out[b.rows_name] = self._pull_rows(b, uid)
+                out[b.inv_name] = inv.reshape(ids.shape).astype(np.int32)
+                if not is_test:
+                    pend.append((b, uid))
         if pend:
             with self._lock:
                 self._pending.append(pend)
@@ -451,8 +495,10 @@ class SparseSession:
                 self._push_cv.notify_all()
             return None
         updated = 0
-        for (b, uid), g in zip(pend, grad_arrays):
-            updated += self._push(b, uid, np.asarray(g, b.table.dtype))
+        with (span("sparse/push", tables=len(pend))
+              if self._observe else nullcontext()):
+            for (b, uid), g in zip(pend, grad_arrays):
+                updated += self._push(b, uid, np.asarray(g, b.table.dtype))
         return updated
 
     # -- async push worker --------------------------------------------------
@@ -481,8 +527,11 @@ class SparseSession:
             t0 = time.perf_counter()
             try:
                 for pend, grads in group:
-                    for (b, uid), g in zip(pend, grads):
-                        self._push(b, uid, np.asarray(g, b.table.dtype))
+                    with (span("sparse/push", tables=len(pend))
+                          if self._observe else nullcontext()):
+                        for (b, uid), g in zip(pend, grads):
+                            self._push(b, uid,
+                                       np.asarray(g, b.table.dtype))
             except BaseException as e:       # noqa: BLE001 — re-raised
                 # at the next complete/flush/export rim; queued pushes
                 # after a failure are DROPPED with the error carrying
@@ -498,6 +547,8 @@ class SparseSession:
             dt_ms = (time.perf_counter() - t0) * 1e3
             self.stats["push_flushes"] += 1
             self.stats["push_flush_ms"] += dt_ms
+            if self._observe:
+                obs.observe_hist("sparse/push_flush_ms", dt_ms)
             with self._push_cv:
                 self._push_inflight -= len(group)
                 self._push_cv.notify_all()
@@ -530,10 +581,16 @@ class SparseSession:
                     _fi.raise_for(action, "sparse.push")
             return b.table.push(uid, grads)
 
+        def on_retry(i, e, d):
+            obs.inc_counter("fault/retries")
+            obs.emit_event("fault", event="retry", site="sparse.push",
+                           attempt=i + 1, delay_s=round(d, 4),
+                           error=f"{type(e).__name__}: {e}")
+
         if self.retry_policy is not None:
             n = _faults.retry_call(
                 attempt, self.retry_policy,
-                what=f"sparse push {b.table.name}")
+                what=f"sparse push {b.table.name}", on_retry=on_retry)
         else:
             # no policy: a failed push raises — the grads for these rows
             # exist nowhere else, so losing them silently would corrupt
@@ -549,6 +606,10 @@ class SparseSession:
         self.stats["pushes"] += 1
         self.stats["pushed_rows"] += n
         self.stats["push_ms"] += dt_ms
+        if self._observe:
+            obs.inc_counter("sparse/pushes")
+            obs.inc_counter("sparse/pushed_rows", n)
+            obs.observe_hist("sparse/push_ms", dt_ms)
         return n
 
     # -- pull-ahead prefetch ------------------------------------------------
@@ -588,6 +649,8 @@ class SparseSession:
         stop = threading.Event()
         prepared_n = [0]                     # batches the worker prepared
         delivered_n = 0                      # batches the consumer got
+        root = (start_span("sparse/prefetch", depth=depth)
+                if self._observe else None)
 
         def _take_slot() -> bool:
             while not stop.is_set():
@@ -600,7 +663,8 @@ class SparseSession:
                 for f in feed_iter:
                     if not _take_slot():
                         return
-                    prepared = self.prepare_feed(f, is_test=is_test)
+                    prepared = self.prepare_feed(f, is_test=is_test,
+                                                 trace_parent=root)
                     prepared_n[0] += 1
                     q.put(("ok", prepared))
                 q.put(("done", None))
@@ -625,6 +689,11 @@ class SparseSession:
                     raise val
                 self.stats["prefetch_hits" if hit
                            else "prefetch_misses"] += 1
+                if self._observe:
+                    if hit:
+                        obs.inc_counter("sparse/prefetch_hits")
+                    else:
+                        obs.inc_counter("sparse/prefetch_misses")
                 delivered_n += 1
                 slots.release()
                 yield val
@@ -641,6 +710,8 @@ class SparseSession:
                 with self._lock:
                     for _ in range(prepared_n[0] - delivered_n):
                         self._pending.pop()
+            if root is not None:
+                root.end()
 
     # -- convenience --------------------------------------------------------
     def run(self, exe, program, feed: Dict[str, object],

@@ -175,7 +175,17 @@ def check(site: str, index: Optional[int] = None) -> Optional[str]:
         if action is None:
             return None
         _fired_counts[site] = _fired_counts.get(site, 0) + 1
+    _record(site, int(index), action)
     return action
+
+
+def _record(site: str, index: int, action: str):
+    # an injection is firing (a cold path): the registry write and the
+    # JSONL event are unconditional, so the fault history reaches the log
+    from ..observability import emit_event, inc_counter
+    inc_counter("fault/injected")
+    emit_event("fault", event="injected", site=site, index=index,
+               action=action)
 
 
 def raise_for(action: str, site: str, index: Optional[int] = None):

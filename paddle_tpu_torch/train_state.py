@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 
 from .core.scope import Scope, to_numpy
+from .observability import emit_event, inc_counter
 from .distributed.checkpoint import (DEFAULT_CHUNK_BYTES,
                                      CheckpointManager, DeltaChainError)
 from .faults import EXIT_PREEMPTED, Preempted  # noqa: F401  (re-export)
@@ -199,6 +200,9 @@ class Checkpointer:
                 "resume: optimizer config changed across restarts "
                 "(checkpoint %s vs current %s)", ts.optimizer,
                 expect_optimizer)
+        inc_counter("fault/checkpoint_restores")
+        emit_event("fault", event="checkpoint_restore", step=ts.emitted,
+                   index=step)
         return ts
 
     def begin(self, scope: Scope, state: Optional[TrainState],
@@ -311,6 +315,9 @@ class Checkpointer:
         if self._preempt_sig is not None:
             self._save(pass_id, batch_id + 1, emergency=True,
                        blocking=True)
+            inc_counter("fault/preemptions")
+            emit_event("fault", event="preemption", step=self.emitted,
+                       action=f"signal {self._preempt_sig}")
             logger.warning(
                 "preempted (signal %s): emergency checkpoint ckpt-%d "
                 "committed in %r; exiting %d for the supervisor",
@@ -415,3 +422,6 @@ class Checkpointer:
                            "bytes": snap.get("bytes"),
                            "call_ms": (time.perf_counter() - t0) * 1e3})
         self.last_saved = self.emitted
+        inc_counter("fault/checkpoint_saves")
+        emit_event("fault", event="checkpoint_save", step=self.emitted,
+                   action="emergency" if emergency else "periodic")

@@ -15,8 +15,10 @@ pushes their gradients after it (``paddle_tpu_torch.sparse``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item that brings them: ``warmup`` (``Executor.compile``, item
-6), ``auto_shard`` (item 7), ``master`` and ``elastic`` (item 8),
-``validate`` and ``autotune`` (item 9).
+6), ``auto_shard`` (item 7), ``master`` and ``elastic`` (item 8c),
+``validate`` (item 9b) and ``autotune`` (item 9d).  With the executor
+observing, a periodic report (``observability.maybe_periodic_report``)
+fires every ``log_period`` batches.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from . import observability
 from . import optimizer as optimizer_mod
 from .core.executor import Executor, _feed_signature, stack_feeds
 from .core.program import Program, Variable, default_startup_program
@@ -65,11 +68,11 @@ class events:
 # with the ROADMAP Queue A item that brings each
 _NOT_PORTED = {
     "warmup": "item 6 (Executor.compile)",
-    "validate": "item 9 (analysis)",
-    "autotune": "item 9 (tuning)",
+    "validate": "item 9b (analysis)",
+    "autotune": "item 9d (tuning)",
     "auto_shard": "item 7 (multi-GPU)",
-    "master": "item 8 (the task-queue master)",
-    "elastic": "item 8 (the elastic service)",
+    "master": "item 8c (the task-queue master)",
+    "elastic": "item 8c (the elastic service)",
 }
 
 
@@ -268,6 +271,11 @@ class SGD:
         # of the trainer.step and reader.item fault sites, so a resumed
         # run never fires an entry it already passed
         gcount = [ckpt.emitted if ckpt is not None else 0]
+        # periodic observability reports every `log_period` iterations
+        # (v1's Stat::printAllStatus cadence, Flags.cpp:62), counted
+        # across passes and restarts; no-op unless observing
+        iters = [ckpt.iters_done if ckpt is not None else 0]
+        observing = self.exe._observing()
 
         def emit_end(pass_id, batch_id, out):
             # the step counter before the handler runs: a handler that
@@ -278,6 +286,9 @@ class SGD:
                        for i, v in enumerate(self.extra)}
             event_handler(events.EndIteration(pass_id, batch_id,
                                               float(out[0]), metrics))
+            iters[0] += 1
+            observability.maybe_periodic_report(iters[0],
+                                                observing=observing)
             gcount[0] += 1
             if _fi.ENABLED:
                 action = _fi.check("trainer.step", index=gcount[0])

@@ -11,8 +11,9 @@ benchmark (``paddle_tpu_torch/serving/server.py``,
   once when already done;
 * the benchmark's SMOKE rows on the CPU are complete: capacity, the
   shedding arms at 1x and 2x, the control with its queue samples, the
-  acceptance row, the doctor's refusal naming ROADMAP item 9.  Gates and
-  timing are not asserted here.
+  acceptance row, and the doctor's serving budget over one extra
+  observed 1x arm (the timed arms do not observe).  Gates and timing
+  are not asserted here.
 """
 import threading
 import time
@@ -141,4 +142,10 @@ def test_serving_bench_smoke_rows_complete(tmp_path):
     acc = row["acceptance"]
     assert acc["p99_1x_ms"] is not None
     assert acc["bounded_under_overload"] in (True, False)
-    assert "item 9" in row["doctor"]["not_ported"]
+    # the timed arms run unobserved; the doctor reads one extra arm
+    assert all("doctor" not in a for a in row["open_loop"])
+    doc = row["doctor"]
+    assert doc["arm"]["label"] == "1x_shed_observed"
+    assert doc["serving"]["served"] == doc["arm"]["served"] > 0
+    assert doc["serving"]["within_tolerance"] is True
+    assert doc["reconciled"] is True

@@ -9,7 +9,8 @@ their SMOKE sizes on the CPU:
 * pserver, against shards served on threads of this interpreter:
   ``wire_ab`` (binary against naive JSON frames, both arms' rows
   bit-equal), ``remote_pull_latency`` and ``shard_pipelining_ab``;
-  ``trace_overhead_ab`` refuses naming item 9;
+  ``trace_overhead_ab`` (an observing client against an observe-off
+  one: the windows and the overhead against its 5% budget);
 * ``benchmark.run --model decode|pserver|checkpoint`` delegates instead
   of refusing; the subprocess fleet's whole run is ``slow``.
 
@@ -95,8 +96,12 @@ def test_pserver_arms_on_thread_shards(fleets):
     pipe = pserver.run_shard_pipelining_ab(cfg, fleets, quiet=True)
     _ab_complete(pipe, cfg["pipe_pairs"])
     assert pipe["effective_cores"] >= 1
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pserver.run_trace_overhead_ab(cfg, fleets[1])
+    tr = pserver.run_trace_overhead_ab(cfg, fleets[1], quiet=True)
+    n = max(2, cfg["trace_pairs"])
+    assert len(tr["observe_on_windows"]) == len(
+        tr["observe_off_windows"]) == len(tr["pair_ratios_on_over_off"]) == n
+    assert tr["overhead_budget"] == 0.05
+    assert tr["within_budget"] == (tr["overhead_frac"] <= 0.05)
 
 
 def test_runner_delegates_sparse_and_decode_runners(monkeypatch):
@@ -118,5 +123,5 @@ def test_runner_delegates_sparse_and_decode_runners(monkeypatch):
 def test_pserver_smoke_on_shard_processes():
     row = pserver.run_all(smoke=True, quiet=True)
     assert row["wire_ab"]["arms_bit_identical"] is True
-    assert "item 9" in row["trace_overhead_ab"]["not_ported"]
+    assert np.isfinite(row["trace_overhead_ab"]["overhead_frac"])
     assert np.isfinite(row["shard_pipelining_ab"]["speedup"])

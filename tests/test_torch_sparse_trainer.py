@@ -437,13 +437,15 @@ def test_id_bounds_cover_sparse_tables():
 
 def test_runner_smoke_on_the_cpu():
     """``benchmark.run --model ctr --smoke --device cpu``: every arm of
-    the runner at ``SMOKE`` (the doctor pass recorded as not ported)."""
+    the runner at ``SMOKE``, the doctor pass's step budget reconciled."""
     from paddle_tpu_torch.benchmark import ctr
     from paddle_tpu_torch.benchmark import run as zoo_run
     assert zoo_run.main(["--model", "ctr", "--smoke", "--device",
                          "cpu"]) == 0
     row = ctr.run_all(smoke=True, place=CPU, quiet=True)
-    assert row["doctor"] == {"not_ported": ctr.DOCTOR_NOT_PORTED}
+    assert row["doctor"]["within_tolerance"] is True
+    assert row["doctor"]["steps"] == ctr.SMOKE["window_steps"]
+    assert "item 9b" in row["calibration"]["not_ported"]
     assert row["device"] == "cpu"
     assert row["vectorization_ab"]["steady"]["arms_bit_identical"]
     assert row["sparse"]["pushed_rows"] > 0
