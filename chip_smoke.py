@@ -236,7 +236,27 @@ Phases, each of which raises on failure (so the script exits non-zero):
              raises naming the conv's output and bisect_step names the
              conv (the literal NaN: the weight, as state); the doctor
              passes of benchmark.decode and benchmark.serving at SMOKE,
-             each budget reconciled.
+             each budget reconciled.  Both opprof reports carry the static
+             cost model's join.
+19. analysis — the static analysis layer on the same two programs at full
+             width (ResNet-50 bf16 AMP batch 128, the long-context step):
+             validate_program's time, zero errors and its warnings;
+             Executor(validate=True) and validation off, each a fresh
+             captured executor from one start running 2 x run_steps(3):
+             losses bit-equal, one validation over the arm and none in
+             the replays, no capture beyond the off arm's, K1 3 x 29 a
+             step and K2-K4 once a long-context step by their counters;
+             one interpreted step op by op, every produced tensor equal
+             to its statically inferred shape (-1 bound to the batch) and
+             dtype kind; the cost model's conv2d FLOPs equal to the 2 P C
+             M of K1's bound at the 29 eligible 1x1 convs, exactly; then
+             observe's two modeled opprof reports: the top op classes
+             (measured and predicted ms, ratio, roofline verdict),
+             calibration_row's predicted against the measured captured
+             step, build/calibration.json written by save_calibration and
+             save_op_class_calibration and read back by
+             load_op_class_ratios, and planner.plan(op_class_ratios=)
+             ranking with it.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline and
 zoo runs captured (Executor(use_jit=True), each step one CUDA graph replay; the
@@ -5516,9 +5536,11 @@ def opprof_expected(counts_of_step, calls):
     return {k: 2 * calls * n for k, n in counts_of_step.items()}
 
 
-def observe_opprof(card, tag, main, start, feed, since, step_forms):
-    """opprof over one step of ``main``: a row for every op in execution
-    order, launches as counted, the top ops and the memory peak."""
+def observe_opprof(card, tag, main, start, feed, since, step_forms, batch):
+    """opprof over one step of ``main``, with the static cost model's
+    join (``batch`` for the symbolic dims; [analysis] reads it): a row
+    for every op in execution order, launches as counted, the top ops
+    and the memory peak."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.observability import opprof
     exe = ptt.Executor(amp=True)
@@ -5530,7 +5552,8 @@ def observe_opprof(card, tag, main, start, feed, since, step_forms):
     counted = since()
     t0 = time.perf_counter()
     rep = opprof.profile_program(main, executor=exe, feed=feed, scope=scope,
-                                 reps=OBS_REPS, warmup=OBS_WARMUP)
+                                 reps=OBS_REPS, warmup=OBS_WARMUP,
+                                 batch=batch, modeled=True)
     wall = time.perf_counter() - t0
     got = counted()
     want = opprof_expected(step_forms, OBS_REPS + OBS_WARMUP)
@@ -5685,10 +5708,11 @@ def phase_observe(seed, card, n_gate, n_split):
         # a measurement of the walk launches each forward 1x1 conv once
         # (29), the backward unit's the step's 3 x 29 and its reduce
         # passes, and the total both: 4 x 29 a window of each
-        observe_opprof(
+        r_rep, _ = observe_opprof(
             card, f"ResNet-50 bf16 AMP batch {TRAIN_BATCH}", main, start,
             feed, lambda: conv_since(conv1x1, "conv1x1_mm"),
-            {"conv1x1_mm": 4 * n_gate, "splitk_reduce": n_split})
+            {"conv1x1_mm": 4 * n_gate, "splitk_reduce": n_split},
+            TRAIN_BATCH)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         conv = next(op for op in main.global_block().ops
@@ -5705,7 +5729,7 @@ def phase_observe(seed, card, n_gate, n_split):
             card, f"long-context {ATT_HEADS} x {ATT_T} x {ATT_DIM} causal "
             f"bf16", lmain, lstart, {}, lambda: flash_since(fa),
             {"flash_fwd_tma": 2, "flash_bwd_dq_tma": 1,
-             "flash_bwd_dkv_tma": 1})
+             "flash_bwd_dkv_tma": 1}, 1)
         fwd = next(r for r in lc["rows"] if r["op_type"] ==
                    "flash_attention")
         bw = next(r for r in lc["rows"] if r["phase"] == "backward")
@@ -5723,7 +5747,317 @@ def phase_observe(seed, card, n_gate, n_split):
         flags.set_flag("metrics_log", saved[1])
     print(f"[observe] phase {time.perf_counter() - t_phase:.1f} s; {card}")
     return forms, {k.replace("flash_", "").replace("_tma", ""): n
-                   for k, n in lc_got.items()}
+                   for k, n in lc_got.items()}, {"resnet": r_rep,
+                                                  "longctx": lc}
+
+
+ANA_DISPATCHES = 2            # captured run_steps windows an arm
+ANA_STEPS = 3
+ANA_TOP = 6                   # op classes printed a report
+# the measured fields of an opprof row, which the modeled join leaves be
+OPPROF_MEASURED = ("index", "op_type", "phase", "wall_ms", "windows_ms",
+                   "spread_pct", "bytes", "out_shapes", "out_dtypes")
+
+
+def static_shape_walk(exe, program, feed, scope, batch):
+    """One interpreted step of ``program`` on ``exe``'s device, op by op
+    as opprof walks it (an AMP training step's forward ops in bf16 on a
+    shadow of the fp32 state, the backward unit, the update ops), each
+    tensor an op produces held against the statically inferred VarInfo:
+    the shape with ``-1`` bound to ``batch``, and the dtype's kind.
+    ``scope`` is read, never written.  Returns the number of variables
+    checked; raises on the first that disagrees or has no inferred
+    shape."""
+    from paddle_tpu_torch.analysis import ValidationReport
+    from paddle_tpu_torch.analysis.shape_infer import (DType, _kind,
+                                                       run_shape_inference)
+    from paddle_tpu_torch.core.executor import (Env, _run_backward,
+                                                _to_bf16, run_op)
+    from paddle_tpu_torch.observability.nanprov import make_eager_context
+    from paddle_tpu_torch.observability.opprof import _bw_out_names
+    known = run_shape_inference(program, ValidationReport())[0]
+    gb = program.global_block()
+    feeds = {k: exe._feed_tensor(gb, k, v) for k, v in feed.items()}
+    state = {k: scope.get(k).clone() for k in exe._state_keys(program,
+                                                               scope)}
+    with torch.no_grad():
+        env, ctx, bw_idx = make_eager_context(exe, program, feeds, state,
+                                              exe._step)
+    fwd = None
+    if exe.amp and bw_idx is not None:
+        fwd = Env(gb)
+        fwd.local.update({k: _to_bf16(v) for k, v in env.local.items()})
+    checked = 0
+    for i, op in enumerate(gb.ops):
+        tenv = fwd if fwd is not None and i < bw_idx else env
+        if i == bw_idx:
+            _run_backward(gb.ops[:bw_idx], op, env, ctx)
+            names = _bw_out_names(op)
+        else:
+            with torch.no_grad():
+                run_op(op, tenv, ctx)
+            names = op.output_names
+        for name in names:
+            if not tenv.has(name):
+                continue
+            t = tenv.get(name)
+            info = known.get(name)
+            if info is None or info.shape is None:
+                raise RuntimeError(f"chip_smoke: [analysis] op #{i} "
+                                   f"({op.type}) produced {name!r} "
+                                   f"{tuple(t.shape)}, which shape "
+                                   f"inference left unknown")
+            want = tuple(batch if d < 0 else d for d in info.shape)
+            kind = _kind(DType(t.dtype))
+            if tuple(t.shape) != want or \
+                    (info.dtype is not None and _kind(info.dtype) != kind):
+                raise RuntimeError(
+                    f"chip_smoke: [analysis] op #{i} ({op.type}) produced "
+                    f"{name!r} as {tuple(t.shape)} {t.dtype}; inferred "
+                    f"{info!r}, {want} at batch {batch}")
+            checked += 1
+    return checked
+
+
+def analysis_arm(main, loss, start, feed, validate, since):
+    """A fresh captured executor (AMP) from ``start``: its key's warm-up
+    and capture on a copy, then ANA_DISPATCHES x run_steps(ANA_STEPS)
+    from another copy under the launch counts.  Returns (losses, ms a
+    step, the counts of the windows, the compile counters over the whole
+    arm, those of the windows)."""
+    import paddle_tpu_torch as ptt
+    exe = ptt.Executor(amp=True, validate=validate)
+    torch.cuda.synchronize()
+    capture_stats().reset()
+    exe.run_steps(2, main, feed=feed, fetch_list=[loss],
+                  scope=clone_scope(start))
+    scope = clone_scope(start)
+    torch.cuda.synchronize()
+    before = capture_stats().snapshot()
+    counted = since()
+    t0 = time.perf_counter()
+    losses = [exe.run_steps(ANA_STEPS, main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]
+              for _ in range(ANA_DISPATCHES)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counted()
+    after = capture_stats().snapshot()
+    window = {k: after[k] - before[k] for k in
+              ("captures", "warmups", "replays", "validations")}
+    exe.close()
+    del scope
+    torch.cuda.empty_cache()
+    return (np.concatenate(losses), wall * 1e3 / (ANA_DISPATCHES *
+                                                   ANA_STEPS),
+            got, after, window)
+
+
+def analysis_validate(card, tag, main, start, loss, feed, since, per_step,
+                      batch):
+    """The verifier over ``main`` (its time, zero errors, its warnings),
+    then validation off and on from one start: losses bit-equal, one
+    validation over the on arm and none in the steps, no capture beyond
+    the off arm's, the kernels' launches as ``per_step`` a step.  Then
+    the static shapes against one interpreted step's tensors.  Returns
+    the off arm's ms a step."""
+    from paddle_tpu_torch.analysis import validate_program
+    t0 = time.perf_counter()
+    report = validate_program(main, fetch_list=[loss])
+    v_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[analysis] {tag}: validate_program {v_ms:.3f} ms over "
+          f"{len(main.global_block().ops)} ops, {len(report.errors)} "
+          f"errors, {len(report.warnings)} warnings; {card}")
+    for d in report.warnings:
+        print(f"[analysis] {tag} warning: {d.render()}")
+    if report.errors:
+        raise RuntimeError(f"chip_smoke: [analysis] {tag}: "
+                           f"{report.render()}")
+    steps = ANA_DISPATCHES * ANA_STEPS
+    want = {k: n * steps for k, n in per_step.items()}
+    arms = {}
+    for label, validate in (("off", False), ("on", True)):
+        arms[label] = analysis_arm(main, loss, start, feed, validate, since)
+        losses, ms, got, total, window = arms[label]
+        print(f"[analysis] {tag}: validate {label}, {ANA_DISPATCHES} x "
+              f"run_steps({ANA_STEPS}) captured: {ms:.3f} ms a step; "
+              f"launches {got}; the arm's counters {total}, the windows' "
+              f"{window}; {card}")
+        if got != want or window["captures"] or window["warmups"] or \
+                window["validations"] or window["replays"] != steps:
+            raise RuntimeError(
+                f"chip_smoke: [analysis] {tag}: validate {label}: "
+                f"launches {got} (expected {want}), windows {window}")
+    off, on = arms["off"], arms["on"]
+    same = np.array_equal(off[0].view(np.uint32), on[0].view(np.uint32))
+    print(f"[analysis] {tag}: on / off {on[1] / off[1]:.4f}; losses "
+          f"bit-equal {same}; validations off {off[3]['validations']}, "
+          f"on {on[3]['validations']}; captures off {off[3]['captures']}, "
+          f"on {on[3]['captures']}; {card}")
+    if not same or off[3]["validations"] or on[3]["validations"] != 1 or \
+            on[3]["captures"] != off[3]["captures"] or \
+            on[3]["warmups"] != off[3]["warmups"]:
+        raise RuntimeError(f"chip_smoke: [analysis] {tag}: the arms "
+                           f"differ: off {off[3]}, on {on[3]}, losses "
+                           f"{off[0]} / {on[0]}")
+    import paddle_tpu_torch as ptt
+    t0 = time.perf_counter()
+    n = static_shape_walk(ptt.Executor(amp=True, use_jit=False), main,
+                          feed, start, batch)
+    torch.cuda.empty_cache()
+    print(f"[analysis] {tag}: static shapes equal one interpreted step's "
+          f"tensors for all {n} produced variables (-1 bound to batch "
+          f"{batch}, dtype kinds) in {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    return off[1]
+
+
+def analysis_conv_flops(card, main):
+    """The cost model's conv2d FLOPs at ResNet-50's eligible 1x1 convs
+    against K1's bound count 2 P C M, exactly as integers."""
+    from paddle_tpu_torch.analysis.cost_model import estimate_cost
+    gb = main.global_block()
+    cost = estimate_cost(main, {}, assume_batch=TRAIN_BATCH)
+    flops = {c.loc[1]: c.flops for c in cost.op_costs}
+    geo = conv_geometry(main, TRAIN_BATCH)
+    on_kernel = [g[3] for g in geo]
+    idx = [i for i, op in enumerate(gb.ops) if op.type == "conv2d" and
+           op.input("Filter")[0] in on_kernel]
+    shapes = eligible_1x1_shapes(main, TRAIN_BATCH)
+    bad = [(i, flops[i], 2 * P * C * M)
+           for i, (P, C, M) in zip(idx, shapes)
+           if not (float(flops[i]).is_integer() and
+                   int(flops[i]) == 2 * P * C * M)]
+    print(f"[analysis] cost model against K1's bound: {len(idx)} eligible "
+          f"1x1 convs, conv2d FLOPs equal 2 P C M at "
+          f"{len(idx) - len(bad)} of them (sum "
+          f"{sum(int(flops[i]) for i in idx)} = "
+          f"{sum(2 * P * C * M for P, C, M in shapes)}); {card}")
+    if len(idx) != len(shapes) or len(idx) != 29 or bad:
+        raise RuntimeError(f"chip_smoke: [analysis] conv2d FLOPs differ "
+                           f"from 2 P C M at {bad} ({len(idx)} convs)")
+
+
+def analysis_classes(card, tag, rep):
+    """The report's top op classes: measured and predicted ms, ratio and
+    the class's roofline verdict under the H100 constants."""
+    from paddle_tpu_torch.analysis.cost_model import HBM_GBPS, PEAK_FLOPS
+    rows = rep["rows"]
+    lacking = [r["index"] for r in rows if "modeled" not in r]
+    changed = [r["index"] for r in rows
+               if set(r) - {"modeled", "ratio"} != set(OPPROF_MEASURED)]
+    if lacking or changed or "op_classes" not in rep:
+        raise RuntimeError(f"chip_smoke: [analysis] opprof {tag}: rows "
+                           f"{lacking} lack the modeled join, rows "
+                           f"{changed} have other keys than measured + "
+                           f"modeled")
+    verdict = {}
+    for r in rows:
+        m = r["modeled"]
+        v = verdict.setdefault(r["op_type"], [0.0, 0.0])
+        v[0] += m["flops"] / PEAK_FLOPS
+        v[1] += m["hbm_bytes"] / HBM_GBPS
+    for e in rep["xla_loses_here"][:ANA_TOP]:
+        c, b = verdict[e["op_type"]]
+        print(f"[analysis] opprof {tag} class {e['op_type']} (x"
+              f"{e['count']}): measured {e['measured_ms']:.4f} ms, "
+              f"predicted {e['predicted_ms']:.6f} ms, ratio {e['ratio']}, "
+              f"{'compute-bound' if c >= b else 'memory-bound'}; {card}")
+
+
+def phase_analysis(seed, card, n_gate, n_split, reports):
+    """The static analysis layer on the card (see the module docstring).
+    ``reports``: [observe]'s two opprof reports, with the modeled join."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.analysis import planner
+    from paddle_tpu_torch.core import compile_cache
+    from paddle_tpu_torch.observability import attribution
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        main, startup, loss = build_resnet50_train(seed)
+        rng = np.random.RandomState(seed)
+        feed = {"img": torch.from_numpy(
+                    rng.rand(TRAIN_BATCH, 3, OBS_IMG, OBS_IMG)
+                    .astype(np.float32)).cuda(),
+                "label": torch.from_numpy(
+                    rng.randint(0, 1000, (TRAIN_BATCH, 1))
+                    .astype(np.int64)).cuda()}
+        start = ptt.Scope()
+        ptt.Executor().run(startup, scope=start)
+        r_ms = analysis_validate(
+            card, f"ResNet-50 bf16 AMP batch {TRAIN_BATCH}", main, start,
+            loss, feed, lambda: conv_since(conv1x1, "conv1x1_mm"),
+            {"conv1x1_mm": 3 * n_gate, "splitk_reduce": n_split},
+            TRAIN_BATCH)
+        del start
+        torch.cuda.empty_cache()
+        analysis_conv_flops(card, main)
+        lmain, lstartup, lloss = build_longctx(seed)
+        lstart = ptt.Scope()
+        ptt.Executor().run(lstartup, scope=lstart)
+        l_ms = analysis_validate(
+            card, f"long-context {ATT_HEADS} x {ATT_T} x {ATT_DIM} causal "
+            f"bf16", lmain, lstart, lloss, {}, lambda: flash_since(fa),
+            {"flash_fwd_tma": 1, "flash_bwd_dq_tma": 1,
+             "flash_bwd_dkv_tma": 1}, 1)
+        del lstart
+        torch.cuda.empty_cache()
+
+        rows, classes = [], []
+        for tag, prog, ms, batch in (("resnet", main, r_ms, TRAIN_BATCH),
+                                     ("longctx", lmain, l_ms, 1)):
+            rep = reports[tag]
+            analysis_classes(card, tag, rep)
+            row = attribution.calibration_row(prog, ms, assume_batch=batch)
+            digest = compile_cache.fingerprint_hex(
+                compile_cache.program_content_digest(prog))[:16]
+            print(f"[analysis] calibration_row {tag}: predicted "
+                  f"{row['predicted_ms']:.6f} ms against the measured "
+                  f"captured step {row['measured_ms']:.3f} ms, ratio "
+                  f"{row['ratio']}, model {row['model']!r}; {card}")
+            if row["program"] != rep["program"] or row["program"] != digest:
+                raise RuntimeError(f"chip_smoke: [analysis] {tag}: the "
+                                   f"row's program {row['program']} is "
+                                   f"not opprof's {rep['program']}")
+            rows.append(row)
+            classes += rep["op_classes"]
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "calibration.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if os.path.exists(path):
+            os.remove(path)
+        attribution.save_calibration(rows, path)
+        doc = attribution.save_op_class_calibration(classes, path)
+        ratios = attribution.load_op_class_ratios(path)
+        want = {}
+        for c in classes:
+            want.setdefault(c["op_type"], []).append(c["ratio"])
+        want = {t: float(np.median(r)) for t, r in want.items()}
+        flash = ratios.get("flash_attention")
+        print(f"[analysis] {path}: {len(doc['programs'])} program rows, "
+              f"{len(doc['op_classes'])} op-class rows; "
+              f"load_op_class_ratios read {len(ratios)} classes back "
+              f"(flash_attention {flash}, conv2d {ratios.get('conv2d')}); "
+              f"{card}")
+        if ratios != want or len(doc["programs"]) != 2:
+            raise RuntimeError(f"chip_smoke: [analysis] the calibration "
+                               f"table read back {ratios}, wrote {want}")
+        p = planner.plan(main, {}, assume_batch=TRAIN_BATCH,
+                         op_class_ratios=ratios)
+        print(f"[analysis] planner.plan(op_class_ratios=) on one card: "
+              f"candidate {p.candidate!r}, calibrated step "
+              f"{p.cost.step_time_proxy_s * 1e3:.3f} ms against the "
+              f"measured {r_ms:.3f} ms; {card}")
+        if p.cost.calibrated_step_time_s is None:
+            raise RuntimeError("chip_smoke: [analysis] the planner did not "
+                               "take the calibration ratios")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    print(f"[analysis] phase {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
 def attention_entries(row, launches):
@@ -5873,8 +6207,11 @@ def main():
     phase_sparse_bench(args.seed, card)
     bw_entries, _ = phase_bandwidth(args.seed, card)
     torch.cuda.empty_cache()
-    o_forms, o_flash = phase_observe(args.seed, card, len(train_shapes),
-                                     split_wgrads(train_shapes))
+    o_forms, o_flash, o_reports = phase_observe(
+        args.seed, card, len(train_shapes), split_wgrads(train_shapes))
+    torch.cuda.empty_cache()
+    phase_analysis(args.seed, card, len(train_shapes),
+                   split_wgrads(train_shapes), o_reports)
 
     # bf16: the served path and the AMP step; fp32: the served forward's
     # fp32 run and the fp32 step

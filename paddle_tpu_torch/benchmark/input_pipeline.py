@@ -24,7 +24,8 @@ runs on the card; ``run_workload(place=CPUPlace())`` runs it here.
 After the timed pairs one extra pipelined pass runs observed into a JSONL
 log: the row's ``doctor`` is its step budget
 (``attribution.step_budget``: compute, fetch, compile, staging, host
-gaps) and ``calibration`` the cost model's refusal.  The ``lstm``
+gaps) and ``calibration`` the static cost model's predicted step
+against the measured one (``attribution.calibration_row``).  The ``lstm``
 workload is not ported.
 """
 from __future__ import annotations

@@ -17,8 +17,14 @@ fixed shapes, seeded feeds):
 
 On the card each op's time is a pair of CUDA events around it (median
 of ``--reps`` windows after ``--warmup`` discarded ones).  The JAX
-driver's modeled columns (roofline verdicts, the where-the-compiler-
-loses report, the calibration table) wait for ROADMAP Queue A item 9b.
+benchmark's modeled columns come with each row: the top ops' roofline
+verdicts and measured/predicted ratios against the static cost model
+(H100 constants), the by-class ranking (``xla_loses_here``), and the
+modeled peak beside the measured one.  The merged per-op-class
+calibration table (``attribution.save_op_class_calibration``'s format-2
+document) rides under ``"calibration"``:
+``attribution.load_op_class_ratios`` reads it directly, and
+``analysis.planner.plan(op_class_ratios=)`` takes the ratios.
 
     python -m paddle_tpu_torch.benchmark.opprof [--smoke] [--out PATH]
         [--device cuda|cpu]
@@ -102,13 +108,24 @@ def summarize(name, report, batch):
         "sum_gap_frac": report["sum_gap_frac"],
         "tolerance": report["tolerance"],
         "within_tolerance": report["within_tolerance"],
-        "top3": [{"op_type": r["op_type"], "index": r["index"],
-                  "phase": r["phase"], "wall_ms": r["wall_ms"],
-                  "share": r["wall_ms"] / total if total else 0.0}
-                 for r in report["top"][:3]],
-        "memory": {k: mem[k] for k in ("state_bytes", "peak_bytes",
-                                       "peak_index", "peak_op")},
+        "top3": [top_row(r, total) for r in report["top"][:3]],
+        "xla_loses_here": report["xla_loses_here"][:5],
+        "memory": {k: mem[k] for k in
+                   ("state_bytes", "peak_bytes", "peak_index", "peak_op",
+                    "modeled_peak_bytes", "peak_ratio") if k in mem},
     }
+
+
+def top_row(r, total):
+    """A top op: its measured time and share, and the modeled verdict."""
+    out = {"op_type": r["op_type"], "index": r["index"],
+           "phase": r["phase"], "wall_ms": r["wall_ms"],
+           "share": r["wall_ms"] / total if total else 0.0}
+    m = r.get("modeled")
+    if m:
+        out["roofline"] = m["roofline"]
+        out["ratio"] = r.get("ratio")
+    return out
 
 
 def profile_model(name, *, reps, warmup, place=None):
@@ -122,8 +139,8 @@ def profile_model(name, *, reps, warmup, place=None):
     exe.run(core.default_startup_program())
     report = opprof.profile_program(
         core.default_main_program(), executor=exe, feed=feeds,
-        batch=batch, reps=reps, warmup=warmup)
-    return summarize(name, report, batch)
+        batch=batch, reps=reps, warmup=warmup, modeled=True)
+    return summarize(name, report, batch), report["op_classes"]
 
 
 def main(argv=None):
@@ -141,12 +158,17 @@ def main(argv=None):
     from ..core import CPUPlace, CUDAPlace
     place = CPUPlace() if args.device == "cpu" else CUDAPlace(0)
     reps, warmup = (1, 1) if args.smoke else (args.reps, args.warmup)
-    rows = []
+    rows, op_classes = [], {}
     for name in MODELS:
-        rows.append(profile_model(name, reps=reps, warmup=warmup,
-                                  place=place))
-        print(json.dumps(rows[-1]), flush=True)
-    doc = {"rows": rows, "device": device_label(place)}
+        row, classes = profile_model(name, reps=reps, warmup=warmup,
+                                     place=place)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        for c in classes:
+            op_classes[f"{c['program']}:{c['op_type']}"] = c
+    doc = {"rows": rows, "device": device_label(place),
+           "calibration": {"format": 2, "programs": {},
+                           "op_classes": op_classes}}
     write_results(args.out, args.smoke, "opprof_results.json",
                   "opprof_per_op_profile", doc)
     return doc

@@ -117,7 +117,8 @@ def launch_fleet(n_shards):
                                    f"ready line (rc {p.poll()})")
             # drain the rest so a shard never blocks on a full pipe
             threading.Thread(target=lambda s=p.stdout: [None for _ in s],
-                             daemon=True).start()
+                             daemon=True,
+                             name=f"pt-pserver-drain-{len(addrs)}").start()
             addrs.append((HOST, int(ready["port"])))
     except BaseException:
         stop_fleet(procs)

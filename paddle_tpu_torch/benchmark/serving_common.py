@@ -124,7 +124,8 @@ def closed_loop(srv, example, *, workers: int, duration_s: float,
             with lock:
                 lat.append(dt)
 
-    threads = [threading.Thread(target=worker) for _ in range(workers)]
+    threads = [threading.Thread(target=worker, name=f"pt-loadgen-{i}")
+               for i in range(workers)]
     t0 = time.monotonic()
     for t in threads:
         t.start()

@@ -93,6 +93,9 @@ class CaptureStats:
                     step of a new key on the card)
       hits/misses — ExecCache lookups
       evictions   — entries dropped by the LRU bound or the dead sweep
+      validations — static verifier runs (``analysis.validate_program``;
+                    the executor memoizes one per program version and
+                    fetch list)
     uncaptured: steps run by the interpreter for a reason other than a
     warm-up, by reason (``cpu``, ``use_jit=False``).
     """
@@ -114,7 +117,7 @@ class CaptureStats:
         with self._lock:
             out = {k: self.counters.get(k, 0)
                    for k in ("captures", "replays", "warmups", "hits",
-                             "misses", "evictions")}
+                             "misses", "evictions", "validations")}
             out["uncaptured"] = dict(self.uncaptured)
             return out
 

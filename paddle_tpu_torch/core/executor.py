@@ -45,13 +45,22 @@ first producer in program order, with the eager bisect's diagnosis
 (``observability/nanprov.py``); ``compute_dtype`` upcasts floating
 feeds, state and op outputs (float64 runs of a program).
 
-Not ported yet: ``Executor.compile``, the disk cache and validation.
+Validation (``analysis/``): ``Executor(validate=True)`` (or the
+``validate`` flag) runs the static verifier once per (program version,
+fetches) in ``run``, ``run_steps`` and ``run_pipelined``, before the
+step's capture key is taken: an invalid program raises
+``ProgramVerificationError`` and is never interpreted or captured, and a
+captured replay never pays for the check.  ``analysis`` is imported only
+when validation is on.
+
+Not ported yet: ``Executor.compile`` and the disk cache.
 """
 from __future__ import annotations
 
 import collections
 import threading
 import time
+import warnings
 import weakref
 from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence
@@ -768,6 +777,11 @@ class Executor:
     and ``run_pipelined`` refuse it.  ``compute_dtype`` (e.g.
     ``"float64"``): floating feeds, state and op outputs computed in this
     dtype, the scope keeping each persistable's own dtype.
+    ``validate``: run the static program verifier (``analysis``) before
+    a program's first step, once per (program version, fetches); None
+    defers to the ``validate`` flag.  Errors raise
+    ``ProgramVerificationError`` before any capture; warnings are
+    emitted as Python warnings.  Not part of the step's key.
 
     Each captured step keeps a private memory pool about one step's
     activations in size.  At most ``MAX_CACHED_STEPS`` captured steps are
@@ -787,7 +801,8 @@ class Executor:
                  use_jit: bool = True, retry_policy=None,
                  observe: Optional[bool] = None,
                  check_nan_inf: bool = False,
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None,
+                 validate: Optional[bool] = None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.amp = amp
@@ -810,6 +825,12 @@ class Executor:
             if self.device.type == "cuda" else None
         # program -> its random ops' generators (ExecContext.streams)
         self._streams = weakref.WeakKeyDictionary()
+        # static verification before a program's first step; None defers
+        # to the `validate` flag.  Memoized per live Program object
+        # (weakly: a dead program drops out, and a successor that reuses
+        # its id() is validated afresh) -> {(version, fetches)}
+        self.validate = validate
+        self._validated = weakref.WeakKeyDictionary()
 
     def graph_pools(self) -> list:
         """The memory-pool handles of the captured steps' graphs (the
@@ -890,6 +911,39 @@ class Executor:
             return "use_jit=False"
         return None
 
+    # -- validation -----------------------------------------------------------
+    def _maybe_validate(self, program: Program, fetch_names: Sequence[str]):
+        """Run the static verifier once per (program version, fetches),
+        before the step's capture key is taken, so an invalid program is
+        never captured.  Clean results memoize (stale versions dropped);
+        error reports raise on every call.  A one-card executor has no
+        mesh, so the sharding lints do not run (the JAX package's
+        ``ShardedExecutor`` adds its mesh to the key: ROADMAP item 7)."""
+        want = self.validate
+        if want is None:
+            want = bool(get_flag("validate"))
+        if not want:
+            return
+        key = (program.version, tuple(fetch_names))
+        seen = self._validated.get(program)
+        if seen is not None and key in seen:
+            return
+        from ..analysis import validate_program
+        # an EMPTY fetch list (a startup or side-effect run) means the
+        # targets are unknown, not that nothing is live: no dead-op lint
+        report = validate_program(program,
+                                  fetch_list=list(fetch_names) or None)
+        report.raise_on_error()
+        for d in report.warnings:
+            warnings.warn(f"program verifier: {d.render()}", stacklevel=3)
+        if seen is None:
+            seen = self._validated.setdefault(program, set())
+        else:
+            # versions only grow: a stale version's key never hits again
+            seen.difference_update(
+                [k for k in seen if k[0] != program.version])
+        seen.add(key)
+
     # -- entry points ---------------------------------------------------------
     def as_module(self, program: Program, fetch_list: Sequence,
                   scope: Optional[Scope] = None) -> ProgramModule:
@@ -913,6 +967,7 @@ class Executor:
         scope = global_scope() if scope is None else scope
         gb = program.global_block()
         fetch_names = _fetch_names(fetch_list)
+        self._maybe_validate(program, fetch_names)
         with self._lock:
             feeds = {k: self._feed_tensor(gb, k, v)
                      for k, v in (feed or {}).items()}
@@ -971,6 +1026,7 @@ class Executor:
         scope = global_scope() if scope is None else scope
         gb = program.global_block()
         fetch_names = _fetch_names(fetch_list)
+        self._maybe_validate(program, fetch_names)
         with self._lock:
             feeds = {}
             for name, val in (feed or {}).items():
@@ -1368,6 +1424,9 @@ class Executor:
                 "run_pipelined: check_nan_inf needs per-step host "
                 "inspection; use run() for NaN hunts")
         program = program or default_main_program()
+        # before the staging thread starts: an invalid program stages
+        # nothing (the dispatches below then hit the memo)
+        self._maybe_validate(program, _fetch_names(fetch_list))
         K = int(4 if steps_per_dispatch is None else steps_per_dispatch)
         depth = int(2 if prefetch_depth is None else prefetch_depth)
         if K < 1:

@@ -9,9 +9,8 @@ tensors.
 Sub-blocks (``create_block`` / ``rollback``) hold the step of a
 ``StaticRNN``; an op names its block by the ``sub_block`` attr.
 
-Left out until a slice needs them: arithmetic sugar on ``Variable``
-(it routes through layers not ported yet), pipeline stages and the
-static verifier.
+``Program.validate`` runs the static verifier (``analysis/``).  Left
+out until a slice needs them: pipeline stages.
 """
 from __future__ import annotations
 
@@ -27,6 +26,8 @@ from .types import VarType, convert_dtype
 
 # ``append_backward`` declares the gradient of ``p`` as ``p@GRAD``
 GRAD_SUFFIX = "@GRAD"
+LEN_SUFFIX = "@LEN"          # companion sequence-length vector for lod_level>0
+LEN2_SUFFIX = "@LEN2"        # nested (lod-2) inner-length companion
 
 
 def grad_var_name(name: str) -> str:
@@ -327,6 +328,29 @@ class Program:
         gb.ops = list(reversed(kept))
         p._bump_version()
         return p
+
+    def validate(self, fetch_list: Optional[Sequence] = None, mesh=None,
+                 param_specs=None, feed_specs=None,
+                 raise_on_error: bool = False):
+        """Run the static program verifier (``paddle_tpu_torch.analysis``)
+        over this program — the build-time analog of the reference's
+        desc-layer InferShape/OpDesc validation.
+
+        ``fetch_list`` (Variables or names) enables the dead-op lint;
+        ``mesh`` (an axis->size dict) plus optional
+        ``param_specs``/``feed_specs`` enable the sharding-spec checks.
+        Returns a :class:`~paddle_tpu_torch.analysis.ValidationReport` of
+        ``PT0xx`` diagnostics; with ``raise_on_error=True``,
+        error-severity findings raise
+        :class:`~paddle_tpu_torch.analysis.ProgramVerificationError`
+        instead."""
+        from ..analysis import validate_program
+        report = validate_program(self, fetch_list=fetch_list, mesh=mesh,
+                                  param_specs=param_specs,
+                                  feed_specs=feed_specs)
+        if raise_on_error:
+            report.raise_on_error()
+        return report
 
     def to_dict(self):
         return {"version": 1, "random_seed": self.random_seed,

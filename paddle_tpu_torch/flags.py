@@ -57,3 +57,10 @@ define_flag("observe", False,
 define_flag("metrics_log", "",
             "JSONL structured metrics/event log path; empty = off.  "
             "Read it with observability.summarize_log / iter_log_events")
+define_flag("validate", False,
+            "run the static program verifier (paddle_tpu_torch.analysis) "
+            "before a program's first step: a malformed graph fails with "
+            "a stable PT0xx diagnostic naming the op, never captured; "
+            "memoized per (program version, fetches).  Per-executor "
+            "override: Executor(validate=...); per-call: "
+            "trainer.SGD.train(validate=...)")

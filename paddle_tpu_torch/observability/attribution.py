@@ -20,21 +20,26 @@ Components sum to the measured wall by construction;
 :data:`BUDGET_TOLERANCE` pins the acceptance check.  The arithmetic is
 the JAX package's, so both packages' budgets over one log agree.
 
-Not ported yet: the modeled side — ``calibration_row`` and
-``save_calibration`` against the static cost model — which waits for
-ROADMAP Queue A item 9b (analysis); they raise naming it, and
-:func:`doctor_report` records that refusal in its ``calibration`` field
-when it is given a program.  :func:`executable_facts` returns None, as
-the JAX package does where the backend hides an executable's facts.
+The modeled side: :func:`calibration_row` sets the static cost model's
+predicted step time (``analysis.cost_model``, H100 constants) against a
+measured one; :func:`save_calibration` and
+:func:`save_op_class_calibration` merge per-program and per-op-class rows
+(``opprof.op_class_rows``) into one JSON table, and
+:func:`load_op_class_ratios` reads the per-op-type ratios the planner
+takes (``analysis.planner.plan(op_class_ratios=)``).  The cost model is
+imported only inside those calls.  :func:`executable_facts` returns
+None: a captured CUDA graph exposes no FLOP or memory facts, so a row's
+``model`` is ``"static"``.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 __all__ = [
-    "BUDGET_TOLERANCE", "ANALYSIS_NOT_PORTED", "step_budget",
+    "BUDGET_TOLERANCE", "step_budget",
     "serving_budget", "decode_budget", "remote_budget",
     "executable_facts", "calibration_row", "save_calibration",
+    "save_op_class_calibration", "load_op_class_ratios",
     "doctor_report", "render_doctor",
 ]
 
@@ -385,9 +390,6 @@ def remote_budget(events) -> Optional[dict]:
 # ---------------------------------------------------------------------------
 # compiled-executable facts + static-model calibration
 # ---------------------------------------------------------------------------
-ANALYSIS_NOT_PORTED = "ROADMAP Queue A item 9b (analysis)"
-
-
 def executable_facts(step) -> Optional[dict]:
     """FLOPs / bytes / memory of a compiled step where the backend
     exposes them.  A captured CUDA graph exposes none, so this is None,
@@ -400,19 +402,115 @@ def calibration_row(program, measured_step_ms: float,
                     mesh_axes: Optional[Dict[str, int]] = None,
                     assume_batch: int = 64,
                     facts: Optional[dict] = None) -> dict:
-    """The static cost model's predicted step time against a measured
-    one.  Waits for the port's cost model; raises naming its item."""
-    raise NotImplementedError(
-        f"attribution.calibration_row needs the static cost model, which "
-        f"is not ported yet ({ANALYSIS_NOT_PORTED})")
+    """One calibration-table row: the static cost model's predicted step
+    time against a measured one, and their ratio, which the planner can
+    fold into its constants.
+
+    ``ratio > 1``: the model is optimistic for this program (real steps
+    are slower than the proxy); ``< 1``: pessimistic.  Rows are keyed by
+    the program's content digest, so re-doctoring the same program
+    overwrites its row instead of accumulating duplicates."""
+    from ..analysis.cost_model import estimate_cost
+    from ..core import compile_cache
+    report = estimate_cost(program, mesh_axes or {},
+                           assume_batch=assume_batch)
+    predicted_ms = report.step_time_proxy_s * 1e3
+    digest = compile_cache.fingerprint_hex(
+        compile_cache.program_content_digest(program))[:16]
+    row = {
+        "program": digest,
+        "assume_batch": int(assume_batch),
+        "mesh_axes": dict(mesh_axes or {}),
+        "predicted_ms": round(predicted_ms, 6),
+        "measured_ms": round(float(measured_step_ms), 6),
+        "ratio": round(float(measured_step_ms) / predicted_ms, 4)
+        if predicted_ms > 0 else None,
+        "model": "static" if facts is None else "static+cost_analysis",
+    }
+    if facts:
+        row["executable"] = facts
+    return row
+
+
+def _read_calibration_doc(path: str) -> dict:
+    """Existing table -> {"programs": {...}, "op_classes": {...}}
+    (tolerates the format-1 layout and a bare programs map)."""
+    import json
+    programs: Dict[str, dict] = {}
+    op_classes: Dict[str, dict] = {}
+    try:
+        with open(path) as f:
+            prev = json.load(f)
+        if isinstance(prev, dict):
+            p = prev.get("programs", prev)
+            if isinstance(p, dict):
+                programs.update(p)
+            if isinstance(prev.get("op_classes"), dict):
+                op_classes.update(prev["op_classes"])
+    except (OSError, ValueError):
+        pass   # first write, or an unreadable table: start fresh
+    return {"programs": programs, "op_classes": op_classes}
+
+
+def _write_calibration_doc(doc: dict, path: str) -> dict:
+    import json
+    import os
+    out = {"format": 2, "programs": doc["programs"]}
+    if doc.get("op_classes"):
+        out["op_classes"] = doc["op_classes"]
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+    return out
 
 
 def save_calibration(rows: List[dict], path: str) -> dict:
-    """Merge calibration rows into the table the planner reads.  Waits
-    for the port's cost model and planner; raises naming their item."""
-    raise NotImplementedError(
-        f"attribution.save_calibration needs the static cost model and "
-        f"the planner, which are not ported yet ({ANALYSIS_NOT_PORTED})")
+    """Merge per-program calibration rows into a JSON table keyed by
+    program digest (atomic rewrite, op-class rows preserved); returns
+    the merged table."""
+    doc = _read_calibration_doc(path)
+    for row in rows:
+        doc["programs"][row["program"]] = row
+    return _write_calibration_doc(doc, path)
+
+
+def save_op_class_calibration(rows: List[dict], path: str) -> dict:
+    """Merge per-op-CLASS rows (``opprof.op_class_rows`` output — the
+    calibration_row schema extended with ``op_type``) into the same
+    table under ``op_classes``, keyed ``<digest>:<op_type>`` so
+    re-profiling a program overwrites its classes.  The per-program rows
+    are preserved — one file carries both granularities for the
+    planner."""
+    doc = _read_calibration_doc(path)
+    for row in rows:
+        doc["op_classes"][f"{row['program']}:{row['op_type']}"] = row
+    return _write_calibration_doc(doc, path)
+
+
+def load_op_class_ratios(table) -> Dict[str, float]:
+    """Per-op-TYPE correction ratios for the planner
+    (``analysis.planner.plan(op_class_ratios=...)``): the MEDIAN
+    measured/predicted ratio per op type across every program in the
+    table's ``op_classes`` section.  ``table`` is a path or an
+    already-loaded dict; {} when the table has no op-class rows (the
+    planner then ranks on the constants alone)."""
+    import json
+    import statistics
+    if isinstance(table, (str, bytes)) or hasattr(table, "__fspath__"):
+        with open(table) as f:
+            table = json.load(f)
+    if not isinstance(table, dict):
+        raise ValueError("calibration table must be a JSON object")
+    by_type: Dict[str, List[float]] = {}
+    for row in (table.get("op_classes") or {}).values():
+        if not isinstance(row, dict) or "op_type" not in row:
+            continue   # foreign/hand-edited rows must not crash the load
+        r = row.get("ratio")
+        if isinstance(r, (int, float)) and r > 0:
+            by_type.setdefault(str(row["op_type"]), []).append(float(r))
+    return {t: float(statistics.median(rs))
+            for t, rs in sorted(by_type.items())}
 
 
 # ---------------------------------------------------------------------------
@@ -444,12 +542,9 @@ def doctor_report(paths, program=None, assume_batch: int = 64,
         out["span_stats"] = stats
     if program is not None and tb is not None \
             and tb.get("step_ms_warm_mean"):
-        try:
-            out["calibration"] = calibration_row(
-                program, tb["step_ms_warm_mean"], mesh_axes=mesh_axes,
-                assume_batch=assume_batch)
-        except NotImplementedError as e:
-            out["calibration"] = {"not_ported": str(e)}
+        out["calibration"] = calibration_row(
+            program, tb["step_ms_warm_mean"], mesh_axes=mesh_axes,
+            assume_batch=assume_batch)
     tops = [s.get("top") for s in (out.get("training"),
                                    out.get("serving"),
                                    out.get("remote")) if s]
@@ -528,9 +623,7 @@ def render_doctor(report: dict) -> str:
         for h in rb["hints"]:
             lines.append(f"  hint: {h}")
     cal = report.get("calibration")
-    if cal and "not_ported" in cal:
-        lines.append(f"calibration: {cal['not_ported']}")
-    elif cal:
+    if cal:
         lines.append(
             f"calibration: program {cal['program']} predicted "
             f"{cal['predicted_ms']} ms vs measured {cal['measured_ms']} "

@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 from .. import flags as _flags
 
 __all__ = [
-    "METRIC_NAMES", "HISTOGRAM_BUCKETS",
+    "METRIC_NAMES", "THREAD_NAME_PREFIXES", "HISTOGRAM_BUCKETS",
     "MetricsRegistry", "registry",
     "inc_counter", "set_gauge", "observe_hist", "enabled",
 ]
@@ -236,6 +236,27 @@ METRIC_NAMES = (
      "threshold"),
     ("concurrency/lock_held_ms", "histogram",
      "watched-lock hold time, acquire to release (lockwatch on only)"),
+)
+
+# ---------------------------------------------------------------------------
+# Frozen framework thread-name prefixes.  (prefix, help) — every thread the
+# port starts MUST carry a name beginning with one of these (AST-gated by
+# the PT055 concurrency pass, analysis/concurrency.py, which reads this
+# literal without importing it), so leak reports and operator tooling can
+# attribute any thread to its subsystem by name alone.  The rows are the
+# JAX table's for the threads the port starts, and one of the port's own
+# (pt-loadgen).
+# ---------------------------------------------------------------------------
+THREAD_NAME_PREFIXES = (
+    ("pt-input-pipeline", "reader pipeline prefetch workers"),
+    ("pt-reader", "reader decorator xmap/pipe workers"),
+    ("pt-sparse", "sparse session prefetch + async-push workers"),
+    ("pt-ckpt", "incremental checkpoint commit writer"),
+    ("pt-serving", "serving batcher/dispatcher/stdin threads"),
+    ("pt-decode", "continuous-batching decode loop"),
+    ("pt-pserver", "sparse pserver selector/acceptor loops"),
+    ("pt-loadgen", "benchmark load generator's closed-loop client "
+     "workers"),
 )
 
 _MS_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,

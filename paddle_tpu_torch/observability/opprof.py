@@ -1,6 +1,6 @@
-"""Per-op runtime profiler and memory timeline (counterpart of
-``paddle_tpu/observability/opprof.py``, its measured view): which op a
-step's time goes to.
+"""Per-op runtime profiler, modeled join and memory timeline
+(counterpart of ``paddle_tpu/observability/opprof.py``): which op a
+step's time goes to, and how far each is from the static cost model.
 
 * **Measured** — an eager per-op replay of one step through
   ``core.executor.run_op`` in execution order — the forward slice, the
@@ -14,14 +14,21 @@ step's time goes to.
   the random ops' streams at the step again, so every window draws the
   step's masks.  The kernel wrappers count the replay's launches like
   any others.
+* **Modeled** (``modeled=True``) — each measured op joined against the
+  static cost model's per-op FLOPs and bytes (``analysis.cost_model``,
+  the H100 constants): predicted-vs-measured ratios, a roofline verdict
+  per op (compute-bound vs memory-bound under those constants), the
+  arithmetic intensity, a per-op-TYPE calibration table
+  (:func:`op_class_rows`, the ``calibration_row`` schema keyed by program
+  digest and op type — what ``analysis.planner.plan(op_class_ratios=)``
+  reads through ``attribution.load_op_class_ratios``) and the ranked
+  where-the-time-goes report by op class (:func:`xla_loses_here`, under
+  the JAX package's name) naming :data:`PALLAS_CANDIDATES`' classes.
+  The join is best-effort, as in the JAX package: a program the model
+  cannot walk profiles measured-only, with a warning.
 * **Memory timeline** — the liveness walk's per-op live-bytes curve from
-  the measured tensor sizes of the replay.
-
-Not ported yet: the modeled join (per-op FLOPs/bytes against the static
-cost model, the roofline verdicts), the per-op-class calibration table
-and the where-the-compiler-loses report, which wait for ROADMAP Queue A
-item 9b (analysis): ``profile_program(modeled=True)``,
-:func:`op_class_rows` and :func:`xla_loses_here` raise naming it.
+  the measured tensor sizes of the replay, beside the cost model's peak
+  estimate when modeled.
 
 Profiling is an offline tool: it never touches the executor's captured
 steps or its step counter.  ``python -m
@@ -42,7 +49,7 @@ from . import tracing as _tracing
 logger = logging.getLogger("paddle_tpu_torch")
 
 __all__ = [
-    "TOLERANCE", "ANALYSIS_NOT_PORTED", "synth_feeds", "synth_state",
+    "TOLERANCE", "PALLAS_CANDIDATES", "synth_feeds", "synth_state",
     "time_windows", "cuda_time_windows", "profile_program",
     "render_profile", "op_class_rows", "xla_loses_here",
 ]
@@ -51,7 +58,25 @@ __all__ = [
 # fraction (the JAX package's value, equal to
 # attribution.BUDGET_TOLERANCE).
 TOLERANCE = 0.15
-ANALYSIS_NOT_PORTED = "ROADMAP Queue A item 9b (analysis)"
+
+# The JAX package's expansion candidates: op classes whose domination in
+# a measured profile names a candidate kernel (a fused optimizer update
+# over all parameters; gather/scatter over padded sequence layouts).
+# Names only: the decision rules and hardware flags the JAX package
+# attaches from its tunables wait for the port's tuning (ROADMAP item 9d).
+_OPTIMIZER_OPS = frozenset((
+    "sgd", "momentum", "adam", "adamax", "adagrad", "adadelta",
+    "decayed_adagrad", "rmsprop", "ftrl", "proximal_gd",
+    "proximal_adagrad"))
+_LOD_SEQUENCE_OPS = frozenset((
+    "sequence_pool", "sequence_softmax", "sequence_expand",
+    "sequence_expand_as", "sequence_concat", "sequence_slice",
+    "sequence_pad", "sequence_unpad", "sequence_reshape",
+    "sequence_reverse", "lod_reset", "sub_nested_seq"))
+PALLAS_CANDIDATES: Dict[str, str] = {
+    **{t: "pallas/fused_optimizer_update" for t in _OPTIMIZER_OPS},
+    **{t: "pallas/lod_gather_scatter" for t in _LOD_SEQUENCE_OPS},
+}
 
 
 # ---------------------------------------------------------------------------
@@ -222,21 +247,114 @@ def _window_stats(times: List[float], unit: int) -> dict:
     }
 
 
-def _refuse(what: str):
-    raise NotImplementedError(
-        f"opprof: {what} needs the static cost model, which is not "
-        f"ported yet ({ANALYSIS_NOT_PORTED})")
+# ---------------------------------------------------------------------------
+# Modeled join
+# ---------------------------------------------------------------------------
+def _join_modeled(program, rows, mesh_axes, assume_batch):
+    from ..analysis.cost_model import (HBM_GBPS, ICI_GBPS, PEAK_FLOPS,
+                                       estimate_cost)
+    try:
+        cost = estimate_cost(program, mesh_axes or {},
+                             assume_batch=assume_batch)
+    except Exception as e:  # noqa: BLE001 — the join is best-effort
+        # a program the static model cannot walk still profiles
+        # measured-only
+        logger.warning("opprof: static cost model failed (%s: %s); "
+                       "measured-only profile", type(e).__name__, e)
+        return None
+    by_idx = {c.loc[1]: c for c in cost.op_costs if c.loc[0] == 0}
+    for row in rows:
+        c = by_idx.get(row["index"])
+        if c is None:
+            continue
+        compute_s = c.flops / PEAK_FLOPS
+        hbm_s = c.bytes / HBM_GBPS
+        pred_ms = (compute_s + hbm_s
+                   + c.collective_bytes / ICI_GBPS) * 1e3
+        row["modeled"] = {
+            "flops": c.flops, "hbm_bytes": c.bytes,
+            "predicted_ms": round(pred_ms, 9),
+            "roofline": ("compute-bound" if compute_s >= hbm_s
+                         else "memory-bound"),
+            "arithmetic_intensity": round(c.flops / c.bytes, 4)
+            if c.bytes else None,
+        }
+        row["ratio"] = round(row["wall_ms"] / pred_ms, 4) \
+            if pred_ms > 0 else None
+    return cost
+
+
+def _agg_by_type(rows) -> Dict[str, dict]:
+    """Per op TYPE: measured time and count over all rows, and the
+    measured/predicted pair over the modeled rows (only those can
+    calibrate)."""
+    agg: Dict[str, dict] = {}
+    for row in rows:
+        a = agg.setdefault(row["op_type"], {
+            "measured_ms": 0.0, "count": 0, "modeled_measured_ms": 0.0,
+            "modeled_predicted_ms": 0.0, "modeled_count": 0})
+        a["measured_ms"] += row["wall_ms"]
+        a["count"] += 1
+        m = row.get("modeled")
+        if m and m.get("predicted_ms"):
+            a["modeled_measured_ms"] += row["wall_ms"]
+            a["modeled_predicted_ms"] += m["predicted_ms"]
+            a["modeled_count"] += 1
+    return agg
 
 
 def op_class_rows(rows, digest: str, assume_batch: int,
                   mesh_axes: Optional[Dict[str, int]] = None) -> List[dict]:
-    """Per-op-class calibration rows against the static cost model."""
-    _refuse("the per-op-class calibration table")
+    """One calibration row per op TYPE from a modeled profile's rows —
+    the ``attribution.calibration_row`` schema with the op class key,
+    merged into the table by ``attribution.save_op_class_calibration``
+    and read by ``analysis.planner.plan(op_class_ratios=...)``."""
+    agg = _agg_by_type(rows)
+    out = []
+    for op_type in sorted(agg):
+        a = agg[op_type]
+        if not a["modeled_count"]:
+            continue
+        out.append({
+            "program": digest, "op_type": op_type,
+            "predicted_ms": round(a["modeled_predicted_ms"], 6),
+            "measured_ms": round(a["modeled_measured_ms"], 6),
+            "ratio": round(a["modeled_measured_ms"]
+                           / a["modeled_predicted_ms"], 4)
+            if a["modeled_predicted_ms"] > 0 else None,
+            "count": a["modeled_count"],
+            "assume_batch": int(assume_batch),
+            "mesh_axes": dict(mesh_axes or {}),
+            "model": "static-per-op",
+        })
+    return out
 
 
 def xla_loses_here(rows, total_ms: float, top: int) -> List[dict]:
-    """The ranked where-the-compiler-loses report (modeled ratios)."""
-    _refuse("the where-the-compiler-loses report")
+    """Where the time goes, by op class, ranked by measured time, with
+    the modeled ratio; a class in :data:`PALLAS_CANDIDATES` names its
+    candidate kernel.  (The JAX package's name, kept so both packages'
+    reports read alike: here the compiler is the op implementation.)"""
+    agg = {t: {"measured_ms": a["measured_ms"], "count": a["count"],
+               "predicted_ms": a["modeled_predicted_ms"]}
+           for t, a in _agg_by_type(rows).items()}
+    ranked = []
+    for op_type, a in sorted(agg.items(),
+                             key=lambda kv: -kv[1]["measured_ms"]):
+        entry = {
+            "op_type": op_type, "count": a["count"],
+            "measured_ms": round(a["measured_ms"], 6),
+            "share": round(a["measured_ms"] / total_ms, 4)
+            if total_ms > 0 else 0.0,
+            "predicted_ms": round(a["predicted_ms"], 6),
+            "ratio": round(a["measured_ms"] / a["predicted_ms"], 4)
+            if a["predicted_ms"] > 0 else None,
+        }
+        cand = PALLAS_CANDIDATES.get(op_type)
+        if cand:
+            entry["pallas_candidate"] = cand
+        ranked.append(entry)
+    return ranked[:max(1, top)]
 
 
 def _bw_out_names(op) -> List[str]:
@@ -252,7 +370,8 @@ def profile_program(program, *, executor=None, feed=None, state=None,
                     scope=None, batch: int = 64, seq_len: int = 8,
                     step: int = 0, is_test: bool = False, reps: int = 2,
                     warmup: int = 1, top: int = 10, fetch_list=None,
-                    measure=None, modeled: bool = False) -> dict:
+                    measure=None, modeled: bool = False,
+                    mesh_axes: Optional[Dict[str, int]] = None) -> dict:
     """Profile one step of ``program`` op by op on ``executor``'s device
     (default ``Executor()``, the card); returns the measured and memory
     report (JSON-serializable except an optional ``fetches`` entry when
@@ -264,14 +383,16 @@ def profile_program(program, *, executor=None, feed=None, state=None,
     fake timer exercises the walk deterministically.  The call order is
     the JAX package's: one measurement per op in execution order, then
     one of the full replay (the eager total the per-op table must sum to
-    within :data:`TOLERANCE`).  ``modeled=True`` (the static cost
-    model's join) raises naming its item."""
+    within :data:`TOLERANCE`).  ``modeled=True`` adds the static cost
+    model's join (``batch`` stands in for symbolic dims, ``mesh_axes``
+    for the plan's mesh): a ``modeled`` entry and a ``ratio`` on each
+    row, the ``op_classes`` calibration rows, the ``xla_loses_here``
+    ranking, and the model's peak beside the memory timeline's; the
+    measured fields stay as they are."""
     from ..core import compile_cache
     from ..core.executor import Env, _run_backward, _to_bf16, run_op
     from .nanprov import dtype_name, make_eager_context
 
-    if modeled:
-        _refuse("the modeled join (profile_program(modeled=True))")
     if executor is None:
         from ..core.executor import Executor
         executor = Executor()
@@ -408,8 +529,16 @@ def profile_program(program, *, executor=None, feed=None, state=None,
         "tolerance": TOLERANCE,
         "rows": rows,
         "top": sorted(rows, key=lambda r: -r["wall_ms"])[:max(1, top)],
-        "memory": _memory_view(program, sizes, bw_idx),
     }
+    cost = None
+    if modeled:
+        cost = _join_modeled(program, rows, mesh_axes, batch)
+        report["mesh_axes"] = dict(mesh_axes or {})
+        report["op_classes"] = op_class_rows(rows, digest, batch,
+                                             mesh_axes)
+        report["xla_loses_here"] = xla_loses_here(rows, per_op_sum_ms,
+                                                  top)
+    report["memory"] = _memory_view(program, sizes, bw_idx, cost=cost)
     if fetch_list:
         report["fetches"] = {
             str(n): env.get(str(n)).float().cpu().numpy()
@@ -424,12 +553,15 @@ def _nbytes(v) -> int:
 # ---------------------------------------------------------------------------
 # Memory timeline
 # ---------------------------------------------------------------------------
-def _memory_view(program, sizes: Dict[str, int], bw_idx) -> dict:
+def _memory_view(program, sizes: Dict[str, int], bw_idx,
+                 cost=None) -> dict:
     """Per-op live-bytes curve from the measured tensor sizes, with the
     JAX package's liveness rules: a var lives from its producer to its
     last consumer, and forward activations live until the backward
-    (autograd holds them for it).  ``modeled_peak_bytes`` (the static
-    model's estimate) is None until the cost model is ported."""
+    (autograd holds them for it).  ``modeled_peak_bytes`` is the static
+    model's per-device peak from ``cost`` (the modeled join's
+    CostReport); None when not modeled or the model could not walk the
+    program."""
     gb = program.global_block()
     persistable = {v.name for b in program.blocks
                    for v in b.vars.values() if v.persistable}
@@ -471,13 +603,18 @@ def _memory_view(program, sizes: Dict[str, int], bw_idx) -> dict:
         for n in [n for n in live if last_use.get(n, i) <= i]:
             del live[n]
 
-    return {
+    modeled = cost.peak_hbm_bytes_per_device if cost is not None else None
+    out = {
         "timeline": curve,
         "state_bytes": int(state_bytes),
         "peak_bytes": int(peak), "peak_index": peak_idx,
         "peak_op": gb.ops[peak_idx].type if gb.ops else None,
-        "modeled_peak_bytes": None,
+        "modeled_peak_bytes": round(modeled, 1)
+        if modeled is not None else None,
     }
+    if modeled:
+        out["peak_ratio"] = round(peak / modeled, 4)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -494,14 +631,37 @@ def render_profile(report: dict, top: int = 10) -> str:
         + ")"]
     lines.append("top ops by measured time:")
     for r in report["top"][:top]:
+        m = r.get("modeled") or {}
         share = (r["wall_ms"] / report["per_op_sum_ms"] * 100
                  if report["per_op_sum_ms"] else 0.0)
+        extra = ""
+        if m:
+            extra = (f"  pred {m['predicted_ms']:.6f} ms"
+                     + (f"  ratio {r['ratio']}x"
+                        if r.get("ratio") is not None else "")
+                     + f"  {m['roofline']}")
         lines.append(f"  #{r['index']:>3} {r['op_type']:<22} "
                      f"{r['wall_ms']:10.3f} ms ({share:4.1f}%)"
-                     f" [{r['phase']}]")
+                     f" [{r['phase']}]{extra}")
+    xl = report.get("xla_loses_here") or []
+    if xl:
+        lines.append("where the time goes (by op class):")
+        for e in xl[:top]:
+            lines.append(
+                f"  {e['op_type']} (x{e['count']}): "
+                f"{e['measured_ms']:.3f} ms "
+                f"({round(e['share'] * 100, 1)}%)"
+                + (f", ratio {e['ratio']}x" if e.get("ratio") else "")
+                + (f" -> {e['pallas_candidate']}"
+                   if e.get("pallas_candidate") else ""))
     mem = report.get("memory") or {}
     if mem:
-        lines.append(f"memory: measured peak "
-                     f"{mem['peak_bytes'] / 1e6:.3f} MB at op "
-                     f"#{mem['peak_index']} ({mem['peak_op']})")
+        line = (f"memory: measured peak "
+                f"{mem['peak_bytes'] / 1e6:.3f} MB at op "
+                f"#{mem['peak_index']} ({mem['peak_op']})")
+        if mem.get("modeled_peak_bytes"):
+            line += (f"; modeled {mem['modeled_peak_bytes'] / 1e6:.3f} MB"
+                     + (f" (ratio {mem['peak_ratio']})"
+                        if mem.get("peak_ratio") else ""))
+        lines.append(line)
     return "\n".join(lines)

@@ -59,3 +59,29 @@ def _ceil(ctx, ins, attrs):
 @register_op("reciprocal")
 def _reciprocal(ctx, ins, attrs):
     return {"Out": 1.0 / ins["X"][0]}
+
+
+# ---------------------------------------------------------------------------
+# Static shape/dtype rules (analysis.shape_infer): every activation maps
+# X -> Out elementwise, so one same_as rule covers the whole file — the
+# InferShape analog of activation_op.h's UnaryOpUnchangedInferShape.
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import same_as  # noqa: E402
+from ..core.registry import register_shape_fn  # noqa: E402
+
+register_shape_fn(
+    "sigmoid", "tanh", "relu", "sqrt", "square", "exp", "log", "floor",
+    "ceil", "reciprocal",
+)(same_as("X"))
+
+# ---------------------------------------------------------------------------
+# Sharding-propagation rules (analysis.shard_prop): activations are
+# elementwise, so outputs carry their input's per-dim sharding unchanged.
+# ---------------------------------------------------------------------------
+from ..analysis.shard_prop import shard_same_as  # noqa: E402
+from ..core.registry import register_shard_fn  # noqa: E402
+
+register_shard_fn(
+    "sigmoid", "tanh", "relu", "sqrt", "square", "exp", "log", "floor",
+    "ceil", "reciprocal",
+)(shard_same_as("X"))

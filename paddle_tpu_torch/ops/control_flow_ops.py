@@ -84,3 +84,17 @@ def _rnn(ctx, ins, attrs):
         if nested and sv is not None and sv.lod_level >= 1:
             ctx.set_len2(nm, nested[0][1])
     return {"Outputs": results}
+
+
+# ---------------------------------------------------------------------------
+# Static analysis: the memory helper is shape-preserving; ``rnn`` binds
+# its outputs from its sub-block (SHAPE_INFER_ALLOWLIST) and has no shard
+# rule (a blind spot, as in the JAX package).
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import same_as  # noqa: E402
+from ..analysis.shard_prop import shard_same_as  # noqa: E402
+from ..core.registry import (register_shape_fn,  # noqa: E402
+                             register_shard_fn)
+
+register_shape_fn("rnn_memory_helper")(same_as("X"))
+register_shard_fn("rnn_memory_helper")(shard_same_as("X"))

@@ -19,3 +19,17 @@ def _copy_len(ctx, ins, attrs):
     if lens2 is not None:
         ctx.set_len2(name_out, lens2)
     return {}
+
+
+# ---------------------------------------------------------------------------
+# Static analysis: copy_len is a metadata marker (it forwards a @LEN
+# companion and rebinds no value), so it has nothing to infer and no
+# sharding of its own.
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import no_outputs  # noqa: E402
+from ..analysis.shard_prop import shard_noop  # noqa: E402
+from ..core.registry import (register_shape_fn,  # noqa: E402
+                             register_shard_fn)
+
+register_shape_fn("copy_len")(no_outputs())
+register_shard_fn("copy_len")(shard_noop())

@@ -734,3 +734,30 @@ def _flash_attention_op(ctx, ins, attrs):
         q, k, v, causal=attrs.get("causal", False),
         block_q=attrs.get("block_q", 1024),
         block_k=attrs.get("block_k", 1024))}
+
+
+# ---------------------------------------------------------------------------
+# Static shape/dtype rule (``paddle_tpu/ops/pallas_kernels.py:555-572``):
+# flash_attention is shape-preserving on Q.  Sharding: batch/head
+# sharding rides along (each shard attends within itself).
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import ShapeError, dim_ok, first  # noqa: E402
+from ..analysis.shard_prop import shard_same_as  # noqa: E402
+from ..core.registry import (register_shape_fn,  # noqa: E402
+                             register_shard_fn)
+
+
+@register_shape_fn("flash_attention")
+def _flash_attention_shape(op, ins, attrs):
+    q, k, v = first(ins, "Q"), first(ins, "K"), first(ins, "V")
+    for name, o in (("K", k), ("V", v)):
+        if q.shape is not None and o.shape is not None:
+            if len(o.shape) != len(q.shape) or \
+                    not dim_ok(q.shape[-1], o.shape[-1]):
+                raise ShapeError(
+                    f"flash_attention: Q {list(q.shape)} vs {name} "
+                    f"{list(o.shape)} (rank or head dim mismatch)")
+    return {"Out": q}
+
+
+register_shard_fn("flash_attention")(shard_same_as("Q"))

@@ -206,3 +206,32 @@ def _attention_with_cache(ctx, ins, attrs):
     probs = torch.softmax(torch.where(visible, scores, NEG_INF), dim=-1)
     out = torch.matmul(probs, cv.to(torch.float32)).to(q.dtype)
     return {"Out": out, "CacheKOut": ck, "CacheVOut": cv}
+
+
+# ---------------------------------------------------------------------------
+# Sharding propagation (analysis.shard_prop): beam search is decode-time
+# data-dependent machinery — registering the explicit noop states that its
+# outputs are treated replicated (beams are small; sharding them is
+# never the plan), rather than leaving a PT042 blind spot.
+# attention_with_cache: the decode slot pool is a single-host serving
+# construct — its batch axis is the slot axis and the cache slabs are
+# session state, neither of which is ever mesh-sharded.  Replicated
+# outputs, stated explicitly.  ``recurrent`` binds its outputs from its
+# sub-block: no rule of either kind (SHAPE_INFER_ALLOWLIST; a blind spot).
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import first  # noqa: E402
+from ..analysis.shard_prop import shard_noop  # noqa: E402
+from ..core.registry import (register_shape_fn,  # noqa: E402
+                             register_shard_fn)
+
+register_shard_fn("beam_search", "beam_search_decode",
+                  "attention_with_cache")(shard_noop())
+
+
+@register_shape_fn("attention_with_cache")
+def _attention_with_cache_shape(op, ins, attrs):
+    # Out mirrors Q; the cache outputs mirror their state slabs (the
+    # optimizer-op ParamOut <- Param convention for in-place threading)
+    return {"Out": first(ins, "Q"),
+            "CacheKOut": first(ins, "CacheK"),
+            "CacheVOut": first(ins, "CacheV")}

@@ -158,3 +158,152 @@ def _clip_by_norm(ctx, ins, attrs):
 def _squared_l2_norm(ctx, ins, attrs):
     x = ins["X"][0]
     return {"Out": torch.sum(x * x).reshape(1)}
+
+
+# ---------------------------------------------------------------------------
+# Static shape/dtype rules (analysis.shape_infer) — the InferShape analogs
+# of elementwise_op.h / mul_op.cc / matmul_op.cc / squared_l2_norm_op.cc.
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import (ShapeError, VarInfo, dim_ok,  # noqa: E402
+                                    elementwise, first, prod_dims, same_as,
+                                    shapes_compatible, unify_dim)
+from ..core.registry import register_shape_fn  # noqa: E402
+
+register_shape_fn(
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+)(elementwise())
+register_shape_fn("less_than")(elementwise(dtype="bool"))
+register_shape_fn(
+    "scale", "clip", "clip_by_norm", "sign", "pow", "increment",
+)(same_as("X"))
+
+
+@register_shape_fn("mul")
+def _mul_shape(op, ins, attrs):
+    """mul_op.cc InferShape: flatten to 2-D at the num_col_dims splits and
+    check the contraction."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    if x.shape is None or y.shape is None:
+        return {"Out": VarInfo(None, x.dtype)}
+    xn = attrs.get("x_num_col_dims", 1)
+    yn = attrs.get("y_num_col_dims", 1)
+    if not 0 < xn < len(x.shape) + 1 or not 0 < yn < len(y.shape) + 1:
+        raise ShapeError(
+            f"mul: num_col_dims ({xn}, {yn}) out of range for ranks "
+            f"{len(x.shape)}, {len(y.shape)}")
+    k1, k2 = prod_dims(x.shape[xn:]), prod_dims(y.shape[:yn])
+    if not dim_ok(k1, k2):
+        raise ShapeError(
+            f"mul: contraction mismatch {list(x.shape)}[{xn}:] ({k1}) vs "
+            f"{list(y.shape)}[:{yn}] ({k2})")
+    return {"Out": VarInfo(x.shape[:xn] + y.shape[yn:], x.dtype)}
+
+
+@register_shape_fn("matmul")
+def _matmul_shape(op, ins, attrs):
+    x, y = first(ins, "X"), first(ins, "Y")
+    if x.shape is None or y.shape is None:
+        return {"Out": VarInfo(None, x.dtype)}
+    xs, ys = list(x.shape), list(y.shape)
+    if len(xs) < 1 or len(ys) < 1:
+        raise ShapeError("matmul: operands must have rank >= 1")
+    if attrs.get("transpose_X", False) and len(xs) > 1:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if attrs.get("transpose_Y", False) and len(ys) > 1:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    if len(xs) == 1:
+        xs = [1] + xs
+    if len(ys) == 1:
+        ys = ys + [1]
+    if not dim_ok(xs[-1], ys[-2]):
+        raise ShapeError(
+            f"matmul: contraction mismatch {list(x.shape)} @ "
+            f"{list(y.shape)} ({xs[-1]} vs {ys[-2]})")
+    batch = []
+    for i in range(2, max(len(xs), len(ys)))[::-1]:
+        bx = xs[-i - 1] if i < len(xs) else None
+        by = ys[-i - 1] if i < len(ys) else None
+        if bx is not None and by is not None:
+            if not (dim_ok(bx, by) or bx == 1 or by == 1):
+                raise ShapeError(
+                    f"matmul: batch dims mismatch {list(x.shape)} vs "
+                    f"{list(y.shape)}")
+            # broadcast with -1-safe semantics: a 1 yields the other
+            # side verbatim (even if unknown); -1 never collapses to 1
+            if bx == 1:
+                batch.append(by)
+            elif by == 1:
+                batch.append(bx)
+            else:
+                batch.append(unify_dim(bx, by))
+        else:
+            batch.append(bx if bx is not None else by)
+    shape = tuple(batch) + (xs[-2], ys[-1])
+    if x.ndim == 1:
+        shape = shape[:-2] + (shape[-1],)
+    elif y.ndim == 1:
+        shape = shape[:-1]
+    return {"Out": VarInfo(shape, x.dtype)}
+
+
+@register_shape_fn("sum")
+def _sum_shape(op, ins, attrs):
+    """sum_op: every input must carry the same shape."""
+    xs = ins.get("X", [])
+    out = xs[0] if xs else None
+    for x in xs[1:]:
+        if not shapes_compatible(out.shape, x.shape):
+            raise ShapeError(
+                f"sum: operand shapes differ: {list(out.shape)} vs "
+                f"{list(x.shape)}")
+    return {"Out": out}
+
+
+@register_shape_fn("mean")
+def _mean_shape(op, ins, attrs):
+    x = first(ins, "X")
+    return {"Out": x.with_shape(())}
+
+
+@register_shape_fn("cast")
+def _cast_shape(op, ins, attrs):
+    x = first(ins, "X")
+    return {"Out": x.with_dtype(
+        attrs.get("out_dtype", attrs.get("dtype", "float32")))}
+
+
+@register_shape_fn("squared_l2_norm")
+def _squared_l2_norm_shape(op, ins, attrs):
+    return {"Out": VarInfo((1,), first(ins, "X").dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Sharding-propagation rules (analysis.shard_prop).  mul carries the
+# Megatron contract: row dims follow X, col dims follow Y, and a sharded
+# contraction must match on both sides (the row-parallel all-reduce).
+# ---------------------------------------------------------------------------
+from ..analysis.shard_prop import (merge_specs,  # noqa: E402
+                                   shard_elementwise, shard_matmul,
+                                   shard_mul, shard_replicated,
+                                   shard_same_as)
+from ..core.registry import register_shard_fn  # noqa: E402
+
+register_shard_fn(
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min", "less_than",
+)(shard_elementwise())
+register_shard_fn(
+    "scale", "clip", "clip_by_norm", "sign", "pow", "increment", "cast",
+)(shard_same_as("X"))
+register_shard_fn("mul")(shard_mul())
+register_shard_fn("matmul")(shard_matmul())
+register_shard_fn("mean", "squared_l2_norm")(shard_replicated("Out"))
+
+
+@register_shard_fn("sum")
+def _sum_shard(op, ins, attrs):
+    spec = None
+    for x in ins.get("X", []):
+        spec = merge_specs(spec, x.spec, "sum operands")
+    return {} if spec is None else {"Out": spec}

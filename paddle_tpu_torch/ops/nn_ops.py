@@ -236,3 +236,149 @@ def _lrn(ctx, ins, attrs):
         acc = acc + sq[:, i:i + C]
     mid = k + alpha * acc
     return {"Out": x / torch.pow(mid, beta), "MidOut": mid}
+
+
+# ---------------------------------------------------------------------------
+# Static shape/dtype rules (analysis.shape_infer) — the InferShape analogs
+# of conv_op.cc / pool_op.cc / batch_norm_op.cc etc.
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import (ShapeError, VarInfo,  # noqa: E402
+                                    conv_out_dim, dim_ok, first, mirror,
+                                    same_as)
+from ..core.registry import register_shape_fn  # noqa: E402
+
+register_shape_fn("softmax")(same_as("X"))
+
+
+@register_shape_fn("conv2d")
+def _conv2d_shape(op, ins, attrs):
+    x, w = first(ins, "Input"), first(ins, "Filter")
+    if x.shape is None or w.shape is None:
+        return {"Output": VarInfo(None, x.dtype)}
+    if len(x.shape) != 4 or len(w.shape) != 4:
+        raise ShapeError(
+            f"conv2d: Input/Filter must be rank-4, got {list(x.shape)} / "
+            f"{list(w.shape)}")
+    strides = _pair(attrs.get("strides", [1, 1]))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    dil = _pair(attrs.get("dilations", [1, 1]))
+    groups = int(attrs.get("groups", 1) or 1)
+    n, c, h, wd = x.shape
+    o, cg, kh, kw = w.shape
+    if c >= 0 and cg >= 0 and c != cg * groups:
+        raise ShapeError(
+            f"conv2d: input channels {c} != Filter C/g {cg} * groups "
+            f"{groups}")
+    if o >= 0 and groups > 1 and o % groups:
+        raise ShapeError(
+            f"conv2d: output channels {o} not divisible by groups {groups}")
+    oh = conv_out_dim(h, kh, pads[0], strides[0], dil[0])
+    ow = conv_out_dim(wd, kw, pads[1], strides[1], dil[1])
+    return {"Output": VarInfo((n, o, oh, ow), x.dtype)}
+
+
+def _pool2d_out_shape(x, attrs):
+    if attrs.get("global_pooling", False):
+        return x.shape[:2] + (1, 1)
+    ksize = _pair(attrs.get("ksize", [2, 2]))
+    strides = _pair(attrs.get("strides", [1, 1]))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    ceil = attrs.get("ceil_mode", False)
+    return x.shape[:2] + (
+        conv_out_dim(x.shape[2], ksize[0], pads[0], strides[0],
+                     ceil_mode=ceil),
+        conv_out_dim(x.shape[3], ksize[1], pads[1], strides[1],
+                     ceil_mode=ceil))
+
+
+@register_shape_fn("pool2d")
+def _pool2d_shape(op, ins, attrs):
+    x = first(ins, "X")
+    if x.shape is None:
+        return {"Out": x}
+    if len(x.shape) != 4:
+        raise ShapeError(f"pool2d: X must be rank-4, got {list(x.shape)}")
+    return {"Out": x.with_shape(_pool2d_out_shape(x, attrs))}
+
+
+@register_shape_fn("batch_norm")
+def _batch_norm_shape(op, ins, attrs):
+    x = first(ins, "X")
+    scale = first(ins, "Scale")
+    if x.shape is not None and scale.shape is not None and \
+            len(x.shape) >= 2 and not dim_ok(x.shape[1], scale.shape[-1]):
+        raise ShapeError(
+            f"batch_norm: channel dim {x.shape[1]} != Scale size "
+            f"{scale.shape[-1]}")
+    res = {"Y": x}
+    res.update(mirror({"MeanOut": "Mean", "VarianceOut": "Variance",
+                       "SavedMean": "Mean", "SavedVariance": "Variance"})(
+        op, ins, attrs))
+    return res
+
+
+@register_shape_fn("cross_entropy")
+def _cross_entropy_shape(op, ins, attrs):
+    x = first(ins, "X")
+    if x.shape is None:
+        return {"Y": x}
+    return {"Y": x.with_shape(x.shape[:-1] + (1,))}
+
+
+@register_shape_fn("dropout")
+def _dropout_shape(op, ins, attrs):
+    x = first(ins, "X")
+    return {"Out": x, "Mask": x}
+
+
+@register_shape_fn("lrn")
+def _lrn_shape(op, ins, attrs):
+    x = first(ins, "X")
+    return {"Out": x, "MidOut": x}
+
+
+# ---------------------------------------------------------------------------
+# Sharding-propagation rules (analysis.shard_prop).  Convolutions follow
+# batch/output-channel sharding, normalizations and pointwise heads are
+# shape-preserving, losses keep the batch dim only.
+# ---------------------------------------------------------------------------
+from ..analysis.shard_prop import (ShardConflict, first_in,  # noqa: E402
+                                   shard_batch_only, shard_conv2d,
+                                   shard_same_as)
+from ..core.registry import register_shard_fn  # noqa: E402
+
+register_shard_fn("conv2d")(shard_conv2d())
+register_shard_fn("softmax", "lrn")(shard_same_as("X"))
+register_shard_fn("dropout")(shard_same_as("X", also=("Mask",)))
+register_shard_fn("cross_entropy")(shard_batch_only("X", out="Y"))
+
+
+@register_shard_fn("pool2d")
+def _pool_shard(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.spec is None:
+        return {}
+    if any(x.entry(i) for i in range(2, len(x.spec))):
+        raise ShardConflict(
+            "pooling input spatially sharded: halo exchange required")
+    spec = (x.entry(0), x.entry(1)) + (None,) * (len(x.spec) - 2)
+    res = {"Out": spec}
+    if op.outputs.get("Mask"):
+        res["Mask"] = spec
+    return res
+
+
+@register_shard_fn("batch_norm")
+def _batch_norm_shard(op, ins, attrs):
+    x = first_in(ins, "X")
+    res = {}
+    if x.spec is not None:
+        res["Y"] = x.spec
+    for out_slot, in_slot in (("MeanOut", "Mean"),
+                              ("VarianceOut", "Variance"),
+                              ("SavedMean", "Mean"),
+                              ("SavedVariance", "Variance")):
+        v = first_in(ins, in_slot)
+        if op.outputs.get(out_slot) and v.spec is not None:
+            res[out_slot] = v.spec
+    return res

@@ -206,3 +206,83 @@ def _proximal_adagrad(ctx, ins, attrs):
     eff_lr = _lr(ins) / torch.sqrt(m_out)
     prox = _shrink(p - eff_lr * g, eff_lr, l1)
     return {"ParamOut": prox / (1.0 + eff_lr * l2), "MomentOut": m_out}
+
+
+# ---------------------------------------------------------------------------
+# Static shape/dtype rules: every optimizer op mirrors its state inputs to
+# the matching *Out slots (the reference's Param/Grad same-dims CHECKs in
+# sgd_op.cc etc. become an explicit Param-vs-Grad shape check).
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import (ShapeError, first, mirror,  # noqa: E402
+                                    shapes_compatible)
+from ..core.registry import register_shape_fn  # noqa: E402
+
+
+def _opt_rule(mapping):
+    base = mirror(mapping)
+
+    def rule(op, ins, attrs):
+        p, g = first(ins, "Param"), first(ins, "Grad")
+        if not shapes_compatible(p.shape, g.shape):
+            raise ShapeError(
+                f"Param {list(p.shape)} vs Grad {list(g.shape)} dims differ")
+        return base(op, ins, attrs)
+
+    return rule
+
+
+register_shape_fn("sgd")(_opt_rule({"ParamOut": "Param"}))
+register_shape_fn("momentum")(_opt_rule(
+    {"ParamOut": "Param", "VelocityOut": "Velocity"}))
+register_shape_fn("adam")(_opt_rule(
+    {"ParamOut": "Param", "Moment1Out": "Moment1", "Moment2Out": "Moment2",
+     "Beta1PowOut": "Beta1Pow", "Beta2PowOut": "Beta2Pow"}))
+register_shape_fn("adamax")(_opt_rule(
+    {"ParamOut": "Param", "MomentOut": "Moment", "InfNormOut": "InfNorm",
+     "Beta1PowOut": "Beta1Pow"}))
+register_shape_fn("adagrad", "decayed_adagrad", "proximal_adagrad")(
+    _opt_rule({"ParamOut": "Param", "MomentOut": "Moment"}))
+register_shape_fn("adadelta")(_opt_rule(
+    {"ParamOut": "Param", "AvgSquaredGradOut": "AvgSquaredGrad",
+     "AvgSquaredUpdateOut": "AvgSquaredUpdate"}))
+register_shape_fn("rmsprop")(_opt_rule(
+    {"ParamOut": "Param", "MomentOut": "Moment",
+     "MeanSquareOut": "MeanSquare"}))
+register_shape_fn("ftrl")(_opt_rule(
+    {"ParamOut": "Param", "SquaredAccumOut": "SquaredAccumulator",
+     "LinearAccumOut": "LinearAccumulator"}))
+register_shape_fn("proximal_gd")(_opt_rule({"ParamOut": "Param"}))
+
+
+# ---------------------------------------------------------------------------
+# Sharding-propagation rules (analysis.shard_prop): every optimizer op
+# keeps its state on the parameter's sharding (the dp-reduced gradient
+# arrives in the param's layout; accumulators ride along), with the
+# Param-vs-Grad merge surfacing layout mismatches as PT041.
+# ---------------------------------------------------------------------------
+from ..analysis.shard_prop import shard_mirror  # noqa: E402
+from ..core.registry import register_shard_fn  # noqa: E402
+
+register_shard_fn("sgd", "proximal_gd")(shard_mirror(
+    {"ParamOut": "Param"}, check_grad=True))
+register_shard_fn("momentum")(shard_mirror(
+    {"ParamOut": "Param", "VelocityOut": "Velocity"}, check_grad=True))
+register_shard_fn("adam")(shard_mirror(
+    {"ParamOut": "Param", "Moment1Out": "Moment1",
+     "Moment2Out": "Moment2", "Beta1PowOut": "Beta1Pow",
+     "Beta2PowOut": "Beta2Pow"}, check_grad=True))
+register_shard_fn("adamax")(shard_mirror(
+    {"ParamOut": "Param", "MomentOut": "Moment", "InfNormOut": "InfNorm",
+     "Beta1PowOut": "Beta1Pow"}, check_grad=True))
+register_shard_fn("adagrad", "decayed_adagrad", "proximal_adagrad")(
+    shard_mirror({"ParamOut": "Param", "MomentOut": "Moment"},
+                 check_grad=True))
+register_shard_fn("adadelta")(shard_mirror(
+    {"ParamOut": "Param", "AvgSquaredGradOut": "AvgSquaredGrad",
+     "AvgSquaredUpdateOut": "AvgSquaredUpdate"}, check_grad=True))
+register_shard_fn("rmsprop")(shard_mirror(
+    {"ParamOut": "Param", "MomentOut": "Moment",
+     "MeanSquareOut": "MeanSquare"}, check_grad=True))
+register_shard_fn("ftrl")(shard_mirror(
+    {"ParamOut": "Param", "SquaredAccumOut": "SquaredAccumulator",
+     "LinearAccumOut": "LinearAccumulator"}, check_grad=True))

@@ -246,3 +246,125 @@ def _gru_unit(ctx, ins, attrs):
     c = cand_act(c)
     h_new = u * h + (1.0 - u) * c
     return {"Hidden": h_new, "Gate": g, "ResetHiddenPrev": r * h}
+
+
+# ---------------------------------------------------------------------------
+# Static shape/dtype rules (analysis.shape_infer) over the padded+lengths
+# representation — the InferShape analogs of sequence_*_op.cc and
+# lstm_op.cc/gru_op.cc.
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import (ShapeError, VarInfo,  # noqa: E402
+                                    dim_ok, first)
+from ..core.registry import register_shape_fn  # noqa: E402
+
+
+@register_shape_fn("sequence_pool")
+def _sequence_pool_shape(op, ins, attrs):
+    x = first(ins, "X")
+    if x.shape is None or len(x.shape) < 2:
+        return {"Out": VarInfo(None, x.dtype)}
+    # [B, T, ...] -> [B, ...]; the nested (lod-2) LAST/FIRST form drops two
+    # dims, but lod levels are runtime metadata — stay at the common case
+    # and let the declaration fill the gap when it disagrees in rank only.
+    return {"Out": x.with_shape(x.shape[:1] + x.shape[2:])}
+
+
+@register_shape_fn("sequence_conv")
+def _sequence_conv_shape(op, ins, attrs):
+    x, w = first(ins, "X"), first(ins, "Filter")
+    if x.shape is None:
+        return {"Out": x}
+    if w.shape is not None and x.shape[-1] >= 0 and w.shape[0] >= 0:
+        ctx_len = attrs.get("contextLength", 3)
+        if w.shape[0] != ctx_len * x.shape[-1]:
+            raise ShapeError(
+                f"sequence_conv: Filter rows {w.shape[0]} != "
+                f"contextLength {ctx_len} * D {x.shape[-1]}")
+    m = w.shape[-1] if w.shape is not None else -1
+    return {"Out": x.with_shape(x.shape[:-1] + (m,))}
+
+
+@register_shape_fn("lstm")
+def _lstm_shape(op, ins, attrs):
+    x, w = first(ins, "Input"), first(ins, "Weight")
+    if x.shape is None:
+        return {"Hidden": x, "Cell": x}
+    b, t, h4 = x.shape
+    if h4 >= 0 and h4 % 4:
+        raise ShapeError(f"lstm: input width {h4} is not 4*H")
+    h = -1 if h4 < 0 else h4 // 4
+    if w.shape is not None and h >= 0 and \
+            (len(w.shape) != 2
+             or not all(dim_ok(a, b)
+                        for a, b in zip(w.shape, (h, h4)))):
+        raise ShapeError(
+            f"lstm: Weight {list(w.shape)} != [H, 4H] = [{h}, {h4}]")
+    info = VarInfo((b, t, h), x.dtype)
+    return {"Hidden": info, "Cell": info}
+
+
+@register_shape_fn("gru")
+def _gru_shape(op, ins, attrs):
+    x, w = first(ins, "Input"), first(ins, "Weight")
+    if x.shape is None:
+        return {"Hidden": x}
+    b, t, h3 = x.shape
+    if h3 >= 0 and h3 % 3:
+        raise ShapeError(f"gru: input width {h3} is not 3*H")
+    h = -1 if h3 < 0 else h3 // 3
+    if w.shape is not None and h >= 0 and \
+            (len(w.shape) != 2
+             or not all(dim_ok(a, b)
+                        for a, b in zip(w.shape, (h, h3)))):
+        raise ShapeError(
+            f"gru: Weight {list(w.shape)} != [H, 3H] = [{h}, {h3}]")
+    return {"Hidden": VarInfo((b, t, h), x.dtype)}
+
+
+@register_shape_fn("gru_unit")
+def _gru_unit_shape(op, ins, attrs):
+    x, h = first(ins, "Input"), first(ins, "HiddenPrev")
+    res = {"Hidden": h}
+    if h.shape is not None and h.shape[-1] >= 0:
+        res["Gate"] = h.with_shape(h.shape[:-1] + (2 * h.shape[-1],))
+        res["ResetHiddenPrev"] = h
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Sharding-propagation rules (analysis.shard_prop).  Recurrences keep the
+# batch sharding; the lstm/gru gate dim follows the Weight's column split
+# (the Megatron gate-parallel pattern — the col-split input projection and
+# the recurrent weight shard the same axis).  sequence_conv and gru_unit
+# have no rule (blind spots, as in the JAX package).
+# ---------------------------------------------------------------------------
+from ..analysis.shard_prop import first_in, merge_entry  # noqa: E402
+from ..core.registry import register_shard_fn  # noqa: E402
+
+
+@register_shard_fn("sequence_pool")
+def _sequence_pool_shard(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.spec is None:
+        return {}
+    # [B, T, D] -> [B, D]: the time dim drops
+    return {"Out": (x.entry(0),) + tuple(x.spec[2:])}
+
+
+@register_shard_fn("lstm")
+def _lstm_shard(op, ins, attrs):
+    x, w = first_in(ins, "Input"), first_in(ins, "Weight")
+    if x.spec is None and w.spec is None:
+        return {}
+    h_entry = merge_entry(x.entry(2), w.entry(1), "lstm gate dim")
+    info = ((x.entry(0), x.entry(1), h_entry))
+    return {"Hidden": info, "Cell": info}
+
+
+@register_shard_fn("gru")
+def _gru_shard(op, ins, attrs):
+    x, w = first_in(ins, "Input"), first_in(ins, "Weight")
+    if x.spec is None and w.spec is None:
+        return {}
+    h_entry = merge_entry(x.entry(2), w.entry(1), "gru gate dim")
+    return {"Hidden": (x.entry(0), x.entry(1), h_entry)}

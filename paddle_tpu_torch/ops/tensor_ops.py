@@ -124,3 +124,240 @@ def _gather(ctx, ins, attrs):
     out = torch.index_select(x, axis, idx.reshape(-1).long())
     return {"Out": out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
                                + tuple(x.shape[axis + 1:]))}
+
+
+# ---------------------------------------------------------------------------
+# Static shape/dtype rules (analysis.shape_infer) — reshape/concat/split etc.
+# InferShape analogs of the reference's data-movement ops.
+# ---------------------------------------------------------------------------
+from ..analysis.shape_infer import (ShapeError, VarInfo,  # noqa: E402
+                                    dim_ok, filled_from_attrs, first,
+                                    prod_dims, unify_dim)
+from ..core.registry import register_shape_fn  # noqa: E402
+
+register_shape_fn("fill_constant", "gaussian_random",
+                  "uniform_random")(filled_from_attrs())
+
+
+@register_shape_fn("fill_constant_batch_size_like")
+def _fill_cbsl_shape(op, ins, attrs):
+    ref = first(ins, "Input")
+    shape = list(attrs.get("shape", []))
+    in_idx = attrs.get("input_dim_idx", 0)
+    out_idx = attrs.get("output_dim_idx", 0)
+    if not shape:
+        return {"Out": VarInfo(None, attrs.get("dtype", "float32"))}
+    if ref.shape is not None:
+        if in_idx >= len(ref.shape) or out_idx >= len(shape):
+            raise ShapeError(
+                f"fill_constant_batch_size_like: dim idx ({in_idx}, "
+                f"{out_idx}) out of range for {list(ref.shape)} -> {shape}")
+        shape[out_idx] = ref.shape[in_idx]
+    else:
+        shape[out_idx] = -1
+    return {"Out": VarInfo(shape, attrs.get("dtype", "float32"))}
+
+
+@register_shape_fn("reshape")
+def _reshape_shape(op, ins, attrs):
+    x = first(ins, "X")
+    shape = list(attrs.get("shape", []))
+    if x.shape is None or not shape:
+        return {"Out": VarInfo(None, x.dtype)}
+    for i, s in enumerate(shape):
+        if s == 0:
+            if i >= len(x.shape):
+                raise ShapeError(
+                    f"reshape: dim {i} copies input dim but input rank is "
+                    f"{len(x.shape)}")
+            shape[i] = x.shape[i]
+    neg = [i for i, s in enumerate(shape) if s == -1]
+    if len(neg) > 1:
+        raise ShapeError(f"reshape: more than one -1 in {shape}")
+    total = prod_dims(x.shape)
+    known = prod_dims([s for i, s in enumerate(shape) if i not in neg])
+    if total >= 0 and known >= 0:
+        if neg:
+            if known == 0 or total % known:
+                raise ShapeError(
+                    f"reshape: cannot infer -1: {list(x.shape)} "
+                    f"({total} elems) -> {shape}")
+            shape[neg[0]] = total // known
+        elif known != total:
+            raise ShapeError(
+                f"reshape: element count mismatch: {list(x.shape)} "
+                f"({total}) -> {shape} ({known})")
+    elif neg:
+        shape[neg[0]] = -1
+    return {"Out": VarInfo(shape, x.dtype)}
+
+
+@register_shape_fn("squeeze")
+def _squeeze_shape(op, ins, attrs):
+    x = first(ins, "X")
+    if x.shape is None:
+        return {"Out": x}
+    axes = attrs.get("axes", None)
+    nd = len(x.shape)
+    if axes:
+        axes = {a % nd for a in axes}
+        for a in axes:
+            if x.shape[a] not in (-1, 1):
+                raise ShapeError(
+                    f"squeeze: axis {a} has size {x.shape[a]} != 1 in "
+                    f"{list(x.shape)}")
+        shape = tuple(d for i, d in enumerate(x.shape) if i not in axes)
+    else:
+        shape = tuple(d for d in x.shape if d != 1)
+    return {"Out": x.with_shape(shape)}
+
+
+@register_shape_fn("unsqueeze")
+def _unsqueeze_shape(op, ins, attrs):
+    x = first(ins, "X")
+    if x.shape is None:
+        return {"Out": x}
+    shape = list(x.shape)
+    for a in sorted(attrs.get("axes", [])):
+        shape.insert(a if a >= 0 else a + len(shape) + 1, 1)
+    return {"Out": x.with_shape(shape)}
+
+
+@register_shape_fn("concat")
+def _concat_shape(op, ins, attrs):
+    xs = [v for v in ins.get("X", []) if v is not None]
+    known = [v for v in xs if v.shape is not None]
+    if not known:
+        return {"Out": VarInfo(None, xs[0].dtype if xs else None)}
+    nd = len(known[0].shape)
+    axis = attrs.get("axis", 0) % nd
+    shape = list(known[0].shape)
+    for v in known[1:]:
+        if len(v.shape) != nd:
+            raise ShapeError(
+                f"concat: rank mismatch {list(known[0].shape)} vs "
+                f"{list(v.shape)}")
+        for i in range(nd):
+            if i != axis and not dim_ok(shape[i], v.shape[i]):
+                raise ShapeError(
+                    f"concat: non-axis dim {i} differs: "
+                    f"{list(known[0].shape)} vs {list(v.shape)}")
+            shape[i] = unify_dim(shape[i], v.shape[i]) if i != axis \
+                else shape[i]
+    if len(known) == len(xs):
+        cat = 0
+        for v in known:
+            if v.shape[axis] < 0:
+                cat = -1
+                break
+            cat += v.shape[axis]
+    else:
+        cat = -1
+    shape[axis] = cat
+    return {"Out": VarInfo(shape, known[0].dtype)}
+
+
+@register_shape_fn("split")
+def _split_shape(op, ins, attrs):
+    x = first(ins, "X")
+    names = op.outputs.get("Out", [])
+    if x.shape is None:
+        return {"Out": [VarInfo(None, x.dtype)] * len(names)}
+    axis = attrs.get("axis", 0) % len(x.shape)
+    sections = attrs.get("sections")
+    if sections:
+        if len(sections) != len(names):
+            raise ShapeError(
+                f"split: {len(sections)} sections for {len(names)} outputs")
+        if x.shape[axis] >= 0 and sum(sections) != x.shape[axis]:
+            raise ShapeError(
+                f"split: sections {list(sections)} do not sum to dim "
+                f"{x.shape[axis]}")
+        return {"Out": [x.with_shape(x.shape[:axis] + (s,)
+                                     + x.shape[axis + 1:])
+                        for s in sections]}
+    num = attrs.get("num", len(names))
+    if x.shape[axis] >= 0 and num and x.shape[axis] % num:
+        raise ShapeError(
+            f"split: dim {x.shape[axis]} not divisible into {num} parts")
+    part = -1 if x.shape[axis] < 0 else x.shape[axis] // num
+    return {"Out": [x.with_shape(x.shape[:axis] + (part,)
+                                 + x.shape[axis + 1:])] * len(names)}
+
+
+@register_shape_fn("gather")
+def _gather_shape(op, ins, attrs):
+    x, idx = first(ins, "X"), first(ins, "Index")
+    if x.shape is None or idx.shape is None:
+        return {"Out": VarInfo(None, x.dtype)}
+    axis = attrs.get("axis", 0) % len(x.shape)
+    # no [N,1]->[N] squeeze: the implementation keeps the index's shape,
+    # so a 2-D index really does produce (..., N, 1, ...)
+    return {"Out": VarInfo(x.shape[:axis] + idx.shape
+                           + x.shape[axis + 1:], x.dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Sharding-propagation rules (analysis.shard_prop).  reshape keeps the
+# batch sharding only when the batch dim survives the reshape; concat
+# replicates its concat axis (a sharded concat dim would interleave
+# shards).  fill_constant_batch_size_like and split have no rule (blind
+# spots, as in the JAX package).
+# ---------------------------------------------------------------------------
+from ..analysis.shard_prop import (first_in, merge_entry,  # noqa: E402
+                                   shard_batch_only, shard_replicated)
+from ..core.registry import register_shard_fn  # noqa: E402
+
+register_shard_fn("fill_constant", "gaussian_random",
+                  "uniform_random")(shard_replicated("Out"))
+
+
+@register_shard_fn("reshape")
+def _reshape_shard(op, ins, attrs):
+    x = first_in(ins, "X")
+    if x.spec is None:
+        return {}
+    new_shape = list(attrs.get("shape", []))
+    if not new_shape:
+        return {}
+    keep_batch = new_shape[0] in (-1, 0) or \
+        (x.shape is not None and new_shape[0] == x.shape[0])
+    return {"Out": ((x.entry(0),) if keep_batch else (None,))
+            + (None,) * (len(new_shape) - 1)}
+
+
+@register_shard_fn("concat")
+def _concat_shard(op, ins, attrs):
+    xs = ins.get("X", [])
+    if not any(x.spec is not None for x in xs):
+        return {}
+    nd = next((x.ndim for x in xs if x.ndim is not None), None)
+    if nd is None:
+        return {}
+    axis = attrs.get("axis", 0) % nd
+    entries = []
+    for i in range(nd):
+        if i == axis:
+            entries.append(None)
+            continue
+        e = None
+        for x in xs:
+            e = merge_entry(e, x.entry(i), f"concat operands dim {i}")
+        entries.append(e)
+    return {"Out": tuple(entries)}
+
+
+@register_shard_fn("squeeze", "unsqueeze")
+def _rank_change_shard(op, ins, attrs):
+    # conservatively keep only the batch-dim sharding (dim 0 survives
+    # both ops for the axes>=1 cases the layers emit)
+    x = first_in(ins, "X")
+    if x.spec is None:
+        return {}
+    return {"Out": (x.entry(0),)}
+
+
+# index/selection: batch dim follows X, everything else replicates
+# (indices are tiny; the gathered layout is data-driven)
+register_shard_fn("gather")(
+    shard_batch_only("X", fallbacks=("Ids",), also=("Indices",)))

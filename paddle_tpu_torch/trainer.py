@@ -12,11 +12,12 @@ checkpoints, handles preemption and resumes bit-identically
 (``train_state.py``).  With ``sparse_tables=`` a ``SparseSession``
 pulls each batch's rows of the host-resident tables before its step and
 pushes their gradients after it (``paddle_tpu_torch.sparse``).
+``validate=`` runs the static verifier for the call (``analysis``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item that brings them: ``warmup`` (``Executor.compile``, item
-6), ``auto_shard`` (item 7), ``master`` and ``elastic`` (item 8c),
-``validate`` (item 9b) and ``autotune`` (item 9d).  With the executor
+6), ``auto_shard`` (item 7), ``master`` and ``elastic`` (item 8c) and
+``autotune`` (item 9d).  With the executor
 observing, a periodic report (``observability.maybe_periodic_report``)
 fires every ``log_period`` batches.
 """
@@ -68,7 +69,6 @@ class events:
 # with the ROADMAP Queue A item that brings each
 _NOT_PORTED = {
     "warmup": "item 6 (Executor.compile)",
-    "validate": "item 9b (analysis)",
     "autotune": "item 9d (tuning)",
     "auto_shard": "item 7 (multi-GPU)",
     "master": "item 8c (the task-queue master)",
@@ -145,6 +145,14 @@ class SGD:
         chunk.  ``handle_signals=False`` installs no signal
         handlers.
 
+        ``validate=True`` runs the static program verifier
+        (``paddle_tpu_torch.analysis``) over the startup and training
+        programs before their first step: a malformed graph fails with a
+        stable ``PT0xx`` diagnostic naming the op.  ``False`` forces it
+        off; ``None`` (default) defers to the executor's own setting and
+        then the ``validate`` flag.  The override applies to this call
+        only.
+
         ``sparse_tables``: a ``paddle_tpu_torch.sparse.SparseSession``
         (duck-typed: the trainer does not import the sparse package).
         Each batch's feed goes through its ``prepare_feed`` (id dedup,
@@ -161,7 +169,7 @@ class SGD:
         ``checkpoint_dir`` the tables ride in every checkpoint and
         restore on ``resume``."""
         event_handler = event_handler or (lambda e: None)
-        given = {"warmup": warmup, "validate": validate,
+        given = {"warmup": warmup,
                  "autotune": autotune, "auto_shard": auto_shard,
                  "master": master, "elastic": elastic}
         sess = sparse_tables
@@ -195,6 +203,12 @@ class SGD:
             if save_every_n_steps is not None:
                 raise ValueError("train(save_every_n_steps=...) requires "
                                  "checkpoint_dir")
+        # validate is a per-call override: the executor's own setting
+        # comes back afterwards, so a later train() with the default None
+        # defers to the flag again
+        prev_validate = self.exe.validate
+        if validate is not None:
+            self.exe.validate = validate
         ckpt = None
         try:
             if not self._initialized:
@@ -241,6 +255,7 @@ class SGD:
             if ckpt is not None:
                 ckpt.final_save(num_passes)
         finally:
+            self.exe.validate = prev_validate
             if ckpt is not None:
                 ckpt.close()
 

@@ -8,10 +8,14 @@ attribution.py``) against the JAX package's on the same logs.
   package, the port's serving and decode runtimes' logs, and a seeded
   synthetic log holding every event the budgets read.
 * Budgets reconcile with the measured wall within ``BUDGET_TOLERANCE``.
-* The modeled side waits for ROADMAP item 9b: ``calibration_row`` and
-  ``save_calibration`` raise naming it, ``doctor_report(program=...)``
-  records the refusal in its calibration field and ``render_doctor``
-  prints it; ``executable_facts`` is None.
+* The modeled side: ``calibration_row``'s predicted time is the JAX
+  cost model's static quantities over the H100 constants, the row
+  schema and rendering are the JAX package's, ``doctor_report(program=)``
+  carries the row for its measured warm step, and the calibration table
+  written by ``save_calibration`` and ``save_op_class_calibration``
+  equals the JAX package's file and reads back through
+  ``load_op_class_ratios`` alike; ``executable_facts`` is None, so a
+  row's model is ``"static"``.
 """
 import json
 
@@ -222,21 +226,73 @@ def test_synthetic_budgets_agree(seed, tmp_path):
         assert getattr(attribution, name)(events) is not None, name
 
 
-def test_calibration_waits_for_analysis(tmp_path):
+def test_calibration_row_and_doctor_report(tmp_path):
+    from paddle_tpu.analysis.cost_model import estimate_cost
+    from paddle_tpu_torch.analysis import cost_model
     path = tmp_path / "t.jsonl"
     main = _train_log(ptt, flags, path)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        attribution.calibration_row(main, 1.0)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        attribution.save_calibration([], str(tmp_path / "cal.json"))
+    tp.reset_both()
+    jmain, jstart = pt.Program(), pt.Program()
+    with pt.program_guard(jmain, jstart):
+        _net(pt)
+    assert ptt.Program.from_json(jmain.to_json()).to_json() == \
+        main.to_json()
+    row = attribution.calibration_row(main, 2.5, assume_batch=6)
+    jrow = jattr.calibration_row(jmain, 2.5, assume_batch=6)
+    assert sorted(row) == sorted(jrow)
+    for k in ("assume_batch", "mesh_axes", "measured_ms", "model"):
+        assert row[k] == jrow[k], k
+    assert row["model"] == "static"
+    # the reference's static quantities over the H100 constants
+    j = estimate_cost(jmain, {}, assume_batch=6)
+    want = (j.flops_per_device / cost_model.PEAK_FLOPS
+            + j.hbm_bytes_per_device / cost_model.HBM_GBPS) * 1e3
+    assert row["predicted_ms"] == round(want, 6)
+    assert row["ratio"] == round(2.5 / want, 4)
     rep = attribution.doctor_report([str(path)], program=main,
                                     assume_batch=6)
-    assert "item 9b" in rep["calibration"]["not_ported"]
     assert rep["training"]["within_tolerance"]
+    assert rep["calibration"] == attribution.calibration_row(
+        main, rep["training"]["step_ms_warm_mean"], assume_batch=6)
     text = attribution.render_doctor(rep)
-    assert "item 9b" in text and "top bottleneck" in text
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith("calibration:"))
+    assert line == next(
+        ln for ln in jattr.render_doctor(
+            {"calibration": rep["calibration"]}).splitlines()
+        if ln.startswith("calibration:"))
+    assert "top bottleneck" in text
     assert attribution.executable_facts(object()) is None
     assert attribution.BUDGET_TOLERANCE == jattr.BUDGET_TOLERANCE
+
+
+def test_calibration_table_equals_the_reference(tmp_path):
+    rows = [{"program": "aa", "predicted_ms": 1.0, "measured_ms": 3.0,
+             "ratio": 3.0, "assume_batch": 8, "mesh_axes": {},
+             "model": "static"},
+            {"program": "bb", "predicted_ms": 2.0, "measured_ms": 3.0,
+             "ratio": 1.5, "assume_batch": 8, "mesh_axes": {},
+             "model": "static"}]
+    classes = [{"program": p, "op_type": t, "ratio": r, "count": 1,
+                "predicted_ms": 1.0, "measured_ms": r}
+               for p, t, r in (("aa", "conv2d", 4.0), ("bb", "conv2d", 8.0),
+                               ("cc", "conv2d", 5.0), ("aa", "mul", 2.0),
+                               ("bb", "relu", -1.0))]
+    docs = []
+    for mod, name in ((attribution, "t"), (jattr, "j")):
+        path = str(tmp_path / f"{name}.json")
+        mod.save_calibration(rows[:1], path)
+        mod.save_op_class_calibration(classes, path)
+        docs.append(mod.save_calibration(rows[1:], path))
+        with open(path) as f:
+            docs.append(f.read())
+        docs.append(mod.load_op_class_ratios(path))
+    assert docs[:3] == docs[3:]
+    assert docs[2] == {"conv2d": 5.0, "mul": 2.0}
+    assert attribution.load_op_class_ratios(docs[0]) == docs[2]
+    assert attribution.load_op_class_ratios({"programs": {}}) == {}
+    with pytest.raises(ValueError):
+        attribution.load_op_class_ratios([1])
 
 
 def test_empty_log_renders_the_hint(tmp_path):

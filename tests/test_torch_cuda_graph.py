@@ -11,7 +11,8 @@ graph-pool byte bound evicts the least recent key; fetches are fresh
 tensors; a dropout program captures, draws what use_jit=False draws and
 new masks every step; the capture-safe scalars of ``increment`` and
 ``sequence_pool(max)`` capture; an LSTM text classifier's step
-captures.
+captures; validation (``Executor(validate=True)``) runs once before the
+capture, never in a replay, and changes no fetch.
 
 Every test needs a CUDA card (``cuda`` marker); none imports JAX, so on
 the card they run with ``python3 -m pytest --noconftest -m cuda
@@ -516,3 +517,32 @@ def test_lstm_textcls_captured_equals_interpreted(card, amp):
     _same(cap[0], ref[0])
     _same_scope(cap[1], ref[1])
     assert compile_cache.stats().snapshot()["captures"] == 1
+
+
+@pytest.mark.cuda
+def test_validation_runs_once_outside_the_captured_step(card):
+    """``Executor(validate=True)`` against validation off from one start
+    on the bottleneck, AMP: one validation for the program and fetches,
+    none in the replays, the same captures, the losses and scope bit for
+    bit."""
+    main, startup, loss = _bottleneck()
+    start = _start(startup)
+    rng = np.random.RandomState(2)
+    feeds = {"img": rng.randn(2, 128, 8, 8).astype(np.float32),
+             "label": rng.randint(0, 10, (2, 1)).astype(np.int64)}
+    arms = []
+    for validate in (False, True):
+        exe = ptt.Executor(amp=True, validate=validate)
+        scope = _clone(start)
+        compile_cache.stats().reset()
+        out = [exe.run_steps(3, main, feed=feeds, fetch_list=[loss],
+                             scope=scope)[0] for _ in range(3)]
+        torch.cuda.synchronize()
+        arms.append((out, scope, compile_cache.stats().snapshot()))
+        exe.close()
+    (off, off_scope, off_s), (on, on_scope, on_s) = arms
+    _same(on, off)
+    _same_scope(on_scope, off_scope)
+    assert (off_s["validations"], on_s["validations"]) == (0, 1)
+    assert on_s["captures"] == off_s["captures"] == 1
+    assert on_s["replays"] == off_s["replays"] == 8

@@ -309,14 +309,14 @@ def test_checkpoint_options_require_checkpoint_dir():
 
 @pytest.mark.parametrize("name,item", [
     ("master", "item 8"), ("elastic", "item 8"),
-    ("warmup", "item 6"), ("validate", "item 9"), ("autotune", "item 9"),
+    ("warmup", "item 6"), ("autotune", "item 9"),
     ("auto_shard", "item 7")])
 def test_options_not_ported_raise_naming_their_item(tmp_path, name, item):
     tr = _build_trainer()
     with pytest.raises(NotImplementedError, match=item):
         tr.train(_reader(), checkpoint_dir=str(tmp_path),
-                 **{name: object() if name not in ("warmup", "validate",
-                                                   "autotune") else True})
+                 **{name: object() if name not in ("warmup", "autotune")
+                    else True})
 
 
 def test_sparse_tables_ride_the_checkpoint(tmp_path):

@@ -321,13 +321,16 @@ def _train(sgd, feed_list, reader, **kw):
 
 
 @pytest.mark.parametrize("mode", ["sync", "chunked", "pipelined",
-                                  "pipelined_no_workers"])
+                                  "pipelined_no_workers", "validated"])
 def test_sgd_train_matches_jax_trainer(mode):
     kw = {"sync": {}, "chunked": {"steps_per_dispatch": 4},
           "pipelined": {"pipeline": {"steps_per_dispatch": 3,
                                      "num_workers": 1}},
           "pipelined_no_workers": {"pipeline": {"steps_per_dispatch": 4,
-                                                "num_workers": 0}}}[mode]
+                                                "num_workers": 0}},
+          "validated": {"pipeline": {"steps_per_dispatch": 3,
+                                     "num_workers": 1},
+                        "validate": True}}[mode]
     (jsgd, jfl), (tsgd, tfl), reader = _both_trainers()
     jev, jcost = _train(jsgd, jfl, reader, **kw)
     tev, tcost = _train(tsgd, tfl, reader, **kw)
@@ -353,7 +356,7 @@ def test_sgd_test_matches_jax_and_leaves_weights():
 
 
 @pytest.mark.parametrize("arg,value", [
-    ("warmup", True), ("validate", True), ("autotune", True),
+    ("warmup", True), ("autotune", True),
     ("auto_shard", {"dp": 2}), ("master", object()),
     ("elastic", object())])
 def test_train_refuses_what_is_not_ported(arg, value):

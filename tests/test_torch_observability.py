@@ -611,7 +611,11 @@ def test_input_pipeline_doctor_row_reconciles():
     doc = row["doctor"]
     assert doc["within_tolerance"] is True
     assert doc["steps"] == row["batches_per_window"]
-    assert "item 9b" in row["calibration"]["not_ported"]
+    # the static cost model's row for the pass's measured warm step
+    cal = row["calibration"]
+    assert cal["model"] == "static" and cal["predicted_ms"] > 0
+    assert cal["measured_ms"] == round(doc["step_ms_warm_mean"], 6)
+    assert cal["ratio"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,12 @@ against the JAX package's ``tests/test_opprof.py``.
   op's output does not depend on how many windows ran.
 * The profiler leaves the executor alone (its step counter, its
   captured steps, the scope).
-* The modeled join, the op-class calibration and the where-the-compiler-
-  loses report raise naming ROADMAP item 9b.
+* ``modeled=True``: each row's FLOPs, bytes and arithmetic intensity
+  equal the JAX profiler's (always modeled), its predicted time and
+  roofline verdict follow from them with the H100 constants, the
+  op-class calibration rows and the by-class ranking aggregate them as
+  the JAX package does, the modeled peak is the JAX package's, and the
+  measured fields are those of an unmodeled profile.
 * The real timer and the driver run on the CPU.
 """
 import numpy as np
@@ -167,15 +171,55 @@ def test_profiling_leaves_the_executor_alone():
         np.testing.assert_array_equal(tscope.numpy(k), v)
 
 
-def test_modeled_views_wait_for_analysis():
-    (_, _), (tm, tscope), _ = _both(_net)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        opprof.profile_program(tm, executor=ptt.Executor(CPU),
-                               scope=tscope, modeled=True)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        opprof.op_class_rows([], "d", 16, None)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        opprof.xla_loses_here([], 1.0, 5)
+@pytest.mark.parametrize("build", [_net, _conv_net], ids=["fc", "conv"])
+def test_modeled_join_equals_the_jax_profilers(build):
+    from paddle_tpu_torch.analysis.cost_model import (HBM_GBPS, ICI_GBPS,
+                                                      PEAK_FLOPS)
+    (jm, jscope), (tm, tscope), _ = _both(build)
+    feed = _feed(build)
+    jrep = jopprof.profile_program(jm, executor=pt.Executor(pt.CPUPlace()),
+                                   feed=feed, scope=jscope,
+                                   measure=_fake(), batch=16)
+    plain = opprof.profile_program(tm, executor=ptt.Executor(CPU),
+                                   feed=feed, scope=tscope,
+                                   measure=_fake(), batch=16)
+    trep = opprof.profile_program(tm, executor=ptt.Executor(CPU),
+                                  feed=feed, scope=tscope, measure=_fake(),
+                                  batch=16, modeled=True)
+    # the join adds fields; the measured ones are an unmodeled profile's
+    assert "modeled" not in plain["rows"][0] and "op_classes" not in plain
+    assert [{k: r[k] for k in ROW_KEYS} for r in trep["rows"]] == \
+        [{k: r[k] for k in ROW_KEYS} for r in plain["rows"]]
+    for t, j in zip(trep["rows"], jrep["rows"]):
+        tm_, jm_ = t["modeled"], j["modeled"]
+        for k in ("flops", "hbm_bytes", "arithmetic_intensity"):
+            assert tm_[k] == jm_[k], (t["op_type"], k)
+        compute_s = tm_["flops"] / PEAK_FLOPS
+        hbm_s = tm_["hbm_bytes"] / HBM_GBPS
+        assert tm_["predicted_ms"] == round((compute_s + hbm_s) * 1e3, 9)
+        assert tm_["roofline"] == ("compute-bound" if compute_s >= hbm_s
+                                   else "memory-bound")
+        assert t["ratio"] == round(t["wall_ms"]
+                                   / ((compute_s + hbm_s) * 1e3), 4)
+    assert ICI_GBPS > 0 and trep["mesh_axes"] == jrep["mesh_axes"] == {}
+    keys = ("op_type", "count", "measured_ms", "assume_batch",
+            "mesh_axes")
+    assert [{k: c[k] for k in keys} for c in trep["op_classes"]] == \
+        [{k: c[k] for k in keys} for c in jrep["op_classes"]]
+    assert {c["program"] for c in trep["op_classes"]} == {trep["program"]}
+    assert trep["op_classes"] == opprof.op_class_rows(
+        trep["rows"], trep["program"], 16)
+    keys = ("op_type", "count", "measured_ms", "share")
+    assert [{k: e[k] for k in keys} for e in trep["xla_loses_here"]] == \
+        [{k: e[k] for k in keys} for e in jrep["xla_loses_here"]]
+    assert [e.get("pallas_candidate") for e in trep["xla_loses_here"]] == \
+        [e.get("pallas_candidate") for e in jrep["xla_loses_here"]]
+    assert trep["memory"]["modeled_peak_bytes"] == \
+        jrep["memory"]["modeled_peak_bytes"]
+    assert plain["memory"]["modeled_peak_bytes"] is None
+    text = opprof.render_profile(trep)
+    assert "where the time goes" in text and "ratio" in text
+    assert opprof.PALLAS_CANDIDATES == jopprof.PALLAS_CANDIDATES
     assert opprof.TOLERANCE == attribution.BUDGET_TOLERANCE == \
         jopprof.TOLERANCE
 
@@ -216,3 +260,13 @@ def test_driver_smoke_on_the_cpu():
         assert r["ops"] > 0 and len(r["top3"]) == 3
         assert r["memory"]["peak_bytes"] >= r["memory"]["state_bytes"]
     assert doc["device"] == "cpu"
+    # the modeled columns and the calibration table the planner reads
+    assert all("roofline" in t for r in doc["rows"] for t in r["top3"])
+    assert all(r["xla_loses_here"] and r["memory"]["modeled_peak_bytes"]
+               for r in doc["rows"])
+    ratios = attribution.load_op_class_ratios(doc["calibration"])
+    assert {"mul", "backward"} <= set(ratios)
+    programs = {r["program"] for r in doc["rows"]}
+    for key, row in doc["calibration"]["op_classes"].items():
+        assert key == f"{row['program']}:{row['op_type']}"
+        assert row["program"] in programs

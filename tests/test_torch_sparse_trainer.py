@@ -445,7 +445,11 @@ def test_runner_smoke_on_the_cpu():
     row = ctr.run_all(smoke=True, place=CPU, quiet=True)
     assert row["doctor"]["within_tolerance"] is True
     assert row["doctor"]["steps"] == ctr.SMOKE["window_steps"]
-    assert "item 9b" in row["calibration"]["not_ported"]
+    cal = row["calibration"]
+    assert cal["model"] == "static" and cal["predicted_ms"] > 0
+    assert cal["measured_ms"] == round(
+        row["doctor"]["step_ms_warm_mean"], 6)
+    assert cal["assume_batch"] == ctr.SMOKE["batch"]
     assert row["device"] == "cpu"
     assert row["vectorization_ab"]["steady"]["arms_bit_identical"]
     assert row["sparse"]["pushed_rows"] > 0
