@@ -201,9 +201,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
              base and 8 deltas against one full save, shas equal);
              benchmark/pserver.py's FULL on shard processes: wire_ab
              (binary against naive JSON frames, gate 3x, both arms' rows
-             bit-equal), remote_pull_latency and shard_pipelining_ab; the
-             arms that wait for ROADMAP items 8c and 9 print their
-             refusals; no hand-written kernel may launch.
+             bit-equal), remote_pull_latency and shard_pipelining_ab;
+             checkpoint's elastic_tasks (the elastic worker's task loop
+             through the Checkpointer, full against delta commits); no
+             hand-written kernel may launch.
 17. bandwidth — the HBM stream-bandwidth probe (benchmark/bandwidth.py's
              counterpart): holds the Triton grid copy and axpy kernels
              and the bulk-copy (TMA) DMA copy against their plain
@@ -257,6 +258,30 @@ Phases, each of which raises on failure (so the script exits non-zero):
              save_op_class_calibration and read back by
              load_op_class_ratios, and planner.plan(op_class_ratios=)
              ranking with it.
+20. elastic — the task-queue master and the elastic training service
+             (distributed/master.py, distributed/elastic.py): (a) the
+             port's benchmark.elastic at FULL (8 -> 4 -> 8 workers, 96
+             chunks of 64 records, batch 8) with its workers on the
+             card: every acceptance key true (two committed resize
+             records, each re-plan free of PT030/PT031 findings, the job
+             completed, no task lost, the loss continuing across both
+             boundaries), its wall time and each boundary's drain, merge
+             and re-plan ms, no K1 launch and each worker's peak
+             allocator bytes; (b) ResNet-50 at full width from a v1
+             config in the ported DSL (the reference's
+             benchmark/paddle/image/resnet.py layout, 224x224, 1000
+             classes, fp32, Momentum 0.9, batch 32 a worker) over 12
+             one-batch tasks from --seed, K = 2 -> 1 -> 2 after 4 and 8
+             committed tasks, generation 0's slot 0 SIGKILLed at its
+             first batch (elastic.worker@1=kill) and relaunched: every
+             replayed batch's cost bit-equal to its first run, every task
+             trained once, both re-plans lint-clean, the merged final
+             base finite, and in every worker process that exited K1's
+             forward, dgrad and wgrad launched once per eligible 1x1
+             conv a step it ran (and the split-K reduce passes), with
+             each process's peak allocator bytes.  Workers start as
+             ``chip_smoke.py --elastic-child``, which runs the port's
+             worker_main and writes the counts.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline and
 zoo runs captured (Executor(use_jit=True), each step one CUDA graph replay; the
@@ -284,6 +309,7 @@ import collections
 import concurrent.futures
 import json
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -5134,9 +5160,15 @@ def phase_sparse_bench(seed, card):
           f"{rc['chain_len']} deltas restore in {rc['chain_restore_ms']:.1f}"
           f" ms against one full save's {rc['full_restore_ms']:.1f} ms "
           f"({rc['replay_overhead_x']:.3f}x), shas equal "
-          f"{rc['bit_identical']}; elastic_tasks: "
-          f"{ck['elastic_tasks']}; {time.perf_counter() - t0:.1f} s; "
-          f"{card}")
+          f"{rc['bit_identical']}; {card}")
+    el = ck["elastic_tasks"]
+    print(f"[sparse_bench] checkpoint elastic_tasks ("
+          f"{el['tasks_per_window']} tasks a window through the "
+          f"Checkpointer, a durability barrier at each window's edge): "
+          f"delta against full commits {gate_line(el)}; tasks/s "
+          f"{json.dumps(el['tasks_per_s'])}; commit kinds "
+          f"{json.dumps(el['commit_kinds'])}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
     if not (cab["restore_bit_identical"] and rc["bit_identical"]):
         raise RuntimeError("chip_smoke: [sparse_bench] a restored "
                            "checkpoint's sha differs from the full save's")
@@ -6060,6 +6092,400 @@ def phase_analysis(seed, card, n_gate, n_split, reports):
     print(f"[analysis] phase {time.perf_counter() - t_phase:.1f} s; {card}")
 
 
+# ---------------------------------------------------------------------------
+# [elastic] the task-queue master and the elastic training service
+# ---------------------------------------------------------------------------
+EL_IMG = 224
+EL_BATCH = 32                 # a worker's batch: one batch a task
+EL_PARTS = 12                 # part files (tasks) of EL_BATCH records
+EL_CLASSES = 1000
+EL_ROUND = (2, 1, 2)          # the world of each generation
+EL_MILESTONES = (4, 8)        # committed tasks before each resize
+EL_KILL = (0, 0, 1)           # (generation, slot, batch) SIGKILLed once
+EL_DEVICE = "cuda"            # where the workers train
+
+
+def resnet_v1_conf(blocks=(3, 4, 6, 3), widths=(64, 128, 256, 512),
+                   img=224, classes=1000, stem=64, batch=32, lr=0.01):
+    """A v1 config file's text (the ported DSL) of ResNet with bottleneck
+    blocks in the layout of the reference's
+    benchmark/paddle/image/resnet.py (``layer_num=50``: blocks (3, 4, 6,
+    3)): conv_bn_layer is img_conv_layer (no bias) plus
+    batch_norm_layer, each stage a projection block and identity blocks
+    joined by addto_layer, then the average pool, a softmax fc_layer and
+    classification_cost; Momentum 0.9."""
+    pool = img // 4 // 2 ** (len(blocks) - 1)
+    return f'''
+settings(batch_size={batch}, learning_rate={lr},
+         learning_method=MomentumOptimizer(momentum=0.9))
+
+
+def conv_bn_layer(name, input, filter_size, num_filters, stride, padding,
+                  channels=None, active_type=ReluActivation()):
+    tmp = img_conv_layer(name=name + "_conv", input=input,
+                         filter_size=filter_size, num_channels=channels,
+                         num_filters=num_filters, stride=stride,
+                         padding=padding, act=LinearActivation(),
+                         bias_attr=False)
+    return batch_norm_layer(name=name + "_bn", input=tmp, act=active_type)
+
+
+def bottleneck_block(name, input, num_filters1, num_filters2):
+    last = conv_bn_layer(name + "_branch2a", input, 1, num_filters1, 1, 0)
+    last = conv_bn_layer(name + "_branch2b", last, 3, num_filters1, 1, 1)
+    last = conv_bn_layer(name + "_branch2c", last, 1, num_filters2, 1, 0,
+                         active_type=LinearActivation())
+    return addto_layer(name=name + "_addto", input=[input, last],
+                       act=ReluActivation())
+
+
+def mid_projection(name, input, num_filters1, num_filters2, stride=2):
+    branch1 = conv_bn_layer(name + "_branch1", input, 1, num_filters2,
+                            stride, 0, active_type=LinearActivation())
+    last = conv_bn_layer(name + "_branch2a", input, 1, num_filters1,
+                         stride, 0)
+    last = conv_bn_layer(name + "_branch2b", last, 3, num_filters1, 1, 1)
+    last = conv_bn_layer(name + "_branch2c", last, 1, num_filters2, 1, 0,
+                         active_type=LinearActivation())
+    return addto_layer(name=name + "_addto", input=[branch1, last],
+                       act=ReluActivation())
+
+
+img = data_layer(name="image", size={img} * {img} * 3)
+tmp = conv_bn_layer("conv1", img, 7, {stem}, 2, 3, channels=3)
+tmp = img_pool_layer(name="pool1", input=tmp, pool_size=3, stride=2)
+for s, (n, w) in enumerate(zip({tuple(blocks)!r}, {tuple(widths)!r})):
+    tmp = mid_projection("res%d_1" % (s + 2), tmp, w, 4 * w,
+                         stride=1 if s == 0 else 2)
+    for i in xrange(2, n + 1):
+        tmp = bottleneck_block("res%d_%d" % (s + 2, i), tmp, w, 4 * w)
+tmp = img_pool_layer(name="avgpool", input=tmp, pool_size={pool}, stride=1,
+                     pool_type=AvgPooling())
+out = fc_layer(name="output", input=tmp, size={classes},
+               act=SoftmaxActivation())
+lbl = data_layer(name="label", size={classes})
+outputs(classification_cost(input=out, label=lbl))
+'''
+
+
+def el_root(name):
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "elastic", name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def elastic_child(stats_dir, fault_spec, argv):
+    """``--elastic-child``: one elastic worker (the port's worker_main
+    through ``python -m paddle_tpu_torch elastic --worker``'s argv),
+    then its K1 launches by form, its steps (its lines in the events
+    file), its captured-step counters and its peak allocator bytes into
+    ``stats_dir``; exits with the worker's code.  ``fault_spec`` arms
+    fault injection in this process only."""
+    if fault_spec:
+        os.environ["PADDLE_TPU_FAULT_SPEC"] = fault_spec
+    from paddle_tpu_torch.distributed.elastic import elastic_main
+    from paddle_tpu_torch.ops import conv1x1
+    argv = [a for a in argv if a != "--"]
+    events = argv[argv.index("--events") + 1]
+
+    def lines():
+        try:
+            with open(events) as f:
+                return sum(1 for ln in f if ln.strip())
+        except OSError:
+            return 0
+    before = lines()
+    rc = elastic_main(argv)
+    stats = {"pid": os.getpid(), "rc": rc, "steps": lines() - before,
+             "slot": int(argv[argv.index("--slot") + 1]),
+             "generation": int(argv[argv.index("--resize-epoch") + 1]),
+             "forms": dict(conv1x1.mm.by_form),
+             "caps": capture_stats().snapshot(),
+             "peak_bytes": torch.cuda.max_memory_allocated()
+             if torch.cuda.is_available() else 0}
+    path = os.path.join(stats_dir, f"{stats['generation']}-"
+                        f"{stats['slot']}-{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(stats, f)
+    sys.exit(rc)
+
+
+def el_child_cmd(stats_dir, kill=None):
+    """A worker_cmd for benchmark.elastic's ``worker_cmd`` hook and for
+    ElasticConfig: the elastic worker's argv run through
+    ``chip_smoke.py --elastic-child``; ``kill`` = (generation, slot,
+    batch) arms a SIGKILL at that batch in that slot's first process of
+    that generation only (a relaunch replays the batch unarmed)."""
+    spawns = collections.Counter()
+
+    def cmd(spec, argv):
+        key = (spec.resize_epoch, spec.slot)
+        spawns[key] += 1
+        extra = []
+        if kill is not None and key == tuple(kill[:2]) \
+                and spawns[key] == 1:
+            extra = ["--fault-spec", f"elastic.worker@{kill[2]}=kill"]
+        i = argv.index("elastic")
+        return [sys.executable, os.path.abspath(__file__),
+                "--elastic-child", stats_dir] + extra + ["--"] + argv[i + 1:]
+    return cmd
+
+
+def el_stats(stats_dir):
+    out = []
+    for f in sorted(os.listdir(stats_dir)):
+        with open(os.path.join(stats_dir, f)) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def el_events(events_dir):
+    """{(slot, generation, batch index): cost hex} of the workers' event
+    lines; a replayed batch (a relaunch after a SIGKILL) must have the
+    first run's cost bit for bit.  Returns the map and the replays."""
+    out, replays = {}, 0
+    for f in sorted(os.listdir(events_dir)):
+        with open(os.path.join(events_dir, f)) as fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    e = json.loads(line)
+                except json.JSONDecodeError:
+                    continue            # a line torn by the SIGKILL
+                key = (e["slot"], e["epoch"], e["e"])
+                if key in out:
+                    replays += 1
+                    if out[key] != e["c"]:
+                        raise RuntimeError(
+                            f"chip_smoke: [elastic] replayed batch {key} "
+                            f"cost {e['c']}, its first run {out[key]}")
+                out[key] = e["c"]
+    return out, replays
+
+
+def el_peaks(tag, stats, card):
+    peaks = [f"g{s['generation']}/s{s['slot']} "
+             f"{s['peak_bytes'] / 2 ** 20:.0f} MiB" for s in stats]
+    print(f"[elastic] {tag}: peak allocator bytes of each worker process "
+          f"that exited: {', '.join(peaks)}; {card}")
+
+
+def el_check_forms(tag, stats, n_gate, n_split):
+    """K1 in every worker process that exited: forward, dgrad and wgrad
+    n_gate times a step it ran, n_split reduce passes a step."""
+    for s in stats:
+        k = s["steps"]
+        want = {form: n * k for form, n in (
+            ("forward", n_gate), ("dgrad", n_gate), ("wgrad", n_gate),
+            ("splitk_reduce", n_split)) if n and k}
+        got = {f: n for f, n in s["forms"].items() if n}
+        if got != want:
+            raise RuntimeError(f"chip_smoke: [elastic] {tag}: worker pid "
+                               f"{s['pid']} (generation {s['generation']},"
+                               f" slot {s['slot']}) ran {k} steps and "
+                               f"launched {got}, the gate expects {want}")
+        if s["rc"] not in (0, 75):
+            raise RuntimeError(f"chip_smoke: [elastic] {tag}: worker pid "
+                               f"{s['pid']} exited {s['rc']}")
+
+
+def el_boundaries(tag, boundaries, card):
+    for b in boundaries:
+        print(f"[elastic] {tag} resize {b['from_world']} -> "
+              f"{b['to_world']}: drain {b.get('drain_ms', 0):.0f} ms, merge "
+              f"{b.get('merge_ms', 0):.0f} ms, re-plan "
+              f"{b.get('replan_ms', 0):.0f} ms, boundary "
+              f"{b['resize_ms']:.0f} ms; {card}")
+
+
+def elastic_mlp(card):
+    """(a) benchmark.elastic at FULL with its workers on the card."""
+    from paddle_tpu_torch.benchmark import elastic as bel
+    root = el_root("mlp")
+    stats_dir = os.path.join(root, "stats")
+    os.makedirs(stats_dir)
+    t0 = time.perf_counter()
+    doc = bel.run(bel.FULL, device=EL_DEVICE,
+                  work=os.path.join(root, "work"),
+                  worker_cmd=el_child_cmd(stats_dir), quiet=True)
+    wall = time.perf_counter() - t0
+    acc = doc["acceptance"]
+    print(f"[elastic] MLP round (benchmark.elastic FULL: "
+          f"{acc['resize_round']} workers, {doc['config']['chunks']} "
+          f"chunks of {doc['config']['recs_per_chunk']} records, batch "
+          f"{doc['config']['batch_size']}, workers on the card): "
+          f"acceptance {json.dumps(acc)}; job wall {doc['wall_s']:.2f} s "
+          f"({wall:.2f} s with the data); {card}")
+    el_boundaries("MLP", doc["boundaries"], card)
+    for c in doc["loss_continuation"]:
+        print(f"[elastic] MLP loss across {c['boundary']}: last quarter "
+              f"before {c['pre_last_quarter']:.5f}, first quarter after "
+              f"{c['post_first_quarter']:.5f}, cold start "
+              f"{c['cold_start_first_quarter']:.5f}")
+    bad = [k for k, v in acc.items() if not v]
+    if bad or acc["committed_resize_records"] != 2:
+        raise RuntimeError(f"chip_smoke: [elastic] the MLP round's acceptance "
+                           f"keys {bad} are false: {acc}")
+    stats = el_stats(stats_dir)
+    el_check_forms("MLP", stats, 0, 0)
+    el_peaks("MLP", stats, card)
+    want = 2 * bel.FULL["workers"] + bel.FULL["shrink_to"]
+    if len(stats) != want:
+        raise RuntimeError(f"chip_smoke: [elastic] the MLP round "
+                           f"left {len(stats)} worker reports, want {want}")
+    shutil.rmtree(root, ignore_errors=True)
+    return doc
+
+
+def el_resnet_data(root, seed):
+    rng = np.random.RandomState(seed + 19)
+    parts = []
+    for i in range(EL_PARTS):
+        x = rng.rand(EL_BATCH, 3 * EL_IMG * EL_IMG).astype(np.float32)
+        y = rng.randint(0, EL_CLASSES, (EL_BATCH, 1)).astype(np.int64)
+        p = os.path.join(root, f"part-{i:03d}.pickle")
+        with open(p, "wb") as f:
+            pickle.dump([(x[j], y[j]) for j in range(EL_BATCH)], f,
+                        protocol=4)
+        parts.append(p)
+    return parts
+
+
+def elastic_resnet(seed, card):
+    """(b) ResNet-50 at full width, K = 2 -> 1 -> 2 with a SIGKILL."""
+    from paddle_tpu_torch.benchmark.elastic import _timed_job
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed.elastic import (
+        ElasticConfig, ElasticJob, _worker_argv_for_config,
+        prebuild_kernels)
+    from paddle_tpu_torch.train_state import TRAIN_STATE_VAR
+    from paddle_tpu_torch.trainer_config_helpers import load_v1_config
+    root = el_root("resnet50")
+    conf = os.path.join(root, "resnet50_v1.py")
+    with open(conf, "w") as f:
+        f.write(resnet_v1_conf(img=EL_IMG, classes=EL_CLASSES,
+                               batch=EL_BATCH))
+    cfg = load_v1_config(conf)
+    shapes = eligible_1x1_shapes(cfg.main_program, EL_BATCH)
+    n_gate, n_split = len(shapes), split_wgrads(shapes, torch.float32)
+    t0 = time.perf_counter()
+    data_dir = os.path.join(root, "data")
+    os.makedirs(data_dir)
+    parts = el_resnet_data(data_dir, seed)
+    t_data = time.perf_counter() - t0
+    events_dir = os.path.join(root, "events")
+    stats_dir = os.path.join(root, "stats")
+    os.makedirs(events_dir)
+    os.makedirs(stats_dir)
+    prebuild_kernels(cfg.main_program, EL_BATCH)   # nvcc only
+    base = _worker_argv_for_config(conf, EL_BATCH, events_dir=events_dir,
+                                   heartbeat_interval_s=0.5,
+                                   device=EL_DEVICE)
+    child = el_child_cmd(stats_dir, kill=EL_KILL)
+    env = {"PYTHONPATH": os.path.dirname(os.path.abspath(__file__))
+           + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    job = _timed_job(ElasticJob)(ElasticConfig(
+        workers=EL_ROUND[0], data=parts, root=os.path.join(root, "job"),
+        worker_cmd=lambda spec: child(spec, base(spec)),
+        program=cfg.main_program, task_timeout_s=600.0,
+        heartbeat_lease_s=60.0, drain_timeout_s=300.0, max_restarts=3,
+        assume_batch=EL_BATCH, poll_s=0.05, env=env))
+    t0 = time.perf_counter()
+    job.start()
+
+    def watcher():
+        while job.master.stats()["done"] < EL_MILESTONES[0]:
+            time.sleep(0.02)
+        job.request_scale(EL_ROUND[1])
+        while job.resize_epoch < 1 or \
+                job.master.stats()["done"] < EL_MILESTONES[1]:
+            time.sleep(0.02)
+        job.request_scale(EL_ROUND[2])
+    threading.Thread(target=watcher, daemon=True,
+                     name="pt-elastic-smoke-watch").start()
+    summary = job.run()
+    wall = time.perf_counter() - t0
+    events, replays = el_events(events_dir)
+    with open(os.path.join(root, "job", "records.jsonl")) as f:
+        records = [json.loads(ln) for ln in f if ln.strip()]
+    resizes = [r for r in records if r["event"] == "resize"]
+    stats = el_stats(stats_dir)
+    print(f"[elastic] ResNet-50 v1 config ({EL_IMG}x{EL_IMG}, "
+          f"{EL_CLASSES} classes, fp32, Momentum 0.9, batch {EL_BATCH} a "
+          f"worker, {EL_PARTS} tasks of one batch, data {t_data:.1f} s): "
+          f"round {'->'.join(map(str, EL_ROUND))}, job wall {wall:.2f} s, "
+          f"{len(events)} batches trained once each, {replays} replayed "
+          f"bit-equal after the SIGKILL of generation {EL_KILL[0]} slot "
+          f"{EL_KILL[1]} at batch {EL_KILL[2]}; summary "
+          f"{json.dumps(summary['task_stats'])}, completed "
+          f"{summary['completed']}, resizes {summary['resizes']}; "
+          f"{len(stats)} worker processes exited; {card}")
+    el_boundaries("ResNet-50", job.boundaries, card)
+    if not summary["completed"] or \
+            summary["task_stats"].get("done") != EL_PARTS or \
+            len(events) != EL_PARTS:
+        raise RuntimeError(f"chip_smoke: [elastic] ResNet-50 round lost "
+                           f"work: {summary}, {len(events)} batches")
+    if replays < 1:
+        raise RuntimeError("chip_smoke: [elastic] the SIGKILLed worker's "
+                           "batch was not replayed")
+    bad = [(r["world"], (r.get("plan") or {}).get("lint_findings"))
+           for r in resizes if (r.get("plan") or {}).get("lint_findings")
+           or not r.get("plan")]
+    if len(resizes) != 2 or bad:
+        raise RuntimeError(f"chip_smoke: [elastic] ResNet-50 resizes "
+                           f"{len(resizes)} (want 2), re-plan findings "
+                           f"{bad}")
+    for r in resizes:
+        print(f"[elastic] ResNet-50 re-plan at world {r['world']}: "
+              f"candidate {r['plan']['candidate']!r}, PT030/PT031 findings "
+              f"{r['plan']['lint_findings']}, replicas merged "
+              f"{len((r.get('merged') or {}).get('merged_from', []))}")
+    import paddle_tpu_torch as ptt
+    sc = ptt.Scope()
+    CheckpointManager(os.path.join(root, "job", "final"),
+                      device="cpu").restore(scope=sc)
+    n_float = 0
+    for name in sc.keys():
+        v = sc.get(name)
+        if name == TRAIN_STATE_VAR or not v.is_floating_point():
+            continue
+        n_float += 1
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"chip_smoke: [elastic] the merged final "
+                               f"base holds a non-finite {name}")
+    el_check_forms("ResNet-50", stats, n_gate, n_split)
+    print(f"[elastic] ResNet-50: final merged base finite ({n_float} "
+          f"floating vars); K1 in each of the {len(stats)} worker "
+          f"processes that exited: forward, dgrad and wgrad {n_gate} a "
+          f"step and {n_split} split-K reduce passes a step (fp32, "
+          f"mm_f32_tma), steps "
+          f"{[(s['generation'], s['slot'], s['steps']) for s in stats]}")
+    el_peaks("ResNet-50", stats, card)
+    forms = collections.Counter()
+    for s in stats:
+        forms.update(s["forms"])
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(forms)
+
+
+def phase_elastic(seed, card):
+    """The task-queue master and the elastic training service on the
+    card (see the module docstring).  Returns K1's launches by form
+    summed over the ResNet-50 round's worker processes."""
+    t_phase = time.perf_counter()
+    elastic_mlp(card)
+    t_a = time.perf_counter() - t_phase
+    forms = elastic_resnet(seed, card)
+    print(f"[elastic] phase {time.perf_counter() - t_phase:.1f} s (MLP "
+          f"round {t_a:.1f} s); {card}")
+    return forms
+
+
 def attention_entries(row, launches):
     """The kernels JSON entries of K2, K3 and K4: times, errors and
     bounds at the slice's shape, launches from the main path's run."""
@@ -6161,7 +6587,22 @@ def main():
                     help="run [resume]'s supervised smallnet training in "
                          "DIR (what the phase starts under the "
                          "supervisor) and exit")
+    ap.add_argument("--elastic-child", metavar="DIR",
+                    help="run one elastic worker of [elastic] (the "
+                         "arguments after '--' are python -m "
+                         "paddle_tpu_torch elastic's), write its K1 "
+                         "launches, steps and peak memory into DIR, and "
+                         "exit with its code")
+    ap.add_argument("--fault-spec", default=None,
+                    help="--elastic-child only: PADDLE_TPU_FAULT_SPEC for "
+                         "this worker process")
+    ap.add_argument("child_argv", nargs=argparse.REMAINDER,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.elastic_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        elastic_child(args.elastic_child, args.fault_spec, args.child_argv)
+        return
     if args.supervised_child:
         phase_device()
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -6212,6 +6653,8 @@ def main():
     torch.cuda.empty_cache()
     phase_analysis(args.seed, card, len(train_shapes),
                    split_wgrads(train_shapes), o_reports)
+    torch.cuda.empty_cache()
+    e_forms = phase_elastic(args.seed, card)
 
     # bf16: the served path and the AMP step; fp32: the served forward's
     # fp32 run and the fp32 step
@@ -6234,6 +6677,13 @@ def main():
                 k["observe_launches"] = o_forms.get(form, 0)
             entries[2]["observe_reduce_launches"] = o_forms.get(
                 "splitk_reduce", 0)
+        if dtype == torch.float32:
+            # [elastic]'s ResNet-50 workers run the fp32 step
+            for k, form in zip((step_forward,) + tuple(entries[:3]),
+                               ("forward", "forward", "dgrad", "wgrad")):
+                k["elastic_launches"] = e_forms.get(form, 0)
+            entries[2]["elastic_reduce_launches"] = e_forms.get(
+                "splitk_reduce", 0)
         kernels += entries
         for k in [step_forward] + entries[1:]:
             lib = "-" if k["library_ms"] is None else \
@@ -6252,7 +6702,13 @@ def main():
                         f" (and {k['resume_reduce_launches']} reduce "
                         f"passes)"))
                   + ("" if "observe_launches" not in k else
-                     f", {k['observe_launches']} in [observe]'s arms"))
+                     f", {k['observe_launches']} in [observe]'s arms")
+                  + ("" if "elastic_launches" not in k else
+                     f", {k['elastic_launches']} in [elastic]'s ResNet-50 "
+                     f"worker processes"
+                     + ("" if "elastic_reduce_launches" not in k else
+                        f" (and {k['elastic_reduce_launches']} reduce "
+                        f"passes)")))
     print(f"[summary] forward: times summed over the {len(shapes)} "
           f"launches of one batch-{BATCH} forward, launches from the served "
           f"run ({len(buckets)} batches; fp32: one batch-{BATCH} run); the "

@@ -19,10 +19,10 @@ limit.  Arms:
 * ``restore_chain``: restore wall of a base and ``chain_k`` deltas
   against one full save of the same final state; the restored shas must
   be equal.
-* ``elastic_tasks``: the elastic worker's task loop through
-  ``train_state.Checkpointer`` with the master's state, which waits for
-  ``distributed/master.py`` (ROADMAP Queue A item 8c): its row records
-  the refusal.
+* ``elastic_tasks``: the elastic worker's task-boundary loop through
+  ``train_state.Checkpointer`` (its ``sparse=`` session, full commits
+  against deltas by ``DeltaPolicy``): an async commit a task and a
+  durability barrier at each window's edge, tasks/s of each arm.
 
     python -m paddle_tpu_torch.benchmark.checkpoint [--smoke] [--out PATH]
     python -m paddle_tpu_torch.benchmark.run --model checkpoint [--smoke]
@@ -42,9 +42,6 @@ import time
 import numpy as np
 
 from .harness import device_label, paired_ab, write_results
-
-ELASTIC_NOT_PORTED = ("ROADMAP Queue A item 8c (distributed/master.py and "
-                      "elastic.py, the Checkpointer's master state)")
 
 FULL = {
     "vocab": 2_000_000,
@@ -202,12 +199,64 @@ def run_commit_ab(cfg, workdir, quiet=False):
 
 
 def run_elastic_tasks(cfg, workdir, quiet=False):
-    """The elastic worker's task-boundary loop: an async commit a task
-    through ``train_state.Checkpointer`` with the master's state and a
-    durability barrier at the window's edge."""
-    raise NotImplementedError(
-        f"benchmark.checkpoint's elastic_tasks arm is not ported yet "
-        f"({ELASTIC_NOT_PORTED})")
+    """The elastic worker's task-boundary loop through
+    ``train_state.Checkpointer``: a commit a task on the async writer
+    (the sparse session's rows beside a dense rider) and a durability
+    barrier at the window's edge, where the worker's ``task_finished``
+    waits; full commits against delta commits."""
+    import torch
+
+    from ..core import Scope
+    from ..sparse import SparseSession
+    from ..train_state import Checkpointer, DeltaPolicy
+
+    class _Exe:
+        _step = 0
+
+    arms = {}
+    for mode in ("full", "delta"):
+        t = _mk_table(cfg)
+        _warm(cfg, t)
+        scope = Scope()
+        scope.set("w", torch.zeros(cfg["dense_param_floats"],
+                                   dtype=torch.float32))
+        ck = Checkpointer(os.path.join(workdir, f"el_{mode}"), _Exe(),
+                          handle_signals=False, sparse=SparseSession(t),
+                          delta=DeltaPolicy(enabled=(mode == "delta")))
+        ck.begin(scope, None, 0, {})
+        arms[mode] = {"t": t, "ck": ck, "cursor": 0}
+    per_win = cfg["elastic_tasks_per_window"]
+    n_tasks = (max(2, cfg["elastic_pairs"]) + 1) * per_win
+    feeds = _feed(cfg, n_tasks, seed=13)
+
+    def measure(config):
+        arm = arms[config["mode"]]
+        ck = arm["ck"]
+        for _ in range(per_win):
+            ids, g = feeds[arm["cursor"]]
+            arm["cursor"] += 1
+            arm["t"].push(ids, g)
+            ck.emitted += 1
+            ck._save(0, 0)                      # the async commit
+        ck.manager.wait()                       # task_finished's barrier
+
+    ab = paired_ab(measure, {"mode": "full"}, {"mode": "delta"},
+                   pairs=cfg["elastic_pairs"], warmup=1)
+    ab["tasks_per_window"] = per_win
+    ab["tasks_per_s"] = {
+        m: per_win / float(np.median(w))
+        for m, w in (("full", ab["default_windows"]),
+                     ("delta", ab["candidate_windows"]))}
+    ab["commit_kinds"] = {m: sorted({s["kind"] for s in a["ck"].saves})
+                          for m, a in arms.items()}
+    for arm in arms.values():                   # drain before teardown
+        arm["ck"].manager.wait()
+    if not quiet:
+        print(json.dumps({"arm": "elastic_tasks",
+                          "speedup": ab["speedup"],
+                          "accepted": ab["accepted"],
+                          "tasks_per_s": ab["tasks_per_s"]}), flush=True)
+    return ab
 
 
 def run_restore_chain(cfg, workdir, quiet=False):
@@ -254,18 +303,14 @@ def run_restore_chain(cfg, workdir, quiet=False):
 
 
 def run_all(cfg=None, smoke=False, quiet=False):
-    """Every arm in a temporary directory; a refused arm's row is
-    ``{"not_ported": reason}``."""
+    """Every arm in a temporary directory."""
     cfg = cfg or (SMOKE if smoke else FULL)
     fns = {"commit_ab": run_commit_ab, "elastic_tasks": run_elastic_tasks,
            "restore_chain": run_restore_chain}
     row = {"config": dict(cfg)}
     with tempfile.TemporaryDirectory(prefix="ptt-ckpt-bench-") as workdir:
         for name, fn in fns.items():
-            try:
-                row[name] = fn(cfg, workdir, quiet=quiet)
-            except NotImplementedError as e:
-                row[name] = {"not_ported": str(e)}
+            row[name] = fn(cfg, workdir, quiet=quiet)
     row["device"] = device_label()
     row["smoke"] = bool(smoke)
     return row

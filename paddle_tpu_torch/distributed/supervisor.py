@@ -95,6 +95,17 @@ class Supervisor:
             self._sleep(d)
 
     # -- in-process ----------------------------------------------------------
+    def relaunch_gate(self, what: str, outcome: str) -> bool:
+        """One bounded-restart decision for a caller that owns its own
+        process handles (the elastic coordinator polls its workers'
+        ``Popen`` objects itself).  False once ``max_restarts``
+        relaunches are spent; otherwise the run loops' restart
+        accounting and backoff sleep, and True."""
+        if self.restarts >= self.max_restarts:
+            return False
+        self._backoff(what, outcome)
+        return True
+
     def run(self, fn: Callable, what: str = "supervised run"):
         """Call ``fn()``; relaunch on :class:`Preempted` or a retryable
         exception, up to ``max_restarts`` times; a fatal error

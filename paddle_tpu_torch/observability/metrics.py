@@ -90,6 +90,8 @@ METRIC_NAMES = (
     ("fault/checkpoint_fallbacks", "counter",
      "restores that skipped a corrupt/truncated checkpoint for an older "
      "intact one"),
+    ("fault/tasks_returned", "counter",
+     "in-flight master tasks handed back before a retry/shutdown"),
     # serving runtime (serving/server.py, serving/decode.py): per-request
     # and per-batch writes, made only by a server or pool built with
     # observe on
@@ -236,6 +238,22 @@ METRIC_NAMES = (
      "threshold"),
     ("concurrency/lock_held_ms", "histogram",
      "watched-lock hold time, acquire to release (lockwatch on only)"),
+    # elastic training service (distributed/elastic.py): writes are
+    # unconditional cold paths like fault/* — membership churn and
+    # resize boundaries are rare events whose history must survive into
+    # `stats`; training hot paths never reach these helpers
+    ("elastic/workers", "gauge",
+     "elastic worker count by state (labels: ready = live process, "
+     "done = exited 0 with its shard complete)"),
+    ("elastic/heartbeats", "counter",
+     "worker heartbeats received through the master's membership layer"),
+    ("elastic/drains", "counter",
+     "coordinator-commanded worker drains completed at a task boundary"),
+    ("elastic/resizes", "counter",
+     "committed mesh resize boundaries (drain -> merge -> re-plan -> "
+     "relaunch)"),
+    ("elastic/resize_ms", "histogram",
+     "wall time of one resize boundary: drain start to workers relaunched"),
 )
 
 # ---------------------------------------------------------------------------
@@ -254,6 +272,8 @@ THREAD_NAME_PREFIXES = (
     ("pt-ckpt", "incremental checkpoint commit writer"),
     ("pt-serving", "serving batcher/dispatcher/stdin threads"),
     ("pt-decode", "continuous-batching decode loop"),
+    ("pt-elastic", "elastic worker heartbeat daemons"),
+    ("pt-master", "distributed master RPC server"),
     ("pt-pserver", "sparse pserver selector/acceptor loops"),
     ("pt-loadgen", "benchmark load generator's closed-loop client "
      "workers"),
@@ -279,6 +299,7 @@ HISTOGRAM_BUCKETS: Dict[str, Tuple[float, ...]] = {
     "serving/decode_ttft_ms": _MS_BUCKETS,
     "serving/decode_inter_token_ms": _MS_BUCKETS,
     "opprof/op_ms": _MS_BUCKETS,
+    "elastic/resize_ms": _MS_BUCKETS,
     "sparse/pull_ms": _MS_BUCKETS,
     "sparse/push_ms": _MS_BUCKETS,
     "sparse/push_flush_ms": _MS_BUCKETS,

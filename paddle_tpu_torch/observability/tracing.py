@@ -79,6 +79,9 @@ SPAN_NAMES = (
      "active, step"),
     ("opprof/op", "one op's measured windows in a per-op profile run "
      "(observability.opprof eager replay); labels: op_type, index"),
+    ("elastic/resize", "one committed mesh resize boundary of the "
+     "elastic training service: drain -> merge replicas -> re-plan -> "
+     "re-shard -> relaunch; phase completions attach as span events"),
     ("sparse/pull", "one batch's pre-dispatch sparse-table pulls "
      "(id dedup + cache-first row fetch + feed injection across all "
      "bound tables); labels: tables"),
@@ -96,6 +99,9 @@ SPAN_NAMES = (
      "and, parented onto the remote caller via the wire ctx field, one "
      "server-side frame (labels: side=server, op, shard, queue_ms, "
      "kernel_ms)"),
+    ("master/rpc", "server-side handling of one master RPC, parented "
+     "onto the remote caller via the envelope ctx field (only emitted "
+     "when the caller propagated a context); labels: method"),
 )
 
 _REGISTERED = tuple(n for n, _ in SPAN_NAMES)

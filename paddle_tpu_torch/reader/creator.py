@@ -1,14 +1,16 @@
 """Reader creators (counterpart of ``paddle_tpu/reader/creator.py``):
-``np_array``, ``text_file`` and ``recordio`` (the pickle part files of
-``dataset.common.split``).  ``cloud_reader`` needs the distributed
-master and is not ported yet."""
+``np_array``, ``text_file``, ``recordio`` (the pickle part files of
+``dataset.common.split``) and ``cloud_reader``, which reads the part
+files as tasks of the fault-tolerant master
+(``distributed.master.MasterClient``): fetch a task's chunks, read
+each, report it finished or failed."""
 from __future__ import annotations
 
 import glob
 import pickle
 from typing import List, Sequence, Union
 
-__all__ = ["np_array", "text_file", "recordio"]
+__all__ = ["np_array", "text_file", "recordio", "cloud_reader"]
 
 
 def np_array(x):
@@ -69,4 +71,35 @@ def recordio(paths: Union[str, Sequence[str]], buf_size: int = 100):
     if buf_size and buf_size > 0:
         from .decorator import buffered
         return buffered(reader, buf_size)
+    return reader
+
+
+def cloud_reader(paths: Union[str, Sequence[str]], master_address: str,
+                 timeout_s: float = 30.0):
+    """Fault-tolerant distributed reading: every record of every chunk is
+    consumed once across all trainers sharing the master.  A trainer
+    pulls a task (one part file), streams its records and reports it
+    finished; a crash mid-task requeues the chunk for a survivor
+    (``distributed/master.py``).
+
+    The first trainer primes the queue with the atomic
+    ``set_dataset_if_empty`` RPC; concurrent joiners no-op.  A generator
+    closed early (``GeneratorExit``: ``firstn``, a broken batch loop)
+    returns its task without burning the chunk's failure budget; only
+    real exceptions count as failures."""
+    from ..distributed.master import MasterClient
+
+    files = _expand_paths(paths)
+
+    def reader():
+        from ..distributed.master import task_loop_reader
+
+        client = MasterClient(master_address, timeout_s=timeout_s)
+        try:
+            if files:
+                client.set_dataset_if_empty(files)
+            yield from task_loop_reader(client, _read_part)()
+        finally:
+            client.close()
+
     return reader

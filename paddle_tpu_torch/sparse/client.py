@@ -195,6 +195,7 @@ class RemoteSparseTable:
         try:
             wire.write_frame(s, {"op": "hello"})
             hello, _ = wire.read_frame(s)
+            self._check_handshake(k, "hello", hello)
             if hello.get("n_shards") != self.n_shards \
                     or hello.get("shard") != k:
                 raise RemoteTableError(
@@ -204,10 +205,7 @@ class RemoteSparseTable:
                     f"fleet wiring mismatch")
             wire.write_frame(s, {"op": "create", "spec": self._spec})
             created, _ = wire.read_frame(s)
-            if not created.get("ok"):
-                raise RemoteTableError(
-                    f"RemoteSparseTable {self.name!r}: shard {k} "
-                    f"rejected the table spec: {created.get('error')}")
+            self._check_handshake(k, "create", created)
         except BaseException:
             try:
                 s.close()
@@ -216,6 +214,25 @@ class RemoteSparseTable:
             raise
         self._socks[k] = s
         return s
+
+    def _check_handshake(self, k: int, op: str, reply: Dict):
+        """A handshake reply that is an error frame is read as the
+        round reads one: ``retryable`` (an injected or real transient
+        on the shard) raises ``_RemoteTransient`` for the retry rim,
+        anything else ``RemoteTableError``.  Only an ``ok`` hello is an
+        identity to hold against the fleet's wiring."""
+        if reply.get("ok"):
+            return
+        msg = (f"RemoteSparseTable {self.name!r}: shard {k} at "
+               f"{self.addrs[k]} {op} failed: [{reply.get('etype')}] "
+               f"{reply.get('error')}")
+        if reply.get("retryable"):
+            raise _RemoteTransient(msg)
+        if op == "create":
+            raise RemoteTableError(
+                f"RemoteSparseTable {self.name!r}: shard {k} rejected "
+                f"the table spec: {reply.get('error')}")
+        raise RemoteTableError(msg)
 
     def _drop_conn(self, k: int):
         s = self._socks[k]

@@ -54,10 +54,21 @@ The sites of the port:
 ``pserver.shard``      per push a shard server applies (index: its
                        applied pushes), after the apply and before the
                        ack; ``kill`` is a real SIGKILL
+``master.call``        per ``MasterClient`` RPC attempt, inside its retry
+                       rim; ``drop`` closes the live socket too
+``elastic.worker``     per completed batch in an elastic worker
+                       (``distributed.elastic.ElasticWorker``; index: the
+                       worker's global batch counter, restored across
+                       relaunches); ``kill`` is a real SIGKILL (no
+                       handler, no emergency checkpoint), ``preempt``
+                       asks for a graceful preemption as SIGTERM does
+``master.heartbeat``   per heartbeat an elastic worker sends (hit count);
+                       ``drop`` loses it on the wire (the worker swallows
+                       the ConnectionError), so enough drops in a row
+                       read as a stale lease
 =====================  =====================================================
 
-The master, elastic and tuning sites of the JAX package come with their
-slices.
+The tuning site of the JAX package comes with its slice.
 """
 from __future__ import annotations
 
@@ -75,7 +86,8 @@ __all__ = [
 KNOWN_SITES = ("trainer.step", "reader.item", "executor.dispatch",
                "ckpt.write", "ckpt.delta", "serving.request",
                "serving.dispatch", "serving.decode_step", "sparse.push",
-               "pserver.rpc", "pserver.shard")
+               "pserver.rpc", "pserver.shard", "master.call",
+               "elastic.worker", "master.heartbeat")
 
 # the off switch the call sites test: one attribute load when off
 ENABLED = False

@@ -18,9 +18,11 @@ flight, commit an emergency checkpoint, exit
 :data:`~paddle_tpu_torch.faults.EXIT_PREEMPTED`), and restore with
 fallback on resume.  The sparse tables' rows ride in the same commit
 as ``__sparse__/`` vars (a ``sparse`` session's full export, or its
-deltas of the rows pushed since the last commit).  The master's task
-queue and the elastic position that the JAX Checkpointer carries come
-with ROADMAP Queue A item 8.
+deltas of the rows pushed since the last commit).  A task-queue
+master's ``state_dict()`` (``master=``) and the elastic worker's stream
+position (``extra_state=``) ride in the same commit's
+:class:`TrainState`, so the queue position and the model are durable
+together.
 """
 from __future__ import annotations
 
@@ -63,8 +65,9 @@ class TrainState:
     the next batch; ``emitted`` counts the batches completed across
     passes (the step the checkpoint is labelled with); ``iters_done``
     is the report cursor; ``optimizer`` a fingerprint of the
-    optimizer's configuration checked on resume.  ``master`` and
-    ``elastic`` stay None in the port."""
+    optimizer's configuration checked on resume.  ``master`` is the
+    task-queue master's ``state_dict()`` at the boundary, ``elastic``
+    the elastic worker's stream position (``ElasticWorker.state``)."""
 
     version: int = TRAIN_STATE_VERSION
     exe_step: int = 0
@@ -124,6 +127,14 @@ class Checkpointer:
     blocking emergency checkpoint and raises
     :class:`~paddle_tpu_torch.faults.Preempted`.
 
+    ``master`` (a :class:`~paddle_tpu_torch.distributed.master.Master`
+    or its client) has its ``state_dict()`` captured at every save into
+    ``TrainState.master``, committed by the same atomic rename as the
+    model: a separate snapshot file could be durably newer than the
+    model it belongs to.  ``extra_state()`` returns a JSON-serializable
+    dict captured at the boundary into ``TrainState.elastic`` (the
+    elastic worker's cursor and offset).
+
     ``sparse`` (a sparse session) puts its tables' state in every commit
     as vars that leave the scope after it.  Where it ``supports_delta``,
     its ``export_delta``/``export_full`` return ``(tokens, state)`` and
@@ -140,7 +151,8 @@ class Checkpointer:
 
     def __init__(self, checkpoint_dir: str, exe,
                  save_every_n_steps: Optional[int] = None,
-                 max_to_keep: int = 3, handle_signals: bool = True,
+                 master=None, max_to_keep: int = 3,
+                 handle_signals: bool = True, extra_state=None,
                  delta: Optional[DeltaPolicy] = None, sparse=None):
         if save_every_n_steps is not None and save_every_n_steps < 1:
             raise ValueError(f"save_every_n_steps must be >= 1, got "
@@ -148,6 +160,8 @@ class Checkpointer:
         self.dir = checkpoint_dir
         self.exe = exe
         self.save_every = save_every_n_steps
+        self.master = master
+        self._extra_state = extra_state
         self.delta = DeltaPolicy() if delta is None else delta
         self.manager = CheckpointManager(
             checkpoint_dir, max_to_keep=max_to_keep,
@@ -292,11 +306,14 @@ class Checkpointer:
 
     def request_save(self):
         """A blocking checkpoint at the next dispatch boundary, beside
-        the periodic cadence."""
+        the periodic cadence: how the elastic worker commits at a task
+        boundary (its ``task_finished`` waits on this commit, which
+        anchors the stream's exactly-once contract to durable state)."""
         self._save_requested = True
 
     @property
     def save_pending(self) -> bool:
+        """True while a :meth:`request_save` has not committed yet."""
         return self._save_requested
 
     # -- per batch -----------------------------------------------------------
@@ -340,6 +357,9 @@ class Checkpointer:
         if r is not None and r.pass_id >= num_passes \
                 and self.emitted == r.emitted \
                 and not self._save_requested:
+            # a pending request_save still commits: a zero-batch tail
+            # (the elastic stream's empty last tasks) advances state
+            # that extra_state must see durable
             return
         self._save(num_passes, 0, blocking=True)
         self._save_requested = False
@@ -347,11 +367,19 @@ class Checkpointer:
     # -- save ----------------------------------------------------------------
     def _save(self, next_pass: int, next_batch: int,
               emergency: bool = False, blocking: bool = False):
+        # the task queue's position rides inside the checkpoint, under
+        # the same atomic rename as the model
+        master_state = None
+        if self.master is not None and hasattr(self.master, "state_dict"):
+            master_state = self.master.state_dict()
         ts = TrainState(
             exe_step=self.exe._step, pass_id=next_pass,
             batch_id=next_batch, emitted=self.emitted,
             iters_done=self.iters_done, random_seed=self._seed,
-            optimizer=self._opt_fp, emergency=emergency)
+            optimizer=self._opt_fp, emergency=emergency,
+            master=master_state,
+            elastic=self._extra_state() if self._extra_state is not None
+            else None)
         scope = self._scope
         scope.set(TRAIN_STATE_VAR, ts.to_array())
         # a delta while the chain is alive and under both rebase

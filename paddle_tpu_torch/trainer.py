@@ -13,11 +13,13 @@ checkpoints, handles preemption and resumes bit-identically
 pulls each batch's rows of the host-resident tables before its step and
 pushes their gradients after it (``paddle_tpu_torch.sparse``).
 ``validate=`` runs the static verifier for the call (``analysis``).
+``master=`` commits a task-queue master's state with every checkpoint;
+``elastic=`` makes the loop one worker of an elastic job
+(``distributed/elastic.py``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item that brings them: ``warmup`` (``Executor.compile``, item
-6), ``auto_shard`` (item 7), ``master`` and ``elastic`` (item 8c) and
-``autotune`` (item 9d).  With the executor
+6), ``auto_shard`` (item 7) and ``autotune`` (item 9d).  With the executor
 observing, a periodic report (``observability.maybe_periodic_report``)
 fires every ``log_period`` batches.
 """
@@ -71,8 +73,6 @@ _NOT_PORTED = {
     "warmup": "item 6 (Executor.compile)",
     "autotune": "item 9d (tuning)",
     "auto_shard": "item 7 (multi-GPU)",
-    "master": "item 8c (the task-queue master)",
-    "elastic": "item 8c (the elastic service)",
 }
 
 
@@ -167,11 +167,40 @@ class SGD:
         worker, with a ``flush`` barrier before every checkpoint export,
         every ``test`` pull and at the end of ``train``.  With
         ``checkpoint_dir`` the tables ride in every checkpoint and
-        restore on ``resume``."""
+        restore on ``resume``.
+
+        ``master``: a task-queue ``distributed.master.Master`` (or its
+        client) whose ``state_dict()`` commits inside every checkpoint
+        and is loaded back on resume, atomically with the model.
+
+        ``elastic``: a duck-typed elastic-worker hook (normally a
+        ``distributed.elastic.ElasticWorker``; the trainer never imports
+        the elastic module).  Its ``state()`` rides in every checkpoint's
+        ``TrainState.elastic``; ``bind(ckpt, ts)`` runs after the
+        restore (it registers with the membership layer and rewinds the
+        master-sharded stream, so the loop's own batch skip is zero);
+        ``after_batch()`` runs after each completed batch and
+        ``on_complete()`` after the final save.  It needs
+        ``checkpoint_dir`` and the per-batch loop
+        (``steps_per_dispatch=1``, no ``pipeline``): the task-commit
+        protocol saves at batch boundaries."""
         event_handler = event_handler or (lambda e: None)
         given = {"warmup": warmup,
-                 "autotune": autotune, "auto_shard": auto_shard,
-                 "master": master, "elastic": elastic}
+                 "autotune": autotune, "auto_shard": auto_shard}
+        if not checkpoint_dir:
+            if master is not None:
+                raise ValueError("train(master=...) snapshots the task "
+                                 "queue into checkpoints: pass "
+                                 "checkpoint_dir")
+            if elastic is not None:
+                raise ValueError("train(elastic=...) commits its stream "
+                                 "position inside checkpoints: pass "
+                                 "checkpoint_dir")
+        if elastic is not None and (pipeline or steps_per_dispatch > 1):
+            raise ValueError(
+                "train(elastic=...) needs the per-batch dispatch path "
+                "(steps_per_dispatch=1, pipeline=False): the elastic "
+                "task-commit protocol saves at every batch boundary")
         sess = sparse_tables
         if sess is not None:
             # the JAX trainer's refusals, before the ones of the port
@@ -224,7 +253,11 @@ class SGD:
                     opt_fp["learning_rate"] = float(lr)
                 ckpt = Checkpointer(checkpoint_dir, self.exe,
                                     save_every_n_steps=save_every_n_steps,
+                                    master=master,
                                     handle_signals=handle_signals,
+                                    extra_state=(elastic.state
+                                                 if elastic is not None
+                                                 else None),
                                     sparse=sess)
                 ts = None
                 if resume:
@@ -244,16 +277,32 @@ class SGD:
                     # the step counter places every random op's stream
                     self.exe._step = ts.exe_step
                     start_pass, resume_skip = ts.pass_id, ts.batch_id
+                    if master is not None and ts.master is not None \
+                            and hasattr(master, "load_state_dict"):
+                        # the queue position from inside the checkpoint,
+                        # consistent with the model restored
+                        master.load_state_dict(ts.master)
                 ckpt.begin(global_scope(), ts,
                            self.main_program.random_seed, opt_fp)
+                if elastic is not None:
+                    # the stream resumes by task re-serve and the
+                    # within-task offset, so the loop's batch skip must
+                    # not skip as well; the pass loop is always entered
+                    # and the master decides whether work is left
+                    elastic.bind(ckpt, ts)
+                    start_pass, resume_skip = 0, 0
             self.checkpointer = ckpt
             self._loop(reader, num_passes, event_handler, feeding,
                        feed_list, steps_per_dispatch, pipeline, ckpt,
-                       start_pass, resume_skip, sess)
+                       start_pass, resume_skip, sess, elastic)
             if sess is not None:
                 sess.flush()             # the async-push barrier
             if ckpt is not None:
                 ckpt.final_save(num_passes)
+            if elastic is not None:
+                # the final save committed the last task's state: report
+                # it finished and leave the membership
+                elastic.on_complete()
         finally:
             self.exe.validate = prev_validate
             if ckpt is not None:
@@ -261,7 +310,7 @@ class SGD:
 
     def _loop(self, reader, num_passes, event_handler, feeding, feed_list,
               steps_per_dispatch, pipeline, ckpt, start_pass, resume_skip,
-              sess=None):
+              sess=None, elastic=None):
         fetch = [self.cost] + self.extra
         n_fetch = len(fetch)
         # a sparse session's <rows>@GRAD fetches ride after the model's;
@@ -321,6 +370,8 @@ class SGD:
                     _fi.raise_for(action, "trainer.step", gcount[0])
             if ckpt is not None:
                 ckpt.on_batch_done(pass_id, batch_id, step_now)
+            if elastic is not None:
+                elastic.after_batch()
 
         # the reader of a pass: the resumed pass skips the batches done,
         # and the reader.item site fires per batch; the plain reader when

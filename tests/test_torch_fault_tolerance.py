@@ -308,7 +308,6 @@ def test_checkpoint_options_require_checkpoint_dir():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("master", "item 8"), ("elastic", "item 8"),
     ("warmup", "item 6"), ("autotune", "item 9"),
     ("auto_shard", "item 7")])
 def test_options_not_ported_raise_naming_their_item(tmp_path, name, item):

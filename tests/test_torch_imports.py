@@ -150,3 +150,67 @@ def test_scope_numpy_widens_bf16_and_weights_load_bf16():
     np.testing.assert_array_equal(out, arr)
     arr[0, 0] = 99.0                    # the scope holds its own copy
     assert scope.numpy("w")[0, 0] == 0.0
+
+
+def _top_level_imports(path):
+    """(lineno, module) of the imports in a module's own body (not inside
+    a function), relative ones resolved against the package."""
+    rel = os.path.relpath(path, ROOT)
+    pkg = os.path.dirname(rel).replace(os.sep, ".")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg.split(".")
+            if node.level:
+                base = base[:len(base) - node.level + 1]
+                mod = ".".join(base + ([node.module] if node.module
+                                       else []))
+            else:
+                mod = node.module or ""
+            yield node.lineno, mod
+            for a in node.names:
+                yield node.lineno, f"{mod}.{a.name}"
+
+
+def test_scan_covers_the_elastic_service():
+    """The elastic slice's modules are scanned; chip_smoke.py's
+    ``--elastic-child`` mode runs the port's worker; and only the elastic
+    module itself imports the master or the elastic service at its top
+    level, so importing the package (or ``distributed``) loads neither
+    (the subprocess check of it is in tests/test_torch_elastic_chaos.py,
+    ``@slow``)."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("distributed/master.py", "distributed/elastic.py",
+                "distributed/__init__.py", "reader/creator.py",
+                "trainer_config_helpers/__init__.py",
+                "benchmark/elastic.py", "benchmark/checkpoint.py"):
+        assert os.path.join("paddle_tpu_torch", rel) in scanned, rel
+    lazy = ("paddle_tpu_torch.distributed.master",
+            "paddle_tpu_torch.distributed.elastic")
+    bad = []
+    for p in _port_sources():
+        rel = os.path.relpath(p, ROOT)
+        if rel in ("chip_smoke.py",
+                   os.path.join("paddle_tpu_torch", "distributed",
+                                "elastic.py")):
+            continue
+        for line, mod in _top_level_imports(p):
+            if mod.startswith(lazy):
+                bad.append(f"{rel}:{line}: {mod}")
+    assert not bad, "\n".join(bad)
+    import paddle_tpu_torch.distributed as d
+    assert d.Master.__module__ == "paddle_tpu_torch.distributed.master"
+    assert set(d.__all__) >= {"Master", "Task", "TaskQueueClient"}
+    # chip_smoke.py's worker mode: an argument of its parser, and a
+    # function that imports the port's elastic_main
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "--elastic-child" in ast.dump(fns["main"])
+    child = ast.dump(fns["elastic_child"])
+    assert "paddle_tpu_torch.distributed.elastic" in child
+    assert "elastic_main" in child

@@ -357,8 +357,7 @@ def test_sgd_test_matches_jax_and_leaves_weights():
 
 @pytest.mark.parametrize("arg,value", [
     ("warmup", True), ("autotune", True),
-    ("auto_shard", {"dp": 2}), ("master", object()),
-    ("elastic", object())])
+    ("auto_shard", {"dp": 2})])
 def test_train_refuses_what_is_not_ported(arg, value):
     _, (tsgd, tfl), reader = _both_trainers()
     with pytest.raises(NotImplementedError, match="Queue A item"):

@@ -190,6 +190,33 @@ def test_faults_retry_exactly_once(fleet2, spec):
         _same(rt, oracle)
 
 
+@pytest.mark.parametrize("spec", ["pserver.rpc@1=transient",
+                                  "pserver.rpc@2=transient"],
+                         ids=["hello", "create"])
+def test_transient_on_handshake_is_retried(spec):
+    """A transient answer to the handshake a fresh client sends (its
+    first ``hello``, or the ``create`` after it) is retried as a round's
+    transient is, not read as a wiring mismatch.  One shard, so the
+    shard's first and second requests are the handshake's."""
+    servers, threads = _fleet(PServer, n=1, backup=False)
+    try:
+        oracle = SparseTable("t", num_shards=1, **KW)
+        faultinject.configure(spec)
+        try:
+            with RemoteSparseTable(
+                    "t", addrs=_addrs(servers), io_timeout_s=IO_TO,
+                    retry=RetryPolicy(max_attempts=3, backoff_base_s=0.01,
+                                      jitter=0.0), **KW) as rt:
+                _rounds(rt, oracle, rounds=3, seed=4)
+                assert faultinject.fired("pserver.rpc") == 1
+                assert rt._dials[0] == 2
+                _same(rt, oracle)
+        finally:
+            faultinject.clear()
+    finally:
+        _stop(servers, threads)
+
+
 def test_chain_backup_survives_shard_death(fleet2):
     """Shard 0 dies with no checkpoint: its relaunch restores every
     acked push from the copy shard 1 holds, and the same client trains

@@ -5,7 +5,8 @@ their SMOKE sizes on the CPU:
 * checkpoint: ``commit_ab`` (full against delta commits from one base:
   the windows, the bytes ratio, both tips restored bit-equal) and
   ``restore_chain`` (a base and k deltas restore to the full save's
-  sha); ``elastic_tasks`` refuses naming ROADMAP item 8c;
+  sha); ``elastic_tasks`` (the elastic worker's task-boundary loop
+  through the Checkpointer, full against delta commits);
 * pserver, against shards served on threads of this interpreter:
   ``wire_ab`` (binary against naive JSON frames, both arms' rows
   bit-equal), ``remote_pull_latency`` and ``shard_pipelining_ab``;
@@ -74,12 +75,20 @@ def test_checkpoint_smoke_rows_complete():
     rc = row["restore_chain"]
     assert rc["chain_len"] == cfg["chain_k"] and rc["bit_identical"] is True
     assert rc["chain_restore_ms"] > 0 and rc["full_restore_ms"] > 0
-    assert "item 8c" in row["elastic_tasks"]["not_ported"]
+    _ab_complete(row["elastic_tasks"], cfg["elastic_pairs"])
 
 
 def test_checkpoint_elastic_arm_refuses(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        checkpoint.run_elastic_tasks(checkpoint.SMOKE, str(tmp_path))
+    """The elastic_tasks arm, which refused until the task-queue master
+    was ported, now runs: the full arm commits full checkpoints only, the
+    delta arm chains deltas onto its base, each window's tasks."""
+    cfg = checkpoint.SMOKE
+    ab = checkpoint.run_elastic_tasks(cfg, str(tmp_path), quiet=True)
+    _ab_complete(ab, cfg["elastic_pairs"])
+    assert ab["tasks_per_window"] == cfg["elastic_tasks_per_window"]
+    assert ab["commit_kinds"] == {"full": ["full"],
+                                  "delta": ["delta", "full"]}
+    assert all(v > 0 for v in ab["tasks_per_s"].values())
 
 
 def test_pserver_arms_on_thread_shards(fleets):
