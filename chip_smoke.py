@@ -282,6 +282,30 @@ Phases, each of which raises on failure (so the script exits non-zero):
              each process's peak allocator bytes.  Workers start as
              ``chip_smoke.py --elastic-child``, which runs the port's
              worker_main and writes the counts.
+21. fleet  — the serving fleet (serving/cli.py, serving/http.py,
+             serving/fleet.py, observability/collector.py): (a)
+             ResNet-50's fp32 artifact (224x224, 1000 classes, [inference]'s
+             export) served by a FleetRouter of 2 ProcessReplicas on the
+             card (serve --warmup-all, max_batch 32) behind an HttpFront:
+             each replica's start-to-ready seconds, 64 single-image POSTs
+             from 8 client threads, every response held against the
+             parent's direct call of the artifact (and counted bit-equal
+             to it at some bucket), req/s and p50/p99, /healthz and
+             /metrics (its http/* rows), the host ms to encode and parse
+             one request's JSON feeds; (b) replica0 SIGKILLed under
+             closed-loop load: zero admitted requests dropped, the
+             failovers counted, the victim relaunched through the
+             supervisor gate back to ready and serving a request alone;
+             in every replica process that exited, K1's fp32 forward
+             launched once per eligible 1x1 conv for each artifact call
+             (replicas start as ``chip_smoke.py --fleet-child``, which
+             runs the port's serve_main and writes the counts; the
+             SIGKILLed process writes none); (c) the collector live over
+             the router, ``fleet-stats`` over the replicas' JSONL logs
+             merged with the router's snapshot (one source a process),
+             and the port's benchmark.fleet with its replicas on the card
+             at its --smoke durations, each arm and the
+             acceptance row printed.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline and
 zoo runs captured (Executor(use_jit=True), each step one CUDA graph replay; the
@@ -6486,6 +6510,546 @@ def phase_elastic(seed, card):
     return forms
 
 
+# ---------------------------------------------------------------------------
+# [fleet] the serving fleet: ResNet-50 replicas behind the HTTP front, a
+# SIGKILL under load, the collector and benchmark.fleet
+# ---------------------------------------------------------------------------
+FLEET_REPLICAS = 2
+FLEET_MAX_BATCH = 32
+FLEET_REQUESTS = 64           # single-image POSTs to /v1/infer
+FLEET_CLIENTS = 8             # client threads posting them
+FLEET_IMAGES = 8              # distinct images (each posted 8 times)
+FLEET_CHAOS_S = 6.0           # closed-loop load around the SIGKILL
+FLEET_CHAOS_WORKERS = 8
+FLEET_READY_S = 300.0         # a replica's start-to-ready budget
+# the router's JSON work (a request's body parsed, then its stdio line
+# encoded: about 160 ms of host time on an H100 host) spaces a
+# replica's arrivals about 330 ms apart, so a 5 ms batching window
+# dispatches every request alone, at batch 1, where no 1x1 conv passes
+# K1's gate; a 400 ms window lets a replica batch two or more
+FLEET_MAX_WAIT_MS = 400.0
+FLEET_DEVICE = "cuda"         # where the replicas serve
+FLEET_IMG = 224               # ResNet-50's input, as [inference] serves it
+# a served row against the parent's direct call at batch 1: the replica
+# ran the image in a batch of its bucket, where more 1x1 convs take K1
+# than at batch 1 (fp32, TF32 off on both sides: summation order only)
+FLEET_TOL = SLICE_TOL["fp32"]
+
+
+def fleet_child(stats_dir, argv):
+    """``--fleet-child``: one serve replica (the port's serve_main over
+    ``python -m paddle_tpu_torch serve``'s argv, stdio protocol on this
+    process's stdin/stdout), with TF32 off and cuDNN deterministic as in
+    the parent.  At a clean exit it writes a metrics snapshot into its
+    JSONL log and its K1 launches by form, its artifact calls by batch
+    and its peak allocator bytes into ``stats_dir``; exits with serve's
+    code.  A SIGKILLed replica writes nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from paddle_tpu_torch import export_model
+    from paddle_tpu_torch.observability import (emit_event,
+                                                metrics_snapshot)
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.serving.cli import serve_main
+    argv = [a for a in argv if a != "--"]
+    if argv and argv[0] == "serve":
+        argv = argv[1:]
+    calls = collections.Counter()
+    load = export_model.load_compiled_model
+
+    def counted_load(dirname, device=None):
+        run, manifest = load(dirname, device=device)
+
+        def counted(feeds):
+            calls[int(next(iter(feeds.values())).shape[0])] += 1
+            return run(feeds)
+        return counted, manifest
+
+    export_model.load_compiled_model = counted_load
+    rc = serve_main(argv)
+    emit_event("snapshot", **metrics_snapshot())
+    stats = {"pid": os.getpid(), "rc": rc,
+             "index": int(argv[argv.index("--replica-index") + 1]),
+             "calls": {str(b): n for b, n in sorted(calls.items())},
+             "forms": dict(conv1x1.mm.by_form),
+             "peak_bytes": torch.cuda.max_memory_allocated()
+             if torch.cuda.is_available() else 0}
+    with open(os.path.join(stats_dir, f"{stats['index']}-{os.getpid()}"
+                           f".json"), "w") as f:
+        json.dump(stats, f)
+    sys.exit(rc)
+
+
+def fleet_resnet_artifact(seed):
+    """ResNet-50's fp32 artifact as [inference] exports it (224x224, 1000
+    classes, weights from ``seed``): [inference]'s directory when it is
+    there, else exported now."""
+    from paddle_tpu_torch import export_model
+    d = inf_dir("resnet50")
+    if os.path.exists(os.path.join(d, "manifest.json")):
+        return d, 0.0
+    import paddle_tpu_torch as ptt
+    infer, startup, pred = build_resnet50(seed)
+    scope = ptt.Scope()
+    ptt.Executor(export_model.resolve_place(FLEET_DEVICE)).run(startup,
+                                                               scope=scope)
+    t0 = time.perf_counter()
+    export_model.export_compiled_model(
+        d, {"img": ((-1, 3, FLEET_IMG, FLEET_IMG), "float32")}, [pred],
+        main_program=infer, scope=scope, device=FLEET_DEVICE)
+    return d, time.perf_counter() - t0
+
+
+def fleet_wire_cost(img):
+    """Host ms to encode one request's JSON line (``tolist`` + dumps, the
+    router's side) and to parse it back to a float32 array (loads +
+    asarray, the replica's side): medians of 5."""
+    enc, dec = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        line = json.dumps({"id": 0, "feeds": {"img": img.tolist()}})
+        t1 = time.perf_counter()
+        back = np.asarray(json.loads(line)["feeds"]["img"], np.float32)
+        t2 = time.perf_counter()
+        enc.append((t1 - t0) * 1e3)
+        dec.append((t2 - t1) * 1e3)
+    if not np.array_equal(back, img):
+        raise RuntimeError("chip_smoke: [fleet] the JSON wire changed an "
+                           "image")
+    return float(np.median(enc)), float(np.median(dec)), len(line)
+
+
+def fleet_router(model_dir, stats_dir, log_dir):
+    """A FleetRouter of FLEET_REPLICAS ProcessReplicas, each ``chip_smoke.py
+    --fleet-child`` over ``serve --device cuda --warmup-all``, each with its
+    own observed JSONL log; returns (router, spawn times by name)."""
+    from paddle_tpu_torch.serving.fleet import (FleetRouter, ProcessReplica,
+                                                serve_argv)
+    argv = serve_argv([f"resnet50={model_dir}"], max_batch=FLEET_MAX_BATCH,
+                      max_wait_ms=FLEET_MAX_WAIT_MS, deadline_ms=0,
+                      queue=1024,
+                      warmup_all=True, device=FLEET_DEVICE)
+    head = [sys.executable, os.path.abspath(__file__), "--fleet-child",
+            stats_dir, "--", "serve"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    spawned = {}
+
+    def factory(i):
+        env = dict(os.environ, PADDLE_TPU_TORCH_OBSERVE="1",
+                   PADDLE_TPU_TORCH_METRICS_LOG=os.path.join(
+                       log_dir, f"serve{i}.jsonl"),
+                   PYTHONPATH=root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        spawned[f"replica{i}"] = time.monotonic()
+        return ProcessReplica(head + argv[4:] + ["--replica-index", str(i)],
+                              name=f"replica{i}", env=env,
+                              ready_timeout_s=FLEET_READY_S)
+
+    router = FleetRouter(factory, replicas=FLEET_REPLICAS,
+                         poll_interval_s=0.1, max_restarts=3,
+                         restart_backoff_base_s=0.1)
+    router.start(ready_timeout_s=FLEET_READY_S)
+    return router, spawned
+
+
+def fleet_wait_ready(router, names, t0s, what):
+    """Seconds from each replica's spawn to its ready state; fails when
+    one is not ready within FLEET_READY_S."""
+    ready = {}
+    deadline = time.monotonic() + FLEET_READY_S
+    while len(ready) < len(names) and time.monotonic() < deadline:
+        for r in router.replicas:
+            if r.name in names and r.name not in ready \
+                    and r.state == "ready":
+                ready[r.name] = time.monotonic() - t0s[r.name]
+        time.sleep(0.05)
+    if len(ready) < len(names):
+        raise RuntimeError(f"chip_smoke: [fleet] {what}: replicas "
+                           f"{sorted(set(names) - set(ready))} not ready in "
+                           f"{FLEET_READY_S} s (states "
+                           f"{ {r.name: r.state for r in router.replicas} })")
+    return ready
+
+
+def fleet_check_row(tag, row, img, refs):
+    """A served row against the parent's direct call at batch 1 (within
+    FLEET_TOL); returns whether it equals the direct call at some bucket
+    bit for bit."""
+    got = np.asarray(row, np.float32)
+    want = refs[1][img]
+    if got.shape != want.shape or not np.isfinite(got).all() or \
+            not np.allclose(got, want, **FLEET_TOL):
+        err = float(np.abs(got - want).max()) if got.shape == want.shape \
+            else float("nan")
+        raise RuntimeError(f"chip_smoke: [fleet] {tag}: image {img}'s row "
+                           f"is off the direct call by {err:.3e} (tolerance "
+                           f"{FLEET_TOL})")
+    return any(np.array_equal(got, r[img]) for r in refs.values())
+
+
+def fleet_http_round(front, bodies, refs):
+    """FLEET_REQUESTS single-image POSTs from FLEET_CLIENTS threads; every
+    response held against the direct call.  Returns (latencies s, wall s,
+    bit-equal count)."""
+    import http.client
+    host, port = front.address
+    lock = threading.Lock()
+    todo = list(range(FLEET_REQUESTS))
+    lat, bit, errors = [], [0], []
+
+    def client():
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        try:
+            while True:
+                with lock:
+                    if not todo or errors:
+                        return
+                    k = todo.pop()
+                img = k % FLEET_IMAGES
+                t0 = time.monotonic()
+                conn.request("POST", "/v1/infer", body=bodies[img])
+                resp = conn.getresponse()
+                obj = json.loads(resp.read())
+                dt = time.monotonic() - t0
+                if resp.status != 200:
+                    raise RuntimeError(f"status {resp.status}: {obj}")
+                same = fleet_check_row(f"request {k}", obj["outputs"][0],
+                                       img, refs)
+                with lock:
+                    lat.append(dt)
+                    bit[0] += same
+        except Exception as e:          # noqa: BLE001 — surfaced below
+            with lock:
+                errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, name=f"pt-loadgen-http{i}")
+               for i in range(FLEET_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    if errors or len(lat) != FLEET_REQUESTS:
+        raise RuntimeError(f"chip_smoke: [fleet] HTTP round: {len(lat)} of "
+                           f"{FLEET_REQUESTS} answered; {errors[:3]}")
+    return sorted(lat), wall, bit[0]
+
+
+def fleet_chaos(router, front, feeds, refs):
+    """SIGKILL replica0 under closed-loop load: zero admitted drops, the
+    failovers counted, the victim relaunched through the supervisor gate
+    back to ready, and then serving again (the survivor cordoned)."""
+    import http.client
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.benchmark.serving_common import closed_loop
+    victim = router.replicas[0]
+    pid0 = victim.proc.pid
+    fo0 = obs.registry().snapshot()["fleet/failovers"]["value"]
+    rl0 = obs.registry().snapshot()["fleet/relaunches"]["value"]
+    t_kill = [None]
+
+    def killer():
+        time.sleep(FLEET_CHAOS_S / 3.0)
+        t_kill[0] = time.monotonic()
+        victim.kill()
+
+    kt = threading.Thread(target=killer, name="pt-loadgen-killer",
+                          daemon=True)
+    kt.start()
+    lat, row = closed_loop(router, feeds[0], workers=FLEET_CHAOS_WORKERS,
+                           duration_s=FLEET_CHAOS_S, timeout_s=300.0,
+                           check=lambda out: fleet_check_row(
+                               "chaos", out[0], 0, refs))
+    kt.join(timeout=30)
+    deadline = time.monotonic() + FLEET_READY_S
+    while victim.state != "ready" and time.monotonic() < deadline:
+        time.sleep(0.05)
+    t_back = time.monotonic() - t_kill[0]
+    snap = obs.registry().snapshot()
+    failovers = snap["fleet/failovers"]["value"] - fo0
+    relaunches = snap["fleet/relaunches"]["value"] - rl0
+    print(f"[fleet] chaos: replica0 (pid {pid0}) SIGKILLed "
+          f"{FLEET_CHAOS_S / 3.0:.1f} s into {FLEET_CHAOS_S:.0f} s of "
+          f"closed-loop load ({FLEET_CHAOS_WORKERS} workers): "
+          f"{row['served']} served ({row['req_per_s']} req/s), "
+          f"{row['worker_errors']} dropped, {failovers:.0f} failed over "
+          f"(fleet/failovers), {relaunches:.0f} relaunch through the "
+          f"supervisor gate; kill to ready again {t_back:.1f} s (state "
+          f"{victim.state}, restarts {victim.restarts}, new pid "
+          f"{victim.proc.pid}); p99 {lat[int(0.99 * (len(lat) - 1))] * 1e3:.1f}"
+          f" ms")
+    if row["worker_errors"] or failovers < 1 or victim.state != "ready" \
+            or victim.restarts < 1 or relaunches < 1:
+        raise RuntimeError(f"chip_smoke: [fleet] chaos: dropped "
+                           f"{row['worker_errors']} ({row['first_error']}), "
+                           f"failovers {failovers}, victim {victim.state} "
+                           f"after {victim.restarts} restarts")
+    # the relaunched replica serves: the survivor cordoned, one request
+    other = router.replicas[1].name
+    router.cordon(other)
+    try:
+        router._poll_all()
+        served0 = victim.last_health["models"]["resnet50"]["served"]
+        host, port = front.address
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        conn.request("POST", "/v1/infer", body=json.dumps(
+            {"id": "after", "feeds": {"img": feeds[1]["img"]}}))
+        resp = conn.getresponse()
+        obj = json.loads(resp.read())
+        conn.close()
+        if resp.status != 200:
+            raise RuntimeError(f"chip_smoke: [fleet] the relaunched replica "
+                               f"answered {resp.status}: {obj}")
+        fleet_check_row("after the relaunch", obj["outputs"][0], 1, refs)
+        router._poll_all()
+        time.sleep(0.3)
+        served1 = victim.last_health["models"]["resnet50"]["served"]
+    finally:
+        router.cordon(other, cordoned=False)
+    if served1 != served0 + 1:
+        raise RuntimeError(f"chip_smoke: [fleet] the request after the "
+                           f"relaunch was not served by replica0 ({served0} "
+                           f"-> {served1})")
+    print(f"[fleet] chaos: the relaunched replica0 served a request alone "
+          f"(replica1 cordoned), held against the direct call")
+    return pid0
+
+
+def fleet_k1_check(stats_dir, infer, killed_pid, card):
+    """K1's fp32 forward in every replica process that exited cleanly:
+    once per eligible 1x1 conv for each artifact call (a warm-up, a
+    capture or a replay), no other form; and some served batch (a call
+    past the one warm-up call of its bucket) at a bucket where convs
+    pass the gate.  Returns the launches summed."""
+    gate = {}
+    total, served, lines = 0, 0, []
+    stats = []
+    for f in sorted(os.listdir(stats_dir)):
+        with open(os.path.join(stats_dir, f)) as fh:
+            stats.append(json.load(fh))
+    if len(stats) != FLEET_REPLICAS or any(s["pid"] == killed_pid
+                                           for s in stats):
+        raise RuntimeError(f"chip_smoke: [fleet] {len(stats)} replica "
+                           f"processes wrote their counts, expected the "
+                           f"{FLEET_REPLICAS} that exited cleanly")
+    for s in stats:
+        want = mine = 0
+        for b, n in s["calls"].items():
+            b = int(b)
+            if b not in gate:
+                gate[b] = len(eligible_1x1_shapes(infer, b))
+            want += gate[b] * n
+            mine += gate[b] * (n - 1)     # past --warmup-all's one call
+        served += mine
+        got = {k: v for k, v in s["forms"].items() if v}
+        if s["rc"] != 0 or got != ({"forward": want} if want else {}):
+            raise RuntimeError(f"chip_smoke: [fleet] replica {s['index']} "
+                               f"(pid {s['pid']}, rc {s['rc']}) launched "
+                               f"{got} over calls by batch {s['calls']}; the "
+                               f"gate expects forward {want}")
+        total += want
+        lines.append(f"replica{s['index']} pid {s['pid']}: calls by batch "
+                     f"{s['calls']}, K1 forward {want} ({mine} in served "
+                     f"batches), peak allocated "
+                     f"{s['peak_bytes'] / 2 ** 30:.2f} GiB")
+    print(f"[fleet] K1 fp32 forward in each replica process that exited "
+          f"(eligible convs by batch {dict(sorted(gate.items()))}): "
+          f"{'; '.join(lines)}; the SIGKILLed replica0 (pid {killed_pid}) "
+          f"wrote nothing, as expected; {card}")
+    if not served:
+        raise RuntimeError("chip_smoke: [fleet] no served batch reached a "
+                           "bucket where K1 runs")
+    return total
+
+
+def fleet_collect(router):
+    """The collector live: the router's replicas over the health-poll
+    piggyback, one source a replica process."""
+    from paddle_tpu_torch.observability import collector
+    live = collector.collect_router(router, timeout_s=10.0)
+    if sorted(live) != [f"serve:{i}" for i in range(FLEET_REPLICAS)]:
+        raise RuntimeError(f"chip_smoke: [fleet] collect_router gave "
+                           f"sources {sorted(live)}")
+    merged = collector.merge_snapshots(live)
+    print(f"[fleet] live collector over the router: sources "
+          f"{sorted(live)}, serving/requests "
+          f"{merged['metrics']['serving/requests']['value']:.0f}")
+    return merged
+
+
+def fleet_stats_cli(log_dir, card):
+    """``python -m paddle_tpu_torch fleet-stats LOG_DIR`` in a process of
+    its own, then the same logs merged with this router's snapshot."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import collector
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch", "fleet-stats", log_dir,
+         "--json"], capture_output=True, text=True, timeout=300, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root + os.pathsep
+                 + os.environ.get("PYTHONPATH", "")))
+    if out.returncode != 0:
+        raise RuntimeError(f"chip_smoke: [fleet] fleet-stats exited "
+                           f"{out.returncode}: {out.stderr[-2000:]}")
+    cli = json.loads(out.stdout.strip().splitlines()[-1])
+    want = [f"serve:{i}" for i in range(FLEET_REPLICAS)]
+    if sorted(cli["sources"]) != want:
+        raise RuntimeError(f"chip_smoke: [fleet] fleet-stats sources "
+                           f"{sorted(cli['sources'])}, expected {want}")
+    sources = collector.collect_logs(
+        sorted(os.path.join(log_dir, f) for f in os.listdir(log_dir)))
+    sources["fleet"] = {"metrics": obs.metrics_snapshot(),
+                        "identity": {"role": "fleet", "pid": os.getpid()}}
+    merged = collector.merge_snapshots(sources)
+    if sorted(merged["sources"]) != sorted(want + ["fleet"]):
+        raise RuntimeError(f"chip_smoke: [fleet] merged sources "
+                           f"{sorted(merged['sources'])}")
+    for line in collector.render_fleet(merged).splitlines():
+        if line.startswith(("fleet snapshot", "  source", "  http/",
+                            "  fleet/", "  serving/requests",
+                            "  serving/request_ms", "  serving/batches",
+                            "  device/peak", "  collector/")):
+            print(f"[fleet] fleet-stats: {line.strip()}")
+    print(f"[fleet] fleet-stats over the replicas' logs: sources "
+          f"{sorted(cli['sources'])} (the CLI), merged with the router's "
+          f"snapshot: {len(merged['sources'])} sources, one a process; {card}")
+
+
+def fleet_bench(card):
+    """The port's benchmark.fleet with its replicas on the card, at its
+    --smoke durations to fit the script's time (its FULL run is
+    ``python -m paddle_tpu_torch.benchmark.fleet``)."""
+    from paddle_tpu_torch.benchmark import fleet as bfleet
+    cfg = bfleet.SMOKE
+    t0 = time.perf_counter()
+    lines = []
+    row = bfleet.run(cfg, smoke=True, device=FLEET_DEVICE, quiet=True)
+    for key in ("host_parallel_probe", "saturation", "capacity_pairs",
+                "overload", "chaos_sigkill", "acceptance"):
+        v = row[key]
+        if key == "saturation":
+            v = {k: v[k] for k in ("offered_per_s", "served_per_s",
+                                   "latency_ms_p50", "latency_ms_p99",
+                                   "errors", "ladder") if k in v}
+        lines.append(f"[fleet] benchmark.fleet {key}: {json.dumps(v)}")
+    for line in lines:
+        print(line)
+    chaos = row["chaos_sigkill"]
+    print(f"[fleet] benchmark.fleet (shortened to its --smoke durations: "
+          f"{cfg['duration_s']} s arms, {cfg['pairs']} pair) took "
+          f"{time.perf_counter() - t0:.1f} s; r2/r1 "
+          f"{row['scaling']['speedup']} (host overlap of two processes "
+          f"around one card, not a second device); {card}")
+    if not (chaos["zero_admitted_drops"] and chaos["victim_relaunched_ready"]
+            and row["saturation"]["served_per_s"] > 0):
+        raise RuntimeError(f"chip_smoke: [fleet] benchmark.fleet: {chaos}")
+    return row
+
+
+def phase_fleet(seed, card):
+    """The serving fleet on the card (see the module docstring).  Returns
+    K1's fp32 forward launches summed over the replica processes."""
+    from paddle_tpu_torch import export_model
+    from paddle_tpu_torch.serving.http import HttpFront
+    t_phase = time.perf_counter()
+    model_dir, export_s = fleet_resnet_artifact(seed)
+    infer = build_resnet50(seed)[0]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    stats_dir, log_dir = os.path.join(root, "stats"), os.path.join(root,
+                                                                   "logs")
+    os.makedirs(stats_dir)
+    os.makedirs(log_dir)
+
+    # the direct calls: the parent's own load of the artifact, every
+    # image alone and in a batch of each bucket (eager calls)
+    rng = np.random.RandomState(seed + 31)
+    imgs = rng.rand(FLEET_IMAGES, 3, FLEET_IMG, FLEET_IMG).astype(
+        np.float32)
+    run, _ = export_model.load_compiled_model(model_dir,
+                                              device=FLEET_DEVICE)
+    refs = {}
+    for b in (1, 2, 4, 8, 16, 32):
+        if b < FLEET_IMAGES:        # each image in a batch of b copies
+            refs[b] = np.stack([
+                run({"img": np.repeat(imgs[i:i + 1], b, 0)})[0][0]
+                .cpu().numpy() for i in range(FLEET_IMAGES)])
+        else:                       # the images tiled to b rows
+            x = np.concatenate([imgs] * (b // FLEET_IMAGES))
+            refs[b] = run({"img": x})[0][:FLEET_IMAGES].cpu().numpy()
+    del run
+    torch.cuda.empty_cache()
+    enc_ms, dec_ms, nbytes = fleet_wire_cost(imgs[0])
+    print(f"[fleet] one request's JSON feeds on the host: encode "
+          f"{enc_ms:.1f} ms (tolist + dumps), parse {dec_ms:.1f} ms (loads + "
+          f"asarray), {nbytes / 1e6:.2f} MB of text; exact round trip")
+    bodies = [json.dumps({"id": i, "feeds": {"img": imgs[i].tolist()}})
+              for i in range(FLEET_IMAGES)]
+    feeds = [{"img": imgs[i].tolist()} for i in range(FLEET_IMAGES)]
+
+    router, spawned = fleet_router(model_dir, stats_dir, log_dir)
+    front = None
+    try:
+        ready = fleet_wait_ready(router, list(spawned), spawned, "start")
+        print(f"[fleet] {FLEET_REPLICAS} ResNet-50 fp32 replicas on the card "
+              f"(serve --warmup-all, max_batch {FLEET_MAX_BATCH}, max_wait "
+              f"{FLEET_MAX_WAIT_MS:.0f} ms, buckets 1-{FLEET_MAX_BATCH}): "
+              f"start to ready "
+              + ", ".join(f"{n} {s:.1f} s" for n, s in sorted(ready.items()))
+              + (f"; artifact exported in {export_s:.1f} s" if export_s
+                 else "; [inference]'s artifact"))
+        front = HttpFront(router, port=0).start()
+        lat, wall, bit = fleet_http_round(front, bodies, refs)
+        print(f"[fleet] HTTP: {FLEET_REQUESTS} single-image POSTs from "
+              f"{FLEET_CLIENTS} clients in {wall:.2f} s: "
+              f"{FLEET_REQUESTS / wall:.1f} req/s, p50 "
+              f"{lat[len(lat) // 2] * 1e3:.1f} ms, p99 "
+              f"{lat[int(0.99 * (len(lat) - 1))] * 1e3:.1f} ms; every row "
+              f"within {FLEET_TOL} of the direct call at batch 1, {bit} of "
+              f"{FLEET_REQUESTS} bit-equal to the direct call at some "
+              f"bucket; {card}")
+        import http.client
+        host, port = front.address
+        conn = http.client.HTTPConnection(host, port, timeout=60)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        health = json.loads(resp.read())
+        conn.request("GET", "/metrics")
+        mresp = conn.getresponse()
+        metrics = mresp.read().decode()
+        conn.close()
+        rows = [ln for ln in metrics.splitlines()
+                if ln.startswith(("paddle_tpu_http_", "paddle_tpu_fleet_"))]
+        print(f"[fleet] /healthz {resp.status}: ready {health['ready']}, "
+              f"replicas { {n: r['state'] for n, r in health['replicas'].items()} }"
+              f"; /metrics {mresp.status}: {len(rows)} http/fleet sample "
+              f"lines, e.g. {[r for r in rows if 'requests_total' in r]}")
+        if resp.status != 200 or not health["ready"] or mresp.status != 200 \
+                or not any(r.startswith("paddle_tpu_http_requests_total")
+                           for r in rows) \
+                or not any(r.startswith("paddle_tpu_http_request_ms_bucket")
+                           for r in rows):
+            raise RuntimeError("chip_smoke: [fleet] /healthz or /metrics is "
+                               "off")
+        fleet_collect(router)
+        killed = fleet_chaos(router, front, feeds, refs)
+    finally:
+        if front is not None:
+            front.stop()
+        router.shutdown(timeout_s=120)
+    k1 = fleet_k1_check(stats_dir, infer, killed, card)
+    fleet_stats_cli(log_dir, card)
+    torch.cuda.empty_cache()
+    fleet_bench(card)
+    print(f"[fleet] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return k1
+
+
 def attention_entries(row, launches):
     """The kernels JSON entries of K2, K3 and K4: times, errors and
     bounds at the slice's shape, launches from the main path's run."""
@@ -6593,6 +7157,12 @@ def main():
                          "paddle_tpu_torch elastic's), write its K1 "
                          "launches, steps and peak memory into DIR, and "
                          "exit with its code")
+    ap.add_argument("--fleet-child", metavar="DIR",
+                    help="run one serve replica of [fleet] (the arguments "
+                         "after '--' are python -m paddle_tpu_torch "
+                         "serve's), write its K1 launches, artifact calls "
+                         "and peak memory into DIR at a clean exit, and "
+                         "exit with its code")
     ap.add_argument("--fault-spec", default=None,
                     help="--elastic-child only: PADDLE_TPU_FAULT_SPEC for "
                          "this worker process")
@@ -6602,6 +7172,10 @@ def main():
     if args.elastic_child:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         elastic_child(args.elastic_child, args.fault_spec, args.child_argv)
+        return
+    if args.fleet_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        fleet_child(args.fleet_child, args.child_argv)
         return
     if args.supervised_child:
         phase_device()
@@ -6655,6 +7229,8 @@ def main():
                    split_wgrads(train_shapes), o_reports)
     torch.cuda.empty_cache()
     e_forms = phase_elastic(args.seed, card)
+    torch.cuda.empty_cache()
+    f_launches = phase_fleet(args.seed, card)
 
     # bf16: the served path and the AMP step; fp32: the served forward's
     # fp32 run and the fp32 step
@@ -6735,6 +7311,8 @@ def main():
               f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), library "
               f"{k['library_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms; "
               f"{k['launches']} launches on the {k['path']} path")
+    # [fleet]'s ResNet-50 replica processes run the same artifact
+    inf_entry["fleet_launches"] = f_launches
     kernels.append(inf_entry)
     print(f"[summary] {inf_entry['name']}, summed over one call at each of "
           f"the batches {INF_BATCHES} ({len(inf_entry['shapes_pcm'])} "
@@ -6742,7 +7320,8 @@ def main():
           f"{inf_entry['bound_ms']:.4f} ms ({inf_entry['bound_by']}), "
           f"library {inf_entry['library_ms']:.4f} ms, plain "
           f"{inf_entry['plain_ms']:.4f} ms; {inf_entry['launches']} launches "
-          f"on the inference path")
+          f"on the inference path, {f_launches} in [fleet]'s replica "
+          f"processes")
     kernels += bw_entries
     for k in bw_entries:
         print(f"[summary] {k['name']} at {k['size_mb']:.0f} MB f32: kernel "

@@ -41,8 +41,8 @@ from .metrics import (METRIC_NAMES, MetricsRegistry, enabled, inc_counter,
                       observe_hist, registry, set_gauge)
 from .export import (emit_event, iter_log_events, log_path,
                      maybe_periodic_report, metrics_snapshot,
-                     periodic_report, sample_device_memory,
-                     set_process_identity,
+                     periodic_report, process_identity,
+                     sample_device_memory, set_process_identity,
                      source_label, summarize_log, summarize_logs,
                      to_prometheus)
 from . import tracing
@@ -54,7 +54,7 @@ __all__ = [
     "emit_event", "log_path", "metrics_snapshot", "sample_device_memory",
     "periodic_report", "maybe_periodic_report", "summarize_log",
     "summarize_logs", "iter_log_events", "to_prometheus",
-    "set_process_identity", "source_label",
+    "set_process_identity", "process_identity", "source_label",
     "tracing", "SPAN_NAMES",
     "report",
 ]

@@ -37,13 +37,13 @@ __all__ = [
     "log_path", "emit_event", "metrics_snapshot", "sample_device_memory",
     "periodic_report", "maybe_periodic_report", "summarize_log",
     "summarize_logs", "iter_log_events", "to_prometheus", "prom_name",
-    "set_process_identity", "source_label",
+    "set_process_identity", "process_identity", "source_label",
 ]
 
 # Who this process is, stamped into every (re)opened JSONL log as the
 # first event the writer appends — multi-file merges then label sources
 # "pserver:1" instead of a bare argument index.  Process mains (the
-# pserver shard's) set this before their first emit.
+# pserver shard's, serve's, fleet's) set this before their first emit.
 _identity = {"role": None, "index": None}
 
 
@@ -54,6 +54,16 @@ def set_process_identity(role: Optional[str],
     stamping.  ``None`` resets to the default (``main``)."""
     _identity["role"] = None if role is None else str(role)
     _identity["index"] = None if index is None else int(index)
+
+
+def process_identity() -> dict:
+    """This process's stamped identity — ``{"role", "pid"[, "index"]}``
+    (role defaults to ``main``); what wire-metrics piggybacks attach so
+    the fleet collector labels each snapshot's source."""
+    out = {"role": _identity["role"] or "main", "pid": os.getpid()}
+    if _identity["index"] is not None:
+        out["index"] = _identity["index"]
+    return out
 
 
 def source_label(f: dict) -> str:

@@ -254,6 +254,49 @@ METRIC_NAMES = (
      "relaunch)"),
     ("elastic/resize_ms", "histogram",
      "wall time of one resize boundary: drain start to workers relaunched"),
+    # HTTP serving front (paddle_tpu_torch.serving.http): per-request writes
+    # are unconditional, same rationale as serving/* — the front IS the
+    # instrumented subsystem; training paths never reach these helpers
+    ("http/requests", "counter",
+     "HTTP inference requests received by the serving front"),
+    ("http/rejected", "counter",
+     "HTTP requests answered with a typed-rejection status (429/503/504) "
+     "or a 4xx protocol error"),
+    ("http/auth_failures", "counter",
+     "HTTP requests rejected 401/403 by the token -> model gate"),
+    ("http/request_ms", "histogram",
+     "HTTP request wall time: socket read to last response byte"),
+    # serving fleet (paddle_tpu_torch.serving.fleet): router + autoscaler
+    # writes are unconditional for the same reason
+    ("fleet/requests", "counter",
+     "requests routed to a replica by the fleet router"),
+    ("fleet/failovers", "counter",
+     "admitted requests resubmitted to another replica after their "
+     "replica died or closed mid-flight (the zero-drop path)"),
+    ("fleet/evictions", "counter",
+     "replicas removed from the routable set (breaker open, draining, "
+     "dead, or unresponsive health)"),
+    ("fleet/relaunches", "counter",
+     "dead replicas relaunched through the supervisor's bounded-restart "
+     "accounting"),
+    ("fleet/router_shed", "counter",
+     "requests rejected Overloaded at the FLEET rim (every ready "
+     "replica at the backlog limit) — cheaper than a replica-side shed "
+     "that pays wire+parse first"),
+    ("fleet/scale_outs", "counter",
+     "autoscaler scale-out decisions executed (replica added)"),
+    ("fleet/scale_ins", "counter",
+     "autoscaler scale-in decisions executed (replica drained + removed)"),
+    ("fleet/replicas", "gauge",
+     "current fleet size by state (labels: ready/warming/draining/dead)"),
+    # fleet metrics collector (observability.collector, imported lazily):
+    # only written inside collector merges — a fleet-stats run IS the
+    # workload
+    ("collector/merges", "counter",
+     "fleet snapshot merges executed by the metrics collector"),
+    ("collector/sources", "gauge",
+     "per-process sources folded into the most recent fleet snapshot "
+     "(labels: source kind — log/pserver/master/replica)"),
 )
 
 # ---------------------------------------------------------------------------
@@ -272,6 +315,8 @@ THREAD_NAME_PREFIXES = (
     ("pt-ckpt", "incremental checkpoint commit writer"),
     ("pt-serving", "serving batcher/dispatcher/stdin threads"),
     ("pt-decode", "continuous-batching decode loop"),
+    ("pt-http", "HTTP serving front acceptor"),
+    ("pt-fleet", "fleet router/drain/autoscale/replica-io threads"),
     ("pt-elastic", "elastic worker heartbeat daemons"),
     ("pt-master", "distributed master RPC server"),
     ("pt-pserver", "sparse pserver selector/acceptor loops"),
@@ -306,6 +351,7 @@ HISTOGRAM_BUCKETS: Dict[str, Tuple[float, ...]] = {
     "pserver/frame_ms": _MS_BUCKETS,
     "pserver/replication_lag_ms": _MS_BUCKETS,
     "checkpoint/commit_ms": _MS_BUCKETS,
+    "http/request_ms": _MS_BUCKETS,
 }
 _DEFAULT_BUCKETS = _MS_BUCKETS
 

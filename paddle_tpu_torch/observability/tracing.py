@@ -45,6 +45,7 @@ __all__ = [
     "SPAN_NAMES", "Span", "span", "start_span", "current_span",
     "add_event", "attach", "ROOT",
     "CTX_VERSION", "RemoteParent", "inject", "extract",
+    "extract_traceparent",
     "build_traces", "span_stats", "critical_path", "render_trace",
 ]
 
@@ -77,6 +78,11 @@ SPAN_NAMES = (
      "batched incremental-decode dispatch advancing every live slot by "
      "one token (retry attempts attach as span events); labels: model, "
      "active, step"),
+    ("http/request", "one HTTP front request: socket read -> backend "
+     "submit(s) -> last response byte; labels: method, path, status"),
+    ("fleet/autoscale", "one executed autoscaler decision: trigger "
+     "snapshot -> replica added or drained+removed; decision details "
+     "attach as span events"),
     ("opprof/op", "one op's measured windows in a per-op profile run "
      "(observability.opprof eager replay); labels: op_type, index"),
     ("elastic/resize", "one committed mesh resize boundary of the "
@@ -325,6 +331,31 @@ def extract(ctx) -> Optional[RemoteParent]:
             or not parts[1] or not parts[2]:
         return _reject_ctx()
     return RemoteParent(parts[1], parts[2])
+
+
+def extract_traceparent(header) -> Optional[RemoteParent]:
+    """Decode a W3C ``traceparent`` request header
+    (``<2 hex version>-<32 hex trace-id>-<16 hex parent-id>-<2 hex
+    flags>``) into a parent carrier.  The foreign ids are adopted
+    verbatim (trace id prefixed ``t`` like locally-minted ones), so an
+    edge client's trace id groups our server-side spans with its own.
+    Same reject contract as :func:`extract`: absent -> None silently,
+    malformed/all-zero/unsupported-version -> ignored-and-counted."""
+    if header is None:
+        return None
+    if not isinstance(header, str):
+        return _reject_ctx()
+    parts = header.strip().split("-")
+    if len(parts) < 4:
+        return _reject_ctx()
+    version, trace, parent = parts[0], parts[1], parts[2]
+    hexdigits = "0123456789abcdef"
+    if (len(version) != 2 or len(trace) != 32 or len(parent) != 16
+            or any(c not in hexdigits for c in version + trace + parent)
+            or version == "ff"
+            or trace == "0" * 32 or parent == "0" * 16):
+        return _reject_ctx()
+    return RemoteParent("t" + trace, parent)
 
 
 # ---------------------------------------------------------------------------

@@ -49,8 +49,10 @@ span per dispatched batch.  With it off no path of the server builds a
 span or writes the registry or the log.  The locks come from the lock
 watch (``testing/lockwatch.py``).
 
-Not ported yet: the HTTP front and the fleet router (ROADMAP Queue A
-item 9c).
+The stdio process form is ``serving/cli.py`` (``python -m
+paddle_tpu_torch serve``); the HTTP front (``serving/http.py``) and the
+fleet router (``serving/fleet.py``) front a server through its
+``submit``/``health`` surface.
 """
 from __future__ import annotations
 

@@ -654,6 +654,12 @@ class PServer:
                "pushes_applied": self.pushes_applied,
                "totals": dict(self._totals),
                "cuda_initialized": cuda_initialized()}
+        if header.get("metrics"):
+            # opt-in fleet-metrics piggyback for the collector: the
+            # default stats reply stays byte-stable
+            out["metrics"] = metrics_snapshot()
+            out["identity"] = {"role": "pserver", "index": self.shard,
+                               "pid": os.getpid()}
         return out, ()
 
     def _op_checkpoint(self, header, arrays):

@@ -214,3 +214,33 @@ def test_scan_covers_the_elastic_service():
     child = ast.dump(fns["elastic_child"])
     assert "paddle_tpu_torch.distributed.elastic" in child
     assert "elastic_main" in child
+
+
+def test_scan_covers_the_fleet_modules():
+    """The fleet slice's modules are scanned; chip_smoke.py's
+    ``--fleet-child`` mode runs the port's serve_main; and no module of
+    the port imports the HTTP front, the fleet, the serve command line
+    or the collector at its top level, so importing the package (or
+    ``paddle_tpu_torch.serving``) loads none of them (the subprocess check
+    is in tests/test_torch_fleet_chaos.py, ``@slow``)."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("serving/cli.py", "serving/http.py", "serving/fleet.py",
+                "observability/collector.py", "benchmark/fleet.py",
+                "__main__.py"):
+        assert os.path.join("paddle_tpu_torch", rel) in scanned, rel
+    lazy = ("paddle_tpu_torch.serving.http", "paddle_tpu_torch.serving.fleet",
+            "paddle_tpu_torch.serving.cli",
+            "paddle_tpu_torch.observability.collector")
+    bad = []
+    for p in _port_sources():
+        rel = os.path.relpath(p, ROOT)
+        for line, mod in _top_level_imports(p):
+            if mod.startswith(lazy):
+                bad.append(f"{rel}:{line}: {mod}")
+    assert not bad, "\n".join(bad)
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "--fleet-child" in ast.dump(fns["main"])
+    child = ast.dump(fns["fleet_child"])
+    assert "paddle_tpu_torch.serving.cli" in child and "serve_main" in child

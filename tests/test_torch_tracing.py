@@ -107,7 +107,7 @@ def test_span_names_frozen():
     with pytest.raises(KeyError, match="frozen"):
         tracing.start_span("executor/stpe")
     with pytest.raises(KeyError):
-        tracing.start_span("http/request")      # a JAX-only span
+        tracing.start_span("http/request_ms")   # a metric's name, no span
 
 
 def test_wire_context_round_trip_and_rejects():
