@@ -306,6 +306,28 @@ Phases, each of which raises on failure (so the script exits non-zero):
              and the port's benchmark.fleet with its replicas on the card
              at its --smoke durations, each arm and the
              acceptance row printed.
+22. tune   — the autotuner (tuning/: registry, search, store, targets):
+             (a) tuning.tune over cuda/conv1x1_plan (K1's slabs,
+             cluster and persistent schedule) at ResNet-50's stage-2
+             wgrad (dw [128, 512], K = 100352) and GoogLeNet's two
+             wgrad shapes, bf16: every candidate's dw held once against
+             mm_reference (a config conv1x1.check_launch refuses fails
+             its trial before it launches), K1's launches equal to the
+             trials' windows plus the checks, the trial table (ms a
+             launch beside torch.matmul's); (b) tuning.tune over
+             cuda/flash_attention (K2's and K3/K4's ring depths) at 8 x
+             32768 x 64 causal bf16, one forward and backward a window,
+             every depth's out, lse, dq, dk and dv held against the
+             plain versions and compared bit for bit with the default
+             depth, K2-K4 counted; (c) the host targets through tune
+             (executor/run_pipelined, serving/batcher and
+             serving/decode_slots on the card, the rest at smoke); (d)
+             replay: a non-default cuda/flash_attention record in a
+             temporary store reaches the long-context program's op
+             attrs and the launched plans' depths under
+             Executor(autotune=True); with autotune off the program is
+             today's (digest), bit-equal, with equal K2-K4 launches; the
+             store probed once a call site.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline and
 zoo runs captured (Executor(use_jit=True), each step one CUDA graph replay; the
@@ -7050,6 +7072,362 @@ def phase_fleet(seed, card):
     return k1
 
 
+# ---------------------------------------------------------------------------
+# [tune]: the autotuner on the card
+# ---------------------------------------------------------------------------
+# K1's wgrad (dw[M, C] = gout[P, M]^T x[P, C], K = P) at ResNet-50's
+# stage-2 shape (the JAX target's, tuning/targets.py:379) and GoogLeNet's
+# two wgrad shapes, as (label, P, C, M)
+TUNE_CONV = (("resnet50 stage-2", 100352, 512, 128),
+             ("googlenet 3b", 93312, 256, 128),
+             ("googlenet 4c", 21632, 512, 128))
+TUNE_CONV_STEPS = 10          # K1 launches a window
+TUNE_FLASH_T = 32768          # 8 heads x T x d 64, causal, bf16
+TUNE_REPLAY_T = 8192          # the long-context program of the replay
+TUNE_REPLAY_STEPS = 3
+TUNE_REPLAY_CFG = {"fwd_stages": 2, "bwd_stages": 2}
+TUNE_HOST_CARD = ("executor/run_pipelined", "serving/batcher",
+                  "serving/decode_slots")
+TUNE_HOST_SMOKE = ("reader/prefetch", "sparse/hot_rows", "sparse/prefetch",
+                   "sparse/push_flush")
+TUNE_VALID = ("winner", "noise_gate_refusal", "default_is_best")
+
+
+def tune_root():
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "tune")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def tune_conv_shape(label, P, C, M, card):
+    """cuda/conv1x1_plan searched at one wgrad shape: each candidate held
+    once against mm_reference, then tuning.tune; K1's launches read
+    around both.  Returns (launches, row for the JSON table)."""
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.tuning import search, targets, tunables
+    measure = targets.build_target("cuda/conv1x1_plan", shape=(P, C, M),
+                                   steps=TUNE_CONV_STEPS)
+    gout, x = measure.operands
+    entry = tunables.get_tunable("cuda/conv1x1_plan")
+    conv1x1.reset_counts()
+    ref = conv1x1.mm_reference(gout, x, True, False)
+    tol = deep_tol(torch.bfloat16, P)
+    base = conv1x1.mm(gout, x, True, False)
+    checks, refused, same, worst = 1, 0, 0, 0.0
+    plans = {}
+    for cfg in tunables.grid_configs(entry):
+        p = conv1x1.plan_for(cfg, M, C, P, True, False,
+                             sms=conv1x1._sm_count(gout.device))
+        plans[repr(sorted(cfg.items()))] = p
+        try:
+            conv1x1.check_launch(p)
+        except ValueError:
+            refused += 1
+            continue
+        dw = conv1x1.mm(gout, x, True, False, config=cfg)
+        checks += 1
+        torch.cuda.synchronize()
+        err = (dw.float() - ref.float()).abs()
+        if not bool((err <= tol["atol"] + tol["rtol"] * ref.float().abs())
+                    .all()):
+            raise RuntimeError(f"chip_smoke: [tune] K1 at {label} under "
+                               f"{cfg} differs from mm_reference by "
+                               f"{err.max().item()}")
+        worst = max(worst, err.max().item())
+        same += bool(torch.equal(dw, base))
+    checked = conv1x1.launches()
+    t0 = time.perf_counter()
+    doc = search.tune("cuda/conv1x1_plan", measure, reps=3, pairs=5,
+                      context=measure.context, save=False)
+    search_s = time.perf_counter() - t0
+    launches = conv1x1.launches()
+    if doc["status"] == "pending_hardware" or doc["status"] not in \
+            TUNE_VALID:
+        raise RuntimeError(f"chip_smoke: [tune] cuda/conv1x1_plan at "
+                           f"{label}: {doc['status']}")
+    want = checked + measure.windows * TUNE_CONV_STEPS
+    if checked != checks or launches != want:
+        raise RuntimeError(f"chip_smoke: [tune] K1 launched {launches} at "
+                           f"{label}: {checks} checks and {measure.windows} "
+                           f"windows of {TUNE_CONV_STEPS} give {want}")
+    trials = doc["search"]["trials"]
+    failed = [t for t in trials if t["status"] != "ok"]
+    if len(failed) != refused or any("refused before launch" not in (t["error"] or "")
+                                     for t in failed):
+        raise RuntimeError(f"chip_smoke: [tune] {len(failed)} failed trials "
+                           f"at {label}, {refused} refused plans expected: "
+                           f"{[t['error'] for t in failed][:3]}")
+    A = gout.t()
+    mat = time_ms(lambda: torch.matmul(A, x), iters=20, warmup=3)
+    rows = sorted(
+        ((t["seconds"] / TUNE_CONV_STEPS * 1e3, t["config"],
+          plans[repr(sorted(t["config"].items()))]) for t in trials
+         if t["status"] == "ok"), key=lambda r: r[0])
+    rule = [r for r in rows if r[1] == entry["default"]][0]
+    print(f"[tune] cuda/conv1x1_plan at {label} (wgrad dw [{M}, {C}], K = "
+          f"{P}, bf16; {len(trials)} configs, {refused} refused before "
+          f"launch; search {search_s:.1f} s): {doc['status']}, best "
+          f"{doc['search']['best']}; the rule (splits {rule[2].splits}, "
+          f"cluster {rule[2].cluster}, partials {rule[2].partials}) "
+          f"{rule[0]:.4f} ms a launch, torch.matmul {mat:.4f} ms; every "
+          f"candidate within {tol} of mm_reference (max abs err "
+          f"{worst:.3e}), {same} of {checks - 1} bit-equal to the rule's; K1 "
+          f"launches {launches} = {checks} checks + {measure.windows} "
+          f"windows x {TUNE_CONV_STEPS}; {card}")
+    seen = set()
+    for ms, cfg, p in rows:
+        key = (p.splits, p.cluster, p.ctas > 0)
+        if key in seen:
+            continue
+        seen.add(key)
+        print(f"[tune]   {label}: splits {p.splits:>2} cluster {p.cluster} "
+              f"partials {p.partials} persistent {p.ctas > 0!s:<5} "
+              f"{ms:.4f} ms ({ms / mat:.3f} x matmul) {cfg}")
+    if "ab" in doc:
+        print(f"[tune]   {label}: A/B of {doc['search']['best']} against "
+              f"the rule: speedup {doc['ab']['speedup']}, pair ratios "
+              f"{doc['ab']['pair_ratios']}, "
+              f"{doc['ab']['refusal_reason'] or 'accepted'}")
+    row = {"label": label, "P": P, "C": C, "M": M, "status": doc["status"],
+           "matmul_ms": mat, "search_s": search_s, "launches": launches,
+           "checks": checks, "ab": doc.get("ab"),
+           "trials": [dict(t, ms=None if t["seconds"] is None else
+                           t["seconds"] / TUNE_CONV_STEPS * 1e3)
+                      for t in trials]}
+    del measure, gout, x, ref, base
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def tune_flash(card):
+    """cuda/flash_attention searched at 8 x TUNE_FLASH_T x 64 causal:
+    each depth held against the plain versions and against the default
+    depth's bits, then tuning.tune.  Returns (K2-K4 launches, row)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.tuning import search, targets, tunables
+    measure = targets.build_target("cuda/flash_attention", T=TUNE_FLASH_T)
+    q, k, v, g = measure.operands
+    entry = tunables.get_tunable("cuda/flash_attention")
+    fa.reset_counts()
+    d = entry["default"]
+    out0, lse0 = fa.flash_fwd(q, k, v, True, stages=d["fwd_stages"])
+    grads0 = fa.flash_bwd(q, k, v, out0, lse0, g, True,
+                          stages=d["bwd_stages"])
+    ro, rl = fa.flash_fwd_reference(q, k, v, True)
+    refs = fa.flash_bwd_reference(q, k, v, out0, lse0, g, True)
+    torch.cuda.synchronize()
+    tol = ATT_TOL[torch.bfloat16]
+    rows, checks = [], 1
+    for cfg in tunables.grid_configs(entry):
+        if cfg == d:
+            out, lse, grads = out0, lse0, grads0
+        else:
+            out, lse = fa.flash_fwd(q, k, v, True, stages=cfg["fwd_stages"])
+            grads = fa.flash_bwd(q, k, v, out, lse, g, True,
+                                 stages=cfg["bwd_stages"])
+            checks += 1
+            torch.cuda.synchronize()
+        label = f"[tune] depths {cfg}"
+        errs = [att_close(f"{label} out", out, ro, tol)[0]]
+        e_lse = (lse - rl).abs().max().item()
+        if not e_lse <= LSE_TOL:
+            raise RuntimeError(f"chip_smoke: {label} lse differs by {e_lse}")
+        errs += [att_close(f"{label} d{n}", a, b, tol)[0]
+                 for n, a, b in zip("qkv", grads, refs)]
+        bits = [bool(torch.equal(a, b)) for a, b in
+                zip((out, lse) + tuple(grads), (out0, lse0) + tuple(grads0))]
+        rows.append((cfg, errs, e_lse, bits))
+    del out, lse, grads, ro, rl, refs
+    before = dict(fa.launches)
+    t0 = time.perf_counter()
+    doc = search.tune("cuda/flash_attention", measure, reps=3, pairs=5,
+                      save=False)
+    search_s = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    want = {n: checks + measure.windows for n in ATT_REPLACES}
+    if before != {n: checks for n in ATT_REPLACES} or launches != want:
+        raise RuntimeError(f"chip_smoke: [tune] K2-K4 launched {launches} "
+                           f"({before} in the checks), expected {want}")
+    if doc["status"] not in TUNE_VALID:
+        raise RuntimeError(f"chip_smoke: [tune] cuda/flash_attention: "
+                           f"{doc['status']}")
+    ms = {repr(sorted(t["config"].items())): t["seconds"] * 1e3
+          for t in doc["search"]["trials"] if t["status"] == "ok"}
+    print(f"[tune] cuda/flash_attention at {ATT_HEADS} x {TUNE_FLASH_T} x "
+          f"{ATT_DIM} causal bf16 ({len(rows)} depths, one forward and "
+          f"backward a window; search {search_s:.1f} s): {doc['status']}, "
+          f"best {doc['search']['best']}; K2-K4 launches {launches} = "
+          f"{checks} checks + {measure.windows} windows; {card}")
+    for cfg, errs, e_lse, bits in rows:
+        t = ms.get(repr(sorted(cfg.items())))
+        print(f"[tune]   fwd {cfg['fwd_stages']} bwd {cfg['bwd_stages']}: "
+              + (f"{t:.3f} ms a step; " if t is not None else "failed; ")
+              + f"max_abs_err out {errs[0]:.3e} lse {e_lse:.3e} dq "
+              f"{errs[1]:.3e} dk {errs[2]:.3e} dv {errs[3]:.3e} (tol {tol}); "
+              f"bit-equal to the default depth in out, lse, dq, dk, dv: "
+              f"{bits}")
+    if "ab" in doc:
+        print(f"[tune]   A/B of {doc['search']['best']} against the "
+              f"default: speedup {doc['ab']['speedup']}, pair ratios "
+              f"{doc['ab']['pair_ratios']}, "
+              f"{doc['ab']['refusal_reason'] or 'accepted'}")
+    row = {"status": doc["status"], "search_s": search_s,
+           "launches": launches, "trials": doc["search"]["trials"],
+           "ab": doc.get("ab"),
+           "held": [{"config": c, "max_abs_err": e, "lse_err": el,
+                     "bit_equal_to_default": b} for c, e, el, b in rows]}
+    del measure, q, k, v, g, out0, lse0, grads0
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def tune_host(card):
+    """The host targets through tuning.tune: the three that touch the
+    card at their full sizes, the rest at smoke."""
+    from paddle_tpu_torch.tuning import search, targets
+    rows = []
+    for name in TUNE_HOST_CARD + TUNE_HOST_SMOKE:
+        smoke = name in TUNE_HOST_SMOKE
+        t0 = time.perf_counter()
+        measure = targets.build_target(name, smoke=smoke)
+        doc = search.tune(name, measure, reps=2, pairs=3, save=False)
+        wall = time.perf_counter() - t0
+        if doc["status"] not in TUNE_VALID:
+            raise RuntimeError(f"chip_smoke: [tune] {name}: {doc['status']}")
+        trials = doc["search"]["trials"]
+        ok = {repr(sorted(t["config"].items())): t["seconds"] * 1e3
+              for t in trials if t["status"] == "ok"}
+        d_ms, b_ms = (ok.get(repr(sorted(c.items()))) for c in (
+            doc["search"]["default"], doc["search"]["best"]))
+        print(f"[tune] {name} ({'smoke' if smoke else 'full'}, "
+              f"{len(trials)} configs, {len(ok)} ok, {wall:.1f} s): "
+              f"{doc['status']}, default {doc['search']['default']} "
+              f"{d_ms} ms a window, best {doc['search']['best']} {b_ms} ms"
+              + (f"; A/B speedup {doc['ab']['speedup']}, pair ratios "
+                 f"{doc['ab']['pair_ratios']}" if "ab" in doc else "")
+              + f"; {card}")
+        rows.append({"tunable": name, "smoke": smoke, "status": doc["status"],
+                     "wall_s": wall, "best": doc["search"]["best"],
+                     "trials": trials, "ab": doc.get("ab")})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tune_replay_run(seed, autotune):
+    """The long-context program at TUNE_REPLAY_T built and run
+    TUNE_REPLAY_STEPS captured steps (after a warm-up and a capture) from
+    its startup, the autotune flag and Executor(autotune=) as given.
+    Returns (op attrs, digest, losses, final scope, launches by stages,
+    K2-K4 launches)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.core.compile_cache import program_content_digest
+    from paddle_tpu_torch.ops import flash_attention as fa
+    flags.set_flag("autotune", bool(autotune))
+    main, startup, loss = build_longctx(seed, T=TUNE_REPLAY_T)
+    op = [o for o in main.global_block().ops if o.type == "flash_attention"]
+    start = ptt.Scope()
+    exe = ptt.Executor(amp=True, autotune=autotune)
+    exe.run(startup, scope=start)
+    exe.run_steps(2, main, fetch_list=[loss], scope=clone_scope(start))
+    scope = clone_scope(start)
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    capture_stats().reset()
+    losses, = exe.run_steps(TUNE_REPLAY_STEPS, main, fetch_list=[loss],
+                            scope=scope)
+    torch.cuda.synchronize()
+    check_captured("[tune] replay", capture_stats().snapshot(),
+                   TUNE_REPLAY_STEPS)
+    out = (dict(op[0].attrs), program_content_digest(main), losses, scope,
+           dict(fa.launches_by_stages), dict(fa.launches))
+    exe.close()
+    return out
+
+
+def tune_replay(seed, root, card):
+    """A non-default cuda/flash_attention record in a temporary store
+    reaches the op attrs and the launched depths under autotune; with
+    autotune off the program is today's and its steps bit-equal."""
+    from paddle_tpu_torch import flags, tuning
+    from paddle_tpu_torch.tuning import store
+    prev = {n: flags.get_flag(n) for n in ("cache_dir", "autotune")}
+    try:
+        # today's program: no store, autotune off
+        flags.set_flag("cache_dir", "")
+        tuning.clear_memo()
+        ref = tune_replay_run(seed, False)
+        flags.set_flag("cache_dir", os.path.join(root, "store"))
+        path = tuning.save_record("cuda/flash_attention", TUNE_REPLAY_CFG)
+        tuning.clear_memo()
+        tuned = tune_replay_run(seed, True)
+        tune_replay_run(seed, True)         # a second build: no new probe
+        probes = store.probes()
+        off = tune_replay_run(seed, False)
+    finally:
+        for n, v in prev.items():
+            flags.set_flag(n, v)
+        tuning.clear_memo()
+    attrs, _, t_losses, _, t_stages, t_launch = tuned
+    f, b = TUNE_REPLAY_CFG["fwd_stages"], TUNE_REPLAY_CFG["bwd_stages"]
+    want_stages = {("fwd", f): TUNE_REPLAY_STEPS,
+                   ("bwd_dq", b): TUNE_REPLAY_STEPS,
+                   ("bwd_dkv", b): TUNE_REPLAY_STEPS}
+    if (attrs.get("fwd_stages"), attrs.get("bwd_stages")) != (f, b) or \
+            t_stages != want_stages:
+        raise RuntimeError(f"chip_smoke: [tune] the replayed record "
+                           f"{TUNE_REPLAY_CFG} gave op attrs {attrs} and "
+                           f"launches by depth {t_stages}")
+    if not np.isfinite(t_losses).all():
+        raise RuntimeError(f"chip_smoke: [tune] replayed losses {t_losses}")
+    if set(probes.values()) != {1}:
+        raise RuntimeError(f"chip_smoke: [tune] the store was probed "
+                           f"{probes}")
+    r_attrs, r_digest, r_losses, r_scope, r_stages, r_launch = ref
+    o_attrs, o_digest, o_losses, o_scope, o_stages, o_launch = off
+    if "fwd_stages" in o_attrs or o_digest != r_digest or \
+            o_launch != r_launch or o_stages != r_stages:
+        raise RuntimeError(f"chip_smoke: [tune] autotune off gave attrs "
+                           f"{o_attrs}, launches {o_stages}; today's "
+                           f"{r_attrs}, {r_stages}")
+    same_fetches("[tune] untuned losses", [o_losses], [r_losses])
+    n = same_scopes("[tune] untuned final scope", o_scope, r_scope)
+    print(f"[tune] replay: record {TUNE_REPLAY_CFG} at "
+          f"{os.path.relpath(path, root)}; the long-context program (T "
+          f"{TUNE_REPLAY_T}, AMP, {TUNE_REPLAY_STEPS} captured steps) under "
+          f"Executor(autotune=True): op attrs fwd_stages {f} bwd_stages "
+          f"{b}, launches by depth {t_stages}, losses {t_losses.tolist()} "
+          f"(untuned {r_losses.tolist()}); store probes {probes}; autotune "
+          f"off: today's digest, launches {o_stages}, losses and all {n} "
+          f"scope entries bit-equal to a run with no store; {card}")
+    return t_launch
+
+
+def phase_tune(seed, card):
+    """The autotuner on the card (see the module docstring).  Returns
+    (K1 launches, K2-K4 launches) of the phase."""
+    t_phase = time.perf_counter()
+    root = tune_root()
+    conv_rows, k1 = [], 0
+    for label, P, C, M in TUNE_CONV:
+        n, row = tune_conv_shape(label, P, C, M, card)
+        k1 += n
+        conv_rows.append(row)
+    flash_launches, flash_row = tune_flash(card)
+    host_rows = tune_host(card)
+    replay_launches = tune_replay(seed, root, card)
+    with open(os.path.join(root, "tune_results.json"), "w") as fh:
+        json.dump({"device": card, "conv1x1_plan": conv_rows,
+                   "flash_attention": flash_row, "host": host_rows},
+                  fh, indent=1, default=str)
+    print(f"[tune] phase {time.perf_counter() - t_phase:.1f} s (trial "
+          f"tables in build/tune/tune_results.json); {card}")
+    return k1, {n: flash_launches[n] + replay_launches.get(n, 0)
+                for n in ATT_REPLACES}
+
+
 def attention_entries(row, launches):
     """The kernels JSON entries of K2, K3 and K4: times, errors and
     bounds at the slice's shape, launches from the main path's run."""
@@ -7231,6 +7609,8 @@ def main():
     e_forms = phase_elastic(args.seed, card)
     torch.cuda.empty_cache()
     f_launches = phase_fleet(args.seed, card)
+    torch.cuda.empty_cache()
+    tune_k1, tune_flash_launches = phase_tune(args.seed, card)
 
     # bf16: the served path and the AMP step; fp32: the served forward's
     # fp32 run and the fp32 step
@@ -7260,6 +7640,9 @@ def main():
                 k["elastic_launches"] = e_forms.get(form, 0)
             entries[2]["elastic_reduce_launches"] = e_forms.get(
                 "splitk_reduce", 0)
+        if dtype == torch.bfloat16:
+            # [tune]'s plan search runs the bf16 wgrad
+            entries[2]["tune_launches"] = tune_k1
         kernels += entries
         for k in [step_forward] + entries[1:]:
             lib = "-" if k["library_ms"] is None else \
@@ -7295,6 +7678,7 @@ def main():
     kernels += attention_entries(att_row, att_launches)
     for k, name in zip(kernels[-3:], ATT_REPLACES):
         k["opprof_launches"] = o_flash.get(name, 0)
+        k["tune_launches"] = tune_flash_launches[name]
     for k in kernels[-3:]:
         print(f"[summary] {k['name']} at BH {ATT_HEADS} x T {ATT_T} x d "
               f"{ATT_DIM}, causal, bf16: kernel {k['ms']:.3f} ms, bound "

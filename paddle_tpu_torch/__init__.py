@@ -59,6 +59,10 @@ from .weights import load_numpy_state
 from . import faults
 from . import observability, profiler
 
+# the JAX package's version, folded into the fingerprints of the port's
+# persistent records (core/compile_cache.environment_key)
+__version__ = "0.2.0"
+
 __all__ = [
     "core", "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
     "default_main_program", "default_startup_program", "global_scope",

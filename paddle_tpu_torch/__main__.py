@@ -1,5 +1,5 @@
 """``python -m paddle_tpu_torch <subcommand>`` (counterpart of
-``paddle_tpu/cli.py``'s entry).  The port has five subcommands:
+``paddle_tpu/cli.py``'s entry).  The port has six subcommands:
 
 * ``pserver --shard k/N [--host H] [--port P] [--dir D] [--backup H:P]``:
   one sparse parameter-server shard (``sparse/pserver.py``), host only.
@@ -17,10 +17,13 @@
 * ``fleet-stats SOURCE... [--master H:P] [--json|--prom]``: merge the
   metrics snapshots of JSONL logs, pserver endpoints and a master into
   one labeled fleet view (``observability/collector.py``), host only.
+* ``tune <tunable> | --list [--algo grid|halving] [--budget N] [--smoke]
+  [--cache-dir DIR] [--no-save] [--out FILE] ...``: the persistent
+  autotuner (``tuning/cli.py``); device tunables search on the card.
 
 Every other subcommand of the JAX command line (running a v1 config,
-``check``, ``plan``, ``stats``, ``trace``, ``doctor``, ``profile``,
-``tune``, ...) is refused with the ROADMAP item that brings it.
+``check``, ``plan``, ``stats``, ``trace``, ``doctor``, ``profile``, ...)
+is refused with the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ _NOT_PORTED = "ROADMAP.md Queue A item 9e (the command line)"
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     # every subcommand is a lazy import: importing the package never
-    # loads a socket stack, the elastic service or the serving fleet
+    # loads a socket stack, the elastic service, the serving fleet or
+    # the autotuner
     if argv and argv[0] == "pserver":
         from .sparse.pserver import pserver_main
         return pserver_main(argv[1:])
@@ -48,10 +52,14 @@ def main(argv=None) -> int:
     if argv and argv[0] == "fleet-stats":
         from .observability.collector import fleet_stats_main
         return fleet_stats_main(argv[1:])
+    if argv and argv[0] == "tune":
+        from .tuning.cli import tune_main
+        return tune_main(argv[1:])
     what = argv[0] if argv else "(none)"
     print(f"paddle_tpu_torch: subcommand {what!r} is not ported yet "
           f"({_NOT_PORTED}); the port's command line has 'pserver', "
-          f"'elastic', 'serve', 'fleet' and 'fleet-stats'", file=sys.stderr)
+          f"'elastic', 'serve', 'fleet', 'fleet-stats' and 'tune'",
+          file=sys.stderr)
     return 2
 
 

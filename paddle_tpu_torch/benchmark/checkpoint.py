@@ -1,7 +1,7 @@
 """Incremental-checkpoint benchmark: a delta of the sparse tables' dirty
 rows against a full save (the port's counterpart of the JAX package's
 ``benchmark/checkpoint.py``), paired alternating windows
-(``benchmark.harness.paired_ab``: median of per-pair ratios, a noise
+(``tuning.search.paired_ab``: median of per-pair ratios, a noise
 gate, raw windows kept, refusals recorded).
 
 The commit path is host-side (the tables are host numpy; serialization,
@@ -41,7 +41,7 @@ import time
 
 import numpy as np
 
-from .harness import device_label, paired_ab, write_results
+from .harness import device_label, write_results
 
 FULL = {
     "vocab": 2_000_000,
@@ -165,6 +165,7 @@ def run_commit_ab(cfg, workdir, quiet=False):
                            a["t"].retract_delta(tk))
         arm["bytes"].append(int(box["bytes"]))
 
+    from ..tuning.search import paired_ab
     ab = paired_ab(measure, {"mode": "full"}, {"mode": "delta"},
                    pairs=cfg["ab_pairs"], warmup=1, min_speedup=5.0)
     # the bytes gate reads the timed windows' manifests (not the warm-up)
@@ -240,6 +241,7 @@ def run_elastic_tasks(cfg, workdir, quiet=False):
             ck._save(0, 0)                      # the async commit
         ck.manager.wait()                       # task_finished's barrier
 
+    from ..tuning.search import paired_ab
     ab = paired_ab(measure, {"mode": "full"}, {"mode": "delta"},
                    pairs=cfg["elastic_pairs"], warmup=1)
     ab["tasks_per_window"] = per_win

@@ -22,7 +22,7 @@ tiny form).  Rows, each beside the card's name and power limit:
   training loop (``steady``, gate 1.5x), fresh-table pulls
   (``cold_init``) and the synchronous rim against pull-ahead prefetch
   with async pushes (``overlap``), each the median of per-pair ratios
-  with its raw windows (``benchmark.harness.paired_ab``);
+  with its raw windows (``tuning.search.paired_ab``);
 * ``cache``: the hot-rows cache's hit rate under read-only Zipf
   traffic (the serving path; host only).
 
@@ -52,7 +52,7 @@ import time
 
 import numpy as np
 
-from .harness import device_label, observed, paired_ab, write_results
+from .harness import device_label, observed, write_results
 
 # The JAX runner's premise: a per-device HBM share budgeted for
 # embeddings, which the big table's dense form exceeds.  Not this card's.
@@ -329,6 +329,7 @@ def run_vectorization_ab(cfg, place=None, quiet=False):
         _train_window(arm["sess"], arm["exe"], arm["prog"],
                       arm["loss_name"], next_window(arm), arm["scope"])
 
+    from ..tuning.search import paired_ab
     steady = paired_ab(measure_steady, {"impl": "reference"},
                        {"impl": "vectorized"}, pairs=pairs, warmup=1,
                        min_speedup=1.5)

@@ -20,7 +20,7 @@ Rows, each beside the card's name and power limit:
 * ``inter_token_ms``: p50/p99 of the gap between a sequence's tokens;
 * ``slot_occupancy``: live slots over all slots at decode steps;
 * ``ab``: alternating static/continuous windows
-  (``benchmark.harness.paired_ab``), gate 1.3x decode tokens/s;
+  (``tuning.search.paired_ab``), gate 1.3x decode tokens/s;
 * ``arms_tokens_identical``: every request's tokens equal across the
   two schedulers.
 
@@ -45,7 +45,7 @@ import time
 
 import numpy as np
 
-from .harness import device_label, observed, paired_ab, write_results
+from .harness import device_label, observed, write_results
 
 
 FULL = {
@@ -153,6 +153,7 @@ def run_ab(cfg, place=None, quiet=False):
             _, last_outs[config["mode"]] = run_window(
                 pools[config["mode"]], reqs)
 
+        from ..tuning.search import paired_ab
         ab = paired_ab(measure, {"mode": "static"},
                        {"mode": "continuous"}, pairs=cfg["ab_pairs"],
                        warmup=cfg["warmup"],

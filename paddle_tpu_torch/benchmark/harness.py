@@ -1,11 +1,7 @@
 """What the port's benchmark runners (``ctr``, ``decode``, ``serving``,
-``pserver``, ``checkpoint``) share.
+``pserver``, ``checkpoint``, ``autotune``, ``conv_kernel``, ``longctx``)
+share.  Their paired A/B is ``tuning.search.paired_ab``.
 
-* :func:`paired_ab`: the paired alternating A/B (the port's copy of
-  ``paddle_tpu/tuning/search.py:258-304``).  Windows of the default and
-  the candidate alternate, so a slow stretch of a shared host falls on
-  both arms; the verdict is the median of the per-pair time ratios with
-  a noise gate, and the raw windows ride along so a refusal can be read.
 * :func:`write_results`: a runner's results file, under ``build/`` of
   the checkout by default.
 * :func:`device_label`: what a row ran on: the card's name and power
@@ -20,52 +16,12 @@ import itertools
 import json
 import os
 import sys
-import time
 
-import numpy as np
-
-__all__ = ["paired_ab", "write_results", "device_label", "observed"]
+__all__ = ["write_results", "device_label", "observed"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _LOG_SEQ = itertools.count()
-
-
-def paired_ab(measure, default_config, candidate_config, *, pairs=5,
-              warmup=1, min_speedup=1.10, min_winning_fraction=0.75):
-    """Run ``warmup`` untimed pairs, then ``max(2, pairs)`` timed pairs of
-    ``measure(config)``, default first in each.  Accepted when the median
-    of default/candidate time ratios reaches ``min_speedup`` and at least
-    ``min_winning_fraction`` of the pairs favour the candidate.  Returns
-    the verdict with the raw windows."""
-    for _ in range(max(0, warmup)):
-        measure(dict(default_config))
-        measure(dict(candidate_config))
-    d_windows, c_windows = [], []
-    for _ in range(max(2, pairs)):
-        t0 = time.perf_counter()
-        measure(dict(default_config))
-        d_windows.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        measure(dict(candidate_config))
-        c_windows.append(time.perf_counter() - t0)
-    ratios = [d / c for d, c in zip(d_windows, c_windows)]
-    med = float(np.median(ratios))
-    winning = sum(1 for r in ratios if r > 1.0) / len(ratios)
-    accepted = med >= min_speedup and winning >= min_winning_fraction
-    if accepted:
-        reason = None
-    elif med < min_speedup:
-        reason = (f"median pair ratio {med:.3f} < min_speedup "
-                  f"{min_speedup}: inside the noise band")
-    else:
-        reason = (f"only {winning:.0%} of pairs favor the candidate "
-                  f"(< {min_winning_fraction:.0%})")
-    return {"speedup": med, "pair_ratios": ratios,
-            "default_windows": d_windows, "candidate_windows": c_windows,
-            "min_speedup": min_speedup,
-            "min_winning_fraction": min_winning_fraction,
-            "accepted": bool(accepted), "refusal_reason": reason}
 
 
 def write_results(out, smoke, default_name, benchmark, row):

@@ -5,7 +5,7 @@ The shard servers run as ``python -m paddle_tpu_torch pserver``
 processes, each with one torch thread (``pserver_main`` sets it: a
 shard's thread pool beside the client's oversubscribes the host), so a
 shard's work never shares the timed client's GIL.  Every arm is measured
-in paired alternating windows (``benchmark.harness.paired_ab``: median of
+in paired alternating windows (``tuning.search.paired_ab``: median of
 per-pair ratios, a noise gate, raw windows kept).  The tier is host-side
 (sockets, numpy and the host's torch); the rows name the card's name and
 power limit of the machine they ran on.  Arms:
@@ -47,7 +47,7 @@ import time
 
 import numpy as np
 
-from .harness import device_label, paired_ab, write_results
+from .harness import device_label, write_results
 
 HOST = "127.0.0.1"
 READY_TIMEOUT_S = 180
@@ -189,6 +189,7 @@ def run_wire_ab(cfg, addrs, quiet=False):
     try:
         feeds = _feed(cfg, (max(2, cfg["ab_pairs"]) + 1) * cfg["ab_rounds"],
                       cfg["ab_batch"], seed=1)
+        from ..tuning.search import paired_ab
         ab = paired_ab(_rounds_measure(arms, feeds, cfg["ab_rounds"], "wire"),
                        {"wire": "naive"}, {"wire": "binary"},
                        pairs=cfg["ab_pairs"], warmup=1, min_speedup=3.0)
@@ -268,6 +269,7 @@ def run_trace_overhead_ab(cfg, addrs, quiet=False):
             arms[observe] = {"rt": rt, "cursor": 0}
         feeds = _feed(cfg, (max(2, cfg["trace_pairs"]) + 1)
                       * cfg["trace_rounds"], cfg["trace_batch"], seed=7)
+        from ..tuning.search import paired_ab
         ab = paired_ab(_rounds_measure(arms, feeds, cfg["trace_rounds"],
                                        "observe"),
                        {"observe": True}, {"observe": False},
@@ -319,6 +321,7 @@ def run_shard_pipelining_ab(cfg, fleets=None, quiet=False):
             arms[n] = {"rt": rt, "cursor": 0}
         feeds = _feed(cfg, (max(2, cfg["pipe_pairs"]) + 1)
                       * cfg["pipe_rounds"], cfg["pipe_batch"], seed=4)
+        from ..tuning.search import paired_ab
         ab = paired_ab(_rounds_measure(arms, feeds, cfg["pipe_rounds"],
                                        "shards"),
                        {"shards": 1}, {"shards": 2},

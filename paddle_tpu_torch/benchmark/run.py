@@ -22,10 +22,10 @@ the median of ``reps`` timed ones.  One JSON line per config:
 MKL-DNN, as ``ref_source`` says) in the same unit, or null; no figure
 here is a TPU one.  ``--device cpu`` runs on the CPU (tiny sizes are
 ``run_config(sizes=...)``'s business).  ``--model input_pipeline`` runs
-``benchmark.input_pipeline``, and ``ctr``, ``decode``, ``pserver`` and
-``checkpoint`` run the port's runner of that name (``--smoke`` for their
-tiny sizes); the JAX runner's ``compile_cache`` and ``autotune``
-delegates are not ported.
+``benchmark.input_pipeline``, and ``ctr``, ``decode``, ``pserver``,
+``checkpoint`` and ``autotune`` run the port's runner of that name
+(``--smoke`` for their tiny sizes); the JAX runner's ``compile_cache``
+delegate is not ported.
 """
 from __future__ import annotations
 
@@ -69,7 +69,6 @@ LARGE_CNNS = ("alexnet", "googlenet", "resnet50", "vgg19")
 NOT_PORTED = {
     "compile_cache": "ROADMAP Queue A item 6 (the disk layer of "
                      "core/compile_cache.py)",
-    "autotune": "ROADMAP Queue A item 9d (tuning/)",
 }
 
 
@@ -249,10 +248,10 @@ def main(argv=None):
                          "resnet50, vgg19, lstm_h<hidden>, seq2seq), or "
                          "'input_pipeline' for the naive-vs-pipelined "
                          "wide_deep A/B, or a runner: ctr, decode, "
-                         "pserver, checkpoint")
+                         "pserver, checkpoint, autotune")
     ap.add_argument("--smoke", action="store_true",
-                    help="input_pipeline, ctr, decode, pserver and "
-                         "checkpoint only: tiny sizes")
+                    help="input_pipeline, ctr, decode, pserver, "
+                         "checkpoint and autotune only: tiny sizes")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--iters", type=int, default=None,
                     help="steps per timed window (default: 60 for the "
@@ -289,6 +288,10 @@ def main(argv=None):
     if args.model == "checkpoint":
         from .checkpoint import main as checkpoint_main
         checkpoint_main(smoke)
+        return 0
+    if args.model == "autotune":
+        from .autotune import main as autotune_main
+        autotune_main(smoke)
         return 0
     if args.model == "input_pipeline":
         from .input_pipeline import run_workload

@@ -45,15 +45,32 @@ from typing import Dict
 
 import torch
 
-__all__ = ["fingerprint_hex", "program_content_digest", "ExecCache",
+__all__ = ["environment_key", "cache_dir", "fingerprint_hex",
+           "program_content_digest", "ExecCache",
            "CaptureStats", "stats", "register_launch_counter",
            "launch_counters", "capture_launches", "replay_launches"]
 
 
+_env_key = None
+
+
 def environment_key():
     """Process-environment component of every fingerprint: a captured
-    step is valid only for the same torch and CUDA versions."""
-    return (torch.__version__, str(torch.version.cuda))
+    step or a tuning record is valid only for the same torch, CUDA and
+    port versions."""
+    global _env_key
+    if _env_key is None:
+        from .. import __version__
+        _env_key = (torch.__version__, str(torch.version.cuda), __version__)
+    return _env_key
+
+
+def cache_dir() -> str:
+    """Active persistent-cache root ('' = off): the ``cache_dir`` flag,
+    which ``PADDLE_TPU_TORCH_CACHE_DIR`` seeds.  The tuning store keeps
+    its records under it."""
+    from .. import flags
+    return str(flags.get_flag("cache_dir") or "")
 
 
 def fingerprint_hex(sig) -> str:

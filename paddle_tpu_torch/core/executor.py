@@ -53,6 +53,11 @@ step's capture key is taken: an invalid program raises
 captured replay never pays for the check.  ``analysis`` is imported only
 when validation is on.
 
+Autotuning (``tuning/``): ``Executor(autotune=True)`` (or the
+``autotune`` flag) makes ``run_pipelined`` take omitted knobs from the
+persisted ``executor/run_pipelined`` winner; off, or with no record, the
+defaults are today's (4, 2).  ``tuning`` is imported only when it is on.
+
 Not ported yet: ``Executor.compile`` and the disk cache.
 """
 from __future__ import annotations
@@ -74,9 +79,26 @@ from ..flags import get_flag
 from ..testing import faultinject as _fi
 from . import compile_cache
 from .program import Block, Operator, Program, Variable, grad_var_name
-from .registry import get_op_impl
+from .registry import get_op_impl, register_tunable, resolve_tuned
 from .scope import Scope, global_scope, to_numpy
 from .types import to_torch_dtype
+
+# ---------------------------------------------------------------------------
+# Autotuner knob (paddle_tpu_torch.tuning), declared beside the code it
+# controls; nothing loads the tuning package until an opt-in replays it.
+# The JAX package's space and default (its core/executor.py:53).
+# ---------------------------------------------------------------------------
+register_tunable(
+    "executor/run_pipelined", side="host",
+    space={"steps_per_dispatch": (1, 2, 4, 8, 16),
+           "prefetch_depth": (1, 2, 4)},
+    default={"steps_per_dispatch": 4, "prefetch_depth": 2},
+    description="run_pipelined dispatch chunking: steps stacked per "
+                "captured K-step dispatch, and staged dispatches in "
+                "flight.  Larger K amortizes the host's dispatch; deeper "
+                "prefetch hides staging; both cost memory and tail "
+                "latency, and the right point depends on the workload "
+                "and the host.")
 
 
 # ---------------------------------------------------------------------------
@@ -782,6 +804,9 @@ class Executor:
     defers to the ``validate`` flag.  Errors raise
     ``ProgramVerificationError`` before any capture; warnings are
     emitted as Python warnings.  Not part of the step's key.
+    ``autotune``: replay persisted autotuner winners into this
+    executor's tuned knobs (``run_pipelined``'s omitted ones); None
+    defers to the ``autotune`` flag.
 
     Each captured step keeps a private memory pool about one step's
     activations in size.  At most ``MAX_CACHED_STEPS`` captured steps are
@@ -802,7 +827,8 @@ class Executor:
                  observe: Optional[bool] = None,
                  check_nan_inf: bool = False,
                  compute_dtype: Optional[str] = None,
-                 validate: Optional[bool] = None):
+                 validate: Optional[bool] = None,
+                 autotune: Optional[bool] = None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.amp = amp
@@ -831,6 +857,8 @@ class Executor:
         # its id() is validated afresh) -> {(version, fetches)}
         self.validate = validate
         self._validated = weakref.WeakKeyDictionary()
+        # persisted-autotuner replay; None defers to the `autotune` flag
+        self.autotune = autotune
 
     def graph_pools(self) -> list:
         """The memory-pool handles of the captured steps' graphs (the
@@ -1054,6 +1082,18 @@ class Executor:
             feeds, feeds_stacked, lambda: self._steps(
                 program, per_step, fetch_names, scope, is_test),
             post, return_numpy)
+
+    # -- autotuner replay -----------------------------------------------------
+    def _autotuning(self) -> bool:
+        """Resolved autotune switch: per-executor override, else flag."""
+        if self.autotune is not None:
+            return bool(self.autotune)
+        return bool(get_flag("autotune"))
+
+    def _tuned(self, name: str, default: Dict[str, object]):
+        """A tuned call site's config: the persisted winner under the
+        autotune opt-in, else ``default`` itself."""
+        return resolve_tuned(name, default, self.autotune)
 
     # -- observability --------------------------------------------------------
     def _observing(self) -> bool:
@@ -1394,7 +1434,8 @@ class Executor:
 
         ``feed_iter`` yields host feed dicts (e.g. ``DataFeeder.feed``
         output).  A staging thread groups consecutive same-signature feeds
-        into runs of ``steps_per_dispatch`` (default 4), stacks each run
+        into runs of ``steps_per_dispatch`` (default 4, or the persisted
+        ``executor/run_pipelined`` winner under autotune), stacks each run
         along a new leading axis (:func:`stack_feeds`) into pinned host
         memory and copies it to the device on a stream of its own; up to
         ``prefetch_depth`` (default 2) staged dispatches wait in a bounded
@@ -1427,8 +1468,16 @@ class Executor:
         # before the staging thread starts: an invalid program stages
         # nothing (the dispatches below then hit the memo)
         self._maybe_validate(program, _fetch_names(fetch_list))
-        K = int(4 if steps_per_dispatch is None else steps_per_dispatch)
-        depth = int(2 if prefetch_depth is None else prefetch_depth)
+        if steps_per_dispatch is None or prefetch_depth is None:
+            cfg = self._tuned("executor/run_pipelined",
+                              {"steps_per_dispatch": 4,
+                               "prefetch_depth": 2})
+            if steps_per_dispatch is None:
+                steps_per_dispatch = cfg["steps_per_dispatch"]
+            if prefetch_depth is None:
+                prefetch_depth = cfg["prefetch_depth"]
+        K = int(steps_per_dispatch)
+        depth = int(prefetch_depth)
         if K < 1:
             raise ValueError(
                 f"run_pipelined: steps_per_dispatch must be >= 1, got {K}")

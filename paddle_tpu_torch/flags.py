@@ -64,3 +64,20 @@ define_flag("validate", False,
             "memoized per (program version, fetches).  Per-executor "
             "override: Executor(validate=...); per-call: "
             "trainer.SGD.train(validate=...)")
+define_flag("cache_dir", "",
+            "persistent cache root (PADDLE_TPU_TORCH_CACHE_DIR); empty = "
+            "off.  The autotuner keeps its records under <cache_dir>/"
+            "tuning/ (tuning/store.py); the executor's disk layer of "
+            "captured steps is not ported")
+define_flag("autotune", False,
+            "replay persisted autotuner winners (paddle_tpu_torch.tuning) "
+            "at the tuned call sites: run_pipelined dispatch chunking, "
+            "reader prefetch workers and buffer, the serving batcher, the "
+            "decode slot pool, the sparse session's knobs, and the flash "
+            "attention layer's ring depths.  Off: every call site takes "
+            "today's default, the same object.  On with no record: the "
+            "defaults again; replay never searches.  Per-instance "
+            "override: Executor(autotune=...), Server(autotune=...), "
+            "DecodeEngine/DecodeRuntime(autotune=...); search with "
+            "`python -m paddle_tpu_torch tune <target>`  "
+            "(PADDLE_TPU_TORCH_AUTOTUNE=1)")

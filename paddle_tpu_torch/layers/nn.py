@@ -661,21 +661,31 @@ def flash_attention(q, k, v, causal=False, block_q=None, block_k=None,
     (``ops/flash_attention.py``).  q/k/v: [B, T, H, D] or [BH, T, D].
 
     ``block_q``/``block_k`` default to 1024 x 1024, the JAX layer's
-    default with autotuning off (the port has no tunable registry yet);
-    they are the TPU tile sizes and here decide only the plain route
-    for ragged lengths.  ``sequence_parallel`` and ``interpret`` are
-    recorded as op attrs, as the JAX layer does, and ignored by the
-    port's op."""
+    default with autotuning off; they are the TPU tile sizes and here
+    decide only the plain route for ragged lengths.
+    ``sequence_parallel`` and ``interpret`` are recorded as op attrs, as
+    the JAX layer does, and ignored by the port's op.
+
+    With the ``autotune`` flag on and a persisted ``cuda/flash_attention``
+    record for this card, the record's ring depths become the op's
+    ``fwd_stages``/``bwd_stages`` attrs, resolved here at build time so
+    the program's content digest (and each captured step's key) sees
+    them.  With no record, or the flag off, the op has no such attrs and
+    the kernels take their plans' own depths."""
     block_q = 1024 if block_q is None else block_q
     block_k = 1024 if block_k is None else block_k
+    from ..core.registry import resolve_tuned
+    default = {"fwd_stages": None, "bwd_stages": None}
+    stages = resolve_tuned("cuda/flash_attention", default)
     helper = LayerHelper("flash_attention", name=name)
     out_shape = tuple(q.shape[:-1]) + (v.shape[-1],)
     out = helper.create_variable_for_type_inference(q.dtype, out_shape)
+    attrs = {"causal": causal, "block_q": block_q, "block_k": block_k,
+             "sequence_parallel": sequence_parallel,
+             "interpret": interpret}
+    if stages is not default:
+        attrs.update(stages)
     helper.append_op(type="flash_attention",
                      inputs={"Q": [q], "K": [k], "V": [v]},
-                     outputs={"Out": [out]},
-                     attrs={"causal": causal, "block_q": block_q,
-                            "block_k": block_k,
-                            "sequence_parallel": sequence_parallel,
-                            "interpret": interpret})
+                     outputs={"Out": [out]}, attrs=attrs)
     return out

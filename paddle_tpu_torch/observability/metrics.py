@@ -289,6 +289,26 @@ METRIC_NAMES = (
      "autoscaler scale-in decisions executed (replica drained + removed)"),
     ("fleet/replicas", "gauge",
      "current fleet size by state (labels: ready/warming/draining/dead)"),
+    # autotuner (paddle_tpu.tuning): search-time writes are cold paths
+    # (a search IS the workload) and replay writes fire once per
+    # (call site, process) — the zero-overhead-when-off contract covers
+    # untuned training paths, which never reach these helpers
+    ("tuning/trials", "counter",
+     "autotuner trials executed (ok + failed + timeout)"),
+    ("tuning/trial_ms", "histogram",
+     "wall time per autotuner trial (all windows incl. warmup)"),
+    ("tuning/failures", "counter",
+     "autotuner trials recorded failed or timeout (contained, never "
+     "crash the search)"),
+    ("tuning/winners", "counter",
+     "tunables whose candidate cleared the paired-A/B noise gate and "
+     "was persisted"),
+    ("tuning/refusals", "counter",
+     "searches ending in an explicit refusal (noise gate, or no viable "
+     "config)"),
+    ("tuning/replays", "counter",
+     "persisted winners replayed into call sites by tuned() (first "
+     "lookup per site per process)"),
     # fleet metrics collector (observability.collector, imported lazily):
     # only written inside collector merges — a fleet-stats run IS the
     # workload
@@ -320,6 +340,7 @@ THREAD_NAME_PREFIXES = (
     ("pt-elastic", "elastic worker heartbeat daemons"),
     ("pt-master", "distributed master RPC server"),
     ("pt-pserver", "sparse pserver selector/acceptor loops"),
+    ("pt-tune", "autotuner trial client threads"),
     ("pt-loadgen", "benchmark load generator's closed-loop client "
      "workers"),
 )
@@ -352,6 +373,7 @@ HISTOGRAM_BUCKETS: Dict[str, Tuple[float, ...]] = {
     "pserver/replication_lag_ms": _MS_BUCKETS,
     "checkpoint/commit_ms": _MS_BUCKETS,
     "http/request_ms": _MS_BUCKETS,
+    "tuning/trial_ms": _MS_BUCKETS,
 }
 _DEFAULT_BUCKETS = _MS_BUCKETS
 

@@ -8,7 +8,8 @@ step's time goes to, and how far each is from the static cost model.
   ``@GRAD``), then the update ops — with the step's own input coercion
   (``nanprov.make_eager_context``), so every op times at the precision
   the step computes at.  Each op is timed over warm-up-discarded
-  windows (:func:`time_windows`); on the card a window's time is a pair
+  windows (``tuning.search.time_windows``, the host clock, on the CPU);
+  on the card a window's time is a pair
   of CUDA events on the current stream around the op, read after the
   window's end event, and on the CPU the host clock.  Each window places
   the random ops' streams at the step again, so every window draws the
@@ -23,7 +24,9 @@ step's time goes to, and how far each is from the static cost model.
   digest and op type — what ``analysis.planner.plan(op_class_ratios=)``
   reads through ``attribution.load_op_class_ratios``) and the ranked
   where-the-time-goes report by op class (:func:`xla_loses_here`, under
-  the JAX package's name) naming :data:`PALLAS_CANDIDATES`' classes.
+  the JAX package's name) naming :data:`PALLAS_CANDIDATES`' classes,
+  each with the decision rule of its counterpart tunable
+  (:data:`CANDIDATE_TUNABLES`).
   The join is best-effort, as in the JAX package: a program the model
   cannot walk profiles measured-only, with a warning.
 * **Memory timeline** — the liveness walk's per-op live-bytes curve from
@@ -37,7 +40,6 @@ paddle_tpu_torch.benchmark.opprof`` is its driver.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -49,8 +51,8 @@ from . import tracing as _tracing
 logger = logging.getLogger("paddle_tpu_torch")
 
 __all__ = [
-    "TOLERANCE", "PALLAS_CANDIDATES", "synth_feeds", "synth_state",
-    "time_windows", "cuda_time_windows", "profile_program",
+    "TOLERANCE", "PALLAS_CANDIDATES", "CANDIDATE_TUNABLES", "synth_feeds",
+    "synth_state", "cuda_time_windows", "profile_program",
     "render_profile", "op_class_rows", "xla_loses_here",
 ]
 
@@ -61,9 +63,12 @@ TOLERANCE = 0.15
 
 # The JAX package's expansion candidates: op classes whose domination in
 # a measured profile names a candidate kernel (a fused optimizer update
-# over all parameters; gather/scatter over padded sequence layouts).
-# Names only: the decision rules and hardware flags the JAX package
-# attaches from its tunables wait for the port's tuning (ROADMAP item 9d).
+# over all parameters; gather/scatter over padded sequence layouts), by
+# the JAX package's names.  CANDIDATE_TUNABLES names each one's
+# counterpart on the card, a pending tunable declared beside the ops
+# (ops/optimizer_ops.py, ops/sequence_ops.py), whose decision rule and
+# hardware flag a report's entry carries, as the JAX entries carry
+# theirs.
 _OPTIMIZER_OPS = frozenset((
     "sgd", "momentum", "adam", "adamax", "adagrad", "adadelta",
     "decayed_adagrad", "rmsprop", "ftrl", "proximal_gd",
@@ -76,6 +81,10 @@ _LOD_SEQUENCE_OPS = frozenset((
 PALLAS_CANDIDATES: Dict[str, str] = {
     **{t: "pallas/fused_optimizer_update" for t in _OPTIMIZER_OPS},
     **{t: "pallas/lod_gather_scatter" for t in _LOD_SEQUENCE_OPS},
+}
+CANDIDATE_TUNABLES: Dict[str, str] = {
+    "pallas/fused_optimizer_update": "cuda/fused_optimizer_update",
+    "pallas/lod_gather_scatter": "cuda/lod_gather_scatter",
 }
 
 
@@ -200,27 +209,11 @@ def synth_state(program, scope=None, batch: int = 64,
 # ---------------------------------------------------------------------------
 # The measured walk
 # ---------------------------------------------------------------------------
-def time_windows(call: Callable[[], object], *, reps: int = 3,
-                 warmup: int = 1, unit: int = 1) -> dict:
-    """Time ``call`` (which must block until its work is done) over
-    ``reps`` windows after ``warmup`` discarded ones, on the host clock.
-    Returns median seconds per ``unit`` plus the raw windows and the
-    (max-min)/median spread in percent (the JAX package's
-    ``tuning.search.time_windows``)."""
-    for _ in range(max(0, warmup)):
-        call()
-    times = []
-    for _ in range(max(1, reps)):
-        t0 = time.perf_counter()
-        call()
-        times.append(time.perf_counter() - t0)
-    return _window_stats(times, unit)
-
-
 def cuda_time_windows(call: Callable[[], object], *, reps: int = 3,
                       warmup: int = 1, unit: int = 1) -> dict:
-    """:func:`time_windows` on the card: each window is the time between
-    two CUDA events recorded on the current stream around ``call``
+    """``tuning.search.time_windows`` on the card: each window is the
+    time between two CUDA events recorded on the current stream around
+    ``call``
     (which launches and does not wait), read once the end event is
     done."""
     for _ in range(max(0, warmup)):
@@ -352,7 +345,14 @@ def xla_loses_here(rows, total_ms: float, top: int) -> List[dict]:
         }
         cand = PALLAS_CANDIDATES.get(op_type)
         if cand:
+            from ..core.registry import get_tunable, has_tunable
             entry["pallas_candidate"] = cand
+            name = CANDIDATE_TUNABLES[cand]
+            if has_tunable(name):
+                t = get_tunable(name)
+                entry["tunable"] = name
+                entry["decision_rule"] = t["decision_rule"]
+                entry["pending_hardware"] = t["pending_hardware"]
         ranked.append(entry)
     return ranked[:max(1, top)]
 
@@ -378,8 +378,9 @@ def profile_program(program, *, executor=None, feed=None, state=None,
     ``fetch_list`` names vars to materialize).
 
     ``measure(call, reps=, warmup=)`` must run ``call`` at least once and
-    return the :func:`time_windows` dict (default: :func:`cuda_time_windows`
-    on the card, :func:`time_windows` on the CPU) — injectable so a test's
+    return the ``time_windows`` dict (default: :func:`cuda_time_windows`
+    on the card, ``tuning.search.time_windows`` on the CPU) — injectable
+    so a test's
     fake timer exercises the walk deterministically.  The call order is
     the JAX package's: one measurement per op in execution order, then
     one of the full replay (the eager total the per-op table must sum to
@@ -401,7 +402,10 @@ def profile_program(program, *, executor=None, feed=None, state=None,
         scope = global_scope()
     on_card = executor.device.type == "cuda"
     if measure is None:
-        measure = cuda_time_windows if on_card else time_windows
+        if on_card:
+            measure = cuda_time_windows
+        else:
+            from ..tuning.search import time_windows as measure
 
     gb = program.global_block()
     host_feed = dict(feed) if feed is not None \
@@ -653,7 +657,12 @@ def render_profile(report: dict, top: int = 10) -> str:
                 f"({round(e['share'] * 100, 1)}%)"
                 + (f", ratio {e['ratio']}x" if e.get("ratio") else "")
                 + (f" -> {e['pallas_candidate']}"
+                   + (" [pending hardware]" if e.get("pending_hardware")
+                      else "")
                    if e.get("pallas_candidate") else ""))
+            if e.get("decision_rule"):
+                lines.append(f"      rule ({e['tunable']}): "
+                             f"{e['decision_rule']}")
     mem = report.get("memory") or {}
     if mem:
         line = (f"memory: measured peak "

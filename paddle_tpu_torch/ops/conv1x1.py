@@ -55,9 +55,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.compile_cache import register_launch_counter
+from ..core.registry import register_tunable
 from . import cuda_build
 
-__all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "splitk_reduce",
+__all__ = ["mm", "mm_reference", "matmul", "plan", "Plan", "plan_for",
+           "check_launch", "splitk_reduce",
            "splitk_reduce_reference", "conv2d_1x1",
            "conv2d_1x1_reference", "conv2d_1x1_with_bn_stats",
            "conv2d_1x1_grad_fused", "conv1x1_eligible",
@@ -310,6 +312,120 @@ def plan(M: int, N: int, K: int, ta: bool, tb: bool, dtype=torch.bfloat16,
         a_box=a_box, b_box=b_box)
 
 
+# A bf16 slab of more than MAX_BF16_SLAB_STEPS K steps (32768 of K) is
+# refused before launch: the tensor cores' fp32 accumulation in a slab
+# drifts with its length.  On the H100 at ResNet-50's stage-2 wgrad (K =
+# 100352) the largest error over its limit (chip_smoke.py's deep_tol)
+# read 0.56 at 392 steps, 1.05 at 784 and 2.82 at 1568, against 0.47 at
+# plan()'s 40 (benchmark.conv_kernel --slab-accuracy; PERF.md).  plan()'s
+# slabs at the port's shapes are at most 49 steps.
+MAX_BF16_SLAB_STEPS = 512
+
+# Autotuner knob (paddle_tpu_torch.tuning) of K1's launch: the fields
+# conv1x1_mm takes at run time (csrc/conv1x1_mm.cu, conv1x1_mm's splits,
+# cluster and persistent_ctas); the tile and the ring's depth are
+# compiled in and stay out.  "rule" is what plan() chooses, so the
+# default config is plan() itself at every shape and form.  No call site
+# replays it: plan() stays the rule, and the search's trial table (the
+# [tune] phase of chip_smoke.py, benchmark.conv_kernel) is the finding.
+RULE = "rule"
+register_tunable(
+    "cuda/conv1x1_plan", side="device",
+    space={"splits": (RULE, 1, 2, 4, 8, 16, 24, 32, 40, 72),
+           "cluster": (RULE, 1, 2, 4, 8),
+           "persistent": (RULE, False)},
+    default={"splits": RULE, "cluster": RULE, "persistent": RULE},
+    description="K1's launch plan (ops/conv1x1.py plan): slabs of K, "
+                "the cluster that folds them, and the bf16 persistent "
+                "schedule; 'rule' is plan()'s own choice.  A config the "
+                "kernel would refuse, or a bf16 slab too long to stay in "
+                "tolerance, fails its trial before it launches "
+                "(check_launch).",
+    pending_hardware=True,
+    decision_rule="change plan()'s rule only when the on-card "
+                  "conv_kernel search (tuning.search, paired windows) "
+                  "shows a non-rule plan >= 1.10x geomean faster than "
+                  "the rule over ResNet-50's and GoogLeNet's eligible "
+                  "1x1 shapes of its form and dtype, with no per-shape "
+                  "regression > 5% and every candidate held against "
+                  "mm_reference")
+
+
+def plan_for(config, M: int, N: int, K: int, ta: bool, tb: bool,
+             dtype=torch.bfloat16, sms: int = 132, out_stats: bool = False,
+             a_colsum: bool = False, out_dtype=torch.bfloat16) -> Plan:
+    """The :class:`Plan` of a ``cuda/conv1x1_plan`` config: :func:`plan`
+    itself where every field is ``"rule"`` (or ``config`` is None), else
+    the rule's plan with ``splits``, ``cluster`` and the persistent
+    schedule replaced.  ``"rule"`` in one field keeps the rule's way of
+    deriving it from the others: the cluster is ``min(splits, the
+    dtype's cluster limit)``, the schedule persistent for one bf16 slab
+    with a bf16 output and no ``a_colsum``.  Pure; the result may be one
+    the kernel refuses (:func:`check_launch`)."""
+    base = plan(M, N, K, ta, tb, dtype, sms, out_stats, a_colsum, out_dtype)
+    if config is None or all(v == RULE for v in config.values()):
+        return base
+    bf16 = dtype == torch.bfloat16
+    splits = config.get("splits", RULE)
+    splits = base.splits if splits == RULE else int(splits)
+    cluster = config.get("cluster", RULE)
+    cluster = min(splits, _CLUSTER_MAX if bf16 else _F32_CLUSTER_MAX) \
+        if cluster == RULE else int(cluster)
+    persistent = config.get("persistent", RULE)
+    persistent = (bf16 and splits == 1 and not a_colsum
+                  and out_dtype == torch.bfloat16) if persistent == RULE \
+        else bool(persistent)
+    stages = base.stages
+    if bf16:
+        stages = _STAGES_PERSISTENT if persistent else _STAGES_ONE_TILE
+    return dataclasses.replace(
+        base, stages=stages,
+        ctas=min(base.tiles, _BLOCKS_AN_SM * sms) if persistent else 0,
+        splits=splits,
+        kchunk=max(1, _cdiv(base.ksteps, max(1, splits))) * base.tile[2],
+        cluster=cluster,
+        partials=splits // cluster if splits > cluster else 0)
+
+
+def check_launch(p: Plan, dtype=torch.bfloat16, out_stats: bool = False,
+                 a_colsum: bool = False, out_dtype=torch.bfloat16):
+    """Raise ValueError, before anything launches, where ``conv1x1_mm``
+    (csrc/conv1x1_mm.cu) would refuse the launch of ``p`` (its checks on
+    splits, cluster, the ``out_stats`` epilogue and the persistent
+    schedule), where a slab would have no K step, and where a bf16 slab
+    passes MAX_BF16_SLAB_STEPS.  (The operands' rows and alignment are
+    :func:`plan`'s and :func:`mm`'s.)"""
+    bf16 = dtype == torch.bfloat16
+    problems = []
+    if not 1 <= p.splits <= 65535:
+        problems.append(f"splits={p.splits} outside 1..65535")
+    if p.splits > p.ksteps:
+        problems.append(f"splits={p.splits} > {p.ksteps} K steps (a slab "
+                        f"of no K step)")
+    if bf16 and 1 <= p.splits and \
+            _cdiv(p.ksteps, p.splits) > MAX_BF16_SLAB_STEPS:
+        problems.append(f"a bf16 slab of {_cdiv(p.ksteps, p.splits)} K "
+                        f"steps > {MAX_BF16_SLAB_STEPS} (its accumulation "
+                        f"drifts out of tolerance)")
+    if not 1 <= p.cluster <= 8:
+        problems.append(f"cluster={p.cluster} outside 1..8")
+    elif p.splits % p.cluster:
+        problems.append(f"splits={p.splits} not a multiple of "
+                        f"cluster={p.cluster}")
+    if out_stats and p.splits > 1:
+        problems.append("the out_stats epilogue needs one slab")
+    if p.ctas < 0:
+        problems.append(f"ctas={p.ctas} < 0")
+    if p.ctas > 0 and (not bf16 or p.splits != 1 or a_colsum
+                       or out_dtype != torch.bfloat16):
+        problems.append("the persistent schedule takes one bf16 slab with "
+                        "a bf16 output and no a_colsum")
+    if problems:
+        raise ValueError(f"conv1x1: plan refused before launch "
+                         f"(M={p.M} N={p.N} K={p.K}): "
+                         + "; ".join(problems))
+
+
 def _sm_count(device) -> int:
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
@@ -358,7 +474,7 @@ def _on_device(dev, fn):
 
 
 def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
-       a_colsum=False):
+       a_colsum=False, config=None):
     """O[M,N] = op(A) @ op(B), op = transpose where ``ta``/``tb``.
 
     CUDA tensors run the hand-written kernel (fp32 or bf16 inputs of one
@@ -368,13 +484,25 @@ def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
     sum of squares of each output column ([N] each); ``a_colsum`` (wgrad
     form only) the fp32 sum over K of each row of logical A ([M]).
     The result is ``O``, or a tuple ``(O, sum, sumsq)``, ``(O, csum)``
-    or ``(O, sum, sumsq, csum)``."""
+    or ``(O, sum, sumsq, csum)``.
+
+    ``config``: a ``cuda/conv1x1_plan`` config launched in place of
+    :func:`plan`'s (:func:`plan_for`; the autotuner's trials).  A plan
+    :func:`check_launch` refuses raises ValueError before anything
+    launches, on the CPU too (there with 132 SMs)."""
     M, N, K = _dims(a, b, ta, tb)
     out_dtype = out_dtype or a.dtype
     if a_colsum and not ta:
         raise ValueError("mm: the a_colsum epilogue is the wgrad (ta=True) "
                          "path")
     dev, bdev = a.device, b.device
+    tuned = None
+    if config is not None:
+        tuned = plan_for(config, M, N, K, bool(ta), bool(tb), a.dtype,
+                         _sm_count(dev) if dev.type == "cuda" else 132,
+                         bool(out_stats), bool(a_colsum), out_dtype)
+        check_launch(tuned, a.dtype, bool(out_stats), bool(a_colsum),
+                     out_dtype)
     if dev.type == "cpu" and bdev.type == "cpu":
         return mm_reference(a, b, ta, tb, out_dtype, out_stats, a_colsum)
     if dev.type != "cuda" or dev != bdev:
@@ -391,8 +519,8 @@ def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
     if -(-M // _TILE) > _MAX_GRID_Y or max(M, N, K) >= 2 ** 31:
         raise ValueError(f"mm: shape M={M} N={N} K={K} exceeds the "
                          f"kernel's grid")
-    p = plan(M, N, K, bool(ta), bool(tb), a.dtype, _sm_count(dev),
-             bool(out_stats), bool(a_colsum), out_dtype)
+    p = tuned or plan(M, N, K, bool(ta), bool(tb), a.dtype, _sm_count(dev),
+                      bool(out_stats), bool(a_colsum), out_dtype)
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("mm: operands must start on a 16-byte boundary "
                          "(TMA)")

@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.compile_cache import register_launch_counter
-from ..core.registry import register_op
+from ..core.registry import register_op, register_tunable
 from . import cuda_build
 
 __all__ = ["NEG_INF", "flash_fwd", "flash_bwd", "flash_bwd_dq",
@@ -54,7 +54,8 @@ __all__ = ["NEG_INF", "flash_fwd", "flash_bwd", "flash_bwd_dq",
            "flash_fwd_reference", "flash_bwd_reference",
            "attention_reference", "flash_attention",
            "flash_attention_with_lse", "launches", "launches_by_dtype",
-           "reference_route", "padded_head", "padded_fwd", "padded_bwd",
+           "launches_by_stages", "reference_route", "padded_head",
+           "padded_fwd", "padded_bwd",
            "reset_counts", "build", "SOURCE"]
 
 NEG_INF = -1e30                     # pallas_kernels.py:38
@@ -72,23 +73,31 @@ _CHUNK = 2048
 BWD_ROWS = 128
 BWD_TILE = 64
 BWD_MAX_STAGES = 4
+# csrc/flash_attn.cu's launcher admits a backward ring of 1 stage, but K3
+# fails there with an unspecified launch failure on the H100 (PERF.md): an
+# explicit depth below BWD_MIN_STAGES is refused before launch
+BWD_MIN_STAGES = 2
 SMEM_LIMIT = 232448
 # The bf16 forward (K2) takes the same block: BWD_ROWS query rows, two
 # consumer warpgroups, a producer warpgroup; K and V stream through a
 # ring of up to FWD_MAX_STAGES stages in tiles of FWD_TILE[width] keys.
 FWD_TILE = {64: 128, 128: 64}
+FWD_MIN_STAGES = 2
 FWD_MAX_STAGES = 4
 
 launches = register_launch_counter(collections.Counter())
 launches_by_dtype = register_launch_counter(collections.Counter())
+# bf16 launches by (kernel, ring stages): the plan a launch took
+launches_by_stages = register_launch_counter(collections.Counter())
 reference_route = register_launch_counter(collections.Counter())
 
 
 def reset_counts():
-    """Set every count of ``launches``, ``launches_by_dtype`` and
-    ``reference_route`` to 0."""
+    """Set every count of ``launches``, ``launches_by_dtype``,
+    ``launches_by_stages`` and ``reference_route`` to 0."""
     launches.clear()
     launches_by_dtype.clear()
+    launches_by_stages.clear()
     reference_route.clear()
 
 
@@ -216,6 +225,39 @@ def padded_bwd(bwd, q, k, v, out, lse, g, causal, sm_scale, g_lse=None):
             dv[..., :Dv].contiguous())
 
 
+def _fwd_stages(width, stages):
+    """The forward's ring depth: the deepest of at most FWD_MAX_STAGES
+    that fits in SMEM_LIMIT, or ``stages`` where it is given (the kernel
+    takes FWD_MIN_STAGES..FWD_MAX_STAGES, within SMEM_LIMIT)."""
+    if stages is None:
+        return max(s for s in range(1, FWD_MAX_STAGES + 1)
+                   if _fwd_smem(width, s) <= SMEM_LIMIT)
+    s = int(stages)
+    if not FWD_MIN_STAGES <= s <= FWD_MAX_STAGES or \
+            _fwd_smem(width, s) > SMEM_LIMIT:
+        raise ValueError(f"fwd_plan: {s} stages at width {width}: the "
+                         f"kernel takes {FWD_MIN_STAGES}..{FWD_MAX_STAGES} "
+                         f"within {SMEM_LIMIT} bytes of shared memory")
+    return s
+
+
+def _bwd_stages(kernel, width, stages):
+    """A backward kernel's ring depth: the deepest of at most
+    BWD_MAX_STAGES that fits in SMEM_LIMIT, or ``stages`` where it is
+    given (BWD_MIN_STAGES..BWD_MAX_STAGES, within SMEM_LIMIT)."""
+    if stages is None:
+        return max(s for s in range(1, BWD_MAX_STAGES + 1)
+                   if _bwd_smem(kernel, width, s) <= SMEM_LIMIT)
+    s = int(stages)
+    if not BWD_MIN_STAGES <= s <= BWD_MAX_STAGES or \
+            _bwd_smem(kernel, width, s) > SMEM_LIMIT:
+        raise ValueError(f"bwd_plan: {s} stages of {kernel} at width "
+                         f"{width}: the kernels run {BWD_MIN_STAGES}.."
+                         f"{BWD_MAX_STAGES} within {SMEM_LIMIT} bytes of "
+                         f"shared memory")
+    return s
+
+
 def _fwd_smem(width, stages):
     """Shared-memory bytes of a forward block, as the kernel lays it out
     (``fwd_smem_bytes`` in csrc/flash_attn.cu): 1 KB of alignment slack,
@@ -229,16 +271,16 @@ def _fwd_smem(width, stages):
 
 @functools.lru_cache(maxsize=1024)
 def fwd_plan(BH: int, Tq: int, Tk: int, D: int, Dv: int,
-             causal: bool) -> FwdPlan:
+             causal: bool, stages=None) -> FwdPlan:
     """The bf16 forward kernel's :class:`FwdPlan`: width 64 where D and
     Dv are at most 64, else 128; key tiles of FWD_TILE[width]; the
     deepest ring of at most ``FWD_MAX_STAGES`` stages that fits in
-    ``SMEM_LIMIT``; one block per ``BWD_ROWS`` query rows of each head.
-    Raises ValueError for head sizes the kernel does not take.  Pure: the
-    CPU tests check it."""
+    ``SMEM_LIMIT``, or ``stages`` (a ``cuda/flash_attention`` config's
+    ``fwd_stages``); one block per ``BWD_ROWS`` query rows of each head.
+    Raises ValueError for head sizes or a depth the kernel does not
+    take.  Pure: the CPU tests check it."""
     width = _check_heads("fwd_plan", D, Dv)
-    stages = max(s for s in range(1, FWD_MAX_STAGES + 1)
-                 if _fwd_smem(width, s) <= SMEM_LIMIT)
+    stages = _fwd_stages(width, stages)
     return FwdPlan(BH=BH, Tq=Tq, Tk=Tk, D=D, Dv=Dv, causal=bool(causal),
                    width=width, fwd=KernelPlan(
                        kernel="fwd", rows=BWD_ROWS, tile=FWD_TILE[width],
@@ -294,23 +336,53 @@ def _bwd_smem(kernel, width, stages):
 
 @functools.lru_cache(maxsize=1024)
 def bwd_plan(BH: int, Tq: int, Tk: int, D: int, Dv: int,
-             causal: bool) -> BwdPlan:
+             causal: bool, stages=None) -> BwdPlan:
     """The bf16 backward kernels' :class:`BwdPlan`: width 64 where D and
     Dv are at most 64, else 128; the deepest ring of at most
-    ``BWD_MAX_STAGES`` stages that fits in ``SMEM_LIMIT``; one block per
-    ``BWD_ROWS`` owned rows of each head.  Raises ValueError for head
-    sizes the kernels do not take.  Pure: the CPU tests check it."""
+    ``BWD_MAX_STAGES`` stages that fits in ``SMEM_LIMIT``, or ``stages``
+    for both kernels (a ``cuda/flash_attention`` config's
+    ``bwd_stages``); one block per ``BWD_ROWS`` owned rows of each head.
+    Raises ValueError for head sizes or a depth the kernels do not take.
+    Pure: the CPU tests check it."""
     width = _check_heads("bwd_plan", D, Dv)
     plans = {}
     for kernel, T in (("bwd_dq", Tq), ("bwd_dkv", Tk)):
-        stages = max(s for s in range(1, BWD_MAX_STAGES + 1)
-                     if _bwd_smem(kernel, width, s) <= SMEM_LIMIT)
+        stages_k = _bwd_stages(kernel, width, stages)
         plans[kernel] = KernelPlan(
-            kernel=kernel, rows=BWD_ROWS, tile=BWD_TILE, stages=stages,
-            smem=_bwd_smem(kernel, width, stages),
+            kernel=kernel, rows=BWD_ROWS, tile=BWD_TILE, stages=stages_k,
+            smem=_bwd_smem(kernel, width, stages_k),
             grid=BH * _cdiv(T, BWD_ROWS))
     return BwdPlan(BH=BH, Tq=Tq, Tk=Tk, D=D, Dv=Dv, causal=bool(causal),
                    width=width, dq=plans["bwd_dq"], dkv=plans["bwd_dkv"])
+
+
+# Autotuner knob (paddle_tpu_torch.tuning) of K2-K4's launch: the ring
+# depths the kernels run at (flash_attn.cu: the forward
+# FWD_MIN_STAGES..FWD_MAX_STAGES, the backward
+# BWD_MIN_STAGES..BWD_MAX_STAGES), the depths whose shared memory fits
+# SMEM_LIMIT at both widths.  Rows stay BWD_ROWS.  The default is the
+# plans' own deepest ring that fits.  layers.flash_attention resolves it
+# under autotune into the op's fwd_stages/bwd_stages attrs, so a
+# program's content digest sees it.
+_FWD_DEPTHS = tuple(s for s in range(FWD_MIN_STAGES, FWD_MAX_STAGES + 1)
+                    if all(_fwd_smem(w, s) <= SMEM_LIMIT for w in FWD_TILE))
+_BWD_DEPTHS = tuple(s for s in range(BWD_MIN_STAGES, BWD_MAX_STAGES + 1)
+                    if all(_bwd_smem(kn, w, s) <= SMEM_LIMIT
+                           for kn in ("bwd_dq", "bwd_dkv") for w in FWD_TILE))
+register_tunable(
+    "cuda/flash_attention", side="device",
+    space={"fwd_stages": _FWD_DEPTHS, "bwd_stages": _BWD_DEPTHS},
+    default={"fwd_stages": max(_FWD_DEPTHS), "bwd_stages": max(_BWD_DEPTHS)},
+    description="ring depths of the bf16 flash-attention kernels: K2's "
+                "(fwd_stages) and K3's and K4's (bwd_stages); the default "
+                "is the deepest ring that fits in shared memory.",
+    pending_hardware=True,
+    decision_rule="change the plans' depth only when the on-card longctx "
+                  "sweep (tuning.search.run_trial, one forward and "
+                  "backward a window, paired windows) shows >= 1.10x "
+                  "median ms a step over the deepest ring at BOTH 32k and "
+                  "64k tokens (8 heads, d 64, causal, bf16), spread < gain, "
+                  "every depth held against the plain versions")
 
 
 def bwd_walk(plan: BwdPlan, kernel: str):
@@ -500,9 +572,11 @@ def attention_reference(q, k, v, causal=False, sm_scale=None):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def flash_fwd(q, k, v, causal=False, sm_scale=None):
+def flash_fwd(q, k, v, causal=False, sm_scale=None, stages=None):
     """(out, lse [BH, Tq, 1] fp32) of the forward kernel (K2).  CUDA
-    tensors launch it; CPU tensors take :func:`flash_fwd_reference`.  The
+    tensors launch it; CPU tensors take :func:`flash_fwd_reference`.
+    ``stages``: the bf16 ring's depth (None: :func:`fwd_plan`'s deepest
+    that fits; a ``cuda/flash_attention`` config's ``fwd_stages``).  The
     bf16 kernel takes a scale >= 0 (it keeps the running max as max(s) *
     scale); for a negative one it gets -q and -scale, the same scores.
     A head size (D or Dv) that is not a multiple of 16 runs padded with
@@ -513,7 +587,8 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_fwd_reference(q, k, v, causal, sm_scale)
     if (padded_head(dims[3]), padded_head(dims[4])) != dims[3:]:
-        return padded_fwd(flash_fwd, q, k, v, causal, sm_scale)
+        return padded_fwd(functools.partial(flash_fwd, stages=stages), q, k,
+                          v, causal, sm_scale)
     dtype = _kernel_args("flash_fwd", (q, k, v), dims)
     if dtype == _DTYPE_CODES[torch.bfloat16] and sm_scale < 0:
         q, sm_scale = -q, -sm_scale
@@ -521,37 +596,39 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
     out = torch.empty((BH, Tq, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((BH, Tq, 1), dtype=torch.float32, device=q.device)
     lib = _library()
+    plan = _launch_args(dims, dtype, causal, "fwd", stages)
     with torch.cuda.device(q.device):
         rc = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), *dims, int(bool(causal)), sm_scale, dtype,
-            *_launch_args(dims, dtype, causal, "fwd"),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            *plan, torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(lib, rc, f"fwd {dims} causal={causal} {q.dtype}")
-    launches["fwd"] += 1
-    launches_by_dtype["fwd", q.dtype] += 1
+    _count("fwd", q.dtype, plan)
     return out, lse
 
 
 def flash_bwd(q, k, v, out, lse, g, causal=False, sm_scale=None,
-              g_lse=None):
+              g_lse=None, stages=None):
     """(dq, dk, dv) of the backward kernels (K3, then K4), from the
     forward's ``out`` and ``lse``, the cotangent ``g`` of out and an
     optional cotangent ``g_lse`` of lse.  CUDA tensors launch them; CPU
     tensors take :func:`flash_bwd_reference`.  Head sizes that are not
-    multiples of 16 run padded, as in :func:`flash_fwd`."""
+    multiples of 16 run padded, as in :func:`flash_fwd`.  ``stages``:
+    both bf16 rings' depth (None: :func:`bwd_plan`'s deepest that fits;
+    a ``cuda/flash_attention`` config's ``bwd_stages``)."""
     sm_scale = _scale(q, sm_scale)
     if all(t.device.type == "cpu" for t in (q, k, v, out, lse, g)):
         return flash_bwd_reference(q, k, v, out, lse, g, causal, sm_scale,
                                    g_lse)
     D, Dv = q.shape[-1], v.shape[-1]
     if (padded_head(D), padded_head(Dv)) != (D, Dv):
-        return padded_bwd(flash_bwd, q, k, v, out, lse, g, causal, sm_scale,
-                          g_lse)
+        return padded_bwd(functools.partial(flash_bwd, stages=stages), q, k,
+                          v, out, lse, g, causal, sm_scale, g_lse)
     delta = flash_delta(g, out, g_lse)
     lse = lse.float().contiguous()
-    return (flash_bwd_dq(q, k, v, g, lse, delta, causal, sm_scale),
-            *flash_bwd_dkv(q, k, v, g, lse, delta, causal, sm_scale))
+    return (flash_bwd_dq(q, k, v, g, lse, delta, causal, sm_scale, stages),
+            *flash_bwd_dkv(q, k, v, g, lse, delta, causal, sm_scale,
+                           stages))
 
 
 def _bwd_args(what, q, k, v, g, lse, delta):
@@ -567,39 +644,50 @@ def _bwd_args(what, q, k, v, g, lse, delta):
     return dims, dtype, torch.cuda.current_stream(q.device).cuda_stream
 
 
-def _launch_args(dims, dtype, causal, kernel):
+def _launch_args(dims, dtype, causal, kernel, stages=None):
     """(rows, stages, smem) of the bf16 kernel's plan (``kernel`` "fwd",
-    "bwd_dq" or "bwd_dkv"); zeros for fp32, whose kernels take none."""
+    "bwd_dq" or "bwd_dkv"; ``stages`` None for the plan's own depth);
+    zeros for fp32, whose kernels take none."""
     if dtype != _DTYPE_CODES[torch.bfloat16]:
         return 0, 0, 0
     if kernel == "fwd":
-        kp = fwd_plan(*dims, bool(causal)).fwd
+        kp = fwd_plan(*dims, bool(causal), stages).fwd
     else:
-        kp = getattr(bwd_plan(*dims, bool(causal)), kernel[4:])
+        kp = getattr(bwd_plan(*dims, bool(causal), stages), kernel[4:])
     return kp.rows, kp.stages, kp.smem
 
 
-def flash_bwd_dq(q, k, v, g, lse, delta, causal=False, sm_scale=None):
+def _count(kernel, dtype, plan):
+    """Count one launch of ``kernel`` with the (rows, stages, smem) it
+    took (stages 0: an fp32 kernel)."""
+    launches[kernel] += 1
+    launches_by_dtype[kernel, dtype] += 1
+    if plan[1]:
+        launches_by_stages[kernel, plan[1]] += 1
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, causal=False, sm_scale=None,
+                 stages=None):
     """dq from the dq kernel (K3) alone, CUDA tensors only (the entry
     point is :func:`flash_bwd`); ``lse`` and ``delta`` fp32 [BH, Tq]
-    (or [BH, Tq, 1]), contiguous."""
+    (or [BH, Tq, 1]), contiguous; ``stages`` as :func:`flash_bwd`."""
     sm_scale = _scale(q, sm_scale)
     dims, dtype, stream = _bwd_args("flash_bwd_dq", q, k, v, g, lse, delta)
     dq = torch.empty_like(q)
     lib = _library()
+    plan = _launch_args(dims, dtype, causal, "bwd_dq", stages)
     with torch.cuda.device(q.device):
         rc = lib.flash_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
-            int(bool(causal)), sm_scale, dtype,
-            *_launch_args(dims, dtype, causal, "bwd_dq"), stream)
+            int(bool(causal)), sm_scale, dtype, *plan, stream)
     _check_rc(lib, rc, f"bwd_dq {dims} causal={causal} {q.dtype}")
-    launches["bwd_dq"] += 1
-    launches_by_dtype["bwd_dq", q.dtype] += 1
+    _count("bwd_dq", q.dtype, plan)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, g, lse, delta, causal=False, sm_scale=None):
+def flash_bwd_dkv(q, k, v, g, lse, delta, causal=False, sm_scale=None,
+                  stages=None):
     """(dk, dv) from the dk/dv kernel (K4) alone, CUDA tensors only (the
     entry point is :func:`flash_bwd`); arguments as
     :func:`flash_bwd_dq`."""
@@ -607,15 +695,14 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal=False, sm_scale=None):
     dims, dtype, stream = _bwd_args("flash_bwd_dkv", q, k, v, g, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _library()
+    plan = _launch_args(dims, dtype, causal, "bwd_dkv", stages)
     with torch.cuda.device(q.device):
         rc = lib.flash_attn_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *dims, int(bool(causal)), sm_scale, dtype,
-            *_launch_args(dims, dtype, causal, "bwd_dkv"), stream)
+            *dims, int(bool(causal)), sm_scale, dtype, *plan, stream)
     _check_rc(lib, rc, f"bwd_dkv {dims} causal={causal} {q.dtype}")
-    launches["bwd_dkv"] += 1
-    launches_by_dtype["bwd_dkv", q.dtype] += 1
+    _count("bwd_dkv", q.dtype, plan)
     return dk, dv
 
 
@@ -623,13 +710,14 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal=False, sm_scale=None):
 # differentiable entry points (the custom VJPs of :328-371)
 # ---------------------------------------------------------------------------
 class _Flash(torch.autograd.Function):
-    """``_flash``: out only; the backward runs K3 and K4."""
+    """``_flash``: out only; the backward runs K3 and K4.  ``stages``:
+    (forward, backward) ring depths, None each for the plans' own."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        out, lse = flash_fwd(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, stages=(None, None)):
+        out, lse = flash_fwd(q, k, v, causal, sm_scale, stages[0])
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.stages = causal, sm_scale, stages
         return out
 
     @staticmethod
@@ -638,8 +726,9 @@ class _Flash(torch.autograd.Function):
         # the cotangent can arrive as a strided view (the [B,T,H,D]
         # moveaxis, the executor's casts)
         dq, dk, dv = flash_bwd(q, k, v, out, lse, g.contiguous(),
-                               ctx.causal, ctx.sm_scale)
-        return dq, dk, dv, None, None
+                               ctx.causal, ctx.sm_scale,
+                               stages=ctx.stages[1])
+        return dq, dk, dv, None, None, None
 
 
 class _FlashLse(torch.autograd.Function):
@@ -678,7 +767,7 @@ def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None,
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=128,
-                    block_k=128, interpret=None):
+                    block_k=128, interpret=None, stages=(None, None)):
     """Fused attention.  q, k, v: [B, T, H, D] (or [BH, T, D]).
 
     ``block_q``/``block_k`` are the TPU kernel's tile sizes; here they
@@ -686,8 +775,10 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=128,
     not divisible by its block) or causal cross-attention (Tq != Tk) takes
     :func:`attention_reference`, counted in ``reference_route``; all else
     runs the kernels (CUDA tensors) or their plain versions (CPU
-    tensors).  The CUDA kernels pick their own tiles.  ``interpret`` is
-    accepted for the JAX signature and ignored."""
+    tensors).  The CUDA kernels pick their own tiles; ``stages`` are the
+    (forward, backward) ring depths of the bf16 kernels, None each for
+    the plans' deepest that fits.  ``interpret`` is accepted for the JAX
+    signature and ignored."""
     sm_scale = _scale(q, sm_scale)
     squeeze_heads = q.dim() == 4
     if squeeze_heads:
@@ -714,7 +805,7 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=128,
         out = attention_reference(q3, k3, v3, causal, sm_scale)
     else:
         out = _Flash.apply(q3.contiguous(), k3.contiguous(), v3.contiguous(),
-                           bool(causal), sm_scale)
+                           bool(causal), sm_scale, tuple(stages))
     if squeeze_heads:
         out = out.reshape(B, H, Tq_out, v.shape[-1]).movedim(1, 2)
     return out
@@ -728,12 +819,15 @@ def _flash_attention_op(ctx, ins, attrs):
     """``pallas_kernels.py:520-549`` without the sequence-parallel (ring
     attention) routing, which comes with the multi-GPU port; the
     ``sequence_parallel`` and ``interpret`` attrs are accepted and
-    ignored."""
+    ignored.  ``fwd_stages``/``bwd_stages`` (written by
+    ``layers.flash_attention`` from a replayed ``cuda/flash_attention``
+    record) set the kernels' ring depths; absent, the plans' own."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     return {"Out": flash_attention(
         q, k, v, causal=attrs.get("causal", False),
         block_q=attrs.get("block_q", 1024),
-        block_k=attrs.get("block_k", 1024))}
+        block_k=attrs.get("block_k", 1024),
+        stages=(attrs.get("fwd_stages"), attrs.get("bwd_stages")))}
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from ..core.registry import get_op_impl, register_op
+from ..core.registry import get_op_impl, register_op, register_tunable
 
 NEG_INF = -1e30
 _LOW = (1 << 32) - 1
@@ -166,6 +166,29 @@ def _beam_search_decode(ctx, ins, attrs):
 def _recurrent_alias(ctx, ins, attrs):
     """RecurrentOp name-compat alias of the ``rnn`` lowering."""
     return get_op_impl("rnn")(ctx, ins, attrs)
+
+
+# A pending kernel candidate (the JAX package's pallas_kernels.py:472),
+# with a rule of its own for the card: a paged KV cache for the decode
+# slot pool (fixed-size pages and a page table, gathered into the
+# attention tile by a hand-written kernel) in place of the contiguous
+# [S, Tmax, D] slabs attention_with_cache reads.  No kernel exists in
+# either package.
+register_tunable(
+    "cuda/paged_kv_gather", side="device",
+    space={"page_size": (16, 32, 64, 128), "gather_block": (128, 256, 512)},
+    default={"page_size": 64, "gather_block": 256},
+    description="paged KV-cache layout for incremental decode: tokens "
+                "per cache page and the rows a block of the CUDA "
+                "page-table gather feeds attention_with_cache.",
+    pending_hardware=True,
+    decision_rule="adopt paging only when the on-card decode benchmark "
+                  "(benchmark.decode, H100) shows >= 1.15x decode "
+                  "tokens/s over the contiguous slabs at >= 50% slot "
+                  "occupancy with mixed-length traces, OR the contiguous "
+                  "reservation exceeds 25% of the card's 80 GB at the "
+                  "serving config; below either bar the gather is pure "
+                  "overhead and the slabs stay")
 
 
 @register_op("attention_with_cache")

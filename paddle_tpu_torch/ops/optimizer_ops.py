@@ -18,7 +18,30 @@ import functools
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import register_op, register_tunable
+
+# A pending kernel candidate (the JAX package's optimizer_ops.py:29), with
+# a rule of its own for the card: the optimizer step is pure memory
+# traffic (every parameter and moment read and written once, a few
+# flops), so the per-parameter ops pay one HBM round trip a tensor.  The
+# candidate is one hand-written CUDA kernel over all parameters.  No
+# kernel exists in either package; opprof's report names this rule where
+# optimizer-update op classes dominate a measured profile.
+register_tunable(
+    "cuda/fused_optimizer_update", side="device",
+    space={"fused": (False, True), "block_elems": (4096, 8192, 16384)},
+    default={"fused": False, "block_elems": 8192},
+    description="fuse the per-parameter optimizer update ops (sgd/"
+                "momentum/adam/... families) into one CUDA kernel over "
+                "every parameter; block_elems is a block's slab",
+    pending_hardware=True,
+    decision_rule="flip fused=True only when an on-card paired A/B over "
+                  "a captured training step (benchmark.opprof "
+                  "workloads, H100) shows >= 1.10x median step time with "
+                  ">= 75% of pairs favoring, AND the opprof per-op table "
+                  "attributes >= 10% of the step's measured device time "
+                  "to optimizer-update op classes (else the fusion "
+                  "cannot pay: the step's bytes bound it at 3.35 TB/s)")
 
 
 def _lr(ins):

@@ -14,7 +14,31 @@ from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import register_op, register_tunable
+
+# A pending kernel candidate (the JAX package's sequence_ops.py:37), with a
+# rule of its own for the card: the lod sequence family (sequence_expand/
+# pool/concat/slice/pad/unpad, ...) is gather/scatter over padded
+# [B, T, ...] layouts, which the plain torch ops do as masked selects
+# and reductions that re-read the padded tensor an op.  The candidate is
+# hand-written CUDA gather/scatter kernels indexed by the @LEN
+# companions.  No kernel exists in either package; opprof's report names
+# this rule where lod sequence op classes dominate a measured profile.
+register_tunable(
+    "cuda/lod_gather_scatter", side="device",
+    space={"kernel": ("torch", "cuda"), "block_rows": (128, 256, 512)},
+    default={"kernel": "torch", "block_rows": 256},
+    description="route the lod gather/scatter sequence ops (sequence_"
+                "expand/pool/concat/slice/pad/unpad families) through "
+                "hand-written CUDA kernels indexed by @LEN instead of the "
+                "plain torch masked forms",
+    pending_hardware=True,
+    decision_rule="flip kernel=cuda only when an on-card paired A/B over "
+                  "a sequence-heavy captured step (benchmark.opprof's "
+                  "lstm workload, H100) shows >= 1.15x median step time "
+                  "with >= 75% of pairs favoring, AND the opprof per-op "
+                  "table attributes >= 10% of the step's measured device "
+                  "time to lod sequence op classes")
 
 
 def _mask(lens, T, dtype=torch.float32):

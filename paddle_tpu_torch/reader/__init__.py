@@ -8,9 +8,7 @@ multi-worker engine (``prefetch``, ``interleave``) that ``buffered`` and
 ``Executor.run_pipelined`` run on; ``creator`` the np_array, text_file
 and recordio sources.
 
-Not ported yet: ``native_buffered`` (the ``native/`` binding),
-``creator.cloud_reader`` (the distributed master), and the pipeline's
-autotuned defaults.
+Not ported yet: ``native_buffered`` (the ``native/`` binding).
 """
 from . import creator
 from . import decorator

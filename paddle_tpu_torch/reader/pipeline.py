@@ -21,8 +21,12 @@ off the dispatch thread onto N workers feeding one bounded queue.
 engine records sampled queue depth and consumer stall time at every get,
 per-worker busy/blocked seconds, a ``reader/pipeline`` root span and one
 ``reader/item`` span per produced item.  Off by default and entirely
-outside the data path when off.  The JAX module's autotuned defaults are
-not ported (ROADMAP Queue A item 9d).
+outside the data path when off.
+
+**Autotuned defaults**: ``prefetch``'s omitted ``buffer_size`` and
+``num_workers`` are (8, 1), or, with the ``autotune`` flag on, the
+persisted ``reader/prefetch`` winner (``paddle_tpu_torch.tuning``,
+imported only then).  An explicit argument always wins.
 """
 from __future__ import annotations
 
@@ -32,9 +36,21 @@ import time as _time
 from typing import Callable, Optional, Sequence
 
 from .. import observability as _obs
+from ..core.registry import register_tunable
 from ..testing import lockwatch as _lw
 
 __all__ = ["prefetch", "interleave", "THREAD_NAME_PREFIX"]
+
+# Autotuner knob (paddle_tpu_torch.tuning), beside the engine it controls,
+# with the JAX package's space and default: num_workers trades decode
+# parallelism against GIL and core contention, buffer_size bounds the
+# decoded samples in flight.
+register_tunable(
+    "reader/prefetch", side="host",
+    space={"num_workers": (1, 2, 4), "buffer_size": (2, 4, 8, 16)},
+    default={"num_workers": 1, "buffer_size": 8},
+    description="prefetch engine defaults: decode worker threads and the "
+                "bounded decoded-sample queue.")
 
 # every worker thread the engine spawns carries this name prefix
 THREAD_NAME_PREFIX = "pt-input-pipeline"
@@ -181,7 +197,20 @@ def _run(sources: Sequence[Callable], buffer_size: int,
             root_sp.end()
 
 
-def prefetch(reader: Callable, buffer_size: int = 8, num_workers: int = 1,
+def _tuned_defaults(buffer_size: Optional[int], num_workers: Optional[int]):
+    """Omitted prefetch knobs: (8, 1), or the persisted ``reader/prefetch``
+    winner under the ``autotune`` flag.  An explicit argument wins."""
+    if buffer_size is not None and num_workers is not None:
+        return buffer_size, num_workers
+    from ..core.registry import resolve_tuned
+    cfg = resolve_tuned("reader/prefetch",
+                        {"buffer_size": 8, "num_workers": 1})
+    return (cfg["buffer_size"] if buffer_size is None else buffer_size,
+            cfg["num_workers"] if num_workers is None else num_workers)
+
+
+def prefetch(reader: Callable, buffer_size: Optional[int] = None,
+             num_workers: Optional[int] = None,
              mapper: Optional[Callable] = None,
              instrument: Optional[bool] = None,
              trace_parent=None) -> Callable:
@@ -194,7 +223,10 @@ def prefetch(reader: Callable, buffer_size: int = 8, num_workers: int = 1,
     ``instrument``: queue-depth/stall/busy metrics and the
     ``reader/pipeline`` / ``reader/item`` spans (None follows the
     ``observe`` flag); ``trace_parent`` joins those spans into a
-    caller's trace."""
+    caller's trace.  ``buffer_size``/``num_workers`` default to (8, 1),
+    or the persisted ``reader/prefetch`` winner under the ``autotune``
+    flag."""
+    buffer_size, num_workers = _tuned_defaults(buffer_size, num_workers)
     if num_workers < 1:
         raise ValueError(f"prefetch: num_workers must be >= 1, "
                          f"got {num_workers}")

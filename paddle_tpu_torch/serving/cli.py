@@ -33,8 +33,10 @@ supervisor relaunching the identical command returns to ``ready`` and
 serves again.  ``--http PORT`` serves the HTTP front
 (``serving/http.py``) instead of the stdio loop.
 
-``--autotune`` is refused: the autotuner's batcher knobs wait for ROADMAP
-Queue A item 9d.
+``--autotune`` resolves the omitted batcher knobs (``--max-batch``,
+``--max-wait-ms``) from the persisted ``serving/batcher`` winner
+(``paddle_tpu_torch.tuning``; search with ``python -m paddle_tpu_torch
+tune serving/batcher``).
 """
 from __future__ import annotations
 
@@ -56,8 +58,6 @@ from .model import Model
 from .server import Server
 
 __all__ = ["serve_main"]
-
-AUTOTUNE_NOT_PORTED = "ROADMAP Queue A item 9d (tuning/)"
 
 
 class _Emitter:
@@ -144,13 +144,18 @@ def serve_main(argv=None) -> int:
                          "card; an artifact runs only on the device it "
                          "was exported for)")
     ap.add_argument("--max-batch", type=int, default=None,
-                    help="max requests coalesced per dispatch (default 32)")
+                    help="max requests coalesced per dispatch (default "
+                         "32, or the persisted serving/batcher winner "
+                         "under --autotune)")
     ap.add_argument("--max-wait-ms", type=float, default=None,
                     help="max batching wait after the first request "
-                         "(default 5)")
+                         "(default 5, or the persisted winner under "
+                         "--autotune)")
     ap.add_argument("--autotune", action="store_true",
-                    help="refused: the autotuner's batcher knobs are not "
-                         f"ported yet ({AUTOTUNE_NOT_PORTED})")
+                    help="resolve omitted batcher knobs from the "
+                         "persisted autotuner winners "
+                         "(paddle_tpu_torch.tuning; search with `python "
+                         "-m paddle_tpu_torch tune serving/batcher`)")
     ap.add_argument("--deadline-ms", type=float, default=100.0,
                     help="default per-request deadline; <= 0 disables "
                          "(default 100)")
@@ -187,22 +192,18 @@ def serve_main(argv=None) -> int:
                          "JSONL identity line so multi-file merges "
                          "label events serve:<index>)")
     args = ap.parse_args(argv)
-    if args.autotune:
-        ap.error(f"--autotune: the autotuner's serving/batcher knobs are "
-                 f"not ported yet ({AUTOTUNE_NOT_PORTED}); pass "
-                 f"--max-batch and --max-wait-ms")
 
     set_process_identity("serve", args.replica_index)
 
     srv = Server(
-        max_batch=32 if args.max_batch is None else args.max_batch,
-        max_wait_ms=5.0 if args.max_wait_ms is None else args.max_wait_ms,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         deadline_ms=(None if args.deadline_ms is not None
                      and args.deadline_ms <= 0 else args.deadline_ms),
         queue_capacity=(None if args.queue == 0 else args.queue),
         shed=not args.no_shed, breaker_threshold=args.breaker_threshold,
         breaker_cooldown_s=args.breaker_cooldown_s,
-        warmup=not args.no_warmup)
+        warmup=not args.no_warmup,
+        autotune=True if args.autotune else None)
     if args.warmup_all:
         srv.warmup_buckets = list(srv.buckets)
 

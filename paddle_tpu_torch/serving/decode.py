@@ -55,8 +55,10 @@ construction; a pool mounted on a server takes the server's): the
 reads them).  With it off the pool builds no span and writes neither the
 registry nor the log.  The pool's lock comes from the lock watch.
 
-Not ported: the autotuner's ``serving/decode_slots`` knob (ROADMAP
-Queue A item 9d); omitted knobs take :data:`DECODE_SLOTS_DEFAULT`.
+Autotuning: omitted ``slots`` (``DecodeEngine``) and ``step_wait_ms``
+(``DecodeRuntime``) take :data:`DECODE_SLOTS_DEFAULT`, or, under the
+opt-in (``autotune=True``, else the ``autotune`` flag), the persisted
+``serving/decode_slots`` winner.
 """
 from __future__ import annotations
 
@@ -71,6 +73,7 @@ import torch
 
 from .. import faults as _faults
 from .. import observability as obs
+from ..core.registry import register_tunable, resolve_tuned
 from ..testing import faultinject as _fi
 from ..testing import lockwatch as _lw
 from .server import ModelError, PendingResponse
@@ -87,15 +90,16 @@ DEFAULT_LEN_BUCKETS = (32, 64, 128, 256, 512)
 # the slot count (the decode program's batch) and the idle pool's wait
 DECODE_SLOTS_DEFAULT = {"slots": 8, "step_wait_ms": 1.0}
 
-AUTOTUNE_NOT_PORTED = "ROADMAP Queue A item 9d (tuning/)"
-
-
-def _no_autotune(autotune, what):
-    if autotune:
-        raise NotImplementedError(
-            f"{what}(autotune=True): the autotuner's serving/decode_slots "
-            f"knob is not ported yet ({AUTOTUNE_NOT_PORTED}); pass the "
-            f"knobs or take DECODE_SLOTS_DEFAULT")
+# Autotuner knob (paddle_tpu_torch.tuning), with the JAX package's space
+# and default: more slots amortize a step over more live sequences but
+# compute padded rows when the load cannot fill them; step_wait_ms bounds
+# the idle pool's poll.
+register_tunable(
+    "serving/decode_slots", side="host",
+    space={"slots": (2, 4, 8, 16), "step_wait_ms": (0.5, 1.0, 2.0, 5.0)},
+    default=dict(DECODE_SLOTS_DEFAULT),
+    description="decode slot pool: concurrent KV-cache slots (the "
+                "compiled decode batch) and the idle-pool step wait.")
 
 
 def bucket_for_len(max_len: int,
@@ -131,9 +135,10 @@ class DecodeEngine:
                  eos_id: Optional[int] = None, seed: int = 0,
                  name: str = "decode", autotune: Optional[bool] = None,
                  place=None, use_jit: bool = True):
-        _no_autotune(autotune, "DecodeEngine")
         if slots is None:
-            slots = DECODE_SLOTS_DEFAULT["slots"]
+            slots = int(resolve_tuned("serving/decode_slots",
+                                      dict(DECODE_SLOTS_DEFAULT),
+                                      autotune)["slots"])
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if vocab_size < 2:
@@ -345,9 +350,10 @@ class DecodeRuntime:
         if mode not in ("continuous", "static"):
             raise ValueError(
                 f"mode must be 'continuous' or 'static', got {mode!r}")
-        _no_autotune(autotune, "DecodeRuntime")
         if step_wait_ms is None:
-            step_wait_ms = DECODE_SLOTS_DEFAULT["step_wait_ms"]
+            step_wait_ms = float(resolve_tuned(
+                "serving/decode_slots", dict(DECODE_SLOTS_DEFAULT),
+                autotune)["step_wait_ms"])
         self.engine = engine
         self.observe = obs.enabled() if observe is None else bool(observe)
         self.name = str(name or engine.name)

@@ -68,12 +68,25 @@ import numpy as np
 from .. import faults as _faults
 from .. import observability as obs
 from ..core.executor import pad_batch, stack_feeds
+from ..core.registry import register_tunable, resolve_tuned
 from ..core.scope import to_numpy
 from ..testing import faultinject as _fi
 from ..testing import lockwatch as _lw
 from .model import Model
 
 logger = logging.getLogger("paddle_tpu_torch")
+
+# Autotuner knob (paddle_tpu_torch.tuning), beside the batcher it controls,
+# with the JAX package's space and default: max_batch bounds the
+# coalescing (and the bucket list), max_wait_ms trades the first
+# request's latency against batch fill.
+register_tunable(
+    "serving/batcher", side="host",
+    space={"max_batch": (8, 16, 32, 64), "max_wait_ms": (1.0, 2.0, 5.0,
+                                                         10.0)},
+    default={"max_batch": 32, "max_wait_ms": 5.0},
+    description="serving batcher coalescing policy: maximum batch size "
+                "and the wait after the first queued request.")
 
 __all__ = ["Server", "PendingResponse", "ModelError"]
 
@@ -261,12 +274,15 @@ class Server:
     disables admission bounds (with ``shed=False``, the no-robustness
     control arm of ``benchmark.serving``).  ``retry_policy``: the
     dispatch's retry rim (default 2 attempts, 5 ms backoff).
+    ``max_batch``/``max_wait_ms`` default to (32, 5), or under
+    ``autotune`` (None: the ``autotune`` flag) to the persisted
+    ``serving/batcher`` winner.
     The server writes its metrics, events and spans when the
     ``observe`` flag is on at construction; its decode tenants follow.
     """
 
-    def __init__(self, max_batch: int = 32,
-                 max_wait_ms: float = 5.0,
+    def __init__(self, max_batch: Optional[int] = None,
+                 max_wait_ms: Optional[float] = None,
                  deadline_ms: Optional[float] = 100.0,
                  queue_capacity: Optional[int] = 256,
                  shed: bool = True,
@@ -275,7 +291,19 @@ class Server:
                  staging_depth: int = 2,
                  retry_policy: Optional[_faults.RetryPolicy] = None,
                  warmup: bool = True,
-                 warmup_buckets: Optional[Sequence[int]] = None):
+                 warmup_buckets: Optional[Sequence[int]] = None,
+                 autotune: Optional[bool] = None):
+        # max_batch/max_wait_ms default to (32, 5.0), or, under the
+        # autotune opt-in (``autotune=True``, else the `autotune` flag),
+        # the persisted serving/batcher winner; explicit arguments win
+        if max_batch is None or max_wait_ms is None:
+            cfg = resolve_tuned("serving/batcher",
+                                {"max_batch": 32, "max_wait_ms": 5.0},
+                                autotune)
+            if max_batch is None:
+                max_batch = cfg["max_batch"]
+            if max_wait_ms is None:
+                max_wait_ms = cfg["max_wait_ms"]
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if queue_capacity is not None and queue_capacity < 1:

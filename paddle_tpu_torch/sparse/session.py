@@ -59,8 +59,10 @@ pushes in ``sparse/pull`` / ``sparse/push`` spans (a prefetch run's
 pulls parent to its ``sparse/prefetch`` root); the session's locks come
 from the lock watch.
 
-Not ported: the autotuner's knob lookup (ROADMAP Queue A item 9d);
-omitted knobs take their declared defaults.
+Autotuning: omitted ``cache_rows``, ``prefetch_depth`` and
+``push_flush_batch`` take the declared defaults (0 / 0 / 1), or, under
+the ``autotune`` flag, the persisted ``sparse/hot_rows``,
+``sparse/prefetch`` and ``sparse/push_flush`` winners.
 """
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ import numpy as np
 
 from .. import faults as _faults
 from .. import observability as obs
+from ..core.registry import register_tunable, resolve_tuned
 from ..observability.tracing import span, start_span
 from ..testing import lockwatch as _lw
 from ..testing import faultinject as _fi
@@ -96,6 +99,46 @@ THREAD_NAME_PREFIX = "pt-sparse"
 # exiting (it restarts on the next enqueue; bounded linger keeps
 # sessions leak-free without an explicit close())
 _PUSH_LINGER_S = 0.5
+
+# Autotuner knobs (paddle_tpu_torch.tuning), beside the host hot path they
+# control, with the JAX package's spaces, defaults and decision rules.
+register_tunable(
+    "sparse/hot_rows", side="host",
+    space={"cache_rows": (0, 1024, 16384, 65536, 262144)},
+    default={"cache_rows": 0},
+    description="hot-rows LRU capacity of the sparse session's cache-"
+                "first pull path (0 = off; rows).  Decision rule: "
+                "enable non-zero capacity when the paired A/B on the "
+                "serving-style pull loop clears the 1.10x gate — the "
+                "hit rate must pay for the per-row cache bookkeeping.")
+register_tunable(
+    "sparse/prefetch", side="host",
+    space={"depth": (0, 1, 2, 4)},
+    default={"depth": 0},
+    description="pull-ahead prefetch depth: batches prepared ahead of "
+                "the dispatch loop on the session's worker thread (0 = "
+                "fully synchronous rim, the bit-parity default).  "
+                "Decision rule: enable when the paired A/B on the "
+                "training loop clears the 1.10x gate AND the workload "
+                "tolerates pulls running up to depth+1 batches ahead "
+                "of pushes (bounded-staleness async updates).")
+register_tunable(
+    "sparse/push_flush", side="host",
+    space={"batch": (1, 2, 4, 8)},
+    default={"batch": 1},
+    description="async-push worker drain size: queued gradient pushes "
+                "applied per worker wakeup (only reached with "
+                "async_push > 0; order always FIFO, semantics "
+                "unchanged).  Decision rule: raise above 1 when the "
+                "paired A/B on the async-push loop clears 1.10x — the "
+                "win is amortized wakeup/lock traffic, so it only "
+                "moves on push-bound workloads.")
+
+
+def _tuned_knob(name: str, default: Dict[str, object], key: str):
+    """One omitted session knob: its declared default, or the persisted
+    winner under the ``autotune`` flag."""
+    return resolve_tuned(name, default)[key]
 
 
 def table_specs(program) -> List[dict]:
@@ -203,7 +246,9 @@ class SparseSession:
     ``prefetch_depth``, ``async_push`` and ``push_flush_batch`` are the
     overlap knobs (module docstring); ``cache_rows``,
     ``prefetch_depth`` and ``push_flush_batch`` left at ``None`` take
-    the JAX session's declared defaults (0 / 0 / 1).
+    the declared defaults (0 / 0 / 1) or, under the ``autotune`` flag,
+    the persisted ``sparse/hot_rows`` / ``sparse/prefetch`` /
+    ``sparse/push_flush`` winners.
     """
 
     def __init__(self, tables, *, cache_rows: Optional[int] = None,
@@ -230,11 +275,15 @@ class SparseSession:
                     f"table.name {t.name!r}")
         self.retry_policy = retry_policy
         self.bucket_floor = int(bucket_floor)
-        # the declared defaults of the JAX session's tunable knobs
-        cache_rows = 0 if cache_rows is None else cache_rows
-        prefetch_depth = 0 if prefetch_depth is None else prefetch_depth
-        push_flush_batch = 1 if push_flush_batch is None \
-            else push_flush_batch
+        if cache_rows is None:
+            cache_rows = _tuned_knob("sparse/hot_rows",
+                                     {"cache_rows": 0}, "cache_rows")
+        if prefetch_depth is None:
+            prefetch_depth = _tuned_knob("sparse/prefetch", {"depth": 0},
+                                         "depth")
+        if push_flush_batch is None:
+            push_flush_batch = _tuned_knob("sparse/push_flush",
+                                           {"batch": 1}, "batch")
         self.cache = HotRowCache(cache_rows)
         self.prefetch_depth = int(prefetch_depth)
         self.async_push = int(async_push)

@@ -66,9 +66,12 @@ The sites of the port:
                        ``drop`` loses it on the wire (the worker swallows
                        the ConnectionError), so enough drops in a row
                        read as a stale lease
+``tuning.trial``       per autotuner trial (``tuning.search.run_trial``;
+                       hit count): ``fail`` makes the trial's measurement
+                       raise (recorded ``failed``), ``timeout`` makes it
+                       overrun its budget (recorded ``timeout``); the
+                       search goes on either way
 =====================  =====================================================
-
-The tuning site of the JAX package comes with its slice.
 """
 from __future__ import annotations
 
@@ -87,7 +90,7 @@ KNOWN_SITES = ("trainer.step", "reader.item", "executor.dispatch",
                "ckpt.write", "ckpt.delta", "serving.request",
                "serving.dispatch", "serving.decode_step", "sparse.push",
                "pserver.rpc", "pserver.shard", "master.call",
-               "elastic.worker", "master.heartbeat")
+               "elastic.worker", "master.heartbeat", "tuning.trial")
 
 # the off switch the call sites test: one attribute load when off
 ENABLED = False

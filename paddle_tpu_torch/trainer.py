@@ -17,9 +17,12 @@ pushes their gradients after it (``paddle_tpu_torch.sparse``).
 ``elastic=`` makes the loop one worker of an elastic job
 (``distributed/elastic.py``).
 
+``autotune=`` fills the pipelined loop's omitted knobs from the
+persisted autotuner winners (``tuning/``).
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item that brings them: ``warmup`` (``Executor.compile``, item
-6), ``auto_shard`` (item 7) and ``autotune`` (item 9d).  With the executor
+6) and ``auto_shard`` (item 7).  With the executor
 observing, a periodic report (``observability.maybe_periodic_report``)
 fires every ``log_period`` batches.
 """
@@ -71,7 +74,6 @@ class events:
 # with the ROADMAP Queue A item that brings each
 _NOT_PORTED = {
     "warmup": "item 6 (Executor.compile)",
-    "autotune": "item 9d (tuning)",
     "auto_shard": "item 7 (multi-GPU)",
 }
 
@@ -153,6 +155,14 @@ class SGD:
         then the ``validate`` flag.  The override applies to this call
         only.
 
+        ``autotune=True`` replays persisted autotuner winners for this
+        call: the pipelined loop's omitted ``steps_per_dispatch`` and
+        ``prefetch_depth`` (``executor/run_pipelined``) and
+        ``num_workers`` and ``buffer_size`` (``reader/prefetch``);
+        explicit knobs win, and with no record every knob keeps its
+        default.  ``None`` defers to the executor's own setting and then
+        the ``autotune`` flag.
+
         ``sparse_tables``: a ``paddle_tpu_torch.sparse.SparseSession``
         (duck-typed: the trainer does not import the sparse package).
         Each batch's feed goes through its ``prepare_feed`` (id dedup,
@@ -185,8 +195,7 @@ class SGD:
         (``steps_per_dispatch=1``, no ``pipeline``): the task-commit
         protocol saves at batch boundaries."""
         event_handler = event_handler or (lambda e: None)
-        given = {"warmup": warmup,
-                 "autotune": autotune, "auto_shard": auto_shard}
+        given = {"warmup": warmup, "auto_shard": auto_shard}
         if not checkpoint_dir:
             if master is not None:
                 raise ValueError("train(master=...) snapshots the task "
@@ -238,6 +247,10 @@ class SGD:
         prev_validate = self.exe.validate
         if validate is not None:
             self.exe.validate = validate
+        # autotune is the same kind of per-call override
+        prev_autotune = self.exe.autotune
+        if autotune is not None:
+            self.exe.autotune = autotune
         ckpt = None
         try:
             if not self._initialized:
@@ -305,6 +318,7 @@ class SGD:
                 elastic.on_complete()
         finally:
             self.exe.validate = prev_validate
+            self.exe.autotune = prev_autotune
             if ckpt is not None:
                 ckpt.close()
 
@@ -397,6 +411,8 @@ class SGD:
 
         if pipeline:
             opts = dict(pipeline) if isinstance(pipeline, dict) else {}
+            if self.exe._autotuning():
+                self._fill_tuned_pipeline_opts(opts, steps_per_dispatch)
             K = self._dispatch_k(opts, steps_per_dispatch)
             workers = int(opts.get("num_workers", 1))
             buf = int(opts.get("buffer_size", 4))
@@ -517,6 +533,25 @@ class SGD:
         return [t / count for t in totals]
 
     # -- helpers -----------------------------------------------------------
+    def _fill_tuned_pipeline_opts(self, opts, steps_per_dispatch):
+        """Fill the pipelined loop's omitted knobs from the persisted
+        winners (the caller resolved the autotune opt-in).  Explicit
+        knobs, in the pipeline dict or ``steps_per_dispatch > 1``, win;
+        with no record every knob keeps its default."""
+        pipe = self.exe._tuned(
+            "executor/run_pipelined",
+            {"steps_per_dispatch": 8, "prefetch_depth": 2})
+        if "steps_per_dispatch" not in opts and steps_per_dispatch <= 1:
+            opts["steps_per_dispatch"] = pipe["steps_per_dispatch"]
+        if "prefetch_depth" not in opts:
+            opts["prefetch_depth"] = pipe["prefetch_depth"]
+        rd = self.exe._tuned("reader/prefetch",
+                             {"num_workers": 1, "buffer_size": 4})
+        if "num_workers" not in opts:
+            opts["num_workers"] = rd["num_workers"]
+        if "buffer_size" not in opts:
+            opts["buffer_size"] = rd["buffer_size"]
+
     @staticmethod
     def _dispatch_k(opts, steps_per_dispatch):
         """Steps per pipelined dispatch."""

@@ -32,7 +32,8 @@ import torch
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.core import compile_cache
 from paddle_tpu_torch.faults import InjectedFault, ModelUnavailable
-from paddle_tpu_torch.serving.decode import (DecodeEngine, DecodeRuntime,
+from paddle_tpu_torch.serving.decode import (DECODE_SLOTS_DEFAULT,
+                                             DecodeEngine, DecodeRuntime,
                                              bucket_for_len)
 from paddle_tpu_torch.serving.server import ModelError
 from paddle_tpu_torch.testing import faultinject as fi
@@ -345,15 +346,47 @@ def test_server_decode_front_door():
         srv.submit_decode([1], 1, model="gen")
 
 
-def test_autotune_and_oversized_requests_refused():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _engine(name="at", autotune=True)
+def test_oversized_requests_refused():
     eng = _engine(layers=1, name="big")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        DecodeRuntime(eng, autotune=True)
     rt = DecodeRuntime(eng)
     with pytest.raises(ValueError, match="bucket"):
         rt.submit([1] * 10, 7)
+
+
+def test_autotune_replays_the_decode_slots_record(tmp_path):
+    """``autotune=True`` (refused until the autotuner was ported) replays a
+    persisted ``serving/decode_slots`` record into the omitted slot count
+    and step wait; explicit knobs win, and with autotune off the pool
+    takes DECODE_SLOTS_DEFAULT; the replayed engine decodes as the
+    explicit one does."""
+    from paddle_tpu_torch import flags, tuning
+    prev = flags.get_flag("cache_dir")
+    flags.set_flag("cache_dir", str(tmp_path))
+    tuning.clear_memo()
+    try:
+        tuning.save_record("serving/decode_slots",
+                           {"slots": 2, "step_wait_ms": 5.0})
+        eng = DecodeEngine(23, hidden_dim=12, n_layers=1, max_len=16,
+                           len_buckets=(16,), seed=5, name="at",
+                           autotune=True, place=CPU)
+        assert eng.slots == 2
+        rt = DecodeRuntime(eng, autotune=True)
+        assert rt.step_wait_s == 0.005
+        assert DecodeRuntime(eng, step_wait_ms=1.0,
+                             autotune=True).step_wait_s == 0.001
+        assert DecodeRuntime(eng, autotune=False).step_wait_s == \
+            DECODE_SLOTS_DEFAULT["step_wait_ms"] / 1e3
+        assert _engine(layers=1, slots=None, name="off",
+                       autotune=False).slots == \
+            DECODE_SLOTS_DEFAULT["slots"]
+        ref = _engine(layers=1, slots=2, name="ex")
+        (t0, r0), (t1, r1) = [_greedy(e, 0, [3, 7, 1], 4)
+                              for e in (eng, ref)]
+        assert t0 == t1
+        np.testing.assert_array_equal(r0, r1)
+    finally:
+        flags.set_flag("cache_dir", prev)
+        tuning.clear_memo()
 
 
 def test_decode_bench_smoke_row_complete():

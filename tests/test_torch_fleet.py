@@ -613,16 +613,35 @@ def test_serve_protocol_replies_match_jax(tmp_path):
             assert isinstance(t["metrics"]["metrics"], dict)
 
 
-def test_command_line_serves_fleets_and_refuses_the_rest(capsys):
-    """``python -m paddle_tpu_torch``: ``serve --autotune`` is refused
-    naming ROADMAP item 9d (the autotuner); subcommands still to come
-    are refused naming item 9e."""
+def test_command_line_serves_fleets_and_refuses_the_rest(capsys,
+                                                         monkeypatch):
+    """``python -m paddle_tpu_torch``: ``serve --autotune`` hands the
+    opt-in to the server with the batcher knobs omitted; ``tune`` runs;
+    subcommands still to come are refused naming item 9e."""
     from paddle_tpu_torch.__main__ import main
-    with pytest.raises(SystemExit) as e:
+    from paddle_tpu_torch.serving import cli
+
+    class Built(Exception):
+        pass
+
+    seen = {}
+
+    def server(**kw):
+        seen.update(kw)
+        raise Built
+    monkeypatch.setattr(cli, "Server", server)
+    # the process keeps its own identity (serve_main stamps "serve")
+    monkeypatch.setattr(cli, "set_process_identity", lambda *a, **k: None)
+    with pytest.raises(Built):
         main(["serve", "--model", "m=nowhere", "--autotune"])
-    assert e.value.code == 2
-    assert "item 9d" in capsys.readouterr().err
-    for sub in ("stats", "trace", "tune", "check"):
+    assert seen["autotune"] is True
+    assert seen["max_batch"] is None and seen["max_wait_ms"] is None
+    with pytest.raises(Built):
+        main(["serve", "--model", "m=nowhere", "--max-batch", "8"])
+    assert seen["autotune"] is None and seen["max_batch"] == 8
+    assert main(["tune", "--list"]) == 0
+    assert "serving/batcher" in capsys.readouterr().out
+    for sub in ("stats", "trace", "check"):
         assert main([sub]) == 2
         err = capsys.readouterr().err
-        assert "item 9e" in err and "'fleet-stats'" in err
+        assert "item 9e" in err and "'tune'" in err

@@ -244,3 +244,100 @@ def test_scan_covers_the_fleet_modules():
     assert "--fleet-child" in ast.dump(fns["main"])
     child = ast.dump(fns["fleet_child"])
     assert "paddle_tpu_torch.serving.cli" in child and "serve_main" in child
+
+
+# the entry points that may import the autotuner at their top level
+_TUNING_ENTRY_POINTS = {os.path.join("paddle_tpu_torch", "benchmark", f)
+                        for f in ("autotune.py", "conv_kernel.py",
+                                  "longctx.py")}
+
+
+def test_only_tuning_and_its_drivers_import_tuning_at_top_level():
+    """Declaring a tunable (``core.registry.register_tunable``) costs
+    nothing: outside ``tuning/`` itself and the three drivers that are
+    entry points, every module reaches ``paddle_tpu_torch.tuning`` inside
+    the function that opts in, so importing the package never loads
+    it."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("tuning/__init__.py", "tuning/tunables.py",
+                "tuning/search.py", "tuning/store.py", "tuning/targets.py",
+                "tuning/cli.py") + tuple(
+                    os.path.relpath(p, "paddle_tpu_torch")
+                    for p in _TUNING_ENTRY_POINTS):
+        assert os.path.join("paddle_tpu_torch", rel) in scanned, rel
+    bad = []
+    for p in _port_sources():
+        rel = os.path.relpath(p, ROOT)
+        if rel.startswith(os.path.join("paddle_tpu_torch", "tuning") +
+                          os.sep) or rel in _TUNING_ENTRY_POINTS:
+            continue
+        for line, mod in _top_level_imports(p):
+            if mod.startswith("paddle_tpu_torch.tuning"):
+                bad.append(f"{rel}:{line}: {mod}")
+    assert not bad, "\n".join(bad)
+    # the replay helper names the package only inside its function
+    with open(os.path.join(ROOT, "paddle_tpu_torch", "core",
+                           "registry.py")) as fh:
+        assert "from ..tuning.store import tuned" in fh.read()
+
+
+def _literal_calls(call_name):
+    """(first string-literal argument, file:line) of every call of
+    ``call_name`` in the port."""
+    out = []
+    for p in _port_sources():
+        with open(p) as fh:
+            tree = ast.parse(fh.read(), filename=p)
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            fn = node.func
+            name = fn.id if isinstance(fn, ast.Name) else (
+                fn.attr if isinstance(fn, ast.Attribute) else None)
+            if name == call_name and node.args and isinstance(
+                    node.args[0], ast.Constant) and isinstance(
+                        node.args[0].value, str):
+                out.append((node.args[0].value,
+                            f"{os.path.relpath(p, ROOT)}:{node.lineno}"))
+    return out
+
+
+def test_register_tunable_names_are_unique_literals():
+    """Every ``register_tunable`` in the port names its knob with a
+    string literal, once (a second registration would raise at import,
+    or never load where its module is imported lazily), and the live
+    registry holds exactly the scanned names."""
+    import collections
+
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.tuning import targets
+    calls = _literal_calls("register_tunable")
+    sites = collections.defaultdict(list)
+    for name, where in calls:
+        sites[name].append(where)
+    dupes = {n: s for n, s in sites.items() if len(s) > 1}
+    assert not dupes, dupes
+    assert len(calls) == 12, calls
+    for n in targets.target_names():
+        targets.ensure_registered(n)
+    assert set(registry.registered_tunables()) == set(sites)
+
+
+@pytest.mark.slow
+def test_import_paddle_tpu_torch_loads_no_tuning():
+    """In a fresh interpreter: importing the package, building an
+    executor and resolving an untuned knob load nothing of ``tuning``."""
+    import subprocess
+    import sys
+    code = ("import sys, paddle_tpu_torch as p\n"
+            "d = {'steps_per_dispatch': 4, 'prefetch_depth': 2}\n"
+            "e = p.Executor(p.CPUPlace())\n"
+            "assert e._tuned('executor/run_pipelined', d) is d\n"
+            "import paddle_tpu_torch.serving.server, "
+            "paddle_tpu_torch.sparse.session\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('paddle_tpu_torch.tuning')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    assert out.strip() == "[]"

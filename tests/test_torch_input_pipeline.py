@@ -355,9 +355,41 @@ def test_sgd_test_matches_jax_and_leaves_weights():
         np.testing.assert_array_equal(ptt.global_scope().numpy(k), v)
 
 
+def test_autotuned_pipelined_train_matches_jax_trainer(tmp_path):
+    """``train(pipeline=True, autotune=True)`` in both packages, each
+    replaying its own store's ``executor/run_pipelined`` and
+    ``reader/prefetch`` records: the same events and costs as the JAX
+    trainer's."""
+    from paddle_tpu import flags as jflags
+    from paddle_tpu import tuning as jtuning
+    from paddle_tpu_torch import flags as tflags
+    from paddle_tpu_torch import tuning as ttuning
+    records = {"executor/run_pipelined": {"steps_per_dispatch": 2,
+                                          "prefetch_depth": 1},
+               "reader/prefetch": {"num_workers": 1, "buffer_size": 2}}
+    prev = [(f, f.get_flag("cache_dir")) for f in (jflags, tflags)]
+    try:
+        for i, (flg, tun) in enumerate(((jflags, jtuning),
+                                        (tflags, ttuning))):
+            flg.set_flag("cache_dir", str(tmp_path / str(i)))
+            tun.clear_memo()
+            for name, cfg in records.items():
+                tun.save_record(name, cfg)
+        (jsgd, jfl), (tsgd, tfl), reader = _both_trainers()
+        jev, jcost = _train(jsgd, jfl, reader, pipeline=True, autotune=True)
+        tev, tcost = _train(tsgd, tfl, reader, pipeline=True, autotune=True)
+    finally:
+        for flg, value in prev:
+            flg.set_flag("cache_dir", value)
+        jtuning.clear_memo()
+        ttuning.clear_memo()
+    assert tev == jev and len(tcost) == 12
+    np.testing.assert_allclose(tcost, jcost, **COST_TOL)
+    assert tsgd.exe.autotune is None
+
+
 @pytest.mark.parametrize("arg,value", [
-    ("warmup", True), ("autotune", True),
-    ("auto_shard", {"dp": 2})])
+    ("warmup", True), ("auto_shard", {"dp": 2})])
 def test_train_refuses_what_is_not_ported(arg, value):
     _, (tsgd, tfl), reader = _both_trainers()
     with pytest.raises(NotImplementedError, match="Queue A item"):

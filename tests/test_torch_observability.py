@@ -200,7 +200,7 @@ def test_registry_rejects_unknown_names_and_kind_mismatch():
     with pytest.raises(TypeError, match="histogram"):
         obs.inc_counter("executor/step_time_ms")
     with pytest.raises(KeyError):
-        obs.inc_counter("tuning/trials")       # a JAX-only row
+        obs.observe_hist("tuning/trial_mss", 1.0)  # a row of neither
 
 
 def test_registry_thread_safety_exact_counts():
