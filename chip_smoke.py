@@ -26,7 +26,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
              block and one slab a tile; then the four
              transpose variants, the conv entry points at stride 1 and 2,
              and, in bf16, the trained wgrads with one slab (no split),
-             to show what the split buys.
+             to show what the split buys; last the bf16 wgrad dw [2048,
+             2048] over K = 50176 (784 K steps), whose slabs plan() caps
+             at MAX_BF16_SLAB_STEPS, one launch held against
+             mm_reference within deep_tol and timed.
 4. slice   — builds full-width ResNet-50 (224x224, 1000 classes, random
              weights from --seed) with the port's layers, serves >= 64
              single-image requests through serving.Server (bf16 inference
@@ -76,7 +79,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
              shape (BH 8, T 65536, d 64, causal, bf16) and at the other
              forms (non-causal, cross-attention with Dv != D, head size
              128, fp32, an lse cotangent through
-             flash_attention_with_lse, causal with Tq != Tk), the forward
+             flash_attention_with_lse, causal with Tq != Tk), a
+             1-stage backward ring through the raw binding (refused by
+             the launcher, the next backward healthy), the forward
              and each backward run twice and held bit-equal; trains the
              long-context program
              (Executor(amp=True).run_steps at T 65536) with the launch
@@ -328,6 +333,30 @@ Phases, each of which raises on failure (so the script exits non-zero):
              Executor(autotune=True); with autotune off the program is
              today's (digest), bit-equal, with equal K2-K4 launches; the
              store probed once a call site.
+23. cli    — the command line (cli.py, python -m paddle_tpu_torch) on
+             full-width ResNet-50 from a v1 config (resnet_v1_conf at
+             224x224, 1000 classes, batch 32), each job in-process
+             through cli.main with observe on: --job train --use_amp (2
+             passes of 3 steps from one startup's saved weights and an
+             npz of feeds) bit-equal to load_v1_config +
+             Executor(amp=True).run_steps(3) from the same weights, K1's
+             forward, dgrad and wgrad once per eligible 1x1 conv a step
+             (and the reduce passes plan() gives); --job test on the
+             saved pass bit-equal to a direct run(is_test=True), K1's
+             fp32 forward once a conv; --job time --use_amp (its
+             ms_per_batch beside [train]'s captured step); --job
+             checkgrad --batch 4 in float64 (the JAX rule's 9 probes, no
+             K1 launch, float64 convs routed plainly; its verdict at the
+             job's eps 1e-4 printed, where ResNet-50's ReLU and max-pool
+             kinks move the central difference, and each probe's
+             autodiff held to a float64 central difference at eps 1e-8
+             within the job's rtol 1e-3); check (with and without --mesh
+             dp=8, --concurrency, --config), plan --mesh dp=8 --out and
+             check --specs; stats, trace and doctor --per-op on the train
+             job's log; profile --config --reps 3 (its windows graph
+             replays, its per-op table within the module's tolerance of
+             the replay total, K1 launched); python -m paddle_tpu_torch
+             stats as a subprocess.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline and
 zoo runs captured (Executor(use_jit=True), each step one CUDA graph replay; the
@@ -997,7 +1026,59 @@ def phase_kernels(served, trained, seed):
                   f"conv2d_1x1_grad_fused stride {stride} "
                   f"{str(dtype)[6:]} {tuple(x.shape)} ok")
             del x, w, out, ref, o32, gout, dx, dw, xr, wr, yr, rdx, rdw
+    long_wgrad(conv1x1, g, sms)
     return rows
+
+
+# (P, C, M) of a 2048->2048 1x1 conv at 28x28 and batch 64: dw [2048,
+# 2048] over K = 50176 (784 K steps), whose 256 tiles fill the SMs, so
+# plan()'s rule alone gives one slab, past MAX_BF16_SLAB_STEPS
+LONG_WGRAD = (50176, 2048, 2048)
+
+
+def long_wgrad(conv1x1, g, sms):
+    """The bf16 wgrad at LONG_WGRAD: plan() caps its slabs at
+    MAX_BF16_SLAB_STEPS; one launch (and a reduce pass where the plan
+    has partials) held against mm_reference within deep_tol, then
+    timed."""
+    P, C, M = LONG_WGRAD
+    bf = torch.bfloat16
+    p = conv1x1.plan(M, C, P, True, False, bf, sms)
+    slab = -(-p.ksteps // p.splits)
+    if slab > conv1x1.MAX_BF16_SLAB_STEPS:
+        raise RuntimeError(f"chip_smoke: [kernels] plan() gives the wgrad "
+                           f"at {LONG_WGRAD} slabs of {slab} K steps")
+    x = torch.randn(P, C, device="cuda", generator=g).to(bf)
+    gout = torch.randn(P, M, device="cuda", generator=g).to(bf)
+    conv1x1.mm.by_form.clear()
+    out = conv1x1.mm(gout, x, True, False)
+    torch.cuda.synchronize()
+    launched = dict(conv1x1.mm.by_form)
+    want = {"wgrad": 1, **({"splitk_reduce": 1} if p.partials else {})}
+    if launched != want:
+        raise RuntimeError(f"chip_smoke: [kernels] the wgrad at "
+                           f"{LONG_WGRAD} launched {launched}, not {want}")
+    ref = conv1x1.mm_reference(gout, x, True, False)
+    tol = deep_tol(bf, P)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    share = (diff / (tol["atol"] + tol["rtol"] * ref.float().abs())
+             ).max().item()
+    del out, ref, diff
+    ms = time_ms(lambda: conv1x1.mm(gout, x, True, False))
+    lib_ms = time_ms(lambda: torch.matmul(gout.t(), x))
+    b_ms, b_by = gemm_bound_ms(2.0 * P * C * M,
+                               (P * C + P * M + M * C) * 2, bf)
+    print(f"[kernels] wgrad     bf16     P={P:6d} C={C:4d} M={M:4d} (K = P "
+          f"= {p.ksteps} K steps, tiles {p.tiles}): plan S={p.splits} "
+          f"cluster={p.cluster} partials={p.partials}, slabs of {slab} K "
+          f"steps (cap {conv1x1.MAX_BF16_SLAB_STEPS}); launches {launched}; "
+          f"max_abs_err={err:.3e}, largest error over its deep_tol limit "
+          f"{share:.3f}; kernel={ms:.4f} ms library={lib_ms:.4f} ms "
+          f"bound={b_ms:.4f} ms ({b_by})")
+    del x, gout
+    torch.cuda.empty_cache()
 
 
 def build_resnet50(seed):
@@ -1583,7 +1664,8 @@ def hold_to_exact(key, start, names, kernel, plain, exact, perturbed=None,
 
 def phase_train(seed, card, n_gate):
     """bench.py's recipe on the kernel path and on the plain path, held
-    against the plain path in float64."""
+    against the plain path in float64.  Returns K1's launches by form of
+    each dtype's kernel run and the captured bf16 ms a step."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.ops import conv1x1
     main, startup, loss = build_resnet50_train(seed)
@@ -1615,6 +1697,7 @@ def phase_train(seed, card, n_gate):
         torch.cuda.empty_cache()
     by_form = {dt: runs[f"{DTYPE_LABEL[dt]} kernel"][3]
                for dt in (torch.bfloat16, torch.float32)}
+    bf16_ms = runs["bf16 kernel"][2] * 1e3 / steps["bf16 kernel"]
     print(f"[train] ResNet-50 bf16 AMP batch {TRAIN_BATCH}, {TRAIN_STEPS} "
           f"steps: conv1x1_mm launches by form {by_form[torch.bfloat16]} "
           f"(gate: 3 x {n_gate} x {TRAIN_STEPS} = "
@@ -1685,7 +1768,7 @@ def phase_train(seed, card, n_gate):
                                "deterministic, as this profile")
         finally:
             torch.backends.cudnn.deterministic = saved
-    return by_form
+    return by_form, bf16_ms
 
 
 def runs_ms(turns):
@@ -2773,6 +2856,60 @@ def hold_attention_with_lse(fa, g):
           f"{max(h[1] for h in held):.3f} (tol {tol})")
 
 
+def hold_one_stage_refusal(fa, g):
+    """csrc/flash_attn.cu refuses a 1-stage backward ring (K3 failed
+    there with an unspecified launch failure): K3 and K4 launched
+    through the raw binding with a 1-stage plan built by hand return
+    cudaErrorInvalidValue, the wrapper's check raises naming the depth,
+    and the next ordinary backward runs and holds to the plain version."""
+    BH, T, D = 8, 4096, 64
+    q, k, v, gg = att_inputs(g, BH, T, T, D, D, torch.bfloat16)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.flash_delta(gg, out, None)
+    lse32 = lse.float().contiguous()
+    lib = fa._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    refused = {}
+    for kernel, outs in (("bwd_dq", (torch.empty_like(q),)),
+                         ("bwd_dkv", (torch.empty_like(k),
+                                      torch.empty_like(v)))):
+        plan = (fa.BWD_ROWS, 1, fa._bwd_smem(kernel, 64, 1))
+        before = dict(fa.launches)
+        rc = getattr(lib, f"flash_attn_{kernel}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), gg.data_ptr(),
+            lse32.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outs), BH, T, T, D, D, 1,
+            fa._scale(q, None), 1, *plan, stream)
+        try:
+            fa._check_rc(lib, rc, f"{kernel} stages=1")
+        except RuntimeError as e:
+            refused[kernel] = (rc, str(e))
+        if rc != 1 or kernel not in refused or "stages=1" not in \
+                refused[kernel][1] or dict(fa.launches) != before:
+            raise RuntimeError(f"chip_smoke: [attention] a 1-stage {kernel} "
+                               f"launch was not refused: rc {rc}")
+    torch.cuda.synchronize()
+    before = dict(fa.launches)
+    grads = fa.flash_bwd(q, k, v, out, lse, gg, True)
+    refs = fa.flash_bwd_reference(q, k, v, out, lse, gg, True)
+    torch.cuda.synchronize()
+    ran = {n: fa.launches[n] - before.get(n, 0) for n in ("bwd_dq",
+                                                          "bwd_dkv")}
+    tol = ATT_TOL[torch.bfloat16]
+    held = [att_close(f"after the 1-stage refusal d{n}", a, b, tol)
+            for n, a, b in zip("qkv", grads, refs)]
+    if ran != {"bwd_dq": 1, "bwd_dkv": 1}:
+        raise RuntimeError(f"chip_smoke: [attention] the backward after "
+                           f"the 1-stage refusal launched {ran}")
+    print(f"[attention] 1-stage backward ring BH={BH} T={T} D={D} causal "
+          f"bf16: refused by the launcher "
+          + ", ".join(f"{n} rc {rc} ({msg.split('(')[-1].split(')')[0]})"
+                      for n, (rc, msg) in refused.items())
+          + f"; the next backward launched {ran}, max_abs_err dq "
+          f"{held[0][0]:.3e} dk {held[1][0]:.3e} dv {held[2][0]:.3e}, "
+          f"largest error / limit {max(h[1] for h in held):.3f}")
+
+
 def phase_attention_kernels(seed):
     """Every form of K2-K4 against its plain version; the slice's form
     timed.  Returns the slice's row."""
@@ -2784,6 +2921,7 @@ def phase_attention_kernels(seed):
                                        timed=label in ("slice", "head 128"))
             for label, form in ATT_FORMS.items()}
     hold_attention_with_lse(fa, g)
+    hold_one_stage_refusal(fa, g)
     torch.cuda.empty_cache()
     return rows["slice"]
 
@@ -5641,8 +5779,8 @@ def observe_opprof(card, tag, main, start, feed, since, step_forms, batch):
           f"{wall:.1f} s, per-op sum {rep['per_op_sum_ms']:.3f} ms against "
           f"the eager total {rep['eager_total_ms']:.3f} ms (gap "
           f"{rep['sum_gap_frac']:.4f}, within {rep['tolerance']}: "
-          f"{rep['within_tolerance']}); launches {got}, expected {want}; "
-          f"{card}")
+          f"{rep['within_tolerance']}; windows timed by {rep['timing']}); "
+          f"launches {got}, expected {want}; {card}")
     if order != list(range(len(ops))) or [r["op_type"] for r in
                                           rep["rows"]] != [o.type
                                                            for o in ops]:
@@ -7428,6 +7566,480 @@ def phase_tune(seed, card):
                 for n in ATT_REPLACES}
 
 
+# ---------------------------------------------------------------------------
+# [cli] the command line: python -m paddle_tpu_torch's jobs and
+# subcommands, in-process, on full-width ResNet-50 from a v1 config
+# ---------------------------------------------------------------------------
+CLI_IMG = 224
+CLI_CLASSES = 1000
+CLI_BATCH = 32
+CLI_PASSES = 2
+CLI_STEPS = 3                 # steps a pass
+CLI_TIME_ITERS = 8
+CLI_CHECKGRAD_BATCH = 4
+# profile's windows an op and discarded ones before them: each window is
+# a graph replay queued behind a spin, and the median of three keeps one
+# window that the host held up out of a row
+CLI_PROFILE_REPS = 3
+CLI_PROFILE_WARMUP = 1
+CLI_BUDGET_S = 75.0
+
+
+def cli_root():
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def cli_fresh():
+    """Fresh default programs, global scope and name counters: what a new
+    process starts the command line with (a config's parameter names
+    come from the counters)."""
+    import paddle_tpu_torch as ptt
+    ptt.core.reset_default_programs()
+    ptt.core.reset_global_scope()
+    ptt.unique_name.reset()
+
+
+def cli_run(argv, log=None):
+    """``paddle_tpu_torch.cli.main(argv)`` in-process from fresh programs,
+    with observe on and the metrics_log flag at ``log``: (exit code, its
+    JSON lines, seconds, K1's launches by form from counts set to 0
+    just before).  The job's executor is collected before the next
+    capture starts."""
+    import contextlib
+    import gc
+    import io
+    from paddle_tpu_torch import cli, flags
+    from paddle_tpu_torch.observability import export
+    from paddle_tpu_torch.ops import conv1x1
+    cli_fresh()
+    prev = {n: flags.get_flag(n) for n in ("observe", "metrics_log")}
+    flags.set_flag("observe", True)
+    flags.set_flag("metrics_log", log or "")
+    buf = io.StringIO()
+    conv1x1.mm.by_form.clear()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+        torch.cuda.synchronize()
+    finally:
+        for n, v in prev.items():
+            flags.set_flag(n, v)
+        export._reset_writer()
+    secs = time.perf_counter() - t0
+    forms = dict(conv1x1.mm.by_form)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = []
+    for ln in buf.getvalue().splitlines():
+        try:
+            lines.append(json.loads(ln))
+        except json.JSONDecodeError:
+            continue
+    return rc, lines, secs, forms
+
+
+def cli_forms(n_gate, n_split, steps, forms=("forward", "dgrad", "wgrad")):
+    """K1's launches by form for ``steps`` steps (a form with none is
+    absent, as from the wrappers' Counter)."""
+    want = {f: n_gate * steps for f in forms}
+    want["splitk_reduce"] = n_split * steps if "wgrad" in forms else 0
+    return {f: n for f, n in want.items() if n}
+
+
+def cli_weights(conf, root):
+    """One startup's persistables of the minimized config, saved with
+    io.save_persistables (the directory --init_model_path reads)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.trainer_config_helpers import load_v1_config
+    cli_fresh()
+    cfg = load_v1_config(conf)
+    cfg.minimize_outputs()
+    exe = ptt.Executor()
+    exe.run(cfg.startup_program, feed={}, fetch_list=[])
+    path = os.path.join(root, "weights")
+    pio.save_persistables(exe, path, cfg.main_program)
+    exe.close()
+    return path, len(os.listdir(path))
+
+
+def cli_direct(conf, feeds, weights, amp, train):
+    """The library path the jobs must equal: load_v1_config, an executor
+    from ``weights``, then CLI_PASSES x run_steps(CLI_STEPS) (``train``:
+    (loss, mean_loss) a pass) or one run(is_test=True) (the outputs'
+    means)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.trainer_config_helpers import load_v1_config
+    cli_fresh()
+    cfg = load_v1_config(conf)
+    loss = cfg.minimize_outputs() if train else None
+    exe = ptt.Executor(amp=amp)
+    exe.run(cfg.startup_program, feed={}, fetch_list=[])
+    pio.load_persistables(exe, weights, cfg.main_program)
+    gb = cfg.main_program.global_block()
+    dev = {k: exe._feed_tensor(gb, k, v) for k, v in feeds.items()}
+    out = []
+    if train:
+        for _ in range(CLI_PASSES):
+            (vals,) = exe.run_steps(CLI_STEPS, cfg.main_program, feed=dev,
+                                    fetch_list=[loss])
+            vals = np.asarray(vals).reshape(-1)
+            out.append((float(vals[-1]), float(np.mean(vals))))
+    else:
+        outs = exe.run(cfg.main_program, feed=dev, fetch_list=cfg.outputs,
+                       is_test=True)
+        out = [float(np.mean(v)) for v in outs]
+    exe.close()
+    return out
+
+
+def cli_train_test(conf, npz, feeds, root, n_gate, n_split, card):
+    """--job train from one startup's weights, bit-equal to the library
+    path with K1 counted; --job test on the saved pass, bit-equal to a
+    direct run(is_test=True).  Returns (train forms, test forms, the
+    train job's log)."""
+    weights, n_vars = cli_weights(conf, root)
+    want = cli_direct(conf, feeds, weights, amp=True, train=True)
+    log = os.path.join(root, "train.jsonl")
+    save = os.path.join(root, "saves")
+    rc, lines, secs, forms = cli_run(
+        ["--config", conf, "--job", "train", "--use_amp", "--num_passes",
+         str(CLI_PASSES), "--steps_per_pass", str(CLI_STEPS), "--feed-npz",
+         npz, "--init_model_path", weights, "--save_dir", save], log)
+    got = [(r["loss"], r["mean_loss"]) for r in lines]
+    exp = cli_forms(n_gate, n_split, CLI_PASSES * CLI_STEPS)
+    print(f"[cli] --job train --use_amp, {CLI_PASSES} passes of "
+          f"{CLI_STEPS} steps from {n_vars} saved vars: "
+          + ", ".join(json.dumps(r) for r in lines)
+          + f"; the library path {want}: "
+          + ("bit-equal" if got == want else "DIFFERENT")
+          + f"; K1 {forms} (expected {exp}); {secs:.1f} s; {card}")
+    if rc != 0 or [r["pass"] for r in lines] != list(range(CLI_PASSES)) \
+            or got != want:
+        raise RuntimeError(f"chip_smoke: [cli] --job train printed "
+                           f"{lines} (rc {rc}); the library path {want}")
+    if forms != exp:
+        raise RuntimeError(f"chip_smoke: [cli] --job train launched K1 "
+                           f"{forms}, expected {exp}")
+    last = os.path.join(save, f"pass-{CLI_PASSES - 1:05d}")
+    want = cli_direct(conf, feeds, last, amp=False, train=False)
+    rc, lines, secs, t_forms = cli_run(
+        ["--config", conf, "--job", "test", "--init_model_path", last,
+         "--feed-npz", npz], os.path.join(root, "test.jsonl"))
+    got = [r["mean"] for r in lines]
+    print(f"[cli] --job test from {os.path.basename(last)}: "
+          + ", ".join(json.dumps(r) for r in lines)
+          + f"; a direct Executor.run(is_test=True) {want}: "
+          + ("bit-equal" if got == want else "DIFFERENT")
+          + f"; K1 {t_forms} (fp32); {secs:.1f} s; {card}")
+    if rc != 0 or got != want or t_forms != cli_forms(n_gate, 0, 1,
+                                                     ("forward",)):
+        raise RuntimeError(f"chip_smoke: [cli] --job test printed {lines} "
+                           f"(rc {rc}), launched {t_forms}; a direct run "
+                           f"{want}")
+    return forms, t_forms, log
+
+
+def cli_time(conf, npz, n_gate, n_split, train_ms, card):
+    rc, lines, secs, forms = cli_run(
+        ["--config", conf, "--job", "time", "--use_amp", "--iters",
+         str(CLI_TIME_ITERS), "--feed-npz", npz])
+    exp = cli_forms(n_gate, n_split, 2 * CLI_TIME_ITERS)
+    if rc != 0 or not lines or "ms_per_batch" not in lines[-1] or \
+            forms != exp:
+        raise RuntimeError(f"chip_smoke: [cli] --job time printed {lines} "
+                           f"(rc {rc}), launched K1 {forms}, expected {exp}")
+    ms = lines[-1]["ms_per_batch"]
+    print(f"[cli] --job time --use_amp --iters {CLI_TIME_ITERS} at batch "
+          f"{CLI_BATCH}: {json.dumps(lines[-1])}, {CLI_BATCH * 1e3 / ms:.1f} "
+          f"img/s; [train]'s captured bf16 step at batch {TRAIN_BATCH}: "
+          + f"{train_ms:.1f} ms, {TRAIN_BATCH * 1e3 / train_ms:.1f} img/s"
+          + f"; K1 {forms} over both windows; {secs:.1f} s; {card}")
+
+
+CLI_CHECKGRAD_EPS = 1e-4        # cli.job_checkgrad's, as the JAX job's
+CLI_CHECKGRAD_RTOL = 1e-3
+CLI_NEAR_EPS = 1e-8             # the phase's own central difference
+
+
+def cli_probes(cfg):
+    """The (parameter, index) probes cli.job_checkgrad takes on ``cfg``,
+    by the JAX command line's rule: the first three floating
+    persistables the startup initializes, three indices each from
+    RandomState(0)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.backward import append_backward
+    from paddle_tpu_torch.core.program import program_guard
+    exe = ptt.Executor(compute_dtype="float64")
+    with program_guard(cfg.main_program, cfg.startup_program):
+        append_backward(cfg.outputs[0])
+    exe.run(cfg.startup_program, feed={}, fetch_list=[])
+    sc = ptt.global_scope()
+    params = [v.name for v in cfg.main_program.global_block().vars.values()
+              if v.persistable and sc.has(v.name)
+              and torch.is_floating_point(sc.get(v.name))][:3]
+    rng = np.random.RandomState(0)
+    probes = [(p, int(i)) for p in params
+              for i in rng.choice(sc.get(p).numel(),
+                                  size=min(3, sc.get(p).numel()),
+                                  replace=False)]
+    return exe, probes
+
+
+def cli_near(conf, probes_seen):
+    """Each probe's autodiff value and float64 central difference at
+    CLI_NEAR_EPS on the job's weights and feeds (the startup and the
+    synthesized feeds are deterministic), computed here outside the
+    command line: {(param, index): (autodiff, numeric)}, and whether the
+    probes are the rule's."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.core.program import grad_var_name
+    from paddle_tpu_torch.trainer_config_helpers import load_v1_config
+    cli_fresh()
+    cfg = load_v1_config(conf)
+    exe, probes = cli_probes(cfg)
+    feeds = {k: v for k, v in cli._synth_feeds(cfg, CLI_CHECKGRAD_BATCH)
+             .items() if k in cli._used_feed_names(cfg)}
+    sc = ptt.global_scope()
+    loss = cfg.outputs[0]
+    out = {}
+    for pname in dict.fromkeys(p for p, _ in probes):
+        g, = exe.run(cfg.main_program, feed=feeds,
+                     fetch_list=[grad_var_name(pname)])
+        w0 = sc.numpy(pname).copy()
+        for _, idx in [q for q in probes if q[0] == pname]:
+            vals = []
+            for sign in (1, -1):
+                w = w0.astype(np.float64).ravel()
+                w[idx] += sign * CLI_NEAR_EPS
+                sc.set(pname, torch.from_numpy(w.reshape(w0.shape)).cuda())
+                v = exe.run(cfg.main_program, feed=feeds, fetch_list=[loss])
+                vals.append(float(np.asarray(v[0]).reshape(-1)[0]))
+            sc.set(pname, torch.from_numpy(w0).cuda())
+            out[(pname, idx)] = (float(np.asarray(g).ravel()[idx]),
+                                 (vals[0] - vals[1]) / (2 * CLI_NEAR_EPS))
+    exe.close()
+    return out, probes == probes_seen
+
+
+def cli_checkgrad(conf, card):
+    """--job checkgrad --batch 4 (float64, the job's eps 1e-4): the
+    rule's probes, no K1 launch, float64 convolutions routed plainly, and
+    the verdict the probes give; then each probe's autodiff against the
+    float64 central difference at CLI_NEAR_EPS, computed here, within the
+    job's rtol.  At eps 1e-4 ResNet-50's ReLUs and max pool put kinks
+    within the step (the central difference moves with eps), so the job's
+    verdict is printed, not required."""
+    from paddle_tpu_torch.ops import conv1x1
+    routed = conv1x1.routes["dtype"]
+    rc, lines, secs, forms = cli_run(
+        ["--config", conf, "--job", "checkgrad", "--batch",
+         str(CLI_CHECKGRAD_BATCH)])
+    routed = conv1x1.routes["dtype"] - routed
+    probes, final = lines[:-1], (lines[-1] if lines else {})
+    seen = [(r["param"], r["index"]) for r in probes]
+    for r in probes:
+        print(f"[cli] --job checkgrad probe: {json.dumps(r)}")
+    print(f"[cli] --job checkgrad --batch {CLI_CHECKGRAD_BATCH} (float64, "
+          f"eps {CLI_CHECKGRAD_EPS:g}, rtol {CLI_CHECKGRAD_RTOL:g}): "
+          f"{json.dumps(final)} (exit {rc}), {len(probes)} probes; K1 "
+          f"{forms}, {routed} float64 convs routed plainly by dtype; "
+          f"{secs:.1f} s; {card}")
+    ok = final.get("checkgrad") in ("PASS", "FAIL") and \
+        rc == (final["checkgrad"] == "FAIL") and \
+        final.get("failures") == sum(not r["ok"] for r in probes)
+    if not ok or len(probes) != 9 or forms or not routed:
+        raise RuntimeError(f"chip_smoke: [cli] --job checkgrad: exit {rc}, "
+                           f"{final}, {len(probes)} probes, K1 {forms}, "
+                           f"{routed} float64 convs")
+    near, same = cli_near(conf, seen)
+    worst = 0.0
+    for r in probes:
+        ana, num = near[(r["param"], r["index"])]
+        err = abs(num - ana) / max(1.0, abs(num), abs(ana))
+        worst = max(worst, err)
+        print(f"[cli] checkgrad probe {r['param']}[{r['index']}]: autodiff "
+              f"{r['autodiff']!r} (here {ana!r}); central difference "
+              f"{r['numeric']!r} at eps {CLI_CHECKGRAD_EPS:g}, {num!r} at "
+              f"eps {CLI_NEAR_EPS:g}")
+        if not abs(ana - r["autodiff"]) <= 1e-9 * max(1.0, abs(ana)):
+            raise RuntimeError(f"chip_smoke: [cli] checkgrad: autodiff of "
+                               f"{r['param']}[{r['index']}] is {ana} here, "
+                               f"{r['autodiff']} in the job")
+    print(f"[cli] checkgrad: the probes are the rule's: {same}; autodiff "
+          f"against the float64 central difference at eps "
+          f"{CLI_NEAR_EPS:g}: worst |numeric - autodiff| / max(1, |.|) "
+          f"{worst:.3e} (the job's rtol {CLI_CHECKGRAD_RTOL:g}); {card}")
+    if not same or not worst <= CLI_CHECKGRAD_RTOL:
+        raise RuntimeError(f"chip_smoke: [cli] checkgrad: probes the "
+                           f"rule's {same}, worst {worst}")
+
+
+def cli_check_plan(conf, root, card):
+    """check (with and without --mesh dp=8, and --concurrency), plan
+    --mesh dp=8 --out, then check --specs on the train program's JSON.
+    Returns the program file."""
+    from paddle_tpu_torch.trainer_config_helpers import load_v1_config
+    cli_fresh()
+    cfg = load_v1_config(conf)
+    cfg.minimize_outputs()
+    prog = os.path.join(root, "train_program.json")
+    with open(prog, "w") as f:
+        f.write(cfg.main_program.to_json())
+    plan = os.path.join(root, "plan.json")
+    for argv in (["check", prog], ["check", prog, "--mesh", "dp=8"],
+                 ["check", "--concurrency"],
+                 ["plan", prog, "--mesh", "dp=8", "--out", plan],
+                 ["check", prog, "--specs", plan],
+                 ["check", "--config", conf]):
+        rc, lines, secs, _ = cli_run(argv)
+        print(f"[cli] {' '.join(os.path.basename(a) for a in argv)}: "
+              f"{json.dumps(lines[-1]) if lines else '-'} (exit {rc}); "
+              f"{secs:.2f} s")
+        if rc != 0:
+            raise RuntimeError(f"chip_smoke: [cli] {argv} exited {rc}")
+    return prog
+
+
+def cli_readers(log, prog, root, card):
+    """stats, trace --json and doctor --program --per-op on the train
+    job's log; then python -m paddle_tpu_torch stats as a subprocess."""
+    rc, lines, secs, _ = cli_run(["stats", log, "--json"])
+    stats = lines[-1] if lines else {}
+    if rc != 0 or not stats.get("events"):
+        raise RuntimeError(f"chip_smoke: [cli] stats read {stats} (rc {rc})")
+    rc, lines, t_secs, _ = cli_run(["trace", log, "--json"])
+    trace = lines[-1] if lines else {}
+    if rc != 0 or not trace.get("traces"):
+        raise RuntimeError(f"chip_smoke: [cli] trace read {trace} (rc {rc})")
+    cal = os.path.join(root, "calibration.json")
+    rc, lines, d_secs, d_forms = cli_run(
+        ["doctor", log, "--program", prog, "--per-op", "--batch",
+         str(CLI_BATCH), "--calibration-out", cal, "--json"])
+    doc = lines[-1] if lines else {}
+    per_op = doc.get("per_op") or {}
+    if rc != 0 or not per_op.get("rows") or not d_forms:
+        raise RuntimeError(f"chip_smoke: [cli] doctor --per-op: rc {rc}, "
+                           f"{len(per_op.get('rows') or [])} rows, K1 "
+                           f"{d_forms}")
+    tr = doc.get("training") or {}
+    print(f"[cli] stats on the train job's log: {stats.get('events')} "
+          f"events, {secs:.2f} s; trace: {trace.get('traces')} traces, "
+          f"span names {sorted(trace.get('span_stats') or {})}, "
+          f"{t_secs:.2f} s; doctor --per-op: dispatches "
+          f"{tr.get('dispatches')}, budget gap {tr.get('budget_gap_frac')}, "
+          f"calibration ratio "
+          f"{(doc.get('calibration') or {}).get('ratio')}, per-op "
+          f"{per_op['ops']} rows (gap {per_op.get('sum_gap_frac')}, within "
+          f"tolerance {per_op.get('within_tolerance')}), K1 {d_forms}; "
+          f"{d_secs:.1f} s; {card}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "paddle_tpu_torch", "stats",
+                        log, "--json"], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=here)
+    secs = time.perf_counter() - t0
+    try:
+        sub = json.loads(r.stdout.splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        sub = None
+    print(f"[cli] python -m paddle_tpu_torch stats LOG --json as a "
+          f"subprocess: exit {r.returncode} in {secs:.1f} s, "
+          f"{(sub or {}).get('events')} events (in-process "
+          f"{stats.get('events')})")
+    if r.returncode != 0 or sub != json.loads(json.dumps(stats)):
+        raise RuntimeError(f"chip_smoke: [cli] the stats subprocess: exit "
+                           f"{r.returncode}, {r.stderr[-2000:]}")
+
+
+def cli_profile(conf, card):
+    rc, lines, secs, forms = cli_run(
+        ["profile", "--config", conf, "--batch", str(CLI_BATCH), "--reps",
+         str(CLI_PROFILE_REPS), "--warmup", str(CLI_PROFILE_WARMUP),
+         "--json"])
+    rep = lines[-1] if lines else {}
+    print(f"[cli] profile --config F --batch {CLI_BATCH} --reps "
+          f"{CLI_PROFILE_REPS} --warmup {CLI_PROFILE_WARMUP}: "
+          f"{rep.get('ops')} rows, per-op sum "
+          f"{rep.get('per_op_sum_ms')} ms against the eager total "
+          f"{rep.get('eager_total_ms')} ms (gap {rep.get('sum_gap_frac')}, "
+          f"within {rep.get('tolerance')}: {rep.get('within_tolerance')}; "
+          f"windows timed by {rep.get('timing')}); K1 {forms} (fp32); "
+          f"{secs:.1f} s; {card}")
+    for r in (rep.get("top") or [])[:5]:
+        print(f"[cli] profile top: #{r['index']:>3} {r['op_type']:<16} "
+              f"{r['wall_ms']:10.4f} ms [{r['phase']}] windows "
+              f"{r.get('windows_ms')}")
+    if rc != 0 or not rep.get("within_tolerance") or \
+            rep.get("timing") != "cuda graph replay" or \
+            rep.get("ops") != len(rep.get("rows") or []) or \
+            not all(forms.get(f) for f in ("forward", "dgrad", "wgrad")):
+        raise RuntimeError(f"chip_smoke: [cli] profile: rc {rc}, within "
+                           f"tolerance {rep.get('within_tolerance')}, timing "
+                           f"{rep.get('timing')} "
+                           f"{rep.get('capture_failed', '')}, K1 {forms}")
+    return forms
+
+
+def phase_cli(seed, card, train_ms):
+    """The command line on the card (see the module docstring);
+    ``train_ms`` is [train]'s captured bf16 ms a step, printed beside
+    --job time's.  Returns K1's launches by form of the train job (bf16)
+    and of the test job (fp32)."""
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.trainer_config_helpers import load_v1_config
+    t_phase = time.perf_counter()
+    root = cli_root()
+    conf = os.path.join(root, "resnet50_v1.py")
+    with open(conf, "w") as f:
+        f.write(resnet_v1_conf(img=CLI_IMG, classes=CLI_CLASSES,
+                               batch=CLI_BATCH))
+    cli_fresh()
+    shapes = eligible_1x1_shapes(load_v1_config(conf).main_program,
+                                 CLI_BATCH)
+    n_gate, n_split = len(shapes), split_wgrads(shapes)
+    rng = np.random.RandomState(seed + 23)
+    feeds = {"image": rng.rand(CLI_BATCH, 3 * CLI_IMG * CLI_IMG)
+             .astype(np.float32),
+             "label": rng.randint(0, CLI_CLASSES, (CLI_BATCH, 1))
+             .astype(np.int64)}
+    npz = os.path.join(root, "feeds.npz")
+    np.savez(npz, **feeds)
+    print(f"[cli] ResNet-50 from resnet_v1_conf() ({CLI_IMG}x{CLI_IMG}, "
+          f"{CLI_CLASSES} classes, batch {CLI_BATCH}): {n_gate} eligible "
+          f"1x1 convs, {n_split} bf16 wgrads with a reduce pass")
+    saved = torch.backends.cudnn.deterministic
+    try:
+        # the library path and the jobs are held bit for bit: cuDNN's
+        # deterministic algorithms, as [resume] holds its arms
+        torch.backends.cudnn.deterministic = True
+        forms, t_forms, log = cli_train_test(conf, npz, feeds, root, n_gate,
+                                             n_split, card)
+        cli_checkgrad(conf, card)
+        torch.backends.cudnn.deterministic = saved
+        cli_time(conf, npz, n_gate, n_split, train_ms, card)
+        prog = cli_check_plan(conf, root, card)
+        cli_readers(log, prog, root, card)
+        cli_profile(conf, card)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        cli_fresh()
+    conv1x1.mm.by_form.clear()
+    secs = time.perf_counter() - t_phase
+    print(f"[cli] phase {secs:.1f} s (budget {CLI_BUDGET_S:.0f} s); {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    return forms, t_forms
+
+
 def attention_entries(row, launches):
     """The kernels JSON entries of K2, K3 and K4: times, errors and
     bounds at the slice's shape, launches from the main path's run."""
@@ -7574,7 +8186,7 @@ def main():
     torch.cuda.empty_cache()
     launches, buckets, fp32_launches = phase_slice(args.seed, card)
     torch.cuda.empty_cache()
-    t_forms = phase_train(args.seed, card, len(train_shapes))
+    t_forms, train_ms = phase_train(args.seed, card, len(train_shapes))
     torch.cuda.empty_cache()
     r_forms = phase_resume(args.seed, card, len(train_shapes),
                            split_wgrads(train_shapes))
@@ -7611,6 +8223,8 @@ def main():
     f_launches = phase_fleet(args.seed, card)
     torch.cuda.empty_cache()
     tune_k1, tune_flash_launches = phase_tune(args.seed, card)
+    torch.cuda.empty_cache()
+    cli_train_forms, cli_test_forms = phase_cli(args.seed, card, train_ms)
 
     # bf16: the served path and the AMP step; fp32: the served forward's
     # fp32 run and the fp32 step
@@ -7643,6 +8257,15 @@ def main():
         if dtype == torch.bfloat16:
             # [tune]'s plan search runs the bf16 wgrad
             entries[2]["tune_launches"] = tune_k1
+            # [cli]'s --job train --use_amp runs the AMP step
+            for k, form in zip((step_forward,) + tuple(entries[:3]),
+                               ("forward", "forward", "dgrad", "wgrad")):
+                k["cli_launches"] = cli_train_forms.get(form, 0)
+            entries[2]["cli_reduce_launches"] = cli_train_forms.get(
+                "splitk_reduce", 0)
+        else:
+            # [cli]'s --job test runs the fp32 forward
+            entries[0]["cli_launches"] = cli_test_forms.get("forward", 0)
         kernels += entries
         for k in [step_forward] + entries[1:]:
             lib = "-" if k["library_ms"] is None else \
@@ -7667,6 +8290,13 @@ def main():
                      f"worker processes"
                      + ("" if "elastic_reduce_launches" not in k else
                         f" (and {k['elastic_reduce_launches']} reduce "
+                        f"passes)"))
+                  + ("" if "cli_launches" not in k else
+                     f", {k['cli_launches']} in [cli]'s "
+                     + ("--job train" if dtype == torch.bfloat16 else
+                        "--job test")
+                     + ("" if "cli_reduce_launches" not in k else
+                        f" (and {k['cli_reduce_launches']} reduce "
                         f"passes)")))
     print(f"[summary] forward: times summed over the {len(shapes)} "
           f"launches of one batch-{BATCH} forward, launches from the served "

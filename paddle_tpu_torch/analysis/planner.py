@@ -6,9 +6,10 @@ It reads the Program IR, enumerates candidate annotation sets for a
 given mesh (an axis->size dict), scores them with the static cost model,
 checks each with the sharding propagation pass and the PT030/PT031 spec
 lints, and returns the winner as plain ``param_specs``/``feed_specs``.
-Pure static analysis: nothing runs on a card.  The executor that will
-take a plan (``ShardedExecutor(auto_shard=)``) waits for ROADMAP item 7,
-and the ``plan`` command line for item 9e.
+Pure static analysis: nothing runs on a card.  ``python -m
+paddle_tpu_torch plan`` (``cli.py``) prints and writes a plan, and
+``check --specs`` validates one; the executor that will take a plan
+(``ShardedExecutor(auto_shard=)``) waits for ROADMAP item 7.
 
 Candidate enumeration (deliberately small — plans, not a search):
 

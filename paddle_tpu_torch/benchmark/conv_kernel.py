@@ -100,6 +100,8 @@ def slab_accuracy(smoke: bool = False, quiet: bool = False) -> list:
     seen = set()
     prev = conv1x1.MAX_BF16_SLAB_STEPS
     conv1x1.MAX_BF16_SLAB_STEPS = 1 << 30
+    # plan() reads the bound too: no plan made without it may stay cached
+    conv1x1.plan.cache_clear()
     try:
         for name, P, C, M in shapes(smoke):
             if (P, C, M) in seen:
@@ -128,6 +130,7 @@ def slab_accuracy(smoke: bool = False, quiet: bool = False) -> list:
             del measure, gout, x, ref
     finally:
         conv1x1.MAX_BF16_SLAB_STEPS = prev
+        conv1x1.plan.cache_clear()
     return rows
 
 

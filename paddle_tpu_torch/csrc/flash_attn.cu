@@ -191,6 +191,9 @@ __host__ __device__ constexpr int bwd_threads(bool dkv, int dp) {
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kBwdMaxStages = 4;
+// K3 fails with an unspecified launch failure on a ring of one stage (on
+// the H100): launch_bwd refuses fewer stages than this.
+constexpr int kBwdMinStages = 2;
 constexpr uint32_t kOwnBox = kBwdRows * 128;      // 128 rows x 64 columns
 constexpr uint32_t kTileBox = kBwdTile * 128;     // 64 rows x 64 columns
 constexpr float kLog2e = 1.4426950408889634f;
@@ -1248,7 +1251,8 @@ template <int DP>
 cudaError_t launch_bwd(Which w, const Args& a, const Plan& p,
                        cudaStream_t s) {
   const bool dkv = w == kDkv;
-  if (p.rows != kBwdRows || p.stages < 1 || p.stages > kBwdMaxStages ||
+  if (p.rows != kBwdRows || p.stages < kBwdMinStages ||
+      p.stages > kBwdMaxStages ||
       p.smem != static_cast<int>(bwd_smem_bytes(dkv, DP, p.stages))) {
     return cudaErrorInvalidValue;
   }

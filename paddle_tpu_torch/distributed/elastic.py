@@ -856,18 +856,6 @@ def prebuild_kernels(program, batch_size: int) -> bool:
     return False
 
 
-def _parse_config_args(s: Optional[str]) -> Dict[str, str]:
-    """``--config_args k=v,k2=v2`` as a dict (the JAX command line's
-    parser)."""
-    if not s:
-        return {}
-    out = {}
-    for kv in s.split(","):
-        k, _, v = kv.partition("=")
-        out[k.strip()] = v.strip()
-    return out
-
-
 def _worker_argv_for_config(config_path: str, batch_size: int,
                             config_args: Optional[str] = None,
                             events_dir: Optional[str] = None,
@@ -921,6 +909,7 @@ def worker_main(args) -> int:
     """``python -m paddle_tpu_torch elastic --worker``: one elastic
     trainer, in fp32, on ``args.device`` (:func:`worker_place` says what
     a worker on the card guarantees)."""
+    from ..cli import _parse_config_args
     from ..core.program import program_guard
     from ..trainer import SGD, events
     from ..trainer_config_helpers import load_v1_config
@@ -1019,6 +1008,7 @@ def elastic_main(argv=None) -> int:
     chunks = sorted(_glob.glob(args.data))
     if not chunks:
         raise SystemExit(f"elastic: no files match {args.data!r}")
+    from ..cli import _parse_config_args
     from ..trainer_config_helpers import load_v1_config
     cfg = load_v1_config(args.config,
                          **_parse_config_args(args.config_args))

@@ -9,12 +9,16 @@ step's time goes to, and how far each is from the static cost model.
   (``nanprov.make_eager_context``), so every op times at the precision
   the step computes at.  Each op is timed over warm-up-discarded
   windows (``tuning.search.time_windows``, the host clock, on the CPU);
-  on the card a window's time is a pair
-  of CUDA events on the current stream around the op, read after the
-  window's end event, and on the CPU the host clock.  Each window places
-  the random ops' streams at the step again, so every window draws the
-  step's masks.  The kernel wrappers count the replay's launches like
-  any others.
+  on the card the op is captured as a CUDA graph, the form the
+  executor's captured step runs it in, and a window's time is a pair of
+  CUDA events around one replay: the op's device time, which the host's
+  speed at interpreting it does not move (:func:`cuda_graph_windows`).
+  A walk with an op that cannot be captured runs again on CUDA events
+  around the eager op (:func:`cuda_time_windows`), its replay total
+  waiting for each op; the report's ``timing`` names the method.  Each
+  window places the random ops' streams at the step again, so every
+  window draws the step's masks.  The kernel wrappers count the
+  replay's launches like any others (a graph's once a replay).
 * **Modeled** (``modeled=True``) — each measured op joined against the
   static cost model's per-op FLOPs and bytes (``analysis.cost_model``,
   the H100 constants): predicted-vs-measured ratios, a roofline verdict
@@ -40,6 +44,7 @@ paddle_tpu_torch.benchmark.opprof`` is its driver.
 from __future__ import annotations
 
 import logging
+import warnings
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -230,6 +235,79 @@ def cuda_time_windows(call: Callable[[], object], *, reps: int = 3,
     return _window_stats(times, unit)
 
 
+# the spin before a graph window: about a millisecond at an H100's
+# 1.98 GHz, longer than the host takes to queue the window
+LEAD_CYCLES = 2_000_000
+
+
+class CaptureFailed(RuntimeError):
+    """A call of the walk could not be captured as a CUDA graph."""
+
+
+def cuda_graph_windows(side: "torch.cuda.Stream", graphs: list) -> Callable:
+    """A ``measure`` for the card that times ``call`` as the captured
+    step runs it: ``warmup`` eager calls, then one capture of ``call`` on
+    ``side`` (the launches it counts added once a replay, as the
+    executor's captured step adds them), then each window a pair of CUDA
+    events around one replay, queued behind a spin of
+    :data:`LEAD_CYCLES`.  A window is the call's device time, free of the
+    host's interpretation and launch of it, so host speed moves neither
+    the rows nor the total.  The graphs share one private memory pool (a
+    graph is replayed only before the next capture) and stay in
+    ``graphs`` while the walk's env holds their outputs.  Raises
+    :class:`CaptureFailed` when ``call`` cannot be captured."""
+    from ..core import compile_cache
+
+    def measure(call, *, reps: int = 3, warmup: int = 1,
+                unit: int = 1) -> dict:
+        for _ in range(max(0, warmup)):
+            call()
+        graph = torch.cuda.CUDAGraph()
+        deltas: list = []
+        side.wait_stream(torch.cuda.current_stream())
+        try:
+            with warnings.catch_warnings(), torch.cuda.stream(side), \
+                    compile_cache.capture_launches(deltas):
+                # an op that launches nothing (a reshape) captures an
+                # empty graph, which torch warns of
+                warnings.filterwarnings(
+                    "ignore", message=".*CUDA Graph is empty.*")
+                graph.capture_begin(
+                    pool=graphs[0].pool() if graphs else None,
+                    capture_error_mode="thread_local")
+                try:
+                    call()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except Exception:
+                        pass
+                    raise
+                graph.capture_end()
+        except Exception as e:
+            cause = str(e).strip().splitlines()[0] if str(e).strip() \
+                else ""
+            raise CaptureFailed(f"{type(e).__name__}: {cause}") from e
+        torch.cuda.current_stream().wait_stream(side)
+        graphs.append(graph)
+        times = []
+        for _ in range(max(1, reps)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            # the card spins while the host queues the window, so the
+            # window opens on the graph's first kernel and not on the
+            # host's launch of it
+            torch.cuda._sleep(LEAD_CYCLES)
+            start.record()
+            graph.replay()
+            end.record()
+            compile_cache.replay_launches(deltas)
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        return _window_stats(times, unit)
+    return measure
+
+
 def _window_stats(times: List[float], unit: int) -> dict:
     med = float(np.median(times))
     return {
@@ -378,8 +456,9 @@ def profile_program(program, *, executor=None, feed=None, state=None,
     ``fetch_list`` names vars to materialize).
 
     ``measure(call, reps=, warmup=)`` must run ``call`` at least once and
-    return the ``time_windows`` dict (default: :func:`cuda_time_windows`
-    on the card, ``tuning.search.time_windows`` on the CPU) — injectable
+    return the ``time_windows`` dict (default: :func:`cuda_graph_windows`
+    on the card, :func:`cuda_time_windows` there when an op cannot be
+    captured, ``tuning.search.time_windows`` on the CPU) — injectable
     so a test's
     fake timer exercises the walk deterministically.  The call order is
     the JAX package's: one measurement per op in execution order, then
@@ -391,8 +470,6 @@ def profile_program(program, *, executor=None, feed=None, state=None,
     ranking, and the model's peak beside the memory timeline's; the
     measured fields stay as they are."""
     from ..core import compile_cache
-    from ..core.executor import Env, _run_backward, _to_bf16, run_op
-    from .nanprov import dtype_name, make_eager_context
 
     if executor is None:
         from ..core.executor import Executor
@@ -401,12 +478,6 @@ def profile_program(program, *, executor=None, feed=None, state=None,
         from ..core.scope import global_scope
         scope = global_scope()
     on_card = executor.device.type == "cuda"
-    if measure is None:
-        if on_card:
-            measure = cuda_time_windows
-        else:
-            from ..tuning.search import time_windows as measure
-
     gb = program.global_block()
     host_feed = dict(feed) if feed is not None \
         else synth_feeds(program, batch=batch, seq_len=seq_len)
@@ -417,7 +488,88 @@ def profile_program(program, *, executor=None, feed=None, state=None,
     state = {k: v if isinstance(v, torch.Tensor)
              else executor._feed_tensor(gb, k, v)
              for k, v in state.items()}
+    _metrics.inc_counter("opprof/runs")
+    walk_args = (program, executor, feeds, state, step, is_test, reps,
+                 warmup)
 
+    capture_failed = None
+    if measure is not None:
+        timing = "given"
+        rows, sizes, eager_total_ms, env, bw_idx = _walk(
+            *walk_args, measure, wait=None)
+    elif not on_card:
+        from ..tuning.search import time_windows
+        timing = "host clock"
+        rows, sizes, eager_total_ms, env, bw_idx = _walk(
+            *walk_args, time_windows, wait=None)
+    else:
+        graphs: list = []
+        side = torch.cuda.Stream(device=executor.device)
+        try:
+            timing = "cuda graph replay"
+            rows, sizes, eager_total_ms, env, bw_idx = _walk(
+                *walk_args, cuda_graph_windows(side, graphs), wait=None)
+        except CaptureFailed as e:
+            # every window of one report is timed one way: the walk runs
+            # again on event windows, the replay total waiting for each
+            # op as each per-op window ends on its op's completion
+            capture_failed = str(e)
+            logger.warning("opprof: %s; the profile times eager windows "
+                           "on CUDA events instead", e)
+            graphs.clear()
+            torch.cuda.synchronize(executor.device)
+            timing = "cuda events"
+            stream = torch.cuda.current_stream(executor.device)
+            rows, sizes, eager_total_ms, env, bw_idx = _walk(
+                *walk_args, cuda_time_windows, wait=stream.synchronize)
+    per_op_sum_ms = sum(r["wall_ms"] for r in rows)
+    gap = (abs(per_op_sum_ms - eager_total_ms) / eager_total_ms
+           if eager_total_ms > 0 else 0.0)
+
+    digest = compile_cache.fingerprint_hex(
+        compile_cache.program_content_digest(program))[:16]
+    report: dict = {
+        "program": digest, "batch": int(batch),
+        "device": str(executor.device),
+        "reps": int(reps), "warmup": int(warmup),
+        "timing": timing,
+        "ops": len(rows),
+        "eager_total_ms": round(eager_total_ms, 6),
+        "per_op_sum_ms": round(per_op_sum_ms, 6),
+        "sum_gap_frac": round(gap, 4),
+        "within_tolerance": bool(gap <= TOLERANCE),
+        "tolerance": TOLERANCE,
+        "rows": rows,
+        "top": sorted(rows, key=lambda r: -r["wall_ms"])[:max(1, top)],
+    }
+    cost = None
+    if modeled:
+        cost = _join_modeled(program, rows, mesh_axes, batch)
+        report["mesh_axes"] = dict(mesh_axes or {})
+        report["op_classes"] = op_class_rows(rows, digest, batch,
+                                             mesh_axes)
+        report["xla_loses_here"] = xla_loses_here(rows, per_op_sum_ms,
+                                                  top)
+    report["memory"] = _memory_view(program, sizes, bw_idx, cost=cost)
+    if capture_failed:
+        report["capture_failed"] = capture_failed
+    if fetch_list:
+        report["fetches"] = {
+            str(n): env.get(str(n)).float().cpu().numpy()
+            for n in fetch_list if env.has(str(n))}
+    return report
+
+
+def _walk(program, executor, feeds, state, step, is_test, reps, warmup,
+          measure, wait):
+    """The measured walk of :func:`profile_program`: each op's windows in
+    execution order, then the replay total's.  ``wait`` (or None) runs
+    after each op of the replay total.  Returns (rows, sizes, total ms,
+    env, the backward's index)."""
+    from ..core.executor import Env, _run_backward, _to_bf16, run_op
+    from .nanprov import dtype_name, make_eager_context
+
+    gb = program.global_block()
     with torch.no_grad():
         env, ctx, bw_idx = make_eager_context(executor, program, feeds,
                                               state, step, is_test)
@@ -430,7 +582,6 @@ def profile_program(program, *, executor=None, feed=None, state=None,
     if amp_train:
         fwd_env = Env(gb)
         fwd_env.local.update({k: _to_bf16(v) for k, v in initial.items()})
-    _metrics.inc_counter("opprof/runs")
 
     ops = gb.ops
     op_out_names: List[List[str]] = [
@@ -512,42 +663,11 @@ def profile_program(program, *, executor=None, feed=None, state=None,
             else:
                 with torch.no_grad():
                     run_op(op, tenv2, ctx)
+            if wait is not None:
+                wait()
 
     tw = measure(total_call, reps=reps, warmup=warmup)
-    eager_total_ms = float(tw["seconds"]) * 1e3
-    per_op_sum_ms = sum(r["wall_ms"] for r in rows)
-    gap = (abs(per_op_sum_ms - eager_total_ms) / eager_total_ms
-           if eager_total_ms > 0 else 0.0)
-
-    digest = compile_cache.fingerprint_hex(
-        compile_cache.program_content_digest(program))[:16]
-    report: dict = {
-        "program": digest, "batch": int(batch),
-        "device": str(executor.device),
-        "reps": int(reps), "warmup": int(warmup),
-        "ops": len(rows),
-        "eager_total_ms": round(eager_total_ms, 6),
-        "per_op_sum_ms": round(per_op_sum_ms, 6),
-        "sum_gap_frac": round(gap, 4),
-        "within_tolerance": bool(gap <= TOLERANCE),
-        "tolerance": TOLERANCE,
-        "rows": rows,
-        "top": sorted(rows, key=lambda r: -r["wall_ms"])[:max(1, top)],
-    }
-    cost = None
-    if modeled:
-        cost = _join_modeled(program, rows, mesh_axes, batch)
-        report["mesh_axes"] = dict(mesh_axes or {})
-        report["op_classes"] = op_class_rows(rows, digest, batch,
-                                             mesh_axes)
-        report["xla_loses_here"] = xla_loses_here(rows, per_op_sum_ms,
-                                                  top)
-    report["memory"] = _memory_view(program, sizes, bw_idx, cost=cost)
-    if fetch_list:
-        report["fetches"] = {
-            str(n): env.get(str(n)).float().cpu().numpy()
-            for n in fetch_list if env.has(str(n))}
-    return report
+    return rows, sizes, float(tw["seconds"]) * 1e3, env, bw_idx
 
 
 def _nbytes(v) -> int:

@@ -247,6 +247,21 @@ def _f32_splits(tiles: int, ksteps: int, sms: int, deep: bool) -> int:
     return max(fit) if fit else min(near)
 
 
+# A bf16 slab of more than MAX_BF16_SLAB_STEPS K steps (16384 of K) is
+# never launched: the tensor cores' fp32 accumulation in a slab drifts
+# with its length, and its largest error grows with the outputs too.  On
+# an H100 (80GB HBM3, 700 W) the largest error over its limit
+# (chip_smoke.py's deep_tol) read, at ResNet-50's stage-2 wgrad (dw [128, 512], K = 100352), 0.56 at
+# 392 steps, 1.05 at 784 and 2.82 at 1568, against 0.47 at plan()'s 40
+# (benchmark.conv_kernel --slab-accuracy); at dw [2048, 2048] over K =
+# 50176, 2.17 at 784 steps, 1.12 at 392, 0.66 at 262, 0.54 at 196 and
+# 0.48-0.49 at 131 and below (PERF.md).  plan() gives a split bf16
+# product at least ceil(K steps / MAX_BF16_SLAB_STEPS) slabs (above
+# _CLUSTER_MAX, whole clusters), raises for an out_stats product that
+# would need more than one, and check_launch refuses a tuned plan past it.
+MAX_BF16_SLAB_STEPS = 256
+
+
 @functools.lru_cache(maxsize=4096)
 def plan(M: int, N: int, K: int, ta: bool, tb: bool, dtype=torch.bfloat16,
          sms: int = 132, out_stats: bool = False, a_colsum: bool = False,
@@ -256,8 +271,10 @@ def plan(M: int, N: int, K: int, ta: bool, tb: bool, dtype=torch.bfloat16,
     ``_BK`` and for fp32 ones by those at ``_F32_BK``.  Raises ValueError
     for another dtype and where TMA cannot read an operand: its storage
     row (A: M if ``ta`` else K; B: K if ``tb`` else N) must be 16 bytes,
-    a multiple of 8 bf16 or 4 fp32 elements.  Pure and cached: :func:`mm`
-    asks for it on every call."""
+    a multiple of 8 bf16 or 4 fp32 elements; and for a bf16 ``out_stats``
+    product of more than MAX_BF16_SLAB_STEPS K steps (its one slab would
+    drift out of tolerance).  Pure and cached: :func:`mm` asks for it on
+    every call."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"plan: the kernels take bf16 or fp32, got {dtype}")
     bf16 = dtype == torch.bfloat16
@@ -291,6 +308,17 @@ def plan(M: int, N: int, K: int, ta: bool, tb: bool, dtype=torch.bfloat16,
     elif tiles < sms:
         splits = max(1, min(_cdiv(sms, tiles), _CLUSTER_MAX,
                             ksteps // _MIN_SLAB_STEPS))
+    if bf16:
+        least = _cdiv(ksteps, MAX_BF16_SLAB_STEPS)
+        if out_stats and least > 1:
+            raise ValueError(
+                f"plan: an out_stats product takes one slab, and {ksteps} K "
+                f"steps of bf16 pass MAX_BF16_SLAB_STEPS = "
+                f"{MAX_BF16_SLAB_STEPS} (its accumulation drifts out of "
+                f"tolerance)")
+        if splits < least:
+            splits = least if least <= _CLUSTER_MAX else \
+                _cdiv(least, _CLUSTER_MAX) * _CLUSTER_MAX
     cluster = min(splits, _CLUSTER_MAX if bf16 else _F32_CLUSTER_MAX)
     persistent = bf16 and splits == 1 and not a_colsum and \
         out_dtype == torch.bfloat16
@@ -311,15 +339,6 @@ def plan(M: int, N: int, K: int, ta: bool, tb: bool, dtype=torch.bfloat16,
         a_major="M" if ta else "K", b_major="K" if tb else "N",
         a_box=a_box, b_box=b_box)
 
-
-# A bf16 slab of more than MAX_BF16_SLAB_STEPS K steps (32768 of K) is
-# refused before launch: the tensor cores' fp32 accumulation in a slab
-# drifts with its length.  On the H100 at ResNet-50's stage-2 wgrad (K =
-# 100352) the largest error over its limit (chip_smoke.py's deep_tol)
-# read 0.56 at 392 steps, 1.05 at 784 and 2.82 at 1568, against 0.47 at
-# plan()'s 40 (benchmark.conv_kernel --slab-accuracy; PERF.md).  plan()'s
-# slabs at the port's shapes are at most 49 steps.
-MAX_BF16_SLAB_STEPS = 512
 
 # Autotuner knob (paddle_tpu_torch.tuning) of K1's launch: the fields
 # conv1x1_mm takes at run time (csrc/conv1x1_mm.cu, conv1x1_mm's splits,

@@ -73,9 +73,10 @@ _CHUNK = 2048
 BWD_ROWS = 128
 BWD_TILE = 64
 BWD_MAX_STAGES = 4
-# csrc/flash_attn.cu's launcher admits a backward ring of 1 stage, but K3
-# fails there with an unspecified launch failure on the H100 (PERF.md): an
-# explicit depth below BWD_MIN_STAGES is refused before launch
+# K3 fails with an unspecified launch failure on a backward ring of 1
+# stage on the H100 (PERF.md): csrc/flash_attn.cu's launcher refuses a
+# depth below BWD_MIN_STAGES (kBwdMinStages), and an explicit one is
+# refused here before launch
 BWD_MIN_STAGES = 2
 SMEM_LIMIT = 232448
 # The bf16 forward (K2) takes the same block: BWD_ROWS query rows, two
@@ -246,7 +247,7 @@ def _bwd_stages(kernel, width, stages):
     BWD_MAX_STAGES that fits in SMEM_LIMIT, or ``stages`` where it is
     given (BWD_MIN_STAGES..BWD_MAX_STAGES, within SMEM_LIMIT)."""
     if stages is None:
-        return max(s for s in range(1, BWD_MAX_STAGES + 1)
+        return max(s for s in range(BWD_MIN_STAGES, BWD_MAX_STAGES + 1)
                    if _bwd_smem(kernel, width, s) <= SMEM_LIMIT)
     s = int(stages)
     if not BWD_MIN_STAGES <= s <= BWD_MAX_STAGES or \
@@ -602,7 +603,8 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None, stages=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), *dims, int(bool(causal)), sm_scale, dtype,
             *plan, torch.cuda.current_stream(q.device).cuda_stream)
-    _check_rc(lib, rc, f"fwd {dims} causal={causal} {q.dtype}")
+    _check_rc(lib, rc, f"fwd {dims} causal={causal} {q.dtype} "
+                       f"stages={plan[1]}")
     _count("fwd", q.dtype, plan)
     return out, lse
 
@@ -681,7 +683,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal=False, sm_scale=None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
             int(bool(causal)), sm_scale, dtype, *plan, stream)
-    _check_rc(lib, rc, f"bwd_dq {dims} causal={causal} {q.dtype}")
+    _check_rc(lib, rc, f"bwd_dq {dims} causal={causal} {q.dtype} "
+                       f"stages={plan[1]}")
     _count("bwd_dq", q.dtype, plan)
     return dq
 
@@ -701,7 +704,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal=False, sm_scale=None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *dims, int(bool(causal)), sm_scale, dtype, *plan, stream)
-    _check_rc(lib, rc, f"bwd_dkv {dims} causal={causal} {q.dtype}")
+    _check_rc(lib, rc, f"bwd_dkv {dims} causal={causal} {q.dtype} "
+                       f"stages={plan[1]}")
     _count("bwd_dkv", q.dtype, plan)
     return dk, dv
 

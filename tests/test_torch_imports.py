@@ -341,3 +341,27 @@ def test_import_paddle_tpu_torch_loads_no_tuning():
                          capture_output=True, text=True, timeout=300,
                          check=True).stdout
     assert out.strip() == "[]"
+
+
+def test_scan_covers_the_command_line():
+    """The command line's modules are scanned, and no module of the port
+    imports ``cli`` or ``__main__`` at its top level (``__main__``
+    reaches ``cli`` inside its ``main``), so importing the package loads
+    no command line; ``cli.py`` itself imports each subcommand's module
+    inside the function that runs it."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("cli.py", "__main__.py"):
+        assert os.path.join("paddle_tpu_torch", rel) in scanned, rel
+    bad = []
+    for p in _port_sources():
+        rel = os.path.relpath(p, ROOT)
+        for line, mod in _top_level_imports(p):
+            if mod.split(".")[:2] in (["paddle_tpu_torch", "cli"],
+                                      ["paddle_tpu_torch", "__main__"]):
+                bad.append(f"{rel}:{line}: {mod}")
+    assert not bad, "\n".join(bad)
+    cli = os.path.join(ROOT, "paddle_tpu_torch", "cli.py")
+    top = {mod for _, mod in _top_level_imports(cli)}
+    assert top <= {"__future__", "__future__.annotations", "argparse",
+                   "json", "os", "sys", "time", "typing", "typing.Dict",
+                   "typing.Optional", "numpy"}, top
