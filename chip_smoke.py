@@ -50,7 +50,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
 6. resume  — the training runtime: ResNet-50 as in train (bf16 AMP,
              captured, cuDNN deterministic) with the rate from
              lr_decay.piecewise_decay([3, 6], ...) through
-             trainer.SGD.train(checkpoint_dir=..., save_every_n_steps=2):
+             trainer.SGD.train(checkpoint_dir=..., save_every_n_steps=3,
+             2 until the script's time was cut):
              arm A 8 steps, arm B the same 8 with
              Checkpointer.request_preempt() after step 5 (Preempted, exit
              75, after an emergency checkpoint), arm C a fresh executor
@@ -60,9 +61,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
              passes) in each arm and in a profiled replay's trace; ms a
              step and idle share with saves off and on, each save's
              snapshot, each commit, the restore and the first steps
-             after it.  Then smallnet (vgg_cifar 32x32, batch 64, dropout
-             on, RMSProp, exponential_decay, fp32) under ``python -m
-             paddle_tpu_torch.distributed.supervisor``: SIGTERM at step
+             after it.  Meanwhile smallnet (vgg_cifar 32x32, batch 64,
+             dropout on, RMSProp, exponential_decay, fp32) under ``python
+             -m paddle_tpu_torch.distributed.supervisor``, started before
+             the arms so that it runs beside them: SIGTERM at step
              6, one exit 75, the relaunch resumes, its final checkpoint
              bit-equal to an uninterrupted run here; the seven schedules
              over 12 captured steps against their closed forms; each new
@@ -145,7 +147,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
              events, the idle share, peak memory, the SM clock and power
              after the windows, the ratio to the reference's published
              Xeon rates at batch 1-16; beam-4 seq2seq decoding (vocab
-             30000, dim 512, 30 tokens) exported and held bit-equal to the
+             30000, dim 512, 30 source tokens, 6 decoded: torch.export
+             unrolls the decode, so its depth is cut from the benchmark's
+             30 to fit the script's time) exported and held bit-equal to the
              live program at batch 1, 16 and 64, tokens/s, export time; the
              ResNet-50 artifact behind serving.Server (max_batch 16, 32
              closed-loop workers, 2 s), every response checked against a
@@ -204,7 +208,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
              commit_ab (delta against full commits, gates 5x wall and 10x
              bytes, both tips restored bit-equal) and restore_chain (a
              base and 8 deltas against one full save, shas equal);
-             benchmark/pserver.py's FULL on shard processes: wire_ab
+             benchmark/pserver.py's FULL on shard processes, cut to fit
+             the script's time: its warm working set 4,096 rows, not
+             16,384 (the naive arm warms it one JSON row at a time), and
+             2 pairs, not 4, in the wire and pipelining A/Bs: wire_ab
              (binary against naive JSON frames, gate 3x, both arms' rows
              bit-equal), remote_pull_latency and shard_pipelining_ab;
              checkpoint's elastic_tasks (the elastic worker's task loop
@@ -265,9 +272,13 @@ Phases, each of which raises on failure (so the script exits non-zero):
              ranking with it.
 20. elastic — the task-queue master and the elastic training service
              (distributed/master.py, distributed/elastic.py): (a) the
-             port's benchmark.elastic at FULL (8 -> 4 -> 8 workers, 96
-             chunks of 64 records, batch 8) with its workers on the
-             card: every acceptance key true (two committed resize
+             port's benchmark.elastic at FULL's data but half its workers
+             (4 -> 2 -> 4 workers, not 8 -> 4 -> 8: 10 worker processes
+             in place of 20, to fit the script's time; 96 chunks of 64
+             records, batch 8) with its workers on the card, as
+             ``chip_smoke.py --elastic-mlp`` beside (b), both rounds at
+             once (their walls and boundaries share the host and the
+             card): every acceptance key true (two committed resize
              records, each re-plan free of PT030/PT031 findings, the job
              completed, no task lost, the loss continuing across both
              boundaries), its wall time and each boundary's drain, merge
@@ -292,8 +303,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
              ResNet-50's fp32 artifact (224x224, 1000 classes, [inference]'s
              export) served by a FleetRouter of 2 ProcessReplicas on the
              card (serve --warmup-all, max_batch 32) behind an HttpFront:
-             each replica's start-to-ready seconds, 64 single-image POSTs
-             from 8 client threads, every response held against the
+             each replica's start-to-ready seconds, 32 single-image POSTs
+             (64 until the script's time was cut) from 8 client threads,
+             every response held against the
              parent's direct call of the artifact (and counted bit-equal
              to it at some bucket), req/s and p50/p99, /healthz and
              /metrics (its http/* rows), the host ms to encode and parse
@@ -309,8 +321,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
              the router, ``fleet-stats`` over the replicas' JSONL logs
              merged with the router's snapshot (one source a process),
              and the port's benchmark.fleet with its replicas on the card
-             at its --smoke durations, each arm and the
-             acceptance row printed.
+             at its --smoke durations, each arm and the acceptance row
+             printed; to fit the script's time benchmark.fleet runs as a
+             child process beside (a)-(c) from the phase's start, so both
+             share the host and the card and their rates are not
+             comparable with runs alone.
 22. tune   — the autotuner (tuning/: registry, search, store, targets):
              (a) tuning.tune over cuda/conv1x1_plan (K1's slabs,
              cluster and persistent schedule) at ResNet-50's stage-2
@@ -357,6 +372,30 @@ Phases, each of which raises on failure (so the script exits non-zero):
              replays, its per-op table within the module's tolerance of
              the replay total, K1 launched); python -m paddle_tpu_torch
              stats as a subprocess.
+24. compile — compile ahead of the first call (Executor.compile,
+             CompiledProgram, the disk layer, trainer warmup,
+             Model.from_compiled, profile --compiled-check,
+             benchmark.compile_cache), budget COMPILE_BUDGET_S: (a)
+             ResNet-50's bf16 training step at batch 128 compiled from
+             meta specs, the scope and step counter unchanged,
+             run_steps(5) with no warm-up and no capture, K1 3 x 29 a
+             step and the reduce passes, losses and final scope
+             bit-equal to an uncompiled executor's; (b)
+             Model.from_compiled at batch 32 behind serving.Server, its
+             first batch a replay, rows bit-equal to from_program's; (c)
+             trainer.SGD.train(warmup=True) on ResNet-50 at batch 32, 2
+             steps, losses bit-equal to warmup=False; (d)
+             benchmark.compile_cache's cold and warm arms in fresh
+             processes (CIFAR ResNet-20; COMPILE_AB_MODELS): a disk hit
+             and bit-identical digests, engine_s of each arm and their
+             ratio, the cold phases the warm arm skipped; (e) profile --config
+             --compiled-check on the v1 ResNet-50: the graph pool and the
+             bound on its capture's peak beside the memory view; (f) the
+             long-context forward (8 x 65536 x 64, causal, bf16 state)
+             exported with K2 as the paddle_tpu_torch::flash_attention_fwd
+             op and run through load_compiled_model: K2 once a call,
+             bit-equal to the live program's captured forward, ms a call
+             of each.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline and
 zoo runs captured (Executor(use_jit=True), each step one CUDA graph replay; the
@@ -373,7 +412,17 @@ and then, so a window whose trace lacks one is printed and profiled
 again, at most three times).
 
 The kernels of all three CUDA sources build at once, one nvcc each, and
-the two Triton kernels compile meanwhile.  Before the last line it prints
+the two Triton kernels compile meanwhile.  A "[clock]" line after each
+phase gives its wall time and the total so far: the whole script must
+finish within 1200 s, so a phase that grows cuts its own depth first
+(as [inference]'s seq2seq decode, [elastic]'s MLP round and
+[sparse_bench]'s pserver runs are cut).  Work that launches none of
+K1-K5 runs beside other phases in processes of its own, so its walls
+and rates share the host and the card: sparse, decode, serving and
+sparse_bench in the lane (``chip_smoke.py --lane``, started before zoo
+and joined, its output printed, before bandwidth), [elastic]'s MLP
+round beside its ResNet-50 round, and benchmark.fleet beside the
+ResNet-50 fleet.  Before the last line it prints
 one JSON line describing each kernel, and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1880,7 +1929,7 @@ def dtype_of(amp):
 RESUME_STEPS = 8
 RESUME_IMG = 224
 RESUME_PREEMPT_AFTER = 5
-RESUME_SAVE_EVERY = 2
+RESUME_SAVE_EVERY = 3           # 2 until the script's time was cut
 RESUME_BOUNDARIES = [3, 6]
 RESUME_VALUES = [0.01 / TRAIN_BATCH, 0.001 / TRAIN_BATCH,
                  0.0001 / TRAIN_BATCH]
@@ -2047,12 +2096,18 @@ def phase_resume(seed, card, n_gate, n_split):
     t_phase = time.perf_counter()
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
+    sup = None
     try:
+        # smallnet's supervised run beside the ResNet-50 arms (the
+        # script's time): the arms' walls and save costs share the host
+        sup = resume_supervised_start(seed)
         forms = resume_resnet(seed, card, n_gate, n_split)
-        resume_supervised(seed, card)
+        resume_supervised(seed, card, sup)
         resume_schedules(card)
         resume_optimizers(seed, card)
     finally:
+        if sup is not None:
+            resume_supervised_stop(sup)
         torch.backends.cudnn.deterministic = saved
         shutil.rmtree(os.path.dirname(resume_root("phase")),
                       ignore_errors=True)
@@ -2258,15 +2313,12 @@ def supervised_child(root, seed):
     print(f"[resume-child] pid {os.getpid()}: steps {caps}")
 
 
-def resume_supervised(seed, card):
-    """smallnet SIGTERMed at step SUP_SIGTERM_AT under ``python -m
-    paddle_tpu_torch.distributed.supervisor``, against an uninterrupted
-    run in this process: the child's final checkpoint bit-equal to this
-    run's scope, and the child exited 75 once."""
+def resume_supervised_start(seed):
+    """smallnet under ``python -m paddle_tpu_torch.distributed.supervisor``
+    started, with the watcher that SIGTERMs the training process once it
+    reports step SUP_SIGTERM_AT; it runs beside the ResNet-50 arms.
+    Returns the state resume_supervised reads."""
     import signal
-    import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
-    from paddle_tpu_torch.train_state import TRAIN_STATE_VAR
     root = resume_root("smallnet")
     progress = os.path.join(root, "progress")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2301,6 +2353,34 @@ def resume_supervised(seed, card):
             time.sleep(0.01)
     watcher = threading.Thread(target=watch, daemon=True)
     watcher.start()
+    return {"root": root, "sup": sup, "log": log, "t0": t0,
+            "killed": killed, "lines": lines, "watcher": watcher}
+
+
+def resume_supervised_stop(st):
+    """The supervisor stopped (it forwards SIGTERM to its child), if it
+    still runs."""
+    sup = st["sup"]
+    if sup.poll() is None:
+        sup.terminate()
+        try:
+            sup.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            sup.kill()
+            sup.wait()
+    st["log"].close()
+
+
+def resume_supervised(seed, card, st):
+    """smallnet SIGTERMed at step SUP_SIGTERM_AT under the supervisor
+    (started by resume_supervised_start), against an uninterrupted run in
+    this process: the child's final checkpoint bit-equal to this run's
+    scope, and the child exited 75 once."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.train_state import TRAIN_STATE_VAR
+    root, sup, killed, lines = st["root"], st["sup"], st["killed"], \
+        st["lines"]
     try:
         # the uninterrupted run, here, meanwhile
         tr, reader = smallnet_trainer(seed)
@@ -2309,16 +2389,8 @@ def resume_supervised(seed, card):
         tr.exe.close()
         rc = sup.wait(timeout=600)
     finally:
-        if sup.poll() is None:
-            # the supervisor forwards SIGTERM to its child and waits
-            sup.terminate()
-            try:
-                sup.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                sup.kill()
-                sup.wait()
-        log.close()
-    watcher.join(timeout=5)
+        resume_supervised_stop(st)
+    st["watcher"].join(timeout=5)
     with open(os.path.join(root, "supervisor.log")) as f:
         out = f.read()
     if rc != 0 or not killed or "exit statuses [75, 0]" not in out:
@@ -2346,14 +2418,15 @@ def resume_supervised(seed, card):
             print(f"[resume] {ln}")
     print(f"[resume] smallnet (vgg_cifar 32x32, batch {SUP_BATCH}, dropout "
           f"on, RMSProp, exponential_decay, fp32 captured) under python -m "
-          f"paddle_tpu_torch.distributed.supervisor: SIGTERM to pid "
+          f"paddle_tpu_torch.distributed.supervisor, beside the ResNet-50 "
+          f"arms: SIGTERM to pid "
           f"{killed['pid']} at its step {killed['step']}, exit 75 once, "
           f"relaunched as pid {pids[-1]} resuming at step {after[0][1]} "
           f"{relaunch_s:.2f} s after the SIGTERM (backoff, interpreter, "
           f"restore, warm-up and capture); the final checkpoint (step "
           f"{step}) and all {n} scope entries bit-equal to the "
           f"uninterrupted run; {len(seen)} step reports; wall "
-          f"{time.perf_counter() - t0:.2f} s; {card}")
+          f"{time.perf_counter() - st['t0']:.2f} s; {card}")
 
 
 def schedule_closed_form(name, kw, step):
@@ -4049,8 +4122,11 @@ def phase_zoo(seed, card):
 INF_BATCHES = (1, 4, 16, 64, 128)
 INF_TOL = 1e-4
 INF_WINDOWS, INF_TARGET_S = 3, 0.5     # benchmark windows, cut from 5 x 2 s
-# beam-4 decoding at the JAX benchmark's size (benchmark/inference.py:164-194)
+# beam-4 decoding at the JAX benchmark's widths (benchmark/inference.py:
+# 164-194); the decode's depth cut from its 30 tokens to S2S_INF_MAX_LEN,
+# since torch.export unrolls the decode loop and took 74 s at 30
 S2S_INF_BATCHES = (1, 16, 64)
+S2S_INF_MAX_LEN = 6
 S2S_INF_SCORE_TOL = 1e-5               # only if a decomposition broke bits
 # --server: max_batch 16, 32 workers (benchmark/inference.py:197-245), a
 # short window
@@ -4220,14 +4296,15 @@ def inference_resnet(seed, card):
 
 
 def inference_seq2seq(seed, card):
-    """Beam-4 decoding exported at the JAX benchmark's size, held against the
-    live program at S2S_INF_BATCHES; tokens/s."""
+    """Beam-4 decoding exported at the JAX benchmark's widths and source
+    length, S2S_INF_MAX_LEN tokens decoded, held against the live program
+    at S2S_INF_BATCHES; tokens/s."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch import export_model
     from paddle_tpu_torch.benchmark import inference as binf
     from paddle_tpu_torch.ops import conv1x1, flash_attention as fa
 
-    V, T = binf.S2S_VOCAB, binf.S2S_LEN
+    V, T, L = binf.S2S_VOCAB, binf.S2S_LEN, S2S_INF_MAX_LEN
     ptt.unique_name.reset()
     main, startup = ptt.Program(), ptt.Program()
     startup.random_seed = seed
@@ -4235,7 +4312,7 @@ def inference_seq2seq(seed, card):
         src = ptt.layers.data("src", shape=[T], dtype="int64")
         outs = ptt.models.seq2seq_infer(
             src, src_vocab_size=V, tgt_vocab_size=V, emb_dim=binf.S2S_DIM,
-            hidden_dim=binf.S2S_DIM, beam_size=binf.S2S_BEAM, max_len=T)
+            hidden_dim=binf.S2S_DIM, beam_size=binf.S2S_BEAM, max_len=L)
     infer = main.clone(for_test=True)
     scope = ptt.Scope()
     live = ptt.Executor()
@@ -4264,7 +4341,7 @@ def inference_seq2seq(seed, card):
         ids, scores, lens = got
         fine = bool((ids >= 0).all() and (ids < V).all()
                     and torch.isfinite(scores).all()
-                    and (lens >= 1).all() and (lens <= T).all()
+                    and (lens >= 1).all() and (lens <= L).all()
                     and (scores[:, :-1] >= scores[:, 1:]).all())
         note = ""
         if not all(all(v) for v in equal.values()):
@@ -4281,10 +4358,11 @@ def inference_seq2seq(seed, card):
                     f"{ids_ok}")
             if not (rel <= S2S_INF_SCORE_TOL and ids_ok):
                 fine = False
-        tps = binf.time_pipelined(run, feed, b * T, windows=INF_WINDOWS,
+        tps = binf.time_pipelined(run, feed, b * L, windows=INF_WINDOWS,
                                   target_s=INF_TARGET_S)
         print(f"[inference] seq2seq beam-{binf.S2S_BEAM} decode batch {b} "
-              f"(V {V}, dim {binf.S2S_DIM}, {T} tokens): "
+              f"(V {V}, dim {binf.S2S_DIM}, {T} source tokens, {L} "
+              f"decoded): "
               f"{tps['throughput_per_s']:.1f} tokens/s "
               f"({tps['per_call_s'] * 1e3:.3f} ms a call, spread "
               f"{tps['spread_pct']:.1f}%; {clocks_line()}); artifact bit-equal to its eager "
@@ -5318,6 +5396,12 @@ def gate_line(ab):
             f"{'met' if ab['accepted'] else 'not met'}")
 
 
+# pserver's FULL with a quarter of its warm working set (the naive arm
+# warms it one JSON row at a time) and half the pairs of its wire and
+# pipelining A/Bs, whose gates are reported, not held
+SB_PSERVER = {"warm_rows": 4096, "ab_pairs": 2, "pipe_pairs": 2}
+
+
 def phase_sparse_bench(seed, card):
     """benchmark/checkpoint.py's and benchmark/pserver.py's FULL: the
     commit A/B and the restore chain (sha equality is hard); the wire
@@ -5357,10 +5441,9 @@ def phase_sparse_bench(seed, card):
         raise RuntimeError("chip_smoke: [sparse_bench] a restored "
                            "checkpoint's sha differs from the full save's")
     t0 = time.perf_counter()
-    ps = pserver.run_all(quiet=True)
+    ps = pserver.run_all(dict(pserver.FULL, **SB_PSERVER), quiet=True)
     w, lat, pipe = (ps["wire_ab"], ps["remote_pull_latency"],
                     ps["shard_pipelining_ab"])
-    cfg = pserver.FULL
     print(f"[sparse_bench] pserver wire_ab ({w['rows_per_window']} rows a "
           f"window, one shard process): binary against naive JSON "
           f"{gate_line(w)}; naive "
@@ -5515,6 +5598,69 @@ def hold_stream_kernels(bw, g):
         del x, y
         torch.cuda.empty_cache()
     return errs
+
+
+# ---------------------------------------------------------------------------
+# The lane: [sparse], [decode], [serving] and [sparse_bench] launch none of
+# K1-K5 and hand main() nothing, so they run in a process of their own
+# beside [zoo] and [inference] (the script's time; PERF.md section 6)
+# ---------------------------------------------------------------------------
+LANE_S = 900.0                # the lane's process, at most
+
+
+def lane_child(root, seed):
+    """``--lane``: [sparse], [decode], [serving] and [sparse_bench] in this
+    process, each with its own launch counts, TF32 off as in main(); a
+    clock line after each."""
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = last = time.perf_counter()
+    for name, fn in (("sparse", phase_sparse), ("decode", phase_decode),
+                     ("serving", phase_serving),
+                     ("sparse_bench", phase_sparse_bench)):
+        fn(seed, card)
+        now = time.perf_counter()
+        print(f"[clock] {name} {now - last:.1f} s, {now - t_start:.1f} s "
+              f"since the lane's start", flush=True)
+        last = now
+
+
+def lane_start(seed):
+    """The lane started: ``chip_smoke.py --lane`` in its own session (its
+    shard and server processes with it), its output to a log under
+    build/lane.  Returns (process, log, start)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "lane")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    log = open(os.path.join(root, "lane.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--lane", root,
+         "--seed", str(seed)], cwd=here, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, log, time.perf_counter()
+
+
+def lane_join(lane):
+    """Wait for the lane, print its output here (so the log reads phase
+    by phase) and fail as it failed."""
+    proc, log, t0 = lane
+    try:
+        rc = proc.wait(timeout=LANE_S)
+    except subprocess.TimeoutExpired:
+        stop_group(proc)
+        rc = None
+    log.close()
+    with open(log.name) as f:
+        sys.stdout.write(f.read())
+    print(f"[lane] [sparse], [decode], [serving] and [sparse_bench] in "
+          f"their own process beside [zoo] and [inference]: exit {rc}, "
+          f"{time.perf_counter() - t0:.1f} s from its start", flush=True)
+    if rc != 0:
+        raise RuntimeError("chip_smoke: the lane process " + (
+            f"exited {rc}" if rc is not None else
+            f"still ran after {LANE_S:.0f} s"))
 
 
 def phase_bandwidth(seed, card):
@@ -6287,6 +6433,10 @@ EL_ROUND = (2, 1, 2)          # the world of each generation
 EL_MILESTONES = (4, 8)        # committed tasks before each resize
 EL_KILL = (0, 0, 1)           # (generation, slot, batch) SIGKILLed once
 EL_DEVICE = "cuda"            # where the workers train
+# (a)'s round: benchmark.elastic's FULL with half its workers (its 20
+# worker starts took 60 s of the script's time)
+EL_MLP = {"workers": 4, "shrink_to": 2}
+EL_MLP_S = 900.0              # (a)'s process, at most
 
 
 def resnet_v1_conf(blocks=(3, 4, 6, 3), widths=(64, 128, 256, 512),
@@ -6486,24 +6636,63 @@ def el_boundaries(tag, boundaries, card):
               f"{b['resize_ms']:.0f} ms; {card}")
 
 
-def elastic_mlp(card):
-    """(a) benchmark.elastic at FULL with its workers on the card."""
+def elastic_mlp_child(root, device, cfg):
+    """``--elastic-mlp``: (a)'s round in a process of its own, beside
+    (b): benchmark.elastic at ``cfg`` with its workers on ``device``, its
+    document written to ``root``/doc.json."""
+    from paddle_tpu_torch.benchmark import elastic as bel
+    t0 = time.perf_counter()
+    doc = bel.run(cfg, device=device,
+                  work=os.path.join(root, "work"),
+                  worker_cmd=el_child_cmd(os.path.join(root, "stats")),
+                  quiet=True)
+    doc["wall_with_data_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, "doc.json"), "w") as f:
+        json.dump(doc, f)
+
+
+def elastic_mlp_start():
+    """(a) started: ``chip_smoke.py --elastic-mlp`` at FULL's data and
+    EL_MLP's workers, in its own session (its workers with it), so that
+    it runs beside (b).  Returns (process, root, log)."""
     from paddle_tpu_torch.benchmark import elastic as bel
     root = el_root("mlp")
-    stats_dir = os.path.join(root, "stats")
-    os.makedirs(stats_dir)
-    t0 = time.perf_counter()
-    doc = bel.run(bel.FULL, device=EL_DEVICE,
-                  work=os.path.join(root, "work"),
-                  worker_cmd=el_child_cmd(stats_dir), quiet=True)
-    wall = time.perf_counter() - t0
+    os.makedirs(os.path.join(root, "stats"))
+    log = open(os.path.join(root, "mlp.log"), "w")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--elastic-mlp", root,
+         "--", EL_DEVICE, json.dumps(dict(bel.FULL, **EL_MLP))], cwd=here,
+        stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, root, log
+
+
+def elastic_mlp(card, mlp):
+    """(a) benchmark.elastic at FULL's data, EL_MLP's workers, on the
+    card, once its process has ended: printed and checked."""
+    proc, root, log = mlp
+    try:
+        rc = proc.wait(timeout=EL_MLP_S)
+    except subprocess.TimeoutExpired:
+        stop_group(proc)
+        rc = None
+    log.close()
+    if rc != 0:
+        with open(log.name) as f:
+            print(f.read()[-4000:])
+        raise RuntimeError("chip_smoke: [elastic] the MLP round's process "
+                           + (f"exited {rc}" if rc is not None else
+                              f"still ran after {EL_MLP_S:.0f} s"))
+    with open(os.path.join(root, "doc.json")) as f:
+        doc = json.load(f)
     acc = doc["acceptance"]
-    print(f"[elastic] MLP round (benchmark.elastic FULL: "
+    print(f"[elastic] MLP round (benchmark.elastic FULL's data, "
           f"{acc['resize_round']} workers, {doc['config']['chunks']} "
           f"chunks of {doc['config']['recs_per_chunk']} records, batch "
-          f"{doc['config']['batch_size']}, workers on the card): "
+          f"{doc['config']['batch_size']}, workers on the card; a process "
+          f"beside the ResNet-50 round, whose host and card it shares): "
           f"acceptance {json.dumps(acc)}; job wall {doc['wall_s']:.2f} s "
-          f"({wall:.2f} s with the data); {card}")
+          f"({doc['wall_with_data_s']:.2f} s with the data); {card}")
     el_boundaries("MLP", doc["boundaries"], card)
     for c in doc["loss_continuation"]:
         print(f"[elastic] MLP loss across {c['boundary']}: last quarter "
@@ -6514,10 +6703,10 @@ def elastic_mlp(card):
     if bad or acc["committed_resize_records"] != 2:
         raise RuntimeError(f"chip_smoke: [elastic] the MLP round's acceptance "
                            f"keys {bad} are false: {acc}")
-    stats = el_stats(stats_dir)
+    stats = el_stats(os.path.join(root, "stats"))
     el_check_forms("MLP", stats, 0, 0)
     el_peaks("MLP", stats, card)
-    want = 2 * bel.FULL["workers"] + bel.FULL["shrink_to"]
+    want = 2 * doc["config"]["workers"] + doc["config"]["shrink_to"]
     if len(stats) != want:
         raise RuntimeError(f"chip_smoke: [elastic] the MLP round "
                            f"left {len(stats)} worker reports, want {want}")
@@ -6662,11 +6851,16 @@ def phase_elastic(seed, card):
     card (see the module docstring).  Returns K1's launches by form
     summed over the ResNet-50 round's worker processes."""
     t_phase = time.perf_counter()
-    elastic_mlp(card)
-    t_a = time.perf_counter() - t_phase
-    forms = elastic_resnet(seed, card)
-    print(f"[elastic] phase {time.perf_counter() - t_phase:.1f} s (MLP "
-          f"round {t_a:.1f} s); {card}")
+    mlp = elastic_mlp_start()
+    try:
+        forms = elastic_resnet(seed, card)
+    except BaseException:
+        stop_group(mlp[0])
+        raise
+    t_b = time.perf_counter() - t_phase
+    elastic_mlp(card, mlp)
+    print(f"[elastic] phase {time.perf_counter() - t_phase:.1f} s "
+          f"(ResNet-50 round {t_b:.1f} s, the MLP round beside it); {card}")
     return forms
 
 
@@ -6676,12 +6870,13 @@ def phase_elastic(seed, card):
 # ---------------------------------------------------------------------------
 FLEET_REPLICAS = 2
 FLEET_MAX_BATCH = 32
-FLEET_REQUESTS = 64           # single-image POSTs to /v1/infer
+FLEET_REQUESTS = 32           # single-image POSTs to /v1/infer
 FLEET_CLIENTS = 8             # client threads posting them
-FLEET_IMAGES = 8              # distinct images (each posted 8 times)
+FLEET_IMAGES = 8              # distinct images (each posted 4 times)
 FLEET_CHAOS_S = 6.0           # closed-loop load around the SIGKILL
 FLEET_CHAOS_WORKERS = 8
 FLEET_READY_S = 300.0         # a replica's start-to-ready budget
+FLEET_BENCH_S = 900.0         # benchmark.fleet's child process, at most
 # the router's JSON work (a request's body parsed, then its stdio line
 # encoded: about 160 ms of host time on an H100 host) spaces a
 # replica's arrivals about 330 ms apart, so a 5 ms batching window
@@ -7079,15 +7274,57 @@ def fleet_stats_cli(log_dir, card):
           f"snapshot: {len(merged['sources'])} sources, one a process; {card}")
 
 
-def fleet_bench(card):
+def fleet_bench_start(root):
     """The port's benchmark.fleet with its replicas on the card, at its
     --smoke durations to fit the script's time (its FULL run is
-    ``python -m paddle_tpu_torch.benchmark.fleet``)."""
-    from paddle_tpu_torch.benchmark import fleet as bfleet
-    cfg = bfleet.SMOKE
-    t0 = time.perf_counter()
+    ``python -m paddle_tpu_torch.benchmark.fleet``), in a child process
+    that runs beside the ResNet-50 fleet: its own router, replicas and
+    metrics registry.  Returns (process, results path, log, start)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "bench.json")
+    log = open(os.path.join(root, "bench.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.benchmark.fleet",
+         "--smoke", "--device", FLEET_DEVICE, "--out", out],
+        cwd=here, stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=here + os.pathsep
+                 + os.environ.get("PYTHONPATH", "")),
+        start_new_session=True)
+    return proc, out, log, time.perf_counter()
+
+
+def stop_group(proc):
+    """SIGKILL a child started in its own session, and every process it
+    started (replicas, workers), if it still runs."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def fleet_bench(card, bench):
+    """benchmark.fleet's row, once its child process has ended: printed
+    and held to zero admitted drops, the victim's relaunch and a served
+    rate."""
+    proc, out, log, t0 = bench
+    try:
+        rc = proc.wait(timeout=FLEET_BENCH_S)
+    except subprocess.TimeoutExpired:
+        stop_group(proc)
+        rc = None
+    log.close()
+    if rc != 0:
+        with open(log.name) as f:
+            print(f.read()[-4000:])
+        raise RuntimeError("chip_smoke: [fleet] benchmark.fleet " + (
+            f"exited {rc}" if rc is not None else
+            f"still ran after {FLEET_BENCH_S:.0f} s"))
+    with open(out) as f:
+        row = json.load(f)["rows"][0]
+    cfg = row["config"]
     lines = []
-    row = bfleet.run(cfg, smoke=True, device=FLEET_DEVICE, quiet=True)
     for key in ("host_parallel_probe", "saturation", "capacity_pairs",
                 "overload", "chaos_sigkill", "acceptance"):
         v = row[key]
@@ -7100,8 +7337,9 @@ def fleet_bench(card):
         print(line)
     chaos = row["chaos_sigkill"]
     print(f"[fleet] benchmark.fleet (shortened to its --smoke durations: "
-          f"{cfg['duration_s']} s arms, {cfg['pairs']} pair) took "
-          f"{time.perf_counter() - t0:.1f} s; r2/r1 "
+          f"{cfg['duration_s']} s arms, {cfg['pairs']} pair; a child "
+          f"process beside the ResNet-50 fleet, whose host and card it "
+          f"shares) took {time.perf_counter() - t0:.1f} s; r2/r1 "
           f"{row['scaling']['speedup']} (host overlap of two processes "
           f"around one card, not a second device); {card}")
     if not (chaos["zero_admitted_drops"] and chaos["victim_relaunched_ready"]
@@ -7113,8 +7351,6 @@ def fleet_bench(card):
 def phase_fleet(seed, card):
     """The serving fleet on the card (see the module docstring).  Returns
     K1's fp32 forward launches summed over the replica processes."""
-    from paddle_tpu_torch import export_model
-    from paddle_tpu_torch.serving.http import HttpFront
     t_phase = time.perf_counter()
     model_dir, export_s = fleet_resnet_artifact(seed)
     infer = build_resnet50(seed)[0]
@@ -7125,6 +7361,26 @@ def phase_fleet(seed, card):
                                                                    "logs")
     os.makedirs(stats_dir)
     os.makedirs(log_dir)
+    bench = fleet_bench_start(root)
+    try:
+        k1 = fleet_resnet(seed, model_dir, export_s, infer, stats_dir,
+                          log_dir, card)
+    except BaseException:
+        stop_group(bench[0])
+        raise
+    fleet_bench(card, bench)
+    print(f"[fleet] phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    return k1
+
+
+def fleet_resnet(seed, model_dir, export_s, infer, stats_dir, log_dir,
+                 card):
+    """The ResNet-50 fleet of [fleet]: direct calls, the replicas over
+    HTTP, /healthz and /metrics, the collector, the SIGKILL under load,
+    K1 in each replica process and fleet-stats.  Returns K1's fp32
+    forward launches summed over the replica processes."""
+    from paddle_tpu_torch import export_model
+    from paddle_tpu_torch.serving.http import HttpFront
 
     # the direct calls: the parent's own load of the artifact, every
     # image alone and in a batch of each bucket (eager calls)
@@ -7205,8 +7461,6 @@ def phase_fleet(seed, card):
     k1 = fleet_k1_check(stats_dir, infer, killed, card)
     fleet_stats_cli(log_dir, card)
     torch.cuda.empty_cache()
-    fleet_bench(card)
-    print(f"[fleet] phase {time.perf_counter() - t_phase:.1f} s; {card}")
     return k1
 
 
@@ -8040,6 +8294,399 @@ def phase_cli(seed, card, train_ms):
     return forms, t_forms
 
 
+COMPILE_BUDGET_S = 75.0
+COMPILE_SERVE_BATCH = 32       # the served bucket compiled ahead
+COMPILE_TRAINER_BATCH = 32
+COMPILE_TRAINER_STEPS = 2
+COMPILE_AB_STEPS = 3           # steps an arm of the compile-cache A/B
+COMPILE_EXPORT_CALLS = 5       # timed calls of each long-context forward
+# (d)'s A/B on CIFAR ResNet-20 only: the three models' six processes took
+# 90.4 s on an H100 (PERF.md §5), past the phase's budget alone;
+# python -m paddle_tpu_torch.benchmark.compile_cache runs all three
+COMPILE_AB_MODELS = ("resnet",)
+
+
+def compile_root(name=""):
+    """A fresh directory under build/compile (inside the checkout)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "compile", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def compile_train_feed(seed):
+    rng = np.random.RandomState(seed + 24)
+    return {"img": torch.from_numpy(rng.rand(TRAIN_BATCH, 3, 224, 224)
+                                    .astype(np.float32)).cuda(),
+            "label": torch.from_numpy(rng.randint(0, 1000, (TRAIN_BATCH, 1))
+                                      .astype(np.int64)).cuda()}
+
+
+def compile_train(seed, card, n_gate, n_split):
+    """(a): Executor.compile of ResNet-50's bf16 training step at batch
+    128 from meta specs: the scope and the step counter as they were,
+    then run_steps(TRAIN_STEPS) with no warm-up and no capture, K1 as
+    [train] counts it, and the losses and final scope bit-equal to an
+    uncompiled executor's from the same start.  Returns K1's forms."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import conv1x1
+    main, startup, loss = build_resnet50_train(seed)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    feed = compile_train_feed(seed)
+    exe = ptt.Executor(amp=True)
+    scope = clone_scope(start)
+    spec = {"img": torch.empty((TRAIN_BATCH, 3, 224, 224), device="meta"),
+            "label": torch.empty((TRAIN_BATCH, 1), dtype=torch.int64,
+                                 device="meta")}
+    capture_stats().reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cp = exe.compile(main, feed=spec, fetch_list=[loss], scope=scope)
+    compile_s = time.perf_counter() - t0
+    c_snap = capture_stats().snapshot()
+    bad = [k for k in start.keys()
+           if not torch.equal(start.get(k), scope.get(k))]
+    if bad or exe._step != 0:
+        raise RuntimeError(f"chip_smoke: [compile] compile changed "
+                           f"{len(bad)} scope entries ({bad[:4]}) or the "
+                           f"step counter ({exe._step})")
+    conv1x1.reset_counts()
+    capture_stats().reset()
+    losses, = exe.run_steps(TRAIN_STEPS, main, feed=feed, fetch_list=[loss],
+                            scope=scope)
+    torch.cuda.synchronize()
+    snap = capture_stats().snapshot()
+    forms = dict(conv1x1.mm.by_form)
+    steps = (snap["warmups"], snap["captures"], snap["replays"])
+    want = cli_forms(n_gate, n_split, TRAIN_STEPS)
+    exe2 = ptt.Executor(amp=True)
+    scope2 = clone_scope(start)
+    losses2, = exe2.run_steps(TRAIN_STEPS, main, feed=feed,
+                              fetch_list=[loss], scope=scope2)
+    torch.cuda.synchronize()
+    same_fetches("[compile] compiled against uncompiled ResNet-50 "
+                 "losses", [losses], [losses2])
+    n = same_scopes("[compile] compiled against uncompiled ResNet-50",
+                    scope, scope2)
+    facts = cp.step.facts
+    routes = collections.Counter(r["route"] for r in facts["listing"])
+    print(f"[compile] (a) Executor.compile of ResNet-50's bf16 training "
+          f"step at batch {TRAIN_BATCH} from meta specs: "
+          f"{compile_s:.3f} s, compile_times {cp.compile_times}, its "
+          f"counters {c_snap}; graph pool {facts['pool_bytes'] / 2**30:.3f} "
+          f"GiB; listing {len(facts['listing'])} ops by route "
+          f"{dict(routes)}; launches {facts['launches']}; the scope "
+          f"({len(start.keys())} entries) and step counter unchanged; "
+          f"then run_steps({TRAIN_STEPS}): warm-ups, captures, replays "
+          f"{steps}, uncaptured {snap['uncaptured']}; K1 {forms} "
+          f"(expected {want}); losses {np.asarray(losses).tolist()} and "
+          f"the {n} scope entries bit-equal to an uncompiled executor's; "
+          f"{card}")
+    if steps != (0, 0, TRAIN_STEPS) or snap["uncaptured"] or forms != want:
+        raise RuntimeError(f"chip_smoke: [compile] (a) the compiled run "
+                           f"took {snap}, K1 {forms}, expected no warm-up, "
+                           f"no capture, {TRAIN_STEPS} replays and {want}")
+    exe.close()
+    exe2.close()
+    del scope, scope2, start
+    torch.cuda.empty_cache()
+    return forms
+
+
+def compile_serve(seed, card):
+    """(b): Model.from_compiled at batch 32 behind Server: the first
+    request's batch replays the step built ahead (no warm-up, no
+    capture), and its rows equal from_program's bit for bit."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.serving import Model, Server
+    infer, startup, pred = build_resnet50(seed)
+    scope = ptt.Scope()
+    exe = ptt.Executor(amp=True)
+    exe.run(startup, scope=scope)
+    B = COMPILE_SERVE_BATCH
+    imgs = np.random.RandomState(seed + 25).randn(B, 3, 224, 224) \
+        .astype(np.float32)
+    t0 = time.perf_counter()
+    cp = exe.compile(infer, feed={"img": ((B, 3, 224, 224), "float32")},
+                     fetch_list=[pred], scope=scope, is_test=True)
+    compile_s = time.perf_counter() - t0
+    model = Model.from_compiled(cp, name="resnet50-compiled", scope=scope)
+    srv = Server(max_batch=B, max_wait_ms=2000.0, deadline_ms=None,
+                 warmup=False)
+    srv.add_model(model)
+    srv.start()
+    capture_stats().reset()
+    conv1x1.reset_counts()
+    t0 = time.perf_counter()
+    futs = [srv.submit({"img": imgs[i]}) for i in range(B)]
+    outs = [f.result(timeout=300) for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = capture_stats().snapshot()
+    launches = conv1x1.launches()
+    srv.shutdown(timeout=60)
+    served = np.stack([np.asarray(o[0]) for o in outs])
+    ref = Model.from_program(ptt.Executor(amp=True), infer, [pred],
+                             scope=scope)
+    want = [np.asarray(ref({"img": imgs})[0].float().cpu())
+            for _ in range(2)]      # its warm-up, then its capture
+    gate = len(eligible_1x1_shapes(infer, B))
+    same = all(served.astype(np.float32).tobytes() == w.tobytes()
+               for w in want)
+    print(f"[compile] (b) Model.from_compiled behind Server (max_batch "
+          f"{B}): compile {compile_s:.3f} s ({cp.compile_times}); {B} "
+          f"requests in one batch "
+          f"served in {wall:.3f} s with warm-ups, captures, replays "
+          f"({snap['warmups']}, {snap['captures']}, {snap['replays']}), "
+          f"K1 {launches} (gate {gate}); rows "
+          + ("bit-equal" if same else "DIFFERENT")
+          + f" to from_program's interpreted and captured runs; {card}")
+    if (snap["warmups"], snap["captures"], snap["replays"]) != (0, 0, 1) \
+            or launches != gate or not same:
+        raise RuntimeError(f"chip_smoke: [compile] (b) the served "
+                           f"compiled bucket: {snap}, K1 {launches}, rows "
+                           f"equal {same}")
+    exe.close()
+
+
+def compile_trainer_arm(seed, warmup, imgs, labels):
+    import paddle_tpu_torch as ptt
+    fresh_defaults(seed)
+    L = ptt.layers
+    img = L.data("img", [3, 224, 224])
+    label = L.data("label", [1], dtype="int64")
+    loss = L.mean(L.cross_entropy(ptt.models.resnet50(img,
+                                                      num_classes=1000),
+                                  label))
+    tr = ptt.trainer.SGD(loss, update_equation=ptt.optimizer.Momentum(
+        learning_rate=LR, momentum=0.9))
+    tr.exe = ptt.Executor(amp=True)
+    out = []
+
+    def handler(e):
+        if isinstance(e, ptt.trainer.events.EndIteration):
+            out.append(float(e.cost).hex())
+    capture_stats().reset()
+    t0 = time.perf_counter()
+    tr.train(rows_reader(imgs, labels), num_passes=1, event_handler=handler,
+             feed_list=[img, label], warmup=warmup)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = capture_stats().snapshot()
+    tr.exe.close()
+    return out, snap, wall
+
+
+def compile_trainer(seed, card):
+    """(c): trainer.SGD.train(warmup=True) on ResNet-50 at batch 32 for
+    COMPILE_TRAINER_STEPS steps: losses bit-equal to warmup=False, and
+    every step of the loop a replay."""
+    rng = np.random.default_rng(seed + 26)
+    imgs = rng.random((COMPILE_TRAINER_STEPS, COMPILE_TRAINER_BATCH, 3,
+                       224, 224), dtype=np.float32)
+    labels = rng.integers(0, 1000, (COMPILE_TRAINER_STEPS,
+                                    COMPILE_TRAINER_BATCH, 1))
+    arms = {w: compile_trainer_arm(seed, w, imgs, labels)
+            for w in (True, False)}
+    (a, sa, wa), (b, sb, wb) = arms[True], arms[False]
+    print(f"[compile] (c) trainer.SGD.train(warmup=True) on ResNet-50, "
+          f"batch {COMPILE_TRAINER_BATCH}, {COMPILE_TRAINER_STEPS} steps: "
+          f"losses {a}, "
+          + ("bit-equal" if a == b else "DIFFERENT")
+          + f" to warmup=False ({b}); counters with warmup "
+          f"{ {k: sa[k] for k in ('warmups', 'captures', 'replays')} } "
+          f"(the startup's warm-up and the compile's dry one), without "
+          f"{ {k: sb[k] for k in ('warmups', 'captures', 'replays')} }; "
+          f"train() {wa:.2f} s / {wb:.2f} s; {card}")
+    if a != b or len(a) != COMPILE_TRAINER_STEPS or \
+            sa["replays"] != COMPILE_TRAINER_STEPS or \
+            sb["replays"] != COMPILE_TRAINER_STEPS - 1:
+        raise RuntimeError(f"chip_smoke: [compile] (c) warmup=True {a} "
+                           f"{sa}, warmup=False {b} {sb}")
+
+
+def compile_ab(card, models):
+    """(d): benchmark.compile_cache's cold and warm arms in fresh
+    processes sharing a cache directory under build/compile: each warm
+    arm starts from the entry (a disk hit) and its steps' digest equals
+    the cold arm's."""
+    from paddle_tpu_torch.benchmark import compile_cache as ccb
+    rows = []
+    for m in models:
+        row = ccb.run_model(m, steps=COMPILE_AB_STEPS, device="cuda",
+                            cache_dir=compile_root(f"ab_{m}"), quiet=True)
+        rows.append(row)
+        cold, warm = row["cold"], row["warm"]
+        print(f"[compile] (d) benchmark.compile_cache {m}: engine_s cold "
+              f"{cold['engine_s']} warm {warm['engine_s']} (ratio "
+              f"{row['ratio_engine']}), total_s cold {cold['total_s']} "
+              f"warm {warm['total_s']} (of which the process start and "
+              f"imports {cold['start_s']} / {warm['start_s']}), first_step_s "
+              f"cold "
+              f"{cold['first_step_s']} warm {warm['first_step_s']}; "
+              f"compile_times cold {cold['compile_times']} warm "
+              f"{warm['compile_times']}; warm disk hits "
+              f"{row['warm_disk_hits']}, warm-ups {row['warm_warmups']}, "
+              f"cold phases the warm arm skipped {row['warm_skipped']}; "
+              f"digests "
+              + ("bit-identical" if row["bit_identical"] else "DIFFERENT")
+              + f"; {card}")
+        if not row["bit_identical"] or row["warm_disk_hits"] < 1 or \
+                warm["source"] != "disk" or cold["source"] != "compile":
+            brief = {k: v for k, v in row.items()
+                     if k not in ("cold", "warm")}
+            raise RuntimeError(f"chip_smoke: [compile] (d) {m}: {brief}")
+    return rows
+
+
+def compile_profile(card):
+    """(e): profile --compiled-check on the v1 ResNet-50 config: the
+    compiled step's graph pool and the bound on its capture's peak
+    beside the memory view."""
+    root = compile_root("profile")
+    conf = os.path.join(root, "resnet50_v1.py")
+    with open(conf, "w") as f:
+        f.write(resnet_v1_conf(img=CLI_IMG, classes=CLI_CLASSES,
+                               batch=CLI_BATCH))
+    rc, lines, secs, forms = cli_run(
+        ["profile", "--config", conf, "--batch", str(CLI_BATCH), "--reps",
+         "1", "--warmup", "0", "--compiled-check", "--json"])
+    rep = lines[-1] if lines else {}
+    mem = rep.get("memory") or {}
+    ex = mem.get("executable") or {}
+    print(f"[compile] (e) profile --config (v1 ResNet-50, batch "
+          f"{CLI_BATCH}, fp32) --compiled-check: memory view peak "
+          f"{mem.get('peak_bytes', 0) / 2**30:.3f} GiB at op "
+          f"#{mem.get('peak_index')} ({mem.get('peak_op')}), modeled "
+          f"{(mem.get('modeled_peak_bytes') or 0) / 2**30:.3f} GiB; the "
+          f"compiled step's graph pool {ex.get('pool_bytes', 0) / 2**30:.3f}"
+          f" GiB, its capture's peak at most "
+          f"{(ex.get('capture_peak_bytes') or 0) / 2**30:.3f} GiB, routes "
+          f"{ex.get('routes')}; {secs:.1f} s; {card}")
+    if rc != 0 or not ex or not ex.get("pool_bytes") or \
+            not ex.get("capture_peak_bytes"):
+        raise RuntimeError(f"chip_smoke: [compile] (e) profile "
+                           f"--compiled-check: rc {rc}, executable {ex}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def compile_export(seed, card):
+    """(f): export_compiled_model of the long-context forward (an is_test
+    clone fetching the attention's output, 8 x 65536 x 64 causal, the
+    state cast to bf16) through load_compiled_model: K2 once a call (by
+    launches_by_dtype), each call bit-equal to the live program's
+    captured forward, the artifact's custom_ops listing the op; ms a
+    call of each.  Returns K2's launches in the exported calls."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    main, startup, _ = build_longctx(seed)
+    out = next(op.output("Out")[0] for op in main.global_block().ops
+               if op.type == "flash_attention")
+    infer = main.prune([main.global_block().var(out)]).clone(for_test=True)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    scope = clone_scope(start, torch.bfloat16)
+    del start
+    root = compile_root("longctx")
+    t0 = time.perf_counter()
+    manifest = ptt.export_compiled_model(root, {}, [out],
+                                         main_program=infer, scope=scope)
+    export_s = time.perf_counter() - t0
+    run, _ = ptt.load_compiled_model(root)
+    live_exe = ptt.Executor()
+
+    def live():
+        return live_exe.run(infer, feed={}, fetch_list=[out], scope=scope,
+                            is_test=True, return_numpy=False)[0]
+    want = [live(), live()]          # its warm-up, then its capture
+    if not torch.equal(want[0], want[1]):
+        raise RuntimeError("chip_smoke: [compile] (f) the live forward's "
+                           "interpreted and captured calls differ")
+    fa.reset_counts()
+    got = [run({})[0] for _ in range(3)]    # warm-up, capture, replay
+    torch.cuda.synchronize()
+    by_dtype = dict(fa.launches_by_dtype)
+    same = all(torch.equal(g, want[1]) for g in got)
+
+    def ms(call):
+        call()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        for _ in range(COMPILE_EXPORT_CALLS):
+            call()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / COMPILE_EXPORT_CALLS
+    fa.reset_counts()
+    art_ms = ms(lambda: run({}))
+    live_ms = ms(live)
+    print(f"[compile] (f) export_compiled_model of the long-context forward "
+          f"({ATT_HEADS} x {ATT_T} x {ATT_DIM}, causal, bf16 state): "
+          f"{export_s:.2f} s, custom_ops {manifest['custom_ops']}; three "
+          f"calls through load_compiled_model (warm-up, capture, replay) "
+          + ("bit-equal" if same else "DIFFERENT")
+          + f" to the live program's captured forward; K2 launches by "
+          f"dtype {by_dtype}; ms a call (CUDA events over "
+          f"{COMPILE_EXPORT_CALLS} calls, output copies included): the "
+          f"artifact {art_ms:.3f}, the live program {live_ms:.3f}; {card}")
+    key = ("fwd", torch.bfloat16)
+    if not same or by_dtype != {key: 3} or manifest["custom_ops"] != {
+            "paddle_tpu_torch::flash_attention_fwd": 1}:
+        raise RuntimeError(f"chip_smoke: [compile] (f) equal {same}, K2 "
+                           f"{by_dtype}, custom ops {manifest['custom_ops']}")
+    live_exe.close()
+    del run, scope
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return by_dtype[key]
+
+
+def phase_compile(seed, card, n_gate, n_split):
+    """Compile ahead of the first call on the card (see the module
+    docstring).  Returns (K1's forms of (a)'s compiled run, K2's
+    launches in the exported calls)."""
+    from paddle_tpu_torch.ops import conv1x1
+    t_phase = time.perf_counter()
+    saved = torch.backends.cudnn.deterministic
+    times = {}
+    try:
+        # the compiled and uncompiled arms are held bit for bit: cuDNN's
+        # deterministic algorithms, as [cli] and [resume] hold theirs
+        torch.backends.cudnn.deterministic = True
+        t0 = time.perf_counter()
+        forms = compile_train(seed, card, n_gate, n_split)
+        times["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compile_serve(seed, card)
+        times["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compile_trainer(seed, card)
+        times["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compile_ab(card, COMPILE_AB_MODELS)
+        times["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compile_profile(card)
+        times["e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k2 = compile_export(seed, card)
+        times["f"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        fresh_defaults(seed)
+    conv1x1.mm.by_form.clear()
+    shutil.rmtree(compile_root(), ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[compile] phase {secs:.1f} s (budget {COMPILE_BUDGET_S:.0f} s; "
+          f"by part {', '.join(f'{k} {v:.1f} s' for k, v in times.items())})"
+          f"; {card}")
+    return forms, k2
+
+
 def attention_entries(row, launches):
     """The kernels JSON entries of K2, K3 and K4: times, errors and
     bounds at the slice's shape, launches from the main path's run."""
@@ -8153,6 +8800,16 @@ def main():
                          "serve's), write its K1 launches, artifact calls "
                          "and peak memory into DIR at a clean exit, and "
                          "exit with its code")
+    ap.add_argument("--elastic-mlp", metavar="DIR",
+                    help="run [elastic]'s MLP round (benchmark.elastic; "
+                         "the arguments after '--' are the workers' "
+                         "device and the config as JSON) in DIR, write "
+                         "its document to DIR/doc.json and exit")
+    ap.add_argument("--lane", metavar="DIR",
+                    help="run [sparse], [decode], [serving] and "
+                         "[sparse_bench] (the lane main() starts beside "
+                         "[zoo] and [inference]) with scratch under DIR, "
+                         "and exit")
     ap.add_argument("--fault-spec", default=None,
                     help="--elastic-child only: PADDLE_TPU_FAULT_SPEC for "
                          "this worker process")
@@ -8167,64 +8824,109 @@ def main():
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         fleet_child(args.fleet_child, args.child_argv)
         return
+    if args.lane:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        lane_child(args.lane, args.seed)
+        return
+    if args.elastic_mlp:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        device, cfg = [a for a in args.child_argv if a != "--"]
+        elastic_mlp_child(args.elastic_mlp, device, json.loads(cfg))
+        return
     if args.supervised_child:
         phase_device()
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         supervised_child(args.supervised_child, args.seed)
         return
 
+    t_start = time.perf_counter()
+    laps = {"last": t_start}
+
+    def lap(name):
+        # the script's clock: a phase's wall time and the total so far,
+        # read against the 1200 s the whole script must fit in
+        now = time.perf_counter()
+        print(f"[clock] {name} {now - laps['last']:.1f} s, "
+              f"{now - t_start:.1f} s since the start")
+        laps["last"] = now
+
     card = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_build()
+    lap("build")
     infer, _, _ = build_resnet50(args.seed)
     shapes = eligible_1x1_shapes(infer, BATCH)
     train_main, _, _ = build_resnet50_train(args.seed)
     train_shapes = eligible_1x1_shapes(train_main, TRAIN_BATCH)
     rows = phase_kernels(shapes, train_shapes, args.seed)
+    lap("kernels")
     torch.cuda.empty_cache()
     launches, buckets, fp32_launches = phase_slice(args.seed, card)
+    lap("slice")
     torch.cuda.empty_cache()
     t_forms, train_ms = phase_train(args.seed, card, len(train_shapes))
+    lap("train")
     torch.cuda.empty_cache()
     r_forms = phase_resume(args.seed, card, len(train_shapes),
                            split_wgrads(train_shapes))
+    lap("resume")
     torch.cuda.empty_cache()
     l_forms = phase_library(args.seed,
                             conv_geometry(train_main, TRAIN_BATCH))
+    lap("library")
     torch.cuda.empty_cache()
     att_row = phase_attention_kernels(args.seed)
     att_launches = phase_attention_train(args.seed, card)
     phase_attention_table(args.seed, card)
+    lap("attention")
     torch.cuda.empty_cache()
     phase_seq2seq(args.seed, card)
+    lap("seq2seq")
     torch.cuda.empty_cache()
     phase_pipeline(args.seed, card)
+    lap("pipeline")
     torch.cuda.empty_cache()
-    zoo_entries = phase_zoo(args.seed, card)
-    torch.cuda.empty_cache()
-    inf_entry = phase_inference(args.seed, card)
-    torch.cuda.empty_cache()
-    phase_sparse(args.seed, card)
-    phase_decode(args.seed, card)
-    phase_serving(args.seed, card)
-    phase_sparse_bench(args.seed, card)
+    lane = lane_start(args.seed)
+    try:
+        zoo_entries = phase_zoo(args.seed, card)
+        lap("zoo")
+        torch.cuda.empty_cache()
+        inf_entry = phase_inference(args.seed, card)
+        lap("inference")
+        torch.cuda.empty_cache()
+    except BaseException:
+        stop_group(lane[0])
+        raise
+    lane_join(lane)
+    lap("the lane's rest (sparse, decode, serving, sparse_bench)")
     bw_entries, _ = phase_bandwidth(args.seed, card)
+    lap("bandwidth")
     torch.cuda.empty_cache()
     o_forms, o_flash, o_reports = phase_observe(
         args.seed, card, len(train_shapes), split_wgrads(train_shapes))
+    lap("observe")
     torch.cuda.empty_cache()
     phase_analysis(args.seed, card, len(train_shapes),
                    split_wgrads(train_shapes), o_reports)
+    lap("analysis")
     torch.cuda.empty_cache()
     e_forms = phase_elastic(args.seed, card)
+    lap("elastic")
     torch.cuda.empty_cache()
     f_launches = phase_fleet(args.seed, card)
+    lap("fleet")
     torch.cuda.empty_cache()
     tune_k1, tune_flash_launches = phase_tune(args.seed, card)
+    lap("tune")
     torch.cuda.empty_cache()
     cli_train_forms, cli_test_forms = phase_cli(args.seed, card, train_ms)
+    lap("cli")
+    torch.cuda.empty_cache()
+    compile_forms, compile_k2 = phase_compile(
+        args.seed, card, len(train_shapes), split_wgrads(train_shapes))
+    lap("compile")
 
     # bf16: the served path and the AMP step; fp32: the served forward's
     # fp32 run and the fp32 step
@@ -8263,6 +8965,12 @@ def main():
                 k["cli_launches"] = cli_train_forms.get(form, 0)
             entries[2]["cli_reduce_launches"] = cli_train_forms.get(
                 "splitk_reduce", 0)
+            # [compile]'s compiled run (a) runs the AMP step
+            for k, form in zip((step_forward,) + tuple(entries[:3]),
+                               ("forward", "forward", "dgrad", "wgrad")):
+                k["compile_launches"] = compile_forms.get(form, 0)
+            entries[2]["compile_reduce_launches"] = compile_forms.get(
+                "splitk_reduce", 0)
         else:
             # [cli]'s --job test runs the fp32 forward
             entries[0]["cli_launches"] = cli_test_forms.get("forward", 0)
@@ -8297,7 +9005,10 @@ def main():
                         "--job test")
                      + ("" if "cli_reduce_launches" not in k else
                         f" (and {k['cli_reduce_launches']} reduce "
-                        f"passes)")))
+                        f"passes)"))
+                  + ("" if "compile_launches" not in k else
+                     f", {k['compile_launches']} in [compile]'s compiled "
+                     f"run"))
     print(f"[summary] forward: times summed over the {len(shapes)} "
           f"launches of one batch-{BATCH} forward, launches from the served "
           f"run ({len(buckets)} batches; fp32: one batch-{BATCH} run); the "
@@ -8309,12 +9020,17 @@ def main():
     for k, name in zip(kernels[-3:], ATT_REPLACES):
         k["opprof_launches"] = o_flash.get(name, 0)
         k["tune_launches"] = tune_flash_launches[name]
+    # [compile]'s exported long-context forward launches K2 alone
+    kernels[-3]["compile_export_launches"] = compile_k2
     for k in kernels[-3:]:
         print(f"[summary] {k['name']} at BH {ATT_HEADS} x T {ATT_T} x d "
               f"{ATT_DIM}, causal, bf16: kernel {k['ms']:.3f} ms, bound "
               f"{k['bound_ms']:.3f} ms ({k['bound_by']}), library "
               f"{k['library_ms']:.3f} ms, plain {k['plain_ms']:.1f} ms; "
-              f"{k['launches']} launches in the {ATT_STEPS}-step run")
+              f"{k['launches']} launches in the {ATT_STEPS}-step run"
+              + ("" if "compile_export_launches" not in k else
+                 f", {k['compile_export_launches']} in [compile]'s "
+                 f"exported forward"))
     kernels += zoo_entries
     for k in zoo_entries:
         red = "" if "reduce_ms" not in k else \
@@ -8342,6 +9058,7 @@ def main():
               f"{k['ms']:.4f} ms a pass, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}), plain = library {k['plain_ms']:.4f} ms; "
               f"{k['launches']} launches in the probe's run")
+    lap("summary")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

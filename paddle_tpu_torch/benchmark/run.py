@@ -23,9 +23,8 @@ MKL-DNN, as ``ref_source`` says) in the same unit, or null; no figure
 here is a TPU one.  ``--device cpu`` runs on the CPU (tiny sizes are
 ``run_config(sizes=...)``'s business).  ``--model input_pipeline`` runs
 ``benchmark.input_pipeline``, and ``ctr``, ``decode``, ``pserver``,
-``checkpoint`` and ``autotune`` run the port's runner of that name
-(``--smoke`` for their tiny sizes); the JAX runner's ``compile_cache``
-delegate is not ported.
+``checkpoint``, ``autotune`` and ``compile_cache`` run the port's runner
+of that name (``--smoke`` for their tiny sizes).
 """
 from __future__ import annotations
 
@@ -64,13 +63,6 @@ HEADLINE = [("alexnet", 128), ("googlenet", 128), ("smallnet", 64),
             ("resnet50", 64), ("vgg19", 64),
             ("lstm_h512", 64), ("lstm_h512", 128), ("seq2seq", 64)]
 LARGE_CNNS = ("alexnet", "googlenet", "resnet50", "vgg19")
-
-# delegates of the JAX runner that wait for their modules
-NOT_PORTED = {
-    "compile_cache": "ROADMAP Queue A item 6 (the disk layer of "
-                     "core/compile_cache.py)",
-}
-
 
 def _build_image(model, batch, size=None, num_classes=None):
     """``benchmark/run.py:45-64``: the image model on ``size`` x ``size``
@@ -248,10 +240,11 @@ def main(argv=None):
                          "resnet50, vgg19, lstm_h<hidden>, seq2seq), or "
                          "'input_pipeline' for the naive-vs-pipelined "
                          "wide_deep A/B, or a runner: ctr, decode, "
-                         "pserver, checkpoint, autotune")
+                         "pserver, checkpoint, autotune, compile_cache")
     ap.add_argument("--smoke", action="store_true",
                     help="input_pipeline, ctr, decode, pserver, "
-                         "checkpoint and autotune only: tiny sizes")
+                         "checkpoint, autotune and compile_cache only: "
+                         "tiny sizes")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--iters", type=int, default=None,
                     help="steps per timed window (default: 60 for the "
@@ -268,10 +261,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--all", action="store_true")
     args = ap.parse_args(argv)
-    if args.model in NOT_PORTED:
-        raise NotImplementedError(
-            f"benchmark.run --model {args.model} is not ported yet: "
-            f"{NOT_PORTED[args.model]}")
     smoke = ["--smoke"] if args.smoke else []
     if args.model == "ctr":
         from .ctr import main as ctr_main
@@ -292,6 +281,10 @@ def main(argv=None):
     if args.model == "autotune":
         from .autotune import main as autotune_main
         autotune_main(smoke)
+        return 0
+    if args.model == "compile_cache":
+        from .compile_cache import main as compile_cache_main
+        compile_cache_main(smoke + ["--device", args.device])
         return 0
     if args.model == "input_pipeline":
         from .input_pipeline import run_workload

@@ -34,7 +34,8 @@ The subcommands, each loaded only when named:
              ``--per-op`` replays it op by op on ``--device``)
   profile    the per-op profiler (``observability.opprof``) over a
              program or a v1 config's training step on ``--device``;
-             ``--compiled-check`` waits for ROADMAP.md Queue A item 6
+             ``--compiled-check`` places the step built ahead of its
+             first call (``Executor.compile``) beside the memory view
   tune, serve, fleet, fleet-stats, elastic, pserver
              the autotuner, the serving runtime and fleet, the fleet
              collector, the elastic service and a sparse shard
@@ -55,9 +56,6 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
-
-_ITEM_6 = "ROADMAP.md Queue A item 6 (Executor.compile)"
-
 
 def _parse_config_args(s: Optional[str]) -> Dict[str, str]:
     """``--config_args k=v,k2=v2`` as a dict."""
@@ -730,9 +728,11 @@ def job_profile(argv):
     ap.add_argument("--is-test", action="store_true",
                     help="profile the inference form of the step")
     ap.add_argument("--compiled-check", action="store_true",
-                    help="cross-check the memory view against a step "
-                         f"built ahead of its first call: waits for "
-                         f"{_ITEM_6}")
+                    help="cross-check the memory view against the step "
+                         "built ahead of its first call (Executor.compile "
+                         "in a throwaway executor): its graph pool bytes "
+                         "and the allocator's peak during the capture; "
+                         "none on the CPU")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the step replays (default cuda)")
     ap.add_argument("--json", action="store_true",
@@ -744,11 +744,6 @@ def job_profile(argv):
     args = ap.parse_args(argv)
     if (args.program is None) == (args.config is None):
         ap.error("give exactly one of a program file or --config")
-    if args.compiled_check:
-        raise NotImplementedError(
-            f"profile --compiled-check reads the memory view of a step "
-            f"built ahead of its first call, which is not ported yet: "
-            f"{_ITEM_6}")
 
     # lazy: the per-op profiler pulls analysis.cost_model; only the
     # profiler pays for it
@@ -757,7 +752,8 @@ def job_profile(argv):
 
     kw = dict(batch=args.batch, seq_len=args.seq_len, reps=args.reps,
               warmup=args.warmup, top=args.top, is_test=args.is_test,
-              mesh_axes=_parse_mesh(args.mesh), modeled=True)
+              mesh_axes=_parse_mesh(args.mesh), modeled=True,
+              compiled_check=args.compiled_check)
     exe = Executor(_place(args.device))
     if args.config is not None:
         from .trainer_config_helpers import load_v1_config

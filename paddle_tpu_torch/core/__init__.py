@@ -1,6 +1,7 @@
 """Core IR + runtime: Program/Block/Op/Var, registry, Executor, Scope."""
 
-from . import unique_name
+from . import compile_cache, unique_name
+from .compile_cache import CompiledProgram
 from .types import VarType, convert_dtype, to_torch_dtype
 from .program import (
     Program, Block, Operator, Variable, Parameter,
@@ -15,7 +16,7 @@ from .executor import (
 )
 
 __all__ = [
-    "unique_name", "VarType", "convert_dtype", "to_torch_dtype",
+    "compile_cache", "CompiledProgram", "unique_name", "VarType", "convert_dtype", "to_torch_dtype",
     "Program", "Block", "Operator", "Variable", "Parameter",
     "default_main_program", "default_startup_program", "program_guard",
     "reset_default_programs", "grad_var_name", "register_op", "get_op_impl",

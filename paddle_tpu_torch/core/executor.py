@@ -58,7 +58,14 @@ Autotuning (``tuning/``): ``Executor(autotune=True)`` (or the
 persisted ``executor/run_pipelined`` winner; off, or with no record, the
 defaults are today's (4, 2).  ``tuning`` is imported only when it is on.
 
-Not ported yet: ``Executor.compile`` and the disk cache.
+Ahead of the first call: ``compile(program, feed, fetch_list, ...)``
+builds the step of the key ``run`` would take (feeds may be example
+arrays, ``(shape, dtype)`` tuples or tensors on the ``meta`` device) and
+returns a ``compile_cache.CompiledProgram``; on a card the step is
+warmed up without committing and captured, so the first ``run`` of the
+key replays.  With the ``cache_dir`` flag set, what a cold compile
+learned is kept on disk (``compile_cache.disk_store``), and a warm
+compile in a later process builds the same step and reports it.
 """
 from __future__ import annotations
 
@@ -228,6 +235,9 @@ class ExecContext:
         self.streams = {} if streams is None else streams
         self.capturing = False
         self._placed = set()
+        # Executor.compile's capture records the step listing here: one
+        # entry a global-block op and the backward, with its route
+        self.listing: Optional[List[dict]] = None
 
     def block(self, idx: int) -> Block:
         return self.program.blocks[idx]
@@ -337,7 +347,39 @@ def _normalize_outputs(op: Operator, result) -> Dict[str, List]:
             for slot, val in result.items()}
 
 
+def _counts() -> list:
+    return [collections.Counter(c) for c in compile_cache.launch_counters()]
+
+
+def _list_op(ctx: ExecContext, op: Operator, before: list):
+    """Append ``op``'s entry to the step listing: its position, type, the
+    kernel launches it made since ``before`` and its route."""
+    deltas = [collections.Counter(c) - b for c, b in
+              zip(compile_cache.launch_counters(), before)]
+    launched = compile_cache.counter_deltas(deltas, ("launches",))
+    ctx.listing.append({"index": _stream_key(ctx.program, op)[1],
+                        "op": op.type,
+                        "route": "kernel" if launched else "other",
+                        "launches": launched})
+
+
+def _static_listing(program: Program) -> List[dict]:
+    """The step listing without a run (the CPU, where nothing launches a
+    kernel): every global-block op, none on a kernel's route."""
+    return [{"index": i, "op": op.type, "route": "other", "launches": {}}
+            for i, op in enumerate(program.global_block().ops)]
+
+
 def run_op(op: Operator, env: Env, ctx: ExecContext):
+    if ctx.listing is not None and env.block.idx == 0:
+        before = _counts()
+        _run_op(op, env, ctx)
+        _list_op(ctx, op, before)
+        return
+    _run_op(op, env, ctx)
+
+
+def _run_op(op: Operator, env: Env, ctx: ExecContext):
     impl = get_op_impl(op.type)
     ins = {slot: [env.get(n) for n in names]
            for slot, names in op.inputs.items() if names}
@@ -434,7 +476,10 @@ def _run_backward(forward_ops: Sequence[Operator], bw_op: Operator,
             loss = loss.reshape(())
         if ctx.amp:
             loss = loss.float()
+        before = _counts() if ctx.listing is not None else None
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        if before is not None:
+            _list_op(ctx, bw_op, before)
     for name, val in fenv.local.items():
         env.set(name, val.detach() if isinstance(val, torch.Tensor) else val)
     if ctx.amp:
@@ -608,11 +653,13 @@ class _CapturedStep:
         # check_nan_inf: the names of the finite flags and the graph's
         # flags tensor
         self.finite = None
+        # the compile_cache.CachedStep of a step built by Executor.compile
+        self.cached = None
 
     def capture(self, exe: "Executor", program: Program,
                 feeds: Dict[str, torch.Tensor], scope: Scope,
                 state_keys: List[str], fetch_names: List[str],
-                is_test: bool):
+                is_test: bool, listing: Optional[List[dict]] = None):
         self.static_feeds = {k: v.clone() for k, v in feeds.items()}
         self.static_state = {k: scope.get(k).clone() for k in state_keys}
         owned = {_storage(t) for t in (*self.static_feeds.values(),
@@ -627,6 +674,7 @@ class _CapturedStep:
 
         ctx = exe._context(program, is_test)
         ctx.capturing = True
+        ctx.listing = listing
         graph = torch.cuda.CUDAGraph()
         self.streams = [(key, ctx.stream(key))
                         for key in _random_streams(program, is_test)]
@@ -708,6 +756,7 @@ class _CapturedStep:
         self.fetches, self.new_outputs = [], {}
         self.streams = []
         self.finite = None
+        self.cached = None
 
 
 # ---------------------------------------------------------------------------
@@ -971,6 +1020,225 @@ class Executor:
             seen.difference_update(
                 [k for k in seen if k[0] != program.version])
         seen.add(key)
+
+    # -- ahead of the first call ---------------------------------------------
+    def compile(self, program: Optional[Program] = None,
+                feed: Optional[Dict[str, object]] = None,
+                fetch_list: Optional[Sequence] = None,
+                scope: Optional[Scope] = None,
+                is_test: bool = False,
+                num_steps: Optional[int] = None,
+                feeds_stacked: bool = False):
+        """Build ONE key's step ahead of its first call and install it in
+        the executor's cache, so the matching :meth:`run` (or
+        :meth:`run_steps`, with ``num_steps``) replays it with no warm-up
+        and no capture: the counterpart of the JAX executor's AOT
+        ``compile``.
+
+        ``feed`` maps feed names to example arrays or tensors, ``(shape,
+        dtype)`` tuples, or tensors on the ``meta`` device (the
+        counterpart of ``jax.ShapeDtypeStruct``); a declared var dtype
+        overrides, as ``run`` coerces.  A spec has no values, so a spec of
+        a ``@LEN``/``@LEN2`` feed (sequence lengths, whose values steer
+        the step) is refused: pass an example.  With ``feeds_stacked``
+        the feeds carry the leading ``num_steps`` axis, as ``run_steps``
+        receives them.  ``run_steps`` replays the single-step key, so
+        ``num_steps`` and ``feeds_stacked`` compile that key too.
+
+        Call it after the startup program ran: the scope's state is part
+        of the key.  Compile validates (``validate``), takes the key
+        ``run`` takes, and on a card warms the step up without committing
+        it and captures it: the scope, the step counter and the random
+        streams' placement are as they were.  On the CPU there is nothing
+        to capture; the returned handle's ``run`` is :meth:`run`.  With
+        the ``cache_dir`` flag set, a cold compile stores what it learned
+        (``compile_cache.disk_store``), and a warm one (an entry on disk)
+        builds the step as a cold one does and reports the entry's facts
+        beside its own times.  Returns a
+        :class:`~paddle_tpu_torch.core.compile_cache.CompiledProgram`."""
+        from .program import default_main_program
+        if not self.use_jit:
+            raise ValueError("Executor.compile requires use_jit=True")
+        if self.check_nan_inf and num_steps is not None:
+            raise ValueError("run_steps: check_nan_inf needs per-step host "
+                             "inspection; compile the run() step instead")
+        if feeds_stacked and num_steps is None:
+            raise ValueError(
+                "Executor.compile: feeds_stacked=True requires num_steps "
+                "(stacked [K, ...] specs describe run_steps' feeds; "
+                "without num_steps they would key the wrong shapes)")
+        if num_steps is not None and int(num_steps) < 1:
+            raise ValueError(f"Executor.compile: num_steps must be >= 1, "
+                             f"got {num_steps}")
+        program = program or default_main_program()
+        scope = global_scope() if scope is None else scope
+        fetch_names = _fetch_names(fetch_list)
+        gb = program.global_block()
+        lead = int(num_steps) if feeds_stacked else None
+        with self._lock:
+            feeds = {name: self._spec_feed(gb, name, val, lead)
+                     for name, val in (feed or {}).items()}
+        t0 = time.perf_counter()
+        self._maybe_validate(program, fetch_names)
+        validate_s = time.perf_counter() - t0
+        with self._lock:
+            fp = self._fingerprint(program, feeds, fetch_names, scope,
+                                   is_test)
+            hexfp = compile_cache.fingerprint_hex(fp)
+            step = self._compile_step(fp, hexfp, program, feeds,
+                                      fetch_names, scope, is_test,
+                                      validate_s)
+        return compile_cache.CompiledProgram(
+            self, program, hexfp, step, fetch_names,
+            self._state_keys(program, scope),
+            num_steps=None if num_steps is None else int(num_steps),
+            feeds_stacked=feeds_stacked, is_test=is_test)
+
+    def _spec_feed(self, gb: Block, name: str, val,
+                   lead: Optional[int]) -> torch.Tensor:
+        """One step's feed tensor for ``compile``: an example converted as
+        ``run`` converts it, or zeros of a spec's shape in the declared
+        dtype; ``lead``: the stacked feeds' leading K, checked and
+        dropped (step 0's slice)."""
+        spec = None
+        if isinstance(val, torch.Tensor) and val.device.type == "meta":
+            spec = (tuple(val.shape), val.dtype)
+        elif isinstance(val, tuple) and len(val) == 2 and \
+                isinstance(val[0], (tuple, list)):
+            spec = (tuple(int(d) for d in val[0]), to_torch_dtype(val[1]))
+        if spec is None:
+            t = self._feed_tensor(gb, name, val)
+        else:
+            if name.endswith("@LEN") or name.endswith("@LEN2"):
+                raise ValueError(
+                    f"Executor.compile: feed {name!r} is a (shape, dtype) "
+                    f"spec, but its values (sequence lengths) steer the "
+                    f"step; pass an example array for it")
+            want = to_torch_dtype(gb.var(name).dtype) if gb.has_var(name) \
+                else spec[1]
+            t = torch.zeros(spec[0], dtype=want, device=self.device)
+        if lead is not None:
+            if tuple(t.shape[:1]) != (lead,):
+                raise ValueError(
+                    f"Executor.compile(feeds_stacked=True): feed {name!r} "
+                    f"must have leading dim {lead}, got {tuple(t.shape)}")
+            t = t[0]
+        return t
+
+    def _compile_step(self, fp: tuple, hexfp: str, program: Program,
+                      feeds: Dict[str, torch.Tensor], fetch_names: List[str],
+                      scope: Scope, is_test: bool, validate_s: float):
+        """The key's :class:`~paddle_tpu_torch.core.compile_cache
+        .CachedStep`: the one already built, else one built now (on a
+        card: a dry warm-up and a capture); a cold build stores what it
+        learned on disk, a warm one reports the entry's facts with its
+        own times."""
+        stats = compile_cache.stats()
+        entry = self._cache.get(fp, program)
+        on_card = self._uncaptured_reason(program, is_test) is None
+        if entry is not None and entry.cached is not None and (
+                entry.graph is not None or not on_card):
+            return entry.cached
+        if entry is None:
+            entry = _CapturedStep()
+            self._cache.put(fp, entry, program)
+        payload = compile_cache.disk_load(hexfp)
+        times = {"validate_s": validate_s}
+        learned = {}
+        if on_card:
+            if entry.graph is None:
+                learned = self._compile_capture(
+                    entry, program, feeds, fetch_names, scope, is_test,
+                    times)
+                self._cache.charge(fp, entry.nbytes)
+            learned.update(
+                launches=compile_cache.counter_deltas(entry.deltas,
+                                                      ("launches",)),
+                detail=compile_cache.counter_deltas(entry.deltas,
+                                                    ("detail",)),
+                pool_bytes=entry.nbytes)
+        if payload is None:
+            facts = {"device": str(self.device), "launches": {},
+                     "detail": {}, "pool_bytes": 0,
+                     "capture_peak_bytes": None,
+                     "listing": _static_listing(program)}
+            facts.update(learned)
+            facts["times"] = dict(times)
+            compile_cache.disk_store(hexfp, facts)
+            source = "compile"
+        else:
+            facts = {k: v for k, v in payload.items()
+                     if k not in ("format", "fingerprint")}
+            facts["cold_times"] = facts.get("times") or {}
+            facts.update(learned)
+            facts["times"] = dict(times)
+            source = "disk"
+        stats.record_times(hexfp, source, **times)
+        entry.cached = compile_cache.CachedStep(
+            hexfp, facts, captured=entry if on_card else None,
+            source=source)
+        return entry.cached
+
+    def _compile_capture(self, entry: "_CapturedStep", program: Program,
+                         feeds, fetch_names, scope, is_test,
+                         times) -> dict:
+        """compile's build on the card: this thread's dry warm-up where it
+        has none, then the capture, with the listing recorded; the random
+        streams' offsets set back afterwards.  Returns the facts learned
+        (``times`` is filled in)."""
+        stats = compile_cache.stats()
+        offsets = self._stream_offsets(program)
+        thread = threading.get_ident()
+        if thread not in entry.warm_threads:
+            t0 = time.perf_counter()
+            self._warm_dry(program, feeds, fetch_names, scope, is_test)
+            torch.cuda.synchronize(self.device)
+            times["warmup_s"] = time.perf_counter() - t0
+            stats.bump("warmups")
+            entry.warm_threads.add(thread)
+        held = torch.cuda.memory_allocated(self.device)
+        listing: List[dict] = []
+        t0 = time.perf_counter()
+        entry.capture(self, program, feeds, scope,
+                      self._state_keys(program, scope), fetch_names,
+                      is_test, listing=listing)
+        times["capture_s"] = time.perf_counter() - t0
+        stats.bump("captures")
+        # what the allocator held as the capture began, plus the static
+        # buffers and the graph's pool: a bound on the capture's peak that
+        # leaves the card's peak statistics, which callers read, as they
+        # were
+        peak = held + entry.nbytes + sum(
+            t.nbytes for t in (*entry.static_feeds.values(),
+                               *entry.static_state.values()))
+        self._restore_stream_offsets(program, offsets)
+        return {"capture_peak_bytes": peak, "listing": listing}
+
+    def _warm_dry(self, program, feeds, fetch_names, scope, is_test):
+        """The key's warm-up step interpreted on the capture's side stream
+        from the scope's state, nothing committed: no write to the scope,
+        no step taken (the ops are functional; their outputs are
+        dropped)."""
+        cur = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            state = {k: scope.get(k)
+                     for k in self._state_keys(program, scope)}
+            self._interpret_step(program, self._context(program, is_test),
+                                 state, feeds, fetch_names)
+        cur.wait_stream(self._side)
+
+    def _stream_offsets(self, program: Program) -> dict:
+        streams = self._streams.get(program) or {}
+        return {k: g.get_offset() for k, g in streams.items()
+                if g.device.type == "cuda"}
+
+    def _restore_stream_offsets(self, program: Program, offsets: dict):
+        """Put each of ``program``'s card generators back where it was
+        (a generator made since: where a fresh one starts)."""
+        for k, g in (self._streams.get(program) or {}).items():
+            if g.device.type == "cuda":
+                g.set_offset(offsets.get(k, 0))
 
     # -- entry points ---------------------------------------------------------
     def as_module(self, program: Program, fetch_list: Sequence,

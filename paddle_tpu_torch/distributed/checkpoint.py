@@ -364,6 +364,13 @@ class CheckpointManager:
                     "delta commits are single-process; multi-process "
                     "runs keep the full-save protocol")
             with self._chain_lock:
+                alive = self._planned_alive
+            if not alive:
+                # a failing write marks the chain dead before the writer
+                # holds its error for this thread: let it settle, so that
+                # error surfaces here, once, and not on the rebase after
+                self.wait()
+            with self._chain_lock:
                 if not self._planned_alive:
                     raise DeltaChainError(
                         "no live parent chain (nothing committed or the "

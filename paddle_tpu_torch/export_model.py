@@ -16,15 +16,13 @@ with the weights baked in.  Here it goes through ``torch.export``:
   so one artifact serves every batch.  The 1x1 convolutions that pass
   the static part of the gate are ``paddle_tpu_torch::conv2d_1x1`` nodes
   (``ops/conv1x1.py``), which pick K1 or ``F.conv2d`` at each call's
-  batch.
+  batch, and flash attention is a ``paddle_tpu_torch::flash_attention_fwd``
+  node (``ops/flash_attention.py``), which launches K2 on a card.
 * :func:`load_compiled_model` needs no Program and no Scope: it loads
   the artifact and returns ``(run, manifest)``.  On a card ``run``
   replays one CUDA graph per input shape (a thread's first call of a
   shape runs the graph module eagerly, its second captures), the
   counterpart of XLA compiling the artifact once per concrete shape.
-
-A program that holds flash attention does not export yet: its kernels
-(K2-K4) would need the custom-op treatment K1 has.
 """
 from __future__ import annotations
 
@@ -118,7 +116,8 @@ def export_compiled_model(dirname: str,
     with torch.no_grad():
         ep = export(_Positional(module, list(example)),
                     tuple(example.values()),
-                    dynamic_shapes={"inputs": tuple(dynamic.values())},
+                    dynamic_shapes=({"inputs": tuple(dynamic.values())}
+                                    if example else None),
                     strict=False)
     os.makedirs(dirname, exist_ok=True)
     save(ep, os.path.join(dirname, _ARTIFACT))
@@ -280,7 +279,7 @@ def load_compiled_model(dirname: str, device=None):
     :func:`export_compiled_model` (default: the card); it must be the
     device the artifact was exported for, whose constants its graph
     holds."""
-    from . import ops  # noqa: F401  (registers paddle_tpu_torch::conv2d_1x1)
+    from . import ops  # noqa: F401  (registers the port's custom ops)
 
     with open(os.path.join(dirname, _MANIFEST)) as f:
         manifest = json.load(f)

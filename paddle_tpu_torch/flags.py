@@ -67,8 +67,9 @@ define_flag("validate", False,
 define_flag("cache_dir", "",
             "persistent cache root (PADDLE_TPU_TORCH_CACHE_DIR); empty = "
             "off.  The autotuner keeps its records under <cache_dir>/"
-            "tuning/ (tuning/store.py); the executor's disk layer of "
-            "captured steps is not ported")
+            "tuning/ (tuning/store.py); Executor.compile keeps what a "
+            "cold compile learned as <cache_dir>/ptxc-<fingerprint>.pkl "
+            "(core/compile_cache.py)")
 define_flag("autotune", False,
             "replay persisted autotuner winners (paddle_tpu_torch.tuning) "
             "at the tuned call sites: run_pipelined dispatch chunking, "

@@ -27,9 +27,10 @@ measured one; :func:`save_calibration` and
 (``opprof.op_class_rows``) into one JSON table, and
 :func:`load_op_class_ratios` reads the per-op-type ratios the planner
 takes (``analysis.planner.plan(op_class_ratios=)``).  The cost model is
-imported only inside those calls.  :func:`executable_facts` returns
-None: a captured CUDA graph exposes no FLOP or memory facts, so a row's
-``model`` is ``"static"``.
+imported only inside those calls.  :func:`executable_facts` reads a
+step built ahead (``Executor.compile``): a captured CUDA graph exposes
+its memory (pool bytes, a bound on the capture's peak) but no FLOP
+facts, so a row's ``model`` is ``"static"``.
 """
 from __future__ import annotations
 
@@ -391,11 +392,26 @@ def remote_budget(events) -> Optional[dict]:
 # compiled-executable facts + static-model calibration
 # ---------------------------------------------------------------------------
 def executable_facts(step) -> Optional[dict]:
-    """FLOPs / bytes / memory of a compiled step where the backend
-    exposes them.  A captured CUDA graph exposes none, so this is None,
-    as the JAX package returns where the backend hides them."""
-    del step
-    return None
+    """What a step built ahead of its first call exposes: accepts a
+    ``CompiledProgram`` or a ``CachedStep``.  A captured CUDA graph has
+    no FLOP or byte analysis, as XLA's executables do in the JAX package;
+    it has its memory: ``pool_bytes`` (the graph's private pool) and
+    ``capture_peak_bytes`` (a bound on the allocator's peak during the
+    capture: what it held as the capture began, the static buffers and
+    the pool), with the capture's kernel launches and the step listing's
+    routes.  None where nothing was captured (the CPU)."""
+    cached = getattr(step, "step", step)
+    facts = getattr(cached, "facts", None)
+    if not facts or getattr(cached, "captured", None) is None:
+        return None
+    routes: Dict[str, int] = {}
+    for r in facts.get("listing") or []:
+        routes[r["route"]] = routes.get(r["route"], 0) + 1
+    return {"source": "cuda_graph",
+            "pool_bytes": int(facts.get("pool_bytes") or 0),
+            "capture_peak_bytes": facts.get("capture_peak_bytes"),
+            "launches": facts.get("launches") or {},
+            "routes": routes}
 
 
 def calibration_row(program, measured_step_ms: float,

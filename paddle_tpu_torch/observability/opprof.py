@@ -449,7 +449,8 @@ def profile_program(program, *, executor=None, feed=None, state=None,
                     step: int = 0, is_test: bool = False, reps: int = 2,
                     warmup: int = 1, top: int = 10, fetch_list=None,
                     measure=None, modeled: bool = False,
-                    mesh_axes: Optional[Dict[str, int]] = None) -> dict:
+                    mesh_axes: Optional[Dict[str, int]] = None,
+                    compiled_check: bool = False) -> dict:
     """Profile one step of ``program`` op by op on ``executor``'s device
     (default ``Executor()``, the card); returns the measured and memory
     report (JSON-serializable except an optional ``fetches`` entry when
@@ -468,7 +469,11 @@ def profile_program(program, *, executor=None, feed=None, state=None,
     for the plan's mesh): a ``modeled`` entry and a ``ratio`` on each
     row, the ``op_classes`` calibration rows, the ``xla_loses_here``
     ranking, and the model's peak beside the memory timeline's; the
-    measured fields stay as they are."""
+    measured fields stay as they are.  ``compiled_check=True`` places
+    the step built ahead of its first call beside the memory view
+    (``memory["executable"]``, :func:`_compiled_facts`): on a card its
+    graph pool's bytes and a bound on the allocator's peak during its
+    capture; None on the CPU."""
     from ..core import compile_cache
 
     if executor is None:
@@ -551,6 +556,9 @@ def profile_program(program, *, executor=None, feed=None, state=None,
         report["xla_loses_here"] = xla_loses_here(rows, per_op_sum_ms,
                                                   top)
     report["memory"] = _memory_view(program, sizes, bw_idx, cost=cost)
+    if compiled_check:
+        report["memory"]["executable"] = _compiled_facts(
+            executor, program, feeds, state, is_test)
     if capture_failed:
         report["capture_failed"] = capture_failed
     if fetch_list:
@@ -741,6 +749,32 @@ def _memory_view(program, sizes: Dict[str, int], bw_idx,
     return out
 
 
+def _compiled_facts(executor, program, feeds, state, is_test):
+    """The step built ahead of its first call (``Executor.compile``) in a
+    THROWAWAY executor and scope, read by
+    ``attribution.executable_facts``: the caller's executor keeps its
+    cache as it was (compiling through it would install a step there).
+    None on the CPU, where nothing is captured; on a card a compile or
+    capture that fails raises."""
+    if executor.device.type != "cuda":
+        return None
+    from ..core.executor import Executor
+    from ..core.scope import Scope
+    from . import attribution
+    sc = Scope()
+    for k, v in state.items():
+        sc.set(k, v)
+    exe = Executor(executor.place, amp=executor.amp,
+                   compute_dtype=executor.compute_dtype,
+                   conv1x1_pallas=executor.conv1x1_pallas)
+    try:
+        compiled = exe.compile(program, feed=feeds, fetch_list=[],
+                               scope=sc, is_test=is_test)
+        return attribution.executable_facts(compiled)
+    finally:
+        exe.close()
+
+
 # ---------------------------------------------------------------------------
 # Rendering
 # ---------------------------------------------------------------------------
@@ -793,4 +827,12 @@ def render_profile(report: dict, top: int = 10) -> str:
                      + (f" (ratio {mem['peak_ratio']})"
                         if mem.get("peak_ratio") else ""))
         lines.append(line)
+        ex = mem.get("executable")
+        if ex:
+            lines.append(
+                f"  compiled step: graph pool {ex['pool_bytes'] / 1e6:.3f} "
+                f"MB, capture peak at most "
+                + (f"{ex['capture_peak_bytes'] / 1e6:.3f} MB"
+                   if ex.get("capture_peak_bytes") is not None
+                   else "not measured"))
     return "\n".join(lines)

@@ -570,8 +570,9 @@ def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
     rc = _on_device(dev, launch)
     _check_rc(lib, rc, lambda: f"M={M} N={N} K={K} ta={ta} tb={tb} "
               f"splits={splits} cluster={cluster} {a.dtype}->{out_dtype}")
-    mm.by_form[_FORM_NAMES[(bool(ta), bool(tb), bool(out_stats),
-                            bool(a_colsum))]] += 1
+    form = _FORM_NAMES[bool(ta), bool(tb), bool(out_stats), bool(a_colsum)]
+    mm.by_form[form] += 1
+    mm.by_plan[form, a.dtype, M, N, K, splits, cluster, ctas] += 1
     if parts:
         out, csum = splitk_reduce(work, out_dtype, csum, out=out)
     res = [out]
@@ -582,7 +583,12 @@ def mm(a, b, ta=False, tb=False, out_dtype=None, out_stats=False,
     return res[0] if len(res) == 1 else tuple(res)
 
 
-mm.by_form = register_launch_counter(collections.Counter())
+mm.by_form = register_launch_counter(collections.Counter(),
+                                     name="conv1x1_mm")
+# launches by (form, dtype, M, N, K, splits, cluster, persistent blocks):
+# the plan each launch took
+mm.by_plan = register_launch_counter(collections.Counter(),
+                                     name="conv1x1_mm.plan", kind="detail")
 
 
 def splitk_reduce_reference(work, out_dtype, csum_work=None):
@@ -634,8 +640,10 @@ def launches() -> int:
 
 
 def reset_counts():
-    """Set every ``mm.by_form`` and ``routes`` count to 0."""
+    """Set every ``mm.by_form``, ``mm.by_plan`` and ``routes`` count to
+    0."""
     mm.by_form.clear()
+    mm.by_plan.clear()
     routes.clear()
 
 

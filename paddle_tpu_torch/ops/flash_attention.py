@@ -55,7 +55,7 @@ __all__ = ["NEG_INF", "flash_fwd", "flash_bwd", "flash_bwd_dq",
            "attention_reference", "flash_attention",
            "flash_attention_with_lse", "launches", "launches_by_dtype",
            "launches_by_stages", "reference_route", "padded_head",
-           "padded_fwd", "padded_bwd",
+           "padded_fwd", "padded_bwd", "flash_attention_fwd",
            "reset_counts", "build", "SOURCE"]
 
 NEG_INF = -1e30                     # pallas_kernels.py:38
@@ -86,10 +86,12 @@ FWD_TILE = {64: 128, 128: 64}
 FWD_MIN_STAGES = 2
 FWD_MAX_STAGES = 4
 
-launches = register_launch_counter(collections.Counter())
-launches_by_dtype = register_launch_counter(collections.Counter())
+launches = register_launch_counter(collections.Counter(), name="flash_attn")
+launches_by_dtype = register_launch_counter(
+    collections.Counter(), name="flash_attn.dtype", kind="detail")
 # bf16 launches by (kernel, ring stages): the plan a launch took
-launches_by_stages = register_launch_counter(collections.Counter())
+launches_by_stages = register_launch_counter(
+    collections.Counter(), name="flash_attn.stages", kind="detail")
 reference_route = register_launch_counter(collections.Counter())
 
 
@@ -753,6 +755,30 @@ class _FlashLse(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+# ---------------------------------------------------------------------------
+# the forward as one custom op: what torch.export keeps in a graph
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, sm_scale: float,
+                        stages: int = 0) -> torch.Tensor:
+    """The forward kernel (K2) as one op of the graph, out only: what
+    :func:`flash_attention` calls when no gradient is needed, so a traced
+    graph (``torch.export``) holds it whole.  CUDA tensors launch
+    :func:`flash_fwd` (counted in ``launches``), CPU tensors take its
+    plain version.  ``stages``: the bf16 ring's depth, 0 for the plan's
+    own.  No autograd: a call that records gradients goes through
+    ``_Flash``, whose backward runs K3 and K4."""
+    out, _ = flash_fwd(q, k, v, causal, sm_scale, stages or None)
+    return out
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, sm_scale, stages=0):
+    return q.new_empty((q.shape[0], q.shape[1], v.shape[2]))
+
+
 def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None,
                              block_q=128, block_k=128):
     """Fused attention returning (out, lse [BH, Tq, 1]), the residual a
@@ -779,10 +805,11 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=128,
     not divisible by its block) or causal cross-attention (Tq != Tk) takes
     :func:`attention_reference`, counted in ``reference_route``; all else
     runs the kernels (CUDA tensors) or their plain versions (CPU
-    tensors).  The CUDA kernels pick their own tiles; ``stages`` are the
-    (forward, backward) ring depths of the bf16 kernels, None each for
-    the plans' deepest that fits.  ``interpret`` is accepted for the JAX
-    signature and ignored."""
+    tensors): through ``_Flash`` when a gradient is recorded, else as the
+    custom op :func:`flash_attention_fwd`.  The CUDA kernels pick their
+    own tiles; ``stages`` are the (forward, backward) ring depths of the
+    bf16 kernels, None each for the plans' deepest that fits.
+    ``interpret`` is accepted for the JAX signature and ignored."""
     sm_scale = _scale(q, sm_scale)
     squeeze_heads = q.dim() == 4
     if squeeze_heads:
@@ -807,9 +834,17 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=128,
     elif causal and Tq != Tk:
         reference_route["causal_cross"] += 1
         out = attention_reference(q3, k3, v3, causal, sm_scale)
-    else:
+    elif (torch.is_grad_enabled()
+          and any(t.requires_grad for t in (q3, k3, v3))) or \
+            q3.device.type not in ("cpu", "cuda"):
+        # a gradient to record, or a device the kernels and their plain
+        # versions do not take (flash_fwd raises for it)
         out = _Flash.apply(q3.contiguous(), k3.contiguous(), v3.contiguous(),
                            bool(causal), sm_scale, tuple(stages))
+    else:
+        out = flash_attention_fwd(q3.contiguous(), k3.contiguous(),
+                                  v3.contiguous(), bool(causal),
+                                  float(sm_scale), int(stages[0] or 0))
     if squeeze_heads:
         out = out.reshape(B, H, Tq_out, v.shape[-1]).movedim(1, 2)
     return out

@@ -12,8 +12,11 @@ needs.
   card (``export_model.CompiledRun``).
 * :meth:`Model.from_program` — a live (executor, program, fetch_list,
   scope).
+* :meth:`Model.from_compiled` — an ``Executor.compile`` handle: its
+  bucket replays the step built ahead; other buckets go through the
+  owning executor.
 
-``from_compiled`` waits for ``Executor.compile``.  ``example`` (one
+``example`` (one
 example's feeds, no batch axis) drives the server's warm-up; an
 artifact's manifest gives one from its input shapes.
 """
@@ -120,6 +123,21 @@ class Model:
         name = name or os.path.basename(os.path.normpath(dirname))
         return cls(name, run, input_specs=manifest.get("inputs"),
                    output_names=manifest.get("outputs"))
+
+    @classmethod
+    def from_compiled(cls, compiled, name: Optional[str] = None,
+                      scope=None,
+                      example: Optional[Dict[str, np.ndarray]] = None):
+        """Wrap an ``Executor.compile`` handle (a
+        ``compile_cache.CompiledProgram``): its bucket is free (a replay
+        of the step built ahead, from any thread); other buckets go
+        through the owning executor's cache on the same program.  Pass
+        the ``scope`` the program was compiled against (its state is
+        part of the key)."""
+        return cls.from_program(
+            compiled.executor, compiled.program, compiled.fetch_names,
+            scope=scope, name=name, is_test=compiled.is_test,
+            example=example)
 
     @classmethod
     def from_program(cls, executor, program, fetch_list, scope=None,

@@ -18,11 +18,12 @@ pushes their gradients after it (``paddle_tpu_torch.sparse``).
 (``distributed/elastic.py``).
 
 ``autotune=`` fills the pipelined loop's omitted knobs from the
-persisted autotuner winners (``tuning/``).
+persisted autotuner winners (``tuning/``).  ``warmup=True`` builds the
+loop's step ahead of the first batch (``Executor.compile``) from the
+shapes of one peeked batch.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item that brings them: ``warmup`` (``Executor.compile``, item
-6) and ``auto_shard`` (item 7).  With the executor
+ROADMAP item that brings it: ``auto_shard`` (item 7).  With the executor
 observing, a periodic report (``observability.maybe_periodic_report``)
 fires every ``log_period`` batches.
 """
@@ -73,7 +74,6 @@ class events:
 # train() arguments of the JAX trainer that the port does not take yet,
 # with the ROADMAP Queue A item that brings each
 _NOT_PORTED = {
-    "warmup": "item 6 (Executor.compile)",
     "auto_shard": "item 7 (multi-GPU)",
 }
 
@@ -129,6 +129,14 @@ class SGD:
         ``prefetch_depth`` (staged dispatches in flight, default 2).  The
         step math is the per-batch loop's; only the events' timing
         changes.
+
+        ``warmup=True`` builds the step before the loop starts: one batch
+        is peeked from ``reader`` (for its shapes only) and the loop's key
+        is compiled ahead (``Executor.compile``), so the first real batch
+        replays a captured step on a card; the fetches are the ones the
+        loop takes without it.  With the ``cache_dir`` flag set it also
+        keeps what the compile learned for later processes.  Batches of
+        other shapes still warm up and capture on first use.
 
         ``checkpoint_dir`` turns on the training runtime
         (``train_state.py``): every ``save_every_n_steps`` completed
@@ -195,7 +203,7 @@ class SGD:
         (``steps_per_dispatch=1``, no ``pipeline``): the task-commit
         protocol saves at batch boundaries."""
         event_handler = event_handler or (lambda e: None)
-        given = {"warmup": warmup, "auto_shard": auto_shard}
+        given = {"auto_shard": auto_shard}
         if not checkpoint_dir:
             if master is not None:
                 raise ValueError("train(master=...) snapshots the task "
@@ -305,6 +313,8 @@ class SGD:
                     elastic.bind(ckpt, ts)
                     start_pass, resume_skip = 0, 0
             self.checkpointer = ckpt
+            if warmup:
+                self._warmup(reader, feeding, feed_list)
             self._loop(reader, num_passes, event_handler, feeding,
                        feed_list, steps_per_dispatch, pipeline, ckpt,
                        start_pass, resume_skip, sess, elastic)
@@ -558,6 +568,20 @@ class SGD:
         return int(opts.get("steps_per_dispatch",
                             steps_per_dispatch if steps_per_dispatch > 1
                             else 8))
+
+    def _warmup(self, reader, feeding, feed_list):
+        """Build the loop's step ahead of its first batch
+        (``Executor.compile``) from the shapes of one peeked batch (not
+        consumed from the training stream: readers are re-callable).  The
+        per-batch path, the stacked ``run_steps`` dispatches and the
+        pipelined loop all replay this single-step key, so one compile
+        covers them."""
+        probe = next(iter(reader()), None)
+        if probe is None:
+            return
+        feed0 = self._feeder(feeding, feed_list).feed(probe)
+        self.exe.compile(self.main_program, feed=feed0,
+                         fetch_list=[self.cost] + self.extra)
 
     def _feeder(self, feeding, feed_list, staging_slots: int = 0):
         if feed_list is None:

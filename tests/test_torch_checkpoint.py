@@ -10,6 +10,7 @@ port wrote.  Every comparison is exact (bit-equal arrays, equal
 TrainState fields)."""
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -346,6 +347,35 @@ def test_async_write_failure_surfaces_on_the_next_save(tmp_path):
     with pytest.raises(InjectedFault):
         cm.save(2, sc)
     fi.clear()
+
+
+def _sparse_scope(shards):
+    return _scope(w=torch.ones(4), **{
+        f"__sparse__/tbl/shard{k}/{m}": v for k in range(shards)
+        for m, v in (("ids", torch.arange(3, dtype=torch.int64)),
+                     ("rows", torch.ones(3, 2)))})
+
+
+def test_a_failing_async_delta_surfaces_once_on_the_next_delta(tmp_path):
+    """An async delta whose sparse layout changed fails on the writer,
+    which marks the chain dead before it holds the error.  A delta save
+    in that window waits for the error and raises it, and the rebase
+    after it commits: the race once raised "no live parent chain" there
+    and the held error again on the rebase."""
+    cm = CheckpointManager(str(tmp_path), async_save=True, device="cpu")
+    cm.save(1, _sparse_scope(2))
+    cm.wait()
+    # on_fail runs in the window: the chain dead, the error not yet held
+    cm.save(2, _sparse_scope(3), kind="delta",
+            on_fail=lambda exc: time.sleep(0.5))
+    t0 = time.monotonic()
+    while cm.chain_stats()["alive"] and time.monotonic() - t0 < 30:
+        time.sleep(0.001)
+    with pytest.raises(DeltaChainError, match="sparse layout changed"):
+        cm.save(3, _sparse_scope(3), kind="delta")
+    cm.save(3, _sparse_scope(3))
+    cm.wait()
+    assert cm.all_steps() == [1, 3]
 
 
 def test_recommit_shelf_recovers_when_final_missing(tmp_path):

@@ -388,12 +388,26 @@ def test_autotuned_pipelined_train_matches_jax_trainer(tmp_path):
     assert tsgd.exe.autotune is None
 
 
-@pytest.mark.parametrize("arg,value", [
-    ("warmup", True), ("auto_shard", {"dp": 2})])
+@pytest.mark.parametrize("arg,value", [("auto_shard", {"dp": 2})])
 def test_train_refuses_what_is_not_ported(arg, value):
     _, (tsgd, tfl), reader = _both_trainers()
     with pytest.raises(NotImplementedError, match="Queue A item"):
         tsgd.train(reader, feed_list=tfl, **{arg: value})
+
+
+@pytest.mark.parametrize("kw", [{}, {"pipeline": True}],
+                         ids=["per_batch", "pipelined"])
+def test_warmup_train_matches_jax_trainer(kw):
+    """``train(warmup=True)`` (refused until Executor.compile was ported)
+    in both packages: the step compiled ahead from one peeked batch, then
+    the same events and costs as the JAX trainer's, which compiles
+    ahead too."""
+    (jsgd, jfl), (tsgd, tfl), reader = _both_trainers()
+    jev, jcost = _train(jsgd, jfl, reader, warmup=True, **kw)
+    tev, tcost = _train(tsgd, tfl, reader, warmup=True, **kw)
+    assert tev == jev and len(tcost) == 12
+    np.testing.assert_allclose(tcost, jcost, **COST_TOL)
+    assert tsgd.exe._step == 12          # the compile took no step
 
 
 def test_pipelined_train_with_sparse_tables_matches_jax():

@@ -114,18 +114,20 @@ def test_pserver_arms_on_thread_shards(fleets):
 
 
 def test_runner_delegates_sparse_and_decode_runners(monkeypatch):
-    """``--model decode|pserver|checkpoint`` reach their runners."""
+    """``--model decode|pserver|checkpoint|compile_cache`` reach their
+    runners."""
     got = []
-    for name in ("decode", "pserver", "checkpoint"):
+    names = ("decode", "pserver", "checkpoint", "compile_cache")
+    for name in names:
         monkeypatch.setattr(
             importlib.import_module(f"paddle_tpu_torch.benchmark.{name}"),
             "main", lambda argv=None, n=name: got.append((n, argv)))
-    for name in ("decode", "pserver", "checkpoint"):
-        assert name not in zoo_run.NOT_PORTED
+    for name in names:
         assert zoo_run.main(["--model", name, "--smoke",
                              "--device", "cpu"]) == 0
     assert got == [("decode", ["--smoke", "--device", "cpu"]),
-                   ("pserver", ["--smoke"]), ("checkpoint", ["--smoke"])]
+                   ("pserver", ["--smoke"]), ("checkpoint", ["--smoke"]),
+                   ("compile_cache", ["--smoke", "--device", "cpu"])]
 
 
 @pytest.mark.slow

@@ -365,15 +365,20 @@ def test_runner_runs_every_headline_config_on_the_cpu(name, batch):
         assert ("K40m" in source) == (name not in ("resnet50", "vgg19"))
 
 
-def test_runner_delegates_and_refusals():
+def test_runner_delegates_and_refusals(monkeypatch):
     """--model input_pipeline runs the port's wide_deep A/B (smoke, on the
-    CPU); the JAX runner's other delegates raise naming their ROADMAP
-    item."""
+    CPU); --model compile_cache (refused until the disk layer was
+    ported) reaches the port's compile-cache A/B with the runner's
+    --smoke and --device; no delegate of the JAX runner is refused."""
     assert zoo_run.main(["--model", "input_pipeline", "--smoke",
                          "--device", "cpu"]) == 0
-    for model in zoo_run.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            zoo_run.main(["--model", model])
+    from paddle_tpu_torch.benchmark import compile_cache as cc_bench
+    got = []
+    monkeypatch.setattr(cc_bench, "main", lambda argv=None: got.append(argv))
+    assert zoo_run.main(["--model", "compile_cache", "--smoke",
+                         "--device", "cpu"]) == 0
+    assert got == [["--smoke", "--device", "cpu"]]
+    assert not hasattr(zoo_run, "NOT_PORTED")
 
 
 def test_runner_reference_figures():
