@@ -396,10 +396,36 @@ Phases, each of which raises on failure (so the script exits non-zero):
              op and run through load_compiled_model: K2 once a call,
              bit-equal to the live program's captured forward, ms a call
              of each.
+25. dense  — the dense op families (activation, nn, loss, metric, top_k,
+             one_hot, argmax, transpose, reduce_*), their layers,
+             evaluator and metrics, budget DENSE_BUDGET_S: (a) ResNet-50's
+             bottleneck body (models/resnet.py, 224x224, 1000 classes)
+             under the fluid classification head (fc logits,
+             softmax_with_cross_entropy, mean, accuracy at k=1 and k=5
+             through topk, evaluator.Accuracy), Executor(amp=True)
+             .run_steps(3) at batch 32 with Momentum, captured: K1's
+             forward, dgrad and wgrad once per eligible 1x1 conv a step
+             (and the reduce passes), printed beside [cli]'s, the losses,
+             accuracies, top-k and Correct/Total bit-equal to use_jit=False,
+             the top-k values numpy's sort of the fetched logits, each
+             accuracy the share of labels among the fetched indices,
+             Accuracy.eval the summed Correct/Total exactly and
+             metrics.Accuracy equal to it, one fp32 step's loss within
+             1e-5 of softmax + cross_entropy on its logits; (b) a decoder
+             at GPT-2 small's widths (d 768, 12 heads of 64, FFN 3072,
+             gelu, layer_norm eps 1e-5, vocab 50257, context 1024; depth
+             cut to 2 layers and batch 4), Executor(amp=True).run_steps(2)
+             with Momentum, captured: K2, K3 and K4 once a layer a step,
+             no reference route, bit-equal to use_jit=False; layer_norm's
+             Y and softmax_with_cross_entropy's Loss of one bf16 and one
+             fp32 step held against the port's CPU op on the same operands
+             (2e-2 and 1e-5 of scale); ms a step, peak memory and the
+             logits' bytes of each.
 
-The main path of slice, train, resume, attention, seq2seq, pipeline and
-zoo runs captured (Executor(use_jit=True), each step one CUDA graph replay; the
-inference phase replays one graph of the artifact a batch size), and
+The main path of slice, train, resume, attention, seq2seq, pipeline,
+zoo and dense runs captured (Executor(use_jit=True), each step one CUDA
+graph replay; the inference phase replays one graph of the artifact a
+batch size), and
 each phase adds a use_jit=False arm from the same seed and weights: its
 fetches and final scope must equal the captured arm's bit for bit, no
 captured step may run uncaptured, and both arms' wall, device busy, idle
@@ -8687,6 +8713,435 @@ def phase_compile(seed, card, n_gate, n_split):
     return forms, k2
 
 
+DENSE_BUDGET_S = 45.0
+DENSE_IMG = 224
+DENSE_CLASSES = 1000
+DENSE_BATCH = 32
+DENSE_STEPS = 3
+DENSE_K = 5
+DENSE_LOSS_TOL = 1e-5          # fp32 loss against softmax + cross_entropy
+# GPT-2 small's widths (Radford et al. 2019, the 124M config); depth cut
+# to 2 layers and batch 4 to fit the phase's time
+GPT = dict(vocab=50257, T=1024, d=768, heads=12, n_layers=2, ffn=3072)
+GPT_BATCH = 4
+GPT_STEPS = 2
+# the card's layer_norm Y and softmax_with_cross_entropy Loss against the
+# port's CPU op on the same operands, as a share of the output's largest
+# magnitude
+DENSE_OP_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+
+def build_resnet_cls(seed, img=DENSE_IMG, classes=DENSE_CLASSES,
+                     counts=(3, 4, 6, 3), filters=(64, 128, 256, 512),
+                     k=DENSE_K):
+    """ResNet-50's bottleneck body (models/resnet.py's conv_bn_layer and
+    bottleneck_block) under the fluid classification head: fc logits,
+    softmax_with_cross_entropy, mean, accuracy at k=1 and k through topk,
+    evaluator.Accuracy, Momentum(0.01 / 128, 0.9).  Returns (main,
+    startup, vars: loss, logits, acc1, acck, the top-k values and
+    indices, the evaluator)."""
+    import paddle_tpu_torch as ptt
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = seed
+    with ptt.program_guard(main, startup):
+        L, R = ptt.layers, ptt.models.resnet
+        image = L.data("img", [3, img, img])
+        label = L.data("label", [1], dtype="int64")
+        h = R.conv_bn_layer(image, filters[0], 7, stride=2, padding=3)
+        h = L.pool2d(h, pool_size=3, pool_stride=2, pool_padding=1,
+                     pool_type="max")
+        ch_in = filters[0]
+        for stage, (nf, n) in enumerate(zip(filters, counts)):
+            for i in range(n):
+                h = R.bottleneck_block(h, ch_in, nf,
+                                       2 if i == 0 and stage > 0 else 1)
+                ch_in = nf * 4
+        h = L.pool2d(h, pool_type="avg", global_pooling=True)
+        logits = L.fc(h, size=classes)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        acc1 = L.accuracy(logits, label, k=1)
+        acck = L.accuracy(logits, label, k=k)
+        vals, idx = L.topk(logits, k)
+        ev = ptt.evaluator.Accuracy(logits, label, k=1)
+        ptt.optimizer.Momentum(learning_rate=LR, momentum=0.9).minimize(loss)
+    return main, startup, {"loss": loss, "logits": logits, "acc1": acc1,
+                           "acck": acck, "vals": vals, "idx": idx,
+                           "evaluator": ev}
+
+
+def build_decoder(seed, vocab, T, d, heads, n_layers, ffn, block=1024):
+    """A GPT-style decoder in the port's layers: token and position
+    embedding; each layer pre-layer_norm (eps 1e-5), fc Q/K/V reshaped to
+    [B, T, heads, d / heads], causal flash_attention, the output fc,
+    dropout 0 and the residual elementwise_add, then a gelu FFN and its
+    residual; a final layer_norm, the vocabulary fc,
+    softmax_with_cross_entropy against tgt [B, T, 1], mean;
+    Momentum(0.01, 0.9) (AMP Adam moves no weight, ROADMAP Queue C)."""
+    import paddle_tpu_torch as ptt
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = seed
+    with ptt.program_guard(main, startup):
+        L = ptt.layers
+        tok = L.data("tok", [T], dtype="int64")
+        pos = L.data("pos", [T], dtype="int64")
+        tgt = L.data("tgt", [T, 1], dtype="int64")
+        h = L.elementwise_add(L.embedding(tok, size=[vocab, d]),
+                              L.embedding(pos, size=[T, d]))
+        for _ in range(n_layers):
+            x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+            q, k, v = (L.reshape(L.fc(x, d, num_flatten_dims=2),
+                                 [0, 0, heads, d // heads])
+                       for _ in range(3))
+            a = L.flash_attention(q, k, v, causal=True, block_q=block,
+                                  block_k=block)
+            a = L.fc(L.reshape(a, [0, 0, d]), d, num_flatten_dims=2)
+            h = L.elementwise_add(h, L.dropout(a, dropout_prob=0.0))
+            x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+            f = L.fc(x, ffn, num_flatten_dims=2, act="gelu")
+            h = L.elementwise_add(h, L.fc(f, d, num_flatten_dims=2))
+        x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+        logits = L.fc(x, vocab, num_flatten_dims=2)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, tgt))
+        ptt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            loss)
+    return main, startup, loss
+
+
+def dense_arms(tag, main, start, feed, fetch, steps, kernels):
+    """[dense]'s two arms of one program under AMP from ``start``: the
+    captured arm (the key's warm-up and capture on a copy, then
+    ``steps`` replays on another under counts set to 0, then a profiled
+    window of one replay on a third, its launches held against the
+    trace), and the use_jit=False arm from the same start.  ``kernels``
+    is (the own kernels' label and name fragments, the launch counter
+    of ``profiled_checked``).  Returns a dict: the captured fetches and
+    scope, ms a step, peak allocated and graph-pool bytes, K1's forms,
+    K2-K4's launches and reference routes, the capture counters, the
+    profiled step's device busy ms and idle share, and the use_jit=False
+    fetches and scope."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.ops import flash_attention as fa
+    own, since = kernels
+    exe = ptt.Executor(amp=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe.run_steps(2, main, feed=feed, fetch_list=fetch,
+                  scope=clone_scope(start))
+    scope = clone_scope(start)
+    torch.cuda.synchronize()
+    conv1x1.reset_counts()
+    fa.reset_counts()
+    capture_stats().reset()
+    t0 = time.perf_counter()
+    got = exe.run_steps(steps, main, feed=feed, fetch_list=fetch,
+                        scope=scope)
+    torch.cuda.synchronize()
+    arm = {"got": got, "ms": (time.perf_counter() - t0) * 1e3 / steps,
+           "k1": dict(conv1x1.mm.by_form), "flash": dict(fa.launches),
+           "reference_route": dict(fa.reference_route),
+           "snap": capture_stats().snapshot(),
+           "peak": torch.cuda.max_memory_allocated(),
+           "pools": graph_pool_bytes(exe)}
+    # a copy: the profiled replays below write the captured step's own
+    # buffers, which the scope holds after a replay
+    arm["scope"] = clone_scope(scope)
+    pscope = clone_scope(start)
+    # one step first: the profiled replay then reads its own buffers
+    exe.run_steps(1, main, feed=feed, fetch_list=fetch, scope=pscope)
+    rows, wall = profiled_checked(
+        "dense", f"{tag}, a captured AMP step", lambda: exe.run_steps(
+            1, main, feed=feed, fetch_list=fetch, scope=pscope), 1, since,
+        own=own)
+    arm["busy"] = sum(r[0] for r in rows)
+    arm["idle"] = 1 - arm["busy"] / wall
+    del pscope, scope
+    exe.close()
+    iexe = ptt.Executor(amp=True, use_jit=False)
+    arm["iscope"] = clone_scope(start)
+    arm["want"] = iexe.run_steps(steps, main, feed=feed, fetch_list=fetch,
+                                 scope=arm["iscope"])
+    torch.cuda.synchronize()
+    iexe.close()
+    return arm
+
+
+def op_outputs(main, op_type, slots, index=0):
+    """{slot: var name} of the ``index``-th ``op_type`` op of ``main``."""
+    ops = [op for op in main.global_block().ops if op.type == op_type]
+    op = ops[index]
+    return {s: (op.input(s) or op.output(s))[0] for s in slots}
+
+
+def dense_resnet(seed, card, cli_train_forms):
+    """(a): ResNet-50 at full width under the classification head,
+    Executor(amp=True).run_steps at batch 32, captured.  Returns (K1's
+    forms, ms a step, peak bytes)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core.executor import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_impl
+    main, startup, v = build_resnet_cls(seed)
+    shapes = eligible_1x1_shapes(main, DENSE_BATCH)
+    n_gate, n_split = len(shapes), split_wgrads(shapes)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    rng = np.random.RandomState(seed + 25)
+    feed = {"img": torch.from_numpy(rng.rand(
+                DENSE_BATCH, 3, DENSE_IMG, DENSE_IMG).astype(np.float32))
+            .cuda(),
+            "label": torch.from_numpy(rng.randint(
+                0, DENSE_CLASSES, (DENSE_BATCH, 1)).astype(np.int64)).cuda()}
+    ev = v["evaluator"]
+    ev_acc = next(op for op in main.global_block().ops
+                  if op.type == "accuracy"
+                  and op.output("Accuracy")[0] == ev.batch_accuracy.name)
+    names = [v[k].name for k in ("loss", "acc1", "acck", "vals", "idx",
+                                 "logits")]
+    names += [ev_acc.output("Correct")[0], ev_acc.output("Total")[0]]
+    from paddle_tpu_torch.ops import conv1x1
+    c = dense_arms("(a) the ResNet-50 head", main, start, feed, names,
+                   DENSE_STEPS, (CONV_KERNELS,
+                                 lambda: conv_since(conv1x1, "mm_bf16_tma")))
+    got, scope, ms, peak = c["got"], c["scope"], c["ms"], c["peak"]
+    check_captured("[dense] (a)", c["snap"], DENSE_STEPS)
+    same_fetches("[dense] (a) captured against use_jit=False", got,
+                 c["want"])
+    n = same_scopes("[dense] (a) captured against use_jit=False", scope,
+                    c["iscope"])
+    exp = cli_forms(n_gate, n_split, DENSE_STEPS)
+    per_step = {f: c["k1"].get(f, 0) / DENSE_STEPS for f in exp}
+    cli_steps = CLI_PASSES * CLI_STEPS
+    cli_per_step = {f: cli_train_forms.get(f, 0) / cli_steps for f in exp}
+    loss, acc1, acck, vals, idx, logits, correct, total = (
+        np.asarray(x) for x in got)
+    label = feed["label"].cpu().numpy()
+    for s in range(DENSE_STEPS):
+        lg = logits[s].astype(np.float32)
+        if not np.array_equal(vals[s].astype(np.float32),
+                              -np.sort(-lg, axis=1)[:, :DENSE_K]):
+            raise RuntimeError(f"chip_smoke: [dense] (a) step {s}'s top-k "
+                               f"values are not numpy's sort of its logits")
+        hits = (idx[s] == label).any(axis=1)
+        if acck[s][0] != np.float32(hits.mean()) or acc1[s][0] != np.float32(
+                (idx[s][:, 0] == label[:, 0]).mean()):
+            raise RuntimeError(f"chip_smoke: [dense] (a) step {s}: accuracy "
+                               f"{acc1[s]}, {acck[s]} vs the shares of "
+                               f"labels among the fetched indices")
+    ev_got = ev.eval(None, scope=scope)
+    ev_want = np.array([correct.sum() / max(float(total.sum()), 1.0)],
+                       np.float32)
+    host = ptt.metrics.Accuracy()
+    for s in range(DENSE_STEPS):
+        host.update(logits[s].astype(np.float32), label)
+    if not np.array_equal(ev_got, ev_want) or \
+            np.float32(host.eval()) != ev_got[0] or \
+            int(total.sum()) != DENSE_STEPS * DENSE_BATCH:
+        raise RuntimeError(f"chip_smoke: [dense] (a) Accuracy.eval "
+                           f"{ev_got} vs the summed Correct/Total {ev_want} "
+                           f"(total {total.sum()}), metrics.Accuracy "
+                           f"{host.eval()}")
+    # one fp32 step: the loss against softmax + cross_entropy on the same
+    # logits, the port's own ops on the card
+    fexe = ptt.Executor(use_jit=False)
+    f_loss, f_logits = fexe.run(main, feed=feed, fetch_list=[
+        v["loss"].name, v["logits"].name], scope=clone_scope(start),
+        return_numpy=False)
+    fexe.close()
+    ctx = ExecContext(main, f_logits.device, 0)
+    prob = get_op_impl("softmax")(ctx, {"X": [f_logits]}, {})["Out"]
+    ce = get_op_impl("cross_entropy")(ctx, {"X": [prob], "Label": [
+        feed["label"]]}, {})["Y"]
+    ref = ce.mean().item()
+    rel = abs(f_loss.item() - ref) / abs(ref)
+    print(f"[dense] (a) ResNet-50 body (models/resnet.py) at {DENSE_IMG}x"
+          f"{DENSE_IMG}, {DENSE_CLASSES} classes, fc + "
+          f"softmax_with_cross_entropy + mean, accuracy k=1 and k="
+          f"{DENSE_K}, evaluator.Accuracy, Executor(amp=True).run_steps("
+          f"{DENSE_STEPS}) at batch {DENSE_BATCH}, captured: {ms:.3f} ms a "
+          f"step, {DENSE_BATCH * 1e3 / ms:.1f} img/s, device busy "
+          f"{c['busy']:.3f} ms, idle share {c['idle']:.3f} (a profiled "
+          f"step), peak allocated {peak / 2 ** 30:.2f} GiB, graph pools "
+          f"{c['pools'] / 2 ** 30:.2f} GiB; {c['snap']}; losses "
+          f"{loss.reshape(-1).tolist()}, accuracy@1 "
+          f"{acc1.reshape(-1).tolist()}, @{DENSE_K} "
+          f"{acck.reshape(-1).tolist()}; losses, accuracies, top-k, Correct"
+          f"/Total and the {n} scope entries bit-equal to use_jit=False; "
+          f"Accuracy.eval {ev_got[0]} = {int(correct.sum())}/"
+          f"{int(total.sum())} = metrics.Accuracy {host.eval()}; top-k "
+          f"values numpy's sort of the logits each step; {card}")
+    print(f"[dense] (a) K1 {c['k1']} (expected {exp}: {n_gate} eligible 1x1 "
+          f"convs, {n_split} bf16 wgrads with a reduce pass); a step "
+          f"{per_step}, [cli]'s --job train a step {cli_per_step} (the v1 "
+          f"layout strides its projection blocks' first 1x1 conv, "
+          f"models/resnet.py the 3x3 after it); the fp32 step's loss "
+          f"{f_loss.item():.7f} vs softmax + cross_entropy on its logits "
+          f"{ref:.7f}: relative {rel:.2e} (limit {DENSE_LOSS_TOL:g})")
+    forms = c["k1"]
+    if forms != exp:
+        raise RuntimeError(f"chip_smoke: [dense] (a) launched K1 {forms}, "
+                           f"expected {exp}")
+    if c["flash"] or not np.isfinite(loss).all() or not rel <= \
+            DENSE_LOSS_TOL:
+        raise RuntimeError(f"chip_smoke: [dense] (a) flash launches "
+                           f"{c['flash']}, losses {loss.tolist()}, fp32 "
+                           f"loss {rel:.2e} from softmax + cross_entropy")
+    del scope, start, got, c
+    torch.cuda.empty_cache()
+    return forms, ms, peak
+
+
+def dense_close(label, got, want, tol):
+    """The card's output within ``tol`` of the largest magnitude of the
+    port's CPU op's on the same operands: (max |error|, the limit)."""
+    g, w = got.detach().float().cpu(), want.detach().float()
+    limit = tol * w.abs().max().item()
+    err = (g - w).abs().max().item()
+    if not err <= limit or g.shape != w.shape:
+        raise RuntimeError(f"chip_smoke: [dense] (b) {label}: max |error| "
+                           f"{err:.3e} > {limit:.3e}")
+    return err, limit
+
+
+def dense_ops_on_cpu(main, feed, start, amp):
+    """One step (use_jit=False) of the decoder: the first layer_norm's
+    and the loss's operands and outputs fetched from the card, each op
+    run again by the port on the CPU on the same operands."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core.executor import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_impl
+    ln = op_outputs(main, "layer_norm", ("X", "Scale", "Bias", "Y"))
+    ce = op_outputs(main, "softmax_with_cross_entropy",
+                    ("Logits", "Label", "Loss"))
+    # Scale and Bias as the step read them: the start's (a fetch after the
+    # step reads the optimizer's update)
+    names = [ln["X"], ln["Y"]] + list(ce.values())
+    exe = ptt.Executor(amp=amp, use_jit=False)
+    out = exe.run(main, feed=feed, fetch_list=names,
+                  scope=clone_scope(start), return_numpy=False)
+    exe.close()
+    got = dict(zip(names, out))
+    ctx = ExecContext(main, torch.device("cpu"), 0)
+    cpu = {k: t.cpu() for k, t in got.items()}
+    cpu.update({ln[k]: start.get(ln[k]).cpu() for k in ("Scale", "Bias")})
+    attrs = next(op.attrs for op in main.global_block().ops
+                 if op.type == "layer_norm")
+    # Scale and Bias are the fp32 masters; an AMP step's op took their
+    # bf16 copies
+    x = cpu[ln["X"]]
+    ln_y = get_op_impl("layer_norm")(ctx, {
+        "X": [x], "Scale": [cpu[ln["Scale"]].to(x.dtype)],
+        "Bias": [cpu[ln["Bias"]].to(x.dtype)]}, dict(attrs))["Y"]
+    ce_loss = get_op_impl("softmax_with_cross_entropy")(ctx, {
+        "Logits": [cpu[ce["Logits"]]], "Label": [cpu[ce["Label"]]]},
+        {})["Loss"]
+    dtype = got[ce["Logits"]].dtype
+    tol = DENSE_OP_TOL[dtype]
+    held = {"layer_norm Y": dense_close("layer_norm Y", got[ln["Y"]], ln_y,
+                                        tol),
+            "softmax_with_cross_entropy Loss": dense_close(
+                "softmax_with_cross_entropy Loss", got[ce["Loss"]], ce_loss,
+                tol)}
+    return dtype, tol, held, got[ce["Logits"]]
+
+
+def dense_gpt(seed, card):
+    """(b): a decoder at GPT-2 small's widths, 2 layers, batch 4,
+    Executor(amp=True).run_steps with Momentum, captured.  Returns (K2-K4's
+    launches, ms a step, peak bytes)."""
+    import paddle_tpu_torch as ptt
+    main, startup, loss = build_decoder(seed, **GPT)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    rng = np.random.RandomState(seed + 26)
+    B, T, V = GPT_BATCH, GPT["T"], GPT["vocab"]
+    feed = {"tok": torch.from_numpy(rng.randint(0, V, (B, T)).astype(
+                np.int64)).cuda(),
+            "pos": torch.arange(T, dtype=torch.int64).repeat(B, 1).cuda(),
+            "tgt": torch.from_numpy(rng.randint(0, V, (B, T, 1)).astype(
+                np.int64)).cuda()}
+    from paddle_tpu_torch.ops import flash_attention as fa
+    c = dense_arms("(b) the decoder", main, start, feed, [loss], GPT_STEPS,
+                   (ATT_KERNELS, lambda: flash_since(fa)))
+    got, ms, peak = c["got"], c["ms"], c["peak"]
+    check_captured("[dense] (b)", c["snap"], GPT_STEPS)
+    same_fetches("[dense] (b) captured against use_jit=False", got,
+                 c["want"])
+    n = same_scopes("[dense] (b) captured against use_jit=False",
+                    c["scope"], c["iscope"])
+    flash = c["flash"]
+    del c["scope"], c["iscope"]
+    torch.cuda.empty_cache()
+    exp = {name: GPT["n_layers"] * GPT_STEPS for name in ATT_REPLACES}
+    held = {}
+    for amp in (True, False):
+        dtype, tol, h, logits = dense_ops_on_cpu(main, feed, start, amp)
+        held[DTYPE_LABEL[dtype]] = (tol, h, logits.numel()
+                                    * logits.element_size())
+        del logits
+        torch.cuda.empty_cache()
+    losses = np.asarray(got[0]).reshape(-1)
+    print(f"[dense] (b) decoder at GPT-2 small's widths (d {GPT['d']}, "
+          f"{GPT['heads']} heads of {GPT['d'] // GPT['heads']}, FFN "
+          f"{GPT['ffn']}, gelu, vocab {V}, context {T}; depth cut to "
+          f"{GPT['n_layers']} layers, batch {B}), Executor(amp=True)"
+          f".run_steps({GPT_STEPS}) with Momentum, captured: {ms:.3f} ms a "
+          f"step, {B * T * 1e3 / ms:.0f} tokens/s, device busy "
+          f"{c['busy']:.3f} ms, idle share {c['idle']:.3f} (a profiled "
+          f"step), peak allocated {peak / 2 ** 30:.2f} GiB, graph pools "
+          f"{c['pools'] / 2 ** 30:.2f} GiB; {c['snap']}; losses "
+          f"{losses.tolist()} and the {n} scope "
+          f"entries bit-equal to use_jit=False; K2-K4 {c['flash']} "
+          f"(expected {exp}), reference route {c['reference_route']}, K1 "
+          f"{c['k1']}; {card}")
+    for label, (tol, h, nbytes) in held.items():
+        print(f"[dense] (b) {label} step on the card vs the port's CPU op on "
+              f"the same operands: "
+              + ", ".join(f"{k} max |error| {e:.3e} (limit {lim:.3e}, {tol:g}"
+                          f" of scale)" for k, (e, lim) in h.items())
+              + f"; the logits and Softmax {nbytes / 1e9:.3f} GB each "
+              f"({B} x {T} x {V} x {nbytes // (B * T * V)} bytes)")
+    if c["flash"] != exp or c["reference_route"] or c["k1"] or \
+            not np.isfinite(losses).all():
+        raise RuntimeError(f"chip_smoke: [dense] (b) launched K2-K4 "
+                           f"{c['flash']} (reference route "
+                           f"{c['reference_route']}), K1 {c['k1']}, expected "
+                           f"{exp}, none and none; losses {losses}")
+    del start, c
+    torch.cuda.empty_cache()
+    return flash, ms, peak
+
+
+def phase_dense(seed, card, cli_train_forms):
+    """The dense op families on the card (see the module docstring).
+    ``cli_train_forms`` are [cli]'s --job train K1 launches, printed a
+    step beside (a)'s.  Returns ((a)'s K1 forms, (b)'s K2-K4
+    launches)."""
+    from paddle_tpu_torch.ops import conv1x1
+    t_phase = time.perf_counter()
+    saved = torch.backends.cudnn.deterministic
+    try:
+        # the captured and use_jit=False arms are held bit for bit
+        torch.backends.cudnn.deterministic = True
+        t0 = time.perf_counter()
+        forms, a_ms, a_peak = dense_resnet(seed, card, cli_train_forms)
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flash, b_ms, b_peak = dense_gpt(seed, card)
+        t_b = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        fresh_defaults(seed)
+    conv1x1.mm.by_form.clear()
+    secs = time.perf_counter() - t_phase
+    print(f"[dense] phase {secs:.1f} s (budget {DENSE_BUDGET_S:.0f} s; by "
+          f"part a {t_a:.1f} s, b {t_b:.1f} s); (a) {a_ms:.3f} ms a step, "
+          f"peak {a_peak / 2 ** 30:.2f} GiB; (b) {b_ms:.3f} ms a step, peak "
+          f"{b_peak / 2 ** 30:.2f} GiB; {card}")
+    return forms, flash
+
+
 def attention_entries(row, launches):
     """The kernels JSON entries of K2, K3 and K4: times, errors and
     bounds at the slice's shape, launches from the main path's run."""
@@ -8927,6 +9382,9 @@ def main():
     compile_forms, compile_k2 = phase_compile(
         args.seed, card, len(train_shapes), split_wgrads(train_shapes))
     lap("compile")
+    torch.cuda.empty_cache()
+    dense_forms, dense_flash = phase_dense(args.seed, card, cli_train_forms)
+    lap("dense")
 
     # bf16: the served path and the AMP step; fp32: the served forward's
     # fp32 run and the fp32 step
@@ -8971,6 +9429,12 @@ def main():
                 k["compile_launches"] = compile_forms.get(form, 0)
             entries[2]["compile_reduce_launches"] = compile_forms.get(
                 "splitk_reduce", 0)
+            # [dense]'s ResNet-50 head (a) runs the AMP step at batch 32
+            for k, form in zip((step_forward,) + tuple(entries[:3]),
+                               ("forward", "forward", "dgrad", "wgrad")):
+                k["dense_launches"] = dense_forms.get(form, 0)
+            entries[2]["dense_reduce_launches"] = dense_forms.get(
+                "splitk_reduce", 0)
         else:
             # [cli]'s --job test runs the fp32 forward
             entries[0]["cli_launches"] = cli_test_forms.get("forward", 0)
@@ -9008,7 +9472,10 @@ def main():
                         f"passes)"))
                   + ("" if "compile_launches" not in k else
                      f", {k['compile_launches']} in [compile]'s compiled "
-                     f"run"))
+                     f"run")
+                  + ("" if "dense_launches" not in k else
+                     f", {k['dense_launches']} in [dense]'s ResNet-50 "
+                     f"head"))
     print(f"[summary] forward: times summed over the {len(shapes)} "
           f"launches of one batch-{BATCH} forward, launches from the served "
           f"run ({len(buckets)} batches; fp32: one batch-{BATCH} run); the "
@@ -9022,6 +9489,9 @@ def main():
         k["tune_launches"] = tune_flash_launches[name]
     # [compile]'s exported long-context forward launches K2 alone
     kernels[-3]["compile_export_launches"] = compile_k2
+    # [dense]'s decoder (b) launches K2-K4 once a layer a step
+    for k, name in zip(kernels[-3:], ATT_REPLACES):
+        k["dense_launches"] = dense_flash.get(name, 0)
     for k in kernels[-3:]:
         print(f"[summary] {k['name']} at BH {ATT_HEADS} x T {ATT_T} x d "
               f"{ATT_DIM}, causal, bf16: kernel {k['ms']:.3f} ms, bound "
@@ -9030,7 +9500,8 @@ def main():
               f"{k['launches']} launches in the {ATT_STEPS}-step run"
               + ("" if "compile_export_launches" not in k else
                  f", {k['compile_export_launches']} in [compile]'s "
-                 f"exported forward"))
+                 f"exported forward")
+              + f", {k['dense_launches']} in [dense]'s decoder")
     kernels += zoo_entries
     for k in zoo_entries:
         red = "" if "reduce_ms" not in k else \

@@ -28,10 +28,12 @@ of ``benchmark/inference.py`` (``io``, ``export_compiled_model`` /
 ``serving.Model.from_artifact``, beam-search decoding with
 ``models.seq2seq_infer``), the observability layer (``observability``:
 metrics, the JSONL log, spans, the NaN bisect, the per-op profiler, the
-doctor's measured budgets; ``profiler``; ``testing.lockwatch``), and
-two kernels of the framework: the
-1x1-convolution matrix product with its gradients and epilogues
-(``ops/conv1x1.py``) and flash attention, forward and backward
+doctor's measured budgets; ``profiler``; ``testing.lockwatch``), the
+dense op families (activation, nn, loss, metric, with ``top_k``,
+``one_hot``, ``argmax``, ``transpose`` and the ``reduce_*`` ops), their
+layers, ``evaluator`` and ``metrics``, and two kernels of the
+framework: the 1x1-convolution matrix product with its gradients and
+epilogues (``ops/conv1x1.py``) and flash attention, forward and backward
 (``ops/flash_attention.py``).
 """
 
@@ -58,6 +60,8 @@ from .param_attr import ParamAttr
 from .weights import load_numpy_state
 from . import faults
 from . import observability, profiler
+from . import evaluator
+from . import metrics
 
 # the JAX package's version, folded into the fingerprints of the port's
 # persistent records (core/compile_cache.environment_key)
@@ -75,5 +79,5 @@ __all__ = [
     "save_params", "load_params", "save_persistables", "load_persistables",
     "save_inference_model", "load_inference_model", "export_model",
     "export_compiled_model", "load_compiled_model", "lr_decay",
-    "framework", "observability", "profiler",
+    "framework", "observability", "profiler", "evaluator", "metrics",
 ]

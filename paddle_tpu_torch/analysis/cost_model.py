@@ -174,6 +174,8 @@ _FLOPS = {
     "mul": _mul_flops,
     "matmul": _matmul_flops,
     "conv2d": _conv2d_flops,
+    "depthwise_conv2d": _conv2d_flops,
+    "conv2d_transpose": _conv2d_flops,
     "lstm": _lstm_flops,
     "gru": _gru_flops,
 }

@@ -282,6 +282,36 @@ def elementwise(out: str = "Out", dtype=None):
     return rule
 
 
+def reduce_rule(out: str = "Out"):
+    """reduce_op.cc semantics: dim/keep_dim/reduce_all attrs."""
+
+    def rule(op, ins, attrs):
+        x = first(ins, "X")
+        if x.shape is None:
+            return {out: x}
+        keep = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", False):
+            shape = (1,) * len(x.shape) if keep else ()
+            return {out: x.with_shape(shape)}
+        dim = attrs.get("dim", [0])
+        axes = tuple(dim) if isinstance(dim, (list, tuple)) else (int(dim),)
+        nd = len(x.shape)
+        for a in axes:
+            if not -nd <= a < nd:
+                raise ShapeError(
+                    f"reduce axis {a} out of range for rank {nd}")
+        axes = {a % nd for a in axes}
+        if keep:
+            shape = tuple(1 if i in axes else d
+                          for i, d in enumerate(x.shape))
+        else:
+            shape = tuple(d for i, d in enumerate(x.shape)
+                          if i not in axes)
+        return {out: x.with_shape(shape)}
+
+    return rule
+
+
 def mirror(mapping: Dict[str, str]):
     """Each output slot copies the info of a named input slot — the
     optimizer-op family (ParamOut <- Param, MomentOut <- Moment, ...)."""

@@ -258,6 +258,31 @@ def shard_elementwise(out: str = "Out"):
     return rule
 
 
+def shard_reduce(out: str = "Out"):
+    """reduce_op semantics on specs: reduced dims drop their sharding (the
+    partial results all-reduce, charged by the cost model)."""
+
+    def rule(op, ins, attrs):
+        x = first_in(ins, "X")
+        if x.spec is None:
+            return {}
+        if attrs.get("reduce_all", False):
+            keep = attrs.get("keep_dim", False)
+            return {out: (None,) * len(x.spec) if keep else REPLICATED}
+        dim = attrs.get("dim", [0])
+        axes = tuple(dim) if isinstance(dim, (list, tuple)) else (int(dim),)
+        nd = len(x.spec)
+        axes = {a % nd for a in axes if -nd <= a < nd}
+        if attrs.get("keep_dim", False):
+            spec = tuple(None if i in axes else e
+                         for i, e in enumerate(x.spec))
+        else:
+            spec = tuple(e for i, e in enumerate(x.spec) if i not in axes)
+        return {out: spec}
+
+    return rule
+
+
 def shard_mirror(mapping: Dict[str, str], check_grad: bool = False):
     """Each output slot carries its named input slot's sharding — the
     optimizer-op family.  ``check_grad`` also merges Param vs Grad (a

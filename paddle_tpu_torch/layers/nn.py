@@ -1,10 +1,13 @@
 """NN layer functions building program ops (counterpart of
 ``paddle_tpu/layers/nn.py``).  Each function appends the same op types
 with the same attrs as its JAX twin, so both packages build the same
-program.  Only the layers the ResNet serving and training paths, the
-gradient clips, the attention slice, the seq2seq slice and the model
-zoo (``models/``, ``nets``) and the learning-rate schedules
-(``lr_decay.py``) use are ported."""
+program.  Ported: the layers of the ResNet serving and training paths,
+the gradient clips, the attention slice, the seq2seq slice, the model
+zoo (``models/``, ``nets``), the learning-rate schedules
+(``lr_decay.py``), and the dense layers over the activation, nn, loss,
+metric, index and reduction ops (classification heads, ``layer_norm``,
+the losses, ``accuracy``/``auc``, ``topk``, ``one_hot``, ``transpose``,
+``reduce_*``, the 3-D and transposed convolutions, pooling variants)."""
 from __future__ import annotations
 
 from ..core import unique_name
@@ -20,7 +23,16 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
            "dynamic_gru", "gru_unit", "sequence_pool", "sequence_first_step",
            "sequence_last_step", "reshape", "squeeze", "unsqueeze", "concat",
            "lrn", "dynamic_lstm", "sequence_conv", "split", "cast",
-           "autoincreased_step_counter"]
+           "autoincreased_step_counter", "conv2d_transpose", "layer_norm",
+           "softmax_with_cross_entropy", "topk", "maxout", "im2sequence",
+           "one_hot", "reduce_sum", "reduce_mean", "reduce_max",
+           "reduce_min", "reduce_prod", "mul", "cos_sim", "accuracy", "auc",
+           "sigmoid_cross_entropy_with_logits", "transpose", "relu",
+           "smooth_l1", "bilinear_interp", "label_smooth", "conv3d",
+           "pool3d", "spp", "prelu", "log_loss", "hinge_loss", "huber_loss",
+           "rank_loss", "lambda_rank", "margin_rank_loss",
+           "squared_l2_distance", "squared_l2_norm", "kldiv_loss",
+           "modified_huber_loss", "bilinear_tensor_product"]
 
 
 def _pair(v):
@@ -688,4 +700,505 @@ def flash_attention(q, k, v, causal=False, block_q=None, block_k=None,
     helper.append_op(type="flash_attention",
                      inputs={"Q": [q], "K": [k], "V": [v]},
                      outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# The dense layers (``layers/nn.py`` of the JAX package, each in its order
+# of parameter and variable creation)
+# ---------------------------------------------------------------------------
+def _triple(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v, v]
+
+
+def _prod(t):
+    p = 1
+    for x in t:
+        p *= x
+    return p
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """Transposed 2-D convolution (``layers/nn.py:311``): Filter [C_in,
+    num_filters, kh, kw], from ``filter_size`` or solved from
+    ``output_size``; one group."""
+    if groups not in (None, 1):
+        raise NotImplementedError(
+            "conv2d_transpose groups>1: no reference demo uses it; "
+            "split channels + concat as a workaround")
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    st = _pair(stride)
+    pd = _pair(padding)
+    dl = _pair(dilation)
+    n, c, h, ww = input.shape
+    if filter_size is None:
+        os = _pair(output_size)
+        fs = [os[0] + 2 * pd[0] - (h - 1) * st[0],
+              os[1] + 2 * pd[1] - (ww - 1) * st[1]]
+    else:
+        fs = _pair(filter_size)
+    w = helper.create_parameter(
+        param_attr, shape=[c, num_filters, fs[0], fs[1]], dtype=dtype)
+    oh = (h - 1) * st[0] - 2 * pd[0] + dl[0] * (fs[0] - 1) + 1 \
+        if h > 0 else -1
+    ow = (ww - 1) * st[1] - 2 * pd[1] + dl[1] * (fs[1] - 1) + 1 \
+        if ww > 0 else -1
+    out = helper.create_variable_for_type_inference(
+        dtype, (n, num_filters, oh, ow))
+    helper.append_op(type="conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": st, "paddings": pd, "dilations": dl})
+    if helper.kwargs.get("bias_attr") is not False and bias_attr is not False:
+        out2 = helper.create_variable_for_type_inference(dtype, out.shape)
+        b = helper.create_parameter(
+            ParamAttr._to_attr(bias_attr) or ParamAttr(),
+            shape=[num_filters], dtype=dtype, is_bias=True)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [out2]}, attrs={"axis": 1})
+        out = out2
+    return helper.append_activation(out)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """Layer normalization over the dims from ``begin_norm_axis`` on,
+    with a learned Scale (ones) and Bias (zeros) over their product."""
+    helper = LayerHelper("layer_norm", name=name)
+    dtype = input.dtype
+    norm_shape = [int(_prod(input.shape[begin_norm_axis:]))]
+    ins = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            ParamAttr._to_attr(param_attr) or ParamAttr(), shape=norm_shape,
+            dtype=dtype, default_initializer=ConstantInitializer(1.0))
+        ins["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(
+            ParamAttr._to_attr(bias_attr) or ParamAttr(), shape=norm_shape,
+            dtype=dtype, is_bias=True)
+        ins["Bias"] = [b]
+    out = helper.create_variable_for_type_inference(dtype, input.shape)
+    mean = helper.create_variable_for_type_inference(dtype)
+    var = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="layer_norm", inputs=ins,
+                     outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out, act)
+
+
+def relu(x, name=None):
+    return _unary_layer("relu", x, None, name)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    shape = tuple(x.shape[p] for p in perm) if x.shape else None
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def _reduce_layer(op, input, dim, keep_dim, name):
+    helper = LayerHelper(op, name=name)
+    shape = None
+    if dim is not None and input.shape is not None:
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        nd = len(input.shape)
+        dropped = {d % nd for d in dims}
+        shape = tuple(1 if i in dropped else s
+                      for i, s in enumerate(input.shape)) if keep_dim else \
+            tuple(s for i, s in enumerate(input.shape) if i not in dropped)
+    elif dim is None:
+        # reduce_all: a 0-d result (keep_dim keeps the rank as all ones)
+        if not keep_dim:
+            shape = ()
+        elif input.shape is not None:
+            shape = tuple(1 for _ in input.shape)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    attrs = {"keep_dim": keep_dim}
+    if dim is None:
+        attrs["reduce_all"] = True
+    else:
+        attrs["dim"] = dim if isinstance(dim, (list, tuple)) else [dim]
+    helper.append_op(type=op, inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_prod", input, dim, keep_dim, name)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+# -- losses / classification -------------------------------------------------
+def softmax_with_cross_entropy(logits, label, soft_label=False, name=None):
+    """The fused, stable logits -> loss [N, 1] (its Softmax output is
+    made too and not returned, as in the JAX layer)."""
+    helper = LayerHelper("softmax_with_cross_entropy", name=name)
+    softmax_out = helper.create_variable_for_type_inference(
+        logits.dtype, logits.shape)
+    loss = helper.create_variable_for_type_inference(
+        logits.dtype, (logits.shape[0], 1) if logits.shape else None)
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [softmax_out], "Loss": [loss]},
+                     attrs={"soft_label": soft_label})
+    return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None,
+              name=None):
+    helper = LayerHelper("smooth_l1_loss", name=name)
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ins = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        ins["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        ins["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=ins,
+                     outputs={"Out": [out], "Diff": [diff]},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def _binary_loss_layer(op_type, x, y, x_slot="X", y_slot="Y", attrs=None,
+                       out_slot="Out", name=None, shape=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(
+        x.dtype, shape if shape is not None else x.shape)
+    helper.append_op(type=op_type, inputs={x_slot: [x], y_slot: [y]},
+                     outputs={out_slot: [out]}, attrs=attrs or {})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    """-label log(p + eps) - (1 - label) log(1 - p + eps)."""
+    return _binary_loss_layer("log_loss", input, label, "Predicted", "Labels",
+                              {"epsilon": epsilon}, "Loss", name)
+
+
+def hinge_loss(input, label, name=None):
+    return _binary_loss_layer("hinge_loss", input, label, "Logits", "Labels",
+                              out_slot="Loss", name=name)
+
+
+def huber_loss(input, label, delta=1.0, name=None):
+    return _binary_loss_layer("huber_loss", input, label, "X", "Y",
+                              {"delta": delta}, "Out", name)
+
+
+def rank_loss(label, left, right, name=None):
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype, left.shape)
+    helper.append_op(type="rank_loss",
+                     inputs={"Label": [label], "Left": [left],
+                             "Right": [right]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def lambda_rank(score, label, ndcg_num=5, max_sort_size=-1, name=None):
+    """Listwise LambdaRank (v1 lambda_cost) over padded query groups
+    (``layers/nn.py:843``): score and label are lod_level-1 sequences
+    [B, M(, 1)] with an ``@LEN`` a group.  Returns NDCG@ndcg_num [B, 1],
+    whose gradient with respect to score is the lambda direction."""
+    helper = LayerHelper("lambda_rank", name=name)
+    out = helper.create_variable_for_type_inference(
+        "float32", (score.shape[0], 1))
+    helper.append_op(type="lambda_rank",
+                     inputs={"Score": [score], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ndcg_num": ndcg_num,
+                            "max_sort_size": max_sort_size})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(left.dtype, left.shape)
+    helper.append_op(type="margin_rank_loss",
+                     inputs={"Label": [label], "X1": [left], "X2": [right]},
+                     outputs={"Out": [out]}, attrs={"margin": margin})
+    return out
+
+
+def squared_l2_distance(x, y, name=None):
+    shape = (x.shape[0], 1) if x.shape else None
+    return _binary_loss_layer("squared_l2_distance", x, y, "X", "Y",
+                              out_slot="Out", name=name, shape=shape)
+
+
+def squared_l2_norm(x, name=None):
+    return _unary_layer("squared_l2_norm", x, name=name)
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    return _binary_loss_layer("kldiv_loss", x, target, "X", "Target",
+                              {"reduction": reduction}, "Loss", name)
+
+
+def modified_huber_loss(input, label, name=None):
+    return _binary_loss_layer("modified_huber_loss", input, label, "X", "Y",
+                              out_slot="Out", name=name)
+
+
+def bilinear_tensor_product(x, y, size, act=None, param_attr=None,
+                            bias_attr=None, name=None):
+    """out_k = x W_k y^T + b, W [size, dx, dy]."""
+    helper = LayerHelper("bilinear_tensor_product", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dx, dy = x.shape[-1], y.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[size, dx, dy],
+                                dtype=x.dtype)
+    out = helper.create_variable_for_type_inference(
+        x.dtype, (x.shape[0], size))
+    ins = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(
+            ParamAttr._to_attr(bias_attr) or ParamAttr(), shape=[1, size],
+            dtype=x.dtype, is_bias=True)
+        ins["Bias"] = [b]
+    helper.append_op(type="bilinear_tensor_product", inputs=ins,
+                     outputs={"Out": [out]}, attrs={})
+    return helper.append_activation(out)
+
+
+def cos_sim(X, Y, name=None):
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None, name=None):
+    """fluid's accuracy layer: ``topk`` of ``input``, then the accuracy
+    op against ``label`` (Correct and Total int32, into ``correct`` and
+    ``total`` when given)."""
+    helper = LayerHelper("accuracy", name=name)
+    topk_out, topk_indices = topk(input, k)
+    acc_out = helper.create_variable_for_type_inference("float32", (1,))
+    correct = correct or helper.create_variable_for_type_inference("int32")
+    total = total or helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="accuracy",
+                     inputs={"Out": [topk_out], "Indices": [topk_indices],
+                             "Label": [label]},
+                     outputs={"Accuracy": [acc_out], "Correct": [correct],
+                              "Total": [total]})
+    return acc_out
+
+
+def auc(input, label, curve="ROC", num_thresholds=200, name=None):
+    helper = LayerHelper("auc", name=name)
+    auc_out = helper.create_variable_for_type_inference("float32", (1,))
+    stat_pos = helper.create_variable_for_type_inference("float32")
+    stat_neg = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="auc",
+                     inputs={"Predict": [input], "Label": [label]},
+                     outputs={"AUC": [auc_out], "StatPosOut": [stat_pos],
+                              "StatNegOut": [stat_neg]},
+                     attrs={"num_thresholds": num_thresholds})
+    return auc_out
+
+
+def topk(input, k, name=None):
+    """(values, int64 indices) of the k largest along the last dim."""
+    helper = LayerHelper("top_k", name=name)
+    shape = tuple(input.shape[:-1]) + (k,) if input.shape else None
+    values = helper.create_variable_for_type_inference(input.dtype, shape)
+    indices = helper.create_variable_for_type_inference("int64", shape)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def one_hot(input, depth, name=None):
+    helper = LayerHelper("one_hot", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """(1 - epsilon) label + epsilon / n, one ``scale`` op (a uniform
+    prior; ``prior_dist`` is accepted and, as in the JAX layer, unused)."""
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype, label.shape)
+    n = label.shape[-1]
+    helper.append_op(type="scale", inputs={"X": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"scale": 1.0 - epsilon, "bias": epsilon / n})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    n, c, h, w = x.shape
+    out = helper.create_variable_for_type_inference(
+        x.dtype, (n, c // groups, h, w))
+    helper.append_op(type="maxout", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"groups": groups})
+    return out
+
+
+def bilinear_interp(input, out_h, out_w, name=None):
+    helper = LayerHelper("bilinear_interp", name=name)
+    n, c = input.shape[0], input.shape[1]
+    out = helper.create_variable_for_type_inference(
+        input.dtype, (n, c, out_h, out_w))
+    helper.append_op(type="bilinear_interp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"out_h": out_h, "out_w": out_w})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    """Image patches as a sequence (lod_level 1), one step a patch."""
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, lod_level=1)
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"kernels": _pair(filter_size),
+                            "strides": _pair(stride),
+                            "paddings": _pair(padding)})
+    return out
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    """3-D convolution, NCDHW."""
+    helper = LayerHelper("conv3d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    fs, st, pd, dl = (_triple(filter_size), _triple(stride),
+                      _triple(padding), _triple(dilation))
+    n, c = input.shape[0], input.shape[1]
+    w = helper.create_parameter(
+        param_attr, shape=[num_filters, c // groups] + fs, dtype=dtype)
+    dims = [_conv_out(input.shape[2 + i], fs[i], pd[i], st[i], dl[i])
+            for i in range(3)]
+    out = helper.create_variable_for_type_inference(
+        dtype, (n, num_filters) + tuple(dims))
+    helper.append_op(type="conv3d",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": st, "paddings": pd, "dilations": dl,
+                            "groups": groups})
+    if helper.kwargs.get("bias_attr") is not False:
+        b = helper.create_parameter(
+            ParamAttr._to_attr(bias_attr) or ParamAttr(),
+            shape=[num_filters], dtype=dtype, is_bias=True)
+        out2 = helper.create_variable_for_type_inference(dtype, out.shape)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [out2]}, attrs={"axis": 1})
+        out = out2
+    return helper.append_activation(out)
+
+
+def pool3d(input, pool_size=2, pool_type="max", pool_stride=None,
+           pool_padding=0, global_pooling=False, name=None):
+    """3-D pooling, NCDHW (strides default to the window)."""
+    helper = LayerHelper("pool3d", name=name)
+    ks = _triple(pool_size)
+    st = _triple(pool_stride if pool_stride is not None else pool_size)
+    pd = _triple(pool_padding)
+    n, c = input.shape[0], input.shape[1]
+    if global_pooling:
+        dims = (1, 1, 1)
+    else:
+        dims = tuple(_conv_out(input.shape[2 + i], ks[i], pd[i], st[i])
+                     for i in range(3))
+    out = helper.create_variable_for_type_inference(
+        input.dtype, (n, c) + dims)
+    helper.append_op(type="pool3d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type, "ksize": ks,
+                            "strides": st, "paddings": pd,
+                            "global_pooling": global_pooling})
+    return out
+
+
+def spp(input, pyramid_height=3, pool_type="max", name=None):
+    """Spatial pyramid pooling: the concat of 4**level bins a level."""
+    helper = LayerHelper("spp", name=name)
+    n, c = input.shape[0], input.shape[1]
+    bins = sum(4 ** lv for lv in range(pyramid_height))
+    out = helper.create_variable_for_type_inference(
+        input.dtype, (n, c * bins))
+    helper.append_op(type="spp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pyramid_height": pyramid_height,
+                            "pooling_type": pool_type})
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """Learned negative slope, mode all/channel/element; alpha starts at
+    0.25."""
+    from .. import initializer
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    else:
+        alpha_shape = list(x.shape[1:])
+    alpha = helper.create_parameter(
+        param_attr if param_attr is not None else
+        ParamAttr(initializer=initializer.Constant(0.25)),
+        shape=alpha_shape, dtype=x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
     return out

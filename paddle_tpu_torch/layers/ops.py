@@ -1,13 +1,18 @@
 """Pass-through layers for unary ops (counterpart of
-``paddle_tpu/layers/ops.py``, which generates one per op type; here only
-those the ported paths use), and the dispatch behind a Variable's
-arithmetic operators."""
+``paddle_tpu/layers/ops.py``, which generates one per op type of its
+``_UNARY_OPS``), and the dispatch behind a Variable's arithmetic
+operators."""
 from __future__ import annotations
 
 from .nn import _unary_layer
 
-_UNARY_OPS = ["sqrt", "square", "sign", "sigmoid", "tanh", "exp", "log",
-              "floor", "ceil", "reciprocal", "pow"]
+_UNARY_OPS = [
+    "sigmoid", "logsigmoid", "exp", "relu", "tanh", "sqrt", "rsqrt", "abs",
+    "ceil", "floor", "round", "reciprocal", "log", "square", "softplus",
+    "softsign", "brelu", "leaky_relu", "soft_shrink", "hard_shrink", "stanh",
+    "thresholded_relu", "hard_sigmoid", "relu6", "pow", "elu", "gelu",
+    "silu", "swish", "sin", "cos", "sign", "softrelu",
+]
 
 
 def _make_unary(op_type):
@@ -18,17 +23,9 @@ def _make_unary(op_type):
     return layer
 
 
-sqrt = _make_unary("sqrt")
-square = _make_unary("square")
-sign = _make_unary("sign")
-sigmoid = _make_unary("sigmoid")
-tanh = _make_unary("tanh")
-exp = _make_unary("exp")
-log = _make_unary("log")
-floor = _make_unary("floor")
-ceil = _make_unary("ceil")
-reciprocal = _make_unary("reciprocal")
-pow = _make_unary("pow")
+_g = globals()
+for _op in _UNARY_OPS:
+    _g[_op] = _make_unary(_op)
 
 __all__ = list(_UNARY_OPS)
 
@@ -53,7 +50,7 @@ def elementwise_binary_dispatch(op, a, b):
         if op == "elementwise_div":
             return nn.scale(a, 1.0 / s, 0.0)
         if op == "elementwise_pow":
-            return pow(a, factor=s)
+            return _g["pow"](a, factor=s)
     else:
         s = float(a)
         if op == "elementwise_add":
@@ -63,5 +60,5 @@ def elementwise_binary_dispatch(op, a, b):
         if op == "elementwise_mul":
             return nn.scale(b, s, 0.0)
         if op == "elementwise_div":          # s / b
-            return nn.scale(reciprocal(b), s, 0.0)
+            return nn.scale(_g["reciprocal"](b), s, 0.0)
     raise TypeError(f"unsupported operands for {op}: {a!r}, {b!r}")

@@ -1,13 +1,32 @@
-"""Tensor layer functions (counterpart of ``sums``, ``fill_constant``,
-``fill_constant_batch_size_like``, ``concat`` and ``gather`` in
-``paddle_tpu/layers/tensor.py``)."""
+"""Tensor layer functions (counterpart of ``create_global_var``,
+``cast``, ``concat``, ``sums``, ``fill_constant``,
+``fill_constant_batch_size_like``, ``ones``, ``zeros``, ``argmax`` and
+``gather`` in ``paddle_tpu/layers/tensor.py``)."""
 from __future__ import annotations
 
 from ..core.types import convert_dtype
 from ..layer_helper import LayerHelper
 
-__all__ = ["sums", "fill_constant", "fill_constant_batch_size_like",
-           "concat", "gather"]
+__all__ = ["create_global_var", "cast", "sums", "fill_constant",
+           "fill_constant_batch_size_like", "concat", "gather", "ones",
+           "zeros", "argmax"]
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global-block var initialized to ``value`` by the startup
+    program."""
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(shape, convert_dtype(dtype),
+                                        persistable=persistable, name=name)
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
+
+
+def cast(x, dtype):
+    from .nn import cast as _cast
+    return _cast(x, dtype)
 
 
 def concat(input, axis=0, name=None):
@@ -59,4 +78,21 @@ def gather(input, index, name=None):
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
                      outputs={"Out": [out]})
+    return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def argmax(x, axis=0, name=None):
+    """The int64 index of the first maximum along ``axis``."""
+    helper = LayerHelper("argmax", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="argmax", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out

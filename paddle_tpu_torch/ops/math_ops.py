@@ -160,13 +160,59 @@ def _squared_l2_norm(ctx, ins, attrs):
     return {"Out": torch.sum(x * x).reshape(1)}
 
 
+
+# -- reductions (reduce_op.cc: dim/keep_dim/reduce_all attrs) ---------------
+def _reduce(fn):
+    def impl(ctx, ins, attrs):
+        x = ins["X"][0]
+        if attrs.get("reduce_all", False):
+            axis = tuple(range(x.dim()))
+        else:
+            dim = attrs.get("dim", [0])
+            axis = tuple(dim) if isinstance(dim, (list, tuple)) \
+                else (int(dim),)
+            axis = tuple(d % x.dim() for d in axis)
+        return {"Out": fn(x, axis, attrs.get("keep_dim", False))}
+    return impl
+
+
+def _reduce_sum(x, axis, keep):
+    # an integer sum keeps its dtype, as jnp.sum's does
+    out = torch.sum(x, dim=axis, keepdim=keep)
+    return out if x.is_floating_point() else out.to(x.dtype)
+
+
+def _reduce_mean(x, axis, keep):
+    # jnp.mean of integers is fp32
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return torch.mean(x, dim=axis, keepdim=keep)
+
+
+def _reduce_prod(x, axis, keep):
+    out = x
+    for d in sorted(axis, reverse=True):
+        out = torch.prod(out, dim=d, keepdim=keep)
+    return out if x.is_floating_point() else out.to(x.dtype)
+
+
+# max and min spread a gradient evenly over tied maxima, as jnp's do
+register_op("reduce_sum")(_reduce(_reduce_sum))
+register_op("reduce_mean")(_reduce(_reduce_mean))
+register_op("reduce_max")(_reduce(
+    lambda x, axis, keep: torch.amax(x, dim=axis, keepdim=keep)))
+register_op("reduce_min")(_reduce(
+    lambda x, axis, keep: torch.amin(x, dim=axis, keepdim=keep)))
+register_op("reduce_prod")(_reduce(_reduce_prod))
+
 # ---------------------------------------------------------------------------
 # Static shape/dtype rules (analysis.shape_infer) — the InferShape analogs
 # of elementwise_op.h / mul_op.cc / matmul_op.cc / squared_l2_norm_op.cc.
 # ---------------------------------------------------------------------------
 from ..analysis.shape_infer import (ShapeError, VarInfo, dim_ok,  # noqa: E402
-                                    elementwise, first, prod_dims, same_as,
-                                    shapes_compatible, unify_dim)
+                                    elementwise, first, prod_dims,
+                                    reduce_rule, same_as, shapes_compatible,
+                                    unify_dim)
 from ..core.registry import register_shape_fn  # noqa: E402
 
 register_shape_fn(
@@ -177,6 +223,8 @@ register_shape_fn("less_than")(elementwise(dtype="bool"))
 register_shape_fn(
     "scale", "clip", "clip_by_norm", "sign", "pow", "increment",
 )(same_as("X"))
+register_shape_fn("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+                  "reduce_prod")(reduce_rule())
 
 
 @register_shape_fn("mul")
@@ -285,8 +333,8 @@ def _squared_l2_norm_shape(op, ins, attrs):
 # ---------------------------------------------------------------------------
 from ..analysis.shard_prop import (merge_specs,  # noqa: E402
                                    shard_elementwise, shard_matmul,
-                                   shard_mul, shard_replicated,
-                                   shard_same_as)
+                                   shard_mul, shard_reduce,
+                                   shard_replicated, shard_same_as)
 from ..core.registry import register_shard_fn  # noqa: E402
 
 register_shard_fn(
@@ -299,6 +347,8 @@ register_shard_fn(
 register_shard_fn("mul")(shard_mul())
 register_shard_fn("matmul")(shard_matmul())
 register_shard_fn("mean", "squared_l2_norm")(shard_replicated("Out"))
+register_shard_fn("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+                  "reduce_prod")(shard_reduce())
 
 
 @register_shard_fn("sum")

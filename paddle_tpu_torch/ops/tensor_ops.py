@@ -1,7 +1,9 @@
 """Tensor ops (counterpart of the ``fill_constant``,
 ``fill_constant_batch_size_like``, ``uniform_random``,
 ``gaussian_random``, ``reshape``, ``squeeze``, ``unsqueeze``,
-``concat``, ``split`` and ``gather`` lowerings in ``paddle_tpu/ops/tensor_ops.py``).
+``transpose``, ``concat``, ``split``, ``gather``, ``top_k``,
+``argmax`` (``arg_max``, ``max_ids``) and ``one_hot`` lowerings in
+``paddle_tpu/ops/tensor_ops.py``).
 Random ops draw from a ``torch.Generator`` the executor keeps per op
 and places at each step (``ExecContext.generator``); the numbers differ
 from JAX's, the distributions do not."""
@@ -126,13 +128,48 @@ def _gather(ctx, ins, attrs):
                                + tuple(x.shape[axis + 1:]))}
 
 
+
+@register_op("transpose")
+def _transpose(ctx, ins, attrs):
+    return {"Out": ins["X"][0].permute(*attrs["axis"])}
+
+
+@register_op("top_k")
+def _top_k(ctx, ins, attrs):
+    """The k largest along the last dim, descending, with their int64
+    indices."""
+    vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1, largest=True,
+                           sorted=True)
+    return {"Out": vals, "Indices": idx.to(torch.int64)}
+
+
+@register_op("argmax", "arg_max", "max_ids")
+def _argmax(ctx, ins, attrs):
+    """The first maximum's index along ``axis`` (default the last),
+    int64."""
+    return {"Out": torch.argmax(ins["X"][0], dim=attrs.get("axis", -1))
+            .to(torch.int64)}
+
+
+@register_op("one_hot")
+def _one_hot(ctx, ins, attrs):
+    """fp32 one-hot rows of ``depth`` for int ids [...] or [..., 1]; an
+    id outside [0, depth) gives a zero row, as ``jax.nn.one_hot`` does
+    (and no host check, so a captured step can hold it)."""
+    x = ins["X"][0]
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    classes = torch.arange(attrs["depth"], device=x.device)
+    return {"Out": (x.to(torch.int64).unsqueeze(-1) == classes)
+            .to(torch.float32)}
+
 # ---------------------------------------------------------------------------
 # Static shape/dtype rules (analysis.shape_infer) — reshape/concat/split etc.
 # InferShape analogs of the reference's data-movement ops.
 # ---------------------------------------------------------------------------
 from ..analysis.shape_infer import (ShapeError, VarInfo,  # noqa: E402
                                     dim_ok, filled_from_attrs, first,
-                                    prod_dims, unify_dim)
+                                    prod_dims, squeeze_ids, unify_dim)
 from ..core.registry import register_shape_fn  # noqa: E402
 
 register_shape_fn("fill_constant", "gaussian_random",
@@ -297,6 +334,49 @@ def _gather_shape(op, ins, attrs):
                            + x.shape[axis + 1:], x.dtype)}
 
 
+
+@register_shape_fn("transpose")
+def _transpose_shape(op, ins, attrs):
+    x = first(ins, "X")
+    perm = attrs.get("axis")
+    if x.shape is None or perm is None:
+        return {"Out": x}
+    if sorted(a % len(x.shape) for a in perm) != list(range(len(x.shape))):
+        raise ShapeError(
+            f"transpose: axis {list(perm)} is not a permutation of rank "
+            f"{len(x.shape)}")
+    return {"Out": x.with_shape(tuple(x.shape[a] for a in perm))}
+
+
+@register_shape_fn("top_k")
+def _top_k_shape(op, ins, attrs):
+    x = first(ins, "X")
+    k = attrs.get("k", 1)
+    if x.shape is None:
+        return {"Out": x, "Indices": VarInfo(None, "int64")}
+    if x.shape[-1] >= 0 and k > x.shape[-1]:
+        raise ShapeError(f"top_k: k={k} > last dim {x.shape[-1]}")
+    shape = x.shape[:-1] + (k,)
+    return {"Out": x.with_shape(shape),
+            "Indices": VarInfo(shape, "int64")}
+
+
+@register_shape_fn("argmax", "arg_max", "max_ids")
+def _argmax_shape(op, ins, attrs):
+    x = first(ins, "X")
+    if x.shape is None:
+        return {"Out": VarInfo(None, "int64")}
+    axis = attrs.get("axis", -1) % len(x.shape)
+    return {"Out": VarInfo(x.shape[:axis] + x.shape[axis + 1:], "int64")}
+
+
+@register_shape_fn("one_hot")
+def _one_hot_shape(op, ins, attrs):
+    s = squeeze_ids(first(ins, "X"))
+    if s is None:
+        return {"Out": VarInfo(None, "float32")}
+    return {"Out": VarInfo(s + (attrs["depth"],), "float32")}
+
 # ---------------------------------------------------------------------------
 # Sharding-propagation rules (analysis.shard_prop).  reshape keeps the
 # batch sharding only when the batch dim survives the reshape; concat
@@ -357,7 +437,18 @@ def _rank_change_shard(op, ins, attrs):
     return {"Out": (x.entry(0),)}
 
 
+@register_shard_fn("transpose")
+def _transpose_shard(op, ins, attrs):
+    x = first_in(ins, "X")
+    perm = attrs.get("axis")
+    if x.spec is None or perm is None:
+        return {}
+    n = len(x.spec)
+    return {"Out": tuple(x.entry(a % n) for a in perm)}
+
+
 # index/selection: batch dim follows X, everything else replicates
 # (indices are tiny; the gathered layout is data-driven)
-register_shard_fn("gather")(
+register_shard_fn("gather", "one_hot", "top_k", "argmax", "arg_max",
+                  "max_ids")(
     shard_batch_only("X", fallbacks=("Ids",), also=("Indices",)))

@@ -19,8 +19,9 @@ The core covers ``settings``, ``get_config_arg``,
 pooling, optimizer and regularization objects.  The JAX package's
 submodules (``sequence``, ``extra_layers``, ``networks_extra``,
 ``layer_math``) are not here: a config that names one of their names
-raises ``NotImplementedError`` naming ROADMAP Queue A item 10, as does
-``img_conv_layer(trans=True)`` (``conv2d_transpose``, item 4).
+raises ``NotImplementedError`` naming ROADMAP Queue A item 10.
+``img_conv_layer(trans=True)`` is the transposed convolution
+(``conv2d_transpose``).
 """
 from __future__ import annotations
 
@@ -498,12 +499,8 @@ def img_conv_layer(input, filter_size, num_filters, name=None,
     fs = (filter_size, filter_size_y) if filter_size_y else filter_size
     st = (stride, stride_y) if stride_y else stride
     pd = (padding, padding_y) if padding_y else padding
-    if trans:
-        raise NotImplementedError(
-            "v1 config DSL: img_conv_layer(trans=True) needs the "
-            "conv2d_transpose op, which is not ported yet (ROADMAP.md "
-            "Queue A item 4, the remaining ops and layers)")
-    return L.conv2d(input, num_filters=num_filters, filter_size=fs, stride=st,
+    f = L.conv2d_transpose if trans else L.conv2d
+    return f(input, num_filters=num_filters, filter_size=fs, stride=st,
              padding=pd, groups=groups, act=_act_name(act), name=name,
              param_attr=_v1_named_attr(param_attr, f"_{name}.w0"
                                        if name else None),

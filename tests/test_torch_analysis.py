@@ -13,8 +13,8 @@ and loaded into the port, so both packages verify the same IR:
   diagnostics (codes, op locations, vars) equal the reference's, and so
   does every variable's inferred (shape, dtype, lod_level).
 * **Coverage.** Every port op has exactly one of a shape rule or an
-  allowlist entry; the split equals the reference's for the port's 73
-  names (69 rules + 4 allowlisted), with 67 shard rules.
+  allowlist entry; the split equals the reference's for the port's 141
+  names (137 rules + 4 allowlisted), with 122 shard rules.
 * **The executor.** Validation is off by default, defers to the flag,
   runs once per (program version, fetches), rejects an invalid program
   before any step runs, survives ``id()`` reuse, and the trainer's
@@ -439,10 +439,10 @@ def test_every_op_has_exactly_one_of_a_rule_or_an_allowlist_entry():
     ops = set(registry.registered_ops())
     fns = set(registry.registered_shape_fns())
     allow = set(SHAPE_INFER_ALLOWLIST)
-    assert len(ops) == 73
+    assert len(ops) == 141
     assert not ops - fns - allow, sorted(ops - fns - allow)
     assert not fns & allow and not allow - ops and not fns - ops
-    assert coverage() == (69, 73)
+    assert coverage() == (137, 141)
     assert allow == {"beam_search", "beam_search_decode", "recurrent",
                      "rnn"}
 
@@ -455,9 +455,13 @@ def test_coverage_equals_the_references_for_the_port_names():
     assert SHAPE_INFER_ALLOWLIST == ops & jsi.SHAPE_INFER_ALLOWLIST
     shard = set(registry.registered_shard_fns())
     assert shard == ops & set(jreg.registered_shard_fns())
-    assert len(shard) == 67
-    assert ops - shard == {"fill_constant_batch_size_like", "gru_unit",
-                           "recurrent", "rnn", "sequence_conv", "split"}
+    assert len(shard) == 122
+    assert ops - shard == {
+        "bilinear_interp", "bilinear_tensor_product", "block_expand",
+        "conv2d_transpose", "conv3d", "cross_entropy_over_beam",
+        "fill_constant_batch_size_like", "gru_unit", "im2sequence",
+        "lambda_rank", "maxout", "modified_huber_loss", "pad_constant_like",
+        "recurrent", "rnn", "sequence_conv", "split", "spp", "unpool"}
 
 
 def test_a_name_registered_twice_raises():

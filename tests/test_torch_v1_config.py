@@ -10,9 +10,11 @@ packages' ``load_v1_config``:
 * the same op types in the same order, and the same parameter names;
 * the forward within 1e-5 with the JAX startup's weights carried into
   the port (``weights.load_numpy_state``);
-* a name of the DSL's submodules raises naming ROADMAP item 10,
-  ``img_conv_layer(trans=True)`` item 4, and the ``paddle`` import shim
-  is put back after a config ran.
+* a small net with ``img_conv_layer(trans=True)`` (the transposed
+  convolution, ``conv2d_transpose``) held the same way;
+* a name of the DSL's submodules raises naming ROADMAP item 10, an
+  unknown name is a ``NameError``, and the ``paddle`` import shim is put
+  back after a config ran.
 """
 import importlib.util
 import os
@@ -41,6 +43,19 @@ label = data_layer('label', 3)
 outputs(classification_cost(input=out, label=label))
 """
 
+TRANS_CONF = """
+settings(batch_size=4, learning_rate=0.01,
+         learning_method=MomentumOptimizer(momentum=0.9))
+img = data_layer(name='image', size=3 * 8 * 8)
+c = img_conv_layer(input=img, num_channels=3, filter_size=3, num_filters=4,
+                   stride=1, padding=1, act=ReluActivation())
+up = img_conv_layer(name='up', input=c, filter_size=4, num_filters=2,
+                    stride=2, padding=1, act=LinearActivation(), trans=True)
+out = fc_layer(input=up, size=3, act=SoftmaxActivation())
+label = data_layer(name='label', size=3)
+outputs(classification_cost(input=out, label=label))
+"""
+
 
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
@@ -57,6 +72,8 @@ def _conf(tmp_path, what):
     elif what == "resnet":
         text = _chip_smoke().resnet_v1_conf(
             blocks=(2,), widths=(16,), img=32, classes=10, stem=16, batch=4)
+    elif what == "trans":
+        text = TRANS_CONF
     else:
         text = LSTM_CONF
     path = tmp_path / f"{what}.py"
@@ -72,6 +89,9 @@ def _rows(what, n=4, seed=0):
     if what == "resnet":
         return [(rng.rand(3 * 32 * 32).astype("float32"),
                  np.array([rng.randint(10)], "int64")) for _ in range(n)]
+    if what == "trans":
+        return [(rng.rand(3 * 8 * 8).astype("float32"),
+                 np.array([rng.randint(3)], "int64")) for _ in range(n)]
     return [(list(rng.randint(0, 50, size=rng.randint(2, 7))),
              np.array([rng.randint(3)], "int64")) for _ in range(n)]
 
@@ -102,7 +122,7 @@ def test_runner_data_maker_is_the_jax_runners(tmp_path):
                 y2.tobytes()
 
 
-@pytest.mark.parametrize("what", ["runner", "resnet", "lstm"])
+@pytest.mark.parametrize("what", ["runner", "resnet", "lstm", "trans"])
 def test_both_loaders_build_the_same_program_and_forward(tmp_path, what):
     import paddle_tpu as pt
     from paddle_tpu.trainer_config_helpers import load_v1_config as jload
@@ -126,6 +146,9 @@ def test_both_loaders_build_the_same_program_and_forward(tmp_path, what):
     if what == "resnet":
         assert tops.count("conv2d") == jops.count("conv2d") == 8
         assert "elementwise_add" in tops and "batch_norm" in tops
+    if what == "trans":
+        assert tops.count("conv2d_transpose") == 1
+        assert "_up.w0" in jparams and "_up.wbias" in jparams
 
     jscope = pt.Scope()
     pt.Executor().run(j.startup_program, scope=jscope)
@@ -159,15 +182,10 @@ def test_submodule_names_raise_naming_item_10(tmp_path, name):
         load_v1_config(str(path))
 
 
-def test_unknown_name_is_a_name_error_and_trans_conv_names_item_4(tmp_path):
+def test_unknown_name_is_a_name_error(tmp_path):
     path = tmp_path / "c.py"
     path.write_text("x = no_such_layer_anywhere\n")
     with pytest.raises(NameError):
-        load_v1_config(str(path))
-    path.write_text("x = data_layer('x', 3 * 8 * 8)\n"
-                    "y = img_conv_layer(input=x, num_channels=3, "
-                    "filter_size=3, num_filters=4, trans=True)\n")
-    with pytest.raises(NotImplementedError, match="item 4"):
         load_v1_config(str(path))
 
 

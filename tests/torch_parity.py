@@ -129,3 +129,84 @@ def build_seq2seq(pkg, vocab, dim, lr=1e-2, seed=0):
         loss = L.mean(L.cross_entropy(flat, L.reshape(lbl, [-1, 1])))
         pkg.optimizer.Adam(lr).minimize(loss)
     return main, startup, loss
+
+
+def build_resnet_cls(pkg, img, classes, counts=(3, 4, 6, 3),
+                     filters=(64, 128, 256, 512), k=5, lr=0.01,
+                     momentum=0.9, seed=0):
+    """(main, startup, vars) of ResNet's bottleneck body
+    (``models/resnet.py``'s ``conv_bn_layer`` and ``bottleneck_block``,
+    ResNet-50 at the defaults) under the fluid classification head:
+    ``fc`` logits, ``softmax_with_cross_entropy``, ``mean``, accuracy at
+    k=1 and k through ``topk``, ``evaluator.Accuracy``, Momentum.
+    ``vars``: loss, logits, acc1, acck, the top-k values and indices,
+    and the evaluator."""
+    pkg.unique_name.reset()
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = seed
+    with pkg.program_guard(main, startup):
+        L, R = pkg.layers, pkg.models.resnet
+        image = L.data("img", [3, img, img])
+        label = L.data("label", [1], dtype="int64")
+        h = R.conv_bn_layer(image, filters[0], 7, stride=2, padding=3)
+        h = L.pool2d(h, pool_size=3, pool_stride=2, pool_padding=1,
+                     pool_type="max")
+        ch_in = filters[0]
+        for stage, (nf, n) in enumerate(zip(filters, counts)):
+            for i in range(n):
+                h = R.bottleneck_block(h, ch_in, nf,
+                                       2 if i == 0 and stage > 0 else 1)
+                ch_in = nf * 4
+        h = L.pool2d(h, pool_type="avg", global_pooling=True)
+        logits = L.fc(h, size=classes)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        acc1 = L.accuracy(logits, label, k=1)
+        acck = L.accuracy(logits, label, k=k)
+        vals, idx = L.topk(logits, k)
+        ev = pkg.evaluator.Accuracy(logits, label, k=1)
+        pkg.optimizer.Momentum(learning_rate=lr,
+                               momentum=momentum).minimize(loss)
+    return main, startup, {"loss": loss, "logits": logits, "acc1": acc1,
+                           "acck": acck, "vals": vals, "idx": idx,
+                           "evaluator": ev}
+
+
+def build_decoder(pkg, vocab, T, d, heads, n_layers, ffn, block=1024,
+                  lr=0.01, momentum=0.9, interpret=False, seed=0):
+    """(main, startup, loss) of a GPT-style decoder in ``pkg``'s layers:
+    token and position ``embedding``; each layer pre-``layer_norm``
+    (eps 1e-5), ``fc`` Q/K/V reshaped to [B, T, heads, d / heads],
+    causal ``flash_attention``, the output ``fc``, ``dropout`` 0 and the
+    residual ``elementwise_add``, then a ``gelu`` FFN and its residual; a
+    final ``layer_norm``, the vocabulary ``fc``,
+    ``softmax_with_cross_entropy`` against ``tgt`` [B, T, 1] and
+    ``mean``; Momentum.  ``interpret`` is the JAX attention op's
+    Pallas-interpreter switch (the port records and ignores it)."""
+    pkg.unique_name.reset()
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = seed
+    with pkg.program_guard(main, startup):
+        L = pkg.layers
+        tok = L.data("tok", [T], dtype="int64")
+        pos = L.data("pos", [T], dtype="int64")
+        tgt = L.data("tgt", [T, 1], dtype="int64")
+        h = L.elementwise_add(L.embedding(tok, size=[vocab, d]),
+                              L.embedding(pos, size=[T, d]))
+        for _ in range(n_layers):
+            x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+            q, k, v = (L.reshape(L.fc(x, d, num_flatten_dims=2),
+                                 [0, 0, heads, d // heads])
+                       for _ in range(3))
+            a = L.flash_attention(q, k, v, causal=True, block_q=block,
+                                  block_k=block, interpret=interpret)
+            a = L.fc(L.reshape(a, [0, 0, d]), d, num_flatten_dims=2)
+            h = L.elementwise_add(h, L.dropout(a, dropout_prob=0.0))
+            x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+            f = L.fc(x, ffn, num_flatten_dims=2, act="gelu")
+            h = L.elementwise_add(h, L.fc(f, d, num_flatten_dims=2))
+        x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+        logits = L.fc(x, vocab, num_flatten_dims=2)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, tgt))
+        pkg.optimizer.Momentum(learning_rate=lr,
+                               momentum=momentum).minimize(loss)
+    return main, startup, loss
