@@ -397,8 +397,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
              bit-equal to the live program's captured forward, ms a call
              of each.
 25. dense  — the dense op families (activation, nn, loss, metric, top_k,
-             one_hot, argmax, transpose, reduce_*), their layers,
-             evaluator and metrics, budget DENSE_BUDGET_S: (a) ResNet-50's
+             one_hot, argmax, transpose, reduce_*) and the tensor and
+             math op families, their layers, evaluator and metrics,
+             budget DENSE_BUDGET_S: (a) ResNet-50's
              bottleneck body (models/resnet.py, 224x224, 1000 classes)
              under the fluid classification head (fc logits,
              softmax_with_cross_entropy, mean, accuracy at k=1 and k=5
@@ -420,7 +421,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
              Y and softmax_with_cross_entropy's Loss of one bf16 and one
              fp32 step held against the port's CPU op on the same operands
              (2e-2 and 1e-5 of scale); ms a step, peak memory and the
-             logits' bytes of each.
+             logits' bytes of each; (c) the decoder's first sampled token
+             (the same widths and batch, positions by range + expand, the
+             last position's logits by slice, fp32 softmax, a top-p 0.9
+             filter of argsort, cumsum, greater_equal and where,
+             sampling_id, the id by one_hot x Indices and reduce_sum) as
+             an AMP inference program, Executor(amp=True).run_steps(2),
+             captured: the sampled ids bit-equal to use_jit=False at the
+             same steps, each inside its nucleus by the fetched sorted
+             probabilities, the two replays' draws different, K2 once a
+             layer a step, no K1, no reference route, ms a step; and the
+             49 tensor and math op names (op_cases.py) on the card
+             against the port's CPU op on the same operands (floats
+             within 1e-5 of scale, integer, bool and index outputs
+             exactly), the random ops by their bounds and a statistic,
+             top_k on tied fp32 and bf16 rows equal to lax.top_k's
+             Indices, and shape, assign_value and is_empty held by a
+             captured step.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline,
 zoo and dense runs captured (Executor(use_jit=True), each step one CUDA
@@ -8809,12 +8826,14 @@ def build_decoder(seed, vocab, T, d, heads, n_layers, ffn, block=1024):
     return main, startup, loss
 
 
-def dense_arms(tag, main, start, feed, fetch, steps, kernels):
+def dense_arms(tag, main, start, feed, fetch, steps, kernels, lead=0):
     """[dense]'s two arms of one program under AMP from ``start``: the
     captured arm (the key's warm-up and capture on a copy, then
     ``steps`` replays on another under counts set to 0, then a profiled
     window of one replay on a third, its launches held against the
-    trace), and the use_jit=False arm from the same start.  ``kernels``
+    trace), and the use_jit=False arm from the same start, after
+    ``lead`` steps on a copy (2 puts its compared steps at the captured
+    arm's step indices, which a random op draws by).  ``kernels``
     is (the own kernels' label and name fragments, the launch counter
     of ``profiled_checked``).  Returns a dict: the captured fetches and
     scope, ms a step, peak allocated and graph-pool bytes, K1's forms,
@@ -8860,6 +8879,9 @@ def dense_arms(tag, main, start, feed, fetch, steps, kernels):
     del pscope, scope
     exe.close()
     iexe = ptt.Executor(amp=True, use_jit=False)
+    if lead:
+        iexe.run_steps(lead, main, feed=feed, fetch_list=fetch,
+                       scope=clone_scope(start))
     arm["iscope"] = clone_scope(start)
     arm["want"] = iexe.run_steps(steps, main, feed=feed, fetch_list=fetch,
                                  scope=arm["iscope"])
@@ -9113,6 +9135,283 @@ def dense_gpt(seed, card):
     return flash, ms, peak
 
 
+SAMPLER_TOP_P = 0.9
+SAMPLER_STEPS = 2
+# a sampled position inside the nucleus by the fetched sorted
+# probabilities summed in float64: the mass before it below top-p, to
+# within the fp32 cumsum's rounding over the vocabulary
+SAMPLER_MASS_TOL = 1e-4
+
+
+def _append(helper, op_type, inputs, dtype, shape, attrs=None,
+            slots=("Out",)):
+    """One op of a type with no layer of its own; returns its output
+    vars of ``shape``, one a slot (an argsort's Indices int64)."""
+    outs = {s: helper.create_variable_for_type_inference(
+        "int64" if s == "Indices" else dtype, shape) for s in slots}
+    helper.append_op(type=op_type, inputs=inputs,
+                     outputs={s: [v] for s, v in outs.items()},
+                     attrs=attrs or {})
+    return [outs[s] for s in slots]
+
+
+def build_sampler(seed, vocab, T, d, heads, n_layers, ffn, batch,
+                  top_p=SAMPLER_TOP_P, block=1024):
+    """(c)'s program, the first sampled token of a GPT-style decoder under
+    a top-p filter, in the port's layers: token ``embedding`` plus a
+    position ``embedding`` of ``range(0, T)`` reshaped to [1, T] and
+    ``expand``-ed to [batch, T]; build_decoder's layers (no dropout); the
+    vocabulary fc; the last position's logits (``slice``) cast to fp32,
+    ``softmax``; ``argsort`` descending, ``cumsum``, the mass before each
+    position ``greater_equal`` top_p marks the tail, ``where`` zeroes it,
+    ``sampling_id`` draws a sorted position over the kept mass, and
+    ``one_hot`` x the sort's Indices, ``reduce_sum`` maps it to a
+    vocabulary id (tests/torch_parity.py build_sampler)."""
+    import paddle_tpu_torch as ptt
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = seed
+    with ptt.program_guard(main, startup):
+        L = ptt.layers
+        tok = L.data("tok", [T], dtype="int64")
+        pos = L.expand(L.reshape(L.range(0, T, 1), [1, T]), [batch, 1])
+        h = L.elementwise_add(L.embedding(tok, size=[vocab, d]),
+                              L.embedding(pos, size=[T, d]))
+        for _ in range(n_layers):
+            x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+            q, k, v = (L.reshape(L.fc(x, d, num_flatten_dims=2),
+                                 [0, 0, heads, d // heads])
+                       for _ in range(3))
+            a = L.flash_attention(q, k, v, causal=True, block_q=block,
+                                  block_k=block)
+            h = L.elementwise_add(h, L.fc(L.reshape(a, [0, 0, d]), d,
+                                          num_flatten_dims=2))
+            x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+            f = L.fc(x, ffn, num_flatten_dims=2, act="gelu")
+            h = L.elementwise_add(h, L.fc(f, d, num_flatten_dims=2))
+        x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+        logits = L.fc(x, vocab, num_flatten_dims=2)
+        last = L.slice(logits, axes=[1], starts=[T - 1], ends=[T])
+        probs = L.softmax(L.cast(L.reshape(last, [batch, vocab]),
+                                 "float32"))
+        helper = ptt.layer_helper.LayerHelper("top_p")
+        bv = (batch, vocab)
+        srt, order = _append(helper, "argsort", {"X": [probs]}, "float32",
+                             bv, {"axis": -1, "descending": True},
+                             ("Out", "Indices"))
+        cum, = _append(helper, "cumsum", {"X": [srt]}, "float32", bv,
+                       {"axis": -1})
+        before = L.elementwise_sub(cum, srt)
+        tail, = _append(helper, "greater_equal", {
+            "X": [before], "Y": [L.fill_constant([1], "float32", top_p)]},
+            "bool", bv)
+        kept, = _append(helper, "where", {
+            "Condition": [tail], "X": [L.zeros_like(srt)], "Y": [srt]},
+            "float32", bv)
+        s = L.sampling_id(kept)
+        hot = L.cast(L.one_hot(L.reshape(s, [batch, 1]), vocab), "int64")
+        ids = L.reduce_sum(L.elementwise_mul(hot, order), dim=1)
+    return main, startup, {"sorted": srt, "order": order, "tail": tail,
+                           "pos": s, "ids": ids}
+
+
+def dense_sampler(seed, card):
+    """(c): build_sampler at GPT-2 small's widths (2 layers, batch 4) as
+    an AMP inference program, captured against use_jit=False (the
+    interpreted arm at the same step indices, so the same draws).
+    Returns (K2-K4's launches, ms a step)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, T, V = GPT_BATCH, GPT["T"], GPT["vocab"]
+    main, startup, v = build_sampler(seed, batch=B, **GPT)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    rng = np.random.RandomState(seed + 27)
+    feed = {"tok": torch.from_numpy(rng.randint(0, V, (B, T)).astype(
+        np.int64)).cuda()}
+    keys = ("sorted", "order", "tail", "pos", "ids")
+    c = dense_arms("(c) the top-p sampler", main, start, feed,
+                   [v[k].name for k in keys], SAMPLER_STEPS,
+                   (ATT_KERNELS, lambda: flash_since(fa)), lead=2)
+    check_captured("[dense] (c)", c["snap"], SAMPLER_STEPS)
+    same_fetches("[dense] (c) captured against use_jit=False", c["got"],
+                 c["want"])
+    got = dict(zip(keys, (np.asarray(x) for x in c["got"])))
+    rows = np.arange(B)
+    kept = []
+    for step in range(SAMPLER_STEPS):
+        srt, order, tail, pos, ids = (got[k][step] for k in keys)
+        before = np.cumsum(srt.astype(np.float64), axis=1) - srt
+        kept.append((~tail).sum(axis=1).tolist())
+        if not ((np.diff(srt, axis=1) <= 0).all()
+                and (np.sort(order, axis=1) == np.arange(V)).all()
+                and not tail[rows, pos].any()
+                and (before[rows, pos] < SAMPLER_TOP_P
+                     + SAMPLER_MASS_TOL).all()
+                and np.array_equal(ids, order[rows, pos])):
+            raise RuntimeError(f"chip_smoke: [dense] (c) step {step}: "
+                               f"sampled positions {pos.tolist()}, ids "
+                               f"{ids.tolist()}, nucleus sizes "
+                               f"{kept[-1]}: a draw outside its nucleus, "
+                               f"an unsorted row or an id not the sort's")
+    fresh = not np.array_equal(got["pos"][0], got["pos"][1])
+    exp = {"fwd": GPT["n_layers"] * SAMPLER_STEPS}
+    flash = {k: n for k, n in c["flash"].items() if n}
+    print(f"[dense] (c) the first sampled token of the decoder at GPT-2 "
+          f"small's widths ({GPT['n_layers']} layers, vocab {V}, context "
+          f"{T}, batch {B}): range + expand positions, the last position's "
+          f"logits by slice, fp32 softmax, top-p {SAMPLER_TOP_P} by "
+          f"argsort, cumsum, greater_equal, where and sampling_id, the id "
+          f"by one_hot x Indices and reduce_sum; Executor(amp=True)"
+          f".run_steps({SAMPLER_STEPS}), an inference program, captured: "
+          f"{c['ms']:.3f} ms a step, device busy {c['busy']:.3f} ms, idle "
+          f"share {c['idle']:.3f} (a profiled step), peak allocated "
+          f"{c['peak'] / 2 ** 30:.2f} GiB, graph pools "
+          f"{c['pools'] / 2 ** 30:.2f} GiB; {c['snap']}; sampled ids "
+          f"{got['ids'].tolist()} bit-equal to use_jit=False at the same "
+          f"steps, each inside its nucleus (sizes {kept}) and the sort's "
+          f"index at its position; the two replays drew "
+          f"{'different' if fresh else 'the same'} positions; K2 "
+          f"{flash} (expected {exp}), reference route "
+          f"{c['reference_route']}, K1 {c['k1']}; {card}")
+    if flash != exp or c["reference_route"] or c["k1"] or not fresh:
+        raise RuntimeError(f"chip_smoke: [dense] (c) launched K2-K4 "
+                           f"{c['flash']} (reference route "
+                           f"{c['reference_route']}), K1 {c['k1']}, "
+                           f"expected {exp}, none and none; fresh draws "
+                           f"{fresh}")
+    ms = c["ms"]
+    del start, c
+    torch.cuda.empty_cache()
+    return flash, ms
+
+
+def _port_op(op, ins, attrs, device):
+    """The port's op on numpy (or CPU tensor) operands on ``device``:
+    {slot: [tensors]}."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core.executor import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_impl
+    ctx = ExecContext(ptt.Program(), torch.device(device), 0)
+    out = get_op_impl(op)(ctx, {k: [(x if isinstance(x, torch.Tensor)
+                                     else torch.from_numpy(np.asarray(x)))
+                                    .to(device) for x in xs]
+                                for k, xs in ins.items()}, dict(attrs))
+    return {k: (list(x) if isinstance(x, (list, tuple)) else [x])
+            for k, x in out.items()}
+
+
+def dense_tensor_math_ops(card):
+    """The 49 op names of the tensor and math families
+    (paddle_tpu_torch.testing.op_cases) on the card against the port's
+    CPU op on the same operands, fp32 with TF32 off: the float outputs
+    within DENSE_OP_TOL of scale, the integer, bool and index outputs
+    exactly; scatter's accumulation twice bit-equal; the random ops by
+    their bounds and a statistic; top_k on tied rows in fp32 and bf16
+    equal to lax.top_k's Indices; shape, assign_value and is_empty held
+    by a captured step.  Returns (cases, the largest float error as a
+    share of scale)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.testing import op_cases as oc
+    tol = DENSE_OP_TOL[torch.float32]
+    worst = 0.0
+    for name, case in oc.CASES.items():
+        op, ins, attrs, _ = case(oc.rng(name))
+        dev = _port_op(op, ins, attrs, "cuda")
+        cpu = _port_op(op, ins, attrs, "cpu")
+        for slot in cpu:
+            for g, w in zip(dev[slot], cpu[slot]):
+                g = g.cpu()
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise RuntimeError(f"chip_smoke: [dense] op {name} "
+                                       f"{slot}: {g.dtype} {tuple(g.shape)}"
+                                       f" vs {w.dtype} {tuple(w.shape)}")
+                if w.is_floating_point() and w.numel():
+                    fin = torch.isfinite(w)
+                    scale = max(w[fin].abs().max().item(), 1e-30) \
+                        if fin.any() else 1.0
+                    err = (g[fin] - w[fin]).abs().max().item() \
+                        if fin.any() else 0.0
+                    worst = max(worst, err / scale)
+                    if not (err <= tol * scale
+                            and torch.equal(g[~fin], w[~fin])):
+                        raise RuntimeError(f"chip_smoke: [dense] op {name}"
+                                           f" {slot}: max |error| {err:.3e}"
+                                           f" of scale {scale:.3e}")
+                elif not torch.equal(g, w):
+                    raise RuntimeError(f"chip_smoke: [dense] op {name} "
+                                       f"{slot}: {g.tolist()} vs "
+                                       f"{w.tolist()}")
+    op, ins, attrs, _ = oc.CASES["scatter[accumulate]"](
+        oc.rng("scatter[accumulate]"))
+    twice = [_port_op(op, ins, attrs, "cuda")["Out"][0] for _ in range(2)]
+    if not torch.equal(*twice):
+        raise RuntimeError("chip_smoke: [dense] scatter's accumulation "
+                           "differs between two runs on the card")
+    random_stats = {}
+    for name, (op, ins, attrs) in oc.RANDOM_CASES.items():
+        outs = {k: v[0].cpu().numpy()
+                for k, v in _port_op(op, ins, attrs, "cuda").items()}
+        try:
+            random_stats[name] = oc.check_random(name, outs, ins, attrs)
+        except ValueError as e:
+            raise RuntimeError(f"chip_smoke: [dense] {e}") from e
+    ties = 0
+    for x, k, want in oc.TIED_TOP_K:
+        for dtype in (torch.float32, torch.bfloat16):
+            xt = torch.from_numpy(x).to(dtype)
+            dev = _port_op("top_k", {"X": [xt]}, {"k": k}, "cuda")
+            cpu = _port_op("top_k", {"X": [xt]}, {"k": k}, "cpu")
+            idx, vals = dev["Indices"][0].cpu(), dev["Out"][0].cpu()
+            if not (np.array_equal(idx.numpy(), want)
+                    and torch.equal(idx, cpu["Indices"][0])
+                    and torch.equal(vals, cpu["Out"][0])
+                    and vals.dtype == dtype):
+                raise RuntimeError(f"chip_smoke: [dense] top_k on tied "
+                                   f"{DTYPE_LABEL[dtype]} rows: Indices "
+                                   f"{idx.tolist()}, lax.top_k's "
+                                   f"{want.tolist()}")
+            ties += 1
+    # host-valued constants inside a captured step
+    ptt.unique_name.reset()
+    main = ptt.Program()
+    gb = main.global_block()
+    gb.create_var(name="x", shape=[3, 5], dtype="float32")
+    for n in ("s", "v", "e"):
+        gb.create_var(name=n)
+    gb.append_op("shape", {"X": ["x"]}, {"Out": ["s"]}, {})
+    gb.append_op("assign_value", {}, {"Out": ["v"]},
+                 {"values": [1.5, 2.5, -3.0, 4.0], "dtype": "float32",
+                  "shape": [2, 2]})
+    gb.append_op("is_empty", {"X": ["x"]}, {"Out": ["e"]}, {})
+    capture_stats().reset()
+    exe = ptt.Executor()
+    held = exe.run_steps(3, main, feed={"x": np.ones((3, 5), np.float32)},
+                         fetch_list=["s", "v", "e"])
+    snap = capture_stats().snapshot()
+    exe.close()
+    if snap["replays"] != 2 or snap["uncaptured"] or any(
+            np.asarray(held[0])[i].tolist() != [3, 5]
+            or np.asarray(held[1])[i].tolist() != [[1.5, 2.5], [-3.0, 4.0]]
+            or bool(np.asarray(held[2])[i]) for i in range(3)):
+        raise RuntimeError(f"chip_smoke: [dense] shape, assign_value and "
+                           f"is_empty in a captured step: {snap}, "
+                           f"{[np.asarray(h).tolist() for h in held]}")
+    names = {c.split("[")[0] for c in oc.CASES} | set(oc.RANDOM_CASES)
+    print(f"[dense] the {len(names)} tensor and math op names "
+          f"({len(oc.CASES)} cases, paddle_tpu_torch/testing/op_cases.py) "
+          f"on the card vs the port's CPU op on the same operands, fp32: "
+          f"float outputs within {worst:.2e} of scale (limit {tol:g}), "
+          f"integer, bool and index outputs equal; scatter's accumulation "
+          f"bit-equal twice; random ops: "
+          + "; ".join(f"{k} {v}" for k, v in random_stats.items())
+          + f"; top_k on {ties} tied fp32 and bf16 rows equal to "
+          f"lax.top_k's Indices and the CPU op's; shape, assign_value and "
+          f"is_empty held by a captured step ({snap['replays']} replays); "
+          f"{card}")
+    return len(oc.CASES), worst
+
+
 def phase_dense(seed, card, cli_train_forms):
     """The dense op families on the card (see the module docstring).
     ``cli_train_forms`` are [cli]'s --job train K1 launches, printed a
@@ -9130,16 +9429,34 @@ def phase_dense(seed, card, cli_train_forms):
         t0 = time.perf_counter()
         flash, b_ms, b_peak = dense_gpt(seed, card)
         t_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c_flash, c_ms = dense_sampler(seed, card)
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            dense_tensor_math_ops(card)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        t_ops = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.deterministic = saved
         fresh_defaults(seed)
     conv1x1.mm.by_form.clear()
     secs = time.perf_counter() - t_phase
     print(f"[dense] phase {secs:.1f} s (budget {DENSE_BUDGET_S:.0f} s; by "
-          f"part a {t_a:.1f} s, b {t_b:.1f} s); (a) {a_ms:.3f} ms a step, "
-          f"peak {a_peak / 2 ** 30:.2f} GiB; (b) {b_ms:.3f} ms a step, peak "
-          f"{b_peak / 2 ** 30:.2f} GiB; {card}")
-    return forms, flash
+          f"part a {t_a:.1f} s, b {t_b:.1f} s, c {t_c:.1f} s, ops "
+          f"{t_ops:.1f} s); (a) {a_ms:.3f} ms a step, peak "
+          f"{a_peak / 2 ** 30:.2f} GiB; (b) {b_ms:.3f} ms a step, peak "
+          f"{b_peak / 2 ** 30:.2f} GiB; (c) {c_ms:.3f} ms a step; {card}")
+    # K2 runs in (b)'s training steps and (c)'s forwards
+    flash = collections.Counter(flash)
+    flash.update(c_flash)
+    return forms, dict(flash)
 
 
 def attention_entries(row, launches):
@@ -9489,7 +9806,8 @@ def main():
         k["tune_launches"] = tune_flash_launches[name]
     # [compile]'s exported long-context forward launches K2 alone
     kernels[-3]["compile_export_launches"] = compile_k2
-    # [dense]'s decoder (b) launches K2-K4 once a layer a step
+    # [dense]'s decoder (b) launches K2-K4 once a layer a step, its
+    # sampler (c) K2 once a layer a step
     for k, name in zip(kernels[-3:], ATT_REPLACES):
         k["dense_launches"] = dense_flash.get(name, 0)
     for k in kernels[-3:]:
@@ -9501,7 +9819,8 @@ def main():
               + ("" if "compile_export_launches" not in k else
                  f", {k['compile_export_launches']} in [compile]'s "
                  f"exported forward")
-              + f", {k['dense_launches']} in [dense]'s decoder")
+              + f", {k['dense_launches']} in [dense]'s decoder (b) and "
+              f"sampler (c)")
     kernels += zoo_entries
     for k in zoo_entries:
         red = "" if "reduce_ms" not in k else \

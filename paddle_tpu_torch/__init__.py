@@ -30,8 +30,10 @@ of ``benchmark/inference.py`` (``io``, ``export_compiled_model`` /
 metrics, the JSONL log, spans, the NaN bisect, the per-op profiler, the
 doctor's measured budgets; ``profiler``; ``testing.lockwatch``), the
 dense op families (activation, nn, loss, metric, with ``top_k``,
-``one_hot``, ``argmax``, ``transpose`` and the ``reduce_*`` ops), their
-layers, ``evaluator`` and ``metrics``, and two kernels of the
+``one_hot``, ``argmax``, ``transpose`` and the ``reduce_*`` ops), the
+tensor and math op families (every op of the JAX package's
+``tensor_ops.py`` and ``math_ops.py``), their layers, ``evaluator`` and
+``metrics``, and two kernels of the
 framework: the 1x1-convolution matrix product with its gradients and
 epilogues (``ops/conv1x1.py``) and flash attention, forward and backward
 (``ops/flash_attention.py``).

@@ -337,6 +337,18 @@ def filled_from_attrs(out: str = "Out", default_dtype="float32"):
     return rule
 
 
+def passthrough(*slots, out: str = "Out"):
+    """First present input slot forwards to ``out`` (feed/fetch)."""
+
+    def rule(op, ins, attrs):
+        for s in slots:
+            if ins.get(s):
+                return {out: ins[s][0]}
+        return {}
+
+    return rule
+
+
 def no_outputs():
     """Side-effect-only ops (save/load/assert): nothing to infer."""
 

@@ -294,7 +294,8 @@ class ExecContext:
 
 
 # Random ops draw from ExecContext.generator; dropout only in training.
-RANDOM_OPS = ("uniform_random", "gaussian_random", "dropout")
+RANDOM_OPS = ("uniform_random", "gaussian_random", "dropout",
+              "truncated_gaussian_random", "sampling_id", "shuffle")
 # A step's draws of one stream start STEP_OFFSET Philox counters after
 # the previous step's: far more than one op draws in a step (a call
 # advances the counter by 4 per element a thread handles, at most).
@@ -596,8 +597,8 @@ def _written_persistables(program: Program) -> List[str]:
 
 def _random_streams(program: Program, is_test: bool) -> List[tuple]:
     """The stream keys of the ops a step of ``program`` draws random
-    numbers in (dropout in training, uniform_random, gaussian_random): a
-    capture registers their generators with the graph."""
+    numbers in (``RANDOM_OPS``; dropout only in training): a capture
+    registers their generators with the graph."""
     def compute():
         return [_stream_key(program, op) for b in program.blocks
                 for op in b.ops if op.type in RANDOM_OPS and not (
@@ -811,6 +812,11 @@ class ProgramModule(torch.nn.Module):
 # ---------------------------------------------------------------------------
 class Executor:
     """Run a Program on one device (``place``, default ``CUDAPlace(0)``).
+    The parameters come in the JAX package's order (``place``,
+    ``use_jit``, ``check_nan_inf``, ``amp``, ``auto_layout``,
+    ``compiler_options``, ...), so ``Executor(place, True)`` is a captured
+    run in both.  ``auto_layout`` and ``compiler_options`` are XLA's and
+    only their defaults are accepted.
 
     ``use_jit=True`` (the default) on a card: ``run`` and ``run_steps``
     dispatch each step as a replay of a CUDA graph captured from the
@@ -820,10 +826,11 @@ class Executor:
     ``conv1x1_pallas`` and the device.  A key's first step runs
     interpreted on the capture's side stream (the warm-up: kernels build,
     cuBLAS makes its handles there); its second step is captured and
-    replayed; later steps replay.  Random ops (dropout in training,
-    ``uniform_random``, ``gaussian_random``) draw from one generator an
-    op, kept per (executor, program) and placed at each step's index
-    (``ExecContext.generator``), so a step draws the same numbers
+    replayed; later steps replay.  Random ops (``RANDOM_OPS``: dropout
+    in training, ``uniform_random``, ``gaussian_random``,
+    ``truncated_gaussian_random``, ``sampling_id``, ``shuffle``) draw
+    from one generator an op, kept per (executor, program) and placed at
+    each step's index (``ExecContext.generator``), so a step draws the same numbers
     interpreted, warmed up or replayed, and differs from step to step.
     A failed capture raises, and so does a step with a random op on a
     torch that cannot register a generator with a graph.
@@ -870,14 +877,25 @@ class Executor:
     MAX_CACHED_STEPS = 64
     GRAPH_BYTES_SHARE = 0.5
 
-    def __init__(self, place: Optional[Place] = None, amp: bool = False,
-                 conv1x1_pallas: Optional[bool] = None,
-                 use_jit: bool = True, retry_policy=None,
-                 observe: Optional[bool] = None,
-                 check_nan_inf: bool = False,
+    def __init__(self, place: Optional[Place] = None, use_jit: bool = True,
+                 check_nan_inf: bool = False, amp: bool = False,
+                 auto_layout: bool = False,
+                 compiler_options: Optional[Dict[str, object]] = None,
                  compute_dtype: Optional[str] = None,
+                 conv1x1_pallas: Optional[bool] = None,
                  validate: Optional[bool] = None,
+                 observe: Optional[bool] = None,
+                 retry_policy=None,
                  autotune: Optional[bool] = None):
+        if auto_layout:
+            raise ValueError(
+                "Executor(auto_layout=True): XLA's choice of parameter "
+                "layouts has no counterpart on the card; the port keeps "
+                "PyTorch's layouts")
+        if compiler_options:
+            raise ValueError(
+                f"Executor(compiler_options={compiler_options!r}): XLA "
+                f"compiler options have no counterpart on the card")
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.amp = amp

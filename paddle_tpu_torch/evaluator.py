@@ -94,8 +94,8 @@ class ChunkEvaluator(Evaluator):
                  **kwargs):
         raise NotImplementedError(
             "evaluator.ChunkEvaluator is not ported yet: it needs the "
-            "chunk_eval op of the CRF family, ROADMAP.md Queue A item 4 "
-            "(the remaining ops and layers)")
+            "chunk_eval op of the CRF family, ROADMAP.md Queue A item 4d "
+            "(the CRF and embedding families)")
 
 
 class RankAuc:

@@ -1,5 +1,5 @@
 """Control-flow layer functions (counterpart of ``increment``,
-``less_than`` and ``StaticRNN`` in
+``less_than``, ``equal`` and ``StaticRNN`` in
 ``paddle_tpu/layers/control_flow.py``; ``While``,
 ``DynamicRNN`` and the conditionals come with the slices that use
 them)."""
@@ -10,7 +10,7 @@ import contextlib
 from ..core import unique_name
 from ..layer_helper import LayerHelper
 
-__all__ = ["increment", "less_than", "StaticRNN"]
+__all__ = ["increment", "less_than", "equal", "StaticRNN"]
 
 
 def increment(x, value=1.0, in_place=True):
@@ -24,14 +24,23 @@ def increment(x, value=1.0, in_place=True):
     return out
 
 
-def less_than(x, y, cond=None):
-    """x < y elementwise, a bool var."""
-    helper = LayerHelper("less_than")
+def _cmp(op, x, y, cond=None):
+    helper = LayerHelper(op)
     if cond is None:
         cond = helper.create_variable_for_type_inference("bool")
-    helper.append_op(type="less_than", inputs={"X": [x], "Y": [y]},
+    helper.append_op(type=op, inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [cond]})
     return cond
+
+
+def less_than(x, y, cond=None):
+    """x < y elementwise, a bool var."""
+    return _cmp("less_than", x, y, cond)
+
+
+def equal(x, y, cond=None):
+    """x == y elementwise, a bool var."""
+    return _cmp("equal", x, y, cond)
 
 
 class StaticRNN:

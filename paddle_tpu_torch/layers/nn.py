@@ -4,10 +4,15 @@ with the same attrs as its JAX twin, so both packages build the same
 program.  Ported: the layers of the ResNet serving and training paths,
 the gradient clips, the attention slice, the seq2seq slice, the model
 zoo (``models/``, ``nets``), the learning-rate schedules
-(``lr_decay.py``), and the dense layers over the activation, nn, loss,
+(``lr_decay.py``), the dense layers over the activation, nn, loss,
 metric, index and reduction ops (classification heads, ``layer_norm``,
 the losses, ``accuracy``/``auc``, ``topk``, ``one_hot``, ``transpose``,
-``reduce_*``, the 3-D and transposed convolutions, pooling variants)."""
+``reduce_*``, the 3-D and transposed convolutions, pooling variants),
+and the layers over the tensor and math ops (``crop``, ``pad``,
+``expand``, ``multiplex``, ``sampling_id``, ``elementwise_pow``,
+``l2_normalize``, and the v1 attention and CTR layers ``conv_shift``,
+``interpolation``, ``outer_prod``, ``factorization_machine``,
+``scale_sub_region``)."""
 from __future__ import annotations
 
 from ..core import unique_name
@@ -32,7 +37,10 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
            "pool3d", "spp", "prelu", "log_loss", "hinge_loss", "huber_loss",
            "rank_loss", "lambda_rank", "margin_rank_loss",
            "squared_l2_distance", "squared_l2_norm", "kldiv_loss",
-           "modified_huber_loss", "bilinear_tensor_product"]
+           "modified_huber_loss", "bilinear_tensor_product", "crop", "pad",
+           "expand", "multiplex", "sampling_id", "elementwise_pow",
+           "l2_normalize", "conv_shift", "interpolation", "outer_prod",
+           "factorization_machine", "scale_sub_region"]
 
 
 def _pair(v):
@@ -47,8 +55,10 @@ def _conv_out(size, k, p, s, d=1):
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
-       act=None, is_test=False, name=None):
-    """Fully connected: mul + sum + bias + act.  A list of inputs (with
+       act=None, is_test=False, name=None, use_mkldnn=False):
+    """Fully connected: mul + sum + bias + act (``use_mkldnn``, the
+    reference's CPU-library switch, is accepted and ignored, as in the
+    JAX package).  A list of inputs (with
     one ``param_attr`` each, or one for all) is projected input by input
     and summed.  A sequence input flattened at ``num_flatten_dims`` >= 2
     keeps its lod level, and its ``@LEN`` is copied to the output."""
@@ -531,6 +541,10 @@ def elementwise_max(x, y, axis=-1, act=None, name=None):
 
 def elementwise_min(x, y, axis=-1, act=None, name=None):
     return _elementwise_layer("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_pow", x, y, axis, act, name)
 
 
 def _unary_layer(op_type, x, attrs=None, name=None):
@@ -1201,4 +1215,122 @@ def prelu(x, mode="all", param_attr=None, name=None):
     out = helper.create_variable_for_type_inference(x.dtype, x.shape)
     helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
                      outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x over its L2 norm along ``axis`` (floored at ``epsilon``)."""
+    return _unary_layer("l2_normalize", x,
+                        {"axis": axis, "epsilon": epsilon}, name)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    """Constant padding, ``paddings`` = [before0, after0, before1, ...]."""
+    return _unary_layer("pad", x, {"paddings": list(paddings),
+                                   "pad_value": float(pad_value)}, name)
+
+
+def expand(x, expand_times, name=None):
+    """Each dim tiled ``expand_times`` times."""
+    helper = LayerHelper("expand", name=name)
+    shape = None
+    if x.shape is not None:
+        shape = tuple(s * t if s is not None and s >= 0 else s
+                      for s, t in zip(x.shape, expand_times))
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op(type="expand", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def multiplex(inputs, index, name=None):
+    """Row i of candidate ``index[i]`` among ``inputs``."""
+    helper = LayerHelper("multiplex", name=name)
+    out = helper.create_variable_for_type_inference(
+        inputs[0].dtype, inputs[0].shape)
+    helper.append_op(type="multiplex",
+                     inputs={"X": list(inputs), "Ids": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def crop(x, shape, offsets=None, name=None):
+    """The window of ``shape`` at static ``offsets`` (a -1 in ``shape``
+    keeps the axis to its end)."""
+    helper = LayerHelper("crop", name=name)
+    offsets = offsets or [0] * len(shape)
+    out = helper.create_variable_for_type_inference(x.dtype, tuple(shape))
+    helper.append_op(type="crop", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "offsets": list(offsets)})
+    return out
+
+
+def sampling_id(x, name=None):
+    """One int64 id a row, drawn from the row's probabilities."""
+    helper = LayerHelper("sampling_id", name=name)
+    out = helper.create_variable_for_type_inference(
+        "int64", (x.shape[0],))
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def conv_shift(x, y, name=None):
+    """Circular correlation (NTM attention shift): X [B, M], Y [B, N
+    odd]."""
+    helper = LayerHelper("conv_shift", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op(type="conv_shift", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def interpolation(w, x, y, name=None):
+    """w * x + (1 - w) * y with a weight a row, w [B, 1]."""
+    helper = LayerHelper("interpolation", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op(type="interpolation",
+                     inputs={"W": [w], "X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def outer_prod(x, y, name=None):
+    """Each row's outer product, flattened to [B, M * N]."""
+    helper = LayerHelper("outer_prod", name=name)
+    shape = None
+    if x.shape and y.shape and x.shape[1] > 0 and y.shape[1] > 0:
+        shape = (x.shape[0], x.shape[1] * y.shape[1])
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op(type="outer_prod", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def factorization_machine(input, factor_size, param_attr=None, name=None):
+    """A factorization machine's second-order term, [B, 1], over a
+    parameter V [D, factor_size]."""
+    helper = LayerHelper("factorization_machine", param_attr=param_attr,
+                         name=name)
+    v = helper.create_parameter(param_attr, shape=[input.shape[-1],
+                                                   factor_size],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(
+        input.dtype, (input.shape[0], 1))
+    helper.append_op(type="factorization_machine",
+                     inputs={"X": [input], "V": [v]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def scale_sub_region(x, indices, value=1.0, name=None):
+    """x [B, C, H, W] times ``value`` inside each sample's 1-based
+    inclusive box, indices [B, 6] = (c1, c2, h1, h2, w1, w2)."""
+    helper = LayerHelper("scale_sub_region", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op(type="scale_sub_region",
+                     inputs={"X": [x], "Indices": [indices]},
+                     outputs={"Out": [out]}, attrs={"value": value})
     return out

@@ -1,8 +1,16 @@
-"""Math ops of the ported paths (counterpart of the elementwise family,
-``mul``, ``matmul``, ``mean``, ``scale``, ``increment``, ``sum``,
-``sign``, ``clip``, ``clip_by_norm``, ``cast``, ``pow`` and
-``less_than`` in ``paddle_tpu/ops/math_ops.py`` and ``squared_l2_norm``
-in ``paddle_tpu/ops/loss_ops.py``)."""
+"""Math ops (counterpart of every lowering in
+``paddle_tpu/ops/math_ops.py``: the elementwise family with ``pow`` and
+``mod``, ``mul``, ``matmul``, ``sum``, ``mean``, ``scale``, ``minus``,
+``cast``, ``clip``, ``clip_by_norm``, ``sign``, ``pow``, ``increment``,
+the comparisons and logical ops, the ``reduce_*`` family,
+``abs_diff``/``squared_difference``, ``cumsum``, ``isfinite``,
+``l2_normalize``/``norm``, and the v1 attention and CTR ops
+``conv_shift``, ``interpolation``, ``outer_prod``,
+``factorization_machine``, ``scale_sub_region``; and
+``squared_l2_norm`` of ``paddle_tpu/ops/loss_ops.py``).
+
+``abs_diff`` squares the difference, as the JAX package's does (one
+lowering for both names; ROADMAP Queue C)."""
 from __future__ import annotations
 
 import torch
@@ -40,6 +48,9 @@ register_op("elementwise_mul")(_elementwise(torch.mul))
 register_op("elementwise_div")(_elementwise(torch.div))
 register_op("elementwise_max")(_elementwise(torch.maximum))
 register_op("elementwise_min")(_elementwise(torch.minimum))
+register_op("elementwise_pow")(_elementwise(torch.pow))
+# jnp.mod is a floor modulo (the result takes the divisor's sign)
+register_op("elementwise_mod")(_elementwise(torch.remainder))
 
 
 def _prod(t):
@@ -132,10 +143,38 @@ def _pow(ctx, ins, attrs):
     return {"Out": torch.pow(ins["X"][0], attrs.get("factor", 1.0))}
 
 
-@register_op("less_than")
-def _less_than(ctx, ins, attrs):
-    x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
-    return {"Out": torch.lt(x, y)}
+@register_op("minus")
+def _minus(ctx, ins, attrs):
+    return {"Out": ins["X"][0] - ins["Y"][0]}
+
+
+def _compare(fn):
+    def impl(ctx, ins, attrs):
+        x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+        return {"Out": fn(x, y)}
+    return impl
+
+
+register_op("equal")(_compare(torch.eq))
+register_op("not_equal")(_compare(torch.ne))
+register_op("less_than")(_compare(torch.lt))
+register_op("less_equal")(_compare(torch.le))
+register_op("greater_than")(_compare(torch.gt))
+register_op("greater_equal")(_compare(torch.ge))
+
+
+def _logical(fn, unary=False):
+    def impl(ctx, ins, attrs):
+        if unary:
+            return {"Out": fn(ins["X"][0].bool())}
+        return {"Out": fn(ins["X"][0].bool(), ins["Y"][0].bool())}
+    return impl
+
+
+register_op("logical_and")(_logical(torch.logical_and))
+register_op("logical_or")(_logical(torch.logical_or))
+register_op("logical_xor")(_logical(torch.logical_xor))
+register_op("logical_not")(_logical(torch.logical_not, unary=True))
 
 
 @register_op("clip")
@@ -159,6 +198,93 @@ def _squared_l2_norm(ctx, ins, attrs):
     x = ins["X"][0]
     return {"Out": torch.sum(x * x).reshape(1)}
 
+
+
+@register_op("abs_diff", "squared_difference")
+def _sq_diff(ctx, ins, attrs):
+    d = ins["X"][0] - ins["Y"][0]
+    return {"Out": d * d}
+
+
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs):
+    """The running sum along ``axis`` (default the last); an integer sum
+    keeps X's dtype, as ``jnp.cumsum``'s does."""
+    x = ins["X"][0]
+    dt = None if x.is_floating_point() or x.dtype == torch.bool else x.dtype
+    return {"Out": torch.cumsum(x, dim=attrs.get("axis", -1), dtype=dt)}
+
+
+@register_op("isfinite")
+def _isfinite(ctx, ins, attrs):
+    """One bool: every element of X is finite (kept on the device)."""
+    return {"Out": torch.isfinite(ins["X"][0]).all()}
+
+
+@register_op("l2_normalize", "norm")
+def _l2_normalize(ctx, ins, attrs):
+    """X over its L2 norm along ``axis``, the norm floored at
+    ``epsilon``."""
+    x = ins["X"][0]
+    norm = torch.sqrt(torch.sum(x * x, dim=attrs.get("axis", -1),
+                                keepdim=True))
+    return {"Out": x / torch.clamp_min(norm, attrs.get("epsilon", 1e-12))}
+
+
+@register_op("conv_shift")
+def _conv_shift(ctx, ins, attrs):
+    """Circular correlation (ConvShiftLayer, an NTM attention shift):
+    X [B, M], Y [B, N] with N odd, Out[b, i] = sum_j
+    X[b, (i + j - N // 2) % M] * Y[b, j], summed in j's order."""
+    x, y = ins["X"][0], ins["Y"][0]
+    n = y.shape[1]
+    out = 0
+    for j in range(n):
+        out = out + torch.roll(x, n // 2 - j, dims=1) * y[:, j:j + 1]
+    return {"Out": out}
+
+
+@register_op("interpolation")
+def _interpolation(ctx, ins, attrs):
+    """W * X + (1 - W) * Y with one weight a row, W [B, 1]."""
+    w, x, y = ins["W"][0], ins["X"][0], ins["Y"][0]
+    w = w.reshape((-1,) + (1,) * (x.dim() - 1))
+    return {"Out": w * x + (1.0 - w) * y}
+
+
+@register_op("outer_prod")
+def _outer_prod(ctx, ins, attrs):
+    """Each row's outer product X[b] Y[b]^T, flattened to [B, M * N]."""
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": (x[:, :, None] * y[:, None, :]).reshape(x.shape[0], -1)}
+
+
+@register_op("factorization_machine")
+def _factorization_machine(ctx, ins, attrs):
+    """The second-order term of a factorization machine
+    (FactorizationMachineLayer): 0.5 * sum_k((X V)_k^2 - (X^2 V^2)_k),
+    [B, 1]."""
+    x, v = ins["X"][0], ins["V"][0]
+    xv = x @ v
+    return {"Out": 0.5 * torch.sum(xv * xv - (x * x) @ (v * v), dim=1,
+                                   keepdim=True)}
+
+
+@register_op("scale_sub_region")
+def _scale_sub_region(ctx, ins, attrs):
+    """X [B, C, H, W] times ``value`` inside each sample's box, Indices
+    [B, 6] = (c1, c2, h1, h2, w1, w2), 1-based and inclusive."""
+    x, idx = ins["X"][0], ins["Indices"][0].to(torch.int64)
+    B, C, H, W = x.shape
+    i = idx.reshape(B, 6, 1, 1, 1) - 1
+
+    def within(n, lo, hi, shape):
+        r = torch.arange(n, device=x.device).reshape(shape)
+        return (r >= i[:, lo]) & (r <= i[:, hi])
+
+    mask = within(C, 0, 1, (1, C, 1, 1)) & within(H, 2, 3, (1, 1, H, 1)) \
+        & within(W, 4, 5, (1, 1, 1, W))
+    return {"Out": torch.where(mask, x * attrs.get("value", 1.0), x)}
 
 
 # -- reductions (reduce_op.cc: dim/keep_dim/reduce_all attrs) ---------------
@@ -217,12 +343,21 @@ from ..core.registry import register_shape_fn  # noqa: E402
 
 register_shape_fn(
     "elementwise_add", "elementwise_sub", "elementwise_mul",
-    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_div", "elementwise_pow", "elementwise_max",
+    "elementwise_min", "elementwise_mod",
 )(elementwise())
-register_shape_fn("less_than")(elementwise(dtype="bool"))
 register_shape_fn(
-    "scale", "clip", "clip_by_norm", "sign", "pow", "increment",
+    "equal", "not_equal", "less_than", "less_equal", "greater_than",
+    "greater_equal",
+)(elementwise(dtype="bool"))
+register_shape_fn("logical_and", "logical_or", "logical_xor")(
+    elementwise(dtype="bool"))
+register_shape_fn("logical_not")(same_as("X", dtype="bool"))
+register_shape_fn(
+    "scale", "minus", "clip", "clip_by_norm", "sign", "pow", "increment",
+    "cumsum", "l2_normalize", "norm", "interpolation", "scale_sub_region",
 )(same_as("X"))
+register_shape_fn("abs_diff", "squared_difference")(elementwise())
 register_shape_fn("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
                   "reduce_prod")(reduce_rule())
 
@@ -326,6 +461,45 @@ def _squared_l2_norm_shape(op, ins, attrs):
     return {"Out": VarInfo((1,), first(ins, "X").dtype)}
 
 
+@register_shape_fn("isfinite")
+def _isfinite_shape(op, ins, attrs):
+    return {"Out": VarInfo((), "bool")}
+
+
+@register_shape_fn("conv_shift")
+def _conv_shift_shape(op, ins, attrs):
+    x, y = first(ins, "X"), first(ins, "Y")
+    if x.shape is not None and y.shape is not None and \
+            len(y.shape) == 2 and y.shape[1] >= 0 and y.shape[1] % 2 == 0:
+        raise ShapeError(f"conv_shift: Y width must be odd, got "
+                         f"{y.shape[1]}")
+    return {"Out": x}
+
+
+@register_shape_fn("outer_prod")
+def _outer_prod_shape(op, ins, attrs):
+    x, y = first(ins, "X"), first(ins, "Y")
+    if x.shape is None or y.shape is None:
+        return {"Out": VarInfo(None, x.dtype)}
+    if len(x.shape) != 2 or len(y.shape) != 2:
+        raise ShapeError("outer_prod: X and Y must be rank-2")
+    m, n = x.shape[1], y.shape[1]
+    return {"Out": VarInfo((x.shape[0], -1 if m < 0 or n < 0 else m * n),
+                           x.dtype)}
+
+
+@register_shape_fn("factorization_machine")
+def _fm_shape(op, ins, attrs):
+    x, v = first(ins, "X"), first(ins, "V")
+    if x.shape is not None and v.shape is not None and \
+            not dim_ok(x.shape[-1], v.shape[0]):
+        raise ShapeError(
+            f"factorization_machine: X feature dim {x.shape[-1]} vs V rows "
+            f"{v.shape[0]}")
+    b = x.shape[0] if x.shape is not None else -1
+    return {"Out": VarInfo((b, 1), x.dtype)}
+
+
 # ---------------------------------------------------------------------------
 # Sharding-propagation rules (analysis.shard_prop).  mul carries the
 # Megatron contract: row dims follow X, col dims follow Y, and a sharded
@@ -339,14 +513,21 @@ from ..core.registry import register_shard_fn  # noqa: E402
 
 register_shard_fn(
     "elementwise_add", "elementwise_sub", "elementwise_mul",
-    "elementwise_div", "elementwise_max", "elementwise_min", "less_than",
+    "elementwise_div", "elementwise_pow", "elementwise_max",
+    "elementwise_min", "elementwise_mod", "equal", "not_equal",
+    "less_than", "less_equal", "greater_than", "greater_equal",
+    "logical_and", "logical_or", "logical_xor", "abs_diff",
+    "squared_difference",
 )(shard_elementwise())
 register_shard_fn(
-    "scale", "clip", "clip_by_norm", "sign", "pow", "increment", "cast",
+    "logical_not", "scale", "minus", "clip", "clip_by_norm", "sign",
+    "pow", "increment", "cumsum", "l2_normalize", "norm",
+    "interpolation", "scale_sub_region", "cast",
 )(shard_same_as("X"))
 register_shard_fn("mul")(shard_mul())
 register_shard_fn("matmul")(shard_matmul())
-register_shard_fn("mean", "squared_l2_norm")(shard_replicated("Out"))
+register_shard_fn("mean", "squared_l2_norm",
+                  "isfinite")(shard_replicated("Out"))
 register_shard_fn("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
                   "reduce_prod")(shard_reduce())
 

@@ -1,18 +1,37 @@
-"""Tensor ops (counterpart of the ``fill_constant``,
-``fill_constant_batch_size_like``, ``uniform_random``,
-``gaussian_random``, ``reshape``, ``squeeze``, ``unsqueeze``,
-``transpose``, ``concat``, ``split``, ``gather``, ``top_k``,
-``argmax`` (``arg_max``, ``max_ids``) and ``one_hot`` lowerings in
-``paddle_tpu/ops/tensor_ops.py``).
+"""Tensor ops (counterpart of the lowerings in
+``paddle_tpu/ops/tensor_ops.py``: the creation ops ``fill_constant``,
+``fill_constant_batch_size_like``, ``fill_zeros_like``,
+``fill_any_like``, ``assign``, ``assign_value``, ``shape``, ``range``,
+the random ops ``uniform_random``, ``gaussian_random``,
+``truncated_gaussian_random``, ``sampling_id``, ``shuffle``, the layout
+ops ``reshape``, ``squeeze``, ``unsqueeze``, ``transpose``, ``concat``,
+``split``, ``pad``, ``crop``, ``expand``, ``tile``, ``slice``,
+``flatten``, ``stack``, ``unstack``, ``reverse``, and the index ops
+``gather``, ``scatter``, ``multiplex``, ``top_k``, ``argmax``
+(``arg_max``, ``max_ids``), ``argsort``, ``one_hot``, ``where``
+(``select``), ``is_empty``, with ``feed``/``fetch``).
+
 Random ops draw from a ``torch.Generator`` the executor keeps per op
 and places at each step (``ExecContext.generator``); the numbers differ
-from JAX's, the distributions do not."""
+from JAX's, the distributions do not.  They are built from draws a CUDA
+graph can hold (``uniform_``, ``rand``): ``sampling_id`` is a Gumbel-max
+draw, as ``jax.random.categorical``, and ``shuffle`` sorts random keys,
+in place of ``torch.multinomial`` and ``torch.randperm``.
+
+No op reads a tensor back to the host, and none copies host memory
+inside a captured step: ``shape`` and ``assign_value`` take their
+constants from :func:`_constant`, copied to the card once by a step that
+is not captured; ``is_empty`` is a fill."""
 from __future__ import annotations
+
+import math
+import weakref
 
 import torch
 
 from ..core.registry import register_op
 from ..core.types import to_torch_dtype
+from .generation_ops import top_k as _tie_exact_top_k
 
 
 @register_op("fill_constant")
@@ -136,11 +155,19 @@ def _transpose(ctx, ins, attrs):
 
 @register_op("top_k")
 def _top_k(ctx, ins, attrs):
-    """The k largest along the last dim, descending, with their int64
-    indices."""
-    vals, idx = torch.topk(ins["X"][0], attrs["k"], dim=-1, largest=True,
-                           sorted=True)
-    return {"Out": vals, "Indices": idx.to(torch.int64)}
+    """The k largest along the last dim, descending, equal values in
+    ascending index order as ``lax.top_k`` puts them, with their int64
+    indices.  fp32, bf16 and fp16 rank by ``generation_ops.top_k``'s
+    tie-exact key (the half types widened to fp32, which is exact);
+    other dtypes by a stable descending sort.  The values are gathered
+    from X in its own dtype."""
+    x, k = ins["X"][0], attrs["k"]
+    if x.dtype in (torch.float32, torch.bfloat16, torch.float16):
+        _, idx = _tie_exact_top_k(x.float(), k)
+    else:
+        idx = torch.sort(x, dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+    return {"Out": torch.gather(x, -1, idx), "Indices": idx}
 
 
 @register_op("argmax", "arg_max", "max_ids")
@@ -163,17 +190,307 @@ def _one_hot(ctx, ins, attrs):
     return {"Out": (x.to(torch.int64).unsqueeze(-1) == classes)
             .to(torch.float32)}
 
+
+@register_op("feed", "fetch")
+def _feed_fetch(ctx, ins, attrs):
+    """Kept for program parity: the executor feeds and fetches by name,
+    so these pass X through (or do nothing)."""
+    if ins.get("X"):
+        return {"Out": ins["X"][0]}
+    return {}
+
+
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    return {"Out": ins["X"][0]}
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ctx, ins, attrs):
+    return {"Out": torch.zeros_like(ins["X"][0])}
+
+
+@register_op("fill_any_like")
+def _fill_any_like(ctx, ins, attrs):
+    """X's shape and dtype filled with ``value``."""
+    return {"Out": torch.full_like(ins["X"][0], attrs.get("value", 0.0))}
+
+
+# the constants of shape and assign_value on a card, by op: a step that is
+# not captured copies them from the host once; a captured step clones them
+# (a copy from pageable host memory cannot be captured)
+_CONSTANTS = weakref.WeakKeyDictionary()
+
+
+def _constant(ctx, values, dtype, device):
+    """A fresh tensor of the host ``values`` on ``device``, with no copy
+    from the host inside a capture."""
+    if device.type != "cuda":
+        return torch.tensor(values, dtype=dtype, device=device)
+    key = (str(device), dtype, repr(values))
+    made = _CONSTANTS.setdefault(ctx.op, {}) if ctx.op is not None else {}
+    t = made.get(key)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"paddle_tpu_torch: the constant {values!r} of op "
+                f"{getattr(ctx.op, 'type', None)!r} was not made before "
+                f"the capture (a step runs uncaptured first)")
+        t = made[key] = torch.tensor(values, dtype=dtype).to(device)
+    return t.clone()
+
+
+@register_op("shape")
+def _shape(ctx, ins, attrs):
+    """X's dims as an int64 vector (int32 in the JAX package, which has
+    no int64 without x64)."""
+    x = ins["X"][0]
+    return {"Out": _constant(ctx, list(x.shape), torch.int64, x.device)}
+
+
+@register_op("assign_value")
+def _assign_value(ctx, ins, attrs):
+    """The ``values`` attr as a tensor of ``dtype``, reshaped to
+    ``shape`` if given."""
+    out = _constant(ctx, attrs["values"],
+                    to_torch_dtype(attrs.get("dtype", "float32")),
+                    ctx.device)
+    if attrs.get("shape"):
+        out = out.reshape(tuple(attrs["shape"]))
+    return {"Out": out}
+
+
+@register_op("range")
+def _range(ctx, ins, attrs):
+    """``jnp.arange(start, end, step)`` in ``dtype`` (int64 by default)."""
+    return {"Out": torch.arange(attrs["start"], attrs["end"],
+                                attrs.get("step", 1),
+                                dtype=to_torch_dtype(attrs.get("dtype",
+                                                               "int64")),
+                                device=ctx.device)}
+
+
+# jax.random.truncated_normal(key, -2, 2): a uniform draw between the
+# normal CDF's values at the cut points, mapped through the inverse CDF,
+# clipped inside the cut
+_TRUNC = 2.0
+_ERF_CUT = math.erf(_TRUNC / math.sqrt(2.0))
+
+
+@register_op("truncated_gaussian_random")
+def _truncated_gaussian_random(ctx, ins, attrs):
+    """A normal of ``mean`` and ``std`` cut at 2 std, drawn by the
+    inverse CDF of a uniform draw."""
+    dt = to_torch_dtype(attrs.get("dtype", "float32"))
+    shape = tuple(attrs.get("shape", []))
+    u = torch.empty(shape, device=ctx.device, dtype=torch.float32)
+    u.uniform_(-_ERF_CUT, _ERF_CUT, generator=ctx.generator())
+    edge = math.nextafter(_TRUNC, 0.0)
+    z = torch.clamp(math.sqrt(2.0) * torch.erfinv(u), -edge, edge)
+    return {"Out": (z * attrs.get("std", 1.0) + attrs.get("mean", 0.0))
+            .to(dt)}
+
+
+@register_op("sampling_id")
+def _sampling_id(ctx, ins, attrs):
+    """One int64 id a row of the [B, V] probabilities X, drawn from
+    log(clip(X, 1e-20)) by Gumbel-max (``jax.random.categorical``'s
+    draw): argmax of the log-probabilities plus -log(-log(u)), u uniform
+    in [tiny, 1)."""
+    logp = torch.log(torch.clamp_min(ins["X"][0].float(), 1e-20))
+    u = torch.empty_like(logp)
+    u.uniform_(torch.finfo(torch.float32).tiny, 1.0,
+               generator=ctx.generator())
+    return {"Out": torch.argmax(logp - torch.log(-torch.log(u)), dim=-1)}
+
+
+@register_op("shuffle")
+def _shuffle(ctx, ins, attrs):
+    """X's rows (axis 0) in a random order: the order that sorts fp64
+    uniform keys, one a row."""
+    x = ins["X"][0]
+    keys = torch.rand(x.shape[0], generator=ctx.generator(),
+                      dtype=torch.float64, device=x.device)
+    return {"Out": x.index_select(0, torch.argsort(keys))}
+
+
+@register_op("pad")
+def _pad(ctx, ins, attrs):
+    """Constant padding; ``paddings`` = [before0, after0, before1, ...]
+    in dim order."""
+    x, p = ins["X"][0], attrs["paddings"]
+    pads = []
+    for i in reversed(range(x.dim())):
+        pads += [p[2 * i], p[2 * i + 1]]
+    return {"Out": torch.nn.functional.pad(
+        x, pads, value=attrs.get("pad_value", 0.0))}
+
+
+@register_op("crop")
+def _crop(ctx, ins, attrs):
+    """The window at ``offsets`` of size ``shape``; a negative size is a
+    symbolic dim (a batch of -1) and keeps the axis to its end."""
+    x = ins["X"][0]
+    return {"Out": x[tuple(slice(o, o + s if s >= 0 else None)
+                           for o, s in zip(attrs["offsets"],
+                                           attrs["shape"]))]}
+
+
+def _tile(x, times):
+    """``jnp.tile``: fewer reps than dims tile the trailing dims, more
+    reps than dims add leading dims."""
+    times = [1] * (x.dim() - len(times)) + list(times)
+    return x.repeat(times)
+
+
+@register_op("expand")
+def _expand(ctx, ins, attrs):
+    """Each dim tiled ``expand_times`` times (``jnp.tile``: copies, not a
+    broadcast view)."""
+    return {"Out": _tile(ins["X"][0], attrs["expand_times"])}
+
+
+@register_op("tile")
+def _tile_op(ctx, ins, attrs):
+    return {"Out": _tile(ins["X"][0], attrs["repeat_times"])}
+
+
+@register_op("slice")
+def _slice(ctx, ins, attrs):
+    """Static [start, end) ranges along ``axes``, Python's clamping; the
+    input slot is ``Input`` (fluid's) or ``X``."""
+    x = (ins.get("Input") or ins.get("X"))[0]
+    sl = [slice(None)] * x.dim()
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        sl[ax] = slice(st, en)
+    return {"Out": x[tuple(sl)]}
+
+
+@register_op("scatter")
+def _scatter(ctx, ins, attrs):
+    """Rows of X at ``Ids`` replaced by the rows of ``Updates``
+    (``overwrite``, the default; of two updates of one row the later
+    wins, as the JAX package's run does) or added to them.  Both ways are
+    deterministic on a card: an overwrite gathers each row's last update,
+    an accumulation is ``index_put_``'s sorted sum."""
+    x = ins["X"][0]
+    upd = ins["Updates"][0].to(x.dtype)
+    ids = ins["Ids"][0].reshape(-1).to(torch.int64)
+    if not attrs.get("overwrite", True):
+        return {"Out": x.index_put((ids,), upd, accumulate=True)}
+    pos = torch.arange(ids.numel(), device=x.device)
+    last = torch.full((x.shape[0],), -1, dtype=torch.int64,
+                      device=x.device).scatter_reduce(0, ids, pos, "amax")
+    hit = (last >= 0).reshape((-1,) + (1,) * (x.dim() - 1))
+    return {"Out": torch.where(hit, upd.index_select(0, last.clamp_min(0)),
+                               x)}
+
+
+@register_op("multiplex")
+def _multiplex(ctx, ins, attrs):
+    """Row i of candidate ``Ids[i]`` of the X list."""
+    ids = ins["Ids"][0].reshape(-1).to(torch.int64)
+    stack = torch.stack(ins["X"], dim=0)
+    return {"Out": stack[ids, torch.arange(stack.shape[1],
+                                           device=stack.device)]}
+
+
+@register_op("argsort")
+def _argsort(ctx, ins, attrs):
+    """A stable sort along ``axis``: equal values keep their index order,
+    ascending or ``descending`` (as ``jnp.argsort``); int64 Indices."""
+    out, idx = torch.sort(ins["X"][0], dim=attrs.get("axis", -1),
+                          descending=attrs.get("descending", False),
+                          stable=True)
+    return {"Out": out, "Indices": idx}
+
+
+@register_op("flatten")
+def _flatten(ctx, ins, attrs):
+    """[prod(dims[:axis]), prod(dims[axis:])]."""
+    x = ins["X"][0]
+    return {"Out": x.reshape(math.prod(x.shape[:attrs.get("axis", 1)]), -1)}
+
+
+@register_op("stack")
+def _stack(ctx, ins, attrs):
+    return {"Out": torch.stack(ins["X"], dim=attrs.get("axis", 0))}
+
+
+@register_op("unstack")
+def _unstack(ctx, ins, attrs):
+    return {"Y": list(torch.unbind(ins["X"][0], dim=attrs.get("axis", 0)))}
+
+
+@register_op("where", "select")
+def _where(ctx, ins, attrs):
+    """X where Condition holds, else Y (the three broadcast)."""
+    return {"Out": torch.where(ins["Condition"][0].bool(), ins["X"][0],
+                               ins["Y"][0])}
+
+
+@register_op("is_empty")
+def _is_empty(ctx, ins, attrs):
+    """A bool scalar: X has no elements (known from its shape)."""
+    x = ins["X"][0]
+    return {"Out": torch.full((), x.numel() == 0, dtype=torch.bool,
+                              device=x.device)}
+
+
+@register_op("reverse")
+def _reverse(ctx, ins, attrs):
+    axes = attrs.get("axis", [0])
+    if not isinstance(axes, (list, tuple)):
+        axes = [axes]
+    return {"Out": torch.flip(ins["X"][0], dims=list(axes))}
+
 # ---------------------------------------------------------------------------
 # Static shape/dtype rules (analysis.shape_infer) — reshape/concat/split etc.
 # InferShape analogs of the reference's data-movement ops.
 # ---------------------------------------------------------------------------
 from ..analysis.shape_infer import (ShapeError, VarInfo,  # noqa: E402
                                     dim_ok, filled_from_attrs, first,
-                                    prod_dims, squeeze_ids, unify_dim)
+                                    numpy_broadcast, passthrough,
+                                    prod_dims, same_as, shapes_compatible,
+                                    squeeze_ids, unify_dim)
 from ..core.registry import register_shape_fn  # noqa: E402
 
-register_shape_fn("fill_constant", "gaussian_random",
-                  "uniform_random")(filled_from_attrs())
+register_shape_fn("feed", "fetch")(passthrough("X"))
+register_shape_fn("assign", "fill_zeros_like", "fill_any_like", "shuffle",
+                  "reverse", "scatter")(same_as("X"))
+register_shape_fn("fill_constant", "gaussian_random", "uniform_random",
+                  "truncated_gaussian_random")(filled_from_attrs())
+
+
+@register_shape_fn("where", "select")
+def _where_shape(op, ins, attrs):
+    # the three operands broadcast
+    cond, x, y = first(ins, "Condition"), first(ins, "X"), first(ins, "Y")
+    if x.shape is None or y.shape is None or cond.shape is None:
+        return {"Out": VarInfo(None, x.dtype)}
+    shape = numpy_broadcast(numpy_broadcast(cond.shape, x.shape,
+                                            "where Condition/X"),
+                            y.shape, "where X/Y")
+    return {"Out": VarInfo(shape, x.dtype)}
+
+
+@register_shape_fn("shape")
+def _shape_shape(op, ins, attrs):
+    x = first(ins, "X")
+    nd = -1 if x.shape is None else len(x.shape)
+    return {"Out": VarInfo((nd,), "int64")}
+
+
+@register_shape_fn("assign_value")
+def _assign_value_shape(op, ins, attrs):
+    import numpy as _np
+    dt = attrs.get("dtype", "float32")
+    if attrs.get("shape"):
+        return {"Out": VarInfo(tuple(attrs["shape"]), dt)}
+    vals = attrs.get("values")
+    if vals is None:
+        return {"Out": VarInfo(None, dt)}
+    return {"Out": VarInfo(_np.shape(vals), dt)}
 
 
 @register_shape_fn("fill_constant_batch_size_like")
@@ -377,19 +694,173 @@ def _one_hot_shape(op, ins, attrs):
         return {"Out": VarInfo(None, "float32")}
     return {"Out": VarInfo(s + (attrs["depth"],), "float32")}
 
+
+@register_shape_fn("pad")
+def _pad_shape(op, ins, attrs):
+    x = first(ins, "X")
+    p = attrs.get("paddings")
+    if x.shape is None or p is None:
+        return {"Out": x}
+    if len(p) != 2 * len(x.shape):
+        raise ShapeError(
+            f"pad: {len(p)} padding entries for rank {len(x.shape)}")
+    shape = tuple(d if d < 0 else d + p[2 * i] + p[2 * i + 1]
+                  for i, d in enumerate(x.shape))
+    return {"Out": x.with_shape(shape)}
+
+
+@register_shape_fn("crop")
+def _crop_shape(op, ins, attrs):
+    x = first(ins, "X")
+    shape = attrs.get("shape")
+    if shape is None:
+        return {"Out": VarInfo(None, x.dtype)}
+    offsets = attrs.get("offsets") or (0,) * len(shape)
+    if x.shape is not None:
+        # a negative size keeps to the end: the dim is input minus offset
+        # (symbolic when the input's is)
+        out = tuple(
+            (x.shape[i] - offsets[i] if x.shape[i] >= 0 else -1)
+            if s < 0 else s
+            for i, s in enumerate(shape))
+    else:
+        out = tuple(s if s >= 0 else -1 for s in shape)
+    return {"Out": VarInfo(out, x.dtype)}
+
+
+@register_shape_fn("expand")
+def _expand_shape(op, ins, attrs):
+    return _tile_like(first(ins, "X"), attrs.get("expand_times"))
+
+
+@register_shape_fn("tile")
+def _tile_shape(op, ins, attrs):
+    return _tile_like(first(ins, "X"), attrs.get("repeat_times"))
+
+
+def _tile_like(x, times):
+    if x.shape is None or times is None:
+        return {"Out": VarInfo(None, x.dtype)}
+    times = list(times)
+    if len(times) < len(x.shape):
+        times = [1] * (len(x.shape) - len(times)) + times
+    shape = [1] * (len(times) - len(x.shape)) + list(x.shape)
+    out = tuple(d if d < 0 else d * t for d, t in zip(shape, times))
+    return {"Out": VarInfo(out, x.dtype)}
+
+
+@register_shape_fn("slice")
+def _slice_shape(op, ins, attrs):
+    x = first(ins, "Input") if ins.get("Input") else first(ins, "X")
+    if x.shape is None:
+        return {"Out": x}
+    shape = list(x.shape)
+    for ax, st, en in zip(attrs.get("axes", []), attrs.get("starts", []),
+                          attrs.get("ends", [])):
+        ax = ax % len(shape)
+        d = shape[ax]
+        if d < 0:
+            continue
+        lo = max(st + d, 0) if st < 0 else min(st, d)
+        hi = max(en + d, 0) if en < 0 else min(en, d)
+        shape[ax] = max(hi - lo, 0)
+    return {"Out": x.with_shape(shape)}
+
+
+@register_shape_fn("multiplex")
+def _multiplex_shape(op, ins, attrs):
+    return {"Out": first(ins, "X")}
+
+
+@register_shape_fn("sampling_id")
+def _sampling_id_shape(op, ins, attrs):
+    x = first(ins, "X")
+    b = x.shape[0] if x.shape is not None else -1
+    return {"Out": VarInfo((b,), "int64")}
+
+
+@register_shape_fn("argsort")
+def _argsort_shape(op, ins, attrs):
+    x = first(ins, "X")
+    return {"Out": x, "Indices": VarInfo(x.shape, "int64")}
+
+
+@register_shape_fn("range")
+def _range_shape(op, ins, attrs):
+    start, end = attrs.get("start"), attrs.get("end")
+    step = attrs.get("step", 1)
+    dt = attrs.get("dtype", "int64")
+    try:
+        n = max(0, int(-(-(end - start) // step)))
+    except (TypeError, ZeroDivisionError):
+        n = -1
+    return {"Out": VarInfo((n,), dt)}
+
+
+@register_shape_fn("flatten")
+def _flatten_shape(op, ins, attrs):
+    x = first(ins, "X")
+    if x.shape is None:
+        return {"Out": x}
+    ax = attrs.get("axis", 1)
+    return {"Out": x.with_shape((prod_dims(x.shape[:ax]),
+                                 prod_dims(x.shape[ax:])))}
+
+
+@register_shape_fn("stack")
+def _stack_shape(op, ins, attrs):
+    xs = [v for v in ins.get("X", []) if v is not None]
+    base = next((v for v in xs if v.shape is not None), None)
+    if base is None:
+        return {"Out": VarInfo(None, xs[0].dtype if xs else None)}
+    for v in xs:
+        if not shapes_compatible(v.shape, base.shape):
+            raise ShapeError(
+                f"stack: operand shapes differ: {list(base.shape)} vs "
+                f"{list(v.shape)}")
+    axis = attrs.get("axis", 0) % (len(base.shape) + 1)
+    shape = base.shape[:axis] + (len(xs),) + base.shape[axis:]
+    return {"Out": VarInfo(shape, base.dtype)}
+
+
+@register_shape_fn("unstack")
+def _unstack_shape(op, ins, attrs):
+    x = first(ins, "X")
+    names = op.outputs.get("Y", [])
+    if x.shape is None:
+        return {"Y": [VarInfo(None, x.dtype)] * len(names)}
+    axis = attrs.get("axis", 0) % len(x.shape)
+    if x.shape[axis] >= 0 and len(names) not in (0, x.shape[axis]):
+        raise ShapeError(
+            f"unstack: {len(names)} outputs for dim {x.shape[axis]}")
+    part = x.shape[:axis] + x.shape[axis + 1:]
+    return {"Y": [x.with_shape(part)] * len(names)}
+
+
+@register_shape_fn("is_empty")
+def _is_empty_shape(op, ins, attrs):
+    return {"Out": VarInfo((), "bool")}
+
 # ---------------------------------------------------------------------------
 # Sharding-propagation rules (analysis.shard_prop).  reshape keeps the
 # batch sharding only when the batch dim survives the reshape; concat
 # replicates its concat axis (a sharded concat dim would interleave
-# shards).  fill_constant_batch_size_like and split have no rule (blind
+# shards).  fill_constant_batch_size_like, split, pad, crop, expand,
+# tile, slice, multiplex, stack, unstack and where have no rule (blind
 # spots, as in the JAX package).
 # ---------------------------------------------------------------------------
 from ..analysis.shard_prop import (first_in, merge_entry,  # noqa: E402
-                                   shard_batch_only, shard_replicated)
+                                   shard_batch_only, shard_noop,
+                                   shard_replicated, shard_same_as)
 from ..core.registry import register_shard_fn  # noqa: E402
 
-register_shard_fn("fill_constant", "gaussian_random",
-                  "uniform_random")(shard_replicated("Out"))
+register_shard_fn("feed", "fetch", "assign", "fill_zeros_like",
+                  "fill_any_like", "shuffle", "scatter",
+                  "reverse")(shard_same_as("X"))
+register_shard_fn("fill_constant", "gaussian_random", "uniform_random",
+                  "truncated_gaussian_random", "range", "assign_value",
+                  "shape")(shard_replicated("Out"))
+register_shard_fn("is_empty")(shard_noop())
 
 
 @register_shard_fn("reshape")
@@ -427,10 +898,10 @@ def _concat_shard(op, ins, attrs):
     return {"Out": tuple(entries)}
 
 
-@register_shard_fn("squeeze", "unsqueeze")
+@register_shard_fn("squeeze", "unsqueeze", "flatten")
 def _rank_change_shard(op, ins, attrs):
     # conservatively keep only the batch-dim sharding (dim 0 survives
-    # both ops for the axes>=1 cases the layers emit)
+    # the three ops for the axes>=1 cases the layers emit)
     x = first_in(ins, "X")
     if x.spec is None:
         return {}
@@ -450,5 +921,5 @@ def _transpose_shard(op, ins, attrs):
 # index/selection: batch dim follows X, everything else replicates
 # (indices are tiny; the gathered layout is data-driven)
 register_shard_fn("gather", "one_hot", "top_k", "argmax", "arg_max",
-                  "max_ids")(
+                  "argsort", "sampling_id", "max_ids")(
     shard_batch_only("X", fallbacks=("Ids",), also=("Indices",)))

@@ -13,8 +13,9 @@ and loaded into the port, so both packages verify the same IR:
   diagnostics (codes, op locations, vars) equal the reference's, and so
   does every variable's inferred (shape, dtype, lod_level).
 * **Coverage.** Every port op has exactly one of a shape rule or an
-  allowlist entry; the split equals the reference's for the port's 141
-  names (137 rules + 4 allowlisted), with 122 shard rules.
+  allowlist entry; the split equals the reference's for the port's 190
+  names (186 rules + 4 allowlisted), with 158 shard rules; no name of
+  the reference's ``tensor_ops``/``math_ops`` modules is missing.
 * **The executor.** Validation is off by default, defers to the flag,
   runs once per (program version, fetches), rejects an invalid program
   before any step runs, survives ``id()`` reuse, and the trainer's
@@ -439,10 +440,10 @@ def test_every_op_has_exactly_one_of_a_rule_or_an_allowlist_entry():
     ops = set(registry.registered_ops())
     fns = set(registry.registered_shape_fns())
     allow = set(SHAPE_INFER_ALLOWLIST)
-    assert len(ops) == 141
+    assert len(ops) == 190
     assert not ops - fns - allow, sorted(ops - fns - allow)
     assert not fns & allow and not allow - ops and not fns - ops
-    assert coverage() == (137, 141)
+    assert coverage() == (186, 190)
     assert allow == {"beam_search", "beam_search_decode", "recurrent",
                      "rnn"}
 
@@ -455,13 +456,31 @@ def test_coverage_equals_the_references_for_the_port_names():
     assert SHAPE_INFER_ALLOWLIST == ops & jsi.SHAPE_INFER_ALLOWLIST
     shard = set(registry.registered_shard_fns())
     assert shard == ops & set(jreg.registered_shard_fns())
-    assert len(shard) == 122
+    assert len(shard) == 158
     assert ops - shard == {
         "bilinear_interp", "bilinear_tensor_product", "block_expand",
         "conv2d_transpose", "conv3d", "cross_entropy_over_beam",
         "fill_constant_batch_size_like", "gru_unit", "im2sequence",
         "lambda_rank", "maxout", "modified_huber_loss", "pad_constant_like",
-        "recurrent", "rnn", "sequence_conv", "split", "spp", "unpool"}
+        "recurrent", "rnn", "sequence_conv", "split", "spp", "unpool",
+        "conv_shift", "crop", "expand", "factorization_machine",
+        "multiplex", "outer_prod", "pad", "select", "slice", "stack",
+        "tile", "unstack", "where"}
+
+
+def test_no_name_of_the_tensor_and_math_modules_is_missing():
+    """Every op the reference registers in ``ops/tensor_ops.py`` and
+    ``ops/math_ops.py`` is registered by the port, with its rules."""
+    import paddle_tpu.ops.math_ops as jmath
+    import paddle_tpu.ops.tensor_ops as jtensor
+    import inspect
+    names = {n for n in jreg.registered_ops()
+             if inspect.getmodule(jreg.get_op_impl(n)) in (jmath, jtensor)}
+    assert len(names) == 88
+    assert names <= set(registry.registered_ops())
+    assert names <= set(registry.registered_shape_fns())
+    assert names & set(registry.registered_shard_fns()) == \
+        names & set(jreg.registered_shard_fns())
 
 
 def test_a_name_registered_twice_raises():

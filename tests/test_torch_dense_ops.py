@@ -4,9 +4,8 @@ op name of ``paddle_tpu/ops/activation_ops.py``, ``nn_ops.py``,
 ``transpose``, ``top_k``, ``argmax`` (``arg_max``, ``max_ids``),
 ``one_hot`` and the five ``reduce_*``.
 
-One case per op name, run through a ``_run`` harness like
-``tests/test_torch_ops.py``'s (each package's registered lowering called
-on the same numpy-seeded inputs): the forward outputs, their dtypes and,
+One case per op name, run through ``torch_parity.run_op`` (each
+package's registered lowering called on the same numpy-seeded inputs): the forward outputs, their dtypes and,
 where the op is differentiable, the gradient of sum(output * cotangent)
 with respect to the float inputs against ``jax.vjp``.  Every case runs
 again in bf16 (the AMP compute dtype) with the output dtypes equal to
@@ -19,8 +18,9 @@ package's op tests (``tests/test_ops_nn.py``, ``test_ops_math.py``,
 
 Inputs stay away from kinks and ties (``_away``, ``_distinct``) for
 ``relu6``, ``brelu``, ``hard_shrink``, ``thresholded_relu``, ``abs``,
-``round``, ``maxout``, ``spp``, ``max_pool2d_with_index``/``unpool``,
-``top_k`` and the other piecewise ops.
+``round``, ``maxout``, ``spp``, ``max_pool2d_with_index``/``unpool``
+and the other piecewise ops; ``top_k`` has a tie-free case and tied
+ones (``lax.top_k``'s order among equal values).
 
 Tolerances: fp32 ``rtol=1e-4, atol=1e-5`` (both compute in fp32; only
 the order of sums differs); bf16 within 2^-7 of the output's scale (its
@@ -34,13 +34,11 @@ import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
+import torch_parity as tp
 from paddle_tpu.core.registry import get_op_impl as jax_impl
 from paddle_tpu_torch.core.registry import get_op_impl as torch_impl
 
-TOL = dict(rtol=1e-4, atol=1e-5)
-BF16_SCALE = 2.0 ** -7
-JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = tp.OP_TOL
 
 
 def _rng(name):
@@ -64,121 +62,7 @@ def _distinct(r, *shape, scale=1.0):
     return r.permutation(v).reshape(shape).astype(np.float32)
 
 
-def _is_float(v):
-    return np.asarray(v).dtype == np.float32
-
-
-def _to_jax(v, dtype):
-    return jnp.asarray(v, JDT[dtype]) if _is_float(v) else jnp.asarray(v)
-
-
-def _to_torch(v, dtype):
-    t = torch.from_numpy(np.array(v))
-    return t.to(TDT[dtype]) if _is_float(v) else t
-
-
-def _flat(outs):
-    """[(slot, i, array)] of an op's outputs (a slot holds one array or a
-    list)."""
-    res = []
-    for k in sorted(outs):
-        vs = outs[k] if isinstance(outs[k], (list, tuple)) else [outs[k]]
-        res += [(k, i, v) for i, v in enumerate(vs)]
-    return res
-
-
-def _run(op, ins, attrs, dtype="float32", wrt=(), is_test=True):
-    """Run ``op`` through both packages: ({(slot, i): jax array},
-    {(slot, i): torch tensor}, jax grads, torch grads).  The grads are of
-    sum(out * cotangent) over the float outputs with respect to the
-    inputs ``wrt`` ((slot, i) pairs)."""
-    jctx = pt.core.LoweringContext(pt.Program(), jax.random.PRNGKey(0),
-                                   is_test=is_test)
-    tctx = ptt.core.ExecContext(ptt.Program(), torch.device("cpu"), 0,
-                                is_test=is_test)
-    jins = {k: [_to_jax(v, dtype) for v in vs] for k, vs in ins.items()}
-    tins = {k: [_to_torch(v, dtype) for v in vs] for k, vs in ins.items()}
-
-    @jax.jit
-    def jrun(wvals):
-        # one compiled function a case, in place of a compile for each
-        # primitive's shapes
-        d = {k: list(vs) for k, vs in jins.items()}
-        for (k, i), w in zip(wrt, wvals):
-            d[k][i] = w
-        return {(k, i): v for k, i, v in
-                _flat(jax_impl(op)(jctx, d, dict(attrs)))}
-
-    if wrt:
-        jout, pullback = jax.vjp(jrun, [jins[k][i] for k, i in wrt])
-    else:
-        jout = jrun([])
-    leaves = [tins[k][i].clone().requires_grad_(True) for k, i in wrt]
-    for (k, i), leaf in zip(wrt, leaves):
-        tins[k][i] = leaf
-    with torch.enable_grad():
-        tout = {(k, i): v for k, i, v in
-                _flat(torch_impl(op)(tctx, tins, dict(attrs)))}
-    jg, tg = [], []
-    if wrt:
-        r = _rng(op + "cot")
-        floats = [s for s, v in jout.items()
-                  if jnp.issubdtype(v.dtype, jnp.floating)]
-        cot = {s: np.asarray(r.randn(*jout[s].shape), np.float32)
-               for s in floats}
-        jcot = {s: jnp.asarray(cot[s], v.dtype) if s in cot else
-                np.zeros(v.shape, jax.dtypes.float0)
-                for s, v in jout.items()}
-        jg = [np.asarray(g, np.float32) for g in pullback(jcot)[0]]
-        tl = sum((tout[s].float() * torch.from_numpy(cot[s])).sum()
-                 for s in floats)
-        tg = [g.float().numpy() for g in
-              torch.autograd.grad(tl, leaves, allow_unused=True)]
-    return jout, tout, jg, tg
-
-
-def _close(t, j, dtype, what):
-    t = t.detach().float().numpy() if isinstance(t, torch.Tensor) else \
-        np.asarray(t, np.float32)
-    j = np.asarray(j, np.float32)
-    assert t.shape == j.shape, (what, t.shape, j.shape)
-    if dtype == "float32":
-        np.testing.assert_allclose(t, j, err_msg=what, **TOL)
-    else:
-        # infinities (a window wholly in padding) equal; the rest within
-        # 2^-7 of the largest finite magnitude
-        fin = np.isfinite(j)
-        np.testing.assert_array_equal(t[~fin], j[~fin], err_msg=what)
-        t, j = t[fin], j[fin]
-        scale = max(float(np.max(np.abs(j))) if j.size else 0.0, 1e-6)
-        err = float(np.max(np.abs(t - j))) if j.size else 0.0
-        assert err <= BF16_SCALE * scale, (what, err, scale)
-
-
-# outputs the JAX ops cast to int64, which JAX keeps as int32 without x64
-# (ROADMAP Queue C); the port keeps int64
-INT64_OUTS = {("top_k", "Indices"), ("argmax", "Out"), ("arg_max", "Out"),
-              ("max_ids", "Out"), ("max_pool2d_with_index", "Mask"),
-              ("pool2d_with_index", "Mask")}
-
-
-def _check(op, ins, attrs, dtype, wrt=(), **kw):
-    jout, tout, jg, tg = _run(op, ins, attrs, dtype,
-                              wrt if dtype == "float32" else (), **kw)
-    assert sorted(jout) == sorted(tout), (sorted(jout), sorted(tout))
-    for s, j in jout.items():
-        t = tout[s]
-        want = "int64" if (op, s[0]) in INT64_OUTS else \
-            str(jnp.dtype(j.dtype))
-        assert want == str(t.dtype).replace("torch.", ""), \
-            (op, s, j.dtype, t.dtype)
-        if jnp.issubdtype(j.dtype, jnp.floating):
-            _close(t, j, dtype, f"{op} {s}")
-        else:
-            np.testing.assert_array_equal(t.numpy(), np.asarray(j),
-                                          err_msg=f"{op} {s}")
-    for (k, i), j, t in zip(wrt, jg, tg):
-        _close(t, j, "float32", f"{op} d{k}[{i}]")
+_check = tp.check_op
 
 
 # ---------------------------------------------------------------------------
@@ -456,6 +340,19 @@ def _top_k(r):
     return "top_k", {"X": [_distinct(r, 3, 10)]}, {"k": 4}, X
 
 
+def _top_k_tied(r):
+    """Rows of a few repeated values (exact in bf16 too): lax.top_k puts
+    the lower index first among equal values, and so must the port."""
+    x = (r.randint(-2, 3, (4, 12)) * 0.5).astype(np.float32)
+    x[3] = 0.0
+    return "top_k", {"X": [x]}, {"k": 5}, X
+
+
+def _top_k_int(r):
+    return "top_k", {"X": [r.randint(0, 4, (3, 9)).astype(np.int32)]}, \
+        {"k": 4}, ()
+
+
 def _argmax(op, axis):
     def case(r):
         return op, {"X": [_distinct(r, 3, 4, 7)]}, {"axis": axis}, ()
@@ -564,6 +461,8 @@ CASES = {
     # tensor_ops.py and math_ops.py
     "transpose": _transpose,
     "top_k": _top_k,
+    "top_k[tied]": _top_k_tied,
+    "top_k[int32]": _top_k_int,
     "argmax": _argmax("argmax", -1),
     "arg_max": _argmax("arg_max", 1),
     "max_ids": _argmax("max_ids", 0),

@@ -1,10 +1,18 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py):
-build the same model in the JAX package and in paddle_tpu_torch, and
-move a JAX scope's persistables into a port scope."""
+build the same model in the JAX package and in paddle_tpu_torch, move a
+JAX scope's persistables into a port scope, and run one op through both
+packages' lowerings (``run_op``, ``check_op``)."""
 from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
+from paddle_tpu.core.registry import get_op_impl as jax_impl
+from paddle_tpu_torch.core.registry import get_op_impl as torch_impl
 
 
 def reset_both():
@@ -210,3 +218,212 @@ def build_decoder(pkg, vocab, T, d, heads, n_layers, ffn, block=1024,
         pkg.optimizer.Momentum(learning_rate=lr,
                                momentum=momentum).minimize(loss)
     return main, startup, loss
+
+
+def _append(helper, op_type, inputs, dtype, shape, attrs=None,
+            slots=("Out",)):
+    """One op of a type with no layer of its own; returns its output
+    vars of ``shape``, one a slot (an argsort's Indices int64)."""
+    outs = {s: helper.create_variable_for_type_inference(
+        "int64" if s == "Indices" else dtype, shape) for s in slots}
+    helper.append_op(type=op_type, inputs=inputs,
+                     outputs={s: [v] for s, v in outs.items()},
+                     attrs=attrs or {})
+    return [outs[s] for s in slots]
+
+
+def build_sampler(pkg, vocab, T, d, heads, n_layers, ffn, batch,
+                  top_p=0.9, block=1024, interpret=False, seed=0):
+    """(main, startup, vars) of a GPT-style decoder's first sampled token
+    under a top-p filter, in ``pkg``: token ``embedding`` plus a position
+    ``embedding`` of ``range(0, T)`` reshaped to [1, T] and ``expand``-ed
+    to [batch, T]; the layers of :func:`build_decoder` (no dropout); the
+    vocabulary ``fc``; the last position's logits (``slice``), cast to
+    fp32, and their ``softmax``; then the filter: ``argsort`` descending,
+    ``cumsum``, the mass before each position (``elementwise_sub``)
+    ``greater_equal`` ``top_p`` marks the tail, ``where`` zeroes it,
+    ``sampling_id`` draws a sorted position over the kept mass, and
+    ``one_hot`` x the sort's Indices, ``reduce_sum`` maps it back to a
+    vocabulary id.  ``vars``: logits, probs, sorted, order, cum, before,
+    tail, kept, pos (the sampled sorted position) and ids."""
+    pkg.unique_name.reset()
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = seed
+    with pkg.program_guard(main, startup):
+        L = pkg.layers
+        tok = L.data("tok", [T], dtype="int64")
+        pos = L.expand(L.reshape(L.range(0, T, 1), [1, T]), [batch, 1])
+        h = L.elementwise_add(L.embedding(tok, size=[vocab, d]),
+                              L.embedding(pos, size=[T, d]))
+        for _ in range(n_layers):
+            x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+            q, k, v = (L.reshape(L.fc(x, d, num_flatten_dims=2),
+                                 [0, 0, heads, d // heads])
+                       for _ in range(3))
+            a = L.flash_attention(q, k, v, causal=True, block_q=block,
+                                  block_k=block, interpret=interpret)
+            h = L.elementwise_add(h, L.fc(L.reshape(a, [0, 0, d]), d,
+                                          num_flatten_dims=2))
+            x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+            f = L.fc(x, ffn, num_flatten_dims=2, act="gelu")
+            h = L.elementwise_add(h, L.fc(f, d, num_flatten_dims=2))
+        x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+        logits = L.fc(x, vocab, num_flatten_dims=2)
+        last = L.slice(logits, axes=[1], starts=[T - 1], ends=[T])
+        probs = L.softmax(L.cast(L.reshape(last, [batch, vocab]),
+                                 "float32"))
+        helper = pkg.layer_helper.LayerHelper("top_p")
+        bv = (batch, vocab)
+        srt, order = _append(helper, "argsort", {"X": [probs]}, "float32",
+                             bv, {"axis": -1, "descending": True},
+                             ("Out", "Indices"))
+        cum, = _append(helper, "cumsum", {"X": [srt]}, "float32", bv,
+                       {"axis": -1})
+        before = L.elementwise_sub(cum, srt)
+        tail, = _append(helper, "greater_equal", {
+            "X": [before], "Y": [L.fill_constant([1], "float32", top_p)]},
+            "bool", bv)
+        kept, = _append(helper, "where", {
+            "Condition": [tail], "X": [L.zeros_like(srt)], "Y": [srt]},
+            "float32", bv)
+        s = L.sampling_id(kept)
+        hot = L.cast(L.one_hot(L.reshape(s, [batch, 1]), vocab), "int64")
+        ids = L.reduce_sum(L.elementwise_mul(hot, order), dim=1)
+    return main, startup, {"logits": logits, "probs": probs, "sorted": srt,
+                           "order": order, "cum": cum, "before": before,
+                           "tail": tail, "kept": kept, "pos": s,
+                           "ids": ids}
+
+
+# ---------------------------------------------------------------------------
+# One op through both packages' lowerings
+# ---------------------------------------------------------------------------
+# fp32: both compute in fp32, only the order of sums differs; bf16: within
+# 2^-7 of the output's scale (its largest magnitude), a rounding or two
+OP_TOL = dict(rtol=1e-4, atol=1e-5)
+BF16_SCALE = 2.0 ** -7
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _is_float(v):
+    return np.asarray(v).dtype == np.float32
+
+
+def _to_jax(v, dtype):
+    return jnp.asarray(v, JDT[dtype]) if _is_float(v) else jnp.asarray(v)
+
+
+def _to_torch(v, dtype):
+    t = torch.from_numpy(np.array(v))
+    return t.to(TDT[dtype]) if _is_float(v) else t
+
+
+def _flat(outs):
+    """[(slot, i, array)] of an op's outputs (a slot holds one array or a
+    list)."""
+    res = []
+    for k in sorted(outs):
+        vs = outs[k] if isinstance(outs[k], (list, tuple)) else [outs[k]]
+        res += [(k, i, v) for i, v in enumerate(vs)]
+    return res
+
+
+def run_op(op, ins, attrs, dtype="float32", wrt=(), is_test=True):
+    """Run ``op`` through both packages: ({(slot, i): jax array},
+    {(slot, i): torch tensor}, jax grads, torch grads).  The grads are of
+    sum(out * cotangent) over the float outputs with respect to the
+    inputs ``wrt`` ((slot, i) pairs)."""
+    jctx = pt.core.LoweringContext(pt.Program(), jax.random.PRNGKey(0),
+                                   is_test=is_test)
+    tctx = ptt.core.ExecContext(ptt.Program(), torch.device("cpu"), 0,
+                                is_test=is_test)
+    jins = {k: [_to_jax(v, dtype) for v in vs] for k, vs in ins.items()}
+    tins = {k: [_to_torch(v, dtype) for v in vs] for k, vs in ins.items()}
+
+    @jax.jit
+    def jrun(wvals):
+        # one compiled function a case, in place of a compile for each
+        # primitive's shapes
+        d = {k: list(vs) for k, vs in jins.items()}
+        for (k, i), w in zip(wrt, wvals):
+            d[k][i] = w
+        return {(k, i): v for k, i, v in
+                _flat(jax_impl(op)(jctx, d, dict(attrs)))}
+
+    if wrt:
+        jout, pullback = jax.vjp(jrun, [jins[k][i] for k, i in wrt])
+    else:
+        jout = jrun([])
+    leaves = [tins[k][i].clone().requires_grad_(True) for k, i in wrt]
+    for (k, i), leaf in zip(wrt, leaves):
+        tins[k][i] = leaf
+    with torch.enable_grad():
+        tout = {(k, i): v for k, i, v in
+                _flat(torch_impl(op)(tctx, tins, dict(attrs)))}
+    jg, tg = [], []
+    if wrt:
+        r = np.random.RandomState(sum(map(ord, op + "cot")) % 1000)
+        floats = [s for s, v in jout.items()
+                  if jnp.issubdtype(v.dtype, jnp.floating)]
+        cot = {s: np.asarray(r.randn(*jout[s].shape), np.float32)
+               for s in floats}
+        jcot = {s: jnp.asarray(cot[s], v.dtype) if s in cot else
+                np.zeros(v.shape, jax.dtypes.float0)
+                for s, v in jout.items()}
+        jg = [np.asarray(g, np.float32) for g in pullback(jcot)[0]]
+        tl = sum((tout[s].float() * torch.from_numpy(cot[s])).sum()
+                 for s in floats)
+        tg = [g.float().numpy() for g in
+              torch.autograd.grad(tl, leaves, allow_unused=True)]
+    return jout, tout, jg, tg
+
+
+def close_to(t, j, dtype, what):
+    """fp32 within ``OP_TOL``; bf16 within 2^-7 of the scale."""
+    t = t.detach().float().numpy() if isinstance(t, torch.Tensor) else \
+        np.asarray(t, np.float32)
+    j = np.asarray(j, np.float32)
+    assert t.shape == j.shape, (what, t.shape, j.shape)
+    if dtype == "float32":
+        np.testing.assert_allclose(t, j, err_msg=what, **OP_TOL)
+    else:
+        # infinities (a window wholly in padding) equal; the rest within
+        # 2^-7 of the largest finite magnitude
+        fin = np.isfinite(j)
+        np.testing.assert_array_equal(t[~fin], j[~fin], err_msg=what)
+        t, j = t[fin], j[fin]
+        scale = max(float(np.max(np.abs(j))) if j.size else 0.0, 1e-6)
+        err = float(np.max(np.abs(t - j))) if j.size else 0.0
+        assert err <= BF16_SCALE * scale, (what, err, scale)
+
+
+# outputs the JAX ops make int64, which JAX keeps as int32 without x64
+# (ROADMAP Queue C); the port keeps int64
+INT64_OUTS = {("top_k", "Indices"), ("argmax", "Out"), ("arg_max", "Out"),
+              ("max_ids", "Out"), ("max_pool2d_with_index", "Mask"),
+              ("pool2d_with_index", "Mask"), ("shape", "Out"),
+              ("range", "Out"), ("argsort", "Indices"),
+              ("sampling_id", "Out")}
+
+
+def check_op(op, ins, attrs, dtype, wrt=(), **kw):
+    """``run_op`` in ``dtype``: the same output slots and dtypes (int64
+    in the port where JAX's int64 is int32), float outputs
+    ``close_to``, the others exactly; in fp32 the gradients too."""
+    jout, tout, jg, tg = run_op(op, ins, attrs, dtype,
+                                wrt if dtype == "float32" else (), **kw)
+    assert sorted(jout) == sorted(tout), (sorted(jout), sorted(tout))
+    for s, j in jout.items():
+        t = tout[s]
+        want = "int64" if (op, s[0]) in INT64_OUTS and \
+            j.dtype == jnp.int32 else str(jnp.dtype(j.dtype))
+        assert want == str(t.dtype).replace("torch.", ""), \
+            (op, s, j.dtype, t.dtype)
+        if jnp.issubdtype(j.dtype, jnp.floating):
+            close_to(t, j, dtype, f"{op} {s}")
+        else:
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j),
+                                          err_msg=f"{op} {s}")
+    for (k, i), j, t in zip(wrt, jg, tg):
+        close_to(t, j, "float32", f"{op} d{k}[{i}]")
