@@ -397,8 +397,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
              bit-equal to the live program's captured forward, ms a call
              of each.
 25. dense  — the dense op families (activation, nn, loss, metric, top_k,
-             one_hot, argmax, transpose, reduce_*) and the tensor and
-             math op families, their layers, evaluator and metrics,
+             one_hot, argmax, transpose, reduce_*), the tensor and math
+             and the sequence, CRF and embedding op families, their
+             layers, evaluator and metrics,
              budget DENSE_BUDGET_S: (a) ResNet-50's
              bottleneck body (models/resnet.py, 224x224, 1000 classes)
              under the fluid classification head (fc logits,
@@ -437,7 +438,27 @@ Phases, each of which raises on failure (so the script exits non-zero):
              exactly), the random ops by their bounds and a statistic,
              top_k on tied fp32 and bf16 rows equal to lax.top_k's
              Indices, and shape, assign_value and is_empty held by a
-             captured step.
+             captured step; the sequence, CRF and embedding families at
+             bench.py's seq2seq widths (vocab 30000, embedding and
+             hidden 512, 30 steps, lengths 10-30, batch 64), fp32
+             Executor.run_steps(2) with Momentum, captured and held
+             bit-equal to use_jit=False, no K1-K5 launch: (d) a CRF
+             tagger (embedding, a bidirectional dynamic_gru by
+             sequence_reverse, concat, row_conv, fc to 17 IOB tags,
+             linear_chain_crf, mean), each row's NLL against a float64
+             forward algorithm over the fetched emissions and
+             Transition, and its decode program (crf_decoding sharing
+             the Transition, ChunkEvaluator) against a float64 Viterbi
+             on rows without a near-tie and a numpy chunk recount; (e) a
+             CTC head on the same encoder (fc to the vocabulary,
+             warpctc, one label that cannot fit), each row's loss
+             against a float64 CTC recursion (the unfit row about
+             1e30), the argmax path's edit_distance against a numpy
+             Levenshtein; ms a step of each; and the 25 sequence, CRF
+             and embedding op names (op_cases.SEQ_CASES) on the card
+             against the port's CPU op, kmax_seq_score's ties in fp32
+             and bf16, nce by its bounds and cost, lod_reset and
+             max_sequence_len held by a captured step.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline,
 zoo and dense runs captured (Executor(use_jit=True), each step one CUDA
@@ -8730,7 +8751,7 @@ def phase_compile(seed, card, n_gate, n_split):
     return forms, k2
 
 
-DENSE_BUDGET_S = 45.0
+DENSE_BUDGET_S = 65.0
 DENSE_IMG = 224
 DENSE_CLASSES = 1000
 DENSE_BATCH = 32
@@ -8826,8 +8847,10 @@ def build_decoder(seed, vocab, T, d, heads, n_layers, ffn, block=1024):
     return main, startup, loss
 
 
-def dense_arms(tag, main, start, feed, fetch, steps, kernels, lead=0):
-    """[dense]'s two arms of one program under AMP from ``start``: the
+def dense_arms(tag, main, start, feed, fetch, steps, kernels, lead=0,
+               amp=True):
+    """[dense]'s two arms of one program under AMP (or fp32, ``amp``
+    False) from ``start``: the
     captured arm (the key's warm-up and capture on a copy, then
     ``steps`` replays on another under counts set to 0, then a profiled
     window of one replay on a third, its launches held against the
@@ -8844,7 +8867,7 @@ def dense_arms(tag, main, start, feed, fetch, steps, kernels, lead=0):
     from paddle_tpu_torch.ops import conv1x1
     from paddle_tpu_torch.ops import flash_attention as fa
     own, since = kernels
-    exe = ptt.Executor(amp=True)
+    exe = ptt.Executor(amp=amp)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     exe.run_steps(2, main, feed=feed, fetch_list=fetch,
@@ -8871,14 +8894,15 @@ def dense_arms(tag, main, start, feed, fetch, steps, kernels, lead=0):
     # one step first: the profiled replay then reads its own buffers
     exe.run_steps(1, main, feed=feed, fetch_list=fetch, scope=pscope)
     rows, wall = profiled_checked(
-        "dense", f"{tag}, a captured AMP step", lambda: exe.run_steps(
+        "dense", f"{tag}, a captured {'AMP' if amp else 'fp32'} step",
+        lambda: exe.run_steps(
             1, main, feed=feed, fetch_list=fetch, scope=pscope), 1, since,
         own=own)
     arm["busy"] = sum(r[0] for r in rows)
     arm["idle"] = 1 - arm["busy"] / wall
     del pscope, scope
     exe.close()
-    iexe = ptt.Executor(amp=True, use_jit=False)
+    iexe = ptt.Executor(amp=amp, use_jit=False)
     if lead:
         iexe.run_steps(lead, main, feed=feed, fetch_list=fetch,
                        scope=clone_scope(start))
@@ -9301,6 +9325,41 @@ def _port_op(op, ins, attrs, device):
             for k, x in out.items()}
 
 
+def dense_op_held(name, dev, cpu, tol):
+    """The card's outputs ``dev`` of op case ``name`` against the CPU
+    op's ``cpu`` ({slot: [tensors]}): the same slots, dtypes and shapes;
+    finite floats within ``tol`` of the largest finite magnitude, the
+    rest (and every integer, bool, index or length output) equal.
+    Returns the largest float error as a share of scale."""
+    if sorted(dev) != sorted(cpu):
+        raise RuntimeError(f"chip_smoke: [dense] op {name}: outputs "
+                           f"{sorted(dev)} vs {sorted(cpu)}")
+    worst = 0.0
+    for slot in cpu:
+        for g, w in zip(dev[slot], cpu[slot]):
+            g, w = g.detach().cpu(), w.detach()
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise RuntimeError(f"chip_smoke: [dense] op {name} {slot}: "
+                                   f"{g.dtype} {tuple(g.shape)} vs "
+                                   f"{w.dtype} {tuple(w.shape)}")
+            if w.is_floating_point() and w.numel():
+                fin = torch.isfinite(w)
+                scale = max(w[fin].abs().max().item(), 1e-30) \
+                    if fin.any() else 1.0
+                err = (g[fin] - w[fin]).abs().max().item() \
+                    if fin.any() else 0.0
+                worst = max(worst, err / scale)
+                if not (err <= tol * scale
+                        and torch.equal(g[~fin], w[~fin])):
+                    raise RuntimeError(f"chip_smoke: [dense] op {name} "
+                                       f"{slot}: max |error| {err:.3e} of "
+                                       f"scale {scale:.3e}")
+            elif not torch.equal(g, w):
+                raise RuntimeError(f"chip_smoke: [dense] op {name} {slot}: "
+                                   f"{g.tolist()} vs {w.tolist()}")
+    return worst
+
+
 def dense_tensor_math_ops(card):
     """The 49 op names of the tensor and math families
     (paddle_tpu_torch.testing.op_cases) on the card against the port's
@@ -9317,31 +9376,10 @@ def dense_tensor_math_ops(card):
     worst = 0.0
     for name, case in oc.CASES.items():
         op, ins, attrs, _ = case(oc.rng(name))
-        dev = _port_op(op, ins, attrs, "cuda")
-        cpu = _port_op(op, ins, attrs, "cpu")
-        for slot in cpu:
-            for g, w in zip(dev[slot], cpu[slot]):
-                g = g.cpu()
-                if g.dtype != w.dtype or g.shape != w.shape:
-                    raise RuntimeError(f"chip_smoke: [dense] op {name} "
-                                       f"{slot}: {g.dtype} {tuple(g.shape)}"
-                                       f" vs {w.dtype} {tuple(w.shape)}")
-                if w.is_floating_point() and w.numel():
-                    fin = torch.isfinite(w)
-                    scale = max(w[fin].abs().max().item(), 1e-30) \
-                        if fin.any() else 1.0
-                    err = (g[fin] - w[fin]).abs().max().item() \
-                        if fin.any() else 0.0
-                    worst = max(worst, err / scale)
-                    if not (err <= tol * scale
-                            and torch.equal(g[~fin], w[~fin])):
-                        raise RuntimeError(f"chip_smoke: [dense] op {name}"
-                                           f" {slot}: max |error| {err:.3e}"
-                                           f" of scale {scale:.3e}")
-                elif not torch.equal(g, w):
-                    raise RuntimeError(f"chip_smoke: [dense] op {name} "
-                                       f"{slot}: {g.tolist()} vs "
-                                       f"{w.tolist()}")
+        worst = max(worst, dense_op_held(name, _port_op(op, ins, attrs,
+                                                        "cuda"),
+                                         _port_op(op, ins, attrs, "cpu"),
+                                         tol))
     op, ins, attrs, _ = oc.CASES["scatter[accumulate]"](
         oc.rng("scatter[accumulate]"))
     twice = [_port_op(op, ins, attrs, "cuda")["Out"][0] for _ in range(2)]
@@ -9412,6 +9450,334 @@ def dense_tensor_math_ops(card):
     return len(oc.CASES), worst
 
 
+# (d) and (e): bench.py's seq2seq widths (bench.py:230-247): vocab 30000,
+# embedding and hidden 512, 30 steps, batch 64; lengths drawn in 10-30
+TAG = dict(vocab=30000, emb=512, hidden=512)
+TAG_T = 30
+TAG_BATCH = 64
+TAG_LENS = (10, 30)
+TAG_TYPES = 8                  # IOB over 8 chunk types: 17 tags
+TAG_STEPS = 2
+TAG_LR = 1e-3
+CTC_LABELS = (1, 15)           # label lengths; row 0's 15 cannot fit
+# fp32 ops against the float64 oracles (paddle_tpu_torch/testing/
+# seq_oracles.py) on the fetched operands, relative: 30 steps of log-sum-
+# exp in fp32 (the CRF) and a vocabulary-wide log-softmax (the CTC)
+SEQ_ORACLE_TOL = 1e-4
+# a Viterbi row held to the float64 path when every decision on its path
+# wins by more than this (the fp32 scores' rounding is far below it)
+VITERBI_MARGIN = 1e-4
+
+
+def seq_words(rng):
+    """``words`` [TAG_BATCH, TAG_T] and ragged lengths in TAG_LENS (the
+    two ends present), as numpy."""
+    lens = rng.randint(TAG_LENS[0], TAG_LENS[1] + 1, TAG_BATCH).astype(
+        np.int32)
+    lens[:2] = TAG_LENS
+    words = rng.randint(0, TAG["vocab"], (TAG_BATCH, TAG_T)).astype(np.int64)
+    return words, lens
+
+
+def no_kernel_since():
+    """A function giving {trace name fragment: launches} that K1-K4's
+    wrappers counted since this call (the fp32 K1 name)."""
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.ops import flash_attention as fa
+    conv, flash = conv_since(conv1x1, "mm_f32_tma"), flash_since(fa)
+    return lambda: {**conv(), **flash()}
+
+
+def check_no_kernel(tag, c, k5):
+    """No K1-K4 launch and no reference route in a [dense] arm, and no
+    K5 launch since ``k5`` (the probe's counts before the arm)."""
+    from paddle_tpu_torch.benchmark import bandwidth
+    if c["k1"] or any(c["flash"].values()) or c["reference_route"] or \
+            dict(bandwidth.launches) != k5:
+        raise RuntimeError(f"chip_smoke: [dense] {tag} launched K1 "
+                           f"{c['k1']}, K2-K4 {c['flash']} (reference route "
+                           f"{c['reference_route']}), K5 "
+                           f"{dict(bandwidth.launches)} (before {k5}); "
+                           f"expected none")
+
+
+def dense_crf(seed, card):
+    """(d): the CRF tagger (paddle_tpu_torch/testing/seq_programs.py) at
+    bench.py's seq2seq widths, fp32
+    Executor.run_steps(TAG_STEPS) with Momentum, captured against
+    use_jit=False; the NLL against a float64 forward algorithm over the
+    fetched emissions and the Transition each step read; the decode
+    program (crf_decoding sharing ``crfw``, ChunkEvaluator) from the
+    trained scope: the path against a float64 Viterbi on rows without a
+    near-tie, 0 past each length, the evaluator's counts a numpy
+    recount.  Returns ms a step."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.testing import seq_oracles as so
+    from paddle_tpu_torch.testing.seq_programs import build_crf_tagger
+    from paddle_tpu_torch.benchmark import bandwidth
+    k5 = dict(bandwidth.launches)
+    main, startup, v = build_crf_tagger(ptt, n_types=TAG_TYPES, lr=TAG_LR,
+                                        seed=seed, **TAG)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    rng = np.random.RandomState(seed + 28)
+    words, lens = seq_words(rng)
+    target = rng.randint(0, 2 * TAG_TYPES + 1, (TAG_BATCH, TAG_T)).astype(
+        np.int64)
+    feed = {"words": torch.from_numpy(words).cuda(),
+            "words@LEN": torch.from_numpy(lens).cuda(),
+            "target": torch.from_numpy(target).cuda(),
+            "target@LEN": torch.from_numpy(lens).cuda()}
+    fetch = [v["loss"].name, v["cost"].name, v["emission"].name, "crfw"]
+    c = dense_arms("(d) the CRF tagger", main, start, feed, fetch, TAG_STEPS,
+                   (None, no_kernel_since), amp=False)
+    check_captured("[dense] (d)", c["snap"], TAG_STEPS)
+    same_fetches("[dense] (d) captured against use_jit=False", c["got"],
+                 c["want"])
+    n = same_scopes("[dense] (d) captured against use_jit=False",
+                    c["scope"], c["iscope"])
+    check_no_kernel("(d)", c, k5)
+    loss, cost, emission, trans = (np.asarray(x) for x in c["got"])
+    read = [start.numpy("crfw")] + [trans[s] for s in range(TAG_STEPS - 1)]
+    nll_err = 0.0
+    for s in range(TAG_STEPS):
+        want = so.crf_nll(emission[s], read[s], target, lens)
+        nll_err = max(nll_err, float(np.abs(cost[s][:, 0] - want).max()
+                                     / np.abs(want).max()))
+        if not (nll_err <= SEQ_ORACLE_TOL and np.isfinite(loss[s]).all()
+                and abs(float(loss[s]) - want.mean()) <= SEQ_ORACLE_TOL
+                * abs(want.mean())):
+            raise RuntimeError(f"chip_smoke: [dense] (d) step {s}: NLL "
+                               f"{nll_err:.3e} of scale from the float64 "
+                               f"forward algorithm, loss {loss[s]} vs "
+                               f"{want.mean()}")
+    # the decode program shares crfw: the trained scope's weights
+    dmain, dstart, dv = build_crf_tagger(ptt, n_types=TAG_TYPES,
+                                         decode=True, seed=seed, **TAG)
+    dscope = ptt.Scope()
+    dexe = ptt.Executor()
+    dexe.run(dstart, scope=dscope)
+    for k in c["scope"].keys():
+        dscope.set(k, c["scope"].get(k).clone())
+    ev = dv["evaluator"]
+    ev.reset(dexe, scope=dscope)
+    got = dexe.run_steps(2, dmain, feed=feed, fetch_list=[
+        dv["path"].name, dv["emission"].name], scope=dscope)
+    dexe.close()
+    path, dem = np.asarray(got[0]), np.asarray(got[1])
+    ref, margin = so.viterbi(dem[1], dscope.numpy("crfw"), lens)
+    sure = margin > VITERBI_MARGIN
+    pad = np.arange(TAG_T)[None, :] >= lens[:, None]
+    counts = [int(dscope.numpy(s.name)[0]) for s in ev.states]
+    recount = [2 * x for x in so.chunk_counts(path[1], target, lens,
+                                              TAG_TYPES)]
+    prf = ev.eval(None, scope=dscope)
+    if not (np.array_equal(path[0], path[1])
+            and np.array_equal(path[1][sure], ref[sure])
+            and sure.sum() >= TAG_BATCH // 4 and not path[1][pad].any()
+            and counts == recount):
+        raise RuntimeError(f"chip_smoke: [dense] (d) decode: paths equal "
+                           f"the float64 Viterbi on "
+                           f"{int((path[1] == ref).all(axis=1)[sure].sum())}"
+                           f" of {int(sure.sum())} rows without a near-tie, "
+                           f"padded positions {int(path[1][pad].sum())}, "
+                           f"ChunkEvaluator {counts} vs a recount {recount}")
+    print(f"[dense] (d) CRF tagger at bench.py's seq2seq widths (vocab "
+          f"{TAG['vocab']}, embedding {TAG['emb']}, hidden {TAG['hidden']}, "
+          f"{TAG_T} steps, lengths {TAG_LENS[0]}-{TAG_LENS[1]}, batch "
+          f"{TAG_BATCH}; embedding, bidirectional dynamic_gru by "
+          f"sequence_reverse, concat, row_conv, fc to {2 * TAG_TYPES + 1} "
+          f"tags, linear_chain_crf, mean), fp32 Executor.run_steps("
+          f"{TAG_STEPS}) with Momentum, captured: {c['ms']:.3f} ms a step, "
+          f"{TAG_BATCH * 1e3 / c['ms']:.1f} sequences/s, device busy "
+          f"{c['busy']:.3f} ms, idle share {c['idle']:.3f} (a profiled "
+          f"step), peak allocated {c['peak'] / 2 ** 30:.2f} GiB, graph pools "
+          f"{c['pools'] / 2 ** 30:.2f} GiB; {c['snap']}; losses "
+          f"{loss.reshape(-1).tolist()}, the NLL of each row within "
+          f"{nll_err:.2e} of scale of a float64 forward algorithm over the "
+          f"fetched emissions and Transition (limit {SEQ_ORACLE_TOL:g}); the "
+          f"losses, emissions and the {n} scope entries (the updated "
+          f"Transition among them) bit-equal to use_jit=False; decode "
+          f"(crf_decoding sharing crfw, ChunkEvaluator, 2 captured steps): "
+          f"paths equal a float64 Viterbi on all {int(sure.sum())} rows "
+          f"whose decisions win by more than {VITERBI_MARGIN:g}, 0 past "
+          f"each length, ChunkEvaluator's counts {counts} a numpy recount "
+          f"by the simplified IOB rule, precision/recall/F1 "
+          f"{[round(float(x), 4) for x in prf]}; K1-K5 none, no reference "
+          f"route; {card}")
+    ms = c["ms"]
+    del c, start, dscope
+    torch.cuda.empty_cache()
+    return ms
+
+
+def dense_ctc(seed, card):
+    """(e): the CTC head on (d)'s encoder at the same widths, fp32
+    Executor.run_steps(TAG_STEPS) with Momentum, captured against
+    use_jit=False; each step's per-row loss against a float64 CTC
+    recursion over the fetched logits (the unfit row about 1e30); the
+    argmax path's edit distances against a numpy Levenshtein.  Returns
+    ms a step."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.testing import seq_oracles as so
+    from paddle_tpu_torch.testing.seq_programs import build_ctc_head
+    from paddle_tpu_torch.benchmark import bandwidth
+    k5 = dict(bandwidth.launches)
+    main, startup, v = build_ctc_head(ptt, lr=TAG_LR, seed=seed, **TAG)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    rng = np.random.RandomState(seed + 29)
+    words, lens = seq_words(rng)
+    # a label of at most half its row's steps fits; row 0's 15 labels in
+    # 10 steps cannot
+    lab_lens = rng.randint(CTC_LABELS[0], np.minimum(
+        CTC_LABELS[1], lens // 2) + 1).astype(np.int32)
+    lens[0], lab_lens[0] = TAG_LENS[0], CTC_LABELS[1]
+    lbl = rng.randint(1, TAG["vocab"], (TAG_BATCH, CTC_LABELS[1])).astype(
+        np.int64)
+    feed = {"words": torch.from_numpy(words).cuda(),
+            "words@LEN": torch.from_numpy(lens).cuda(),
+            "lbl": torch.from_numpy(lbl).cuda(),
+            "lbl@LEN": torch.from_numpy(lab_lens).cuda()}
+    keys = ("loss", "ctc", "logits", "path", "dist")
+    c = dense_arms("(e) the CTC head", main, start, feed,
+                   [v[k].name for k in keys], TAG_STEPS,
+                   (None, no_kernel_since), amp=False)
+    check_captured("[dense] (e)", c["snap"], TAG_STEPS)
+    same_fetches("[dense] (e) captured against use_jit=False", c["got"],
+                 c["want"])
+    n = same_scopes("[dense] (e) captured against use_jit=False",
+                    c["scope"], c["iscope"])
+    check_no_kernel("(e)", c, k5)
+    got = dict(zip(keys, (np.asarray(x) for x in c["got"])))
+    del c["got"], c["want"]
+    err, unfit = 0.0, []
+    for s in range(TAG_STEPS):
+        want = so.ctc_nll(got["logits"][s], lbl, lens, lab_lens)
+        ctc = got["ctc"][s][:, 0]
+        fit = want < 1e29
+        err = max(err, float(np.abs(ctc[fit] - want[fit]).max()
+                             / np.abs(want[fit]).max()))
+        unfit.append(float(ctc[0]))
+        lev = [so.levenshtein(got["path"][s][b, :lens[b]],
+                              lbl[b, :lab_lens[b]]) for b in range(TAG_BATCH)]
+        if not (err <= SEQ_ORACLE_TOL and fit[1:].all() and not fit[0]
+                and abs(ctc[0] - 1e30) <= 1e-6 * 1e30
+                and got["dist"][s][:, 0].tolist() == lev):
+            raise RuntimeError(f"chip_smoke: [dense] (e) step {s}: CTC "
+                               f"loss {err:.3e} of scale from the float64 "
+                               f"recursion, the unfit row {ctc[0]} (oracle "
+                               f"{want[0]}), edit distances "
+                               f"{got['dist'][s][:8, 0].tolist()} vs "
+                               f"Levenshtein {lev[:8]}")
+    print(f"[dense] (e) CTC head on (d)'s encoder (the same widths, fc to "
+          f"the {TAG['vocab']}-token vocabulary, warpctc(blank=0), mean; "
+          f"label lengths {CTC_LABELS[0]}-{CTC_LABELS[1]}, row 0's "
+          f"{CTC_LABELS[1]} labels in {TAG_LENS[0]} steps cannot fit), fp32 "
+          f"Executor.run_steps({TAG_STEPS}) with Momentum, captured: "
+          f"{c['ms']:.3f} ms a step, {TAG_BATCH * 1e3 / c['ms']:.1f} "
+          f"sequences/s, device busy {c['busy']:.3f} ms, idle share "
+          f"{c['idle']:.3f} (a profiled step), peak allocated "
+          f"{c['peak'] / 2 ** 30:.2f} GiB, graph pools "
+          f"{c['pools'] / 2 ** 30:.2f} GiB; {c['snap']}; losses "
+          f"{got['loss'].reshape(-1).tolist()}; each fitting row's CTC loss "
+          f"within {err:.2e} of scale of a float64 recursion over the "
+          f"fetched logits (limit {SEQ_ORACLE_TOL:g}), the unfit row "
+          f"{unfit} (about 1e30); the argmax paths' edit_distance equal a "
+          f"numpy Levenshtein on every row; losses, logits, paths, "
+          f"distances and the {n} scope entries bit-equal to use_jit=False; "
+          f"K1-K5 none, no reference route; {card}")
+    ms = c["ms"]
+    del c, start, got
+    torch.cuda.empty_cache()
+    return ms
+
+
+def dense_seq_ops(card):
+    """The 25 op names of the sequence, CRF and embedding families
+    (op_cases.SEQ_CASES, with their @LEN companions) on the card against
+    the port's CPU op on the same operands, fp32 with TF32 off: float
+    outputs within DENSE_OP_TOL of scale, integer, index and length
+    outputs exactly; kmax_seq_score on tied rows in fp32 and bf16 as
+    lax.top_k ranks; nce by its bounds and its cost given the drawn
+    samples; lod_reset's target_lod and max_sequence_len without lengths
+    held by a captured step.  Returns (cases, the largest float error as
+    a share of scale)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.testing import op_cases as oc
+    tol = DENSE_OP_TOL[torch.float32]
+    worst = 0.0
+    for name, case in oc.SEQ_CASES.items():
+        op, ins, attrs, _, lens = case(oc.rng(name))
+        worst = max(worst, dense_op_held(
+            name, oc.run_port(op, ins, attrs, lens, "cuda"),
+            oc.run_port(op, ins, attrs, lens, "cpu"), tol))
+    ties = []
+    for x, lens, k, want in ((np.array([[1, 2, 2, 1], [5, 5, 5, 5]],
+                                       np.float32),
+                              np.array([4, 2], np.int32), 3,
+                              [[1, 2, 0], [0, 1, -1]]),):
+        for dtype in (torch.float32, torch.bfloat16):
+            out = oc.run_port("kmax_seq_score",
+                              {"X": [torch.from_numpy(x).to(dtype)]},
+                              {"beam_size": k}, {("X", 0): lens},
+                              "cuda")["Out"][0]
+            if out.tolist() != want or out.dtype != torch.int64:
+                raise RuntimeError(f"chip_smoke: [dense] kmax_seq_score on "
+                                   f"tied {DTYPE_LABEL[dtype]} rows: "
+                                   f"{out.tolist()}, lax.top_k ranks {want}")
+            ties.append(DTYPE_LABEL[dtype])
+    op, ins, attrs, _ = oc.nce_case(rows=2000)
+    outs = {k: v[0].cpu().numpy()
+            for k, v in oc.run_port(op, ins, attrs, None, "cuda").items()}
+    try:
+        nce_stats = oc.check_nce(outs, ins, attrs)
+    except ValueError as e:
+        raise RuntimeError(f"chip_smoke: [dense] {e}") from e
+    stat, limit = oc.nce_uniformity(outs["SampleLabels"])
+    if not stat < limit:
+        raise RuntimeError(f"chip_smoke: [dense] nce's negatives: "
+                           f"chi-square {stat:.2f} >= {limit}")
+    # host-valued lengths inside a captured step
+    ptt.unique_name.reset()
+    main = ptt.Program()
+    gb = main.global_block()
+    gb.create_var(name="x", shape=[4, 6, 2], dtype="float32")
+    for n in ("r", "padded", "lens", "top", "full"):
+        gb.create_var(name=n)
+    gb.append_op("lod_reset", {"X": ["x"]}, {"Out": ["r"]},
+                 {"target_lod": [0, 5, 6, 6, 9]})
+    gb.append_op("sequence_pad", {"X": ["r"]},
+                 {"Out": ["padded"], "Length": ["lens"]}, {})
+    gb.append_op("max_sequence_len", {"X": ["r"]}, {"Out": ["top"]}, {})
+    gb.append_op("max_sequence_len", {"X": ["x"]}, {"Out": ["full"]}, {})
+    capture_stats().reset()
+    exe = ptt.Executor()
+    held = exe.run_steps(3, main, feed={"x": np.ones((4, 6, 2), np.float32)},
+                         fetch_list=["lens", "top", "full"])
+    snap = capture_stats().snapshot()
+    exe.close()
+    if snap["replays"] != 2 or snap["uncaptured"] or any(
+            np.asarray(held[0])[i].tolist() != [5, 1, 0, 3]
+            or int(np.asarray(held[1])[i]) != 5
+            or int(np.asarray(held[2])[i]) != 6 for i in range(3)):
+        raise RuntimeError(f"chip_smoke: [dense] lod_reset and "
+                           f"max_sequence_len in a captured step: {snap}, "
+                           f"{[np.asarray(h).tolist() for h in held]}")
+    names = {c.split("[")[0] for c in oc.SEQ_CASES} | {"nce"}
+    print(f"[dense] the {len(names)} sequence, CRF and embedding op names "
+          f"({len(oc.SEQ_CASES)} cases with their @LEN companions, "
+          f"paddle_tpu_torch/testing/op_cases.py, and nce) on the card vs "
+          f"the port's CPU op on the same operands, fp32: float outputs "
+          f"within {worst:.2e} of scale (limit {tol:g}), integer, index and "
+          f"length outputs equal; kmax_seq_score on tied {' and '.join(ties)}"
+          f" rows as lax.top_k ranks; nce {nce_stats}, negatives' "
+          f"chi-square {stat:.2f} (limit {limit}); lod_reset's target_lod "
+          f"and max_sequence_len without lengths held by a captured step "
+          f"({snap['replays']} replays); {card}")
+    return len(oc.SEQ_CASES), worst
+
+
 def phase_dense(seed, card, cli_train_forms):
     """The dense op families on the card (see the module docstring).
     ``cli_train_forms`` are [cli]'s --job train K1 launches, printed a
@@ -9439,10 +9805,17 @@ def phase_dense(seed, card, cli_train_forms):
         torch.backends.cudnn.allow_tf32 = False
         try:
             dense_tensor_math_ops(card)
+            dense_seq_ops(card)
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32
         t_ops = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d_ms = dense_crf(seed, card)
+        t_d = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        e_ms = dense_ctc(seed, card)
+        t_e = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.deterministic = saved
         fresh_defaults(seed)
@@ -9450,9 +9823,10 @@ def phase_dense(seed, card, cli_train_forms):
     secs = time.perf_counter() - t_phase
     print(f"[dense] phase {secs:.1f} s (budget {DENSE_BUDGET_S:.0f} s; by "
           f"part a {t_a:.1f} s, b {t_b:.1f} s, c {t_c:.1f} s, ops "
-          f"{t_ops:.1f} s); (a) {a_ms:.3f} ms a step, peak "
-          f"{a_peak / 2 ** 30:.2f} GiB; (b) {b_ms:.3f} ms a step, peak "
-          f"{b_peak / 2 ** 30:.2f} GiB; (c) {c_ms:.3f} ms a step; {card}")
+          f"{t_ops:.1f} s, d {t_d:.1f} s, e {t_e:.1f} s); (a) {a_ms:.3f} ms "
+          f"a step, peak {a_peak / 2 ** 30:.2f} GiB; (b) {b_ms:.3f} ms a "
+          f"step, peak {b_peak / 2 ** 30:.2f} GiB; (c) {c_ms:.3f} ms a step;"
+          f" (d) {d_ms:.3f} ms a step; (e) {e_ms:.3f} ms a step; {card}")
     # K2 runs in (b)'s training steps and (c)'s forwards
     flash = collections.Counter(flash)
     flash.update(c_flash)

@@ -295,7 +295,7 @@ class ExecContext:
 
 # Random ops draw from ExecContext.generator; dropout only in training.
 RANDOM_OPS = ("uniform_random", "gaussian_random", "dropout",
-              "truncated_gaussian_random", "sampling_id", "shuffle")
+              "truncated_gaussian_random", "sampling_id", "shuffle", "nce")
 # A step's draws of one stream start STEP_OFFSET Philox counters after
 # the previous step's: far more than one op draws in a step (a call
 # advances the counter by 4 per element a thread handles, at most).

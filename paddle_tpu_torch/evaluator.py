@@ -1,14 +1,14 @@
 """Program-state evaluators (counterpart of ``paddle_tpu/evaluator.py``;
 reference: fluid/evaluator.py:21-90, the Evaluator base with its state
-vars, and Accuracy).
+vars, Accuracy and ChunkEvaluator).
 
 A state is a persistable scope var that the metric ops accumulate, with
 ``sums``, inside the main program, so a captured step accumulates it
 too; ``eval`` reads the states from the scope, and ``reset`` zeroes them
 on the scope's device.  ``RankAuc``, ``CTCError`` and ``DetectionMAP``
 are host-side numpy evaluators over fetched arrays.  ``ChunkEvaluator``
-needs the CRF family's ``chunk_eval`` op, which the port does not
-register yet: it raises naming its ROADMAP item.
+accumulates the CRF family's ``chunk_eval`` counts the same way as
+``Accuracy`` does its own.
 """
 from __future__ import annotations
 
@@ -87,15 +87,52 @@ class Accuracy(Evaluator):
 
 
 class ChunkEvaluator(Evaluator):
-    """Streaming chunk F1 (fluid evaluator.ChunkEvaluator): not ported
-    yet; it needs the ``chunk_eval`` op of the CRF family."""
+    """Streaming chunk F1 (fluid evaluator.ChunkEvaluator): the
+    ``chunk_eval`` op over ``input`` (the inferred tags) and ``label``,
+    and its three counts (cast to fp32) summed into the ``num_infer``,
+    ``num_label`` and ``num_correct`` states each step; ``metrics`` are
+    the batch's precision, recall and F1."""
 
     def __init__(self, input, label, chunk_scheme="IOB", num_chunk_types=1,
                  **kwargs):
-        raise NotImplementedError(
-            "evaluator.ChunkEvaluator is not ported yet: it needs the "
-            "chunk_eval op of the CRF family, ROADMAP.md Queue A item 4d "
-            "(the CRF and embedding families)")
+        super().__init__("chunk_eval", **kwargs)
+        self.num_infer = self._create_state("num_infer", "float32", [1])
+        self.num_label = self._create_state("num_label", "float32", [1])
+        self.num_correct = self._create_state("num_correct", "float32", [1])
+        prec = self.helper.create_variable_for_type_inference("float32")
+        rec = self.helper.create_variable_for_type_inference("float32")
+        f1 = self.helper.create_variable_for_type_inference("float32")
+        ni = self.helper.create_variable_for_type_inference("int64")
+        nl = self.helper.create_variable_for_type_inference("int64")
+        nc = self.helper.create_variable_for_type_inference("int64")
+        self.helper.append_op(
+            type="chunk_eval",
+            inputs={"Inference": [input], "Label": [label]},
+            outputs={"Precision": [prec], "Recall": [rec], "F1-Score": [f1],
+                     "NumInferChunks": [ni], "NumLabelChunks": [nl],
+                     "NumCorrectChunks": [nc]},
+            attrs={"chunk_scheme": chunk_scheme,
+                   "num_chunk_types": num_chunk_types})
+        layers.sums([self.num_infer, layers.cast(ni, "float32")],
+                    out=self.num_infer)
+        layers.sums([self.num_label, layers.cast(nl, "float32")],
+                    out=self.num_label)
+        layers.sums([self.num_correct, layers.cast(nc, "float32")],
+                    out=self.num_correct)
+        self.metrics.extend([prec, rec, f1])
+
+    def eval(self, executor, eval_program=None, scope=None):
+        """[precision, recall, F1] over the steps since the last reset,
+        fp32: correct / inferred, correct / labelled, and their harmonic
+        mean."""
+        scope = global_scope() if scope is None else scope
+        ni = _scalar(scope, self.num_infer.name)
+        nl = _scalar(scope, self.num_label.name)
+        nc = _scalar(scope, self.num_correct.name)
+        p = nc / max(ni, 1.0)
+        r = nc / max(nl, 1.0)
+        f1 = 2 * p * r / max(p + r, 1e-6)
+        return np.array([p, r, f1], np.float32)
 
 
 class RankAuc:

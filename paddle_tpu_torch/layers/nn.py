@@ -12,7 +12,10 @@ and the layers over the tensor and math ops (``crop``, ``pad``,
 ``expand``, ``multiplex``, ``sampling_id``, ``elementwise_pow``,
 ``l2_normalize``, and the v1 attention and CTR layers ``conv_shift``,
 ``interpolation``, ``outer_prod``, ``factorization_machine``,
-``scale_sub_region``)."""
+``scale_sub_region``), and the layers over the sequence, CRF and
+embedding ops (the ``sequence_*`` layers, ``lod_reset``, ``row_conv``,
+``lstm_unit``, ``kmax_sequence_score``, ``nce``, ``hsigmoid``,
+``linear_chain_crf``, ``crf_decoding``, ``warpctc``)."""
 from __future__ import annotations
 
 from ..core import unique_name
@@ -40,7 +43,11 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
            "modified_huber_loss", "bilinear_tensor_product", "crop", "pad",
            "expand", "multiplex", "sampling_id", "elementwise_pow",
            "l2_normalize", "conv_shift", "interpolation", "outer_prod",
-           "factorization_machine", "scale_sub_region"]
+           "factorization_machine", "scale_sub_region", "lstm_unit",
+           "sequence_softmax", "sequence_expand", "sequence_concat",
+           "sequence_reshape", "sequence_slice", "sequence_reverse",
+           "lod_reset", "row_conv", "kmax_sequence_score", "nce", "hsigmoid",
+           "linear_chain_crf", "crf_decoding", "warpctc"]
 
 
 def _pair(v):
@@ -1333,4 +1340,235 @@ def scale_sub_region(x, indices, value=1.0, name=None):
     helper.append_op(type="scale_sub_region",
                      inputs={"X": [x], "Indices": [indices]},
                      outputs={"Out": [out]}, attrs={"value": value})
+    return out
+
+
+# -- the sequence family (layers/nn.py:251, 1072-1152, 1522) -----------------
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step: ``fc([x_t, hidden_t_prev], 4 * H)`` to the gates,
+    then the lstm_unit op with C_prev; returns (hidden, cell)."""
+    size = cell_t_prev.shape[-1]
+    gates = fc([x_t, hidden_t_prev], 4 * size, param_attr=param_attr,
+               bias_attr=bias_attr if bias_attr is not None else True)
+    helper = LayerHelper("lstm_unit_core", name=name)
+    c = helper.create_variable_for_type_inference(x_t.dtype,
+                                                  cell_t_prev.shape)
+    h = helper.create_variable_for_type_inference(x_t.dtype,
+                                                  cell_t_prev.shape)
+    helper.append_op(type="lstm_unit",
+                     inputs={"X": [gates], "C_prev": [cell_t_prev]},
+                     outputs={"C": [c], "H": [h]},
+                     attrs={"forget_bias": forget_bias})
+    return h, c
+
+
+def sequence_softmax(input, name=None):
+    """Softmax over each sequence's steps, [B, T] or [B, T, 1]."""
+    return _unary_layer("sequence_softmax", input, None, name)
+
+
+def sequence_expand(x, y, name=None):
+    """A [B, D] x broadcast along a time-major y's steps ([B, T, ...]);
+    an x of y's rank passes through, masked by y's lengths."""
+    helper = LayerHelper("sequence_expand", name=name)
+    shape = None
+    if x.shape is not None and y.shape is not None:
+        if len(x.shape) == 2 and len(y.shape) >= 3:
+            shape = (x.shape[0], y.shape[1]) + tuple(x.shape[1:])
+        else:
+            shape = tuple(x.shape)
+    out = helper.create_variable_for_type_inference(x.dtype, shape,
+                                                    lod_level=1)
+    helper.append_op(type="sequence_expand", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_concat(input, axis=0, name=None):
+    """Each row's sequences of ``input`` joined along time."""
+    helper = LayerHelper("sequence_concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype,
+                                                    lod_level=1)
+    helper.append_op(type="sequence_concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def sequence_reshape(input, new_dim, name=None):
+    """[B, T, D] to [B, T * D / new_dim, new_dim], the lengths scaled."""
+    helper = LayerHelper("sequence_reshape", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, lod_level=1)
+    helper.append_op(type="sequence_reshape", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"new_dim": new_dim})
+    return out
+
+
+def sequence_slice(input, offset, length, name=None):
+    """Each row's steps [offset, offset + length)."""
+    helper = LayerHelper("sequence_slice", name=name)
+    out = helper.create_variable_for_type_inference(
+        input.dtype, input.shape, lod_level=1)
+    helper.append_op(type="sequence_slice",
+                     inputs={"X": [input], "Offset": [offset],
+                             "Length": [length]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sequence_reverse(x, name=None):
+    """Each row's steps in reverse order, the padding in place."""
+    helper = LayerHelper("sequence_reverse", name=name)
+    out = helper.create_variable_for_type_inference(
+        x.dtype, x.shape, lod_level=x.lod_level)
+    helper.append_op(type="sequence_reverse", inputs={"X": [x]},
+                     outputs={"Y": [out]})
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None, name=None):
+    """x with the lengths of y's values, or of ``target_lod``'s
+    offsets."""
+    helper = LayerHelper("lod_reset", name=name)
+    out = helper.create_variable_for_type_inference(
+        x.dtype, x.shape, lod_level=1)
+    ins = {"X": [x]}
+    if y is not None:
+        ins["Y"] = [y]
+    helper.append_op(type="lod_reset", inputs=ins, outputs={"Out": [out]},
+                     attrs={"target_lod": target_lod or []})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None):
+    """Lookahead convolution over a parameter Filter
+    [future_context_size + 1, D]."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, name=name)
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr,
+                                shape=[future_context_size + 1, d],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(
+        input.dtype, input.shape, lod_level=input.lod_level)
+    helper.append_op(type="row_conv",
+                     inputs={"X": [input], "Filter": [w]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out, act)
+
+
+def kmax_sequence_score(input, beam_size=1, name=None):
+    """The positions of each sequence's ``beam_size`` top scores, int64,
+    -1 padded (KmaxSeqScoreLayer)."""
+    helper = LayerHelper("kmax_seq_score", name=name)
+    out = helper.create_variable_for_type_inference(
+        "int64", (input.shape[0], beam_size) if input.shape else None)
+    helper.append_op(type="kmax_seq_score", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"beam_size": beam_size})
+    return out
+
+
+# -- sampled outputs and structured prediction (layers/nn.py:1167-1262) -------
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=10, name=None):
+    """Noise-contrastive estimation's cost [B, 1] over parameters Weight
+    [num_total_classes, D] and Bias [num_total_classes]."""
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr) or ParamAttr(),
+        shape=[num_total_classes], dtype=input.dtype, is_bias=True)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    sl = helper.create_variable_for_type_inference(input.dtype)
+    slab = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="nce",
+                     inputs={"Input": [input], "Label": [label],
+                             "Weight": [w], "Bias": [b]},
+                     outputs={"Cost": [cost], "SampleLogits": [sl],
+                              "SampleLabels": [slab]},
+                     attrs={"num_neg_samples": num_neg_samples,
+                            "num_total_classes": num_total_classes})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid's cost [B, 1] over parameters W
+    [num_classes - 1, D] and Bias [num_classes - 1]."""
+    helper = LayerHelper("hierarchical_sigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[num_classes - 1, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(
+        ParamAttr._to_attr(bias_attr) or ParamAttr(),
+        shape=[num_classes - 1], dtype=input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="hierarchical_sigmoid",
+                     inputs={"X": [input], "Label": [label], "W": [w],
+                             "Bias": [b]},
+                     outputs={"Out": [out], "PreOut": [pre]},
+                     attrs={"num_classes": num_classes})
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None, name=None):
+    """The linear-chain CRF's negative log-likelihood [B, 1] over a
+    parameter Transition [D + 2, D] (rows 0 and 1 the start and end
+    scores)."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr,
+                         name=name)
+    ntags = input.shape[-1]
+    transition = helper.create_parameter(
+        param_attr, shape=[ntags + 2, ntags], dtype=input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    emission_exps = helper.create_variable_for_type_inference(input.dtype)
+    transition_exps = helper.create_variable_for_type_inference(input.dtype)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="linear_chain_crf",
+                     inputs={"Emission": [input], "Transition": [transition],
+                             "Label": [label]},
+                     outputs={"Alpha": [alpha],
+                              "EmissionExps": [emission_exps],
+                              "TransitionExps": [transition_exps],
+                              "LogLikelihood": [ll]})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, name=None):
+    """Viterbi decoding under the Transition named by ``param_attr``: the
+    training program's parameter when the program holds it, else one
+    declared here (a standalone decode program, loaded)."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr, name=name)
+    attr = ParamAttr._to_attr(param_attr)
+    gb = helper.main_program.global_block()
+    if attr.name and gb.has_var(attr.name):
+        transition = gb.var(attr.name)
+    else:
+        ntags = input.shape[-1]
+        transition = helper.create_parameter(
+            attr, shape=[ntags + 2, ntags], dtype=input.dtype)
+    out = helper.create_variable_for_type_inference("int64", lod_level=1)
+    ins = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        ins["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=ins,
+                     outputs={"ViterbiPath": [out]})
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, name=None):
+    """The CTC loss [B, 1] of pre-softmax ``input`` against ``label``,
+    by the JAX package's recursion (no external warp-ctc library)."""
+    helper = LayerHelper("warpctc", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="warpctc",
+                     inputs={"Logits": [input], "Label": [label]},
+                     outputs={"Loss": [out]},
+                     attrs={"blank": blank, "norm_by_times": norm_by_times})
     return out

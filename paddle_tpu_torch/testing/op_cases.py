@@ -1,7 +1,9 @@
-"""Operands of the tensor and math op families, made with numpy from a
-seed, for holding an op against another implementation of it: the JAX
-lowering on the CPU (``tests/test_torch_tensor_math_ops.py``) or the
-port's own op on another device (``chip_smoke.py``'s ``[dense]``).
+"""Operands of the tensor, math, sequence, CRF and embedding op
+families, made with numpy from a seed, for holding an op against another
+implementation of it: the JAX lowering on the CPU
+(``tests/test_torch_tensor_math_ops.py``, ``test_torch_sequence_ops.py``,
+``test_torch_crf_ops.py``) or the port's own op on another device
+(``chip_smoke.py``'s ``[dense]``).
 
 * :data:`CASES` maps a case name (the op name, or ``op[variant]``) to a
   function of a ``numpy.random.RandomState`` giving ``(op, ins, attrs,
@@ -19,6 +21,12 @@ port's own op on another device (``chip_smoke.py``'s ``[dense]``).
   each row's position uniform.
 * :data:`TIED_TOP_K` is ``top_k`` on tied rows with ``lax.top_k``'s
   ``Indices`` (the lower index first among equal values).
+* :data:`SEQ_CASES` holds the sequence, CRF and embedding families' ops
+  with their ``@LEN`` companions (lengths 0, 1 and T, ties for
+  ``kmax_seq_score`` and ``crf_decoding``, a CTC label that cannot fit),
+  which :func:`run_port` runs through the port's op; ``nce`` draws, so
+  :func:`nce_case` and :func:`check_nce` hold a draw to its bounds and
+  to its cost recomputed from the drawn samples.
 """
 from __future__ import annotations
 
@@ -375,3 +383,378 @@ TIED_TOP_K = [
     (np.array([[-1.5, 3.0, -1.5, 3.0, 3.0, -0.0, 0.0, 2.0]], np.float32), 5,
      np.array([[1, 3, 4, 7, 6]], np.int64)),   # +0.0 above -0.0
 ]
+
+
+# ---------------------------------------------------------------------------
+# The sequence, CRF and embedding families: cases with length companions
+# ---------------------------------------------------------------------------
+class _Outputs(dict):
+    """An op's output names: ``<slot>.out`` for any slot asked for."""
+
+    def __missing__(self, slot):
+        return [f"{slot}.out"]
+
+
+class OneOp:
+    """The op a case runs as (``ctx.op``): input ``slot``[i] is named
+    ``<slot>.<i>``, and any output slot it asks for exists."""
+
+    def __init__(self, op, ins, attrs):
+        self.type = op
+        self.inputs = {k: [f"{k}.{i}" for i in range(len(vs))]
+                       for k, vs in ins.items()}
+        self.outputs = _Outputs()
+        self.attrs = dict(attrs)
+
+
+def seq_env(pkg, lens, to):
+    """An env of ``pkg`` (either package) holding the sequence lengths
+    ``lens``: {(slot, i): [B] lengths, (slot, i, 2): [B, S] nested
+    lengths} as the ``@LEN``/``@LEN2`` companions of input ``slot``[i],
+    each made by ``to``."""
+    env = pkg.core.Env(pkg.Program().global_block())
+    for key, v in (lens or {}).items():
+        env.local[f"{key[0]}.{key[1]}@LEN" + ("2" if len(key) == 3
+                                              else "")] = to(v)
+    return env
+
+
+def run_port(op, ins, attrs, lens=None, device="cpu"):
+    """The port's ``op`` on numpy (or CPU tensor) operands and lengths on
+    ``device``: {slot: [tensors]}, the lengths it sets on its outputs
+    among them as ``<slot>.out@LEN``."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core.registry import get_op_impl
+
+    def to(v):
+        return (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.asarray(v))).to(device)
+
+    ctx = ptt.core.ExecContext(ptt.Program(), torch.device(device), 0)
+    ctx.op = OneOp(op, ins, attrs)
+    ctx.env = seq_env(ptt, lens, to)
+    out = get_op_impl(op)(ctx, {k: [to(x) for x in xs]
+                                for k, xs in ins.items()}, dict(attrs))
+    out = {k: (list(x) if isinstance(x, (list, tuple)) else [x])
+           for k, x in out.items()}
+    out.update({k: [v] for k, v in ctx.env.local.items()
+                if ".out@LEN" in k})
+    return out
+
+
+# lengths 0, 1 and T among ragged ones (T = 6)
+LENS = np.array([6, 1, 0, 4], np.int32)
+LENS_NONEMPTY = np.array([6, 1, 3, 4], np.int32)
+
+
+def _half(r, *shape, lo=-4, hi=4):
+    """Half-integers in [lo, hi]: every sum of a few of them is exact in
+    bf16, so a max or an argmax over them is the same in any order."""
+    return (r.randint(2 * lo, 2 * hi + 1, shape) * 0.5).astype(np.float32)
+
+
+def _seq(op, shape=(4, 6, 3), attrs=None, lens=LENS, slot="X"):
+    def case(r):
+        return op, {slot: [_f(r, *shape)]}, dict(attrs or {}), \
+            [(slot, 0)], {(slot, 0): lens}
+    return case
+
+
+def _softmax(lens, shape=(4, 6)):
+    def case(r):
+        return "sequence_softmax", {"X": [_f(r, *shape)]}, {}, X, \
+            {("X", 0): lens}
+    return case
+
+
+def _expand(op, x_shape, y_shape):
+    def case(r):
+        return op, {"X": [_f(r, *x_shape)], "Y": [_f(r, *y_shape)]}, {}, \
+            X, {("Y", 0): LENS}
+    return case
+
+
+def _concat(r):
+    return "sequence_concat", {"X": [_f(r, 4, 5, 3), _f(r, 4, 4, 3)]}, \
+        {"axis": 0}, [("X", 0), ("X", 1)], \
+        {("X", 0): np.array([5, 1, 0, 3], np.int32),
+         ("X", 1): np.array([2, 4, 3, 0], np.int32)}
+
+
+def _context(pad_w):
+    def case(r):
+        ins = {"X": [_f(r, 4, 6, 3)]}
+        wrt = [("X", 0)]
+        if pad_w:
+            # begin_pad 2 (contextStart -2) + end_pad 1
+            ins["PadW"] = [_f(r, 3, 3)]
+            wrt.append(("PadW", 0))
+        return "sequence_context", ins, {"contextLength": 4,
+                                         "contextStart": -2}, wrt, \
+            {("X", 0): LENS}
+    return case
+
+
+def _sub_nested(r):
+    # [B=3, S=4, T=5, D=2]; an index -1 (kmax_seq_score's pad) and one
+    # past S select nothing
+    return "sub_nested_seq", {
+        "X": [_f(r, 3, 4, 5, 2)],
+        "Selection": [np.array([[2, 0], [1, -1], [3, 4]], np.int64)]}, {}, \
+        X, {("X", 0): np.array([4, 2, 4], np.int32),
+            ("X", 0, 2): np.array([[5, 3, 1, 2], [4, 5, 0, 0],
+                                   [1, 2, 3, 4]], np.int32)}
+
+
+def _dyn_filter(shared):
+    def case(r):
+        w = _f(r, 4 * 3 * 3 * 3) if shared else _f(r, 2, 4 * 3 * 3 * 3)
+        return "conv2d_dynamic_filter", {"Input": [_f(r, 2, 3, 5, 5)],
+                                         "Filter": [w]}, \
+            {"filter_shape": [4, 3, 3, 3], "strides": [1, 1],
+             "paddings": [1, 1]}, [("Input", 0), ("Filter", 0)], {}
+    return case
+
+
+def _slice(r):
+    return "sequence_slice", {
+        "X": [_f(r, 4, 6, 2)],
+        "Offset": [np.array([[1], [0], [2], [0]], np.int64)],
+        "Length": [np.array([[3], [1], [0], [6]], np.int64)]}, {}, X, \
+        {("X", 0): LENS}
+
+
+def _unpad(r):
+    return "sequence_unpad", {"X": [_f(r, 4, 6, 3)],
+                              "Length": [np.array([3, 6, 0, 1],
+                                                  np.int32)]}, {}, X, {}
+
+
+def _lod_reset(with_y):
+    def case(r):
+        ins = {"X": [_f(r, 4, 6, 2)]}
+        attrs = {"target_lod": [] if with_y else [0, 6, 7, 7, 11]}
+        if with_y:
+            ins["Y"] = [np.array([2, 6, 0, 5], np.int32)]
+        return "lod_reset", ins, attrs, X, {("X", 0): LENS}
+    return case
+
+
+def _row_conv(r):
+    return "row_conv", {"X": [_f(r, 4, 6, 3)], "Filter": [_f(r, 3, 3)]}, \
+        {}, [("X", 0), ("Filter", 0)], {("X", 0): LENS}
+
+
+def _kmax(k, shape=(4, 6)):
+    def case(r):
+        # ties: [1, 2, 2, 1, ...] ranks 1, 2 then 0 (the lower first)
+        x = _tied(r, *shape)
+        x[0, :4] = [1.0, 2.0, 2.0, 1.0]
+        return "kmax_seq_score", {"X": [x]}, {"beam_size": k}, [], \
+            {("X", 0): LENS}
+    return case
+
+
+def _max_len(with_lens):
+    def case(r):
+        return "max_sequence_len", {"X": [_f(r, 4, 6, 2)]}, {}, [], \
+            {("X", 0): LENS} if with_lens else {}
+    return case
+
+
+def _lstm_unit(r):
+    return "lstm_unit", {"X": [_f(r, 4, 12)], "C_prev": [_f(r, 4, 3)]}, \
+        {"forget_bias": 1.0}, [("X", 0), ("C_prev", 0)], {}
+
+
+def _crf(r):
+    return "linear_chain_crf", {
+        "Emission": [_f(r, 4, 6, 5)], "Transition": [_f(r, 7, 5, scale=0.5)],
+        "Label": [r.randint(0, 5, (4, 6)).astype(np.int64)]}, {}, \
+        [("Emission", 0), ("Transition", 0)], {("Emission", 0): LENS}
+
+
+def _decode(variant):
+    def case(r):
+        T = 1 if variant == "T1" else 6
+        if variant == "ties":
+            # zeros and ones: most steps tie between several tags
+            em = r.randint(0, 2, (4, T, 5)).astype(np.float32)
+            tr = r.randint(0, 2, (7, 5)).astype(np.float32)
+        else:
+            em, tr = _half(r, 4, T, 5), _half(r, 7, 5, lo=-2, hi=2)
+        ins = {"Emission": [em], "Transition": [tr]}
+        if variant == "label":
+            ins["Label"] = [r.randint(0, 5, (4, T)).astype(np.int64)]
+        lens = np.minimum(LENS, T).astype(np.int32)
+        return "crf_decoding", ins, {}, [], {("Emission", 0): lens}
+    return case
+
+
+def _ctc(norm):
+    def case(r):
+        # labels in 1..5 (0 is the blank), -1 pads; row 2's three labels
+        # (one repeat: 4 steps needed) cannot fit in its 2 steps
+        label = np.array([[1, 2, 2], [3, -1, -1], [4, 1, 5], [5, 5, -1]],
+                         np.int64)
+        lens = {("Logits", 0): np.array([8, 6, 2, 8], np.int32)}
+        if norm:
+            lens[("Label", 0)] = np.array([3, 1, 3, 2], np.int32)
+        return "warpctc", {"Logits": [_f(r, 4, 8, 6)], "Label": [label]}, \
+            {"blank": 0, "norm_by_times": norm}, [("Logits", 0)], lens
+    return case
+
+
+def _edit(normalized):
+    def case(r):
+        hyp = r.randint(0, 4, (4, 6)).astype(np.int64)
+        ref = r.randint(0, 4, (4, 5)).astype(np.int64)
+        lens = {("Hyps", 0): LENS,
+                ("Refs", 0): np.array([5, 3, 2, 0], np.int32)} \
+            if normalized else {}
+        return "edit_distance", {"Hyps": [hyp], "Refs": [ref]}, \
+            {"normalized": normalized}, [], lens
+    return case
+
+
+def _chunk(r):
+    # IOB over 3 chunk types: B-k = 2k, I-k = 2k + 1, O = 6
+    lab = r.randint(0, 7, (4, 6)).astype(np.int64)
+    inf = np.where(r.rand(4, 6) < 0.6, lab,
+                   r.randint(0, 7, (4, 6))).astype(np.int64)
+    return "chunk_eval", {"Inference": [inf], "Label": [lab]}, \
+        {"num_chunk_types": 3, "chunk_scheme": "IOB"}, [], \
+        {("Label", 0): LENS}
+
+
+def _hsigmoid(op, num_classes):
+    def case(r):
+        return op, {"X": [_f(r, 4, 3)],
+                    "Label": [r.randint(0, num_classes, (4, 1))
+                              .astype(np.int64)],
+                    "W": [_f(r, num_classes - 1, 3)],
+                    "Bias": [_f(r, num_classes - 1)]}, \
+            {"num_classes": num_classes}, \
+            [("X", 0), ("W", 0), ("Bias", 0)], {}
+    return case
+
+
+# name -> function of a RandomState giving (op, ins, attrs, wrt, lens):
+# lens as torch_parity.run_op takes it, {(slot, i): [B] lengths,
+# (slot, i, 2): [B, S] nested lengths}
+SEQ_CASES = {
+    # sequence_ops.py
+    "sequence_softmax": _softmax(LENS_NONEMPTY),
+    "sequence_softmax[empty]": _softmax(LENS, (4, 6, 1)),
+    "sequence_expand": _expand("sequence_expand", (4, 3), (4, 6, 3)),
+    "sequence_expand[same_rank]": _expand("sequence_expand", (4, 6, 3),
+                                          (4, 6, 3)),
+    "sequence_expand_as": _expand("sequence_expand_as", (4, 2), (4, 6, 5)),
+    "sequence_concat": _concat,
+    "sequence_context": _context(False),
+    "sequence_context[padw]": _context(True),
+    "sub_nested_seq": _sub_nested,
+    "conv2d_dynamic_filter": _dyn_filter(False),
+    "conv2d_dynamic_filter[shared]": _dyn_filter(True),
+    "sequence_slice": _slice,
+    "sequence_reverse": _seq("sequence_reverse"),
+    "sequence_reshape": _seq("sequence_reshape", (4, 6, 4),
+                             {"new_dim": 8}, np.array([6, 1, 0, 5],
+                                                      np.int32)),
+    "sequence_pad": _seq("sequence_pad"),
+    "sequence_unpad": _unpad,
+    "lod_reset": _lod_reset(False),
+    "lod_reset[Y]": _lod_reset(True),
+    "row_conv": _row_conv,
+    "kmax_seq_score": _kmax(3),
+    "kmax_seq_score[k>T]": _kmax(8),
+    "max_sequence_len": _max_len(True),
+    "max_sequence_len[no_len]": _max_len(False),
+    "lstm_unit": _lstm_unit,
+    # crf_ops.py
+    "linear_chain_crf": _crf,
+    "crf_decoding": _decode(None),
+    "crf_decoding[ties]": _decode("ties"),
+    "crf_decoding[label]": _decode("label"),
+    "crf_decoding[T1]": _decode("T1"),
+    "warpctc": _ctc(False),
+    "warpctc[norm]": _ctc(True),
+    "edit_distance": _edit(True),
+    "edit_distance[raw]": _edit(False),
+    "chunk_eval": _chunk,
+    # embedding_ops.py
+    "hierarchical_sigmoid": _hsigmoid("hierarchical_sigmoid", 6),
+    "hsigmoid": _hsigmoid("hsigmoid", 11),
+    "hsigmoid[8]": _hsigmoid("hsigmoid", 8),
+}
+# cases whose bf16 run is held to the same package's fp32 run, not to the
+# other package's bf16 run: the JAX fill -3.4e38 is -inf in bf16, so its
+# row of length 0 is NaN where the port's is zeros (ROADMAP Queue C)
+BF16_OWN_FP32 = {"sequence_softmax[empty]"}
+
+
+# ---------------------------------------------------------------------------
+# nce: a draw held to its distribution and its cost given the draw
+# ---------------------------------------------------------------------------
+NCE_V = 50
+
+
+def nce_case(rows=8, k=10, seed=11):
+    """(op, ins, attrs, wrt) of ``nce``: Input [rows, 4], Label [rows, 1],
+    Weight [50, 4], Bias [50]; k negatives a row."""
+    r = np.random.RandomState(seed)
+    return "nce", {"Input": [_f(r, rows, 4)],
+                   "Label": [r.randint(0, NCE_V, (rows, 1)).astype(np.int64)],
+                   "Weight": [_f(r, NCE_V, 4, scale=0.5)],
+                   "Bias": [_f(r, NCE_V, scale=0.1)]}, \
+        {"num_neg_samples": k, "num_total_classes": NCE_V}, \
+        [("Input", 0), ("Weight", 0), ("Bias", 0)]
+
+
+def nce_cost(ins, attrs, samples):
+    """nce's SampleLogits and Cost in float64 numpy given its drawn
+    SampleLabels."""
+    x = ins["Input"][0].astype(np.float64)
+    w = ins["Weight"][0].astype(np.float64)
+    b = ins["Bias"][0].astype(np.float64)
+    k, V = attrs["num_neg_samples"], attrs["num_total_classes"]
+    logits = np.einsum("bd,bkd->bk", x, w[samples]) + b[samples] \
+        - math.log(k / V)
+    y = np.zeros_like(logits)
+    y[:, 0] = 1.0
+    ce = np.maximum(logits, 0) - logits * y + np.log1p(np.exp(-np.abs(logits)))
+    return logits, ce.sum(axis=1, keepdims=True)
+
+
+def check_nce(outs, ins, attrs, tol=1e-5):
+    """Hold one ``nce`` draw (numpy outputs) to its bounds and its cost:
+    the label first, the negatives in [0, V), the logits and cost the
+    float64 recomputation's within ``tol`` of scale.  Returns a line of
+    the statistics, raises ``ValueError`` outside the limits."""
+    samples = outs["SampleLabels"]
+    label = ins["Label"][0].reshape(-1)
+    logits, cost = nce_cost(ins, attrs, samples)
+    err_l = float(np.abs(outs["SampleLogits"] - logits).max()
+                  / max(np.abs(logits).max(), 1e-30))
+    err_c = float(np.abs(outs["Cost"] - cost).max()
+                  / max(np.abs(cost).max(), 1e-30))
+    stats = (f"{samples.shape[0]} rows x {samples.shape[1] - 1} negatives "
+             f"in [{samples[:, 1:].min()}, {samples[:, 1:].max()}], logits "
+             f"within {err_l:.2e} and cost within {err_c:.2e} of scale of "
+             f"float64")
+    if samples.dtype != np.int64 or not np.array_equal(samples[:, 0], label) \
+            or samples.min() < 0 or samples.max() >= attrs[
+                "num_total_classes"] or err_l > tol or err_c > tol:
+        raise ValueError(f"nce: {stats}")
+    return stats
+
+
+def nce_uniformity(samples, V=NCE_V):
+    """Chi-square of the negatives' classes against uniform over V (49
+    degrees of freedom): (the statistic, its limit at a false-alarm rate
+    of 1e-6)."""
+    neg = np.asarray(samples)[:, 1:].reshape(-1)
+    counts = np.bincount(neg, minlength=V)
+    expect = neg.size / V
+    return float(((counts - expect) ** 2 / expect).sum()), 111.14

@@ -440,10 +440,10 @@ def test_every_op_has_exactly_one_of_a_rule_or_an_allowlist_entry():
     ops = set(registry.registered_ops())
     fns = set(registry.registered_shape_fns())
     allow = set(SHAPE_INFER_ALLOWLIST)
-    assert len(ops) == 190
+    assert len(ops) == 215
     assert not ops - fns - allow, sorted(ops - fns - allow)
     assert not fns & allow and not allow - ops and not fns - ops
-    assert coverage() == (186, 190)
+    assert coverage() == (211, 215)
     assert allow == {"beam_search", "beam_search_decode", "recurrent",
                      "rnn"}
 
@@ -456,7 +456,7 @@ def test_coverage_equals_the_references_for_the_port_names():
     assert SHAPE_INFER_ALLOWLIST == ops & jsi.SHAPE_INFER_ALLOWLIST
     shard = set(registry.registered_shard_fns())
     assert shard == ops & set(jreg.registered_shard_fns())
-    assert len(shard) == 158
+    assert len(shard) == 168
     assert ops - shard == {
         "bilinear_interp", "bilinear_tensor_product", "block_expand",
         "conv2d_transpose", "conv3d", "cross_entropy_over_beam",
@@ -465,7 +465,11 @@ def test_coverage_equals_the_references_for_the_port_names():
         "recurrent", "rnn", "sequence_conv", "split", "spp", "unpool",
         "conv_shift", "crop", "expand", "factorization_machine",
         "multiplex", "outer_prod", "pad", "select", "slice", "stack",
-        "tile", "unstack", "where"}
+        "tile", "unstack", "where", "chunk_eval", "conv2d_dynamic_filter",
+        "edit_distance", "kmax_seq_score", "lstm_unit",
+        "max_sequence_len", "row_conv", "sequence_concat",
+        "sequence_context", "sequence_expand", "sequence_expand_as",
+        "sequence_reshape", "sequence_slice", "sub_nested_seq", "warpctc"}
 
 
 def test_no_name_of_the_tensor_and_math_modules_is_missing():
@@ -477,6 +481,24 @@ def test_no_name_of_the_tensor_and_math_modules_is_missing():
     names = {n for n in jreg.registered_ops()
              if inspect.getmodule(jreg.get_op_impl(n)) in (jmath, jtensor)}
     assert len(names) == 88
+    assert names <= set(registry.registered_ops())
+    assert names <= set(registry.registered_shape_fns())
+    assert names & set(registry.registered_shard_fns()) == \
+        names & set(jreg.registered_shard_fns())
+
+
+def test_no_name_of_the_sequence_crf_and_embedding_modules_is_missing():
+    """Every op the reference registers in ``ops/sequence_ops.py``,
+    ``ops/crf_ops.py`` and ``ops/embedding_ops.py`` is registered by the
+    port, with its shape rule and, where the reference has one, its
+    shard rule."""
+    import paddle_tpu.ops.crf_ops as jcrf
+    import paddle_tpu.ops.embedding_ops as jemb
+    import paddle_tpu.ops.sequence_ops as jseq
+    import inspect
+    names = {n for n in jreg.registered_ops()
+             if inspect.getmodule(jreg.get_op_impl(n)) in (jseq, jcrf, jemb)}
+    assert len(names) == 33
     assert names <= set(registry.registered_ops())
     assert names <= set(registry.registered_shape_fns())
     assert names & set(registry.registered_shard_fns()) == \

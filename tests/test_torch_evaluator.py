@@ -16,7 +16,11 @@ against the JAX package's classes on the CPU.
   ``trainer.SGD(extra_layers=[accuracy])`` reports the batch accuracy in
   every ``EndIteration.metrics``, equal to the JAX trainer's from the
   same weights and batches.
-* ``ChunkEvaluator`` refuses, naming its ROADMAP item.
+* **Evaluator.ChunkEvaluator**: the same program and states in each
+  package over the CRF family's ``chunk_eval`` op; over several batches
+  of ragged IOB tags its batch metrics, states and ``eval`` equal the
+  JAX evaluator's exactly, and its states are a numpy recount by the
+  JAX package's simplified IOB rule.
 
 Tolerances: none for counts and accuracies (exact); the metrics' float
 results equal the JAX classes' (the same numpy code on the same arrays);
@@ -163,9 +167,85 @@ def test_detection_map_equals_jax():
         assert 0.0 <= ev.eval() <= 1.0
 
 
-def test_chunk_evaluator_refuses_naming_its_item():
-    with pytest.raises(NotImplementedError, match="chunk_eval.*item 4"):
-        ptt.evaluator.ChunkEvaluator(None, None)
+# ---------------------------------------------------------------------------
+# ChunkEvaluator over a program
+# ---------------------------------------------------------------------------
+def _chunk_program(pkg, n_types=3):
+    pkg.unique_name.reset()
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        inf = pkg.layers.data("inf", shape=[], dtype="int64", lod_level=1)
+        lbl = pkg.layers.data("lbl", shape=[], dtype="int64", lod_level=1)
+        ev = pkg.evaluator.ChunkEvaluator(inf, lbl, chunk_scheme="IOB",
+                                          num_chunk_types=n_types)
+    return main, startup, ev
+
+
+def _chunk_feeds(n=4, T=7):
+    """IOB tags over 3 chunk types (B-k 2k, I-k 2k + 1, O 6), ragged
+    lengths with 0 and T among them, inferred tags right 60% of the
+    time."""
+    r = np.random.RandomState(12)
+    feeds = []
+    for _ in range(n):
+        lbl = r.randint(0, 7, (5, T)).astype(np.int64)
+        inf = np.where(r.rand(5, T) < 0.6, lbl, r.randint(0, 7, (5, T)))
+        lens = r.randint(0, T + 1, 5).astype(np.int32)
+        lens[:2] = [T, 0]
+        feeds.append({"inf": inf.astype(np.int64), "lbl": lbl,
+                      "inf@LEN": lens, "lbl@LEN": lens})
+    return feeds
+
+
+def test_chunk_evaluator_equals_jax_over_several_batches():
+    """The same program and states in both packages; the JAX program
+    carried through JSON: each batch's precision, recall and F1, the
+    three states and ``eval`` after 4 batches equal the JAX
+    evaluator's; ``reset`` zeroes them."""
+    tp.reset_both()
+    jm, js, jev = _chunk_program(pt)
+    tm, ts, tev = _chunk_program(ptt)
+    assert tm.to_dict() == jm.to_dict()
+    assert [s.name for s in tev.states] == [s.name for s in jev.states]
+    carried = ptt.Program.from_json(jm.to_json())
+    jscope, tscope = pt.core.Scope(), ptt.Scope()
+    jexe, texe = pt.Executor(pt.CPUPlace()), ptt.Executor(CPU)
+    jexe.run(js, scope=jscope)
+    texe.run(ts, scope=tscope)
+    names = [m.name for m in jev.metrics]
+    for f in _chunk_feeds():
+        want = jexe.run(jm, feed=f, fetch_list=names, scope=jscope)
+        got = texe.run(carried, feed=f, fetch_list=names, scope=tscope)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    for s in jev.states:
+        np.testing.assert_array_equal(tscope.numpy(s.name),
+                                      jscope.numpy(s.name))
+    got = tev.eval(texe, scope=tscope)
+    np.testing.assert_array_equal(got, jev.eval(jexe, scope=jscope))
+    assert got.dtype == np.float32 and 0 < got[2] < 1
+    assert tscope.numpy(tev.num_label.name)[0] > 0
+    tev.reset(texe, scope=tscope)
+    for s in tev.states:
+        assert not tscope.get(s.name).any()
+
+
+def test_chunk_evaluator_counts_by_the_simplified_iob_rule():
+    """Over one batch, the states are a numpy recount: a chunk starts at
+    an even tag below 2 * num_chunk_types within the length, a correct
+    one where the inferred tag equals the label there."""
+    tp.reset_both()
+    main, startup, ev = _chunk_program(ptt)
+    scope = ptt.Scope()
+    exe = ptt.Executor(CPU)
+    exe.run(startup, scope=scope)
+    f = _chunk_feeds(1)[0]
+    exe.run(main, feed=f, fetch_list=[ev.metrics[0].name], scope=scope)
+    m = np.arange(7)[None] < f["lbl@LEN"][:, None]
+    start = lambda t: (t % 2 == 0) & (t < 6) & m   # noqa: E731
+    want = [start(f["inf"]).sum(), start(f["lbl"]).sum(),
+            (start(f["lbl"]) & (f["inf"] == f["lbl"])).sum()]
+    assert [scope.numpy(s.name)[0] for s in ev.states] == want
 
 
 # ---------------------------------------------------------------------------

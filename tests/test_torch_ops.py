@@ -318,6 +318,7 @@ def test_run_op_names_the_failing_op():
 
 def test_unregistered_op_raises_with_its_name():
     # (lookup_table_sparse, the op this test named first, is registered
-    # since the sparse tables were ported; nce is not)
-    with pytest.raises(NotImplementedError, match="nce"):
-        torch_impl("nce")
+    # since the sparse tables were ported, nce since the embedding family
+    # was; moe is not)
+    with pytest.raises(NotImplementedError, match="moe"):
+        torch_impl("moe")

@@ -13,6 +13,9 @@ import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu.core.registry import get_op_impl as jax_impl
 from paddle_tpu_torch.core.registry import get_op_impl as torch_impl
+from paddle_tpu_torch.testing.op_cases import OneOp, seq_env  # noqa: F401
+from paddle_tpu_torch.testing.seq_programs import (  # noqa: F401
+    build_crf_tagger, build_ctc_head)
 
 
 def reset_both():
@@ -329,15 +332,27 @@ def _flat(outs):
     return res
 
 
-def run_op(op, ins, attrs, dtype="float32", wrt=(), is_test=True):
+def _lens_out(env):
+    """The length companions an op set on its outputs, as outputs."""
+    return {(k, 0): v for k, v in env.local.items()
+            if k.endswith(("@LEN", "@LEN2")) and ".out@" in k}
+
+
+def run_op(op, ins, attrs, dtype="float32", wrt=(), is_test=True,
+           lens=None):
     """Run ``op`` through both packages: ({(slot, i): jax array},
     {(slot, i): torch tensor}, jax grads, torch grads).  The grads are of
     sum(out * cotangent) over the float outputs with respect to the
-    inputs ``wrt`` ((slot, i) pairs)."""
+    inputs ``wrt`` ((slot, i) pairs).  ``lens`` gives the inputs' length
+    companions (``seq_env``); the lengths the op sets on its outputs are
+    among its outputs, keyed (``<slot>.out@LEN``, 0)."""
+    one = OneOp(op, ins, attrs)
     jctx = pt.core.LoweringContext(pt.Program(), jax.random.PRNGKey(0),
                                    is_test=is_test)
     tctx = ptt.core.ExecContext(ptt.Program(), torch.device("cpu"), 0,
                                 is_test=is_test)
+    jctx.op = tctx.op = one
+    tctx.env = seq_env(ptt, lens, lambda v: torch.from_numpy(np.array(v)))
     jins = {k: [_to_jax(v, dtype) for v in vs] for k, vs in ins.items()}
     tins = {k: [_to_torch(v, dtype) for v in vs] for k, vs in ins.items()}
 
@@ -348,8 +363,11 @@ def run_op(op, ins, attrs, dtype="float32", wrt=(), is_test=True):
         d = {k: list(vs) for k, vs in jins.items()}
         for (k, i), w in zip(wrt, wvals):
             d[k][i] = w
-        return {(k, i): v for k, i, v in
-                _flat(jax_impl(op)(jctx, d, dict(attrs)))}
+        jctx.env = seq_env(pt, lens, jnp.asarray)
+        out = {(k, i): v for k, i, v in
+               _flat(jax_impl(op)(jctx, d, dict(attrs)))}
+        out.update(_lens_out(jctx.env))
+        return out
 
     if wrt:
         jout, pullback = jax.vjp(jrun, [jins[k][i] for k, i in wrt])
@@ -361,6 +379,7 @@ def run_op(op, ins, attrs, dtype="float32", wrt=(), is_test=True):
     with torch.enable_grad():
         tout = {(k, i): v for k, i, v in
                 _flat(torch_impl(op)(tctx, tins, dict(attrs)))}
+    tout.update(_lens_out(tctx.env))
     jg, tg = [], []
     if wrt:
         r = np.random.RandomState(sum(map(ord, op + "cot")) % 1000)
@@ -404,7 +423,12 @@ INT64_OUTS = {("top_k", "Indices"), ("argmax", "Out"), ("arg_max", "Out"),
               ("max_ids", "Out"), ("max_pool2d_with_index", "Mask"),
               ("pool2d_with_index", "Mask"), ("shape", "Out"),
               ("range", "Out"), ("argsort", "Indices"),
-              ("sampling_id", "Out")}
+              ("sampling_id", "Out"), ("kmax_seq_score", "Out"),
+              ("max_sequence_len", "Out"), ("crf_decoding", "ViterbiPath"),
+              ("edit_distance", "SequenceNum"),
+              ("chunk_eval", "NumInferChunks"),
+              ("chunk_eval", "NumLabelChunks"),
+              ("chunk_eval", "NumCorrectChunks"), ("nce", "SampleLabels")}
 
 
 def check_op(op, ins, attrs, dtype, wrt=(), **kw):
@@ -427,3 +451,18 @@ def check_op(op, ins, attrs, dtype, wrt=(), **kw):
                                           err_msg=f"{op} {s}")
     for (k, i), j, t in zip(wrt, jg, tg):
         close_to(t, j, "float32", f"{op} d{k}[{i}]")
+
+
+# ---------------------------------------------------------------------------
+# Programs (d) and (e): a CRF tagger and a CTC head on one encoder
+# (paddle_tpu_torch/testing/seq_programs.py, built in either package)
+# ---------------------------------------------------------------------------
+def seq_feed(r, batch, T, vocab, lo, hi, label_of=None):
+    """``words`` [batch, T] int64 with ragged lengths in [lo, hi] and
+    their ``@LEN`` (int32); ``label_of(r, lens)`` adds the labels."""
+    lens = r.randint(lo, hi + 1, batch).astype(np.int32)
+    words = r.randint(0, vocab, (batch, T)).astype(np.int64)
+    feed = {"words": words, "words@LEN": lens}
+    if label_of is not None:
+        feed.update(label_of(r, lens))
+    return feed
