@@ -458,12 +458,43 @@ Phases, each of which raises on failure (so the script exits non-zero):
              and embedding op names (op_cases.SEQ_CASES) on the card
              against the port's CPU op, kmax_seq_score's ties in fp32
              and bf16, nce by its bounds and cost, lod_reset and
-             max_sequence_len held by a captured step.
+             max_sequence_len held by a captured step; then the
+             control-flow, detection, io and moe families, budget
+             DENSE_CF_BUDGET_S: (f) at the same widths a greedy decoder
+             looped by layers.While over the seq2seq model's encoder
+             head and decoder step (30 target steps, the limit a feed,
+             the argmax ids written by array_write), run uncaptured and
+             counted under while, its ids the port's CPU run's on every
+             row whose top-2 margin exceeds CF_MARGIN at each step,
+             array_length the capacity (128), ms a decoded step; and a
+             DynamicRNN classifier (lod_rank_table,
+             reorder_lod_tensor_by_rank, gru_unit steps, an IfElse
+             head), fp32 run_steps(2) with Momentum, captured and
+             bit-equal to use_jit=False; (g) SSD300's multibox head
+             (six fed maps 38^2x512 ... 1^2x256, 8732 priors, 21
+             classes, batch 32, padded ground truth), 3x3 loc and conf
+             convs, prior_box and ssd_loss, fp32 run_steps(2) with
+             Momentum, captured and bit-equal to use_jit=False, each
+             loss the CPU ssd_loss's on the fetched operands; box_coder
+             and detection_output at SSD's test settings, captured,
+             against the CPU op, evaluator.DetectionMAP on the rows; and
+             roi_pool forward and backward at Fast R-CNN's VGG-16
+             conv5_3 shape against the CPU op; (h) (b)'s decoder with
+             every FFN a layers.moe (8 experts of width 3072, top-2,
+             capacity factor 1.25), Executor(amp=True).run_steps(2),
+             captured and bit-equal to use_jit=False, K2-K4 once a layer
+             a step, the aux losses printed, an fp32 moe call against
+             the CPU op, the bf16 routing's shared slots counted; and
+             the 21 op names of these families with a single-op case on
+             the card against the CPU op, a While printing at every
+             iteration and a Switch run uncaptured.
 
 The main path of slice, train, resume, attention, seq2seq, pipeline,
 zoo and dense runs captured (Executor(use_jit=True), each step one CUDA
 graph replay; the inference phase replays one graph of the artifact a
-batch size), and
+batch size; dense's While decoder and its op pass's While and Switch
+program are the exception by design: a loop or branch read on the host
+runs uncaptured, counted under its op), and
 each phase adds a use_jit=False arm from the same seed and weights: its
 fetches and final scope must equal the captured arm's bit for bit, no
 captured step may run uncaptured, and both arms' wall, device busy, idle
@@ -8751,7 +8782,7 @@ def phase_compile(seed, card, n_gate, n_split):
     return forms, k2
 
 
-DENSE_BUDGET_S = 65.0
+DENSE_BUDGET_S = 110.0
 DENSE_IMG = 224
 DENSE_CLASSES = 1000
 DENSE_BATCH = 32
@@ -8808,14 +8839,19 @@ def build_resnet_cls(seed, img=DENSE_IMG, classes=DENSE_CLASSES,
                            "evaluator": ev}
 
 
-def build_decoder(seed, vocab, T, d, heads, n_layers, ffn, block=1024):
+def build_decoder(seed, vocab, T, d, heads, n_layers, ffn, block=1024,
+                  moe=None, aux=None):
     """A GPT-style decoder in the port's layers: token and position
     embedding; each layer pre-layer_norm (eps 1e-5), fc Q/K/V reshaped to
     [B, T, heads, d / heads], causal flash_attention, the output fc,
     dropout 0 and the residual elementwise_add, then a gelu FFN and its
     residual; a final layer_norm, the vocabulary fc,
     softmax_with_cross_entropy against tgt [B, T, 1], mean;
-    Momentum(0.01, 0.9) (AMP Adam moves no weight, ROADMAP Queue C)."""
+    Momentum(0.01, 0.9) (AMP Adam moves no weight, ROADMAP Queue C).
+    ``moe`` (``layers.moe``'s keyword arguments): every FFN a
+    mixture-of-experts layer of width ``ffn``, MOE_AUX times each
+    layer's aux loss added to the loss, the aux vars appended to the
+    list ``aux``."""
     import paddle_tpu_torch as ptt
     ptt.unique_name.reset()
     main, startup = ptt.Program(), ptt.Program()
@@ -8837,11 +8873,18 @@ def build_decoder(seed, vocab, T, d, heads, n_layers, ffn, block=1024):
             a = L.fc(L.reshape(a, [0, 0, d]), d, num_flatten_dims=2)
             h = L.elementwise_add(h, L.dropout(a, dropout_prob=0.0))
             x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
+            if moe:
+                f, a = L.moe(x, expert_hidden=ffn, act="gelu", **moe)
+                aux.append(a)
+                h = L.elementwise_add(h, f)
+                continue
             f = L.fc(x, ffn, num_flatten_dims=2, act="gelu")
             h = L.elementwise_add(h, L.fc(f, d, num_flatten_dims=2))
         x = L.layer_norm(h, begin_norm_axis=2, epsilon=1e-5)
         logits = L.fc(x, vocab, num_flatten_dims=2)
         loss = L.mean(L.softmax_with_cross_entropy(logits, tgt))
+        for a in (aux if moe else ()):
+            loss = L.elementwise_add(loss, L.scale(a, scale=MOE_AUX))
         ptt.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
             loss)
     return main, startup, loss
@@ -9778,6 +9821,504 @@ def dense_seq_ops(card):
     return len(oc.SEQ_CASES), worst
 
 
+# (f)-(h) and the op pass of the control-flow, io, detection and moe
+# families: at most DENSE_CF_BUDGET_S together on the builder's card
+DENSE_CF_BUDGET_S = 45.0
+CF_STEPS = 30                  # the greedy decoder's target steps (a feed)
+# the greedy ids held to the CPU run's on rows whose two best
+# probabilities differ by more than this share of the best at every step:
+# 16 fp32 ulps (random weights give near-uniform probabilities at vocab
+# 30000, the best about 1 / 30000 and half the margins below 1e-4)
+CF_MARGIN = 1e-6
+CF_CLASSES = 5                 # the DynamicRNN classifier's classes
+# (g): SSD300's multibox head (Liu et al. 2016, VOC 300x300): 21 classes,
+# batch 32, 16 padded ground-truth rows an image, its test settings
+SSD_BATCH = 32
+SSD_CLASSES = 21
+SSD_GT = 16
+SSD_IMAGE = 300
+SSD_STEPS = 2
+SSD_LR = 1e-3
+SSD_NMS = dict(nms_top_k=400, keep_top_k=200, nms_threshold=0.45,
+               score_threshold=0.01)
+# Fast R-CNN's roi_pool on VGG-16's conv5_3 (Girshick 2015): 2 images of
+# 512 x 38 x 63 (608 x 1008 pixels), 128 ROIs, 7 x 7 bins, stride 16
+ROI = dict(images=2, channels=512, h=38, w=63, rois=128, pooled=7,
+           scale=1.0 / 16)
+# (h): GShard's routing at the layer's defaults, 8 experts of the FFN's
+# width; the aux losses weighted into the loss
+MOE = dict(num_experts=8, top_k=2, capacity_factor=1.25)
+MOE_AUX = 0.01
+
+
+def dense_greedy(seed, card):
+    """(f) first part: a greedy decoder looped by ``layers.While`` over the
+    seq2seq model's encoder head and decoder step at bench.py's seq2seq
+    widths, CF_STEPS target steps (the limit a feed), the ids written
+    with array_write; uncaptured (counted under ``while``); the ids
+    against the port's CPU run on the same weights on every row whose
+    top-2 margin exceeds CF_MARGIN at each step.  Returns (ms a decoded
+    step, busy ms, idle share, peak bytes)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.testing import cf_programs as cf
+    main, startup, v = cf.build_greedy_decoder(ptt, TAG["vocab"], TAG["emb"],
+                                               seed=seed)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    words, lens = seq_words(np.random.RandomState(seed + 29))
+    feed = {"src": words, "src@LEN": lens,
+            "limit": np.array([CF_STEPS], np.int64)}
+    fetch = [v["ids"], v["tops"], v["steps"], v["length"]]
+    exe = ptt.Executor()
+    exe.run(main, feed=feed, fetch_list=fetch, scope=start)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    capture_stats().reset()
+    t0 = time.perf_counter()
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=start)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / CF_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    snap = capture_stats().snapshot()
+    rows, wall = profiled_checked(
+        "dense", "(f) the greedy While decoder, one uncaptured run",
+        lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=start), 1,
+        no_kernel_since, own=None)
+    busy = sum(r[0] for r in rows)
+    exe.close()
+    cpu = ptt.Scope()
+    for k in start.keys():
+        cpu.set(k, start.get(k).cpu())
+    want = ptt.Executor(ptt.CPUPlace()).run(main, feed=feed,
+                                            fetch_list=fetch, scope=cpu)
+    ids, tops = got[0][:CF_STEPS + 1], got[1][1:CF_STEPS + 1]
+    wids, wtops = want[0][:CF_STEPS + 1], want[1][1:CF_STEPS + 1]
+    margin = np.minimum((tops[..., 0] - tops[..., 1]) / tops[..., 0],
+                        (wtops[..., 0] - wtops[..., 1]) / wtops[..., 0])
+    sure = (margin > CF_MARGIN).all(axis=0)
+    same = (ids == wids).all(axis=0)
+    if not (snap["uncaptured"] == {"while": 1} and not snap["replays"]
+            and not snap["captures"] and int(got[2][0]) == CF_STEPS
+            and int(got[3]) == 128 and same[sure].all()
+            and sure.sum() >= TAG_BATCH // 4
+            and not got[0][CF_STEPS + 1:].any()
+            and np.isfinite(tops).all()):
+        raise RuntimeError(f"chip_smoke: [dense] (f) greedy decode: {snap}, "
+                           f"{int(got[2][0])} steps, array_length "
+                           f"{int(got[3])}; ids equal the CPU run's on "
+                           f"{int(same[sure].sum())} of {int(sure.sum())} "
+                           f"rows with a top-2 margin above {CF_MARGIN:g}")
+    print(f"[dense] (f) greedy decoder by layers.While (the seq2seq "
+          f"model's encoder head and decoder step, vocab {TAG['vocab']}, "
+          f"embedding and hidden {TAG['emb']}, source lengths "
+          f"{TAG_LENS[0]}-{TAG_LENS[1]}, batch {TAG_BATCH}; the limit "
+          f"{CF_STEPS} a feed, argmax ids written by array_write): "
+          f"uncaptured {snap['uncaptured']}, {ms:.3f} ms a decoded step "
+          f"(the encoder included), device busy {busy / CF_STEPS:.3f} ms a "
+          f"step, idle share {1 - busy / wall:.3f} (a profiled run), peak "
+          f"allocated {peak / 2 ** 30:.2f} GiB; ids equal the port's CPU "
+          f"run on the same weights on all {int(sure.sum())} rows whose "
+          f"top-2 margin exceeds {CF_MARGIN:g} of the best at every step "
+          f"({int(same.sum())} of {TAG_BATCH} rows in all), array_length "
+          f"{int(got[3])} (the capacity); {card}")
+    del start, cpu
+    return ms, busy / CF_STEPS, 1 - busy / wall, peak
+
+
+def dense_drnn(seed, card):
+    """(f) second part: a DynamicRNN classifier over lod_rank_table and
+    reorder_lod_tensor_by_rank with an IfElse head at the same widths,
+    fp32 run_steps(TAG_STEPS) with Momentum, captured, bit-equal to
+    use_jit=False, no step uncaptured.  Returns the arm's dict."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.testing import cf_programs as cf
+    from paddle_tpu_torch.benchmark import bandwidth
+    k5 = dict(bandwidth.launches)
+    main, startup, v = cf.build_drnn_classifier(
+        ptt, TAG["vocab"], TAG["emb"], TAG["hidden"], CF_CLASSES, lr=TAG_LR,
+        seed=seed)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    rng = np.random.RandomState(seed + 30)
+    words, lens = seq_words(rng)
+    feed = {"words": torch.from_numpy(words).cuda(),
+            "words@LEN": torch.from_numpy(lens).cuda(),
+            "label": torch.from_numpy(rng.randint(0, CF_CLASSES, (
+                TAG_BATCH, 1)).astype(np.int64)).cuda()}
+    fetch = [v["loss"].name, v["rank"].name, v["logits"].name]
+    c = dense_arms("(f) the DynamicRNN classifier", main, start, feed, fetch,
+                   TAG_STEPS, (None, no_kernel_since), amp=False)
+    check_captured("[dense] (f) DynamicRNN", c["snap"], TAG_STEPS)
+    same_fetches("[dense] (f) DynamicRNN captured against use_jit=False",
+                 c["got"], c["want"])
+    c["n"] = same_scopes("[dense] (f) DynamicRNN captured against "
+                         "use_jit=False", c["scope"], c["iscope"])
+    check_no_kernel("(f)", c, k5)
+    loss, rank = np.asarray(c["got"][0]), np.asarray(c["got"][1])
+    order = np.argsort(-lens, kind="stable")
+    if not (np.isfinite(loss).all() and (rank == order).all()):
+        raise RuntimeError(f"chip_smoke: [dense] (f) DynamicRNN: losses "
+                           f"{loss}, rank table {rank[0].tolist()} vs a "
+                           f"stable descending sort {order.tolist()}")
+    print(f"[dense] (f) DynamicRNN classifier (embedding, lod_rank_table, "
+          f"reorder_lod_tensor_by_rank, gru_unit steps, IfElse head over "
+          f"{CF_CLASSES} classes) at the same widths, fp32 Executor"
+          f".run_steps({TAG_STEPS}) with Momentum, captured: {c['ms']:.3f} "
+          f"ms a step, device busy {c['busy']:.3f} ms, idle share "
+          f"{c['idle']:.3f} (a profiled step), peak allocated "
+          f"{c['peak'] / 2 ** 30:.2f} GiB, graph pools "
+          f"{c['pools'] / 2 ** 30:.2f} GiB; {c['snap']}; losses "
+          f"{loss.reshape(-1).tolist()}, the losses, rank tables, logits "
+          f"and the {c['n']} scope entries bit-equal to use_jit=False; the "
+          f"rank table a stable descending sort of the lengths; K1-K5 none; "
+          f"{card}")
+    del c["scope"], c["iscope"], start
+    torch.cuda.empty_cache()
+    return c
+
+
+def ssd_feed(seed, batch):
+    """(g)'s feed on the card: the six source maps (ReLU of a normal
+    draw), the image whose shape the priors read, padded ground truth."""
+    from paddle_tpu_torch.testing import cf_programs as cf
+    rng = np.random.RandomState(seed + 31)
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    feed = {"image": torch.zeros((1, 3, SSD_IMAGE, SSD_IMAGE),
+                                 device="cuda")}
+    for i, (side, ch, *_) in enumerate(cf.SSD300):
+        feed[f"map{i}"] = torch.relu(torch.randn(
+            (batch, ch, side, side), generator=g, device="cuda"))
+    gtb, gtl = cf.ssd_ground_truth(rng, batch, SSD_GT, SSD_CLASSES)
+    return feed, gtb, gtl
+
+
+def dense_ssd(seed, card):
+    """(g): SSD300's multibox head at the paper's widths: 3x3 loc and conf
+    convs over the six fed maps, prior_box, ssd_loss, fp32
+    run_steps(SSD_STEPS) with Momentum, captured, bit-equal to
+    use_jit=False, each step's loss the port's CPU ssd_loss on the
+    fetched operands; then box_coder and detection_output at SSD's test
+    settings, captured, held to the CPU op on the same operands, and
+    evaluator.DetectionMAP on the output.  Returns (the training arm's
+    dict, the decode's ms, mAP)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.testing import cf_programs as cf
+    from paddle_tpu_torch.benchmark import bandwidth
+    k5 = dict(bandwidth.launches)
+    main, startup, v = cf.build_ssd_head(ptt, cf.SSD300, SSD_CLASSES, SSD_GT,
+                                         SSD_IMAGE, lr=SSD_LR, seed=seed)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    feed, gtb, gtl = ssd_feed(seed, SSD_BATCH)
+    feed.update(gtb=torch.from_numpy(gtb).cuda(),
+                gtl=torch.from_numpy(gtl).cuda())
+    fetch = [v[k].name for k in ("loss", "loc", "conf", "prior", "pvar")]
+    c = dense_arms("(g) SSD300's multibox head", main, start, feed, fetch,
+                   SSD_STEPS, (None, no_kernel_since), amp=False)
+    check_captured("[dense] (g)", c["snap"], SSD_STEPS)
+    same_fetches("[dense] (g) captured against use_jit=False", c["got"],
+                 c["want"])
+    n = same_scopes("[dense] (g) captured against use_jit=False",
+                    c["scope"], c["iscope"])
+    check_no_kernel("(g)", c, k5)
+    loss, loc, conf, prior, pvar = c["got"]
+    P = prior.shape[1]
+    tol = DENSE_OP_TOL[torch.float32]
+    loss_err = 0.0
+    for s in range(SSD_STEPS):
+        want = _port_op("ssd_loss", {
+            "Location": [loc[s]], "Confidence": [conf[s]], "GTBox": [gtb],
+            "GTLabel": [gtl], "PriorBox": [prior[s]],
+            "PriorBoxVar": [pvar[s]]}, {}, "cpu")["Loss"][0].mean()
+        loss_err = max(loss_err, abs(float(loss[s]) - want.item())
+                       / abs(want.item()))
+    if not (P == 8732 and loss_err <= tol and np.isfinite(loss).all()):
+        raise RuntimeError(f"chip_smoke: [dense] (g) {P} priors, losses "
+                           f"{loss} within {loss_err:.3e} of the CPU "
+                           f"ssd_loss on the fetched operands")
+    # the test settings' decode from the trained weights, captured
+    dmain, dstart, dv = cf.build_ssd_head(
+        ptt, cf.SSD300, SSD_CLASSES, SSD_GT, SSD_IMAGE, batch=SSD_BATCH,
+        decode=True, nms=SSD_NMS, seed=seed)
+    dscope = ptt.Scope()
+    dexe = ptt.Executor()
+    dexe.run(dstart, scope=dscope)
+    for k in dscope.keys():
+        dscope.set(k, c["scope"].get(k).clone())
+    dfeed = {k: t for k, t in feed.items() if k not in ("gtb", "gtl")}
+    dfetch = [dv["det"].name, dv["scores"].name, dv["boxes"].name]
+    dexe.run_steps(2, dmain, feed=dfeed, fetch_list=dfetch, scope=dscope)
+    capture_stats().reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = dexe.run_steps(2, dmain, feed=dfeed, fetch_list=dfetch,
+                         scope=dscope, return_numpy=False)
+    torch.cuda.synchronize()
+    d_ms = (time.perf_counter() - t0) * 1e3 / 2
+    dsnap = capture_stats().snapshot()
+    dexe.close()
+    check_captured("[dense] (g) decode", dsnap, 2)
+    det, scores, boxes = (t[1] for t in got)
+    want = _port_op("detection_output", {"Scores": [scores.cpu()],
+                                         "BBoxes": [boxes.cpu()]},
+                    dict(SSD_NMS), "cpu")
+    det_err = dense_op_held("detection_output", {"Out": [det]}, want, tol)
+    ev = ptt.evaluator.DetectionMAP()
+    ev.update(det.cpu().numpy(), gtb, gtl)
+    m_ap = ev.eval()
+    ev.reset()
+    ev.update(want["Out"][0].numpy(), gtb, gtl)
+    kept = int((det[..., 0] >= 0).sum())
+    if not (0.0 <= m_ap <= 1.0 and m_ap == ev.eval()):
+        raise RuntimeError(f"chip_smoke: [dense] (g) DetectionMAP {m_ap} "
+                           f"vs {ev.eval()} on the CPU op's rows")
+    print(f"[dense] (g) SSD300's multibox head (six fed maps 38^2x512, "
+          f"19^2x1024, 10^2x512, 5^2x256, 3^2x256, 1^2x256; 4/6/6/6/4/4 "
+          f"priors a cell, {P} priors, {SSD_CLASSES} classes, batch "
+          f"{SSD_BATCH}, {SSD_GT} padded ground-truth rows; the backbone "
+          f"left out), fp32 Executor.run_steps({SSD_STEPS}) with Momentum, "
+          f"captured: {c['ms']:.3f} ms a step, device busy "
+          f"{c['busy']:.3f} ms, idle share {c['idle']:.3f} (a profiled "
+          f"step), peak allocated {c['peak'] / 2 ** 30:.2f} GiB, graph "
+          f"pools {c['pools'] / 2 ** 30:.2f} GiB; {c['snap']}; losses "
+          f"{np.asarray(loss).tolist()} within {loss_err:.2e} of the port's "
+          f"CPU ssd_loss on the fetched operands (limit {tol:g}), the "
+          f"losses, encodings, logits, priors and the {n} scope entries "
+          f"bit-equal to use_jit=False; box_coder and detection_output "
+          f"(nms_top_k {SSD_NMS['nms_top_k']}, keep_top_k "
+          f"{SSD_NMS['keep_top_k']}, NMS {SSD_NMS['nms_threshold']}, score "
+          f"{SSD_NMS['score_threshold']}) captured: {d_ms:.3f} ms a batch, "
+          f"{dsnap}, {kept} rows kept, within {det_err:.2e} of scale of the "
+          f"CPU op on the same operands (labels and order equal); "
+          f"DetectionMAP {m_ap:.4f} (random weights), the same on the CPU "
+          f"op's rows; K1-K5 none; {card}")
+    del c["scope"], c["iscope"], start, dscope
+    torch.cuda.empty_cache()
+    return c, d_ms, m_ap
+
+
+def dense_roi_pool(seed, card):
+    """(g) roi_pool at Fast R-CNN's VGG-16 conv5_3 shape, forward and
+    backward on the card against the port's CPU op on the same operands
+    (ReLU features: many bins tie at 0).  Returns ms of the forward."""
+    from paddle_tpu_torch.core.executor import ExecContext
+    from paddle_tpu_torch.core.registry import get_op_impl
+    import paddle_tpu_torch as ptt
+    rng = np.random.RandomState(seed + 32)
+    R, H, W = ROI["rois"], ROI["h"], ROI["w"]
+    x = np.maximum(rng.randn(ROI["images"], ROI["channels"], H, W), 0) \
+        .astype(np.float32)
+    ih, iw = H / ROI["scale"], W / ROI["scale"]
+    lo = rng.uniform(0, 0.7, (R, 2)) * [iw, ih]
+    side = rng.uniform(0.05, 0.3, (R, 2)) * [iw, ih]
+    rois = np.concatenate([rng.randint(0, ROI["images"], (R, 1)), lo,
+                           np.minimum(lo + side, [iw - 1, ih - 1])],
+                          axis=1).astype(np.float32)
+    cot = rng.randn(R, ROI["channels"], ROI["pooled"], ROI["pooled"]) \
+        .astype(np.float32)
+    attrs = {"pooled_height": ROI["pooled"], "pooled_width": ROI["pooled"],
+             "spatial_scale": ROI["scale"]}
+    impl = get_op_impl("roi_pool")
+
+    def run(device):
+        ctx = ExecContext(ptt.Program(), torch.device(device), 0)
+        xt = torch.from_numpy(x).to(device).requires_grad_(True)
+        out = impl(ctx, {"X": [xt], "ROIs": [torch.from_numpy(rois)
+                                             .to(device)]}, attrs)
+        g, = torch.autograd.grad(
+            (out["Out"] * torch.from_numpy(cot).to(device)).sum(), xt)
+        return {"Out": [out["Out"].detach()], "Argmax": [out["Argmax"]],
+                "dX": [g]}
+
+    dev = run("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(3):
+            impl(ExecContext(ptt.Program(), torch.device("cuda"), 0),
+                 {"X": [torch.from_numpy(x).cuda()],
+                  "ROIs": [torch.from_numpy(rois).cuda()]}, attrs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    err = dense_op_held("roi_pool", dev, run("cpu"),
+                        DENSE_OP_TOL[torch.float32])
+    empty = int((dev["Argmax"][0] < 0).sum())
+    print(f"[dense] (g) roi_pool at Fast R-CNN's VGG-16 conv5_3 shape "
+          f"({ROI['images']} images of {ROI['channels']}x{H}x{W}, {R} ROIs, "
+          f"{ROI['pooled']}x{ROI['pooled']} bins, spatial_scale 1/16; ReLU "
+          f"features): forward {ms:.3f} ms; Out and dX within {err:.2e} of "
+          f"scale of the port's CPU op on the same operands, Argmax equal "
+          f"({empty} empty bins); the masked [R, C, H, W] tensor "
+          f"{R * ROI['channels'] * H * W * 4 / 1e9:.2f} GB; {card}")
+    del dev
+    torch.cuda.empty_cache()
+    return ms
+
+
+def dense_moe(seed, card):
+    """(h): (b)'s decoder with every FFN a layers.moe (MOE, width
+    GPT['ffn']), Executor(amp=True).run_steps(GPT_STEPS) with Momentum,
+    captured, bit-equal to use_jit=False, K2-K4 once a layer a step; an
+    fp32 moe call at the layer's shapes held to the CPU op on the same
+    operands; the bf16 routing's shared slots counted.  Returns (the
+    arm's dict, the aux losses)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel.moe import moe_dispatch
+    aux = []
+    main, startup, loss = build_decoder(seed, **GPT, moe=MOE, aux=aux)
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)
+    rng = np.random.RandomState(seed + 33)
+    B, T, V = GPT_BATCH, GPT["T"], GPT["vocab"]
+    feed = {"tok": torch.from_numpy(rng.randint(0, V, (B, T)).astype(
+                np.int64)).cuda(),
+            "pos": torch.arange(T, dtype=torch.int64).repeat(B, 1).cuda(),
+            "tgt": torch.from_numpy(rng.randint(0, V, (B, T, 1)).astype(
+                np.int64)).cuda()}
+    c = dense_arms("(h) the MoE decoder", main, start, feed,
+                   [loss] + aux, GPT_STEPS,
+                   (ATT_KERNELS, lambda: flash_since(fa)))
+    check_captured("[dense] (h)", c["snap"], GPT_STEPS)
+    same_fetches("[dense] (h) captured against use_jit=False", c["got"],
+                 c["want"])
+    n = same_scopes("[dense] (h) captured against use_jit=False",
+                    c["scope"], c["iscope"])
+    exp = {name: GPT["n_layers"] * GPT_STEPS for name in ATT_REPLACES}
+    losses = np.asarray(c["got"][0]).reshape(-1)
+    auxes = np.stack([np.asarray(a).reshape(-1) for a in c["got"][1:]])
+    if c["flash"] != exp or c["reference_route"] or c["k1"] or \
+            not (np.isfinite(losses).all() and np.isfinite(auxes).all()):
+        raise RuntimeError(f"chip_smoke: [dense] (h) launched K2-K4 "
+                           f"{c['flash']} (reference route "
+                           f"{c['reference_route']}), K1 {c['k1']}, expected "
+                           f"{exp}, none and none; losses {losses}, aux "
+                           f"{auxes}")
+    # an fp32 moe call at the layer's shapes: the first layer's weights
+    op = next(o for o in main.global_block().ops if o.type == "moe")
+    g = np.random.RandomState(seed + 34)
+    ins = {"X": [g.randn(B, T, GPT["d"]).astype(np.float32)]}
+    ins.update({s: [start.get(op.input(s)[0]).cpu()]
+                for s in ("GateW", "W1", "W2")})
+    attrs = dict(op.attrs)
+    tol = DENSE_OP_TOL[torch.float32]
+    err = dense_op_held("moe", _port_op("moe", ins, attrs, "cuda"),
+                        _port_op("moe", ins, attrs, "cpu"), tol)
+    # the bf16 routing of 4096 tokens: slot positions past 256 round
+    tokens = B * T
+    cap = max(1, int(MOE["capacity_factor"] * MOE["top_k"] * tokens
+                     / MOE["num_experts"]))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 35)
+    gates = torch.softmax(torch.randn((tokens, MOE["num_experts"]),
+                                      generator=gen, device="cuda"), -1)
+    per_slot = [moe_dispatch(gates.to(dt), cap, MOE["top_k"])[0].float()
+                .sum(0) for dt in (torch.bfloat16, torch.float32)]
+    shared = [int((p > 1).sum()) for p in per_slot]
+    if shared[1]:
+        raise RuntimeError(f"chip_smoke: [dense] (h) fp32 routing shares "
+                           f"{shared[1]} slots")
+    print(f"[dense] (h) (b)'s decoder with every FFN a layers.moe "
+          f"({MOE['num_experts']} experts of width {GPT['ffn']}, top-"
+          f"{MOE['top_k']}, capacity factor {MOE['capacity_factor']}: "
+          f"{cap} slots an expert for {tokens} tokens; aux weight "
+          f"{MOE_AUX}), Executor(amp=True).run_steps({GPT_STEPS}) with "
+          f"Momentum, captured: {c['ms']:.3f} ms a step, "
+          f"{tokens * 1e3 / c['ms']:.0f} tokens/s, device busy "
+          f"{c['busy']:.3f} ms, idle share {c['idle']:.3f} (a profiled "
+          f"step), peak allocated {c['peak'] / 2 ** 30:.2f} GiB, graph pools "
+          f"{c['pools'] / 2 ** 30:.2f} GiB; {c['snap']}; losses "
+          f"{losses.tolist()}, aux losses by layer {auxes.tolist()}, and the "
+          f"{n} scope entries bit-equal to use_jit=False; K2-K4 "
+          f"{c['flash']} (expected {exp}); an fp32 moe call at the layer's "
+          f"shapes within {err:.2e} of scale of the port's CPU op on the "
+          f"same operands (limit {tol:g}); bf16 routing of {tokens} tokens "
+          f"puts two tokens in {shared[0]} slots (fp32: {shared[1]}; the "
+          f"bf16 slot positions of ROADMAP Queue C); {card}")
+    flash = c["flash"]
+    del c["scope"], c["iscope"], start
+    torch.cuda.empty_cache()
+    return c, flash, auxes
+
+
+def dense_cf_ops(seed, card):
+    """The 24 op names of the control-flow, io, detection and moe families
+    (op_cases.CF_CASES, DET_CASES, MOE_CASES) on the card against the
+    port's CPU op on the same operands, fp32 with TF32 off; and while,
+    conditional_block (by Switch) and print in programs on the card,
+    each run uncaptured and counted under its op, their values the CPU
+    run's and print's lines printed at each iteration.  Returns (cases,
+    the largest float error as a share of scale)."""
+    import contextlib
+    import io
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.testing import op_cases as oc
+    tol = DENSE_OP_TOL[torch.float32]
+    worst = 0.0
+    cases = {**oc.CF_CASES, **oc.DET_CASES, **oc.MOE_CASES}
+    for name, case in cases.items():
+        op, ins, attrs, _, lens = case(oc.rng(name))
+        worst = max(worst, dense_op_held(
+            name, oc.run_port(op, ins, attrs, lens, "cuda"),
+            oc.run_port(op, ins, attrs, lens, "cpu"), tol))
+    # the host-read ops in a program: a While summing to its limit with a
+    # print in its body, a Switch over the sum
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        L = ptt.layers
+        limit = L.data("limit", shape=[1], dtype="int64",
+                       append_batch_size=False)
+        i = L.fill_constant([1], "int64", 0)
+        total = L.fill_constant([1], "float32", 0.0)
+        cond = L.less_than(i, limit)
+        loop = L.While(cond)
+        with loop.block():
+            L.sums([total, L.ones([1], "float32")], out=total)
+            ptt.layer_helper.LayerHelper("print").append_op(
+                type="print", inputs={"In": [total]}, outputs={},
+                attrs={"message": "total"})
+            L.increment(i, 1.0)
+            L.less_than(i, limit, cond=cond)
+        out = L.fill_constant([1], "float32", -1.0)
+        with L.Switch() as sw:
+            with sw.case(L.less_than(total, L.fill_constant(
+                    [1], "float32", 3.0))):
+                L.assign(L.fill_constant([1], "float32", 1.0), output=out)
+            with sw.case(L.less_than(L.fill_constant([1], "float32", 2.0),
+                                     total)):
+                L.assign(L.scale(total, scale=10.0), output=out)
+    feed = {"limit": np.array([5], np.int64)}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        place = ptt.CUDAPlace(0) if device == "cuda" else ptt.CPUPlace()
+        capture_stats().reset()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got = ptt.Executor(place).run(main, feed=feed,
+                                          fetch_list=[total, i, out])
+        runs[device] = (got, capture_stats().snapshot()["uncaptured"],
+                        buf.getvalue())
+    (got, unc, printed), (want, _, wprinted) = runs["cuda"], runs["cpu"]
+    lines = printed.splitlines()
+    if not (unc == {"while": 1} and all(np.array_equal(a, b)
+                                        for a, b in zip(got, want))
+            and float(got[2][0]) == 50.0 and printed == wprinted
+            and lines == [f"total [{k}.]" for k in range(1, 6)]):
+        raise RuntimeError(f"chip_smoke: [dense] while, print and Switch on "
+                           f"the card: {unc}, {got} vs the CPU's {want}, "
+                           f"printed {lines}")
+    print(f"[dense] the {len({c.split('[')[0] for c in cases})} op names of "
+          f"the control-flow, io, detection and moe families with a single-"
+          f"op case ({len(cases)} cases, paddle_tpu_torch/testing/"
+          f"op_cases.py) on the card vs the port's CPU op on the same "
+          f"operands, fp32: float outputs within {worst:.2e} of scale "
+          f"(limit {tol:g}), integer, index and length outputs equal; a "
+          f"While summing to a fed limit, printing at each of its "
+          f"{len(lines)} iterations, and a Switch over the sum uncaptured "
+          f"{unc}, equal to the CPU run; {card}")
+    return len(cases), worst
+
+
 def phase_dense(seed, card, cli_train_forms):
     """The dense op families on the card (see the module docstring).
     ``cli_train_forms`` are [cli]'s --job train K1 launches, printed a
@@ -9816,20 +10357,59 @@ def phase_dense(seed, card, cli_train_forms):
         t0 = time.perf_counter()
         e_ms = dense_ctc(seed, card)
         t_e = time.perf_counter() - t0
+        # (f)-(h) and their op pass: DENSE_CF_BUDGET_S together
+        t0 = time.perf_counter()
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            dense_cf_ops(seed, card)
+            t_cf_ops = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            f_ms, f_busy, f_idle, f_peak = dense_greedy(seed, card)
+            f_c = dense_drnn(seed, card)
+            t_f = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            g_c, g_dms, _ = dense_ssd(seed, card)
+            g_roi_ms = dense_roi_pool(seed, card)
+            t_g = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            h_c, h_flash, _ = dense_moe(seed, card)
+            t_h = time.perf_counter() - t0
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
     finally:
         torch.backends.cudnn.deterministic = saved
         fresh_defaults(seed)
     conv1x1.mm.by_form.clear()
     secs = time.perf_counter() - t_phase
+    t_new = t_cf_ops + t_f + t_g + t_h
     print(f"[dense] phase {secs:.1f} s (budget {DENSE_BUDGET_S:.0f} s; by "
           f"part a {t_a:.1f} s, b {t_b:.1f} s, c {t_c:.1f} s, ops "
-          f"{t_ops:.1f} s, d {t_d:.1f} s, e {t_e:.1f} s); (a) {a_ms:.3f} ms "
+          f"{t_ops:.1f} s, d {t_d:.1f} s, e {t_e:.1f} s, the new families' "
+          f"ops {t_cf_ops:.1f} s, f {t_f:.1f} s, g {t_g:.1f} s, h "
+          f"{t_h:.1f} s: {t_new:.1f} s against their budget of "
+          f"{DENSE_CF_BUDGET_S:.0f} s); (a) {a_ms:.3f} ms "
           f"a step, peak {a_peak / 2 ** 30:.2f} GiB; (b) {b_ms:.3f} ms a "
           f"step, peak {b_peak / 2 ** 30:.2f} GiB; (c) {c_ms:.3f} ms a step;"
-          f" (d) {d_ms:.3f} ms a step; (e) {e_ms:.3f} ms a step; {card}")
-    # K2 runs in (b)'s training steps and (c)'s forwards
+          f" (d) {d_ms:.3f} ms a step; (e) {e_ms:.3f} ms a step; (f) "
+          f"{f_ms:.3f} ms a decoded step (busy {f_busy:.3f} ms, idle share "
+          f"{f_idle:.3f}, peak {f_peak / 2 ** 30:.2f} GiB), the DynamicRNN "
+          f"classifier {f_c['ms']:.3f} ms a step (busy {f_c['busy']:.3f} ms, "
+          f"idle share {f_c['idle']:.3f}, peak "
+          f"{f_c['peak'] / 2 ** 30:.2f} GiB); (g) {g_c['ms']:.3f} ms a step "
+          f"(busy {g_c['busy']:.3f} ms, idle share {g_c['idle']:.3f}, peak "
+          f"{g_c['peak'] / 2 ** 30:.2f} GiB), decode {g_dms:.3f} ms a batch, "
+          f"roi_pool {g_roi_ms:.3f} ms; (h) {h_c['ms']:.3f} ms a step (busy "
+          f"{h_c['busy']:.3f} ms, idle share {h_c['idle']:.3f}, peak "
+          f"{h_c['peak'] / 2 ** 30:.2f} GiB); {card}")
+    # K2 runs in (b)'s and (h)'s training steps and (c)'s forwards; K3
+    # and K4 in (b)'s and (h)'s
     flash = collections.Counter(flash)
     flash.update(c_flash)
+    flash.update(h_flash)
     return forms, dict(flash)
 
 

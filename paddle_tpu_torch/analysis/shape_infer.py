@@ -378,7 +378,9 @@ def squeeze_ids(ids: VarInfo) -> Optional[Tuple[int, ...]]:
 # ---------------------------------------------------------------------------
 SHAPE_INFER_ALLOWLIST = frozenset({
     # control flow: outputs are whatever the sub-block carries bind
-    "rnn", "recurrent",
+    "while", "conditional_block", "rnn", "recurrent",
+    # tensor-array writes allocate their buffer from runtime env state
+    "write_to_array",
     # beam search: output layout depends on decode-time trace-back
     "beam_search", "beam_search_decode",
 })

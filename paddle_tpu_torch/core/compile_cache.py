@@ -144,7 +144,8 @@ class CaptureStats:
       disk_hits/disk_misses — persistent-entry lookups (``disk_load``)
       disk_stores — entries written (``disk_store``)
     uncaptured: steps run by the interpreter for a reason other than a
-    warm-up, by reason (``cpu``, ``use_jit=False``).
+    warm-up, by reason (an op a CUDA graph cannot hold: ``while``,
+    ``conditional_block``, ``print``; else ``cpu``, ``use_jit=False``).
     entries: per fingerprint, the phase times of the compile that built
     its step (:meth:`record_times`) and where they came from (``compile``
     or ``disk``).
@@ -477,7 +478,10 @@ class CachedStep:
     began, its static buffers and the pool: a bound on its peak, read
     without resetting the card's peak statistics) and ``listing`` (its
     ops in order, each with the route it took: ``kernel`` where it moved
-    a kernel's launch counter, else ``other``).  ``source``:
+    a kernel's launch counter, ``host`` for an op a CUDA graph cannot
+    hold, else ``other``) and ``uncaptured`` (why the key's steps run
+    interpreted: an op of the executor's ``UNCAPTURED_OPS``, ``cpu`` or
+    ``use_jit=False``; None where they replay a graph).  ``source``:
     ``compile`` (this process built it cold) or ``disk`` (an entry on
     disk made it a warm start)."""
 
@@ -499,6 +503,10 @@ class CachedStep:
     @property
     def listing(self) -> List[dict]:
         return list(self.facts.get("listing") or [])
+
+    @property
+    def uncaptured(self) -> Optional[str]:
+        return self.facts.get("uncaptured")
 
     def stablehlo(self) -> str:
         """The step listing as text, one op a line: its index, type, the

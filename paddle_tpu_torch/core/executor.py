@@ -366,8 +366,11 @@ def _list_op(ctx: ExecContext, op: Operator, before: list):
 
 def _static_listing(program: Program) -> List[dict]:
     """The step listing without a run (the CPU, where nothing launches a
-    kernel): every global-block op, none on a kernel's route."""
-    return [{"index": i, "op": op.type, "route": "other", "launches": {}}
+    kernel, or a step that runs uncaptured): every global-block op, none
+    on a kernel's route, an op of ``UNCAPTURED_OPS`` on the ``host``'s."""
+    return [{"index": i, "op": op.type,
+             "route": "host" if op.type in UNCAPTURED_OPS else "other",
+             "launches": {}}
             for i, op in enumerate(program.global_block().ops)]
 
 
@@ -577,6 +580,20 @@ def _memo(program: Program, key, compute):
             table.clear()
         table[key] = compute()
     return table[key]
+
+
+# ops a CUDA graph cannot hold, each its own reason to run a step
+# uncaptured: a loop whose trip count is data, a branch chosen by a
+# predicate read on the host, a print that must print at every run
+UNCAPTURED_OPS = ("while", "conditional_block", "print")
+
+
+def uncaptured_op(program: Program) -> Optional[str]:
+    """The type of the first op of ``program`` (any block) that
+    ``UNCAPTURED_OPS`` names, or None; memoized per program version."""
+    return _memo(program, "uncaptured_op", lambda: next(
+        (op.type for b in program.blocks for op in b.ops
+         if op.type in UNCAPTURED_OPS), None))
 
 
 def _has_backward(program: Program) -> bool:
@@ -1000,6 +1017,14 @@ class Executor:
 
     def _uncaptured_reason(self, program: Program,
                            is_test: bool) -> Optional[str]:
+        """Why a step of ``program`` runs interpreted, or None (captured):
+        an op a CUDA graph cannot hold (``UNCAPTURED_OPS``, in any block,
+        on any device), else the CPU, else ``use_jit=False``.  Decided
+        before a capture starts: a capture cannot read a predicate on
+        the host."""
+        op = uncaptured_op(program)
+        if op is not None:
+            return op
         if self.device.type != "cuda":
             return "cpu"
         if not self.use_jit:
@@ -1072,7 +1097,11 @@ class Executor:
         the ``cache_dir`` flag set, a cold compile stores what it learned
         (``compile_cache.disk_store``), and a warm one (an entry on disk)
         builds the step as a cold one does and reports the entry's facts
-        beside its own times.  Returns a
+        beside its own times.  A program holding an op of
+        ``UNCAPTURED_OPS`` is captured on no device: the handle's
+        ``step.uncaptured`` names the op, its listing puts the op on the
+        ``host`` route, and its steps run interpreted, counted under the
+        op.  Returns a
         :class:`~paddle_tpu_torch.core.compile_cache.CompiledProgram`."""
         from .program import default_main_program
         if not self.use_jit:
@@ -1153,7 +1182,8 @@ class Executor:
         own times."""
         stats = compile_cache.stats()
         entry = self._cache.get(fp, program)
-        on_card = self._uncaptured_reason(program, is_test) is None
+        reason = self._uncaptured_reason(program, is_test)
+        on_card = reason is None
         if entry is not None and entry.cached is not None and (
                 entry.graph is not None or not on_card):
             return entry.cached
@@ -1191,6 +1221,9 @@ class Executor:
             facts.update(learned)
             facts["times"] = dict(times)
             source = "disk"
+        # why the key's steps will run interpreted (None: captured); its
+        # steps are counted under it when they run
+        facts["uncaptured"] = reason
         stats.record_times(hexfp, source, **times)
         entry.cached = compile_cache.CachedStep(
             hexfp, facts, captured=entry if on_card else None,

@@ -74,6 +74,12 @@ def custom_ops(graph_module) -> Dict[str, int]:
     return found
 
 
+# ops whose course the host decides from data at every run: torch.export
+# would trace one course only (their capturable forms, torch's cond and
+# while_loop, are queued in ROADMAP Queue A)
+_UNTRACEABLE = ("while", "conditional_block")
+
+
 def export_compiled_model(dirname: str,
                           feed_specs: Dict[str, Tuple[Sequence[int], str]],
                           target_vars,
@@ -96,6 +102,14 @@ def export_compiled_model(dirname: str,
     fetch_names = [t.name if isinstance(t, Variable) else str(t)
                    for t in target_vars]
     pruned = main_program.prune(target_vars).clone(for_test=True)
+    for block in pruned.blocks:
+        for op in block.ops:
+            if op.type in _UNTRACEABLE:
+                raise ValueError(
+                    f"export_compiled_model: the program holds a "
+                    f"{op.type!r} op, whose course is data (read on the "
+                    f"host), which torch.export cannot trace; run it "
+                    f"with the Executor")
     exe = Executor(resolve_place(device))
     module = exe.as_module(pruned, fetch_names, scope)
     module.to(exe.device)

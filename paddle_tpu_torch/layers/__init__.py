@@ -1,10 +1,8 @@
-"""Layer API (counterpart of ``paddle_tpu/layers``): the layers the
-ResNet serving and training paths, the gradient clips, the attention
-slice, the seq2seq slice, the model zoo, beam-search decoding, the
-learning-rate schedules, the dense op families and the tensor and math
-op families build."""
+"""Layer API (counterpart of ``paddle_tpu/layers``): every public
+callable of the JAX package's ``layers``, from ``nn``, ``tensor``,
+``control_flow``, ``io``, ``ops``, ``detection`` and ``generation``."""
 
-from . import control_flow  # noqa: F401
+from . import control_flow, detection  # noqa: F401
 from .io import data  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from .nn import __all__ as _nn_all
@@ -13,7 +11,10 @@ from .tensor import (create_tensor, create_global_var,  # noqa: F401
                      fill_constant_batch_size_like, ones, zeros, zeros_like,
                      reverse, argmax, argsort, gather, scatter, shape, range,
                      slice)
-from .control_flow import increment, less_than, equal, StaticRNN  # noqa: F401
+from .control_flow import *  # noqa: F401,F403
+from .control_flow import __all__ as _cf_all
+from .detection import (prior_box, box_coder, iou_similarity,  # noqa: F401
+                        ssd_loss, detection_output)
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
 from .ops import elementwise_binary_dispatch  # noqa: F401
@@ -24,7 +25,8 @@ __all__ = ["data"] + list(_nn_all) + [
     "create_tensor", "create_global_var", "sums", "assign",
     "fill_constant", "fill_constant_batch_size_like", "ones", "zeros",
     "zeros_like", "reverse", "argmax", "argsort", "gather", "scatter",
-    "shape", "range", "slice", "increment", "less_than", "equal",
-    "StaticRNN"] + [n for n in _ops_all if n not in _nn_all] + [
+    "shape", "range", "slice"] + list(_cf_all) + [
+    "prior_box", "box_coder", "iou_similarity", "ssd_loss",
+    "detection_output"] + [n for n in _ops_all if n not in _nn_all] + [
     "elementwise_binary_dispatch", "BeamSearchDecoder",
     "get_beam_hook", "register_beam_hook", "attention_with_cache"]

@@ -1,8 +1,15 @@
-"""Control-flow layer functions (counterpart of ``increment``,
-``less_than``, ``equal`` and ``StaticRNN`` in
-``paddle_tpu/layers/control_flow.py``; ``While``,
-``DynamicRNN`` and the conditionals come with the slices that use
-them)."""
+"""Control-flow layers (counterpart of ``paddle_tpu/layers/control_flow.py``):
+``While``, ``StaticRNN``, ``DynamicRNN``, ``IfElse``, ``Switch``,
+``ConditionalBlock``, the tensor-array layers and the dynamic-RNN
+plumbing.
+
+``While`` and ``ConditionalBlock`` (and so ``Switch``) build ops whose
+condition the port reads on the host: a program holding them runs
+uncaptured (``ops/control_flow_ops.py``).  ``StaticRNN`` and
+``DynamicRNN`` share the ``rnn`` op, which masks finished sequences
+instead of shrinking the batch; ``IfElse`` computes both branches on
+the whole batch and merges rows by the condition.  Programs built from
+these, the arrays and the rank table stay captured."""
 from __future__ import annotations
 
 import contextlib
@@ -10,7 +17,13 @@ import contextlib
 from ..core import unique_name
 from ..layer_helper import LayerHelper
 
-__all__ = ["increment", "less_than", "equal", "StaticRNN"]
+__all__ = [
+    "While", "StaticRNN", "DynamicRNN", "IfElse", "Switch", "increment",
+    "less_than", "equal", "array_read", "array_write", "array_length",
+    "create_array", "lod_rank_table", "max_sequence_len",
+    "lod_tensor_to_array", "array_to_lod_tensor", "shrink_memory",
+    "reorder_lod_tensor_by_rank", "ConditionalBlock",
+]
 
 
 def increment(x, value=1.0, in_place=True):
@@ -41,6 +54,76 @@ def less_than(x, y, cond=None):
 def equal(x, y, cond=None):
     """x == y elementwise, a bool var."""
     return _cmp("equal", x, y, cond)
+
+
+def _written_outside(sub):
+    """The vars ``sub``'s ops write that an enclosing block declares, in
+    the order first written: the carry of a loop, a branch's outputs."""
+    written = []
+    for op in sub.ops:
+        for n in op.output_names:
+            if n not in sub.vars and n not in written:
+                written.append(n)
+    return written
+
+
+class While:
+    """Loop while ``cond`` (a [1] bool var) is true::
+
+        w = While(cond)
+        with w.block():
+            ...                              # ops of the body
+            less_than(i, limit, cond=cond)   # recompute the condition
+
+    The vars the body writes that are declared outside it are the loop's
+    carry; they must have values before the loop.  The trip count is
+    data, so the program runs uncaptured; reverse mode through the loop
+    is refused, as in the JAX package."""
+
+    def __init__(self, cond, name=None):
+        self.helper = LayerHelper("while", name=name)
+        self.cond_var = cond
+        self.program = self.helper.main_program
+
+    @contextlib.contextmanager
+    def block(self):
+        parent_block = self.program.current_block()
+        sub = self.program.create_block()
+        try:
+            yield
+        finally:
+            written = _written_outside(sub)
+            self.program.rollback()
+            parent_block.append_op(
+                "while",
+                inputs={"Condition": [self.cond_var], "X": list(written)},
+                outputs={"Out": written},
+                attrs={"sub_block": sub.idx})
+
+
+class ConditionalBlock:
+    """Run a block iff ``inputs[0]`` (a [1] bool var) is true; the vars it
+    writes keep their values otherwise (give them values first)."""
+
+    def __init__(self, inputs, name=None):
+        self.inputs = inputs
+        self.helper = LayerHelper("conditional_block", name=name)
+        self.program = self.helper.main_program
+
+    @contextlib.contextmanager
+    def block(self):
+        parent_block = self.program.current_block()
+        sub = self.program.create_block()
+        try:
+            yield
+        finally:
+            written = _written_outside(sub)
+            self.program.rollback()
+            parent_block.append_op(
+                "conditional_block",
+                inputs={"Cond": [self.inputs[0]]},
+                outputs={"Out": written},
+                attrs={"sub_block": sub.idx})
 
 
 class StaticRNN:
@@ -161,3 +244,190 @@ class StaticRNN:
 
     def __call__(self):
         return self.outputs if len(self.outputs) > 1 else self.outputs[0]
+
+
+class DynamicRNN(StaticRNN):
+    """fluid's DynamicRNN: a ``StaticRNN`` whose step is built under
+    ``with drnn.block():``.  Lengths come from the inputs' ``@LEN``; a
+    finished sequence's memories freeze."""
+
+    @contextlib.contextmanager
+    def block(self):
+        with self.step():
+            yield
+
+
+class IfElse:
+    """fluid's IfElse without partitioning the batch: both branches
+    compute on every row, and ``ie()`` takes each output's row from the
+    true branch where ``cond`` holds, else from the false branch (the
+    same answer where the branches' ops are row-wise)::
+
+        ie = IfElse(cond)                    # cond: [B, 1] bool
+        with ie.true_block():
+            ie.output(f(ie.input(x)))
+        with ie.false_block():
+            ie.output(g(ie.input(x)))
+        out = ie()"""
+
+    def __init__(self, cond, name=None):
+        self.helper = LayerHelper("ifelse", name=name)
+        self.cond = cond
+        self.in_true = True
+        self.true_outs = []
+        self.false_outs = []
+        self.program = self.helper.main_program
+
+    @contextlib.contextmanager
+    def true_block(self):
+        self.in_true = True
+        yield
+
+    @contextlib.contextmanager
+    def false_block(self):
+        self.in_true = False
+        yield
+
+    def input(self, x):
+        return x
+
+    def output(self, *outs):
+        (self.true_outs if self.in_true else self.false_outs).extend(outs)
+
+    def __call__(self):
+        results = []
+        for t, f in zip(self.true_outs, self.false_outs):
+            helper = LayerHelper("ifelse_merge")
+            out = helper.create_variable_for_type_inference(t.dtype, t.shape)
+            helper.append_op(type="merge_lod_tensor",
+                             inputs={"InTrue": [t], "InFalse": [f],
+                                     "Mask": [self.cond]},
+                             outputs={"Out": [out]})
+            results.append(out)
+        return results if len(results) > 1 else results[0]
+
+
+class Switch:
+    """fluid's Switch, as the JAX package builds it: each ``case`` is a
+    ``ConditionalBlock`` of its own, so the cases are not exclusive (every
+    true case runs, in order), and ``default()`` only yields, so its ops
+    land in the enclosing block and run after every case (ROADMAP Queue
+    C)."""
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("switch", name=name)
+
+    @contextlib.contextmanager
+    def case(self, condition):
+        with ConditionalBlock([condition]).block():
+            yield
+
+    @contextlib.contextmanager
+    def default(self):
+        yield
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+# -- tensor arrays and the rank table ----------------------------------------
+def create_array(dtype):
+    """A tensor-array var; its first ``array_write`` makes the buffer."""
+    helper = LayerHelper("array")
+    return helper.block.create_var(
+        name=unique_name.generate("array"), dtype=dtype)
+
+
+def array_write(x, i, array=None):
+    """array[i] = x (a new array if none); returns the array."""
+    helper = LayerHelper("array_write")
+    if array is None:
+        array = create_array(x.dtype)
+    helper.append_op(type="write_to_array",
+                     inputs={"X": [x], "I": [i]},
+                     outputs={"Out": [array]})
+    return array
+
+
+def array_read(array, i):
+    """array[i]."""
+    helper = LayerHelper("array_read")
+    out = helper.create_variable_for_type_inference(array.dtype)
+    helper.append_op(type="read_from_array",
+                     inputs={"X": [array], "I": [i]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def array_length(array):
+    """The array's capacity (int64), not its count of writes."""
+    helper = LayerHelper("array_length")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="lod_array_length", inputs={"X": [array]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def lod_rank_table(x, level=0):
+    """x's rows in descending order of length (int32), the sorted
+    lengths as its ``@LEN``."""
+    helper = LayerHelper("lod_rank_table")
+    out = helper.create_variable_for_type_inference("int32", lod_level=1)
+    helper.append_op(type="lod_rank_table", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"level": level})
+    return out
+
+
+def max_sequence_len(rank_table):
+    """The longest length of a rank table (int64)."""
+    helper = LayerHelper("max_sequence_len")
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="max_sequence_len",
+                     inputs={"RankTable": [rank_table]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def lod_tensor_to_array(x, table):
+    """[B, T, ...] -> a time-major [T, B, ...] array (the table is not
+    read)."""
+    helper = LayerHelper("lod_tensor_to_array")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="lod_tensor_to_array",
+                     inputs={"X": [x], "RankTable": [table]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def array_to_lod_tensor(x, table):
+    """A time-major array back to [B, T, ...], with the table's lengths."""
+    helper = LayerHelper("array_to_lod_tensor")
+    out = helper.create_variable_for_type_inference(x.dtype, lod_level=1)
+    helper.append_op(type="array_to_lod_tensor",
+                     inputs={"X": [x], "RankTable": [table]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def shrink_memory(x, i, table):
+    """The identity (the RNN's mask freezes finished rows)."""
+    helper = LayerHelper("shrink_memory")
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op(type="shrink_rnn_memory",
+                     inputs={"X": [x], "I": [i], "RankTable": [table]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    """x's rows (and lengths) in the rank table's order."""
+    helper = LayerHelper("reorder_lod_tensor_by_rank")
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape,
+                                                    lod_level=x.lod_level)
+    helper.append_op(type="reorder_lod_tensor_by_rank",
+                     inputs={"X": [x], "RankTable": [rank_table]},
+                     outputs={"Out": [out]})
+    return out

@@ -47,7 +47,8 @@ __all__ = ["fc", "conv2d", "pool2d", "batch_norm", "elementwise_add",
            "sequence_softmax", "sequence_expand", "sequence_concat",
            "sequence_reshape", "sequence_slice", "sequence_reverse",
            "lod_reset", "row_conv", "kmax_sequence_score", "nce", "hsigmoid",
-           "linear_chain_crf", "crf_decoding", "warpctc"]
+           "linear_chain_crf", "crf_decoding", "warpctc", "roi_pool",
+           "moe"]
 
 
 def _pair(v):
@@ -1572,3 +1573,55 @@ def warpctc(input, label, blank=0, norm_by_times=False, name=None):
                      outputs={"Loss": [out]},
                      attrs={"blank": blank, "norm_by_times": norm_by_times})
     return out
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1, spatial_scale=1.0,
+             name=None):
+    """Max-pool each ROI (rows of ``rois`` [R, 5]: batch index, x1, y1,
+    x2, y2) of ``input`` [N, C, H, W] to [R, C, pooled_height,
+    pooled_width]."""
+    helper = LayerHelper("roi_pool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    argmax = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="roi_pool",
+                     inputs={"X": [input], "ROIs": [rois]},
+                     outputs={"Out": [out], "Argmax": [argmax]},
+                     attrs={"pooled_height": pooled_height,
+                            "pooled_width": pooled_width,
+                            "spatial_scale": spatial_scale})
+    return out
+
+
+def moe(input, num_experts, expert_hidden, top_k=2, capacity_factor=1.25,
+        act="relu", gate_attr=None, param_attr=None, name=None):
+    """A mixture-of-experts FFN (GShard's routing, ``ops/moe_ops.py``) on
+    ``input`` [B, D] or [B, T, D].  The expert weights [E, D, H] and
+    [E, H, D] carry the JAX package's ``('ep', None, None)`` sharding,
+    which one card ignores.  Returns (out, aux_loss): add ``aux_weight *
+    aux_loss`` to the training loss to keep the experts evenly loaded."""
+    import copy
+    helper = LayerHelper("moe", param_attr=param_attr, name=name)
+    D = input.shape[-1]
+    gate_w = helper.create_parameter(
+        gate_attr, shape=[D, num_experts], dtype=input.dtype)
+    pa = copy.copy(param_attr) if param_attr is not None else ParamAttr()
+    if getattr(pa, "sharding", None) is None:
+        pa.sharding = ("ep", None, None)
+    w1 = helper.create_parameter(
+        pa, shape=[num_experts, D, expert_hidden], dtype=input.dtype)
+    w2 = helper.create_parameter(
+        ParamAttr(sharding=pa.sharding),
+        shape=[num_experts, expert_hidden, D], dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(
+        input.dtype, input.shape, lod_level=input.lod_level)
+    aux = helper.create_variable_for_type_inference("float32", ())
+    helper.append_op(type="moe",
+                     inputs={"X": [input], "GateW": [gate_w],
+                             "W1": [w1], "W2": [w2]},
+                     outputs={"Out": [out], "AuxLoss": [aux]},
+                     attrs={"top_k": top_k,
+                            "capacity_factor": capacity_factor,
+                            "activation": act})
+    if input.lod_level:
+        _copy_len(helper, input, out)
+    return out, aux

@@ -758,3 +758,230 @@ def nce_uniformity(samples, V=NCE_V):
     counts = np.bincount(neg, minlength=V)
     expect = neg.size / V
     return float(((counts - expect) ** 2 / expect).sum()), 111.14
+
+
+# ---------------------------------------------------------------------------
+# The control-flow, io, detection and moe families: single-op cases
+# (``while``, ``conditional_block`` and ``print`` need a program: their
+# tests build one), each (op, ins, attrs, wrt, lens) as in SEQ_CASES
+# ---------------------------------------------------------------------------
+def _i64(*v):
+    return np.array(v, np.int64)
+
+
+def _mask_rows(r, n):
+    return (r.rand(n, 1) > 0.5) | (np.arange(n)[:, None] == 0)
+
+
+def _merge(float_mask):
+    def case(r):
+        mask = np.array([0.0, 2.0, -1.0, 0.0], np.float32) if float_mask \
+            else _mask_rows(r, 4)
+        return "merge_lod_tensor", {"InTrue": [_f(r, 4, 3)],
+                                    "InFalse": [_f(r, 4, 3)],
+                                    "Mask": [mask]}, {}, \
+            [("InTrue", 0), ("InFalse", 0)], None
+    return case
+
+
+def _write(i, cap=5):
+    def case(r):
+        return "write_to_array", {"X": [_f(r, 3, 2)], "I": [_i64(i)]}, \
+            {"capacity": cap}, X, None
+    return case
+
+
+def _read(i):
+    def case(r):
+        return "read_from_array", {"X": [_f(r, 5, 3, 2)], "I": [_i64(i)]}, \
+            {}, X, None
+    return case
+
+
+# ties among the lengths: a stable descending order keeps their order
+RANK_LENS = np.array([3, 5, 1, 5, 3, 0], np.int32)
+PERM = np.array([2, 0, 3, 1], np.int32)
+
+
+def _rank_table(with_lens):
+    def case(r):
+        if with_lens:
+            return "lod_rank_table", {"X": [_f(r, 6, 5, 2)]}, {}, [], \
+                {("X", 0): RANK_LENS}
+        return "lod_rank_table", {"X": [_f(r, 4, 6, 2)]}, {}, [], None
+    return case
+
+
+def _no_outputs(op):
+    def case(r):
+        return op, {"X": [_f(r, 2, 3)]}, {"file_path": "unused"}, [], None
+    return case
+
+
+CF_CASES = {
+    "split_lod_tensor": lambda r: (
+        "split_lod_tensor", {"X": [_f(r, 4, 3)], "Mask": [_mask_rows(r, 4)]},
+        {}, X, None),
+    "merge_lod_tensor": _merge(False),
+    "merge_lod_tensor[float_mask]": _merge(True),
+    "write_to_array": _write(2),
+    "write_to_array[negative]": _write(-1),
+    "write_to_array[clamped]": _write(9),
+    "read_from_array": _read(3),
+    "read_from_array[negative]": _read(-2),
+    "lod_array_length": lambda r: (
+        "lod_array_length", {"X": [_f(r, 7, 2)]}, {}, [], None),
+    "lod_tensor_to_array": lambda r: (
+        "lod_tensor_to_array", {"X": [_f(r, 4, 6, 3)], "RankTable": [PERM]},
+        {}, X, None),
+    "array_to_lod_tensor": lambda r: (
+        "array_to_lod_tensor", {"X": [_f(r, 6, 4, 3)],
+                                "RankTable": [PERM]}, {}, X,
+        {("RankTable", 0): LENS}),
+    "lod_rank_table": _rank_table(True),
+    "lod_rank_table[no_len]": _rank_table(False),
+    "reorder_lod_tensor_by_rank": lambda r: (
+        "reorder_lod_tensor_by_rank", {"X": [_f(r, 4, 6, 3)],
+                                       "RankTable": [PERM]}, {}, X,
+        {("X", 0): LENS}),
+    "shrink_rnn_memory": lambda r: (
+        "shrink_rnn_memory", {"X": [_f(r, 4, 3)], "I": [_i64(1)],
+                              "RankTable": [PERM]}, {}, X, None),
+    "assert": _no_outputs("assert"),
+    "save": _no_outputs("save"),
+    "load": _no_outputs("load"),
+}
+
+
+def _boxes(r, *lead, lo=0.0, hi=1.0):
+    """Corner-form boxes [*lead, 4] with x1 < x2 and y1 < y2 in [lo, hi]."""
+    a = r.uniform(lo, hi, lead + (2, 2))
+    a.sort(axis=-2)
+    return a.transpose(*range(len(lead)), -1, -2).reshape(
+        lead + (4,))[..., [0, 2, 1, 3]].astype(np.float32)
+
+
+def _roi_pool(scale, ph, pw):
+    def case(r):
+        # ReLU features: about half exact zeros, so many bins tie at 0
+        # (and a block of them is 0 everywhere)
+        x = np.maximum(_half(r, 2, 3, 8, 9), 0).astype(np.float32)
+        x[0, 0, :4, :4] = 0.0
+        s = 1.0 / scale
+        rois = np.array([[0, 0, 0, 7, 7], [1, 2, 1, 6, 8],
+                         [0, 3.5, 2.5, 5.5, 6.5], [1, 0, 0, 0, 0],
+                         [1, 10, 9, 12, 11]], np.float32)
+        rois[:, 1:] *= s
+        return "roi_pool", {"X": [x], "ROIs": [rois]}, \
+            {"pooled_height": ph, "pooled_width": pw,
+             "spatial_scale": scale}, X, None
+    return case
+
+
+def _prior(r, mins, maxs, ars, flip, clip, var=None):
+    attrs = {"min_sizes": mins, "max_sizes": maxs, "aspect_ratios": ars,
+             "flip": flip, "clip": clip}
+    if var:
+        attrs["variances"] = var
+    return "prior_box", {"Input": [_f(r, 2, 4, 5, 6)],
+                         "Image": [_f(r, 1, 3, 30, 36)]}, attrs, [], None
+
+
+def _box_coder(with_var):
+    def case(r):
+        ins = {"PriorBox": [_boxes(r, 10)],
+               "TargetBox": [_f(r, 1, 10, 4, scale=0.5)]}
+        if with_var:
+            ins["PriorBoxVar"] = [np.tile(np.float32([0.1, 0.1, 0.2, 0.2]),
+                                          (10, 1))]
+        return "box_coder", ins, {}, [("TargetBox", 0), ("PriorBox", 0)], \
+            None
+    return case
+
+
+def _iou(r):
+    y = _boxes(r, 10)
+    x = np.concatenate([_boxes(r, 2), y[3:4],                  # identical
+                        np.float32([[2.0, 2.0, 3.0, 3.0]])])   # disjoint
+    return "iou_similarity", {"X": [x], "Y": [y]}, {}, XY, None
+
+
+def _ssd(label3d):
+    def case(r):
+        N, P, C, M = 2, 10, 4, 3
+        gtl = np.array([[1, 2, -1], [3, -1, -1]], np.int64)
+        gtb = _boxes(r, N, M)
+        gtb[gtl < 0] = 0.0
+        ins = {"Location": [_f(r, N, P, 4)], "Confidence": [_f(r, N, P, C)],
+               "GTBox": [gtb],
+               "GTLabel": [gtl[..., None] if label3d else gtl],
+               "PriorBox": [_boxes(r, P)]}
+        attrs = {}
+        if label3d:
+            attrs = {"neg_pos_ratio": 2.0, "background_label": 1,
+                     "overlap_threshold": 0.3}
+        else:
+            ins["PriorBoxVar"] = [np.tile(np.float32([0.1, 0.1, 0.2, 0.2]),
+                                          (P, 1))]
+        return "ssd_loss", ins, attrs, [("Location", 0),
+                                        ("Confidence", 0)], None
+    return case
+
+
+def _nms(op, attrs):
+    def case(r):
+        N, P, C = 2, 8, 4
+        # a tie in every class (two priors with one score), and boxes
+        # overlapping in pairs so that NMS suppresses
+        logits = _half(r, N, P, C, lo=-2, hi=2)
+        logits[:, 1] = logits[:, 4]
+        scores = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+        base = _boxes(r, N, P // 2)
+        boxes = np.concatenate([base, base + np.float32(0.02)], axis=1)
+        return op, {"Scores": [scores.astype(np.float32)],
+                    "BBoxes": [boxes]}, dict(attrs), \
+            [("Scores", 0), ("BBoxes", 0)], None
+    return case
+
+
+DET_CASES = {
+    "roi_pool": _roi_pool(1.0, 2, 3),
+    "roi_pool[scale]": _roi_pool(0.5, 3, 3),
+    "prior_box": lambda r: _prior(r, [8.0], [16.0], [2.0, 3.0], True, True),
+    "prior_box[noflip]": lambda r: _prior(r, [4.0, 10.0], [], [1.0, 2.0],
+                                          False, False,
+                                          [0.1, 0.2, 0.3, 0.4]),
+    "box_coder": _box_coder(True),
+    "box_coder[no_var]": _box_coder(False),
+    "iou_similarity": _iou,
+    "ssd_loss": _ssd(False),
+    "ssd_loss[3d_label]": _ssd(True),
+    # keep_top_k above the (C - 1) * nms_top_k candidates: -1 pad rows
+    "multiclass_nms": _nms("multiclass_nms", {
+        "nms_top_k": 5, "keep_top_k": 20, "score_threshold": 0.05,
+        "nms_threshold": 0.45}),
+    "detection_output": _nms("detection_output", {
+        "nms_top_k": 6, "keep_top_k": 4, "score_threshold": 0.2,
+        "nms_threshold": 0.3, "background_label": 1}),
+}
+
+
+def _moe(act, top_k=2, cap=1.25, lead=(2, 6)):
+    def case(r):
+        D, E, H = 8, 4, 16
+        return "moe", {"X": [_f(r, *lead, D)], "GateW": [_f(r, D, E)],
+                       "W1": [_f(r, E, D, H, scale=0.5)],
+                       "W2": [_f(r, E, H, D, scale=0.5)]}, \
+            {"top_k": top_k, "capacity_factor": cap, "activation": act}, \
+            [("X", 0), ("GateW", 0), ("W1", 0), ("W2", 0)], None
+    return case
+
+
+# capacity 1.25 * 2 * 12 / 4 = 7 slots an expert: some tokens overflow
+MOE_CASES = {
+    "moe": _moe("relu"),
+    "moe[gelu]": _moe("gelu"),
+    "moe[top1]": _moe("tanh", top_k=1, cap=2.0, lead=(12,)),
+    "moe[sigmoid]": _moe("sigmoid", cap=0.5),
+    "moe[swish]": _moe("swish", top_k=3),
+}

@@ -440,12 +440,12 @@ def test_every_op_has_exactly_one_of_a_rule_or_an_allowlist_entry():
     ops = set(registry.registered_ops())
     fns = set(registry.registered_shape_fns())
     allow = set(SHAPE_INFER_ALLOWLIST)
-    assert len(ops) == 215
+    assert len(ops) == 239
     assert not ops - fns - allow, sorted(ops - fns - allow)
     assert not fns & allow and not allow - ops and not fns - ops
-    assert coverage() == (211, 215)
+    assert coverage() == (232, 239)
     assert allow == {"beam_search", "beam_search_decode", "recurrent",
-                     "rnn"}
+                     "rnn", "while", "conditional_block", "write_to_array"}
 
 
 def test_coverage_equals_the_references_for_the_port_names():
@@ -456,8 +456,12 @@ def test_coverage_equals_the_references_for_the_port_names():
     assert SHAPE_INFER_ALLOWLIST == ops & jsi.SHAPE_INFER_ALLOWLIST
     shard = set(registry.registered_shard_fns())
     assert shard == ops & set(jreg.registered_shard_fns())
-    assert len(shard) == 168
+    assert len(shard) == 181
     assert ops - shard == {
+        "while", "conditional_block", "split_lod_tensor",
+        "merge_lod_tensor", "write_to_array", "read_from_array",
+        "lod_array_length", "lod_tensor_to_array", "array_to_lod_tensor",
+        "lod_rank_table", "reorder_lod_tensor_by_rank",
         "bilinear_interp", "bilinear_tensor_product", "block_expand",
         "conv2d_transpose", "conv3d", "cross_entropy_over_beam",
         "fill_constant_batch_size_like", "gru_unit", "im2sequence",

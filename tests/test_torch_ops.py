@@ -319,6 +319,7 @@ def test_run_op_names_the_failing_op():
 def test_unregistered_op_raises_with_its_name():
     # (lookup_table_sparse, the op this test named first, is registered
     # since the sparse tables were ported, nce since the embedding family
-    # was; moe is not)
-    with pytest.raises(NotImplementedError, match="moe"):
-        torch_impl("moe")
+    # was, moe since the moe family was; tensor_array_to_tensor is in
+    # neither package's registry)
+    with pytest.raises(NotImplementedError, match="tensor_array_to_tensor"):
+        torch_impl("tensor_array_to_tensor")

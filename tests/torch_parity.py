@@ -60,6 +60,19 @@ def both(model, shape, **kwargs):
             "torch": (tm.clone(for_test=True), tp, tscope)}
 
 
+def both_built(builder):
+    """``builder(pkg)`` -> (main, startup, vars) in both packages, the JAX
+    startup run on the CPU and its scope carried into a port scope.
+    Returns {"jax": (main, vars, scope), "torch": (main, vars, scope)}."""
+    jm, js, jv = builder(pt)
+    tm, ts, tv = builder(ptt)
+    jscope = pt.core.Scope()
+    pt.Executor(pt.CPUPlace()).run(js, scope=jscope)
+    tscope = ptt.Scope()
+    ptt.load_numpy_state(tscope, jax_state(jscope), "cpu")
+    return {"jax": (jm, jv, jscope), "torch": (tm, tv, tscope)}
+
+
 def build_train(pkg, model, shape, seed=0, lr=0.01, momentum=0.9,
                 **kwargs):
     """(main, startup, pred, loss) of ``bench.py``'s training recipe on
@@ -428,7 +441,8 @@ INT64_OUTS = {("top_k", "Indices"), ("argmax", "Out"), ("arg_max", "Out"),
               ("edit_distance", "SequenceNum"),
               ("chunk_eval", "NumInferChunks"),
               ("chunk_eval", "NumLabelChunks"),
-              ("chunk_eval", "NumCorrectChunks"), ("nce", "SampleLabels")}
+              ("chunk_eval", "NumCorrectChunks"), ("nce", "SampleLabels"),
+              ("roi_pool", "Argmax"), ("lod_array_length", "Out")}
 
 
 def check_op(op, ins, attrs, dtype, wrt=(), **kw):
