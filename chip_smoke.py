@@ -10413,6 +10413,279 @@ def phase_dense(seed, card, cli_train_forms):
     return forms, dict(flash)
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: data-parallel training through ShardedExecutor on a world of
+# every visible card (NCCL), held to the unsharded executor
+# ---------------------------------------------------------------------------
+MESH_STEPS = 4          # a warm-up, then 3 captured steps (a capture, 2 replays)
+MESH_TIMED = 5          # replays timed a step, each arm
+MESH_MLP_BATCH = 64
+MESH_AMP_TOL = 1e-2     # the AMP tolerance of the tests: of each var's scale
+MESH_FP32_TOL = 1e-4
+
+
+def mesh_root():
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def mesh_feed(seed, batch):
+    g = np.random.RandomState(seed)
+    return {"img": g.rand(batch, 3, 224, 224).astype(np.float32),
+            "label": g.randint(0, 1000, (batch, 1)).astype(np.int64)}
+
+
+def mesh_rel_err(a, b):
+    """max |a - b| over the largest |b| (the tests' "of scale")."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def mesh_arm(exe, main, loss, scope, feed, snapshot):
+    """MESH_STEPS steps (losses, the K1 launches of those steps), then
+    MESH_TIMED replays timed on the host around a synchronized window;
+    returns (losses, the state after the steps, their K1 launches, ms a
+    step, the collectives and K1 launches a replayed step)."""
+    from paddle_tpu_torch.ops import conv1x1
+    from paddle_tpu_torch.parallel import collective
+    k1_0 = collections.Counter(conv1x1.mm.by_form)
+    (losses,) = exe.run_steps(MESH_STEPS, main, feed=feed,
+                              fetch_list=[loss], scope=scope)
+    k1_steps = collections.Counter(conv1x1.mm.by_form) - k1_0
+    state = snapshot(scope)
+    coll = collections.Counter(collective.calls)
+    k1 = collections.Counter(conv1x1.mm.by_form)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe.run_steps(MESH_TIMED, main, feed=feed, fetch_list=[loss],
+                  scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / MESH_TIMED
+    per = {k: v / MESH_TIMED for k, v in
+           (collections.Counter(collective.calls) - coll).items()}
+    k1d = {k: v / MESH_TIMED for k, v in
+           (collections.Counter(conv1x1.mm.by_form) - k1).items()}
+    return np.asarray(losses).reshape(-1), state, k1_steps, ms, per, k1d
+
+
+def mesh_nccl_in_graph(exe, main, loss, scope, feed):
+    """The device kernels of one replayed sharded step whose names are
+    NCCL's: the collectives run inside the captured graph."""
+    prof, _ = profiled(lambda: exe.run_steps(
+        1, main, feed=feed, fetch_list=[loss], scope=scope,
+        return_numpy=False))
+    return sum(n for _, n, name in device_rows(prof, 1)
+               if "nccl" in name.lower())
+
+
+def mesh_resnet(rank, world, seed):
+    """ResNet-50 with bench.py's recipe (Momentum, AMP, batch
+    TRAIN_BATCH a step) under ShardedExecutor(auto_shard=True) on a dp
+    mesh of the world, against Executor(amp=True) on the whole batch
+    from the same scope."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.parallel import ShardedExecutor, mesh_for_axes
+    main, startup, loss = build_resnet50_train(seed)
+    card = ptt.CUDAPlace(torch.cuda.current_device())
+    s0 = ptt.Scope()
+    ptt.Executor(card).run(startup, scope=s0)
+    feed = mesh_feed(seed, TRAIN_BATCH)
+    params = [p.name for p in main.all_parameters()]
+    caps0 = capture_stats().snapshot()
+    exe = ShardedExecutor(mesh=mesh_for_axes({"dp": world}), amp=True,
+                          auto_shard=True, place=card)
+    ss = clone_scope(s0)
+    # the parameters after the compared steps, gathered (a collective)
+    s_loss, s_state, k1_path, s_ms, s_coll, s_k1 = mesh_arm(
+        exe, main, loss, ss, feed,
+        lambda sc: exe.global_state(main, sc, names=params))
+    caps = capture_stats().snapshot()
+    nccl = mesh_nccl_in_graph(exe, main, loss, ss, feed)
+    plain = ptt.Executor(card, amp=True)
+    su = clone_scope(s0)
+    u_loss, u_state, _, u_ms, _, u_k1 = mesh_arm(
+        plain, main, loss, su, feed,
+        lambda sc: {n: sc.numpy(n).copy() for n in params})
+    param_err = max(mesh_rel_err(s_state[n], u_state[n]) for n in params)
+    return {"candidate": exe.auto_plan.candidate,
+            "losses": s_loss.tolist(), "plain_losses": u_loss.tolist(),
+            "loss_err": mesh_rel_err(s_loss, u_loss),
+            "param_err": param_err, "ms": s_ms, "plain_ms": u_ms,
+            "collectives": s_coll, "nccl_kernels": nccl,
+            "k1_path": {k: int(v) for k, v in k1_path.items()},
+            "k1_step": s_k1, "plain_k1_step": u_k1,
+            "captures": caps["captures"] - caps0["captures"],
+            "replays": caps["replays"] - caps0["replays"],
+            "uncaptured": {k: v - caps0["uncaptured"].get(k, 0)
+                           for k, v in caps["uncaptured"].items()
+                           if v - caps0["uncaptured"].get(k, 0)}}
+
+
+def mesh_mlp(world, seed):
+    """bench.py's planner smoke MLP (256 -> 512 -> 128, batch 64, SGD
+    0.1, fp32) under ShardedExecutor(auto_shard=True) on the world,
+    against Executor on the whole batch."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.parallel import ShardedExecutor, mesh_for_axes
+    L = ptt.layers
+    ptt.unique_name.reset()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = seed
+    with ptt.program_guard(main, startup):
+        x = L.data("x", shape=[256], dtype="float32")
+        label = L.data("label", shape=[1], dtype="int64")
+        h = L.fc(x, size=512, act="relu")
+        pred = L.fc(h, size=128, act="softmax")
+        loss = L.mean(L.cross_entropy(pred, label))
+        ptt.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    rng = np.random.RandomState(seed)
+    feed = {"x": rng.rand(MESH_MLP_BATCH, 256).astype(np.float32),
+            "label": rng.randint(0, 128, (MESH_MLP_BATCH, 1))}
+    card = ptt.CUDAPlace(torch.cuda.current_device())
+    s0 = ptt.Scope()
+    ptt.Executor(card).run(startup, scope=s0)
+    exe = ShardedExecutor(mesh=mesh_for_axes({"dp": world}), auto_shard=True,
+                          validate=True, place=card)
+    ss, su = clone_scope(s0), clone_scope(s0)
+    (got,) = exe.run_steps(3, main, feed=feed, fetch_list=[loss], scope=ss)
+    (want,) = ptt.Executor(card).run_steps(3, main, feed=feed,
+                                           fetch_list=[loss], scope=su)
+    return {"candidate": exe.auto_plan.candidate,
+            "loss_err": mesh_rel_err(got, want),
+            "losses": np.asarray(got).reshape(-1).tolist()}
+
+
+def mesh_child(root, rank, world, port, seed):
+    """``--mesh-child``: one rank of [mesh]'s world: joins it through
+    launch.init_distributed on NCCL, runs the ResNet-50 and MLP rounds,
+    writes its results (its K1 launches among them) into ``root`` at a
+    clean exit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.distributed import launch
+    t0 = time.perf_counter()
+    launch.init_distributed(f"localhost:{port}", num_processes=world,
+                            process_id=rank, device="cuda", timeout_s=120)
+    join_s = time.perf_counter() - t0
+    try:
+        res = {"rank": rank, "world": world, "join_s": join_s,
+               "backend": str(torch.distributed.get_backend()),
+               "device": torch.cuda.current_device(),
+               "resnet": mesh_resnet(rank, world, seed),
+               "mlp": mesh_mlp(world, seed),
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+    finally:
+        launch.shutdown()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mesh_free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(seed, card, n_gate, n_split):
+    """[mesh]: a world of every visible card (NCCL, one rank process a
+    card, ``--mesh-child``), each rank running bench.py's ResNet-50
+    recipe under ShardedExecutor(auto_shard=True) for MESH_STEPS steps
+    (its NCCL collectives captured in the step's graph), held to the
+    unsharded executor, then the planner smoke MLP.  Returns the ranks'
+    K1 launches by form."""
+    world = torch.cuda.device_count()
+    root = mesh_root()
+    port = mesh_free_port()
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child", root,
+         "--seed", str(seed), "--", str(r), str(world), str(port)],
+        start_new_session=True) for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                stop_group(p)
+    if any(rcs):
+        raise RuntimeError(f"chip_smoke: [mesh] rank processes exited {rcs}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]["resnet"]
+    print(f"[mesh] world {world} (nccl, one rank a card), ResNet-50 "
+          f"batch {TRAIN_BATCH} AMP under ShardedExecutor(auto_shard=True):"
+          f" plan {r0['candidate']}, {MESH_STEPS} steps (a warm-up, then "
+          f"a capture and replays; captures {r0['captures']}, "
+          f"replays {r0['replays']}), losses {r0['losses']} vs unsharded "
+          f"{r0['plain_losses']}: largest difference {r0['loss_err']:.3e} "
+          f"of scale, parameters after the steps {r0['param_err']:.3e} of "
+          f"scale (limit {MESH_AMP_TOL})")
+    print(f"[mesh] ms a step (mean of {MESH_TIMED} replays, host clock "
+          f"around a synchronized window): sharded {r0['ms']:.3f}, "
+          f"unsharded {r0['plain_ms']:.3f}; collectives a step "
+          f"{dict(r0['collectives'])}, {r0['nccl_kernels']} NCCL kernels "
+          f"in one replayed step's device trace; K1 a step "
+          f"{r0['k1_step']} (unsharded {r0['plain_k1_step']}); K1 launches "
+          f"a rank in the {MESH_STEPS} sharded steps "
+          f"{[res['resnet']['k1_path'] for res in ranks]}; peak "
+          f"{max(res['peak_bytes'] for res in ranks) / 2 ** 30:.2f} GiB; "
+          f"join {max(res['join_s'] for res in ranks):.1f} s; {card}")
+    m0 = ranks[0]["mlp"]
+    print(f"[mesh] planner smoke MLP (256 -> 512 -> 128, batch "
+          f"{MESH_MLP_BATCH}, fp32): plan {m0['candidate']}, 3 steps' "
+          f"losses {m0['losses']}, largest difference from the unsharded "
+          f"run {m0['loss_err']:.3e} of scale (limit {MESH_FP32_TOL})")
+    print("[mesh] a two-rank world on this one card over gloo is left out: "
+          "the port refuses a card executor over a gloo world (no "
+          "fallback), and NCCL puts no two ranks on one card")
+    forms = collections.Counter()
+    for res in ranks:
+        rn, mlp = res["resnet"], res["mlp"]
+        if res["backend"] != "nccl":
+            raise RuntimeError(f"chip_smoke: [mesh] rank {res['rank']} ran "
+                               f"on {res['backend']}, not nccl")
+        want = {f: n * MESH_STEPS for f, n in (
+            ("forward", n_gate), ("dgrad", n_gate), ("wgrad", n_gate),
+            ("splitk_reduce", n_split)) if n}
+        if rn["k1_path"] != want:
+            raise RuntimeError(f"chip_smoke: [mesh] rank {res['rank']} "
+                               f"launched K1 {rn['k1_path']} in its "
+                               f"{MESH_STEPS} sharded steps, expected {want}")
+        forms.update(rn["k1_path"])
+        # a replay counts the collectives its capture recorded: above 0
+        # means they are nodes of the step's graph (NCCL launches no
+        # kernel for a one-rank in-place all-reduce, so at world 1 the
+        # trace shows none)
+        coll = sum(rn["collectives"].values())
+        if rn["captures"] != 1 or rn["uncaptured"] or coll <= 0 or (
+                world > 1 and rn["nccl_kernels"] <= 0):
+            raise RuntimeError(
+                f"chip_smoke: [mesh] rank {res['rank']}: captures "
+                f"{rn['captures']} (expected 1), uncaptured "
+                f"{rn['uncaptured']}, {coll} collectives and "
+                f"{rn['nccl_kernels']} NCCL kernels a replayed step "
+                f"(expected collectives above 0, and kernels above 0 in a "
+                f"world of more than one card)")
+        if rn["loss_err"] > MESH_AMP_TOL or rn["param_err"] > MESH_AMP_TOL:
+            raise RuntimeError(
+                f"chip_smoke: [mesh] rank {res['rank']}: the sharded AMP "
+                f"run's losses differ from the unsharded run's by "
+                f"{rn['loss_err']:.3e} and its parameters by "
+                f"{rn['param_err']} of scale (limit {MESH_AMP_TOL})")
+        if mlp["loss_err"] > MESH_FP32_TOL:
+            raise RuntimeError(
+                f"chip_smoke: [mesh] rank {res['rank']}: the MLP's sharded "
+                f"losses differ from the unsharded ones by "
+                f"{mlp['loss_err']:.3e} (limit {MESH_FP32_TOL})")
+    return dict(forms)
+
+
 def attention_entries(row, launches):
     """The kernels JSON entries of K2, K3 and K4: times, errors and
     bounds at the slice's shape, launches from the main path's run."""
@@ -10536,6 +10809,11 @@ def main():
                          "[sparse_bench] (the lane main() starts beside "
                          "[zoo] and [inference]) with scratch under DIR, "
                          "and exit")
+    ap.add_argument("--mesh-child", metavar="DIR",
+                    help="run one rank of [mesh]'s world (the arguments "
+                         "after '--' are its rank, the world size and the "
+                         "coordinator's port on localhost), write its "
+                         "results and K1 launches into DIR and exit")
     ap.add_argument("--fault-spec", default=None,
                     help="--elastic-child only: PADDLE_TPU_FAULT_SPEC for "
                          "this worker process")
@@ -10558,6 +10836,11 @@ def main():
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         device, cfg = [a for a in args.child_argv if a != "--"]
         elastic_mlp_child(args.elastic_mlp, device, json.loads(cfg))
+        return
+    if args.mesh_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        rank, world, port = (int(a) for a in args.child_argv if a != "--")
+        mesh_child(args.mesh_child, rank, world, port, args.seed)
         return
     if args.supervised_child:
         phase_device()
@@ -10656,6 +10939,10 @@ def main():
     torch.cuda.empty_cache()
     dense_forms, dense_flash = phase_dense(args.seed, card, cli_train_forms)
     lap("dense")
+    torch.cuda.empty_cache()
+    mesh_forms = phase_mesh(args.seed, card, len(train_shapes),
+                            split_wgrads(train_shapes))
+    lap("mesh")
 
     # bf16: the served path and the AMP step; fp32: the served forward's
     # fp32 run and the fp32 step
@@ -10706,6 +10993,12 @@ def main():
                 k["dense_launches"] = dense_forms.get(form, 0)
             entries[2]["dense_reduce_launches"] = dense_forms.get(
                 "splitk_reduce", 0)
+            # [mesh]'s rank processes run the AMP step sharded
+            for k, form in zip((step_forward,) + tuple(entries[:3]),
+                               ("forward", "forward", "dgrad", "wgrad")):
+                k["mesh_launches"] = mesh_forms.get(form, 0)
+            entries[2]["mesh_reduce_launches"] = mesh_forms.get(
+                "splitk_reduce", 0)
         else:
             # [cli]'s --job test runs the fp32 forward
             entries[0]["cli_launches"] = cli_test_forms.get("forward", 0)
@@ -10746,7 +11039,10 @@ def main():
                      f"run")
                   + ("" if "dense_launches" not in k else
                      f", {k['dense_launches']} in [dense]'s ResNet-50 "
-                     f"head"))
+                     f"head")
+                  + ("" if "mesh_launches" not in k else
+                     f", {k['mesh_launches']} in [mesh]'s rank "
+                     f"processes"))
     print(f"[summary] forward: times summed over the {len(shapes)} "
           f"launches of one batch-{BATCH} forward, launches from the served "
           f"run ({len(buckets)} batches; fp32: one batch-{BATCH} run); the "

@@ -238,6 +238,9 @@ class ExecContext:
         # Executor.compile's capture records the step listing here: one
         # entry a global-block op and the backward, with its route
         self.listing: Optional[List[dict]] = None
+        # a sharded executor's step (parallel/sharded.py): each op's
+        # collectives and the specs of the values it binds
+        self.shard = None
 
     def block(self, idx: int) -> Block:
         return self.program.blocks[idx]
@@ -391,7 +394,10 @@ def _run_op(op: Operator, env: Env, ctx: ExecContext):
     ctx.op, ctx.env = op, env
     ctx.last_op = op
     try:
-        result = impl(ctx, ins, op.attrs)
+        if ctx.shard is None:
+            result = impl(ctx, ins, op.attrs)
+        else:
+            result = ctx.shard.call(op, impl, ctx, ins)
     except Exception as e:
         # name the op and its operand shapes so an error points at the
         # graph site, not only at the torch call inside the op
@@ -481,7 +487,12 @@ def _run_backward(forward_ops: Sequence[Operator], bw_op: Operator,
         if ctx.amp:
             loss = loss.float()
         before = _counts() if ctx.listing is not None else None
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        if ctx.shard is None:
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        else:
+            # the loss seeded on every rank, the replicated parameters'
+            # partial gradients summed (parallel/sharded.py)
+            grads = ctx.shard.grads(loss, leaves, wrt_names)
         if before is not None:
             _list_op(ctx, bw_op, before)
     for name, val in fenv.local.items():
@@ -1013,7 +1024,23 @@ class Executor:
         return (compile_cache.program_content_digest(program),
                 _feed_signature(step_feeds), tuple(fetch_names), state,
                 bool(is_test), bool(self.amp), conv1x1, str(self.device),
-                self.check_nan_inf, str(self.compute_dtype))
+                self.check_nan_inf, str(self.compute_dtype)) + \
+            self._fingerprint_extras(program)
+
+    def _fingerprint_extras(self, program: Program) -> tuple:
+        """More components of the captured-step key (a sharded
+        executor's mesh and specs); none on one card."""
+        return ()
+
+    def _validation_context(self):
+        """(mesh axes as an axis->size dict, param_specs, feed_specs)
+        for the sharding lints; a one-card executor has no mesh."""
+        return None, None, None
+
+    def _observe_label(self) -> Optional[str]:
+        """A label for spans and step events (a sharded executor's
+        mesh); None on one card."""
+        return None
 
     def _uncaptured_reason(self, program: Program,
                            is_test: bool) -> Optional[str]:
@@ -1037,14 +1064,19 @@ class Executor:
         before the step's capture key is taken, so an invalid program is
         never captured.  Clean results memoize (stale versions dropped);
         error reports raise on every call.  A one-card executor has no
-        mesh, so the sharding lints do not run (the JAX package's
-        ``ShardedExecutor`` adds its mesh to the key: ROADMAP item 7)."""
+        mesh, so the sharding lints do not run; a sharded executor's
+        mesh and specs (``_validation_context``) join the memo key and
+        run them."""
         want = self.validate
         if want is None:
             want = bool(get_flag("validate"))
         if not want:
             return
-        key = (program.version, tuple(fetch_names))
+        mesh, param_specs, feed_specs = self._validation_context()
+        key = (program.version, tuple(fetch_names),
+               repr((sorted((mesh or {}).items()),
+                     sorted((param_specs or {}).items()),
+                     sorted((feed_specs or {}).items()))))
         seen = self._validated.get(program)
         if seen is not None and key in seen:
             return
@@ -1052,7 +1084,9 @@ class Executor:
         # an EMPTY fetch list (a startup or side-effect run) means the
         # targets are unknown, not that nothing is live: no dead-op lint
         report = validate_program(program,
-                                  fetch_list=list(fetch_names) or None)
+                                  fetch_list=list(fetch_names) or None,
+                                  mesh=mesh, param_specs=param_specs,
+                                  feed_specs=feed_specs)
         report.raise_on_error()
         for d in report.warnings:
             warnings.warn(f"program verifier: {d.render()}", stacklevel=3)
@@ -1440,11 +1474,15 @@ class Executor:
             program, per_step[0], fetch_names, scope, is_test))[:12]
         t_start = time.perf_counter()
         c0 = compile_cache.stats().snapshot()
+        label = self._observe_label()
+        attrs = {} if label is None else {"label": label}
         sp = obs.tracing.start_span("executor/step", path=path,
-                                    steps=len(per_step), fingerprint=fp)
+                                    steps=len(per_step), fingerprint=fp,
+                                    **attrs)
+        tag = "" if label is None else f":{label}"
         try:
             with self._lock, torch.profiler.record_function(
-                    f"pt:{path}:{fp}:step{self._step}"), \
+                    f"pt:{path}:{fp}:step{self._step}{tag}"), \
                     obs.tracing.span("executor/dispatch", parent=sp) as dsp:
                 fetches = post(self._dispatch(run, trace_span=dsp))
             t_fetch = time.perf_counter()
@@ -1501,7 +1539,8 @@ class Executor:
             fetch_block_ms=round(fetch_block_s * 1e3, 3),
             examples_per_sec=round(examples_per_s, 2)
             if examples_per_s else None,
-            label=None, trace=span.trace_id, span=span.span_id)
+            label=self._observe_label(), trace=span.trace_id,
+            span=span.span_id)
 
     # -- check_nan_inf --------------------------------------------------------
     def _nan_check(self, program: Program, fetch_names: List[str],

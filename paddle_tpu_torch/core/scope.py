@@ -9,6 +9,10 @@ updates in place, as the JAX executor donates its state buffers.
 
 ``uid`` names the scope for the executor's memo of state keys, and
 ``keys_version`` advances whenever a name is added or dropped.
+``layouts`` maps a var a sharded executor holds in pieces to its global
+``shape``, this rank's ``index`` window ([[lo, hi], ...]) and whether
+this rank ``writer``s the piece into a checkpoint
+(``parallel/sharded.py``).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ class Scope:
         self._vars: Dict[str, object] = {}
         self.uid = next(_uids)
         self.keys_version = 0
+        self.layouts: Dict[str, dict] = {}
 
     def set(self, name: str, value):
         if name not in self._vars:
@@ -55,6 +60,7 @@ class Scope:
 
     def delete(self, name: str):
         """Drop ``name`` if the scope holds it."""
+        self.layouts.pop(name, None)
         if self._vars.pop(name, None) is not None:
             self.keys_version += 1
 

@@ -40,10 +40,14 @@ dtype on the manager's device): an int64 counter that the JAX package
 wrote as int32 comes back int64.
 
 One process writes everything, unless ``torch.distributed`` is
-initialized: then process 0 writes every var (the port's processes hold
-replicas) and the others wait for its commit.  Not ported: restoring a
-var stored in several pieces (a sharded JAX checkpoint; ROADMAP Queue A
-item 7), which raises.
+initialized: then process 0 writes every replicated var, each var a
+sharded executor holds in pieces (``Scope.layouts``) is written piece by
+piece by the ranks that hold a distinct piece (``<var>.p<proc>s0.npy``
+with its index window, as the JAX package writes a device shard), and
+process 0 merges the processes' manifests and commits.  ``restore``
+reassembles a var stored in several pieces (by either package, at any
+sharding or world size) and, where the scope holds this rank's piece of
+it (``Scope.layouts``), keeps that piece.
 
 Observability: each durable commit observes ``checkpoint/commit_ms``,
 counts delta bytes and rows or a rebase, and writes a ``ckpt`` event; a
@@ -164,6 +168,17 @@ def _to_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
 
 def _whole_index(shape):
     return [[0, int(d)] for d in shape]
+
+
+def _layout(scope, name: str, shape) -> Optional[dict]:
+    """The sharded layout ``scope`` records for ``name`` if the value it
+    holds (of ``shape``) is that layout's piece, else None."""
+    lay = getattr(scope, "layouts", {}).get(name)
+    if lay is None or shape is None:
+        return None
+    piece = [hi - lo for lo, hi in lay["index"]]
+    return lay if list(shape) == piece and piece != list(lay["shape"]) \
+        else None
 
 
 def _file_md5(path):
@@ -331,6 +346,13 @@ class CheckpointManager:
         proc, _ = self._proc()
         for n, v in vals.items():
             arr, dtype = _host_piece(v)
+            lay = _layout(scope, n, arr.shape)
+            if lay is not None:
+                # this rank's piece of a sharded var, written where no
+                # other rank holds the same piece first
+                pieces = [(lay["index"], arr)] if lay["writer"] else []
+                snap[n] = (tuple(lay["shape"]), dtype, pieces)
+                continue
             # one piece a var, written by process 0 (replicas elsewhere)
             pieces = [(_whole_index(arr.shape), arr)] if proc == 0 else []
             snap[n] = (tuple(arr.shape), dtype, pieces)
@@ -854,13 +876,6 @@ class CheckpointManager:
             try:
                 with open(os.path.join(d, "meta.json")) as f:
                     meta = json.load(f)
-                for n, info in meta["vars"].items():
-                    if len(info["shards"]) > 1:
-                        raise NotImplementedError(
-                            f"checkpoint var {n!r} is stored in "
-                            f"{len(info['shards'])} pieces (a sharded "
-                            f"run's checkpoint); restoring it is not "
-                            f"ported yet (ROADMAP Queue A item 7)")
                 if meta.get("kind", "full") == "delta":
                     if index is None:
                         index = self._commit_index()
@@ -874,8 +889,6 @@ class CheckpointManager:
                         self._verify_commit(d, meta)
                     arrays = {n: self._assemble(d, info)
                               for n, info in meta["vars"].items()}
-            except NotImplementedError:
-                raise
             except Exception as e:  # noqa: BLE001 — every corruption mode
                 # falls back to the previous commit, loudly
                 logger.warning(
@@ -933,11 +946,25 @@ class CheckpointManager:
         return chain
 
     def _assemble(self, d, info) -> np.ndarray:
-        """One commit's host copy of a var (in its storage dtype)."""
-        sh = info["shards"][0]
-        arr = _as_storage(np.load(os.path.join(d, sh["file"])),
-                          info["dtype"])
-        return arr.reshape(info["shape"])
+        """One commit's host copy of a var (in its storage dtype): its
+        pieces put back at their index windows."""
+        shards = info["shards"]
+        if len(shards) == 1:
+            arr = _as_storage(np.load(os.path.join(d, shards[0]["file"])),
+                              info["dtype"])
+            return arr.reshape(info["shape"])
+        out = np.empty(info["shape"], _storage_dtype(info["dtype"]))
+        seen = np.zeros(info["shape"], bool)
+        for sh in shards:
+            window = tuple(slice(lo, hi) for lo, hi in sh["index"])
+            piece = _as_storage(np.load(os.path.join(d, sh["file"])),
+                                info["dtype"])
+            out[window] = piece.reshape(out[window].shape)
+            seen[window] = True
+        if not seen.all():
+            raise IOError(f"the pieces of a var cover {int(seen.sum())} of "
+                          f"its {seen.size} elements")
+        return out
 
     def _replay_chunked(self, chain, name, tip_info, verify):
         """A chunk-diffed var: the newest full file of its piece, then
@@ -1041,8 +1068,12 @@ class CheckpointManager:
         var as the host array it is."""
         if name.startswith(_SPARSE_PREFIX):
             return np.array(arr)
-        t = _to_tensor(arr, dtype)
         dest = scope.get(name) if scope.has(name) else None
+        lay = _layout(scope, name, getattr(dest, "shape", None))
+        if lay is not None and list(arr.shape) == list(lay["shape"]):
+            # the scope holds this rank's piece: keep its window
+            arr = arr[tuple(slice(lo, hi) for lo, hi in lay["index"])]
+        t = _to_tensor(arr, dtype)
         if isinstance(dest, torch.Tensor):
             if tuple(dest.shape) == tuple(t.shape):
                 return t.to(device=dest.device, dtype=dest.dtype)

@@ -145,6 +145,17 @@ def _batch_norm(ctx, ins, attrs):
     stats' dtype.  Inference (``is_test`` or ``use_global_stats``) uses
     the running statistics.  Outputs mirror the reference (Y, MeanOut,
     VarianceOut, SavedMean, SavedVariance = 1/sqrt(var + eps))."""
+    return batch_norm_with(ctx, ins, attrs)
+
+
+def _local_moments(xf, axes):
+    return xf.mean(axes), (xf * xf).mean(axes)
+
+
+def batch_norm_with(ctx, ins, attrs, moments=_local_moments):
+    """The batch_norm op with the batch statistics' first and second
+    moments from ``moments(xf, axes)`` (the sharded executor's are over
+    the global batch)."""
     x = ins["X"][0]
     scale, bias = ins["Scale"][0], ins["Bias"][0]
     mean, var = ins["Mean"][0], ins["Variance"][0]
@@ -165,9 +176,8 @@ def _batch_norm(ctx, ins, attrs):
     else:
         axes = tuple(i for i in range(x.dim()) if i != 1)
         xf = x.to(sdt)
-        use_mean = xf.mean(axes)
-        use_var = torch.clamp_min((xf * xf).mean(axes) - use_mean * use_mean,
-                                  0.0)
+        use_mean, meansq = moments(xf, axes)
+        use_var = torch.clamp_min(meansq - use_mean * use_mean, 0.0)
         if is_test:
             mean_out, var_out = mean, var
         else:

@@ -22,9 +22,11 @@ persisted autotuner winners (``tuning/``).  ``warmup=True`` builds the
 loop's step ahead of the first batch (``Executor.compile``) from the
 shapes of one peeked batch.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item that brings it: ``auto_shard`` (item 7).  With the executor
-observing, a periodic report (``observability.maybe_periodic_report``)
+``auto_shard=`` runs the loop through a ``parallel.ShardedExecutor``
+whose specs the planner proposes: ``True`` plans for the mesh of the
+trainer's sharded executor, a mesh (``{'dp': 2}`` or ``'dp=2,tp=2'``)
+swaps the executor for one over that mesh of the world's ranks before
+the first ``train()``.  With the executor observing, a periodic report (``observability.maybe_periodic_report``)
 fires every ``log_period`` batches.
 """
 from __future__ import annotations
@@ -71,11 +73,13 @@ class events:
             self.metrics = metrics
 
 
-# train() arguments of the JAX trainer that the port does not take yet,
-# with the ROADMAP Queue A item that brings each
-_NOT_PORTED = {
-    "auto_shard": "item 7 (multi-GPU)",
-}
+def _mesh_axes(auto_shard) -> dict:
+    """{axis: size} of a train(auto_shard=) mesh form: a dict or a
+    ``'dp=2,tp=2'`` string."""
+    if isinstance(auto_shard, str):
+        from .cli import _parse_mesh
+        return _parse_mesh(auto_shard)
+    return {str(k): int(v) for k, v in dict(auto_shard).items()}
 
 
 class SGD:
@@ -203,7 +207,6 @@ class SGD:
         (``steps_per_dispatch=1``, no ``pipeline``): the task-commit
         protocol saves at batch boundaries."""
         event_handler = event_handler or (lambda e: None)
-        given = {"auto_shard": auto_shard}
         if not checkpoint_dir:
             if master is not None:
                 raise ValueError("train(master=...) snapshots the task "
@@ -233,13 +236,10 @@ class SGD:
                     "train(sparse_tables=..., warmup=True) is not "
                     "supported: warmup compiles from a raw batch without "
                     "the session's rows feeds")
-        for name, value in given.items():
-            if value not in (None, False):
-                raise NotImplementedError(
-                    f"trainer.SGD.train({name}=...) is not ported yet: "
-                    f"ROADMAP.md Queue A {_NOT_PORTED[name]}")
         if sess is not None:
             sess.bind(self.main_program)
+        if auto_shard:
+            self._enable_auto_shard(auto_shard)
         if not checkpoint_dir:
             # an operator who asked for checkpoints must never run
             # silently unprotected
@@ -543,6 +543,44 @@ class SGD:
         return [t / count for t in totals]
 
     # -- helpers -----------------------------------------------------------
+    def _enable_auto_shard(self, auto_shard):
+        """Resolve the train(auto_shard=) forms onto the executor (the
+        JAX trainer's ``_enable_auto_shard``)."""
+        from .parallel.sharded import ShardedExecutor
+
+        if isinstance(self.exe, ShardedExecutor):
+            if auto_shard is not True:
+                # a mesh form beside an existing ShardedExecutor must
+                # agree with its mesh: planning for the executor's mesh
+                # while the caller asked for another would misreport
+                # what ran
+                want = _mesh_axes(auto_shard)
+                have = {str(a): int(n) for a, n in
+                        self.exe.mesh.shape.items() if n > 1}
+                if {k: v for k, v in want.items() if v > 1} != have:
+                    raise ValueError(
+                        f"train(auto_shard={auto_shard!r}) conflicts with "
+                        f"the executor's existing mesh {have}: pass "
+                        f"auto_shard=True to plan for that mesh, or build "
+                        f"the trainer without a ShardedExecutor")
+            self.exe.auto_shard = True
+            return
+        if auto_shard is True:
+            raise ValueError(
+                "train(auto_shard=True) needs a ShardedExecutor (its mesh "
+                "is the planning target); pass a mesh instead: "
+                "auto_shard={'dp': 2} or auto_shard='dp=2,tp=2'")
+        if self._initialized:
+            raise ValueError(
+                "train(auto_shard=<mesh>) must be given on the FIRST "
+                "train() call: parameters were already initialized on the "
+                "unsharded executor")
+        axes = _mesh_axes(auto_shard)
+        from .parallel.mesh import mesh_for_axes
+        self.exe = ShardedExecutor(
+            mesh=mesh_for_axes(axes), batch_axis=next(iter(axes), "dp"),
+            auto_shard=True, place=self.exe.place)
+
     def _fill_tuned_pipeline_opts(self, opts, steps_per_dispatch):
         """Fill the pipelined loop's omitted knobs from the persisted
         winners (the caller resolved the autotune opt-in).  Explicit

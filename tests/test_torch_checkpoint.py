@@ -449,10 +449,11 @@ def test_two_processes_process_zero_writes(tmp_path):
 
 
 def test_sparse_vars_and_multi_piece_vars_raise(tmp_path):
-    """A var stored in several pieces (a sharded run's) still raises
-    naming its item.  A sparse table's row group, which raised before
-    the sparse tables were ported, now commits in mode ``sparse`` and
-    comes back as the host array it was."""
+    """A var stored in several pieces (a sharded run's), which raised
+    until the multi-card path was ported, restores whole, or as the piece
+    a scope's layout holds.  A sparse table's row group, which raised
+    before the sparse tables were ported, now commits in mode ``sparse``
+    and comes back as the host array it was."""
     ids = np.array([3, 7, 9], np.int64)
     _cm(tmp_path).save(1, _scope(**{"__sparse__/t/shard0/ids": ids}))
     meta = json.loads((tmp_path / "ckpt-1" / "meta.json").read_text())
@@ -466,11 +467,23 @@ def test_sparse_vars_and_multi_piece_vars_raise(tmp_path):
     meta_path = tmp_path / "ckpt-2" / "meta.json"
     meta = json.loads(meta_path.read_text())
     sh = meta["vars"]["w"]["shards"][0]
-    meta["vars"]["w"]["shards"] = [dict(sh, index=[[0, 2]]),
-                                   dict(sh, index=[[2, 4]])]
+    halves = []
+    for k, (lo, hi) in enumerate(((0, 2), (2, 4))):
+        fn = f"w.p{k}s0.npy"
+        np.save(tmp_path / "ckpt-2" / fn,
+                np.arange(lo, hi, dtype=np.float32))
+        halves.append(dict(sh, file=fn, index=[[lo, hi]],
+                           shard_shape=[hi - lo]))
+    meta["vars"]["w"]["shards"] = halves
     meta_path.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cm.restore(scope=ptt.Scope(), verify=False)
+    whole = ptt.Scope()
+    assert cm.restore(scope=whole, verify=False) == 2
+    _same(whole.get("w"), torch.arange(4, dtype=torch.float32))
+    piece = ptt.Scope()
+    piece.set("w", torch.zeros(2))
+    piece.layouts["w"] = {"shape": [4], "index": [[2, 4]], "writer": True}
+    assert cm.restore(scope=piece, verify=False) == 2
+    _same(piece.get("w"), torch.tensor([2.0, 3.0]))
 
 
 # ---------------------------------------------------------------------------

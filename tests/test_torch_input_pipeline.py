@@ -389,10 +389,26 @@ def test_autotuned_pipelined_train_matches_jax_trainer(tmp_path):
 
 
 @pytest.mark.parametrize("arg,value", [("auto_shard", {"dp": 2})])
-def test_train_refuses_what_is_not_ported(arg, value):
-    _, (tsgd, tfl), reader = _both_trainers()
-    with pytest.raises(NotImplementedError, match="Queue A item"):
-        tsgd.train(reader, feed_list=tfl, **{arg: value})
+def test_train_refuses_what_is_not_ported(tmp_path, arg, value):
+    """``train(auto_shard={'dp': 2})``, refused until ROADMAP Queue A item
+    7a ported the multi-card path: the wide_deep trainer from the JAX
+    startup's weights in a world of 2 gloo ranks (tests/torch_spmd.py)
+    gives the JAX trainer's events and costs under the same mesh (on 2
+    simulated devices)."""
+    import torch_spmd
+    from paddle_tpu import parallel as jpar
+    (jsgd, jfl), _, reader = _both_trainers()
+    state = jax_state(pt.global_scope())
+    jsgd.exe = jpar.ShardedExecutor(mesh=jpar.make_mesh(
+        jpar.MeshConfig(dp=2), devices=jax.devices()[:2]))
+    jev, jcost = _train(jsgd, jfl, reader, **{arg: value})
+    ranks = torch_spmd.run_world(2, torch_spmd.input_pipeline_round,
+                                 tmp_path, state, _smoke_cfg())
+    for r in ranks:
+        assert r["exe"] == "ShardedExecutor" and r["plan"] == "dp"
+        assert r["events"] == jev and len(r["costs"]) == 12
+        np.testing.assert_allclose(r["costs"], [float(np.asarray(c))
+                                                for c in jcost], **COST_TOL)
 
 
 @pytest.mark.parametrize("kw", [{}, {"pipeline": True}],
